@@ -1,0 +1,99 @@
+"""Headless render CLI of the port (counterpart of rtxpt_tpu/apps/cli.py),
+reference mode only.
+
+Usage:
+    python -m rtxpt_tpu_torch.apps.cli --scene cornell --device cuda \
+        --width 512 --height 512 --spp 16 --bounces 6 --out cornell.png
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+
+def build_scene(name: str):
+    from rtxpt_tpu_torch.scene import procedural
+
+    if name == "cornell":
+        return procedural.cornell_box()
+    if name == "furnace":
+        return procedural.furnace_box()
+    if name == "triangle":
+        return procedural.single_triangle()
+    raise SystemExit(f"unknown scene {name!r} (cornell, furnace, triangle)")
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(prog="rtxpt_tpu_torch",
+                                description="PyTorch/CUDA path tracer")
+    p.add_argument("--scene", default="cornell",
+                   choices=["cornell", "furnace", "triangle"])
+    p.add_argument("--width", type=int, default=512)
+    p.add_argument("--height", type=int, default=512)
+    p.add_argument("--spp", type=int, default=16)
+    p.add_argument("--bounces", type=int, default=6)
+    p.add_argument("--nee", choices=["off", "uniform", "power"],
+                   default="power")
+    p.add_argument("--no-mis", action="store_true")
+    p.add_argument("--no-rr", action="store_true")
+    p.add_argument("--exposure", type=float, default=1.0)
+    p.add_argument("--tonemap", choices=["aces", "reinhard", "linear", "none"],
+                   default="aces")
+    p.add_argument("--out", default="out.png", help="PNG output path")
+    p.add_argument("--hdr", default=None, help="also dump linear HDR .npy")
+    p.add_argument("--seed", type=int, default=0, help="first sample index")
+    p.add_argument("--device", default="cuda",
+                   help="torch device: cuda (the CUDA kernel) or cpu (its "
+                        "plain PyTorch version)")
+    args = p.parse_args(argv)
+    if args.spp < 1:
+        p.error("--spp must be >= 1")
+    if args.width < 1 or args.height < 1:
+        p.error("--width/--height must be >= 1")
+    if args.bounces < 0:
+        p.error("--bounces must be >= 0")
+
+    import numpy as np
+
+    import rtxpt_tpu_torch
+    from rtxpt_tpu_torch.config import NEEMode, PathTracerConfig
+    from rtxpt_tpu_torch.prepare import prepare
+    from rtxpt_tpu_torch.pt.integrator import render
+    from rtxpt_tpu_torch.render.postprocess import tonemap
+    from rtxpt_tpu_torch.scene.procedural import default_camera
+    from rtxpt_tpu_torch.utils.image import save_png
+
+    dev = rtxpt_tpu_torch.device(args.device)
+    host = build_scene(args.scene)
+    t0 = time.time()
+    scene = prepare(host, device=dev)
+    print(f"[prepare] {scene.bounce_tables.n_tris} tris, "
+          f"{scene.lights.count} lights, {time.time() - t0:.2f}s",
+          file=sys.stderr)
+    cam = default_camera(host, args.width, args.height, device=dev)
+    cfg = PathTracerConfig(
+        max_bounces=args.bounces,
+        nee={"off": NEEMode.OFF, "uniform": NEEMode.UNIFORM,
+             "power": NEEMode.POWER}[args.nee],
+        enable_mis=not args.no_mis,
+        enable_russian_roulette=not args.no_rr)
+
+    t0 = time.time()
+    hdr, _, rays = render(scene, cam, cfg, args.width, args.height,
+                          spp=args.spp, first_sample=args.seed)
+    ldr = tonemap(hdr, args.exposure, args.tonemap).cpu().numpy()
+    dt = time.time() - t0
+    print(f"[render] {args.width}x{args.height}@{args.spp}spp on {dev} in "
+          f"{dt:.2f}s ({rays} rays, {rays / dt / 1e6:.2f} Mrays/s incl. "
+          f"kernel build)", file=sys.stderr)
+    save_png(args.out, ldr)
+    print(f"[out] {args.out}", file=sys.stderr)
+    if args.hdr:
+        np.save(args.hdr, hdr.cpu().numpy())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,78 @@
+// K1, the fused bounce kernel, written by hand for Hopper (sm_90a).
+//
+// Replaces rtxpt_tpu/pt/bounce_pallas.py::_bounce_kernel (launched there by
+// _bounce_call, pl.pallas_call at bounce_pallas.py:1714) in the reference-mode
+// Cornell configuration. Plain version: rtxpt_tpu_torch/pt/bounce_fused.py
+// bounce_reference; wrapper: bounce_fused.bounce.
+//
+// Design. One thread per ray over a 1-D grid; the wavefront state is SoA
+// ([rows, N] columns), so neighbouring threads read neighbouring addresses.
+// The TPU kernel's matmul-factored intersection and one-hot gathers become
+// per-thread loops and indexed loads: every thread walks all triangles'
+// 20-float coefficient rows (tri_coef), which all threads of a warp read at
+// the same address (one broadcast load per warp through the read-only
+// cache; Cornell's 36 triangles are 2.9 KB), and only the winner's attribute
+// column is read from global memory.
+//
+// What bounds it: instructions and latency, not bytes. Per ray and bounce it
+// reads 92 B of state (15 f32 + 8 i32 rows) and writes 116 B (the state and
+// 6 hit rows), but runs two loops over all triangles (closest hit and the shadow
+// ray, ~40 flops per triangle) and a serial shading chain (hashes, Sobol'
+// folds, BSDF eval/pdf/sample). This first version keeps it simple: no
+// shared-memory staging, no ray compaction (inactive lanes still run the
+// intersection loop, as on the TPU), and -fmad=false for parity with the
+// plain version.
+#include <cuda_runtime.h>
+
+#include "bounce_fused.cuh"
+
+namespace {
+
+constexpr int kThreads = 128;
+
+__global__ void __launch_bounds__(kThreads)
+bounce_fused_kernel(const float* __restrict__ fs, const int* __restrict__ is,
+                    float* __restrict__ fs_out, int* __restrict__ is_out,
+                    float* __restrict__ hit_out, rt::Tables tb, rt::Config cfg, int n) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  rt::bounce_ray(i, n, fs, is, fs_out, is_out, hit_out, tb, cfg);
+}
+
+}  // namespace
+
+extern "C" int rtxpt_bounce_fused(
+    const float* fs, const int* is, float* fs_out, int* is_out, float* hit_out,
+    const float* tri_coef, const float* attr_rows, const float* mat_rows,
+    const float* light_rows, int n, int n_tris, int tpad, int n_lights,
+    unsigned int sample_idx, int nee_mode, int enable_mis, float firefly,
+    int rr_enable, int min_rr, float max_travel, int low_discrepancy,
+    int energy_comp, int maxb, void* stream) {
+  rt::Tables tb;
+  tb.tri = tri_coef;
+  tb.attr = attr_rows;
+  tb.mat = mat_rows;
+  tb.light = light_rows;
+  tb.n_tris = n_tris;
+  tb.tpad = tpad;
+  tb.n_lights = n_lights;
+  rt::Config cfg;
+  cfg.sample_idx = sample_idx;
+  cfg.nee_mode = nee_mode;
+  cfg.enable_mis = enable_mis != 0;
+  cfg.firefly = firefly;
+  cfg.rr_enable = rr_enable != 0;
+  cfg.min_rr = min_rr;
+  cfg.max_travel = max_travel;
+  cfg.low_discrepancy = low_discrepancy != 0;
+  cfg.energy_comp = energy_comp != 0;
+  cfg.maxb = maxb;
+  int blocks = (n + kThreads - 1) / kThreads;
+  bounce_fused_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      fs, is, fs_out, is_out, hit_out, tb, cfg, n);
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* rtxpt_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

@@ -1,0 +1,389 @@
+// One bounce of one ray: closest hit, surface fetch, emissive MIS, NEE with
+// its shadow ray, BSDF scatter and Russian roulette. The per-thread body of
+// the fused bounce kernel (bounce_fused.cu); the plain version of the same
+// function is rtxpt_tpu_torch/pt/bounce_fused.py::bounce_reference, and the
+// TPU original is rtxpt_tpu/pt/bounce_pallas.py::_bounce_kernel with
+// surface_and_shade in the reference-mode Cornell configuration (no env, no
+// textures, no OMM, no priorities, no split channels, no injection, in-kernel
+// NEE).
+#pragma once
+
+#include "rng.cuh"
+#include "wide.cuh"
+
+#ifdef __CUDACC__
+#define RT_LDG(p) __ldg(p)
+#else
+#define RT_LDG(p) (*(p))
+#endif
+
+namespace rt {
+
+// Row maps (rtxpt_tpu_torch/pt/bounce_fused.py)
+enum { FS_O = 0, FS_D = 3, FS_THP = 6, FS_L = 9, FS_PREVPDF = 12, FS_CONE = 13,
+       FS_SPREAD = 14, NF = 15 };
+enum { IS_ACTIVE = 0, IS_PREVDELTA = 1, IS_MED0 = 2, IS_MED1 = 3, IS_PX = 4,
+       IS_PY = 5, IS_BUDGET = 6, IS_LBOUNCE = 7, NI = 8 };
+enum { AT_N0 = 0, AT_N1 = 3, AT_N2 = 6, AT_GN = 9, AT_MID = 12, AT_LPDF = 13,
+       AT_LAREA = 14, AT_ISLIGHT = 15, AT_ROWS = 28 };
+enum { MT_BASE = 0, MT_METAL = 3, MT_ROUGH = 4, MT_IOR = 5, MT_TRANS = 6,
+       MT_DTRANS = 7, MT_EMISSIVE = 8, MT_SPEC = 11, MT_THIN = 12,
+       MT_VOLABS = 13, MT_EPOLY = 16, MT_EAVG = 22 };
+enum { LROW_KIND = 0, LROW_P0 = 1, LROW_P1 = 4, LROW_P2 = 7, LROW_EM = 10,
+       LROW_EXTRA = 13, LROW_NORMAL = 17, LROW_POWER = 20, LROW_CDF = 21 };
+enum { TC_DET = 0, TC_U = 3, TC_V = 9, TC_T = 15, TC_ROWS = 20 };
+enum { EFFECT_SCATTER = 29, EFFECT_NEE = 31, EFFECT_RR = 37 };
+constexpr float kBig = (float)1e30;
+constexpr int kLanes = 128;        // lane tables: [rows, 128]
+
+struct Tables {
+  const float* tri;     // [tpad, TC_ROWS]
+  const float* attr;    // [AT_ROWS, tpad]
+  const float* mat;     // [MT_ROWS, 128]
+  const float* light;   // [LROWS, 128]
+  int n_tris, tpad, n_lights;
+};
+
+struct Config {
+  uint32_t sample_idx;
+  int nee_mode;         // 0 off | 1 uniform | 2 power
+  bool enable_mis;
+  float firefly;
+  bool rr_enable;
+  int min_rr;
+  float max_travel;
+  bool low_discrepancy;
+  bool energy_comp;
+  int maxb;
+};
+
+struct Hit {
+  float t, u, v, det;
+  int prim;
+};
+
+// Triangle j against the ray [d | o x d | o | 1], summed in the plain
+// version's order (bounce_fused._tri_params).
+RT_HD bool tri_test(const float* c, V3 o, V3 d, V3 x, float& u, float& v, float& t,
+                    float& det) {
+  det = RT_LDG(c + TC_DET) * d.x + RT_LDG(c + TC_DET + 1) * d.y +
+        RT_LDG(c + TC_DET + 2) * d.z;
+  float un = RT_LDG(c + TC_U) * d.x + RT_LDG(c + TC_U + 1) * d.y +
+             RT_LDG(c + TC_U + 2) * d.z + RT_LDG(c + TC_U + 3) * x.x +
+             RT_LDG(c + TC_U + 4) * x.y + RT_LDG(c + TC_U + 5) * x.z;
+  float vn = RT_LDG(c + TC_V) * d.x + RT_LDG(c + TC_V + 1) * d.y +
+             RT_LDG(c + TC_V + 2) * d.z + RT_LDG(c + TC_V + 3) * x.x +
+             RT_LDG(c + TC_V + 4) * x.y + RT_LDG(c + TC_V + 5) * x.z;
+  float tn = RT_LDG(c + TC_T) * o.x + RT_LDG(c + TC_T + 1) * o.y +
+             RT_LDG(c + TC_T + 2) * o.z + RT_LDG(c + TC_T + 3);
+  bool ok = fabsf(det) > (float)1e-12;
+  float inv = ok ? 1.0f / det : 0.0f;
+  u = un * inv;
+  v = vn * inv;
+  t = tn * inv;
+  return ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > 0.0f;
+}
+
+// Closest hit over every triangle; strict `<` keeps the lowest index on ties
+// (bounce_pallas._intersect_group).
+RT_HD Hit intersect(const Tables& tb, V3 o, V3 d, float tmax) {
+  Hit h;
+  h.t = kBig; h.u = 0.0f; h.v = 0.0f; h.det = 0.0f; h.prim = -1;
+  V3 x = cross3(o, d);
+  for (int j = 0; j < tb.n_tris; ++j) {
+    float u, v, t, det;
+    bool ok = tri_test(tb.tri + j * TC_ROWS, o, d, x, u, v, t, det);
+    if (ok && t < tmax && t < h.t) {
+      h.t = t; h.u = u; h.v = v; h.det = det; h.prim = j;
+    }
+  }
+  return h;
+}
+
+// Any hit in (0, tmax) (bounce_pallas._occluded_group).
+RT_HD bool occluded(const Tables& tb, V3 o, V3 d, float tmax) {
+  V3 x = cross3(o, d);
+  for (int j = 0; j < tb.n_tris; ++j) {
+    float u, v, t, det;
+    if (tri_test(tb.tri + j * TC_ROWS, o, d, x, u, v, t, det) && t < tmax) return true;
+  }
+  return false;
+}
+
+RT_HD V3 ray_offset(V3 pos, V3 gn, V3 dir) {
+  float mag = sqrtf(max_(dot3(pos, pos), 0.0f));
+  float scale = max_(mag, 1.0f) * (float)3e-5;
+  float side = dot3(dir, gn) >= 0.0f ? 1.0f : -1.0f;
+  return pos + gn * (side * scale);
+}
+
+RT_HD float lane(const float* table, int row, int col) {
+  return RT_LDG(table + row * kLanes + col);
+}
+RT_HD V3 lane3(const float* table, int row, int col) {
+  return v3(lane(table, row, col), lane(table, row + 1, col), lane(table, row + 2, col));
+}
+
+// First index with cdf[i] >= u over the 128-lane CDF (pads are 1.0).
+RT_HD int searchsorted128(const float* cdf, float u) {
+  int lo = 0;
+  for (int bit = 64; bit >= 1; bit >>= 1) {
+    int probe = lo + bit - 1;
+    probe = probe < 0 ? 0 : (probe > 127 ? 127 : probe);
+    lo += RT_LDG(cdf + probe) < u ? bit : 0;
+  }
+  return lo < 0 ? 0 : (lo > 127 ? 127 : lo);
+}
+
+RT_HD int clampi(int x, int lo, int hi) { return x < lo ? lo : (x > hi ? hi : x); }
+
+// Per-ray wavefront state (the FS_* / IS_* rows of one column).
+struct RayState {
+  V3 o, d, thp, L;
+  float prev_pdf, cone, spread;
+  bool active, prev_delta;
+  int med0, med1, px, py, budget, lb;
+};
+
+// What surface_and_shade leaves for its caller: the pending NEE shadow ray.
+struct ShadowRay {
+  bool do_nee;
+  V3 o, d, contrib;
+  float dist;
+};
+
+RT_HD RayState load_state(int i, int n, const float* __restrict__ fs,
+                          const int* __restrict__ is) {
+  auto F = [&](int r) { return fs[r * n + i]; };
+  auto I = [&](int r) { return is[r * n + i]; };
+  RayState s;
+  s.o = v3(F(FS_O), F(FS_O + 1), F(FS_O + 2));
+  s.d = v3(F(FS_D), F(FS_D + 1), F(FS_D + 2));
+  s.thp = v3(F(FS_THP), F(FS_THP + 1), F(FS_THP + 2));
+  s.L = v3(F(FS_L), F(FS_L + 1), F(FS_L + 2));
+  s.prev_pdf = F(FS_PREVPDF);
+  s.cone = F(FS_CONE);
+  s.spread = F(FS_SPREAD);
+  s.active = I(IS_ACTIVE) > 0;
+  s.prev_delta = I(IS_PREVDELTA) > 0;
+  s.med0 = I(IS_MED0);
+  s.med1 = I(IS_MED1);
+  s.px = I(IS_PX);
+  s.py = I(IS_PY);
+  s.budget = I(IS_BUDGET);
+  s.lb = I(IS_LBOUNCE);
+  return s;
+}
+
+RT_HD void store_state(int i, int n, const RayState& s, float* __restrict__ fs_out,
+                       int* __restrict__ is_out) {
+  float* fo = fs_out + i;
+  fo[(FS_O + 0) * n] = s.o.x; fo[(FS_O + 1) * n] = s.o.y; fo[(FS_O + 2) * n] = s.o.z;
+  fo[(FS_D + 0) * n] = s.d.x; fo[(FS_D + 1) * n] = s.d.y; fo[(FS_D + 2) * n] = s.d.z;
+  fo[(FS_THP + 0) * n] = s.thp.x; fo[(FS_THP + 1) * n] = s.thp.y; fo[(FS_THP + 2) * n] = s.thp.z;
+  fo[(FS_L + 0) * n] = s.L.x; fo[(FS_L + 1) * n] = s.L.y; fo[(FS_L + 2) * n] = s.L.z;
+  fo[FS_PREVPDF * n] = s.prev_pdf;
+  fo[FS_CONE * n] = s.cone;
+  fo[FS_SPREAD * n] = s.spread;
+  int* io = is_out + i;
+  io[IS_ACTIVE * n] = s.active ? 1 : 0;
+  io[IS_PREVDELTA * n] = s.prev_delta ? 1 : 0;
+  io[IS_MED0 * n] = s.med0;
+  io[IS_MED1 * n] = s.med1;
+  io[IS_PX * n] = s.px;
+  io[IS_PY * n] = s.py;
+  io[IS_BUDGET * n] = s.budget;
+  io[IS_LBOUNCE * n] = s.lb;
+}
+
+// Post-intersection bounce body (bounce_pallas.surface_and_shade; plain
+// version bounce_fused.surface_and_shade): surface fetch, volume absorption,
+// emissive-hit MIS, one NEE light sample + BSDF eval, BSDF scatter, medium
+// stack, Russian roulette. Advances `s` to the next bounce and returns the
+// shadow ray; the caller resolves its occlusion and adds `contrib`.
+RT_HD ShadowRay surface_and_shade(RayState& s, const Hit& h, const Tables& tb,
+                                  const Config& cfg) {
+  const bool use_nee = (cfg.nee_mode == 1 || cfg.nee_mode == 2) && tb.n_lights > 0;
+  const bool nee_uniform = cfg.nee_mode == 1;
+  const V3 d = s.d;
+  const float t = h.t;
+  const bool hit = t < kBig;
+  const bool front = h.det > 0.0f;
+  const float bu = h.u, bv = h.v;
+  const int tp = tb.tpad;
+  auto A = [&](int r) { return h.prim >= 0 ? RT_LDG(tb.attr + r * tp + h.prim) : 0.0f; };
+  auto A3 = [&](int r) { return v3(A(r), A(r + 1), A(r + 2)); };
+  const int lb = s.lb;
+
+  uint32_t seed_base = hash_combine(hash_combine((uint32_t)s.px, (uint32_t)s.py), (uint32_t)lb);
+  bool hit_mask = s.active && hit;
+  bool active = s.active && hit;                 // miss terminates
+  bool not_expired = (lb < s.budget) && (lb < cfg.maxb);
+  active = active && not_expired;
+  hit_mask = hit_mask && not_expired;
+
+  V3 pos = s.o + t * d;
+  V3 gn = A3(AT_GN);
+  gn = front ? gn : -gn;
+  V3 n0 = A3(AT_N0), n1 = A3(AT_N1), n2 = A3(AT_N2);
+  float bw = 1.0f - bu - bv;
+  V3 sh_n = normalize3(bw * n0 + bu * n1 + bv * n2);
+  sh_n = dot3(sh_n, gn) > 0.0f ? sh_n : -sh_n;
+  int mid = clampi((int)A(AT_MID), 0, 127);
+
+  const float* mt = tb.mat;
+  V3 base_color = lane3(mt, MT_BASE, mid);
+  float metallic = lane(mt, MT_METAL, mid);
+  float roughness = lane(mt, MT_ROUGH, mid);
+  float transmission = lane(mt, MT_TRANS, mid);
+  float dtrans = lane(mt, MT_DTRANS, mid);
+  V3 emissive = lane3(mt, MT_EMISSIVE, mid);
+  float spec_scale = lane(mt, MT_SPEC, mid);
+  bool thin = lane(mt, MT_THIN, mid) > 0.5f;
+  float ior = lane(mt, MT_IOR, mid);
+
+  s.cone = s.cone + s.spread * (hit ? t : 0.0f);
+  bool hit_shade = hit_mask;
+
+  V3 thp = s.thp;
+  float cur_ior = s.med0 >= 0 ? lane(mt, MT_IOR, clampi(s.med0, 0, 127)) : 1.0f;
+  float below_ior = s.med1 >= 0 ? lane(mt, MT_IOR, clampi(s.med1, 0, 127)) : 1.0f;
+  if (s.med0 >= 0) {
+    V3 sigma = lane3(mt, MT_VOLABS, clampi(s.med0, 0, 127));
+    thp = thp * v3(expf(-sigma.x * t), expf(-sigma.y * t), expf(-sigma.z * t));
+  }
+
+  // make_bsdf_w
+  BSDF b;
+  V3 f0_dielec = splat(0.08f * spec_scale);
+  b.f0 = f0_dielec * (1.0f - metallic) + base_color * metallic;
+  b.diffuse = base_color * (1.0f - metallic);
+  float mat_ior = max_(ior, (float)(1.0 + 1e-4));
+  b.eta = front ? cur_ior / mat_ior : cur_ior / max_(below_ior, 1.0f);
+  b.alpha = clamp_(roughness * roughness, 0.0f, 1.0f);
+  b.transmission = transmission * (1.0f - metallic);
+  b.dtrans = dtrans * (1.0f - metallic);
+  b.ms = cfg.energy_comp;
+  for (int k = 0; k < 6; ++k) b.ep[k] = cfg.energy_comp ? lane(mt, MT_EPOLY + k, mid) : 0.0f;
+  b.e_avg = cfg.energy_comp ? lane(mt, MT_EAVG, mid) : 0.0f;
+  emissive = front ? emissive : splat(0.0f);
+
+  // ----- emissive hit + MIS (baked per-triangle light pdf / area) -----
+  float cos_l = fabsf(dot3(-d, gn));
+  float area = max_(A(AT_LAREA), (float)1e-12);
+  float p_geo = t * t / max_(area * max_(cos_l, (float)1e-9), (float)1e-12);
+  float w_em = 1.0f;
+  if (use_nee && cfg.enable_mis) {
+    float sel_pdf_hit = nee_uniform ? A(AT_ISLIGHT) * (1.0f / (float)tb.n_lights)
+                                    : A(AT_LPDF);
+    float p_light = A(AT_ISLIGHT) > 0.5f ? sel_pdf_hit * p_geo : 0.0f;
+    w_em = (s.prev_delta || lb == 0) ? 1.0f : power_heuristic(s.prev_pdf, p_light);
+  }
+  if (hit_shade) s.L = s.L + thp * emissive * w_em;
+
+  V3 wo = to_local3(-d, sh_n);
+
+  // ----- NEE (one candidate) -----
+  ShadowRay sr;
+  sr.do_nee = false;
+  sr.o = pos;
+  sr.d = d;
+  sr.dist = 0.0f;
+  sr.contrib = splat(0.0f);
+  if (use_nee) {
+    Sampler sn(hash_combine(seed_base, EFFECT_NEE), cfg.sample_idx, cfg.low_discrepancy);
+    float u_sel = clamp_(sn.dim(0), 0.0f, (float)(1.0 - 1e-7));
+    float u1 = sn.dim(2), u2 = sn.dim(3);
+    int li;
+    float sel_pdf;
+    if (nee_uniform) {
+      li = clampi((int)(u_sel * (float)tb.n_lights), 0, tb.n_lights - 1);
+      sel_pdf = (float)(1.0 / (double)tb.n_lights);
+    } else {
+      li = clampi(searchsorted128(tb.light + LROW_CDF * kLanes, u_sel), 0, tb.n_lights - 1);
+      sel_pdf = lane(tb.light, LROW_POWER, li);
+    }
+    LightFields lf;
+    lf.kind = (int)lane(tb.light, LROW_KIND, li);
+    lf.p0 = lane3(tb.light, LROW_P0, li);
+    lf.p1 = lane3(tb.light, LROW_P1, li);
+    lf.p2 = lane3(tb.light, LROW_P2, li);
+    lf.em = lane3(tb.light, LROW_EM, li);
+    lf.extra0 = lane(tb.light, LROW_EXTRA, li);
+    lf.extra1 = lane(tb.light, LROW_EXTRA + 1, li);
+    lf.normal = lane3(tb.light, LROW_NORMAL, li);
+    LightSample ls = sample_light(lf, sel_pdf, pos, u1, u2);
+    V3 wi_l = to_local3(ls.wi, sh_n);
+    V3 f_l = bsdf_eval(b, wo, wi_l);
+    float pdf_b = bsdf_pdf(b, wo, wi_l);
+    sr.do_nee = hit_shade && ls.valid && (luminance3(f_l) > 0.0f);
+    sr.o = ray_offset(pos, gn, ls.wi);
+    float w_nee = 1.0f;
+    if (cfg.enable_mis) w_nee = ls.is_delta ? 1.0f : power_heuristic(ls.pdf, pdf_b);
+    sr.contrib = thp * f_l * ls.Li * (w_nee / max_(ls.pdf, (float)1e-12));
+    if (cfg.firefly > 0.0f) {
+      float lum = luminance3(sr.contrib);
+      sr.contrib = sr.contrib * min_(cfg.firefly / max_(lum, (float)1e-12), 1.0f);
+    }
+    float dist_eff = ls.dist - dot3(sr.o - pos, ls.wi);
+    sr.dist = sr.do_nee ? dist_eff * (float)(1.0 - 1e-4) : 0.0f;
+    sr.d = ls.wi;
+  }
+
+  // ----- scatter -----
+  Sampler ss(hash_combine(seed_base, EFFECT_SCATTER), cfg.sample_idx, cfg.low_discrepancy);
+  float u_lobe = ss.dim(0), su1 = ss.dim(2), su2 = ss.dim(3);
+  BSDFSample bs = bsdf_sample(b, wo, u_lobe, su1, su2);
+  V3 wi_world = to_world3(bs.wi, sh_n);
+  bool leak = (bs.wi.z > 0.0f) != (dot3(wi_world, gn) > 0.0f);
+  active = active && (bs.valid && !leak && (luminance3(bs.weight) > 0.0f));
+  thp = thp * bs.weight;
+
+  bool transmitted = bs.wi.z < 0.0f;
+  bool entering = transmitted && front && !thin;
+  bool exiting = transmitted && !front && !thin;
+  int new_med0 = entering ? mid : (exiting ? s.med1 : s.med0);
+  int new_med1 = entering ? s.med0 : (exiting ? -1 : s.med1);
+
+  if (cfg.rr_enable) {
+    Sampler srr(hash_combine(seed_base, EFFECT_RR), cfg.sample_idx, cfg.low_discrepancy);
+    float u_rr = srr.dim(0);
+    float p_cont = clamp_(maximum_(maximum_(thp.x, thp.y), thp.z), 0.05f, 1.0f);
+    bool rr_on = lb >= cfg.min_rr;
+    active = active && !(rr_on && (u_rr >= p_cont));
+    if (rr_on) thp = thp / p_cont;
+  }
+
+  s.o = ray_offset(pos, gn, wi_world);
+  s.d = wi_world;
+  s.thp = thp;
+  s.prev_pdf = bs.pdf;
+  s.prev_delta = bs.is_delta;
+  s.med0 = new_med0;
+  s.med1 = new_med1;
+  s.active = active;
+  s.spread = s.spread + sqrtf(b.alpha) * 0.25f * (1.0f - (bs.is_delta ? 1.0f : 0.0f));
+  s.lb = lb + (hit_shade ? 1 : 0);
+  return sr;
+}
+
+// One bounce of ray i: closest hit, surface_and_shade, the shadow ray, and the
+// state and hit rows written back ([rows, n] SoA columns).
+RT_HD void bounce_ray(int i, int n, const float* __restrict__ fs, const int* __restrict__ is,
+                      float* __restrict__ fs_out, int* __restrict__ is_out,
+                      float* __restrict__ hit_out, const Tables& tb, const Config& cfg) {
+  RayState s = load_state(i, n, fs, is);
+  Hit h = intersect(tb, s.o, s.d, cfg.max_travel);
+  ShadowRay sr = surface_and_shade(s, h, tb, cfg);
+  if (sr.do_nee && !occluded(tb, sr.o, sr.d, sr.dist)) s.L = s.L + sr.contrib;
+  store_state(i, n, s, fs_out, is_out);
+  float* ho = hit_out + i;
+  ho[0] = h.t < kBig ? h.t : 0.0f;
+  ho[n] = (float)h.prim;
+  ho[2 * n] = h.u;
+  ho[3 * n] = h.v;
+  ho[4 * n] = h.det > 0.0f ? 1.0f : 0.0f;
+  ho[5 * n] = sr.do_nee ? 1.0f : 0.0f;
+}
+
+}  // namespace rt

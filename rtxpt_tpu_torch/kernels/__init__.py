@@ -1,0 +1,133 @@
+"""Build-and-bind layer for the hand-written CUDA kernels.
+
+Each kernel library is compiled from `rtxpt_tpu_torch/csrc/` with nvcc
+into a shared library with a plain C interface, at first use, under
+`build/rtxpt_tpu_torch/` of the checkout, and bound with ctypes. Nothing
+here runs at import: the module imports on a machine without nvcc or a
+GPU, and only `CudaLibrary.load()` needs them.
+
+Build flags: sm_90a (Hopper), -O3, no --use_fast_math, and -fmad=false so
+that the kernels round every multiply and add the way the plain PyTorch
+versions do (the parity switch; see PERF.md for its cost).
+
+`launches` counts kernel launches by name; each wrapper adds one where it
+launches its kernel, so a run can show which kernels its path went
+through.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "rtxpt_tpu_torch"
+
+DEFAULT_CUDA_HOME = "/usr/local/cuda"   # the CUDA toolkit's install prefix
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
+              "-Xptxas", "-v"]
+
+launches: collections.Counter = collections.Counter()
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_U = ctypes.c_uint
+_F = ctypes.c_float
+
+
+def find_nvcc() -> str:
+    """nvcc from PATH or the CUDA toolkit; raises when there is none."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
+                 DEFAULT_CUDA_HOME):
+        if root and (Path(root) / "bin" / "nvcc").exists():
+            return str(Path(root) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+class CudaLibrary:
+    """One shared library built from csrc/ sources and bound with ctypes.
+
+    `functions` maps each C entry point to its ctypes argtypes; every
+    entry returns a cudaError_t as int (0 = success)."""
+
+    def __init__(self, name: str, sources, functions: dict):
+        self.name = name
+        self.sources = list(sources)
+        self.functions = functions
+        self._lib = None
+        self.build_seconds = None
+        self.ptxas_log = ""
+
+    def _digest(self) -> str:
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for path in sorted(CSRC.glob("*.cu*")):
+            h.update(path.name.encode())
+            h.update(path.read_bytes())
+        return h.hexdigest()[:16]
+
+    def load(self) -> ctypes.CDLL:
+        """Build (unless an up-to-date build exists) and bind the library."""
+        if self._lib is not None:
+            return self._lib
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        stem = f"lib{self.name}_{self._digest()}"
+        so = BUILD_DIR / f"{stem}.so"
+        log = BUILD_DIR / f"{stem}.ptxas.txt"
+        t0 = time.perf_counter()
+        if not so.exists():
+            tmp = BUILD_DIR / f"{stem}.{os.getpid()}.tmp.so"
+            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                   *[str(CSRC / s) for s in self.sources]]
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            if res.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {self.name}:\n"
+                                   f"{res.stdout}\n{res.stderr}")
+            log.write_text(res.stdout + res.stderr)
+            os.replace(tmp, so)
+        self.build_seconds = time.perf_counter() - t0
+        self.ptxas_log = log.read_text() if log.exists() else ""
+        lib = ctypes.CDLL(str(so))
+        for fname, argtypes in self.functions.items():
+            fn = getattr(lib, fname)
+            fn.argtypes = argtypes
+            fn.restype = _I
+        err = lib.rtxpt_error_string
+        err.argtypes = [_I]
+        err.restype = ctypes.c_char_p
+        self._lib = lib
+        return lib
+
+    def launch(self, fname: str, *args) -> None:
+        """Call one entry point; raise if it reports a CUDA error."""
+        lib = self.load()
+        rc = getattr(lib, fname)(*args)
+        if rc != 0:
+            msg = lib.rtxpt_error_string(rc).decode()
+            raise RuntimeError(f"{fname}: CUDA error {rc} ({msg})")
+
+
+# K1: the fused bounce kernel (replaces rtxpt_tpu/pt/bounce_pallas.py
+# _bounce_kernel); wrapper in pt/bounce_fused.py.
+BOUNCE_FUSED = CudaLibrary(
+    "bounce_fused", ["bounce_fused.cu"],
+    {"rtxpt_bounce_fused": [
+        _P, _P, _P, _P, _P,            # fs, is_, fs_out, is_out, hit_out
+        _P, _P, _P, _P,                # tri_coef, attr, mat, light rows
+        _I, _I, _I, _I,                # n, n_tris, tpad, n_lights
+        _U,                            # sample_idx
+        _I, _I, _F, _I, _I, _F,        # nee_mode, mis, firefly, rr, min_rr,
+        #                                max_travel
+        _I, _I, _I,                    # low_discrepancy, energy_comp, maxb
+        _P]})                          # cudaStream_t

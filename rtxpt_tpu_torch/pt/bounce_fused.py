@@ -1,0 +1,805 @@
+"""Fused per-bounce step: intersect + shade + NEE + scatter, one launch per
+bounce (counterpart of rtxpt_tpu/pt/bounce_pallas.py).
+
+The JAX package runs this step as the Pallas TPU kernel `_bounce_kernel`
+(bounce_pallas.py:1389, launched by `_bounce_call`). Here it is
+`csrc/bounce_fused.cu`, written by hand for Hopper (sm_90a), with
+`bounce_reference` below as its plain PyTorch version. `bounce` is the
+wrapper: the CUDA kernel for CUDA tensors, the plain version for CPU
+tensors, and an exception for anything else.
+
+What is ported is the reference-mode Cornell configuration of the
+kernel: scenes of at most 2048 triangles and 128 lights, NEE off /
+uniform / power with one candidate, no environment light, no textures,
+no opacity micromaps, no nested priorities, no split channels, no V-buffer
+injection and no external NEE. `build_bounce_tables` raises
+NotImplementedError for the rest.
+
+Layouts are the JAX package's, minus the TPU tiling: the wavefront state
+is fs [NF, N] f32 and is_ [NI, N] i32 (one column per ray; rows FS_* and
+IS_*), and the scene tables keep the AT_* / MT_* / LROW_* rows, so tables
+and state compare entry by entry.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from rtxpt_tpu_torch import kernels
+from rtxpt_tpu_torch.pt import wide as W
+from rtxpt_tpu_torch.utils import rng
+
+# Geometry / table capacities
+MAX_TRIS = 2048
+MAX_LIGHTS = 128
+MAX_MATERIALS = 128
+_BIG = 1e30
+
+# fs (f32 state) rows
+FS_O = 0                # 0:3 ray origin
+FS_D = 3                # 3:6 ray direction
+FS_THP = 6              # 6:9 throughput
+FS_L = 9                # 9:12 accumulated radiance
+FS_PREVPDF = 12
+FS_CONE = 13            # ray-cone width accumulated so far
+FS_SPREAD = 14          # ray-cone spread angle
+NF = 15
+
+# is_ (i32 state) rows
+IS_ACTIVE = 0
+IS_PREVDELTA = 1
+IS_MED0 = 2
+IS_MED1 = 3
+IS_PX = 4
+IS_PY = 5
+IS_BUDGET = 6           # per-lane remaining-bounce budget
+IS_LBOUNCE = 7          # per-lane logical bounce index
+NI = 8
+
+# hit_out rows: t (0 on a miss), prim (-1 on a miss), u, v, front, do_nee
+NH = 6
+
+_NO_BUDGET = 0x3FFFFFFF
+
+# attr table rows (one column per triangle)
+AT_N0 = 0
+AT_N1 = 3
+AT_N2 = 6
+AT_GN = 9
+AT_MID = 12
+AT_LPDF = 13
+AT_LAREA = 14
+AT_ISLIGHT = 15
+AT_UV0 = 16
+AT_UV1 = 18
+AT_UV2 = 20
+AT_LODB = 22
+AT_LID = 23
+AT_TANG = 24
+AT_TSGN = 27
+AT_ROWS = 28
+
+# material table rows (one column per material)
+MT_BASE = 0
+MT_METAL = 3
+MT_ROUGH = 4
+MT_IOR = 5
+MT_TRANS = 6
+MT_DTRANS = 7
+MT_EMISSIVE = 8
+MT_SPEC = 11
+MT_THIN = 12
+MT_VOLABS = 13
+MT_EPOLY = 16           # 16:22 Kulla-Conty E(mu) polynomial
+MT_EAVG = 22
+MT_BTEX = 23
+MT_MRTEX = 24
+MT_ETEX = 25
+MT_NTEX = 26
+MT_ACUT = 27
+MT_PRIO = 28
+MT_ROWS = 29
+
+# Compact per-triangle intersection coefficients (tri_coef [Tpad, TC_ROWS]),
+# the tri_rows coefficients regrouped per triangle for the CUDA kernel:
+# det = TC_DET.d; u = TC_U.[d, oxd]; v = TC_V.[d, oxd]; t = TC_T.[o, 1]
+TC_DET = 0              # 0:3
+TC_U = 3                # 3:9
+TC_V = 9                # 9:15
+TC_T = 15               # 15:19
+TC_ROWS = 20            # one pad column (80-byte rows)
+
+# Effect seeds (same as rtxpt_tpu/pt/integrator.py)
+EFFECT_SCATTER = 29
+EFFECT_NEE = 31
+EFFECT_RR = 37
+
+
+@dataclass(frozen=True)
+class BounceTables:
+    """Scene tables of the fused bounce step (built at scene prep)."""
+
+    tri_rows: torch.Tensor    # [4*Tpad, 128] the JAX package's operand rows
+    attr_rows: torch.Tensor   # [AT_ROWS, Tpad]
+    mat_rows: torch.Tensor    # [MT_ROWS, 128]
+    light_rows: torch.Tensor  # [W.LROWS, 128]
+    tri_coef: torch.Tensor    # [Tpad, TC_ROWS] what the kernel reads
+    tc: int = 128
+    n_chunks: int = 1
+    n_lights: int = 0
+    n_tris: int = 0
+
+    @property
+    def device(self):
+        return self.attr_rows.device
+
+
+@dataclass(frozen=True)
+class KernelConfig:
+    """The bounce step's static switches (bounce_pallas._cfg_key, plus the
+    logical-bounce limit)."""
+
+    nee_mode: int = 2          # 0 off | 1 uniform | 2 power
+    enable_mis: bool = True
+    firefly: float = 0.0
+    rr_enable: bool = True
+    min_rr: int = 2
+    max_travel: float = 1.0e27
+    low_discrepancy: bool = True
+    energy_comp: bool = True
+    maxb: int = 6
+
+    @staticmethod
+    def from_cfg(cfg) -> "KernelConfig":
+        return KernelConfig(
+            nee_mode=int(cfg.nee.value), enable_mis=bool(cfg.enable_mis),
+            firefly=float(cfg.firefly_clamp),
+            rr_enable=bool(cfg.enable_russian_roulette),
+            min_rr=int(cfg.min_bounces_before_rr),
+            max_travel=float(cfg.max_ray_travel),
+            low_discrepancy=bool(cfg.low_discrepancy),
+            energy_comp=bool(cfg.kernel_energy_comp),
+            maxb=int(cfg.max_bounces))
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def pack_materials(materials) -> np.ndarray:
+    """[MT_ROWS, 128] lane table: one column per material."""
+    base = _np(materials.base_color)
+    n = len(base)
+    mat = np.zeros((MT_ROWS, 128), np.float32)
+    mat[MT_BASE:MT_BASE + 3, :n] = base.T
+    mat[MT_METAL, :n] = _np(materials.metallic)
+    mat[MT_ROUGH, :n] = _np(materials.roughness)
+    mat[MT_IOR, :n] = _np(materials.ior)
+    mat[MT_TRANS, :n] = _np(materials.transmission)
+    mat[MT_DTRANS, :n] = _np(materials.diffuse_transmission)
+    mat[MT_EMISSIVE:MT_EMISSIVE + 3, :n] = _np(materials.emissive).T
+    mat[MT_SPEC, :n] = _np(materials.specular_f0_scale)
+    mat[MT_THIN, :n] = _np(materials.thin)
+    mat[MT_VOLABS:MT_VOLABS + 3, :n] = _np(materials.volume_absorption).T
+    from rtxpt_tpu_torch.pt.bsdf import bake_e_poly_np
+    r = _np(materials.roughness).astype(np.float64)
+    e_poly, e_avg = bake_e_poly_np(np.clip(r * r, 0.0, 1.0))
+    mat[MT_EPOLY:MT_EPOLY + 6, :n] = e_poly
+    mat[MT_EAVG, :n] = e_avg
+    mat[MT_BTEX:MT_ACUT + 1, :] = -1.0
+    mat[MT_ACUT, :n] = _np(materials.alpha_cutoff)
+    mat[MT_PRIO, :n] = _np(materials.nested_priority)
+    for row, arr in ((MT_BTEX, materials.base_color_tex),
+                     (MT_MRTEX, materials.metal_rough_tex),
+                     (MT_ETEX, materials.emissive_tex),
+                     (MT_NTEX, materials.normal_tex)):
+        mat[row, :n] = _np(arr)
+    return mat
+
+
+def pack_lights(lights) -> np.ndarray:
+    """[W.LROWS, 128] lane table: one column per light (first 128)."""
+    n = min(int(lights.num), MAX_LIGHTS)
+    lt = np.zeros((W.LROWS, 128), np.float32)
+    lt[W.LROW_CDF, :] = 1.0
+    lt[W.LROW_KIND, :n] = _np(lights.kind)[:n]
+    for row, field in ((W.LROW_P0, lights.p0), (W.LROW_P1, lights.p1),
+                       (W.LROW_P2, lights.p2), (W.LROW_EM, lights.emission),
+                       (W.LROW_NORMAL, lights.normal)):
+        lt[row:row + 3, :n] = _np(field)[:n].T
+    lt[W.LROW_EXTRA:W.LROW_EXTRA + 4, :n] = _np(lights.extra)[:n].T
+    lt[W.LROW_POWER, :n] = _np(lights.power)[:n]
+    lt[W.LROW_CDF, :n] = _np(lights.cdf)[:n]
+    return lt
+
+
+def compact_coefficients(tri_rows: np.ndarray, tc: int,
+                         n_chunks: int) -> np.ndarray:
+    """tri_rows [4*Tpad, 128] -> tri_coef [Tpad, TC_ROWS]: the same
+    coefficients, one contiguous row per triangle."""
+    tri_rows = np.asarray(tri_rows, np.float32)
+    coef = np.zeros((tc * n_chunks, TC_ROWS), np.float32)
+    for c in range(n_chunks):
+        g = tri_rows[4 * c * tc:4 * (c + 1) * tc].reshape(4, tc, 128)
+        rows = slice(c * tc, (c + 1) * tc)
+        coef[rows, TC_DET:TC_DET + 3] = g[0, :, 0:3]
+        coef[rows, TC_U:TC_U + 6] = g[1, :, 0:6]
+        coef[rows, TC_V:TC_V + 6] = g[2, :, 0:6]
+        coef[rows, TC_T:TC_T + 4] = g[3, :, 6:10]
+    return coef
+
+
+def tables_from_numpy(tri_rows, attr_rows, mat_rows, light_rows, tc,
+                      n_chunks, n_lights, n_tris, device="cpu") -> BounceTables:
+    """BounceTables on `device` from the JAX layout's numpy arrays."""
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32), device=device)
+
+    return BounceTables(
+        tri_rows=t(tri_rows), attr_rows=t(attr_rows), mat_rows=t(mat_rows),
+        light_rows=t(light_rows),
+        tri_coef=t(compact_coefficients(tri_rows, int(tc), int(n_chunks))),
+        tc=int(tc), n_chunks=int(n_chunks), n_lights=int(n_lights),
+        n_tris=int(n_tris))
+
+
+def build_bounce_tables(positions, normals, indices, tri_material,
+                        materials, lights, uvs=None, device="cpu"):
+    """Host-side table bake (bounce_pallas.build_bounce_tables, flat
+    no-environment / no-texture / no-OMM case). Raises
+    NotImplementedError, naming the feature, for a scene it does not
+    take."""
+    if float(np.max(_np(materials.anisotropy), initial=0.0)) > 0.0:
+        raise NotImplementedError("anisotropic materials are not ported "
+                                  "to the fused bounce kernel")
+    from rtxpt_tpu_torch.lighting.lights_baker import (
+        KIND_ENV, KIND_ENVQUAD, KIND_SPHERE)
+    if np.any(np.isin(_np(lights.kind), [KIND_SPHERE, KIND_ENVQUAD,
+                                         KIND_ENV])) or lights.env_light >= 0:
+        raise NotImplementedError("sphere and environment lights are not "
+                                  "ported to the fused bounce kernel")
+    positions = np.asarray(positions, np.float32)
+    normals = np.asarray(normals, np.float32)
+    indices = np.asarray(indices, np.int32)
+    tri_material = np.asarray(tri_material, np.int32)
+    t = len(indices)
+    n_mats = len(_np(materials.base_color))
+    if t == 0 or t > MAX_TRIS:
+        raise NotImplementedError(
+            f"{t} triangles: the fused bounce kernel takes 1..{MAX_TRIS}")
+    if n_mats > MAX_MATERIALS:
+        raise NotImplementedError(
+            f"{n_mats} materials: the fused bounce kernel takes at most "
+            f"{MAX_MATERIALS}")
+
+    v0 = positions[indices[:, 0]]
+    v1 = positions[indices[:, 1]]
+    v2 = positions[indices[:, 2]]
+    e1 = v1 - v0
+    e2 = v2 - v0
+    n = np.cross(e1, e2)
+
+    mat = pack_materials(materials)
+    lt = pack_lights(lights)
+
+    # chunk depth rounds to 8 triangles (bounce_pallas.py:471-477)
+    tc = min(512, _round_up(t, 8))
+    tpad = _round_up(t, tc)
+    n_chunks = tpad // tc
+
+    # per chunk c, row groups [det|u|v|t] x tc against the ray column
+    # [d | oxd | o | 1]
+    tri_rows = np.zeros((4 * tpad, 128), np.float32)
+    v0xe2 = np.cross(v0, e2)
+    v0xe1 = np.cross(v0, e1)
+    v0n = np.einsum("tj,tj->t", v0, n)
+    for c in range(n_chunks):
+        lo = c * tc
+        hi = min(lo + tc, t)
+        w = hi - lo
+        if w <= 0:
+            continue
+        base = 4 * c * tc
+        tri_rows[base:base + w, 0:3] = -n[lo:hi]
+        tri_rows[base + tc:base + tc + w, 0:3] = v0xe2[lo:hi]
+        tri_rows[base + tc:base + tc + w, 3:6] = e2[lo:hi]
+        tri_rows[base + 2 * tc:base + 2 * tc + w, 0:3] = -v0xe1[lo:hi]
+        tri_rows[base + 2 * tc:base + 2 * tc + w, 3:6] = -e1[lo:hi]
+        tri_rows[base + 3 * tc:base + 3 * tc + w, 6:9] = n[lo:hi]
+        tri_rows[base + 3 * tc:base + 3 * tc + w, 9] = -v0n[lo:hi]
+
+    gn = n / np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-20)
+    attr = np.zeros((AT_ROWS, tpad), np.float32)
+    attr[AT_N0:AT_N0 + 3, :t] = normals[indices[:, 0]].T
+    attr[AT_N1:AT_N1 + 3, :t] = normals[indices[:, 1]].T
+    attr[AT_N2:AT_N2 + 3, :t] = normals[indices[:, 2]].T
+    attr[AT_GN:AT_GN + 3, :t] = gn.T
+    attr[AT_MID, :t] = tri_material.astype(np.float32)
+    tri_light = _np(lights.tri_light)
+    has_l = tri_light[:t] >= 0
+    li = np.maximum(tri_light[:t], 0)
+    attr[AT_LPDF, :t] = np.where(has_l, _np(lights.power)[li], 0.0)
+    attr[AT_LAREA, :t] = np.where(has_l, _np(lights.extra)[li, 0], 1.0)
+    attr[AT_ISLIGHT, :t] = has_l.astype(np.float32)
+    attr[AT_LID, :t] = tri_light[:t].astype(np.float32)
+    if uvs is not None:
+        # texture coordinates ride along for parity; the tangent rows
+        # (AT_TANG/AT_TSGN) belong to normal mapping, not ported yet
+        uvs = np.asarray(uvs, np.float32)
+        attr[AT_UV0:AT_UV0 + 2, :t] = uvs[indices[:, 0]].T
+        attr[AT_UV1:AT_UV1 + 2, :t] = uvs[indices[:, 1]].T
+        attr[AT_UV2:AT_UV2 + 2, :t] = uvs[indices[:, 2]].T
+        attr[AT_TANG:AT_TSGN + 1, :t] = _tangent_rows(uvs, indices, e1, e2)
+    tri_area2 = np.linalg.norm(n, axis=-1)
+    attr[AT_LODB, :t] = -0.5 * np.log2(np.maximum(tri_area2, 1e-20))
+
+    return tables_from_numpy(tri_rows, attr, mat, lt, tc, n_chunks,
+                             int(lights.num), t, device=device)
+
+
+def _tangent_rows(uvs, indices, e1, e2):
+    """[4, T]: UV tangent premultiplied by 1/det_uv, and sign(det_uv)."""
+    t0 = uvs[indices[:, 0]]
+    t1 = uvs[indices[:, 1]]
+    t2 = uvs[indices[:, 2]]
+    duv1 = t1 - t0
+    duv2 = t2 - t0
+    det_uv = duv1[:, 0] * duv2[:, 1] - duv1[:, 1] * duv2[:, 0]
+    ok = np.abs(det_uv) > 1e-12
+    r = np.where(ok, 1.0 / np.where(ok, det_uv, 1.0), 0.0)
+    tang = (duv2[:, 1:2] * e1 - duv1[:, 1:2] * e2) * r[:, None]
+    tsgn = np.where(ok, np.sign(det_uv), 0.0)
+    return np.concatenate([tang.T, tsgn[None]], 0).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch version of the kernel
+# ---------------------------------------------------------------------------
+
+_TRI_BLOCK = 64     # triangles per vectorized step of the plain intersect
+
+
+def _coef_dot(c, k, xs):
+    """sum_j c[:, k+j] * xs[j], summed left to right ([C,1] x [N])."""
+    acc = c[:, k:k + 1] * xs[0]
+    for j in range(1, len(xs)):
+        acc = acc + c[:, k + j:k + j + 1] * xs[j]
+    return acc
+
+
+def _tri_params(c, o, d, oxd):
+    """(ok, u, v, t) [C, N] of C triangles against N rays."""
+    det = _coef_dot(c, TC_DET, (d[0], d[1], d[2]))
+    u_num = _coef_dot(c, TC_U, (d[0], d[1], d[2], oxd[0], oxd[1], oxd[2]))
+    v_num = _coef_dot(c, TC_V, (d[0], d[1], d[2], oxd[0], oxd[1], oxd[2]))
+    t_num = _coef_dot(c, TC_T, (o[0], o[1], o[2])) + c[:, TC_T + 3:TC_T + 4]
+    ok = torch.abs(det) > 1e-12
+    inv = torch.where(ok, 1.0 / torch.where(ok, det, 1.0), 0.0)
+    return ok, u_num * inv, v_num * inv, t_num * inv, det
+
+
+def _intersect(tables: BounceTables, o, d, tmax: float):
+    """Closest hit over all triangles (bounce_pallas._intersect_group):
+    strict `<` keeps the lowest triangle index on ties. Returns
+    (t, prim, u, v, det), t = _BIG and prim = -1 on a miss."""
+    n = o.shape[1]
+    dev = o.device
+    oxd = W.cross3(o, d)
+    best_t = torch.full((n,), _BIG, dtype=torch.float32, device=dev)
+    best_prim = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    best_u = torch.zeros((n,), dtype=torch.float32, device=dev)
+    best_v = torch.zeros_like(best_u)
+    best_det = torch.zeros_like(best_u)
+    for lo in range(0, tables.n_tris, _TRI_BLOCK):
+        c = tables.tri_coef[lo:min(lo + _TRI_BLOCK, tables.n_tris)]
+        ok, u, v, t, det = _tri_params(c, o, d, oxd)
+        valid = (ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+                 & (t > 0.0) & (t < tmax) & (t < best_t))
+        t_m = torch.where(valid, t, _BIG)
+        t_c = torch.amin(t_m, dim=0)
+        iota = torch.arange(c.shape[0], device=dev)[:, None]
+        j = torch.amin(torch.where(t_m <= t_c, iota, c.shape[0]), dim=0)
+        hit_c = t_c < best_t
+        jj = j.clamp(max=c.shape[0] - 1)[None]
+
+        def pick(x):
+            return torch.gather(x, 0, jj)[0]
+
+        best_u = torch.where(hit_c, pick(u), best_u)
+        best_v = torch.where(hit_c, pick(v), best_v)
+        best_det = torch.where(hit_c, pick(det), best_det)
+        best_prim = torch.where(hit_c, j + lo, best_prim)
+        best_t = torch.where(hit_c, t_c, best_t)
+    return best_t, best_prim, best_u, best_v, best_det
+
+
+def _occluded(tables: BounceTables, o, d, tmax):
+    """Any hit in (0, tmax) per ray (bounce_pallas._occluded_group)."""
+    oxd = W.cross3(o, d)
+    occ = torch.zeros(o.shape[1], dtype=torch.bool, device=o.device)
+    for lo in range(0, tables.n_tris, _TRI_BLOCK):
+        c = tables.tri_coef[lo:min(lo + _TRI_BLOCK, tables.n_tris)]
+        ok, u, v, t, _ = _tri_params(c, o, d, oxd)
+        valid = (ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+                 & (t > 0.0) & (t < tmax))
+        occ = occ | valid.any(dim=0)
+    return occ
+
+
+def _searchsorted128(cdf_row, u):
+    """First index with cdf[i] >= u over the 128-lane CDF (pads are 1.0)."""
+    lo = torch.zeros(u.shape, dtype=torch.int64, device=u.device)
+    for bit in (64, 32, 16, 8, 4, 2, 1):
+        c = cdf_row[torch.clamp(lo + bit - 1, 0, 127)]
+        lo = lo + bit * (c < u).to(torch.int64)
+    return torch.clamp(lo, 0, 127)
+
+
+def _ray_offset(pos, gn, direction):
+    mag = torch.sqrt(torch.clamp(W.dot3(pos, pos), min=0.0))
+    scale = torch.clamp(mag, min=1.0) * 3e-5
+    side = torch.where(W.dot3(direction, gn) >= 0.0, 1.0, -1.0)
+    return pos + gn * (side * scale)
+
+
+def surface_and_shade(*, o, d, t, hit, front, bu, bv, attr, thp, L,
+                      prev_pdf, cone, spread, active, prev_delta, med0, med1,
+                      px, py, budget, lb, tables: BounceTables,
+                      kcfg: KernelConfig, sample_idx: int):
+    """Post-intersection bounce body (bounce_pallas.surface_and_shade with
+    no environment, textures, micromaps, priorities, split channels or
+    external NEE): surface fetch, volume absorption, emissive-hit MIS, one
+    NEE light sample + BSDF eval, BSDF scatter, medium stack, Russian
+    roulette. `attr(i, k=1)` fetches the winner's attribute rows. Returns
+    the next state and the pending shadow ray (do_nee, shadow_o, shadow_d,
+    sdist, contrib); the caller resolves occlusion. csrc/bounce_fused.cuh
+    holds the same function per ray."""
+    n_lights = tables.n_lights
+    use_nee = kcfg.nee_mode in (1, 2) and n_lights > 0
+    nee_uniform = kcfg.nee_mode == 1
+    mat = tables.mat_rows
+    lrows = tables.light_rows
+
+    def lds(seed, dims):
+        if kcfg.low_discrepancy:
+            return rng.ld_samples(sample_idx, seed, dims)
+        return tuple(rng.uniform_sample(seed, rng.hash_combine(sample_idx,
+                                                               dd))
+                     for dd in dims)
+
+    seed_base = rng.hash_combine(rng.hash_combine(px, py), lb)
+
+    def eff_seed(effect):
+        return rng.hash_combine(seed_base, effect)
+
+    hit_mask = active & hit
+    active = active & hit                      # miss terminates
+    not_expired = (lb < budget) & (lb < kcfg.maxb)
+    active = active & not_expired
+    hit_mask = hit_mask & not_expired
+
+    pos = o + t * d
+    gn = attr(AT_GN, 3)
+    gn = torch.where(front, gn, -gn)
+    n0 = attr(AT_N0, 3)
+    n1 = attr(AT_N1, 3)
+    n2 = attr(AT_N2, 3)
+    bw = 1.0 - bu - bv
+    sh_n = W.normalize3(bw * n0 + bu * n1 + bv * n2)
+    sh_n = torch.where(W.dot3(sh_n, gn) > 0.0, sh_n, -sh_n)
+    mid = torch.clamp(attr(AT_MID).to(torch.int64), 0, 127)
+
+    def mrow(i):
+        return mat[i][mid]
+
+    def mrow3(i):
+        return mat[i:i + 3][:, mid]
+
+    base_color = mrow3(MT_BASE)
+    metallic = mrow(MT_METAL)
+    roughness = mrow(MT_ROUGH)
+    transmission = mrow(MT_TRANS)
+    dtrans = mrow(MT_DTRANS)
+    emissive = mrow3(MT_EMISSIVE)
+    spec_scale = mrow(MT_SPEC)
+    thin = mrow(MT_THIN) > 0.5
+    ior = mrow(MT_IOR)
+
+    cone = cone + spread * torch.where(hit, t, 0.0)
+    hit_shade = hit_mask
+
+    def med_ior(med):
+        v = mat[MT_IOR][torch.clamp(med, 0, 127)]
+        return torch.where(med >= 0, v, 1.0)
+
+    cur_ior = med_ior(med0)
+    below_ior = med_ior(med1)
+    in_medium = med0 >= 0
+    sigma = mat[MT_VOLABS:MT_VOLABS + 3][:, torch.clamp(med0, 0, 127)]
+    thp = thp * torch.where(in_medium, torch.exp(-sigma * t), 1.0)
+
+    e_poly = mat[MT_EPOLY:MT_EPOLY + 6][:, mid] if kcfg.energy_comp else None
+    e_avg = mrow(MT_EAVG) if kcfg.energy_comp else None
+    bsdf = W.make_bsdf_w(base_color, metallic, roughness, ior, transmission,
+                         dtrans, spec_scale, front, cur_ior, below_ior,
+                         e_poly=e_poly, e_avg=e_avg)
+    emissive = torch.where(front, emissive, 0.0)
+
+    # ----- emissive hit + MIS (baked per-triangle light pdf / area) -----
+    cos_l = torch.abs(W.dot3(-d, gn))
+    area = torch.clamp(attr(AT_LAREA), min=1e-12)
+    p_geo = t * t / torch.clamp(area * torch.clamp(cos_l, min=1e-9),
+                                min=1e-12)
+    if use_nee and kcfg.enable_mis:
+        if nee_uniform:
+            sel_pdf_hit = attr(AT_ISLIGHT) / float(max(n_lights, 1))
+        else:
+            sel_pdf_hit = attr(AT_LPDF)
+        p_light = torch.where(attr(AT_ISLIGHT) > 0.5, sel_pdf_hit * p_geo,
+                              0.0)
+        w_em = torch.where(prev_delta | (lb == 0), 1.0,
+                           W.power_heuristic(prev_pdf, p_light))
+    else:
+        w_em = torch.ones_like(t)
+    L = L + torch.where(hit_shade, thp * emissive * w_em, 0.0)
+
+    wo = W.to_local3(-d, sh_n)
+
+    # ----- NEE (one candidate) -----
+    if use_nee:
+        u_sel, u1, u2 = lds(eff_seed(EFFECT_NEE), (0, 2, 3))
+        u_sel = torch.clamp(u_sel, 0.0, 1.0 - 1e-7)
+        if nee_uniform:
+            li = torch.clamp((u_sel * float(n_lights)).to(torch.int64),
+                             0, n_lights - 1)
+            sel_pdf = torch.full_like(u_sel, 1.0 / float(n_lights))
+        else:
+            li = torch.clamp(_searchsorted128(lrows[W.LROW_CDF], u_sel),
+                             0, n_lights - 1)
+            sel_pdf = lrows[W.LROW_POWER][li]
+
+        def lrow3(i):
+            return lrows[i:i + 3][:, li]
+
+        lf = W.LightFieldsW(
+            kind=lrows[W.LROW_KIND][li].to(torch.int64),
+            p0=lrow3(W.LROW_P0), p1=lrow3(W.LROW_P1), p2=lrow3(W.LROW_P2),
+            em=lrow3(W.LROW_EM),
+            extra=lrows[W.LROW_EXTRA:W.LROW_EXTRA + 4][:, li],
+            normal=lrow3(W.LROW_NORMAL), power=sel_pdf)
+        lsmp = W.sample_light_fields_w(lf, sel_pdf, pos, u1, u2)
+        wi_l = W.to_local3(lsmp["wi"], sh_n)
+        f_l = W.bsdf_eval_w(bsdf, wo, wi_l)
+        pdf_b = W.bsdf_pdf_w(bsdf, wo, wi_l)
+        do_nee = hit_shade & lsmp["valid"] & (W.luminance3(f_l) > 0.0)
+        shadow_o = _ray_offset(pos, gn, lsmp["wi"])
+        if kcfg.enable_mis:
+            w_nee = torch.where(lsmp["is_delta"], 1.0,
+                                W.power_heuristic(lsmp["pdf"], pdf_b))
+        else:
+            w_nee = torch.ones_like(t)
+        contrib = thp * f_l * lsmp["Li"] * (
+            w_nee / torch.clamp(lsmp["pdf"], min=1e-12))
+        if kcfg.firefly > 0.0:
+            lum = W.luminance3(contrib)
+            contrib = contrib * torch.clamp(
+                kcfg.firefly / torch.clamp(lum, min=1e-12), max=1.0)
+        dist_eff = lsmp["dist"] - W.dot3(shadow_o - pos, lsmp["wi"])
+        sdist = torch.where(do_nee, dist_eff * (1.0 - 1e-4), 0.0)
+        shadow_d = lsmp["wi"]
+    else:
+        do_nee = torch.zeros_like(hit)
+        shadow_o, shadow_d = pos, d
+        sdist = torch.zeros_like(t)
+        contrib = torch.zeros_like(thp)
+
+    # ----- scatter -----
+    u_lobe, su1, su2 = lds(eff_seed(EFFECT_SCATTER), (0, 2, 3))
+    bs = W.bsdf_sample_w(bsdf, wo, u_lobe, su1, su2)
+    wi_world = W.to_world3(bs["wi"], sh_n)
+    leak = (bs["wi"][2] > 0.0) != (W.dot3(wi_world, gn) > 0.0)
+    active = active & (bs["valid"] & ~leak
+                       & (W.luminance3(bs["weight"]) > 0.0))
+    thp = thp * bs["weight"]
+    prev_pdf = bs["pdf"]
+    prev_delta = bs["is_delta"]
+
+    transmitted = bs["wi"][2] < 0.0
+    entering = transmitted & front & ~thin
+    exiting = transmitted & ~front & ~thin
+    new_med0 = torch.where(entering, mid, torch.where(exiting, med1, med0))
+    new_med1 = torch.where(entering, med0,
+                           torch.where(exiting, -1, med1))
+    med0, med1 = new_med0, new_med1
+
+    if kcfg.rr_enable:
+        (u_rr,) = lds(eff_seed(EFFECT_RR), (0,))
+        p_cont = torch.clamp(torch.maximum(torch.maximum(thp[0], thp[1]),
+                                           thp[2]), 0.05, 1.0)
+        rr_on = lb >= kcfg.min_rr
+        active = active & ~(rr_on & (u_rr >= p_cont))
+        thp = thp / torch.where(rr_on, p_cont, 1.0)
+
+    o_new = _ray_offset(pos, gn, wi_world)
+    spread = spread + torch.sqrt(bsdf.alpha) * 0.25 \
+        * (1.0 - prev_delta.to(torch.float32))
+    lb_out = lb + hit_shade.to(torch.int64)
+
+    return dict(o_new=o_new, wi_world=wi_world, thp=thp, L=L,
+                prev_pdf=prev_pdf, cone=cone, spread=spread, active=active,
+                prev_delta=prev_delta, med0=med0, med1=med1,
+                lbounce=lb_out, do_nee=do_nee, shadow_o=shadow_o,
+                shadow_d=shadow_d, sdist=sdist, contrib=contrib)
+
+
+def bounce_reference(fs, is_, tables: BounceTables, kcfg: KernelConfig,
+                     sample_idx: int):
+    """One bounce of the whole wavefront in plain PyTorch: the function
+    the CUDA kernel computes per ray (_intersect_group, surface_and_shade,
+    _occluded_group). fs [NF,N] f32, is_ [NI,N] i32 -> (fs_out [NF,N],
+    is_out [NI,N], hit_out [NH,N])."""
+    o = fs[FS_O:FS_O + 3]
+    d = fs[FS_D:FS_D + 3]
+
+    # ----- closest hit -----
+    t, prim, bu, bv, det_pick = _intersect(tables, o, d, kcfg.max_travel)
+    hit = t < _BIG
+    front = det_pick > 0.0
+    attr_all = tables.attr_rows[:, prim.clamp(min=0)]
+    attr_all = torch.where(prim >= 0, attr_all, 0.0)
+
+    def attr(i, k=1):
+        return attr_all[i] if k == 1 else attr_all[i:i + k]
+
+    s = surface_and_shade(
+        o=o, d=d, t=t, hit=hit, front=front, bu=bu, bv=bv, attr=attr,
+        thp=fs[FS_THP:FS_THP + 3], L=fs[FS_L:FS_L + 3],
+        prev_pdf=fs[FS_PREVPDF], cone=fs[FS_CONE], spread=fs[FS_SPREAD],
+        active=is_[IS_ACTIVE] > 0, prev_delta=is_[IS_PREVDELTA] > 0,
+        med0=is_[IS_MED0].to(torch.int64), med1=is_[IS_MED1].to(torch.int64),
+        px=is_[IS_PX], py=is_[IS_PY], budget=is_[IS_BUDGET],
+        lb=is_[IS_LBOUNCE].to(torch.int64), tables=tables, kcfg=kcfg,
+        sample_idx=sample_idx)
+
+    # ----- NEE shadow ray -----
+    occluded = _occluded(tables, s["shadow_o"], s["shadow_d"], s["sdist"])
+    L = s["L"] + torch.where(s["do_nee"] & ~occluded, s["contrib"], 0.0)
+
+    fs_out = torch.cat([s["o_new"], s["wi_world"], s["thp"], L,
+                        s["prev_pdf"][None], s["cone"][None],
+                        s["spread"][None]], dim=0)
+    i32 = torch.int32
+    is_out = torch.stack([s["active"].to(i32), s["prev_delta"].to(i32),
+                          s["med0"].to(i32), s["med1"].to(i32), is_[IS_PX],
+                          is_[IS_PY], is_[IS_BUDGET],
+                          s["lbounce"].to(i32)], dim=0)
+    hit_out = torch.stack([torch.where(hit, t, 0.0), prim.to(torch.float32),
+                           bu, bv, front.to(torch.float32),
+                           s["do_nee"].to(torch.float32)], dim=0)
+    return fs_out, is_out, hit_out
+
+
+# ---------------------------------------------------------------------------
+# The wrapper
+# ---------------------------------------------------------------------------
+
+
+def _check(name, x, dtype, shape, device):
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(x).__name__}")
+    if x.dtype != dtype or tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected {dtype} {tuple(shape)}, got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    if x.device != device:
+        raise ValueError(f"{name}: on {x.device}, expected {device}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def bounce(fs, is_, tables: BounceTables, kcfg: KernelConfig,
+           sample_idx: int):
+    """One bounce of the wavefront: the CUDA kernel (csrc/bounce_fused.cu)
+    for CUDA tensors, `bounce_reference` for CPU tensors. Build and launch
+    errors raise; nothing falls back."""
+    if fs.device.type == "cpu":
+        return bounce_reference(fs, is_, tables, kcfg, sample_idx)
+    if fs.device.type != "cuda":
+        raise ValueError(f"bounce: no kernel for device {fs.device}")
+    n = fs.shape[1]
+    dev = fs.device
+    _check("fs", fs, torch.float32, (NF, n), dev)
+    _check("is_", is_, torch.int32, (NI, n), dev)
+    tpad = tables.tc * tables.n_chunks
+    _check("tri_coef", tables.tri_coef, torch.float32, (tpad, TC_ROWS), dev)
+    _check("attr_rows", tables.attr_rows, torch.float32, (AT_ROWS, tpad),
+           dev)
+    _check("mat_rows", tables.mat_rows, torch.float32, (MT_ROWS, 128), dev)
+    _check("light_rows", tables.light_rows, torch.float32, (W.LROWS, 128),
+           dev)
+    if kcfg.nee_mode not in (0, 1, 2):
+        raise ValueError(f"bounce: nee_mode {kcfg.nee_mode} not in (0, 1, 2)")
+    if not 0 < tables.n_tris <= MAX_TRIS or tables.n_lights > MAX_LIGHTS:
+        raise ValueError("bounce: table sizes outside the kernel's limits")
+    fs_out = torch.empty_like(fs)
+    is_out = torch.empty_like(is_)
+    hit_out = torch.empty((NH, n), dtype=torch.float32, device=dev)
+    if n == 0:
+        return fs_out, is_out, hit_out
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        kernels.BOUNCE_FUSED.launch(
+            "rtxpt_bounce_fused",
+            fs.data_ptr(), is_.data_ptr(), fs_out.data_ptr(),
+            is_out.data_ptr(), hit_out.data_ptr(),
+            tables.tri_coef.data_ptr(), tables.attr_rows.data_ptr(),
+            tables.mat_rows.data_ptr(), tables.light_rows.data_ptr(),
+            n, tables.n_tris, tpad, tables.n_lights,
+            int(sample_idx) & rng.M32, kcfg.nee_mode, int(kcfg.enable_mis),
+            kcfg.firefly, int(kcfg.rr_enable), kcfg.min_rr, kcfg.max_travel,
+            int(kcfg.low_discrepancy), int(kcfg.energy_comp), kcfg.maxb,
+            stream)
+    kernels.launches["bounce_fused"] += 1
+    return fs_out, is_out, hit_out
+
+
+# ---------------------------------------------------------------------------
+# Wavefront loop
+# ---------------------------------------------------------------------------
+
+
+def initial_state(o, d, cone_spread, px, py):
+    """Wavefront state of camera rays before bounce 0: (fs [NF,N] f32,
+    is_ [NI,N] i32), as trace_paths_pallas builds it (thp 1, L 0, every
+    lane active, camera counts as a delta vertex, no medium, no budget)."""
+    n = o.shape[0]
+    dev = o.device
+    f32 = torch.float32
+    fs = torch.cat([
+        o.T, d.T,
+        torch.ones((3, n), dtype=f32, device=dev),       # thp
+        torch.zeros((3, n), dtype=f32, device=dev),      # L
+        torch.zeros((2, n), dtype=f32, device=dev),      # prev_pdf, cone
+        cone_spread.to(f32)[None],
+    ], dim=0).contiguous()
+    i32 = torch.int32
+    is_ = torch.cat([
+        torch.ones((2, n), dtype=i32, device=dev),       # active, prev_delta
+        torch.full((2, n), -1, dtype=i32, device=dev),   # med0, med1
+        px.to(i32)[None], py.to(i32)[None],
+        torch.full((1, n), _NO_BUDGET, dtype=i32, device=dev),
+        torch.zeros((1, n), dtype=i32, device=dev),      # logical bounce
+    ], dim=0).contiguous()
+    return fs, is_
+
+
+def trace_paths_fused(scene, cfg, o, d, cone_spread, px, py, sample_idx):
+    """Trace a wavefront of camera rays to completion, one `bounce` per
+    bounce (bounce_pallas.trace_paths_pallas without aux buffers, V-buffer
+    injection, split channels or external NEE): the kernel for CUDA
+    tensors, its plain version for CPU tensors.
+
+    o, d [N,3]; cone_spread [N]; px, py [N] int. Returns dict(L [N,3],
+    ray_count [] int64 tensor, occupancy [B+1] int64 tensor)."""
+    tbl: BounceTables = scene.bounce_tables
+    dev = o.device
+    fs, is_ = initial_state(o, d, cone_spread, px, py)
+    kcfg = KernelConfig.from_cfg(cfg)
+    ray_count = torch.zeros((), dtype=torch.int64, device=dev)
+    occupancy = []
+    for _ in range(cfg.max_bounces):
+        active_in = is_[IS_ACTIVE].sum(dtype=torch.int64)
+        occupancy.append(active_in)
+        fs, is_, hit = bounce(fs, is_, tbl, kcfg, sample_idx)
+        ray_count = ray_count + active_in + (hit[5] > 0.5).sum()
+    occupancy.append(is_[IS_ACTIVE].sum(dtype=torch.int64))
+    return dict(L=fs[FS_L:FS_L + 3].T, ray_count=ray_count,
+                occupancy=torch.stack(occupancy))

@@ -1,0 +1,107 @@
+"""Wavefront path tracing of whole frames, reference mode (counterpart of
+rtxpt_tpu/pt/integrator.py): the camera rays of a frame go through the
+fused bounce step (pt/bounce_fused.py) in chunks of `cfg.ray_chunk`, and
+samples accumulate progressively. The general BVH wavefront (the JAX
+package's "xla" tier) is not ported yet."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from rtxpt_tpu_torch.pt import bounce_fused, dispatch
+from rtxpt_tpu_torch.scene.camera import Camera, camera_ray
+from rtxpt_tpu_torch.utils import rng
+
+# Effect seeds (SampleGenerators effect decorrelation)
+EFFECT_LENS = 17
+EFFECT_SCATTER = 29
+EFFECT_NEE = 31
+EFFECT_RR = 37
+EFFECT_STF = 41
+
+
+def _lds(cfg, sample_idx, seed, dims):
+    if cfg.low_discrepancy:
+        return rng.ld_samples(sample_idx, seed, dims)
+    return tuple(rng.uniform_sample(seed, rng.hash_combine(sample_idx, d))
+                 for d in dims)
+
+
+def _pixel_grid(width: int, height: int, device="cpu"):
+    px = torch.arange(width, dtype=torch.int32, device=device)
+    py = torch.arange(height, dtype=torch.int32, device=device)
+    return (px[None, :].expand(height, width).reshape(-1),
+            py[:, None].expand(height, width).reshape(-1))
+
+
+def camera_rays(cam: Camera, cfg, px, py, sample_idx):
+    """Jittered primary rays of pixels (px, py) for one sample:
+    (o [N,3], d [N,3], cone spread [N])."""
+    seed_lens = rng.pixel_seed(px, py, 0, EFFECT_LENS)
+    u1, u2 = _lds(cfg, sample_idx, seed_lens, (0, 1))
+    return camera_ray(cam, px, py, u1, u2)
+
+
+def trace_paths(scene, cfg, o, d, cone_spread, px, py, sample_idx):
+    """Trace a wavefront of camera rays to completion on the tier
+    `dispatch.resolve` picks for the rays' device. Returns dict(L [N,3],
+    ray_count [], occupancy [max_bounces+1])."""
+    if cfg.kernel_tier not in dispatch.TIERS:
+        cfg = dispatch.resolve(scene, cfg, o.device)
+    return bounce_fused.trace_paths_fused(
+        scene, cfg, o, d, cone_spread, px, py, sample_idx)
+
+
+def render_sample(scene, cam: Camera, cfg, width: int, height: int,
+                  sample_idx: int, chunk: Optional[int] = None):
+    """One sample per pixel over the full frame, in chunks of
+    `cfg.ray_chunk` rays; the last chunk is padded with pixel (0, 0) as in
+    the JAX package, so `ray_count` matches it. Returns dict(L [H,W,3],
+    ray_count [] tensor, occupancy, kernel_tier)."""
+    device = scene.bounce_tables.device
+    cfg = dispatch.resolve(scene, cfg, device)
+    cam = cam.to(device)
+    px, py = _pixel_grid(width, height, device)
+    npix = px.shape[0]
+    chunk = min(chunk or cfg.ray_chunk, npix)
+    if npix % chunk:
+        pad = chunk - npix % chunk
+        zeros = torch.zeros((pad,), dtype=torch.int32, device=device)
+        px = torch.cat([px, zeros])
+        py = torch.cat([py, zeros])
+    Ls, ray_count, occupancy = [], 0, 0
+    for lo in range(0, px.shape[0], chunk):
+        px_c = px[lo:lo + chunk]
+        py_c = py[lo:lo + chunk]
+        o, d, spread = camera_rays(cam, cfg, px_c, py_c, sample_idx)
+        out = trace_paths(scene, cfg, o, d, spread, px_c, py_c, sample_idx)
+        Ls.append(out["L"])
+        ray_count = ray_count + out["ray_count"]
+        occupancy = occupancy + out["occupancy"]
+    L = torch.cat(Ls)[:npix].reshape(height, width, 3)
+    return dict(L=L, ray_count=ray_count, occupancy=occupancy,
+                kernel_tier=cfg.kernel_tier)
+
+
+def render(scene, cam: Camera, cfg, width: int, height: int, spp: int,
+           first_sample: int = 0, want_aux: bool = False):
+    """Progressive accumulation over `spp` samples (weight 1/spp).
+
+    Returns (hdr [H,W,3] tensor, aux dict, total ray count)."""
+    if want_aux:
+        raise NotImplementedError(
+            "aux buffers are not ported to rtxpt_tpu_torch yet")
+    if first_sample < 0 or first_sample + spp > 1 << rng.INDEX_BITS:
+        raise ValueError(
+            f"sample indices [{first_sample}, {first_sample + spp}) leave "
+            f"the sampler's 2^{rng.INDEX_BITS} index space (they would "
+            f"repeat earlier samples)")
+    acc = None
+    total_rays = 0
+    for s in range(first_sample, first_sample + spp):
+        out = render_sample(scene, cam, cfg, width, height, s)
+        total_rays += int(out["ray_count"])
+        acc = out["L"] if acc is None else acc + out["L"]
+    return acc / spp, {}, total_rays

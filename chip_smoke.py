@@ -4,25 +4,48 @@
     python3 chip_smoke.py                   # from the repository root, one GPU
     python3 chip_smoke.py --record out.json # also write every phase's details
 
-Phases, one line of output each:
+Phases, one or a few lines of output each:
 
   1. device  -- card name and power limit (nvidia-smi), torch and CUDA
                 versions; TF32 off.
-  2. build   -- compiles every CUDA kernel of the main path from
-                rtxpt_tpu_torch/csrc with nvcc; seconds, registers, spills.
+  2. build   -- compiles every CUDA kernel of the port from rtxpt_tpu_torch/
+                csrc with nvcc, one process per source, all at once;
+                seconds, registers, spills.
   3. k1      -- one launch of the fused bounce kernel (K1) against its plain
                 PyTorch version on the same 65,536 Cornell camera rays, at
                 bounce 0 and at bounce 2 (Russian roulette on): integer rows
                 and prim ids equal on >= 99.9% of lanes, every float row
                 within rtol = atol = 2e-3 on >= 99.9% of lanes, image-mean
-                radiance within 1e-3 relative. Times both at the main path's
-                2^18 rays per launch.
-  4. golden  -- Cornell 32x32, 8 spp, 3 bounces through the kernel against
+                radiance within 1e-3 relative. Times both at the Cornell
+                path's 2^18 rays per launch.
+  4. golden  -- Cornell 32x32, 8 spp, 3 bounces through K1 against
                 tests/goldens/cornell_32_8spp.npy: RMSE < 5e-3, PSNR > 40.
-  5. main    -- the main path: Cornell 1920x1080, 4 bounces, power NEE,
+  5. main    -- the Cornell path: Cornell 1920x1080, 4 bounces, power NEE,
                 2^18 rays per chunk, 1 warm-up and 4 timed samples through
-                rtxpt_tpu_torch.pt.integrator.render_sample; K1 must launch
-                chunks x bounces x spp times, the image must be finite.
+                render_sample; K1 must launch chunks x bounces x spp times,
+                the image must be finite.
+  6. clustered -- the clustered kernels K3 (closest hit), K4 (shading) and
+                K5 (shadow any-hit) against their plain versions on the
+                card, on 65,536 camera rays of the 340k-triangle city (64
+                groups) at bounces 0 and 2, the state carried onward by the
+                plain versions: K3 prim ids equal and t/u/v/front within
+                2e-3 on >= 99.9% of lanes, K4 as K1 in phase 3, K5
+                occlusion equal on >= 99.9% of lanes. Times each kernel at
+                the city path's 1080p bounce-0 launch (2,025 groups) and its
+                plain version at the comparison width.
+  7. city parity -- the 3,512-triangle city of the CPU tests, 48x32, 2 spp,
+                3 bounces, through the kernels against the plain versions,
+                both on the card: >= 99% of pixels within 2e-3, image mean
+                within 1e-3 relative.
+  8. city    -- the city path: city_scene(350_000, seed=0), 1920x1080,
+                4 bounces, power NEE, the frame as one chunk, 1 warm-up and
+                2 timed samples (bench.py's stage_city), with the camera
+                raised above the roofs (procedural.city_overview; the
+                scene's own camera stands inside a tower and sees a black
+                frame). K3 and K5 must launch pages x bounces x spp times,
+                K4 bounces x spp times, and the image must be finite. Then
+                one profiled frame splits the device time: sort, cull, K3,
+                K4, K5, the rest, and the idle share.
 
 The line before the last holds {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Any failed phase, a missing GPU or a missing
@@ -39,10 +62,37 @@ import time
 import traceback
 
 RAYS_K1 = 1 << 16            # phase 3 comparison width
-RAYS_TIMED = 1 << 18         # the main path's rays per launch
+RAYS_TIMED = 1 << 18         # the Cornell path's rays per launch
 TOL = 2e-3
 LANE_FRACTION = 0.999
 MEAN_RTOL = 1e-3
+# H100 SXM data sheet, dense rates at 700 W
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12      # outside the tensor cores
+TF32_FLOPS_PER_S = 495e12    # tensor cores
+BF16_FLOPS_PER_S = 989e12    # tensor cores
+# Operations per ray-triangle pair. K1's exact test (tri_test): 38 f32.
+# K3 and K5's split-bf16 quantities are a matrix product over 19
+# coefficient rows, each multiply counted with its add: c_hi*r_hi and
+# c_lo*r_hi are bf16 x bf16 (2 x 19 x 2 operations at the bf16 tensor
+# rate), c_hi*r_lo takes the f32 residual of the ray (19 x 2 at the TF32
+# rate). After the product the per-pair selection is f32 work: K3's sign,
+# margins, six validity and three strictness comparisons, reciprocal,
+# tie bump and running minimum (27); K5's sign and strict test (14).
+K1_PAIR_F32 = 38
+PAIR_BF16 = 76
+PAIR_TF32 = 38
+K3_PAIR_F32 = 27
+K5_PAIR_F32 = 14
+STAGED_BLOCK_BYTES = 21 * 512 * 4    # rows 0..20 of a cluster block
+CITY_TRIS = 350_000
+CITY_SEED = 0
+CITY_FRAME = (1920, 1080)    # the city path's frame
+CITY_PAGES = 2               # the 1080p city's pages per bounce (4,378
+#                              clusters, kslots 64)
+SMALL_CITY_PAGES = 1         # 46 clusters: kslots clamps to 46, one page
+CMP_SIDE = 256               # phase 6 comparison: 256 x 256 = 65,536 rays,
+#                              spread evenly over the city path's frame
 
 
 def _fail(msg):
@@ -64,6 +114,22 @@ def _cuda_ms(fn, iters):
     return start.elapsed_time(stop) / iters
 
 
+def _bound(nbytes, f32=0, tf32=0, bf16=0):
+    """(least ms the card could take, what sets it, its terms in ms) for
+    `nbytes` moved and the operations counted at each type's data-sheet
+    rate. The tensor cores' TF32 and bf16 terms add up (one unit); the
+    f32 units run beside them, so the operations take the larger of the
+    two."""
+    terms = dict(bytes=float(nbytes) / HBM_BYTES_PER_S * 1e3,
+                 f32=float(f32) / F32_FLOPS_PER_S * 1e3,
+                 tf32=float(tf32) / TF32_FLOPS_PER_S * 1e3,
+                 bf16=float(bf16) / BF16_FLOPS_PER_S * 1e3)
+    t_ops = max(terms["f32"], terms["tf32"] + terms["bf16"])
+    if terms["bytes"] >= t_ops:
+        return terms["bytes"], "bytes", terms
+    return t_ops, "operations", terms
+
+
 def _ptxas_summary(log):
     regs = re.findall(r"Used (\d+) registers", log)
     spill_st = re.findall(r"(\d+) bytes spill stores", log)
@@ -73,29 +139,44 @@ def _ptxas_summary(log):
                 spill_load_bytes=max(map(int, spill_ld)) if spill_ld else None)
 
 
-def _compare(kernel_out, plain_out):
-    """Lane agreement of one bounce: (summary dict, max_abs_err)."""
+def _compare(kernel_rows, plain_rows, int_eq):
+    """Lane agreement of float rows: kernel_rows / plain_rows map a name to
+    an [R, N] tensor. Returns (summary dict, max_abs_err over lanes whose
+    integer rows agree)."""
     import torch
-    from rtxpt_tpu_torch.pt import bounce_fused as bf
-    (kf, ki, kh), (pf, pi, ph) = kernel_out, plain_out
-    int_eq = (ki == pi).all(0) & (kh[1] == ph[1])
     rows = {}
     max_err = 0.0
-    for name, k, p in (("fs", kf, pf), ("hit", kh, ph)):
+    for name, k in kernel_rows.items():
+        p = plain_rows[name]
         for r in range(k.shape[0]):
             ok = torch.isclose(k[r], p[r], rtol=TOL, atol=TOL, equal_nan=True)
             rows[f"{name}{r}"] = float(ok.float().mean())
             both = int_eq & torch.isfinite(k[r]) & torch.isfinite(p[r])
             if both.any():
                 max_err = max(max_err, float((k[r] - p[r])[both].abs().max()))
-    lk = kf[bf.FS_L:bf.FS_L + 3]
-    lp = pf[bf.FS_L:bf.FS_L + 3]
-    mean_k, mean_p = float(lk.mean()), float(lp.mean())
     return dict(int_lanes_equal=float(int_eq.float().mean()),
                 worst_float_row=min(rows.values()), float_rows=rows,
-                L_mean_kernel=mean_k, L_mean_plain=mean_p,
-                L_mean_rel=abs(mean_k - mean_p) / max(abs(mean_p), 1e-30),
                 max_abs_err=max_err), max_err
+
+
+def _compare_state(kernel_out, plain_out):
+    """Agreement of one bounce's (fs, is_, hit) with K1's criteria."""
+    from rtxpt_tpu_torch.pt import bounce_fused as bf
+    (kf, ki, kh), (pf, pi, ph) = kernel_out, plain_out
+    int_eq = (ki == pi).all(0) & (kh[1] == ph[1])
+    summary, max_err = _compare(dict(fs=kf, hit=kh), dict(fs=pf, hit=ph),
+                                int_eq)
+    mean_k = float(kf[bf.FS_L:bf.FS_L + 3].mean())
+    mean_p = float(pf[bf.FS_L:bf.FS_L + 3].mean())
+    summary.update(L_mean_kernel=mean_k, L_mean_plain=mean_p,
+                   L_mean_rel=abs(mean_k - mean_p) / max(abs(mean_p), 1e-30))
+    return summary, max_err
+
+
+def _state_ok(summary):
+    return (summary["int_lanes_equal"] >= LANE_FRACTION
+            and summary["worst_float_row"] >= LANE_FRACTION
+            and summary["L_mean_rel"] <= MEAN_RTOL)
 
 
 def main(record_path=None):
@@ -137,15 +218,18 @@ def main(record_path=None):
     from rtxpt_tpu_torch.utils.image import psnr, rmse
 
     # ---- 2. build ---------------------------------------------------------
-    t0 = time.perf_counter()
-    kernels.BOUNCE_FUSED.load()
-    build_s = time.perf_counter() - t0
-    ptxas = _ptxas_summary(kernels.BOUNCE_FUSED.ptxas_log)
-    record["build"] = dict(seconds=build_s, **ptxas,
-                           ptxas_log=kernels.BOUNCE_FUSED.ptxas_log)
-    print(f"build ok: bounce_fused in {build_s:.1f}s, {ptxas['registers']} "
-          f"registers, spill stores {ptxas['spill_store_bytes']} B, spill "
-          f"loads {ptxas['spill_load_bytes']} B", flush=True)
+    built = kernels.build_all()
+    record["build"] = {}
+    for lib in kernels.LIBRARIES:
+        ptxas = _ptxas_summary(lib.ptxas_log)
+        record["build"][lib.name] = dict(seconds=lib.build_seconds, **ptxas,
+                                         ptxas_log=lib.ptxas_log)
+        print(f"build ok: {lib.name} in {lib.build_seconds:.1f}s, "
+              f"{ptxas['registers']} registers, spill stores "
+              f"{ptxas['spill_store_bytes']} B, spill loads "
+              f"{ptxas['spill_load_bytes']} B", flush=True)
+    print(f"build: {len(kernels.LIBRARIES)} libraries in "
+          f"{built['wall']:.1f}s wall", flush=True)
 
     # ---- 3. K1 against its plain version -----------------------------------
     host = cornell_box()
@@ -160,14 +244,14 @@ def main(record_path=None):
     o, d, spread = camera_rays(cam, cfg_k1, px, py, sample)
     fs, is_ = bf.initial_state(o, d, spread, px, py)
     k1 = {}
-    max_err = 0.0
+    k1_err = 0.0
     for b in range(3):
         plain = bf.bounce_reference(fs, is_, tables, kcfg, sample)
         if b in (0, 2):
             kern = bf.bounce(fs, is_, tables, kcfg, sample)
             torch.cuda.synchronize()
-            summary, err = _compare(kern, plain)
-            max_err = max(max_err, err)
+            summary, err = _compare_state(kern, plain)
+            k1_err = max(k1_err, err)
             k1[f"bounce{b}"] = summary
             print(f"k1 bounce {b}: int lanes equal "
                   f"{summary['int_lanes_equal']:.6f}, worst float row "
@@ -175,15 +259,13 @@ def main(record_path=None):
                   f"{summary['L_mean_kernel']:.6f} vs "
                   f"{summary['L_mean_plain']:.6f}, max abs err {err:.3g}",
                   flush=True)
-            if summary["int_lanes_equal"] < LANE_FRACTION \
-                    or summary["worst_float_row"] < LANE_FRACTION \
-                    or summary["L_mean_rel"] > MEAN_RTOL:
+            if not _state_ok(summary):
                 record["k1"] = k1
                 dump()
                 _fail(f"k1: kernel disagrees with its plain version at "
                       f"bounce {b}")
         fs, is_ = plain[0], plain[1]          # carry the state onward
-    # time both at the main path's launch width (2^18 rays, bounce 0)
+    # time both at the Cornell path's launch width (2^18 rays, bounce 0)
     side_t = 512                                   # RAYS_TIMED rays
     cam_t = default_camera(host, side_t, side_t, device=dev)
     px_t, py_t = _pixel_grid(side_t, side_t, dev)
@@ -192,10 +274,21 @@ def main(record_path=None):
     k1_ms = _cuda_ms(lambda: bf.bounce(fs_t, is_t, tables, kcfg, sample), 20)
     plain_ms = _cuda_ms(
         lambda: bf.bounce_reference(fs_t, is_t, tables, kcfg, sample), 3)
-    k1.update(ms=k1_ms, plain_ms=plain_ms, rays=RAYS_TIMED)
+    # bound: each state row read and written once, the tables read once;
+    # every active lane tests every triangle, every NEE lane again
+    hit_t = bf.bounce(fs_t, is_t, tables, kcfg, sample)[2]
+    tests = int((is_t[bf.IS_ACTIVE] > 0).sum()) + int((hit_t[5] > 0.5).sum())
+    k1_bytes = RAYS_TIMED * 4 * (2 * (bf.NF + bf.NI) + bf.NH) + 4 * sum(
+        t.numel() for t in (tables.tri_coef, tables.attr_rows,
+                            tables.mat_rows, tables.light_rows))
+    k1_bound, k1_by, _ = _bound(k1_bytes,
+                                f32=tests * tables.n_tris * K1_PAIR_F32)
+    k1.update(ms=k1_ms, plain_ms=plain_ms, rays=RAYS_TIMED,
+              bound_ms=k1_bound, bound_by=k1_by)
     record["k1"] = k1
     print(f"k1 ok: {RAYS_TIMED} rays/launch, kernel {k1_ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms ({smi})", flush=True)
+          f"{plain_ms:.4f} ms, bound {k1_bound:.4f} ms ({k1_by}) ({smi})",
+          flush=True)
 
     # ---- 4. golden --------------------------------------------------------
     golden_path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -216,7 +309,7 @@ def main(record_path=None):
         dump()
         _fail("golden: the kernel-rendered Cornell box misses the golden")
 
-    # ---- 5. the main path ---------------------------------------------------
+    # ---- 5. the Cornell path -------------------------------------------------
     width, height, spp = 1920, 1080, 4
     cfg = PathTracerConfig(max_bounces=4, nee=NEEMode.POWER,
                            ray_chunk=1 << 18)
@@ -233,7 +326,7 @@ def main(record_path=None):
         rays = rays + out["ray_count"]
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launched = dict(kernels.launches)
+    cornell_launches = dict(kernels.launches)
     rays = int(rays)
     hdr = acc / spp
     finite = bool(torch.isfinite(hdr).all())
@@ -242,32 +335,481 @@ def main(record_path=None):
     ms_frame = dt / spp * 1e3
     record["main"] = dict(res=f"{width}x{height}", spp_timed=spp,
                           bounces=cfg.max_bounces, chunks=n_chunks,
-                          launches=launched, expected=want, rays=rays,
-                          seconds=dt, mrays_per_s=mrays,
+                          launches=cornell_launches, expected=want,
+                          rays=rays, seconds=dt, mrays_per_s=mrays,
                           ms_per_frame_1spp=ms_frame,
                           L_mean=float(hdr.mean()), finite=finite,
                           tier=out["kernel_tier"], card=smi)
     print(f"main: Cornell {width}x{height} {cfg.max_bounces} bounces, "
           f"{spp} spp: {mrays:.3f} Mrays/s, {ms_frame:.3f} ms per 1-spp "
-          f"frame, {rays} rays, K1 launches {launched.get('bounce_fused', 0)}"
-          f" of {want}, mean L {float(hdr.mean()):.5f} ({smi})", flush=True)
-    if launched.get("bounce_fused", 0) != want or not finite \
+          f"frame, {rays} rays, K1 launches "
+          f"{cornell_launches.get('bounce_fused', 0)} of {want}, mean L "
+          f"{float(hdr.mean()):.5f} ({smi})", flush=True)
+    if cornell_launches.get("bounce_fused", 0) != want or not finite \
             or out["kernel_tier"] != "fused":
         dump()
-        _fail("main: the main path did not run every bounce through K1 "
+        _fail("main: the Cornell path did not run every bounce through K1 "
               "or gave non-finite values")
     dump()
 
-    kernel_line = {"kernels": [{
-        "name": "bounce_fused", "route": "cuda",
-        "source": "rtxpt_tpu_torch/csrc/bounce_fused.cu",
-        "replaces": "rtxpt_tpu/pt/bounce_pallas.py:1389",
-        "launches": launched["bounce_fused"], "max_abs_err": max_err,
-        "ms": k1_ms, "plain_ms": plain_ms}]}
-    print(json.dumps(kernel_line), flush=True)
+    # ---- 6-8. the city ----------------------------------------------------
+    clustered = _clustered_kernels(record, dev, smi, dump)
+    _city_parity(record, dev, dump)
+    city_launches = _city_path(record, dev, smi, dump, clustered["scene"])
+
+    entries = [dict(
+        name="bounce_fused", route="cuda",
+        source="rtxpt_tpu_torch/csrc/bounce_fused.cu",
+        replaces="rtxpt_tpu/pt/bounce_pallas.py:1389",
+        launches=cornell_launches["bounce_fused"], max_abs_err=k1_err,
+        ms=k1_ms, plain_ms=plain_ms, bound_ms=k1_bound, bound_by=k1_by,
+        library_ms=None)]
+    for name, entry in clustered["kernels"].items():
+        entries.append(dict(entry, launches=city_launches.get(name, 0)))
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def _city_host(seed=CITY_SEED):
+    from rtxpt_tpu_torch.scene.procedural import city_overview, city_scene
+    return city_overview(city_scene(CITY_TRIS, seed=seed))
+
+
+def _clustered_kernels(record, dev, smi, dump):
+    """Phase 6: K3, K4 and K5 against their plain versions, and their
+    times. Returns dict(scene=(host, scene, prepare seconds),
+    kernels={name: partial kernel-line entry})."""
+    import torch
+
+    from rtxpt_tpu_torch.config import NEEMode, PathTracerConfig
+    from rtxpt_tpu_torch.prepare import prepare
+    from rtxpt_tpu_torch.pt import bounce_clustered as BC
+    from rtxpt_tpu_torch.pt import bounce_fused as bf
+    from rtxpt_tpu_torch.pt import dispatch
+    from rtxpt_tpu_torch.pt.integrator import _pixel_grid, camera_rays
+    from rtxpt_tpu_torch.scene.procedural import default_camera
+
+    t0 = time.perf_counter()
+    host = _city_host()
+    scene = prepare(host, device=dev)
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    tbl = scene.cluster_tables
+    cfg = dispatch.resolve(scene, PathTracerConfig(
+        max_bounces=4, nee=NEEMode.POWER, ray_chunk=1 << 30), dev)
+    kcfg = bf.KernelConfig.from_cfg(cfg)
+    kslots, pages = cfg.cluster_kslots, cfg.cluster_pages
+    max_travel = float(cfg.max_ray_travel)
+    bounds = BC.scene_bounds(tbl)
+    sample = 1
+    print(f"clustered: city {tbl.n_tris} triangles, {tbl.n_clusters} "
+          f"clusters, {tbl.n_lights} lights, prepare {prep_s:.2f}s, kslots "
+          f"{kslots}, pages {pages}", flush=True)
+    if pages != CITY_PAGES:
+        _fail(f"clustered: the city resolves to {pages} pages, not "
+              f"{CITY_PAGES}")
+
+    def camera_state(cols, rows):
+        """Camera rays of a cols x rows grid of the city frame's pixels."""
+        w, h = CITY_FRAME
+        cam = default_camera(host, w, h, device=dev)
+        px, py = _pixel_grid(cols, rows, dev)
+        px, py = px * w // cols, py * h // rows
+        o, d, spread = camera_rays(cam, cfg, px, py, sample)
+        fs, is_ = bf.initial_state(o, d, spread, px, py)
+        return fs, is_, torch.arange(fs.shape[1], dtype=torch.int32,
+                                     device=dev)
+
+    def closest_inputs(fs, is_):
+        od = BC.ray_operand(fs, is_)
+        cand, _ = BC.cull(fs[bf.FS_O:bf.FS_O + 3], fs[bf.FS_D:bf.FS_D + 3],
+                          is_[bf.IS_ACTIVE] > 0, max_travel, tbl, kslots)
+        return od, cand
+
+    def shadow_inputs(sh):
+        shp, _ = BC.sort_shadows(sh, bounds)
+        dop = shp[BC.SH_DO] > 0.5
+        cand, _ = BC.cull(shp[BC.SH_O:BC.SH_O + 3], shp[BC.SH_D:BC.SH_D + 3],
+                          dop, torch.where(dop, shp[BC.SH_DIST], -3e38), tbl,
+                          kslots)
+        return shp, cand
+
+    # comparison: 65,536 camera rays, bounces 0 and 2, every page; the
+    # plain versions' results carry the state, as on the city path. The
+    # paged loops call the module's closest_hit and occlusion: these run
+    # both versions, keep the pair and return the plain result.
+    rec = {}
+    err = dict(cluster_closest=0.0, cluster_shade=0.0, cluster_shadow=0.0)
+    fs, is_, src = camera_state(CMP_SIDE, CMP_SIDE)
+    cmp_groups = fs.shape[1] // BC.FL
+    plain_in = {}
+    pairs = dict(k3=[], k5=[])
+
+    kernel_closest, kernel_occlusion = BC.closest_hit, BC.occlusion
+
+    def closest_both(cand, od, blocks, kslots_, max_travel_, noprune):
+        ha_p, vis_p = BC.closest_hit_reference(cand, od, blocks, kslots_,
+                                               max_travel_, noprune, True)
+        plain_in.setdefault("cand", cand)
+        plain_in.setdefault("od", od)
+        if compare:
+            pairs["k3"].append((kernel_closest(
+                cand, od, blocks, kslots_, max_travel_, noprune, True),
+                (ha_p, vis_p)))
+        return ha_p
+
+    def occluded_both(cand, shp_, blocks, kslots_):
+        occ_p, tst_p = BC.occlusion_reference(cand, shp_, blocks, kslots_,
+                                              True)
+        plain_in.setdefault("cand_s", cand)
+        plain_in.setdefault("shp", shp_)
+        if compare:
+            pairs["k5"].append((kernel_occlusion(cand, shp_, blocks, kslots_,
+                                                 True), (occ_p, tst_p)))
+        return occ_p
+
+    for b in range(3):
+        compare = b in (0, 2)
+        pairs = dict(k3=[], k5=[])
+        fs, is_, src = BC.sort_wavefront(fs, is_, src, b == 0, bounds)
+        BC.closest_hit, BC.occlusion = closest_both, occluded_both
+        try:
+            ha_p, _ = BC.closest_paged(fs, is_, tbl, kslots, pages,
+                                       max_travel)
+            sh_out = BC.shade_reference(ha_p, fs, is_, tbl, kcfg, sample)
+            plain_in.setdefault("ha", ha_p)
+            plain_in.setdefault("fs", fs)
+            plain_in.setdefault("is_", is_)
+            shp, perm = BC.sort_shadows(sh_out[2], bounds)
+            occ, _ = BC.occluded_paged(shp, tbl, kslots, pages)
+        finally:
+            BC.closest_hit, BC.occlusion = kernel_closest, kernel_occlusion
+        # the state carried onward, with the NEE add of the city path
+        ok_nee = (sh_out[2][BC.SH_DO] > 0.5) \
+            & (BC.unsort_rows(perm, occ[None])[0] < 0.5)
+        fs_next = sh_out[0].clone()
+        fs_next[bf.FS_L:bf.FS_L + 3] += torch.where(
+            ok_nee, sh_out[2][BC.SH_CONTRIB:BC.SH_CONTRIB + 3], 0.0)
+        if not compare:
+            fs, is_ = fs_next, sh_out[1]
+            continue
+        k4 = BC.shade(ha_p, fs, is_, tbl, kcfg, sample)
+        torch.cuda.synchronize()
+        k3s = dict(int_lanes_equal=1.0, worst_float_row=1.0,
+                   visits_equal=True, visits=0, pages=len(pairs["k3"]))
+        for (ha_k, vis_k), (ha_q, vis_q) in pairs["k3"]:
+            prim_eq = ha_k[BC.HA_PRIM] == ha_q[BC.HA_PRIM]
+            s3, e3 = _compare(dict(ha=ha_k[BC.HA_T:BC.HA_FRONT + 1]),
+                              dict(ha=ha_q[BC.HA_T:BC.HA_FRONT + 1]),
+                              prim_eq)
+            k3s["int_lanes_equal"] = min(k3s["int_lanes_equal"],
+                                         s3["int_lanes_equal"])
+            k3s["worst_float_row"] = min(k3s["worst_float_row"],
+                                         s3["worst_float_row"])
+            k3s["visits_equal"] &= bool(torch.equal(vis_k, vis_q))
+            k3s["visits"] += int(vis_q.sum())
+            err["cluster_closest"] = max(err["cluster_closest"], e3)
+        k3s["hit_share"] = float((ha_p[BC.HA_PRIM] >= 0).float().mean())
+        k4s, e4 = _compare_state((k4[0], k4[1], k4[3]),
+                                 (sh_out[0], sh_out[1], sh_out[3]))
+        shs, e4s = _compare(dict(sh=k4[2]), dict(sh=sh_out[2]),
+                            (k4[1] == sh_out[1]).all(0))
+        k4s.update(worst_sh_row=shs["worst_float_row"])
+        err["cluster_shade"] = max(err["cluster_shade"], e4, e4s)
+        requested = shp[BC.SH_DO] > 0.5
+        k5s = dict(occ_lanes_equal=1.0, tests_equal=True,
+                   requests=int(requested.sum()), pages=len(pairs["k5"]))
+        for (occ_k, tst_k), (occ_q, tst_q) in pairs["k5"]:
+            k5s["occ_lanes_equal"] = min(k5s["occ_lanes_equal"], float(
+                (occ_k == occ_q).float().mean()))
+            k5s["tests_equal"] &= bool(torch.equal(tst_k, tst_q))
+            err["cluster_shadow"] = max(err["cluster_shadow"], float(
+                (occ_k - occ_q).abs().max()))
+        rec[f"bounce{b}"] = dict(k3=k3s, k4=k4s, k5=k5s)
+        print(f"clustered bounce {b}: K3 prim equal "
+              f"{k3s['int_lanes_equal']:.6f}, worst t/u/v/front row "
+              f"{k3s['worst_float_row']:.6f}, visits equal "
+              f"{k3s['visits_equal']} over {k3s['pages']} pages, hit share "
+              f"{k3s['hit_share']:.4f}; K4 int lanes "
+              f"{k4s['int_lanes_equal']:.6f}, worst float row "
+              f"{min(k4s['worst_float_row'], shs['worst_float_row']):.6f}, "
+              f"L mean rel {k4s['L_mean_rel']:.3g}; K5 occlusion equal "
+              f"{k5s['occ_lanes_equal']:.6f} over {k5s['requests']} "
+              f"requests, tests equal {k5s['tests_equal']}", flush=True)
+        ok = (k3s["int_lanes_equal"] >= LANE_FRACTION
+              and k3s["worst_float_row"] >= LANE_FRACTION
+              and _state_ok(k4s)
+              and shs["worst_float_row"] >= LANE_FRACTION
+              and k5s["occ_lanes_equal"] >= LANE_FRACTION)
+        if not ok:
+            record["clustered"] = rec
+            dump()
+            _fail(f"clustered: a kernel disagrees with its plain version "
+                  f"at bounce {b}")
+        fs, is_ = fs_next, sh_out[1]
+
+    # plain versions timed at the comparison width (65,536 rays, bounce 0)
+    pin = plain_in
+    plain_ms = dict(
+        cluster_closest=_cuda_ms(lambda: BC.closest_hit_reference(
+            pin["cand"], pin["od"], tbl.blocks, kslots, max_travel), 1),
+        cluster_shade=_cuda_ms(lambda: BC.shade_reference(
+            pin["ha"], pin["fs"], pin["is_"], tbl, kcfg, sample), 3),
+        cluster_shadow=_cuda_ms(lambda: BC.occlusion_reference(
+            pin["cand_s"], pin["shp"], tbl.blocks, kslots), 1))
+
+    # kernels timed at the city path's 1080p bounce-0 launch
+    fs, is_, src = camera_state(*CITY_FRAME)
+    fs, is_, src = BC.sort_wavefront(fs, is_, src, True, bounds)
+    od, cand = closest_inputs(fs, is_)
+    g = cand.shape[0]
+    n = g * BC.FL
+    ms = {}
+    ms["cluster_closest"] = _cuda_ms(lambda: BC.closest_hit(
+        cand, od, tbl.blocks, kslots, max_travel), 3)
+    ha, visits = BC.closest_hit(cand, od, tbl.blocks, kslots, max_travel,
+                                stats=True)
+    ms["cluster_shade"] = _cuda_ms(lambda: BC.shade(
+        ha, fs, is_, tbl, kcfg, sample), 10)
+    sh = BC.shade(ha, fs, is_, tbl, kcfg, sample)[2]
+    shp, cand_s = shadow_inputs(sh)
+    ms["cluster_shadow"] = _cuda_ms(lambda: BC.occlusion(
+        cand_s, shp, tbl.blocks, kslots), 3)
+    _, tests = BC.occlusion(cand_s, shp, tbl.blocks, kslots, stats=True)
+
+    # bounds at that launch: each input read once (the blocks' staged rows
+    # once per distinct cluster), each output written once; operations:
+    # every active lane against every triangle of each slot its group
+    # visited (K3), the pairs K5's lanes tested up to their first occluder
+    active_g = (is_[bf.IS_ACTIVE] > 0).view(g, BC.FL).sum(1)
+    slots = torch.arange(kslots, device=dev)[None]
+    ids = cand[:, 0, 1:1 + kslots]
+    k3_clusters = int(torch.unique(ids[slots < visits[:, None]]).numel())
+    hits = int((ha[BC.HA_PRIM] >= 0).sum())
+    k3_bytes = 4 * (cand.numel() + od.numel() + ha.numel() + 42 * hits) \
+        + STAGED_BLOCK_BYTES * k3_clusters
+    k3_pairs = int((active_g * visits).sum()) * 128
+    k4_bytes = 4 * n * (BC.HA_ROWS + 2 * (bf.NF + bf.NI) + BC.SH_ROWS
+                        + bf.NH) + 4 * (tbl.mat_rows.numel()
+                                        + tbl.light_rows.numel())
+    ids_s = cand_s[:, 0, 1:1 + kslots]
+    k5_clusters = int(torch.unique(
+        ids_s[slots < cand_s[:, 0, :1]]).numel())
+    k5_bytes = 4 * (cand_s.numel() + 9 * n) \
+        + STAGED_BLOCK_BYTES * k5_clusters
+    k5_pairs = int(tests.sum())
+    bounds_ms = dict(
+        cluster_closest=_bound(k3_bytes, f32=k3_pairs * K3_PAIR_F32,
+                               tf32=k3_pairs * PAIR_TF32,
+                               bf16=k3_pairs * PAIR_BF16),
+        cluster_shade=_bound(k4_bytes),
+        cluster_shadow=_bound(k5_bytes, f32=k5_pairs * K5_PAIR_F32,
+                              tf32=k5_pairs * PAIR_TF32,
+                              bf16=k5_pairs * PAIR_BF16))
+    launch = dict(groups=g, active=int(active_g.sum()),
+                  visits=int(visits.sum()), k3_clusters=k3_clusters,
+                  k3_pairs=k3_pairs,
+                  shadow_requests=int((shp[BC.SH_DO] > 0.5).sum()),
+                  k5_pairs=k5_pairs, k5_clusters=k5_clusters)
+    rec.update(ms=ms, plain_ms=plain_ms, bounds=bounds_ms, launch=launch,
+               prepare_s=prep_s, card=smi)
+    record["clustered"] = rec
+    for name in ms:
+        terms = ", ".join(f"{k} {v:.4f}"
+                          for k, v in bounds_ms[name][2].items())
+        print(f"clustered {name}: kernel {ms[name]:.4f} ms at {g} groups, "
+              f"plain {plain_ms[name]:.4f} ms at {cmp_groups} groups, bound "
+              f"{bounds_ms[name][0]:.4f} ms ({bounds_ms[name][1]}; ms by "
+              f"term: {terms}) ({smi})", flush=True)
+    print(f"clustered launch: {json.dumps(launch)}", flush=True)
+    dump()
+
+    meta = dict(
+        cluster_closest=("rtxpt_tpu_torch/csrc/cluster_closest.cu",
+                         "rtxpt_tpu/pt/bounce_clustered.py:224"),
+        cluster_shade=("rtxpt_tpu_torch/csrc/cluster_shade.cu",
+                       "rtxpt_tpu/pt/bounce_clustered.py:462"),
+        cluster_shadow=("rtxpt_tpu_torch/csrc/cluster_shadow.cu",
+                        "rtxpt_tpu/pt/bounce_clustered.py:394"))
+    entries = {name: dict(name=name, route="cuda", source=src_, replaces=rep,
+                          max_abs_err=err[name], ms=ms[name],
+                          plain_ms=plain_ms[name],
+                          bound_ms=bounds_ms[name][0],
+                          bound_by=bounds_ms[name][1], library_ms=None)
+               for name, (src_, rep) in meta.items()}
+    return dict(scene=(host, scene, prep_s), kernels=entries)
+
+
+def _city_parity(record, dev, dump):
+    """Phase 7: the small city through the kernels against the plain
+    versions, both on the card."""
+    import torch
+
+    from rtxpt_tpu_torch import kernels
+    from rtxpt_tpu_torch.config import PathTracerConfig
+    from rtxpt_tpu_torch.prepare import prepare
+    from rtxpt_tpu_torch.pt import bounce_clustered as BC
+    from rtxpt_tpu_torch.pt.integrator import render
+    from rtxpt_tpu_torch.scene.procedural import city_scene, default_camera
+
+    host = city_scene(tri_budget=4000, seed=1, blocks=2)
+    scene = prepare(host, device=dev)
+    cam = default_camera(host, 48, 32, device=dev)
+    cfg = PathTracerConfig(max_bounces=3)
+    kernels.launches.clear()
+    img_k, _, rays_k = render(scene, cam, cfg, 48, 32, spp=2)
+    used = dict(kernels.launches)
+    swapped = (BC.closest_hit, BC.shade, BC.occlusion)
+    BC.closest_hit, BC.shade, BC.occlusion = (
+        BC.closest_hit_reference, BC.shade_reference, BC.occlusion_reference)
+    try:
+        img_p, _, rays_p = render(scene, cam, cfg, 48, 32, spp=2)
+    finally:
+        BC.closest_hit, BC.shade, BC.occlusion = swapped
+    close = torch.isclose(img_k, img_p, rtol=TOL, atol=TOL).all(-1)
+    share = float(close.float().mean())
+    mean_k, mean_p = float(img_k.mean()), float(img_p.mean())
+    rel = abs(mean_k - mean_p) / max(abs(mean_p), 1e-30)
+    finite = bool(torch.isfinite(img_k).all())
+    pages = SMALL_CITY_PAGES
+    want = dict(cluster_closest=pages * 3 * 2, cluster_shade=3 * 2,
+                cluster_shadow=pages * 3 * 2)
+    record["city_parity"] = dict(pixels_close=share, mean_kernel=mean_k,
+                                 mean_plain=mean_p, mean_rel=rel,
+                                 rays=(rays_k, rays_p), launches=used,
+                                 finite=finite)
+    print(f"city parity: 48x32 2 spp 3 bounces, pixels within {TOL} "
+          f"{share:.6f}, mean L {mean_k:.6f} vs {mean_p:.6f} (rel "
+          f"{rel:.3g}), rays {rays_k} vs {rays_p}, launches {used}",
+          flush=True)
+    if share < 0.99 or rel > MEAN_RTOL or not finite or any(
+            used.get(k, 0) != v for k, v in want.items()):
+        dump()
+        _fail("city parity: the kernels' city image misses the plain "
+              "versions'")
+
+
+def _city_path(record, dev, smi, dump, prepared):
+    """Phase 8: the city path at 1080p, then one profiled frame. Returns
+    the launch counts of the timed frames."""
+    import torch
+
+    from rtxpt_tpu_torch import kernels
+    from rtxpt_tpu_torch.config import NEEMode, PathTracerConfig
+    from rtxpt_tpu_torch.pt.integrator import render_sample
+    from rtxpt_tpu_torch.scene.procedural import default_camera
+
+    host, scene, prep_s = prepared
+    (width, height), spp = CITY_FRAME, 2
+    cfg = PathTracerConfig(max_bounces=4, nee=NEEMode.POWER,
+                           ray_chunk=1 << 30)
+    cam = default_camera(host, width, height, device=dev)
+    out = render_sample(scene, cam, cfg, width, height, 0)       # warm-up
+    torch.cuda.synchronize()
+    kernels.launches.clear()
+    t0 = time.perf_counter()
+    acc, rays, overflow = None, 0, 0
+    for s in range(1, 1 + spp):
+        out = render_sample(scene, cam, cfg, width, height, s)
+        acc = out["L"] if acc is None else acc + out["L"]
+        rays = rays + out["ray_count"]
+        overflow = overflow + out["cull_overflow"]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launched = dict(kernels.launches)
+    rays, overflow = int(rays), int(overflow)
+    hdr = acc / spp
+    finite = bool(torch.isfinite(hdr).all())
+    pages = CITY_PAGES
+    want = dict(cluster_closest=pages * cfg.max_bounces * spp,
+                cluster_shade=cfg.max_bounces * spp,
+                cluster_shadow=pages * cfg.max_bounces * spp)
+    mrays = rays / dt / 1e6
+    ms_frame = dt / spp * 1e3
+    rec = dict(res=f"{width}x{height}", spp_timed=spp,
+               bounces=cfg.max_bounces, launches=launched, expected=want,
+               rays=rays, seconds=dt, mrays_per_s=mrays,
+               ms_per_frame_1spp=ms_frame, cull_overflow=overflow,
+               occupancy=out["occupancy"].tolist(), prepare_s=prep_s,
+               L_mean=float(hdr.mean()), finite=finite,
+               tier=out["kernel_tier"], card=smi)
+    record["city"] = rec
+    print(f"city: {scene.cluster_tables.n_tris} triangles {width}x{height} "
+          f"{cfg.max_bounces} bounces, {spp} spp: {mrays:.3f} Mrays/s, "
+          f"{ms_frame:.3f} ms per 1-spp frame, {rays} rays, cull_overflow "
+          f"{overflow}, occupancy {rec['occupancy']}, prepare "
+          f"{prep_s:.2f}s, launches {launched} of {want}, mean L "
+          f"{rec['L_mean']:.5f} ({smi})", flush=True)
+    if any(launched.get(k, 0) != v for k, v in want.items()) or not finite \
+            or out["kernel_tier"] != "clustered":
+        dump()
+        _fail("city: the city path did not run every bounce through K3, "
+              "K4 and K5 or gave non-finite values")
+
+    # one profiled frame: device time by part, and the idle share
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        render_sample(scene, cam, cfg, width, height, spp + 1)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rec["split"], rec["profile_table"] = _split(prof, wall)
+    print(f"city split (one profiled frame, ms): "
+          f"{json.dumps(rec['split'])} ({smi})", flush=True)
+    dump()
+    return launched
+
+
+def _split(prof, wall_ms):
+    """Device time of one frame by part (ms): the named ranges (sort,
+    cull: the device time of the kernels they launched), the three
+    kernels, the rest, all kernels, and the idle share of the frame's
+    wall time; plus the profiler's table."""
+    from torch.autograd import DeviceType
+
+    def total(evt, *names):
+        for name in names:
+            if hasattr(evt, name):
+                return getattr(evt, name) / 1e3
+        return 0.0
+
+    parts = dict(sort=0.0, cull=0.0, k3=0.0, k4=0.0, k5=0.0)
+    spans = {}
+    busy = 0.0
+    events = prof.key_averages()
+    for evt in events:
+        key = evt.key
+        cuda = evt.device_type == DeviceType.CUDA
+        if key in ("rtxpt.sort", "rtxpt.cull"):
+            spans[f"{key}:{'cuda' if cuda else 'cpu'}"] = total(
+                evt, "device_time_total", "cuda_time_total")
+            continue
+        if not cuda:
+            continue
+        t = total(evt, "self_device_time_total", "self_cuda_time_total")
+        busy += t
+        for part, kernel in (("k3", "cluster_closest_kernel"),
+                             ("k4", "cluster_shade_kernel"),
+                             ("k5", "cluster_shadow_kernel")):
+            if kernel in key:
+                parts[part] += t
+    for part in ("sort", "cull"):
+        # the CPU range's device total counts its kernels; the profiler's
+        # device-side annotation of the same name spans them, gaps included
+        cpu = spans.get(f"rtxpt.{part}:cpu", 0.0)
+        parts[part] = cpu if cpu > 0 else spans.get(f"rtxpt.{part}:cuda",
+                                                    0.0)
+    parts["other"] = busy - sum(parts.values())
+    parts.update(device_busy=busy, wall=wall_ms,
+                 idle_share=max(0.0, 1.0 - busy / wall_ms), spans=spans)
+    try:
+        table = events.table(sort_by="self_device_time_total", row_limit=30)
+    except (AttributeError, KeyError, ValueError):
+        table = events.table(sort_by="self_cuda_time_total", row_limit=30)
+    return parts, table
 
 
 def _write_record(record, path):

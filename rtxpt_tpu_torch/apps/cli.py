@@ -4,6 +4,12 @@ reference mode only.
 Usage:
     python -m rtxpt_tpu_torch.apps.cli --scene cornell --device cuda \
         --width 512 --height 512 --spp 16 --bounces 6 --out cornell.png
+    python -m rtxpt_tpu_torch.apps.cli --scene city --device cuda \
+        --width 1920 --height 1080 --spp 4 --bounces 4 --out city.png
+
+The city (about --tri-budget triangles, 350,000 by default; seen from above
+the roofs) renders on the clustered tier; the other scenes fit the fused
+kernel's 2048 triangles.
 """
 
 from __future__ import annotations
@@ -13,23 +19,30 @@ import sys
 import time
 
 
-def build_scene(name: str):
+def build_scene(name: str, tri_budget: int = 350_000):
     from rtxpt_tpu_torch.scene import procedural
 
+    if name == "city":
+        # raised above the roofs: the scene's own camera is inside a tower
+        return procedural.city_overview(
+            procedural.city_scene(tri_budget=tri_budget))
     if name == "cornell":
         return procedural.cornell_box()
     if name == "furnace":
         return procedural.furnace_box()
     if name == "triangle":
         return procedural.single_triangle()
-    raise SystemExit(f"unknown scene {name!r} (cornell, furnace, triangle)")
+    raise SystemExit(f"unknown scene {name!r} (cornell, furnace, triangle, "
+                     f"city)")
 
 
 def main(argv=None):
     p = argparse.ArgumentParser(prog="rtxpt_tpu_torch",
                                 description="PyTorch/CUDA path tracer")
     p.add_argument("--scene", default="cornell",
-                   choices=["cornell", "furnace", "triangle"])
+                   choices=["cornell", "furnace", "triangle", "city"])
+    p.add_argument("--tri-budget", type=int, default=350_000,
+                   help="city: about this many triangles")
     p.add_argument("--width", type=int, default=512)
     p.add_argument("--height", type=int, default=512)
     p.add_argument("--spp", type=int, default=16)
@@ -45,8 +58,8 @@ def main(argv=None):
     p.add_argument("--hdr", default=None, help="also dump linear HDR .npy")
     p.add_argument("--seed", type=int, default=0, help="first sample index")
     p.add_argument("--device", default="cuda",
-                   help="torch device: cuda (the CUDA kernel) or cpu (its "
-                        "plain PyTorch version)")
+                   help="torch device: cuda (the CUDA kernels) or cpu (their "
+                        "plain PyTorch versions)")
     args = p.parse_args(argv)
     if args.spp < 1:
         p.error("--spp must be >= 1")
@@ -66,12 +79,12 @@ def main(argv=None):
     from rtxpt_tpu_torch.utils.image import save_png
 
     dev = rtxpt_tpu_torch.device(args.device)
-    host = build_scene(args.scene)
+    host = build_scene(args.scene, args.tri_budget)
     t0 = time.time()
     scene = prepare(host, device=dev)
-    print(f"[prepare] {scene.bounce_tables.n_tris} tris, "
-          f"{scene.lights.count} lights, {time.time() - t0:.2f}s",
-          file=sys.stderr)
+    tables = scene.cluster_tables or scene.bounce_tables
+    print(f"[prepare] {tables.n_tris} tris, {scene.lights.count} lights, "
+          f"{time.time() - t0:.2f}s", file=sys.stderr)
     cam = default_camera(host, args.width, args.height, device=dev)
     cfg = PathTracerConfig(
         max_bounces=args.bounces,

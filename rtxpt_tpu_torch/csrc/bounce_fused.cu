@@ -25,6 +25,7 @@
 #include <cuda_runtime.h>
 
 #include "bounce_fused.cuh"
+#include "rt_error.cuh"
 
 namespace {
 
@@ -71,8 +72,4 @@ extern "C" int rtxpt_bounce_fused(
   bounce_fused_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       fs, is, fs_out, is_out, hit_out, tb, cfg, n);
   return (int)cudaGetLastError();
-}
-
-extern "C" const char* rtxpt_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
 }

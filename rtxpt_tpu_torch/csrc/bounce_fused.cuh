@@ -201,8 +201,11 @@ RT_HD void store_state(int i, int n, const RayState& s, float* __restrict__ fs_o
 // emissive-hit MIS, one NEE light sample + BSDF eval, BSDF scatter, medium
 // stack, Russian roulette. Advances `s` to the next bounce and returns the
 // shadow ray; the caller resolves its occlusion and adds `contrib`.
-RT_HD ShadowRay surface_and_shade(RayState& s, const Hit& h, const Tables& tb,
-                                  const Config& cfg) {
+// `A(r)` fetches the hit's attribute row r (AT_*): K1 reads the attribute
+// table by prim, K4 (cluster_shade.cu) reads K3's HA rows.
+template <class AttrFetch>
+RT_HD ShadowRay surface_and_shade(RayState& s, const Hit& h, const AttrFetch& A,
+                                  const Tables& tb, const Config& cfg) {
   const bool use_nee = (cfg.nee_mode == 1 || cfg.nee_mode == 2) && tb.n_lights > 0;
   const bool nee_uniform = cfg.nee_mode == 1;
   const V3 d = s.d;
@@ -210,8 +213,6 @@ RT_HD ShadowRay surface_and_shade(RayState& s, const Hit& h, const Tables& tb,
   const bool hit = t < kBig;
   const bool front = h.det > 0.0f;
   const float bu = h.u, bv = h.v;
-  const int tp = tb.tpad;
-  auto A = [&](int r) { return h.prim >= 0 ? RT_LDG(tb.attr + r * tp + h.prim) : 0.0f; };
   auto A3 = [&](int r) { return v3(A(r), A(r + 1), A(r + 2)); };
   const int lb = s.lb;
 
@@ -374,7 +375,10 @@ RT_HD void bounce_ray(int i, int n, const float* __restrict__ fs, const int* __r
                       float* __restrict__ hit_out, const Tables& tb, const Config& cfg) {
   RayState s = load_state(i, n, fs, is);
   Hit h = intersect(tb, s.o, s.d, cfg.max_travel);
-  ShadowRay sr = surface_and_shade(s, h, tb, cfg);
+  auto attr = [&](int r) {
+    return h.prim >= 0 ? RT_LDG(tb.attr + r * tb.tpad + h.prim) : 0.0f;
+  };
+  ShadowRay sr = surface_and_shade(s, h, attr, tb, cfg);
   if (sr.do_nee && !occluded(tb, sr.o, sr.d, sr.dist)) s.L = s.L + sr.contrib;
   store_state(i, n, s, fs_out, is_out);
   float* ho = hit_out + i;

@@ -1,0 +1,196 @@
+// The clustered tier's per-lane math, shared by K3 (cluster_closest.cu) and
+// K5 (cluster_shadow.cu): the cluster block layout, the split-bf16 ray
+// operand, the intersection quantities of one staged block, the closest-hit
+// selection with its edge margins and tie bump, the strict any-hit test, and
+// the exact f32 refit of the winner. The plain versions of the same functions
+// are in rtxpt_tpu_torch/pt/bounce_clustered.py (_operand, _quantities,
+// closest_hit_reference, occlusion_reference, _refit); every expression keeps
+// their operation order, and the library is built with -fmad=false.
+#pragma once
+
+#include <stdint.h>
+#include <string.h>
+
+#include "wide.cuh"
+
+#ifdef __CUDACC__
+#include <cuda_bf16.h>
+#endif
+
+namespace rt {
+namespace cl {
+
+// Block layout [BLK_ROWS, LANES] f32 (rtxpt_tpu_torch/accel/cluster.py):
+// rows 0..9 coefficient hi, 10..19 coefficient lo, 20 the cluster center,
+// 21.. the attribute rows, logical row a at [21 + a / 4, (a % 4) * CT + j].
+constexpr int CT = 128;
+constexpr int BLK_ROWS = 32;
+constexpr int LANES = 4 * CT;
+constexpr int BLK_FLOATS = BLK_ROWS * LANES;
+constexpr int CENTER_ROW = 20;
+constexpr int ATTR_BASE = 21;
+constexpr int STAGE_ROWS = 21;      // what a visit reads: rows 0..20
+constexpr int FL = 1024;            // lanes of a ray group
+constexpr int R = 8;                // 128-lane rows of a group
+enum { AT_V0 = 0, AT_E1 = 3, AT_E2 = 6, AT_GIDX = 25, AT_VALID = 26 };
+
+// Row maps of pt/bounce_clustered.py
+enum { OD_D = 0, OD_OXD = 3, OD_O = 6, OD_ACT = 9, OD_ROWS = 10 };
+enum { HA_T = 0, HA_U = 1, HA_V = 2, HA_FRONT = 3, HA_PRIM = 4, HA_ATTR = 5,
+       HA_NATTR = 28, HA_UNK = 33, HA_INST = 34, HA_ROWS = 35 };
+enum { SH_O = 0, SH_D = 3, SH_DIST = 6, SH_CONTRIB = 7, SH_DO = 10,
+       SH_CDIFF = 11, SH_UA = 14, SH_ROWS = 15 };
+
+// HA row HA_ATTR + i holds cluster attribute row kAttrRows[i]
+// (bounce_clustered.ATTR_ROWS; tests/test_torch_cluster.py checks it).
+RT_CONST const int kAttrRows[HA_NATTR] = {
+    12, 13, 14, 15, 16, 17, 18, 19, 20, 9, 10, 11, 21, 22,
+    23, 24, 27, 28, 29, 30, 31, 32, 33, 34, 35, 36, 37, 38};
+
+// bounce_clustered.py constants, rounded to f32 as torch rounds a Python
+// scalar against an f32 tensor.
+constexpr float kMargin = (float)2e-3;
+constexpr float kTieScale = (float)(1.0 + 1e-4);
+constexpr float kRefitLo = (float)(-1e-3);
+constexpr float kRefitHi = (float)(1.0 + 1e-3);
+constexpr float kShadowScale = (float)(1.0 - 2e-4);
+constexpr float kMinDet = (float)1e-30;
+constexpr float kBigT = (float)1e30;
+
+// f32 -> bf16 -> f32, round to nearest even (torch's .to(torch.bfloat16)).
+RT_HD float bf16_round(float x) {
+#ifdef __CUDA_ARCH__
+  return __bfloat162float(__float2bfloat16_rn(x));
+#else
+  uint32_t u;
+  memcpy(&u, &x, 4);
+  u = (u + 0x7FFFu + ((u >> 16) & 1u)) & 0xFFFF0000u;
+  memcpy(&x, &u, 4);
+  return x;
+#endif
+}
+
+// The ray operand [d | o' x d | o' | 1] in the coordinates of a cluster with
+// center c (o' = o - c, o' x d = o x d - c x d), split into bf16 hi and f32
+// lo parts after the shift (bounce_clustered._operand).
+RT_HD void make_operand(V3 d, V3 oxd, V3 o, V3 c, float* hi, float* lo) {
+  const float cxd0 = c.y * d.z - c.z * d.y;
+  const float cxd1 = c.z * d.x - c.x * d.z;
+  const float cxd2 = c.x * d.y - c.y * d.x;
+  const float op[9] = {d.x, d.y, d.z, oxd.x - cxd0, oxd.y - cxd1,
+                       oxd.z - cxd2, o.x - c.x, o.y - c.y, o.z - c.z};
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    hi[k] = bf16_round(op[k]);
+    lo[k] = op[k] - hi[k];
+  }
+  hi[9] = 1.0f;
+  lo[9] = 0.0f;
+}
+
+// One quantity of triangle lane `lane` against the operand, over the
+// coefficient rows k0..k0+NK-1: c_hi*r_hi, then c_hi*r_lo, then c_lo*r_hi,
+// summed left to right (bounce_clustered._quantities, Q_ROWS).
+template <int K0, int NK>
+RT_HD float quantity(const float* blk, int lane, const float* hi, const float* lo) {
+  float acc = blk[K0 * LANES + lane] * hi[K0];
+#pragma unroll
+  for (int k = K0 + 1; k < K0 + NK; ++k) acc = acc + blk[k * LANES + lane] * hi[k];
+#pragma unroll
+  for (int k = K0; k < K0 + NK; ++k) acc = acc + blk[k * LANES + lane] * lo[k];
+#pragma unroll
+  for (int k = K0; k < K0 + NK; ++k) acc = acc + blk[(10 + k) * LANES + lane] * hi[k];
+  return acc;
+}
+
+// |det|, u, v, t numerators of triangle j, signed so that |det| >= 0.
+struct Quant {
+  float absd, su, sv, st;
+};
+
+RT_HD Quant quantities(const float* blk, int j, const float* hi, const float* lo) {
+  const float det = quantity<0, 3>(blk, j, hi, lo);
+  const float un = quantity<0, 6>(blk, CT + j, hi, lo);
+  const float vn = quantity<0, 6>(blk, 2 * CT + j, hi, lo);
+  const float tn = quantity<6, 4>(blk, 3 * CT + j, hi, lo);
+  const float s = det >= 0.0f ? 1.0f : -1.0f;
+  Quant q;
+  q.absd = det * s;
+  q.su = un * s;
+  q.sv = vn * s;
+  q.st = tn * s;
+  return q;
+}
+
+// Closest split-bf16 hit in one staged block: conservative edge margins,
+// strictly-inside candidates ahead of margin-only ones (tie bump), lowest
+// triangle index on ties. t_c = kBigT when nothing is valid.
+RT_HD void closest_in_block(const float* blk, const float* hi, const float* lo,
+                            float max_travel, float& t_c, int& j_c) {
+  t_c = kBigT;
+  j_c = 0;
+  for (int j = 0; j < CT; ++j) {
+    const Quant q = quantities(blk, j, hi, lo);
+    const float mm = kMargin * q.absd;
+    const bool valid = q.absd > kMinDet && q.su >= -mm && q.sv >= -mm &&
+                       q.su + q.sv <= q.absd + mm + mm && q.st > 0.0f &&
+                       q.st < max_travel * q.absd;
+    const bool strict = q.su >= 0.0f && q.sv >= 0.0f && q.su + q.sv <= q.absd;
+    float tt = q.st * (1.0f / max_(q.absd, kMinDet));
+    tt = tt * (strict ? 1.0f : kTieScale);
+    if (valid && tt < t_c) {
+      t_c = tt;
+      j_c = j;
+    }
+  }
+}
+
+// Any triangle of the staged block strictly inside, at 0 < t < dist. Adds the
+// triangles tested (up to and including the first occluder) to `tested`.
+RT_HD bool occluded_in_block(const float* blk, const float* hi, const float* lo,
+                             float dist, int& tested) {
+  for (int j = 0; j < CT; ++j) {
+    const Quant q = quantities(blk, j, hi, lo);
+    if (q.absd > kMinDet && q.su >= 0.0f && q.sv >= 0.0f &&
+        q.su + q.sv <= q.absd && q.st > 0.0f && q.st < dist * q.absd) {
+      tested += j + 1;
+      return true;
+    }
+  }
+  tested += CT;
+  return false;
+}
+
+// Exact f32 refit of the winner (bounce_clustered._refit). v0, e1, e2 are
+// cluster-local, o_local = o - center. Writes t (kBigT unless hit), u, v,
+// det and returns whether the refit accepts the hit.
+struct Refit {
+  float t, u, v, det;
+  bool ok;
+};
+
+RT_HD Refit refit(V3 o_local, V3 d, V3 v0, V3 e1, V3 e2, float max_travel) {
+  const V3 pvec = cross3(d, e2);
+  const float detx = dot3(e1, pvec);
+  const bool ok = fabsf(detx) > kMinDet;
+  const float inv = ok ? 1.0f / detx : 0.0f;
+  const V3 tvec = o_local - v0;
+  float u = dot3(tvec, pvec) * inv;
+  const V3 qvec = cross3(tvec, e1);
+  float v = dot3(d, qvec) * inv;
+  const float tx = dot3(e2, qvec) * inv;
+  Refit r;
+  r.ok = ok && u >= kRefitLo && v >= kRefitLo && u + v <= kRefitHi &&
+         tx > 0.0f && tx < max_travel;
+  u = clamp_(u, 0.0f, 1.0f);
+  v = clamp_(v, 0.0f, 1.0f);
+  const float scale = 1.0f / max_(u + v, 1.0f);
+  r.u = u * scale;
+  r.v = v * scale;
+  r.t = tx;
+  r.det = detx;
+  return r;
+}
+
+}  // namespace cl
+}  // namespace rt

@@ -1,0 +1,125 @@
+// K3, the clustered closest-hit kernel, written by hand for Hopper (sm_90a).
+//
+// Replaces rtxpt_tpu/pt/bounce_clustered.py::_kernel_a1 (launched there by
+// _kernel_a1_call, pl.pallas_call at bounce_clustered.py:1188), flat and
+// not instanced. Plain version: rtxpt_tpu_torch/pt/bounce_clustered.py
+// closest_hit_reference; wrapper: bounce_clustered.closest_hit.
+//
+// Design. One block of 1024 threads per 1024-lane ray group, one thread per
+// lane. The block walks the group's candidate clusters nearest first. Before
+// each slot a block-wide vote (__syncthreads_or) applies the prune: the slot
+// is visited only while some active lane's committed t (as int32 bits) is at
+// least the slot's hull entry distance; the vote is also the barrier that
+// frees the staging buffer. A visit stages the block's rows 0..20 (the
+// split-bf16 coefficients and the center, 43 KB) in shared memory with 16-byte
+// loads; each thread then builds its cluster-local operand and tests all 128
+// triangles, reading the coefficients as shared-memory broadcasts. A thread
+// keeps only (t, cluster, triangle) of its best candidate; the winner's
+// attribute rows are read from global memory once, after the loop, and the
+// winner is refit exactly in f32 (cluster.cuh).
+//
+// What bounds it: operations. A visit costs each lane 128 x (57 multiplies
+// and 53 adds of the split-bf16 quantities, 27 operations of the selection)
+// against 43 KB of staged data shared by 1024 lanes, so it is far above the
+// card's bytes-per-operation balance. The quantities are a bf16 matrix
+// product that tensor cores could take; the selection is f32 work either
+// way. Here both run on the f32 units: the shared-memory broadcasts (38 loads
+// per triangle) and -fmad=false (no fused multiply-add, for parity with the
+// plain version) double the instruction count. This first version keeps it
+// simple: one staging buffer (no
+// cp.async double buffering), no tensor cores, no compaction of inactive
+// lanes (they sort to the end of the wavefront, so their groups cull to
+// empty lists).
+#include <cuda_runtime.h>
+
+#include "cluster.cuh"
+#include "rt_error.cuh"
+
+namespace {
+
+using namespace rt;
+using namespace rt::cl;
+
+__global__ void __launch_bounds__(FL, 1)
+cluster_closest_kernel(const int* __restrict__ cand, const float* __restrict__ od,
+                       const float* __restrict__ blocks, float* __restrict__ ha,
+                       int* __restrict__ visits, int n, int cand_w, int kslots,
+                       float max_travel, int noprune) {
+  __shared__ __align__(16) float stage[STAGE_ROWS * LANES];
+  const int l = threadIdx.x;
+  const size_t i = (size_t)blockIdx.x * FL + l;
+  const int* cg = cand + (size_t)blockIdx.x * cand_w;
+  auto OD = [&](int r) { return od[(size_t)r * n + i]; };
+  const V3 d = v3(OD(OD_D), OD(OD_D + 1), OD(OD_D + 2));
+  const V3 oxd = v3(OD(OD_OXD), OD(OD_OXD + 1), OD(OD_OXD + 2));
+  const V3 o = v3(OD(OD_O), OD(OD_O + 1), OD(OD_O + 2));
+  const bool act = OD(OD_ACT) > 0.5f;
+
+  float best_t = kBigT;
+  int best_c = 0, best_j = 0;
+  const int count = cg[0];
+  int s = 0;
+  for (; s < count; ++s) {
+    const int te_bits = cg[1 + kslots + s];
+    const int bound_bits = act ? __float_as_int(best_t) : 0;
+    if (!__syncthreads_or(noprune || bound_bits >= te_bits)) break;
+    const int cid = cg[1 + s];
+    const float4* src = reinterpret_cast<const float4*>(blocks + (size_t)cid * BLK_FLOATS);
+    float4* dst = reinterpret_cast<float4*>(stage);
+    for (int k = l; k < STAGE_ROWS * LANES / 4; k += FL) dst[k] = src[k];
+    __syncthreads();
+    const V3 c = v3(stage[CENTER_ROW * LANES], stage[CENTER_ROW * LANES + CT],
+                    stage[CENTER_ROW * LANES + 2 * CT]);
+    float hi[10], lo[10];
+    make_operand(d, oxd, o, c, hi, lo);
+    float t_c;
+    int j_c;
+    closest_in_block(stage, hi, lo, max_travel, t_c, j_c);
+    if (t_c < best_t) {
+      best_t = t_c;
+      best_c = cid;
+      best_j = j_c;
+    }
+  }
+
+  if (visits != nullptr && l == 0) visits[blockIdx.x] = s;
+
+  // the winner's rows (zero when the lane has none), refit, HA rows out
+  const bool had = best_t < kBigT;
+  const float* wb = blocks + (size_t)best_c * BLK_FLOATS;
+  auto attr = [&](int a) {
+    return had ? wb[(ATTR_BASE + a / 4) * LANES + (a % 4) * CT + best_j] : 0.0f;
+  };
+  auto attr3 = [&](int a) { return v3(attr(a), attr(a + 1), attr(a + 2)); };
+  const V3 cen = had ? v3(wb[CENTER_ROW * LANES], wb[CENTER_ROW * LANES + CT],
+                          wb[CENTER_ROW * LANES + 2 * CT])
+                     : v3(0.0f, 0.0f, 0.0f);
+  const Refit r = refit(o - cen, d, attr3(AT_V0), attr3(AT_E1), attr3(AT_E2),
+                        max_travel);
+  const bool hit = had && r.ok && attr(AT_VALID) > 0.5f;
+  float* out = ha + i;
+  out[(size_t)HA_T * n] = hit ? r.t : kBigT;
+  out[(size_t)HA_U * n] = r.u;
+  out[(size_t)HA_V * n] = r.v;
+  out[(size_t)HA_FRONT * n] = hit ? r.det : -1.0f;
+  out[(size_t)HA_PRIM * n] = hit ? attr(AT_GIDX) : -1.0f;
+#pragma unroll
+  for (int k = 0; k < HA_NATTR; ++k) out[(size_t)(HA_ATTR + k) * n] = attr(kAttrRows[k]);
+  out[(size_t)HA_UNK * n] = 0.0f;
+  out[(size_t)HA_INST * n] = -1.0f;
+}
+
+}  // namespace
+
+// `visits` (NULL or [n_groups] i32) receives the slots each group visited.
+extern "C" int rtxpt_cluster_closest(const int* cand, const float* od,
+                                     const float* blocks, float* ha,
+                                     int* visits, int n_groups, int kslots,
+                                     float max_travel, int noprune,
+                                     void* stream) {
+  const int n = n_groups * FL;
+  const int cand_w = 1 + (2 + R) * kslots;
+  cluster_closest_kernel<<<n_groups, FL, 0, (cudaStream_t)stream>>>(
+      cand, od, blocks, ha, visits, n, cand_w, kslots, max_travel, noprune);
+  return (int)cudaGetLastError();
+}

@@ -2,7 +2,7 @@
 // rtxpt_tpu_torch/pt/wide.py): vec3 helpers, the StandardBSDF lobes with
 // Kulla-Conty energy compensation, and the triangle / point / spot /
 // directional light sample. Written once for every kernel that shades
-// (the fused bounce kernel now; the clustered shading kernel later).
+// (the fused bounce kernel K1 and the clustered shading kernel K4).
 //
 // Parity rules: every expression keeps the operation order of the plain
 // PyTorch version, the library is built with -fmad=false (no contraction),

@@ -12,12 +12,14 @@ versions do (the parity switch; see PERF.md for its cost).
 
 `launches` counts kernel launches by name; each wrapper adds one where it
 launches its kernel, so a run can show which kernels its path went
-through.
+through. `build_all()` builds every library at once, one nvcc process per
+source.
 """
 
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -131,3 +133,49 @@ BOUNCE_FUSED = CudaLibrary(
         #                                max_travel
         _I, _I, _I,                    # low_discrepancy, energy_comp, maxb
         _P]})                          # cudaStream_t
+
+
+# K3: the clustered closest-hit kernel (replaces rtxpt_tpu/pt/
+# bounce_clustered.py _kernel_a1); wrapper bounce_clustered.closest_hit.
+CLUSTER_CLOSEST = CudaLibrary(
+    "cluster_closest", ["cluster_closest.cu"],
+    {"rtxpt_cluster_closest": [
+        _P, _P, _P, _P, _P,            # cand, od, blocks, ha, visits|NULL
+        _I, _I, _F, _I,                # n_groups, kslots, max_travel, noprune
+        _P]})                          # cudaStream_t
+
+# K4: the clustered shading kernel (replaces _kernel_a2); wrapper
+# bounce_clustered.shade.
+CLUSTER_SHADE = CudaLibrary(
+    "cluster_shade", ["cluster_shade.cu"],
+    {"rtxpt_cluster_shade": [
+        _P, _P, _P, _P, _P, _P, _P,    # ha, fs, is_, fs_out, is_out, sh, hit
+        _P, _P,                        # mat, light rows
+        _I, _I, _U,                    # n, n_lights, sample_idx
+        _I, _I, _F, _I, _I,            # nee_mode, mis, firefly, rr, min_rr
+        _I, _I, _I,                    # low_discrepancy, energy_comp, maxb
+        _P]})                          # cudaStream_t
+
+# K5: the clustered shadow any-hit kernel (replaces _kernel_b1); wrapper
+# bounce_clustered.occlusion.
+CLUSTER_SHADOW = CudaLibrary(
+    "cluster_shadow", ["cluster_shadow.cu"],
+    {"rtxpt_cluster_shadow": [
+        _P, _P, _P, _P, _P,            # cand, sh, blocks, occ, tests|NULL
+        _I, _I,                        # n_groups, kslots
+        _P]})                          # cudaStream_t
+
+LIBRARIES = (BOUNCE_FUSED, CLUSTER_CLOSEST, CLUSTER_SHADE, CLUSTER_SHADOW)
+
+
+def build_all(libraries=LIBRARIES) -> dict:
+    """Build and bind every library, one nvcc process per source, all
+    started together; returns {name: seconds} and raises the first build
+    error."""
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(libraries)) as pool:
+        for fut in [pool.submit(lib.load) for lib in libraries]:
+            fut.result()
+    wall = time.perf_counter() - t0
+    return dict({lib.name: lib.build_seconds for lib in libraries},
+                wall=wall)

@@ -1,0 +1,689 @@
+"""The clustered tier for large scenes (counterpart of
+rtxpt_tpu/pt/bounce_clustered.py, the flat, non-instanced tier).
+
+Scenes above 2048 triangles have cluster tables (accel/cluster.py)
+instead of bounce tables. Each bounce of `trace_paths_clustered` runs:
+
+  1. the wavefront sort (pixel Morton key at bounce 0, ray coherence key
+     after; inactive lanes last);
+  2. `cull_candidates` (accel/cull.py) per 1024-lane group;
+  3. K3 `closest_hit`, once per page; pages merge by least t;
+  4. K4 `shade`: surface_and_shade on K3's hits, which emits the next
+     ray state and one NEE shadow request per lane;
+  5. the shadow-ray sort;
+  6. `cull_candidates` for the shadow rays;
+  7. K5 `occlusion`, once per page; pages merge by OR;
+  8. the unsort and the NEE add.
+
+K3, K4 and K5 are CUDA kernels written by hand for Hopper
+(csrc/cluster_closest.cu, cluster_shade.cu, cluster_shadow.cu) and
+replace the TPU kernels `_kernel_a1`, `_kernel_a2` and `_kernel_b1`.
+Beside each is its plain PyTorch version (`*_reference`); the wrapper
+runs the kernel for CUDA tensors and the plain version for CPU tensors.
+
+Layouts are the JAX package's row maps (OD_*, HA_*, SH_*), but flat:
+every row spans all N lanes ([rows, N] with N a multiple of 1024), and
+group g is lanes [1024 g, 1024 (g+1)). The JAX package's
+[G, rows, 1024] blocks are the same numbers in another memory order.
+
+The sorts and the culls run inside `torch.profiler.record_function`
+ranges named "rtxpt.sort" and "rtxpt.cull", so that a profile of a frame
+can split its device time (chip_smoke.py does).
+
+Choices against the JAX package (ROADMAP queue 3):
+  * F2: the sort carries the int state rows whole (no 12-bit packing).
+  * F4: the sort carries the ray cone and spread in f32 (no bf16
+    rounding); neither reaches the radiance of an untextured scene.
+  * F5: `cull_overflow` is, per bounce, the cull overflow of the final
+    page of the closest-hit cull plus that of the final page of the
+    shadow cull: the feasible clusters still past the last page's
+    boundary, i.e. geometry possibly missed. Summed over bounces.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch.profiler import record_function
+
+from rtxpt_tpu_torch import kernels
+from rtxpt_tpu_torch.accel import cluster as CL
+from rtxpt_tpu_torch.accel.cull import cull_candidates
+from rtxpt_tpu_torch.ops.wavefront import (
+    pixel_morton_key, ray_coherence_key, sort_rows_by_key, unsort_rows)
+from rtxpt_tpu_torch.pt import bounce_fused as bf
+from rtxpt_tpu_torch.pt import wide as W
+from rtxpt_tpu_torch.utils import rng
+
+CT = CL.CT
+R = 8                    # 128-lane rows per group
+FL = R * 128             # lanes per group (one CUDA block of K3 and K5)
+DEFAULT_KSLOTS = 64
+DEFAULT_PAGES = 2
+_BIG = bf._BIG
+
+# Split-bf16 selection margins, relative to |det|: the exact refit
+# re-tests the winner, so these only prevent false negatives at shared
+# edges. A margin-only candidate ties on t with the true hit across the
+# shared edge, so strictly-inside candidates win ties (_TIE_BUMP).
+MARGIN = 2e-3
+_TIE_BUMP = 1e-4
+REFIT_EPS = 1e-3         # refit acceptance band (barycentric units)
+SHADOW_T_EPS = 2e-4      # any-hit backoff for the split-bf16 t rounding
+
+# K3 ray operand rows [OD_ROWS, N] (global coordinates)
+OD_D = 0                 # 0:3 direction
+OD_OXD = 3               # 3:6 o x d
+OD_O = 6                 # 6:9 origin
+OD_ACT = 9               # active mask (gates the prune bound)
+OD_ROWS = 10
+
+# K3 -> K4 hit rows [HA_ROWS, N]
+HA_T = 0                 # closest t (_BIG = miss)
+HA_U = 1
+HA_V = 2
+HA_FRONT = 3             # winner det (refit-exact); > 0 = front face
+HA_PRIM = 4              # global triangle index (-1 = miss)
+HA_ATTR = 5              # + bf.AT_ROWS attribute rows (bf.AT_* order)
+HA_UNK = HA_ATTR + bf.AT_ROWS   # opacity micromaps: always 0 here
+HA_INST = HA_UNK + 1            # instancing: always -1 here
+HA_ROWS = HA_INST + 1
+
+# K4 -> K5 shadow request rows [SH_ROWS, N]
+SH_O = 0                 # 0:3 origin
+SH_D = 3                 # 3:6 direction
+SH_DIST = 6
+SH_CONTRIB = 7           # 7:10
+SH_DO = 10
+SH_CDIFF = 11            # 11:14 split channels: always 0 here
+SH_UA = 14               # opacity micromaps: always 0 here
+SH_ROWS = 15
+
+# bounce-table attribute row -> cluster attribute row
+_ATTR_MAP = {bf.AT_N0: CL.AT_N0, bf.AT_N1: CL.AT_N1, bf.AT_N2: CL.AT_N2,
+             bf.AT_GN: CL.AT_GN, bf.AT_MID: CL.AT_MID,
+             bf.AT_LPDF: CL.AT_LPDF, bf.AT_LAREA: CL.AT_LAREA,
+             bf.AT_ISLIGHT: CL.AT_ISLIGHT, bf.AT_LODB: CL.AT_LODB,
+             bf.AT_LID: CL.AT_LID, bf.AT_TANG: CL.AT_TANG,
+             bf.AT_TSGN: CL.AT_TSGN}
+for _j in range(2):
+    _ATTR_MAP[bf.AT_UV0 + _j] = CL.AT_UV0 + _j
+    _ATTR_MAP[bf.AT_UV1 + _j] = CL.AT_UV1 + _j
+    _ATTR_MAP[bf.AT_UV2 + _j] = CL.AT_UV2 + _j
+_ATTR_ROW_MAP = dict(_ATTR_MAP)
+for _base in (bf.AT_N0, bf.AT_N1, bf.AT_N2, bf.AT_GN, bf.AT_TANG):
+    for _j in range(1, 3):
+        _ATTR_ROW_MAP[_base + _j] = _ATTR_MAP[_base] + _j
+# the row order K3 writes: HA_ATTR + i holds cluster row ATTR_ROWS[i]
+ATTR_ROWS = tuple(_ATTR_ROW_MAP[i] for i in range(bf.AT_ROWS))
+
+# Non-zero coefficient rows of each quantity (det, u, v, t) against the
+# operand [d | o' x d | o' | 1] (accel/cluster.py): the products are
+# summed over these rows in this order, hi*hi, then hi*lo, then lo*hi,
+# by the plain versions and the kernels alike (csrc/cluster.cuh).
+Q_ROWS = ((0, 1, 2), (0, 1, 2, 3, 4, 5), (0, 1, 2, 3, 4, 5), (6, 7, 8, 9))
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions of K3, K4 and K5
+# ---------------------------------------------------------------------------
+
+
+def _center(blk):
+    """Cluster centers (cx, cy, cz) [g, 1] of blocks [g, 32, 512]."""
+    row = blk[:, CL.CENTER_ROW]
+    return row[:, 0:1], row[:, CT:CT + 1], row[:, 2 * CT:2 * CT + 1]
+
+
+def _operand(d, oxd, o, cx, cy, cz):
+    """Split-bf16 cluster-local ray operand: (hi, lo), 10 rows of [g, FL]
+    each. The operand is shifted (o' = o - c, (o x d)' = o x d - c x d)
+    and then split, so rounding scales with the cluster's extent."""
+    cxd = (cy * d[2] - cz * d[1], cz * d[0] - cx * d[2],
+           cx * d[1] - cy * d[0])
+    op = [d[0], d[1], d[2], oxd[0] - cxd[0], oxd[1] - cxd[1],
+          oxd[2] - cxd[2], o[0] - cx, o[1] - cy, o[2] - cz]
+    hi = [_bf16(x) for x in op]
+    lo = [x - h for x, h in zip(op, hi)]
+    one = torch.ones_like(op[0])
+    return hi + [one], lo + [torch.zeros_like(one)]
+
+
+def _quantities(blk, hi, lo):
+    """(det, u_num, v_num, t_num) [g, CT, FL] of every triangle of the
+    blocks [g, 32, 512] against the operand: c_hi*r_hi + c_hi*r_lo +
+    c_lo*r_hi, summed in f32 in the Q_ROWS order."""
+    out = []
+    for q, rows in enumerate(Q_ROWS):
+        lanes = slice(q * CT, (q + 1) * CT)
+        chi = [blk[:, k, lanes][:, :, None] for k in rows]
+        clo = [blk[:, 10 + k, lanes][:, :, None] for k in rows]
+        terms = ([c * hi[k][:, None] for c, k in zip(chi, rows)]
+                 + [c * lo[k][:, None] for c, k in zip(chi, rows)]
+                 + [c * hi[k][:, None] for c, k in zip(clo, rows)])
+        acc = terms[0]
+        for x in terms[1:]:
+            acc = acc + x
+        out.append(acc)
+    return out
+
+
+def _signed(det, un, vn, tn):
+    s = torch.where(det >= 0.0, 1.0, -1.0)
+    return det * s, un * s, vn * s, tn * s
+
+
+def closest_hit_reference(cand, od, blocks, kslots: int, max_travel: float,
+                          noprune: bool = False, stats: bool = False):
+    """K3's plain version (the function of `_kernel_a1`): for each group,
+    walk its candidate clusters nearest first (stopping once no active
+    lane's committed t reaches the next slot's hull entry), select each
+    lane's closest split-bf16 hit with the edge margins and the tie bump
+    (lowest triangle index, then earliest slot, wins ties), and refit the
+    winner exactly in f32.
+
+    cand [G,1,W] i32, od [OD_ROWS, N] f32 (N = G*FL), blocks [C,32,512]
+    -> ha [HA_ROWS, N] f32; with `stats`, (ha, visits [G] i32: the slots
+    each group visited)."""
+    G = cand.shape[0]
+    dev = od.device
+    odg = od.view(OD_ROWS, G, FL)
+    act = odg[OD_ACT] > 0.5
+    best_t = torch.full((G, FL), _BIG, dtype=torch.float32, device=dev)
+    best_c = torch.zeros((G, FL), dtype=torch.int64, device=dev)
+    best_j = torch.zeros((G, FL), dtype=torch.int64, device=dev)
+    iota = torch.arange(CT, device=dev)[None, :, None]
+    running = torch.ones((G,), dtype=torch.bool, device=dev)
+    visits = torch.zeros((G,), dtype=torch.int32, device=dev)
+    for i in range(kslots):
+        running = running & (i < cand[:, 0, 0])
+        if not noprune:
+            bound = torch.where(act, best_t, 0.0).view(torch.int32).amax(1)
+            running = running & (cand[:, 0, 1 + kslots + i] <= bound)
+        gs = running.nonzero()[:, 0]
+        if gs.numel() == 0:
+            break
+        visits += running
+        cid = cand[gs, 0, 1 + i].long()
+        blk = blocks[cid]
+        o = odg[OD_O:OD_O + 3, gs]
+        hi, lo = _operand(odg[OD_D:OD_D + 3, gs], odg[OD_OXD:OD_OXD + 3, gs],
+                          o, *_center(blk))
+        absd, su, sv, st = _signed(*_quantities(blk, hi, lo))
+        mm = MARGIN * absd
+        valid = ((absd > 1e-30) & (su >= -mm) & (sv >= -mm)
+                 & (su + sv <= absd + mm + mm)
+                 & (st > 0.0) & (st < max_travel * absd))
+        strict = (su >= 0.0) & (sv >= 0.0) & (su + sv <= absd)
+        tt = st * (1.0 / torch.clamp(absd, min=1e-30))
+        tt = tt * torch.where(strict, 1.0, 1.0 + _TIE_BUMP)
+        t_m = torch.where(valid, tt, _BIG)
+        t_c = t_m.amin(dim=1)                                 # [g, FL]
+        j_c = torch.where(t_m <= t_c[:, None], iota, CT).amin(dim=1)
+        improved = t_c < best_t[gs]
+        best_t[gs] = torch.where(improved, t_c, best_t[gs])
+        best_c[gs] = torch.where(improved, cid[:, None], best_c[gs])
+        best_j[gs] = torch.where(improved, j_c, best_j[gs])
+    ha = _refit(odg, blocks, best_t, best_c, best_j, max_travel)
+    return (ha, visits) if stats else ha
+
+
+def _winner_rows(blocks, best_c, best_j, had, rows):
+    """Cluster attribute rows `rows` of each lane's winner ([len, G, FL];
+    0 where the lane has no winner)."""
+    flat = blocks.view(blocks.shape[0], -1)
+    cols = torch.tensor([(CL.ATTR_BASE + a // 4) * CL.LANES + (a % 4) * CT
+                         for a in rows], device=blocks.device)
+    vals = flat[best_c[None], cols[:, None, None] + best_j[None]]
+    return torch.where(had[None], vals, 0.0)
+
+
+def _refit(odg, blocks, best_t, best_c, best_j, max_travel):
+    had = best_t < _BIG
+    cen_cols = torch.tensor([CL.CENTER_ROW * CL.LANES + a * CT
+                             for a in range(3)], device=blocks.device)
+    flat = blocks.view(blocks.shape[0], -1)
+    cen = torch.where(had[None], flat[best_c[None], cen_cols[:, None, None]],
+                      0.0)
+    geo = _winner_rows(blocks, best_c, best_j, had,
+                       tuple(range(CL.AT_V0, CL.AT_E2 + 3)))
+    v0, e1, e2 = geo[0:3], geo[3:6], geo[6:9]
+    ocl = odg[OD_O:OD_O + 3] - cen
+    dr = odg[OD_D:OD_D + 3]
+    pvec = W.cross3(dr, e2)
+    detx = W.dot3(e1, pvec)
+    ok = torch.abs(detx) > 1e-30
+    inv = torch.where(ok, 1.0 / torch.where(ok, detx, 1.0), 0.0)
+    tvec = ocl - v0
+    u = W.dot3(tvec, pvec) * inv
+    qvec = W.cross3(tvec, e1)
+    v = W.dot3(dr, qvec) * inv
+    tx = W.dot3(e2, qvec) * inv
+    exact_ok = (ok & (u >= -REFIT_EPS) & (v >= -REFIT_EPS)
+                & (u + v <= 1.0 + REFIT_EPS) & (tx > 0.0)
+                & (tx < max_travel))
+    extra = _winner_rows(blocks, best_c, best_j, had,
+                         (CL.AT_VALID, CL.AT_GIDX) + ATTR_ROWS)
+    hitr = had & exact_ok & (extra[0] > 0.5)
+    u = torch.clamp(u, 0.0, 1.0)
+    v = torch.clamp(v, 0.0, 1.0)
+    scale = 1.0 / torch.clamp(u + v, min=1.0)
+    u = u * scale
+    v = v * scale
+    G = best_t.shape[0]
+    ha = torch.cat([
+        torch.stack([torch.where(hitr, tx, _BIG), u, v,
+                     torch.where(hitr, detx, -1.0),
+                     torch.where(hitr, extra[1], -1.0)]),
+        extra[2:],
+        torch.zeros((1, G, FL), device=best_t.device),
+        torch.full((1, G, FL), -1.0, device=best_t.device)])
+    return ha.reshape(HA_ROWS, G * FL)
+
+
+def occlusion_reference(cand, sh, blocks, kslots: int, stats: bool = False):
+    """K5's plain version (the function of `_kernel_b1`): for each group,
+    walk its candidate clusters until every lane is occluded; a lane is
+    occluded by any triangle strictly inside (no margins) at
+    0 < t < dist * (1 - SHADOW_T_EPS). Lanes without a request (SH_DO 0)
+    count as occluded.
+
+    cand [G,1,W] i32, sh [SH_ROWS, N] f32 -> occ [N] f32 (1 occluded);
+    with `stats`, (occ, tests [G] i32: the ray-triangle pairs the group
+    tested, a lane's test of a slot ending at its first occluder)."""
+    G = cand.shape[0]
+    shg = sh.view(SH_ROWS, G, FL)
+    o = shg[SH_O:SH_O + 3]
+    d = shg[SH_D:SH_D + 3]
+    oxd = W.cross3(o, d)
+    dist = shg[SH_DIST] * (1.0 - SHADOW_T_EPS)
+    occ = torch.where(shg[SH_DO] > 0.5, 0.0, 1.0)
+    running = torch.ones((G,), dtype=torch.bool, device=sh.device)
+    tests = torch.zeros((G,), dtype=torch.int32, device=sh.device)
+    for i in range(kslots):
+        live = (occ < 0.5).sum(dim=1, dtype=torch.int32)
+        running = running & (i < cand[:, 0, 0]) & (live > 0)
+        gs = running.nonzero()[:, 0]
+        if gs.numel() == 0:
+            break
+        blk = blocks[cand[gs, 0, 1 + i].long()]
+        hi, lo = _operand(d[:, gs], oxd[:, gs], o[:, gs], *_center(blk))
+        absd, su, sv, st = _signed(*_quantities(blk, hi, lo))
+        valid = ((absd > 1e-30) & (su >= 0.0) & (sv >= 0.0)
+                 & (su + sv <= absd) & (st > 0.0)
+                 & (st < dist[gs][:, None] * absd))
+        hit = valid.any(dim=1)
+        # argmax gives the first occluder's index
+        tested = torch.where(hit, valid.to(torch.int32).argmax(dim=1) + 1, CT)
+        tests[gs] += torch.where(occ[gs] < 0.5, tested, 0).sum(
+            dim=1, dtype=torch.int32)
+        occ[gs] = torch.maximum(occ[gs], hit.float())
+    occ = occ.reshape(G * FL)
+    return (occ, tests) if stats else occ
+
+
+def shade_reference(ha, fs, is_, tables, kcfg: bf.KernelConfig,
+                    sample_idx: int):
+    """K4's plain version (the function of `_kernel_a2`): surface_and_shade
+    on K3's hits. ha [HA_ROWS, N], fs [NF, N], is_ [NI, N] ->
+    (fs_out [NF, N], is_out [NI, N], sh [SH_ROWS, N], hit [NH, N])."""
+    t = ha[HA_T]
+    hit = t < _BIG
+    front = ha[HA_FRONT] > 0.0
+
+    def attr(i, k=1):
+        return ha[HA_ATTR + i] if k == 1 else ha[HA_ATTR + i:HA_ATTR + i + k]
+
+    s = bf.surface_and_shade(
+        o=fs[bf.FS_O:bf.FS_O + 3], d=fs[bf.FS_D:bf.FS_D + 3], t=t, hit=hit,
+        front=front, bu=ha[HA_U], bv=ha[HA_V], attr=attr,
+        thp=fs[bf.FS_THP:bf.FS_THP + 3], L=fs[bf.FS_L:bf.FS_L + 3],
+        prev_pdf=fs[bf.FS_PREVPDF], cone=fs[bf.FS_CONE],
+        spread=fs[bf.FS_SPREAD], active=is_[bf.IS_ACTIVE] > 0,
+        prev_delta=is_[bf.IS_PREVDELTA] > 0,
+        med0=is_[bf.IS_MED0].to(torch.int64),
+        med1=is_[bf.IS_MED1].to(torch.int64), px=is_[bf.IS_PX],
+        py=is_[bf.IS_PY], budget=is_[bf.IS_BUDGET],
+        lb=is_[bf.IS_LBOUNCE].to(torch.int64), tables=tables, kcfg=kcfg,
+        sample_idx=sample_idx)
+    fs_out = torch.cat([s["o_new"], s["wi_world"], s["thp"], s["L"],
+                        s["prev_pdf"][None], s["cone"][None],
+                        s["spread"][None]], dim=0)
+    i32 = torch.int32
+    is_out = torch.stack([s["active"].to(i32), s["prev_delta"].to(i32),
+                          s["med0"].to(i32), s["med1"].to(i32),
+                          is_[bf.IS_PX], is_[bf.IS_PY], is_[bf.IS_BUDGET],
+                          s["lbounce"].to(i32)], dim=0)
+    do = s["do_nee"].to(torch.float32)
+    zeros = torch.zeros((4,) + t.shape, device=t.device)
+    sh = torch.cat([s["shadow_o"], s["shadow_d"], s["sdist"][None],
+                    s["contrib"], do[None], zeros], dim=0)
+    hit_out = torch.stack([torch.where(hit, t, 0.0), ha[HA_PRIM], ha[HA_U],
+                           ha[HA_V], front.to(torch.float32), do], dim=0)
+    return fs_out, is_out, sh, hit_out
+
+
+# ---------------------------------------------------------------------------
+# The wrappers
+# ---------------------------------------------------------------------------
+
+
+def _device_of(name, *tensors):
+    """The one device of a wrapper's tensors: the CPU (the plain version)
+    or CUDA (the kernel); any other device, or a mix, raises."""
+    dev = tensors[0].device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    for x in tensors[1:]:
+        if x.device != dev:
+            raise ValueError(f"{name}: tensors on {dev} and {x.device}; "
+                             f"all must be on the same device")
+    return dev
+
+
+def _check_cand(cand, kslots, dev):
+    g = cand.shape[0]
+    bf._check("cand", cand, torch.int32, (g, 1, 1 + (2 + R) * kslots), dev)
+
+
+def closest_hit(cand, od, blocks, kslots: int, max_travel: float,
+                noprune: bool = False, stats: bool = False):
+    """K3 (csrc/cluster_closest.cu) for CUDA tensors, its plain version
+    for CPU tensors. Arguments and results as in
+    `closest_hit_reference`."""
+    dev = _device_of("closest_hit", od, cand, blocks)
+    if dev.type == "cpu":
+        return closest_hit_reference(cand, od, blocks, kslots, max_travel,
+                                     noprune, stats)
+    g = cand.shape[0]
+    _check_cand(cand, kslots, dev)
+    bf._check("od", od, torch.float32, (OD_ROWS, g * FL), dev)
+    bf._check("blocks", blocks, torch.float32,
+              (blocks.shape[0], CL.BLK_ROWS, CL.LANES), dev)
+    ha = torch.empty((HA_ROWS, g * FL), dtype=torch.float32, device=dev)
+    visits = torch.zeros((g,), dtype=torch.int32, device=dev)
+    if g:
+        with torch.cuda.device(dev):
+            kernels.CLUSTER_CLOSEST.launch(
+                "rtxpt_cluster_closest", cand.data_ptr(), od.data_ptr(),
+                blocks.data_ptr(), ha.data_ptr(),
+                visits.data_ptr() if stats else None, g, kslots,
+                float(max_travel), int(noprune),
+                torch.cuda.current_stream(dev).cuda_stream)
+        kernels.launches["cluster_closest"] += 1
+    return (ha, visits) if stats else ha
+
+
+def occlusion(cand, sh, blocks, kslots: int, stats: bool = False):
+    """K5 (csrc/cluster_shadow.cu) for CUDA tensors, its plain version for
+    CPU tensors. Arguments and results as in `occlusion_reference`."""
+    dev = _device_of("occlusion", sh, cand, blocks)
+    if dev.type == "cpu":
+        return occlusion_reference(cand, sh, blocks, kslots, stats)
+    g = cand.shape[0]
+    _check_cand(cand, kslots, dev)
+    bf._check("sh", sh, torch.float32, (SH_ROWS, g * FL), dev)
+    bf._check("blocks", blocks, torch.float32,
+              (blocks.shape[0], CL.BLK_ROWS, CL.LANES), dev)
+    occ = torch.empty((g * FL,), dtype=torch.float32, device=dev)
+    tests = torch.zeros((g,), dtype=torch.int32, device=dev)
+    if g:
+        with torch.cuda.device(dev):
+            kernels.CLUSTER_SHADOW.launch(
+                "rtxpt_cluster_shadow", cand.data_ptr(), sh.data_ptr(),
+                blocks.data_ptr(), occ.data_ptr(),
+                tests.data_ptr() if stats else None, g, kslots,
+                torch.cuda.current_stream(dev).cuda_stream)
+        kernels.launches["cluster_shadow"] += 1
+    return (occ, tests) if stats else occ
+
+
+def shade(ha, fs, is_, tables, kcfg: bf.KernelConfig, sample_idx: int):
+    """K4 (csrc/cluster_shade.cu) for CUDA tensors, its plain version for
+    CPU tensors. Shapes as in `shade_reference`."""
+    dev = _device_of("shade", fs, ha, is_, tables.mat_rows,
+                     tables.light_rows)
+    if dev.type == "cpu":
+        return shade_reference(ha, fs, is_, tables, kcfg, sample_idx)
+    n = fs.shape[1]
+    bf._check("ha", ha, torch.float32, (HA_ROWS, n), dev)
+    bf._check("fs", fs, torch.float32, (bf.NF, n), dev)
+    bf._check("is_", is_, torch.int32, (bf.NI, n), dev)
+    bf._check("mat_rows", tables.mat_rows, torch.float32,
+              (bf.MT_ROWS, 128), dev)
+    bf._check("light_rows", tables.light_rows, torch.float32,
+              (W.LROWS, 128), dev)
+    if kcfg.nee_mode not in (0, 1, 2):
+        raise ValueError(f"shade: nee_mode {kcfg.nee_mode} not in (0, 1, 2)")
+    if tables.n_lights > bf.MAX_LIGHTS:
+        raise ValueError("shade: more lights than the kernel's table")
+    fs_out = torch.empty_like(fs)
+    is_out = torch.empty_like(is_)
+    sh = torch.empty((SH_ROWS, n), dtype=torch.float32, device=dev)
+    hit = torch.empty((bf.NH, n), dtype=torch.float32, device=dev)
+    if n == 0:
+        return fs_out, is_out, sh, hit
+    with torch.cuda.device(dev):
+        kernels.CLUSTER_SHADE.launch(
+            "rtxpt_cluster_shade", ha.data_ptr(), fs.data_ptr(),
+            is_.data_ptr(), fs_out.data_ptr(), is_out.data_ptr(),
+            sh.data_ptr(), hit.data_ptr(), tables.mat_rows.data_ptr(),
+            tables.light_rows.data_ptr(), n, tables.n_lights,
+            int(sample_idx) & rng.M32, kcfg.nee_mode, int(kcfg.enable_mis),
+            kcfg.firefly, int(kcfg.rr_enable), kcfg.min_rr,
+            int(kcfg.low_discrepancy), int(kcfg.energy_comp), kcfg.maxb,
+            torch.cuda.current_stream(dev).cuda_stream)
+    kernels.launches["cluster_shade"] += 1
+    return fs_out, is_out, sh, hit
+
+
+# ---------------------------------------------------------------------------
+# Wavefront loop
+# ---------------------------------------------------------------------------
+
+
+def page_boundary(cand, kslots: int):
+    """Per-group lower bound of the next candidate page: the last kept
+    slot as an (entry, cluster id) pair. A list that did not fill its
+    kslots holds the whole feasible tail, so its bound is (3e38, 2^30)
+    and the next page selects nothing."""
+    sat = cand[:, 0, 0] >= kslots
+    te = cand[:, 0, 2 * kslots].contiguous().view(torch.float32)
+    lid = cand[:, 0, kslots]
+    return (torch.where(sat, te, 3e38), torch.where(sat, lid, 2 ** 30))
+
+
+def _pad(x, npad, fill=0):
+    n = x.shape[0]
+    if n == npad:
+        return x
+    tail = torch.full((npad - n,) + tuple(x.shape[1:]), fill,
+                      dtype=x.dtype, device=x.device)
+    return torch.cat([x, tail])
+
+
+def scene_bounds(tbl):
+    """(lo [3], extent [3]) of the cluster boxes: the grid of the ray
+    coherence key."""
+    lo = tbl.aabb_lo.amin(dim=0)
+    return lo, torch.clamp(tbl.aabb_hi.amax(dim=0) - lo, min=1e-6)
+
+
+def ray_operand(fs, is_):
+    """K3's ray operand rows [OD_ROWS, N] of a wavefront state."""
+    o3 = fs[bf.FS_O:bf.FS_O + 3]
+    d3 = fs[bf.FS_D:bf.FS_D + 3]
+    act = (is_[bf.IS_ACTIVE] > 0).to(torch.float32)
+    return torch.cat([d3, W.cross3(o3, d3), o3, act[None]]).contiguous()
+
+
+def cull(o3, d3, active, tmax, tbl, kslots: int, lo=None):
+    """`cull_candidates` for flat rows: o3, d3 [3, N], active [N] bool, tmax
+    a float or [N], N a multiple of 1024. Returns (cand, overflow)."""
+    g = o3.shape[1] // FL
+
+    def groups(x):
+        return x.reshape(x.shape[:-1] + (g, R, 128))
+
+    if isinstance(tmax, torch.Tensor):
+        tmax = groups(tmax)
+    with record_function("rtxpt.cull"):
+        return cull_candidates(groups(o3), groups(d3), groups(active), tmax,
+                               tbl.aabb_lo, tbl.aabb_hi, kslots, lo=lo)
+
+
+def sort_wavefront(fs, is_, src, first: bool, bounds):
+    """The wavefront sort before a bounce: pixel Morton order at bounce 0
+    (the camera rays share an origin), the ray coherence key after;
+    inactive lanes last. Returns (fs, is_, src) permuted alike."""
+    active = is_[bf.IS_ACTIVE] > 0
+    if first:
+        key = torch.where(active,
+                          pixel_morton_key(is_[bf.IS_PX], is_[bf.IS_PY]),
+                          2 ** 30)
+    else:
+        key = ray_coherence_key(fs[bf.FS_O:bf.FS_O + 3],
+                                fs[bf.FS_D:bf.FS_D + 3], *bounds, active)
+    with record_function("rtxpt.sort"):
+        _, perm = torch.sort(key, stable=True)
+        return fs[:, perm], is_[:, perm], src[perm]
+
+
+def sort_shadows(sh, bounds):
+    """The shadow-ray sort: rows K5 reads ([SH_ROWS, N], the others zero)
+    in ray coherence order, and the permutation to undo it."""
+    do = sh[SH_DO] > 0.5
+    key = ray_coherence_key(sh[SH_O:SH_O + 3], sh[SH_D:SH_D + 3], *bounds,
+                            do)
+    # the request flag rides in the sign of the distance
+    dodist = torch.where(do, sh[SH_DIST], -sh[SH_DIST])
+    with record_function("rtxpt.sort"):
+        _, rows, perm = sort_rows_by_key(
+            key, torch.cat([sh[SH_O:SH_D + 3], dodist[None]]))
+    shp = torch.zeros_like(sh)
+    shp[SH_O:SH_D + 3] = rows[0:6]
+    shp[SH_DIST] = torch.abs(rows[6])
+    shp[SH_DO] = (rows[6] > 0.0).to(torch.float32)
+    return shp, perm
+
+
+def closest_paged(fs, is_, tbl, kslots: int, pages: int, max_travel: float,
+                  noprune: bool = False):
+    """K3 over `pages` pages of each group's candidate order: page p culls
+    the clusters after page p-1's last slot, up to each lane's committed
+    t, and the pages merge by least t. Returns (ha [HA_ROWS, N], the
+    final page's cull overflow)."""
+    o3 = fs[bf.FS_O:bf.FS_O + 3]
+    d3 = fs[bf.FS_D:bf.FS_D + 3]
+    active = is_[bf.IS_ACTIVE] > 0
+    od = ray_operand(fs, is_)
+    ha, lo, tmax = None, None, max_travel
+    for p in range(pages):
+        cand, ovf = cull(o3, d3, active, tmax, tbl, kslots, lo=lo)
+        ha_p = closest_hit(cand, od, tbl.blocks, kslots, max_travel,
+                           noprune)
+        ha = ha_p if ha is None else torch.where(
+            ha_p[HA_T:HA_T + 1] < ha[HA_T:HA_T + 1], ha_p, ha)
+        if p + 1 < pages:
+            lo = page_boundary(cand, kslots)
+            tmax = torch.clamp(ha[HA_T], max=max_travel)
+    return ha, ovf
+
+
+def occluded_paged(shp, tbl, kslots: int, pages: int):
+    """K5 over `pages` pages of the sorted shadow rays' candidate order; a
+    lane takes part until a page occludes it, and the pages merge by OR.
+    Returns (occ [N], the final page's cull overflow)."""
+    # The cull's active mask stays the page-0 mask, so that each
+    # cluster's hull entry (the page order) is the same on every page;
+    # finished lanes drop out through tmax = -3e38 instead.
+    dop = shp[SH_DO] > 0.5
+    occ, lo = None, None
+    for p in range(pages):
+        part = dop if occ is None else dop & (occ < 0.5)
+        shp_p = shp
+        if occ is not None:
+            shp_p = shp.clone()
+            shp_p[SH_DO] = part.to(torch.float32)
+        tmax_p = torch.where(part, shp[SH_DIST], -3e38)
+        cand, ovf = cull(shp[SH_O:SH_O + 3], shp[SH_D:SH_D + 3], dop, tmax_p,
+                         tbl, kslots, lo=lo)
+        occ_p = occlusion(cand, shp_p, tbl.blocks, kslots)
+        occ = occ_p if occ is None else torch.where(part, occ_p, occ)
+        if p + 1 < pages:
+            lo = page_boundary(cand, kslots)
+    return occ, ovf
+
+
+def trace_paths_clustered(scene, cfg, o, d, cone_spread, px, py,
+                          sample_idx):
+    """Trace a wavefront of camera rays to completion on the clustered
+    tier (bounce_clustered.trace_paths_clustered of the JAX package
+    without aux buffers, instancing, micromaps, textures, environment
+    light, split channels or external NEE). `cfg` is resolved by
+    `dispatch.resolve`, which sets kslots and pages.
+
+    o, d [N,3]; cone_spread [N]; px, py [N] int. Returns dict(L [N,3],
+    ray_count, occupancy [B+1], cull_overflow) with the counts as int64
+    tensors."""
+    tbl = scene.cluster_tables
+    dev = o.device
+    n = o.shape[0]
+    npad = _round_up(max(n, FL), FL)
+    kslots, pages = int(cfg.cluster_kslots), int(cfg.cluster_pages)
+    if kslots < 1 or pages < 1:
+        raise ValueError("trace_paths_clustered needs the kslots and pages "
+                         "that dispatch.resolve sets")
+    max_travel = float(cfg.max_ray_travel)
+    noprune = bool(cfg.cluster_noprune)
+    sort_rays = bool(cfg.sort_rays)
+    kcfg = bf.KernelConfig.from_cfg(cfg)
+    use_nee = kcfg.nee_mode in (1, 2) and tbl.n_lights > 0
+
+    fs, is_ = bf.initial_state(_pad(o, npad), _pad(d, npad, 1.0),
+                               _pad(cone_spread, npad), _pad(px, npad),
+                               _pad(py, npad))
+    is_[bf.IS_ACTIVE, n:] = 0
+    src = torch.arange(npad, dtype=torch.int32, device=dev)
+    bounds = scene_bounds(tbl)
+
+    ray_count = torch.zeros((), dtype=torch.int64, device=dev)
+    overflow = torch.zeros((), dtype=torch.int64, device=dev)
+    occupancy = []
+    for b in range(cfg.max_bounces):
+        if sort_rays:
+            fs, is_, src = sort_wavefront(fs, is_, src, b == 0, bounds)
+        n_active = (is_[bf.IS_ACTIVE] > 0).sum(dtype=torch.int64)
+        occupancy.append(n_active)
+        ha, ovf = closest_paged(fs, is_, tbl, kslots, pages, max_travel,
+                                noprune)
+        fs, is_, sh, _ = shade(ha, fs, is_, tbl, kcfg, sample_idx)
+        ray_count = ray_count + n_active
+        overflow = overflow + ovf
+        if use_nee:
+            do = sh[SH_DO] > 0.5
+            if sort_rays:
+                shp, sperm = sort_shadows(sh, bounds)
+            else:
+                shp = sh
+            occ, ovf = occluded_paged(shp, tbl, kslots, pages)
+            if sort_rays:
+                occ = unsort_rows(sperm, occ[None])[0]
+            ok = do & (occ < 0.5)
+            fs[bf.FS_L:bf.FS_L + 3] += torch.where(
+                ok, sh[SH_CONTRIB:SH_CONTRIB + 3], 0.0)
+            ray_count = ray_count + do.sum(dtype=torch.int64)
+            overflow = overflow + ovf
+    occupancy.append((is_[bf.IS_ACTIVE] > 0).sum(dtype=torch.int64))
+    L = fs[bf.FS_L:bf.FS_L + 3]
+    if sort_rays:
+        L = unsort_rows(src, L)
+    return dict(L=L.T[:n], ray_count=ray_count,
+                occupancy=torch.stack(occupancy), cull_overflow=overflow)

@@ -1,8 +1,9 @@
 """Wavefront path tracing of whole frames, reference mode (counterpart of
-rtxpt_tpu/pt/integrator.py): the camera rays of a frame go through the
-fused bounce step (pt/bounce_fused.py) in chunks of `cfg.ray_chunk`, and
-samples accumulate progressively. The general BVH wavefront (the JAX
-package's "xla" tier) is not ported yet."""
+rtxpt_tpu/pt/integrator.py): the camera rays of a frame go, in chunks of
+`cfg.ray_chunk`, through the fused bounce step (pt/bounce_fused.py) or,
+for a scene with cluster tables, the clustered tier
+(pt/bounce_clustered.py); samples accumulate progressively. The general
+BVH wavefront (the JAX package's "xla" tier) is not ported yet."""
 
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ from typing import Optional
 
 import torch
 
-from rtxpt_tpu_torch.pt import bounce_fused, dispatch
+from rtxpt_tpu_torch.pt import bounce_clustered, bounce_fused, dispatch
 from rtxpt_tpu_torch.scene.camera import Camera, camera_ray
 from rtxpt_tpu_torch.utils import rng
 
@@ -46,10 +47,13 @@ def camera_rays(cam: Camera, cfg, px, py, sample_idx):
 
 def trace_paths(scene, cfg, o, d, cone_spread, px, py, sample_idx):
     """Trace a wavefront of camera rays to completion on the tier
-    `dispatch.resolve` picks for the rays' device. Returns dict(L [N,3],
-    ray_count [], occupancy [max_bounces+1])."""
-    if cfg.kernel_tier not in dispatch.TIERS:
-        cfg = dispatch.resolve(scene, cfg, o.device)
+    `dispatch.resolve` picks for the scene and the rays' device. Returns
+    dict(L [N,3], ray_count [], occupancy [max_bounces+1]), plus
+    cull_overflow [] on the clustered tier."""
+    cfg = dispatch.resolve(scene, cfg, o.device)
+    if cfg.kernel_tier == "clustered":
+        return bounce_clustered.trace_paths_clustered(
+            scene, cfg, o, d, cone_spread, px, py, sample_idx)
     return bounce_fused.trace_paths_fused(
         scene, cfg, o, d, cone_spread, px, py, sample_idx)
 
@@ -59,8 +63,12 @@ def render_sample(scene, cam: Camera, cfg, width: int, height: int,
     """One sample per pixel over the full frame, in chunks of
     `cfg.ray_chunk` rays; the last chunk is padded with pixel (0, 0) as in
     the JAX package, so `ray_count` matches it. Returns dict(L [H,W,3],
-    ray_count [] tensor, occupancy, kernel_tier)."""
-    device = scene.bounce_tables.device
+    ray_count [] tensor, occupancy, kernel_tier), plus cull_overflow []
+    (summed over chunks) on the clustered tier. Runs on the device of the
+    scene's tables."""
+    tables = scene.cluster_tables if scene.cluster_tables is not None \
+        else scene.bounce_tables
+    device = tables.device
     cfg = dispatch.resolve(scene, cfg, device)
     cam = cam.to(device)
     px, py = _pixel_grid(width, height, device)
@@ -71,18 +79,17 @@ def render_sample(scene, cam: Camera, cfg, width: int, height: int,
         zeros = torch.zeros((pad,), dtype=torch.int32, device=device)
         px = torch.cat([px, zeros])
         py = torch.cat([py, zeros])
-    Ls, ray_count, occupancy = [], 0, 0
+    Ls, sums = [], {}
     for lo in range(0, px.shape[0], chunk):
         px_c = px[lo:lo + chunk]
         py_c = py[lo:lo + chunk]
         o, d, spread = camera_rays(cam, cfg, px_c, py_c, sample_idx)
         out = trace_paths(scene, cfg, o, d, spread, px_c, py_c, sample_idx)
-        Ls.append(out["L"])
-        ray_count = ray_count + out["ray_count"]
-        occupancy = occupancy + out["occupancy"]
+        Ls.append(out.pop("L"))
+        for key, value in out.items():
+            sums[key] = sums[key] + value if key in sums else value
     L = torch.cat(Ls)[:npix].reshape(height, width, 3)
-    return dict(L=L, ray_count=ray_count, occupancy=occupancy,
-                kernel_tier=cfg.kernel_tier)
+    return dict(L=L, kernel_tier=cfg.kernel_tier, **sums)
 
 
 def render(scene, cam: Camera, cfg, width: int, height: int, spp: int,

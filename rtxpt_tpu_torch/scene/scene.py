@@ -116,8 +116,10 @@ class AnalyticLights:
 
 @dataclass(frozen=True)
 class SceneData:
-    """What the renderer reads. `bounce_tables` (pt/bounce_fused.py) and
-    `lights` (lighting/lights_baker.py) live on the render device."""
+    """What the renderer reads. `bounce_tables` (pt/bounce_fused.py) or,
+    for a scene above 2048 triangles, `cluster_tables`
+    (accel/cluster.py), and `lights` (lighting/lights_baker.py) live on
+    the render device."""
 
     geometry: Optional[Geometry]
     materials: Optional[Materials]
@@ -125,6 +127,7 @@ class SceneData:
     lights: Optional[object] = None          # lights_baker.LightList
     envmap: Optional[object] = None          # envmap.EnvMap
     bounce_tables: Optional[object] = None   # bounce_fused.BounceTables
+    cluster_tables: Optional[object] = None  # cluster.ClusterTables
     # Features of the JAX package that this port does not serve yet; the
     # dispatch refuses a scene that sets them (pt/dispatch.py).
     textures: Optional[object] = None

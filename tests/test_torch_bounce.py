@@ -72,7 +72,7 @@ def jax_bounces(request, cornell_scene):
                   light_rows=np.asarray(jt.light_rows), tc=jt.tc,
                   n_chunks=jt.n_chunks, n_lights=jt.n_lights,
                   n_tris=jt.n_tris)
-    return cfg, scene_from_numpy(tables), steps
+    return cfg, scene_from_numpy(tables, device="cpu"), steps
 
 
 @pytest.mark.parametrize("bounce", [0, 2])

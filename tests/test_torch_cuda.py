@@ -1,7 +1,8 @@
 """The CUDA kernels on the card: each against its plain PyTorch version on
-the same CUDA inputs, and the wrapper's launch count and checks. Needs an
-NVIDIA GPU and nvcc; skips without them. This file imports no JAX, so it
-runs where JAX is absent:
+the same CUDA inputs, and the wrappers' launch counts and checks: K1 on
+the Cornell box and the small scenes, K3, K4 and K5 on the small city of
+tests/test_torch_cluster.py. Needs an NVIDIA GPU and nvcc; skips without
+them. This file imports no JAX, so it runs where JAX is absent:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -12,7 +13,10 @@ import torch
 from rtxpt_tpu_torch import kernels
 from rtxpt_tpu_torch.config import NEEMode, PathTracerConfig
 from rtxpt_tpu_torch.prepare import prepare
+from rtxpt_tpu_torch.lighting.envmap import EnvMap
+from rtxpt_tpu_torch.pt import bounce_clustered as BC
 from rtxpt_tpu_torch.pt import bounce_fused as bf
+from rtxpt_tpu_torch.pt import dispatch
 from rtxpt_tpu_torch.pt.integrator import _pixel_grid, camera_rays, render
 from rtxpt_tpu_torch.scene import procedural as TP
 
@@ -100,8 +104,102 @@ def test_render_runs_every_bounce_through_k1(cornell):
 
 def test_wrapper_refuses_tables_on_another_device(cornell):
     host, scene = cornell
-    cpu_tables = prepare(host).bounce_tables
+    cpu_tables = prepare(host, device="cpu").bounce_tables
     fs, is_ = _state(host, PathTracerConfig(), 8, scene.bounce_tables.device,
                      0)
     with pytest.raises(ValueError, match="expected cuda"):
         bf.bounce(fs, is_, cpu_tables, bf.KernelConfig(), 0)
+
+
+@pytest.fixture(scope="module")
+def city(gpu):
+    host = TP.city_scene(tri_budget=4000, seed=1, blocks=2)
+    return host, prepare(host, device=gpu)
+
+
+@pytest.mark.parametrize("kslots", [64, 8])
+def test_clustered_kernels_match_plain_versions(city, kslots):
+    """K3, K4 and K5 against their plain versions over three bounces of
+    4096 sorted camera rays, the state carried by the plain versions;
+    kslots 8 saturates the candidate lists."""
+    host, scene = city
+    tbl = scene.cluster_tables
+    dev = tbl.device
+    cfg = PathTracerConfig(max_bounces=4)
+    kcfg = bf.KernelConfig.from_cfg(cfg)
+    bounds = BC.scene_bounds(tbl)
+    fs, is_ = _state(host, cfg, 64, dev, 1)
+    src = torch.arange(fs.shape[1], dtype=torch.int32, device=dev)
+    for b in range(3):
+        fs, is_, src = BC.sort_wavefront(fs, is_, src, b == 0, bounds)
+        od = BC.ray_operand(fs, is_)
+        cand, _ = BC.cull(fs[bf.FS_O:bf.FS_O + 3], fs[bf.FS_D:bf.FS_D + 3],
+                          is_[bf.IS_ACTIVE] > 0, cfg.max_ray_travel, tbl,
+                          kslots)
+        ha_p, vis_p = BC.closest_hit_reference(
+            cand, od, tbl.blocks, kslots, cfg.max_ray_travel, stats=True)
+        ha_k, vis_k = BC.closest_hit(cand, od, tbl.blocks, kslots,
+                                     cfg.max_ray_travel, stats=True)
+        same = ha_k[BC.HA_PRIM] == ha_p[BC.HA_PRIM]
+        assert same.float().mean() >= 0.999, b
+        # lanes that missed earlier carry NaN origins, so NaN u, v
+        ok = torch.isclose(ha_k, ha_p, rtol=TOL, atol=TOL, equal_nan=True)
+        assert ok.float().mean(1).min() >= 0.999, b
+        assert torch.equal(vis_k, vis_p)
+        plain = BC.shade_reference(ha_p, fs, is_, tbl, kcfg, 1)
+        kern = BC.shade(ha_p, fs, is_, tbl, kcfg, 1)
+        same = (kern[1] == plain[1]).all(0) & (kern[3][1] == plain[3][1])
+        assert same.float().mean() >= 0.999, b
+        for k, p in zip(kern, plain):
+            ok = torch.isclose(k.float(), p.float(), rtol=TOL, atol=TOL,
+                               equal_nan=True)
+            assert ok.float().mean(1).min() >= 0.999, b
+        shp, _ = BC.sort_shadows(plain[2], bounds)
+        dop = shp[BC.SH_DO] > 0.5
+        cand_s, _ = BC.cull(shp[BC.SH_O:BC.SH_O + 3],
+                            shp[BC.SH_D:BC.SH_D + 3], dop,
+                            torch.where(dop, shp[BC.SH_DIST], -3e38), tbl,
+                            kslots)
+        occ_p, tst_p = BC.occlusion_reference(cand_s, shp, tbl.blocks,
+                                              kslots, stats=True)
+        occ_k, tst_k = BC.occlusion(cand_s, shp, tbl.blocks, kslots,
+                                    stats=True)
+        assert (occ_k == occ_p).float().mean() >= 0.999, b
+        assert torch.equal(tst_k, tst_p)
+        fs, is_ = plain[0], plain[1]
+
+
+def test_city_render_runs_through_k3_k4_k5(city):
+    """Every bounce of a clustered render launches K3 and K5 once per page
+    and K4 once (kslots 16: two pages)."""
+    host, scene = city
+    cam = TP.default_camera(host, 32, 24)
+    kernels.launches.clear()
+    hdr, _, rays = render(scene, cam, PathTracerConfig(
+        max_bounces=3, cluster_kslots=16), 32, 24, spp=2)
+    assert dict(kernels.launches) == dict(
+        cluster_closest=2 * 3 * 2, cluster_shade=3 * 2,
+        cluster_shadow=2 * 3 * 2)
+    assert torch.isfinite(hdr).all() and rays > 0
+
+
+def test_clustered_tier_refuses_unserved_feature_on_the_card(city):
+    _, scene = city
+    scene = scene.replace(envmap=EnvMap(torch.ones((4, 8, 3)).numpy(), 1.0,
+                                        0.0, torch.ones(3).numpy()))
+    with pytest.raises(NotImplementedError,
+                       match="clustered tier does not serve: environment"):
+        dispatch.resolve(scene, PathTracerConfig(), scene.cluster_tables
+                         .device)
+
+
+def test_clustered_wrappers_refuse_tables_on_another_device(city):
+    host, scene = city
+    cpu = prepare(host, device="cpu").cluster_tables
+    fs, is_ = _state(host, PathTracerConfig(), 32, scene.cluster_tables
+                     .device, 0)
+    od = BC.ray_operand(fs, is_)
+    cand, _ = BC.cull(fs[bf.FS_O:bf.FS_O + 3], fs[bf.FS_D:bf.FS_D + 3],
+                      is_[bf.IS_ACTIVE] > 0, 1e27, scene.cluster_tables, 8)
+    with pytest.raises(ValueError, match="same device"):
+        BC.closest_hit(cand, od, cpu.blocks, 8, 1e27)

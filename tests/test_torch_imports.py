@@ -17,7 +17,8 @@ from rtxpt_tpu_torch import config as tconfig
 from rtxpt_tpu_torch import kernels
 from rtxpt_tpu_torch.config import NEEMode, PathTracerConfig, PTMode
 from rtxpt_tpu_torch.lighting.envmap import EnvMap
-from rtxpt_tpu_torch.prepare import prepare
+from rtxpt_tpu_torch.prepare import (
+    cluster_scene_from_numpy, prepare, scene_from_numpy)
 from rtxpt_tpu_torch.pt import bounce_fused as bf
 from rtxpt_tpu_torch.pt import dispatch
 from rtxpt_tpu_torch.pt.integrator import render_sample
@@ -35,6 +36,8 @@ SLICE_MODULES = [
     "rtxpt_tpu_torch.pt.wide", "rtxpt_tpu_torch.pt.bounce_fused",
     "rtxpt_tpu_torch.pt.dispatch", "rtxpt_tpu_torch.pt.integrator",
     "rtxpt_tpu_torch.render.postprocess", "rtxpt_tpu_torch.apps.cli",
+    "rtxpt_tpu_torch.accel.cluster", "rtxpt_tpu_torch.accel.cull",
+    "rtxpt_tpu_torch.ops.wavefront", "rtxpt_tpu_torch.pt.bounce_clustered",
 ]
 
 
@@ -66,20 +69,37 @@ def test_kernel_layer_imports_without_nvcc():
     env.pop("CUDA_PATH", None)
     code = ("from rtxpt_tpu_torch import kernels\n"
             "import rtxpt_tpu_torch.pt.bounce_fused\n"
-            "try:\n"
-            "    kernels.BOUNCE_FUSED.load()\n"
-            "except RuntimeError as e:\n"
-            "    assert 'nvcc' in str(e), e\n"
-            "else:\n"
-            "    raise SystemExit('built without nvcc')\n")
+            "import rtxpt_tpu_torch.pt.bounce_clustered\n"
+            "for lib in kernels.LIBRARIES:\n"
+            "    try:\n"
+            "        lib.load()\n"
+            "    except RuntimeError as e:\n"
+            "        assert 'nvcc' in str(e), e\n"
+            "    else:\n"
+            "        raise SystemExit('built without nvcc')\n")
     res = _run(code, env)
     assert res.returncode == 0, res.stderr
+
+
+def test_prepare_defaults_to_the_card(monkeypatch):
+    """prepare and scene_from_numpy run on the GPU unless the caller asks
+    for the CPU; without a GPU they raise instead of quietly running on
+    the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    host = TP.cornell_box()
+    with pytest.raises(RuntimeError, match="is_available"):
+        prepare(host)
+    with pytest.raises(RuntimeError, match="is_available"):
+        scene_from_numpy({})
+    with pytest.raises(RuntimeError, match="is_available"):
+        cluster_scene_from_numpy({})
+    assert prepare(host, device="cpu").bounce_tables.device.type == "cpu"
 
 
 @pytest.fixture(scope="module")
 def cornell():
     host = TP.cornell_box()
-    return host, prepare(host)
+    return host, prepare(host, device="cpu")
 
 
 def test_cpu_tensors_launch_no_kernel(cornell):

@@ -28,7 +28,7 @@ GOLDEN = os.path.join(os.path.dirname(__file__), "goldens",
 @pytest.fixture(scope="module")
 def cornell():
     host = TP.cornell_box()
-    return host, prepare(host)
+    return host, prepare(host, device="cpu")
 
 
 def test_golden_cornell(cornell):
@@ -81,7 +81,7 @@ def test_furnace_converges():
     bounces grow; 16 bounces without RR reach 2.5 * (1 - 0.8^16) plus
     part of the next term."""
     host = TP.furnace_box(albedo=0.8, emission=0.5)
-    scene = prepare(host)
+    scene = prepare(host, device="cpu")
     cam = TP.default_camera(host, 8, 8)
     cfg = PathTracerConfig(max_bounces=16, enable_russian_roulette=False)
     hdr, _, _ = render(scene, cam, cfg, 8, 8, spp=4)
@@ -96,7 +96,7 @@ def test_point_light_analytic():
     host = TP.single_triangle("point")
     host.materials = host.materials.replace(
         specular_f0_scale=torch.zeros(1))
-    scene = prepare(host)
+    scene = prepare(host, device="cpu")
     cam = TP.default_camera(host, 17, 17)
     hdr, _, _ = render(scene, cam, PathTracerConfig(max_bounces=1), 17, 17,
                        spp=4)

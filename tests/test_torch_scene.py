@@ -13,6 +13,7 @@ from rtxpt_tpu.prepare import scene_radius as j_scene_radius
 from rtxpt_tpu.pt import bounce_pallas as bp
 from rtxpt_tpu.scene import camera as jcam
 from rtxpt_tpu.scene import procedural as JP
+from rtxpt_tpu_torch.accel import cluster
 from rtxpt_tpu_torch.config import PathTracerConfig
 from rtxpt_tpu_torch.lighting.envmap import bake_envmap as t_bake_envmap
 from rtxpt_tpu_torch.lighting.lights_baker import bake_lights as t_bake_lights
@@ -132,7 +133,7 @@ def test_build_bounce_tables(name):
         np.asarray(g.positions), np.asarray(g.normals), np.asarray(g.indices),
         np.asarray(g.tri_material), jsd.materials, jl,
         uvs=np.asarray(g.uvs))
-    tt = prepare(th).bounce_tables
+    tt = prepare(th, device="cpu").bounce_tables
     for field in ("tri_rows", "attr_rows", "mat_rows", "light_rows"):
         a = np.asarray(getattr(jt, field))
         b = getattr(tt, field).numpy()
@@ -170,8 +171,8 @@ def test_scene_from_numpy_renders_identically(cornell_scene):
     render bit-identically to the port's own prepare."""
     jhost, jscene = cornell_scene
     th = TP.cornell_box()
-    carried = scene_from_numpy(_jax_tables(jscene))
-    own = prepare(th)
+    carried = scene_from_numpy(_jax_tables(jscene), device="cpu")
+    own = prepare(th, device="cpu")
     cam = TP.default_camera(th, 16, 16)
     cfg = PathTracerConfig(max_bounces=3)
     a, _, ra = render(carried, cam, cfg, 16, 16, spp=2)
@@ -183,12 +184,12 @@ def test_scene_from_numpy_refuses_unported_parts(cornell_scene):
     tables = _jax_tables(cornell_scene[1])
     tables["env_rows"] = np.zeros((bp.EV_ROWS, 128), np.float32)
     with pytest.raises(NotImplementedError, match="env_rows"):
-        scene_from_numpy(tables)
+        scene_from_numpy(tables, device="cpu")
 
 
 @pytest.mark.parametrize("case", ["textures", "instancing", "too_many_tris",
                                   "sphere_light", "env_image"])
-def test_prepare_refuses_unported_features(case):
+def test_prepare_refuses_unported_features(case, monkeypatch):
     host = TP.single_triangle("sphere" if case == "sphere_light" else "point")
     kw = {}
     if case == "textures":
@@ -196,10 +197,13 @@ def test_prepare_refuses_unported_features(case):
     elif case == "instancing":
         kw["instancing"] = "auto"
     elif case == "too_many_tris":
+        # above 2048 triangles the clustered tier takes the scene, up to
+        # its device block budget (shrunk here so a small scene passes it)
+        monkeypatch.setattr(cluster, "MAX_CLUSTERS", 0)
         inst = host.instances[0]
         inst.indices = np.tile(inst.indices, (bf.MAX_TRIS + 1, 1))
         inst.material = np.zeros(len(inst.indices), np.int32)
     elif case == "env_image":
         host.envmap_image = np.ones((8, 16, 3), np.float32)
     with pytest.raises(NotImplementedError):
-        prepare(host, **kw)
+        prepare(host, device="cpu", **kw)

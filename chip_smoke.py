@@ -46,6 +46,25 @@ Phases, one or a few lines of output each:
                 K4 bounces x spp times, and the image must be finite. Then
                 one profiled frame splits the device time: sort, cull, K3,
                 K4, K5, the rest, and the idle share.
+  9. external NEE -- the fused tier's external-NEE route on rooms_scene(16)
+                (552 triangles, 32 lights) at 1920x1080: K1 in nee slots 3
+                (NEE-AT) and 5 (power, external) against its plain version
+                with phase 3's criteria, the 24 SF_* surface rows included,
+                and the shadow kernel K2 against its plain version on the
+                requests external_nee builds from them (occlusion equal on
+                >= 99.9% of lanes, tested pairs equal), on 65,536 camera
+                rays spread over the frame at bounces 0 and 2; K1 timed in
+                slots 2, 3 and 5 and K2 timed at 2^18 rays. Then the three
+                full-size paths, each at 1920x1080, 4 bounces, 2^18 rays per
+                chunk (8 chunks), after one warm-up sample: NEE-AT on the
+                rooms through render_sample and neeat.update (4 timed
+                samples; lit tiles must leave the uniform pmf), power NEE
+                over the 144 lights of rooms_scene(72, subdiv=1) (2 timed),
+                and WRS with 4 candidates on the Cornell box (2 timed). K1
+                and K2 must each launch chunks x bounces x spp times and the
+                images must be finite. One profiled NEE-AT frame splits the
+                device time: camera rays, K1, external NEE, K2, feedback,
+                the rest, and the idle share.
 
 The line before the last holds {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Any failed phase, a missing GPU or a missing
@@ -93,6 +112,11 @@ CITY_PAGES = 2               # the 1080p city's pages per bounce (4,378
 SMALL_CITY_PAGES = 1         # 46 clusters: kslots clamps to 46, one page
 CMP_SIDE = 256               # phase 6 comparison: 256 x 256 = 65,536 rays,
 #                              spread evenly over the city path's frame
+ROOMS = 16                   # phase 9: rooms_scene(16), the NEE-AT scene
+MANY_LIGHTS = (72, 1)        # rooms_scene(72, subdiv=1): 144 lights
+EXT_FRAME = (1920, 1080)
+EXT_CHUNK = 1 << 18
+SR_BYTES = 4 * 8 + 4         # K2: a request's 8 rows read, occ written
 
 
 def _fail(msg):
@@ -357,13 +381,25 @@ def main(record_path=None):
     _city_parity(record, dev, dump)
     city_launches = _city_path(record, dev, smi, dump, clustered["scene"])
 
+    # ---- 9. external NEE ----------------------------------------------------
+    ext = _external_nee(record, dev, smi, dump)
+
+    k1_paths = dict(cornell=cornell_launches["bounce_fused"],
+                    **{k: v.get("bounce_fused", 0)
+                       for k, v in ext["launches"].items()})
     entries = [dict(
         name="bounce_fused", route="cuda",
         source="rtxpt_tpu_torch/csrc/bounce_fused.cu",
         replaces="rtxpt_tpu/pt/bounce_pallas.py:1389",
-        launches=cornell_launches["bounce_fused"], max_abs_err=k1_err,
+        launches=sum(k1_paths.values()), launches_by_path=k1_paths,
+        max_abs_err=max(k1_err, ext["k1_err"]),
         ms=k1_ms, plain_ms=plain_ms, bound_ms=k1_bound, bound_by=k1_by,
-        library_ms=None)]
+        library_ms=None, modes=ext["k1_modes"])]
+    entries.append(dict(
+        ext["k2"], launches=sum(v.get("shadow_occlusion", 0)
+                                for v in ext["launches"].values()),
+        launches_by_path={k: v.get("shadow_occlusion", 0)
+                          for k, v in ext["launches"].items()}))
     for name, entry in clustered["kernels"].items():
         entries.append(dict(entry, launches=city_launches.get(name, 0)))
     print(json.dumps({"kernels": entries}), flush=True)
@@ -763,9 +799,15 @@ def _city_path(record, dev, smi, dump, prepared):
     return launched
 
 
-def _split(prof, wall_ms):
-    """Device time of one frame by part (ms): the named ranges (sort,
-    cull: the device time of the kernels they launched), the three
+CITY_RANGES = ("sort", "cull")
+CITY_KERNELS = (("k3", "cluster_closest_kernel"),
+                ("k4", "cluster_shade_kernel"),
+                ("k5", "cluster_shadow_kernel"))
+
+
+def _split(prof, wall_ms, ranges=CITY_RANGES, kernel_parts=CITY_KERNELS):
+    """Device time of one frame by part (ms): the named ranges
+    ("rtxpt.<name>": the device time of the kernels they launched), the
     kernels, the rest, all kernels, and the idle share of the frame's
     wall time; plus the profiler's table."""
     from torch.autograd import DeviceType
@@ -776,14 +818,15 @@ def _split(prof, wall_ms):
                 return getattr(evt, name) / 1e3
         return 0.0
 
-    parts = dict(sort=0.0, cull=0.0, k3=0.0, k4=0.0, k5=0.0)
+    parts = dict.fromkeys(list(ranges) + [p for p, _ in kernel_parts], 0.0)
+    range_keys = tuple(f"rtxpt.{r}" for r in ranges)
     spans = {}
     busy = 0.0
     events = prof.key_averages()
     for evt in events:
         key = evt.key
         cuda = evt.device_type == DeviceType.CUDA
-        if key in ("rtxpt.sort", "rtxpt.cull"):
+        if key in range_keys:
             spans[f"{key}:{'cuda' if cuda else 'cpu'}"] = total(
                 evt, "device_time_total", "cuda_time_total")
             continue
@@ -791,12 +834,10 @@ def _split(prof, wall_ms):
             continue
         t = total(evt, "self_device_time_total", "self_cuda_time_total")
         busy += t
-        for part, kernel in (("k3", "cluster_closest_kernel"),
-                             ("k4", "cluster_shade_kernel"),
-                             ("k5", "cluster_shadow_kernel")):
+        for part, kernel in kernel_parts:
             if kernel in key:
                 parts[part] += t
-    for part in ("sort", "cull"):
+    for part in ranges:
         # the CPU range's device total counts its kernels; the profiler's
         # device-side annotation of the same name spans them, gaps included
         cpu = spans.get(f"rtxpt.{part}:cpu", 0.0)
@@ -810,6 +851,264 @@ def _split(prof, wall_ms):
     except (AttributeError, KeyError, ValueError):
         table = events.table(sort_by="self_cuda_time_total", row_limit=30)
     return parts, table
+
+
+def _external_nee(record, dev, smi, dump):
+    """Phase 9: K1's external modes and K2 against their plain versions,
+    their times, the three full-size external-NEE paths and one profiled
+    NEE-AT frame. Returns dict(k1_err, k1_modes, k2 (partial kernel-line
+    entry), launches {path: counts})."""
+    import torch
+
+    from rtxpt_tpu_torch import kernels
+    from rtxpt_tpu_torch.config import NEEMode, PathTracerConfig
+    from rtxpt_tpu_torch.lighting import neeat as na
+    from rtxpt_tpu_torch.prepare import prepare
+    from rtxpt_tpu_torch.pt import bounce_fused as bf
+    from rtxpt_tpu_torch.pt.integrator import (
+        _pixel_grid, camera_rays, render_sample)
+    from rtxpt_tpu_torch.pt.nee_external import external_nee
+    from rtxpt_tpu_torch.scene.procedural import (
+        cornell_box, default_camera, rooms_scene)
+
+    rec = {}
+    w, h = EXT_FRAME
+    host = rooms_scene(ROOMS)
+    scene = prepare(host, device=dev)
+    tbl = scene.bounce_tables
+    cam = default_camera(host, w, h, device=dev)
+    cfgs = dict(
+        slot3=PathTracerConfig(max_bounces=4, nee=NEEMode.NEEAT,
+                               ray_chunk=EXT_CHUNK),
+        slot5=PathTracerConfig(max_bounces=4, nee=NEEMode.POWER,
+                               nee_external=True, ray_chunk=EXT_CHUNK))
+    state0 = na.init_state(w, h, scene.lights.count, device=dev)
+    sample = 1
+    print(f"external: rooms_scene({ROOMS}) {tbl.n_tris} triangles, "
+          f"{tbl.n_lights} lights, {w}x{h}", flush=True)
+
+    def camera_state(cols, rows, cfg):
+        """Camera rays of a cols x rows grid of the frame's pixels."""
+        px, py = _pixel_grid(cols, rows, dev)
+        px, py = px * w // cols, py * h // rows
+        o, d, spread = camera_rays(cam, cfg, px, py, sample)
+        return bf.initial_state(o, d, spread, px, py)
+
+    def requests(cfg, out, fs, is_, b):
+        """K2's input: the shadow requests external_nee builds from K1's
+        export `out` of the state (fs, is_) at bounce b."""
+        res = external_nee(
+            scene, cfg, state0 if cfg.nee == NEEMode.NEEAT else None,
+            out[3], fs[bf.FS_D:bf.FS_D + 3], out[2][5] > 0.5,
+            fs[bf.FS_PREVPDF], is_[bf.IS_PREVDELTA] > 0,
+            out[1][bf.IS_PX], out[1][bf.IS_PY], sample, b)
+        return bf.shadow_requests(res["shadow_o"], res["shadow_d"],
+                                  res["sdist"], res["do_nee"])
+
+    # K1 in slots 3 and 5 and K2 against their plain versions: 65,536
+    # camera rays over the frame, bounces 0 and 2, the state carried by
+    # the plain version
+    k1_err = k2_err = 0.0
+    cmp = {}
+    for slot, cfg in cfgs.items():
+        kcfg = bf.KernelConfig.from_cfg(cfg)
+        fs, is_ = camera_state(CMP_SIDE, CMP_SIDE, cfg)
+        for b in range(3):
+            plain = bf.bounce_reference(fs, is_, tbl, kcfg, sample)
+            if b in (0, 2):
+                kern = bf.bounce(fs, is_, tbl, kcfg, sample)
+                torch.cuda.synchronize()
+                summary, err = _compare_state(kern[:3], plain[:3])
+                int_eq = (kern[1] == plain[1]).all(0) \
+                    & (kern[2][1] == plain[2][1])
+                surf, serr = _compare(dict(surf=kern[3]),
+                                      dict(surf=plain[3]), int_eq)
+                summary.update(worst_surf_row=surf["worst_float_row"],
+                               surf_rows=surf["float_rows"])
+                k1_err = max(k1_err, err, serr)
+                sh = requests(cfg, plain, fs, is_, b)
+                occ_p, tst_p = bf.occlusion_reference(tbl, sh, stats=True)
+                occ_k, tst_k = bf.occlusion(tbl, sh, stats=True)
+                torch.cuda.synchronize()
+                req = sh[bf.SR_DO] > 0.5
+                k2s = dict(occ_lanes_equal=float(
+                    (occ_k == occ_p).float().mean()),
+                    tests_equal=bool(torch.equal(tst_k, tst_p)),
+                    requests=int(req.sum()),
+                    occluded=int((req & (occ_p > 0.5)).sum()))
+                k2_err = max(k2_err, float((occ_k - occ_p).abs().max()))
+                cmp[f"{slot}_bounce{b}"] = dict(k1=summary, k2=k2s)
+                print(f"external {slot} bounce {b}: K1 int lanes equal "
+                      f"{summary['int_lanes_equal']:.6f}, worst float row "
+                      f"{summary['worst_float_row']:.6f}, worst SF row "
+                      f"{surf['worst_float_row']:.6f}, L mean rel "
+                      f"{summary['L_mean_rel']:.3g}, max abs err "
+                      f"{max(err, serr):.3g}; K2 occlusion equal "
+                      f"{k2s['occ_lanes_equal']:.6f} over "
+                      f"{k2s['requests']} requests ({k2s['occluded']} "
+                      f"occluded), tests equal {k2s['tests_equal']}",
+                      flush=True)
+                if not (_state_ok(summary)
+                        and surf["worst_float_row"] >= LANE_FRACTION
+                        and k2s["occ_lanes_equal"] >= LANE_FRACTION):
+                    rec["compare"] = cmp
+                    record["external"] = rec
+                    dump()
+                    _fail(f"external: a kernel disagrees with its plain "
+                          f"version in {slot} at bounce {b}")
+            fs, is_ = plain[0], plain[1]
+    rec["compare"] = cmp
+
+    # K1 in slots 2, 3 and 5 and K2 timed at the path's launch width
+    # (2^18 camera rays over the frame, bounce 0)
+    fs_t, is_t = camera_state(512, 512, cfgs["slot3"])
+    n = fs_t.shape[1]
+    active = int((is_t[bf.IS_ACTIVE] > 0).sum())
+    tables_bytes = 4 * sum(t.numel() for t in (
+        tbl.tri_coef, tbl.attr_rows, tbl.mat_rows, tbl.light_rows))
+    modes = {}
+    for slot, mode in (("slot2", 2), ("slot3", 3), ("slot5", 5)):
+        kcfg = bf.KernelConfig(nee_mode=mode, maxb=4)
+        ms = _cuda_ms(lambda: bf.bounce(fs_t, is_t, tbl, kcfg, sample), 10)
+        out = bf.bounce(fs_t, is_t, tbl, kcfg, sample)
+        shadow = int((out[2][5] > 0.5).sum()) if mode == 2 else 0
+        rows = 2 * (bf.NF + bf.NI) + bf.NH + (bf.SF_ROWS if mode > 2 else 0)
+        bound, by, _ = _bound(4 * n * rows + tables_bytes,
+                              f32=(active + shadow) * tbl.n_tris
+                              * K1_PAIR_F32)
+        modes[slot] = dict(ms=ms, bound_ms=bound, bound_by=by, rays=n)
+    modes["slot3"]["plain_ms"] = _cuda_ms(lambda: bf.bounce_reference(
+        fs_t, is_t, tbl, bf.KernelConfig(nee_mode=3, maxb=4), sample), 1)
+    out3 = bf.bounce(fs_t, is_t, tbl, bf.KernelConfig(nee_mode=3, maxb=4),
+                     sample)
+    sh_t = requests(cfgs["slot3"], out3, fs_t, is_t, 0)
+    k2_ms = _cuda_ms(lambda: bf.occlusion(tbl, sh_t), 20)
+    k2_plain_ms = _cuda_ms(lambda: bf.occlusion_reference(tbl, sh_t), 1)
+    _, tests = bf.occlusion(tbl, sh_t, stats=True)
+    pairs = int(tests.sum())
+    k2_bound, k2_by, k2_terms = _bound(
+        n * SR_BYTES + 4 * tbl.tri_coef.numel(), f32=pairs * K1_PAIR_F32)
+    launch = dict(rays=n, requests=int((sh_t[bf.SR_DO] > 0.5).sum()),
+                  pairs=pairs)
+    rec.update(k1_modes=modes, k2=dict(ms=k2_ms, plain_ms=k2_plain_ms,
+                                       bound_ms=k2_bound, bound_by=k2_by,
+                                       terms=k2_terms, launch=launch),
+               card=smi)
+    for slot, m in modes.items():
+        print(f"external K1 {slot}: {m['ms']:.4f} ms per {n}-ray launch, "
+              f"bound {m['bound_ms']:.4f} ms ({m['bound_by']})"
+              + (f", plain {m['plain_ms']:.2f} ms" if "plain_ms" in m
+                 else "") + f" ({smi})", flush=True)
+    print(f"external K2: {k2_ms:.4f} ms per {n}-ray launch "
+          f"({launch['requests']} requests, {pairs} pairs tested), plain "
+          f"{k2_plain_ms:.2f} ms, bound {k2_bound:.4f} ms ({k2_by}) ({smi})",
+          flush=True)
+    dump()
+
+    # the three full-size paths
+    def run_path(label, scene_, host_, cfg, spp, adaptive):
+        cam_ = default_camera(host_, w, h, device=dev)
+        state = na.init_state(w, h, scene_.lights.count, device=dev) \
+            if adaptive else None
+        out = render_sample(scene_, cam_, cfg, w, h, 0, neeat_state=state)
+        if adaptive:
+            state = na.update(state, out["neeat_hist"])
+        torch.cuda.synchronize()
+        kernels.launches.clear()
+        t0 = time.perf_counter()
+        acc, rays = None, 0
+        for s in range(1, 1 + spp):
+            out = render_sample(scene_, cam_, cfg, w, h, s,
+                                neeat_state=state)
+            acc = out["L"] if acc is None else acc + out["L"]
+            rays = rays + out["ray_count"]
+            if adaptive:
+                state = na.update(state, out["neeat_hist"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launched = dict(kernels.launches)
+        chunks = -(-(w * h) // cfg.ray_chunk)
+        want = chunks * cfg.max_bounces * spp
+        hdr = acc / spp
+        finite = bool(torch.isfinite(hdr).all())
+        rays = int(rays)
+        p = dict(res=f"{w}x{h}", spp_timed=spp, bounces=cfg.max_bounces,
+                 chunks=chunks, launches=launched, expected=want, rays=rays,
+                 seconds=dt, mrays_per_s=rays / dt / 1e6,
+                 ms_per_frame_1spp=dt / spp * 1e3,
+                 L_mean=float(hdr.mean()), finite=finite,
+                 tier=out["kernel_tier"], card=smi)
+        print(f"external path {label}: {p['mrays_per_s']:.3f} Mrays/s, "
+              f"{p['ms_per_frame_1spp']:.3f} ms per 1-spp frame, {rays} "
+              f"rays, launches {launched} (want {want} each), mean L "
+              f"{p['L_mean']:.5f} ({smi})", flush=True)
+        if launched != dict(bounce_fused=want, shadow_occlusion=want) \
+                or not finite or out["kernel_tier"] != "fused":
+            rec[label] = p
+            record["external"] = rec
+            dump()
+            _fail(f"external: the {label} path did not run every bounce "
+                  f"through K1 and K2 or gave non-finite values")
+        return p, state, cam_
+
+    paths = {}
+    paths["neeat"], state, cam_at = run_path(
+        "neeat", scene, host, cfgs["slot3"], 4, True)
+    lit = state.conf > 0
+    moved = (state.tile_pdf - 1.0 / state.n_lights).abs().amax(1) > 1e-3
+    learned = dict(lit_tiles=int(lit.sum()), tiles=int(lit.numel()),
+                   lit_not_uniform=float(moved[lit].float().mean()),
+                   lit_max_pdf_mean=float(state.tile_pdf[lit].amax(1)
+                                          .mean()))
+    paths["neeat"]["learned"] = learned
+    print(f"external NEE-AT state: {learned['lit_tiles']} of "
+          f"{learned['tiles']} tiles lit, {learned['lit_not_uniform']:.4f} "
+          f"of them off the uniform pmf, mean largest light pmf "
+          f"{learned['lit_max_pdf_mean']:.4f} (uniform "
+          f"{1.0 / state.n_lights:.4f})", flush=True)
+    if learned["lit_tiles"] == 0 or learned["lit_not_uniform"] < 0.9:
+        rec["paths"] = paths
+        record["external"] = rec
+        dump()
+        _fail("external: the NEE-AT state learned nothing")
+    many_host = rooms_scene(*MANY_LIGHTS)
+    many = prepare(many_host, device=dev)
+    if many.lights.count <= bf.MAX_LIGHTS:
+        _fail("external: the many-light scene has too few lights")
+    paths["many_lights"], _, _ = run_path(
+        "many_lights", many, many_host, PathTracerConfig(
+            max_bounces=4, nee=NEEMode.POWER, ray_chunk=EXT_CHUNK), 2, False)
+    cornell = cornell_box()
+    paths["wrs"], _, _ = run_path(
+        "wrs", prepare(cornell, device=dev), cornell, PathTracerConfig(
+            max_bounces=4, nee=NEEMode.POWER, nee_candidates=4,
+            ray_chunk=EXT_CHUNK), 2, False)
+    rec["paths"] = paths
+
+    # one profiled NEE-AT frame: device time by part, and the idle share
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = render_sample(scene, cam_at, cfgs["slot3"], w, h, 6,
+                            neeat_state=state)
+        na.update(state, out["neeat_hist"])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rec["split"], rec["profile_table"] = _split(
+        prof, wall, ("camera", "nee", "feedback"),
+        (("k1", "bounce_fused_kernel"), ("k2", "shadow_occlusion_kernel")))
+    print(f"external NEE-AT split (one profiled frame, ms): "
+          f"{json.dumps(rec['split'])} ({smi})", flush=True)
+    record["external"] = rec
+    dump()
+    k2 = dict(name="shadow_occlusion", route="cuda",
+              source="rtxpt_tpu_torch/csrc/shadow_occlusion.cu",
+              replaces="rtxpt_tpu/pt/bounce_pallas.py:1573",
+              max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain_ms,
+              bound_ms=k2_bound, bound_by=k2_by, library_ms=None)
+    return dict(k1_err=k1_err, k1_modes=modes, k2=k2,
+                launches={k: v["launches"] for k, v in paths.items()})
 
 
 def _write_record(record, path):

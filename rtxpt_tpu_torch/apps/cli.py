@@ -6,10 +6,15 @@ Usage:
         --width 512 --height 512 --spp 16 --bounces 6 --out cornell.png
     python -m rtxpt_tpu_torch.apps.cli --scene city --device cuda \
         --width 1920 --height 1080 --spp 4 --bounces 4 --out city.png
+    python -m rtxpt_tpu_torch.apps.cli --scene rooms --nee neeat \
+        --device cuda --width 1920 --height 1080 --spp 8 --out rooms.png
 
 The city (about --tri-budget triangles, 350,000 by default; seen from above
 the roofs) renders on the clustered tier; the other scenes fit the fused
-kernel's 2048 triangles.
+kernel's 2048 triangles. `--nee neeat` (the per-tile adaptive sampler,
+learning from each sample before the next), `--candidates K` above 1
+(WRS) and scenes of more than 128 lights take the fused tier's
+external-NEE route.
 """
 
 from __future__ import annotations
@@ -32,23 +37,28 @@ def build_scene(name: str, tri_budget: int = 350_000):
         return procedural.furnace_box()
     if name == "triangle":
         return procedural.single_triangle()
+    if name == "rooms":
+        return procedural.rooms_scene(16)
     raise SystemExit(f"unknown scene {name!r} (cornell, furnace, triangle, "
-                     f"city)")
+                     f"rooms, city)")
 
 
 def main(argv=None):
     p = argparse.ArgumentParser(prog="rtxpt_tpu_torch",
                                 description="PyTorch/CUDA path tracer")
     p.add_argument("--scene", default="cornell",
-                   choices=["cornell", "furnace", "triangle", "city"])
+                   choices=["cornell", "furnace", "triangle", "rooms",
+                            "city"])
     p.add_argument("--tri-budget", type=int, default=350_000,
                    help="city: about this many triangles")
     p.add_argument("--width", type=int, default=512)
     p.add_argument("--height", type=int, default=512)
     p.add_argument("--spp", type=int, default=16)
     p.add_argument("--bounces", type=int, default=6)
-    p.add_argument("--nee", choices=["off", "uniform", "power"],
+    p.add_argument("--nee", choices=["off", "uniform", "power", "neeat"],
                    default="power")
+    p.add_argument("--candidates", type=int, default=1,
+                   help="NEE light candidates per vertex (WRS above 1)")
     p.add_argument("--no-mis", action="store_true")
     p.add_argument("--no-rr", action="store_true")
     p.add_argument("--exposure", type=float, default=1.0)
@@ -67,13 +77,15 @@ def main(argv=None):
         p.error("--width/--height must be >= 1")
     if args.bounces < 0:
         p.error("--bounces must be >= 0")
+    if args.candidates < 1:
+        p.error("--candidates must be >= 1")
 
     import numpy as np
 
     import rtxpt_tpu_torch
     from rtxpt_tpu_torch.config import NEEMode, PathTracerConfig
     from rtxpt_tpu_torch.prepare import prepare
-    from rtxpt_tpu_torch.pt.integrator import render
+    from rtxpt_tpu_torch.pt.integrator import render, render_adaptive
     from rtxpt_tpu_torch.render.postprocess import tonemap
     from rtxpt_tpu_torch.scene.procedural import default_camera
     from rtxpt_tpu_torch.utils.image import save_png
@@ -89,13 +101,15 @@ def main(argv=None):
     cfg = PathTracerConfig(
         max_bounces=args.bounces,
         nee={"off": NEEMode.OFF, "uniform": NEEMode.UNIFORM,
-             "power": NEEMode.POWER}[args.nee],
+             "power": NEEMode.POWER, "neeat": NEEMode.NEEAT}[args.nee],
+        nee_candidates=args.candidates,
         enable_mis=not args.no_mis,
         enable_russian_roulette=not args.no_rr)
 
     t0 = time.time()
-    hdr, _, rays = render(scene, cam, cfg, args.width, args.height,
-                          spp=args.spp, first_sample=args.seed)
+    run = render_adaptive if args.nee == "neeat" else render
+    hdr, _, rays = run(scene, cam, cfg, args.width, args.height,
+                       spp=args.spp, first_sample=args.seed)
     ldr = tonemap(hdr, args.exposure, args.tonemap).cpu().numpy()
     dt = time.time() - t0
     print(f"[render] {args.width}x{args.height}@{args.spp}spp on {dev} in "

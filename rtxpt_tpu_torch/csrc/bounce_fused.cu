@@ -2,8 +2,10 @@
 //
 // Replaces rtxpt_tpu/pt/bounce_pallas.py::_bounce_kernel (launched there by
 // _bounce_call, pl.pallas_call at bounce_pallas.py:1714) in the reference-mode
-// Cornell configuration. Plain version: rtxpt_tpu_torch/pt/bounce_fused.py
-// bounce_reference; wrapper: bounce_fused.bounce.
+// configuration, with NEE in the kernel (nee slots 0-2) or exported for
+// external NEE (slots 3-5: the SF_* surface rows go to `surf_out`). Plain
+// version: rtxpt_tpu_torch/pt/bounce_fused.py bounce_reference; wrapper:
+// bounce_fused.bounce.
 //
 // Design. One thread per ray over a 1-D grid; the wavefront state is SoA
 // ([rows, N] columns), so neighbouring threads read neighbouring addresses.
@@ -34,17 +36,20 @@ constexpr int kThreads = 128;
 __global__ void __launch_bounds__(kThreads)
 bounce_fused_kernel(const float* __restrict__ fs, const int* __restrict__ is,
                     float* __restrict__ fs_out, int* __restrict__ is_out,
-                    float* __restrict__ hit_out, rt::Tables tb, rt::Config cfg, int n) {
+                    float* __restrict__ hit_out, float* __restrict__ surf_out,
+                    rt::Tables tb, rt::Config cfg, int n) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  rt::bounce_ray(i, n, fs, is, fs_out, is_out, hit_out, tb, cfg);
+  rt::bounce_ray(i, n, fs, is, fs_out, is_out, hit_out, surf_out, tb, cfg);
 }
 
 }  // namespace
 
+// `surf_out` ([SF_ROWS, n] or NULL) receives the exported surface in the
+// external modes.
 extern "C" int rtxpt_bounce_fused(
     const float* fs, const int* is, float* fs_out, int* is_out, float* hit_out,
-    const float* tri_coef, const float* attr_rows, const float* mat_rows,
+    float* surf_out, const float* tri_coef, const float* attr_rows, const float* mat_rows,
     const float* light_rows, int n, int n_tris, int tpad, int n_lights,
     unsigned int sample_idx, int nee_mode, int enable_mis, float firefly,
     int rr_enable, int min_rr, float max_travel, int low_discrepancy,
@@ -70,6 +75,6 @@ extern "C" int rtxpt_bounce_fused(
   cfg.maxb = maxb;
   int blocks = (n + kThreads - 1) / kThreads;
   bounce_fused_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      fs, is, fs_out, is_out, hit_out, tb, cfg, n);
+      fs, is, fs_out, is_out, hit_out, surf_out, tb, cfg, n);
   return (int)cudaGetLastError();
 }

@@ -3,9 +3,11 @@
 // the fused bounce kernel (bounce_fused.cu); the plain version of the same
 // function is rtxpt_tpu_torch/pt/bounce_fused.py::bounce_reference, and the
 // TPU original is rtxpt_tpu/pt/bounce_pallas.py::_bounce_kernel with
-// surface_and_shade in the reference-mode Cornell configuration (no env, no
-// textures, no OMM, no priorities, no split channels, no injection, in-kernel
-// NEE).
+// surface_and_shade in the reference-mode configuration (no env, no
+// textures, no OMM, no priorities, no split channels, no injection), with NEE
+// in the kernel (modes 1, 2) or exported for external NEE (modes 3-5: the
+// SF_* surface rows; the shadow rays are then resolved by K2,
+// shadow_occlusion.cu).
 #pragma once
 
 #include "rng.cuh"
@@ -25,7 +27,7 @@ enum { FS_O = 0, FS_D = 3, FS_THP = 6, FS_L = 9, FS_PREVPDF = 12, FS_CONE = 13,
 enum { IS_ACTIVE = 0, IS_PREVDELTA = 1, IS_MED0 = 2, IS_MED1 = 3, IS_PX = 4,
        IS_PY = 5, IS_BUDGET = 6, IS_LBOUNCE = 7, NI = 8 };
 enum { AT_N0 = 0, AT_N1 = 3, AT_N2 = 6, AT_GN = 9, AT_MID = 12, AT_LPDF = 13,
-       AT_LAREA = 14, AT_ISLIGHT = 15, AT_ROWS = 28 };
+       AT_LAREA = 14, AT_ISLIGHT = 15, AT_LID = 23, AT_ROWS = 28 };
 enum { MT_BASE = 0, MT_METAL = 3, MT_ROUGH = 4, MT_IOR = 5, MT_TRANS = 6,
        MT_DTRANS = 7, MT_EMISSIVE = 8, MT_SPEC = 11, MT_THIN = 12,
        MT_VOLABS = 13, MT_EPOLY = 16, MT_EAVG = 22 };
@@ -33,6 +35,11 @@ enum { LROW_KIND = 0, LROW_P0 = 1, LROW_P1 = 4, LROW_P2 = 7, LROW_EM = 10,
        LROW_EXTRA = 13, LROW_NORMAL = 17, LROW_POWER = 20, LROW_CDF = 21 };
 enum { TC_DET = 0, TC_U = 3, TC_V = 9, TC_T = 15, TC_ROWS = 20 };
 enum { EFFECT_SCATTER = 29, EFFECT_NEE = 31, EFFECT_RR = 37 };
+// external-NEE surface export rows (SF_*) and shadow-request rows (SR_*)
+enum { SF_POS = 0, SF_SHN = 3, SF_GN = 6, SF_MID = 9, SF_BASE = 10, SF_METAL = 13,
+       SF_ROUGH = 14, SF_ETA = 15, SF_THP = 16, SF_EMIT = 19, SF_PGEO = 22,
+       SF_LID = 23, SF_ROWS = 24 };
+enum { SR_O = 0, SR_D = 3, SR_DIST = 6, SR_DO = 7, SR_ROWS = 8 };
 constexpr float kBig = (float)1e30;
 constexpr int kLanes = 128;        // lane tables: [rows, 128]
 
@@ -46,7 +53,8 @@ struct Tables {
 
 struct Config {
   uint32_t sample_idx;
-  int nee_mode;         // 0 off | 1 uniform | 2 power
+  int nee_mode;         // 0 off | 1 uniform | 2 power | 3 NEE-AT |
+                        // 4 uniform-external | 5 power-external
   bool enable_mis;
   float firefly;
   bool rr_enable;
@@ -100,14 +108,21 @@ RT_HD Hit intersect(const Tables& tb, V3 o, V3 d, float tmax) {
   return h;
 }
 
-// Any hit in (0, tmax) (bounce_pallas._occluded_group).
-RT_HD bool occluded(const Tables& tb, V3 o, V3 d, float tmax) {
+// Any hit in (0, tmax) (bounce_pallas._occluded_group); `tested` counts the
+// ray-triangle pairs tested, up to and including the first occluder.
+RT_HD bool occluded(const Tables& tb, V3 o, V3 d, float tmax, int& tested) {
   V3 x = cross3(o, d);
   for (int j = 0; j < tb.n_tris; ++j) {
     float u, v, t, det;
+    ++tested;
     if (tri_test(tb.tri + j * TC_ROWS, o, d, x, u, v, t, det) && t < tmax) return true;
   }
   return false;
+}
+
+RT_HD bool occluded(const Tables& tb, V3 o, V3 d, float tmax) {
+  int tested = 0;
+  return occluded(tb, o, d, tmax, tested);
 }
 
 RT_HD V3 ray_offset(V3 pos, V3 gn, V3 dir) {
@@ -150,6 +165,14 @@ struct ShadowRay {
   bool do_nee;
   V3 o, d, contrib;
   float dist;
+};
+
+// The shaded surface that the external modes export (the SF_* rows) and
+// whether the lane was shaded.
+struct SurfRows {
+  V3 pos, sh_n, gn, base, thp, emit;
+  float mid, metal, rough, eta, p_geo, lid;
+  bool shaded;
 };
 
 RT_HD RayState load_state(int i, int n, const float* __restrict__ fs,
@@ -200,14 +223,21 @@ RT_HD void store_state(int i, int n, const RayState& s, float* __restrict__ fs_o
 // version bounce_fused.surface_and_shade): surface fetch, volume absorption,
 // emissive-hit MIS, one NEE light sample + BSDF eval, BSDF scatter, medium
 // stack, Russian roulette. Advances `s` to the next bounce and returns the
-// shadow ray; the caller resolves its occlusion and adds `contrib`.
+// shadow ray; the caller resolves its occlusion and adds `contrib`. In the
+// external modes (3-5) there is no shadow ray: the surface goes to `sf`
+// instead, and in mode 3 (NEE-AT) the emission too, unweighted.
 // `A(r)` fetches the hit's attribute row r (AT_*): K1 reads the attribute
 // table by prim, K4 (cluster_shade.cu) reads K3's HA rows.
 template <class AttrFetch>
 RT_HD ShadowRay surface_and_shade(RayState& s, const Hit& h, const AttrFetch& A,
-                                  const Tables& tb, const Config& cfg) {
-  const bool use_nee = (cfg.nee_mode == 1 || cfg.nee_mode == 2) && tb.n_lights > 0;
-  const bool nee_uniform = cfg.nee_mode == 1;
+                                  const Tables& tb, const Config& cfg,
+                                  SurfRows* sf = nullptr) {
+  const int mode = cfg.nee_mode;
+  const bool use_nee = (mode == 1 || mode == 2) && tb.n_lights > 0;
+  const bool nee_uniform = mode == 1 || mode == 4;
+  // emissive-hit MIS with the baked per-triangle selection pdf: every mode
+  // but NEE-AT, whose mixture pmf lives in the external tile state
+  const bool em_mis = (mode == 1 || mode == 2 || mode == 4 || mode == 5) && tb.n_lights > 0;
   const V3 d = s.d;
   const float t = h.t;
   const bool hit = t < kBig;
@@ -274,13 +304,33 @@ RT_HD ShadowRay surface_and_shade(RayState& s, const Hit& h, const AttrFetch& A,
   float area = max_(A(AT_LAREA), (float)1e-12);
   float p_geo = t * t / max_(area * max_(cos_l, (float)1e-9), (float)1e-12);
   float w_em = 1.0f;
-  if (use_nee && cfg.enable_mis) {
+  if (em_mis && cfg.enable_mis) {
     float sel_pdf_hit = nee_uniform ? A(AT_ISLIGHT) * (1.0f / (float)tb.n_lights)
                                     : A(AT_LPDF);
     float p_light = A(AT_ISLIGHT) > 0.5f ? sel_pdf_hit * p_geo : 0.0f;
     w_em = (s.prev_delta || lb == 0) ? 1.0f : power_heuristic(s.prev_pdf, p_light);
   }
-  if (hit_shade) s.L = s.L + thp * emissive * w_em;
+  V3 em3 = splat(0.0f);
+  if (mode == 3) {
+    if (hit_shade) em3 = thp * emissive;
+  } else if (hit_shade) {
+    s.L = s.L + thp * emissive * w_em;
+  }
+  if (sf != nullptr) {
+    sf->pos = pos;
+    sf->sh_n = sh_n;
+    sf->gn = gn;
+    sf->mid = (float)mid;
+    sf->base = base_color;
+    sf->metal = metallic;
+    sf->rough = roughness;
+    sf->eta = b.eta;
+    sf->thp = thp;
+    sf->emit = em3;
+    sf->p_geo = A(AT_ISLIGHT) > 0.5f ? p_geo : 0.0f;
+    sf->lid = A(AT_LID);
+    sf->shaded = hit_shade;
+  }
 
   V3 wo = to_local3(-d, sh_n);
 
@@ -368,17 +418,42 @@ RT_HD ShadowRay surface_and_shade(RayState& s, const Hit& h, const AttrFetch& A,
   return sr;
 }
 
+RT_HD void store_surf(int i, int n, const SurfRows& sf, float* __restrict__ surf_out) {
+  float* so = surf_out + i;
+  auto put3 = [&](int r, V3 v) {
+    so[r * n] = v.x; so[(r + 1) * n] = v.y; so[(r + 2) * n] = v.z;
+  };
+  put3(SF_POS, sf.pos);
+  put3(SF_SHN, sf.sh_n);
+  put3(SF_GN, sf.gn);
+  so[SF_MID * n] = sf.mid;
+  put3(SF_BASE, sf.base);
+  so[SF_METAL * n] = sf.metal;
+  so[SF_ROUGH * n] = sf.rough;
+  so[SF_ETA * n] = sf.eta;
+  put3(SF_THP, sf.thp);
+  put3(SF_EMIT, sf.emit);
+  so[SF_PGEO * n] = sf.p_geo;
+  so[SF_LID * n] = sf.lid;
+}
+
 // One bounce of ray i: closest hit, surface_and_shade, the shadow ray, and the
-// state and hit rows written back ([rows, n] SoA columns).
+// state and hit rows written back ([rows, n] SoA columns). With `surf_out`
+// (the external modes 3-5 with lights) the surface rows go there, no shadow
+// ray is traced, and hit row 5 holds the shading flag: 0 not shaded, 1 shaded
+// at logical bounce 0, 2 shaded later (bounce_pallas.py:1556-1560).
 RT_HD void bounce_ray(int i, int n, const float* __restrict__ fs, const int* __restrict__ is,
                       float* __restrict__ fs_out, int* __restrict__ is_out,
-                      float* __restrict__ hit_out, const Tables& tb, const Config& cfg) {
+                      float* __restrict__ hit_out, float* __restrict__ surf_out,
+                      const Tables& tb, const Config& cfg) {
   RayState s = load_state(i, n, fs, is);
+  const int lb_in = s.lb;
   Hit h = intersect(tb, s.o, s.d, cfg.max_travel);
   auto attr = [&](int r) {
     return h.prim >= 0 ? RT_LDG(tb.attr + r * tb.tpad + h.prim) : 0.0f;
   };
-  ShadowRay sr = surface_and_shade(s, h, attr, tb, cfg);
+  SurfRows sf;
+  ShadowRay sr = surface_and_shade(s, h, attr, tb, cfg, surf_out != nullptr ? &sf : nullptr);
   if (sr.do_nee && !occluded(tb, sr.o, sr.d, sr.dist)) s.L = s.L + sr.contrib;
   store_state(i, n, s, fs_out, is_out);
   float* ho = hit_out + i;
@@ -387,7 +462,12 @@ RT_HD void bounce_ray(int i, int n, const float* __restrict__ fs, const int* __r
   ho[2 * n] = h.u;
   ho[3 * n] = h.v;
   ho[4 * n] = h.det > 0.0f ? 1.0f : 0.0f;
-  ho[5 * n] = sr.do_nee ? 1.0f : 0.0f;
+  if (surf_out != nullptr) {
+    store_surf(i, n, sf, surf_out);
+    ho[5 * n] = sf.shaded ? (lb_in > 0 ? 2.0f : 1.0f) : 0.0f;
+  } else {
+    ho[5 * n] = sr.do_nee ? 1.0f : 0.0f;
+  }
 }
 
 }  // namespace rt

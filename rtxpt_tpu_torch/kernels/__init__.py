@@ -126,6 +126,7 @@ BOUNCE_FUSED = CudaLibrary(
     "bounce_fused", ["bounce_fused.cu"],
     {"rtxpt_bounce_fused": [
         _P, _P, _P, _P, _P,            # fs, is_, fs_out, is_out, hit_out
+        _P,                            # surf_out (external modes) | NULL
         _P, _P, _P, _P,                # tri_coef, attr, mat, light rows
         _I, _I, _I, _I,                # n, n_tris, tpad, n_lights
         _U,                            # sample_idx
@@ -134,6 +135,14 @@ BOUNCE_FUSED = CudaLibrary(
         _I, _I, _I,                    # low_discrepancy, energy_comp, maxb
         _P]})                          # cudaStream_t
 
+# K2: the shadow any-hit kernel of external NEE (replaces rtxpt_tpu/pt/
+# bounce_pallas.py _shadow_kernel); wrapper bounce_fused.occlusion.
+SHADOW_OCCLUSION = CudaLibrary(
+    "shadow_occlusion", ["shadow_occlusion.cu"],
+    {"rtxpt_shadow_occlusion": [
+        _P, _P, _P, _P,                # sh, occ, tests|NULL, tri_coef
+        _I, _I,                        # n, n_tris
+        _P]})                          # cudaStream_t
 
 # K3: the clustered closest-hit kernel (replaces rtxpt_tpu/pt/
 # bounce_clustered.py _kernel_a1); wrapper bounce_clustered.closest_hit.
@@ -165,7 +174,8 @@ CLUSTER_SHADOW = CudaLibrary(
         _I, _I,                        # n_groups, kslots
         _P]})                          # cudaStream_t
 
-LIBRARIES = (BOUNCE_FUSED, CLUSTER_CLOSEST, CLUSTER_SHADE, CLUSTER_SHADOW)
+LIBRARIES = (BOUNCE_FUSED, SHADOW_OCCLUSION, CLUSTER_CLOSEST, CLUSTER_SHADE,
+             CLUSTER_SHADOW)
 
 
 def build_all(libraries=LIBRARIES) -> dict:

@@ -2,12 +2,14 @@
 emissive triangles and analytic lights -> one polymorphic light list with
 a power-proportional selection CDF. Host numpy code (the same operations
 as the JAX package, so the fields agree bit for bit); the result is a
-LightList of tensors. The environment light and environment quads come
-with the environment slice."""
+LightList of tensors. `sample_light` selects and samples lights over a
+wavefront, for triangle, point, spot and directional lights. The
+environment light, environment quads and sphere lights come with the
+environment slice."""
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -15,6 +17,7 @@ import torch
 from rtxpt_tpu_torch.scene.scene import (
     LIGHT_DIRECTIONAL, LIGHT_POINT, LIGHT_SPHERE, SceneData,
 )
+from rtxpt_tpu_torch.utils import math as m
 
 # Polymorphic light kinds (same codes as the JAX package)
 KIND_TRIANGLE = 0
@@ -26,6 +29,9 @@ KIND_SPHERE = 5
 KIND_ENVQUAD = 6
 
 _LUM = np.asarray([0.2126, 0.7152, 0.0722])
+_DELTA_DIST = 1e8   # "infinite" distance for directional shadow rays
+_UNPORTED_KINDS = {KIND_ENV: "environment", KIND_SPHERE: "sphere",
+                   KIND_ENVQUAD: "environment-quad"}
 
 
 @dataclass(frozen=True)
@@ -42,10 +48,38 @@ class LightList:
     tri_light: torch.Tensor  # [T] i32 triangle -> light index (-1 none)
     env_light: int           # index of the environment light (-1 none)
     num: int
+    # the light kinds present, read once from `kind` at construction
+    kinds: frozenset = field(init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        object.__setattr__(self, "kinds", frozenset(
+            int(k) for k in np.unique(self.kind.detach().cpu().numpy())))
 
     @property
     def count(self) -> int:
         return self.kind.shape[0]
+
+    def require_sampled_kinds(self):
+        """Raise NotImplementedError, naming the kind, when the list holds
+        a light that `sample_light` does not sample yet."""
+        for kind in sorted(self.kinds & _UNPORTED_KINDS.keys()):
+            raise NotImplementedError(
+                f"sampling {_UNPORTED_KINDS[kind]} lights is not ported to "
+                f"rtxpt_tpu_torch yet")
+
+
+def lights_from_numpy(fields: dict, device="cpu") -> LightList:
+    """LightList on `device` from the JAX package's LightList fields as
+    numpy arrays (kind, p0, p1, p2, emission, extra, normal, power, cdf,
+    tri_light, env_light, num)."""
+    def t(key, dtype=np.float32):
+        return torch.tensor(np.asarray(fields[key], dtype), device=device)
+
+    return LightList(
+        kind=t("kind", np.int32), p0=t("p0"), p1=t("p1"), p2=t("p2"),
+        emission=t("emission"), extra=t("extra"), normal=t("normal"),
+        power=t("power"), cdf=t("cdf"), tri_light=t("tri_light", np.int32),
+        env_light=int(fields["env_light"]), num=int(fields["num"]))
 
 
 def _np(x):
@@ -146,3 +180,84 @@ def bake_lights(scene: SceneData, envmap, scene_radius: float,
         emission=t(ems), extra=t(extras), normal=t(normals),
         power=t(pdf), cdf=t(cdf), tri_light=t(tri_light, np.int32),
         env_light=-1, num=n)
+
+
+# ---------------------------------------------------------------------------
+# Device sampling
+# ---------------------------------------------------------------------------
+
+
+def sample_light(lights: LightList, envmap, shade_pos, u_sel, u1, u2,
+                 uniform: bool = False):
+    """Light selection (power CDF, or uniform when `uniform`) and a sample
+    of the chosen light, over a wavefront: shade_pos [N,3], u_* [N].
+
+    Returns dict(wi [N,3], dist [N], Li [N,3] unshadowed incident radiance,
+    pdf [N] solid-angle pdf (delta lights fold in only the selection pmf
+    and report `is_delta`), valid [N], light_index [N] i32). `envmap` is
+    read by the environment kinds, which raise NotImplementedError."""
+    lights.require_sampled_kinds()
+    u_sel = torch.clamp(u_sel, 0.0, 1.0 - 1e-7)
+    if uniform:
+        nf = float(lights.num)
+        li = torch.clamp((u_sel * nf).to(torch.int64), 0, lights.count - 1)
+        sel_pdf = torch.full_like(u_sel, 1.0) / nf
+    else:
+        li = torch.clamp(torch.searchsorted(lights.cdf, u_sel), 0,
+                         lights.count - 1)
+        sel_pdf = lights.power[li]
+    kind = lights.kind[li]
+    p0 = lights.p0[li]
+    p1 = lights.p1[li]
+    p2 = lights.p2[li]
+    em = lights.emission[li]
+    ex = lights.extra[li]
+    nl = lights.normal[li]
+
+    # --- triangle area light ---
+    b0, b1, b2 = m.sample_triangle_barycentrics(u1, u2)
+    lp = p0 + b1[..., None] * p1 + b2[..., None] * p2
+    to_l = lp - shade_pos
+    d2 = torch.clamp(m.dot(to_l, to_l, False), min=1e-12)
+    dist_tri = torch.sqrt(d2)
+    wi_tri = to_l / dist_tri[..., None]
+    cos_l = m.dot(-wi_tri, nl, False)
+    area = torch.clamp(ex[..., 0], min=1e-12)
+    pdf_tri = sel_pdf * d2 / torch.clamp(
+        area * torch.clamp(cos_l, min=1e-9), min=1e-12)
+    valid_tri = cos_l > 1e-6
+
+    # --- point / spot ---
+    to_p = p0 - shade_pos
+    d2p = torch.clamp(m.dot(to_p, to_p, False), min=1e-12)
+    dist_p = torch.sqrt(d2p)
+    wi_p = to_p / dist_p[..., None]
+    li_point = em / d2p[..., None]
+    cos_spot = m.dot(-wi_p, p1, False)
+    spot_atten = torch.clamp((cos_spot - ex[..., 1])
+                             / torch.clamp(ex[..., 0] - ex[..., 1], min=1e-6),
+                             0.0, 1.0)
+    spot_atten = spot_atten * spot_atten
+
+    # --- directional ---
+    wi_dir = -p1
+
+    is_tri = kind == KIND_TRIANGLE
+    is_point = kind == KIND_POINT
+    is_spot = kind == KIND_SPOT
+    wi = torch.where(is_tri[..., None], wi_tri,
+                     torch.where((is_point | is_spot)[..., None], wi_p,
+                                 wi_dir))
+    dist = torch.where(is_tri, dist_tri,
+                       torch.where(is_point | is_spot, dist_p,
+                                   torch.full_like(dist_p, _DELTA_DIST)))
+    Li = torch.where(is_tri[..., None], em,
+                     torch.where(is_point[..., None], li_point,
+                                 torch.where(is_spot[..., None],
+                                             li_point * spot_atten[..., None],
+                                             em)))
+    pdf = torch.where(is_tri, pdf_tri, sel_pdf)
+    is_delta = is_point | is_spot | (kind == KIND_DIRECTIONAL)
+    valid = (valid_tri | ~is_tri) & (pdf > 1e-12) & (sel_pdf > 0.0)
+    return dict(wi=wi, dist=dist, Li=Li, pdf=pdf, is_delta=is_delta,
+                valid=valid, light_index=li.to(torch.int32))

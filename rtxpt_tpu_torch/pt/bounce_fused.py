@@ -8,11 +8,16 @@ The JAX package runs this step as the Pallas TPU kernel `_bounce_kernel`
 wrapper: the CUDA kernel for CUDA tensors, the plain version for CPU
 tensors, and an exception for anything else.
 
-What is ported is the reference-mode Cornell configuration of the
-kernel: scenes of at most 2048 triangles and 128 lights, NEE off /
-uniform / power with one candidate, no environment light, no textures,
-no opacity micromaps, no nested priorities, no split channels, no V-buffer
-injection and no external NEE. `build_bounce_tables` raises
+What is ported is the reference-mode configuration of the kernel:
+scenes of at most 2048 triangles, NEE off / uniform / power with one
+candidate inside the kernel (nee slots 0-2, at most 128 lights), or the
+external-NEE slots 3-5 (NEE-AT, uniform, power), in which the kernel
+exports the shaded surface (the SF_* rows), pt/nee_external.py selects
+and evaluates the light, and the shadow kernel K2 (`occlusion`,
+csrc/shadow_occlusion.cu, the TPU kernel `_shadow_kernel`) resolves the
+shadow rays; that route takes any number of lights. No environment
+light, no textures, no opacity micromaps, no nested priorities, no split
+channels and no V-buffer injection: `build_bounce_tables` raises
 NotImplementedError for the rest.
 
 Layouts are the JAX package's, minus the TPU tiling: the wavefront state
@@ -27,9 +32,11 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from rtxpt_tpu_torch import kernels
 from rtxpt_tpu_torch.pt import wide as W
+from rtxpt_tpu_torch.pt.surface import ray_offset
 from rtxpt_tpu_torch.utils import rng
 
 # Geometry / table capacities
@@ -112,6 +119,31 @@ TC_V = 9                # 9:15
 TC_T = 15               # 15:19
 TC_ROWS = 20            # one pad column (80-byte rows)
 
+# External-NEE surface export rows (surf [SF_ROWS, N]; the kernel's
+# external modes write them, pt/nee_external.py reads them)
+SF_POS = 0              # 0:3 shading position
+SF_SHN = 3              # 3:6 shading normal
+SF_GN = 6               # 6:9 geometric normal (ray-facing)
+SF_MID = 9              # material id
+SF_BASE = 10            # 10:13 base color
+SF_METAL = 13
+SF_ROUGH = 14
+SF_ETA = 15             # relative IoR at this crossing
+SF_THP = 16             # 16:19 throughput at the surface (post-volume)
+SF_EMIT = 19            # 19:22 unweighted emission thp * Le (NEE-AT only)
+SF_PGEO = 22            # area -> solid angle jacobian of a light hit
+SF_LID = 23             # the hit triangle's light id (-1 none)
+SF_ROWS = 24
+
+# Shadow-request rows of the shadow kernel K2 (sh [SR_ROWS, N])
+SR_O = 0                # 0:3 origin
+SR_D = 3                # 3:6 direction
+SR_DIST = 6             # occluders count in (0, dist)
+SR_DO = 7               # 1 = a request; a lane without one reads occluded
+SR_ROWS = 8
+
+EXTERNAL_MODES = (3, 4, 5)
+
 # Effect seeds (same as rtxpt_tpu/pt/integrator.py)
 EFFECT_SCATTER = 29
 EFFECT_NEE = 31
@@ -142,7 +174,8 @@ class KernelConfig:
     """The bounce step's static switches (bounce_pallas._cfg_key, plus the
     logical-bounce limit)."""
 
-    nee_mode: int = 2          # 0 off | 1 uniform | 2 power
+    nee_mode: int = 2          # 0 off | 1 uniform | 2 power | 3 NEE-AT |
+    #                            4 uniform-external | 5 power-external
     enable_mis: bool = True
     firefly: float = 0.0
     rr_enable: bool = True
@@ -152,10 +185,17 @@ class KernelConfig:
     energy_comp: bool = True
     maxb: int = 6
 
+    @property
+    def external(self) -> bool:
+        return self.nee_mode in EXTERNAL_MODES
+
     @staticmethod
     def from_cfg(cfg) -> "KernelConfig":
+        mode = int(cfg.nee.value)
+        if getattr(cfg, "nee_external", False) and mode in (1, 2):
+            mode += 3
         return KernelConfig(
-            nee_mode=int(cfg.nee.value), enable_mis=bool(cfg.enable_mis),
+            nee_mode=mode, enable_mis=bool(cfg.enable_mis),
             firefly=float(cfg.firefly_clamp),
             rr_enable=bool(cfg.enable_russian_roulette),
             min_rr=int(cfg.min_bounces_before_rr),
@@ -207,7 +247,10 @@ def pack_materials(materials) -> np.ndarray:
 
 
 def pack_lights(lights) -> np.ndarray:
-    """[W.LROWS, 128] lane table: one column per light (first 128)."""
+    """[W.LROWS, 128] lane table: one column per light, the first 128 (a
+    scene with more takes the external-NEE route, which never selects
+    from this table; the per-triangle AT_LPDF / AT_LID rows cover every
+    light)."""
     n = min(int(lights.num), MAX_LIGHTS)
     lt = np.zeros((W.LROWS, 128), np.float32)
     lt[W.LROW_CDF, :] = 1.0
@@ -422,17 +465,27 @@ def _intersect(tables: BounceTables, o, d, tmax: float):
     return best_t, best_prim, best_u, best_v, best_det
 
 
-def _occluded(tables: BounceTables, o, d, tmax):
-    """Any hit in (0, tmax) per ray (bounce_pallas._occluded_group)."""
+def _occluded(tables: BounceTables, o, d, tmax, stats: bool = False):
+    """Any hit in (0, tmax) per ray (bounce_pallas._occluded_group). With
+    `stats`, also the ray-triangle pairs a ray tests in triangle order up
+    to and including its first occluder (int64 [N])."""
     oxd = W.cross3(o, d)
-    occ = torch.zeros(o.shape[1], dtype=torch.bool, device=o.device)
+    n = o.shape[1]
+    occ = torch.zeros(n, dtype=torch.bool, device=o.device)
+    tested = torch.full((n,), tables.n_tris, dtype=torch.int64,
+                        device=o.device)
     for lo in range(0, tables.n_tris, _TRI_BLOCK):
         c = tables.tri_coef[lo:min(lo + _TRI_BLOCK, tables.n_tris)]
         ok, u, v, t, _ = _tri_params(c, o, d, oxd)
         valid = (ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
                  & (t > 0.0) & (t < tmax))
+        if stats:
+            iota = torch.arange(c.shape[0], device=o.device)[:, None]
+            first = torch.amin(torch.where(valid, iota, c.shape[0]), dim=0)
+            tested = torch.where(~occ & (first < c.shape[0]),
+                                 lo + first + 1, tested)
         occ = occ | valid.any(dim=0)
-    return occ
+    return (occ, tested) if stats else occ
 
 
 def _searchsorted128(cdf_row, u):
@@ -445,10 +498,8 @@ def _searchsorted128(cdf_row, u):
 
 
 def _ray_offset(pos, gn, direction):
-    mag = torch.sqrt(torch.clamp(W.dot3(pos, pos), min=0.0))
-    scale = torch.clamp(mag, min=1.0) * 3e-5
-    side = torch.where(W.dot3(direction, gn) >= 0.0, 1.0, -1.0)
-    return pos + gn * (side * scale)
+    """surface.ray_offset on [3, N] stacks."""
+    return ray_offset(pos.T, gn.T, direction.T).T
 
 
 def surface_and_shade(*, o, d, t, hit, front, bu, bv, attr, thp, L,
@@ -456,16 +507,24 @@ def surface_and_shade(*, o, d, t, hit, front, bu, bv, attr, thp, L,
                       px, py, budget, lb, tables: BounceTables,
                       kcfg: KernelConfig, sample_idx: int):
     """Post-intersection bounce body (bounce_pallas.surface_and_shade with
-    no environment, textures, micromaps, priorities, split channels or
-    external NEE): surface fetch, volume absorption, emissive-hit MIS, one
-    NEE light sample + BSDF eval, BSDF scatter, medium stack, Russian
-    roulette. `attr(i, k=1)` fetches the winner's attribute rows. Returns
-    the next state and the pending shadow ray (do_nee, shadow_o, shadow_d,
-    sdist, contrib); the caller resolves occlusion. csrc/bounce_fused.cuh
+    no environment, textures, micromaps, priorities or split channels):
+    surface fetch, volume absorption, emissive-hit MIS, one NEE light
+    sample + BSDF eval, BSDF scatter, medium stack, Russian roulette.
+    `attr(i, k=1)` fetches the winner's attribute rows. Returns the next
+    state, whether the lane was shaded, and the pending shadow ray
+    (do_nee, shadow_o, shadow_d, sdist, contrib); the caller resolves
+    occlusion. In the external modes (3-5) there is no shadow ray: the
+    surface rows `surf` [SF_ROWS, N] go out instead, and in mode 3
+    (NEE-AT) the emission with them, unweighted. csrc/bounce_fused.cuh
     holds the same function per ray."""
     n_lights = tables.n_lights
-    use_nee = kcfg.nee_mode in (1, 2) and n_lights > 0
-    nee_uniform = kcfg.nee_mode == 1
+    mode = kcfg.nee_mode
+    use_nee = mode in (1, 2) and n_lights > 0
+    ext_nee = mode in EXTERNAL_MODES and n_lights > 0
+    nee_uniform = mode in (1, 4)
+    # emissive-hit MIS with the baked per-triangle selection pdf: every
+    # mode but NEE-AT, whose mixture pmf lives in the external tile state
+    em_mis = mode in (1, 2, 4, 5) and n_lights > 0
     mat = tables.mat_rows
     lrows = tables.light_rows
 
@@ -539,7 +598,7 @@ def surface_and_shade(*, o, d, t, hit, front, bu, bv, attr, thp, L,
     area = torch.clamp(attr(AT_LAREA), min=1e-12)
     p_geo = t * t / torch.clamp(area * torch.clamp(cos_l, min=1e-9),
                                 min=1e-12)
-    if use_nee and kcfg.enable_mis:
+    if em_mis and kcfg.enable_mis:
         if nee_uniform:
             sel_pdf_hit = attr(AT_ISLIGHT) / float(max(n_lights, 1))
         else:
@@ -550,7 +609,18 @@ def surface_and_shade(*, o, d, t, hit, front, bu, bv, attr, thp, L,
                            W.power_heuristic(prev_pdf, p_light))
     else:
         w_em = torch.ones_like(t)
-    L = L + torch.where(hit_shade, thp * emissive * w_em, 0.0)
+    if mode == 3:
+        em3 = torch.where(hit_shade, thp * emissive, 0.0)
+    else:
+        L = L + torch.where(hit_shade, thp * emissive * w_em, 0.0)
+        em3 = torch.zeros_like(thp)
+    surf = None
+    if ext_nee:
+        surf = torch.cat([
+            pos, sh_n, gn, mid.to(torch.float32)[None], base_color,
+            metallic[None], roughness[None], bsdf.eta[None], thp, em3,
+            torch.where(attr(AT_ISLIGHT) > 0.5, p_geo, 0.0)[None],
+            attr(AT_LID)[None]], dim=0)
 
     wo = W.to_local3(-d, sh_n)
 
@@ -638,7 +708,8 @@ def surface_and_shade(*, o, d, t, hit, front, bu, bv, attr, thp, L,
                 prev_pdf=prev_pdf, cone=cone, spread=spread, active=active,
                 prev_delta=prev_delta, med0=med0, med1=med1,
                 lbounce=lb_out, do_nee=do_nee, shadow_o=shadow_o,
-                shadow_d=shadow_d, sdist=sdist, contrib=contrib)
+                shadow_d=shadow_d, sdist=sdist, contrib=contrib,
+                shaded=hit_shade, surf=surf)
 
 
 def bounce_reference(fs, is_, tables: BounceTables, kcfg: KernelConfig,
@@ -646,7 +717,10 @@ def bounce_reference(fs, is_, tables: BounceTables, kcfg: KernelConfig,
     """One bounce of the whole wavefront in plain PyTorch: the function
     the CUDA kernel computes per ray (_intersect_group, surface_and_shade,
     _occluded_group). fs [NF,N] f32, is_ [NI,N] i32 -> (fs_out [NF,N],
-    is_out [NI,N], hit_out [NH,N])."""
+    is_out [NI,N], hit_out [NH,N]), plus surf_out [SF_ROWS,N] in the
+    external modes with lights, where hit row 5 is the shading flag (0 not
+    shaded, 1 shaded at logical bounce 0, 2 shaded later) instead of
+    do_nee."""
     o = fs[FS_O:FS_O + 3]
     d = fs[FS_D:FS_D + 3]
 
@@ -671,8 +745,16 @@ def bounce_reference(fs, is_, tables: BounceTables, kcfg: KernelConfig,
         sample_idx=sample_idx)
 
     # ----- NEE shadow ray -----
-    occluded = _occluded(tables, s["shadow_o"], s["shadow_d"], s["sdist"])
-    L = s["L"] + torch.where(s["do_nee"] & ~occluded, s["contrib"], 0.0)
+    ext = s["surf"] is not None
+    if ext:
+        L = s["L"]
+        flag = s["shaded"].to(torch.float32) \
+            * (1.0 + (is_[IS_LBOUNCE] > 0).to(torch.float32))
+    else:
+        occluded = _occluded(tables, s["shadow_o"], s["shadow_d"],
+                             s["sdist"])
+        L = s["L"] + torch.where(s["do_nee"] & ~occluded, s["contrib"], 0.0)
+        flag = s["do_nee"].to(torch.float32)
 
     fs_out = torch.cat([s["o_new"], s["wi_world"], s["thp"], L,
                         s["prev_pdf"][None], s["cone"][None],
@@ -683,13 +765,37 @@ def bounce_reference(fs, is_, tables: BounceTables, kcfg: KernelConfig,
                           is_[IS_PY], is_[IS_BUDGET],
                           s["lbounce"].to(i32)], dim=0)
     hit_out = torch.stack([torch.where(hit, t, 0.0), prim.to(torch.float32),
-                           bu, bv, front.to(torch.float32),
-                           s["do_nee"].to(torch.float32)], dim=0)
+                           bu, bv, front.to(torch.float32), flag], dim=0)
+    if ext:
+        return fs_out, is_out, hit_out, s["surf"]
     return fs_out, is_out, hit_out
 
 
+def occlusion_reference(tables: BounceTables, sh, stats: bool = False):
+    """The shadow kernel K2 in plain PyTorch: sh [SR_ROWS, N] f32 shadow
+    requests -> occ [N] f32, 1 where occluded or where a lane has no
+    request (bounce_pallas._shadow_kernel). With `stats`, also the pairs
+    each lane tested up to its first occluder, [N] i32 (0 without a
+    request)."""
+    req = sh[SR_DO] > 0.5
+    res = _occluded(tables, sh[SR_O:SR_O + 3], sh[SR_D:SR_D + 3],
+                    sh[SR_DIST], stats=stats)
+    occ = res[0] if stats else res
+    out = torch.where(req, occ.to(torch.float32), 1.0)
+    if stats:
+        return out, torch.where(req, res[1], 0).to(torch.int32)
+    return out
+
+
+def shadow_requests(shadow_o, shadow_d, sdist, do_nee):
+    """sh [SR_ROWS, N] from [N, 3] origins and directions, [N] distances
+    and [N] request flags."""
+    return torch.cat([shadow_o.T, shadow_d.T, sdist[None],
+                      do_nee.to(torch.float32)[None]], dim=0).contiguous()
+
+
 # ---------------------------------------------------------------------------
-# The wrapper
+# The wrappers
 # ---------------------------------------------------------------------------
 
 
@@ -708,7 +814,8 @@ def _check(name, x, dtype, shape, device):
 def bounce(fs, is_, tables: BounceTables, kcfg: KernelConfig,
            sample_idx: int):
     """One bounce of the wavefront: the CUDA kernel (csrc/bounce_fused.cu)
-    for CUDA tensors, `bounce_reference` for CPU tensors. Build and launch
+    for CUDA tensors, `bounce_reference` for CPU tensors, with its return
+    (surf_out too in the external modes with lights). Build and launch
     errors raise; nothing falls back."""
     if fs.device.type == "cpu":
         return bounce_reference(fs, is_, tables, kcfg, sample_idx)
@@ -725,21 +832,26 @@ def bounce(fs, is_, tables: BounceTables, kcfg: KernelConfig,
     _check("mat_rows", tables.mat_rows, torch.float32, (MT_ROWS, 128), dev)
     _check("light_rows", tables.light_rows, torch.float32, (W.LROWS, 128),
            dev)
-    if kcfg.nee_mode not in (0, 1, 2):
-        raise ValueError(f"bounce: nee_mode {kcfg.nee_mode} not in (0, 1, 2)")
-    if not 0 < tables.n_tris <= MAX_TRIS or tables.n_lights > MAX_LIGHTS:
+    if kcfg.nee_mode not in range(6):
+        raise ValueError(f"bounce: nee_mode {kcfg.nee_mode} not in 0..5")
+    if not 0 < tables.n_tris <= MAX_TRIS or (
+            kcfg.nee_mode in (1, 2) and tables.n_lights > MAX_LIGHTS):
         raise ValueError("bounce: table sizes outside the kernel's limits")
     fs_out = torch.empty_like(fs)
     is_out = torch.empty_like(is_)
     hit_out = torch.empty((NH, n), dtype=torch.float32, device=dev)
+    outs = (fs_out, is_out, hit_out)
+    if kcfg.external and tables.n_lights > 0:
+        outs += (torch.empty((SF_ROWS, n), dtype=torch.float32, device=dev),)
     if n == 0:
-        return fs_out, is_out, hit_out
+        return outs
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         kernels.BOUNCE_FUSED.launch(
             "rtxpt_bounce_fused",
             fs.data_ptr(), is_.data_ptr(), fs_out.data_ptr(),
             is_out.data_ptr(), hit_out.data_ptr(),
+            outs[3].data_ptr() if len(outs) > 3 else None,
             tables.tri_coef.data_ptr(), tables.attr_rows.data_ptr(),
             tables.mat_rows.data_ptr(), tables.light_rows.data_ptr(),
             n, tables.n_tris, tpad, tables.n_lights,
@@ -748,7 +860,37 @@ def bounce(fs, is_, tables: BounceTables, kcfg: KernelConfig,
             int(kcfg.low_discrepancy), int(kcfg.energy_comp), kcfg.maxb,
             stream)
     kernels.launches["bounce_fused"] += 1
-    return fs_out, is_out, hit_out
+    return outs
+
+
+def occlusion(tables: BounceTables, sh, stats: bool = False):
+    """Shadow requests sh [SR_ROWS, N] -> occ [N] f32 (1 = occluded or no
+    request), and with `stats` the pairs each lane tested, [N] i32: the
+    shadow kernel K2 (csrc/shadow_occlusion.cu) for CUDA tensors,
+    `occlusion_reference` for CPU tensors. Nothing falls back."""
+    if sh.device.type == "cpu":
+        return occlusion_reference(tables, sh, stats)
+    if sh.device.type != "cuda":
+        raise ValueError(f"occlusion: no kernel for device {sh.device}")
+    n = sh.shape[1]
+    dev = sh.device
+    _check("sh", sh, torch.float32, (SR_ROWS, n), dev)
+    tpad = tables.tc * tables.n_chunks
+    _check("tri_coef", tables.tri_coef, torch.float32, (tpad, TC_ROWS), dev)
+    if not 0 < tables.n_tris <= MAX_TRIS:
+        raise ValueError("occlusion: table sizes outside the kernel's limits")
+    occ = torch.empty((n,), dtype=torch.float32, device=dev)
+    tests = torch.empty((n,), dtype=torch.int32, device=dev) if stats \
+        else None
+    if n > 0:
+        with torch.cuda.device(dev):
+            kernels.SHADOW_OCCLUSION.launch(
+                "rtxpt_shadow_occlusion", sh.data_ptr(), occ.data_ptr(),
+                tests.data_ptr() if stats else None,
+                tables.tri_coef.data_ptr(), n, tables.n_tris,
+                torch.cuda.current_stream(dev).cuda_stream)
+        kernels.launches["shadow_occlusion"] += 1
+    return (occ, tests) if stats else occ
 
 
 # ---------------------------------------------------------------------------
@@ -781,25 +923,71 @@ def initial_state(o, d, cone_spread, px, py):
     return fs, is_
 
 
-def trace_paths_fused(scene, cfg, o, d, cone_spread, px, py, sample_idx):
+def trace_paths_fused(scene, cfg, o, d, cone_spread, px, py, sample_idx,
+                      neeat_state=None):
     """Trace a wavefront of camera rays to completion, one `bounce` per
     bounce (bounce_pallas.trace_paths_pallas without aux buffers, V-buffer
-    injection, split channels or external NEE): the kernel for CUDA
-    tensors, its plain version for CPU tensors.
+    injection or split channels): the kernels for CUDA tensors, their
+    plain versions for CPU tensors.
+
+    In the external-NEE modes (`cfg.nee_external`, or NEE-AT) each bounce
+    is three steps: K1 exports the shaded surface, `external_nee` selects
+    and evaluates the light, and K2 (`occlusion`) resolves the shadow
+    rays; with `neeat_state`, each bounce's NEE luminance is accumulated
+    into the frame's NEE-AT feedback histogram. The NEE block and the
+    feedback run inside `torch.profiler.record_function` ranges named
+    "rtxpt.nee" and "rtxpt.feedback".
 
     o, d [N,3]; cone_spread [N]; px, py [N] int. Returns dict(L [N,3],
-    ray_count [] int64 tensor, occupancy [B+1] int64 tensor)."""
+    ray_count [] int64 tensor, occupancy [B+1] int64 tensor), plus
+    neeat_hist (neeat.zero_hist's shape) on the NEE-AT route."""
     tbl: BounceTables = scene.bounce_tables
     dev = o.device
     fs, is_ = initial_state(o, d, cone_spread, px, py)
     kcfg = KernelConfig.from_cfg(cfg)
+    ext = kcfg.external and tbl.n_lights > 0
+    hist = None
+    if ext:
+        from rtxpt_tpu_torch.lighting import neeat as na
+        from rtxpt_tpu_torch.pt.nee_external import external_nee
+        if kcfg.nee_mode == 3 and neeat_state is not None:
+            hist = na.zero_hist(neeat_state)
     ray_count = torch.zeros((), dtype=torch.int64, device=dev)
     occupancy = []
-    for _ in range(cfg.max_bounces):
+    for b in range(cfg.max_bounces):
         active_in = is_[IS_ACTIVE].sum(dtype=torch.int64)
         occupancy.append(active_in)
-        fs, is_, hit = bounce(fs, is_, tbl, kcfg, sample_idx)
-        ray_count = ray_count + active_in + (hit[5] > 0.5).sum()
+        d_in = fs[FS_D:FS_D + 3]
+        prev_pdf_in = fs[FS_PREVPDF]
+        prev_delta_in = is_[IS_PREVDELTA] > 0
+        out = bounce(fs, is_, tbl, kcfg, sample_idx)
+        fs, is_, hit = out[:3]
+        ray_count = ray_count + active_in
+        if not ext:
+            ray_count = ray_count + (hit[5] > 0.5).sum()
+            continue
+        # hit[5]: 0 = not shaded, 1 = shaded at lb == 0, 2 = at lb > 0
+        with record_function("rtxpt.nee"):
+            res = external_nee(scene, cfg, neeat_state, out[3], d_in,
+                               hit[5] > 0.5, prev_pdf_in, prev_delta_in,
+                               is_[IS_PX], is_[IS_PY], sample_idx, b)
+            sh = shadow_requests(res["shadow_o"], res["shadow_d"],
+                                 res["sdist"], res["do_nee"])
+        occ = occlusion(tbl, sh)
+        ok = res["do_nee"] & (occ < 0.5)
+        add = res["em_add"] + torch.where(ok[:, None], res["contrib"], 0.0)
+        fs[FS_L:FS_L + 3] += add.T          # the kernel's fresh output
+        ray_count = ray_count + res["do_nee"].sum()
+        if hist is not None:
+            with record_function("rtxpt.feedback"):
+                c = res["contrib"]
+                lum = c[:, 0] * 0.2126 + c[:, 1] * 0.7152 + c[:, 2] * 0.0722
+                hist = na.accumulate_feedback(
+                    neeat_state, hist, res["tile"], res["li"],
+                    torch.clamp(lum, min=0.0), ok)
     occupancy.append(is_[IS_ACTIVE].sum(dtype=torch.int64))
-    return dict(L=fs[FS_L:FS_L + 3].T, ray_count=ray_count,
-                occupancy=torch.stack(occupancy))
+    result = dict(L=fs[FS_L:FS_L + 3].T, ray_count=ray_count,
+                  occupancy=torch.stack(occupancy))
+    if hist is not None:
+        result["neeat_hist"] = hist
+    return result

@@ -1,15 +1,23 @@
-"""Scalar BSDF pieces (counterpart of rtxpt_tpu/pt/bsdf.py): the constants
-and elementwise microfacet terms that pt/wide.py builds on, and the host
-bake of the per-material Kulla-Conty energy polynomial that the bounce
-tables carry (MT_EPOLY / MT_EAVG)."""
+"""BSDF (counterpart of rtxpt_tpu/pt/bsdf.py): the constants and
+elementwise microfacet terms that pt/wide.py builds on, the host bake of
+the per-material Kulla-Conty energy polynomial that the bounce tables
+carry (MT_EPOLY / MT_EAVG), and `BSDFData` with `bsdf_eval`, `bsdf_pdf`
+and `bsdf_eval_split` over [N, 3] vectors, which external NEE
+(pt/nee_external.py) evaluates as the JAX package does: with the exact
+energy table, not the kernels' polynomial fit. `bsdf_sample` comes with
+the general wavefront tier."""
 
 from __future__ import annotations
 
 import functools
 import math
+from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
+
+from rtxpt_tpu_torch.utils import math as m
 
 DELTA_ALPHA = 1e-4          # alpha below which specular lobes go delta
 MIN_COS = 1e-6
@@ -176,3 +184,267 @@ def bake_e_poly_np(alphas):
     A = np.stack([sm ** i for i in range(6)], -1) * w[:, None]
     coef, *_ = np.linalg.lstsq(A, rows[sel] * w[:, None], rcond=None)
     return coef.astype(np.float32), e_avg
+
+
+# ---------------------------------------------------------------------------
+# BSDFData over [N, 3] vectors (the JAX package's XLA-side BSDF)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class BSDFData:
+    """Per-shading-point BSDF parameters, SoA [N] (vectors [N, 3])."""
+
+    diffuse: torch.Tensor
+    specular_f0: torch.Tensor
+    alpha: torch.Tensor
+    transmission: torch.Tensor
+    diffuse_transmission: torch.Tensor
+    eta: torch.Tensor
+    transmission_color: torch.Tensor
+    alpha_x: Optional[torch.Tensor] = None
+    alpha_y: Optional[torch.Tensor] = None
+
+    @property
+    def ax(self):
+        return self.alpha if self.alpha_x is None else self.alpha_x
+
+    @property
+    def ay(self):
+        return self.alpha if self.alpha_y is None else self.alpha_y
+
+
+@functools.cache
+def _energy_tensors(device):
+    E, Ea = _energy_tables()
+    return (torch.as_tensor(E, device=device),
+            torch.as_tensor(Ea, device=device))
+
+
+def _cell(x):
+    """(x, floor(x), the next cell) of a table coordinate in
+    [0, _E_RES - 1]. NaN coordinates (lanes without a surface) take cell 0
+    and stay NaN in the weights: the JAX package's gathers clamp their
+    indices the same way."""
+    i0 = torch.floor(x).to(torch.int64)
+    return (torch.clamp(i0, 0, _E_RES - 1),
+            torch.clamp(i0 + 1, 0, _E_RES - 1),
+            x - i0)
+
+
+def _alpha_coord(alpha):
+    return torch.clamp(torch.sqrt(torch.clamp(alpha, 0.0, 1.0))
+                       * (_E_RES - 1.0), 0.0, _E_RES - 1.0)
+
+
+def _E_lookup(alpha, mu):
+    """Bilinear lookup of the directional albedo table E(alpha, mu)."""
+    E, _ = _energy_tensors(alpha.device)
+    a0, a1, fa = _cell(_alpha_coord(alpha))
+    m0, m1, fm = _cell(torch.clamp(torch.clamp(mu, 0.0, 1.0)
+                                   * (_E_RES - 1.0), 0.0, _E_RES - 1.0))
+    return ((E[a0, m0] * (1 - fm) + E[a0, m1] * fm) * (1 - fa)
+            + (E[a1, m0] * (1 - fm) + E[a1, m1] * fm) * fa)
+
+
+def _E_avg_lookup(alpha):
+    _, Ea = _energy_tensors(alpha.device)
+    a0, a1, fa = _cell(_alpha_coord(alpha))
+    return Ea[a0] * (1 - fa) + Ea[a1] * fa
+
+
+def ggx_ndf_aniso(ax, ay, h):
+    """Anisotropic GGX NDF (== ggx_ndf when ax == ay)."""
+    hx, hy, hz = h[..., 0], h[..., 1], h[..., 2]
+    axs = torch.clamp(ax, min=1e-5)
+    ays = torch.clamp(ay, min=1e-5)
+    den = (hx * hx) / (axs * axs) + (hy * hy) / (ays * ays) + hz * hz
+    return 1.0 / torch.clamp(math.pi * axs * ays * den * den, min=1e-12)
+
+
+def smith_lambda_aniso(ax, ay, w):
+    wz = torch.clamp(torch.abs(w[..., 2]), MIN_COS, 1.0)
+    a2 = (ax * ax * w[..., 0] ** 2 + ay * ay * w[..., 1] ** 2) / (wz * wz)
+    return 0.5 * (torch.sqrt(1.0 + a2) - 1.0)
+
+
+def smith_g1_aniso(ax, ay, w):
+    return 1.0 / (1.0 + smith_lambda_aniso(ax, ay, w))
+
+
+def smith_g2_aniso(ax, ay, wo, wi):
+    return 1.0 / (1.0 + smith_lambda_aniso(ax, ay, wo)
+                  + smith_lambda_aniso(ax, ay, wi))
+
+
+def fresnel_schlick(f0, cos_h):
+    """Schlick Fresnel with the presence gate: F0 == 0 has no specular
+    lobe, so the grazing boost vanishes too."""
+    w = torch.pow(torch.clamp(1.0 - cos_h, 0.0, 1.0), 5.0)
+    if f0.ndim > cos_h.ndim:
+        present = (m.luminance(f0) > 1e-6).to(f0.dtype)
+        return f0 + (1.0 - f0) * (w * present)[..., None]
+    present = (f0 > 1e-6).to(w.dtype)
+    return f0 + (1.0 - f0) * w * present
+
+
+def ggx_vndf_pdf(wo, h, ax, ay):
+    """pdf of sampling half-vector h by VNDF from wo (both local)."""
+    woz = torch.clamp(wo[..., 2], min=MIN_COS)
+    doth = torch.clamp(m.dot(wo, h, False), min=0.0)
+    return (smith_g1_aniso(ax, ay, wo) * ggx_ndf_aniso(ax, ay, h) * doth
+            / woz)
+
+
+def _ms_alpha(data):
+    return 0.5 * (data.ax + data.ay)
+
+
+def _ms_color(data):
+    """Kulla-Conty multi-scatter Fresnel factor (per channel)."""
+    e_avg = _E_avg_lookup(_ms_alpha(data))[..., None]
+    f_avg = data.specular_f0 + (1.0 - data.specular_f0) / 21.0
+    return f_avg * f_avg * e_avg / torch.clamp(
+        1.0 - f_avg * (1.0 - e_avg), min=1e-4)
+
+
+def _lobe_probs(data: BSDFData):
+    f0_lum = m.luminance(data.specular_f0)
+    f_avg = torch.where(f0_lum > 1e-6,
+                        torch.clamp(f0_lum + 0.04, 0.0, 1.0), 0.0)
+    pd = m.luminance(data.diffuse) * (1.0 - data.transmission) * \
+        (1.0 - data.diffuse_transmission)
+    pd = pd + torch.where(data.alpha >= DELTA_ALPHA,
+                          m.luminance(_ms_color(data))
+                          * (1.0 - _E_avg_lookup(_ms_alpha(data))), 0.0)
+    pdt = data.diffuse_transmission * m.luminance(data.transmission_color)
+    ps = f_avg
+    pt = data.transmission * (1.0 - f_avg) * \
+        m.luminance(data.transmission_color)
+    total = pd + ps + pt + pdt
+    safe = torch.clamp(total, min=1e-9)
+    ok = total > 1e-9
+    return (torch.where(ok, pd / safe, 1.0), torch.where(ok, ps / safe, 0.0),
+            torch.where(ok, pt / safe, 0.0), torch.where(ok, pdt / safe, 0.0))
+
+
+def _eval_diffuse(data, wo, wi):
+    """Lambert diffuse reflection * cos, scaled by the Fresnel energy the
+    specular lobe claimed (the JAX package's DIFFUSE_MODEL "lambert")."""
+    woz, wiz = wo[..., 2], wi[..., 2]
+    f0_lum = torch.clamp(m.luminance(data.specular_f0), 0.0, 1.0)
+    fd = 1.0 - fresnel_schlick(f0_lum, torch.clamp(woz, 0.0, 1.0))
+    f = data.diffuse / math.pi * (fd * torch.clamp(wiz, min=0.0))[..., None]
+    valid = (woz > MIN_COS) & (wiz > MIN_COS)
+    return torch.where(valid[..., None], f, 0.0)
+
+
+def _eval_diffuse_trans(data, wo, wi):
+    woz, wiz = wo[..., 2], wi[..., 2]
+    f = (data.transmission_color * data.diffuse_transmission[..., None]
+         / math.pi * torch.clamp(-wiz, min=0.0)[..., None])
+    valid = (woz > MIN_COS) & (wiz < -MIN_COS)
+    return torch.where(valid[..., None], f, 0.0)
+
+
+def _eval_spec_ms(data, wo, wi):
+    """Energy-compensation lobe * cos(wi)."""
+    woz, wiz = wo[..., 2], wi[..., 2]
+    a_ms = _ms_alpha(data)
+    e_o = _E_lookup(a_ms, woz)
+    e_i = _E_lookup(a_ms, wiz)
+    e_avg = _E_avg_lookup(a_ms)
+    f = ((1.0 - e_o) * (1.0 - e_i)
+         / (math.pi * torch.clamp(1.0 - e_avg, min=1e-4)))
+    f_cos = (f * torch.clamp(wiz, min=0.0))[..., None] * _ms_color(data)
+    valid = (woz > MIN_COS) & (wiz > MIN_COS) & (data.alpha >= DELTA_ALPHA)
+    return torch.where(valid[..., None], f_cos, 0.0)
+
+
+def _eval_spec_refl(data, wo, wi):
+    woz, wiz = wo[..., 2], wi[..., 2]
+    h = m.normalize(wo + wi)
+    doth = torch.clamp(m.dot(wo, h, False), min=0.0)
+    D = ggx_ndf_aniso(data.ax, data.ay, h)
+    G = smith_g2_aniso(data.ax, data.ay, wo, wi)
+    F = fresnel_schlick(data.specular_f0, doth)
+    spec = F * (D * G / torch.clamp(4.0 * woz, min=1e-9))[..., None]
+    valid = (woz > MIN_COS) & (wiz > MIN_COS) & (data.alpha >= DELTA_ALPHA)
+    return torch.where(valid[..., None], spec, 0.0)
+
+
+def _eval_spec_trans(data, wo, wi):
+    """GGX rough refraction * cos (Walter 2007)."""
+    woz, wiz = wo[..., 2], wi[..., 2]
+    eta = data.eta
+    h = m.normalize(-(eta[..., None] * wo + wi))
+    h = h * torch.where(h[..., 2:3] < 0.0, -1.0, 1.0)
+    dot_oh = m.dot(wo, h, False)
+    dot_ih = m.dot(wi, h, False)
+    F = fresnel_dielectric(torch.abs(dot_oh), eta)
+    D = ggx_ndf_aniso(data.ax, data.ay, h)
+    G = smith_g2_aniso(data.ax, data.ay, wo,
+                       torch.stack([wi[..., 0], wi[..., 1], torch.abs(wiz)],
+                                   dim=-1))
+    denom = dot_oh * eta + dot_ih
+    jac = torch.abs(dot_ih) / torch.clamp(denom * denom, min=1e-9)
+    f_cos = ((1.0 - F) * D * G * jac * torch.abs(dot_oh)
+             / torch.clamp(torch.abs(woz), min=MIN_COS))
+    valid = ((woz > MIN_COS) & (wiz < -MIN_COS)
+             & (data.alpha >= DELTA_ALPHA)
+             & (dot_oh > 0.0) & (dot_ih < 0.0))
+    f = data.transmission_color * (data.transmission * f_cos)[..., None]
+    return torch.where(valid[..., None], f, 0.0)
+
+
+def bsdf_eval(data: BSDFData, wo, wi):
+    """Sum of the non-delta lobes f(wo, wi) * |cos(wi)|, [N, 3]."""
+    return (_eval_diffuse(data, wo, wi)
+            * (1.0 - data.transmission)[..., None]
+            * (1.0 - data.diffuse_transmission)[..., None]
+            + _eval_diffuse_trans(data, wo, wi)
+            + _eval_spec_refl(data, wo, wi)
+            + _eval_spec_ms(data, wo, wi)
+            + _eval_spec_trans(data, wo, wi))
+
+
+def bsdf_eval_split(data: BSDFData, wo, wi):
+    """bsdf_eval as (diffuse-ish, specular-ish) parts; f_d + f_s equals
+    bsdf_eval."""
+    f_d = (_eval_diffuse(data, wo, wi)
+           * (1.0 - data.transmission)[..., None]
+           * (1.0 - data.diffuse_transmission)[..., None]
+           + _eval_diffuse_trans(data, wo, wi))
+    f_s = (_eval_spec_refl(data, wo, wi) + _eval_spec_ms(data, wo, wi)
+           + _eval_spec_trans(data, wo, wi))
+    return f_d, f_s
+
+
+def bsdf_pdf(data: BSDFData, wo, wi):
+    """Solid-angle pdf of the BSDF sampler producing wi (non-delta
+    lobes)."""
+    pd, ps, pt, pdt = _lobe_probs(data)
+    woz, wiz = wo[..., 2], wi[..., 2]
+    smooth = data.alpha >= DELTA_ALPHA
+
+    pdf_d = torch.clamp(wiz, min=0.0) / math.pi
+    pdf_dt = torch.clamp(-wiz, min=0.0) / math.pi
+
+    h_r = m.normalize(wo + wi)
+    pdf_s = ggx_vndf_pdf(wo, h_r, data.ax, data.ay) / torch.clamp(
+        4.0 * torch.abs(m.dot(wo, h_r, False)), min=1e-9)
+    pdf_s = torch.where(smooth & (wiz > MIN_COS) & (woz > MIN_COS), pdf_s,
+                        0.0)
+
+    eta = data.eta
+    h_t = m.normalize(-(eta[..., None] * wo + wi))
+    h_t = h_t * torch.where(h_t[..., 2:3] < 0.0, -1.0, 1.0)
+    dot_oh = m.dot(wo, h_t, False)
+    dot_ih = m.dot(wi, h_t, False)
+    denom = dot_oh * eta + dot_ih
+    jac_t = torch.abs(dot_ih) / torch.clamp(denom * denom, min=1e-9)
+    F = fresnel_dielectric(torch.abs(dot_oh), eta)
+    pdf_t = ggx_vndf_pdf(wo, h_t, data.ax, data.ay) * jac_t * (1.0 - F)
+    pdf_t = torch.where(smooth & (wiz < -MIN_COS) & (woz > MIN_COS)
+                        & (dot_oh > 0.0) & (dot_ih < 0.0), pdf_t, 0.0)
+    return pd * pdf_d + ps * pdf_s + pt * pdf_t + pdt * pdf_dt

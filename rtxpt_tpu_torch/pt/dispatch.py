@@ -4,7 +4,9 @@ Three tiers serve `trace_paths`:
 
   * "fused" -- a scene with bounce tables (at most 2048 triangles): the
     CUDA bounce kernel K1 (csrc/bounce_fused.cu) through
-    `bounce_fused.bounce`;
+    `bounce_fused.bounce`; NEE-AT, more than 128 lights and WRS with more
+    than one candidate take its external-NEE route (K1's export modes,
+    pt/nee_external.py and the shadow kernel K2);
   * "clustered" -- a scene with cluster tables (above 2048 triangles):
     the cull and sorts in PyTorch around K3, K4 and K5
     (csrc/cluster_*.cu) through `bounce_clustered.trace_paths_clustered`;
@@ -31,6 +33,18 @@ from rtxpt_tpu_torch.pt.bounce_fused import MAX_LIGHTS
 TIERS = ("fused", "clustered", "torch")
 
 
+def needs_external_nee(scene, cfg) -> bool:
+    """True when NEE must take the external route (rtxpt_tpu/pt/
+    dispatch.py:66-75): NEE-AT, more than 128 lights (past the kernel's
+    light table), or WRS over more than one candidate."""
+    lights = getattr(scene, "lights", None)
+    if cfg.nee.value == NEEMode.OFF.value or lights is None:
+        return False
+    if cfg.nee.value == NEEMode.NEEAT.value:
+        return True
+    return lights.count > MAX_LIGHTS or int(cfg.nee_candidates) > 1
+
+
 def _tables(scene):
     """(tier the scene's tables select, the tables) or (None, None)."""
     if getattr(scene, "cluster_tables", None) is not None:
@@ -40,18 +54,20 @@ def _tables(scene):
     return None, None
 
 
-def unsupported_features(scene, cfg) -> list:
+def unsupported_features(scene, cfg, neeat_state=None) -> list:
     """Names of the scene's and config's features the tiers do not serve
     yet (empty when they serve them all)."""
     out = []
-    _, tables = _tables(scene)
+    kind, tables = _tables(scene)
     if tables is None:
         out.append("a scene without bounce or cluster tables (prepare it "
                    "first)")
     lights = getattr(scene, "lights", None)
     env = getattr(scene, "envmap", None)
-    if (lights is not None and lights.env_light >= 0) or (
-            env is not None and np.any(np.asarray(env.mean_radiance) > 0)):
+    has_env = (lights is not None and lights.env_light >= 0) or (
+        env is not None and np.any(np.asarray(env.mean_radiance) > 0))
+    neeat = cfg.nee.value == NEEMode.NEEAT.value
+    if has_env:
         out.append("environment lighting")
     if getattr(scene, "textures", None) is not None:
         out.append("textures")
@@ -59,31 +75,45 @@ def unsupported_features(scene, cfg) -> list:
         out.append("opacity micromaps")
     if getattr(scene, "has_nested_priorities", False):
         out.append("nested dielectric priorities")
-    if tables is not None and tables.n_lights > MAX_LIGHTS:
-        out.append(f"more than {MAX_LIGHTS} lights")
     if cfg.mode.value != PTMode.REFERENCE.value:
         out.append(f"render mode {cfg.mode.name}")
-    if getattr(cfg, "nee_external", False):
-        out.append("external NEE")
     if cfg.split_channels:
         out.append("split diffuse/specular channels")
-    if cfg.nee.value == NEEMode.NEEAT.value:
+    many = tables is not None and tables.n_lights > MAX_LIGHTS
+    if kind == "fused":
+        # the external route serves NEE-AT, > 128 lights and WRS K > 1;
+        # it samples the light list
+        if lights is None and cfg.nee.value != NEEMode.OFF.value and (
+                neeat or many or int(cfg.nee_candidates) > 1):
+            out.append("external NEE without a light list")
+        if neeat and neeat_state is None:
+            out.append("NEE-AT without a tile state (integrator."
+                       "render_adaptive makes one)")
+        if neeat and has_env:
+            out.append("NEE-AT with an environment light")
+        return out
+    if many:
+        out.append(f"more than {MAX_LIGHTS} lights")
+    if getattr(cfg, "nee_external", False):
+        out.append("external NEE")
+    if neeat:
         out.append("NEE-AT")
     if int(cfg.nee_candidates) > 1:
         out.append("WRS NEE with more than one candidate")
     return out
 
 
-def resolve(scene, cfg, device):
+def resolve(scene, cfg, device, neeat_state=None):
     """Resolve cfg.kernel_tier for tensors on `device`. Returns a copy of
     cfg with kernel_tier "fused" (bounce tables on CUDA), "torch" (bounce
-    tables on the CPU) or "clustered" (cluster tables), and the
-    clustered tier's kslots and pages: the config's, else the defaults
-    (64 and 2), with kslots at most the cluster count and pages at most
-    as many as the candidate lists of all clusters fill. Raises
-    NotImplementedError naming any feature the tiers do not serve, and
-    ValueError for a tier that the scene's tables or the device have no
-    path for."""
+    tables on the CPU) or "clustered" (cluster tables); nee_external set
+    where NEE takes the external route (`needs_external_nee`, bounce
+    tables only; NEE-AT needs `neeat_state`); and the clustered tier's
+    kslots and pages: the config's, else the defaults (64 and 2), with
+    kslots at most the cluster count and pages at most as many as the
+    candidate lists of all clusters fill. Raises NotImplementedError
+    naming any feature the tiers do not serve, and ValueError for a tier
+    that the scene's tables or the device have no path for."""
     device = torch.device(device)
     tier = cfg.kernel_tier
     kind, tables = _tables(scene)
@@ -103,7 +133,7 @@ def resolve(scene, cfg, device):
             tables = "cluster" if kind == "clustered" else "bounce"
             raise ValueError(f"kernel tier {tier!r} does not run a scene "
                              f"with {tables} tables")
-    missing = unsupported_features(scene, cfg)
+    missing = unsupported_features(scene, cfg, neeat_state)
     if missing:
         raise NotImplementedError(
             f"the {kind or 'port'} tier does not serve: "
@@ -113,5 +143,6 @@ def resolve(scene, cfg, device):
     if kind == "clustered":
         kslots = min(kslots, tables.n_clusters)
         pages = max(1, min(pages, -(-tables.n_clusters // kslots)))
+    ext = kind == "fused" and needs_external_nee(scene, cfg)
     return dataclasses.replace(cfg, kernel_tier=tier, cluster_kslots=kslots,
-                               cluster_pages=pages)
+                               cluster_pages=pages, nee_external=ext)

@@ -19,6 +19,8 @@ from rtxpt_tpu_torch.pt.bsdf import (
     LOBE_SPECULAR_TRANS, MIN_COS, fresnel_dielectric, ggx_ndf, smith_g1,
     smith_g2,
 )
+from rtxpt_tpu_torch.utils.math import (  # noqa: F401 (part of this API)
+    power_heuristic, sample_triangle_barycentrics)
 
 EPS = 1e-8
 PI = math.pi
@@ -77,27 +79,11 @@ def to_world3(v, n):
     return v[0] * t + v[1] * b + v[2] * n
 
 
-def power_heuristic(pdf_a, pdf_b):
-    a2 = pdf_a * pdf_a
-    return torch.where(pdf_a > 0.0,
-                       a2 / torch.clamp(a2 + pdf_b * pdf_b, min=1e-30), 0.0)
-
-
 def sample_cosine_hemisphere3(u1, u2):
     r = torch.sqrt(u1)
     phi = 2.0 * PI * u2
     z = torch.sqrt(torch.clamp(1.0 - u1, min=0.0))
     return vec3(r * torch.cos(phi), r * torch.sin(phi), z)
-
-
-def sample_triangle_barycentrics(u1, u2):
-    """Heitz 2019 square-root-free mapping."""
-    b0 = u1 * 0.5
-    b1 = u2 * 0.5
-    offset = b1 - b0
-    b0 = torch.where(offset > 0.0, b0, b0 - offset)
-    b1 = torch.where(offset > 0.0, b1 + offset, b1)
-    return 1.0 - b0 - b1, b0, b1
 
 
 # ---------------------------------------------------------------------------

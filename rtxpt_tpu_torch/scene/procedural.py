@@ -1,7 +1,7 @@
 """Procedural test scenes (counterpart of rtxpt_tpu/scene/procedural.py):
 the Cornell box, the furnace box, the single triangle under one analytic
-light and the large-scene city (plain variant). The other scenes come
-with their slices."""
+light, the many-light rooms and the large-scene city (plain variant).
+The other scenes come with their slices."""
 
 from __future__ import annotations
 
@@ -211,6 +211,57 @@ def _box_grid(lo, hi, s: int, mat: int):
         g([x0, y1, z1], [x1, y1, z1], [x1, y1, z0], [x0, y1, z0], s, s, mat),
         g([x0, y0, z0], [x1, y0, z0], [x1, y0, z1], [x0, y0, z1], s, s, mat),
     ])
+
+
+def rooms_scene(n_rooms: int = 12, subdiv: int = 2) -> HostScene:
+    """Occlusion-heavy many-light scene: a row of n_rooms closed cells, each
+    lit only by its own emissive ceiling panel (two triangles of a
+    material of its own), behind full-height divider walls; the front of
+    every room is open toward the camera. Each image tile sees one panel
+    while the power pmf spreads samples over all of them: the workload
+    that NEE-AT's per-tile adaptation exists for. 2 * n_rooms lights;
+    26 * n_rooms + 8 * (n_rooms + 1) triangles at subdiv 2."""
+    WALL, FLOOR, PANEL0 = 0, 1, 2
+    Wr, H, D = 2.0, 2.4, 3.0
+    g = _quad_grid
+    s = subdiv
+    parts = []
+    for r in range(n_rooms):
+        x0, x1 = r * Wr, (r + 1) * Wr
+        parts += [
+            # floor (+y) / ceiling (-y)
+            g([x0, 0, D], [x1, 0, D], [x1, 0, 0], [x0, 0, 0], s, s, FLOOR),
+            g([x0, H, 0], [x1, H, 0], [x1, H, D], [x0, H, D], s, s, WALL),
+            # back wall only: the front stays open
+            g([x0, 0, 0], [x1, 0, 0], [x1, H, 0], [x0, H, 0], s, s, WALL),
+            # the room's emissive panel
+            g([x0 + 0.5, H - 0.05, 1.0], [x1 - 0.5, H - 0.05, 1.0],
+              [x1 - 0.5, H - 0.05, 2.0], [x0 + 0.5, H - 0.05, 2.0],
+              1, 1, PANEL0 + r),
+        ]
+    # divider walls, the two ends included (full height: rooms are closed)
+    for r in range(n_rooms + 1):
+        x = r * Wr
+        parts.append(g([x, 0, 0], [x, 0, D], [x, H, D], [x, H, 0],
+                       s, s, WALL))
+    pos, nrm, uv, idx, mat = _merge(parts)
+    mdefs = [dict(base_color=[0.75, 0.74, 0.72], roughness=1.0),
+             dict(base_color=[0.6, 0.62, 0.66], roughness=0.9)]
+    rng = np.random.default_rng(5)
+    for r in range(n_rooms):
+        tint = 0.6 + 0.4 * rng.random(3)
+        mdefs.append(dict(base_color=[0, 0, 0],
+                          emissive=(18.0 * tint).tolist()))
+    scene = HostScene(
+        instances=[MeshInstance(positions=pos, normals=nrm, uvs=uv,
+                                indices=idx, material=mat, name="rooms")],
+        materials=_materials(mdefs))
+    # frontal view through the open side: every room interior visible
+    cx = n_rooms * Wr * 0.5
+    scene.camera = dict(position=[cx, H * 0.55, D + n_rooms * Wr * 0.42],
+                        target=[cx, H * 0.45, 0.0],
+                        up=[0, 1, 0], fov_y_deg=46.0)
+    return scene
 
 
 def city_scene(tri_budget: int = 350_000, seed: int = 0,

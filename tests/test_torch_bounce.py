@@ -30,6 +30,17 @@ INT_LANES = 0.995
 TOL = 2e-3
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module's torch ops: the test run puts
+    several test processes on the machine's cores, and oversubscribed
+    threads made the small ops of the CPU renders several times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _initial_state(jhost, cfg):
     cam = default_camera(jhost, SIDE, SIDE)
     px, py = _pixel_grid(SIDE, SIDE)

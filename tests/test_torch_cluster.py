@@ -332,23 +332,29 @@ def jax_chain(city):
         od = np.concatenate([d3, W.cross3(_t(o3), _t(d3)).numpy(), o3,
                              active[None].astype(np.float32)])
         cand = _jcull(o3, d3, active, np.float32(cfg.max_ray_travel), jt, g)
+        # each kernel is called with the keywords of the JAX clustered
+        # tier's own call (bounce_clustered.py:1671, :1715, :1823), so that
+        # test_render_sample_matches_jax_clustered_tier finds these
+        # compiles in jit's cache
         ha = _flat(JBC._kernel_a1_call(
             cand, _groups(od, g), jt.blocks, KSLOTS,
-            float(cfg.max_ray_travel), interpret=True))
+            float(cfg.max_ray_travel), noprune=False, interpret=True,
+            omm=False, xf=None))
         scal = jnp.stack([jnp.uint32(SAMPLE), jnp.uint32(b)]).reshape(1, 2)
         fs2, is2, sh, hit, _, _ = (None if x is None else
                                    np.asarray(x).reshape(x.shape[0], -1)
                                    for x in JBC._kernel_a2_call(
             scal, _tiles(ha), _tiles(fs), _tiles(is_), jt.mat_rows,
             jt.light_rows, None, None, None, key, jt.n_lights, jt.tr, True,
-            interpret=True))
+            tex_maps=(1, 0, 0, 0), interpret=True, fs2=None, prio=False,
+            omm=False, maxb=None))
         do = sh[BC.SH_DO] > 0.5
         cand_s = _jcull(sh[BC.SH_O:BC.SH_O + 3], sh[BC.SH_D:BC.SH_D + 3], do,
                         np.where(do, sh[BC.SH_DIST], np.float32(-3e38)),
                         jt, g)
         occ = np.asarray(JBC._kernel_b1_call(
-            cand_s, _groups(sh, g), jt.blocks, KSLOTS,
-            interpret=True)).reshape(-1)
+            cand_s, _groups(sh, g), jt.blocks, KSLOTS, interpret=True,
+            omm=False, xf=None)).reshape(-1)
         steps.append(dict(fs=fs, is_=is_, od=od, cand=np.asarray(cand),
                           ha=ha, out=(fs2, is2, sh, hit),
                           cand_s=np.asarray(cand_s), occ=occ))
@@ -499,23 +505,36 @@ def test_cluster_scene_from_numpy_refuses_unported_parts(city):
 
 
 @pytest.mark.parametrize("kslots", [64, 8])
-def test_render_sample_matches_jax_clustered_tier(city, kslots):
-    """render_sample on the JAX package's cluster tables carried across,
-    against the JAX clustered tier in interpret mode: >= 99% of pixels
-    within 2e-3, image mean within 1e-3 relative, and the same ray
-    counts, occupancies and cull overflow. kslots 8 saturates the lists,
-    so a second page runs."""
+def test_render_sample_matches_jax_clustered_tier(city, kslots,
+                                                  monkeypatch):
+    """render_sample on the port's own cluster tables, which equal the JAX
+    package's tables carried across, against the JAX clustered tier in
+    interpret mode: >= 99% of pixels within 2e-3, image mean within 1e-3
+    relative, and the same ray counts, occupancies and cull overflow.
+    kslots 8 saturates the lists, so a second page runs. The JAX tier
+    runs its bounce chain unrolled (its documented fallback, the same
+    body as the lax.scan: RTXPT_TPU_CLUSTER_SCAN=0), so that its kernels
+    compile once per configuration, the kslots-64 ones in jax_chain."""
     jh, js, th, ts = city
     w, h = 48, 32
+    monkeypatch.setattr(JBC, "_SCAN", False)
     ref = jint.render_sample(
         js, JP.default_camera(jh, w, h),
         JConfig(max_bounces=3, kernel_tier="clustered",
                 pallas_interpret=True, cluster_kslots=kslots,
                 cluster_pages=2), w, h, jnp.uint32(SAMPLE))
-    carried = cluster_scene_from_numpy(_jax_cluster_tables(js), device="cpu")
+    # the carried tables are the port's own, number for number, so one
+    # render stands for both (rendering is deterministic on the CPU)
+    carried = cluster_scene_from_numpy(_jax_cluster_tables(js),
+                                       device="cpu").cluster_tables
+    own = ts.cluster_tables
+    for field in ("blocks", "aabb_lo", "aabb_hi", "mat_rows", "light_rows",
+                  "offsets"):
+        assert torch.equal(getattr(carried, field), getattr(own, field))
+    assert (carried.n_clusters, carried.n_tris, carried.n_lights) == \
+        (own.n_clusters, own.n_tris, own.n_lights)
     cfg = PathTracerConfig(max_bounces=3, cluster_kslots=kslots)
-    out = render_sample(carried, TP.default_camera(th, w, h), cfg, w, h,
-                        SAMPLE)
+    out = render_sample(ts, TP.default_camera(th, w, h), cfg, w, h, SAMPLE)
     assert out["kernel_tier"] == "clustered"
     a, b = np.asarray(ref["L"]), out["L"].numpy()
     close = np.isclose(b, a, rtol=TOL, atol=TOL).all(-1)
@@ -527,9 +546,6 @@ def test_render_sample_matches_jax_clustered_tier(city, kslots):
     assert int(out["cull_overflow"]) == int(ref["cull_overflow"])
     if kslots == 8:
         assert int(ref["cull_overflow"]) > 0
-    # the port's own prepare renders the same image from its own tables
-    own = render_sample(ts, TP.default_camera(th, w, h), cfg, w, h, SAMPLE)
-    assert torch.equal(own["L"], out["L"])
 
 
 def test_cli_renders_the_city(tmp_path):

@@ -1,8 +1,9 @@
 """The CUDA kernels on the card: each against its plain PyTorch version on
 the same CUDA inputs, and the wrappers' launch counts and checks: K1 on
-the Cornell box and the small scenes, K3, K4 and K5 on the small city of
-tests/test_torch_cluster.py. Needs an NVIDIA GPU and nvcc; skips without
-them. This file imports no JAX, so it runs where JAX is absent:
+the Cornell box and the small scenes, K1's external modes and the shadow
+kernel K2 on the Cornell box and the rooms, K3, K4 and K5 on the small
+city of tests/test_torch_cluster.py. Needs an NVIDIA GPU and nvcc; skips
+without them. This file imports no JAX, so it runs where JAX is absent:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -17,7 +18,9 @@ from rtxpt_tpu_torch.lighting.envmap import EnvMap
 from rtxpt_tpu_torch.pt import bounce_clustered as BC
 from rtxpt_tpu_torch.pt import bounce_fused as bf
 from rtxpt_tpu_torch.pt import dispatch
-from rtxpt_tpu_torch.pt.integrator import _pixel_grid, camera_rays, render
+from rtxpt_tpu_torch.pt.integrator import (
+    _pixel_grid, camera_rays, render, render_adaptive)
+from rtxpt_tpu_torch.pt.nee_external import external_nee
 from rtxpt_tpu_torch.scene import procedural as TP
 
 pytestmark = pytest.mark.cuda
@@ -81,6 +84,76 @@ def test_k1_matches_plain_version(gpu, name):
             ok = torch.isclose(k, p, rtol=TOL, atol=TOL, equal_nan=True)
             assert ok.float().mean(1).min() >= 0.999, b
         fs, is_ = plain[0], plain[1]
+
+
+EXTERNAL = {
+    "cornell_neeat": (TP.cornell_box, {}, dict(nee=NEEMode.NEEAT)),
+    "cornell_uniform_ext": (TP.cornell_box, {},
+                            dict(nee=NEEMode.UNIFORM, nee_external=True)),
+    "rooms_power_ext": (TP.rooms_scene, dict(n_rooms=16),
+                        dict(nee=NEEMode.POWER, nee_external=True)),
+}
+
+
+@pytest.mark.parametrize("name", list(EXTERNAL))
+def test_external_modes_and_k2_match_plain_versions(gpu, name):
+    """K1 in nee slots 3-5 (the SF_* rows included) and K2 on the shadow
+    requests external_nee builds from them, over three bounces of 4096
+    camera rays, the state carried by the plain versions."""
+    make, host_kw, cfg_kw = EXTERNAL[name]
+    host = make(**host_kw)
+    scene = prepare(host, device=gpu)
+    cfg = PathTracerConfig(max_bounces=5, **cfg_kw)
+    kcfg = bf.KernelConfig.from_cfg(cfg)
+    assert kcfg.external
+    fs, is_ = _state(host, cfg, 64, gpu, 2)
+    for b in range(3):
+        plain = bf.bounce_reference(fs, is_, scene.bounce_tables, kcfg, 2)
+        kern = bf.bounce(fs, is_, scene.bounce_tables, kcfg, 2)
+        torch.cuda.synchronize()
+        assert len(kern) == len(plain) == 4
+        same = (kern[1] == plain[1]).all(0) & (kern[2][1] == plain[2][1])
+        assert same.float().mean() >= 0.999
+        for k, p in ((kern[0], plain[0]), (kern[2], plain[2]),
+                     (kern[3], plain[3])):
+            ok = torch.isclose(k, p, rtol=TOL, atol=TOL, equal_nan=True)
+            assert ok.float().mean(1).min() >= 0.999, b
+        if kcfg.nee_mode != 3:
+            res = external_nee(scene, cfg, None, plain[3], fs[3:6],
+                               plain[2][5] > 0.5, fs[bf.FS_PREVPDF],
+                               is_[bf.IS_PREVDELTA] > 0, plain[1][bf.IS_PX],
+                               plain[1][bf.IS_PY], 2, b)
+            sh = bf.shadow_requests(res["shadow_o"], res["shadow_d"],
+                                    res["sdist"], res["do_nee"])
+            occ_p, tst_p = bf.occlusion_reference(scene.bounce_tables, sh,
+                                                  stats=True)
+            before = kernels.launches["shadow_occlusion"]
+            occ_k, tst_k = bf.occlusion(scene.bounce_tables, sh, stats=True)
+            torch.cuda.synchronize()
+            assert kernels.launches["shadow_occlusion"] == before + 1
+            assert (occ_k == occ_p).float().mean() >= 0.999, b
+            assert torch.equal(tst_k, tst_p)
+            assert res["do_nee"].any()
+        fs, is_ = plain[0], plain[1]
+
+
+@pytest.mark.parametrize("kind", ["neeat", "wrs"])
+def test_external_render_runs_through_k1_and_k2(cornell, kind):
+    """Every bounce of an external-NEE render launches K1 and K2 once."""
+    host, scene = cornell
+    cam = TP.default_camera(host, 32, 32)
+    kernels.launches.clear()
+    if kind == "neeat":
+        hdr, state, rays = render_adaptive(
+            scene, cam, PathTracerConfig(max_bounces=3, nee=NEEMode.NEEAT),
+            32, 32, spp=2)
+        assert state.frame == 2
+    else:
+        hdr, _, rays = render(scene, cam, PathTracerConfig(
+            max_bounces=3, nee_candidates=4), 32, 32, spp=2)
+    assert dict(kernels.launches) == dict(bounce_fused=3 * 2,
+                                          shadow_occlusion=3 * 2)
+    assert torch.isfinite(hdr).all() and rays > 0
 
 
 def test_launch_counter_counts_each_launch(cornell):

@@ -16,6 +16,7 @@ import rtxpt_tpu.config as jconfig
 from rtxpt_tpu_torch import config as tconfig
 from rtxpt_tpu_torch import kernels
 from rtxpt_tpu_torch.config import NEEMode, PathTracerConfig, PTMode
+from rtxpt_tpu_torch.lighting import neeat
 from rtxpt_tpu_torch.lighting.envmap import EnvMap
 from rtxpt_tpu_torch.prepare import (
     cluster_scene_from_numpy, prepare, scene_from_numpy)
@@ -38,6 +39,8 @@ SLICE_MODULES = [
     "rtxpt_tpu_torch.render.postprocess", "rtxpt_tpu_torch.apps.cli",
     "rtxpt_tpu_torch.accel.cluster", "rtxpt_tpu_torch.accel.cull",
     "rtxpt_tpu_torch.ops.wavefront", "rtxpt_tpu_torch.pt.bounce_clustered",
+    "rtxpt_tpu_torch.pt.surface", "rtxpt_tpu_torch.pt.restir",
+    "rtxpt_tpu_torch.lighting.neeat", "rtxpt_tpu_torch.pt.nee_external",
 ]
 
 
@@ -102,6 +105,17 @@ def cornell():
     return host, prepare(host, device="cpu")
 
 
+@pytest.fixture(scope="module")
+def small_city():
+    """A scene with cluster tables (3,512 triangles)."""
+    return prepare(TP.city_scene(tri_budget=4000, seed=1, blocks=2),
+                   device="cpu")
+
+
+def _state(n_lights):
+    return neeat.init_state(8, 8, n_lights)
+
+
 def test_cpu_tensors_launch_no_kernel(cornell):
     """The 'fused' tier on CPU tensors runs the plain version: the launch
     counter stays where it was."""
@@ -150,33 +164,83 @@ def test_resolve_refuses_plain_tier_on_cuda(cornell):
                          "cuda")
 
 
+_ENV = EnvMap(np.ones((4, 8, 3), np.float32), 1.0, 0.0,
+              np.ones(3, np.float32))
+
+# case: (scene, scene fields, config fields, the name the error gives);
+# the fused tier's external route serves NEE-AT with a tile state, WRS
+# K > 1 and more than 128 lights, the clustered tier none of them
 UNSERVED = {
-    "environment": (dict(envmap=EnvMap(np.ones((4, 8, 3), np.float32), 1.0,
-                                       0.0, np.ones(3, np.float32))), {}),
-    "textures": (dict(textures=object()), {}),
-    "micromaps": (dict(tri_opacity=object()), {}),
-    "priorities": (dict(has_nested_priorities=True), {}),
-    "split": ({}, dict(split_channels=True)),
-    "neeat": ({}, dict(nee=NEEMode.NEEAT)),
-    "wrs": ({}, dict(nee_candidates=4)),
-    "realtime": ({}, dict(mode=PTMode.BUILD_STABLE_PLANES)),
-    "lights": ("lights", {}),
+    "environment": ("cornell", dict(envmap=_ENV), {}, "environment"),
+    "textures": ("cornell", dict(textures=object()), {}, "textures"),
+    "micromaps": ("cornell", dict(tri_opacity=object()), {}, "micromaps"),
+    "priorities": ("cornell", dict(has_nested_priorities=True), {},
+                   "priorities"),
+    "split": ("cornell", {}, dict(split_channels=True), "split"),
+    "neeat": ("city", {}, dict(nee=NEEMode.NEEAT), "NEE-AT"),
+    "wrs": ("city", {}, dict(nee_candidates=4), "WRS"),
+    "realtime": ("cornell", {}, dict(mode=PTMode.BUILD_STABLE_PLANES),
+                 "render mode"),
+    "lights": ("city", "lights", {}, "more than 128 lights"),
+    "neeat_without_state": ("cornell", {}, dict(nee=NEEMode.NEEAT),
+                            "NEE-AT without a tile state"),
+    "neeat_environment": ("cornell", dict(envmap=_ENV),
+                          dict(nee=NEEMode.NEEAT),
+                          "NEE-AT with an environment"),
 }
 
 
 @pytest.mark.parametrize("device", ["cuda", "cpu"])
 @pytest.mark.parametrize("case", list(UNSERVED))
-def test_resolve_refuses_unserved_features(cornell, case, device):
+def test_resolve_refuses_unserved_features(cornell, small_city, case,
+                                           device):
     """An unserved feature raises with its name; nothing demotes."""
-    _, scene = cornell
-    scene_kw, cfg_kw = UNSERVED[case]
+    which, scene_kw, cfg_kw, name = UNSERVED[case]
+    scene = cornell[1] if which == "cornell" else small_city
+    state = None
+    if case == "neeat_environment":
+        state = _state(scene.lights.count)
     if scene_kw == "lights":
-        scene = scene.replace(bounce_tables=dataclasses.replace(
-            scene.bounce_tables, n_lights=bf.MAX_LIGHTS + 1))
+        scene = scene.replace(cluster_tables=dataclasses.replace(
+            scene.cluster_tables, n_lights=bf.MAX_LIGHTS + 1))
     else:
         scene = scene.replace(**scene_kw)
-    with pytest.raises(NotImplementedError, match="does not serve"):
-        dispatch.resolve(scene, PathTracerConfig(**cfg_kw), device)
+    with pytest.raises(NotImplementedError, match="does not serve") as err:
+        dispatch.resolve(scene, PathTracerConfig(**cfg_kw), device, state)
+    assert name in str(err.value)
+
+
+@pytest.fixture(scope="module")
+def rooms72():
+    """144 light triangles: past the kernel's 128-column light table."""
+    scene = prepare(TP.rooms_scene(72, subdiv=1), device="cpu")
+    assert scene.bounce_tables.n_tris == 722
+    assert scene.lights.count == 144 > bf.MAX_LIGHTS
+    return scene
+
+
+@pytest.mark.parametrize("device,tier", [("cuda", "fused"), ("cpu", "torch")])
+@pytest.mark.parametrize("case", ["neeat", "wrs", "lights"])
+def test_resolve_serves_external_nee_on_the_fused_tier(cornell, rooms72,
+                                                       case, device, tier):
+    """NEE-AT with a tile state, WRS K = 4 and rooms_scene(72, 1) resolve
+    to the fused tier (named "torch" on CPU tensors) with nee_external."""
+    scene, state = cornell[1], None
+    cfg = PathTracerConfig()
+    if case == "neeat":
+        cfg, state = PathTracerConfig(nee=NEEMode.NEEAT), _state(2)
+    elif case == "wrs":
+        cfg = PathTracerConfig(nee_candidates=4)
+    else:
+        scene = rooms72
+    for want, asked in ((tier, cfg),
+                        ("fused", dataclasses.replace(cfg,
+                                                      kernel_tier="fused"))):
+        out = dispatch.resolve(scene, asked, device, state)
+        assert out.kernel_tier == want and out.nee_external
+    # the in-kernel route stays where it serves
+    assert not dispatch.resolve(cornell[1], PathTracerConfig(), device
+                                ).nee_external
 
 
 def test_config_matches_jax_package():

@@ -25,6 +25,17 @@ GOLDEN = os.path.join(os.path.dirname(__file__), "goldens",
                       "cornell_32_8spp.npy")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module's torch ops: the test run puts
+    several test processes on the machine's cores, and oversubscribed
+    threads made the small ops of the CPU renders several times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def cornell():
     host = TP.cornell_box()
@@ -125,6 +136,19 @@ def test_cli_writes_png(tmp_path):
     img = np.asarray(Image.open(out))
     assert img.shape == (16, 16, 3) and img.max() > 0
     assert np.load(hdr).shape == (16, 16, 3)
+
+
+def test_cli_renders_rooms_through_external_nee(tmp_path):
+    """The CLI's external-NEE route: NEE-AT with two WRS candidates."""
+    from PIL import Image
+
+    out = tmp_path / "rooms.png"
+    assert cli.main(["--scene", "rooms", "--nee", "neeat", "--candidates",
+                     "2", "--bounces", "2", "--device", "cpu", "--width",
+                     "16", "--height", "16", "--spp", "1", "--out",
+                     str(out)]) == 0
+    img = np.asarray(Image.open(out))
+    assert img.shape == (16, 16, 3) and img.max() > 0
 
 
 def test_render_refuses_sample_indices_past_index_space(cornell):

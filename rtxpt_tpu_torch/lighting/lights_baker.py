@@ -14,6 +14,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+import rtxpt_tpu_torch
 from rtxpt_tpu_torch.scene.scene import (
     LIGHT_DIRECTIONAL, LIGHT_POINT, LIGHT_SPHERE, SceneData,
 )
@@ -68,10 +69,13 @@ class LightList:
                 f"rtxpt_tpu_torch yet")
 
 
-def lights_from_numpy(fields: dict, device="cpu") -> LightList:
-    """LightList on `device` from the JAX package's LightList fields as
-    numpy arrays (kind, p0, p1, p2, emission, extra, normal, power, cdf,
-    tri_light, env_light, num)."""
+def lights_from_numpy(fields: dict, device="cuda") -> LightList:
+    """LightList on `device` (the GPU by default; raises when there is
+    none) from the JAX package's LightList fields as numpy arrays (kind,
+    p0, p1, p2, emission, extra, normal, power, cdf, tri_light, env_light,
+    num)."""
+    device = rtxpt_tpu_torch.device(device)
+
     def t(key, dtype=np.float32):
         return torch.tensor(np.asarray(fields[key], dtype), device=device)
 

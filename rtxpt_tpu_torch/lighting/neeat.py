@@ -30,6 +30,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+import rtxpt_tpu_torch
 from rtxpt_tpu_torch.lighting.lights_baker import (
     KIND_DIRECTIONAL, KIND_POINT, KIND_SPOT, LightList, sample_light,
 )
@@ -71,7 +72,10 @@ class NEEATState:
 
 
 def init_state(width: int, height: int, n_lights: int, lights_power=None,
-               device="cpu") -> NEEATState:
+               device="cuda") -> NEEATState:
+    """A uniform NEE-AT state for a width x height frame on `device` (the
+    GPU by default; raises when there is none)."""
+    device = rtxpt_tpu_torch.device(device)
     ntx = (width + TILE - 1) // TILE
     nty = (height + TILE - 1) // TILE
     t = ntx * nty
@@ -96,11 +100,13 @@ def init_state(width: int, height: int, n_lights: int, lights_power=None,
         n_tiles_y=nty, n_lights=n_lights)
 
 
-def state_from_numpy(fields: dict, device="cpu") -> NEEATState:
-    """NEEATState on `device` from the JAX package's NEEATState fields as
-    numpy arrays and ints (tile_pdf, tile_cdf, ema, idx_k, frame, conf,
-    trust, power, n_tiles_x, n_tiles_y, n_lights); idx_k, conf, trust
-    and power may be None."""
+def state_from_numpy(fields: dict, device="cuda") -> NEEATState:
+    """NEEATState on `device` (the GPU by default; raises when there is
+    none) from the JAX package's NEEATState fields as numpy arrays and ints
+    (tile_pdf, tile_cdf, ema, idx_k, frame, conf, trust, power, n_tiles_x,
+    n_tiles_y, n_lights); idx_k, conf, trust and power may be None."""
+    device = rtxpt_tpu_torch.device(device)
+
     def t(key, dtype=np.float32):
         v = fields.get(key)
         if v is None:

@@ -103,6 +103,20 @@ def unsupported_features(scene, cfg, neeat_state=None) -> list:
     return out
 
 
+def _check_devices(scene, tables, neeat_state):
+    """Raise ValueError when the light list or the NEE-AT state lies on
+    another device than the scene's tables."""
+    if tables is None:
+        return
+    lights = getattr(scene, "lights", None)
+    for what, t in (("light list", getattr(lights, "kind", None)),
+                    ("NEE-AT state", getattr(neeat_state, "tile_pdf", None))):
+        if t is not None and t.device != tables.device:
+            raise ValueError(f"the {what} is on {t.device}, the scene's "
+                             f"tables on {tables.device}: build them on one "
+                             f"device")
+
+
 def resolve(scene, cfg, device, neeat_state=None):
     """Resolve cfg.kernel_tier for tensors on `device`. Returns a copy of
     cfg with kernel_tier "fused" (bounce tables on CUDA), "torch" (bounce
@@ -113,7 +127,8 @@ def resolve(scene, cfg, device, neeat_state=None):
     kslots at most the cluster count and pages at most as many as the
     candidate lists of all clusters fill. Raises NotImplementedError
     naming any feature the tiers do not serve, and ValueError for a tier
-    that the scene's tables or the device have no path for."""
+    that the scene's tables or the device have no path for, or for a
+    light list or NEE-AT state on another device than the tables."""
     device = torch.device(device)
     tier = cfg.kernel_tier
     kind, tables = _tables(scene)
@@ -133,6 +148,7 @@ def resolve(scene, cfg, device, neeat_state=None):
             tables = "cluster" if kind == "clustered" else "bounce"
             raise ValueError(f"kernel tier {tier!r} does not run a scene "
                              f"with {tables} tables")
+    _check_devices(scene, tables, neeat_state)
     missing = unsupported_features(scene, cfg, neeat_state)
     if missing:
         raise NotImplementedError(

@@ -64,8 +64,7 @@ def _where(cond, a, b):
 
 def external_nee(scene, cfg, neeat_state, surf, d_in, hit_mask,
                  prev_pdf_in, prev_delta_in, px, py, sample_idx, bounce,
-                 first_emissive: bool = True, first_spec=None, lb=None,
-                 first_direct: bool = True):
+                 first_spec=None, lb=None, first_direct: bool = True):
     """NEE selection, evaluation and MIS for a kernel-exported wavefront.
 
     surf [SF_ROWS, N] f32; d_in [3, N] incident ray directions; hit_mask
@@ -96,7 +95,6 @@ def external_nee(scene, cfg, neeat_state, surf, d_in, hit_mask,
         and neeat_state is not None
     nee_uniform = cfg.nee.value == NEEMode.UNIFORM.value
     k_cand = max(int(cfg.nee_candidates), 1)
-    em_gate = bool(first_emissive) or bounce > 0
 
     pos = surf[SF_POS:SF_POS + 3].T
     sh_n = surf[SF_SHN:SF_SHN + 3].T
@@ -118,7 +116,7 @@ def external_nee(scene, cfg, neeat_state, surf, d_in, hit_mask,
                            m.power_heuristic(prev_pdf_in, p_light))
     else:
         w_em = torch.ones((n,), dtype=torch.float32, device=dev)
-    em_add = em3 * w_em[..., None] if em_gate else torch.zeros_like(em3)
+    em_add = em3 * w_em[..., None]
 
     # --- candidate selection (WRS over k_cand candidates) ---
     seed_nee = rng.pixel_seed(px, py, bounce, EFFECT_NEE)

@@ -7,6 +7,7 @@ import dataclasses
 import os
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -18,6 +19,7 @@ from rtxpt_tpu_torch import kernels
 from rtxpt_tpu_torch.config import NEEMode, PathTracerConfig, PTMode
 from rtxpt_tpu_torch.lighting import neeat
 from rtxpt_tpu_torch.lighting.envmap import EnvMap
+from rtxpt_tpu_torch.lighting.lights_baker import lights_from_numpy
 from rtxpt_tpu_torch.prepare import (
     cluster_scene_from_numpy, prepare, scene_from_numpy)
 from rtxpt_tpu_torch.pt import bounce_fused as bf
@@ -85,18 +87,21 @@ def test_kernel_layer_imports_without_nvcc():
 
 
 def test_prepare_defaults_to_the_card(monkeypatch):
-    """prepare and scene_from_numpy run on the GPU unless the caller asks
-    for the CPU; without a GPU they raise instead of quietly running on
-    the CPU."""
+    """prepare, scene_from_numpy, lights_from_numpy and the NEE-AT state's
+    constructors run on the GPU unless the caller asks for the CPU;
+    without a GPU they raise instead of quietly running on the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     host = TP.cornell_box()
-    with pytest.raises(RuntimeError, match="is_available"):
-        prepare(host)
-    with pytest.raises(RuntimeError, match="is_available"):
-        scene_from_numpy({})
-    with pytest.raises(RuntimeError, match="is_available"):
-        cluster_scene_from_numpy({})
+    for make in (lambda: prepare(host), lambda: scene_from_numpy({}),
+                 lambda: cluster_scene_from_numpy({}),
+                 lambda: lights_from_numpy({}),
+                 lambda: neeat.init_state(8, 8, 2),
+                 lambda: neeat.state_from_numpy({})):
+        with pytest.raises(RuntimeError, match="is_available"):
+            make()
     assert prepare(host, device="cpu").bounce_tables.device.type == "cpu"
+    assert neeat.init_state(8, 8, 2, device="cpu").tile_pdf.device.type \
+        == "cpu"
 
 
 @pytest.fixture(scope="module")
@@ -112,8 +117,8 @@ def small_city():
                    device="cpu")
 
 
-def _state(n_lights):
-    return neeat.init_state(8, 8, n_lights)
+def _state(n_lights, device="cpu"):
+    return neeat.init_state(8, 8, n_lights, device=device)
 
 
 def test_cpu_tensors_launch_no_kernel(cornell):
@@ -241,6 +246,21 @@ def test_resolve_serves_external_nee_on_the_fused_tier(cornell, rooms72,
     # the in-kernel route stays where it serves
     assert not dispatch.resolve(cornell[1], PathTracerConfig(), device
                                 ).nee_external
+
+
+@pytest.mark.parametrize("part", ["lights", "state"])
+def test_resolve_refuses_parts_on_another_device(cornell, part):
+    """A light list or NEE-AT state off the tables' device raises; it
+    would otherwise meet the tables only inside a kernel."""
+    _, scene = cornell
+    cfg, state = PathTracerConfig(nee=NEEMode.NEEAT), _state(2)
+    if part == "lights":
+        scene = scene.replace(lights=types.SimpleNamespace(
+            kind=scene.lights.kind.to("meta"), env_light=-1, count=2))
+    else:
+        state = _state(2, device="meta")
+    with pytest.raises(ValueError, match="one device"):
+        dispatch.resolve(scene, cfg, "cpu", state)
 
 
 def test_config_matches_jax_package():

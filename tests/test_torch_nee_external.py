@@ -51,6 +51,8 @@ from rtxpt_tpu.scene import procedural as JP
 from rtxpt_tpu.scene.camera import camera_ray
 from rtxpt_tpu.utils import rng as jrng
 from rtxpt_tpu_torch import kernels
+from rtxpt_tpu_torch.config import NEEMode as TNEE
+from rtxpt_tpu_torch.config import PathTracerConfig as TConfig
 from rtxpt_tpu_torch.lighting import neeat as tna
 from rtxpt_tpu_torch.lighting.lights_baker import lights_from_numpy
 from rtxpt_tpu_torch.prepare import prepare, scene_from_numpy
@@ -95,7 +97,7 @@ def _fields(obj, names):
 def _port_state(jstate):
     fields = _fields(jstate, STATE_FIELDS)
     fields["frame"] = int(fields["frame"])
-    return tna.state_from_numpy(fields)
+    return tna.state_from_numpy(fields, device="cpu")
 
 
 def _tables(jt):
@@ -110,7 +112,8 @@ def _carried(jscene):
     """The JAX scene's bounce tables and lights as a port scene (CPU)."""
     return scene_from_numpy(_tables(jscene.bounce_tables),
                             lights=lights_from_numpy(
-                                _fields(jscene.lights, LIGHT_FIELDS)),
+                                _fields(jscene.lights, LIGHT_FIELDS),
+                                device="cpu"),
                             device="cpu")
 
 
@@ -193,9 +196,14 @@ def _initial_state(jhost, cfg):
 
 
 MODES = {
-    "neeat": dict(nee=JNEE.NEEAT),                          # slot 3
-    "power_ext": dict(nee=JNEE.POWER, nee_external=True),   # slot 5
+    "neeat": dict(nee="NEEAT"),                             # slot 3
+    "power_ext": dict(nee="POWER", nee_external=True),      # slot 5
 }
+
+
+def _configs(nee, **kw):
+    """The same PathTracerConfig in the JAX package and in the port."""
+    return (JConfig(nee=JNEE[nee], **kw), TConfig(nee=TNEE[nee], **kw))
 
 
 @pytest.fixture(scope="module", params=list(MODES))
@@ -204,7 +212,7 @@ def jax_ext_bounces(request, cornell_scene):
     0 and 1 (state carried by the JAX kernel)."""
     jhost, jscene = cornell_scene
     jt = jscene.bounce_tables
-    cfg = JConfig(max_bounces=BOUNCES, **MODES[request.param])
+    cfg, tcfg = _configs(max_bounces=BOUNCES, **MODES[request.param])
     key = bp._cfg_key(cfg)
     assert key[0] == (3 if request.param == "neeat" else 5)
     fs, is_ = _initial_state(jhost, cfg)
@@ -224,12 +232,12 @@ def jax_ext_bounces(request, cornell_scene):
         outs = tuple(np.asarray(x).reshape(x.shape[0], -1) for x in out[:4])
         steps.append(((fs, is_), outs))
         fs, is_ = outs[0], outs[1]
-    return request.param, cfg, jscene, steps
+    return request.param, (cfg, tcfg), jscene, steps
 
 
 @pytest.mark.parametrize("bounce", [0, 1])
 def test_k1_external_modes_match_pallas_kernel(jax_ext_bounces, bounce):
-    mode, cfg, jscene, steps = jax_ext_bounces
+    mode, (_, cfg), jscene, steps = jax_ext_bounces
     (fs, is_), (jf, ji, jh, js) = steps[bounce]
     scene = _carried(jscene)
     kcfg = bf.KernelConfig.from_cfg(cfg)
@@ -277,14 +285,14 @@ def _warm_state(jscene, rs):
 
 @pytest.mark.parametrize("bounce", [0, 1])
 def test_external_nee_matches_jax(jax_ext_bounces, bounce):
-    mode, cfg, jscene, steps = jax_ext_bounces
+    mode, (cfg, tcfg), jscene, steps = jax_ext_bounces
     (fs, is_), (_, ji, jh, js) = steps[bounce]
     if mode == "neeat":
         jstate = _warm_state(jscene, np.random.default_rng(5))
         state = _port_state(jstate)
     else:
-        cfg = JConfig(max_bounces=BOUNCES, nee=JNEE.POWER, nee_candidates=4,
-                      nee_external=True)
+        cfg, tcfg = _configs(max_bounces=BOUNCES, nee="POWER",
+                             nee_candidates=4, nee_external=True)
         jstate = state = None
     args = dict(surf=js, d_in=fs[bf.FS_D:bf.FS_D + 3], hit_mask=jh[5] > 0.5,
                 prev_pdf_in=fs[bf.FS_PREVPDF],
@@ -293,7 +301,7 @@ def test_external_nee_matches_jax(jax_ext_bounces, bounce):
     want = j_external_nee(jscene, cfg, jstate,
                           **{k: jnp.asarray(v) for k, v in args.items()},
                           sample_idx=jnp.uint32(SAMPLE), bounce=bounce)
-    got = external_nee(_carried(jscene), cfg, state,
+    got = external_nee(_carried(jscene), tcfg, state,
                        **{k: torch.tensor(v) for k, v in args.items()},
                        sample_idx=SAMPLE, bounce=bounce)
     for key in ("li", "tile", "do_nee"):
@@ -395,10 +403,11 @@ def neeat_pair(request, monkeypatch):
     fields = _synthetic_lights(rs)
     jl = JLightList(**{k: (jnp.asarray(v) if k not in ("env_light", "num")
                            else jnp.int32(v)) for k, v in fields.items()})
-    tl = lights_from_numpy(fields)
+    tl = lights_from_numpy(fields, device="cpu")
     w, h = 40, 24                                   # 5 x 3 tiles
     jstate = jna.init_state(w, h, 8, lights_power=fields["power"])
-    state = tna.init_state(w, h, 8, lights_power=fields["power"])
+    state = tna.init_state(w, h, 8, lights_power=fields["power"],
+                           device="cpu")
     assert jstate.topk == state.topk == (request.param == "topk")
     return jl, tl, jstate, state, rs, (w, h)
 
@@ -541,7 +550,7 @@ def test_render_adaptive_matches_jax_fused_tier(cornell_scene):
     before = dict(kernels.launches)
     got, state, rays = render_adaptive(
         scene, TP.default_camera(host, w, h),
-        JConfig(max_bounces=BOUNCES, nee=JNEE.NEEAT), w, h, spp=2)
+        TConfig(max_bounces=BOUNCES, nee=TNEE.NEEAT), w, h, spp=2)
     assert dict(kernels.launches) == before
     assert torch.isfinite(got).all()
     _close(got.numpy(), want, TOL, "image")

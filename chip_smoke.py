@@ -67,12 +67,39 @@ Phases, one or a few lines of output each:
                 device time: camera rays, K1, external NEE, K2, feedback,
                 the rest, and the idle share.
 
+  10. general tier -- the general BVH wavefront (kernel_tier="xla"):
+                the brute-force closest hit K8 against its plain version on
+                65,536 Cornell camera rays at bounces 0 and 2 (bounce 2's
+                query is the 2N-wide one that carries bounce 1's shadow
+                rays) and on rooms_scene(16), the state carried by the
+                plain path: prim ids and front equal, t, u, v within
+                rtol = atol = 2e-3 on >= 99.9% of lanes; K8 timed at 2^18
+                and 2^19 rays. The BVH walk K9 against its plain version on
+                65,536 rays of the city (city_overview's camera) at bounces
+                0 and 2, closest hit (as K8, visit and test counts equal on
+                every lane) and any-hit (occlusion equal on >= 99.9% of
+                lanes); K9 timed at the 1080p bounce-0 launch. The Cornell
+                golden through the general tier (phase 4's limits); the
+                small city of phase 7 through the general tier against the
+                clustered tier (RMSE < 2e-2, means within 5e-3,
+                tests/test_cluster.py:138-140). Then the two full-size
+                paths through render, each after one warm-up sample: the
+                Cornell path (1080p, 4 bounces, power NEE, 2^18 rays per
+                chunk, 2 timed samples) and the city (1080p as one chunk, 4
+                bounces, power NEE, 1 timed sample), each with its K8 or K9
+                launch count (chunks x the queries per chunk), the LBVH
+                build seconds, one profiled frame (K8's or K9's share of
+                the device time, the idle share), and for the city the RMSE
+                and mean difference against phase 8's clustered image of
+                the same sample (no limit).
+
 The line before the last holds {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Any failed phase, a missing GPU or a missing
 package exits non-zero without those lines. Imports nothing of JAX.
 """
 
 import argparse
+import dataclasses
 import json
 import os
 import re
@@ -118,6 +145,22 @@ MANY_LIGHTS = (72, 1)        # rooms_scene(72, subdiv=1): 144 lights
 EXT_FRAME = (1920, 1080)
 EXT_CHUNK = 1 << 18
 SR_BYTES = 4 * 8 + 4         # K2: a request's 8 rows read, occ written
+# K8 and K9: a ray's o, d, tmin, tmax read (32 B), t, prim, u, v and front
+# written (17 B)
+RAY_BYTES = 32 + 17
+# Operations of K8's factored pair test (accel.cuh brute_pair): det 6,
+# u_num 11, v_num 12, t_num 6, |det| test 2, reciprocal 1, u, v, t 3, the
+# seven range and best-t tests 7.
+K8_PAIR_F32 = 48
+# K9 per visited node: the slab test (6 subtractions, 6 multiplies, 6
+# per-axis min / max, 3 + 3 reductions with tmin and t, 1 comparison: 25)
+# and the step (leaf test and next-node select: 4); per triangle test of a
+# leaf whose AABB was hit: two cross products 18, four dot products 20,
+# |det| test 2, reciprocal 1, tvec 3, three scalings 3, seven tests 7.
+K9_NODE_F32 = 29
+K9_TEST_F32 = 54
+GEN_CMP_SIDE = 256           # phase 10 comparisons: 65,536 rays
+GEN_CHUNK = 1 << 18          # the Cornell path's rays per chunk
 
 
 def _fail(msg):
@@ -382,10 +425,15 @@ def main(record_path=None):
     # ---- 6-8. the city ----------------------------------------------------
     clustered = _clustered_kernels(record, dev, smi, dump)
     _city_parity(record, dev, dump)
-    city_launches = _city_path(record, dev, smi, dump, clustered["scene"])
+    city_launches, city_images = _city_path(record, dev, smi, dump,
+                                            clustered["scene"])
 
     # ---- 9. external NEE ----------------------------------------------------
     ext = _external_nee(record, dev, smi, dump)
+
+    # ---- 10. the general tier -----------------------------------------------
+    general = _general_tier(record, dev, smi, dump, clustered["scene"],
+                            city_images)
 
     k1_paths = dict(cornell=cornell_launches["bounce_fused"],
                     **{k: v.get("bounce_fused", 0)
@@ -405,6 +453,7 @@ def main(record_path=None):
                           for k, v in ext["launches"].items()}))
     for name, entry in clustered["kernels"].items():
         entries.append(dict(entry, launches=city_launches.get(name, 0)))
+    entries.extend(general)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -732,7 +781,7 @@ def _city_parity(record, dev, dump):
 
 def _city_path(record, dev, smi, dump, prepared):
     """Phase 8: the city path at 1080p, then one profiled frame. Returns
-    the launch counts of the timed frames."""
+    the launch counts of the timed frames and their images by sample."""
     import torch
 
     from rtxpt_tpu_torch import kernels
@@ -749,9 +798,10 @@ def _city_path(record, dev, smi, dump, prepared):
     torch.cuda.synchronize()
     kernels.launches.clear()
     t0 = time.perf_counter()
-    acc, rays, overflow = None, 0, 0
+    acc, rays, overflow, images = None, 0, 0, {}
     for s in range(1, 1 + spp):
         out = render_sample(scene, cam, cfg, width, height, s)
+        images[s] = out["L"]
         acc = out["L"] if acc is None else acc + out["L"]
         rays = rays + out["ray_count"]
         overflow = overflow + out["cull_overflow"]
@@ -799,7 +849,7 @@ def _city_path(record, dev, smi, dump, prepared):
     print(f"city split (one profiled frame, ms): "
           f"{json.dumps(rec['split'])} ({smi})", flush=True)
     dump()
-    return launched
+    return launched, images
 
 
 CITY_RANGES = ("sort", "cull")
@@ -1109,6 +1159,361 @@ def _external_nee(record, dev, smi, dump):
               bound_ms=k2_bound, bound_by=k2_by, library_ms=None)
     return dict(k1_err=k1_err, k1_modes=modes, k2=k2,
                 launches={k: v["launches"] for k, v in paths.items()})
+
+
+class _PlainQueries:
+    """Stand-ins for the general wavefront's scene queries
+    (integrator.scene_closest / scene_any): each query runs the plain
+    version (K8's or K9's), which carries the path; at the (kind, index)
+    calls in `compare` the kernel runs too on the same inputs and the pair
+    is summarized; the inputs of the calls in `keep` are kept."""
+
+    def __init__(self, compare=(), keep=()):
+        self.compare, self.keep = set(compare), set(keep)
+        self.calls = dict(closest=0, any=0)
+        self.summaries, self.inputs, self.err = {}, {}, 0.0
+
+    def closest(self, scene, o, d, tmin, tmax):
+        return self._query("closest", scene, o, d, tmin, tmax)
+
+    def any(self, scene, o, d, tmin, tmax):
+        return self._query("any", scene, o, d, tmin, tmax)
+
+    def _query(self, kind, scene, o, d, tmin, tmax):
+        import torch
+
+        from rtxpt_tpu_torch.accel import brute, traverse
+
+        key = (kind, self.calls[kind])
+        self.calls[kind] += 1
+        if key in self.keep:
+            self.inputs[key] = (o, d, tmin, tmax)
+        bvh = scene.bvh
+        if bvh.brute is not None:
+            plain = brute._closest_plain(bvh.brute, o, d, tmin, tmax)
+            if key in self.compare:
+                kern = brute.closest(bvh.brute, o, d, tmin, tmax)
+                self._summarize(key, kern, plain, kind)
+            prim = plain["prim"]
+        else:
+            any_hit = kind == "any"
+            plain = traverse._traverse(bvh, o, d, tmin, tmax, any_hit,
+                                       stats=True)
+            if key in self.compare:
+                kern = traverse.walk(bvh, o, d, tmin, tmax, any_hit=any_hit,
+                                     stats=True)
+                self._summarize(key, kern, plain, kind)
+            prim = torch.where(plain["prim"] >= 0, bvh.prim_tri[
+                plain["prim"].clamp(min=0).long()], -1)
+        if kind == "any":
+            return prim >= 0
+        return traverse.Hit(t=plain["t"], prim=prim, bary=plain["uv"],
+                            front=plain["front"])
+
+    def _summarize(self, key, kern, plain, kind):
+        """Agreement of one query: prim ids and front (closest) or
+        occlusion (any-hit) equal, t, u, v within TOL on the lanes whose
+        prims agree, and the walk's visit and test counts."""
+        import torch
+        torch.cuda.synchronize()
+        if kind == "any":
+            occ_k, occ_p = kern["prim"] >= 0, plain["prim"] >= 0
+            out = dict(occ_lanes_equal=float((occ_k == occ_p).float().mean()),
+                       occluded=int(occ_p.sum()), rays=int(occ_p.numel()))
+            ok = out["occ_lanes_equal"] >= LANE_FRACTION
+        else:
+            same = kern["prim"] == plain["prim"]
+            out, err = _compare(dict(t=kern["t"][None], uv=kern["uv"].T),
+                                dict(t=plain["t"][None], uv=plain["uv"].T),
+                                same)
+            out.pop("float_rows")
+            out.update(front_equal=float(
+                (kern["front"] == plain["front"]).float().mean()),
+                hits=int((plain["prim"] >= 0).sum()),
+                rays=int(plain["prim"].numel()))
+            self.err = max(self.err, err)
+            ok = (out["int_lanes_equal"] >= LANE_FRACTION
+                  and out["front_equal"] >= LANE_FRACTION
+                  and out["worst_float_row"] >= LANE_FRACTION)
+        if "visits" in plain:
+            out.update(visits_equal=bool(torch.equal(kern["visits"],
+                                                     plain["visits"])),
+                       tests_equal=bool(torch.equal(kern["tests"],
+                                                    plain["tests"])),
+                       visits=int(plain["visits"].sum()),
+                       tests=int(plain["tests"].sum()))
+            ok = ok and (kind == "any" or (out["visits_equal"]
+                                           and out["tests_equal"]))
+        out["ok"] = ok
+        self.summaries[f"{kind}{key[1]}"] = out
+
+
+def _general_tier(record, dev, smi, dump, city, city_images):
+    """Phase 10: K8 and K9 against their plain versions and their times,
+    the golden and the small-city cross-tier check through the general
+    tier, the 1080p Cornell and city paths and one profiled frame of
+    each. Returns the kernel-line entries of K8 and K9."""
+    import numpy as np
+    import torch
+
+    from rtxpt_tpu_torch import kernels
+    from rtxpt_tpu_torch.accel import brute, traverse
+    from rtxpt_tpu_torch.accel.cluster import morton_permutation
+    from rtxpt_tpu_torch.accel.lbvh import build_bvh
+    from rtxpt_tpu_torch.config import NEEMode, PathTracerConfig
+    from rtxpt_tpu_torch.prepare import prepare
+    from rtxpt_tpu_torch.pt import integrator as I
+    from rtxpt_tpu_torch.scene.procedural import (
+        city_scene, cornell_box, default_camera, rooms_scene)
+    from rtxpt_tpu_torch.utils.image import psnr, rmse
+
+    rec = {}
+    sample = 1
+
+    def plain_run(scene, host, cfg, cols, rows, frame, queries):
+        """The general wavefront once, over a cols x rows grid of the
+        frame's pixels, through the plain queries `queries`."""
+        w, h = frame
+        cam = default_camera(host, w, h, device=dev)
+        px, py = I._pixel_grid(cols, rows, dev)
+        px, py = px * w // cols, py * h // rows
+        o, d, spread = I.camera_rays(cam, cfg, px, py, sample)
+        saved = I.scene_closest, I.scene_any
+        I.scene_closest, I.scene_any = queries.closest, queries.any
+        try:
+            out = I.trace_paths(scene, cfg, o, d, spread, px, py, sample)
+        finally:
+            I.scene_closest, I.scene_any = saved
+        torch.cuda.synchronize()
+        return out
+
+    def failed(msg):
+        record["general"] = rec
+        dump()
+        _fail(msg)
+
+    def check(label, queries):
+        rec[label] = queries.summaries
+        for key, summary in queries.summaries.items():
+            print(f"general {label} {key}: {json.dumps(summary)}",
+                  flush=True)
+            if not summary["ok"]:
+                failed(f"general: the kernel disagrees with its plain "
+                       f"version ({label}, {key})")
+
+    # K8 against its plain version: 65,536 camera rays over a 1080p frame,
+    # bounces 0 and 2 (closest-hit calls 0 and 2; call 2 is 2N wide)
+    cfg4 = PathTracerConfig(max_bounces=4, nee=NEEMode.POWER,
+                            kernel_tier="xla", ray_chunk=1 << 30)
+    scenes = {}
+    k8_err = 0.0
+    for label, host in (("cornell", cornell_box()),
+                        ("rooms", rooms_scene(ROOMS))):
+        scene = prepare(host, device=dev)
+        scenes[label] = (host, scene)
+        q = _PlainQueries(compare=[("closest", 0), ("closest", 2)])
+        plain_run(scene, host, cfg4, GEN_CMP_SIDE, GEN_CMP_SIDE, EXT_FRAME, q)
+        check(f"k8_{label}", q)
+        k8_err = max(k8_err, q.err)
+
+    # K8 timed at the Cornell path's launch widths: 2^18 camera rays
+    # (bounce 0) and the 2^19-ray fused query of bounce 1
+    host_c, scene_c = scenes["cornell"]
+    q = _PlainQueries(keep=[("closest", 0), ("closest", 1)])
+    plain_run(scene_c, host_c, dataclasses.replace(cfg4, max_bounces=1),
+              512, 512, EXT_FRAME, q)
+    tris = scene_c.bvh.brute
+    k8 = {}
+    for key in (("closest", 0), ("closest", 1)):
+        args = q.inputs[key]
+        n = args[0].shape[0]
+        ms = _cuda_ms(lambda: brute.closest(tris, *args), 20)
+        bound, by, terms = _bound(
+            n * RAY_BYTES + 64 * tris.num_triangles,
+            f32=n * tris.num_triangles * K8_PAIR_F32)
+        k8[n] = dict(ms=ms, bound_ms=bound, bound_by=by, terms=terms)
+    n18 = q.inputs[("closest", 0)][0].shape[0]
+    k8[n18]["plain_ms"] = _cuda_ms(
+        lambda: brute._closest_plain(tris, *q.inputs[("closest", 0)]), 3)
+    rec["k8_times"] = k8
+    for n, m in k8.items():
+        print(f"general K8: {m['ms']:.4f} ms per {n}-ray launch x "
+              f"{tris.num_triangles} triangles, bound {m['bound_ms']:.4f} "
+              f"ms ({m['bound_by']})" + (f", plain {m['plain_ms']:.3f} ms"
+                                         if "plain_ms" in m else "")
+              + f" ({smi})", flush=True)
+
+    # K9 against its plain version on the city (no brute tables): 65,536
+    # rays of the 1080p frame, closest and any-hit at bounces 0 and 2
+    host_city, scene_city, _ = city
+    if scene_city.bvh.brute is not None:
+        failed("general: the city has brute tables")
+    q = _PlainQueries(compare=[("closest", 0), ("closest", 2), ("any", 0),
+                               ("any", 2)], keep=[("closest", 0)])
+    plain_run(scene_city, host_city,
+              dataclasses.replace(cfg4, max_bounces=3), GEN_CMP_SIDE,
+              GEN_CMP_SIDE, CITY_FRAME, q)
+    check("k9_city", q)
+    k9_err = q.err
+    bvh = scene_city.bvh
+    k9_plain_ms = _cuda_ms(lambda: traverse._traverse(
+        bvh, *q.inputs[("closest", 0)], False), 1)
+
+    # K9 timed at the city path's 1080p bounce-0 launch
+    w, h = CITY_FRAME
+    cam = default_camera(host_city, w, h, device=dev)
+    px, py = I._pixel_grid(w, h, dev)
+    o, d, _ = I.camera_rays(cam, cfg4, px, py, sample)
+    o, d = o.contiguous(), d.contiguous()
+    n = o.shape[0]
+    tmin = torch.zeros((n,), device=dev)
+    tmax = torch.full((n,), float(cfg4.max_ray_travel), device=dev)
+    k9_ms = _cuda_ms(lambda: traverse.walk(bvh, o, d, tmin, tmax), 3)
+    st = traverse.walk(bvh, o, d, tmin, tmax, stats=True)
+    visits, tests = int(st["visits"].sum()), int(st["tests"].sum())
+    k9_bound, k9_by, k9_terms = _bound(
+        n * RAY_BYTES + 4 * bvh.nodes.numel(),
+        f32=visits * K9_NODE_F32 + tests * K9_TEST_F32)
+    rec["k9_time"] = dict(ms=k9_ms, plain_ms=k9_plain_ms,
+                          plain_rays=GEN_CMP_SIDE ** 2, rays=n,
+                          nodes=bvh.num_nodes, visits=visits, tests=tests,
+                          hits=int((st["prim"] >= 0).sum()),
+                          bound_ms=k9_bound, bound_by=k9_by, terms=k9_terms)
+    print(f"general K9: {k9_ms:.4f} ms per {n}-ray launch over "
+          f"{bvh.num_nodes} nodes ({visits / n:.1f} visits, {tests / n:.2f} "
+          f"tests per ray), plain {k9_plain_ms:.2f} ms at "
+          f"{GEN_CMP_SIDE ** 2} rays, bound {k9_bound:.4f} ms ({k9_by}) "
+          f"({smi})", flush=True)
+    dump()
+
+    # the golden through the general tier
+    golden = np.load(os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests", "goldens", "cornell_32_8spp.npy"))
+    kernels.launches.clear()
+    hdr, _, _ = I.render(scene_c, default_camera(host_c, 32, 32, device=dev),
+                         PathTracerConfig(max_bounces=3, kernel_tier="xla"),
+                         32, 32, spp=8)
+    img = hdr.cpu().numpy()
+    e, p = rmse(img, golden), psnr(img, golden)
+    used = dict(kernels.launches)
+    rec["golden"] = dict(rmse=e, psnr=p, launches=used)
+    print(f"general golden: RMSE {e:.6f} PSNR {p:.2f} dB, launches {used}",
+          flush=True)
+    if not (e < 5e-3 and p > 40 and used == dict(brute_closest=8 * 4)):
+        failed("general: the general tier misses the Cornell golden")
+
+    # the small city through the general tier against the clustered tier
+    host_s = city_scene(tri_budget=4000, seed=1, blocks=2)
+    scene_s = prepare(host_s, device=dev)
+    cam_s = default_camera(host_s, 48, 32, device=dev)
+    img_c, _, _ = I.render(scene_s, cam_s, PathTracerConfig(max_bounces=3),
+                           48, 32, spp=2)
+    img_x, _, _ = I.render(scene_s, cam_s, PathTracerConfig(
+        max_bounces=3, kernel_tier="xla"), 48, 32, spp=2)
+    e = rmse(img_x.cpu().numpy(), img_c.cpu().numpy())
+    dm = abs(float(img_x.mean()) - float(img_c.mean()))
+    rec["cross_tier"] = dict(rmse=e, mean_xla=float(img_x.mean()),
+                             mean_clustered=float(img_c.mean()))
+    print(f"general cross-tier: small city 48x32 2 spp, xla vs clustered "
+          f"RMSE {e:.6f}, means {float(img_x.mean()):.6f} vs "
+          f"{float(img_c.mean()):.6f}", flush=True)
+    if not (e < 2e-2 and dm < 5e-3 and bool(torch.isfinite(img_x).all())):
+        failed("general: the general tier disagrees with the clustered "
+               "tier on the small city")
+    dump()
+
+    # LBVH build seconds of the two full-size scenes (as prepare builds them)
+    def lbvh_seconds(host, ordered):
+        g = host.flatten().geometry
+        pos, idx = g.positions.numpy(), g.indices.numpy()
+        if ordered:
+            idx = idx[morton_permutation(pos, idx)]
+        t0 = time.perf_counter()
+        build_bvh(pos, idx, device=dev)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    # the two full-size paths, each through render after a warm-up
+    from torch.profiler import ProfilerActivity, profile
+
+    def run_path(label, scene, host, cfg, spp, kernel, want, ordered):
+        cam_p = default_camera(host, w, h, device=dev)
+        I.render(scene, cam_p, cfg, w, h, 1)                    # warm-up
+        torch.cuda.synchronize()
+        kernels.launches.clear()
+        t0 = time.perf_counter()
+        hdr, _, rays = I.render(scene, cam_p, cfg, w, h, spp,
+                                first_sample=1)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launched = dict(kernels.launches)
+        finite = bool(torch.isfinite(hdr).all())
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            I.render_sample(scene, cam_p, cfg, w, h, spp + 1)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t1) * 1e3
+        split, table = _split(prof, wall, ("camera",),
+                              ((label, f"{kernel}_kernel"),))
+        chunks = -(-(w * h) // cfg.ray_chunk)
+        p = dict(res=f"{w}x{h}", spp_timed=spp, bounces=cfg.max_bounces,
+                 chunks=chunks, launches=launched, expected={kernel: want},
+                 rays=rays, seconds=dt, mrays_per_s=rays / dt / 1e6,
+                 ms_per_frame_1spp=dt / spp * 1e3,
+                 kernel_share=split[label] / max(split["device_busy"], 1e-9),
+                 lbvh_seconds=lbvh_seconds(host, ordered),
+                 L_mean=float(hdr.mean()), finite=finite, split=split,
+                 profile_table=table, card=smi)
+        print(f"general path {label}: {p['mrays_per_s']:.3f} Mrays/s, "
+              f"{p['ms_per_frame_1spp']:.3f} ms per 1-spp frame, {rays} "
+              f"rays, launches {launched} (want {want}), {kernel} "
+              f"{100 * p['kernel_share']:.1f}% of the device time, device "
+              f"idle {100 * split['idle_share']:.1f}%, LBVH build "
+              f"{p['lbvh_seconds']:.3f} s, mean L {p['L_mean']:.5f} ({smi})",
+              flush=True)
+        rec[label] = p
+        if launched != {kernel: want} or not finite:
+            failed(f"general: the {label} path did not run every query "
+                   f"through {kernel} or gave non-finite values")
+        return p, hdr
+
+    cfg_c = PathTracerConfig(max_bounces=4, nee=NEEMode.POWER,
+                             ray_chunk=GEN_CHUNK, kernel_tier="xla")
+    chunks = -(-(w * h) // GEN_CHUNK)
+    cornell_path, _ = run_path(
+        "cornell", scene_c, host_c, cfg_c, 2, "brute_closest",
+        chunks * (cfg_c.max_bounces + 1) * 2, False)
+    b = cfg4.max_bounces
+    city_path, hdr = run_path(
+        "city", scene_city, host_city, cfg4, 1, "bvh_traverse",
+        (b + 1) + b, True)
+    ref = city_images[1]
+    city_path.update(rmse_vs_clustered=rmse(hdr.cpu().numpy(),
+                                            ref.cpu().numpy()),
+                     mean_clustered=float(ref.mean()))
+    print(f"general city vs phase 8's clustered image of sample 1: RMSE "
+          f"{city_path['rmse_vs_clustered']:.6f}, means "
+          f"{city_path['L_mean']:.6f} vs {city_path['mean_clustered']:.6f}",
+          flush=True)
+    record["general"] = rec
+    dump()
+    n19 = max(k8)
+    return [
+        dict(name="brute_closest", route="cuda",
+             source="rtxpt_tpu_torch/csrc/brute_closest.cu",
+             replaces="rtxpt_tpu/accel/brute_pallas.py:34",
+             launches=cornell_path["launches"].get("brute_closest", 0),
+             max_abs_err=k8_err, ms=k8[n18]["ms"],
+             plain_ms=k8[n18]["plain_ms"], bound_ms=k8[n18]["bound_ms"],
+             bound_by=k8[n18]["bound_by"], library_ms=None,
+             rays=n18, ms_2n=k8[n19]["ms"], rays_2n=n19),
+        dict(name="bvh_traverse", route="cuda",
+             source="rtxpt_tpu_torch/csrc/bvh_traverse.cu",
+             replaces="rtxpt_tpu/accel/traverse_pallas.py:54",
+             launches=city_path["launches"].get("bvh_traverse", 0),
+             max_abs_err=k9_err, ms=k9_ms, plain_ms=k9_plain_ms,
+             bound_ms=k9_bound, bound_by=k9_by, library_ms=None, rays=n)]
 
 
 def _write_record(record, path):

@@ -45,6 +45,22 @@ _U = ctypes.c_uint
 _F = ctypes.c_float
 
 
+def check_tensor(name, x, dtype, shape, device):
+    """Raise unless x is a contiguous tensor of `dtype` and `shape` on
+    `device`: what a kernel's C interface takes."""
+    import torch
+
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(x).__name__}")
+    if x.dtype != dtype or tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected {dtype} {tuple(shape)}, got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    if x.device != device:
+        raise ValueError(f"{name}: on {x.device}, expected {device}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
 def find_nvcc() -> str:
     """nvcc from PATH or the CUDA toolkit; raises when there is none."""
     found = shutil.which("nvcc")
@@ -174,8 +190,29 @@ CLUSTER_SHADOW = CudaLibrary(
         _I, _I,                        # n_groups, kslots
         _P]})                          # cudaStream_t
 
+# K8: the brute-force closest hit of the general tier (replaces rtxpt_tpu/
+# accel/brute_pallas.py _kernel); wrapper accel/brute.py closest.
+BRUTE_CLOSEST = CudaLibrary(
+    "brute_closest", ["brute_closest.cu"],
+    {"rtxpt_brute_closest": [
+        _P, _P, _P, _P, _P,            # o, d, tmin, tmax, table
+        _P, _P, _P, _P,                # t, prim, uv, front
+        _I, _I,                        # n, n_tris
+        _P]})                          # cudaStream_t
+
+# K9: the BVH walk of the general tier (replaces rtxpt_tpu/accel/
+# traverse_pallas.py _step_kernel); wrapper accel/traverse.py walk.
+BVH_TRAVERSE = CudaLibrary(
+    "bvh_traverse", ["bvh_traverse.cu"],
+    {"rtxpt_bvh_traverse": [
+        _P, _P, _P, _P, _P,            # o, d, tmin, tmax, nodes
+        _P, _P, _P, _P,                # t, prim, uv, front
+        _P, _P,                        # visits|NULL, tests|NULL
+        _I, _I,                        # n, any_hit
+        _P]})                          # cudaStream_t
+
 LIBRARIES = (BOUNCE_FUSED, SHADOW_OCCLUSION, CLUSTER_CLOSEST, CLUSTER_SHADE,
-             CLUSTER_SHADOW)
+             CLUSTER_SHADOW, BRUTE_CLOSEST, BVH_TRAVERSE)
 
 
 def build_all(libraries=LIBRARIES) -> dict:

@@ -3,9 +3,11 @@ emissive triangles and analytic lights -> one polymorphic light list with
 a power-proportional selection CDF. Host numpy code (the same operations
 as the JAX package, so the fields agree bit for bit); the result is a
 LightList of tensors. `sample_light` selects and samples lights over a
-wavefront, for triangle, point, spot and directional lights. The
-environment light, environment quads and sphere lights come with the
-environment slice."""
+wavefront, for triangle, point, spot and directional lights, and
+`light_pdf_for_tri_hit` gives the NEE pdf of an emissive triangle that a
+BSDF ray hit (the emissive MIS of the general wavefront). The environment
+light, environment quads and sphere lights come with the environment
+slice."""
 
 from __future__ import annotations
 
@@ -265,3 +267,41 @@ def sample_light(lights: LightList, envmap, shade_pos, u_sel, u1, u2,
     valid = (valid_tri | ~is_tri) & (pdf > 1e-12) & (sel_pdf > 0.0)
     return dict(wi=wi, dist=dist, Li=Li, pdf=pdf, is_delta=is_delta,
                 valid=valid, light_index=li.to(torch.int32))
+
+
+def emissive_prim_index(scene, prim):
+    """The light-bake triangle id of a hit. Flattened scenes bake per
+    triangle, so it is the hit's own id; instanced scenes (which bake an
+    expanded instance x triangle list) are not ported."""
+    if getattr(scene, "tlas", None) is not None:
+        raise NotImplementedError("emissive hits of instanced scenes are "
+                                  "not ported to rtxpt_tpu_torch yet")
+    return prim
+
+
+def tri_light_of(lights: LightList, prim):
+    """Light index of each hit triangle [N] (-1: none, or a miss). A light
+    list without triangles (an empty tri_light) gives -1 everywhere instead
+    of gathering from an empty table."""
+    if lights.tri_light.numel() == 0:
+        return torch.full_like(prim, -1, dtype=torch.int32)
+    li = lights.tri_light[torch.clamp(prim, min=0).long()]
+    return torch.where(prim >= 0, li, -1)
+
+
+def light_pdf_for_tri_hit(lights: LightList, prim, dist, cos_l,
+                          uniform: bool = False):
+    """Solid-angle NEE pdf of having sampled the emissive triangle that a
+    BSDF ray hit, [N] (0 where the hit is no light). prim [N] original
+    triangle id (-1 miss); dist [N]; cos_l [N] |cos| at the light."""
+    li = tri_light_of(lights, prim)
+    has_light = li >= 0
+    lix = torch.clamp(li, min=0).long()
+    if uniform:
+        sel_pdf = 1.0 / float(lights.num)
+    else:
+        sel_pdf = lights.power[lix]
+    area = torch.clamp(lights.extra[lix, 0], min=1e-12)
+    pdf = sel_pdf * dist * dist / torch.clamp(
+        area * torch.clamp(cos_l, min=1e-9), min=1e-12)
+    return torch.where(has_light, pdf, 0.0)

@@ -1,12 +1,16 @@
 """Scene preparation (counterpart of rtxpt_tpu/prepare.py), the flat path:
-HostScene -> world-space flatten -> lights bake -> kernel tables on the
-render device, which is the GPU unless the caller asks for the CPU.
+HostScene -> world-space flatten -> LBVH, gather packs, lights bake ->
+kernel tables on the render device, which is the GPU unless the caller
+asks for the CPU.
 
-A scene of at most 2048 triangles gets the fused bounce tables
-(pt/bounce_fused.py). A larger one is Morton-ordered (every
-per-triangle array shares the permutation) and gets cluster tables
-(accel/cluster.py) for the clustered tier. No BVH is built: neither tier
-reads one, and the BVH comes with the general wavefront tier.
+Every scene gets the threaded LBVH (accel/lbvh.py, built by the C++
+code of csrc/lbvh.cpp, which g++ compiles at first use), with the
+brute-force operands when it has at most 4096 triangles, and the gather
+packs (`scene.build_packs`): the general wavefront tier reads them. A
+scene of at most 2048 triangles also gets the fused bounce tables
+(pt/bounce_fused.py). A larger one is Morton-ordered first (every
+per-triangle array shares the permutation, the BVH's too) and gets
+cluster tables (accel/cluster.py) for the clustered tier.
 
 `scene_from_numpy` and `cluster_scene_from_numpy` build the port's
 SceneData from the JAX package's prepared tables, carried across as
@@ -23,11 +27,12 @@ import torch
 import rtxpt_tpu_torch
 from rtxpt_tpu_torch.accel.cluster import (
     build_cluster_tables, cluster_tables_from_numpy, morton_permutation)
+from rtxpt_tpu_torch.accel.lbvh import build_bvh
 from rtxpt_tpu_torch.lighting.envmap import bake_envmap
 from rtxpt_tpu_torch.lighting.lights_baker import bake_lights
 from rtxpt_tpu_torch.pt.bounce_fused import (
     MAX_TRIS, build_bounce_tables, tables_from_numpy)
-from rtxpt_tpu_torch.scene.scene import HostScene, SceneData
+from rtxpt_tpu_torch.scene.scene import HostScene, SceneData, build_packs
 
 
 def scene_radius(positions: np.ndarray) -> float:
@@ -38,8 +43,9 @@ def scene_radius(positions: np.ndarray) -> float:
 
 def prepare(host: HostScene, device="cuda",
             instancing: str = "off") -> SceneData:
-    """Flatten + bake lights + build the kernel tables on `device` (the
-    GPU by default; raises when there is none).
+    """Flatten + build the LBVH and the packs + bake lights + build the
+    kernel tables on `device` (the GPU by default; raises when there is
+    none).
 
     Raises NotImplementedError for textures, instancing (two-level BVH)
     and environment maps, none of which the port serves yet."""
@@ -68,8 +74,12 @@ def prepare(host: HostScene, device="cuda",
     args = (pos, g.normals.numpy(), idx, g.tri_material.numpy(),
             sd.materials, lights)
     has_prio = bool(torch.any(sd.materials.nested_priority != 0))
+    tri_pack, mat_pack = build_packs(g, sd.materials)
     sd = sd.replace(lights=lights, envmap=envmap,
-                    has_nested_priorities=has_prio)
+                    has_nested_priorities=has_prio,
+                    bvh=build_bvh(pos, idx, device=device),
+                    tri_pack=tri_pack.to(device),
+                    mat_pack=mat_pack.to(device))
     if clustered:
         return sd.replace(cluster_tables=build_cluster_tables(
             *args, uvs=g.uvs.numpy(), device=device))

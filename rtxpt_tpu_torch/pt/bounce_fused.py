@@ -799,16 +799,7 @@ def shadow_requests(shadow_o, shadow_d, sdist, do_nee):
 # ---------------------------------------------------------------------------
 
 
-def _check(name, x, dtype, shape, device):
-    if not isinstance(x, torch.Tensor):
-        raise TypeError(f"{name}: expected a tensor, got {type(x).__name__}")
-    if x.dtype != dtype or tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected {dtype} {tuple(shape)}, got "
-                         f"{x.dtype} {tuple(x.shape)}")
-    if x.device != device:
-        raise ValueError(f"{name}: on {x.device}, expected {device}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
+_check = kernels.check_tensor
 
 
 def bounce(fs, is_, tables: BounceTables, kcfg: KernelConfig,

@@ -1,11 +1,11 @@
 """BSDF (counterpart of rtxpt_tpu/pt/bsdf.py): the constants and
 elementwise microfacet terms that pt/wide.py builds on, the host bake of
 the per-material Kulla-Conty energy polynomial that the bounce tables
-carry (MT_EPOLY / MT_EAVG), and `BSDFData` with `bsdf_eval`, `bsdf_pdf`
-and `bsdf_eval_split` over [N, 3] vectors, which external NEE
-(pt/nee_external.py) evaluates as the JAX package does: with the exact
-energy table, not the kernels' polynomial fit. `bsdf_sample` comes with
-the general wavefront tier."""
+carry (MT_EPOLY / MT_EAVG), and `BSDFData` with `make_bsdf_data`,
+`bsdf_eval`, `bsdf_pdf`, `bsdf_eval_split` and `bsdf_sample` over [N, 3]
+vectors, which external NEE (pt/nee_external.py) and the general
+wavefront (pt/integrator.py) evaluate as the JAX package does: with the
+exact energy table, not the kernels' polynomial fit."""
 
 from __future__ import annotations
 
@@ -288,6 +288,31 @@ def fresnel_schlick(f0, cos_h):
     return f0 + (1.0 - f0) * w * present
 
 
+def sample_ggx_vndf(wo, ax, u1, u2, ay):
+    """Visible-NDF GGX half-vector sampling (Heitz 2018). wo.z > 0."""
+    vh = m.normalize(torch.stack([ax * wo[..., 0], ay * wo[..., 1],
+                                  wo[..., 2]], dim=-1))
+    lensq = vh[..., 0] ** 2 + vh[..., 1] ** 2
+    inv_len = 1.0 / torch.sqrt(torch.clamp(lensq, min=1e-20))
+    t1 = torch.where((lensq > 1e-16)[..., None],
+                     torch.stack([-vh[..., 1] * inv_len, vh[..., 0] * inv_len,
+                                  torch.zeros_like(inv_len)], dim=-1),
+                     vh.new_tensor([1.0, 0.0, 0.0]).expand(vh.shape))
+    t2 = m.cross(vh, t1)
+    r = torch.sqrt(u1)
+    phi = 2.0 * math.pi * u2
+    p1 = r * torch.cos(phi)
+    p2 = r * torch.sin(phi)
+    s = 0.5 * (1.0 + vh[..., 2])
+    p2 = (1.0 - s) * torch.sqrt(torch.clamp(1.0 - p1 * p1, min=0.0)) + s * p2
+    nh = (p1[..., None] * t1 + p2[..., None] * t2
+          + torch.sqrt(torch.clamp(1.0 - p1 * p1 - p2 * p2, min=0.0)
+                       )[..., None] * vh)
+    return m.normalize(torch.stack([ax * nh[..., 0], ay * nh[..., 1],
+                                    torch.clamp(nh[..., 2], min=0.0)],
+                                   dim=-1))
+
+
 def ggx_vndf_pdf(wo, h, ax, ay):
     """pdf of sampling half-vector h by VNDF from wo (both local)."""
     woz = torch.clamp(wo[..., 2], min=MIN_COS)
@@ -448,3 +473,100 @@ def bsdf_pdf(data: BSDFData, wo, wi):
     pdf_t = torch.where(smooth & (wiz < -MIN_COS) & (woz > MIN_COS)
                         & (dot_oh > 0.0) & (dot_ih < 0.0), pdf_t, 0.0)
     return pd * pdf_d + ps * pdf_s + pt * pdf_t + pdt * pdf_dt
+
+
+def bsdf_sample(data: BSDFData, wo, u_lobe, u1, u2):
+    """Sample wi from the full BSDF.
+
+    Returns dict(wi [N,3], weight [N,3] = f*cos/pdf, pdf [N] (0 for delta),
+    is_delta [N] bool, lobe [N] i32, valid [N] bool)."""
+    pd, ps, pt, pdt = _lobe_probs(data)
+    woz = wo[..., 2]
+    smooth = data.alpha >= DELTA_ALPHA
+    sel_d = u_lobe < pd
+    sel_s = ~sel_d & (u_lobe < pd + ps)
+    sel_t = ~sel_d & ~sel_s & (u_lobe < pd + ps + pt)
+    lobe = torch.where(sel_d, LOBE_DIFFUSE_REFL, torch.where(
+        sel_s, LOBE_SPECULAR_REFL, torch.where(
+            sel_t, LOBE_SPECULAR_TRANS, LOBE_DIFFUSE_TRANS))).to(torch.int32)
+
+    # candidate wi per lobe
+    wi_cos, _ = m.sample_cosine_hemisphere(u1, u2)
+    h = sample_ggx_vndf(wo, torch.clamp(data.ax, min=DELTA_ALPHA), u1, u2,
+                        torch.clamp(data.ay, min=DELTA_ALPHA))
+    h_eff = torch.where(smooth[..., None], h,
+                        h.new_tensor([0.0, 0.0, 1.0]).expand(h.shape))
+    wi_refl = m.normalize(2.0 * m.dot(wo, h_eff) * h_eff - wo)
+    eta = data.eta
+    cos_oh = torch.clamp(m.dot(wo, h_eff, False), 0.0, 1.0)
+    sin2_t = eta * eta * (1.0 - cos_oh * cos_oh)
+    tir = sin2_t >= 1.0
+    cos_t = torch.sqrt(torch.clamp(1.0 - sin2_t, min=0.0))
+    wi_refr = m.normalize((-eta[..., None]) * wo
+                          + (eta * cos_oh - cos_t)[..., None] * h_eff)
+    wi_dt = torch.stack([wi_cos[..., 0], wi_cos[..., 1], -wi_cos[..., 2]],
+                        dim=-1)
+    wi = torch.where(sel_d[..., None], wi_cos, torch.where(
+        sel_s[..., None], wi_refl, torch.where(
+            sel_t[..., None], torch.where(tir[..., None], wi_refl, wi_refr),
+            wi_dt)))
+    is_delta = ~smooth & (sel_s | sel_t)
+
+    # smooth path: combined f and pdf for MIS-correct weights
+    f = bsdf_eval(data, wo, wi)
+    pdf = bsdf_pdf(data, wo, wi)
+    w_smooth = f / torch.clamp(pdf, min=1e-12)[..., None]
+
+    # delta path weights; at total internal reflection the whole
+    # transmission budget reflects (Fd == 1 would zero it)
+    cos_o = torch.clamp(woz, 0.0, 1.0)
+    w_delta_s = fresnel_schlick(data.specular_f0, cos_o) \
+        / torch.clamp(ps, min=1e-9)[..., None]
+    fd = fresnel_dielectric(cos_o, eta)
+    pt_safe = torch.clamp(pt, min=1e-9)[..., None]
+    w_delta_t = torch.where(
+        tir[..., None],
+        data.transmission_color * data.transmission[..., None] / pt_safe,
+        data.transmission_color * (data.transmission * (1.0 - fd))[..., None]
+        / pt_safe)
+    w_delta = torch.where(sel_s[..., None], w_delta_s, w_delta_t)
+    weight = torch.where(is_delta[..., None], w_delta, w_smooth)
+    lum = m.luminance(weight)
+    valid = (woz > MIN_COS) & (lum >= 0.0) & torch.isfinite(lum)
+    return dict(wi=wi, weight=torch.clamp(weight, min=0.0),
+                pdf=torch.where(is_delta, 0.0, pdf), is_delta=is_delta,
+                lobe=lobe, valid=valid)
+
+
+def make_bsdf_data(base_color, metallic, roughness, ior, transmission,
+                   diffuse_transmission, specular_scale, front,
+                   cur_ior=None, below_ior=None, anisotropy=None) -> BSDFData:
+    """BSDFData from material parameters. `front` [N] bool: the shading
+    point is seen from outside (sets eta's orientation); `cur_ior` /
+    `below_ior` come from the medium stack (air when None)."""
+    f0_dielec = (0.08 * specular_scale)[..., None] \
+        * torch.ones_like(base_color)
+    specular_f0 = f0_dielec * (1.0 - metallic[..., None]) \
+        + base_color * metallic[..., None]
+    mat_ior = torch.clamp(ior, min=1.0 + 1e-4)
+    if cur_ior is None:
+        eta = torch.where(front, 1.0 / mat_ior, mat_ior)
+    else:
+        bi = below_ior if below_ior is not None else torch.ones_like(cur_ior)
+        eta = torch.where(front, cur_ior / mat_ior,
+                          cur_ior / torch.clamp(bi, min=1.0))
+    alpha = torch.clamp(roughness * roughness, 0.0, 1.0)
+    if anisotropy is None:
+        ax = ay = alpha
+    else:
+        # Disney aspect remap (KHR_materials_anisotropy strength)
+        aspect = torch.sqrt(1.0 - 0.9 * torch.clamp(anisotropy, 0.0, 1.0))
+        ax = torch.clamp(alpha / torch.clamp(aspect, min=1e-3), 0.0, 1.0)
+        ay = torch.clamp(alpha * aspect, 0.0, 1.0)
+    return BSDFData(
+        diffuse=base_color * (1.0 - metallic[..., None]),
+        specular_f0=specular_f0, alpha=alpha,
+        transmission=transmission * (1.0 - metallic),
+        diffuse_transmission=diffuse_transmission * (1.0 - metallic),
+        eta=eta, transmission_color=base_color * 0.0 + 1.0,
+        alpha_x=ax, alpha_y=ay)

@@ -1,6 +1,6 @@
 """Kernel-tier resolution (counterpart of rtxpt_tpu/pt/dispatch.py).
 
-Three tiers serve `trace_paths`:
+Four tiers serve `trace_paths`:
 
   * "fused" -- a scene with bounce tables (at most 2048 triangles): the
     CUDA bounce kernel K1 (csrc/bounce_fused.cu) through
@@ -11,12 +11,20 @@ Three tiers serve `trace_paths`:
     the cull and sorts in PyTorch around K3, K4 and K5
     (csrc/cluster_*.cu) through `bounce_clustered.trace_paths_clustered`;
   * "torch" -- the name a bounce-table scene on CPU tensors resolves to:
-    the fused path with K1's plain PyTorch version.
+    the fused path with K1's plain PyTorch version;
+  * "xla" -- the general BVH wavefront (pt/integrator.py `_wavefront`,
+    the JAX package's tier of that name) over the scene's LBVH: the
+    brute-force closest hit K8 (csrc/brute_closest.cu) for scenes with
+    brute tables (at most 4096 triangles), else the BVH walk K9
+    (csrc/bvh_traverse.cu). Asked for explicitly, or picked for a scene
+    that has a BVH and neither bounce nor cluster tables. Prepared scenes
+    have all three and keep "fused" / "torch" / "clustered" under "auto".
 
 The wrappers pick the kernel for CUDA tensors and its plain version for
 CPU tensors, so a clustered scene on the CPU keeps the tier name
-"clustered". A scene or config that the tiers do not serve raises,
-naming the feature; nothing demotes to another tier or to the CPU.
+"clustered" and the general tier keeps "xla". A scene, config or call
+argument that the tiers do not serve raises, naming the feature; nothing
+demotes to another tier or to the CPU.
 """
 
 from __future__ import annotations
@@ -27,10 +35,11 @@ import numpy as np
 import torch
 
 from rtxpt_tpu_torch.config import NEEMode, PTMode
+from rtxpt_tpu_torch.lighting.lights_baker import KIND_SPHERE
 from rtxpt_tpu_torch.pt.bounce_clustered import DEFAULT_KSLOTS, DEFAULT_PAGES
 from rtxpt_tpu_torch.pt.bounce_fused import MAX_LIGHTS
 
-TIERS = ("fused", "clustered", "torch")
+TIERS = ("fused", "clustered", "torch", "xla")
 
 
 def needs_external_nee(scene, cfg) -> bool:
@@ -45,23 +54,33 @@ def needs_external_nee(scene, cfg) -> bool:
     return lights.count > MAX_LIGHTS or int(cfg.nee_candidates) > 1
 
 
-def _tables(scene):
-    """(tier the scene's tables select, the tables) or (None, None)."""
+def _tables(scene, tier="auto"):
+    """(the tier's kind, its tables) or (None, None): "xla" and the BVH
+    when asked for, or for a scene with only a BVH; else the cluster or
+    bounce tables."""
+    bvh = getattr(scene, "bvh", None)
+    if tier == "xla":
+        return ("xla", bvh) if bvh is not None else (None, None)
     if getattr(scene, "cluster_tables", None) is not None:
         return "clustered", scene.cluster_tables
     if getattr(scene, "bounce_tables", None) is not None:
         return "fused", scene.bounce_tables
+    if bvh is not None:
+        return "xla", bvh
     return None, None
 
 
-def unsupported_features(scene, cfg, neeat_state=None) -> list:
-    """Names of the scene's and config's features the tiers do not serve
-    yet (empty when they serve them all)."""
+def unsupported_features(scene, cfg, neeat_state=None, tier="auto",
+                         want_aux: bool = False, first_hit=None,
+                         bounce_budget=None, first_direct: bool = True):
+    """Names of the scene's, config's and call's features that the tier
+    (`tier`, or the one the scene's tables select) does not serve yet;
+    empty when it serves them all."""
     out = []
-    kind, tables = _tables(scene)
+    kind, tables = _tables(scene, tier)
     if tables is None:
-        out.append("a scene without bounce or cluster tables (prepare it "
-                   "first)")
+        out.append("a scene without bounce, cluster or BVH tables (prepare "
+                   "it first)")
     lights = getattr(scene, "lights", None)
     env = getattr(scene, "envmap", None)
     has_env = (lights is not None and lights.env_light >= 0) or (
@@ -71,14 +90,32 @@ def unsupported_features(scene, cfg, neeat_state=None) -> list:
         out.append("environment lighting")
     if getattr(scene, "textures", None) is not None:
         out.append("textures")
-    if getattr(scene, "tri_opacity", None) is not None:
+    if getattr(scene, "tri_opacity", None) is not None or getattr(
+            getattr(scene, "bvh", None), "tri_micro", None) is not None:
         out.append("opacity micromaps")
     if getattr(scene, "has_nested_priorities", False):
         out.append("nested dielectric priorities")
+    if getattr(scene, "tlas", None) is not None:
+        out.append("instancing (the two-level BVH)")
     if cfg.mode.value != PTMode.REFERENCE.value:
         out.append(f"render mode {cfg.mode.name}")
     if cfg.split_channels:
         out.append("split diffuse/specular channels")
+    if want_aux:
+        out.append("aux buffers (want_aux)")
+    if first_hit is not None:
+        out.append("V-buffer restarts (first_hit)")
+    if bounce_budget is not None:
+        out.append("per-lane bounce budgets (bounce_budget)")
+    if not first_direct:
+        out.append("first_direct=False (externally shaded first vertex)")
+    if neeat and neeat_state is None:
+        out.append("NEE-AT without a tile state (integrator."
+                   "render_adaptive makes one)")
+    if kind == "xla":
+        if lights is not None and KIND_SPHERE in lights.kinds:
+            out.append("sphere lights")
+        return out
     many = tables is not None and tables.n_lights > MAX_LIGHTS
     if kind == "fused":
         # the external route serves NEE-AT, > 128 lights and WRS K > 1;
@@ -86,9 +123,6 @@ def unsupported_features(scene, cfg, neeat_state=None) -> list:
         if lights is None and cfg.nee.value != NEEMode.OFF.value and (
                 neeat or many or int(cfg.nee_candidates) > 1):
             out.append("external NEE without a light list")
-        if neeat and neeat_state is None:
-            out.append("NEE-AT without a tile state (integrator."
-                       "render_adaptive makes one)")
         if neeat and has_env:
             out.append("NEE-AT with an environment light")
         return out
@@ -105,7 +139,8 @@ def unsupported_features(scene, cfg, neeat_state=None) -> list:
 
 def _check_devices(scene, tables, neeat_state):
     """Raise ValueError when the light list or the NEE-AT state lies on
-    another device than the scene's tables."""
+    another device than the scene's tables (the BVH, on the general
+    tier)."""
     if tables is None:
         return
     lights = getattr(scene, "lights", None)
@@ -117,21 +152,22 @@ def _check_devices(scene, tables, neeat_state):
                              f"device")
 
 
-def resolve(scene, cfg, device, neeat_state=None):
+def resolve(scene, cfg, device, neeat_state=None, **call):
     """Resolve cfg.kernel_tier for tensors on `device`. Returns a copy of
     cfg with kernel_tier "fused" (bounce tables on CUDA), "torch" (bounce
-    tables on the CPU) or "clustered" (cluster tables); nee_external set
-    where NEE takes the external route (`needs_external_nee`, bounce
-    tables only; NEE-AT needs `neeat_state`); and the clustered tier's
-    kslots and pages: the config's, else the defaults (64 and 2), with
-    kslots at most the cluster count and pages at most as many as the
-    candidate lists of all clusters fill. Raises NotImplementedError
-    naming any feature the tiers do not serve, and ValueError for a tier
+    tables on the CPU), "clustered" (cluster tables) or "xla" (asked for,
+    or a scene with only a BVH); nee_external set where NEE takes the
+    external route (`needs_external_nee`, bounce tables only); and the
+    clustered tier's kslots and pages: the config's, else the defaults (64
+    and 2), with kslots at most the cluster count and pages at most as
+    many as the candidate lists of all clusters fill. `call` holds the
+    trace's arguments that `unsupported_features` checks (want_aux,
+    first_hit, bounce_budget, first_direct). Raises NotImplementedError
+    naming any feature the tier does not serve, and ValueError for a tier
     that the scene's tables or the device have no path for, or for a
     light list or NEE-AT state on another device than the tables."""
     device = torch.device(device)
     tier = cfg.kernel_tier
-    kind, tables = _tables(scene)
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"no kernel tier for device {device}")
     if tier not in ("auto",) + TIERS:
@@ -139,17 +175,23 @@ def resolve(scene, cfg, device, neeat_state=None):
             f"kernel tier {tier!r} is not ported to rtxpt_tpu_torch")
     if device.type == "cuda" and tier == "torch":
         raise ValueError(f"kernel tier {tier!r} has no CUDA path; CUDA "
-                         f"tensors run the 'fused' or 'clustered' kernels")
+                         f"tensors run the 'fused', 'clustered' or 'xla' "
+                         f"kernels")
+    kind, tables = _tables(scene, tier)
+    if tier == "xla" and kind is None:
+        raise ValueError("kernel tier 'xla' needs the scene's BVH (prepare "
+                         "builds it)")
     if kind is not None:
         if tier == "auto":
             tier = "torch" if kind == "fused" and device.type == "cpu" \
                 else kind
-        elif (tier == "clustered") != (kind == "clustered"):
-            tables = "cluster" if kind == "clustered" else "bounce"
+        elif tier != "xla" and kind != ("clustered" if tier == "clustered"
+                                        else "fused"):
+            names = dict(clustered="cluster", fused="bounce", xla="BVH")
             raise ValueError(f"kernel tier {tier!r} does not run a scene "
-                             f"with {tables} tables")
+                             f"with {names[kind]} tables")
     _check_devices(scene, tables, neeat_state)
-    missing = unsupported_features(scene, cfg, neeat_state)
+    missing = unsupported_features(scene, cfg, neeat_state, tier, **call)
     if missing:
         raise NotImplementedError(
             f"the {kind or 'port'} tier does not serve: "

@@ -1,11 +1,11 @@
 """Wavefront path tracing of whole frames, reference mode (counterpart of
 rtxpt_tpu/pt/integrator.py): the camera rays of a frame go, in chunks of
-`cfg.ray_chunk`, through the fused bounce step (pt/bounce_fused.py) or,
-for a scene with cluster tables, the clustered tier
-(pt/bounce_clustered.py); samples accumulate progressively
-(`render`), or with NEE-AT, whose per-tile sampler learns from each
-sample before the next (`render_adaptive`). The general BVH wavefront
-(the JAX package's "xla" tier) is not ported yet."""
+`cfg.ray_chunk`, through the tier `pt/dispatch.resolve` picks: the fused
+bounce step (pt/bounce_fused.py), the clustered tier
+(pt/bounce_clustered.py), or the general BVH wavefront of this module
+(the JAX package's "xla" tier, `_wavefront`). Samples accumulate
+progressively (`render`), or with NEE-AT, whose per-tile sampler learns
+from each sample before the next (`render_adaptive`)."""
 
 from __future__ import annotations
 
@@ -14,10 +14,17 @@ from typing import Optional
 import torch
 from torch.profiler import record_function
 
+from rtxpt_tpu_torch.accel.traverse import scene_any, scene_closest
 from rtxpt_tpu_torch.config import NEEMode
 from rtxpt_tpu_torch.lighting import neeat as na
+from rtxpt_tpu_torch.lighting.lights_baker import (
+    emissive_prim_index, light_pdf_for_tri_hit, sample_light, tri_light_of)
 from rtxpt_tpu_torch.pt import bounce_clustered, bounce_fused, dispatch
+from rtxpt_tpu_torch.pt import bsdf as B
+from rtxpt_tpu_torch.pt.surface import load_surface, ray_offset
+from rtxpt_tpu_torch.scene import scene as S
 from rtxpt_tpu_torch.scene.camera import Camera, camera_ray
+from rtxpt_tpu_torch.utils import math as m
 from rtxpt_tpu_torch.utils import rng
 
 # Effect seeds (SampleGenerators effect decorrelation)
@@ -26,6 +33,12 @@ EFFECT_SCATTER = 29
 EFFECT_NEE = 31
 EFFECT_RR = 37
 EFFECT_STF = 41
+
+
+def _ld(cfg, sample_idx, seed, dim: int):
+    if cfg.low_discrepancy:
+        return rng.ld_sample(sample_idx, seed, dim)
+    return rng.uniform_sample(seed, rng.hash_combine(sample_idx, dim))
 
 
 def _lds(cfg, sample_idx, seed, dims):
@@ -51,12 +64,27 @@ def camera_rays(cam: Camera, cfg, px, py, sample_idx):
 
 
 def trace_paths(scene, cfg, o, d, cone_spread, px, py, sample_idx,
-                neeat_state=None):
+                neeat_state=None, want_aux: bool = False,
+                first_emissive: bool = True, first_hit=None,
+                bounce_budget=None, first_direct: bool = True):
     """Trace a wavefront of camera rays to completion on the tier
     `dispatch.resolve` picks for the scene and the rays' device. Returns
     dict(L [N,3], ray_count [], occupancy [max_bounces+1]), plus
-    cull_overflow [] on the clustered tier and neeat_hist with NEE-AT."""
-    cfg = dispatch.resolve(scene, cfg, o.device, neeat_state)
+    cull_overflow [] on the clustered tier and neeat_hist with NEE-AT.
+    `first_emissive=False` drops the emission seen by the camera rays
+    (general tier only); the aux buffers (`want_aux`) and the real-time
+    arguments (`first_hit`, `bounce_budget`, `first_direct=False`) are not
+    ported, and resolve refuses them by name."""
+    cfg = dispatch.resolve(scene, cfg, o.device, neeat_state,
+                           want_aux=want_aux, first_hit=first_hit,
+                           bounce_budget=bounce_budget,
+                           first_direct=first_direct)
+    if cfg.kernel_tier == "xla":
+        return _wavefront(scene, cfg, o, d, px, py, sample_idx, neeat_state,
+                          first_emissive)
+    if not first_emissive:
+        raise NotImplementedError(f"first_emissive=False on the "
+                                  f"{cfg.kernel_tier} tier is not ported")
     if cfg.kernel_tier == "clustered":
         return bounce_clustered.trace_paths_clustered(
             scene, cfg, o, d, cone_spread, px, py, sample_idx)
@@ -64,15 +92,255 @@ def trace_paths(scene, cfg, o, d, cone_spread, px, py, sample_idx,
         scene, cfg, o, d, cone_spread, px, py, sample_idx, neeat_state)
 
 
+def _where(cond, a, b):
+    return torch.where(cond.reshape(cond.shape + (1,) * (a.ndim - 1)), a, b)
+
+
+def _wavefront(scene, cfg, o, d, px, py, sample_idx, neeat_state=None,
+               first_emissive: bool = True):
+    """The general BVH wavefront (rtxpt_tpu/pt/integrator.py trace_paths on
+    the "xla" tier, without environment, textures, opacity micromaps,
+    nested priorities, split channels, aux buffers, instancing and the
+    real-time arguments). Every lane is traced at every bounce, inactive
+    ones too, as in the JAX package.
+
+    Per bounce: the closest hit (`accel.traverse.scene_closest`: K8 for
+    scenes with brute tables, else the BVH walk K9, or their plain
+    versions on CPU tensors), the medium's Beer-Lambert transmittance, the
+    surface, the emission with its deferred MIS, NEE (uniform, power or
+    NEE-AT, WRS over `cfg.nee_candidates`), the BSDF scatter with the
+    two-slot medium stack, and Russian roulette. With brute tables and
+    NEE on, bounce k's shadow rays ride in bounce k+1's closest-hit query
+    (one 2N-wide query; a hit within the shadow distance occludes);
+    otherwise each NEE bounce makes an any-hit query (K9's any-hit
+    variant)."""
+    n = o.shape[0]
+    dev = o.device
+    f32 = torch.float32
+    o, d = o.contiguous(), d.contiguous()   # camera origins are broadcast
+    mp = scene.mat_pack
+    lights = scene.lights
+
+    def zeros(*shape, dtype=f32):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    L = zeros(n, 3)
+    thp = torch.ones((n, 3), dtype=f32, device=dev)
+    active = torch.ones((n,), dtype=torch.bool, device=dev)
+    prev_pdf = zeros(n)                 # BSDF pdf of the previous scatter
+    prev_delta = torch.ones_like(active)  # previous vertex delta (or camera)
+    # two-slot medium stack of material ids (-1 = air)
+    med0 = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    med1 = med0.clone()
+    ray_count = zeros(dtype=torch.int64)
+    occupancy = []
+    t_zero = zeros(n)
+    t_far = torch.full((n,), float(cfg.max_ray_travel), dtype=f32,
+                       device=dev)
+
+    use_nee = cfg.nee.value != NEEMode.OFF.value and lights is not None
+    nee_uniform = cfg.nee.value == NEEMode.UNIFORM.value
+    use_neeat = (cfg.nee.value == NEEMode.NEEAT.value
+                 and neeat_state is not None and lights is not None)
+    hist = na.zero_hist(neeat_state) if use_neeat else None
+    fuse_shadows = scene.bvh.brute is not None and use_nee
+    pend_contrib = zeros(n, 3)
+    pend_o = zeros(n, 3)
+    pend_d = torch.ones((n, 3), dtype=f32, device=dev)
+    pend_dist = zeros(n)
+    pend_mask = zeros(n, dtype=torch.bool)
+    pend_tile = pend_li = None
+
+    for bounce in range(cfg.max_bounces + 1):
+        # ----- closest hit (+ the previous bounce's shadow rays) -----
+        occupancy.append(active.sum(dtype=torch.int64))
+        ray_count = ray_count + active.sum() + pend_mask.sum()
+        if fuse_shadows and bounce > 0:
+            hit2 = scene_closest(scene, torch.cat([o, pend_o]),
+                                 torch.cat([d, pend_d]), zeros(2 * n),
+                                 torch.cat([t_far, pend_dist]))
+            hit = hit2.take(slice(0, n))
+            ok = pend_mask & hit2.miss[n:]
+            L = L + torch.where(ok[:, None], pend_contrib, 0.0)
+            if use_neeat:
+                hist = na.accumulate_feedback(
+                    neeat_state, hist, pend_tile, pend_li,
+                    m.luminance(pend_contrib), ok)
+            pend_mask = zeros(n, dtype=torch.bool)
+        else:
+            hit = scene_closest(scene, o, d, t_zero, t_far)
+        hit_mask = active & ~hit.miss
+        active = hit_mask
+        if bounce == cfg.max_bounces:
+            break
+
+        # ----- surface and the medium's transmittance (Beer-Lambert) -----
+        in_medium = med0 >= 0
+        m0 = torch.clamp(med0, min=0)
+        cur_ior = torch.where(in_medium, mp[m0, S.MP_IOR], 1.0)
+        below_ior = torch.where(med1 >= 0,
+                                mp[torch.clamp(med1, min=0), S.MP_IOR], 1.0)
+        surf = load_surface(scene, hit, o, d, cur_ior=cur_ior,
+                            below_ior=below_ior)
+        sigma = mp[m0, S.MP_VOLABS:S.MP_VOLABS + 3]
+        thp = thp * torch.where(in_medium[:, None],
+                                torch.exp(-sigma * hit.t[:, None]), 1.0)
+
+        # ----- emissive hit with its MIS weight -----
+        if cfg.enable_mis and use_nee and bounce > 0:
+            cos_l = torch.abs(m.dot(-d, surf.geo_n, False))
+            eprim = emissive_prim_index(scene, hit.prim)
+            p_light = light_pdf_for_tri_hit(lights, eprim, hit.t, cos_l,
+                                            nee_uniform)
+            if use_neeat:
+                # rescale the selection part to the NEE-AT mixture
+                li_hit = torch.clamp(tri_light_of(lights, eprim),
+                                     min=0).long()
+                sel_mix = na.select_pdf(neeat_state, lights,
+                                        na.tile_of(neeat_state, px, py),
+                                        li_hit)
+                p_light = p_light * sel_mix / torch.clamp(
+                    lights.power[li_hit], min=1e-12)
+            w_em = torch.where(prev_delta, 1.0,
+                               m.power_heuristic(prev_pdf, p_light))
+        else:
+            w_em = torch.ones((n,), dtype=f32, device=dev)
+        if first_emissive or bounce > 0:
+            L = L + torch.where(hit_mask[:, None],
+                                thp * surf.emissive * w_em[:, None], 0.0)
+        wo = m.to_local(-d, surf.sh_n)
+
+        # ----- NEE (WRS over cfg.nee_candidates light samples) -----
+        if use_nee:
+            seed_nee = rng.pixel_seed(px, py, bounce, EFFECT_NEE)
+
+            def candidate(ci):
+                base = 8 * ci
+                u_sel, u1, u2, u_mix = _lds(
+                    cfg, sample_idx, seed_nee,
+                    (base, base + 2, base + 3, base + 4))
+                if use_neeat:
+                    lsc = na.sample_adaptive(neeat_state, lights,
+                                             scene.envmap, surf.pos, px, py,
+                                             u_mix, u_sel, u1, u2)
+                else:
+                    lsc = sample_light(lights, scene.envmap, surf.pos, u_sel,
+                                       u1, u2, uniform=nee_uniform)
+                wi_lc = m.to_local(lsc["wi"], surf.sh_n)
+                return lsc, wi_lc, B.bsdf_eval(surf.bsdf, wo, wi_lc)
+
+            k_cand = max(int(cfg.nee_candidates), 1)
+            ls, wi_l, f_l = candidate(0)
+            if k_cand > 1:
+                def target(lsc, f_lc):
+                    p_hat = m.luminance(f_lc * lsc["Li"]) \
+                        / torch.clamp(lsc["pdf"], min=1e-12)
+                    return torch.where(lsc["valid"], p_hat, 0.0)
+
+                p_hat_sel = w_sum = target(ls, f_l)
+                for ci in range(1, k_cand):
+                    lsc, wi_lc, f_lc = candidate(ci)
+                    p_hat = target(lsc, f_lc)
+                    w_sum = w_sum + p_hat
+                    u_acc = _ld(cfg, sample_idx, seed_nee, 8 * ci + 5)
+                    accept = (u_acc * torch.clamp(w_sum, min=1e-20)) < p_hat
+                    ls = {k: _where(accept, lsc[k], v) for k, v in ls.items()}
+                    wi_l = _where(accept, wi_lc, wi_l)
+                    f_l = _where(accept, f_lc, f_l)
+                    p_hat_sel = torch.where(accept, p_hat, p_hat_sel)
+                # RIS: W = w_sum / (K p_hat_sel), folded into the pdf
+                eff = torch.where(p_hat_sel > 1e-12, k_cand * p_hat_sel
+                                  / torch.clamp(w_sum, min=1e-12), 0.0)
+                ls["pdf"] = ls["pdf"] * eff
+                ls["valid"] = ls["valid"] & (eff > 0.0)
+            pdf_b = B.bsdf_pdf(surf.bsdf, wo, wi_l)
+            do_nee = hit_mask & ls["valid"] & (m.luminance(f_l) > 0.0)
+            shadow_o = ray_offset(surf.pos, surf.geo_n, ls["wi"])
+            if cfg.enable_mis:
+                w_nee = torch.where(ls["is_delta"], 1.0,
+                                    m.power_heuristic(ls["pdf"], pdf_b))
+            else:
+                w_nee = torch.ones((n,), dtype=f32, device=dev)
+            contrib = thp * f_l * ls["Li"] * (
+                w_nee / torch.clamp(ls["pdf"], min=1e-12))[:, None]
+            if cfg.firefly_clamp > 0.0:
+                lum = m.luminance(contrib)
+                contrib = contrib * torch.clamp(
+                    cfg.firefly_clamp / torch.clamp(lum, min=1e-12),
+                    max=1.0)[:, None]
+            # the occlusion distance from the offset origin
+            sdist = ls["dist"] - m.dot(shadow_o - surf.pos, ls["wi"], False)
+            sdist = torch.where(do_nee, sdist * (1.0 - 1e-4), 0.0)
+            if fuse_shadows:
+                pend_contrib = torch.where(do_nee[:, None], contrib, 0.0)
+                pend_o, pend_d, pend_dist = shadow_o, ls["wi"], sdist
+                pend_mask = do_nee
+                if use_neeat:
+                    pend_tile, pend_li = ls["tile"], ls["light_index"]
+            else:
+                ray_count = ray_count + do_nee.sum()
+                occluded = scene_any(scene, shadow_o, ls["wi"], t_zero, sdist)
+                nee_ok = do_nee & ~occluded
+                L = L + torch.where(nee_ok[:, None], contrib, 0.0)
+                if use_neeat:
+                    hist = na.accumulate_feedback(
+                        neeat_state, hist, ls["tile"], ls["light_index"],
+                        m.luminance(contrib), nee_ok)
+
+        # ----- scatter -----
+        seed_sc = rng.pixel_seed(px, py, bounce, EFFECT_SCATTER)
+        u_lobe, su1, su2 = _lds(cfg, sample_idx, seed_sc, (0, 2, 3))
+        bs = B.bsdf_sample(surf.bsdf, wo, u_lobe, su1, su2)
+        wi_world = m.to_world(bs["wi"], surf.sh_n)
+        # reject samples that leak through the geometric surface
+        leak = (bs["wi"][:, 2] > 0.0) \
+            != (m.dot(wi_world, surf.geo_n, False) > 0.0)
+        active = active & bs["valid"] & ~leak \
+            & (m.luminance(bs["weight"]) > 0.0)
+        thp = thp * bs["weight"]
+        prev_pdf = bs["pdf"]
+        prev_delta = bs["is_delta"]
+        # medium stack: push on entering, pop on exiting
+        transmitted = bs["wi"][:, 2] < 0.0
+        mid = surf.mat_id
+        thin = mp[mid, S.MP_THIN] > 0.5
+        entering = transmitted & surf.front & ~thin
+        exiting = transmitted & ~surf.front & ~thin
+        med0, med1 = (torch.where(entering, mid,
+                                  torch.where(exiting, med1, med0)),
+                      torch.where(entering, med0,
+                                  torch.where(exiting, -1, med1)))
+
+        # ----- Russian roulette -----
+        if cfg.enable_russian_roulette \
+                and bounce >= cfg.min_bounces_before_rr:
+            seed_rr = rng.pixel_seed(px, py, bounce, EFFECT_RR)
+            u_rr = _ld(cfg, sample_idx, seed_rr, 0)
+            p_cont = torch.clamp(torch.amax(thp, dim=-1), 0.05, 1.0)
+            active = active & ~(u_rr >= p_cont)
+            thp = thp / p_cont[:, None]
+
+        o = ray_offset(surf.pos, surf.geo_n, wi_world)
+        d = wi_world
+
+    out = dict(L=L, ray_count=ray_count, occupancy=torch.stack(occupancy))
+    if use_neeat:
+        out["neeat_hist"] = hist
+    return out
+
+
 def _device(scene):
-    tables = scene.cluster_tables if scene.cluster_tables is not None \
-        else scene.bounce_tables
-    return tables.device
+    """The device of the scene's tables (cluster, bounce or BVH)."""
+    for tables in (scene.cluster_tables, scene.bounce_tables, scene.bvh):
+        if tables is not None:
+            return tables.device
+    raise ValueError("the scene has no bounce, cluster or BVH tables "
+                     "(prepare it first)")
 
 
 def render_sample(scene, cam: Camera, cfg, width: int, height: int,
-                  sample_idx: int, chunk: Optional[int] = None,
-                  neeat_state=None):
+                  sample_idx: int, want_aux: bool = False,
+                  chunk: Optional[int] = None, neeat_state=None):
     """One sample per pixel over the full frame, in chunks of
     `cfg.ray_chunk` rays; the last chunk is padded with pixel (0, 0) as in
     the JAX package, so `ray_count` matches it. Returns dict(L [H,W,3],
@@ -81,7 +349,8 @@ def render_sample(scene, cam: Camera, cfg, width: int, height: int,
     `neeat_state`, neeat_hist (the chunks' feedback merged). Runs on the
     device of the scene's tables."""
     device = _device(scene)
-    cfg = dispatch.resolve(scene, cfg, device, neeat_state)
+    cfg = dispatch.resolve(scene, cfg, device, neeat_state,
+                           want_aux=want_aux)
     cam = cam.to(device)
     px, py = _pixel_grid(width, height, device)
     npix = px.shape[0]
@@ -123,14 +392,12 @@ def render(scene, cam: Camera, cfg, width: int, height: int, spp: int,
     """Progressive accumulation over `spp` samples (weight 1/spp).
 
     Returns (hdr [H,W,3] tensor, aux dict, total ray count)."""
-    if want_aux:
-        raise NotImplementedError(
-            "aux buffers are not ported to rtxpt_tpu_torch yet")
     _check_sample_range(first_sample, spp)
     acc = None
     total_rays = 0
     for s in range(first_sample, first_sample + spp):
-        out = render_sample(scene, cam, cfg, width, height, s)
+        out = render_sample(scene, cam, cfg, width, height, s,
+                            want_aux=want_aux)
         total_rays += int(out["ray_count"])
         acc = out["L"] if acc is None else acc + out["L"]
     return acc / spp, {}, total_rays

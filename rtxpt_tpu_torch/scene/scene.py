@@ -1,7 +1,8 @@
 """Scene representation (counterpart of rtxpt_tpu/scene/scene.py), the
 flat subset: material, geometry and analytic-light tables, the host scene
-and its world-space flatten, and the device SceneData. The BVH, the
-gather packs and instancing come with later slices.
+and its world-space flatten, the device SceneData and its per-triangle and
+per-material gather tables (`build_packs`). Instancing comes with a later
+slice.
 
 Tables are frozen dataclasses of tensors. Host scenes hold CPU tensors;
 `prepare` moves what the renderer reads to the target device.
@@ -116,10 +117,11 @@ class AnalyticLights:
 
 @dataclass(frozen=True)
 class SceneData:
-    """What the renderer reads. `bounce_tables` (pt/bounce_fused.py) or,
-    for a scene above 2048 triangles, `cluster_tables`
-    (accel/cluster.py), and `lights` (lighting/lights_baker.py) live on
-    the render device."""
+    """What the renderer reads, on the render device: `bvh`
+    (accel/bvh.py) with `tri_pack` and `mat_pack` (`build_packs`) for the
+    general wavefront tier; `bounce_tables` (pt/bounce_fused.py) or, for a
+    scene above 2048 triangles, `cluster_tables` (accel/cluster.py); and
+    `lights` (lighting/lights_baker.py)."""
 
     geometry: Optional[Geometry]
     materials: Optional[Materials]
@@ -128,14 +130,56 @@ class SceneData:
     envmap: Optional[object] = None          # envmap.EnvMap
     bounce_tables: Optional[object] = None   # bounce_fused.BounceTables
     cluster_tables: Optional[object] = None  # cluster.ClusterTables
+    bvh: Optional[object] = None             # bvh.ThreadedBVH
+    tri_pack: Optional[torch.Tensor] = None  # [T,25] v0v1v2|n0n1n2|uv012|mat
+    mat_pack: Optional[torch.Tensor] = None  # [M,18] material scalars
     # Features of the JAX package that this port does not serve yet; the
     # dispatch refuses a scene that sets them (pt/dispatch.py).
     textures: Optional[object] = None
     tri_opacity: Optional[object] = None
     has_nested_priorities: bool = False
+    tlas: Optional[object] = None            # the two-level BVH
 
     def replace(self, **kw) -> "SceneData":
         return dataclasses.replace(self, **kw)
+
+
+# mat_pack columns (the JAX package's build_packs)
+MP_BASE = 0        # 0:3
+MP_METAL = 3
+MP_ROUGH = 4
+MP_IOR = 5
+MP_TRANS = 6
+MP_DTRANS = 7
+MP_EMISSIVE = 8    # 8:11
+MP_SPEC = 11
+MP_THIN = 12
+MP_ACUT = 13
+MP_VOLABS = 14     # 14:17
+MP_ANISO = 17
+MP_ROWS = 18
+
+
+def build_packs(geometry: Geometry, materials: Materials):
+    """The fused gather tables: tri_pack [T,25] (v0, v1, v2, n0, n1, n2,
+    uv0, uv1, uv2, material id as f32) and mat_pack [M,18] (the MP_*
+    columns), on the device of the geometry."""
+    idx = geometry.indices.long()
+    p, nrm, uv = geometry.positions, geometry.normals, geometry.uvs
+    tri_pack = torch.cat(
+        [p[idx[:, 0]], p[idx[:, 1]], p[idx[:, 2]],
+         nrm[idx[:, 0]], nrm[idx[:, 1]], nrm[idx[:, 2]],
+         uv[idx[:, 0]], uv[idx[:, 1]], uv[idx[:, 2]],
+         geometry.tri_material.to(torch.float32)[:, None]], dim=1)
+    m = materials
+    mat_pack = torch.cat([
+        m.base_color, m.metallic[:, None], m.roughness[:, None],
+        m.ior[:, None], m.transmission[:, None],
+        m.diffuse_transmission[:, None], m.emissive,
+        m.specular_f0_scale[:, None], m.thin[:, None],
+        m.alpha_cutoff[:, None], m.volume_absorption,
+        m.anisotropy[:, None]], dim=1)
+    return tri_pack, mat_pack
 
 
 @dataclass

@@ -1,11 +1,13 @@
 """Vector math helpers (counterpart of rtxpt_tpu/utils/math.py): the subset
-that the camera, the display transform, the light sampling and the BSDF
-evaluation of external NEE use. Vectors are [..., 3] float32; dot
+that the camera, the display transform, the light sampling, the BSDF and
+the general wavefront use. Vectors are [..., 3] float32; dot
 products are written out component by component so that every device
 sums in the same order. pt/wide.py, which keeps vectors as [3, ...]
 stacks, takes its elementwise helpers from here."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -23,6 +25,14 @@ def length(v, keepdims=True):
 
 def normalize(v):
     return v * (1.0 / torch.sqrt(torch.clamp(dot(v, v), min=EPS * EPS)))
+
+
+def cross(a, b):
+    """a x b of [..., 3] vectors, written out component by component."""
+    return torch.stack([a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
+                        a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
+                        a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]],
+                       dim=-1)
 
 
 def luminance(c):
@@ -48,6 +58,21 @@ def to_local(v, n):
     t, b = orthonormal_basis(n)
     return torch.stack([dot(v, t, False), dot(v, b, False),
                         dot(v, n, False)], dim=-1)
+
+
+def to_world(v, n):
+    """Tangent space (z along n) -> world."""
+    t, b = orthonormal_basis(n)
+    return v[..., 0:1] * t + v[..., 1:2] * b + v[..., 2:3] * n
+
+
+def sample_cosine_hemisphere(u1, u2):
+    """Cosine-weighted hemisphere (local frame, z up): (dir, pdf)."""
+    r = torch.sqrt(u1)
+    phi = 2.0 * math.pi * u2
+    d = torch.stack([r * torch.cos(phi), r * torch.sin(phi),
+                     torch.sqrt(torch.clamp(1.0 - u1, min=0.0))], dim=-1)
+    return d, torch.clamp(d[..., 2], min=EPS) / math.pi
 
 
 def sample_triangle_barycentrics(u1, u2):

@@ -2,7 +2,9 @@
 the same CUDA inputs, and the wrappers' launch counts and checks: K1 on
 the Cornell box and the small scenes, K1's external modes and the shadow
 kernel K2 on the Cornell box and the rooms, K3, K4 and K5 on the small
-city of tests/test_torch_cluster.py. Needs an NVIDIA GPU and nvcc; skips
+city of tests/test_torch_cluster.py, and the general tier's brute-force
+closest hit K8 and BVH walk K9 on the Cornell box, the rooms and that
+city. Needs an NVIDIA GPU and nvcc; skips
 without them. This file imports no JAX, so it runs where JAX is absent:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -12,6 +14,7 @@ import pytest
 import torch
 
 from rtxpt_tpu_torch import kernels
+from rtxpt_tpu_torch.accel import brute, traverse
 from rtxpt_tpu_torch.config import NEEMode, PathTracerConfig
 from rtxpt_tpu_torch.prepare import prepare
 from rtxpt_tpu_torch.lighting.envmap import EnvMap
@@ -278,3 +281,103 @@ def test_clustered_wrappers_refuse_tables_on_another_device(city):
                       is_[bf.IS_ACTIVE] > 0, 1e27, scene.cluster_tables, 8)
     with pytest.raises(ValueError, match="same device"):
         BC.closest_hit(cand, od, cpu.blocks, 8, 1e27)
+
+
+# ---------------------------------------------------------------------------
+# The general tier: K8 (brute-force closest hit) and K9 (BVH walk)
+# ---------------------------------------------------------------------------
+
+
+def _query_rays(host, device, side, seed):
+    """Camera rays of a side x side frame, then as many rays from random
+    points inside the scene's bounds in random directions with random
+    shadow-like tmax, and a few NaN rays: (o, d, tmin, tmax)."""
+    cfg = PathTracerConfig()
+    cam = TP.default_camera(host, side, side, device=device)
+    px, py = _pixel_grid(side, side, device)
+    o, d, _ = camera_rays(cam, cfg, px, py, 0)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    n = o.shape[0]
+    pos = torch.as_tensor(host.flatten().geometry.positions)
+    lo, hi = pos.min(0).values, pos.max(0).values
+    o2 = lo + (hi - lo) * torch.rand((n, 3), generator=g)
+    d2 = torch.randn((n, 3), generator=g)
+    d2 = d2 / d2.norm(dim=1, keepdim=True)
+    o = torch.cat([o, o2.to(device)]).contiguous()
+    d = torch.cat([d, d2.to(device)]).contiguous()
+    d[:4] = float("nan")
+    tmin = torch.zeros((2 * n,), device=device)
+    tmax = torch.cat([torch.full((n,), 1e27),
+                      torch.rand((n,), generator=g) * (hi - lo).norm()])
+    return o, d, tmin, tmax.to(device)
+
+
+def _hits_agree(k, p):
+    same = k["prim"] == p["prim"]
+    assert same.float().mean() >= 0.999
+    assert (p["prim"] >= 0).float().mean() > 0.2
+    for key in ("t", "uv"):
+        ok = torch.isclose(k[key], p[key], rtol=TOL, atol=TOL,
+                           equal_nan=True)
+        ok = ok if ok.ndim == 1 else ok.all(1)
+        assert ok.float().mean() >= 0.999, key
+    assert (k["front"] == p["front"]).float().mean() >= 0.999
+
+
+@pytest.mark.parametrize("scene_name", ["cornell", "rooms"])
+def test_k8_matches_plain_version(gpu, scene_name):
+    host = TP.cornell_box() if scene_name == "cornell" else \
+        TP.rooms_scene(16)
+    scene = prepare(host, device=gpu)
+    assert scene.bvh.brute is not None
+    rays = _query_rays(host, gpu, 64, 1)
+    kern = brute.closest(scene.bvh.brute, *rays)
+    plain = brute._closest_plain(scene.bvh.brute, *rays)
+    torch.cuda.synchronize()
+    _hits_agree(kern, plain)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_k9_matches_plain_version(city, any_hit):
+    host, scene = city
+    rays = _query_rays(host, scene.bvh.device, 64, 2)
+    kern = traverse.walk(scene.bvh, *rays, any_hit=any_hit, stats=True)
+    plain = traverse._traverse(scene.bvh, *rays, any_hit, stats=True)
+    torch.cuda.synchronize()
+    if any_hit:
+        occ_k, occ_p = kern["prim"] >= 0, plain["prim"] >= 0
+        assert (occ_k == occ_p).float().mean() >= 0.999
+    else:
+        _hits_agree(kern, plain)
+    assert torch.equal(kern["visits"], plain["visits"])
+    assert torch.equal(kern["tests"], plain["tests"])
+
+
+@pytest.mark.parametrize("walk", [False, True])
+def test_general_render_runs_through_k8_or_k9(gpu, monkeypatch, walk):
+    """A general-tier render launches K8 once per bounce and chunk (the
+    shadow rays ride in the next bounce's query), or, with the brute
+    force disabled, K9 once per bounce for the closest hits and once per
+    NEE bounce for the shadow rays."""
+    if walk:
+        monkeypatch.setattr(brute, "BRUTE_MAX_TRIS", 16)
+    host = TP.cornell_box()
+    scene = prepare(host, device=gpu)
+    assert (scene.bvh.brute is None) == walk
+    cam = TP.default_camera(host, 32, 32)
+    cfg = PathTracerConfig(max_bounces=3, kernel_tier="xla")
+    kernels.launches.clear()
+    hdr, _, rays = render(scene, cam, cfg, 32, 32, spp=2)
+    want = dict(bvh_traverse=(4 + 3) * 2) if walk else \
+        dict(brute_closest=4 * 2)
+    assert dict(kernels.launches) == want
+    assert torch.isfinite(hdr).all() and rays > 0
+
+
+def test_general_tier_refuses_a_cpu_light_list(cornell):
+    host, scene = cornell
+    cpu_lights = prepare(host, device="cpu").lights
+    with pytest.raises(ValueError, match="one device"):
+        render(scene.replace(lights=cpu_lights),
+               TP.default_camera(host, 8, 8),
+               PathTracerConfig(kernel_tier="xla"), 8, 8, spp=1)

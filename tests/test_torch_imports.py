@@ -16,10 +16,12 @@ import torch
 import rtxpt_tpu.config as jconfig
 from rtxpt_tpu_torch import config as tconfig
 from rtxpt_tpu_torch import kernels
+from rtxpt_tpu_torch.accel.bvh import bvh_from_numpy
 from rtxpt_tpu_torch.config import NEEMode, PathTracerConfig, PTMode
 from rtxpt_tpu_torch.lighting import neeat
 from rtxpt_tpu_torch.lighting.envmap import EnvMap
-from rtxpt_tpu_torch.lighting.lights_baker import lights_from_numpy
+from rtxpt_tpu_torch.lighting.lights_baker import (
+    KIND_SPHERE, lights_from_numpy)
 from rtxpt_tpu_torch.prepare import (
     cluster_scene_from_numpy, prepare, scene_from_numpy)
 from rtxpt_tpu_torch.pt import bounce_fused as bf
@@ -43,6 +45,9 @@ SLICE_MODULES = [
     "rtxpt_tpu_torch.ops.wavefront", "rtxpt_tpu_torch.pt.bounce_clustered",
     "rtxpt_tpu_torch.pt.surface", "rtxpt_tpu_torch.pt.restir",
     "rtxpt_tpu_torch.lighting.neeat", "rtxpt_tpu_torch.pt.nee_external",
+    "rtxpt_tpu_torch.accel.bvh", "rtxpt_tpu_torch.accel.lbvh",
+    "rtxpt_tpu_torch.accel.native", "rtxpt_tpu_torch.accel.brute",
+    "rtxpt_tpu_torch.accel.traverse",
 ]
 
 
@@ -75,6 +80,7 @@ def test_kernel_layer_imports_without_nvcc():
     code = ("from rtxpt_tpu_torch import kernels\n"
             "import rtxpt_tpu_torch.pt.bounce_fused\n"
             "import rtxpt_tpu_torch.pt.bounce_clustered\n"
+            "import rtxpt_tpu_torch.accel.traverse\n"
             "for lib in kernels.LIBRARIES:\n"
             "    try:\n"
             "        lib.load()\n"
@@ -96,7 +102,8 @@ def test_prepare_defaults_to_the_card(monkeypatch):
                  lambda: cluster_scene_from_numpy({}),
                  lambda: lights_from_numpy({}),
                  lambda: neeat.init_state(8, 8, 2),
-                 lambda: neeat.state_from_numpy({})):
+                 lambda: neeat.state_from_numpy({}),
+                 lambda: bvh_from_numpy({})):
         with pytest.raises(RuntimeError, match="is_available"):
             make()
     assert prepare(host, device="cpu").bounce_tables.device.type == "cpu"
@@ -284,3 +291,89 @@ def test_config_matches_jax_package():
         nee=jconfig.NEEMode.UNIFORM, max_bounces=3))
     assert kc == bf.KernelConfig.from_cfg(tconfig.PathTracerConfig(
         nee=tconfig.NEEMode.UNIFORM, max_bounces=3))
+
+
+# the general tier ("xla"): case -> (scene fields, config fields, trace
+# arguments, the name the error gives)
+UNSERVED_XLA = {
+    "environment": (dict(envmap=_ENV), {}, {}, "environment"),
+    "textures": (dict(textures=object()), {}, {}, "textures"),
+    "micromaps": ("tri_micro", {}, {}, "micromaps"),
+    "priorities": (dict(has_nested_priorities=True), {}, {}, "priorities"),
+    "tlas": (dict(tlas=object()), {}, {}, "instancing"),
+    "sphere_light": ("sphere", {}, {}, "sphere lights"),
+    "split": ({}, dict(split_channels=True), {}, "split"),
+    "want_aux": ({}, {}, dict(want_aux=True), "aux buffers"),
+    "first_hit": ({}, {}, dict(first_hit=object()), "first_hit"),
+    "bounce_budget": ({}, {}, dict(bounce_budget=object()),
+                      "bounce_budget"),
+    "first_direct": ({}, {}, dict(first_direct=False), "first_direct"),
+    "neeat_without_state": ({}, dict(nee=NEEMode.NEEAT), {},
+                            "NEE-AT without a tile state"),
+}
+
+
+@pytest.mark.parametrize("device", ["cuda", "cpu"])
+@pytest.mark.parametrize("case", list(UNSERVED_XLA))
+def test_general_tier_refuses_unserved_features(cornell, case, device):
+    """On the general tier an unserved feature raises with its name."""
+    scene_kw, cfg_kw, call, name = UNSERVED_XLA[case]
+    scene = cornell[1]
+    if scene_kw == "tri_micro":
+        scene = scene.replace(bvh=scene.bvh.replace(
+            tri_micro=torch.zeros(scene.bvh.num_triangles)))
+    elif scene_kw == "sphere":
+        kind = scene.lights.kind.clone()
+        kind[-1] = KIND_SPHERE
+        scene = scene.replace(lights=dataclasses.replace(scene.lights,
+                                                         kind=kind))
+    else:
+        scene = scene.replace(**scene_kw)
+    cfg = PathTracerConfig(kernel_tier="xla", **cfg_kw)
+    with pytest.raises(NotImplementedError,
+                       match="xla tier does not serve") as err:
+        dispatch.resolve(scene, cfg, device, **call)
+    assert name in str(err.value)
+
+
+@pytest.mark.parametrize("device", ["cuda", "cpu"])
+def test_resolve_serves_the_general_tier(cornell, small_city, device):
+    """kernel_tier="xla" keeps its name on both devices, for the prepared
+    Cornell box and city alike; a scene with only a BVH resolves to it
+    under "auto", and the prepared scenes keep their tiers."""
+    _, scene = cornell
+    xla = PathTracerConfig(kernel_tier="xla")
+    for s in (scene, small_city):
+        assert dispatch.resolve(s, xla, device).kernel_tier == "xla"
+    bvh_only = scene.replace(bounce_tables=None)
+    assert dispatch.resolve(bvh_only, PathTracerConfig(),
+                            device).kernel_tier == "xla"
+    auto = PathTracerConfig()
+    assert dispatch.resolve(scene, auto, device).kernel_tier == (
+        "fused" if device == "cuda" else "torch")
+    assert dispatch.resolve(small_city, auto,
+                            device).kernel_tier == "clustered"
+    for tier in ("fused", "clustered"):
+        with pytest.raises(ValueError, match="does not run"):
+            dispatch.resolve(bvh_only, PathTracerConfig(kernel_tier=tier),
+                             device)
+    with pytest.raises(ValueError, match="needs the scene's BVH"):
+        dispatch.resolve(scene.replace(bvh=None), xla, device)
+
+
+def test_prepare_builds_a_bvh_for_every_scene(cornell, small_city):
+    """Both prepared scenes carry the LBVH and the packs; the small scene
+    has brute tables, the city (3,512 triangles) too, and a BVH-only scene
+    renders through the general tier on the CPU without launching a
+    kernel."""
+    host, scene = cornell
+    for s, n_tris in ((scene, 36), (small_city, 3512)):
+        assert s.bvh.num_triangles == n_tris == s.tri_pack.shape[0]
+        assert s.bvh.num_nodes == 2 * n_tris - 1
+        assert s.bvh.brute is not None and s.mat_pack.shape[1] == 18
+    kernels.launches.clear()
+    out = render_sample(scene.replace(bounce_tables=None),
+                        TP.default_camera(host, 8, 8),
+                        PathTracerConfig(max_bounces=2), 8, 8, 0)
+    assert out["kernel_tier"] == "xla" and not kernels.launches
+    assert torch.isfinite(out["L"]).all()

@@ -92,6 +92,37 @@ Phases, one or a few lines of output each:
                 the device time, the idle share), and for the city the RMSE
                 and mean difference against phase 8's clustered image of
                 the same sample (no limit).
+  11. instancing -- the instanced city (procedural.instanced_city(8, 21):
+                64 towers sharing one 5,292-triangle prototype on a floor,
+                339,888 world triangles in a 6,492-triangle pool, one point
+                light, a camera above a corner of the grid): its pool and
+                candidate bytes against the flattened scene's blocks. K3's
+                and K5's instanced variants against their plain versions
+                as phase 6, at bounces 0, 1 and 2 (K4 on the
+                post-transformed hits): prim ids,
+                HA_INST and front equal, t/u/v within rtol = atol = 2e-3,
+                occlusion equal, each on >= 99.9% of lanes, visit and test
+                counts equal; each timed at the 1080p bounce-0 launch with
+                its registers and spills. The instanced path as phase 8
+                (1080p, 4 bounces, power NEE, one chunk, kslots 64, 2
+                pages, 1 warm-up and 2 timed samples): the instanced
+                variants launch pages x bounces x spp times, K4 bounces x
+                spp times, the image is finite and lit (mean > 1e-3), and
+                one profiled frame splits the device time (sort, cull, K3,
+                post-transform, K4, K5, the rest, idle). Against the same
+                host flattened (instancing="off", the flat K3/K5): the
+                bounce-0 t of the 1080p camera rays within 1e-4 relative
+                on >= 99.9% of the lanes that both hit, the bounce-0 hit
+                shares of both and of the exact TLAS walk, the flattened
+                frame's time, and the two 1-spp images' RMSE and means
+                (no limit). The TLAS route:
+                procedural.instanced_boxes(3) (9 boxes, floor, emissive
+                panel, point light; it resolves to "xla") at 96x96, 4 spp,
+                3 bounces against the same host flattened, both on the
+                general tier: RMSE < 2e-3 (tests/test_tlas.py:203-214),
+                no kernel launched; then one timed and one profiled 1080p
+                1-spp frame of it (4 bounces): its device launches per
+                frame and idle share.
 
 The line before the last holds {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Any failed phase, a missing GPU or a missing
@@ -132,6 +163,10 @@ PAIR_TF32 = 38
 K3_PAIR_F32 = 27
 K5_PAIR_F32 = 14
 STAGED_BLOCK_BYTES = 21 * 512 * 4    # rows 0..20 of a cluster block
+XF_BYTES = 10 * 10 * 4               # an instance's M10
+# The instanced variants' map of the ray operand: 9 rows of M10 @
+# [d, o x d, o, 1], 10 multiplies and 9 adds each, per lane and visit.
+XFORM_F32 = 9 * 19
 CITY_TRIS = 350_000
 CITY_SEED = 0
 CITY_FRAME = (1920, 1080)    # the city path's frame
@@ -435,6 +470,9 @@ def main(record_path=None):
     general = _general_tier(record, dev, smi, dump, clustered["scene"],
                             city_images)
 
+    # ---- 11. instancing -----------------------------------------------------
+    instanced = _instancing(record, dev, smi, dump, clustered["scene"])
+
     k1_paths = dict(cornell=cornell_launches["bounce_fused"],
                     **{k: v.get("bounce_fused", 0)
                        for k, v in ext["launches"].items()})
@@ -454,6 +492,7 @@ def main(record_path=None):
     for name, entry in clustered["kernels"].items():
         entries.append(dict(entry, launches=city_launches.get(name, 0)))
     entries.extend(general)
+    entries.extend(instanced)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -466,25 +505,70 @@ def _city_host(seed=CITY_SEED):
 
 
 def _clustered_kernels(record, dev, smi, dump):
-    """Phase 6: K3, K4 and K5 against their plain versions, and their
-    times. Returns dict(scene=(host, scene, prepare seconds),
+    """Phase 6: K3, K4 and K5 against their plain versions on the city,
+    and their times. Returns dict(scene=(host, scene, prepare seconds),
     kernels={name: partial kernel-line entry})."""
     import torch
 
-    from rtxpt_tpu_torch.config import NEEMode, PathTracerConfig
     from rtxpt_tpu_torch.prepare import prepare
-    from rtxpt_tpu_torch.pt import bounce_clustered as BC
-    from rtxpt_tpu_torch.pt import bounce_fused as bf
-    from rtxpt_tpu_torch.pt import dispatch
-    from rtxpt_tpu_torch.pt.integrator import _pixel_grid, camera_rays
-    from rtxpt_tpu_torch.scene.procedural import default_camera
 
     t0 = time.perf_counter()
     host = _city_host()
     scene = prepare(host, device=dev)
     torch.cuda.synchronize()
     prep_s = time.perf_counter() - t0
+    return _cluster_kernel_checks(record, dev, smi, dump, "clustered", host,
+                                  scene, prep_s, CITY_PAGES)
+
+
+def _ptxas_entry(log, needle):
+    """(registers, spill store bytes, spill load bytes) of the entry
+    function whose mangled name contains `needle`, from a ptxas -v log."""
+    regs = spill_st = spill_ld = None
+    current = False
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            current = needle in m.group(1)
+            continue
+        if not current:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill_st, spill_ld = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            regs = int(m.group(1))
+    return dict(registers=regs, spill_store_bytes=spill_st,
+                spill_load_bytes=spill_ld)
+
+
+def _cluster_kernel_checks(record, dev, smi, dump, label, host, scene,
+                           prep_s, pages_want, compare_bounces=(0, 2)):
+    """K3, K4 and K5 (their instanced variants on instanced tables)
+    against their plain versions on 65,536 camera rays of the scene's
+    1080p frame at `compare_bounces`, every page, the state carried by
+    the plain versions; then each kernel timed at the 1080p bounce-0 launch
+    beside its bound, and the plain versions at the comparison width.
+    Returns dict(scene=(host, scene, prepare seconds), kernels={name:
+    partial kernel-line entry})."""
+    import torch
+
+    from rtxpt_tpu_torch import kernels
+    from rtxpt_tpu_torch.config import NEEMode, PathTracerConfig
+    from rtxpt_tpu_torch.pt import bounce_clustered as BC
+    from rtxpt_tpu_torch.pt import bounce_fused as bf
+    from rtxpt_tpu_torch.pt import dispatch
+    from rtxpt_tpu_torch.pt.integrator import _pixel_grid, camera_rays
+    from rtxpt_tpu_torch.scene.procedural import default_camera
+
     tbl = scene.cluster_tables
+    inst = tbl.instanced
+    xf = tbl.xf
+    k3n, k4n, k5n = (("cluster_closest_inst", "cluster_shade",
+                      "cluster_shadow_inst") if inst else
+                     ("cluster_closest", "cluster_shade", "cluster_shadow"))
     cfg = dispatch.resolve(scene, PathTracerConfig(
         max_bounces=4, nee=NEEMode.POWER, ray_chunk=1 << 30), dev)
     kcfg = bf.KernelConfig.from_cfg(cfg)
@@ -492,12 +576,13 @@ def _clustered_kernels(record, dev, smi, dump):
     max_travel = float(cfg.max_ray_travel)
     bounds = BC.scene_bounds(tbl)
     sample = 1
-    print(f"clustered: city {tbl.n_tris} triangles, {tbl.n_clusters} "
-          f"clusters, {tbl.n_lights} lights, prepare {prep_s:.2f}s, kslots "
-          f"{kslots}, pages {pages}", flush=True)
-    if pages != CITY_PAGES:
-        _fail(f"clustered: the city resolves to {pages} pages, not "
-              f"{CITY_PAGES}")
+    print(f"{label}: {tbl.n_tris} triangles, {tbl.blocks.shape[0]} blocks, "
+          f"{tbl.n_clusters} cull candidates, {tbl.n_lights} lights, "
+          f"prepare {prep_s:.2f}s, kslots {kslots}, pages {pages}",
+          flush=True)
+    if pages != pages_want:
+        _fail(f"{label}: the scene resolves to {pages} pages, not "
+              f"{pages_want}")
 
     def camera_state(cols, rows):
         """Camera rays of a cols x rows grid of the city frame's pixels."""
@@ -514,7 +599,7 @@ def _clustered_kernels(record, dev, smi, dump):
         od = BC.ray_operand(fs, is_)
         cand, _ = BC.cull(fs[bf.FS_O:bf.FS_O + 3], fs[bf.FS_D:bf.FS_D + 3],
                           is_[bf.IS_ACTIVE] > 0, max_travel, tbl, kslots)
-        return od, cand
+        return od, BC.map_cand_inst(cand, tbl, kslots)
 
     def shadow_inputs(sh):
         shp, _ = BC.sort_shadows(sh, bounds)
@@ -522,14 +607,14 @@ def _clustered_kernels(record, dev, smi, dump):
         cand, _ = BC.cull(shp[BC.SH_O:BC.SH_O + 3], shp[BC.SH_D:BC.SH_D + 3],
                           dop, torch.where(dop, shp[BC.SH_DIST], -3e38), tbl,
                           kslots)
-        return shp, cand
+        return shp, BC.map_cand_inst(cand, tbl, kslots)
 
     # comparison: 65,536 camera rays, bounces 0 and 2, every page; the
     # plain versions' results carry the state, as on the city path. The
     # paged loops call the module's closest_hit and occlusion: these run
     # both versions, keep the pair and return the plain result.
     rec = {}
-    err = dict(cluster_closest=0.0, cluster_shade=0.0, cluster_shadow=0.0)
+    err = {k3n: 0.0, k4n: 0.0, k5n: 0.0}
     fs, is_, src = camera_state(CMP_SIDE, CMP_SIDE)
     cmp_groups = fs.shape[1] // BC.FL
     plain_in = {}
@@ -537,37 +622,41 @@ def _clustered_kernels(record, dev, smi, dump):
 
     kernel_closest, kernel_occlusion = BC.closest_hit, BC.occlusion
 
-    def closest_both(cand, od, blocks, kslots_, max_travel_, noprune):
+    def closest_both(cand, od, blocks, kslots_, max_travel_, noprune,
+                     xf=None):
         ha_p, vis_p = BC.closest_hit_reference(cand, od, blocks, kslots_,
-                                               max_travel_, noprune, True)
+                                               max_travel_, noprune, True,
+                                               xf=xf)
         plain_in.setdefault("cand", cand)
         plain_in.setdefault("od", od)
         if compare:
             pairs["k3"].append((kernel_closest(
-                cand, od, blocks, kslots_, max_travel_, noprune, True),
-                (ha_p, vis_p)))
+                cand, od, blocks, kslots_, max_travel_, noprune, True,
+                xf=xf), (ha_p, vis_p)))
         return ha_p
 
-    def occluded_both(cand, shp_, blocks, kslots_):
+    def occluded_both(cand, shp_, blocks, kslots_, xf=None):
         occ_p, tst_p = BC.occlusion_reference(cand, shp_, blocks, kslots_,
-                                              True)
+                                              True, xf=xf)
         plain_in.setdefault("cand_s", cand)
         plain_in.setdefault("shp", shp_)
         if compare:
             pairs["k5"].append((kernel_occlusion(cand, shp_, blocks, kslots_,
-                                                 True), (occ_p, tst_p)))
+                                                 True, xf=xf),
+                                (occ_p, tst_p)))
         return occ_p
 
-    for b in range(3):
-        compare = b in (0, 2)
+    for b in range(max(compare_bounces) + 1):
+        compare = b in compare_bounces
         pairs = dict(k3=[], k5=[])
         fs, is_, src = BC.sort_wavefront(fs, is_, src, b == 0, bounds)
         BC.closest_hit, BC.occlusion = closest_both, occluded_both
         try:
             ha_p, _ = BC.closest_paged(fs, is_, tbl, kslots, pages,
                                        max_travel)
-            sh_out = BC.shade_reference(ha_p, fs, is_, tbl, kcfg, sample)
-            plain_in.setdefault("ha", ha_p)
+            ha_w = BC.post_attr_inst(ha_p, tbl)
+            sh_out = BC.shade_reference(ha_w, fs, is_, tbl, kcfg, sample)
+            plain_in.setdefault("ha", ha_w)
             plain_in.setdefault("fs", fs)
             plain_in.setdefault("is_", is_)
             shp, perm = BC.sort_shadows(sh_out[2], bounds)
@@ -583,29 +672,37 @@ def _clustered_kernels(record, dev, smi, dump):
         if not compare:
             fs, is_ = fs_next, sh_out[1]
             continue
-        k4 = BC.shade(ha_p, fs, is_, tbl, kcfg, sample)
+        k4 = BC.shade(ha_w, fs, is_, tbl, kcfg, sample)
         torch.cuda.synchronize()
         k3s = dict(int_lanes_equal=1.0, worst_float_row=1.0,
                    visits_equal=True, visits=0, pages=len(pairs["k3"]))
         for (ha_k, vis_k), (ha_q, vis_q) in pairs["k3"]:
-            prim_eq = ha_k[BC.HA_PRIM] == ha_q[BC.HA_PRIM]
+            int_eq = ha_k[BC.HA_PRIM] == ha_q[BC.HA_PRIM]
+            if inst:
+                # the winner's instance and facing as well
+                int_eq &= (ha_k[BC.HA_INST] == ha_q[BC.HA_INST]) & (
+                    (ha_k[BC.HA_FRONT] > 0) == (ha_q[BC.HA_FRONT] > 0))
             s3, e3 = _compare(dict(ha=ha_k[BC.HA_T:BC.HA_FRONT + 1]),
                               dict(ha=ha_q[BC.HA_T:BC.HA_FRONT + 1]),
-                              prim_eq)
+                              int_eq)
             k3s["int_lanes_equal"] = min(k3s["int_lanes_equal"],
                                          s3["int_lanes_equal"])
             k3s["worst_float_row"] = min(k3s["worst_float_row"],
                                          s3["worst_float_row"])
             k3s["visits_equal"] &= bool(torch.equal(vis_k, vis_q))
             k3s["visits"] += int(vis_q.sum())
-            err["cluster_closest"] = max(err["cluster_closest"], e3)
+            err[k3n] = max(err[k3n], e3)
         k3s["hit_share"] = float((ha_p[BC.HA_PRIM] >= 0).float().mean())
+        if inst:
+            hit = ha_p[BC.HA_PRIM] >= 0
+            k3s["instances_hit"] = int(torch.unique(
+                ha_p[BC.HA_INST][hit]).numel())
         k4s, e4 = _compare_state((k4[0], k4[1], k4[3]),
                                  (sh_out[0], sh_out[1], sh_out[3]))
         shs, e4s = _compare(dict(sh=k4[2]), dict(sh=sh_out[2]),
                             (k4[1] == sh_out[1]).all(0))
         k4s.update(worst_sh_row=shs["worst_float_row"])
-        err["cluster_shade"] = max(err["cluster_shade"], e4, e4s)
+        err[k4n] = max(err[k4n], e4, e4s)
         requested = shp[BC.SH_DO] > 0.5
         k5s = dict(occ_lanes_equal=1.0, tests_equal=True,
                    requests=int(requested.sum()), pages=len(pairs["k5"]))
@@ -613,10 +710,10 @@ def _clustered_kernels(record, dev, smi, dump):
             k5s["occ_lanes_equal"] = min(k5s["occ_lanes_equal"], float(
                 (occ_k == occ_q).float().mean()))
             k5s["tests_equal"] &= bool(torch.equal(tst_k, tst_q))
-            err["cluster_shadow"] = max(err["cluster_shadow"], float(
-                (occ_k - occ_q).abs().max()))
+            err[k5n] = max(err[k5n], float((occ_k - occ_q).abs().max()))
         rec[f"bounce{b}"] = dict(k3=k3s, k4=k4s, k5=k5s)
-        print(f"clustered bounce {b}: K3 prim equal "
+        int_rows = "prim/inst/front" if inst else "prim"
+        print(f"{label} bounce {b}: K3 {int_rows} equal "
               f"{k3s['int_lanes_equal']:.6f}, worst t/u/v/front row "
               f"{k3s['worst_float_row']:.6f}, visits equal "
               f"{k3s['visits_equal']} over {k3s['pages']} pages, hit share "
@@ -628,99 +725,123 @@ def _clustered_kernels(record, dev, smi, dump):
               f"requests, tests equal {k5s['tests_equal']}", flush=True)
         ok = (k3s["int_lanes_equal"] >= LANE_FRACTION
               and k3s["worst_float_row"] >= LANE_FRACTION
+              and k3s["visits_equal"] and k5s["tests_equal"]
               and _state_ok(k4s)
               and shs["worst_float_row"] >= LANE_FRACTION
               and k5s["occ_lanes_equal"] >= LANE_FRACTION)
         if not ok:
-            record["clustered"] = rec
+            record[label] = rec
             dump()
-            _fail(f"clustered: a kernel disagrees with its plain version "
+            _fail(f"{label}: a kernel disagrees with its plain version "
                   f"at bounce {b}")
         fs, is_ = fs_next, sh_out[1]
 
     # plain versions timed at the comparison width (65,536 rays, bounce 0)
     pin = plain_in
-    plain_ms = dict(
-        cluster_closest=_cuda_ms(lambda: BC.closest_hit_reference(
-            pin["cand"], pin["od"], tbl.blocks, kslots, max_travel), 1),
-        cluster_shade=_cuda_ms(lambda: BC.shade_reference(
+    plain_ms = {
+        k3n: _cuda_ms(lambda: BC.closest_hit_reference(
+            pin["cand"], pin["od"], tbl.blocks, kslots, max_travel, xf=xf),
+            1),
+        k4n: _cuda_ms(lambda: BC.shade_reference(
             pin["ha"], pin["fs"], pin["is_"], tbl, kcfg, sample), 3),
-        cluster_shadow=_cuda_ms(lambda: BC.occlusion_reference(
-            pin["cand_s"], pin["shp"], tbl.blocks, kslots), 1))
+        k5n: _cuda_ms(lambda: BC.occlusion_reference(
+            pin["cand_s"], pin["shp"], tbl.blocks, kslots, xf=xf), 1)}
 
-    # kernels timed at the city path's 1080p bounce-0 launch
+    # kernels timed at the 1080p bounce-0 launch
     fs, is_, src = camera_state(*CITY_FRAME)
     fs, is_, src = BC.sort_wavefront(fs, is_, src, True, bounds)
     od, cand = closest_inputs(fs, is_)
     g = cand.shape[0]
     n = g * BC.FL
     ms = {}
-    ms["cluster_closest"] = _cuda_ms(lambda: BC.closest_hit(
-        cand, od, tbl.blocks, kslots, max_travel), 3)
+    ms[k3n] = _cuda_ms(lambda: BC.closest_hit(
+        cand, od, tbl.blocks, kslots, max_travel, xf=xf), 3)
     ha, visits = BC.closest_hit(cand, od, tbl.blocks, kslots, max_travel,
-                                stats=True)
-    ms["cluster_shade"] = _cuda_ms(lambda: BC.shade(
-        ha, fs, is_, tbl, kcfg, sample), 10)
+                                stats=True, xf=xf)
+    ha = BC.post_attr_inst(ha, tbl)
+    ms[k4n] = _cuda_ms(lambda: BC.shade(ha, fs, is_, tbl, kcfg, sample), 10)
     sh = BC.shade(ha, fs, is_, tbl, kcfg, sample)[2]
     shp, cand_s = shadow_inputs(sh)
-    ms["cluster_shadow"] = _cuda_ms(lambda: BC.occlusion(
-        cand_s, shp, tbl.blocks, kslots), 3)
-    _, tests = BC.occlusion(cand_s, shp, tbl.blocks, kslots, stats=True)
+    ms[k5n] = _cuda_ms(lambda: BC.occlusion(
+        cand_s, shp, tbl.blocks, kslots, xf=xf), 3)
+    _, tests = BC.occlusion(cand_s, shp, tbl.blocks, kslots, stats=True,
+                            xf=xf)
 
     # bounds at that launch: each input read once (the blocks' staged rows
-    # once per distinct cluster), each output written once; operations:
-    # every active lane against every triangle of each slot its group
-    # visited (K3), the pairs K5's lanes tested up to their first occluder
+    # once per distinct block, an instance's M10 once per distinct
+    # instance), each output written once; operations: every active lane
+    # against every triangle of each slot its group visited (K3), the
+    # pairs K5's lanes tested up to their first occluder, and on instanced
+    # tables the map of the ray operand per lane and visit (K3) or per
+    # unoccluded lane and visit (K5; counted per lane and visit here, a
+    # bound below what K5 does only where lanes are already occluded:
+    # left out, a lower bound)
     active_g = (is_[bf.IS_ACTIVE] > 0).view(g, BC.FL).sum(1)
     slots = torch.arange(kslots, device=dev)[None]
-    ids = cand[:, 0, 1:1 + kslots]
-    k3_clusters = int(torch.unique(ids[slots < visits[:, None]]).numel())
+    base = BC.inst_base(kslots)
+
+    def distinct(cand_, visited):
+        ids = cand_[:, 0, 1:1 + kslots][visited]
+        n_inst = (int(torch.unique(cand_[:, 0, base:base + kslots][visited])
+                      .numel()) if inst else 0)
+        return int(torch.unique(ids).numel()), n_inst
+
+    k3_visited = slots < visits[:, None]
+    k3_blocks, k3_insts = distinct(cand, k3_visited)
     hits = int((ha[BC.HA_PRIM] >= 0).sum())
     k3_bytes = 4 * (cand.numel() + od.numel() + ha.numel() + 42 * hits) \
-        + STAGED_BLOCK_BYTES * k3_clusters
-    k3_pairs = int((active_g * visits).sum()) * 128
+        + STAGED_BLOCK_BYTES * k3_blocks + XF_BYTES * k3_insts
+    k3_visits = int((active_g * visits).sum())
+    k3_pairs = k3_visits * 128
     k4_bytes = 4 * n * (BC.HA_ROWS + 2 * (bf.NF + bf.NI) + BC.SH_ROWS
                         + bf.NH) + 4 * (tbl.mat_rows.numel()
                                         + tbl.light_rows.numel())
-    ids_s = cand_s[:, 0, 1:1 + kslots]
-    k5_clusters = int(torch.unique(
-        ids_s[slots < cand_s[:, 0, :1]]).numel())
+    k5_blocks, k5_insts = distinct(cand_s, slots < cand_s[:, 0, :1])
     k5_bytes = 4 * (cand_s.numel() + 9 * n) \
-        + STAGED_BLOCK_BYTES * k5_clusters
+        + STAGED_BLOCK_BYTES * k5_blocks + XF_BYTES * k5_insts
     k5_pairs = int(tests.sum())
-    bounds_ms = dict(
-        cluster_closest=_bound(k3_bytes, f32=k3_pairs * K3_PAIR_F32,
-                               tf32=k3_pairs * PAIR_TF32,
-                               bf16=k3_pairs * PAIR_BF16),
-        cluster_shade=_bound(k4_bytes),
-        cluster_shadow=_bound(k5_bytes, f32=k5_pairs * K5_PAIR_F32,
-                              tf32=k5_pairs * PAIR_TF32,
-                              bf16=k5_pairs * PAIR_BF16))
+    map_ops = XFORM_F32 if inst else 0
+    bounds_ms = {
+        k3n: _bound(k3_bytes, f32=k3_pairs * K3_PAIR_F32
+                    + k3_visits * map_ops, tf32=k3_pairs * PAIR_TF32,
+                    bf16=k3_pairs * PAIR_BF16),
+        k4n: _bound(k4_bytes),
+        k5n: _bound(k5_bytes, f32=k5_pairs * K5_PAIR_F32,
+                    tf32=k5_pairs * PAIR_TF32, bf16=k5_pairs * PAIR_BF16)}
     launch = dict(groups=g, active=int(active_g.sum()),
-                  visits=int(visits.sum()), k3_clusters=k3_clusters,
-                  k3_pairs=k3_pairs,
+                  visits=int(visits.sum()), k3_blocks=k3_blocks,
+                  k3_instances=k3_insts, k3_pairs=k3_pairs,
                   shadow_requests=int((shp[BC.SH_DO] > 0.5).sum()),
-                  k5_pairs=k5_pairs, k5_clusters=k5_clusters)
+                  k5_pairs=k5_pairs, k5_blocks=k5_blocks,
+                  k5_instances=k5_insts)
+    libs = {k3n: kernels.CLUSTER_CLOSEST, k4n: kernels.CLUSTER_SHADE,
+            k5n: kernels.CLUSTER_SHADOW}
+    ptxas = {name: _ptxas_entry(lib.ptxas_log,
+                                "ILb1E" if inst and name != k4n else
+                                ("ILb0E" if name != k4n else ""))
+             for name, lib in libs.items()}
     rec.update(ms=ms, plain_ms=plain_ms, bounds=bounds_ms, launch=launch,
-               prepare_s=prep_s, card=smi)
-    record["clustered"] = rec
+               ptxas=ptxas, prepare_s=prep_s, card=smi)
+    record[label] = rec
     for name in ms:
         terms = ", ".join(f"{k} {v:.4f}"
                           for k, v in bounds_ms[name][2].items())
-        print(f"clustered {name}: kernel {ms[name]:.4f} ms at {g} groups, "
+        print(f"{label} {name}: kernel {ms[name]:.4f} ms at {g} groups, "
               f"plain {plain_ms[name]:.4f} ms at {cmp_groups} groups, bound "
               f"{bounds_ms[name][0]:.4f} ms ({bounds_ms[name][1]}; ms by "
-              f"term: {terms}) ({smi})", flush=True)
-    print(f"clustered launch: {json.dumps(launch)}", flush=True)
+              f"term: {terms}), {ptxas[name]['registers']} registers, "
+              f"spills {ptxas[name]['spill_store_bytes']}/"
+              f"{ptxas[name]['spill_load_bytes']} B ({smi})", flush=True)
+    print(f"{label} launch: {json.dumps(launch)}", flush=True)
     dump()
 
-    meta = dict(
-        cluster_closest=("rtxpt_tpu_torch/csrc/cluster_closest.cu",
-                         "rtxpt_tpu/pt/bounce_clustered.py:224"),
-        cluster_shade=("rtxpt_tpu_torch/csrc/cluster_shade.cu",
-                       "rtxpt_tpu/pt/bounce_clustered.py:462"),
-        cluster_shadow=("rtxpt_tpu_torch/csrc/cluster_shadow.cu",
-                        "rtxpt_tpu/pt/bounce_clustered.py:394"))
+    src_k3 = "rtxpt_tpu_torch/csrc/cluster_closest.cu"
+    src_k5 = "rtxpt_tpu_torch/csrc/cluster_shadow.cu"
+    meta = {k3n: (src_k3, "rtxpt_tpu/pt/bounce_clustered.py:224"),
+            k4n: ("rtxpt_tpu_torch/csrc/cluster_shade.cu",
+                  "rtxpt_tpu/pt/bounce_clustered.py:462"),
+            k5n: (src_k5, "rtxpt_tpu/pt/bounce_clustered.py:405" if inst
+                  else "rtxpt_tpu/pt/bounce_clustered.py:394")}
     entries = {name: dict(name=name, route="cuda", source=src_, replaces=rep,
                           max_abs_err=err[name], ms=ms[name],
                           plain_ms=plain_ms[name],
@@ -779,9 +900,11 @@ def _city_parity(record, dev, dump):
               "versions'")
 
 
-def _city_path(record, dev, smi, dump, prepared):
-    """Phase 8: the city path at 1080p, then one profiled frame. Returns
-    the launch counts of the timed frames and their images by sample."""
+def _city_path(record, dev, smi, dump, prepared, label="city",
+               pages=CITY_PAGES):
+    """Phase 8 (and 11): a clustered path at 1080p, then one profiled
+    frame. Returns the launch counts of the timed frames and their images
+    by sample."""
     import torch
 
     from rtxpt_tpu_torch import kernels
@@ -790,6 +913,9 @@ def _city_path(record, dev, smi, dump, prepared):
     from rtxpt_tpu_torch.scene.procedural import default_camera
 
     host, scene, prep_s = prepared
+    k3n, k5n = (("cluster_closest_inst", "cluster_shadow_inst")
+                if scene.cluster_tables.instanced
+                else ("cluster_closest", "cluster_shadow"))
     (width, height), spp = CITY_FRAME, 2
     cfg = PathTracerConfig(max_bounces=4, nee=NEEMode.POWER,
                            ray_chunk=1 << 30)
@@ -811,10 +937,9 @@ def _city_path(record, dev, smi, dump, prepared):
     rays, overflow = int(rays), int(overflow)
     hdr = acc / spp
     finite = bool(torch.isfinite(hdr).all())
-    pages = CITY_PAGES
-    want = dict(cluster_closest=pages * cfg.max_bounces * spp,
-                cluster_shade=cfg.max_bounces * spp,
-                cluster_shadow=pages * cfg.max_bounces * spp)
+    want = {k3n: pages * cfg.max_bounces * spp,
+            "cluster_shade": cfg.max_bounces * spp,
+            k5n: pages * cfg.max_bounces * spp}
     mrays = rays / dt / 1e6
     ms_frame = dt / spp * 1e3
     rec = dict(res=f"{width}x{height}", spp_timed=spp,
@@ -824,18 +949,19 @@ def _city_path(record, dev, smi, dump, prepared):
                occupancy=out["occupancy"].tolist(), prepare_s=prep_s,
                L_mean=float(hdr.mean()), finite=finite,
                tier=out["kernel_tier"], card=smi)
-    record["city"] = rec
-    print(f"city: {scene.cluster_tables.n_tris} triangles {width}x{height} "
+    record[label] = rec
+    print(f"{label}: {scene.cluster_tables.n_tris} triangles "
+          f"{width}x{height} "
           f"{cfg.max_bounces} bounces, {spp} spp: {mrays:.3f} Mrays/s, "
           f"{ms_frame:.3f} ms per 1-spp frame, {rays} rays, cull_overflow "
           f"{overflow}, occupancy {rec['occupancy']}, prepare "
           f"{prep_s:.2f}s, launches {launched} of {want}, mean L "
           f"{rec['L_mean']:.5f} ({smi})", flush=True)
     if any(launched.get(k, 0) != v for k, v in want.items()) or not finite \
-            or out["kernel_tier"] != "clustered":
+            or out["kernel_tier"] != "clustered" or set(launched) != set(want):
         dump()
-        _fail("city: the city path did not run every bounce through K3, "
-              "K4 and K5 or gave non-finite values")
+        _fail(f"{label}: the path did not run every bounce through K3, "
+              f"K4 and K5 or gave non-finite values")
 
     # one profiled frame: device time by part, and the idle share
     from torch.profiler import ProfilerActivity, profile
@@ -846,13 +972,13 @@ def _city_path(record, dev, smi, dump, prepared):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     rec["split"], rec["profile_table"] = _split(prof, wall)
-    print(f"city split (one profiled frame, ms): "
+    print(f"{label} split (one profiled frame, ms): "
           f"{json.dumps(rec['split'])} ({smi})", flush=True)
     dump()
     return launched, images
 
 
-CITY_RANGES = ("sort", "cull")
+CITY_RANGES = ("sort", "cull", "post")
 CITY_KERNELS = (("k3", "cluster_closest_kernel"),
                 ("k4", "cluster_shade_kernel"),
                 ("k5", "cluster_shadow_kernel"))
@@ -1514,6 +1640,235 @@ def _general_tier(record, dev, smi, dump, city, city_images):
              launches=city_path["launches"].get("bvh_traverse", 0),
              max_abs_err=k9_err, ms=k9_ms, plain_ms=k9_plain_ms,
              bound_ms=k9_bound, bound_by=k9_by, library_ms=None, rays=n)]
+
+
+INST_GRID, INST_SUBDIV = 8, 21   # 64 towers x 5,292 triangles
+INST_PAGES = 2                   # 4,112 world candidates, kslots 64
+TLAS_GRID = 3                    # the boxes of tests/test_tlas.py
+TLAS_SIDE, TLAS_SPP = 96, 4
+
+
+def _instanced_city_host():
+    """The instanced city at the flat city's scale, seen from a corner
+    above the grid (procedural.instanced_city gives no camera)."""
+    from rtxpt_tpu_torch.scene.procedural import instanced_city
+    host = instanced_city(INST_GRID, INST_SUBDIV)
+    host.camera = dict(position=[4.0, 4.0, 5.0], target=[-0.8, 0.5, -0.8],
+                       up=[0.0, 1.0, 0.0], fov_y_deg=60.0)
+    return host
+
+
+def _instancing(record, dev, smi, dump, flat_city):
+    """Phase 11: K3's and K5's instanced variants against their plain
+    versions on the instanced city and their times; the 1080p instanced
+    path and one profiled frame; the same host flattened (bounce-0 t and
+    the 1-spp images); the TLAS route on the boxes against their flattened
+    scene, and one timed and one profiled 1080p frame of it. Returns the
+    kernel-line entries of the instanced variants."""
+    import numpy as np
+    import torch
+
+    from rtxpt_tpu_torch import kernels
+    from rtxpt_tpu_torch.config import NEEMode, PathTracerConfig
+    from rtxpt_tpu_torch.prepare import prepare
+    from rtxpt_tpu_torch.pt import bounce_clustered as BC
+    from rtxpt_tpu_torch.pt import bounce_fused as bf
+    from rtxpt_tpu_torch.pt import dispatch
+    from rtxpt_tpu_torch.pt import integrator as I
+    from rtxpt_tpu_torch.scene.camera import look_at
+    from rtxpt_tpu_torch.scene.procedural import (
+        default_camera, instanced_boxes)
+    from rtxpt_tpu_torch.utils.image import rmse
+
+    rec = {}
+
+    def failed(msg):
+        record["instancing"] = rec
+        dump()
+        _fail(msg)
+
+    # the scene, and what instancing saves
+    t0 = time.perf_counter()
+    host = _instanced_city_host()
+    scene = prepare(host, device=dev)
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    tbl = scene.cluster_tables
+    if scene.tlas is None or tbl is None or not tbl.instanced:
+        failed("instancing: the instanced city did not get instanced "
+               "cluster tables")
+    t0 = time.perf_counter()
+    flat = prepare(host, device=dev, instancing="off")
+    torch.cuda.synchronize()
+    flat_prep_s = time.perf_counter() - t0
+    mib = 1.0 / (1 << 20)
+    world_tris = sum(len(i.indices) for i in host.instances)
+    city_blocks = flat_city[1].cluster_tables.blocks
+    mem = dict(instances=scene.tlas.n_instances,
+               prototypes=scene.tlas.n_meshes, world_triangles=world_tris,
+               pool_triangles=tbl.n_tris, pool_blocks=tbl.blocks.shape[0],
+               pool_block_mib=tbl.blocks.numel() * 4 * mib,
+               world_candidates=tbl.n_clusters,
+               candidate_table_mib=(tbl.aabb_lo.numel() * 2 * 4
+                                    + tbl.wc_block.numel() * 8) * mib,
+               flattened_blocks=flat.cluster_tables.blocks.shape[0],
+               flattened_block_mib=flat.cluster_tables.blocks.numel() * 4
+               * mib, city_blocks=city_blocks.shape[0],
+               city_block_mib=city_blocks.numel() * 4 * mib,
+               prepare_s=prep_s, flattened_prepare_s=flat_prep_s)
+    rec["memory"] = mem
+    print(f"instancing: {mem['instances']} instances of {mem['prototypes']} "
+          f"prototypes, {world_tris} world triangles in {tbl.n_tris} pool "
+          f"triangles: {mem['pool_blocks']} blocks, "
+          f"{mem['pool_block_mib']:.2f} MiB, {tbl.n_clusters} world "
+          f"candidates ({mem['candidate_table_mib']:.3f} MiB); flattened "
+          f"{mem['flattened_blocks']} blocks, "
+          f"{mem['flattened_block_mib']:.2f} MiB (the flat city "
+          f"{mem['city_blocks']} blocks, {mem['city_block_mib']:.2f} MiB); "
+          f"prepare {prep_s:.2f}s, flattened {flat_prep_s:.2f}s", flush=True)
+
+    # 1. K3 and K5 instanced against their plain versions (bounce 1 too:
+    # few rays of this open scene reach bounce 2), and their times
+    checked = _cluster_kernel_checks(record, dev, smi, dump, "instanced",
+                                     host, scene, prep_s, INST_PAGES,
+                                     compare_bounces=(0, 1, 2))
+    # 2. the instanced path at 1080p and one profiled frame
+    launched, images = _city_path(record, dev, smi, dump,
+                                  (host, scene, prep_s), label="instanced "
+                                  "path", pages=INST_PAGES)
+    lit = float(images[1].mean())
+    if not lit > 1e-3:
+        failed(f"instancing: the instanced city is dark (mean {lit})")
+
+    # 3. against the flattened scene: bounce-0 t of the 1080p camera rays,
+    # the two 1-spp images of sample 1 and the flattened frame's time; and
+    # the bounce-0 hit share of the exact TLAS walk, which no cull list
+    # limits
+    w, h = CITY_FRAME
+    cfg = PathTracerConfig(max_bounces=4, nee=NEEMode.POWER,
+                           ray_chunk=1 << 30)
+    cam = default_camera(host, w, h, device=dev)
+    px, py = I._pixel_grid(w, h, dev)
+    o, d, spread = I.camera_rays(cam, cfg, px, py, 1)
+    ts = {}
+    for name, sc in (("instanced", scene), ("flattened", flat)):
+        r = dispatch.resolve(sc, cfg, dev)
+        fs, is_ = bf.initial_state(o, d, spread, px, py)
+        src = torch.arange(fs.shape[1], dtype=torch.int32, device=dev)
+        fs, is_, src = BC.sort_wavefront(fs, is_, src, True,
+                                         BC.scene_bounds(sc.cluster_tables))
+        ha, _ = BC.closest_paged(fs, is_, sc.cluster_tables,
+                                 r.cluster_kslots, r.cluster_pages,
+                                 float(r.max_ray_travel))
+        ts[name] = (ha[BC.HA_T], ha[BC.HA_PRIM] >= 0, src)
+    (t_i, h_i, src_i), (t_f, h_f, src_f) = ts["instanced"], ts["flattened"]
+    if not torch.equal(src_i, src_f):
+        failed("instancing: the bounce-0 sorts of the two scenes differ")
+    both = h_i & h_f
+    t_ok = (torch.abs(t_i - t_f) <= 1e-4 * torch.abs(t_f)) | ~both
+    share = float(t_ok[both].float().mean()) if both.any() else 0.0
+    from rtxpt_tpu_torch.accel.tlas import intersect_closest_tlas
+    exact = intersect_closest_tlas(
+        scene.tlas, o.contiguous(), d.contiguous(),
+        torch.zeros_like(spread), torch.full_like(spread, cfg.max_ray_travel))
+    I.render_sample(flat, cam, cfg, w, h, 0)                     # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img_f = I.render_sample(flat, cam, cfg, w, h, 1)["L"]
+    torch.cuda.synchronize()
+    flat_ms = (time.perf_counter() - t0) * 1e3
+    cmp = dict(lanes_both_hit=int(both.sum()),
+               hit_equal=float((h_i == h_f).float().mean()),
+               t_within_1e4=share,
+               hit_share_instanced=float(h_i.float().mean()),
+               hit_share_flattened=float(h_f.float().mean()),
+               hit_share_tlas_walk=float((exact.prim >= 0).float().mean()),
+               flattened_ms_per_frame=flat_ms,
+               rmse_1spp=rmse(images[1].cpu().numpy(), img_f.cpu().numpy()),
+               mean_instanced=lit, mean_flattened=float(img_f.mean()))
+    rec["vs_flattened"] = cmp
+    print(f"instancing vs flattened: bounce-0 t within 1e-4 relative on "
+          f"{share:.6f} of {cmp['lanes_both_hit']} lanes that both hit, "
+          f"hit flags equal {cmp['hit_equal']:.6f}; bounce-0 hit share "
+          f"{cmp['hit_share_instanced']:.4f} instanced, "
+          f"{cmp['hit_share_flattened']:.4f} flattened, "
+          f"{cmp['hit_share_tlas_walk']:.4f} by the TLAS walk; flattened "
+          f"frame {flat_ms:.3f} ms; 1-spp images RMSE "
+          f"{cmp['rmse_1spp']:.6f}, means {lit:.6f} vs "
+          f"{cmp['mean_flattened']:.6f} ({smi})", flush=True)
+    if share < LANE_FRACTION or not bool(torch.isfinite(img_f).all()):
+        failed("instancing: the instanced scene's hits miss the flattened "
+               "scene's")
+    dump()
+
+    # 4. the TLAS route: the boxes through the TLAS walk against the same
+    # host flattened, both on the general tier (tests/test_tlas.py:203-214)
+    boxes = instanced_boxes(TLAS_GRID)
+    sc_t = prepare(boxes, device=dev)
+    sc_f = prepare(boxes, device=dev, instancing="off")
+    cfg_t = PathTracerConfig(max_bounces=3, nee=NEEMode.POWER)
+    if dispatch.resolve(sc_t, cfg_t, dev).kernel_tier != "xla" \
+            or sc_t.tlas is None:
+        failed("instancing: the boxes do not resolve to the TLAS walk")
+    s = TLAS_SIDE
+    cam_b = look_at([4.5, 3.5, 4.5], [0, 0.5, 0], [0, 1, 0], 45.0, s, s,
+                    device=dev)
+    kernels.launches.clear()
+    img_t, _, _ = I.render(sc_t, cam_b, cfg_t, s, s, spp=TLAS_SPP)
+    tlas_launches = dict(kernels.launches)
+    img_fl, _, _ = I.render(sc_f, cam_b, dataclasses.replace(
+        cfg_t, kernel_tier="xla"), s, s, spp=TLAS_SPP)
+    e = rmse(img_t.cpu().numpy(), img_fl.cpu().numpy())
+    route = dict(rmse=e, mean_tlas=float(img_t.mean()),
+                 mean_flattened=float(img_fl.mean()),
+                 kernel_launches=tlas_launches)
+    print(f"instancing TLAS route: boxes {s}x{s} {TLAS_SPP} spp, TLAS walk "
+          f"vs flattened RMSE {e:.6f} (limit 2e-3), means "
+          f"{route['mean_tlas']:.6f} vs {route['mean_flattened']:.6f}, "
+          f"kernel launches {tlas_launches}", flush=True)
+    if not (e < 2e-3 and bool(torch.isfinite(img_t).all())
+            and route["mean_tlas"] > 1e-3 and not tlas_launches):
+        rec["tlas_route"] = route
+        failed("instancing: the TLAS route misses the flattened scene")
+
+    # one timed and one profiled 1080p 1-spp frame of the TLAS route
+    from torch.profiler import ProfilerActivity, profile
+    from torch.autograd import DeviceType
+    cfg_1080 = dataclasses.replace(cfg_t, max_bounces=4, ray_chunk=1 << 30)
+    cam_1080 = look_at([4.5, 3.5, 4.5], [0, 0.5, 0], [0, 1, 0], 45.0, w, h,
+                       device=dev)
+    I.render_sample(sc_t, cam_1080, cfg_1080, w, h, 0)           # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = I.render_sample(sc_t, cam_1080, cfg_1080, w, h, 1)
+    torch.cuda.synchronize()
+    frame_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        I.render_sample(sc_t, cam_1080, cfg_1080, w, h, 2)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t1) * 1e3
+    split, _ = _split(prof, wall, ("camera",), ())
+    device_launches = sum(evt.count for evt in prof.key_averages()
+                          if evt.device_type == DeviceType.CUDA)
+    route.update(frame_ms_1080p=frame_ms, rays=int(out["ray_count"]),
+                 mrays_per_s=int(out["ray_count"]) / frame_ms / 1e3,
+                 device_launches_per_frame=device_launches,
+                 idle_share=split["idle_share"],
+                 device_busy_ms=split["device_busy"], wall_ms=wall,
+                 L_mean=float(out["L"].mean()), card=smi)
+    rec["tlas_route"] = route
+    print(f"instancing TLAS route 1080p: {frame_ms:.3f} ms per 1-spp frame, "
+          f"{route['rays']} rays ({route['mrays_per_s']:.3f} Mrays/s), "
+          f"{device_launches} device launches per frame, device idle "
+          f"{100 * split['idle_share']:.1f}% ({smi})", flush=True)
+    if not bool(torch.isfinite(out["L"]).all()):
+        failed("instancing: the 1080p TLAS route gave non-finite values")
+    record["instancing"] = rec
+    dump()
+    return [dict(checked["kernels"][name], launches=launched.get(name, 0))
+            for name in ("cluster_closest_inst", "cluster_shadow_inst")]
 
 
 def _write_record(record, path):

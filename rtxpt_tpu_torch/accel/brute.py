@@ -66,9 +66,13 @@ FIELDS = (("n_t", TB_N), ("e2_t", TB_E2), ("v0xe2_t", TB_V0XE2),
           ("e1_t", TB_E1), ("v0xe1_t", TB_V0XE1))
 
 
-def brute_from_fields(fields: dict, device="cpu") -> BruteTris:
-    """BruteTris on `device` from numpy arrays e1_t, e2_t, n_t, v0xe2_t,
-    v0xe1_t [3,T] and v0n [T] (the JAX package's BruteTris fields)."""
+def brute_from_fields(fields: dict, device="cuda") -> BruteTris:
+    """BruteTris on `device` (the GPU by default; raises without one) from
+    numpy arrays e1_t, e2_t, n_t, v0xe2_t, v0xe1_t [3,T] and v0n [T] (the
+    JAX package's BruteTris fields)."""
+    import rtxpt_tpu_torch
+
+    device = rtxpt_tpu_torch.device(device)
     v0n = np.asarray(fields["v0n"], np.float32)
     table = np.zeros((len(v0n), TB_ROWS), np.float32)
     for key, col in FIELDS:
@@ -78,7 +82,7 @@ def brute_from_fields(fields: dict, device="cpu") -> BruteTris:
 
 
 def brute_from_edges(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray,
-                     device="cpu") -> BruteTris:
+                     device="cuda") -> BruteTris:
     """Operands from host triangles (the JAX package's numpy operations, so
     the numbers are its numbers)."""
     n = np.cross(e1, e2)
@@ -88,7 +92,9 @@ def brute_from_edges(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray,
         device)
 
 
-def build_brute(positions, indices, device="cpu") -> BruteTris:
+def build_brute(positions, indices, device="cuda") -> BruteTris:
+    """BruteTris of triangles (host arrays) on `device` (the GPU by
+    default; raises without one)."""
     positions = np.asarray(positions, np.float32)
     indices = np.asarray(indices, np.int32)
     v0 = positions[indices[:, 0]]

@@ -59,9 +59,14 @@ class ThreadedBVH:
 
 
 def bvh_from_packed(packed: np.ndarray, prim_tri: np.ndarray, v0, e1, e2,
-                    brute=None, device="cpu") -> ThreadedBVH:
-    """ThreadedBVH on `device` from the packed [M,17] node table, the
-    leaf-order -> original triangle map and the leaf-order triangles."""
+                    brute=None, device="cuda") -> ThreadedBVH:
+    """ThreadedBVH on `device` (the GPU by default; raises without one)
+    from the packed [M,17] node table, the leaf-order -> original triangle
+    map and the leaf-order triangles."""
+    import rtxpt_tpu_torch
+
+    device = rtxpt_tpu_torch.device(device)
+
     def t(a, dtype=np.float32):
         return torch.tensor(np.asarray(a, dtype), device=device)
 

@@ -1,5 +1,5 @@
 """Clustered scene tables for large scenes (counterpart of
-rtxpt_tpu/accel/cluster.py, the flat host build).
+rtxpt_tpu/accel/cluster.py): the flat host build and the instanced one.
 
 The triangles, already Morton-ordered by `prepare`, are cut into
 variable-length contiguous clusters of at most CT = 128 triangles at the
@@ -24,7 +24,14 @@ The split-bf16 coefficients exist for the TPU's bf16 matrix unit; the
 Hopper kernels keep them so that both packages select hits from the same
 numbers. Everything here is numpy, bit for bit the JAX package's build;
 `ClusterTables` holds the result as tensors on the render device.
-`refresh_cluster_tables` and the instanced build are not ported yet.
+`refresh_cluster_tables` is not ported yet.
+
+The instanced build (`build_cluster_tables_instanced`) bakes one set of
+object-space blocks per prototype of the two-level scene (accel/tlas.py)
+and expands only the cull's boxes per (instance, cluster): geometry
+memory is O(prototypes). Each world candidate names its pool block
+(`wc_block`) and its instance (`wc_inst`), whose world -> object map of
+the ray operand (`xf`) the kernels apply per visit.
 """
 
 from __future__ import annotations
@@ -34,6 +41,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+import rtxpt_tpu_torch
 
 CT = 128                 # triangles per cluster
 BLK_ROWS = 32
@@ -76,10 +85,24 @@ class ClusterTables:
     aabb_hi: torch.Tensor     # [C, 3] f32
     mat_rows: torch.Tensor    # [MT_ROWS, 128]
     light_rows: torch.Tensor  # [LROWS, 128]
-    offsets: torch.Tensor     # [C+1] i32 triangle range of each cluster
-    n_clusters: int = 0
-    n_tris: int = 0
+    # [C+1] i32 triangle range of each cluster (None on instanced tables)
+    offsets: Optional[torch.Tensor]
+    n_clusters: int = 0       # world candidates on instanced tables
+    n_tris: int = 0           # pool triangles on instanced tables
     n_lights: int = 0
+    # ---- instanced tables (build_cluster_tables_instanced) ----
+    # `blocks` holds the prototypes' object-space blocks; aabb_lo / aabb_hi
+    # are the world boxes of the expanded (instance x cluster) candidates
+    instanced: bool = False
+    wc_block: Optional[torch.Tensor] = None   # [Cw] i32 pool block
+    wc_inst: Optional[torch.Tensor] = None    # [Cw] i32 instance
+    # [I,10,10] f32 M10, the world -> object map of the ray operand
+    # [d, o x d, o, 1] (the JAX package's xf tile holds its transpose,
+    # padded to [16,128]); cross products map as (Ax) x (Ay) =
+    # det(A) A^-T (x x y)
+    xf: Optional[torch.Tensor] = None
+    # [I,19] o2w linear (9) | normal matrix (9) | LOD bias offset (1)
+    inst_post: Optional[torch.Tensor] = None
 
     @property
     def device(self):
@@ -153,11 +176,12 @@ def _np(x):
 
 
 def build_cluster_blocks(positions, normals, indices, tri_material, lights,
-                         uvs=None):
+                         uvs=None, tri_gidx=None):
     """The numpy arrays of the flat cluster build: (blocks [C,32,512],
     aabb_lo [C,3], aabb_hi [C,3], offsets [C+1]). Triangles must already
     be Morton-ordered; `lights` is the baked LightList of the same
-    triangle order."""
+    triangle order. `tri_gidx` ([t], optional) overrides the exported
+    triangle index AT_GIDX: the instanced build passes pool ids."""
     positions = np.asarray(positions, np.float32)
     normals = np.asarray(normals, np.float32)
     indices = np.asarray(indices, np.int32)
@@ -276,7 +300,10 @@ def build_cluster_blocks(positions, normals, indices, tri_material, lights,
     put1(AT_LID, pp(tri_light.astype(np.float32)))
     # clusters are variable-length ranges, so the kernel cannot rebuild
     # the triangle index as cid*CT + j; f32 is exact to 2^24
-    put1(AT_GIDX, slot_tri.astype(np.float32))
+    if tri_gidx is not None:
+        put1(AT_GIDX, pp(np.asarray(tri_gidx, np.float32)))
+    else:
+        put1(AT_GIDX, slot_tri.astype(np.float32))
     put1(AT_VALID, validp)
     if uvs is not None:
         from rtxpt_tpu_torch.pt.bounce_fused import _tangent_rows
@@ -299,48 +326,200 @@ def build_cluster_blocks(positions, normals, indices, tri_material, lights,
 
 def cluster_tables_from_numpy(blocks, aabb_lo, aabb_hi, mat_rows, light_rows,
                               offsets, n_clusters, n_tris, n_lights,
-                              device) -> ClusterTables:
-    """ClusterTables on `device` from numpy arrays of the JAX layout."""
+                              device="cuda", instanced=False, wc_block=None,
+                              wc_inst=None, xf=None, inst_post=None
+                              ) -> ClusterTables:
+    """ClusterTables on `device` (the GPU by default; raises without one)
+    from numpy arrays of the JAX layout. Instanced tables take `wc_block`,
+    `wc_inst`, `inst_post` and `xf`, either the port's M10 [I,10,10] or
+    the JAX package's tile [I,16,128] (X[i,j] = M10[j,i])."""
+    device = rtxpt_tpu_torch.device(device)
+
     def f(a):   # copies only arrays that are not writable f32 already
         return torch.from_numpy(np.require(a, np.float32, "CW")).to(device)
 
+    def i32(a):
+        return torch.from_numpy(np.require(a, np.int32, "CW")).to(device)
+
+    parts = dict(wc_block=wc_block, wc_inst=wc_inst, xf=xf,
+                 inst_post=inst_post)
+    if bool(instanced) != all(v is not None for v in parts.values()):
+        raise ValueError("instanced cluster tables need wc_block, wc_inst, "
+                         "xf and inst_post; flat ones take none of them")
+    if instanced:
+        xf = np.asarray(xf, np.float32)
+        if xf.shape[1:] == (16, 128):
+            xf = xf[:, :10, :10].transpose(0, 2, 1)
+        if xf.shape[1:] != (10, 10):
+            raise ValueError(f"xf: expected [I,10,10] or [I,16,128], got "
+                             f"{list(xf.shape)}")
+        parts = dict(wc_block=i32(wc_block), wc_inst=i32(wc_inst), xf=f(xf),
+                     inst_post=f(inst_post))
     return ClusterTables(
         blocks=f(blocks), aabb_lo=f(aabb_lo), aabb_hi=f(aabb_hi),
         mat_rows=f(mat_rows), light_rows=f(light_rows),
-        offsets=torch.from_numpy(np.require(offsets, np.int32, "CW")).to(
-            device),
+        offsets=None if offsets is None else i32(offsets),
         n_clusters=int(n_clusters), n_tris=int(n_tris),
-        n_lights=int(n_lights))
+        n_lights=int(n_lights), instanced=bool(instanced), **parts)
 
 
-def build_cluster_tables(positions, normals, indices, tri_material,
-                         materials, lights, uvs=None,
-                         device: Optional[torch.device] = None
-                         ) -> ClusterTables:
-    """Bake the cluster tables of a flat, Morton-ordered scene onto
-    `device`. Raises NotImplementedError, naming the feature, for a
-    scene the clustered tier does not serve (anisotropic materials,
-    sphere or environment lights, more than 128 materials)."""
+def _check_served(materials, lights):
+    """Raise NotImplementedError, naming the feature, for what the
+    clustered tier does not serve: sphere or environment lights, more
+    than 128 materials."""
     from rtxpt_tpu_torch.lighting.lights_baker import (
         KIND_ENV, KIND_ENVQUAD, KIND_SPHERE)
-    from rtxpt_tpu_torch.pt.bounce_fused import (
-        MAX_MATERIALS, pack_lights, pack_materials)
+    from rtxpt_tpu_torch.pt.bounce_fused import MAX_MATERIALS
 
-    if float(np.max(_np(materials.anisotropy), initial=0.0)) > 0.0:
-        raise NotImplementedError("anisotropic materials are not ported "
-                                  "to the clustered tier")
     if np.any(np.isin(_np(lights.kind), [KIND_SPHERE, KIND_ENVQUAD,
                                          KIND_ENV])) or lights.env_light >= 0:
         raise NotImplementedError("sphere and environment lights are not "
                                   "ported to the clustered tier")
     n_mats = len(_np(materials.base_color))
-    t = len(indices)
-    if t == 0 or n_mats > MAX_MATERIALS:
+    if n_mats > MAX_MATERIALS:
         raise NotImplementedError(
-            f"{t} triangles, {n_mats} materials: the clustered tier takes "
-            f">= 1 triangle and at most {MAX_MATERIALS} materials")
+            f"{n_mats} materials: the clustered tier takes at most "
+            f"{MAX_MATERIALS}")
+
+
+def build_cluster_tables(positions, normals, indices, tri_material,
+                         materials, lights, uvs=None, device="cuda"
+                         ) -> ClusterTables:
+    """Bake the cluster tables of a flat, Morton-ordered scene onto
+    `device` (the GPU by default; raises without one). Raises
+    NotImplementedError, naming the feature, for a scene the clustered
+    tier does not serve (anisotropic materials, sphere or environment
+    lights, more than 128 materials, no triangle)."""
+    from rtxpt_tpu_torch.pt.bounce_fused import pack_lights, pack_materials
+
+    if float(np.max(_np(materials.anisotropy), initial=0.0)) > 0.0:
+        raise NotImplementedError("anisotropic materials are not ported "
+                                  "to the clustered tier")
+    _check_served(materials, lights)
+    t = len(indices)
+    if t == 0:
+        raise NotImplementedError("a scene without triangles: the "
+                                  "clustered tier takes >= 1 triangle")
     blocks, lo, hi, offsets = build_cluster_blocks(
         positions, normals, indices, tri_material, lights, uvs=uvs)
     return cluster_tables_from_numpy(
         blocks, lo, hi, pack_materials(materials), pack_lights(lights),
         offsets, len(offsets) - 1, t, int(lights.num), device)
+
+
+def instance_operand_map(A: np.ndarray, t_w: np.ndarray):
+    """(M10 [10,10] f64, det A) of an instance with object -> world map
+    x -> A x + t_w: M10 maps a world ray operand [d, o x d, o, 1] to the
+    object frame's [d_o, o_o x d_o, o_o, 1], with d_o = A^-1 d and
+    o_o = A^-1 o + t_o, t_o = -A^-1 t_w. The object direction stays
+    unnormalised, so the ray parameter t is the world one."""
+    det_a = float(np.linalg.det(A))
+    a_inv = np.linalg.inv(A)
+    t_o = -a_inv @ t_w
+    m = np.zeros((10, 10), np.float64)
+    m[0:3, 0:3] = a_inv
+    tx = np.array([[0, -t_o[2], t_o[1]],
+                   [t_o[2], 0, -t_o[0]],
+                   [-t_o[1], t_o[0], 0]])
+    m[3:6, 0:3] = tx @ a_inv
+    m[3:6, 3:6] = (1.0 / det_a) * A.T           # det(A^-1) A^-1^-T
+    m[6:9, 6:9] = a_inv
+    m[6:9, 9] = t_o
+    m[9, 9] = 1.0
+    return m, det_a
+
+
+def build_cluster_tables_instanced(built, host, materials, lights,
+                                   device="cuda", max_instances=65536
+                                   ) -> Optional[ClusterTables]:
+    """Instanced cluster tables of a two-level scene (`built` is
+    tlas.build_two_level's dict) on `device` (the GPU by default; raises
+    without one): object-space blocks per prototype, Morton-ordered and
+    cut as the flat build cuts a scene, with AT_GIDX the pool triangle
+    id; the world candidate list (instance x prototype cluster) with its
+    world boxes, block and instance ids; per instance the operand map M10
+    (`instance_operand_map`) and the attribute post-transform
+    (`inst_post`).
+
+    Returns None, as the JAX package does, for what the instanced tier
+    leaves to the TLAS walk: emissive materials on pool triangles,
+    instance transforms of non-positive determinant (mirrored ones would
+    flip the facing test), anisotropic materials, more than
+    `max_instances` instances or candidates past the block budget. Raises
+    NotImplementedError as `build_cluster_tables` does for what the
+    clustered tier does not serve."""
+    from rtxpt_tpu_torch.pt.bounce_fused import pack_lights, pack_materials
+
+    tl = built["tlas"]
+    tri_base = np.asarray(built["tri_base"], np.int64)
+    inst_mesh = _np(tl.inst_mesh)
+    inst_pack = _np(tl.inst_pack)
+    n_inst = len(inst_mesh)
+    n_proto = len(tri_base) - 1
+    if n_inst == 0 or n_inst > max_instances:
+        return None
+    if float(np.max(_np(materials.anisotropy), initial=0.0)) > 0.0:
+        return None
+    used = np.unique(np.asarray(built["tri_material"], np.int64))
+    if np.any(np.abs(_np(materials.emissive)[used]) > 0.0):
+        return None
+    _check_served(materials, lights)
+
+    pos = np.asarray(built["positions"], np.float32)
+    nrm = np.asarray(built["normals"], np.float32)
+    uv = np.asarray(built["uvs"], np.float32)
+    idx = np.asarray(built["indices"], np.int32)
+    mid = np.asarray(built["tri_material"], np.int32)
+
+    # per-prototype object-space bakes
+    proto = []
+    block_base = np.zeros(n_proto + 1, np.int64)
+    for p in range(n_proto):
+        t0, t1 = int(tri_base[p]), int(tri_base[p + 1])
+        pidx = idx[t0:t1]
+        perm = morton_permutation(pos, pidx)
+        blocks, lo, hi, _ = build_cluster_blocks(
+            pos, nrm, pidx[perm], mid[t0:t1][perm], lights, uvs=uv,
+            tri_gidx=(t0 + perm).astype(np.int32))
+        proto.append((blocks, lo, hi))
+        block_base[p + 1] = block_base[p] + len(blocks)
+
+    # the expanded world candidate list and the per-instance maps
+    wc_lo, wc_hi, wc_block, wc_inst = [], [], [], []
+    xf = np.zeros((n_inst, 10, 10), np.float32)
+    inst_post = np.zeros((n_inst, 19), np.float32)
+    for i in range(n_inst):
+        p = int(inst_mesh[i])
+        A = inst_pack[i, 0:9].reshape(3, 3)
+        t_w = inst_pack[i, 9:12]
+        if float(np.linalg.det(A)) <= 1e-12:
+            return None                            # mirrored / degenerate
+        m, det_a = instance_operand_map(A, t_w)
+        xf[i] = m.astype(np.float32)
+        inst_post[i, 0:9] = A.reshape(-1)
+        inst_post[i, 9:18] = inst_pack[i, 12:21]
+        # tri_area2 = |n| scales as det(A)^(4/3) under A (exactly so for a
+        # uniform scale), so LODB = -0.5 log2(area2) shifts by this
+        inst_post[i, 18] = np.float32(-(2.0 / 3.0) * np.log2(max(
+            det_a, 1e-12)))
+        _, lo_p, hi_p = proto[p]
+        c = (lo_p + hi_p) * 0.5
+        e = (hi_p - lo_p) * 0.5
+        wc = c @ A.T + t_w
+        we = e @ np.abs(A).T
+        wc_lo.append((wc - we).astype(np.float32))
+        wc_hi.append((wc + we).astype(np.float32))
+        nb = len(lo_p)
+        wc_block.append(np.arange(nb, dtype=np.int32)
+                        + np.int32(block_base[p]))
+        wc_inst.append(np.full((nb,), i, np.int32))
+    wc_lo = np.concatenate(wc_lo)
+    n_cand = len(wc_lo)
+    if n_cand > 4 * MAX_CLUSTERS:
+        return None
+    return cluster_tables_from_numpy(
+        np.concatenate([b for b, _, _ in proto]), wc_lo,
+        np.concatenate(wc_hi), pack_materials(materials), pack_lights(lights),
+        None, n_cand, int(tri_base[-1]), int(lights.num), device,
+        instanced=True, wc_block=np.concatenate(wc_block),
+        wc_inst=np.concatenate(wc_inst), xf=xf, inst_post=inst_post)

@@ -55,16 +55,31 @@ def _msb_pos(x: np.ndarray) -> np.ndarray:
     return r
 
 
-def build_bvh(positions, indices, use_native: bool = True,
-              device="cpu") -> ThreadedBVH:
-    """Build a threaded LBVH over triangles (host arrays) on `device`, with
-    the brute-force operands when the scene has at most
-    brute.BRUTE_MAX_TRIS triangles.
+def build_packed(positions, indices, use_native: bool = True):
+    """The LBVH's host arrays: (packed [2n-1, 17] f32 node table, order
+    [n] leaf -> original triangle). `use_native` runs the C++ code
+    (csrc/lbvh.cpp through accel/native.py, which raises when it cannot
+    build or run it); `use_native=False` the vectorized numpy version
+    below. Both give the same table."""
+    positions = np.asarray(positions, np.float32)
+    indices = np.asarray(indices, np.int32)
+    assert len(indices) >= 1
+    if use_native:
+        from rtxpt_tpu_torch.accel import native
+        return native.build_packed_native(positions, indices)
+    return _build_packed(positions[indices[:, 0]], positions[indices[:, 1]],
+                         positions[indices[:, 2]])
 
-    `use_native` runs the C++ code (csrc/lbvh.cpp through
-    accel/native.py, which raises when it cannot build or run it);
-    `use_native=False` the vectorized numpy version below. Both give the
-    same table."""
+
+def build_bvh(positions, indices, use_native: bool = True,
+              device="cuda") -> ThreadedBVH:
+    """Build a threaded LBVH over triangles (host arrays) on `device` (the
+    GPU by default; raises without one), with the brute-force operands
+    when the scene has at most brute.BRUTE_MAX_TRIS triangles.
+    `use_native` as in `build_packed`."""
+    import rtxpt_tpu_torch
+
+    device = rtxpt_tpu_torch.device(device)
     positions = np.asarray(positions, np.float32)
     indices = np.asarray(indices, np.int32)
     n = len(indices)
@@ -75,12 +90,7 @@ def build_bvh(positions, indices, use_native: bool = True,
     brute = None
     if n <= brute_mod.BRUTE_MAX_TRIS:
         brute = brute_mod.brute_from_edges(v0, v1 - v0, v2 - v0, device)
-
-    if use_native:
-        from rtxpt_tpu_torch.accel import native
-        packed, order = native.build_packed_native(positions, indices)
-    else:
-        packed, order = _build_packed(v0, v1, v2)
+    packed, order = build_packed(positions, indices, use_native)
     sv0, sv1, sv2 = v0[order], v1[order], v2[order]
     return bvh_from_packed(packed, order, sv0, sv1 - sv0, sv2 - sv0,
                            brute=brute, device=device)

@@ -17,12 +17,14 @@ do), so a ray with NaN components ends as in the JAX package.
 `intersect_closest` and `intersect_any` take the brute force
 (accel/brute.py, K8) when the BVH carries brute tables and the walk
 otherwise; `scene_closest` and `scene_any` are the queries the
-integrator makes. Instanced scenes (the two-level BVH) are not ported.
+integrator makes, and route a two-level scene to the TLAS walk
+(accel/tlas.py).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
@@ -39,6 +41,9 @@ class Hit:
     prim: torch.Tensor     # [N] i32 original triangle id, -1 = miss
     bary: torch.Tensor     # [N,2] f32 barycentrics (u toward v1, v toward v2)
     front: torch.Tensor    # [N] bool geometric front face (ccw)
+    # [N] i32 instance of the hit on a two-level scene (-1 = miss); None
+    # on a flat scene
+    inst: Optional[torch.Tensor] = None
 
     @property
     def miss(self):
@@ -47,7 +52,8 @@ class Hit:
     def take(self, sl) -> "Hit":
         """The hits of rays `sl` (a slice or an index tensor)."""
         return Hit(t=self.t[sl], prim=self.prim[sl], bary=self.bary[sl],
-                   front=self.front[sl])
+                   front=self.front[sl],
+                   inst=None if self.inst is None else self.inst[sl])
 
 
 def _safe_inv(d):
@@ -192,18 +198,18 @@ def intersect_any(bvh: ThreadedBVH, o, d, tmin, tmax):
     return walk(bvh, o, d, tmin, tmax, any_hit=True)["prim"] >= 0
 
 
-def _flat_bvh(scene) -> ThreadedBVH:
-    if getattr(scene, "tlas", None) is not None:
-        raise NotImplementedError("instanced scenes (the two-level BVH) are "
-                                  "not ported to rtxpt_tpu_torch yet")
-    return scene.bvh
-
-
 def scene_closest(scene, o, d, tmin, tmax) -> Hit:
-    """Closest hit against a SceneData's flattened BVH."""
-    return intersect_closest(_flat_bvh(scene), o, d, tmin, tmax)
+    """Closest hit against a SceneData: the TLAS walk on a two-level
+    scene, the flattened BVH otherwise."""
+    if getattr(scene, "tlas", None) is not None:
+        from rtxpt_tpu_torch.accel.tlas import intersect_closest_tlas
+        return intersect_closest_tlas(scene.tlas, o, d, tmin, tmax)
+    return intersect_closest(scene.bvh, o, d, tmin, tmax)
 
 
 def scene_any(scene, o, d, tmin, tmax):
-    """Occlusion [N] bool against a SceneData's flattened BVH."""
-    return intersect_any(_flat_bvh(scene), o, d, tmin, tmax)
+    """Occlusion [N] bool against a SceneData (see scene_closest)."""
+    if getattr(scene, "tlas", None) is not None:
+        from rtxpt_tpu_torch.accel.tlas import intersect_any_tlas
+        return intersect_any_tlas(scene.tlas, o, d, tmin, tmax)
+    return intersect_any(scene.bvh, o, d, tmin, tmax)

@@ -1,11 +1,13 @@
 // The clustered tier's per-lane math, shared by K3 (cluster_closest.cu) and
 // K5 (cluster_shadow.cu): the cluster block layout, the split-bf16 ray
-// operand, the intersection quantities of one staged block, the closest-hit
-// selection with its edge margins and tie bump, the strict any-hit test, and
-// the exact f32 refit of the winner. The plain versions of the same functions
-// are in rtxpt_tpu_torch/pt/bounce_clustered.py (_operand, _quantities,
-// closest_hit_reference, occlusion_reference, _refit); every expression keeps
-// their operation order, and the library is built with -fmad=false.
+// operand, the world -> object map of the operand on instanced tables, the
+// intersection quantities of one staged block, the closest-hit selection with
+// its edge margins and tie bump, the strict any-hit test, and the exact f32
+// refit of the winner. The plain versions of the same functions are in
+// rtxpt_tpu_torch/pt/bounce_clustered.py (_operand, object_operand,
+// _quantities, closest_hit_reference, occlusion_reference, _refit); every
+// expression keeps their operation order, and the library is built with
+// -fmad=false.
 #pragma once
 
 #include <stdint.h>
@@ -32,6 +34,7 @@ constexpr int ATTR_BASE = 21;
 constexpr int STAGE_ROWS = 21;      // what a visit reads: rows 0..20
 constexpr int FL = 1024;            // lanes of a ray group
 constexpr int R = 8;                // 128-lane rows of a group
+constexpr int XF_FLOATS = 100;      // an instance's M10, row-major [10,10]
 enum { AT_V0 = 0, AT_E1 = 3, AT_E2 = 6, AT_GIDX = 25, AT_VALID = 26 };
 
 // Row maps of pt/bounce_clustered.py
@@ -86,6 +89,26 @@ RT_HD void make_operand(V3 d, V3 oxd, V3 o, V3 c, float* hi, float* lo) {
   }
   hi[9] = 1.0f;
   lo[9] = 0.0f;
+}
+
+// The ray operand in an instance's object frame: rows 0..8 of
+// M10 @ [d, o x d, o, 1], each row summed over the ten columns in order
+// (bounce_clustered.object_operand). The object direction is not
+// normalised, so t stays the world ray parameter.
+RT_HD void xform_operand(const float* m, V3 d, V3 oxd, V3 o, V3& d_o,
+                         V3& oxd_o, V3& o_o) {
+  const float b[10] = {d.x, d.y, d.z, oxd.x, oxd.y, oxd.z, o.x, o.y, o.z, 1.0f};
+  float r[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    float acc = m[k * 10] * b[0];
+#pragma unroll
+    for (int j = 1; j < 10; ++j) acc = acc + m[k * 10 + j] * b[j];
+    r[k] = acc;
+  }
+  d_o = v3(r[0], r[1], r[2]);
+  oxd_o = v3(r[3], r[4], r[5]);
+  o_o = v3(r[6], r[7], r[8]);
 }
 
 // One quantity of triangle lane `lane` against the operand, over the

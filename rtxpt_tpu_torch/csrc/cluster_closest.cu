@@ -1,9 +1,12 @@
-// K3, the clustered closest-hit kernel, written by hand for Hopper (sm_90a).
+// K3, the clustered closest-hit kernel, written by hand for Hopper (sm_90a),
+// flat and instanced.
 //
 // Replaces rtxpt_tpu/pt/bounce_clustered.py::_kernel_a1 (launched there by
-// _kernel_a1_call, pl.pallas_call at bounce_clustered.py:1188), flat and
-// not instanced. Plain version: rtxpt_tpu_torch/pt/bounce_clustered.py
-// closest_hit_reference; wrapper: bounce_clustered.closest_hit.
+// _kernel_a1_call, pl.pallas_call at bounce_clustered.py:1188), the flat
+// variant (instanced=False) and the instanced one (instanced=True, the
+// branches at :237-245, :270-271, :324-330, :351-356 and :385-386). Plain
+// version: rtxpt_tpu_torch/pt/bounce_clustered.py closest_hit_reference;
+// wrapper: bounce_clustered.closest_hit.
 //
 // Design. One block of 1024 threads per 1024-lane ray group, one thread per
 // lane. The block walks the group's candidate clusters nearest first. Before
@@ -18,18 +21,29 @@
 // attribute rows are read from global memory once, after the loop, and the
 // winner is refit exactly in f32 (cluster.cuh).
 //
+// The instanced variant. The candidate rows carry pool block ids and, from
+// 1 + (2 + R) * kslots on, each slot's instance id. A visit also stages the
+// instance's M10 (400 bytes) beside the block, and each thread maps its world
+// operand [d, o x d, o, 1] into the instance's object frame (xform_operand)
+// before the flat test. t stays the world parameter, so the selection across
+// instances compares t as it is. A thread also keeps its winner's instance;
+// after the loop it maps its ray again with that instance's M10 (the same
+// sums, so the same object ray), refits on it and exports the instance in
+// HA_INST. The attribute rows stay in object space; bounce_clustered
+// .post_attr_inst brings them to world space after the pages merge.
+//
 // What bounds it: operations. A visit costs each lane 128 x (57 multiplies
 // and 53 adds of the split-bf16 quantities, 27 operations of the selection)
 // against 43 KB of staged data shared by 1024 lanes, so it is far above the
-// card's bytes-per-operation balance. The quantities are a bf16 matrix
-// product that tensor cores could take; the selection is f32 work either
-// way. Here both run on the f32 units: the shared-memory broadcasts (38 loads
-// per triangle) and -fmad=false (no fused multiply-add, for parity with the
-// plain version) double the instruction count. This first version keeps it
-// simple: one staging buffer (no
-// cp.async double buffering), no tensor cores, no compaction of inactive
-// lanes (they sort to the end of the wavefront, so their groups cull to
-// empty lists).
+// card's bytes-per-operation balance; the instanced map adds 171 operations
+// per lane and visit. The quantities are a bf16 matrix product that tensor
+// cores could take; the selection is f32 work either way. Here both run on
+// the f32 units: the shared-memory broadcasts (38 loads per triangle) and
+// -fmad=false (no fused multiply-add, for parity with the plain version)
+// double the instruction count. This first version keeps it simple: one
+// staging buffer (no cp.async double buffering), no tensor cores, no
+// compaction of inactive lanes (they sort to the end of the wavefront, so
+// their groups cull to empty lists).
 #include <cuda_runtime.h>
 
 #include "cluster.cuh"
@@ -40,15 +54,18 @@ namespace {
 using namespace rt;
 using namespace rt::cl;
 
+template <bool INST>
 __global__ void __launch_bounds__(FL, 1)
 cluster_closest_kernel(const int* __restrict__ cand, const float* __restrict__ od,
-                       const float* __restrict__ blocks, float* __restrict__ ha,
-                       int* __restrict__ visits, int n, int cand_w, int kslots,
-                       float max_travel, int noprune) {
+                       const float* __restrict__ blocks, const float* __restrict__ xf,
+                       float* __restrict__ ha, int* __restrict__ visits, int n,
+                       int cand_w, int kslots, float max_travel, int noprune) {
   __shared__ __align__(16) float stage[STAGE_ROWS * LANES];
+  __shared__ float xm[INST ? XF_FLOATS : 1];
   const int l = threadIdx.x;
   const size_t i = (size_t)blockIdx.x * FL + l;
   const int* cg = cand + (size_t)blockIdx.x * cand_w;
+  const int* cinst = cg + 1 + (2 + R) * kslots;
   auto OD = [&](int r) { return od[(size_t)r * n + i]; };
   const V3 d = v3(OD(OD_D), OD(OD_D + 1), OD(OD_D + 2));
   const V3 oxd = v3(OD(OD_OXD), OD(OD_OXD + 1), OD(OD_OXD + 2));
@@ -56,7 +73,7 @@ cluster_closest_kernel(const int* __restrict__ cand, const float* __restrict__ o
   const bool act = OD(OD_ACT) > 0.5f;
 
   float best_t = kBigT;
-  int best_c = 0, best_j = 0;
+  int best_c = 0, best_j = 0, best_i = 0;
   const int count = cg[0];
   int s = 0;
   for (; s < count; ++s) {
@@ -67,11 +84,18 @@ cluster_closest_kernel(const int* __restrict__ cand, const float* __restrict__ o
     const float4* src = reinterpret_cast<const float4*>(blocks + (size_t)cid * BLK_FLOATS);
     float4* dst = reinterpret_cast<float4*>(stage);
     for (int k = l; k < STAGE_ROWS * LANES / 4; k += FL) dst[k] = src[k];
+    int iid = 0;
+    if constexpr (INST) {
+      iid = cinst[s];
+      if (l < XF_FLOATS) xm[l] = xf[(size_t)iid * XF_FLOATS + l];
+    }
     __syncthreads();
     const V3 c = v3(stage[CENTER_ROW * LANES], stage[CENTER_ROW * LANES + CT],
                     stage[CENTER_ROW * LANES + 2 * CT]);
+    V3 dv = d, oxdv = oxd, ov = o;
+    if constexpr (INST) xform_operand(xm, d, oxd, o, dv, oxdv, ov);
     float hi[10], lo[10];
-    make_operand(d, oxd, o, c, hi, lo);
+    make_operand(dv, oxdv, ov, c, hi, lo);
     float t_c;
     int j_c;
     closest_in_block(stage, hi, lo, max_travel, t_c, j_c);
@@ -79,6 +103,7 @@ cluster_closest_kernel(const int* __restrict__ cand, const float* __restrict__ o
       best_t = t_c;
       best_c = cid;
       best_j = j_c;
+      best_i = iid;
     }
   }
 
@@ -94,7 +119,13 @@ cluster_closest_kernel(const int* __restrict__ cand, const float* __restrict__ o
   const V3 cen = had ? v3(wb[CENTER_ROW * LANES], wb[CENTER_ROW * LANES + CT],
                           wb[CENTER_ROW * LANES + 2 * CT])
                      : v3(0.0f, 0.0f, 0.0f);
-  const Refit r = refit(o - cen, d, attr3(AT_V0), attr3(AT_E1), attr3(AT_E2),
+  V3 dr = d, orr = o;
+  if constexpr (INST) {
+    V3 oxd_o;
+    xform_operand(xf + (size_t)best_i * XF_FLOATS, d, oxd, o, dr, oxd_o, orr);
+    if (!had) dr = orr = v3(0.0f, 0.0f, 0.0f);
+  }
+  const Refit r = refit(orr - cen, dr, attr3(AT_V0), attr3(AT_E1), attr3(AT_E2),
                         max_travel);
   const bool hit = had && r.ok && attr(AT_VALID) > 0.5f;
   float* out = ha + i;
@@ -106,7 +137,7 @@ cluster_closest_kernel(const int* __restrict__ cand, const float* __restrict__ o
 #pragma unroll
   for (int k = 0; k < HA_NATTR; ++k) out[(size_t)(HA_ATTR + k) * n] = attr(kAttrRows[k]);
   out[(size_t)HA_UNK * n] = 0.0f;
-  out[(size_t)HA_INST * n] = -1.0f;
+  out[(size_t)HA_INST * n] = (INST && hit) ? (float)best_i : -1.0f;
 }
 
 }  // namespace
@@ -119,7 +150,23 @@ extern "C" int rtxpt_cluster_closest(const int* cand, const float* od,
                                      void* stream) {
   const int n = n_groups * FL;
   const int cand_w = 1 + (2 + R) * kslots;
-  cluster_closest_kernel<<<n_groups, FL, 0, (cudaStream_t)stream>>>(
-      cand, od, blocks, ha, visits, n, cand_w, kslots, max_travel, noprune);
+  cluster_closest_kernel<false><<<n_groups, FL, 0, (cudaStream_t)stream>>>(
+      cand, od, blocks, nullptr, ha, visits, n, cand_w, kslots, max_travel,
+      noprune);
+  return (int)cudaGetLastError();
+}
+
+// The instanced variant: `cand` rows [1 + (3 + R) * kslots] (pool block ids,
+// then each slot's instance id at 1 + (2 + R) * kslots), `xf` [I, 10, 10].
+extern "C" int rtxpt_cluster_closest_inst(const int* cand, const float* od,
+                                          const float* blocks, const float* xf,
+                                          float* ha, int* visits, int n_groups,
+                                          int kslots, float max_travel,
+                                          int noprune, void* stream) {
+  const int n = n_groups * FL;
+  const int cand_w = 1 + (3 + R) * kslots;
+  cluster_closest_kernel<true><<<n_groups, FL, 0, (cudaStream_t)stream>>>(
+      cand, od, blocks, xf, ha, visits, n, cand_w, kslots, max_travel,
+      noprune);
   return (int)cudaGetLastError();
 }

@@ -1,11 +1,11 @@
 // K5, the clustered shadow any-hit kernel, written by hand for Hopper
-// (sm_90a).
+// (sm_90a), flat and instanced.
 //
-// Replaces rtxpt_tpu/pt/bounce_clustered.py::_kernel_b1 (body
-// _kernel_b1_body, launched by _kernel_b1_call, pl.pallas_call at
-// bounce_clustered.py:1235), flat and not instanced. Plain version:
-// rtxpt_tpu_torch/pt/bounce_clustered.py occlusion_reference; wrapper:
-// bounce_clustered.occlusion.
+// Replaces rtxpt_tpu/pt/bounce_clustered.py::_kernel_b1 and _kernel_b1_inst
+// (bounce_clustered.py:394 and :405, body _kernel_b1_body, launched by
+// _kernel_b1_call, pl.pallas_call at bounce_clustered.py:1235). Plain
+// version: rtxpt_tpu_torch/pt/bounce_clustered.py occlusion_reference;
+// wrapper: bounce_clustered.occlusion.
 //
 // Design. The candidate walk of K3 (cluster_closest.cu): one block of 1024
 // threads per 1024-lane group of sorted shadow rays, the slot's rows 0..20
@@ -15,6 +15,12 @@
 // (__syncthreads_or of the unoccluded lanes, taken before each slot; it is
 // also the barrier that frees the staging buffer). Lanes without a request
 // start occluded.
+//
+// The instanced variant (_kernel_b1_inst): the candidate rows carry pool
+// block ids and each slot's instance id (from 1 + (2 + R) * kslots on); a
+// visit stages the instance's M10 beside the block and each unoccluded lane
+// maps its world operand into the instance's object frame (xform_operand)
+// before the flat test. The distance stays the world one.
 //
 // What bounds it: operations, as K3 (57 multiplies and 53 adds of the
 // split-bf16 quantities and 14 operations of the strict test per ray-triangle
@@ -31,14 +37,18 @@ namespace {
 using namespace rt;
 using namespace rt::cl;
 
+template <bool INST>
 __global__ void __launch_bounds__(FL, 1)
 cluster_shadow_kernel(const int* __restrict__ cand, const float* __restrict__ sh,
-                      const float* __restrict__ blocks, float* __restrict__ occ_out,
-                      int* __restrict__ tests, int n, int cand_w, int kslots) {
+                      const float* __restrict__ blocks, const float* __restrict__ xf,
+                      float* __restrict__ occ_out, int* __restrict__ tests, int n,
+                      int cand_w, int kslots) {
   __shared__ __align__(16) float stage[STAGE_ROWS * LANES];
+  __shared__ float xm[INST ? XF_FLOATS : 1];
   const int l = threadIdx.x;
   const size_t i = (size_t)blockIdx.x * FL + l;
   const int* cg = cand + (size_t)blockIdx.x * cand_w;
+  const int* cinst = cg + 1 + (2 + R) * kslots;
   auto SH = [&](int r) { return sh[(size_t)r * n + i]; };
   const V3 o = v3(SH(SH_O), SH(SH_O + 1), SH(SH_O + 2));
   const V3 d = v3(SH(SH_D), SH(SH_D + 1), SH(SH_D + 2));
@@ -54,12 +64,17 @@ cluster_shadow_kernel(const int* __restrict__ cand, const float* __restrict__ sh
     const float4* src = reinterpret_cast<const float4*>(blocks + (size_t)cid * BLK_FLOATS);
     float4* dst = reinterpret_cast<float4*>(stage);
     for (int k = l; k < STAGE_ROWS * LANES / 4; k += FL) dst[k] = src[k];
+    if constexpr (INST) {
+      if (l < XF_FLOATS) xm[l] = xf[(size_t)cinst[s] * XF_FLOATS + l];
+    }
     __syncthreads();
     if (!occ) {
       const V3 c = v3(stage[CENTER_ROW * LANES], stage[CENTER_ROW * LANES + CT],
                       stage[CENTER_ROW * LANES + 2 * CT]);
+      V3 dv = d, oxdv = oxd, ov = o;
+      if constexpr (INST) xform_operand(xm, d, oxd, o, dv, oxdv, ov);
       float hi[10], lo[10];
-      make_operand(d, oxd, o, c, hi, lo);
+      make_operand(dv, oxdv, ov, c, hi, lo);
       occ = occluded_in_block(stage, hi, lo, dist, tested);
     }
   }
@@ -76,7 +91,20 @@ extern "C" int rtxpt_cluster_shadow(const int* cand, const float* sh,
                                     int n_groups, int kslots, void* stream) {
   const int n = n_groups * FL;
   const int cand_w = 1 + (2 + R) * kslots;
-  cluster_shadow_kernel<<<n_groups, FL, 0, (cudaStream_t)stream>>>(
-      cand, sh, blocks, occ, tests, n, cand_w, kslots);
+  cluster_shadow_kernel<false><<<n_groups, FL, 0, (cudaStream_t)stream>>>(
+      cand, sh, blocks, nullptr, occ, tests, n, cand_w, kslots);
+  return (int)cudaGetLastError();
+}
+
+// The instanced variant: `cand` rows [1 + (3 + R) * kslots] (pool block ids,
+// then each slot's instance id at 1 + (2 + R) * kslots), `xf` [I, 10, 10].
+extern "C" int rtxpt_cluster_shadow_inst(const int* cand, const float* sh,
+                                         const float* blocks, const float* xf,
+                                         float* occ, int* tests, int n_groups,
+                                         int kslots, void* stream) {
+  const int n = n_groups * FL;
+  const int cand_w = 1 + (3 + R) * kslots;
+  cluster_shadow_kernel<true><<<n_groups, FL, 0, (cudaStream_t)stream>>>(
+      cand, sh, blocks, xf, occ, tests, n, cand_w, kslots);
   return (int)cudaGetLastError();
 }

@@ -12,8 +12,9 @@ versions do (the parity switch; see PERF.md for its cost).
 
 `launches` counts kernel launches by name; each wrapper adds one where it
 launches its kernel, so a run can show which kernels its path went
-through. `build_all()` builds every library at once, one nvcc process per
-source.
+through. An instanced variant counts under its own name
+("cluster_closest_inst", "cluster_shadow_inst"). `build_all()` builds
+every library at once, one nvcc process per source.
 """
 
 from __future__ import annotations
@@ -161,11 +162,17 @@ SHADOW_OCCLUSION = CudaLibrary(
         _P]})                          # cudaStream_t
 
 # K3: the clustered closest-hit kernel (replaces rtxpt_tpu/pt/
-# bounce_clustered.py _kernel_a1); wrapper bounce_clustered.closest_hit.
+# bounce_clustered.py _kernel_a1, flat and instanced); wrapper
+# bounce_clustered.closest_hit.
 CLUSTER_CLOSEST = CudaLibrary(
     "cluster_closest", ["cluster_closest.cu"],
     {"rtxpt_cluster_closest": [
         _P, _P, _P, _P, _P,            # cand, od, blocks, ha, visits|NULL
+        _I, _I, _F, _I,                # n_groups, kslots, max_travel, noprune
+        _P],                           # cudaStream_t
+     "rtxpt_cluster_closest_inst": [
+        _P, _P, _P, _P,                # cand, od, blocks, xf
+        _P, _P,                        # ha, visits|NULL
         _I, _I, _F, _I,                # n_groups, kslots, max_travel, noprune
         _P]})                          # cudaStream_t
 
@@ -181,12 +188,17 @@ CLUSTER_SHADE = CudaLibrary(
         _I, _I, _I,                    # low_discrepancy, energy_comp, maxb
         _P]})                          # cudaStream_t
 
-# K5: the clustered shadow any-hit kernel (replaces _kernel_b1); wrapper
-# bounce_clustered.occlusion.
+# K5: the clustered shadow any-hit kernel (replaces _kernel_b1 and
+# _kernel_b1_inst); wrapper bounce_clustered.occlusion.
 CLUSTER_SHADOW = CudaLibrary(
     "cluster_shadow", ["cluster_shadow.cu"],
     {"rtxpt_cluster_shadow": [
         _P, _P, _P, _P, _P,            # cand, sh, blocks, occ, tests|NULL
+        _I, _I,                        # n_groups, kslots
+        _P],                           # cudaStream_t
+     "rtxpt_cluster_shadow_inst": [
+        _P, _P, _P, _P,                # cand, sh, blocks, xf
+        _P, _P,                        # occ, tests|NULL
         _I, _I,                        # n_groups, kslots
         _P]})                          # cudaStream_t
 

@@ -5,7 +5,9 @@ as the JAX package, so the fields agree bit for bit); the result is a
 LightList of tensors. `sample_light` selects and samples lights over a
 wavefront, for triangle, point, spot and directional lights, and
 `light_pdf_for_tri_hit` gives the NEE pdf of an emissive triangle that a
-BSDF ray hit (the emissive MIS of the general wavefront). The environment
+BSDF ray hit (the emissive MIS of the general wavefront); on a two-level
+scene `emissive_prim_index` maps the hit to its entry of the expanded
+light bake. The environment
 light, environment quads and sphere lights come with the environment
 slice."""
 
@@ -95,8 +97,10 @@ def _np(x):
 
 
 def bake_lights(scene: SceneData, envmap, scene_radius: float,
-                device="cpu") -> LightList:
-    """Collect emissive triangles + analytic lights into a LightList."""
+                device="cuda") -> LightList:
+    """Collect emissive triangles + analytic lights into a LightList on
+    `device` (the GPU by default; raises without one)."""
+    device = rtxpt_tpu_torch.device(device)
     geo = scene.geometry
     pos = _np(geo.positions)
     idx = _np(geo.indices)
@@ -269,14 +273,21 @@ def sample_light(lights: LightList, envmap, shade_pos, u_sel, u1, u2,
                 valid=valid, light_index=li.to(torch.int32))
 
 
-def emissive_prim_index(scene, prim):
-    """The light-bake triangle id of a hit. Flattened scenes bake per
-    triangle, so it is the hit's own id; instanced scenes (which bake an
-    expanded instance x triangle list) are not ported."""
-    if getattr(scene, "tlas", None) is not None:
-        raise NotImplementedError("emissive hits of instanced scenes are "
-                                  "not ported to rtxpt_tpu_torch yet")
-    return prim
+def emissive_prim_index(scene, prim, inst=None):
+    """The light-bake triangle id of a hit (prim, inst) [N]. Flattened
+    scenes bake per triangle, so it is the hit's own id. Two-level scenes
+    bake the expanded (instance x emissive pool triangle) list: the id is
+    inst_light_base[inst] + em_rank[prim], -1 where the hit triangle is
+    not emissive or the ray missed. The gathers index the pool and the
+    instances, never the light list, so a scene without emissive
+    triangles is safe."""
+    tl = getattr(scene, "tlas", None)
+    if tl is None or inst is None:
+        return prim
+    rank = tl.em_rank[torch.clamp(prim, min=0).long()]
+    base = tl.inst_light_base[torch.clamp(inst, min=0).long()]
+    ok = (prim >= 0) & (inst >= 0) & (rank >= 0)
+    return torch.where(ok, base + rank, -1)
 
 
 def tri_light_of(lights: LightList, prim):

@@ -1,7 +1,7 @@
-"""Scene preparation (counterpart of rtxpt_tpu/prepare.py), the flat path:
-HostScene -> world-space flatten -> LBVH, gather packs, lights bake ->
-kernel tables on the render device, which is the GPU unless the caller
-asks for the CPU.
+"""Scene preparation (counterpart of rtxpt_tpu/prepare.py): HostScene ->
+world-space flatten -> LBVH, gather packs, lights bake -> kernel tables on
+the render device, which is the GPU unless the caller asks for the CPU;
+or, for a host whose instances share prototypes, the two-level scene.
 
 Every scene gets the threaded LBVH (accel/lbvh.py, built by the C++
 code of csrc/lbvh.cpp, which g++ compiles at first use), with the
@@ -11,6 +11,13 @@ scene of at most 2048 triangles also gets the fused bounce tables
 (pt/bounce_fused.py). A larger one is Morton-ordered first (every
 per-triangle array shares the permutation, the BVH's too) and gets
 cluster tables (accel/cluster.py) for the clustered tier.
+
+A two-level scene (`_prepare_two_level`) keeps the prototypes' triangles
+in object space beside the TLAS (accel/tlas.py), whose walk serves the
+general tier; its lights are baked over the expanded (instance x emissive
+pool triangle) list. Above 2048 world triangles it also gets instanced
+cluster tables (`build_cluster_tables_instanced`) for the clustered tier,
+unless a restriction of that build leaves it to the TLAS walk.
 
 `scene_from_numpy` and `cluster_scene_from_numpy` build the port's
 SceneData from the JAX package's prepared tables, carried across as
@@ -26,13 +33,16 @@ import torch
 
 import rtxpt_tpu_torch
 from rtxpt_tpu_torch.accel.cluster import (
-    build_cluster_tables, cluster_tables_from_numpy, morton_permutation)
+    build_cluster_tables, build_cluster_tables_instanced,
+    cluster_tables_from_numpy, morton_permutation)
 from rtxpt_tpu_torch.accel.lbvh import build_bvh
+from rtxpt_tpu_torch.accel.tlas import build_two_level
 from rtxpt_tpu_torch.lighting.envmap import bake_envmap
 from rtxpt_tpu_torch.lighting.lights_baker import bake_lights
 from rtxpt_tpu_torch.pt.bounce_fused import (
     MAX_TRIS, build_bounce_tables, tables_from_numpy)
-from rtxpt_tpu_torch.scene.scene import HostScene, SceneData, build_packs
+from rtxpt_tpu_torch.scene.scene import (
+    AnalyticLights, Geometry, HostScene, Materials, SceneData, build_packs)
 
 
 def scene_radius(positions: np.ndarray) -> float:
@@ -41,21 +51,87 @@ def scene_radius(positions: np.ndarray) -> float:
     return float(np.linalg.norm(hi - lo) * 0.5 + 1e-6)
 
 
+def _geometry(positions, normals, uvs, indices, tri_material,
+              tri_subinstance) -> Geometry:
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype)
+
+    i32 = torch.int32
+    return Geometry(positions=t(positions), normals=t(normals), uvs=t(uvs),
+                    indices=t(indices, i32),
+                    tri_material=t(tri_material, i32),
+                    tri_subinstance=t(tri_subinstance, i32))
+
+
+def _prepare_two_level(host: HostScene, built: dict, device) -> SceneData:
+    """The two-level scene (rtxpt_tpu/prepare.py _prepare_two_level): the
+    object-space prototype pool and its packs beside the TLAS, the lights
+    baked over build_two_level's expanded emissive list, and instanced
+    cluster tables above 2048 world triangles."""
+    b = built
+    geometry = _geometry(b["positions"], b["normals"], b["uvs"],
+                         b["indices"], b["tri_material"],
+                         b["tri_subinstance"])
+    mats = (host.materials if host.materials is not None
+            else Materials.create(1))
+    al = (host.analytic_lights if host.analytic_lights is not None
+          else AnalyticLights.empty())
+    sd = SceneData(geometry=geometry, materials=mats, analytic_lights=al)
+    envmap = bake_envmap(host.envmap_image, host.envmap_scale,
+                         host.envmap_rotation)
+    tri_pack, mat_pack = build_packs(geometry, mats)
+    tl = b["tlas"]
+    root = tl.nodes[0].cpu().numpy()
+    radius = float(np.linalg.norm(root[3:6] - root[0:3]) * 0.5 + 1e-6)
+    lp = b["light_positions"]
+    light_geo = _geometry(lp, np.zeros_like(lp),
+                          np.zeros((lp.shape[0], 2), np.float32),
+                          b["light_indices"], b["light_materials"],
+                          b["light_subinstance"])
+    lights = bake_lights(sd.replace(geometry=light_geo), envmap, radius,
+                         device=device)
+    cluster_tables = None
+    if sum(len(i.indices) for i in host.instances) > MAX_TRIS:
+        cluster_tables = build_cluster_tables_instanced(
+            built, host, mats, lights, device=device)
+    has_prio = bool(torch.any(mats.nested_priority != 0))
+    return sd.replace(tlas=tl, envmap=envmap, tri_pack=tri_pack.to(device),
+                      mat_pack=mat_pack.to(device), lights=lights,
+                      cluster_tables=cluster_tables,
+                      has_nested_priorities=has_prio)
+
+
 def prepare(host: HostScene, device="cuda",
-            instancing: str = "off") -> SceneData:
+            instancing: str = "auto") -> SceneData:
     """Flatten + build the LBVH and the packs + bake lights + build the
     kernel tables on `device` (the GPU by default; raises when there is
     none).
 
-    Raises NotImplementedError for textures, instancing (two-level BVH)
-    and environment maps, none of which the port serves yet."""
+    instancing: "auto" (the JAX package's default) builds the two-level
+    scene when instances share prototypes (at least 1.5 instances per
+    prototype, or host.force_instancing); "off" always flattens; "force"
+    builds it whenever build_two_level takes the scene and raises
+    ValueError otherwise.
+
+    Raises NotImplementedError for textures and environment maps, which
+    the port does not serve yet."""
     device = rtxpt_tpu_torch.device(device)
+    if instancing not in ("auto", "off", "force"):
+        raise ValueError(f"instancing {instancing!r} is not one of "
+                         f"'auto', 'off', 'force'")
     if host.textures:
         raise NotImplementedError("textures are not ported to "
                                   "rtxpt_tpu_torch yet")
     if instancing != "off":
-        raise NotImplementedError("instancing (the two-level BVH) is not "
-                                  "ported to rtxpt_tpu_torch yet")
+        built = build_two_level(
+            host, min_sharing=1.0 if instancing == "force" else 1.5,
+            device=device)
+        if built is not None:
+            return _prepare_two_level(host, built, device)
+        if instancing == "force":
+            raise ValueError(
+                "instancing='force' but the scene hits a two-level v1 "
+                "restriction (alpha-tested textures)")
     sd = host.flatten()
     g = sd.geometry
     pos = g.positions.numpy()
@@ -108,14 +184,14 @@ def cluster_scene_from_numpy(tables: dict, lights=None,
                              device="cuda") -> SceneData:
     """SceneData from the JAX package's prepared cluster tables as numpy
     arrays: keys blocks, aabb_lo, aabb_hi, mat_rows, light_rows, offsets,
-    n_clusters, n_tris, n_lights (the ClusterTables fields). Parts the
-    port does not serve (env_rows, tex_ct, tex_meta, omm, instanced and
-    its tables) must be absent, None or false."""
+    n_clusters, n_tris, n_lights, and for instanced tables instanced,
+    wc_block, wc_inst, xf and inst_post (the ClusterTables fields). Parts
+    the port does not serve (env_rows, tex_ct, tex_meta, omm) must be
+    absent, None or false."""
     device = rtxpt_tpu_torch.device(device)
     tables = dict(tables)
-    _refuse_parts(tables, ("env_rows", "tex_ct", "tex_meta", "omm",
-                           "instanced", "wc_block", "wc_inst", "xf",
-                           "inst_post"), "cluster")
+    _refuse_parts(tables, ("env_rows", "tex_ct", "tex_meta", "omm"),
+                  "cluster")
     for key in ("tr", "tex_maps"):
         tables.pop(key, None)
     ct = cluster_tables_from_numpy(device=device, **tables)

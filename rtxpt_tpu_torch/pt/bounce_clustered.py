@@ -1,5 +1,6 @@
 """The clustered tier for large scenes (counterpart of
-rtxpt_tpu/pt/bounce_clustered.py, the flat, non-instanced tier).
+rtxpt_tpu/pt/bounce_clustered.py, the flat all-rows tier), flat and
+instanced.
 
 Scenes above 2048 triangles have cluster tables (accel/cluster.py)
 instead of bounce tables. Each bounce of `trace_paths_clustered` runs:
@@ -21,14 +22,28 @@ replace the TPU kernels `_kernel_a1`, `_kernel_a2` and `_kernel_b1`.
 Beside each is its plain PyTorch version (`*_reference`); the wrapper
 runs the kernel for CUDA tensors and the plain version for CPU tensors.
 
+Instanced cluster tables (accel/cluster.py build_cluster_tables_instanced)
+hold object-space prototype blocks, and the cull runs over the expanded
+world candidates. Before K3 and K5, `map_cand_inst` replaces each
+candidate's world id by its pool block id and appends the slots' instance
+ids; the pages' boundaries come from the world ids before that. K3's and
+K5's instanced variants (`_kernel_a1(instanced=True)`, `_kernel_b1_inst`)
+map the ray operand into each visited instance's object frame with its
+M10 (`object_operand`); t stays the world parameter, so hits compare
+across instances as they are. K3 refits its winner on the winner's object
+ray and exports the winner's instance in HA_INST; `post_attr_inst` then
+brings the object-space attribute rows of the merged pages to world space
+before K4.
+
 Layouts are the JAX package's row maps (OD_*, HA_*, SH_*), but flat:
 every row spans all N lanes ([rows, N] with N a multiple of 1024), and
 group g is lanes [1024 g, 1024 (g+1)). The JAX package's
 [G, rows, 1024] blocks are the same numbers in another memory order.
 
-The sorts and the culls run inside `torch.profiler.record_function`
-ranges named "rtxpt.sort" and "rtxpt.cull", so that a profile of a frame
-can split its device time (chip_smoke.py does).
+The sorts, the culls and the instanced attribute post-transform run
+inside `torch.profiler.record_function` ranges named "rtxpt.sort",
+"rtxpt.cull" and "rtxpt.post", so that a profile of a frame can split its
+device time (chip_smoke.py does).
 
 Choices against the JAX package (ROADMAP queue 3):
   * F2: the sort carries the int state rows whole (no 12-bit packing).
@@ -85,7 +100,7 @@ HA_FRONT = 3             # winner det (refit-exact); > 0 = front face
 HA_PRIM = 4              # global triangle index (-1 = miss)
 HA_ATTR = 5              # + bf.AT_ROWS attribute rows (bf.AT_* order)
 HA_UNK = HA_ATTR + bf.AT_ROWS   # opacity micromaps: always 0 here
-HA_INST = HA_UNK + 1            # instancing: always -1 here
+HA_INST = HA_UNK + 1            # winner instance (instanced; -1 = none)
 HA_ROWS = HA_INST + 1
 
 # K4 -> K5 shadow request rows [SH_ROWS, N]
@@ -180,8 +195,33 @@ def _signed(det, un, vn, tn):
     return det * s, un * s, vn * s, tn * s
 
 
+def inst_base(kslots: int) -> int:
+    """Start of the per-slot instance ids that `map_cand_inst` appends to
+    a candidate row."""
+    return 1 + (2 + R) * kslots
+
+
+def object_operand(m, d, oxd, o):
+    """The ray operand in an instance's object frame: rows 0..8 of
+    M10 @ [d, o x d, o, 1] (accel/cluster.py instance_operand_map), each
+    row summed over the ten columns in order; K3's and K5's instanced
+    variants sum alike (csrc/cluster.cuh xform_operand). m [..., 10, 10]
+    broadcast against the lanes of d, oxd, o [3, ...]. Returns the object
+    (d, o x d, o), [3, ...] each."""
+    base = [*d, *oxd, *o]
+    rows = []
+    for k in range(9):
+        acc = m[..., k, 0] * base[0]
+        for j in range(1, 9):
+            acc = acc + m[..., k, j] * base[j]
+        rows.append(acc + m[..., k, 9] * 1.0)
+    return (torch.stack(rows[0:3]), torch.stack(rows[3:6]),
+            torch.stack(rows[6:9]))
+
+
 def closest_hit_reference(cand, od, blocks, kslots: int, max_travel: float,
-                          noprune: bool = False, stats: bool = False):
+                          noprune: bool = False, stats: bool = False,
+                          xf=None):
     """K3's plain version (the function of `_kernel_a1`): for each group,
     walk its candidate clusters nearest first (stopping once no active
     lane's committed t reaches the next slot's hull entry), select each
@@ -191,7 +231,11 @@ def closest_hit_reference(cand, od, blocks, kslots: int, max_travel: float,
 
     cand [G,1,W] i32, od [OD_ROWS, N] f32 (N = G*FL), blocks [C,32,512]
     -> ha [HA_ROWS, N] f32; with `stats`, (ha, visits [G] i32: the slots
-    each group visited)."""
+    each group visited). With `xf` ([I,10,10], instanced tables), the
+    candidate rows carry pool block ids and the appended instance ids
+    (`map_cand_inst`), each visit maps the ray into its instance's object
+    frame, the refit runs on the winner's object ray, and HA_INST holds
+    the winner's instance."""
     G = cand.shape[0]
     dev = od.device
     odg = od.view(OD_ROWS, G, FL)
@@ -199,6 +243,7 @@ def closest_hit_reference(cand, od, blocks, kslots: int, max_travel: float,
     best_t = torch.full((G, FL), _BIG, dtype=torch.float32, device=dev)
     best_c = torch.zeros((G, FL), dtype=torch.int64, device=dev)
     best_j = torch.zeros((G, FL), dtype=torch.int64, device=dev)
+    best_i = torch.zeros((G, FL), dtype=torch.int64, device=dev)
     iota = torch.arange(CT, device=dev)[None, :, None]
     running = torch.ones((G,), dtype=torch.bool, device=dev)
     visits = torch.zeros((G,), dtype=torch.int32, device=dev)
@@ -213,9 +258,12 @@ def closest_hit_reference(cand, od, blocks, kslots: int, max_travel: float,
         visits += running
         cid = cand[gs, 0, 1 + i].long()
         blk = blocks[cid]
-        o = odg[OD_O:OD_O + 3, gs]
-        hi, lo = _operand(odg[OD_D:OD_D + 3, gs], odg[OD_OXD:OD_OXD + 3, gs],
-                          o, *_center(blk))
+        ray = (odg[OD_D:OD_D + 3, gs], odg[OD_OXD:OD_OXD + 3, gs],
+               odg[OD_O:OD_O + 3, gs])
+        if xf is not None:
+            iid = cand[gs, 0, inst_base(kslots) + i].long()
+            ray = object_operand(xf[iid][:, None], *ray)
+        hi, lo = _operand(*ray, *_center(blk))
         absd, su, sv, st = _signed(*_quantities(blk, hi, lo))
         mm = MARGIN * absd
         valid = ((absd > 1e-30) & (su >= -mm) & (sv >= -mm)
@@ -231,7 +279,10 @@ def closest_hit_reference(cand, od, blocks, kslots: int, max_travel: float,
         best_t[gs] = torch.where(improved, t_c, best_t[gs])
         best_c[gs] = torch.where(improved, cid[:, None], best_c[gs])
         best_j[gs] = torch.where(improved, j_c, best_j[gs])
-    ha = _refit(odg, blocks, best_t, best_c, best_j, max_travel)
+        if xf is not None:
+            best_i[gs] = torch.where(improved, iid[:, None], best_i[gs])
+    ha = _refit(odg, blocks, best_t, best_c, best_j, max_travel,
+                None if xf is None else (xf, best_i))
     return (ha, visits) if stats else ha
 
 
@@ -245,7 +296,10 @@ def _winner_rows(blocks, best_c, best_j, had, rows):
     return torch.where(had[None], vals, 0.0)
 
 
-def _refit(odg, blocks, best_t, best_c, best_j, max_travel):
+def _refit(odg, blocks, best_t, best_c, best_j, max_travel, inst=None):
+    """The winners' exact f32 refit and the HA rows. `inst` = (xf, best_i)
+    on instanced tables: the refit runs on each winner's object ray (zero
+    where a lane has no winner) and HA_INST holds its instance."""
     had = best_t < _BIG
     cen_cols = torch.tensor([CL.CENTER_ROW * CL.LANES + a * CT
                              for a in range(3)], device=blocks.device)
@@ -255,8 +309,12 @@ def _refit(odg, blocks, best_t, best_c, best_j, max_travel):
     geo = _winner_rows(blocks, best_c, best_j, had,
                        tuple(range(CL.AT_V0, CL.AT_E2 + 3)))
     v0, e1, e2 = geo[0:3], geo[3:6], geo[6:9]
-    ocl = odg[OD_O:OD_O + 3] - cen
-    dr = odg[OD_D:OD_D + 3]
+    o, dr = odg[OD_O:OD_O + 3], odg[OD_D:OD_D + 3]
+    if inst is not None:
+        xf, best_i = inst
+        dr, _, o = object_operand(xf[best_i], dr, odg[OD_OXD:OD_OXD + 3], o)
+        dr, o = torch.where(had, dr, 0.0), torch.where(had, o, 0.0)
+    ocl = o - cen
     pvec = W.cross3(dr, e2)
     detx = W.dot3(e1, pvec)
     ok = torch.abs(detx) > 1e-30
@@ -278,17 +336,20 @@ def _refit(odg, blocks, best_t, best_c, best_j, max_travel):
     u = u * scale
     v = v * scale
     G = best_t.shape[0]
+    inst_row = torch.full((G, FL), -1.0, device=best_t.device)
+    if inst is not None:
+        inst_row = torch.where(hitr, inst[1].to(torch.float32), -1.0)
     ha = torch.cat([
         torch.stack([torch.where(hitr, tx, _BIG), u, v,
                      torch.where(hitr, detx, -1.0),
                      torch.where(hitr, extra[1], -1.0)]),
         extra[2:],
-        torch.zeros((1, G, FL), device=best_t.device),
-        torch.full((1, G, FL), -1.0, device=best_t.device)])
+        torch.zeros((1, G, FL), device=best_t.device), inst_row[None]])
     return ha.reshape(HA_ROWS, G * FL)
 
 
-def occlusion_reference(cand, sh, blocks, kslots: int, stats: bool = False):
+def occlusion_reference(cand, sh, blocks, kslots: int, stats: bool = False,
+                        xf=None):
     """K5's plain version (the function of `_kernel_b1`): for each group,
     walk its candidate clusters until every lane is occluded; a lane is
     occluded by any triangle strictly inside (no margins) at
@@ -297,7 +358,9 @@ def occlusion_reference(cand, sh, blocks, kslots: int, stats: bool = False):
 
     cand [G,1,W] i32, sh [SH_ROWS, N] f32 -> occ [N] f32 (1 occluded);
     with `stats`, (occ, tests [G] i32: the ray-triangle pairs the group
-    tested, a lane's test of a slot ending at its first occluder)."""
+    tested, a lane's test of a slot ending at its first occluder). With
+    `xf` ([I,10,10]): `_kernel_b1_inst`, each visit in its instance's
+    object frame (as closest_hit_reference)."""
     G = cand.shape[0]
     shg = sh.view(SH_ROWS, G, FL)
     o = shg[SH_O:SH_O + 3]
@@ -314,7 +377,11 @@ def occlusion_reference(cand, sh, blocks, kslots: int, stats: bool = False):
         if gs.numel() == 0:
             break
         blk = blocks[cand[gs, 0, 1 + i].long()]
-        hi, lo = _operand(d[:, gs], oxd[:, gs], o[:, gs], *_center(blk))
+        ray = (d[:, gs], oxd[:, gs], o[:, gs])
+        if xf is not None:
+            iid = cand[gs, 0, inst_base(kslots) + i].long()
+            ray = object_operand(xf[iid][:, None], *ray)
+        hi, lo = _operand(*ray, *_center(blk))
         absd, su, sv, st = _signed(*_quantities(blk, hi, lo))
         valid = ((absd > 1e-30) & (su >= 0.0) & (sv >= 0.0)
                  & (su + sv <= absd) & (st > 0.0)
@@ -388,60 +455,70 @@ def _device_of(name, *tensors):
     return dev
 
 
-def _check_cand(cand, kslots, dev):
+def _check_cand(cand, kslots, dev, xf=None):
+    """Check the candidate rows (and `xf`, on instanced tables): the
+    instanced rows carry kslots appended instance ids."""
     g = cand.shape[0]
-    bf._check("cand", cand, torch.int32, (g, 1, 1 + (2 + R) * kslots), dev)
+    width = inst_base(kslots) + (kslots if xf is not None else 0)
+    bf._check("cand", cand, torch.int32, (g, 1, width), dev)
+    if xf is not None:
+        bf._check("xf", xf, torch.float32, (xf.shape[0], 10, 10), dev)
 
 
 def closest_hit(cand, od, blocks, kslots: int, max_travel: float,
-                noprune: bool = False, stats: bool = False):
-    """K3 (csrc/cluster_closest.cu) for CUDA tensors, its plain version
-    for CPU tensors. Arguments and results as in
-    `closest_hit_reference`."""
-    dev = _device_of("closest_hit", od, cand, blocks)
+                noprune: bool = False, stats: bool = False, xf=None):
+    """K3 (csrc/cluster_closest.cu; its instanced variant with `xf`) for
+    CUDA tensors, its plain version for CPU tensors. Arguments and results
+    as in `closest_hit_reference`."""
+    dev = _device_of("closest_hit", od, cand, blocks,
+                     *(() if xf is None else (xf,)))
     if dev.type == "cpu":
         return closest_hit_reference(cand, od, blocks, kslots, max_travel,
-                                     noprune, stats)
+                                     noprune, stats, xf=xf)
     g = cand.shape[0]
-    _check_cand(cand, kslots, dev)
+    _check_cand(cand, kslots, dev, xf)
     bf._check("od", od, torch.float32, (OD_ROWS, g * FL), dev)
     bf._check("blocks", blocks, torch.float32,
               (blocks.shape[0], CL.BLK_ROWS, CL.LANES), dev)
     ha = torch.empty((HA_ROWS, g * FL), dtype=torch.float32, device=dev)
     visits = torch.zeros((g,), dtype=torch.int32, device=dev)
     if g:
+        name = "cluster_closest" if xf is None else "cluster_closest_inst"
         with torch.cuda.device(dev):
             kernels.CLUSTER_CLOSEST.launch(
-                "rtxpt_cluster_closest", cand.data_ptr(), od.data_ptr(),
-                blocks.data_ptr(), ha.data_ptr(),
-                visits.data_ptr() if stats else None, g, kslots,
-                float(max_travel), int(noprune),
+                f"rtxpt_{name}", cand.data_ptr(), od.data_ptr(),
+                blocks.data_ptr(), *(() if xf is None else (xf.data_ptr(),)),
+                ha.data_ptr(), visits.data_ptr() if stats else None, g,
+                kslots, float(max_travel), int(noprune),
                 torch.cuda.current_stream(dev).cuda_stream)
-        kernels.launches["cluster_closest"] += 1
+        kernels.launches[name] += 1
     return (ha, visits) if stats else ha
 
 
-def occlusion(cand, sh, blocks, kslots: int, stats: bool = False):
-    """K5 (csrc/cluster_shadow.cu) for CUDA tensors, its plain version for
-    CPU tensors. Arguments and results as in `occlusion_reference`."""
-    dev = _device_of("occlusion", sh, cand, blocks)
+def occlusion(cand, sh, blocks, kslots: int, stats: bool = False, xf=None):
+    """K5 (csrc/cluster_shadow.cu; `_kernel_b1_inst` with `xf`) for CUDA
+    tensors, its plain version for CPU tensors. Arguments and results as
+    in `occlusion_reference`."""
+    dev = _device_of("occlusion", sh, cand, blocks,
+                     *(() if xf is None else (xf,)))
     if dev.type == "cpu":
-        return occlusion_reference(cand, sh, blocks, kslots, stats)
+        return occlusion_reference(cand, sh, blocks, kslots, stats, xf=xf)
     g = cand.shape[0]
-    _check_cand(cand, kslots, dev)
+    _check_cand(cand, kslots, dev, xf)
     bf._check("sh", sh, torch.float32, (SH_ROWS, g * FL), dev)
     bf._check("blocks", blocks, torch.float32,
               (blocks.shape[0], CL.BLK_ROWS, CL.LANES), dev)
     occ = torch.empty((g * FL,), dtype=torch.float32, device=dev)
     tests = torch.zeros((g,), dtype=torch.int32, device=dev)
     if g:
+        name = "cluster_shadow" if xf is None else "cluster_shadow_inst"
         with torch.cuda.device(dev):
             kernels.CLUSTER_SHADOW.launch(
-                "rtxpt_cluster_shadow", cand.data_ptr(), sh.data_ptr(),
-                blocks.data_ptr(), occ.data_ptr(),
-                tests.data_ptr() if stats else None, g, kslots,
-                torch.cuda.current_stream(dev).cuda_stream)
-        kernels.launches["cluster_shadow"] += 1
+                f"rtxpt_{name}", cand.data_ptr(), sh.data_ptr(),
+                blocks.data_ptr(), *(() if xf is None else (xf.data_ptr(),)),
+                occ.data_ptr(), tests.data_ptr() if stats else None, g,
+                kslots, torch.cuda.current_stream(dev).cuda_stream)
+        kernels.launches[name] += 1
     return (occ, tests) if stats else occ
 
 
@@ -507,6 +584,56 @@ def _pad(x, npad, fill=0):
     tail = torch.full((npad - n,) + tuple(x.shape[1:]), fill,
                       dtype=x.dtype, device=x.device)
     return torch.cat([x, tail])
+
+
+def map_cand_inst(cand, tbl, kslots: int):
+    """Candidate rows of the cull (world candidate ids) -> the instanced
+    kernels' rows: each slot's id replaced by its pool block id (the block
+    K3 and K5 read) and the slots' instance ids appended at
+    `inst_base(kslots)`. Flat tables keep their rows. The next page's
+    boundary is taken from the rows before this map: the world ids are
+    the page order's tiebreak."""
+    if not tbl.instanced:
+        return cand
+    ids = torch.clamp(cand[:, 0, 1:1 + kslots], 0, tbl.n_clusters - 1).long()
+    return torch.cat([cand[:, 0, 0:1], tbl.wc_block[ids],
+                      cand[:, 0, 1 + kslots:], tbl.wc_inst[ids]],
+                     dim=1)[:, None, :].contiguous()
+
+
+def post_attr_inst(ha, tbl):
+    """The attribute post-transform of instanced hits (the JAX package's
+    _post_attr_inst): per winner instance (HA_INST), the object-space
+    normals N0, N1, N2 and GN through the normal matrix and renormalised,
+    the tangent through the o2w linear part, and the LOD bias shifted by
+    the instance's area term inst_post[18]. Runs on the merged pages' HA
+    rows [HA_ROWS, N]; flat tables keep their rows."""
+    if not tbl.instanced:
+        return ha
+    with record_function("rtxpt.post"):
+        return _post_attr(ha, tbl)
+
+
+def _post_attr(ha, tbl):
+    post = tbl.inst_post[torch.clamp(ha[HA_INST].long(), min=0)]   # [N,19]
+    out = ha.clone()
+
+    def rot(base, moff, renorm):
+        v = ha[HA_ATTR + base:HA_ATTR + base + 3]
+        r = torch.stack([post[:, moff + 3 * k] * v[0]
+                         + post[:, moff + 3 * k + 1] * v[1]
+                         + post[:, moff + 3 * k + 2] * v[2]
+                         for k in range(3)])
+        if renorm:
+            r = r / torch.sqrt(torch.clamp(
+                r[0] * r[0] + r[1] * r[1] + r[2] * r[2], min=1e-24))
+        out[HA_ATTR + base:HA_ATTR + base + 3] = r
+
+    for base in (bf.AT_N0, bf.AT_N1, bf.AT_N2, bf.AT_GN):
+        rot(base, 9, True)
+    rot(bf.AT_TANG, 0, False)
+    out[HA_ATTR + bf.AT_LODB] = ha[HA_ATTR + bf.AT_LODB] + post[:, 18]
+    return out
 
 
 def scene_bounds(tbl):
@@ -579,7 +706,8 @@ def closest_paged(fs, is_, tbl, kslots: int, pages: int, max_travel: float,
     """K3 over `pages` pages of each group's candidate order: page p culls
     the clusters after page p-1's last slot, up to each lane's committed
     t, and the pages merge by least t. Returns (ha [HA_ROWS, N], the
-    final page's cull overflow)."""
+    final page's cull overflow); on instanced tables the attribute rows
+    are still in object space (`post_attr_inst`)."""
     o3 = fs[bf.FS_O:bf.FS_O + 3]
     d3 = fs[bf.FS_D:bf.FS_D + 3]
     active = is_[bf.IS_ACTIVE] > 0
@@ -587,8 +715,8 @@ def closest_paged(fs, is_, tbl, kslots: int, pages: int, max_travel: float,
     ha, lo, tmax = None, None, max_travel
     for p in range(pages):
         cand, ovf = cull(o3, d3, active, tmax, tbl, kslots, lo=lo)
-        ha_p = closest_hit(cand, od, tbl.blocks, kslots, max_travel,
-                           noprune)
+        ha_p = closest_hit(map_cand_inst(cand, tbl, kslots), od, tbl.blocks,
+                           kslots, max_travel, noprune, xf=tbl.xf)
         ha = ha_p if ha is None else torch.where(
             ha_p[HA_T:HA_T + 1] < ha[HA_T:HA_T + 1], ha_p, ha)
         if p + 1 < pages:
@@ -615,7 +743,8 @@ def occluded_paged(shp, tbl, kslots: int, pages: int):
         tmax_p = torch.where(part, shp[SH_DIST], -3e38)
         cand, ovf = cull(shp[SH_O:SH_O + 3], shp[SH_D:SH_D + 3], dop, tmax_p,
                          tbl, kslots, lo=lo)
-        occ_p = occlusion(cand, shp_p, tbl.blocks, kslots)
+        occ_p = occlusion(map_cand_inst(cand, tbl, kslots), shp_p,
+                          tbl.blocks, kslots, xf=tbl.xf)
         occ = occ_p if occ is None else torch.where(part, occ_p, occ)
         if p + 1 < pages:
             lo = page_boundary(cand, kslots)
@@ -626,8 +755,8 @@ def trace_paths_clustered(scene, cfg, o, d, cone_spread, px, py,
                           sample_idx):
     """Trace a wavefront of camera rays to completion on the clustered
     tier (bounce_clustered.trace_paths_clustered of the JAX package
-    without aux buffers, instancing, micromaps, textures, environment
-    light, split channels or external NEE). `cfg` is resolved by
+    without aux buffers, micromaps, textures, environment light, split
+    channels or external NEE), flat or instanced. `cfg` is resolved by
     `dispatch.resolve`, which sets kslots and pages.
 
     o, d [N,3]; cone_spread [N]; px, py [N] int. Returns dict(L [N,3],
@@ -664,6 +793,7 @@ def trace_paths_clustered(scene, cfg, o, d, cone_spread, px, py,
         occupancy.append(n_active)
         ha, ovf = closest_paged(fs, is_, tbl, kslots, pages, max_travel,
                                 noprune)
+        ha = post_attr_inst(ha, tbl)
         fs, is_, sh, _ = shade(ha, fs, is_, tbl, kcfg, sample_idx)
         ray_count = ray_count + n_active
         overflow = overflow + ovf

@@ -282,8 +282,14 @@ def compact_coefficients(tri_rows: np.ndarray, tc: int,
 
 
 def tables_from_numpy(tri_rows, attr_rows, mat_rows, light_rows, tc,
-                      n_chunks, n_lights, n_tris, device="cpu") -> BounceTables:
-    """BounceTables on `device` from the JAX layout's numpy arrays."""
+                      n_chunks, n_lights, n_tris, device="cuda"
+                      ) -> BounceTables:
+    """BounceTables on `device` (the GPU by default; raises without one)
+    from the JAX layout's numpy arrays."""
+    import rtxpt_tpu_torch
+
+    device = rtxpt_tpu_torch.device(device)
+
     def t(a):
         return torch.tensor(np.asarray(a, np.float32), device=device)
 
@@ -296,9 +302,10 @@ def tables_from_numpy(tri_rows, attr_rows, mat_rows, light_rows, tc,
 
 
 def build_bounce_tables(positions, normals, indices, tri_material,
-                        materials, lights, uvs=None, device="cpu"):
+                        materials, lights, uvs=None, device="cuda"):
     """Host-side table bake (bounce_pallas.build_bounce_tables, flat
-    no-environment / no-texture / no-OMM case). Raises
+    no-environment / no-texture / no-OMM case) onto `device` (the GPU by
+    default; raises without one). Raises
     NotImplementedError, naming the feature, for a scene it does not
     take."""
     if float(np.max(_np(materials.anisotropy), initial=0.0)) > 0.0:

@@ -10,15 +10,21 @@ Four tiers serve `trace_paths`:
   * "clustered" -- a scene with cluster tables (above 2048 triangles):
     the cull and sorts in PyTorch around K3, K4 and K5
     (csrc/cluster_*.cu) through `bounce_clustered.trace_paths_clustered`;
+    instanced cluster tables (a two-level scene above 2048 world
+    triangles) run K3's and K5's instanced variants;
   * "torch" -- the name a bounce-table scene on CPU tensors resolves to:
     the fused path with K1's plain PyTorch version;
   * "xla" -- the general BVH wavefront (pt/integrator.py `_wavefront`,
     the JAX package's tier of that name) over the scene's LBVH: the
     brute-force closest hit K8 (csrc/brute_closest.cu) for scenes with
     brute tables (at most 4096 triangles), else the BVH walk K9
-    (csrc/bvh_traverse.cu). Asked for explicitly, or picked for a scene
-    that has a BVH and neither bounce nor cluster tables. Prepared scenes
-    have all three and keep "fused" / "torch" / "clustered" under "auto".
+    (csrc/bvh_traverse.cu); over a two-level scene's TLAS, the TLAS walk
+    in PyTorch (accel/tlas.py). Asked for explicitly, or picked for a
+    scene that has a BVH or a TLAS and neither bounce nor cluster tables:
+    a two-level scene without cluster tables resolves to it under "auto",
+    as in the JAX package. Flat prepared scenes have a BVH and bounce or
+    cluster tables, and keep "fused" / "torch" / "clustered" under
+    "auto".
 
 The wrappers pick the kernel for CUDA tensors and its plain version for
 CPU tensors, so a clustered scene on the CPU keeps the tier name
@@ -55,10 +61,12 @@ def needs_external_nee(scene, cfg) -> bool:
 
 
 def _tables(scene, tier="auto"):
-    """(the tier's kind, its tables) or (None, None): "xla" and the BVH
-    when asked for, or for a scene with only a BVH; else the cluster or
-    bounce tables."""
-    bvh = getattr(scene, "bvh", None)
+    """(the tier's kind, its tables) or (None, None): "xla" and the TLAS
+    or BVH when asked for, or for a scene with only those; else the
+    cluster or bounce tables."""
+    bvh = getattr(scene, "tlas", None)
+    if bvh is None:
+        bvh = getattr(scene, "bvh", None)
     if tier == "xla":
         return ("xla", bvh) if bvh is not None else (None, None)
     if getattr(scene, "cluster_tables", None) is not None:
@@ -79,8 +87,8 @@ def unsupported_features(scene, cfg, neeat_state=None, tier="auto",
     out = []
     kind, tables = _tables(scene, tier)
     if tables is None:
-        out.append("a scene without bounce, cluster or BVH tables (prepare "
-                   "it first)")
+        out.append("a scene without bounce, cluster, BVH or TLAS tables "
+                   "(prepare it first)")
     lights = getattr(scene, "lights", None)
     env = getattr(scene, "envmap", None)
     has_env = (lights is not None and lights.env_light >= 0) or (
@@ -95,8 +103,6 @@ def unsupported_features(scene, cfg, neeat_state=None, tier="auto",
         out.append("opacity micromaps")
     if getattr(scene, "has_nested_priorities", False):
         out.append("nested dielectric priorities")
-    if getattr(scene, "tlas", None) is not None:
-        out.append("instancing (the two-level BVH)")
     if cfg.mode.value != PTMode.REFERENCE.value:
         out.append(f"render mode {cfg.mode.name}")
     if cfg.split_channels:
@@ -156,7 +162,7 @@ def resolve(scene, cfg, device, neeat_state=None, **call):
     """Resolve cfg.kernel_tier for tensors on `device`. Returns a copy of
     cfg with kernel_tier "fused" (bounce tables on CUDA), "torch" (bounce
     tables on the CPU), "clustered" (cluster tables) or "xla" (asked for,
-    or a scene with only a BVH); nee_external set where NEE takes the
+    or a scene with only a BVH or TLAS); nee_external set where NEE takes the
     external route (`needs_external_nee`, bounce tables only); and the
     clustered tier's kslots and pages: the config's, else the defaults (64
     and 2), with kslots at most the cluster count and pages at most as
@@ -179,15 +185,16 @@ def resolve(scene, cfg, device, neeat_state=None, **call):
                          f"kernels")
     kind, tables = _tables(scene, tier)
     if tier == "xla" and kind is None:
-        raise ValueError("kernel tier 'xla' needs the scene's BVH (prepare "
-                         "builds it)")
+        raise ValueError("kernel tier 'xla' needs the scene's BVH or TLAS "
+                         "(prepare builds one)")
     if kind is not None:
         if tier == "auto":
             tier = "torch" if kind == "fused" and device.type == "cpu" \
                 else kind
         elif tier != "xla" and kind != ("clustered" if tier == "clustered"
                                         else "fused"):
-            names = dict(clustered="cluster", fused="bounce", xla="BVH")
+            names = dict(clustered="cluster", fused="bounce",
+                         xla="BVH or TLAS")
             raise ValueError(f"kernel tier {tier!r} does not run a scene "
                              f"with {names[kind]} tables")
     _check_devices(scene, tables, neeat_state)

@@ -100,13 +100,14 @@ def _wavefront(scene, cfg, o, d, px, py, sample_idx, neeat_state=None,
                first_emissive: bool = True):
     """The general BVH wavefront (rtxpt_tpu/pt/integrator.py trace_paths on
     the "xla" tier, without environment, textures, opacity micromaps,
-    nested priorities, split channels, aux buffers, instancing and the
-    real-time arguments). Every lane is traced at every bounce, inactive
-    ones too, as in the JAX package.
+    nested priorities, split channels, aux buffers and the real-time
+    arguments). Every lane is traced at every bounce, inactive ones too,
+    as in the JAX package.
 
     Per bounce: the closest hit (`accel.traverse.scene_closest`: K8 for
     scenes with brute tables, else the BVH walk K9, or their plain
-    versions on CPU tensors), the medium's Beer-Lambert transmittance, the
+    versions on CPU tensors; the TLAS walk of accel/tlas.py on a
+    two-level scene), the medium's Beer-Lambert transmittance, the
     surface, the emission with its deferred MIS, NEE (uniform, power or
     NEE-AT, WRS over `cfg.nee_candidates`), the BSDF scatter with the
     two-slot medium stack, and Russian roulette. With brute tables and
@@ -143,7 +144,8 @@ def _wavefront(scene, cfg, o, d, px, py, sample_idx, neeat_state=None,
     use_neeat = (cfg.nee.value == NEEMode.NEEAT.value
                  and neeat_state is not None and lights is not None)
     hist = na.zero_hist(neeat_state) if use_neeat else None
-    fuse_shadows = scene.bvh.brute is not None and use_nee
+    fuse_shadows = (scene.bvh is not None and scene.bvh.brute is not None
+                    and use_nee)
     pend_contrib = zeros(n, 3)
     pend_o = zeros(n, 3)
     pend_d = torch.ones((n, 3), dtype=f32, device=dev)
@@ -189,7 +191,7 @@ def _wavefront(scene, cfg, o, d, px, py, sample_idx, neeat_state=None,
         # ----- emissive hit with its MIS weight -----
         if cfg.enable_mis and use_nee and bounce > 0:
             cos_l = torch.abs(m.dot(-d, surf.geo_n, False))
-            eprim = emissive_prim_index(scene, hit.prim)
+            eprim = emissive_prim_index(scene, hit.prim, hit.inst)
             p_light = light_pdf_for_tri_hit(lights, eprim, hit.t, cos_l,
                                             nee_uniform)
             if use_neeat:
@@ -330,11 +332,12 @@ def _wavefront(scene, cfg, o, d, px, py, sample_idx, neeat_state=None,
 
 
 def _device(scene):
-    """The device of the scene's tables (cluster, bounce or BVH)."""
-    for tables in (scene.cluster_tables, scene.bounce_tables, scene.bvh):
+    """The device of the scene's tables (cluster, bounce, BVH or TLAS)."""
+    for tables in (scene.cluster_tables, scene.bounce_tables, scene.bvh,
+                   scene.tlas):
         if tables is not None:
             return tables.device
-    raise ValueError("the scene has no bounce, cluster or BVH tables "
+    raise ValueError("the scene has no bounce, cluster, BVH or TLAS tables "
                      "(prepare it first)")
 
 

@@ -1,7 +1,8 @@
 """Surface loading (counterpart of rtxpt_tpu/pt/surface.py): a hit ->
 interpolated shading data and BSDF parameters over the scene's gather
 packs (`scene.build_packs`), the untextured path; and the ray-origin
-offset that every tier shares.
+offset that every tier shares. On a two-level scene the pack rows are in
+object space, and the hit's instance brings them to world space.
 
 The ray cone the JAX package carries into `load_surface` sets only the
 texture level of detail; the port serves no textures yet, so it neither
@@ -39,14 +40,19 @@ def load_surface(scene, hit, ray_o, ray_d, cur_ior=None,
     if getattr(scene, "textures", None) is not None:
         raise NotImplementedError("textured surfaces are not ported to "
                                   "rtxpt_tpu_torch yet")
-    if getattr(scene, "tlas", None) is not None:
-        raise NotImplementedError("surfaces of instanced scenes are not "
-                                  "ported to rtxpt_tpu_torch yet")
     g = scene.tri_pack[torch.clamp(hit.prim, min=0).long()]     # [N,25]
     v0, v1, v2 = g[:, 0:3], g[:, 3:6], g[:, 6:9]
     n0, n1, n2 = g[:, 9:12], g[:, 12:15], g[:, 15:18]
     t0, t1, t2 = g[:, 18:20], g[:, 20:22], g[:, 22:24]
     mid = g[:, 24].long()
+    if getattr(scene, "tlas", None) is not None and hit.inst is not None:
+        # object space -> world: positions through the instance's o2w
+        # part, normals through its normal matrix
+        tp = scene.tlas.inst_pack[torch.clamp(hit.inst, min=0).long()]
+        rot, tr = tp[:, 0:9].reshape(-1, 3, 3), tp[:, 9:12]
+        nmat = tp[:, 12:21].reshape(-1, 3, 3)
+        v0, v1, v2 = (m.matvec(rot, x) + tr for x in (v0, v1, v2))
+        n0, n1, n2 = (m.matvec(nmat, x) for x in (n0, n1, n2))
 
     u = hit.bary[:, 0:1]
     v = hit.bary[:, 1:2]

@@ -1,7 +1,12 @@
 """Procedural test scenes (counterpart of rtxpt_tpu/scene/procedural.py):
 the Cornell box, the furnace box, the single triangle under one analytic
 light, the many-light rooms and the large-scene city (plain variant).
-The other scenes come with their slices."""
+The other scenes come with their slices.
+
+Two instanced scenes have no counterpart in the JAX package's module: they
+are the constructions of its instancing tests, `instanced_boxes`
+(tests/test_tlas.py `_instanced_scene`) and `instanced_city`
+(tests/test_cluster_instanced.py `_instanced_city`), array for array."""
 
 from __future__ import annotations
 
@@ -347,6 +352,124 @@ def city_scene(tri_budget: int = 350_000, seed: int = 0,
                         target=[c, 4.0, c],
                         up=[0.0, 1.0, 0.0], fov_y_deg=55.0)
     return scene
+
+
+def _instance_xform(tx, ty, tz, scale=1.0, yaw=0.0):
+    """Object -> world [4,4]: a yaw about +y, a uniform scale, a shift."""
+    c, s = np.cos(yaw), np.sin(yaw)
+    m = np.eye(4, dtype=np.float32)
+    m[:3, :3] = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]],
+                         np.float32) * scale
+    m[:3, 3] = [tx, ty, tz]
+    return m
+
+
+def _point_light(position, intensity) -> AnalyticLights:
+    def f32(v):
+        return torch.as_tensor(np.asarray(v, np.float32))
+
+    return AnalyticLights(
+        kind=torch.as_tensor([LIGHT_POINT], dtype=torch.int32),
+        position=f32([position]), direction=f32([[0.0, -1.0, 0.0]]),
+        intensity=f32([intensity]), angular_size=torch.zeros((1,)),
+        cos_inner=torch.ones((1,)) * -2.0, cos_outer=torch.ones((1,)) * -2.0)
+
+
+def _box_mesh(size=0.4):
+    """A 12-triangle box with vertex normals averaged over its faces."""
+    s = size
+    v = np.array([[-s, -s, -s], [s, -s, -s], [s, s, -s], [-s, s, -s],
+                  [-s, -s, s], [s, -s, s], [s, s, s], [-s, s, s]],
+                 np.float32)
+    f = np.array([[0, 2, 1], [0, 3, 2], [4, 5, 6], [4, 6, 7],
+                  [0, 1, 5], [0, 5, 4], [2, 3, 7], [2, 7, 6],
+                  [1, 2, 6], [1, 6, 5], [3, 0, 4], [3, 4, 7]], np.int32)
+    n = np.zeros_like(v)
+    for tri in f:
+        n[tri] += np.cross(v[tri[1]] - v[tri[0]], v[tri[2]] - v[tri[0]])
+    n /= np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-9)
+    return v, n, np.zeros((len(v), 2), np.float32), f
+
+
+def instanced_boxes(grid: int = 3, force: bool = True) -> HostScene:
+    """grid x grid boxes sharing one prototype (mesh_key "box"), a floor
+    and an emissive panel (one instance each), and a point light: the
+    two-level scene of tests/test_tlas.py. 12 grid^2 + 4 world triangles,
+    so the prepared scene has no cluster tables and renders through the
+    TLAS walk."""
+    v, n, uv, f = _box_mesh()
+    mats = Materials.create(3).replace(
+        base_color=torch.tensor([[0.7, 0.3, 0.3], [0.6, 0.6, 0.6],
+                                 [0.9, 0.9, 0.9]]),
+        roughness=torch.tensor([0.4, 0.8, 0.5]),
+        emissive=torch.tensor([[0.0, 0, 0], [0, 0, 0], [4, 4, 4]]))
+    insts = []
+    rng = np.random.default_rng(7)
+    for i in range(grid):
+        for j in range(grid):
+            insts.append(MeshInstance(
+                positions=v, normals=n, uvs=uv, indices=f,
+                material=np.zeros((len(f),), np.int32),
+                transform=_instance_xform(
+                    i * 1.2 - grid * 0.6, 0.4, j * 1.2 - grid * 0.6,
+                    scale=0.6 + 0.3 * rng.random(),
+                    yaw=float(rng.random()) * 2.0),
+                mesh_key="box"))
+    fv = np.array([[-4, 0, -4], [4, 0, -4], [4, 0, 4], [-4, 0, 4]],
+                  np.float32)
+    ff = np.array([[0, 2, 1], [0, 3, 2]], np.int32)
+    fn = np.tile(np.array([[0, 1, 0]], np.float32), (4, 1))
+    insts.append(MeshInstance(
+        positions=fv, normals=fn, uvs=np.zeros((4, 2), np.float32),
+        indices=ff, material=np.ones((2,), np.int32)))
+    ev = fv * 0.25 + np.array([[0, 3.0, 0]], np.float32)
+    insts.append(MeshInstance(
+        positions=ev, normals=-fn, uvs=np.zeros((4, 2), np.float32),
+        indices=np.array([[0, 1, 2], [0, 2, 3]], np.int32),
+        material=np.full((2,), 2, np.int32)))
+    return HostScene(instances=insts, materials=mats,
+                     analytic_lights=_point_light([0.0, 2.5, 0.0],
+                                                  [20.0, 20.0, 18.0]),
+                     force_instancing=force)
+
+
+def instanced_city(grid: int = 3, subdiv: int = 6) -> HostScene:
+    """grid x grid towers (12 subdiv^2 triangles each) sharing one
+    prototype (mesh_key "tower") on a floor box, lit by one point light
+    and no emissive triangle: the scene of tests/test_cluster_instanced.py
+    for grid <= 3. A wider grid widens the floor to span it and raises
+    the light to the floor's half extent, its intensity scaled with the
+    square of the height, so the grid stays lit. grid 8, subdiv 21 holds
+    338,688 tower triangles in one 5,292-triangle prototype."""
+    pos, nrm, uv, idx, _ = _box_grid([-0.4, 0.0, -0.4], [0.4, 1.6, 0.4],
+                                     subdiv, 0)
+    mats = Materials.create(2).replace(
+        base_color=torch.tensor([[0.7, 0.4, 0.3], [0.6, 0.6, 0.65]]),
+        roughness=torch.tensor([0.5, 0.9]))
+    rng = np.random.default_rng(11)
+    insts = []
+    for i in range(grid):
+        for j in range(grid):
+            insts.append(MeshInstance(
+                positions=pos, normals=nrm, uvs=uv, indices=idx,
+                material=np.zeros((len(idx),), np.int32),
+                transform=_instance_xform(
+                    i * 1.6 - grid * 0.8, 0.0, j * 1.6 - grid * 0.8,
+                    scale=0.7 + 0.5 * rng.random(),
+                    yaw=float(rng.random()) * 2.0),
+                mesh_key="tower"))
+    half = max(4.0, 0.8 * grid + 1.6)
+    fpos, fnrm, fuv, fidx, _ = _box_grid([-half, -0.2, -half],
+                                         [half, 0.0, half], 10, 1)
+    insts.append(MeshInstance(
+        positions=fpos, normals=fnrm, uvs=fuv, indices=fidx,
+        material=np.ones((len(fidx),), np.int32)))
+    gain = (half / 4.0) ** 2
+    return HostScene(
+        instances=insts, materials=mats,
+        analytic_lights=_point_light([0.0, half, 1.0],
+                                     [40.0 * gain, 38.0 * gain, 35.0 * gain]),
+        force_instancing=True)
 
 
 def city_overview(scene: HostScene, height: float = 30.0) -> HostScene:

@@ -1,8 +1,8 @@
-"""Scene representation (counterpart of rtxpt_tpu/scene/scene.py), the
-flat subset: material, geometry and analytic-light tables, the host scene
-and its world-space flatten, the device SceneData and its per-triangle and
-per-material gather tables (`build_packs`). Instancing comes with a later
-slice.
+"""Scene representation (counterpart of rtxpt_tpu/scene/scene.py):
+material, geometry and analytic-light tables, the host scene and its
+world-space flatten, the device SceneData and its per-triangle and
+per-material gather tables (`build_packs`). Instances that share a
+`mesh_key` are one prototype of the two-level BVH (accel/tlas.py).
 
 Tables are frozen dataclasses of tensors. Host scenes hold CPU tensors;
 `prepare` moves what the renderer reads to the target device.
@@ -131,14 +131,15 @@ class SceneData:
     bounce_tables: Optional[object] = None   # bounce_fused.BounceTables
     cluster_tables: Optional[object] = None  # cluster.ClusterTables
     bvh: Optional[object] = None             # bvh.ThreadedBVH
-    tri_pack: Optional[torch.Tensor] = None  # [T,25] v0v1v2|n0n1n2|uv012|mat
+    # [T,25] v0v1v2|n0n1n2|uv012|mat (object space on a two-level scene)
+    tri_pack: Optional[torch.Tensor] = None
     mat_pack: Optional[torch.Tensor] = None  # [M,18] material scalars
     # Features of the JAX package that this port does not serve yet; the
     # dispatch refuses a scene that sets them (pt/dispatch.py).
     textures: Optional[object] = None
     tri_opacity: Optional[object] = None
     has_nested_priorities: bool = False
-    tlas: Optional[object] = None            # the two-level BVH
+    tlas: Optional[object] = None            # tlas.TLAS (two-level scenes)
 
     def replace(self, **kw) -> "SceneData":
         return dataclasses.replace(self, **kw)
@@ -194,6 +195,9 @@ class MeshInstance:
     transform: np.ndarray = field(
         default_factory=lambda: np.eye(4, dtype=np.float32))
     name: str = ""
+    # Instances sharing a mesh_key (or the same positions array) are one
+    # prototype of the two-level BVH (accel/tlas.py)
+    mesh_key: Optional[str] = None
 
 
 @dataclass
@@ -209,6 +213,8 @@ class HostScene:
     envmap_rotation: float = 0.0
     textures: Optional[list] = None
     camera: Optional[dict] = None
+    # build the two-level BVH even below the sharing-ratio heuristic
+    force_instancing: bool = False
 
     def flatten(self) -> SceneData:
         """Flatten instances to world space (same numpy ops as the JAX

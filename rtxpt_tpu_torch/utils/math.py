@@ -19,6 +19,11 @@ def dot(a, b, keepdims=True):
     return s[..., None] if keepdims else s
 
 
+def matvec(m, x):
+    """[..., 3, 3] matrices times [..., 3] vectors, each row a `dot`."""
+    return dot(m, x[..., None, :], False)
+
+
 def length(v, keepdims=True):
     return torch.sqrt(torch.clamp(dot(v, v, keepdims), min=0.0))
 

@@ -69,7 +69,7 @@ def _rays(pos, idx, n, seed):
 def test_lbvh_matches_jax_package(ntri, use_native):
     pos, idx = _soup(ntri, ntri)
     jb = jlbvh.build_bvh(pos, idx, use_native=use_native)
-    tb = lbvh.build_bvh(pos, idx, use_native=use_native)
+    tb = lbvh.build_bvh(pos, idx, use_native=use_native, device="cpu")
     assert tb.num_nodes == 2 * ntri - 1
     names = ("nodes", "tri_v0", "tri_e1", "tri_e2", "prim_tri")
     for name in names:
@@ -80,7 +80,8 @@ def test_lbvh_matches_jax_package(ntri, use_native):
     assert (tb.brute is None) == (jb.brute is None) == (ntri > 4096)
     fields = {k: np.asarray(getattr(jb, k)) for k in names}
     if tb.brute is not None:
-        assert torch.equal(brute.build_brute(pos, idx).table, tb.brute.table)
+        assert torch.equal(brute.build_brute(pos, idx, "cpu").table,
+                           tb.brute.table)
         table = tb.brute.table.numpy()
         for name, col in brute.FIELDS:
             np.testing.assert_array_equal(
@@ -101,8 +102,8 @@ def test_lbvh_matches_jax_package(ntri, use_native):
 
 def test_native_and_numpy_lbvh_agree():
     pos, idx = _soup(3000, 11)
-    a = lbvh.build_bvh(pos, idx, use_native=True)
-    b = lbvh.build_bvh(pos, idx, use_native=False)
+    a = lbvh.build_bvh(pos, idx, use_native=True, device="cpu")
+    b = lbvh.build_bvh(pos, idx, use_native=False, device="cpu")
     assert torch.equal(a.nodes, b.nodes) and torch.equal(a.prim_tri,
                                                          b.prim_tri)
 
@@ -113,7 +114,7 @@ def test_native_lbvh_raises_instead_of_falling_back(monkeypatch,
     monkeypatch.setattr(native, "SOURCE", tmp_path / "missing.cpp")
     pos, idx = _soup(8, 0)
     with pytest.raises(RuntimeError, match="missing"):
-        lbvh.build_bvh(pos, idx)
+        lbvh.build_bvh(pos, idx, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -122,7 +123,7 @@ def soup():
     2,048 rays."""
     pos, idx = _soup(700, 3)
     jb = jlbvh.build_bvh(pos, idx)
-    tb = lbvh.build_bvh(pos, idx)
+    tb = lbvh.build_bvh(pos, idx, device="cpu")
     return jb, tb, _rays(pos, idx, 2048, 4)
 
 
@@ -185,7 +186,7 @@ def test_walk_matches_brute_force():
     """The plain walk against the plain brute force of the same scene, and
     the scene queries taking each path."""
     pos, idx = _soup(1000, 5)
-    bvh = lbvh.build_bvh(pos, idx)
+    bvh = lbvh.build_bvh(pos, idx, device="cpu")
     o, d, tmin, tmax = map(torch.from_numpy, _rays(pos, idx, 1024, 6))
     w = traverse.walk(bvh, o, d, tmin, tmax, stats=True)
     prim_w = torch.where(w["prim"] >= 0,
@@ -211,7 +212,7 @@ def test_plain_walk_is_the_per_ray_walk():
     """Dropping finished rays between steps changes no ray's result: a
     wavefront walk equals the walks of its rays one by one."""
     pos, idx = _soup(200, 7)
-    bvh = lbvh.build_bvh(pos, idx)
+    bvh = lbvh.build_bvh(pos, idx, device="cpu")
     o, d, tmin, tmax = map(torch.from_numpy, _rays(pos, idx, 48, 8))
     full = traverse.walk(bvh, o, d, tmin, tmax, stats=True)
     for i in range(0, 48, 5):

@@ -493,9 +493,16 @@ def test_clustered_tier_refuses_unserved_features(city, case):
 
 
 def test_cluster_scene_from_numpy_refuses_unported_parts(city):
+    """Opacity micromaps are not ported and raise by name; instanced
+    tables are carried across (tests/test_torch_instancing.py), but only
+    with their world candidate lists and maps."""
+    tables = _jax_cluster_tables(city[1])
+    tables["omm"] = True
+    with pytest.raises(NotImplementedError, match="omm"):
+        cluster_scene_from_numpy(tables, device="cpu")
     tables = _jax_cluster_tables(city[1])
     tables["instanced"] = True
-    with pytest.raises(NotImplementedError, match="instanced"):
+    with pytest.raises(ValueError, match="wc_block"):
         cluster_scene_from_numpy(tables, device="cpu")
 
 

@@ -2,9 +2,10 @@
 the same CUDA inputs, and the wrappers' launch counts and checks: K1 on
 the Cornell box and the small scenes, K1's external modes and the shadow
 kernel K2 on the Cornell box and the rooms, K3, K4 and K5 on the small
-city of tests/test_torch_cluster.py, and the general tier's brute-force
-closest hit K8 and BVH walk K9 on the Cornell box, the rooms and that
-city. Needs an NVIDIA GPU and nvcc; skips
+city of tests/test_torch_cluster.py, K3's and K5's instanced variants on
+the instanced city of tests/test_torch_instancing.py, and the general
+tier's brute-force closest hit K8 and BVH walk K9 on the Cornell box, the
+rooms and that city. Needs an NVIDIA GPU and nvcc; skips
 without them. This file imports no JAX, so it runs where JAX is absent:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -281,6 +282,92 @@ def test_clustered_wrappers_refuse_tables_on_another_device(city):
                       is_[bf.IS_ACTIVE] > 0, 1e27, scene.cluster_tables, 8)
     with pytest.raises(ValueError, match="same device"):
         BC.closest_hit(cand, od, cpu.blocks, 8, 1e27)
+
+
+@pytest.fixture(scope="module")
+def instanced_city(gpu):
+    host = TP.instanced_city(grid=2, subdiv=6)
+    return host, prepare(host, device=gpu)
+
+
+@pytest.mark.parametrize("kslots", [32, 8])
+def test_instanced_kernels_match_plain_versions(instanced_city, kslots):
+    """K3's and K5's instanced variants against their plain versions over
+    three bounces of 4096 sorted camera rays of the instanced city, the
+    state carried by the plain versions (K4 on the post-transformed hits);
+    kslots 8 saturates the candidate lists of its 32 world candidates."""
+    host, scene = instanced_city
+    tbl = scene.cluster_tables
+    assert tbl.instanced
+    dev = tbl.device
+    cfg = PathTracerConfig(max_bounces=4)
+    kcfg = bf.KernelConfig.from_cfg(cfg)
+    bounds = BC.scene_bounds(tbl)
+    fs, is_ = _state(host, cfg, 64, dev, 1)
+    src = torch.arange(fs.shape[1], dtype=torch.int32, device=dev)
+    kernels.launches.clear()
+    for b in range(3):
+        fs, is_, src = BC.sort_wavefront(fs, is_, src, b == 0, bounds)
+        od = BC.ray_operand(fs, is_)
+        cand, _ = BC.cull(fs[bf.FS_O:bf.FS_O + 3], fs[bf.FS_D:bf.FS_D + 3],
+                          is_[bf.IS_ACTIVE] > 0, cfg.max_ray_travel, tbl,
+                          kslots)
+        cand = BC.map_cand_inst(cand, tbl, kslots)
+        ha_p, vis_p = BC.closest_hit_reference(
+            cand, od, tbl.blocks, kslots, cfg.max_ray_travel, stats=True,
+            xf=tbl.xf)
+        ha_k, vis_k = BC.closest_hit(cand, od, tbl.blocks, kslots,
+                                     cfg.max_ray_travel, stats=True,
+                                     xf=tbl.xf)
+        same = (ha_k[BC.HA_PRIM] == ha_p[BC.HA_PRIM]) \
+            & (ha_k[BC.HA_INST] == ha_p[BC.HA_INST]) \
+            & ((ha_k[BC.HA_FRONT] > 0) == (ha_p[BC.HA_FRONT] > 0))
+        assert same.float().mean() >= 0.999, b
+        ok = torch.isclose(ha_k, ha_p, rtol=TOL, atol=TOL, equal_nan=True)
+        assert ok.float().mean(1).min() >= 0.999, b
+        assert torch.equal(vis_k, vis_p)
+        if b == 0:
+            hit = ha_p[BC.HA_PRIM] >= 0
+            assert hit.float().mean() > 0.5
+            assert len(torch.unique(ha_p[BC.HA_INST][hit])) >= 3
+        plain = BC.shade_reference(BC.post_attr_inst(ha_p, tbl), fs, is_,
+                                   tbl, kcfg, 1)
+        shp, _ = BC.sort_shadows(plain[2], bounds)
+        dop = shp[BC.SH_DO] > 0.5
+        cand_s, _ = BC.cull(shp[BC.SH_O:BC.SH_O + 3],
+                            shp[BC.SH_D:BC.SH_D + 3], dop,
+                            torch.where(dop, shp[BC.SH_DIST], -3e38), tbl,
+                            kslots)
+        cand_s = BC.map_cand_inst(cand_s, tbl, kslots)
+        occ_p, tst_p = BC.occlusion_reference(cand_s, shp, tbl.blocks,
+                                              kslots, stats=True, xf=tbl.xf)
+        occ_k, tst_k = BC.occlusion(cand_s, shp, tbl.blocks, kslots,
+                                    stats=True, xf=tbl.xf)
+        assert (occ_k == occ_p).float().mean() >= 0.999, b
+        assert torch.equal(tst_k, tst_p)
+        fs, is_ = plain[0], plain[1]
+    assert dict(kernels.launches) == dict(cluster_closest_inst=3,
+                                          cluster_shadow_inst=3)
+
+
+def test_instanced_render_runs_through_the_instanced_kernels(
+        instanced_city):
+    """Every bounce of an instanced clustered render launches K3's and
+    K5's instanced variants once per page and K4 once (kslots 16: two
+    pages); the TLAS route launches none."""
+    host, scene = instanced_city
+    cam = TP.default_camera(host, 32, 24)
+    kernels.launches.clear()
+    hdr, _, rays = render(scene, cam, PathTracerConfig(
+        max_bounces=3, cluster_kslots=16), 32, 24, spp=2)
+    assert dict(kernels.launches) == dict(
+        cluster_closest_inst=2 * 3 * 2, cluster_shade=3 * 2,
+        cluster_shadow_inst=2 * 3 * 2)
+    assert torch.isfinite(hdr).all() and float(hdr.mean()) > 1e-3
+    kernels.launches.clear()
+    hdr_x, _, _ = render(scene, cam, PathTracerConfig(
+        max_bounces=3, kernel_tier="xla"), 32, 24, spp=2)
+    assert not kernels.launches and torch.isfinite(hdr_x).all()
 
 
 # ---------------------------------------------------------------------------

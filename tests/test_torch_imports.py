@@ -47,7 +47,7 @@ SLICE_MODULES = [
     "rtxpt_tpu_torch.lighting.neeat", "rtxpt_tpu_torch.pt.nee_external",
     "rtxpt_tpu_torch.accel.bvh", "rtxpt_tpu_torch.accel.lbvh",
     "rtxpt_tpu_torch.accel.native", "rtxpt_tpu_torch.accel.brute",
-    "rtxpt_tpu_torch.accel.traverse",
+    "rtxpt_tpu_torch.accel.traverse", "rtxpt_tpu_torch.accel.tlas",
 ]
 
 
@@ -111,6 +111,37 @@ def test_prepare_defaults_to_the_card(monkeypatch):
         == "cpu"
 
 
+def test_builders_default_to_the_card(monkeypatch):
+    """The public builders and the constructors that carry the JAX
+    package's tables across build on the GPU unless asked for the CPU,
+    and raise without one."""
+    from rtxpt_tpu_torch.accel import brute, bvh, cluster, lbvh, tlas
+    from rtxpt_tpu_torch.lighting.envmap import bake_envmap
+    from rtxpt_tpu_torch.lighting.lights_baker import bake_lights
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pos = np.eye(3, dtype=np.float32)
+    idx = np.array([[0, 1, 2]], np.int32)
+    host = TP.instanced_boxes()
+    flat = TP.cornell_box().flatten()
+    for make in (lambda: lbvh.build_bvh(pos, idx),
+                 lambda: bvh.bvh_from_packed(np.zeros((1, 17)), [0], pos[:1],
+                                             pos[:1], pos[:1]),
+                 lambda: brute.build_brute(pos, idx),
+                 lambda: brute.brute_from_fields({}),
+                 lambda: bake_lights(flat, bake_envmap(None), 1.0),
+                 lambda: bf.tables_from_numpy(0, 0, 0, 0, 1, 1, 0, 0),
+                 lambda: tlas.tlas_from_numpy({}),
+                 lambda: tlas.build_two_level(host),
+                 lambda: cluster.cluster_tables_from_numpy(
+                     0, 0, 0, 0, 0, 0, 0, 0, 0)):
+        with pytest.raises(RuntimeError, match="is_available"):
+            make()
+    assert lbvh.build_bvh(pos, idx, device="cpu").device.type == "cpu"
+    assert tlas.build_two_level(host, device="cpu")["tlas"].device.type \
+        == "cpu"
+
+
 @pytest.fixture(scope="module")
 def cornell():
     host = TP.cornell_box()
@@ -122,6 +153,13 @@ def small_city():
     """A scene with cluster tables (3,512 triangles)."""
     return prepare(TP.city_scene(tri_budget=4000, seed=1, blocks=2),
                    device="cpu")
+
+
+@pytest.fixture(scope="module")
+def instanced_city():
+    """A two-level scene with instanced cluster tables (4 towers sharing
+    one prototype and a floor: 2,928 world triangles)."""
+    return prepare(TP.instanced_city(grid=2, subdiv=6), device="cpu")
 
 
 def _state(n_lights, device="cpu"):
@@ -181,7 +219,8 @@ _ENV = EnvMap(np.ones((4, 8, 3), np.float32), 1.0, 0.0,
 
 # case: (scene, scene fields, config fields, the name the error gives);
 # the fused tier's external route serves NEE-AT with a tile state, WRS
-# K > 1 and more than 128 lights, the clustered tier none of them
+# K > 1 and more than 128 lights, the clustered tier none of them, flat
+# or instanced
 UNSERVED = {
     "environment": ("cornell", dict(envmap=_ENV), {}, "environment"),
     "textures": ("cornell", dict(textures=object()), {}, "textures"),
@@ -199,16 +238,21 @@ UNSERVED = {
     "neeat_environment": ("cornell", dict(envmap=_ENV),
                           dict(nee=NEEMode.NEEAT),
                           "NEE-AT with an environment"),
+    "instanced_neeat": ("instanced", {}, dict(nee=NEEMode.NEEAT), "NEE-AT"),
+    "instanced_wrs": ("instanced", {}, dict(nee_candidates=4), "WRS"),
+    "instanced_lights": ("instanced", "lights", {}, "more than 128 lights"),
+    "instanced_split": ("instanced", {}, dict(split_channels=True), "split"),
 }
 
 
 @pytest.mark.parametrize("device", ["cuda", "cpu"])
 @pytest.mark.parametrize("case", list(UNSERVED))
-def test_resolve_refuses_unserved_features(cornell, small_city, case,
-                                           device):
+def test_resolve_refuses_unserved_features(cornell, small_city,
+                                           instanced_city, case, device):
     """An unserved feature raises with its name; nothing demotes."""
     which, scene_kw, cfg_kw, name = UNSERVED[case]
-    scene = cornell[1] if which == "cornell" else small_city
+    scene = dict(cornell=cornell[1], city=small_city,
+                 instanced=instanced_city)[which]
     state = None
     if case == "neeat_environment":
         state = _state(scene.lights.count)
@@ -300,7 +344,6 @@ UNSERVED_XLA = {
     "textures": (dict(textures=object()), {}, {}, "textures"),
     "micromaps": ("tri_micro", {}, {}, "micromaps"),
     "priorities": (dict(has_nested_priorities=True), {}, {}, "priorities"),
-    "tlas": (dict(tlas=object()), {}, {}, "instancing"),
     "sphere_light": ("sphere", {}, {}, "sphere lights"),
     "split": ({}, dict(split_channels=True), {}, "split"),
     "want_aux": ({}, {}, dict(want_aux=True), "aux buffers"),
@@ -359,6 +402,29 @@ def test_resolve_serves_the_general_tier(cornell, small_city, device):
                              device)
     with pytest.raises(ValueError, match="needs the scene's BVH"):
         dispatch.resolve(scene.replace(bvh=None), xla, device)
+
+
+@pytest.mark.parametrize("device", ["cuda", "cpu"])
+def test_resolve_serves_instancing(instanced_city, device):
+    """A two-level scene with instanced cluster tables resolves to the
+    clustered tier under "auto" and to the TLAS walk with "xla"; without
+    cluster tables (a small instanced scene) it resolves to "xla", as in
+    the JAX package; nothing refuses the TLAS."""
+    scene = instanced_city
+    assert scene.tlas is not None and scene.cluster_tables.instanced
+    auto = dispatch.resolve(scene, PathTracerConfig(), device)
+    assert (auto.kernel_tier, auto.cluster_kslots, auto.cluster_pages) == \
+        ("clustered", 32, 1)
+    xla = dispatch.resolve(scene, PathTracerConfig(kernel_tier="xla"),
+                           device)
+    assert xla.kernel_tier == "xla"
+    tlas_only = scene.replace(cluster_tables=None)
+    assert dispatch.resolve(tlas_only, PathTracerConfig(),
+                            device).kernel_tier == "xla"
+    assert not dispatch.unsupported_features(tlas_only, PathTracerConfig())
+    with pytest.raises(ValueError, match="does not run"):
+        dispatch.resolve(tlas_only, PathTracerConfig(kernel_tier="clustered"),
+                         device)
 
 
 def test_prepare_builds_a_bvh_for_every_scene(cornell, small_city):

@@ -2,6 +2,8 @@
 camera rays, the lights bake, the fused bounce tables (entry by entry),
 and scenes carried across from the JAX package's prepared tables."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -22,6 +24,7 @@ from rtxpt_tpu_torch.pt import bounce_fused as bf
 from rtxpt_tpu_torch.pt.integrator import render
 from rtxpt_tpu_torch.scene import camera as tcam
 from rtxpt_tpu_torch.scene import procedural as TP
+from rtxpt_tpu_torch.scene.scene import LIGHT_SPHERE
 
 SCENES = {
     "cornell": (JP.cornell_box, TP.cornell_box, {}),
@@ -114,7 +117,8 @@ def test_bake_lights(name):
     _, jl = _jax_lights(jh)
     sd = th.flatten()
     tl = t_bake_lights(sd, t_bake_envmap(None),
-                       j_scene_radius(sd.geometry.positions.numpy()))
+                       j_scene_radius(sd.geometry.positions.numpy()),
+                       device="cpu")
     for field in ("kind", "p0", "p1", "p2", "emission", "extra", "normal",
                   "power", "cdf", "tri_light"):
         np.testing.assert_allclose(_np(getattr(tl, field)),
@@ -195,7 +199,12 @@ def test_prepare_refuses_unported_features(case, monkeypatch):
     if case == "textures":
         host.textures = [np.ones((4, 4, 4), np.float32)]
     elif case == "instancing":
-        kw["instancing"] = "auto"
+        # a two-level scene above 2048 world triangles gets instanced
+        # cluster tables, and the clustered tier serves no sphere light
+        host = TP.instanced_city(grid=2, subdiv=6)
+        al = host.analytic_lights
+        host.analytic_lights = dataclasses.replace(
+            al, kind=torch.full_like(al.kind, LIGHT_SPHERE))
     elif case == "too_many_tris":
         # above 2048 triangles the clustered tier takes the scene, up to
         # its device block budget (shrunk here so a small scene passes it)

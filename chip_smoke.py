@@ -26,11 +26,14 @@ Phases, one or a few lines of output each:
                 the image must be finite.
   6. clustered -- the clustered kernels K3 (closest hit), K4 (shading) and
                 K5 (shadow any-hit) against their plain versions on the
-                card, on 65,536 camera rays of the 340k-triangle city (64
-                groups) at bounces 0 and 2, the state carried onward by the
-                plain versions: K3 prim ids equal and t/u/v/front within
-                2e-3 on >= 99.9% of lanes, K4 as K1 in phase 3, K5
-                occlusion equal on >= 99.9% of lanes. Times each kernel at
+                card on the 340k-triangle city, every page: at bounce 0 on
+                65,536 camera rays spread over the 1080p frame (64 groups),
+                at bounce 2 on the 64 contiguous groups of the sorted 1080p
+                wavefront (carried there by the kernels) with the most
+                hits: K3 prim ids equal and t/u/v/front within 2e-3 on
+                >= 99.9% of lanes, visit counts equal, K4 as K1 in phase
+                3, K5 occlusion equal on >= 99.9% of lanes and test counts
+                equal; at least 5% of each comparison's lanes must hit. Times each kernel at
                 the city path's 1080p bounce-0 launch (2,025 groups) and its
                 plain version at the comparison width.
   7. city parity -- the 3,512-triangle city of the CPU tests, 48x32, 2 spp,
@@ -98,8 +101,8 @@ Phases, one or a few lines of output each:
                 light, a camera above a corner of the grid): its pool and
                 candidate bytes against the flattened scene's blocks. K3's
                 and K5's instanced variants against their plain versions
-                as phase 6, at bounces 0, 1 and 2 (K4 on the
-                post-transformed hits): prim ids,
+                as phase 6, at bounce 0 and on 1080p windows at bounces
+                1 and 2 (K4 on the post-transformed hits): prim ids,
                 HA_INST and front equal, t/u/v within rtol = atol = 2e-3,
                 occlusion equal, each on >= 99.9% of lanes, visit and test
                 counts equal; each timed at the 1080p bounce-0 launch with
@@ -143,6 +146,8 @@ RAYS_K1 = 1 << 16            # phase 3 comparison width
 RAYS_TIMED = 1 << 18         # the Cornell path's rays per launch
 TOL = 2e-3
 LANE_FRACTION = 0.999
+MIN_HIT_SHARE = 0.05         # the least share of a clustered comparison's
+#                              lanes that must hit
 MEAN_RTOL = 1e-3
 # H100 SXM data sheet, dense rates at 700 W
 HBM_BYTES_PER_S = 3.35e12
@@ -164,9 +169,13 @@ K3_PAIR_F32 = 27
 K5_PAIR_F32 = 14
 STAGED_BLOCK_BYTES = 21 * 512 * 4    # rows 0..20 of a cluster block
 XF_BYTES = 10 * 10 * 4               # an instance's M10
-# The instanced variants' map of the ray operand: 9 rows of M10 @
-# [d, o x d, o, 1], 10 multiplies and 9 adds each, per lane and visit.
-XFORM_F32 = 9 * 19
+# The instanced variants' map of the ray operand, per lane and visit: the
+# structural non-zeros of M10 @ [d, o x d, o, 1] (accel/cluster.py
+# instance_operand_map). d_o reads d (3 multiplies, 2 adds per row), o_o x
+# d_o reads d and o x d (6 and 5), o_o reads o and the translation (3
+# multiplies, 3 adds); the last row is 1. The kernels sum the dense rows
+# for parity with the plain version, but the function needs these.
+XFORM_F32 = 3 * 5 + 3 * 11 + 3 * 6
 CITY_TRIS = 350_000
 CITY_SEED = 0
 CITY_FRAME = (1920, 1080)    # the city path's frame
@@ -545,12 +554,14 @@ def _ptxas_entry(log, needle):
 
 
 def _cluster_kernel_checks(record, dev, smi, dump, label, host, scene,
-                           prep_s, pages_want, compare_bounces=(0, 2)):
+                           prep_s, pages_want, deep_bounces=(2,)):
     """K3, K4 and K5 (their instanced variants on instanced tables)
-    against their plain versions on 65,536 camera rays of the scene's
-    1080p frame at `compare_bounces`, every page, the state carried by
-    the plain versions; then each kernel timed at the 1080p bounce-0 launch
-    beside its bound, and the plain versions at the comparison width.
+    against their plain versions, every page: at bounce 0 on 65,536 camera
+    rays spread over the scene's 1080p frame, and at each of
+    `deep_bounces` on the 64 contiguous groups of the sorted 1080p
+    wavefront with the most hits, the wavefront carried there by the
+    kernels; then each kernel timed at the 1080p bounce-0 launch beside
+    its bound, and the plain versions at the comparison width.
     Returns dict(scene=(host, scene, prepare seconds), kernels={name:
     partial kernel-line entry})."""
     import torch
@@ -609,14 +620,16 @@ def _cluster_kernel_checks(record, dev, smi, dump, label, host, scene,
                           kslots)
         return shp, BC.map_cand_inst(cand, tbl, kslots)
 
-    # comparison: 65,536 camera rays, bounces 0 and 2, every page; the
-    # plain versions' results carry the state, as on the city path. The
-    # paged loops call the module's closest_hit and occlusion: these run
-    # both versions, keep the pair and return the plain result.
+    # comparison, every page: bounce 0 on 65,536 camera rays spread over
+    # the frame; each of `deep_bounces` on a window of as many contiguous
+    # groups of the sorted 1080p wavefront, which the kernels carry there
+    # as on the city path (the spread rays' wide groups overflow their cull
+    # lists past bounce 0 and keep almost no hits). The window is the one
+    # whose lanes the kernels found most hits for at that bounce. The paged
+    # loops call the module's closest_hit and occlusion: these run both
+    # versions, keep the pair and return the plain result.
     rec = {}
     err = {k3n: 0.0, k4n: 0.0, k5n: 0.0}
-    fs, is_, src = camera_state(CMP_SIDE, CMP_SIDE)
-    cmp_groups = fs.shape[1] // BC.FL
     plain_in = {}
     pairs = dict(k3=[], k5=[])
 
@@ -629,10 +642,9 @@ def _cluster_kernel_checks(record, dev, smi, dump, label, host, scene,
                                                xf=xf)
         plain_in.setdefault("cand", cand)
         plain_in.setdefault("od", od)
-        if compare:
-            pairs["k3"].append((kernel_closest(
-                cand, od, blocks, kslots_, max_travel_, noprune, True,
-                xf=xf), (ha_p, vis_p)))
+        pairs["k3"].append((kernel_closest(
+            cand, od, blocks, kslots_, max_travel_, noprune, True,
+            xf=xf), (ha_p, vis_p)))
         return ha_p
 
     def occluded_both(cand, shp_, blocks, kslots_, xf=None):
@@ -640,16 +652,16 @@ def _cluster_kernel_checks(record, dev, smi, dump, label, host, scene,
                                               True, xf=xf)
         plain_in.setdefault("cand_s", cand)
         plain_in.setdefault("shp", shp_)
-        if compare:
-            pairs["k5"].append((kernel_occlusion(cand, shp_, blocks, kslots_,
-                                                 True, xf=xf),
-                                (occ_p, tst_p)))
+        pairs["k5"].append((kernel_occlusion(cand, shp_, blocks, kslots_,
+                                             True, xf=xf), (occ_p, tst_p)))
         return occ_p
 
-    for b in range(max(compare_bounces) + 1):
-        compare = b in compare_bounces
-        pairs = dict(k3=[], k5=[])
-        fs, is_, src = BC.sort_wavefront(fs, is_, src, b == 0, bounds)
+    def compare_at(b, fs, is_, rows):
+        """K3, K4 and K5 against their plain versions through bounce `b`
+        of the sorted rows fs, is_; fails on a disagreement or when fewer
+        than MIN_HIT_SHARE of the lanes hit."""
+        pairs["k3"].clear()
+        pairs["k5"].clear()
         BC.closest_hit, BC.occlusion = closest_both, occluded_both
         try:
             ha_p, _ = BC.closest_paged(fs, is_, tbl, kslots, pages,
@@ -659,19 +671,10 @@ def _cluster_kernel_checks(record, dev, smi, dump, label, host, scene,
             plain_in.setdefault("ha", ha_w)
             plain_in.setdefault("fs", fs)
             plain_in.setdefault("is_", is_)
-            shp, perm = BC.sort_shadows(sh_out[2], bounds)
-            occ, _ = BC.occluded_paged(shp, tbl, kslots, pages)
+            shp, _ = BC.sort_shadows(sh_out[2], bounds)
+            BC.occluded_paged(shp, tbl, kslots, pages)
         finally:
             BC.closest_hit, BC.occlusion = kernel_closest, kernel_occlusion
-        # the state carried onward, with the NEE add of the city path
-        ok_nee = (sh_out[2][BC.SH_DO] > 0.5) \
-            & (BC.unsort_rows(perm, occ[None])[0] < 0.5)
-        fs_next = sh_out[0].clone()
-        fs_next[bf.FS_L:bf.FS_L + 3] += torch.where(
-            ok_nee, sh_out[2][BC.SH_CONTRIB:BC.SH_CONTRIB + 3], 0.0)
-        if not compare:
-            fs, is_ = fs_next, sh_out[1]
-            continue
         k4 = BC.shade(ha_w, fs, is_, tbl, kcfg, sample)
         torch.cuda.synchronize()
         k3s = dict(int_lanes_equal=1.0, worst_float_row=1.0,
@@ -692,9 +695,9 @@ def _cluster_kernel_checks(record, dev, smi, dump, label, host, scene,
             k3s["visits_equal"] &= bool(torch.equal(vis_k, vis_q))
             k3s["visits"] += int(vis_q.sum())
             err[k3n] = max(err[k3n], e3)
-        k3s["hit_share"] = float((ha_p[BC.HA_PRIM] >= 0).float().mean())
+        hit = ha_p[BC.HA_PRIM] >= 0
+        k3s["hit_share"] = float(hit.float().mean())
         if inst:
-            hit = ha_p[BC.HA_PRIM] >= 0
             k3s["instances_hit"] = int(torch.unique(
                 ha_p[BC.HA_INST][hit]).numel())
         k4s, e4 = _compare_state((k4[0], k4[1], k4[3]),
@@ -711,9 +714,9 @@ def _cluster_kernel_checks(record, dev, smi, dump, label, host, scene,
                 (occ_k == occ_q).float().mean()))
             k5s["tests_equal"] &= bool(torch.equal(tst_k, tst_q))
             err[k5n] = max(err[k5n], float((occ_k - occ_q).abs().max()))
-        rec[f"bounce{b}"] = dict(k3=k3s, k4=k4s, k5=k5s)
+        rec[f"bounce{b}"] = dict(rows=rows, k3=k3s, k4=k4s, k5=k5s)
         int_rows = "prim/inst/front" if inst else "prim"
-        print(f"{label} bounce {b}: K3 {int_rows} equal "
+        print(f"{label} bounce {b} ({rows}): K3 {int_rows} equal "
               f"{k3s['int_lanes_equal']:.6f}, worst t/u/v/front row "
               f"{k3s['worst_float_row']:.6f}, visits equal "
               f"{k3s['visits_equal']} over {k3s['pages']} pages, hit share "
@@ -729,12 +732,47 @@ def _cluster_kernel_checks(record, dev, smi, dump, label, host, scene,
               and _state_ok(k4s)
               and shs["worst_float_row"] >= LANE_FRACTION
               and k5s["occ_lanes_equal"] >= LANE_FRACTION)
-        if not ok:
+        if not ok or k3s["hit_share"] < MIN_HIT_SHARE:
             record[label] = rec
             dump()
-            _fail(f"{label}: a kernel disagrees with its plain version "
-                  f"at bounce {b}")
-        fs, is_ = fs_next, sh_out[1]
+            _fail(f"{label}: a kernel disagrees with its plain version at "
+                  f"bounce {b}" if not ok else
+                  f"{label}: bounce {b}'s comparison rows hit too little "
+                  f"({k3s['hit_share']:.4f} < {MIN_HIT_SHARE})")
+
+    fs, is_, src = camera_state(CMP_SIDE, CMP_SIDE)
+    cmp_groups = fs.shape[1] // BC.FL
+    fs, is_, src = BC.sort_wavefront(fs, is_, src, True, bounds)
+    compare_at(0, fs, is_, f"{CMP_SIDE}x{CMP_SIDE} camera rays spread over "
+               "the frame")
+
+    # the 1080p wavefront, carried by the kernels with the city path's
+    # NEE add, and the window of each deeper bounce
+    fs, is_, src = camera_state(*CITY_FRAME)
+    for b in range(max(deep_bounces) + 1):
+        fs, is_, src = BC.sort_wavefront(fs, is_, src, b == 0, bounds)
+        ha, _ = BC.closest_paged(fs, is_, tbl, kslots, pages, max_travel)
+        if b in deep_bounces:
+            run = torch.cumsum((ha[BC.HA_PRIM] >= 0).view(-1, BC.FL).sum(1),
+                               0)
+            run = torch.cat([run.new_zeros(1), run])
+            g0 = int(torch.argmax(run[cmp_groups:] - run[:-cmp_groups]))
+            lanes = slice(g0 * BC.FL, (g0 + cmp_groups) * BC.FL)
+            compare_at(b, fs[:, lanes].contiguous(),
+                       is_[:, lanes].contiguous(),
+                       f"groups {g0}-{g0 + cmp_groups - 1} of the sorted "
+                       f"{CITY_FRAME[0]}x{CITY_FRAME[1]} wavefront")
+        if b == max(deep_bounces):
+            break
+        fs, is_, sh, _ = BC.shade(BC.post_attr_inst(ha, tbl), fs, is_, tbl,
+                                  kcfg, sample)
+        shp, perm = BC.sort_shadows(sh, bounds)
+        occ, _ = BC.occluded_paged(shp, tbl, kslots, pages)
+        ok_nee = (sh[BC.SH_DO] > 0.5) \
+            & (BC.unsort_rows(perm, occ[None])[0] < 0.5)
+        fs = fs.clone()
+        fs[bf.FS_L:bf.FS_L + 3] += torch.where(
+            ok_nee, sh[BC.SH_CONTRIB:BC.SH_CONTRIB + 3], 0.0)
 
     # plain versions timed at the comparison width (65,536 rays, bounce 0)
     pin = plain_in
@@ -772,10 +810,9 @@ def _cluster_kernel_checks(record, dev, smi, dump, label, host, scene,
     # instance), each output written once; operations: every active lane
     # against every triangle of each slot its group visited (K3), the
     # pairs K5's lanes tested up to their first occluder, and on instanced
-    # tables the map of the ray operand per lane and visit (K3) or per
-    # unoccluded lane and visit (K5; counted per lane and visit here, a
-    # bound below what K5 does only where lanes are already occluded:
-    # left out, a lower bound)
+    # tables K3's map of the ray operand per lane and visit (XFORM_F32;
+    # K5's map is left out, as its stats count pairs and not visits: a
+    # lower bound)
     active_g = (is_[bf.IS_ACTIVE] > 0).view(g, BC.FL).sum(1)
     slots = torch.arange(kslots, device=dev)[None]
     base = BC.inst_base(kslots)
@@ -1727,11 +1764,11 @@ def _instancing(record, dev, smi, dump, flat_city):
           f"{mem['city_blocks']} blocks, {mem['city_block_mib']:.2f} MiB); "
           f"prepare {prep_s:.2f}s, flattened {flat_prep_s:.2f}s", flush=True)
 
-    # 1. K3 and K5 instanced against their plain versions (bounce 1 too:
-    # few rays of this open scene reach bounce 2), and their times
+    # 1. K3 and K5 instanced against their plain versions at bounces 0, 1
+    # and 2, and their times
     checked = _cluster_kernel_checks(record, dev, smi, dump, "instanced",
                                      host, scene, prep_s, INST_PAGES,
-                                     compare_bounces=(0, 1, 2))
+                                     deep_bounces=(1, 2))
     # 2. the instanced path at 1080p and one profiled frame
     launched, images = _city_path(record, dev, smi, dump,
                                   (host, scene, prep_s), label="instanced "

@@ -273,17 +273,21 @@ def sample_light(lights: LightList, envmap, shade_pos, u_sel, u1, u2,
                 valid=valid, light_index=li.to(torch.int32))
 
 
-def emissive_prim_index(scene, prim, inst=None):
+def emissive_prim_index(scene, prim, inst):
     """The light-bake triangle id of a hit (prim, inst) [N]. Flattened
-    scenes bake per triangle, so it is the hit's own id. Two-level scenes
-    bake the expanded (instance x emissive pool triangle) list: the id is
-    inst_light_base[inst] + em_rank[prim], -1 where the hit triangle is
-    not emissive or the ray missed. The gathers index the pool and the
+    scenes bake per triangle, so it is the hit's own id (`inst` is not
+    read and may be None). Two-level scenes bake the expanded (instance x
+    emissive pool triangle) list: the id is inst_light_base[inst] +
+    em_rank[prim], -1 where the hit triangle is not emissive or the ray
+    missed; they need `inst`. The gathers index the pool and the
     instances, never the light list, so a scene without emissive
     triangles is safe."""
     tl = getattr(scene, "tlas", None)
-    if tl is None or inst is None:
+    if tl is None:
         return prim
+    if inst is None:
+        raise ValueError("emissive_prim_index: a two-level scene needs the "
+                         "hit's instance ids")
     rank = tl.em_rank[torch.clamp(prim, min=0).long()]
     base = tl.inst_light_base[torch.clamp(inst, min=0).long()]
     ok = (prim >= 0) & (inst >= 0) & (rank >= 0)

@@ -31,9 +31,14 @@ instanced cluster tables).
     2e-3, means within 1e-3 relative, the same ray counts.
   - F1: the TLAS route renders the city without emissive triangles (the
     JAX TLAS route crashes there, test_cluster_instanced.py's red test);
-    it is held against the JAX package's flattened xla render with that
+    it is held as that test holds it, against the instanced clustered
+    tier, here the JAX package's render of the previous item, with that
     test's cross-tier limit (at most 2% of pixels outside
     1e-3 + 1e-2 |b|).
+
+The JAX renders compile for 10-20 s each on the CPU, so the file makes
+two: the instanced clustered tier's (both samples, and F1's reference)
+and the xla tier's.
   - prepare's default instancing="auto" still flattens every
     single-instance scene the port served (Cornell, rooms, city).
 """
@@ -56,6 +61,7 @@ from rtxpt_tpu_torch import kernels
 from rtxpt_tpu_torch.accel import cluster as TCL
 from rtxpt_tpu_torch.accel import tlas as TT
 from rtxpt_tpu_torch.config import NEEMode, PathTracerConfig
+from rtxpt_tpu_torch.lighting.lights_baker import emissive_prim_index
 from rtxpt_tpu_torch.prepare import cluster_scene_from_numpy, prepare
 from rtxpt_tpu_torch.pt import bounce_clustered as BC
 from rtxpt_tpu_torch.pt import bounce_fused as bf
@@ -70,6 +76,8 @@ PIXELS = 0.99
 MEAN_RTOL = 1e-3
 SAMPLE = 1
 W_IMG, H_IMG = 64, 32          # 2048 camera rays = 2 groups of 1024 lanes
+IMG = 16                       # the renders' width and height
+CITY_CFG = dict(max_bounces=2, enable_russian_roulette=False)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -190,6 +198,10 @@ def test_two_level_light_bake_identical(scenes, name):
                                       int(np.asarray(jl.env_light)))
     n_emissive = 2 if name == "boxes" else 0
     assert tl.tri_light.numel() == n_emissive
+    # the expanded list is indexed by (prim, inst): a hit without its
+    # instance has no entry
+    with pytest.raises(ValueError, match="instance"):
+        emissive_prim_index(ts, torch.zeros(1, dtype=torch.int32), None)
     for field in ("tri_pack", "mat_pack"):
         _equal(getattr(ts, field), getattr(js, field), field)
 
@@ -442,26 +454,37 @@ def _images_agree(got, want, what):
     assert rel <= MEAN_RTOL, (what, rel)
 
 
-def test_render_instanced_clustered_matches_jax(scenes, monkeypatch):
-    """The instanced clustered tier against the JAX package's (interpret
-    mode, through render_sample_jit as tests/test_cluster_instanced.py
-    renders it: one compile of the whole frame), 16x16, 2 spp, 2 bounces,
-    power NEE: pixels and means as above, the same ray counts, occupancy
-    and cull overflow; K3 and K5 ran their instanced plain versions."""
-    jh, js, th, ts = scenes["city"]
-    w = h = 16
-    jcfg = JConfig(max_bounces=2, nee=JNEE.POWER, kernel_tier="clustered",
-                   pallas_interpret=True, cluster_pages=2)
-    tcfg = PathTracerConfig(max_bounces=2, nee=NEEMode.POWER)
-    jcam, tcam = JP.default_camera(jh, w, h), TP.default_camera(th, w, h)
+@pytest.fixture(scope="module")
+def jax_city_samples(scenes):
+    """The JAX package's instanced clustered tier on the city, samples 0
+    and 1 (interpret mode, through render_sample_jit as
+    tests/test_cluster_instanced.py renders it, with its settings: one
+    compile serves both), 16x16, 2 bounces, power NEE, no Russian
+    roulette."""
+    jh, js, _, _ = scenes["city"]
+    jcfg = JConfig(nee=JNEE.POWER, kernel_tier="clustered",
+                   pallas_interpret=True, cluster_pages=2, **CITY_CFG)
+    cam = JP.default_camera(jh, IMG, IMG)
+    return [jint.render_sample_jit(js, cam, jcfg, IMG, IMG, jnp.uint32(s))
+            for s in range(2)]
+
+
+def test_render_instanced_clustered_matches_jax(scenes, jax_city_samples,
+                                                monkeypatch):
+    """The instanced clustered tier against the JAX package's, 16x16,
+    2 spp, 2 bounces, power NEE: pixels and means as above, the same ray
+    counts, occupancy and cull overflow; K3 and K5 ran their instanced
+    plain versions."""
+    _, _, th, ts = scenes["city"]
+    tcfg = PathTracerConfig(nee=NEEMode.POWER, **CITY_CFG)
+    tcam = TP.default_camera(th, IMG, IMG)
     calls = []
     monkeypatch.setattr(BC, "closest_hit_reference", _counting(
         BC.closest_hit_reference, calls, "k3"))
     monkeypatch.setattr(BC, "occlusion_reference", _counting(
         BC.occlusion_reference, calls, "k5"))
-    for s in range(2):
-        ref = jint.render_sample_jit(js, jcam, jcfg, w, h, jnp.uint32(s))
-        out = tint.render_sample(ts, tcam, tcfg, w, h, s)
+    for s, ref in enumerate(jax_city_samples):
+        out = tint.render_sample(ts, tcam, tcfg, IMG, IMG, s)
         assert out["kernel_tier"] == "clustered"
         _images_agree(out["L"], ref["L"], f"sample {s}")
         assert int(out["ray_count"]) == int(ref["ray_count"])
@@ -497,24 +520,22 @@ def test_render_tlas_route_matches_jax_xla_tier(scenes):
     assert float(timg.mean()) > 1e-3
 
 
-def test_f1_tlas_route_renders_the_city_without_emissive_triangles(scenes):
+def test_f1_tlas_route_renders_the_city_without_emissive_triangles(
+        scenes, jax_city_samples):
     """F1 in the port: the TLAS route renders the instanced city, whose
     light list has no triangle, finite and lit, and within the JAX test's
-    cross-tier limit of the JAX package's flattened xla render."""
-    jh, _, th, ts = scenes["city"]
+    cross-tier limit of the JAX package's instanced clustered render of
+    the same sample (test_instanced_clustered_matches_tlas_path's own
+    comparison, with the port's TLAS route in place of the JAX one)."""
+    _, _, th, ts = scenes["city"]
     assert ts.lights.tri_light.numel() == 0
-    w = h = 16
-    tcfg = PathTracerConfig(max_bounces=2, nee=NEEMode.POWER,
-                            enable_russian_roulette=False, kernel_tier="xla")
-    a = tint.render_sample(ts, TP.default_camera(th, w, h), tcfg, w, h,
-                           0)["L"].numpy()
-    flat = j_prepare(jh, instancing="off")
-    assert flat.tlas is None
-    b = _np(jint.render_sample_jit(
-        flat, JP.default_camera(jh, w, h),
-        JConfig(max_bounces=2, nee=JNEE.POWER,
-                enable_russian_roulette=False, kernel_tier="xla"),
-        w, h, jnp.uint32(0))["L"])
+    tcfg = PathTracerConfig(nee=NEEMode.POWER, kernel_tier="xla",
+                            **CITY_CFG)
+    out = tint.render_sample(ts, TP.default_camera(th, IMG, IMG), tcfg, IMG,
+                             IMG, 0)
+    assert out["kernel_tier"] == "xla"
+    a = out["L"].numpy()
+    b = _np(jax_city_samples[0]["L"])
     assert np.isfinite(a).all() and a.mean() > 1e-3
     bad = np.abs(a - b) > 1e-3 + 1e-2 * np.abs(b)
     assert bad.mean() <= 2e-2, (bad.mean(), float(np.abs(a - b).max()))

@@ -126,6 +126,37 @@ Phases, one or a few lines of output each:
                 no kernel launched; then one timed and one profiled 1080p
                 1-spp frame of it (4 bounces): its device launches per
                 frame and idle share.
+  12. environment -- (a) K1's environment variants on the Cornell box
+                under make_sky() (the CLI's --sky, baked at 64 x 128):
+                has_env at bounces 0 and 2 and the final_env launch
+                against the plain version on 65,536 camera rays over the
+                1080p frame, phase 3's criteria; both timed at 2^18 rays.
+                (b) K4 on the sky city (city_overview(city_scene(350_000,
+                seed=0, with_env=True))): K3, K4's has_env variant and K5
+                as phase 6 (bounce 0 on 65,536 spread rays, bounce 2 on
+                the sorted 1080p window); K4's final_env and its export
+                slots 3 and 5 against the plain version at bounce 0 (the
+                spread rays) and bounce 2 (the sorted 1080p window, as
+                phase 6), the SF_* rows and hit row 5 included, phase 3's
+                criteria; each timed at the 1080p bounce-0 launch.
+                (c) The three full-size paths, each at 1920x1080, 4
+                bounces, 1 warm-up and 2 timed samples: the sky Cornell
+                box on the fused tier (power NEE, 8 chunks of 2^18; K1's
+                has_env variant chunks x bounces x spp times, final_env
+                chunks x spp); the sky city on the clustered tier (power
+                NEE, one chunk, kslots 64, 2 pages; K3 pages x (bounces +
+                1) x spp, K4 has_env bounces x spp, final_env spp, K5
+                pages x bounces x spp), its cull_overflow and one
+                profiled frame split into sort, cull, K3, K4, K5, the
+                final round, the rest and the idle share; NEE-AT on the
+                city of phase 6 through render_adaptive on the clustered
+                tier (K4 in slot 3, external_nee, K5; lit tiles must
+                leave the uniform pmf). Every image must be finite.
+                (d) The small city with the sky through the kernels
+                against the plain versions (phase 7's limits, the final
+                round's launches counted); the sky city's 1-spp 1080p
+                image on the general tier against the clustered tier's
+                (RMSE and means printed, no limit).
 
 The line before the last holds {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Any failed phase, a missing GPU or a missing
@@ -240,6 +271,10 @@ def _bound(nbytes, f32=0, tf32=0, bf16=0):
     if terms["bytes"] >= t_ops:
         return terms["bytes"], "bytes", terms
     return t_ops, "operations", terms
+
+
+def _numel(t):
+    return 0 if t is None else t.numel()
 
 
 def _ptxas_summary(log):
@@ -482,6 +517,9 @@ def main(record_path=None):
     # ---- 11. instancing -----------------------------------------------------
     instanced = _instancing(record, dev, smi, dump, clustered["scene"])
 
+    # ---- 12. the environment and the clustered external NEE ----------------
+    env = _environment(record, dev, smi, dump, clustered["scene"])
+
     k1_paths = dict(cornell=cornell_launches["bounce_fused"],
                     **{k: v.get("bounce_fused", 0)
                        for k, v in ext["launches"].items()})
@@ -499,9 +537,20 @@ def main(record_path=None):
         launches_by_path={k: v.get("shadow_occlusion", 0)
                           for k, v in ext["launches"].items()}))
     for name, entry in clustered["kernels"].items():
-        entries.append(dict(entry, launches=city_launches.get(name, 0)))
+        by_path = dict(city=city_launches.get(name, 0),
+                       **{k: v.get(name, 0)
+                          for k, v in env["launches"].items()
+                          if k != "sky_cornell"})
+        entry = dict(entry, launches=city_launches.get(name, 0),
+                     launches_by_path=by_path)
+        if name == "cluster_shade":
+            # K4's export slots, timed and checked in phase 12
+            entry.update(modes=env["k4_modes"], max_abs_err=max(
+                entry["max_abs_err"], env["k4_export_err"]))
+        entries.append(entry)
     entries.extend(general)
     entries.extend(instanced)
+    entries.extend(env["entries"].values())
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -577,9 +626,10 @@ def _cluster_kernel_checks(record, dev, smi, dump, label, host, scene,
     tbl = scene.cluster_tables
     inst = tbl.instanced
     xf = tbl.xf
-    k3n, k4n, k5n = (("cluster_closest_inst", "cluster_shade",
-                      "cluster_shadow_inst") if inst else
-                     ("cluster_closest", "cluster_shade", "cluster_shadow"))
+    # K4's environment variant on tables with the environment table
+    k4n = bf.variant_name("cluster_shade", tbl.env is not None, False)
+    k3n, k5n = (("cluster_closest_inst", "cluster_shadow_inst") if inst
+                else ("cluster_closest", "cluster_shadow"))
     cfg = dispatch.resolve(scene, PathTracerConfig(
         max_bounces=4, nee=NEEMode.POWER, ray_chunk=1 << 30), dev)
     kcfg = bf.KernelConfig.from_cfg(cfg)
@@ -832,7 +882,8 @@ def _cluster_kernel_checks(record, dev, smi, dump, label, host, scene,
     k3_pairs = k3_visits * 128
     k4_bytes = 4 * n * (BC.HA_ROWS + 2 * (bf.NF + bf.NI) + BC.SH_ROWS
                         + bf.NH) + 4 * (tbl.mat_rows.numel()
-                                        + tbl.light_rows.numel())
+                                        + tbl.light_rows.numel()
+                                        + _numel(tbl.env))
     k5_blocks, k5_insts = distinct(cand_s, slots < cand_s[:, 0, :1])
     k5_bytes = 4 * (cand_s.numel() + 9 * n) \
         + STAGED_BLOCK_BYTES * k5_blocks + XF_BYTES * k5_insts
@@ -888,9 +939,9 @@ def _cluster_kernel_checks(record, dev, smi, dump, label, host, scene,
     return dict(scene=(host, scene, prep_s), kernels=entries)
 
 
-def _city_parity(record, dev, dump):
-    """Phase 7: the small city through the kernels against the plain
-    versions, both on the card."""
+def _city_parity(record, dev, dump, with_env=False, label="city_parity"):
+    """Phase 7 (and 12 with the sky): the small city through the kernels
+    against the plain versions, both on the card."""
     import torch
 
     from rtxpt_tpu_torch import kernels
@@ -900,7 +951,7 @@ def _city_parity(record, dev, dump):
     from rtxpt_tpu_torch.pt.integrator import render
     from rtxpt_tpu_torch.scene.procedural import city_scene, default_camera
 
-    host = city_scene(tri_budget=4000, seed=1, blocks=2)
+    host = city_scene(tri_budget=4000, seed=1, blocks=2, with_env=with_env)
     scene = prepare(host, device=dev)
     cam = default_camera(host, 48, 32, device=dev)
     cfg = PathTracerConfig(max_bounces=3)
@@ -922,19 +973,24 @@ def _city_parity(record, dev, dump):
     pages = SMALL_CITY_PAGES
     want = dict(cluster_closest=pages * 3 * 2, cluster_shade=3 * 2,
                 cluster_shadow=pages * 3 * 2)
-    record["city_parity"] = dict(pixels_close=share, mean_kernel=mean_k,
-                                 mean_plain=mean_p, mean_rel=rel,
-                                 rays=(rays_k, rays_p), launches=used,
-                                 finite=finite)
-    print(f"city parity: 48x32 2 spp 3 bounces, pixels within {TOL} "
+    if with_env:
+        # the environment variant per bounce, and the final round's K3
+        # pages and K4
+        want = dict(cluster_closest=pages * (3 + 1) * 2,
+                    cluster_shade_env=3 * 2, cluster_shade_final=2,
+                    cluster_shadow=pages * 3 * 2)
+    record[label] = dict(pixels_close=share, mean_kernel=mean_k,
+                         mean_plain=mean_p, mean_rel=rel,
+                         rays=(rays_k, rays_p), launches=used,
+                         finite=finite)
+    print(f"{label.replace('_', ' ')}: 48x32 2 spp 3 bounces, pixels within {TOL} "
           f"{share:.6f}, mean L {mean_k:.6f} vs {mean_p:.6f} (rel "
           f"{rel:.3g}), rays {rays_k} vs {rays_p}, launches {used}",
           flush=True)
-    if share < 0.99 or rel > MEAN_RTOL or not finite or any(
-            used.get(k, 0) != v for k, v in want.items()):
+    if share < 0.99 or rel > MEAN_RTOL or not finite or used != want:
         dump()
-        _fail("city parity: the kernels' city image misses the plain "
-              "versions'")
+        _fail(f"{label}: the kernels' city image misses the plain "
+              f"versions' or a kernel ran another number of times")
 
 
 def _city_path(record, dev, smi, dump, prepared, label="city",
@@ -949,10 +1005,13 @@ def _city_path(record, dev, smi, dump, prepared, label="city",
     from rtxpt_tpu_torch.pt.integrator import render_sample
     from rtxpt_tpu_torch.scene.procedural import default_camera
 
+    from rtxpt_tpu_torch.pt import bounce_fused as bf
+
     host, scene, prep_s = prepared
     k3n, k5n = (("cluster_closest_inst", "cluster_shadow_inst")
                 if scene.cluster_tables.instanced
                 else ("cluster_closest", "cluster_shadow"))
+    env = scene.cluster_tables.env is not None
     (width, height), spp = CITY_FRAME, 2
     cfg = PathTracerConfig(max_bounces=4, nee=NEEMode.POWER,
                            ray_chunk=1 << 30)
@@ -975,8 +1034,13 @@ def _city_path(record, dev, smi, dump, prepared, label="city",
     hdr = acc / spp
     finite = bool(torch.isfinite(hdr).all())
     want = {k3n: pages * cfg.max_bounces * spp,
-            "cluster_shade": cfg.max_bounces * spp,
+            bf.variant_name("cluster_shade", env, False):
+                cfg.max_bounces * spp,
             k5n: pages * cfg.max_bounces * spp}
+    if env:
+        # the final round: K3's pages and K4's final_env launch per sample
+        want[k3n] += pages * spp
+        want["cluster_shade_final"] = spp
     mrays = rays / dt / 1e6
     ms_frame = dt / spp * 1e3
     rec = dict(res=f"{width}x{height}", spp_timed=spp,
@@ -1008,7 +1072,8 @@ def _city_path(record, dev, smi, dump, prepared, label="city",
         render_sample(scene, cam, cfg, width, height, spp + 1)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    rec["split"], rec["profile_table"] = _split(prof, wall)
+    rec["split"], rec["profile_table"] = _split(
+        prof, wall, nested=("final",) if env else ())
     print(f"{label} split (one profiled frame, ms): "
           f"{json.dumps(rec['split'])} ({smi})", flush=True)
     dump()
@@ -1021,11 +1086,14 @@ CITY_KERNELS = (("k3", "cluster_closest_kernel"),
                 ("k5", "cluster_shadow_kernel"))
 
 
-def _split(prof, wall_ms, ranges=CITY_RANGES, kernel_parts=CITY_KERNELS):
+def _split(prof, wall_ms, ranges=CITY_RANGES, kernel_parts=CITY_KERNELS,
+           nested=()):
     """Device time of one frame by part (ms): the named ranges
     ("rtxpt.<name>": the device time of the kernels they launched), the
     kernels, the rest, all kernels, and the idle share of the frame's
-    wall time; plus the profiler's table."""
+    wall time; plus the profiler's table. `nested` ranges launch kernels
+    that the kernel parts count too (the final environment round's K3 and
+    K4): they are reported and left out of the rest's subtraction."""
     from torch.autograd import DeviceType
 
     def total(evt, *names):
@@ -1034,6 +1102,7 @@ def _split(prof, wall_ms, ranges=CITY_RANGES, kernel_parts=CITY_KERNELS):
                 return getattr(evt, name) / 1e3
         return 0.0
 
+    ranges = tuple(ranges) + tuple(nested)
     parts = dict.fromkeys(list(ranges) + [p for p, _ in kernel_parts], 0.0)
     range_keys = tuple(f"rtxpt.{r}" for r in ranges)
     spans = {}
@@ -1059,7 +1128,8 @@ def _split(prof, wall_ms, ranges=CITY_RANGES, kernel_parts=CITY_KERNELS):
         cpu = spans.get(f"rtxpt.{part}:cpu", 0.0)
         parts[part] = cpu if cpu > 0 else spans.get(f"rtxpt.{part}:cuda",
                                                     0.0)
-    parts["other"] = busy - sum(parts.values())
+    parts["other"] = busy - sum(v for k, v in parts.items()
+                                if k not in nested)
     parts.update(device_busy=busy, wall=wall_ms,
                  idle_share=max(0.0, 1.0 - busy / wall_ms), spans=spans)
     try:
@@ -1906,6 +1976,354 @@ def _instancing(record, dev, smi, dump, flat_city):
     dump()
     return [dict(checked["kernels"][name], launches=launched.get(name, 0))
             for name in ("cluster_closest_inst", "cluster_shadow_inst")]
+
+
+ENV_CHUNK = 1 << 18           # phase 12: the sky Cornell path's rays per chunk
+ENV_SPP = 2                   # phase 12: timed samples of each full-size path
+
+
+def _environment(record, dev, smi, dump, city_prepared):
+    """Phase 12: the environment and the clustered tier's external NEE.
+    (a) K1's has_env and final_env variants against their plain version
+    on the sky Cornell box; (b) K4's has_env, final_env and export slots 3
+    and 5 on the sky city (K3 and K5 as phase 6); (c) the three full-size
+    paths (sky Cornell fused, sky city clustered with one profiled frame,
+    NEE-AT on the city through render_adaptive); (d) the small sky city
+    through kernels and plain versions, and the sky city's 1-spp image on
+    the general tier against the clustered tier's. Returns dict(entries
+    {name: kernel-line entry}, k4_modes, launches {path: counts})."""
+    import torch
+
+    from rtxpt_tpu_torch import kernels
+    from rtxpt_tpu_torch.config import NEEMode, PathTracerConfig
+    from rtxpt_tpu_torch.lighting.sky import make_sky
+    from rtxpt_tpu_torch.prepare import prepare
+    from rtxpt_tpu_torch.pt import bounce_clustered as BC
+    from rtxpt_tpu_torch.pt import bounce_fused as bf
+    from rtxpt_tpu_torch.pt import dispatch
+    from rtxpt_tpu_torch.pt.integrator import (
+        _pixel_grid, camera_rays, render_adaptive, render_sample)
+    from rtxpt_tpu_torch.scene.procedural import (
+        city_overview, city_scene, cornell_box, default_camera)
+    from rtxpt_tpu_torch.utils.image import rmse
+
+    rec = {}
+    record["environment"] = rec
+    w, h = CITY_FRAME
+    sample = 1
+
+    def camera_state(host, cfg, cols, rows):
+        """Camera rays of a cols x rows grid of the 1080p frame's
+        pixels."""
+        cam = default_camera(host, w, h, device=dev)
+        px, py = _pixel_grid(cols, rows, dev)
+        px, py = px * w // cols, py * h // rows
+        o, d, spread = camera_rays(cam, cfg, px, py, sample)
+        return bf.initial_state(o, d, spread, px, py)
+
+    def check(label, kern_rows, plain_rows, surf=None):
+        summary, err = _compare_state(kern_rows, plain_rows)
+        ok = _state_ok(summary)
+        if surf is not None:
+            int_eq = (kern_rows[1] == plain_rows[1]).all(0) \
+                & (kern_rows[2][1] == plain_rows[2][1])
+            sf, serr = _compare(dict(surf=surf[0]), dict(surf=surf[1]),
+                                int_eq)
+            summary.update(worst_surf_row=sf["worst_float_row"])
+            ok = ok and sf["worst_float_row"] >= LANE_FRACTION
+            err = max(err, serr)
+        rec[label] = summary
+        print(f"environment {label}: int lanes equal "
+              f"{summary['int_lanes_equal']:.6f}, worst float row "
+              f"{summary['worst_float_row']:.6f}"
+              + (f", worst SF row {summary['worst_surf_row']:.6f}"
+                 if surf is not None else "")
+              + f", L mean {summary['L_mean_kernel']:.6f} vs "
+              f"{summary['L_mean_plain']:.6f}, max abs err {err:.3g}",
+              flush=True)
+        if not ok:
+            dump()
+            _fail(f"environment: a kernel disagrees with its plain version "
+                  f"({label})")
+        return err
+
+    # ---- (a) K1's environment switches on the sky Cornell box ----
+    sky_host = cornell_box()
+    sky_host.envmap_image = make_sky()
+    sky = prepare(sky_host, device=dev)
+    tbl = sky.bounce_tables
+    if tbl.env is None or sky.lights.env_light < 0:
+        _fail("environment: the sky Cornell box has no environment table")
+    cfg = PathTracerConfig(max_bounces=4, nee=NEEMode.POWER,
+                           ray_chunk=ENV_CHUNK)
+    kcfg = bf.KernelConfig.from_cfg(cfg)
+    err = dict(bounce_fused_env=0.0, bounce_fused_final=0.0,
+               cluster_shade_env=0.0, cluster_shade_final=0.0,
+               cluster_shade=0.0)
+    fs, is_ = camera_state(sky_host, cfg, CMP_SIDE, CMP_SIDE)
+    for b in range(cfg.max_bounces + 1):
+        final = b == cfg.max_bounces
+        plain = bf.bounce_reference(fs, is_, tbl, kcfg, sample,
+                                    final_env=final)
+        if b in (0, 2) or final:
+            kern = bf.bounce(fs, is_, tbl, kcfg, sample, final_env=final)
+            torch.cuda.synchronize()
+            name = "bounce_fused_final" if final else "bounce_fused_env"
+            err[name] = max(err[name], check(
+                f"k1 {'final_env' if final else f'bounce {b}'}", kern,
+                plain))
+        fs, is_ = plain[0], plain[1]
+    # timed at the path's launch width: 2^18 camera rays, bounce 0, and
+    # the final round's launch on the same rays
+    fs_t, is_t = camera_state(sky_host, cfg, 512, 512)
+    n = fs_t.shape[1]
+    active = int((is_t[bf.IS_ACTIVE] > 0).sum())
+    k1 = {}
+    for name, final in (("bounce_fused_env", False),
+                        ("bounce_fused_final", True)):
+        ms = _cuda_ms(lambda: bf.bounce(fs_t, is_t, tbl, kcfg, sample,
+                                        final_env=final), 20)
+        plain_ms = _cuda_ms(lambda: bf.bounce_reference(
+            fs_t, is_t, tbl, kcfg, sample, final_env=final), 3)
+        # as phase 3: the state read and written once, the hit rows
+        # written, the tables it reads (the environment's 164 KB among
+        # them; the final round reads no attribute, material or light
+        # table) read once, every active lane against every triangle
+        tables_bytes = 4 * sum(t.numel() for t in (
+            (tbl.tri_coef, tbl.env) if final else
+            (tbl.tri_coef, tbl.attr_rows, tbl.mat_rows, tbl.light_rows,
+             tbl.env)))
+        bound, by, _ = _bound(
+            4 * n * (2 * (bf.NF + bf.NI) + bf.NH) + tables_bytes,
+            f32=active * tbl.n_tris * K1_PAIR_F32)
+        k1[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                        bound_by=by, rays=n)
+        print(f"environment {name}: kernel {ms:.4f} ms per {n}-ray launch, "
+              f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}) ({smi})",
+              flush=True)
+    rec["k1"] = k1
+    dump()
+
+    # ---- (b) K4's environment switches and export on the sky city ----
+    t0 = time.perf_counter()
+    city_host = city_overview(city_scene(CITY_TRIS, seed=CITY_SEED,
+                                         with_env=True))
+    city = prepare(city_host, device=dev)
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    ctbl = city.cluster_tables
+    if ctbl.env is None:
+        _fail("environment: the sky city has no environment table")
+    checks = _cluster_kernel_checks(record, dev, smi, dump, "sky_city",
+                                    city_host, city, prep_s, CITY_PAGES)
+    k4_env = checks["kernels"]["cluster_shade_env"]
+    ccfg = dispatch.resolve(city, PathTracerConfig(
+        max_bounces=4, nee=NEEMode.POWER, ray_chunk=1 << 30), dev)
+    kslots, pages = ccfg.cluster_kslots, ccfg.cluster_pages
+    bounds_ = BC.scene_bounds(ctbl)
+    modes = dict(final=(bf.KernelConfig.from_cfg(ccfg), True),
+                 slot3=(bf.KernelConfig(nee_mode=3, maxb=4), False),
+                 slot5=(bf.KernelConfig(nee_mode=5, maxb=4), False))
+
+    def hits(fs_, is_):
+        ha, _ = BC.closest_paged(fs_, is_, ctbl, kslots, pages, 1e27)
+        return BC.post_attr_inst(ha, ctbl)
+
+    def compare_modes(label, ha, fs, is_):
+        """K4's final_env and slots 3 and 5 against the plain version on
+        one state; the SH rows too."""
+        for mode, (kc, final) in modes.items():
+            plain = BC.shade_reference(ha, fs, is_, ctbl, kc, sample, final)
+            kern = BC.shade(ha, fs, is_, ctbl, kc, sample, final_env=final)
+            torch.cuda.synchronize()
+            name = "cluster_shade_final" if final else "cluster_shade"
+            e = check(f"k4 {mode} {label}", (kern[0], kern[1], kern[3]),
+                      (plain[0], plain[1], plain[3]),
+                      surf=None if final else (kern[4], plain[4]))
+            sh, e_sh = _compare(dict(sh=kern[2]), dict(sh=plain[2]),
+                                (kern[1] == plain[1]).all(0))
+            if sh["worst_float_row"] < LANE_FRACTION:
+                dump()
+                _fail(f"environment: K4 {mode}'s SH rows disagree")
+            err[name] = max(err[name], e, e_sh)
+
+    # bounce 0 on the camera rays spread over the frame (those that see
+    # the sky gather it in the final round); bounce 2 on the 64 groups of
+    # the sorted 1080p wavefront with the most hits, carried there by the
+    # kernels as on the path (phase 6's window)
+    fs, is_ = camera_state(city_host, ccfg, CMP_SIDE, CMP_SIDE)
+    compare_modes("bounce 0", hits(fs, is_), fs, is_)
+    cmp_groups = fs.shape[1] // BC.FL
+    fs, is_ = camera_state(city_host, ccfg, w, h)
+    src = torch.arange(fs.shape[1], dtype=torch.int32, device=dev)
+    for b in range(3):
+        fs, is_, src = BC.sort_wavefront(fs, is_, src, b == 0, bounds_)
+        ha = hits(fs, is_)
+        if b < 2:
+            fs, is_ = BC.shade(ha, fs, is_, ctbl, modes["final"][0],
+                               sample)[:2]
+    run = torch.cumsum((ha[BC.HA_PRIM] >= 0).view(-1, BC.FL).sum(1), 0)
+    run = torch.cat([run.new_zeros(1), run])
+    g0 = int(torch.argmax(run[cmp_groups:] - run[:-cmp_groups]))
+    lanes = slice(g0 * BC.FL, (g0 + cmp_groups) * BC.FL)
+    compare_modes(f"bounce 2 (groups {g0}-{g0 + cmp_groups - 1} of the "
+                  f"sorted 1080p wavefront)", ha[:, lanes].contiguous(),
+                  fs[:, lanes].contiguous(), is_[:, lanes].contiguous())
+    # timed at the city path's 1080p bounce-0 launch
+    fs, is_ = camera_state(city_host, ccfg, w, h)
+    src = torch.arange(fs.shape[1], dtype=torch.int32, device=dev)
+    fs, is_, src = BC.sort_wavefront(fs, is_, src, True, bounds_)
+    ha = hits(fs, is_)
+    n = fs.shape[1]
+    k4_modes = {}
+    for mode, (kc, final) in modes.items():
+        ms = _cuda_ms(lambda: BC.shade(ha, fs, is_, ctbl, kc, sample,
+                                       final_env=final), 10)
+        plain_ms = _cuda_ms(lambda: BC.shade_reference(
+            ha, fs, is_, ctbl, kc, sample, final), 1)
+        # each row it reads once, each it writes once: the final round
+        # reads the hit rows t, u, v, front and prim (no attribute, no
+        # material or light table), the export writes the SF_* rows
+        rows = (BC.HA_ATTR if final else BC.HA_ROWS) \
+            + 2 * (bf.NF + bf.NI) + BC.SH_ROWS + bf.NH \
+            + (0 if final else bf.SF_ROWS)
+        bound, by, _ = _bound(4 * n * rows + 4 * (ctbl.env.numel() + (
+            0 if final else ctbl.mat_rows.numel()
+            + ctbl.light_rows.numel())))
+        k4_modes[mode] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                              bound_by=by, lanes=n)
+        print(f"environment K4 {mode}: kernel {ms:.4f} ms per {n}-lane "
+              f"launch, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+              f"({by}) ({smi})", flush=True)
+    rec["k4"] = k4_modes
+    dump()
+
+    # ---- (c) the three full-size paths ----
+    launches = {}
+    cam = default_camera(sky_host, w, h, device=dev)
+    render_sample(sky, cam, cfg, w, h, 0)                       # warm-up
+    torch.cuda.synchronize()
+    kernels.launches.clear()
+    t0 = time.perf_counter()
+    acc, rays = None, 0
+    for s_ in range(1, 1 + ENV_SPP):
+        out = render_sample(sky, cam, cfg, w, h, s_)
+        acc = out["L"] if acc is None else acc + out["L"]
+        rays = rays + out["ray_count"]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches["sky_cornell"] = dict(kernels.launches)
+    chunks = -(-(w * h) // cfg.ray_chunk)
+    want = dict(bounce_fused_env=chunks * cfg.max_bounces * ENV_SPP,
+                bounce_fused_final=chunks * ENV_SPP)
+    hdr = acc / ENV_SPP
+    rays = int(rays)
+    p = dict(res=f"{w}x{h}", spp_timed=ENV_SPP, chunks=chunks,
+             launches=launches["sky_cornell"], expected=want, rays=rays,
+             seconds=dt, mrays_per_s=rays / dt / 1e6,
+             ms_per_frame_1spp=dt / ENV_SPP * 1e3, L_mean=float(hdr.mean()),
+             finite=bool(torch.isfinite(hdr).all()), tier=out["kernel_tier"],
+             card=smi)
+    rec["sky_cornell_path"] = p
+    print(f"environment path sky_cornell: {p['mrays_per_s']:.3f} Mrays/s, "
+          f"{p['ms_per_frame_1spp']:.3f} ms per 1-spp frame, {rays} rays, "
+          f"launches {p['launches']} of {want}, mean L {p['L_mean']:.5f} "
+          f"({smi})", flush=True)
+    if p["launches"] != want or not p["finite"] or p["tier"] != "fused":
+        dump()
+        _fail("environment: the sky Cornell path did not run every bounce "
+              "and the final round through K1's environment variants")
+
+    launches["sky_city"], images = _city_path(
+        record, dev, smi, dump, (city_host, city, prep_s),
+        label="sky_city_path")
+
+    host_c, flat_city, _ = city_prepared
+    ncfg = PathTracerConfig(max_bounces=4, nee=NEEMode.NEEAT,
+                            ray_chunk=1 << 30)
+    ncam = default_camera(host_c, w, h, device=dev)
+    render_adaptive(flat_city, ncam, ncfg, w, h, 1)             # warm-up
+    torch.cuda.synchronize()
+    kernels.launches.clear()
+    t0 = time.perf_counter()
+    hdr, state, rays = render_adaptive(flat_city, ncam, ncfg, w, h, ENV_SPP,
+                                       first_sample=1)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches["neeat_city"] = dict(kernels.launches)
+    resolved = dispatch.resolve(flat_city, ncfg, dev, state)
+    cp = resolved.cluster_pages
+    want = dict(cluster_closest=cp * 4 * ENV_SPP,
+                cluster_shade=4 * ENV_SPP,
+                cluster_shadow=cp * 4 * ENV_SPP)
+    lit = state.conf > 0
+    moved = (state.tile_pdf - 1.0 / state.n_lights).abs().amax(1) > 1e-3
+    p = dict(res=f"{w}x{h}", spp_timed=ENV_SPP,
+             launches=launches["neeat_city"], expected=want, rays=rays,
+             seconds=dt, mrays_per_s=rays / dt / 1e6,
+             ms_per_frame_1spp=dt / ENV_SPP * 1e3, L_mean=float(hdr.mean()),
+             finite=bool(torch.isfinite(hdr).all()),
+             tier=resolved.kernel_tier, nee_external=resolved.nee_external,
+             lit_tiles=int(lit.sum()), tiles=int(lit.numel()),
+             lit_not_uniform=float(moved[lit].float().mean())
+             if lit.any() else 0.0, card=smi)
+    rec["neeat_city_path"] = p
+    print(f"environment path neeat_city: {p['mrays_per_s']:.3f} Mrays/s, "
+          f"{p['ms_per_frame_1spp']:.3f} ms per 1-spp frame, {rays} rays, "
+          f"launches {p['launches']} of {want}, mean L {p['L_mean']:.5f}, "
+          f"{p['lit_tiles']} of {p['tiles']} tiles lit, "
+          f"{p['lit_not_uniform']:.4f} of them off the uniform pmf ({smi})",
+          flush=True)
+    if p["launches"] != want or not p["finite"] or \
+            p["tier"] != "clustered" or not p["nee_external"] or \
+            p["lit_tiles"] == 0 or p["lit_not_uniform"] < 0.9:
+        dump()
+        _fail("environment: the NEE-AT city did not run the clustered "
+              "external route, gave non-finite values or learned nothing")
+    dump()
+
+    # ---- (d) images ----
+    _city_parity(record, dev, dump, with_env=True, label="sky_city_parity")
+    xcfg = PathTracerConfig(max_bounces=4, nee=NEEMode.POWER,
+                            ray_chunk=1 << 30, kernel_tier="xla")
+    ccam = default_camera(city_host, w, h, device=dev)
+    gen = render_sample(city, ccam, xcfg, w, h, 1)["L"]
+    clu = images[1]
+    e = rmse(gen.cpu().numpy(), clu.cpu().numpy())
+    rec["sky_city_general_vs_clustered"] = dict(
+        rmse=e, mean_general=float(gen.mean()), mean_clustered=float(
+            clu.mean()), finite=bool(torch.isfinite(gen).all()))
+    print(f"environment sky city, general vs clustered tier (sample 1): "
+          f"RMSE {e:.5f}, means {float(gen.mean()):.5f} vs "
+          f"{float(clu.mean()):.5f}", flush=True)
+    if not torch.isfinite(gen).all():
+        dump()
+        _fail("environment: the general tier's sky city is not finite")
+    dump()
+
+    src = "rtxpt_tpu_torch/csrc/"
+    entries = {
+        name: dict(name=name, route="cuda", source=src + "bounce_fused.cu",
+                   replaces="rtxpt_tpu/pt/bounce_pallas.py:1389",
+                   launches=launches["sky_cornell"].get(name, 0),
+                   max_abs_err=err[name], library_ms=None,
+                   **{k: k1[name][k] for k in ("ms", "plain_ms", "bound_ms",
+                                               "bound_by")})
+        for name in ("bounce_fused_env", "bounce_fused_final")}
+    entries["cluster_shade_env"] = dict(
+        k4_env, launches=launches["sky_city"].get("cluster_shade_env", 0),
+        max_abs_err=max(k4_env["max_abs_err"], err["cluster_shade_env"]))
+    entries["cluster_shade_final"] = dict(
+        name="cluster_shade_final", route="cuda",
+        source=src + "cluster_shade.cu",
+        replaces="rtxpt_tpu/pt/bounce_clustered.py:462",
+        launches=launches["sky_city"].get("cluster_shade_final", 0),
+        max_abs_err=err["cluster_shade_final"], library_ms=None,
+        **{k: k4_modes["final"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by")})
+    return dict(entries=entries, launches=launches,
+                k4_modes={k: v for k, v in k4_modes.items() if k != "final"},
+                k4_export_err=err["cluster_shade"])
 
 
 def _write_record(record, path):

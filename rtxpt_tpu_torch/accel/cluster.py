@@ -103,6 +103,9 @@ class ClusterTables:
     xf: Optional[torch.Tensor] = None
     # [I,19] o2w linear (9) | normal matrix (9) | LOD bias offset (1)
     inst_post: Optional[torch.Tensor] = None
+    # [ET_SIZE] the kernels' environment table (pt/bounce_fused.py
+    # build_env_table); None without an environment light
+    env: Optional[torch.Tensor] = None
 
     @property
     def device(self):
@@ -327,12 +330,16 @@ def build_cluster_blocks(positions, normals, indices, tri_material, lights,
 def cluster_tables_from_numpy(blocks, aabb_lo, aabb_hi, mat_rows, light_rows,
                               offsets, n_clusters, n_tris, n_lights,
                               device="cuda", instanced=False, wc_block=None,
-                              wc_inst=None, xf=None, inst_post=None
-                              ) -> ClusterTables:
+                              wc_inst=None, xf=None, inst_post=None,
+                              env_rows=None) -> ClusterTables:
     """ClusterTables on `device` (the GPU by default; raises without one)
     from numpy arrays of the JAX layout. Instanced tables take `wc_block`,
     `wc_inst`, `inst_post` and `xf`, either the port's M10 [I,10,10] or
-    the JAX package's tile [I,16,128] (X[i,j] = M10[j,i])."""
+    the JAX package's tile [I,16,128] (X[i,j] = M10[j,i]); `env_rows` is
+    the JAX package's environment table or the port's
+    (bounce_fused.env_table)."""
+    from rtxpt_tpu_torch.pt.bounce_fused import env_table
+
     device = rtxpt_tpu_torch.device(device)
 
     def f(a):   # copies only arrays that are not writable f32 already
@@ -360,21 +367,22 @@ def cluster_tables_from_numpy(blocks, aabb_lo, aabb_hi, mat_rows, light_rows,
         mat_rows=f(mat_rows), light_rows=f(light_rows),
         offsets=None if offsets is None else i32(offsets),
         n_clusters=int(n_clusters), n_tris=int(n_tris),
-        n_lights=int(n_lights), instanced=bool(instanced), **parts)
+        n_lights=int(n_lights), instanced=bool(instanced),
+        env=None if env_rows is None else f(env_table(env_rows)), **parts)
 
 
 def _check_served(materials, lights):
     """Raise NotImplementedError, naming the feature, for what the
-    clustered tier does not serve: sphere or environment lights, more
-    than 128 materials."""
+    clustered tier does not serve: sphere or environment-quad lights
+    (the JAX package leaves them to the general tier), more than 128
+    materials."""
     from rtxpt_tpu_torch.lighting.lights_baker import (
-        KIND_ENV, KIND_ENVQUAD, KIND_SPHERE)
+        KIND_ENVQUAD, KIND_SPHERE)
     from rtxpt_tpu_torch.pt.bounce_fused import MAX_MATERIALS
 
-    if np.any(np.isin(_np(lights.kind), [KIND_SPHERE, KIND_ENVQUAD,
-                                         KIND_ENV])) or lights.env_light >= 0:
-        raise NotImplementedError("sphere and environment lights are not "
-                                  "ported to the clustered tier")
+    if np.any(np.isin(_np(lights.kind), [KIND_SPHERE, KIND_ENVQUAD])):
+        raise NotImplementedError("sphere and environment-quad lights: "
+                                  "the general tier samples them")
     n_mats = len(_np(materials.base_color))
     if n_mats > MAX_MATERIALS:
         raise NotImplementedError(
@@ -383,14 +391,17 @@ def _check_served(materials, lights):
 
 
 def build_cluster_tables(positions, normals, indices, tri_material,
-                         materials, lights, uvs=None, device="cuda"
-                         ) -> ClusterTables:
+                         materials, lights, uvs=None, envmap=None,
+                         device="cuda") -> ClusterTables:
     """Bake the cluster tables of a flat, Morton-ordered scene onto
-    `device` (the GPU by default; raises without one). Raises
-    NotImplementedError, naming the feature, for a scene the clustered
-    tier does not serve (anisotropic materials, sphere or environment
-    lights, more than 128 materials, no triangle)."""
-    from rtxpt_tpu_torch.pt.bounce_fused import pack_lights, pack_materials
+    `device` (the GPU by default; raises without one), with the
+    environment table when the lights hold an environment light (`envmap`
+    baked at 64 x 128). Raises NotImplementedError, naming the feature,
+    for a scene the clustered tier does not serve (anisotropic materials,
+    sphere or environment-quad lights, more than 128 materials, no
+    triangle)."""
+    from rtxpt_tpu_torch.pt.bounce_fused import (
+        lights_env_table, pack_lights, pack_materials)
 
     if float(np.max(_np(materials.anisotropy), initial=0.0)) > 0.0:
         raise NotImplementedError("anisotropic materials are not ported "
@@ -404,7 +415,8 @@ def build_cluster_tables(positions, normals, indices, tri_material,
         positions, normals, indices, tri_material, lights, uvs=uvs)
     return cluster_tables_from_numpy(
         blocks, lo, hi, pack_materials(materials), pack_lights(lights),
-        offsets, len(offsets) - 1, t, int(lights.num), device)
+        offsets, len(offsets) - 1, t, int(lights.num), device,
+        env_rows=lights_env_table(lights, envmap))
 
 
 def instance_operand_map(A: np.ndarray, t_w: np.ndarray):
@@ -430,7 +442,8 @@ def instance_operand_map(A: np.ndarray, t_w: np.ndarray):
 
 
 def build_cluster_tables_instanced(built, host, materials, lights,
-                                   device="cuda", max_instances=65536
+                                   envmap=None, device="cuda",
+                                   max_instances=65536
                                    ) -> Optional[ClusterTables]:
     """Instanced cluster tables of a two-level scene (`built` is
     tlas.build_two_level's dict) on `device` (the GPU by default; raises
@@ -444,11 +457,16 @@ def build_cluster_tables_instanced(built, host, materials, lights,
     Returns None, as the JAX package does, for what the instanced tier
     leaves to the TLAS walk: emissive materials on pool triangles,
     instance transforms of non-positive determinant (mirrored ones would
-    flip the facing test), anisotropic materials, more than
-    `max_instances` instances or candidates past the block budget. Raises
-    NotImplementedError as `build_cluster_tables` does for what the
-    clustered tier does not serve."""
-    from rtxpt_tpu_torch.pt.bounce_fused import pack_lights, pack_materials
+    flip the facing test), anisotropic materials, sphere or
+    environment-quad lights, an environment light whose map is not at the
+    kernels' 64 x 128 (the two-level path bakes the source's own
+    resolution), more than `max_instances` instances or candidates past
+    the block budget. Raises NotImplementedError as `build_cluster_tables`
+    does for more than 128 materials."""
+    from rtxpt_tpu_torch.lighting.lights_baker import (
+        KIND_ENVQUAD, KIND_SPHERE)
+    from rtxpt_tpu_torch.pt.bounce_fused import (
+        env_table_serves, lights_env_table, pack_lights, pack_materials)
 
     tl = built["tlas"]
     tri_base = np.asarray(built["tri_base"], np.int64)
@@ -462,6 +480,9 @@ def build_cluster_tables_instanced(built, host, materials, lights,
         return None
     used = np.unique(np.asarray(built["tri_material"], np.int64))
     if np.any(np.abs(_np(materials.emissive)[used]) > 0.0):
+        return None
+    if np.any(np.isin(_np(lights.kind), [KIND_SPHERE, KIND_ENVQUAD])) or \
+            not env_table_serves(lights, envmap):
         return None
     _check_served(materials, lights)
 
@@ -522,4 +543,5 @@ def build_cluster_tables_instanced(built, host, materials, lights,
         np.concatenate(wc_hi), pack_materials(materials), pack_lights(lights),
         None, n_cand, int(tri_base[-1]), int(lights.num), device,
         instanced=True, wc_block=np.concatenate(wc_block),
-        wc_inst=np.concatenate(wc_inst), xf=xf, inst_post=inst_post)
+        wc_inst=np.concatenate(wc_inst), xf=xf, inst_post=inst_post,
+        env_rows=lights_env_table(lights, envmap))

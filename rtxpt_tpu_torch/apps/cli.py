@@ -13,8 +13,12 @@ The city (about --tri-budget triangles, 350,000 by default; seen from above
 the roofs) renders on the clustered tier; the other scenes fit the fused
 kernel's 2048 triangles. `--nee neeat` (the per-tile adaptive sampler,
 learning from each sample before the next), `--candidates K` above 1
-(WRS) and scenes of more than 128 lights take the fused tier's
-external-NEE route.
+(WRS) and scenes of more than 128 lights take the external-NEE route of
+either tier. `--sky` adds the procedural sky (lighting/sky.py make_sky,
+256 x 128, baked at the kernels' 64 x 128); `--env-quads Q` bakes it as Q
+region lights, which the general tier samples; with `--nee neeat` an
+environment light also renders on the general tier, as in the JAX
+package. `--envmap PATH` (an image file) is not ported yet.
 """
 
 from __future__ import annotations
@@ -51,6 +55,13 @@ def main(argv=None):
                             "city"])
     p.add_argument("--tri-budget", type=int, default=350_000,
                    help="city: about this many triangles")
+    p.add_argument("--sky", action="store_true",
+                   help="add a procedural sky environment")
+    p.add_argument("--env-quads", type=int, default=0, metavar="Q",
+                   help="bake the environment as Q region lights "
+                        "(kEnvironmentQuad)")
+    p.add_argument("--envmap", default=None,
+                   help="equirect environment image (not ported yet)")
     p.add_argument("--width", type=int, default=512)
     p.add_argument("--height", type=int, default=512)
     p.add_argument("--spp", type=int, default=16)
@@ -79,6 +90,11 @@ def main(argv=None):
         p.error("--bounces must be >= 0")
     if args.candidates < 1:
         p.error("--candidates must be >= 1")
+    if args.env_quads < 0:
+        p.error("--env-quads must be >= 0")
+    if args.envmap:
+        p.error("--envmap: loading environment images is not ported to "
+                "rtxpt_tpu_torch yet (use --sky)")
 
     import numpy as np
 
@@ -92,11 +108,15 @@ def main(argv=None):
 
     dev = rtxpt_tpu_torch.device(args.device)
     host = build_scene(args.scene, args.tri_budget)
+    if args.sky:
+        from rtxpt_tpu_torch.lighting.sky import make_sky
+        host.envmap_image = make_sky()
+    host.env_quad_lights = args.env_quads
     t0 = time.time()
     scene = prepare(host, device=dev)
-    tables = scene.cluster_tables or scene.bounce_tables
-    print(f"[prepare] {tables.n_tris} tris, {scene.lights.count} lights, "
-          f"{time.time() - t0:.2f}s", file=sys.stderr)
+    print(f"[prepare] {scene.tri_pack.shape[0]} tris, "
+          f"{scene.lights.count} lights, {time.time() - t0:.2f}s",
+          file=sys.stderr)
     cam = default_camera(host, args.width, args.height, device=dev)
     cfg = PathTracerConfig(
         max_bounces=args.bounces,

@@ -3,9 +3,11 @@
 // Replaces rtxpt_tpu/pt/bounce_pallas.py::_bounce_kernel (launched there by
 // _bounce_call, pl.pallas_call at bounce_pallas.py:1714) in the reference-mode
 // configuration, with NEE in the kernel (nee slots 0-2) or exported for
-// external NEE (slots 3-5: the SF_* surface rows go to `surf_out`). Plain
-// version: rtxpt_tpu_torch/pt/bounce_fused.py bounce_reference; wrapper:
-// bounce_fused.bounce.
+// external NEE (slots 3-5: the SF_* surface rows go to `surf_out`), and the
+// environment switches has_env (the table `env`: miss radiance with MIS,
+// the environment light's importance sample) and final_env (the closing
+// environment-only round). Plain version: rtxpt_tpu_torch/pt/bounce_fused.py
+// bounce_reference; wrapper: bounce_fused.bounce.
 //
 // Design. One thread per ray over a 1-D grid; the wavefront state is SoA
 // ([rows, N] columns), so neighbouring threads read neighbouring addresses.
@@ -24,6 +26,12 @@
 // shared-memory staging, no ray compaction (inactive lanes still run the
 // intersection loop, as on the TPU), and -fmad=false for parity with the
 // plain version.
+//
+// The environment table (164 KB: 128 KB of float4 texels, 32 KB of
+// conditional CDFs, four 64-entry rows) is read from global memory through
+// __ldg, so it stays in L1 / L2; a miss reads one texel, a NEE sample two
+// binary searches (6 + 7 probes) and one texel. Staging it in shared memory
+// is later work.
 #include <cuda_runtime.h>
 
 #include "bounce_fused.cuh"
@@ -46,19 +54,21 @@ bounce_fused_kernel(const float* __restrict__ fs, const int* __restrict__ is,
 }  // namespace
 
 // `surf_out` ([SF_ROWS, n] or NULL) receives the exported surface in the
-// external modes.
+// external modes; `env` ([ET_SIZE] or NULL) is the environment table, which
+// `final_env` needs.
 extern "C" int rtxpt_bounce_fused(
     const float* fs, const int* is, float* fs_out, int* is_out, float* hit_out,
     float* surf_out, const float* tri_coef, const float* attr_rows, const float* mat_rows,
-    const float* light_rows, int n, int n_tris, int tpad, int n_lights,
+    const float* light_rows, const float* env, int n, int n_tris, int tpad, int n_lights,
     unsigned int sample_idx, int nee_mode, int enable_mis, float firefly,
     int rr_enable, int min_rr, float max_travel, int low_discrepancy,
-    int energy_comp, int maxb, void* stream) {
+    int energy_comp, int maxb, int final_env, void* stream) {
   rt::Tables tb;
   tb.tri = tri_coef;
   tb.attr = attr_rows;
   tb.mat = mat_rows;
   tb.light = light_rows;
+  tb.env = env;
   tb.n_tris = n_tris;
   tb.tpad = tpad;
   tb.n_lights = n_lights;
@@ -73,6 +83,7 @@ extern "C" int rtxpt_bounce_fused(
   cfg.low_discrepancy = low_discrepancy != 0;
   cfg.energy_comp = energy_comp != 0;
   cfg.maxb = maxb;
+  cfg.final_env = final_env != 0;
   int blocks = (n + kThreads - 1) / kThreads;
   bounce_fused_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       fs, is, fs_out, is_out, hit_out, surf_out, tb, cfg, n);

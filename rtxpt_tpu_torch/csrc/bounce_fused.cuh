@@ -3,11 +3,14 @@
 // the fused bounce kernel (bounce_fused.cu); the plain version of the same
 // function is rtxpt_tpu_torch/pt/bounce_fused.py::bounce_reference, and the
 // TPU original is rtxpt_tpu/pt/bounce_pallas.py::_bounce_kernel with
-// surface_and_shade in the reference-mode configuration (no env, no
-// textures, no OMM, no priorities, no split channels, no injection), with NEE
-// in the kernel (modes 1, 2) or exported for external NEE (modes 3-5: the
-// SF_* surface rows; the shadow rays are then resolved by K2,
-// shadow_occlusion.cu).
+// surface_and_shade in the reference-mode configuration (no textures, no
+// OMM, no priorities, no split channels, no injection), with NEE in the
+// kernel (modes 1, 2) or exported for external NEE (modes 3-5: the SF_*
+// surface rows; the shadow rays are then resolved by K2,
+// shadow_occlusion.cu). With the environment table (Tables::env) a miss
+// gathers the environment with its MIS weight, the environment light is
+// importance-sampled from the table's two-level CDF, and the final
+// environment-only round (Config::final_env) closes the path.
 #pragma once
 
 #include "rng.cuh"
@@ -17,6 +20,9 @@
 #define RT_LDG(p) __ldg(p)
 #else
 #define RT_LDG(p) (*(p))
+struct float4 {
+  float x, y, z, w;
+};
 #endif
 
 namespace rt {
@@ -40,6 +46,14 @@ enum { SF_POS = 0, SF_SHN = 3, SF_GN = 6, SF_MID = 9, SF_BASE = 10, SF_METAL = 1
        SF_ROUGH = 14, SF_ETA = 15, SF_THP = 16, SF_EMIT = 19, SF_PGEO = 22,
        SF_LID = 23, SF_ROWS = 24 };
 enum { SR_O = 0, SR_D = 3, SR_DIST = 6, SR_DO = 7, SR_ROWS = 8 };
+// the environment table (bounce_fused.py ET_*): [64][128] float4 texels
+// (r, g, b, texel pdf), [64][128] conditional CDFs, then per row the
+// marginal CDF, cos(pi i / 64) (entry 0 a pad), the texel solid angle, and
+// cos / sin of the rotation and the environment light's power pmf
+enum { ENV_H = 64, ENV_W = 128, ET_TEX = 0, ET_COND = ET_TEX + ENV_H * ENV_W * 4,
+       ET_ROWCDF = ET_COND + ENV_H * ENV_W, ET_COSB = ET_ROWCDF + ENV_H,
+       ET_SA = ET_COSB + ENV_H, ET_COS = ET_SA + ENV_H, ET_SIN = ET_COS + 1,
+       ET_SELPDF = ET_COS + 2, ET_SIZE = ET_COS + 64 };
 constexpr float kBig = (float)1e30;
 constexpr int kLanes = 128;        // lane tables: [rows, 128]
 
@@ -48,6 +62,7 @@ struct Tables {
   const float* attr;    // [AT_ROWS, tpad]
   const float* mat;     // [MT_ROWS, 128]
   const float* light;   // [LROWS, 128]
+  const float* env;     // [ET_SIZE], or null without an environment light
   int n_tris, tpad, n_lights;
 };
 
@@ -63,6 +78,7 @@ struct Config {
   bool low_discrepancy;
   bool energy_comp;
   int maxb;
+  bool final_env;       // the final environment-only round
 };
 
 struct Hit {
@@ -152,6 +168,117 @@ RT_HD int searchsorted128(const float* cdf, float u) {
 
 RT_HD int clampi(int x, int lo, int hi) { return x < lo ? lo : (x > hi ? hi : x); }
 
+// ----- the environment (bounce_pallas.py:721-875; plain versions
+// bounce_fused.py atan2_poly, env_texel_of_dir, env_eval_pdf, env_sample_k)
+
+RT_HD float minimum_(float a, float b) {
+  if (a != a) return a;
+  if (b != b) return b;
+  return a < b ? a : b;
+}
+
+// atan2(z, x) by the JAX kernels' minimax polynomial (|err| < 2e-5 rad).
+RT_HD float atan2_poly(float z, float x) {
+  float ax = fabsf(x), az = fabsf(z);
+  float mx = maximum_(ax, az), mn = minimum_(ax, az);
+  float t = mn / max_(mx, (float)1e-30);
+  float t2 = t * t;
+  float p = t * ((float)0.99997726 + t2 * ((float)-0.33262347 + t2 * (
+      (float)0.19354346 + t2 * ((float)-0.11643287 + t2 * (
+          (float)0.05265332 - t2 * (float)0.01172120)))));
+  p = az > ax ? (float)(0.5 * 3.141592653589793) - p : p;
+  p = x < 0.0f ? kPi - p : p;
+  return z < 0.0f ? -p : p;
+}
+
+// #{i : cdf[i] <= u} over a non-decreasing CDF of n = 2^k entries: the
+// binary search takes the count's side of a tie.
+RT_HD int count_le(const float* cdf, int n, float u) {
+  int lo = 0;
+  for (int bit = n >> 1; bit >= 1; bit >>= 1)
+    lo += RT_LDG(cdf + lo + bit - 1) <= u ? bit : 0;
+  return lo + (lo == n - 1 && RT_LDG(cdf + n - 1) <= u ? 1 : 0);
+}
+
+struct EnvTexel {
+  V3 L;
+  float pdf;    // the texel's selection pmf
+};
+
+RT_HD EnvTexel env_texel(const float* env, int yi, int xi) {
+  const float4* tex = reinterpret_cast<const float4*>(env + ET_TEX);
+  float4 v = RT_LDG(tex + yi * ENV_W + xi);
+  EnvTexel e;
+  e.L = v3(v.x, v.y, v.z);
+  e.pdf = v.w;
+  return e;
+}
+
+// The texel of direction d: the row counts the boundaries cos(pi i / 64) at
+// or above d.y (no acos), the column is the polynomial atan2's.
+RT_HD void env_texel_of_dir(const float* env, V3 d, int& yi, int& xi) {
+  int cnt = 0;
+  for (int i = 1; i < ENV_H; ++i) cnt += d.y <= RT_LDG(env + ET_COSB + i) ? 1 : 0;
+  yi = clampi(cnt, 0, ENV_H - 1);
+  float c = RT_LDG(env + ET_COS), s = RT_LDG(env + ET_SIN);
+  float xr = c * d.x + s * d.z;
+  float zr = -s * d.x + c * d.z;
+  float u = atan2_poly(zr, xr) * (float)(1.0 / (2.0 * 3.141592653589793));
+  u = u - floorf(u);
+  xi = clampi((int)(u * (float)ENV_W), 0, ENV_W - 1);
+}
+
+// The radiance of direction d and the NEE pdf of sampling it (selection pmf,
+// 1 / n_lights when uniform, times the texel pdf over its solid angle).
+RT_HD EnvTexel env_eval_pdf(const float* env, V3 d, bool nee_uniform, int n_lights) {
+  int yi, xi;
+  env_texel_of_dir(env, d, yi, xi);
+  EnvTexel e = env_texel(env, yi, xi);
+  float sel = nee_uniform ? (float)(1.0 / (double)(n_lights > 1 ? n_lights : 1))
+                          : RT_LDG(env + ET_SELPDF);
+  e.pdf = sel * e.pdf / RT_LDG(env + ET_SA + yi);
+  return e;
+}
+
+struct EnvSample {
+  V3 wi, L;
+  float pdf;    // solid-angle pdf of the texel CDF (no selection pmf)
+};
+
+// Importance sample: u1 picks the row by the marginal CDF, u2 the column by
+// the row's conditional CDF, the rescaled residues jitter in the texel.
+RT_HD EnvSample env_sample(const float* env, float u1, float u2) {
+  u1 = clamp_(u1, 0.0f, (float)(1.0 - 1e-7));
+  u2 = clamp_(u2, 0.0f, (float)(1.0 - 1e-7));
+  const float* rowcdf = env + ET_ROWCDF;
+  int yi = clampi(count_le(rowcdf, ENV_H, u1), 0, ENV_H - 1);
+  float c_lo = yi > 0 ? RT_LDG(rowcdf + yi - 1) : 0.0f;
+  float c_hi = RT_LDG(rowcdf + yi);
+  float jv = clamp_((u1 - c_lo) / max_(c_hi - c_lo, (float)1e-12), 0.0f,
+                    (float)(1.0 - 1e-6));
+  const float* cond = env + ET_COND + yi * ENV_W;
+  int xi = clampi(count_le(cond, ENV_W, u2), 0, ENV_W - 1);
+  float d_lo = xi > 0 ? RT_LDG(cond + xi - 1) : 0.0f;
+  float d_hi = RT_LDG(cond + xi);
+  float ju = clamp_((u2 - d_lo) / max_(d_hi - d_lo, (float)1e-12), 0.0f,
+                    (float)(1.0 - 1e-6));
+  float u = ((float)xi + ju) * (float)(1.0 / ENV_W);
+  float v = ((float)yi + jv) * (float)(1.0 / ENV_H);
+  float phi = u * (float)(2.0 * 3.141592653589793);
+  float theta = v * kPi;
+  float st = sinf(theta);
+  float x = st * cosf(phi);
+  float z = st * sinf(phi);
+  float y = cosf(theta);
+  float c = RT_LDG(env + ET_COS), s = RT_LDG(env + ET_SIN);
+  EnvTexel e = env_texel(env, yi, xi);
+  EnvSample es;
+  es.wi = v3(c * x - s * z, y, s * x + c * z);
+  es.L = e.L;
+  es.pdf = e.pdf / RT_LDG(env + ET_SA + yi);
+  return es;
+}
+
 // Per-ray wavefront state (the FS_* / IS_* rows of one column).
 struct RayState {
   V3 o, d, thp, L;
@@ -234,6 +361,7 @@ RT_HD ShadowRay surface_and_shade(RayState& s, const Hit& h, const AttrFetch& A,
                                   SurfRows* sf = nullptr) {
   const int mode = cfg.nee_mode;
   const bool use_nee = (mode == 1 || mode == 2) && tb.n_lights > 0;
+  const bool ext_nee = (mode >= 3 && mode <= 5) && tb.n_lights > 0;
   const bool nee_uniform = mode == 1 || mode == 4;
   // emissive-hit MIS with the baked per-triangle selection pdf: every mode
   // but NEE-AT, whose mixture pmf lives in the external tile state
@@ -247,6 +375,14 @@ RT_HD ShadowRay surface_and_shade(RayState& s, const Hit& h, const AttrFetch& A,
   const int lb = s.lb;
 
   uint32_t seed_base = hash_combine(hash_combine((uint32_t)s.px, (uint32_t)s.py), (uint32_t)lb);
+  if (tb.env != nullptr && s.active && !hit) {
+    // HandleMiss: the environment, weighted against its NEE pdf
+    EnvTexel e = env_eval_pdf(tb.env, d, nee_uniform, tb.n_lights);
+    float w_env = 1.0f;
+    if ((use_nee || ext_nee) && cfg.enable_mis)
+      w_env = (s.prev_delta || lb == 0) ? 1.0f : power_heuristic(s.prev_pdf, e.pdf);
+    s.L = s.L + s.thp * e.L * w_env;
+  }
   bool hit_mask = s.active && hit;
   bool active = s.active && hit;                 // miss terminates
   bool not_expired = (lb < s.budget) && (lb < cfg.maxb);
@@ -364,6 +500,15 @@ RT_HD ShadowRay surface_and_shade(RayState& s, const Hit& h, const AttrFetch& A,
     lf.extra1 = lane(tb.light, LROW_EXTRA + 1, li);
     lf.normal = lane3(tb.light, LROW_NORMAL, li);
     LightSample ls = sample_light(lf, sel_pdf, pos, u1, u2);
+    if (tb.env != nullptr && lf.kind == KIND_ENV) {
+      EnvSample es = env_sample(tb.env, u1, u2);
+      ls.wi = es.wi;
+      ls.dist = kDeltaDist;
+      ls.Li = es.L;
+      ls.pdf = sel_pdf * es.pdf;
+      ls.is_delta = false;
+      ls.valid = (ls.pdf > (float)1e-12) && (sel_pdf > 0.0f);
+    }
     V3 wi_l = to_local3(ls.wi, sh_n);
     V3 f_l = bsdf_eval(b, wo, wi_l);
     float pdf_b = bsdf_pdf(b, wo, wi_l);
@@ -418,6 +563,23 @@ RT_HD ShadowRay surface_and_shade(RayState& s, const Hit& h, const AttrFetch& A,
   return sr;
 }
 
+// The final environment-only round (bounce_fused.py final_env_state): an
+// active ray that misses adds thp x the environment, weighted against the
+// environment's NEE pdf when MIS is on and the NEE mode is one of
+// `nee_modes` (a bit per mode: K1 1, 2, 4, 5; K4 1, 2); the ray ends.
+RT_HD void final_env_state(RayState& s, bool hit, const Tables& tb, const Config& cfg,
+                           int nee_modes) {
+  const bool use_nee = ((nee_modes >> cfg.nee_mode) & 1) && tb.n_lights > 0;
+  if (s.active && !hit) {
+    EnvTexel e = env_eval_pdf(tb.env, s.d, cfg.nee_mode == 1, tb.n_lights);
+    float w_env = 1.0f;
+    if (use_nee && cfg.enable_mis)
+      w_env = s.prev_delta ? 1.0f : power_heuristic(s.prev_pdf, e.pdf);
+    s.L = s.L + s.thp * e.L * w_env;
+  }
+  s.active = false;
+}
+
 RT_HD void store_surf(int i, int n, const SurfRows& sf, float* __restrict__ surf_out) {
   float* so = surf_out + i;
   auto put3 = [&](int r, V3 v) {
@@ -449,6 +611,18 @@ RT_HD void bounce_ray(int i, int n, const float* __restrict__ fs, const int* __r
   RayState s = load_state(i, n, fs, is);
   const int lb_in = s.lb;
   Hit h = intersect(tb, s.o, s.d, cfg.max_travel);
+  float* ho = hit_out + i;
+  ho[0] = h.t < kBig ? h.t : 0.0f;
+  ho[n] = (float)h.prim;
+  ho[2 * n] = h.u;
+  ho[3 * n] = h.v;
+  ho[4 * n] = h.det > 0.0f ? 1.0f : 0.0f;
+  if (cfg.final_env) {
+    final_env_state(s, h.t < kBig, tb, cfg, (1 << 1) | (1 << 2) | (1 << 4) | (1 << 5));
+    store_state(i, n, s, fs_out, is_out);
+    ho[5 * n] = 0.0f;
+    return;
+  }
   auto attr = [&](int r) {
     return h.prim >= 0 ? RT_LDG(tb.attr + r * tb.tpad + h.prim) : 0.0f;
   };
@@ -456,12 +630,6 @@ RT_HD void bounce_ray(int i, int n, const float* __restrict__ fs, const int* __r
   ShadowRay sr = surface_and_shade(s, h, attr, tb, cfg, surf_out != nullptr ? &sf : nullptr);
   if (sr.do_nee && !occluded(tb, sr.o, sr.d, sr.dist)) s.L = s.L + sr.contrib;
   store_state(i, n, s, fs_out, is_out);
-  float* ho = hit_out + i;
-  ho[0] = h.t < kBig ? h.t : 0.0f;
-  ho[n] = (float)h.prim;
-  ho[2 * n] = h.u;
-  ho[3 * n] = h.v;
-  ho[4 * n] = h.det > 0.0f ? 1.0f : 0.0f;
   if (surf_out != nullptr) {
     store_surf(i, n, sf, surf_out);
     ho[5 * n] = sf.shaded ? (lb_in > 0 ? 2.0f : 1.0f) : 0.0f;

@@ -1,0 +1,66 @@
+// K4's per-lane body (cluster_shade.cu): surface_and_shade (bounce_fused.cuh)
+// on K3's HA rows, with the attribute fetch reading those rows; writes the
+// next state, the SH shadow request rows and the hit rows of lane i, and in
+// the external modes the SF_* rows (`surf_out`) and the shading flag. The
+// plain version is rtxpt_tpu_torch/pt/bounce_clustered.py shade_reference.
+#pragma once
+
+#include "bounce_fused.cuh"
+#include "cluster.cuh"
+
+namespace rt {
+namespace cl {
+
+RT_HD void shade_lane(int i, int n, const float* __restrict__ ha,
+                      const float* __restrict__ fs, const int* __restrict__ is,
+                      float* __restrict__ fs_out, int* __restrict__ is_out,
+                      float* __restrict__ sh_out, float* __restrict__ hit_out,
+                      float* __restrict__ surf_out, const Tables& tb,
+                      const Config& cfg) {
+  auto H = [&](int r) { return ha[(size_t)r * n + i]; };
+  RayState s = load_state(i, n, fs, is);
+  Hit h;
+  h.t = H(HA_T);
+  h.u = H(HA_U);
+  h.v = H(HA_V);
+  h.det = H(HA_FRONT);
+  h.prim = -1;                       // surface_and_shade reads it only via A
+  auto attr = [&](int r) { return H(HA_ATTR + r); };
+  const int lb_in = s.lb;
+  float* so = sh_out + i;
+  float* ho = hit_out + i;
+  const size_t sn = (size_t)n;
+  ho[0] = h.t < kBig ? h.t : 0.0f;
+  ho[sn] = H(HA_PRIM);
+  ho[2 * sn] = h.u;
+  ho[3 * sn] = h.v;
+  ho[4 * sn] = h.det > 0.0f ? 1.0f : 0.0f;
+  if (cfg.final_env) {
+    final_env_state(s, h.t < kBig, tb, cfg, (1 << 1) | (1 << 2));
+    store_state(i, n, s, fs_out, is_out);
+    for (int r = 0; r < SH_ROWS; ++r) so[r * sn] = 0.0f;
+    ho[5 * sn] = 0.0f;
+    return;
+  }
+  SurfRows sf;
+  const ShadowRay sr =
+      surface_and_shade(s, h, attr, tb, cfg, surf_out != nullptr ? &sf : nullptr);
+  store_state(i, n, s, fs_out, is_out);
+  so[(SH_O + 0) * sn] = sr.o.x; so[(SH_O + 1) * sn] = sr.o.y; so[(SH_O + 2) * sn] = sr.o.z;
+  so[(SH_D + 0) * sn] = sr.d.x; so[(SH_D + 1) * sn] = sr.d.y; so[(SH_D + 2) * sn] = sr.d.z;
+  so[SH_DIST * sn] = sr.dist;
+  so[(SH_CONTRIB + 0) * sn] = sr.contrib.x;
+  so[(SH_CONTRIB + 1) * sn] = sr.contrib.y;
+  so[(SH_CONTRIB + 2) * sn] = sr.contrib.z;
+  so[SH_DO * sn] = sr.do_nee ? 1.0f : 0.0f;
+  for (int r = SH_CDIFF; r < SH_ROWS; ++r) so[r * sn] = 0.0f;
+  if (surf_out != nullptr) {
+    store_surf(i, n, sf, surf_out);
+    ho[5 * sn] = sf.shaded ? (lb_in > 0 ? 2.0f : 1.0f) : 0.0f;
+  } else {
+    ho[5 * sn] = sr.do_nee ? 1.0f : 0.0f;
+  }
+}
+
+}  // namespace cl
+}  // namespace rt

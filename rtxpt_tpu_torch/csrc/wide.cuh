@@ -29,7 +29,7 @@ constexpr float kDeltaDist = (float)1e8;
 enum { LOBE_DIFFUSE_REFL = 0, LOBE_SPECULAR_REFL = 1,
        LOBE_SPECULAR_TRANS = 2, LOBE_DIFFUSE_TRANS = 3 };
 enum { KIND_TRIANGLE = 0, KIND_POINT = 1, KIND_DIRECTIONAL = 2,
-       KIND_SPOT = 3 };
+       KIND_SPOT = 3, KIND_ENV = 4 };
 
 // torch.clamp / torch.maximum semantics: NaN in, NaN out.
 RT_HD float max_(float x, float lo) { return (x != x) ? x : (x > lo ? x : lo); }
@@ -347,7 +347,8 @@ RT_HD BSDFSample bsdf_sample(const BSDF& b, V3 wo, float u_lobe, float u1, float
 }
 
 // ---------------------------------------------------------------------------
-// Light sample (wide.sample_light_fields_w, no environment branch)
+// Light sample (wide.sample_light_fields_w; its environment branch is
+// bounce_fused.cuh's env_sample, which needs the environment table)
 // ---------------------------------------------------------------------------
 
 struct LightFields {

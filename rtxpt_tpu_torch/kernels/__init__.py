@@ -13,7 +13,9 @@ versions do (the parity switch; see PERF.md for its cost).
 `launches` counts kernel launches by name; each wrapper adds one where it
 launches its kernel, so a run can show which kernels its path went
 through. An instanced variant counts under its own name
-("cluster_closest_inst", "cluster_shadow_inst"). `build_all()` builds
+("cluster_closest_inst", "cluster_shadow_inst"), and so do the shading
+kernels' environment variants ("bounce_fused_env", "bounce_fused_final",
+"cluster_shade_env", "cluster_shade_final"). `build_all()` builds
 every library at once, one nvcc process per source.
 """
 
@@ -145,11 +147,13 @@ BOUNCE_FUSED = CudaLibrary(
         _P, _P, _P, _P, _P,            # fs, is_, fs_out, is_out, hit_out
         _P,                            # surf_out (external modes) | NULL
         _P, _P, _P, _P,                # tri_coef, attr, mat, light rows
+        _P,                            # env table | NULL
         _I, _I, _I, _I,                # n, n_tris, tpad, n_lights
         _U,                            # sample_idx
         _I, _I, _F, _I, _I, _F,        # nee_mode, mis, firefly, rr, min_rr,
         #                                max_travel
         _I, _I, _I,                    # low_discrepancy, energy_comp, maxb
+        _I,                            # final_env
         _P]})                          # cudaStream_t
 
 # K2: the shadow any-hit kernel of external NEE (replaces rtxpt_tpu/pt/
@@ -182,10 +186,12 @@ CLUSTER_SHADE = CudaLibrary(
     "cluster_shade", ["cluster_shade.cu"],
     {"rtxpt_cluster_shade": [
         _P, _P, _P, _P, _P, _P, _P,    # ha, fs, is_, fs_out, is_out, sh, hit
-        _P, _P,                        # mat, light rows
+        _P,                            # surf_out (external modes) | NULL
+        _P, _P, _P,                    # mat, light rows, env table | NULL
         _I, _I, _U,                    # n, n_lights, sample_idx
         _I, _I, _F, _I, _I,            # nee_mode, mis, firefly, rr, min_rr
         _I, _I, _I,                    # low_discrepancy, energy_comp, maxb
+        _I,                            # final_env
         _P]})                          # cudaStream_t
 
 # K5: the clustered shadow any-hit kernel (replaces _kernel_b1 and

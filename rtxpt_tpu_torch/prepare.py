@@ -12,6 +12,11 @@ scene of at most 2048 triangles also gets the fused bounce tables
 per-triangle array shares the permutation, the BVH's too) and gets
 cluster tables (accel/cluster.py) for the clustered tier.
 
+A scene with an environment source bakes its map at the kernels'
+64 x 128 (`env_res="auto"`), and the fused and cluster tables carry the
+environment table; a scene with sphere or environment-quad lights gets
+neither table and renders on the general tier, as in the JAX package.
+
 A two-level scene (`_prepare_two_level`) keeps the prototypes' triangles
 in object space beside the TLAS (accel/tlas.py), whose walk serves the
 general tier; its lights are baked over the expanded (instance x emissive
@@ -38,9 +43,11 @@ from rtxpt_tpu_torch.accel.cluster import (
 from rtxpt_tpu_torch.accel.lbvh import build_bvh
 from rtxpt_tpu_torch.accel.tlas import build_two_level
 from rtxpt_tpu_torch.lighting.envmap import bake_envmap
-from rtxpt_tpu_torch.lighting.lights_baker import bake_lights
+from rtxpt_tpu_torch.lighting.lights_baker import (
+    KIND_ENVQUAD, KIND_SPHERE, bake_lights)
 from rtxpt_tpu_torch.pt.bounce_fused import (
-    MAX_TRIS, build_bounce_tables, tables_from_numpy)
+    ENV_H, ENV_W, MAX_TRIS, build_bounce_tables, env_table_serves,
+    tables_from_numpy)
 from rtxpt_tpu_torch.scene.scene import (
     AnalyticLights, Geometry, HostScene, Materials, SceneData, build_packs)
 
@@ -63,11 +70,21 @@ def _geometry(positions, normals, uvs, indices, tri_material,
                     tri_subinstance=t(tri_subinstance, i32))
 
 
-def _prepare_two_level(host: HostScene, built: dict, device) -> SceneData:
+def kernel_tables_serve(lights, envmap) -> bool:
+    """Whether the fused and cluster tables can take these lights: no
+    sphere or environment-quad light (the general tier samples them), and
+    an environment light only with its map at the kernels' 64 x 128."""
+    return not ({KIND_SPHERE, KIND_ENVQUAD} & lights.kinds) and \
+        env_table_serves(lights, envmap)
+
+
+def _prepare_two_level(host: HostScene, built: dict, device,
+                       env_res) -> SceneData:
     """The two-level scene (rtxpt_tpu/prepare.py _prepare_two_level): the
     object-space prototype pool and its packs beside the TLAS, the lights
     baked over build_two_level's expanded emissive list, and instanced
-    cluster tables above 2048 world triangles."""
+    cluster tables above 2048 world triangles. `env_res="auto"` keeps the
+    environment source's own resolution here, as the JAX package does."""
     b = built
     geometry = _geometry(b["positions"], b["normals"], b["uvs"],
                          b["indices"], b["tri_material"],
@@ -78,7 +95,9 @@ def _prepare_two_level(host: HostScene, built: dict, device) -> SceneData:
           else AnalyticLights.empty())
     sd = SceneData(geometry=geometry, materials=mats, analytic_lights=al)
     envmap = bake_envmap(host.envmap_image, host.envmap_scale,
-                         host.envmap_rotation)
+                         host.envmap_rotation,
+                         res=None if env_res == "auto" else env_res,
+                         device=device)
     tri_pack, mat_pack = build_packs(geometry, mats)
     tl = b["tlas"]
     root = tl.nodes[0].cpu().numpy()
@@ -89,11 +108,11 @@ def _prepare_two_level(host: HostScene, built: dict, device) -> SceneData:
                           b["light_indices"], b["light_materials"],
                           b["light_subinstance"])
     lights = bake_lights(sd.replace(geometry=light_geo), envmap, radius,
-                         device=device)
+                         env_quads=host.env_quad_lights, device=device)
     cluster_tables = None
     if sum(len(i.indices) for i in host.instances) > MAX_TRIS:
         cluster_tables = build_cluster_tables_instanced(
-            built, host, mats, lights, device=device)
+            built, host, mats, lights, envmap=envmap, device=device)
     has_prio = bool(torch.any(mats.nested_priority != 0))
     return sd.replace(tlas=tl, envmap=envmap, tri_pack=tri_pack.to(device),
                       mat_pack=mat_pack.to(device), lights=lights,
@@ -101,11 +120,18 @@ def _prepare_two_level(host: HostScene, built: dict, device) -> SceneData:
                       has_nested_priorities=has_prio)
 
 
-def prepare(host: HostScene, device="cuda",
-            instancing: str = "auto") -> SceneData:
-    """Flatten + build the LBVH and the packs + bake lights + build the
-    kernel tables on `device` (the GPU by default; raises when there is
-    none).
+def prepare(host: HostScene, device="cuda", instancing: str = "auto",
+            env_res="auto") -> SceneData:
+    """Flatten + build the LBVH and the packs + bake the environment and
+    the lights + build the kernel tables on `device` (the GPU by default;
+    raises when there is none).
+
+    env_res: the environment's bake resolution. "auto" bakes an
+    environment source at the kernels' (64, 128), so the fused, clustered
+    and general tiers share one map (the two-level path keeps the
+    source's resolution); None keeps the source's, (h, w) resamples to
+    it. A flat scene whose environment is not at (64, 128) gets no fused
+    or cluster tables and renders on the general tier.
 
     instancing: "auto" (the JAX package's default) builds the two-level
     scene when instances share prototypes (at least 1.5 instances per
@@ -113,8 +139,8 @@ def prepare(host: HostScene, device="cuda",
     builds it whenever build_two_level takes the scene and raises
     ValueError otherwise.
 
-    Raises NotImplementedError for textures and environment maps, which
-    the port does not serve yet."""
+    Raises NotImplementedError for textures, which the port does not
+    serve yet."""
     device = rtxpt_tpu_torch.device(device)
     if instancing not in ("auto", "off", "force"):
         raise ValueError(f"instancing {instancing!r} is not one of "
@@ -127,7 +153,7 @@ def prepare(host: HostScene, device="cuda",
             host, min_sharing=1.0 if instancing == "force" else 1.5,
             device=device)
         if built is not None:
-            return _prepare_two_level(host, built, device)
+            return _prepare_two_level(host, built, device, env_res)
         if instancing == "force":
             raise ValueError(
                 "instancing='force' but the scene hits a two-level v1 "
@@ -144,9 +170,12 @@ def prepare(host: HostScene, device="cuda",
                                 tri_subinstance=g.tri_subinstance[perm])
         sd = sd.replace(geometry=g)
         idx = g.indices.numpy()
+    if env_res == "auto":
+        env_res = (ENV_H, ENV_W) if host.envmap_image is not None else None
     envmap = bake_envmap(host.envmap_image, host.envmap_scale,
-                         host.envmap_rotation)
-    lights = bake_lights(sd, envmap, scene_radius(pos), device=device)
+                         host.envmap_rotation, res=env_res, device=device)
+    lights = bake_lights(sd, envmap, scene_radius(pos),
+                         env_quads=host.env_quad_lights, device=device)
     args = (pos, g.normals.numpy(), idx, g.tri_material.numpy(),
             sd.materials, lights)
     has_prio = bool(torch.any(sd.materials.nested_priority != 0))
@@ -156,47 +185,51 @@ def prepare(host: HostScene, device="cuda",
                     bvh=build_bvh(pos, idx, device=device),
                     tri_pack=tri_pack.to(device),
                     mat_pack=mat_pack.to(device))
+    if not kernel_tables_serve(lights, envmap):
+        return sd
     if clustered:
         return sd.replace(cluster_tables=build_cluster_tables(
-            *args, uvs=g.uvs.numpy(), device=device))
+            *args, uvs=g.uvs.numpy(), envmap=envmap, device=device))
     return sd.replace(bounce_tables=build_bounce_tables(
-        *args, uvs=g.uvs.numpy(), device=device))
+        *args, uvs=g.uvs.numpy(), envmap=envmap, device=device))
 
 
-def scene_from_numpy(tables: dict, lights=None, device="cuda") -> SceneData:
+def scene_from_numpy(tables: dict, lights=None, device="cuda",
+                     envmap=None) -> SceneData:
     """SceneData from the JAX package's prepared bounce tables as numpy
     arrays: keys tri_rows, attr_rows, mat_rows, light_rows, tc, n_chunks,
-    n_lights, n_tris (the BounceTables fields). Table parts the port does
-    not serve (env_rows, tex_ct, tex_meta, omm, prio) must be absent,
+    n_lights, n_tris and env_rows (the BounceTables fields), with the
+    light list and the environment map (lighting/envmap.py
+    envmap_from_numpy) the NEE and the general tier read. Table parts the
+    port does not serve (tex_ct, tex_meta, omm, prio) must be absent,
     None or false."""
     device = rtxpt_tpu_torch.device(device)
     tables = dict(tables)
-    _refuse_parts(tables, ("env_rows", "tex_ct", "tex_meta", "omm", "prio"),
-                  "bounce")
+    _refuse_parts(tables, ("tex_ct", "tex_meta", "omm", "prio"), "bounce")
     for key in ("tr", "tex_maps"):
         tables.pop(key, None)
     bt = tables_from_numpy(device=device, **tables)
     return SceneData(geometry=None, materials=None, analytic_lights=None,
-                     lights=lights, bounce_tables=bt)
+                     lights=lights, envmap=envmap, bounce_tables=bt)
 
 
-def cluster_scene_from_numpy(tables: dict, lights=None,
-                             device="cuda") -> SceneData:
+def cluster_scene_from_numpy(tables: dict, lights=None, device="cuda",
+                             envmap=None) -> SceneData:
     """SceneData from the JAX package's prepared cluster tables as numpy
     arrays: keys blocks, aabb_lo, aabb_hi, mat_rows, light_rows, offsets,
-    n_clusters, n_tris, n_lights, and for instanced tables instanced,
-    wc_block, wc_inst, xf and inst_post (the ClusterTables fields). Parts
-    the port does not serve (env_rows, tex_ct, tex_meta, omm) must be
-    absent, None or false."""
+    n_clusters, n_tris, n_lights, env_rows, and for instanced tables
+    instanced, wc_block, wc_inst, xf and inst_post (the ClusterTables
+    fields), with the light list and the environment map. Parts the port
+    does not serve (tex_ct, tex_meta, omm) must be absent, None or
+    false."""
     device = rtxpt_tpu_torch.device(device)
     tables = dict(tables)
-    _refuse_parts(tables, ("env_rows", "tex_ct", "tex_meta", "omm"),
-                  "cluster")
+    _refuse_parts(tables, ("tex_ct", "tex_meta", "omm"), "cluster")
     for key in ("tr", "tex_maps"):
         tables.pop(key, None)
     ct = cluster_tables_from_numpy(device=device, **tables)
     return SceneData(geometry=None, materials=None, analytic_lights=None,
-                     lights=lights, cluster_tables=ct)
+                     lights=lights, envmap=envmap, cluster_tables=ct)
 
 
 def _refuse_parts(tables, keys, kind):

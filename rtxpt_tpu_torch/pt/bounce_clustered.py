@@ -10,11 +10,19 @@ instead of bounce tables. Each bounce of `trace_paths_clustered` runs:
   2. `cull_candidates` (accel/cull.py) per 1024-lane group;
   3. K3 `closest_hit`, once per page; pages merge by least t;
   4. K4 `shade`: surface_and_shade on K3's hits, which emits the next
-     ray state and one NEE shadow request per lane;
+     ray state and one NEE shadow request per lane (the environment of a
+     miss and the environment light's sample too, when the tables carry
+     the environment table); in the external-NEE modes (NEE-AT, more
+     than 128 lights, WRS K > 1) it exports the shaded surface instead,
+     and pt/nee_external.py selects the light and packs the requests;
   5. the shadow-ray sort;
   6. `cull_candidates` for the shadow rays;
   7. K5 `occlusion`, once per page; pages merge by OR;
-  8. the unsort and the NEE add.
+  8. the unsort and the NEE add (and NEE-AT's feedback).
+
+With an environment, a final round follows the last bounce: K3 over the
+still-active rays (no sort) and K4's `final_env` variant, which adds the
+environment of the rays that escape.
 
 K3, K4 and K5 are CUDA kernels written by hand for Hopper
 (csrc/cluster_closest.cu, cluster_shade.cu, cluster_shadow.cu) and
@@ -40,10 +48,11 @@ every row spans all N lanes ([rows, N] with N a multiple of 1024), and
 group g is lanes [1024 g, 1024 (g+1)). The JAX package's
 [G, rows, 1024] blocks are the same numbers in another memory order.
 
-The sorts, the culls and the instanced attribute post-transform run
-inside `torch.profiler.record_function` ranges named "rtxpt.sort",
-"rtxpt.cull" and "rtxpt.post", so that a profile of a frame can split its
-device time (chip_smoke.py does).
+The sorts, the culls, the instanced attribute post-transform and the
+final environment round run inside `torch.profiler.record_function`
+ranges named "rtxpt.sort", "rtxpt.cull", "rtxpt.post" and "rtxpt.final",
+so that a profile of a frame can split its device time (chip_smoke.py
+does).
 
 Choices against the JAX package (ROADMAP queue 3):
   * F2: the sort carries the int state rows whole (no 12-bit packing).
@@ -397,13 +406,26 @@ def occlusion_reference(cand, sh, blocks, kslots: int, stats: bool = False,
 
 
 def shade_reference(ha, fs, is_, tables, kcfg: bf.KernelConfig,
-                    sample_idx: int):
+                    sample_idx: int, final_env: bool = False):
     """K4's plain version (the function of `_kernel_a2`): surface_and_shade
     on K3's hits. ha [HA_ROWS, N], fs [NF, N], is_ [NI, N] ->
-    (fs_out [NF, N], is_out [NI, N], sh [SH_ROWS, N], hit [NH, N])."""
+    (fs_out [NF, N], is_out [NI, N], sh [SH_ROWS, N], hit [NH, N]), plus
+    surf [SF_ROWS, N] in the external modes (3-5) with lights, where hit
+    row 5 is the shading flag (0 not shaded, 1 shaded at logical bounce
+    0, 2 later) and the SH rows carry no request. `final_env`: the final
+    environment-only round (bounce_fused.final_env_state, MIS in the NEE
+    modes 1 and 2 only, as `_kernel_a2`), SH rows and hit row 5 zero."""
     t = ha[HA_T]
     hit = t < _BIG
     front = ha[HA_FRONT] > 0.0
+    if final_env:
+        fs_out, is_out = bf.final_env_state(fs, is_, hit, tables.env, kcfg,
+                                            tables.n_lights, (1, 2))
+        sh = torch.zeros((SH_ROWS,) + t.shape, device=t.device)
+        hit_out = torch.stack([torch.where(hit, t, 0.0), ha[HA_PRIM],
+                               ha[HA_U], ha[HA_V], front.to(torch.float32),
+                               torch.zeros_like(t)])
+        return fs_out, is_out, sh, hit_out
 
     def attr(i, k=1):
         return ha[HA_ATTR + i] if k == 1 else ha[HA_ATTR + i:HA_ATTR + i + k]
@@ -432,8 +454,13 @@ def shade_reference(ha, fs, is_, tables, kcfg: bf.KernelConfig,
     zeros = torch.zeros((4,) + t.shape, device=t.device)
     sh = torch.cat([s["shadow_o"], s["shadow_d"], s["sdist"][None],
                     s["contrib"], do[None], zeros], dim=0)
+    ext = s["surf"] is not None
+    flag = s["shaded"].to(torch.float32) \
+        * (1.0 + (is_[bf.IS_LBOUNCE] > 0).to(torch.float32)) if ext else do
     hit_out = torch.stack([torch.where(hit, t, 0.0), ha[HA_PRIM], ha[HA_U],
-                           ha[HA_V], front.to(torch.float32), do], dim=0)
+                           ha[HA_V], front.to(torch.float32), flag], dim=0)
+    if ext:
+        return fs_out, is_out, sh, hit_out, s["surf"]
     return fs_out, is_out, sh, hit_out
 
 
@@ -522,13 +549,17 @@ def occlusion(cand, sh, blocks, kslots: int, stats: bool = False, xf=None):
     return (occ, tests) if stats else occ
 
 
-def shade(ha, fs, is_, tables, kcfg: bf.KernelConfig, sample_idx: int):
+def shade(ha, fs, is_, tables, kcfg: bf.KernelConfig, sample_idx: int,
+          final_env: bool = False):
     """K4 (csrc/cluster_shade.cu) for CUDA tensors, its plain version for
-    CPU tensors. Shapes as in `shade_reference`."""
+    CPU tensors. Arguments and results as in `shade_reference`."""
     dev = _device_of("shade", fs, ha, is_, tables.mat_rows,
                      tables.light_rows)
+    if final_env and tables.env is None:
+        raise ValueError("shade: final_env needs the tables' environment")
     if dev.type == "cpu":
-        return shade_reference(ha, fs, is_, tables, kcfg, sample_idx)
+        return shade_reference(ha, fs, is_, tables, kcfg, sample_idx,
+                               final_env)
     n = fs.shape[1]
     bf._check("ha", ha, torch.float32, (HA_ROWS, n), dev)
     bf._check("fs", fs, torch.float32, (bf.NF, n), dev)
@@ -537,28 +568,35 @@ def shade(ha, fs, is_, tables, kcfg: bf.KernelConfig, sample_idx: int):
               (bf.MT_ROWS, 128), dev)
     bf._check("light_rows", tables.light_rows, torch.float32,
               (W.LROWS, 128), dev)
-    if kcfg.nee_mode not in (0, 1, 2):
-        raise ValueError(f"shade: nee_mode {kcfg.nee_mode} not in (0, 1, 2)")
-    if tables.n_lights > bf.MAX_LIGHTS:
+    if tables.env is not None:
+        bf._check("env", tables.env, torch.float32, (bf.ET_SIZE,), dev)
+    if kcfg.nee_mode not in range(6):
+        raise ValueError(f"shade: nee_mode {kcfg.nee_mode} not in 0..5")
+    if kcfg.nee_mode in (1, 2) and tables.n_lights > bf.MAX_LIGHTS:
         raise ValueError("shade: more lights than the kernel's table")
-    fs_out = torch.empty_like(fs)
-    is_out = torch.empty_like(is_)
-    sh = torch.empty((SH_ROWS, n), dtype=torch.float32, device=dev)
-    hit = torch.empty((bf.NH, n), dtype=torch.float32, device=dev)
+    outs = (torch.empty_like(fs), torch.empty_like(is_),
+            torch.empty((SH_ROWS, n), dtype=torch.float32, device=dev),
+            torch.empty((bf.NH, n), dtype=torch.float32, device=dev))
+    if kcfg.external and tables.n_lights > 0 and not final_env:
+        outs += (torch.empty((bf.SF_ROWS, n), dtype=torch.float32,
+                             device=dev),)
     if n == 0:
-        return fs_out, is_out, sh, hit
+        return outs
     with torch.cuda.device(dev):
         kernels.CLUSTER_SHADE.launch(
             "rtxpt_cluster_shade", ha.data_ptr(), fs.data_ptr(),
-            is_.data_ptr(), fs_out.data_ptr(), is_out.data_ptr(),
-            sh.data_ptr(), hit.data_ptr(), tables.mat_rows.data_ptr(),
-            tables.light_rows.data_ptr(), n, tables.n_lights,
+            is_.data_ptr(), *(x.data_ptr() for x in outs[:4]),
+            outs[4].data_ptr() if len(outs) > 4 else None,
+            tables.mat_rows.data_ptr(), tables.light_rows.data_ptr(),
+            None if tables.env is None else tables.env.data_ptr(),
+            n, tables.n_lights,
             int(sample_idx) & rng.M32, kcfg.nee_mode, int(kcfg.enable_mis),
             kcfg.firefly, int(kcfg.rr_enable), kcfg.min_rr,
             int(kcfg.low_discrepancy), int(kcfg.energy_comp), kcfg.maxb,
-            torch.cuda.current_stream(dev).cuda_stream)
-    kernels.launches["cluster_shade"] += 1
-    return fs_out, is_out, sh, hit
+            int(final_env), torch.cuda.current_stream(dev).cuda_stream)
+    kernels.launches[bf.variant_name("cluster_shade", tables.env is not None,
+                                     final_env)] += 1
+    return outs
 
 
 # ---------------------------------------------------------------------------
@@ -752,16 +790,25 @@ def occluded_paged(shp, tbl, kslots: int, pages: int):
 
 
 def trace_paths_clustered(scene, cfg, o, d, cone_spread, px, py,
-                          sample_idx):
+                          sample_idx, neeat_state=None):
     """Trace a wavefront of camera rays to completion on the clustered
-    tier (bounce_clustered.trace_paths_clustered of the JAX package
-    without aux buffers, micromaps, textures, environment light, split
-    channels or external NEE), flat or instanced. `cfg` is resolved by
-    `dispatch.resolve`, which sets kslots and pages.
+    tier (bounce_clustered.trace_paths_clustered of the JAX package, the
+    flat all-rows route, without aux buffers, micromaps, textures or split
+    channels), flat or instanced. `cfg` is resolved by `dispatch.resolve`,
+    which sets kslots, pages and nee_external.
+
+    In the external-NEE modes (`cfg.nee_external`, or NEE-AT) K4 exports
+    the shaded surface, `external_nee` selects and evaluates the light per
+    lane (each lane's logical bounce keys its seed), its emission term is
+    added, and its shadow requests, packed into the SH rows, go through
+    the same sort, cull and K5 as the kernel's; with `neeat_state`, each
+    bounce's NEE luminance is accumulated into the frame's NEE-AT feedback
+    histogram ("rtxpt.nee" and "rtxpt.feedback" ranges, as on the fused
+    tier). With an environment, the final round follows the last bounce.
 
     o, d [N,3]; cone_spread [N]; px, py [N] int. Returns dict(L [N,3],
     ray_count, occupancy [B+1], cull_overflow) with the counts as int64
-    tensors."""
+    tensors, plus neeat_hist on the NEE-AT route."""
     tbl = scene.cluster_tables
     dev = o.device
     n = o.shape[0]
@@ -775,6 +822,13 @@ def trace_paths_clustered(scene, cfg, o, d, cone_spread, px, py,
     sort_rays = bool(cfg.sort_rays)
     kcfg = bf.KernelConfig.from_cfg(cfg)
     use_nee = kcfg.nee_mode in (1, 2) and tbl.n_lights > 0
+    ext = kcfg.external and tbl.n_lights > 0
+    hist = None
+    if ext:
+        from rtxpt_tpu_torch.lighting import neeat as na
+        from rtxpt_tpu_torch.pt.nee_external import external_nee
+        if kcfg.nee_mode == 3 and neeat_state is not None:
+            hist = na.zero_hist(neeat_state)
 
     fs, is_ = bf.initial_state(_pad(o, npad), _pad(d, npad, 1.0),
                                _pad(cone_spread, npad), _pad(px, npad),
@@ -794,10 +848,27 @@ def trace_paths_clustered(scene, cfg, o, d, cone_spread, px, py,
         ha, ovf = closest_paged(fs, is_, tbl, kslots, pages, max_travel,
                                 noprune)
         ha = post_attr_inst(ha, tbl)
-        fs, is_, sh, _ = shade(ha, fs, is_, tbl, kcfg, sample_idx)
+        d_in = fs[bf.FS_D:bf.FS_D + 3]
+        prev_pdf_in = fs[bf.FS_PREVPDF]
+        prev_delta_in = is_[bf.IS_PREVDELTA] > 0
+        lb_in = is_[bf.IS_LBOUNCE]
+        out = shade(ha, fs, is_, tbl, kcfg, sample_idx)
+        fs, is_, sh, hitb = out[:4]
         ray_count = ray_count + n_active
         overflow = overflow + ovf
-        if use_nee:
+        if ext:
+            # hitb[5]: 0 = not shaded, 1 = shaded at lb == 0, 2 = at lb > 0
+            with record_function("rtxpt.nee"):
+                res = external_nee(scene, cfg, neeat_state, out[4], d_in,
+                                   hitb[5] > 0.5, prev_pdf_in, prev_delta_in,
+                                   is_[bf.IS_PX], is_[bf.IS_PY], sample_idx,
+                                   0, lb=lb_in)
+                fs[bf.FS_L:bf.FS_L + 3] += res["em_add"].T
+                sh = torch.cat([
+                    res["shadow_o"].T, res["shadow_d"].T, res["sdist"][None],
+                    res["contrib"].T, res["do_nee"].to(torch.float32)[None],
+                    torch.zeros((SH_ROWS - SH_CDIFF, npad), device=dev)])
+        if use_nee or ext:
             do = sh[SH_DO] > 0.5
             if sort_rays:
                 shp, sperm = sort_shadows(sh, bounds)
@@ -811,9 +882,30 @@ def trace_paths_clustered(scene, cfg, o, d, cone_spread, px, py,
                 ok, sh[SH_CONTRIB:SH_CONTRIB + 3], 0.0)
             ray_count = ray_count + do.sum(dtype=torch.int64)
             overflow = overflow + ovf
+            if hist is not None:
+                with record_function("rtxpt.feedback"):
+                    c = sh[SH_CONTRIB:SH_CONTRIB + 3]
+                    lum = c[0] * 0.2126 + c[1] * 0.7152 + c[2] * 0.0722
+                    hist = na.accumulate_feedback(
+                        neeat_state, hist, res["tile"], res["li"],
+                        torch.clamp(lum, min=0.0), ok)
+    if tbl.env is not None:
+        # the final environment-only round for the rays still active
+        with record_function("rtxpt.final"):
+            n_active = (is_[bf.IS_ACTIVE] > 0).sum(dtype=torch.int64)
+            ha, ovf = closest_paged(fs, is_, tbl, kslots, pages, max_travel,
+                                    noprune)
+            ha = post_attr_inst(ha, tbl)
+            fs, is_, _, _ = shade(ha, fs, is_, tbl, kcfg, sample_idx,
+                                  final_env=True)
+            ray_count = ray_count + n_active
+            overflow = overflow + ovf
     occupancy.append((is_[bf.IS_ACTIVE] > 0).sum(dtype=torch.int64))
     L = fs[bf.FS_L:bf.FS_L + 3]
     if sort_rays:
         L = unsort_rows(src, L)
-    return dict(L=L.T[:n], ray_count=ray_count,
-                occupancy=torch.stack(occupancy), cull_overflow=overflow)
+    result = dict(L=L.T[:n], ray_count=ray_count,
+                  occupancy=torch.stack(occupancy), cull_overflow=overflow)
+    if hist is not None:
+        result["neeat_hist"] = hist
+    return result

@@ -15,10 +15,16 @@ external-NEE slots 3-5 (NEE-AT, uniform, power), in which the kernel
 exports the shaded surface (the SF_* rows), pt/nee_external.py selects
 and evaluates the light, and the shadow kernel K2 (`occlusion`,
 csrc/shadow_occlusion.cu, the TPU kernel `_shadow_kernel`) resolves the
-shadow rays; that route takes any number of lights. No environment
-light, no textures, no opacity micromaps, no nested priorities, no split
-channels and no V-buffer injection: `build_bounce_tables` raises
-NotImplementedError for the rest.
+shadow rays; that route takes any number of lights. With an environment
+light the tables carry the environment table (`build_env_table`, the
+JAX package's env_rows without the TPU layout): a miss gathers the
+environment with its MIS weight, the environment light is
+importance-sampled from the table's two-level CDF, and
+`trace_paths_fused` closes each path with the final environment-only
+launch (`final_env`). No textures, no opacity micromaps, no nested
+priorities, no split channels and no V-buffer injection; sphere and
+environment-quad lights are the general tier's (`build_bounce_tables`
+raises NotImplementedError for them).
 
 Layouts are the JAX package's, minus the TPU tiling: the wavefront state
 is fs [NF, N] f32 and is_ [NI, N] i32 (one column per ray; rows FS_* and
@@ -28,13 +34,16 @@ and state compare entry by entry.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
 from rtxpt_tpu_torch import kernels
+from rtxpt_tpu_torch.lighting.envmap import count_le
 from rtxpt_tpu_torch.pt import wide as W
 from rtxpt_tpu_torch.pt.surface import ray_offset
 from rtxpt_tpu_torch.utils import rng
@@ -144,6 +153,23 @@ SR_ROWS = 8
 
 EXTERNAL_MODES = (3, 4, 5)
 
+# Environment table (env [ET_SIZE] f32, flat): the JAX package's
+# [EV_ROWS,128] env_rows (bounce_pallas.build_env_rows) without the TPU
+# layout: texels row-major, y (polar) then x (azimuth), as float4
+ENV_H = 64
+ENV_W = 128
+ET_TEX = 0                          # [ENV_H, ENV_W, 4] r, g, b, texel pdf
+ET_COND = ET_TEX + ENV_H * ENV_W * 4    # [ENV_H, ENV_W] conditional CDFs
+ET_ROWCDF = ET_COND + ENV_H * ENV_W     # [ENV_H] row-marginal CDF
+ET_COSB = ET_ROWCDF + ENV_H         # [ENV_H] cos(pi i / ENV_H); [0] = -2
+ET_SA = ET_COSB + ENV_H             # [ENV_H] texel solid angle per row
+ET_COS = ET_SA + ENV_H              # cos(rotation)
+ET_SIN = ET_COS + 1                 # sin(rotation)
+ET_SELPDF = ET_COS + 2              # power-mode selection pmf of the env
+ET_SIZE = ET_COS + 64
+# the JAX layout's row offsets (bounce_pallas.py EV_* / EVA_*)
+_EV_CT, _EV_CONDT, _EV_COSB, _EV_AUX = 0, 512, 768, 896
+
 # Effect seeds (same as rtxpt_tpu/pt/integrator.py)
 EFFECT_SCATTER = 29
 EFFECT_NEE = 31
@@ -159,6 +185,7 @@ class BounceTables:
     mat_rows: torch.Tensor    # [MT_ROWS, 128]
     light_rows: torch.Tensor  # [W.LROWS, 128]
     tri_coef: torch.Tensor    # [Tpad, TC_ROWS] what the kernel reads
+    env: Optional[torch.Tensor] = None   # [ET_SIZE] (an environment light)
     tc: int = 128
     n_chunks: int = 1
     n_lights: int = 0
@@ -282,10 +309,11 @@ def compact_coefficients(tri_rows: np.ndarray, tc: int,
 
 
 def tables_from_numpy(tri_rows, attr_rows, mat_rows, light_rows, tc,
-                      n_chunks, n_lights, n_tris, device="cuda"
-                      ) -> BounceTables:
+                      n_chunks, n_lights, n_tris, device="cuda",
+                      env_rows=None) -> BounceTables:
     """BounceTables on `device` (the GPU by default; raises without one)
-    from the JAX layout's numpy arrays."""
+    from the JAX layout's numpy arrays; `env_rows` is the JAX package's
+    [EV_ROWS, 128] environment table or the port's [ET_SIZE] one."""
     import rtxpt_tpu_torch
 
     device = rtxpt_tpu_torch.device(device)
@@ -297,26 +325,94 @@ def tables_from_numpy(tri_rows, attr_rows, mat_rows, light_rows, tc,
         tri_rows=t(tri_rows), attr_rows=t(attr_rows), mat_rows=t(mat_rows),
         light_rows=t(light_rows),
         tri_coef=t(compact_coefficients(tri_rows, int(tc), int(n_chunks))),
+        env=None if env_rows is None else t(env_table(env_rows)),
         tc=int(tc), n_chunks=int(n_chunks), n_lights=int(n_lights),
         n_tris=int(n_tris))
 
 
+def build_env_table(envmap, sel_pdf: float) -> Optional[np.ndarray]:
+    """The kernels' environment table [ET_SIZE] from an EnvMap baked at
+    exactly (ENV_H, ENV_W), with `sel_pdf` the environment light's power
+    selection pmf; None for another resolution (bounce_pallas.
+    build_env_rows, whose values it holds)."""
+    img = _np(envmap.image)
+    if img.shape[:2] != (ENV_H, ENV_W):
+        return None
+    tab = np.zeros((ET_SIZE,), np.float32)
+    tex = np.concatenate([img, _np(envmap.texel_pdf)[..., None]], -1)
+    tab[ET_TEX:ET_COND] = tex.reshape(-1)
+    tab[ET_COND:ET_ROWCDF] = _np(envmap.cond_cdf).reshape(-1)
+    tab[ET_ROWCDF:ET_COSB] = _np(envmap.row_cdf)
+    tab[ET_COSB] = -2.0
+    for i in range(1, ENV_H):
+        tab[ET_COSB + i] = np.cos(np.pi * i / ENV_H)
+    theta = (np.arange(ENV_H) + 0.5) / ENV_H * np.pi
+    tab[ET_SA:ET_COS] = (2.0 * np.pi / ENV_W) * (np.pi / ENV_H) * \
+        np.maximum(np.sin(theta), 1e-6)
+    tab[ET_COS] = float(envmap.cos_rot)
+    tab[ET_SIN] = float(envmap.sin_rot)
+    tab[ET_SELPDF] = sel_pdf
+    return tab
+
+
+def env_table(rows) -> np.ndarray:
+    """The port's environment table [ET_SIZE] from the JAX package's
+    env_rows [EV_ROWS, 128] (or a port table, returned as it is)."""
+    rows = np.asarray(rows, np.float32)
+    if rows.shape == (ET_SIZE,):
+        return rows
+    tab = np.zeros((ET_SIZE,), np.float32)
+    planes = rows[_EV_CT:_EV_CT + 512, :ENV_H].reshape(4, ENV_W, ENV_H)
+    tab[ET_TEX:ET_COND] = planes.transpose(2, 1, 0).reshape(-1)
+    tab[ET_COND:ET_ROWCDF] = rows[_EV_CONDT:_EV_CONDT + ENV_W, :ENV_H] \
+        .T.reshape(-1)
+    tab[ET_ROWCDF:ET_COSB] = rows[_EV_AUX, :ENV_H]
+    tab[ET_COSB:ET_SA] = rows[_EV_COSB:_EV_COSB + ENV_H, 0]
+    tab[ET_SA:ET_COS] = rows[_EV_AUX + 1, :ENV_H]
+    tab[ET_COS:ET_SELPDF + 1] = rows[_EV_AUX + 2:_EV_AUX + 5, 0]
+    return tab
+
+
+def env_table_serves(lights, envmap) -> bool:
+    """Whether the kernels' environment table can hold the lights'
+    environment: there is none, or its map is at (ENV_H, ENV_W)."""
+    return lights.env_light < 0 or (
+        envmap is not None and tuple(envmap.shape) == (ENV_H, ENV_W))
+
+
+def lights_env_table(lights, envmap) -> Optional[np.ndarray]:
+    """The environment table of a light list with an environment light
+    (its selection pmf folded in), None without one; raises ValueError for
+    an environment map that is not at the kernels' 64 x 128."""
+    if not env_table_serves(lights, envmap):
+        raise ValueError(f"the kernels' environment table needs the "
+                         f"environment baked at ({ENV_H}, {ENV_W}); "
+                         f"prepare(env_res='auto') does so")
+    if lights.env_light < 0:
+        return None
+    return build_env_table(envmap, float(_np(lights.power)[lights.env_light]))
+
+
 def build_bounce_tables(positions, normals, indices, tri_material,
-                        materials, lights, uvs=None, device="cuda"):
+                        materials, lights, uvs=None, envmap=None,
+                        device="cuda"):
     """Host-side table bake (bounce_pallas.build_bounce_tables, flat
-    no-environment / no-texture / no-OMM case) onto `device` (the GPU by
-    default; raises without one). Raises
+    no-texture / no-OMM case) onto `device` (the GPU by default; raises
+    without one), with the environment table when the lights hold an
+    environment light (`envmap` baked at 64 x 128). Raises
     NotImplementedError, naming the feature, for a scene it does not
-    take."""
+    take: sphere and environment-quad lights (the JAX package leaves them
+    to the general tier), anisotropic materials, too many triangles or
+    materials."""
     if float(np.max(_np(materials.anisotropy), initial=0.0)) > 0.0:
         raise NotImplementedError("anisotropic materials are not ported "
                                   "to the fused bounce kernel")
     from rtxpt_tpu_torch.lighting.lights_baker import (
-        KIND_ENV, KIND_ENVQUAD, KIND_SPHERE)
-    if np.any(np.isin(_np(lights.kind), [KIND_SPHERE, KIND_ENVQUAD,
-                                         KIND_ENV])) or lights.env_light >= 0:
-        raise NotImplementedError("sphere and environment lights are not "
-                                  "ported to the fused bounce kernel")
+        KIND_ENVQUAD, KIND_SPHERE)
+    if np.any(np.isin(_np(lights.kind), [KIND_SPHERE, KIND_ENVQUAD])):
+        raise NotImplementedError("sphere and environment-quad lights: "
+                                  "the general tier samples them")
+    env = lights_env_table(lights, envmap)
     positions = np.asarray(positions, np.float32)
     normals = np.asarray(normals, np.float32)
     indices = np.asarray(indices, np.int32)
@@ -393,7 +489,7 @@ def build_bounce_tables(positions, normals, indices, tri_material,
     attr[AT_LODB, :t] = -0.5 * np.log2(np.maximum(tri_area2, 1e-20))
 
     return tables_from_numpy(tri_rows, attr, mat, lt, tc, n_chunks,
-                             int(lights.num), t, device=device)
+                             int(lights.num), t, device=device, env_rows=env)
 
 
 def _tangent_rows(uvs, indices, e1, e2):
@@ -509,14 +605,106 @@ def _ray_offset(pos, gn, direction):
     return ray_offset(pos.T, gn.T, direction.T).T
 
 
+# ----- the kernels' environment (bounce_pallas.py:721-875) -----
+
+
+def atan2_poly(z, x):
+    """atan2(z, x) in (-pi, pi] by the JAX kernels' minimax polynomial
+    (bounce_pallas._atan2_w, |err| < 2e-5 rad): the texel column of a
+    direction in K1 and K4; same coefficients, same order."""
+    ax = torch.abs(x)
+    az = torch.abs(z)
+    mx = torch.maximum(ax, az)
+    mn = torch.minimum(ax, az)
+    t = mn / torch.clamp(mx, min=1e-30)
+    t2 = t * t
+    p = t * (0.99997726 + t2 * (-0.33262347 + t2 * (
+        0.19354346 + t2 * (-0.11643287 + t2 * (
+            0.05265332 - t2 * 0.01172120)))))
+    p = torch.where(az > ax, 0.5 * math.pi - p, p)
+    p = torch.where(x < 0.0, math.pi - p, p)
+    return torch.where(z < 0.0, -p, p)
+
+
+def env_texel_of_dir(env, d):
+    """Directions d [3, N] -> texel (yi, xi) [N] int64: yi counts the
+    row boundaries cos(pi i / 64) at or above d_y (no acos), xi is the
+    polynomial atan2's column (bounce_pallas._env_idx_of_dir)."""
+    cosb = env[ET_COSB + 1:ET_COSB + ENV_H]
+    yi = torch.clamp((d[1][:, None] <= cosb[None]).sum(1), 0, ENV_H - 1)
+    c, s = env[ET_COS], env[ET_SIN]
+    xr = c * d[0] + s * d[2]
+    zr = -s * d[0] + c * d[2]
+    u = atan2_poly(zr, xr) * (1.0 / (2.0 * math.pi))
+    u = u - torch.floor(u)
+    xi = torch.clamp((u * ENV_W).to(torch.int64), 0, ENV_W - 1)
+    return yi, xi
+
+
+def _env_texel(env, yi, xi):
+    """(radiance [3, N], texel pdf [N]) of texels (yi, xi)."""
+    tex = env[ET_TEX:ET_COND].view(ENV_H * ENV_W, 4)[yi * ENV_W + xi]
+    return tex[:, :3].T, tex[:, 3]
+
+
+def env_eval_pdf(env, d, nee_uniform: bool, n_lights: int):
+    """Radiance [3, N] of directions d [3, N] and the NEE pdf of sampling
+    them (selection pmf, 1 / n_lights when uniform, times the texel pdf
+    over its solid angle): bounce_pallas._env_eval_pdf."""
+    yi, xi = env_texel_of_dir(env, d)
+    rgb, pt = _env_texel(env, yi, xi)
+    sa = env[ET_SA:ET_COS][yi]
+    if nee_uniform:
+        sel = torch.full_like(pt, 1.0 / float(max(n_lights, 1)))
+    else:
+        sel = env[ET_SELPDF].expand_as(pt)
+    return rgb, sel * pt / sa
+
+
+def env_sample_k(env, u1, u2):
+    """The kernels' environment importance sample from uniforms [N]: the
+    two-level CDF inversion of envmap.env_sample (the same texel and
+    jitter from the same uniforms), bounce_pallas._env_sample_w. Returns
+    (wi [3, N], radiance [3, N], source pdf [N])."""
+    u1 = torch.clamp(u1, 0.0, 1.0 - 1e-7)
+    u2 = torch.clamp(u2, 0.0, 1.0 - 1e-7)
+    rowcdf = env[ET_ROWCDF:ET_COSB]
+    yi = torch.clamp(count_le(rowcdf, u1), 0, ENV_H - 1)
+    c_lo = torch.where(yi > 0, rowcdf[torch.clamp(yi - 1, min=0)], 0.0)
+    c_hi = rowcdf[yi]
+    jv = torch.clamp((u1 - c_lo) / torch.clamp(c_hi - c_lo, min=1e-12),
+                     0.0, 1.0 - 1e-6)
+    cond = env[ET_COND:ET_ROWCDF].view(ENV_H, ENV_W)[yi]       # [N, W]
+    xi = torch.clamp(count_le(cond, u2), 0, ENV_W - 1)
+    d_lo = torch.where(xi > 0, torch.gather(
+        cond, 1, torch.clamp(xi - 1, min=0)[:, None])[:, 0], 0.0)
+    d_hi = torch.gather(cond, 1, xi[:, None])[:, 0]
+    ju = torch.clamp((u2 - d_lo) / torch.clamp(d_hi - d_lo, min=1e-12),
+                     0.0, 1.0 - 1e-6)
+    u = (xi.to(torch.float32) + ju) * (1.0 / ENV_W)
+    v = (yi.to(torch.float32) + jv) * (1.0 / ENV_H)
+    phi = u * (2.0 * math.pi)
+    theta = v * math.pi
+    st = torch.sin(theta)
+    x = st * torch.cos(phi)
+    z = st * torch.sin(phi)
+    y = torch.cos(theta)
+    c, s = env[ET_COS], env[ET_SIN]
+    wi = torch.stack([c * x - s * z, y, s * x + c * z])
+    rgb, pt = _env_texel(env, yi, xi)
+    return wi, rgb, pt / env[ET_SA:ET_COS][yi]
+
+
 def surface_and_shade(*, o, d, t, hit, front, bu, bv, attr, thp, L,
                       prev_pdf, cone, spread, active, prev_delta, med0, med1,
                       px, py, budget, lb, tables: BounceTables,
                       kcfg: KernelConfig, sample_idx: int):
     """Post-intersection bounce body (bounce_pallas.surface_and_shade with
-    no environment, textures, micromaps, priorities or split channels):
-    surface fetch, volume absorption, emissive-hit MIS, one NEE light
-    sample + BSDF eval, BSDF scatter, medium stack, Russian roulette.
+    no textures, micromaps, priorities or split channels): the
+    environment of a miss with its MIS weight (when the tables carry the
+    environment table), surface fetch, volume absorption, emissive-hit
+    MIS, one NEE light sample (the environment light included) + BSDF
+    eval, BSDF scatter, medium stack, Russian roulette.
     `attr(i, k=1)` fetches the winner's attribute rows. Returns the next
     state, whether the lane was shaded, and the pending shadow ray
     (do_nee, shadow_o, shadow_d, sdist, contrib); the caller resolves
@@ -548,6 +736,17 @@ def surface_and_shade(*, o, d, t, hit, front, bu, bv, attr, thp, L,
         return rng.hash_combine(seed_base, effect)
 
     hit_mask = active & hit
+    env = tables.env
+    if env is not None:
+        # HandleMiss: the environment, weighted against its NEE pdf
+        mis_env = (use_nee or ext_nee) and kcfg.enable_mis
+        env_L, p_env = env_eval_pdf(env, d, nee_uniform, n_lights)
+        if mis_env:
+            w_env = torch.where(prev_delta | (lb == 0), 1.0,
+                                W.power_heuristic(prev_pdf, p_env))
+        else:
+            w_env = torch.ones_like(t)
+        L = L + torch.where(active & ~hit, thp * env_L * w_env, 0.0)
     active = active & hit                      # miss terminates
     not_expired = (lb < budget) & (lb < kcfg.maxb)
     active = active & not_expired
@@ -653,7 +852,9 @@ def surface_and_shade(*, o, d, t, hit, front, bu, bv, attr, thp, L,
             em=lrow3(W.LROW_EM),
             extra=lrows[W.LROW_EXTRA:W.LROW_EXTRA + 4][:, li],
             normal=lrow3(W.LROW_NORMAL), power=sel_pdf)
-        lsmp = W.sample_light_fields_w(lf, sel_pdf, pos, u1, u2)
+        lsmp = W.sample_light_fields_w(
+            lf, sel_pdf, pos, u1, u2,
+            env=None if env is None else env_sample_k(env, u1, u2))
         wi_l = W.to_local3(lsmp["wi"], sh_n)
         f_l = W.bsdf_eval_w(bsdf, wo, wi_l)
         pdf_b = W.bsdf_pdf_w(bsdf, wo, wi_l)
@@ -719,15 +920,41 @@ def surface_and_shade(*, o, d, t, hit, front, bu, bv, attr, thp, L,
                 shaded=hit_shade, surf=surf)
 
 
+def final_env_state(fs, is_, hit, env, kcfg: KernelConfig, n_lights: int,
+                    nee_modes):
+    """The final environment-only round after the last bounce (the JAX
+    package's `final_env` kernel branch, which mirrors its general tier's
+    last HandleMiss): each active lane that misses adds thp x the
+    environment, weighted against the environment's NEE pdf when its NEE
+    mode is in `nee_modes` (K1: 1, 2, 4, 5; K4: 1, 2) and MIS is on; every
+    lane ends inactive. Returns (fs_out, is_out)."""
+    use_nee = kcfg.nee_mode in nee_modes and n_lights > 0
+    miss = (is_[IS_ACTIVE] > 0) & ~hit
+    env_L, p_env = env_eval_pdf(env, fs[FS_D:FS_D + 3], kcfg.nee_mode == 1,
+                                n_lights)
+    if use_nee and kcfg.enable_mis:
+        w_env = torch.where(is_[IS_PREVDELTA] > 0, 1.0,
+                            W.power_heuristic(fs[FS_PREVPDF], p_env))
+    else:
+        w_env = torch.ones_like(p_env)
+    fs_out = fs.clone()
+    fs_out[FS_L:FS_L + 3] = fs[FS_L:FS_L + 3] + torch.where(
+        miss, fs[FS_THP:FS_THP + 3] * env_L * w_env, 0.0)
+    is_out = is_.clone()
+    is_out[IS_ACTIVE] = 0
+    return fs_out, is_out
+
+
 def bounce_reference(fs, is_, tables: BounceTables, kcfg: KernelConfig,
-                     sample_idx: int):
+                     sample_idx: int, final_env: bool = False):
     """One bounce of the whole wavefront in plain PyTorch: the function
     the CUDA kernel computes per ray (_intersect_group, surface_and_shade,
     _occluded_group). fs [NF,N] f32, is_ [NI,N] i32 -> (fs_out [NF,N],
     is_out [NI,N], hit_out [NH,N]), plus surf_out [SF_ROWS,N] in the
     external modes with lights, where hit row 5 is the shading flag (0 not
     shaded, 1 shaded at logical bounce 0, 2 shaded later) instead of
-    do_nee."""
+    do_nee. `final_env` (tables with an environment): the closest hit and
+    `final_env_state` only, hit row 5 zero."""
     o = fs[FS_O:FS_O + 3]
     d = fs[FS_D:FS_D + 3]
 
@@ -735,6 +962,13 @@ def bounce_reference(fs, is_, tables: BounceTables, kcfg: KernelConfig,
     t, prim, bu, bv, det_pick = _intersect(tables, o, d, kcfg.max_travel)
     hit = t < _BIG
     front = det_pick > 0.0
+    if final_env:
+        fs_out, is_out = final_env_state(fs, is_, hit, tables.env, kcfg,
+                                         tables.n_lights, (1, 2, 4, 5))
+        hit_out = torch.stack([torch.where(hit, t, 0.0),
+                               prim.to(torch.float32), bu, bv,
+                               front.to(torch.float32), torch.zeros_like(t)])
+        return fs_out, is_out, hit_out
     attr_all = tables.attr_rows[:, prim.clamp(min=0)]
     attr_all = torch.where(prim >= 0, attr_all, 0.0)
 
@@ -809,14 +1043,24 @@ def shadow_requests(shadow_o, shadow_d, sdist, do_nee):
 _check = kernels.check_tensor
 
 
+def variant_name(base: str, has_env: bool, final_env: bool) -> str:
+    """The launch-count name of a shading kernel's variant: `base`, or
+    base + "_env" with the environment switches, base + "_final" for the
+    final environment-only round."""
+    return base + ("_final" if final_env else "_env" if has_env else "")
+
+
 def bounce(fs, is_, tables: BounceTables, kcfg: KernelConfig,
-           sample_idx: int):
+           sample_idx: int, final_env: bool = False):
     """One bounce of the wavefront: the CUDA kernel (csrc/bounce_fused.cu)
     for CUDA tensors, `bounce_reference` for CPU tensors, with its return
-    (surf_out too in the external modes with lights). Build and launch
-    errors raise; nothing falls back."""
+    (surf_out too in the external modes with lights; `final_env` runs the
+    final environment-only round of tables with an environment). Build
+    and launch errors raise; nothing falls back."""
+    if final_env and tables.env is None:
+        raise ValueError("bounce: final_env needs the tables' environment")
     if fs.device.type == "cpu":
-        return bounce_reference(fs, is_, tables, kcfg, sample_idx)
+        return bounce_reference(fs, is_, tables, kcfg, sample_idx, final_env)
     if fs.device.type != "cuda":
         raise ValueError(f"bounce: no kernel for device {fs.device}")
     n = fs.shape[1]
@@ -830,6 +1074,8 @@ def bounce(fs, is_, tables: BounceTables, kcfg: KernelConfig,
     _check("mat_rows", tables.mat_rows, torch.float32, (MT_ROWS, 128), dev)
     _check("light_rows", tables.light_rows, torch.float32, (W.LROWS, 128),
            dev)
+    if tables.env is not None:
+        _check("env", tables.env, torch.float32, (ET_SIZE,), dev)
     if kcfg.nee_mode not in range(6):
         raise ValueError(f"bounce: nee_mode {kcfg.nee_mode} not in 0..5")
     if not 0 < tables.n_tris <= MAX_TRIS or (
@@ -839,7 +1085,7 @@ def bounce(fs, is_, tables: BounceTables, kcfg: KernelConfig,
     is_out = torch.empty_like(is_)
     hit_out = torch.empty((NH, n), dtype=torch.float32, device=dev)
     outs = (fs_out, is_out, hit_out)
-    if kcfg.external and tables.n_lights > 0:
+    if kcfg.external and tables.n_lights > 0 and not final_env:
         outs += (torch.empty((SF_ROWS, n), dtype=torch.float32, device=dev),)
     if n == 0:
         return outs
@@ -852,12 +1098,14 @@ def bounce(fs, is_, tables: BounceTables, kcfg: KernelConfig,
             outs[3].data_ptr() if len(outs) > 3 else None,
             tables.tri_coef.data_ptr(), tables.attr_rows.data_ptr(),
             tables.mat_rows.data_ptr(), tables.light_rows.data_ptr(),
+            None if tables.env is None else tables.env.data_ptr(),
             n, tables.n_tris, tpad, tables.n_lights,
             int(sample_idx) & rng.M32, kcfg.nee_mode, int(kcfg.enable_mis),
             kcfg.firefly, int(kcfg.rr_enable), kcfg.min_rr, kcfg.max_travel,
             int(kcfg.low_discrepancy), int(kcfg.energy_comp), kcfg.maxb,
-            stream)
-    kernels.launches["bounce_fused"] += 1
+            int(final_env), stream)
+    kernels.launches[variant_name("bounce_fused", tables.env is not None,
+                                  final_env)] += 1
     return outs
 
 
@@ -983,6 +1231,11 @@ def trace_paths_fused(scene, cfg, o, d, cone_spread, px, py, sample_idx,
                 hist = na.accumulate_feedback(
                     neeat_state, hist, res["tile"], res["li"],
                     torch.clamp(lum, min=0.0), ok)
+    if tbl.env is not None:
+        # the final environment-only round for the rays still active
+        active_in = is_[IS_ACTIVE].sum(dtype=torch.int64)
+        fs, is_, _ = bounce(fs, is_, tbl, kcfg, sample_idx, final_env=True)
+        ray_count = ray_count + active_in
     occupancy.append(is_[IS_ACTIVE].sum(dtype=torch.int64))
     result = dict(L=fs[FS_L:FS_L + 3].T, ray_count=ray_count,
                   occupancy=torch.stack(occupancy))

@@ -11,7 +11,9 @@ Four tiers serve `trace_paths`:
     the cull and sorts in PyTorch around K3, K4 and K5
     (csrc/cluster_*.cu) through `bounce_clustered.trace_paths_clustered`;
     instanced cluster tables (a two-level scene above 2048 world
-    triangles) run K3's and K5's instanced variants;
+    triangles) run K3's and K5's instanced variants; the same three
+    cases take the external-NEE route (K4's export modes, then
+    pt/nee_external.py and K5);
   * "torch" -- the name a bounce-table scene on CPU tensors resolves to:
     the fused path with K1's plain PyTorch version;
   * "xla" -- the general BVH wavefront (pt/integrator.py `_wavefront`,
@@ -26,6 +28,14 @@ Four tiers serve `trace_paths`:
     cluster tables, and keep "fused" / "torch" / "clustered" under
     "auto".
 
+An environment (a map with an environment light) is served on every
+tier: the fused and cluster tables carry the kernels' environment table.
+As in the JAX package, "auto" resolves to "xla" a scene whose kernel
+tiers would need what only the general tier samples: NEE-AT with an
+environment light, and sphere or environment-quad lights (prepare builds
+no bounce or cluster tables for the latter); a caller who pins "fused"
+or "clustered" for them gets NotImplementedError naming the feature.
+
 The wrappers pick the kernel for CUDA tensors and its plain version for
 CPU tensors, so a clustered scene on the CPU keeps the tier name
 "clustered" and the general tier keeps "xla". A scene, config or call
@@ -37,15 +47,31 @@ from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 
 from rtxpt_tpu_torch.config import NEEMode, PTMode
-from rtxpt_tpu_torch.lighting.lights_baker import KIND_SPHERE
+from rtxpt_tpu_torch.lighting.lights_baker import KIND_ENVQUAD, KIND_SPHERE
 from rtxpt_tpu_torch.pt.bounce_clustered import DEFAULT_KSLOTS, DEFAULT_PAGES
 from rtxpt_tpu_torch.pt.bounce_fused import MAX_LIGHTS
 
 TIERS = ("fused", "clustered", "torch", "xla")
+
+
+def general_only_features(scene, cfg):
+    """Names of what only the general tier serves on this scene and
+    config (rtxpt_tpu/pt/dispatch.py _nee_routing_ok and the table
+    builders): sphere or environment-quad lights, and NEE-AT with an
+    environment light."""
+    lights = getattr(scene, "lights", None)
+    if lights is None:
+        return []
+    out = []
+    if {KIND_SPHERE, KIND_ENVQUAD} & lights.kinds:
+        out.append("sphere or environment-quad lights (the general tier "
+                   "samples them)")
+    if cfg.nee.value == NEEMode.NEEAT.value and lights.env_light >= 0:
+        out.append("NEE-AT with an environment light")
+    return out
 
 
 def needs_external_nee(scene, cfg) -> bool:
@@ -90,12 +116,7 @@ def unsupported_features(scene, cfg, neeat_state=None, tier="auto",
         out.append("a scene without bounce, cluster, BVH or TLAS tables "
                    "(prepare it first)")
     lights = getattr(scene, "lights", None)
-    env = getattr(scene, "envmap", None)
-    has_env = (lights is not None and lights.env_light >= 0) or (
-        env is not None and np.any(np.asarray(env.mean_radiance) > 0))
     neeat = cfg.nee.value == NEEMode.NEEAT.value
-    if has_env:
-        out.append("environment lighting")
     if getattr(scene, "textures", None) is not None:
         out.append("textures")
     if getattr(scene, "tri_opacity", None) is not None or getattr(
@@ -118,28 +139,18 @@ def unsupported_features(scene, cfg, neeat_state=None, tier="auto",
     if neeat and neeat_state is None:
         out.append("NEE-AT without a tile state (integrator."
                    "render_adaptive makes one)")
-    if kind == "xla":
-        if lights is not None and KIND_SPHERE in lights.kinds:
-            out.append("sphere lights")
+    if kind == "xla" or tables is None:
         return out
-    many = tables is not None and tables.n_lights > MAX_LIGHTS
-    if kind == "fused":
-        # the external route serves NEE-AT, > 128 lights and WRS K > 1;
-        # it samples the light list
-        if lights is None and cfg.nee.value != NEEMode.OFF.value and (
-                neeat or many or int(cfg.nee_candidates) > 1):
-            out.append("external NEE without a light list")
-        if neeat and has_env:
-            out.append("NEE-AT with an environment light")
-        return out
-    if many:
-        out.append(f"more than {MAX_LIGHTS} lights")
-    if getattr(cfg, "nee_external", False):
-        out.append("external NEE")
-    if neeat:
-        out.append("NEE-AT")
-    if int(cfg.nee_candidates) > 1:
-        out.append("WRS NEE with more than one candidate")
+    out += general_only_features(scene, cfg)
+    if lights is not None and lights.env_light >= 0 and tables.env is None:
+        out.append("an environment light without the tables' environment "
+                   "table (prepare bakes it)")
+    # the external route serves NEE-AT, > 128 lights and WRS K > 1; it
+    # samples the light list
+    many = tables.n_lights > MAX_LIGHTS
+    if lights is None and cfg.nee.value != NEEMode.OFF.value and (
+            neeat or many or int(cfg.nee_candidates) > 1):
+        out.append("external NEE without a light list")
     return out
 
 
@@ -162,8 +173,9 @@ def resolve(scene, cfg, device, neeat_state=None, **call):
     """Resolve cfg.kernel_tier for tensors on `device`. Returns a copy of
     cfg with kernel_tier "fused" (bounce tables on CUDA), "torch" (bounce
     tables on the CPU), "clustered" (cluster tables) or "xla" (asked for,
-    or a scene with only a BVH or TLAS); nee_external set where NEE takes the
-    external route (`needs_external_nee`, bounce tables only); and the
+    a scene with only a BVH or TLAS, or under "auto" a scene with
+    `general_only_features`); nee_external set where NEE takes the
+    external route (`needs_external_nee`, bounce or cluster tables); and the
     clustered tier's kslots and pages: the config's, else the defaults (64
     and 2), with kslots at most the cluster count and pages at most as
     many as the candidate lists of all clusters fill. `call` holds the
@@ -184,6 +196,12 @@ def resolve(scene, cfg, device, neeat_state=None, **call):
                          f"tensors run the 'fused', 'clustered' or 'xla' "
                          f"kernels")
     kind, tables = _tables(scene, tier)
+    _check_devices(scene, tables, neeat_state)
+    if tier == "auto" and kind in ("fused", "clustered") and \
+            general_only_features(scene, cfg):
+        xla = _tables(scene, "xla")
+        if xla[0] is not None:
+            kind, tables = xla
     if tier == "xla" and kind is None:
         raise ValueError("kernel tier 'xla' needs the scene's BVH or TLAS "
                          "(prepare builds one)")
@@ -197,7 +215,6 @@ def resolve(scene, cfg, device, neeat_state=None, **call):
                          xla="BVH or TLAS")
             raise ValueError(f"kernel tier {tier!r} does not run a scene "
                              f"with {names[kind]} tables")
-    _check_devices(scene, tables, neeat_state)
     missing = unsupported_features(scene, cfg, neeat_state, tier, **call)
     if missing:
         raise NotImplementedError(
@@ -208,6 +225,6 @@ def resolve(scene, cfg, device, neeat_state=None, **call):
     if kind == "clustered":
         kslots = min(kslots, tables.n_clusters)
         pages = max(1, min(pages, -(-tables.n_clusters // kslots)))
-    ext = kind == "fused" and needs_external_nee(scene, cfg)
+    ext = kind in ("fused", "clustered") and needs_external_nee(scene, cfg)
     return dataclasses.replace(cfg, kernel_tier=tier, cluster_kslots=kslots,
                                cluster_pages=pages, nee_external=ext)

@@ -9,6 +9,7 @@ from each sample before the next (`render_adaptive`)."""
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -17,8 +18,10 @@ from torch.profiler import record_function
 from rtxpt_tpu_torch.accel.traverse import scene_any, scene_closest
 from rtxpt_tpu_torch.config import NEEMode
 from rtxpt_tpu_torch.lighting import neeat as na
+from rtxpt_tpu_torch.lighting.envmap import _dir_to_uv, env_eval
 from rtxpt_tpu_torch.lighting.lights_baker import (
-    emissive_prim_index, light_pdf_for_tri_hit, sample_light, tri_light_of)
+    emissive_prim_index, env_dir_pdf, env_quad_of_dir, light_pdf_for_tri_hit,
+    sample_light, tri_light_of)
 from rtxpt_tpu_torch.pt import bounce_clustered, bounce_fused, dispatch
 from rtxpt_tpu_torch.pt import bsdf as B
 from rtxpt_tpu_torch.pt.surface import load_surface, ray_offset
@@ -87,7 +90,7 @@ def trace_paths(scene, cfg, o, d, cone_spread, px, py, sample_idx,
                                   f"{cfg.kernel_tier} tier is not ported")
     if cfg.kernel_tier == "clustered":
         return bounce_clustered.trace_paths_clustered(
-            scene, cfg, o, d, cone_spread, px, py, sample_idx)
+            scene, cfg, o, d, cone_spread, px, py, sample_idx, neeat_state)
     return bounce_fused.trace_paths_fused(
         scene, cfg, o, d, cone_spread, px, py, sample_idx, neeat_state)
 
@@ -99,18 +102,21 @@ def _where(cond, a, b):
 def _wavefront(scene, cfg, o, d, px, py, sample_idx, neeat_state=None,
                first_emissive: bool = True):
     """The general BVH wavefront (rtxpt_tpu/pt/integrator.py trace_paths on
-    the "xla" tier, without environment, textures, opacity micromaps,
-    nested priorities, split channels, aux buffers and the real-time
-    arguments). Every lane is traced at every bounce, inactive ones too,
-    as in the JAX package.
+    the "xla" tier, without textures, opacity micromaps, nested
+    priorities, split channels, aux buffers and the real-time arguments).
+    Every lane is traced at every bounce, inactive ones too, as in the JAX
+    package.
 
     Per bounce: the closest hit (`accel.traverse.scene_closest`: K8 for
     scenes with brute tables, else the BVH walk K9, or their plain
     versions on CPU tensors; the TLAS walk of accel/tlas.py on a
-    two-level scene), the medium's Beer-Lambert transmittance, the
-    surface, the emission with its deferred MIS, NEE (uniform, power or
-    NEE-AT, WRS over `cfg.nee_candidates`), the BSDF scatter with the
-    two-slot medium stack, and Russian roulette. With brute tables and
+    two-level scene), the environment of the rays that miss (HandleMiss,
+    with the MIS weight against the power / uniform environment pdf, or
+    under NEE-AT against the tile mixture's uniform-uv strategy), the
+    medium's Beer-Lambert transmittance, the surface, the emission with
+    its deferred MIS, NEE (uniform, power or NEE-AT over every light kind,
+    WRS over `cfg.nee_candidates`), the BSDF scatter with the two-slot
+    medium stack, and Russian roulette. With brute tables and
     NEE on, bounce k's shadow rays ride in bounce k+1's closest-hit query
     (one 2N-wide query; a hit within the shadow distance occludes);
     otherwise each NEE bounce makes an any-hit query (K9's any-hit
@@ -146,6 +152,7 @@ def _wavefront(scene, cfg, o, d, px, py, sample_idx, neeat_state=None,
     hist = na.zero_hist(neeat_state) if use_neeat else None
     fuse_shadows = (scene.bvh is not None and scene.bvh.brute is not None
                     and use_nee)
+    has_env = scene.envmap is not None and scene.envmap.has_radiance
     pend_contrib = zeros(n, 3)
     pend_o = zeros(n, 3)
     pend_d = torch.ones((n, 3), dtype=f32, device=dev)
@@ -172,6 +179,10 @@ def _wavefront(scene, cfg, o, d, px, py, sample_idx, neeat_state=None,
         else:
             hit = scene_closest(scene, o, d, t_zero, t_far)
         hit_mask = active & ~hit.miss
+        if has_env and (first_emissive or bounce > 0):
+            L = L + _handle_miss(scene, cfg, d, thp, active & hit.miss,
+                                 prev_pdf, prev_delta, px, py, neeat_state,
+                                 use_nee, use_neeat, nee_uniform)
         active = hit_mask
         if bounce == cfg.max_bounces:
             break
@@ -329,6 +340,43 @@ def _wavefront(scene, cfg, o, d, px, py, sample_idx, neeat_state=None,
     if use_neeat:
         out["neeat_hist"] = hist
     return out
+
+
+def _handle_miss(scene, cfg, d, thp, miss, prev_pdf, prev_delta, px, py,
+                 neeat_state, use_nee, use_neeat, nee_uniform):
+    """HandleMiss (rtxpt_tpu/pt/integrator.py:273-316): the environment
+    radiance [N,3] that the lanes `miss` gather, thp x L_env, weighted
+    against the NEE strategy that samples the environment: the power or
+    uniform selection pmf times the texel-CDF pdf (or, with environment
+    quads, the holding quad's pmf times the uniform-rect jacobian); under
+    NEE-AT the tile mixture's pmf times the uniform-uv jacobian
+    1 / (2 pi^2 sin theta), the strategy `eval_light_sample` draws."""
+    lights = scene.lights
+    env_L = env_eval(scene.envmap, d)
+    if cfg.enable_mis and use_nee:
+        if use_neeat:
+            tile0 = na.tile_of(neeat_state, px, py)
+            if lights.env_quad_grid is not None:
+                li_e, area_e, sin_t = env_quad_of_dir(lights, scene.envmap,
+                                                      d)
+                sel_mix = na.select_pdf(neeat_state, lights, tile0, li_e)
+                p_env = sel_mix / (area_e * 2.0 * math.pi * math.pi * sin_t)
+            elif lights.env_light >= 0:
+                env_li = torch.full_like(tile0, lights.env_light,
+                                         dtype=torch.int64)
+                sel_mix = na.select_pdf(neeat_state, lights, tile0, env_li)
+                _, v_env = _dir_to_uv(scene.envmap, d)
+                sin_t = torch.clamp(torch.sin(v_env * math.pi), min=1e-4)
+                p_env = sel_mix / (2.0 * math.pi * math.pi * sin_t)
+            else:
+                p_env = torch.zeros_like(d[:, 0])
+        else:
+            p_env = env_dir_pdf(lights, scene.envmap, d, nee_uniform)
+        w_env = torch.where(prev_delta, 1.0,
+                            m.power_heuristic(prev_pdf, p_env))
+    else:
+        w_env = torch.ones_like(d[:, 0])
+    return torch.where(miss[:, None], thp * env_L * w_env[:, None], 0.0)
 
 
 def _device(scene):

@@ -5,16 +5,18 @@ the SF_* rows of pt/bounce_fused.py).
 
 This route serves what the kernel's 128-column light table cannot:
 NEE-AT (the per-tile state of lighting/neeat.py), more than 128 lights,
-and weighted reservoir sampling over K > 1 candidates. The kernel keeps
-the intersection, the surface, the scatter and Russian roulette; the
-shadow rays built here go back to the shadow kernel K2
-(`bounce_fused.occlusion`).
+and weighted reservoir sampling over K > 1 candidates, on the fused tier
+(K1's export) and on the clustered tier (K4's export, the same rows).
+The kernel keeps the intersection, the surface, the scatter and Russian
+roulette; the shadow rays built here go back to the shadow kernel, K2
+(`bounce_fused.occlusion`) or K5 (`bounce_clustered.occlusion`).
 
 The JAX package runs this block as a `lax.map` over lane chunks to bound
 the [lanes, lights] gather of the NEE-AT tile CDF; here the wavefront
 runs in one pass and `neeat.sample_adaptive` bounds that gather itself.
-The split-channel (`first_spec`), per-lane logical bounce (`lb`, for
-opacity micromaps and nested priorities) and real-time (`first_direct`)
+The clustered tier passes each lane's logical bounce (`lb`), which
+keys the NEE seed and the emissive MIS per lane, as in the JAX package.
+The split-channel (`first_spec`) and real-time (`first_direct`)
 arguments belong to later slices and raise NotImplementedError.
 """
 
@@ -70,7 +72,9 @@ def external_nee(scene, cfg, neeat_state, surf, d_in, hit_mask,
     surf [SF_ROWS, N] f32; d_in [3, N] incident ray directions; hit_mask
     [N] bool (the lanes K1 shaded); prev_pdf_in, prev_delta_in [N]: the
     incoming ray's MIS state, for the emissive MIS that K1 defers in the
-    NEE-AT mode; px, py [N] int; `bounce` the wavefront's bounce index.
+    NEE-AT mode; px, py [N] int; `bounce` the wavefront's bounce index,
+    or with `lb` ([N] int, the lanes' logical bounces before this one)
+    the per-lane bounce instead.
 
     Returns dict(em_add [N,3], shadow_o [N,3], shadow_d [N,3], sdist [N],
     contrib [N,3] (zero where not do_nee), do_nee [N] bool, li [N] i32,
@@ -80,10 +84,6 @@ def external_nee(scene, cfg, neeat_state, surf, d_in, hit_mask,
     if first_spec is not None:
         raise NotImplementedError("external NEE with split diffuse/specular "
                                   "channels is not ported yet")
-    if lb is not None:
-        raise NotImplementedError("external NEE with per-lane logical "
-                                  "bounces (opacity micromaps, nested "
-                                  "priorities) is not ported yet")
     if not first_direct:
         raise NotImplementedError("external NEE without primary direct "
                                   "light (real-time mode) is not ported yet")
@@ -100,7 +100,9 @@ def external_nee(scene, cfg, neeat_state, surf, d_in, hit_mask,
     sh_n = surf[SF_SHN:SF_SHN + 3].T
     gn = surf[SF_GN:SF_GN + 3].T
     thp = surf[SF_THP:SF_THP + 3].T
-    bsdf = _rebuild_bsdf(scene.bounce_tables.mat_rows, surf)
+    tables = scene.bounce_tables if scene.bounce_tables is not None \
+        else scene.cluster_tables
+    bsdf = _rebuild_bsdf(tables.mat_rows, surf)
     wo = m.to_local(-d_in.T, sh_n)
 
     # --- deferred emissive MIS (the NEE-AT mixture selection pmf) ---
@@ -112,14 +114,16 @@ def external_nee(scene, cfg, neeat_state, surf, d_in, hit_mask,
         sel_mix = na.select_pdf(neeat_state, lights, tile0,
                                 torch.clamp(lid, min=0))
         p_light = torch.where(lid >= 0, sel_mix * p_geo, 0.0)
-        w_em = torch.where(prev_delta_in | (bounce == 0), 1.0,
+        lb0 = (lb == 0) if lb is not None else bounce == 0
+        w_em = torch.where(prev_delta_in | lb0, 1.0,
                            m.power_heuristic(prev_pdf_in, p_light))
     else:
         w_em = torch.ones((n,), dtype=torch.float32, device=dev)
     em_add = em3 * w_em[..., None]
 
     # --- candidate selection (WRS over k_cand candidates) ---
-    seed_nee = rng.pixel_seed(px, py, bounce, EFFECT_NEE)
+    seed_nee = rng.pixel_seed(px, py, bounce if lb is None else lb,
+                              EFFECT_NEE)
 
     def lds(dims):
         if cfg.low_discrepancy:

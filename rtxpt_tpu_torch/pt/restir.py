@@ -8,8 +8,12 @@ from __future__ import annotations
 
 import torch
 
+import math
+
+from rtxpt_tpu_torch.lighting.envmap import _uv_to_dir, env_eval
 from rtxpt_tpu_torch.lighting.lights_baker import (
-    _DELTA_DIST, KIND_POINT, KIND_SPOT, KIND_TRIANGLE, LightList,
+    _DELTA_DIST, KIND_ENV, KIND_ENVQUAD, KIND_POINT, KIND_SPHERE, KIND_SPOT,
+    KIND_TRIANGLE, LightList,
 )
 from rtxpt_tpu_torch.utils import math as m
 
@@ -17,12 +21,12 @@ from rtxpt_tpu_torch.utils import math as m
 def eval_light_sample(lights: LightList, envmap, li, uv, shade_pos):
     """Re-evaluate a light sample given by light index li [N] and sample
     parameters uv [N, 2] at shade_pos [N, 3], deterministically (the same
-    mapping as lights_baker.sample_light), for triangle, point, spot and
-    directional lights; the other kinds raise NotImplementedError.
+    mapping as lights_baker.sample_light) for every kind; the environment
+    kinds read uv as a uniform square sample (jacobian
+    1 / (2 pi^2 sin theta)), not as a CDF draw.
 
     Returns (wi [N,3], dist [N], Li [N,3], source pdf [N]: solid angle,
     with the power selection pmf folded in, at least 1e-12)."""
-    lights.require_sampled_kinds()
     lix = torch.clamp(li, min=0).to(torch.int64)
     kind = lights.kind[lix]
     p0 = lights.p0[lix]
@@ -58,15 +62,61 @@ def eval_light_sample(lights: LightList, envmap, li, uv, shade_pos):
     is_tri = kind == KIND_TRIANGLE
     is_point = kind == KIND_POINT
     is_spot = kind == KIND_SPOT
+    wi = -p1
+    dist = torch.full_like(dist_p, _DELTA_DIST)
+    Li = em
+    pdf = sel_pdf
+    if KIND_SPHERE in lights.kinds:
+        is_sph = kind == KIND_SPHERE
+        r_sph = ex[..., 2]
+        sin2_max = torch.clamp(r_sph * r_sph / d2p, 0.0, 1.0 - 1e-6)
+        cos_max = torch.sqrt(1.0 - sin2_max)
+        cos_t = 1.0 - uv[..., 0] * (1.0 - cos_max)
+        sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+        phi_s = 2.0 * math.pi * uv[..., 1]
+        t_s, b_s = m.orthonormal_basis(wi_p)
+        wi_sph = (t_s * (sin_t * torch.cos(phi_s))[..., None]
+                  + b_s * (sin_t * torch.sin(phi_s))[..., None]
+                  + wi_p * cos_t[..., None])
+        disc = torch.clamp(r_sph * r_sph - d2p * (1.0 - cos_t * cos_t),
+                           min=0.0)
+        dist_sph = torch.clamp(dist_p * cos_t - torch.sqrt(disc), min=1e-5)
+        pdf_sph = sel_pdf / torch.clamp(2.0 * math.pi * (1.0 - cos_max),
+                                        min=1e-9)
+        wi = torch.where(is_sph[..., None], wi_sph, wi)
+        dist = torch.where(is_sph, dist_sph, dist)
+        Li = torch.where(is_sph[..., None],
+                         torch.where((d2p > r_sph * r_sph)[..., None], em,
+                                     0.0), Li)
+        pdf = torch.where(is_sph, pdf_sph, pdf)
+    if KIND_ENV in lights.kinds:
+        is_env = kind == KIND_ENV
+        wi_env = _uv_to_dir(envmap, uv[..., 0], uv[..., 1])
+        sin_e = torch.clamp(torch.sin(uv[..., 1] * math.pi), min=1e-4)
+        wi = torch.where(is_env[..., None], wi_env, wi)
+        Li = torch.where(is_env[..., None], env_eval(envmap, wi_env), Li)
+        pdf = torch.where(is_env,
+                          sel_pdf / (2.0 * math.pi * math.pi * sin_e), pdf)
+    if KIND_ENVQUAD in lights.kinds:
+        is_envq = kind == KIND_ENVQUAD
+        uq = ex[..., 0] + uv[..., 0] * (ex[..., 2] - ex[..., 0])
+        vq = ex[..., 1] + uv[..., 1] * (ex[..., 3] - ex[..., 1])
+        wi_envq = _uv_to_dir(envmap, uq, vq)
+        area_q = torch.clamp((ex[..., 2] - ex[..., 0])
+                             * (ex[..., 3] - ex[..., 1]), min=1e-9)
+        sin_q = torch.clamp(torch.sin(vq * math.pi), min=1e-4)
+        wi = torch.where(is_envq[..., None], wi_envq, wi)
+        Li = torch.where(is_envq[..., None], env_eval(envmap, wi_envq), Li)
+        pdf = torch.where(is_envq, sel_pdf / (area_q * 2.0 * math.pi
+                                              * math.pi * sin_q), pdf)
     wi = torch.where(is_tri[..., None], wi_tri,
-                     torch.where((is_point | is_spot)[..., None], wi_p, -p1))
+                     torch.where((is_point | is_spot)[..., None], wi_p, wi))
     dist = torch.where(is_tri, dist_tri,
-                       torch.where(is_point | is_spot, dist_p,
-                                   torch.full_like(dist_p, _DELTA_DIST)))
+                       torch.where(is_point | is_spot, dist_p, dist))
     Li = torch.where(is_tri[..., None], li_tri,
                      torch.where(is_point[..., None], li_point,
                                  torch.where(is_spot[..., None],
                                              li_point * spot_atten[..., None],
-                                             em)))
-    pdf = torch.where(is_tri, pdf_tri, sel_pdf)
+                                             Li)))
+    pdf = torch.where(is_tri, pdf_tri, pdf)
     return wi, dist, Li, torch.clamp(pdf, min=1e-12)

@@ -424,10 +424,13 @@ class LightFieldsW(NamedTuple):
     power: torch.Tensor
 
 
-def sample_light_fields_w(lf: LightFieldsW, sel_pdf, shade_pos, u1, u2):
+def sample_light_fields_w(lf: LightFieldsW, sel_pdf, shade_pos, u1, u2,
+                          env=None):
     """Per-kind light sample from gathered light fields (triangle, point,
-    spot, directional). The environment branch comes with the environment
-    slice. Returns dict(wi vec3, dist, Li vec3, pdf, is_delta, valid)."""
+    spot, directional, and the environment when `env`, the kernels'
+    environment sample (wi vec3, Li vec3, source pdf) drawn from the same
+    u1, u2, is given). Returns dict(wi vec3, dist, Li vec3, pdf, is_delta,
+    valid)."""
     kind = lf.kind
 
     b0, b1, b2 = sample_triangle_barycentrics(u1, u2)
@@ -470,6 +473,13 @@ def sample_light_fields_w(lf: LightFieldsW, sel_pdf, shade_pos, u1, u2):
                                  torch.where(is_spot, li_point * spot_atten,
                                              lf.em)))
     pdf = torch.where(is_tri, pdf_tri, sel_pdf)
+    if env is not None:
+        env_wi, env_li, env_src_pdf = env
+        is_env = kind == KIND_ENV
+        wi = torch.where(is_env, env_wi, wi)
+        dist = torch.where(is_env, _DELTA_DIST, dist)
+        Li = torch.where(is_env, env_li, Li)
+        pdf = torch.where(is_env, sel_pdf * env_src_pdf, pdf)
     is_delta = is_point | is_spot | is_dir
     valid = (valid_tri | ~is_tri) & (pdf > 1e-12) & (sel_pdf > 0.0)
     return dict(wi=wi, dist=dist, Li=Li, pdf=pdf, is_delta=is_delta,

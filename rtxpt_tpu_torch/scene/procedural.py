@@ -277,14 +277,15 @@ def city_scene(tri_budget: int = 350_000, seed: int = 0,
     boxes on a subdivided ground plane, lit by 24 emissive street panels
     and a directional sun. Deterministic in (tri_budget, seed, blocks);
     the triangle count lands within ~5% of tri_budget (339,888 at the
-    default 350,000). Only the plain variant is ported: `textured`,
-    `with_env` and `normal_mapped` raise NotImplementedError."""
-    for flag, name in ((textured, "textured"), (with_env, "with_env"),
+    default 350,000). `with_env` adds the JAX package's sky (a 128 x 64
+    make_sky at half scale); `textured` and `normal_mapped` raise
+    NotImplementedError."""
+    for flag, name in ((textured, "textured"),
                        (normal_mapped, "normal_mapped")):
         if flag:
             raise NotImplementedError(
-                f"city_scene({name}=True): textures, normal maps and "
-                f"environment maps are not ported to rtxpt_tpu_torch yet")
+                f"city_scene({name}=True): textures and normal maps are "
+                f"not ported to rtxpt_tpu_torch yet")
     rng = np.random.default_rng(seed)
     nb = blocks * blocks
     # tris: ground 2*g^2 + nb * 12*s^2 + lights; solve s for the budget.
@@ -347,6 +348,12 @@ def city_scene(tri_budget: int = 350_000, seed: int = 0,
         instances=[MeshInstance(positions=pos, normals=nrm, uvs=uv,
                                 indices=idx, material=mat, name="city")],
         materials=mats, analytic_lights=sun)
+    if with_env:
+        from rtxpt_tpu_torch.lighting.sky import make_sky
+        scene.envmap_image = make_sky(
+            128, 64, sun_dir=(0.45, 0.72, -0.3), sun_intensity=40.0,
+            bake_sun=True)
+        scene.envmap_scale = 0.5
     c = blocks * 5.0
     scene.camera = dict(position=[c - 18.0, 6.0, c + 26.0],
                         target=[c, 4.0, c],

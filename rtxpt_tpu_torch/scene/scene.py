@@ -215,6 +215,9 @@ class HostScene:
     camera: Optional[dict] = None
     # build the two-level BVH even below the sharing-ratio heuristic
     force_instancing: bool = False
+    # > 0: bake the environment as this many kEnvironmentQuad region lights
+    # instead of one kEnvironment light (lighting/lights_baker.py)
+    env_quad_lights: int = 0
 
     def flatten(self) -> SceneData:
         """Flatten instances to world space (same numpy ops as the JAX

@@ -10,6 +10,7 @@ pixel at rtol = atol = 2e-3 with image means within 3e-7 relative, and
 with the same ray counts, occupancies and cull overflow (48x32, 3 bounces,
 kslots 64 and 8)."""
 
+import dataclasses
 import re
 from pathlib import Path
 
@@ -32,7 +33,6 @@ from rtxpt_tpu_torch.accel import cluster as TCL
 from rtxpt_tpu_torch.accel.cull import cull_candidates as t_cull
 from rtxpt_tpu_torch.apps import cli
 from rtxpt_tpu_torch.config import PathTracerConfig
-from rtxpt_tpu_torch.lighting.envmap import EnvMap
 from rtxpt_tpu_torch.ops import wavefront as TW
 from rtxpt_tpu_torch.prepare import cluster_scene_from_numpy, prepare
 from rtxpt_tpu_torch.pt import bounce_clustered as BC
@@ -134,10 +134,19 @@ def test_city_camera_stands_inside_a_tower():
     assert raised["target"] == host.camera["target"]
 
 
-@pytest.mark.parametrize("flag", ["textured", "with_env", "normal_mapped"])
+@pytest.mark.parametrize("flag", ["textured", "normal_mapped"])
 def test_city_scene_refuses_unported_variants(flag):
     with pytest.raises(NotImplementedError, match=flag):
         TP.city_scene(4000, seed=1, blocks=2, **{flag: True})
+
+
+def test_city_scene_with_env_matches_jax():
+    """city_scene(with_env=True) carries the JAX package's sky."""
+    jh = JP.city_scene(4000, seed=1, blocks=2, with_env=True)
+    th = TP.city_scene(4000, seed=1, blocks=2, with_env=True)
+    np.testing.assert_array_equal(th.envmap_image, jh.envmap_image)
+    assert th.envmap_image.shape == (64, 128, 3)
+    assert th.envmap_scale == jh.envmap_scale == 0.5
 
 
 def test_morton_order_identical(city):
@@ -475,10 +484,15 @@ def test_resolve_clustered_scene(city):
 @pytest.mark.parametrize("case", ["environment", "textures", "priorities",
                                   "micromaps", "split"])
 def test_clustered_tier_refuses_unserved_features(city, case):
+    """What the clustered tier does not serve raises by name; an
+    environment light is refused only where the tables lack the
+    environment table (prepare bakes it: test_clustered_tier_serves_the_
+    environment)."""
     scene, cfg = city[3], PathTracerConfig()
     if case == "environment":
-        scene = scene.replace(envmap=EnvMap(np.ones((4, 8, 3), np.float32),
-                                            1.0, 0.0, np.ones(3, np.float32)))
+        sky = prepare(_small_city_env(), device="cpu")
+        scene = sky.replace(cluster_tables=dataclasses.replace(
+            sky.cluster_tables, env=None))
     elif case == "textures":
         scene = scene.replace(textures=object())
     elif case == "priorities":
@@ -490,6 +504,20 @@ def test_clustered_tier_refuses_unserved_features(city, case):
     with pytest.raises(NotImplementedError,
                        match="clustered tier does not serve"):
         dispatch.resolve(scene, cfg, "cpu")
+
+
+def _small_city_env():
+    return TP.city_scene(tri_budget=4000, seed=1, blocks=2, with_env=True)
+
+
+def test_clustered_tier_serves_the_environment():
+    """The sky city gets cluster tables with the environment table and
+    resolves to the clustered tier; its lights hold the environment."""
+    scene = prepare(_small_city_env(), device="cpu")
+    assert scene.cluster_tables.env.shape == (bf.ET_SIZE,)
+    assert scene.lights.env_light >= 0
+    cfg = dispatch.resolve(scene, PathTracerConfig(), "cpu")
+    assert cfg.kernel_tier == "clustered" and not cfg.nee_external
 
 
 def test_cluster_scene_from_numpy_refuses_unported_parts(city):

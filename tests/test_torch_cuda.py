@@ -5,8 +5,9 @@ kernel K2 on the Cornell box and the rooms, K3, K4 and K5 on the small
 city of tests/test_torch_cluster.py, K3's and K5's instanced variants on
 the instanced city of tests/test_torch_instancing.py, and the general
 tier's brute-force closest hit K8 and BVH walk K9 on the Cornell box, the
-rooms and that city. Needs an NVIDIA GPU and nvcc; skips
-without them. This file imports no JAX, so it runs where JAX is absent:
+rooms and that city, and the environment variants of K1 and K4 (has_env,
+final_env) with K4's export slots 3-5, on the sky Cornell box and the sky
+city. Needs an NVIDIA GPU and nvcc; skips without them. This file imports no JAX, so it runs where JAX is absent:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -18,7 +19,7 @@ from rtxpt_tpu_torch import kernels
 from rtxpt_tpu_torch.accel import brute, traverse
 from rtxpt_tpu_torch.config import NEEMode, PathTracerConfig
 from rtxpt_tpu_torch.prepare import prepare
-from rtxpt_tpu_torch.lighting.envmap import EnvMap
+from rtxpt_tpu_torch.lighting.sky import make_sky
 from rtxpt_tpu_torch.pt import bounce_clustered as BC
 from rtxpt_tpu_torch.pt import bounce_fused as bf
 from rtxpt_tpu_torch.pt import dispatch
@@ -264,10 +265,9 @@ def test_city_render_runs_through_k3_k4_k5(city):
 
 def test_clustered_tier_refuses_unserved_feature_on_the_card(city):
     _, scene = city
-    scene = scene.replace(envmap=EnvMap(torch.ones((4, 8, 3)).numpy(), 1.0,
-                                        0.0, torch.ones(3).numpy()))
+    scene = scene.replace(textures=object())
     with pytest.raises(NotImplementedError,
-                       match="clustered tier does not serve: environment"):
+                       match="clustered tier does not serve: textures"):
         dispatch.resolve(scene, PathTracerConfig(), scene.cluster_tables
                          .device)
 
@@ -468,3 +468,102 @@ def test_general_tier_refuses_a_cpu_light_list(cornell):
         render(scene.replace(lights=cpu_lights),
                TP.default_camera(host, 8, 8),
                PathTracerConfig(kernel_tier="xla"), 8, 8, spp=1)
+
+
+# ---------------------------------------------------------------------------
+# The environment variants of K1 and K4, and K4's export
+# ---------------------------------------------------------------------------
+
+
+def _close_rows(kern, plain):
+    for k, p in zip(kern, plain):
+        if k.dtype == torch.int32:
+            continue
+        ok = torch.isclose(k, p, rtol=TOL, atol=TOL, equal_nan=True)
+        assert ok.float().mean(-1).min() >= 0.999
+
+
+@pytest.mark.parametrize("nee", ["POWER", "UNIFORM", "POWER_EXT"])
+def test_k1_env_matches_plain_version(gpu, nee):
+    """K1 with the environment table (has_env) over three bounces of 4096
+    Cornell + sky camera rays, then the final_env launch."""
+    host = TP.cornell_box()
+    host.envmap_image = make_sky()
+    scene = prepare(host, device=gpu)
+    assert scene.bounce_tables.env is not None
+    cfg = PathTracerConfig(max_bounces=3, nee=NEEMode[nee.split("_")[0]],
+                           nee_external=nee.endswith("EXT"))
+    kcfg = bf.KernelConfig.from_cfg(cfg)
+    fs, is_ = _state(host, cfg, 64, gpu, 2)
+    for b in range(4):
+        final = b == 3
+        plain = bf.bounce_reference(fs, is_, scene.bounce_tables, kcfg, 2,
+                                    final_env=final)
+        before = dict(kernels.launches)
+        kern = bf.bounce(fs, is_, scene.bounce_tables, kcfg, 2,
+                         final_env=final)
+        torch.cuda.synchronize()
+        name = "bounce_fused_final" if final else "bounce_fused_env"
+        assert kernels.launches[name] == before.get(name, 0) + 1
+        assert len(kern) == len(plain)
+        same = (kern[1] == plain[1]).all(0) & (kern[2][1] == plain[2][1])
+        assert same.float().mean() >= 0.999
+        _close_rows(kern, plain)
+        fs, is_ = plain[0], plain[1]
+    assert int(is_[bf.IS_ACTIVE].sum()) == 0
+
+
+@pytest.fixture(scope="module")
+def sky_city(gpu):
+    host = TP.city_scene(tri_budget=4000, seed=1, blocks=2, with_env=True)
+    return host, prepare(host, device=gpu)
+
+
+@pytest.mark.parametrize("nee", ["POWER", "NEEAT", "POWER_EXT"])
+def test_k4_env_and_export_match_plain_version(gpu, sky_city, city, nee):
+    """K4 with the environment table, its final_env launch (power NEE on
+    the sky city) and its export slots 3 and 5 (the city), SF_* rows and
+    hit row 5 included, over three bounces of 4096 lanes."""
+    host, scene = sky_city if nee == "POWER" else city
+    tbl = scene.cluster_tables
+    cfg = PathTracerConfig(max_bounces=3, nee=NEEMode[nee.split("_")[0]],
+                           nee_external=nee.endswith("EXT"))
+    kcfg = bf.KernelConfig.from_cfg(cfg)
+    fs, is_ = _state(host, cfg, 64, gpu, 2)
+    for b in range(3 + (tbl.env is not None)):
+        final = b == 3
+        ha, _ = BC.closest_paged(fs, is_, tbl, 64, 1, 1e27)
+        plain = BC.shade_reference(ha, fs, is_, tbl, kcfg, 2, final)
+        kern = BC.shade(ha, fs, is_, tbl, kcfg, 2, final_env=final)
+        torch.cuda.synchronize()
+        assert len(kern) == len(plain) == (5 if kcfg.external and not final
+                                           else 4)
+        same = (kern[1] == plain[1]).all(0) & (kern[3][5] == plain[3][5])
+        assert same.float().mean() >= 0.999
+        _close_rows(kern, plain)
+        fs, is_ = plain[0], plain[1]
+
+
+def test_env_renders_count_their_launches(gpu, sky_city):
+    """A render of the sky Cornell box and of the sky city: K1 runs its
+    environment variant per bounce and one final launch per sample; the
+    clustered tier runs K3 per page and bounce plus the final round's
+    pages, K4's environment variant per bounce and one final K4."""
+    host = TP.cornell_box()
+    host.envmap_image = make_sky()
+    scene = prepare(host, device=gpu)
+    kernels.launches.clear()
+    hdr, _, rays = render(scene, TP.default_camera(host, 32, 32, device=gpu),
+                          PathTracerConfig(max_bounces=3), 32, 32, spp=2)
+    assert dict(kernels.launches) == dict(bounce_fused_env=3 * 2,
+                                          bounce_fused_final=2)
+    assert torch.isfinite(hdr).all() and rays > 0
+    host, scene = sky_city
+    kernels.launches.clear()
+    hdr, _, rays = render(scene, TP.default_camera(host, 32, 24, device=gpu),
+                          PathTracerConfig(max_bounces=3, cluster_kslots=16),
+                          32, 24, spp=2)
+    assert dict(kernels.launches) == dict(
+        cluster_closest=2 * 4 * 2, cluster_shade_env=3 * 2,
+        cluster_shade_final=2, cluster_shadow=2 * 3 * 2)
+    assert torch.isfinite(hdr).all() and rays > 0

@@ -1,7 +1,8 @@
 """Package rules of rtxpt_tpu_torch: no JAX anywhere in the port, the
 kernel layer imports without nvcc or a GPU, CPU tensors never count a
 kernel launch, and the dispatch refuses what the kernel does not serve
-instead of demoting it."""
+instead of demoting it (the one choice of another tier, "xla" under "auto"
+for what only the general tier samples, is the JAX package's own)."""
 
 import dataclasses
 import os
@@ -19,9 +20,9 @@ from rtxpt_tpu_torch import kernels
 from rtxpt_tpu_torch.accel.bvh import bvh_from_numpy
 from rtxpt_tpu_torch.config import NEEMode, PathTracerConfig, PTMode
 from rtxpt_tpu_torch.lighting import neeat
-from rtxpt_tpu_torch.lighting.envmap import EnvMap
 from rtxpt_tpu_torch.lighting.lights_baker import (
     KIND_SPHERE, lights_from_numpy)
+from rtxpt_tpu_torch.lighting.sky import make_sky
 from rtxpt_tpu_torch.prepare import (
     cluster_scene_from_numpy, prepare, scene_from_numpy)
 from rtxpt_tpu_torch.pt import bounce_fused as bf
@@ -48,6 +49,7 @@ SLICE_MODULES = [
     "rtxpt_tpu_torch.accel.bvh", "rtxpt_tpu_torch.accel.lbvh",
     "rtxpt_tpu_torch.accel.native", "rtxpt_tpu_torch.accel.brute",
     "rtxpt_tpu_torch.accel.traverse", "rtxpt_tpu_torch.accel.tlas",
+    "rtxpt_tpu_torch.lighting.sky",
 ]
 
 
@@ -129,7 +131,9 @@ def test_builders_default_to_the_card(monkeypatch):
                                              pos[:1], pos[:1]),
                  lambda: brute.build_brute(pos, idx),
                  lambda: brute.brute_from_fields({}),
-                 lambda: bake_lights(flat, bake_envmap(None), 1.0),
+                 lambda: bake_envmap(None),
+                 lambda: bake_lights(flat, bake_envmap(None, device="cpu"),
+                                     1.0),
                  lambda: bf.tables_from_numpy(0, 0, 0, 0, 1, 1, 0, 0),
                  lambda: tlas.tlas_from_numpy({}),
                  lambda: tlas.build_two_level(host),
@@ -162,8 +166,26 @@ def instanced_city():
     return prepare(TP.instanced_city(grid=2, subdiv=6), device="cpu")
 
 
+@pytest.fixture(scope="module")
+def sky_cornell():
+    """The Cornell box under make_sky(64, 32): fused tables with the
+    environment table."""
+    host = TP.cornell_box()
+    host.envmap_image = make_sky(64, 32)
+    return prepare(host, device="cpu")
+
+
 def _state(n_lights, device="cpu"):
     return neeat.init_state(8, 8, n_lights, device=device)
+
+
+def _more_lights(scene):
+    """The scene with a light list and cluster tables of 129 lights."""
+    kind = torch.zeros((bf.MAX_LIGHTS + 1,), dtype=torch.int32)
+    return scene.replace(
+        lights=dataclasses.replace(scene.lights, kind=kind),
+        cluster_tables=dataclasses.replace(scene.cluster_tables,
+                                           n_lights=bf.MAX_LIGHTS + 1))
 
 
 def test_cpu_tensors_launch_no_kernel(cornell):
@@ -214,33 +236,26 @@ def test_resolve_refuses_plain_tier_on_cuda(cornell):
                          "cuda")
 
 
-_ENV = EnvMap(np.ones((4, 8, 3), np.float32), 1.0, 0.0,
-              np.ones(3, np.float32))
-
 # case: (scene, scene fields, config fields, the name the error gives);
-# the fused tier's external route serves NEE-AT with a tile state, WRS
-# K > 1 and more than 128 lights, the clustered tier none of them, flat
-# or instanced
+# the external routes of the fused and clustered tiers serve NEE-AT with a
+# tile state, WRS K > 1 and more than 128 lights, flat or instanced; a
+# pinned kernel tier does not serve NEE-AT with an environment light
 UNSERVED = {
-    "environment": ("cornell", dict(envmap=_ENV), {}, "environment"),
     "textures": ("cornell", dict(textures=object()), {}, "textures"),
     "micromaps": ("cornell", dict(tri_opacity=object()), {}, "micromaps"),
     "priorities": ("cornell", dict(has_nested_priorities=True), {},
                    "priorities"),
     "split": ("cornell", {}, dict(split_channels=True), "split"),
-    "neeat": ("city", {}, dict(nee=NEEMode.NEEAT), "NEE-AT"),
-    "wrs": ("city", {}, dict(nee_candidates=4), "WRS"),
     "realtime": ("cornell", {}, dict(mode=PTMode.BUILD_STABLE_PLANES),
                  "render mode"),
-    "lights": ("city", "lights", {}, "more than 128 lights"),
     "neeat_without_state": ("cornell", {}, dict(nee=NEEMode.NEEAT),
                             "NEE-AT without a tile state"),
-    "neeat_environment": ("cornell", dict(envmap=_ENV),
-                          dict(nee=NEEMode.NEEAT),
-                          "NEE-AT with an environment"),
-    "instanced_neeat": ("instanced", {}, dict(nee=NEEMode.NEEAT), "NEE-AT"),
-    "instanced_wrs": ("instanced", {}, dict(nee_candidates=4), "WRS"),
-    "instanced_lights": ("instanced", "lights", {}, "more than 128 lights"),
+    "neeat_environment_pinned": ("sky_cornell", {},
+                                 dict(nee=NEEMode.NEEAT,
+                                      kernel_tier="fused"),
+                                 "NEE-AT with an environment"),
+    "environment_without_table": ("sky_cornell", "no_table", {},
+                                  "environment table"),
     "instanced_split": ("instanced", {}, dict(split_channels=True), "split"),
 }
 
@@ -248,22 +263,68 @@ UNSERVED = {
 @pytest.mark.parametrize("device", ["cuda", "cpu"])
 @pytest.mark.parametrize("case", list(UNSERVED))
 def test_resolve_refuses_unserved_features(cornell, small_city,
-                                           instanced_city, case, device):
+                                           instanced_city, sky_cornell, case,
+                                           device):
     """An unserved feature raises with its name; nothing demotes."""
     which, scene_kw, cfg_kw, name = UNSERVED[case]
     scene = dict(cornell=cornell[1], city=small_city,
-                 instanced=instanced_city)[which]
+                 instanced=instanced_city, sky_cornell=sky_cornell)[which]
     state = None
-    if case == "neeat_environment":
+    if case.startswith("neeat_environment"):
         state = _state(scene.lights.count)
-    if scene_kw == "lights":
-        scene = scene.replace(cluster_tables=dataclasses.replace(
-            scene.cluster_tables, n_lights=bf.MAX_LIGHTS + 1))
+    if scene_kw == "no_table":
+        scene = scene.replace(bounce_tables=dataclasses.replace(
+            scene.bounce_tables, env=None))
     else:
         scene = scene.replace(**scene_kw)
     with pytest.raises(NotImplementedError, match="does not serve") as err:
         dispatch.resolve(scene, PathTracerConfig(**cfg_kw), device, state)
     assert name in str(err.value)
+
+
+# cases that were refused before the environment slice and are served now:
+# case -> (scene, scene change, config fields, the tier "auto" serves it on,
+# CPU tensors; pinned to that tier it is served too)
+SERVED = {
+    "environment": ("sky_cornell", None, {}, "fused"),
+    "neeat": ("city", None, dict(nee=NEEMode.NEEAT), "clustered"),
+    "wrs": ("city", None, dict(nee_candidates=4), "clustered"),
+    "lights": ("city", "lights", {}, "clustered"),
+    "neeat_environment": ("sky_cornell", None, dict(nee=NEEMode.NEEAT),
+                          "xla"),
+    "instanced_neeat": ("instanced", None, dict(nee=NEEMode.NEEAT),
+                        "clustered"),
+    "instanced_wrs": ("instanced", None, dict(nee_candidates=4),
+                      "clustered"),
+    "instanced_lights": ("instanced", "lights", {}, "clustered"),
+}
+
+
+@pytest.mark.parametrize("device", ["cuda", "cpu"])
+@pytest.mark.parametrize("case", list(SERVED))
+def test_resolve_serves_environment_and_clustered_external_nee(
+        small_city, instanced_city, sky_cornell, case, device):
+    """The environment on the fused tier (named "torch" on CPU tensors);
+    NEE-AT, WRS K = 4 and more than 128 lights on the clustered tier with
+    nee_external, flat and instanced; NEE-AT with an environment light on
+    "xla" under "auto", as in the JAX package (a pinned kernel tier
+    raises: UNSERVED["neeat_environment_pinned"])."""
+    which, change, cfg_kw, tier = SERVED[case]
+    scene = dict(city=small_city, instanced=instanced_city,
+                 sky_cornell=sky_cornell)[which]
+    if change == "lights":
+        scene = _more_lights(scene)
+    state = _state(scene.lights.count) if "neeat" in case else None
+    cfg = PathTracerConfig(**cfg_kw)
+    assert not dispatch.unsupported_features(scene, cfg, state, tier)
+    want = "torch" if tier == "fused" and device == "cpu" else tier
+    for asked in (cfg, dataclasses.replace(cfg, kernel_tier=tier)):
+        out = dispatch.resolve(scene, asked, device, state)
+        assert out.kernel_tier == (want if asked is cfg else tier)
+        assert out.nee_external == (tier == "clustered")
+    if case == "environment":
+        assert scene.bounce_tables.env is not None
+        assert scene.lights.env_light >= 0
 
 
 @pytest.fixture(scope="module")
@@ -340,11 +401,9 @@ def test_config_matches_jax_package():
 # the general tier ("xla"): case -> (scene fields, config fields, trace
 # arguments, the name the error gives)
 UNSERVED_XLA = {
-    "environment": (dict(envmap=_ENV), {}, {}, "environment"),
     "textures": (dict(textures=object()), {}, {}, "textures"),
     "micromaps": ("tri_micro", {}, {}, "micromaps"),
     "priorities": (dict(has_nested_priorities=True), {}, {}, "priorities"),
-    "sphere_light": ("sphere", {}, {}, "sphere lights"),
     "split": ({}, dict(split_channels=True), {}, "split"),
     "want_aux": ({}, {}, dict(want_aux=True), "aux buffers"),
     "first_hit": ({}, {}, dict(first_hit=object()), "first_hit"),
@@ -365,11 +424,6 @@ def test_general_tier_refuses_unserved_features(cornell, case, device):
     if scene_kw == "tri_micro":
         scene = scene.replace(bvh=scene.bvh.replace(
             tri_micro=torch.zeros(scene.bvh.num_triangles)))
-    elif scene_kw == "sphere":
-        kind = scene.lights.kind.clone()
-        kind[-1] = KIND_SPHERE
-        scene = scene.replace(lights=dataclasses.replace(scene.lights,
-                                                         kind=kind))
     else:
         scene = scene.replace(**scene_kw)
     cfg = PathTracerConfig(kernel_tier="xla", **cfg_kw)
@@ -377,6 +431,31 @@ def test_general_tier_refuses_unserved_features(cornell, case, device):
                        match="xla tier does not serve") as err:
         dispatch.resolve(scene, cfg, device, **call)
     assert name in str(err.value)
+
+
+@pytest.mark.parametrize("device", ["cuda", "cpu"])
+@pytest.mark.parametrize("case", ["environment", "sphere_light"])
+def test_general_tier_serves_environment_and_spheres(cornell, sky_cornell,
+                                                     case, device):
+    """The general tier serves the environment and sphere lights; a scene
+    whose lights hold a sphere resolves to it under "auto" (the JAX
+    package builds no kernel tables for it), and a pinned kernel tier
+    raises, naming it."""
+    xla = PathTracerConfig(kernel_tier="xla")
+    if case == "environment":
+        scene = sky_cornell
+        assert dispatch.resolve(scene, xla, device).kernel_tier == "xla"
+        return
+    scene = cornell[1]
+    kind = scene.lights.kind.clone()
+    kind[-1] = KIND_SPHERE
+    scene = scene.replace(lights=dataclasses.replace(scene.lights,
+                                                     kind=kind))
+    for cfg in (xla, PathTracerConfig()):
+        assert dispatch.resolve(scene, cfg, device).kernel_tier == "xla"
+    with pytest.raises(NotImplementedError, match="sphere"):
+        dispatch.resolve(scene, PathTracerConfig(kernel_tier="fused"),
+                         device)
 
 
 @pytest.mark.parametrize("device", ["cuda", "cpu"])

@@ -116,7 +116,7 @@ def test_bake_lights(name):
     jh, th = _hosts(name)
     _, jl = _jax_lights(jh)
     sd = th.flatten()
-    tl = t_bake_lights(sd, t_bake_envmap(None),
+    tl = t_bake_lights(sd, t_bake_envmap(None, device="cpu"),
                        j_scene_radius(sd.geometry.positions.numpy()),
                        device="cpu")
     for field in ("kind", "p0", "p1", "p2", "emission", "extra", "normal",
@@ -185,26 +185,48 @@ def test_scene_from_numpy_renders_identically(cornell_scene):
 
 
 def test_scene_from_numpy_refuses_unported_parts(cornell_scene):
+    """Texture tables are not ported and raise by name; the environment
+    table (env_rows) is carried across (tests/test_torch_env.py)."""
+    tables = _jax_tables(cornell_scene[1])
+    tables["tex_ct"] = np.zeros((4 * 128, 8), np.float32)
+    with pytest.raises(NotImplementedError, match="tex_ct"):
+        scene_from_numpy(tables, device="cpu")
     tables = _jax_tables(cornell_scene[1])
     tables["env_rows"] = np.zeros((bp.EV_ROWS, 128), np.float32)
-    with pytest.raises(NotImplementedError, match="env_rows"):
-        scene_from_numpy(tables, device="cpu")
+    assert scene_from_numpy(tables, device="cpu").bounce_tables.env.shape \
+        == (bf.ET_SIZE,)
 
 
-@pytest.mark.parametrize("case", ["textures", "instancing", "too_many_tris",
-                                  "sphere_light", "env_image"])
-def test_prepare_refuses_unported_features(case, monkeypatch):
+@pytest.mark.parametrize("case", ["sphere_light", "env_image", "instancing"])
+def test_prepare_serves_sphere_and_environment_lights(case):
+    """Sphere lights get no kernel tables (the general tier samples them,
+    as in the JAX package), also on a two-level scene above 2048 world
+    triangles; an environment image is baked at the kernels' 64 x 128
+    into the fused tables."""
     host = TP.single_triangle("sphere" if case == "sphere_light" else "point")
-    kw = {}
-    if case == "textures":
-        host.textures = [np.ones((4, 4, 4), np.float32)]
-    elif case == "instancing":
-        # a two-level scene above 2048 world triangles gets instanced
-        # cluster tables, and the clustered tier serves no sphere light
+    if case == "instancing":
         host = TP.instanced_city(grid=2, subdiv=6)
         al = host.analytic_lights
         host.analytic_lights = dataclasses.replace(
             al, kind=torch.full_like(al.kind, LIGHT_SPHERE))
+    elif case == "env_image":
+        host.envmap_image = np.ones((8, 16, 3), np.float32)
+    scene = prepare(host, device="cpu")
+    if case == "env_image":
+        assert scene.envmap.shape == (bf.ENV_H, bf.ENV_W)
+        assert scene.bounce_tables.env is not None
+        assert scene.lights.env_light >= 0
+    else:
+        assert scene.bounce_tables is None and scene.cluster_tables is None
+        assert (scene.tlas if case == "instancing" else scene.bvh) is not None
+
+
+@pytest.mark.parametrize("case", ["textures", "too_many_tris"])
+def test_prepare_refuses_unported_features(case, monkeypatch):
+    host = TP.single_triangle("point")
+    kw = {}
+    if case == "textures":
+        host.textures = [np.ones((4, 4, 4), np.float32)]
     elif case == "too_many_tris":
         # above 2048 triangles the clustered tier takes the scene, up to
         # its device block budget (shrunk here so a small scene passes it)
@@ -212,7 +234,5 @@ def test_prepare_refuses_unported_features(case, monkeypatch):
         inst = host.instances[0]
         inst.indices = np.tile(inst.indices, (bf.MAX_TRIS + 1, 1))
         inst.material = np.zeros(len(inst.indices), np.int32)
-    elif case == "env_image":
-        host.envmap_image = np.ones((8, 16, 3), np.float32)
     with pytest.raises(NotImplementedError):
         prepare(host, device="cpu", **kw)

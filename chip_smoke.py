@@ -157,6 +157,28 @@ Phases, one or a few lines of output each:
                 round's launches counted); the sky city's 1-spp 1080p
                 image on the general tier against the clustered tier's
                 (RMSE and means printed, no limit).
+  13. textures -- stochastic texture filtering on. (a) K1's texture
+                variant (tex_maps (1, 1, 1, 1) on the textured Cornell box
+                with the sky, the light's emission textured; nee slot 2)
+                and on the kitchen (procedural.kitchen_scene: 1,186
+                triangles, 512 panel lights, the sky; slot 5, the SF_*
+                rows included) against the plain version on 65,536 camera
+                rays over the 1080p frame at bounces 0 and 2, phase 3's
+                criteria; both timed at 2^18 rays; the registers and
+                spills of each K1 and K4 instantiation. (b) K3, K4's
+                texture variant and K5 on the textured, normal-mapped sky
+                city (city_overview(city_scene(350_000, seed=0,
+                textured=True, normal_mapped=True, with_env=True))) as
+                phase 6. (c) The full-size paths at 1920x1080, 4 bounces,
+                power NEE, 1 warm-up and 2 timed samples: the textured
+                Cornell box (fused, 8 chunks of 2^18; K1's texture variant
+                chunks x bounces x spp times, final_env chunks x spp), the
+                kitchen (fused, external NEE: K1's texture variant and K2
+                chunks x bounces x spp times), the textured city
+                (clustered, K4's texture variant bounces x spp times, one
+                profiled frame, cull_overflow); then the kitchen without
+                stochastic filtering on the general tier (bilinear, K8)
+                at 960x540, one timed sample. Every image must be finite.
 
 The line before the last holds {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Any failed phase, a missing GPU or a missing
@@ -520,6 +542,9 @@ def main(record_path=None):
     # ---- 12. the environment and the clustered external NEE ----------------
     env = _environment(record, dev, smi, dump, clustered["scene"])
 
+    # ---- 13. textures, normal maps, stochastic texture filtering -----------
+    tex = _textures(record, dev, smi, dump)
+
     k1_paths = dict(cornell=cornell_launches["bounce_fused"],
                     **{k: v.get("bounce_fused", 0)
                        for k, v in ext["launches"].items()})
@@ -531,16 +556,23 @@ def main(record_path=None):
         max_abs_err=max(k1_err, ext["k1_err"]),
         ms=k1_ms, plain_ms=plain_ms, bound_ms=k1_bound, bound_by=k1_by,
         library_ms=None, modes=ext["k1_modes"])]
+    k2_paths = dict(ext["launches"],
+                    tex_kitchen=tex["launches"]["kitchen"])
     entries.append(dict(
         ext["k2"], launches=sum(v.get("shadow_occlusion", 0)
-                                for v in ext["launches"].values()),
+                                for v in k2_paths.values()),
         launches_by_path={k: v.get("shadow_occlusion", 0)
-                          for k, v in ext["launches"].items()}))
+                          for k, v in k2_paths.items()}))
     for name, entry in clustered["kernels"].items():
         by_path = dict(city=city_launches.get(name, 0),
+                       tex_city=tex["launches"]["city"].get(name, 0),
                        **{k: v.get(name, 0)
                           for k, v in env["launches"].items()
                           if k != "sky_cornell"})
+        if name in ("cluster_closest", "cluster_shadow"):
+            entry = dict(entry, max_abs_err=max(
+                entry["max_abs_err"],
+                tex["k3_err" if name == "cluster_closest" else "k5_err"]))
         entry = dict(entry, launches=city_launches.get(name, 0),
                      launches_by_path=by_path)
         if name == "cluster_shade":
@@ -551,6 +583,15 @@ def main(record_path=None):
     entries.extend(general)
     entries.extend(instanced)
     entries.extend(env["entries"].values())
+    entries.extend(tex["entries"].values())
+    # the texture paths' launches of kernels that earlier phases time
+    tex_paths = dict(brute_closest=("kitchen_general",),
+                     bounce_fused_final=("cornell", "kitchen"),
+                     cluster_shade_final=("city",))
+    for entry in entries:
+        for path in tex_paths.get(entry["name"], ()):
+            entry.setdefault("launches_by_path", {})[f"tex_{path}"] = \
+                tex["launches"][path].get(entry["name"], 0)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -603,14 +644,16 @@ def _ptxas_entry(log, needle):
 
 
 def _cluster_kernel_checks(record, dev, smi, dump, label, host, scene,
-                           prep_s, pages_want, deep_bounces=(2,)):
+                           prep_s, pages_want, deep_bounces=(2,), stf=False):
     """K3, K4 and K5 (their instanced variants on instanced tables)
     against their plain versions, every page: at bounce 0 on 65,536 camera
     rays spread over the scene's 1080p frame, and at each of
     `deep_bounces` on the 64 contiguous groups of the sorted 1080p
     wavefront with the most hits, the wavefront carried there by the
     kernels; then each kernel timed at the 1080p bounce-0 launch beside
-    its bound, and the plain versions at the comparison width.
+    its bound, and the plain versions at the comparison width. `stf`:
+    stochastic texture filtering, so that K4 runs its texture variant on
+    tables with textures.
     Returns dict(scene=(host, scene, prepare seconds), kernels={name:
     partial kernel-line entry})."""
     import torch
@@ -626,13 +669,15 @@ def _cluster_kernel_checks(record, dev, smi, dump, label, host, scene,
     tbl = scene.cluster_tables
     inst = tbl.instanced
     xf = tbl.xf
-    # K4's environment variant on tables with the environment table
-    k4n = bf.variant_name("cluster_shade", tbl.env is not None, False)
     k3n, k5n = (("cluster_closest_inst", "cluster_shadow_inst") if inst
                 else ("cluster_closest", "cluster_shadow"))
     cfg = dispatch.resolve(scene, PathTracerConfig(
-        max_bounces=4, nee=NEEMode.POWER, ray_chunk=1 << 30), dev)
+        max_bounces=4, nee=NEEMode.POWER, ray_chunk=1 << 30,
+        stochastic_texture_filtering=stf), dev)
     kcfg = bf.KernelConfig.from_cfg(cfg)
+    # K4's texture and environment variants on tables with them
+    k4_tex = bf.use_tex(tbl, kcfg)
+    k4n = bf.variant_name("cluster_shade", tbl.env is not None, False, k4_tex)
     kslots, pages = cfg.cluster_kslots, cfg.cluster_pages
     max_travel = float(cfg.max_ray_travel)
     bounds = BC.scene_bounds(tbl)
@@ -883,7 +928,10 @@ def _cluster_kernel_checks(record, dev, smi, dump, label, host, scene,
     k4_bytes = 4 * n * (BC.HA_ROWS + 2 * (bf.NF + bf.NI) + BC.SH_ROWS
                         + bf.NH) + 4 * (tbl.mat_rows.numel()
                                         + tbl.light_rows.numel()
-                                        + _numel(tbl.env))
+                                        + _numel(tbl.env)
+                                        + (_numel(tbl.tex)
+                                           + _numel(tbl.tex_meta)
+                                           if k4_tex else 0))
     k5_blocks, k5_insts = distinct(cand_s, slots < cand_s[:, 0, :1])
     k5_bytes = 4 * (cand_s.numel() + 9 * n) \
         + STAGED_BLOCK_BYTES * k5_blocks + XF_BYTES * k5_insts
@@ -905,8 +953,9 @@ def _cluster_kernel_checks(record, dev, smi, dump, label, host, scene,
     libs = {k3n: kernels.CLUSTER_CLOSEST, k4n: kernels.CLUSTER_SHADE,
             k5n: kernels.CLUSTER_SHADOW}
     ptxas = {name: _ptxas_entry(lib.ptxas_log,
-                                "ILb1E" if inst and name != k4n else
-                                ("ILb0E" if name != k4n else ""))
+                                ("ILb1E" if k4_tex else "ILb0E")
+                                if name == k4n else
+                                ("ILb1E" if inst else "ILb0E"))
              for name, lib in libs.items()}
     rec.update(ms=ms, plain_ms=plain_ms, bounds=bounds_ms, launch=launch,
                ptxas=ptxas, prepare_s=prep_s, card=smi)
@@ -994,10 +1043,11 @@ def _city_parity(record, dev, dump, with_env=False, label="city_parity"):
 
 
 def _city_path(record, dev, smi, dump, prepared, label="city",
-               pages=CITY_PAGES):
-    """Phase 8 (and 11): a clustered path at 1080p, then one profiled
-    frame. Returns the launch counts of the timed frames and their images
-    by sample."""
+               pages=CITY_PAGES, stf=False):
+    """Phase 8 (and 11, 12, 13): a clustered path at 1080p, then one
+    profiled frame; `stf` turns stochastic texture filtering on (K4's
+    texture variant on tables with textures). Returns the launch counts of
+    the timed frames and their images by sample."""
     import torch
 
     from rtxpt_tpu_torch import kernels
@@ -1012,9 +1062,11 @@ def _city_path(record, dev, smi, dump, prepared, label="city",
                 if scene.cluster_tables.instanced
                 else ("cluster_closest", "cluster_shadow"))
     env = scene.cluster_tables.env is not None
+    tex = stf and scene.cluster_tables.tex is not None
     (width, height), spp = CITY_FRAME, 2
     cfg = PathTracerConfig(max_bounces=4, nee=NEEMode.POWER,
-                           ray_chunk=1 << 30)
+                           ray_chunk=1 << 30,
+                           stochastic_texture_filtering=stf)
     cam = default_camera(host, width, height, device=dev)
     out = render_sample(scene, cam, cfg, width, height, 0)       # warm-up
     torch.cuda.synchronize()
@@ -1034,7 +1086,7 @@ def _city_path(record, dev, smi, dump, prepared, label="city",
     hdr = acc / spp
     finite = bool(torch.isfinite(hdr).all())
     want = {k3n: pages * cfg.max_bounces * spp,
-            bf.variant_name("cluster_shade", env, False):
+            bf.variant_name("cluster_shade", env, False, tex):
                 cfg.max_bounces * spp,
             k5n: pages * cfg.max_bounces * spp}
     if env:
@@ -2306,6 +2358,8 @@ def _environment(record, dev, smi, dump, city_prepared):
         name: dict(name=name, route="cuda", source=src + "bounce_fused.cu",
                    replaces="rtxpt_tpu/pt/bounce_pallas.py:1389",
                    launches=launches["sky_cornell"].get(name, 0),
+                   launches_by_path=dict(
+                       sky_cornell=launches["sky_cornell"].get(name, 0)),
                    max_abs_err=err[name], library_ms=None,
                    **{k: k1[name][k] for k in ("ms", "plain_ms", "bound_ms",
                                                "bound_by")})
@@ -2318,12 +2372,270 @@ def _environment(record, dev, smi, dump, city_prepared):
         source=src + "cluster_shade.cu",
         replaces="rtxpt_tpu/pt/bounce_clustered.py:462",
         launches=launches["sky_city"].get("cluster_shade_final", 0),
+        launches_by_path=dict(sky_city=launches["sky_city"].get(
+            "cluster_shade_final", 0)),
         max_abs_err=err["cluster_shade_final"], library_ms=None,
         **{k: k4_modes["final"][k] for k in ("ms", "plain_ms", "bound_ms",
                                             "bound_by")})
     return dict(entries=entries, launches=launches,
                 k4_modes={k: v for k, v in k4_modes.items() if k != "final"},
                 k4_export_err=err["cluster_shade"])
+
+
+TEX_CHUNK = 1 << 18           # phase 13: the fused paths' rays per chunk
+TEX_SPP = 2                   # phase 13: timed samples of each full-size path
+KITCHEN_GENERAL_FRAME = (960, 540)   # the reference harness's frame
+
+
+def _textured_cornell():
+    """The textured Cornell box with every map: checker base colour,
+    metal-rough on the tall box, the ripple normal map, the sky, and the
+    light's emission textured (no procedural scene sets emissive_tex)."""
+    import torch
+
+    from rtxpt_tpu_torch.scene.procedural import textured_cornell
+    host = textured_cornell(with_env=True, with_mr=True, with_normal=True)
+    host.materials = host.materials.replace(
+        emissive_tex=torch.tensor([-1, -1, -1, 1, -1], dtype=torch.int32))
+    return host
+
+
+def _textures(record, dev, smi, dump):
+    """Phase 13: textures, normal maps and stochastic texture filtering.
+    (a) K1's texture variant against its plain version on the textured
+    Cornell box (slot 2) and the kitchen (slot 5, SF_* rows); both timed
+    at 2^18 rays with their registers and spills. (b) K3, K4's texture
+    variant and K5 on the textured, normal-mapped sky city as phase 6.
+    (c) The three full-size paths with stochastic filtering: the textured
+    Cornell box (fused), the kitchen (fused, external NEE), the textured
+    city (clustered, profiled); and the kitchen without it on the general
+    tier at 960x540. Returns dict(entries {name: kernel-line entry},
+    launches {path: counts}, k3_err, k5_err)."""
+    import torch
+
+    from rtxpt_tpu_torch import kernels
+    from rtxpt_tpu_torch.config import NEEMode, PathTracerConfig
+    from rtxpt_tpu_torch.prepare import prepare
+    from rtxpt_tpu_torch.pt import bounce_fused as bf
+    from rtxpt_tpu_torch.pt import dispatch
+    from rtxpt_tpu_torch.pt.integrator import (
+        _pixel_grid, camera_rays, render_sample)
+    from rtxpt_tpu_torch.pt.nee_external import external_nee
+    from rtxpt_tpu_torch.scene.procedural import (
+        city_overview, city_scene, default_camera, kitchen_scene)
+
+    rec = {}
+    record["textures"] = rec
+    w, h = CITY_FRAME
+    sample = 1
+    cfg = PathTracerConfig(max_bounces=4, nee=NEEMode.POWER,
+                           ray_chunk=TEX_CHUNK,
+                           stochastic_texture_filtering=True)
+
+    def camera_state(host, cfg_, cols, rows):
+        """Camera rays of a cols x rows grid of the 1080p frame's pixels."""
+        cam = default_camera(host, w, h, device=dev)
+        px, py = _pixel_grid(cols, rows, dev)
+        px, py = px * w // cols, py * h // rows
+        o, d, spread = camera_rays(cam, cfg_, px, py, sample)
+        return bf.initial_state(o, d, spread, px, py)
+
+    # ---- (a) K1's texture switch ----
+    hosts = dict(cornell=_textured_cornell(), kitchen=kitchen_scene())
+    scenes = {k: prepare(v, device=dev) for k, v in hosts.items()}
+    k1_err = 0.0
+    k1 = {}
+    ext = None
+    for name, scene in scenes.items():
+        tbl = scene.bounce_tables
+        rcfg = dispatch.resolve(scene, cfg, dev)
+        kcfg = bf.KernelConfig.from_cfg(rcfg)
+        if tbl.tex is None or not bf.use_tex(tbl, kcfg) or \
+                kcfg.nee_mode != (5 if name == "kitchen" else 2):
+            _fail(f"textures: the {name} does not run K1's texture switch "
+                  f"in its slot")
+        print(f"textures: {name} {tbl.n_tris} triangles, {tbl.n_lights} "
+              f"lights, {tbl.tex.shape[0]} texels, tex_maps {tbl.tex_maps}, "
+              f"nee slot {kcfg.nee_mode}", flush=True)
+        fs, is_ = camera_state(hosts[name], rcfg, CMP_SIDE, CMP_SIDE)
+        for b in range(3):
+            plain = bf.bounce_reference(fs, is_, tbl, kcfg, sample)
+            if b in (0, 2):
+                kern = bf.bounce(fs, is_, tbl, kcfg, sample)
+                torch.cuda.synchronize()
+                summary, err = _compare_state(kern[:3], plain[:3])
+                ok = _state_ok(summary)
+                if kcfg.external:
+                    int_eq = (kern[1] == plain[1]).all(0) \
+                        & (kern[2][1] == plain[2][1])
+                    sf, serr = _compare(dict(surf=kern[3]),
+                                        dict(surf=plain[3]), int_eq)
+                    summary.update(worst_surf_row=sf["worst_float_row"])
+                    ok = ok and sf["worst_float_row"] >= LANE_FRACTION
+                    err = max(err, serr)
+                k1_err = max(k1_err, err)
+                rec[f"k1_{name}_bounce{b}"] = summary
+                print(f"textures k1 {name} bounce {b}: int lanes equal "
+                      f"{summary['int_lanes_equal']:.6f}, worst float row "
+                      f"{summary['worst_float_row']:.6f}"
+                      + (f", worst SF row {summary['worst_surf_row']:.6f}"
+                         if kcfg.external else "")
+                      + f", L mean {summary['L_mean_kernel']:.6f} vs "
+                      f"{summary['L_mean_plain']:.6f}, max abs err "
+                      f"{err:.3g}", flush=True)
+                if not ok:
+                    dump()
+                    _fail(f"textures: K1's texture variant disagrees with "
+                          f"its plain version on the {name} at bounce {b}")
+            fs, is_ = plain[0], plain[1]
+        # timed at the path's launch width: 2^18 camera rays, bounce 0
+        side_t = int(round(RAYS_TIMED ** 0.5))
+        fs_t, is_t = camera_state(hosts[name], rcfg, side_t, side_t)
+        n = fs_t.shape[1]
+        active = int((is_t[bf.IS_ACTIVE] > 0).sum())
+        ms = _cuda_ms(lambda: bf.bounce(fs_t, is_t, tbl, kcfg, sample), 10)
+        plain_ms = _cuda_ms(lambda: bf.bounce_reference(
+            fs_t, is_t, tbl, kcfg, sample), 2)
+        # as phase 3: the state read and written once, the hit (and SF_*)
+        # rows written, the tables read once (the atlas and its meta rows
+        # among them), every active lane against every triangle
+        rows = 2 * (bf.NF + bf.NI) + bf.NH \
+            + (bf.SF_ROWS if kcfg.external else 0)
+        tables_bytes = 4 * sum(t.numel() for t in (
+            tbl.tri_coef, tbl.attr_rows, tbl.mat_rows, tbl.light_rows,
+            tbl.env, tbl.tex, tbl.tex_meta))
+        bound, by, _ = _bound(4 * n * rows + tables_bytes,
+                              f32=active * tbl.n_tris * K1_PAIR_F32)
+        k1[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                        bound_by=by, rays=n, slot=kcfg.nee_mode)
+        print(f"textures k1 {name} slot {kcfg.nee_mode}: kernel {ms:.4f} ms "
+              f"per {n}-ray launch, plain {plain_ms:.4f} ms, bound "
+              f"{bound:.4f} ms ({by}) ({smi})", flush=True)
+        if name == "kitchen":
+            ext = (scene, rcfg)
+    # registers and spills of each K1 and K4 instantiation
+    regs = {f"{lib}_{'tex' if t else 'plain'}": _ptxas_entry(
+        getattr(kernels, attr).ptxas_log,
+        f"{lib}_kernelILb{int(t)}E")
+        for lib, attr in (("bounce_fused", "BOUNCE_FUSED"),
+                          ("cluster_shade", "CLUSTER_SHADE"))
+        for t in (False, True)}
+    rec.update(k1=k1, ptxas=regs)
+    print(f"textures ptxas: {json.dumps(regs)}", flush=True)
+    dump()
+
+    # ---- (b) K3, K4's texture switch and K5 on the textured city ----
+    t0 = time.perf_counter()
+    city_host = city_overview(city_scene(CITY_TRIS, seed=CITY_SEED,
+                                         textured=True, normal_mapped=True,
+                                         with_env=True))
+    city = prepare(city_host, device=dev)
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    if city.cluster_tables.tex is None:
+        _fail("textures: the textured city has no texture tables")
+    checks = _cluster_kernel_checks(record, dev, smi, dump, "tex_city",
+                                    city_host, city, prep_s, CITY_PAGES,
+                                    stf=True)
+    k4 = checks["kernels"]["cluster_shade_tex_env"]
+
+    # ---- (c) the full-size paths ----
+    launches = {}
+    paths = {}
+    for name in ("cornell", "kitchen"):
+        scene, host = scenes[name], hosts[name]
+        cam = default_camera(host, w, h, device=dev)
+        render_sample(scene, cam, cfg, w, h, 0)                 # warm-up
+        torch.cuda.synchronize()
+        kernels.launches.clear()
+        t0 = time.perf_counter()
+        acc, rays = None, 0
+        for s_ in range(1, 1 + TEX_SPP):
+            out = render_sample(scene, cam, cfg, w, h, s_)
+            acc = out["L"] if acc is None else acc + out["L"]
+            rays = rays + out["ray_count"]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches[name] = dict(kernels.launches)
+        chunks = -(-(w * h) // cfg.ray_chunk)
+        want = dict(bounce_fused_tex_env=chunks * cfg.max_bounces * TEX_SPP,
+                    bounce_fused_final=chunks * TEX_SPP)
+        if name == "kitchen":
+            want["shadow_occlusion"] = chunks * cfg.max_bounces * TEX_SPP
+        hdr = acc / TEX_SPP
+        rays = int(rays)
+        p = dict(res=f"{w}x{h}", spp_timed=TEX_SPP, chunks=chunks,
+                 launches=launches[name], expected=want, rays=rays,
+                 seconds=dt, mrays_per_s=rays / dt / 1e6,
+                 ms_per_frame_1spp=dt / TEX_SPP * 1e3,
+                 L_mean=float(hdr.mean()),
+                 finite=bool(torch.isfinite(hdr).all()),
+                 tier=out["kernel_tier"], card=smi)
+        paths[name] = p
+        print(f"textures path {name}: {p['mrays_per_s']:.3f} Mrays/s, "
+              f"{p['ms_per_frame_1spp']:.3f} ms per 1-spp frame, {rays} "
+              f"rays, launches {p['launches']} of {want}, mean L "
+              f"{p['L_mean']:.5f} ({smi})", flush=True)
+        if p["launches"] != want or not p["finite"] or p["tier"] != "fused" \
+                or p["L_mean"] <= 0.0:
+            dump()
+            _fail(f"textures: the {name} path did not run every bounce "
+                  f"through K1's texture variant or gave non-finite values")
+    rec["paths"] = paths
+    launches["city"], _ = _city_path(record, dev, smi, dump,
+                                     (city_host, city, prep_s),
+                                     label="tex_city_path", stf=True)
+
+    # the kitchen without stochastic filtering: the general tier, bilinear
+    gw, gh = KITCHEN_GENERAL_FRAME
+    gcfg = PathTracerConfig(max_bounces=4, nee=NEEMode.POWER,
+                            ray_chunk=1 << 30)
+    kitchen = scenes["kitchen"]
+    gcam = default_camera(hosts["kitchen"], gw, gh, device=dev)
+    render_sample(kitchen, gcam, gcfg, gw, gh, 0)               # warm-up
+    torch.cuda.synchronize()
+    kernels.launches.clear()
+    t0 = time.perf_counter()
+    out = render_sample(kitchen, gcam, gcfg, gw, gh, 1)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches["kitchen_general"] = dict(kernels.launches)
+    p = dict(res=f"{gw}x{gh}", spp_timed=1, launches=launches[
+        "kitchen_general"], rays=int(out["ray_count"]), seconds=dt,
+        ms_per_frame_1spp=dt * 1e3, L_mean=float(out["L"].mean()),
+        finite=bool(torch.isfinite(out["L"]).all()), tier=out["kernel_tier"],
+        card=smi)
+    rec["kitchen_general_path"] = p
+    print(f"textures path kitchen_general (no STF, bilinear): "
+          f"{p['ms_per_frame_1spp']:.3f} ms per 1-spp {gw}x{gh} frame, "
+          f"{p['rays']} rays, launches {p['launches']}, mean L "
+          f"{p['L_mean']:.5f} ({smi})", flush=True)
+    if p["tier"] != "xla" or not p["finite"] or \
+            set(p["launches"]) != {"brute_closest"}:
+        dump()
+        _fail("textures: the kitchen without stochastic filtering did not "
+              "run the general tier through K8")
+    dump()
+
+    src = "rtxpt_tpu_torch/csrc/"
+    entries = {
+        "bounce_fused_tex_env": dict(
+            name="bounce_fused_tex_env", route="cuda",
+            source=src + "bounce_fused.cu",
+            replaces="rtxpt_tpu/pt/bounce_pallas.py:1389",
+            launches=sum(launches[k].get("bounce_fused_tex_env", 0)
+                         for k in ("cornell", "kitchen")),
+            launches_by_path={k: launches[k].get("bounce_fused_tex_env", 0)
+                              for k in ("cornell", "kitchen")},
+            max_abs_err=k1_err, library_ms=None,
+            modes=dict(slot5_kitchen=k1["kitchen"]),
+            **{k: k1["cornell"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by")}),
+        "cluster_shade_tex_env": dict(
+            k4, launches=launches["city"].get("cluster_shade_tex_env", 0))}
+    return dict(entries=entries, launches=launches,
+                k3_err=checks["kernels"]["cluster_closest"]["max_abs_err"],
+                k5_err=checks["kernels"]["cluster_shadow"]["max_abs_err"])
 
 
 def _write_record(record, path):

@@ -106,6 +106,11 @@ class ClusterTables:
     # [ET_SIZE] the kernels' environment table (pt/bounce_fused.py
     # build_env_table); None without an environment light
     env: Optional[torch.Tensor] = None
+    # the texture tables (pt/bounce_fused.py build_tex_tables): the atlas
+    # [texels, 4], the meta rows [T, TX_COLS] i32 and the map flags
+    tex: Optional[torch.Tensor] = None
+    tex_meta: Optional[torch.Tensor] = None
+    tex_maps: tuple = (0, 0, 0, 0)
 
     @property
     def device(self):
@@ -331,14 +336,17 @@ def cluster_tables_from_numpy(blocks, aabb_lo, aabb_hi, mat_rows, light_rows,
                               offsets, n_clusters, n_tris, n_lights,
                               device="cuda", instanced=False, wc_block=None,
                               wc_inst=None, xf=None, inst_post=None,
-                              env_rows=None) -> ClusterTables:
+                              env_rows=None, tex_ct=None, tex_meta=None,
+                              tex_maps=(0, 0, 0, 0)) -> ClusterTables:
     """ClusterTables on `device` (the GPU by default; raises without one)
     from numpy arrays of the JAX layout. Instanced tables take `wc_block`,
     `wc_inst`, `inst_post` and `xf`, either the port's M10 [I,10,10] or
     the JAX package's tile [I,16,128] (X[i,j] = M10[j,i]); `env_rows` is
     the JAX package's environment table or the port's
-    (bounce_fused.env_table)."""
-    from rtxpt_tpu_torch.pt.bounce_fused import env_table
+    (bounce_fused.env_table); `tex_ct` / `tex_meta` the JAX package's
+    texture tables or the port's (bounce_fused.tex_tables), with
+    `tex_maps` the materials' map flags."""
+    from rtxpt_tpu_torch.pt.bounce_fused import env_table, tex_tables
 
     device = rtxpt_tpu_torch.device(device)
 
@@ -362,6 +370,12 @@ def cluster_tables_from_numpy(blocks, aabb_lo, aabb_hi, mat_rows, light_rows,
                              f"{list(xf.shape)}")
         parts = dict(wc_block=i32(wc_block), wc_inst=i32(wc_inst), xf=f(xf),
                      inst_post=f(inst_post))
+    if (tex_ct is None) != (tex_meta is None):
+        raise ValueError("texture tables need both tex_ct and tex_meta")
+    if tex_ct is not None:
+        tex, meta = tex_tables(tex_ct, tex_meta)
+        parts.update(tex=f(tex), tex_meta=i32(meta),
+                     tex_maps=tuple(int(x) for x in tex_maps))
     return ClusterTables(
         blocks=f(blocks), aabb_lo=f(aabb_lo), aabb_hi=f(aabb_hi),
         mat_rows=f(mat_rows), light_rows=f(light_rows),
@@ -390,13 +404,28 @@ def _check_served(materials, lights):
             f"{MAX_MATERIALS}")
 
 
+def _tex_parts(textures, materials) -> dict:
+    """The texture keywords of cluster_tables_from_numpy for a
+    TextureAtlas (none for an atlas the kernels' tables refuse:
+    bounce_fused.build_tex_tables)."""
+    from rtxpt_tpu_torch.pt.bounce_fused import build_tex_tables, tex_maps_of
+
+    tex = build_tex_tables(textures)
+    if tex is None:
+        return {}
+    return dict(tex_ct=tex[0], tex_meta=tex[1],
+                tex_maps=tex_maps_of(materials))
+
+
 def build_cluster_tables(positions, normals, indices, tri_material,
                          materials, lights, uvs=None, envmap=None,
-                         device="cuda") -> ClusterTables:
+                         textures=None, device="cuda") -> ClusterTables:
     """Bake the cluster tables of a flat, Morton-ordered scene onto
     `device` (the GPU by default; raises without one), with the
     environment table when the lights hold an environment light (`envmap`
-    baked at 64 x 128). Raises NotImplementedError, naming the feature,
+    baked at 64 x 128) and the texture tables of `textures` (a
+    TextureAtlas) where the kernels' tables take it. Raises
+    NotImplementedError, naming the feature,
     for a scene the clustered tier does not serve (anisotropic materials,
     sphere or environment-quad lights, more than 128 materials, no
     triangle)."""
@@ -416,7 +445,8 @@ def build_cluster_tables(positions, normals, indices, tri_material,
     return cluster_tables_from_numpy(
         blocks, lo, hi, pack_materials(materials), pack_lights(lights),
         offsets, len(offsets) - 1, t, int(lights.num), device,
-        env_rows=lights_env_table(lights, envmap))
+        env_rows=lights_env_table(lights, envmap),
+        **_tex_parts(textures, materials))
 
 
 def instance_operand_map(A: np.ndarray, t_w: np.ndarray):
@@ -442,7 +472,7 @@ def instance_operand_map(A: np.ndarray, t_w: np.ndarray):
 
 
 def build_cluster_tables_instanced(built, host, materials, lights,
-                                   envmap=None, device="cuda",
+                                   envmap=None, textures=None, device="cuda",
                                    max_instances=65536
                                    ) -> Optional[ClusterTables]:
     """Instanced cluster tables of a two-level scene (`built` is
@@ -544,4 +574,5 @@ def build_cluster_tables_instanced(built, host, materials, lights,
         None, n_cand, int(tri_base[-1]), int(lights.num), device,
         instanced=True, wc_block=np.concatenate(wc_block),
         wc_inst=np.concatenate(wc_inst), xf=xf, inst_post=inst_post,
-        env_rows=lights_env_table(lights, envmap))
+        env_rows=lights_env_table(lights, envmap),
+        **_tex_parts(textures, materials))

@@ -8,6 +8,8 @@ Usage:
         --width 1920 --height 1080 --spp 4 --bounces 4 --out city.png
     python -m rtxpt_tpu_torch.apps.cli --scene rooms --nee neeat \
         --device cuda --width 1920 --height 1080 --spp 8 --out rooms.png
+    python -m rtxpt_tpu_torch.apps.cli --scene kitchen --stf \
+        --device cuda --width 1920 --height 1080 --spp 4 --out kitchen.png
 
 The city (about --tri-budget triangles, 350,000 by default; seen from above
 the roofs) renders on the clustered tier; the other scenes fit the fused
@@ -19,6 +21,14 @@ either tier. `--sky` adds the procedural sky (lighting/sky.py make_sky,
 region lights, which the general tier samples; with `--nee neeat` an
 environment light also renders on the general tier, as in the JAX
 package. `--envmap PATH` (an image file) is not ported yet.
+
+The textured scenes: `cornell-textured` (checker walls, the sky),
+`city-textured` (checker ground and facades, the sky) and `kitchen`
+(checker floor, wood counters, 512 ceiling panels, the sky through a
+window). `--stf` turns on stochastic texture filtering, which the fused
+and clustered kernels' texture path is; without it a textured scene
+renders on the general tier with bilinear filtering, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -43,18 +53,29 @@ def build_scene(name: str, tri_budget: int = 350_000):
         return procedural.single_triangle()
     if name == "rooms":
         return procedural.rooms_scene(16)
-    raise SystemExit(f"unknown scene {name!r} (cornell, furnace, triangle, "
-                     f"rooms, city)")
+    if name == "cornell-textured":
+        return procedural.textured_cornell(with_env=True)
+    if name == "city-textured":
+        return procedural.city_overview(procedural.city_scene(
+            tri_budget=tri_budget, textured=True, with_env=True))
+    if name == "kitchen":
+        return procedural.kitchen_scene()
+    raise SystemExit(f"unknown scene {name!r} ({', '.join(SCENES)})")
+
+
+SCENES = ["cornell", "cornell-textured", "furnace", "triangle", "rooms",
+          "city", "city-textured", "kitchen"]
 
 
 def main(argv=None):
     p = argparse.ArgumentParser(prog="rtxpt_tpu_torch",
                                 description="PyTorch/CUDA path tracer")
-    p.add_argument("--scene", default="cornell",
-                   choices=["cornell", "furnace", "triangle", "rooms",
-                            "city"])
+    p.add_argument("--scene", default="cornell", choices=SCENES)
     p.add_argument("--tri-budget", type=int, default=350_000,
                    help="city: about this many triangles")
+    p.add_argument("--stf", action="store_true",
+                   help="stochastic texture filtering (the fused and "
+                        "clustered kernels' texture path)")
     p.add_argument("--sky", action="store_true",
                    help="add a procedural sky environment")
     p.add_argument("--env-quads", type=int, default=0, metavar="Q",
@@ -124,7 +145,8 @@ def main(argv=None):
              "power": NEEMode.POWER, "neeat": NEEMode.NEEAT}[args.nee],
         nee_candidates=args.candidates,
         enable_mis=not args.no_mis,
-        enable_russian_roulette=not args.no_rr)
+        enable_russian_roulette=not args.no_rr,
+        stochastic_texture_filtering=args.stf)
 
     t0 = time.time()
     run = render_adaptive if args.nee == "neeat" else render

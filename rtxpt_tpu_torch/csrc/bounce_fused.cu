@@ -6,8 +6,11 @@
 // external NEE (slots 3-5: the SF_* surface rows go to `surf_out`), and the
 // environment switches has_env (the table `env`: miss radiance with MIS,
 // the environment light's importance sample) and final_env (the closing
-// environment-only round). Plain version: rtxpt_tpu_torch/pt/bounce_fused.py
-// bounce_reference; wrapper: bounce_fused.bounce.
+// environment-only round), and the texture switch has_tex / tex_maps
+// (bounce_pallas.py:1051-1125: base colour, metal-rough, emissive and normal
+// maps by stochastic texture filtering). Plain version:
+// rtxpt_tpu_torch/pt/bounce_fused.py bounce_reference; wrapper:
+// bounce_fused.bounce.
 //
 // Design. One thread per ray over a 1-D grid; the wavefront state is SoA
 // ([rows, N] columns), so neighbouring threads read neighbouring addresses.
@@ -32,6 +35,14 @@
 // __ldg, so it stays in L1 / L2; a miss reads one texel, a NEE sample two
 // binary searches (6 + 7 probes) and one texel. Staging it in shared memory
 // is later work.
+//
+// Textures: has_tex is a template parameter, so the untextured kernel keeps
+// its registers. The textured one reads each map as ONE nearest texel of a
+// jittered position and level (stochastic filtering): a float4 through
+// __ldg from the flat atlas (10-16k texels, 160-260 KB, stay in L2), the
+// level and offsets from the texture's 17-int meta row. No hardware texture
+// unit: its linear filter weighs with 8-bit fractions and could not match
+// the plain version, and one nearest texel needs no filter.
 #include <cuda_runtime.h>
 
 #include "bounce_fused.cuh"
@@ -41,6 +52,7 @@ namespace {
 
 constexpr int kThreads = 128;
 
+template <bool HasTex>
 __global__ void __launch_bounds__(kThreads)
 bounce_fused_kernel(const float* __restrict__ fs, const int* __restrict__ is,
                     float* __restrict__ fs_out, int* __restrict__ is_out,
@@ -48,18 +60,21 @@ bounce_fused_kernel(const float* __restrict__ fs, const int* __restrict__ is,
                     rt::Tables tb, rt::Config cfg, int n) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  rt::bounce_ray(i, n, fs, is, fs_out, is_out, hit_out, surf_out, tb, cfg);
+  rt::bounce_ray<HasTex>(i, n, fs, is, fs_out, is_out, hit_out, surf_out, tb, cfg);
 }
 
 }  // namespace
 
 // `surf_out` ([SF_ROWS, n] or NULL) receives the exported surface in the
 // external modes; `env` ([ET_SIZE] or NULL) is the environment table, which
-// `final_env` needs.
+// `final_env` needs; `tex` ([texels, 4] or NULL for the untextured variant)
+// and `tex_meta` ([n_tex, TX_COLS]) are the texture tables, `tex_maps` the
+// maps' bits.
 extern "C" int rtxpt_bounce_fused(
     const float* fs, const int* is, float* fs_out, int* is_out, float* hit_out,
     float* surf_out, const float* tri_coef, const float* attr_rows, const float* mat_rows,
-    const float* light_rows, const float* env, int n, int n_tris, int tpad, int n_lights,
+    const float* light_rows, const float* env, const float* tex, const int* tex_meta,
+    int n_tex, int tex_maps, int n, int n_tris, int tpad, int n_lights,
     unsigned int sample_idx, int nee_mode, int enable_mis, float firefly,
     int rr_enable, int min_rr, float max_travel, int low_discrepancy,
     int energy_comp, int maxb, int final_env, void* stream) {
@@ -69,6 +84,10 @@ extern "C" int rtxpt_bounce_fused(
   tb.mat = mat_rows;
   tb.light = light_rows;
   tb.env = env;
+  tb.tex = reinterpret_cast<const float4*>(tex);
+  tb.tex_meta = tex_meta;
+  tb.n_tex = n_tex;
+  tb.tex_maps = tex_maps;
   tb.n_tris = n_tris;
   tb.tpad = tpad;
   tb.n_lights = n_lights;
@@ -85,7 +104,11 @@ extern "C" int rtxpt_bounce_fused(
   cfg.maxb = maxb;
   cfg.final_env = final_env != 0;
   int blocks = (n + kThreads - 1) / kThreads;
-  bounce_fused_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      fs, is, fs_out, is_out, hit_out, surf_out, tb, cfg, n);
+  if (tex != nullptr)
+    bounce_fused_kernel<true><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        fs, is, fs_out, is_out, hit_out, surf_out, tb, cfg, n);
+  else
+    bounce_fused_kernel<false><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        fs, is, fs_out, is_out, hit_out, surf_out, tb, cfg, n);
   return (int)cudaGetLastError();
 }

@@ -3,14 +3,18 @@
 // the fused bounce kernel (bounce_fused.cu); the plain version of the same
 // function is rtxpt_tpu_torch/pt/bounce_fused.py::bounce_reference, and the
 // TPU original is rtxpt_tpu/pt/bounce_pallas.py::_bounce_kernel with
-// surface_and_shade in the reference-mode configuration (no textures, no
-// OMM, no priorities, no split channels, no injection), with NEE in the
-// kernel (modes 1, 2) or exported for external NEE (modes 3-5: the SF_*
-// surface rows; the shadow rays are then resolved by K2,
-// shadow_occlusion.cu). With the environment table (Tables::env) a miss
-// gathers the environment with its MIS weight, the environment light is
-// importance-sampled from the table's two-level CDF, and the final
-// environment-only round (Config::final_env) closes the path.
+// surface_and_shade in the reference-mode configuration (no OMM, no
+// priorities, no split channels, no injection), with NEE in the kernel
+// (modes 1, 2) or exported for external NEE (modes 3-5: the SF_* surface
+// rows; the shadow rays are then resolved by K2, shadow_occlusion.cu).
+// With the environment table (Tables::env) a miss gathers the environment
+// with its MIS weight, the environment light is importance-sampled from
+// the table's two-level CDF, and the final environment-only round
+// (Config::final_env) closes the path. The texture switch is the template
+// parameter HasTex (bounce_pallas.py:1051-1125): the base-colour,
+// metal-rough, emissive and normal maps that Tables::tex_maps names, one
+// stochastic texel each (tex_fetch, bounce_pallas._tex_fetch_w), so the
+// untextured instantiation keeps its registers.
 #pragma once
 
 #include "rng.cuh"
@@ -33,14 +37,21 @@ enum { FS_O = 0, FS_D = 3, FS_THP = 6, FS_L = 9, FS_PREVPDF = 12, FS_CONE = 13,
 enum { IS_ACTIVE = 0, IS_PREVDELTA = 1, IS_MED0 = 2, IS_MED1 = 3, IS_PX = 4,
        IS_PY = 5, IS_BUDGET = 6, IS_LBOUNCE = 7, NI = 8 };
 enum { AT_N0 = 0, AT_N1 = 3, AT_N2 = 6, AT_GN = 9, AT_MID = 12, AT_LPDF = 13,
-       AT_LAREA = 14, AT_ISLIGHT = 15, AT_LID = 23, AT_ROWS = 28 };
+       AT_LAREA = 14, AT_ISLIGHT = 15, AT_UV0 = 16, AT_UV1 = 18, AT_UV2 = 20,
+       AT_LODB = 22, AT_LID = 23, AT_TANG = 24, AT_TSGN = 27, AT_ROWS = 28 };
 enum { MT_BASE = 0, MT_METAL = 3, MT_ROUGH = 4, MT_IOR = 5, MT_TRANS = 6,
        MT_DTRANS = 7, MT_EMISSIVE = 8, MT_SPEC = 11, MT_THIN = 12,
-       MT_VOLABS = 13, MT_EPOLY = 16, MT_EAVG = 22 };
+       MT_VOLABS = 13, MT_EPOLY = 16, MT_EAVG = 22, MT_BTEX = 23,
+       MT_MRTEX = 24, MT_ETEX = 25, MT_NTEX = 26 };
 enum { LROW_KIND = 0, LROW_P0 = 1, LROW_P1 = 4, LROW_P2 = 7, LROW_EM = 10,
        LROW_EXTRA = 13, LROW_NORMAL = 17, LROW_POWER = 20, LROW_CDF = 21 };
 enum { TC_DET = 0, TC_U = 3, TC_V = 9, TC_T = 15, TC_ROWS = 20 };
-enum { EFFECT_SCATTER = 29, EFFECT_NEE = 31, EFFECT_RR = 37 };
+enum { EFFECT_SCATTER = 29, EFFECT_NEE = 31, EFFECT_RR = 37, EFFECT_STF = 41 };
+// texture meta row per texture (bounce_fused.py TX_*): base width, height,
+// MIP count, the 14 MIP start texels; tex_maps bits: base 1, metal-rough 2,
+// emissive 4, normal 8
+enum { TX_W = 0, TX_H = 1, TX_NMIPS = 2, TX_OFF = 3, TX_COLS = 17 };
+enum { TEX_BASE = 1, TEX_MR = 2, TEX_EMIT = 4, TEX_NORMAL = 8 };
 // external-NEE surface export rows (SF_*) and shadow-request rows (SR_*)
 enum { SF_POS = 0, SF_SHN = 3, SF_GN = 6, SF_MID = 9, SF_BASE = 10, SF_METAL = 13,
        SF_ROUGH = 14, SF_ETA = 15, SF_THP = 16, SF_EMIT = 19, SF_PGEO = 22,
@@ -63,6 +74,9 @@ struct Tables {
   const float* mat;     // [MT_ROWS, 128]
   const float* light;   // [LROWS, 128]
   const float* env;     // [ET_SIZE], or null without an environment light
+  const float4* tex;    // [texels] RGBA atlas, or null (untextured variant)
+  const int* tex_meta;  // [n_tex, TX_COLS]
+  int n_tex, tex_maps;
   int n_tris, tpad, n_lights;
 };
 
@@ -279,6 +293,35 @@ RT_HD EnvSample env_sample(const float* env, float u1, float u2) {
   return es;
 }
 
+// ----- the stochastic texel fetch (bounce_pallas._tex_fetch_w; plain
+// version bounce_fused.tex_fetch): the level floor(mip + ju0) clipped to the
+// texture's MIPs, the level's size max(floor(w 2^-level + 0.5), 1), the uv
+// jittered by (ju - 0.5) / size and wrapped, one texel; white for tid < 0.
+RT_HD float4 tex_fetch(const Tables& tb, int tid, float uv_u, float uv_v, float mip,
+                       float ju0, float ju1) {
+  float4 c;
+  if (tid < 0) {
+    c.x = c.y = c.z = c.w = 1.0f;
+    return c;
+  }
+  const int* m = tb.tex_meta + clampi(tid, 0, tb.n_tex - 1) * TX_COLS;
+  int level = (int)floorf(mip + ju0);
+  level = level < 0 ? 0 : level;
+  const int top = RT_LDG(m + TX_NMIPS) - 1;
+  level = level > top ? top : level;
+  const float p2 = ldexpf(1.0f, -level);              // 2^-level, exact
+  const float wl = max_(floorf((float)RT_LDG(m + TX_W) * p2 + 0.5f), 1.0f);
+  const float hl = max_(floorf((float)RT_LDG(m + TX_H) * p2 + 0.5f), 1.0f);
+  float u = uv_u + (ju0 - 0.5f) / wl;
+  float v = uv_v + (ju1 - 0.5f) / hl;
+  u = u - floorf(u);
+  v = v - floorf(v);
+  const int wi = (int)wl, hi = (int)hl;
+  const int xi = clampi((int)(u * wl), 0, wi - 1);
+  const int yi = clampi((int)(v * hl), 0, hi - 1);
+  return RT_LDG(tb.tex + RT_LDG(m + TX_OFF + level) + yi * wi + xi);
+}
+
 // Per-ray wavefront state (the FS_* / IS_* rows of one column).
 struct RayState {
   V3 o, d, thp, L;
@@ -354,8 +397,9 @@ RT_HD void store_state(int i, int n, const RayState& s, float* __restrict__ fs_o
 // external modes (3-5) there is no shadow ray: the surface goes to `sf`
 // instead, and in mode 3 (NEE-AT) the emission too, unweighted.
 // `A(r)` fetches the hit's attribute row r (AT_*): K1 reads the attribute
-// table by prim, K4 (cluster_shade.cu) reads K3's HA rows.
-template <class AttrFetch>
+// table by prim, K4 (cluster_shade.cu) reads K3's HA rows. HasTex: the
+// texture switch, after the ray cone's update (the tables' atlas).
+template <bool HasTex, class AttrFetch>
 RT_HD ShadowRay surface_and_shade(RayState& s, const Hit& h, const AttrFetch& A,
                                   const Tables& tb, const Config& cfg,
                                   SurfRows* sf = nullptr) {
@@ -410,6 +454,53 @@ RT_HD ShadowRay surface_and_shade(RayState& s, const Hit& h, const AttrFetch& A,
   float ior = lane(mt, MT_IOR, mid);
 
   s.cone = s.cone + s.spread * (hit ? t : 0.0f);
+  if constexpr (HasTex) {
+    // every lane fetches, as the plain version does (its SF_* export of a
+    // lane that is not shaded reads the same values)
+    const float uv_u = bw * A(AT_UV0) + bu * A(AT_UV1) + bv * A(AT_UV2);
+    const float uv_v = bw * A(AT_UV0 + 1) + bu * A(AT_UV1 + 1) + bv * A(AT_UV2 + 1);
+    const float mip = 0.5f * log2f(max_(s.cone * s.cone, (float)1e-30)) + A(AT_LODB);
+    Sampler stx(hash_combine(seed_base, EFFECT_STF), cfg.sample_idx, cfg.low_discrepancy);
+    const float ju0 = stx.dim(0), ju1 = stx.dim(1);
+    auto tfetch = [&](int row, bool& has) {
+      const int tid = (int)lane(mt, row, mid);
+      has = tid >= 0;
+      return tex_fetch(tb, tid, uv_u, uv_v, mip, ju0, ju1);
+    };
+    bool has;
+    if (tb.tex_maps & TEX_BASE) {
+      const float4 c = tfetch(MT_BTEX, has);
+      if (has) base_color = base_color * v3(c.x, c.y, c.z);
+    }
+    if (tb.tex_maps & TEX_MR) {           // glTF: B = metallic, G = roughness
+      const float4 c = tfetch(MT_MRTEX, has);
+      if (has) {
+        metallic = metallic * c.z;
+        roughness = roughness * c.y;
+      }
+    }
+    if (tb.tex_maps & TEX_EMIT) {
+      const float4 c = tfetch(MT_ETEX, has);
+      if (has) emissive = emissive * v3(c.x, c.y, c.z);
+    }
+    if (tb.tex_maps & TEX_NORMAL) {
+      // tangent-space normal map: the baked UV tangent, Gram-Schmidt against
+      // the shading normal, the perturbed normal kept in the geometric
+      // hemisphere
+      const float4 c = tfetch(MT_NTEX, has);
+      const V3 n_ts = v3(c.x * 2.0f - 1.0f, c.y * 2.0f - 1.0f, c.z * 2.0f - 1.0f);
+      const V3 tang_raw = A3(AT_TANG);
+      const float tsgn = A(AT_TSGN);
+      const V3 t_gs = tang_raw - sh_n * dot3(tang_raw, sh_n);
+      const float tlen = sqrtf(dot3(t_gs, t_gs));
+      const bool ok_t = (tsgn != 0.0f) && (tlen > (float)1e-8);
+      const V3 tang = t_gs / max_(tlen, (float)1e-8);
+      const V3 bitan = cross3(sh_n, tang) * tsgn;
+      V3 n_pert = normalize3(n_ts.x * tang + n_ts.y * bitan + max_(n_ts.z, 0.05f) * sh_n);
+      n_pert = dot3(n_pert, gn) > 0.0f ? n_pert : sh_n;
+      if (has && ok_t) sh_n = n_pert;
+    }
+  }
   bool hit_shade = hit_mask;
 
   V3 thp = s.thp;
@@ -604,6 +695,7 @@ RT_HD void store_surf(int i, int n, const SurfRows& sf, float* __restrict__ surf
 // (the external modes 3-5 with lights) the surface rows go there, no shadow
 // ray is traced, and hit row 5 holds the shading flag: 0 not shaded, 1 shaded
 // at logical bounce 0, 2 shaded later (bounce_pallas.py:1556-1560).
+template <bool HasTex>
 RT_HD void bounce_ray(int i, int n, const float* __restrict__ fs, const int* __restrict__ is,
                       float* __restrict__ fs_out, int* __restrict__ is_out,
                       float* __restrict__ hit_out, float* __restrict__ surf_out,
@@ -627,7 +719,8 @@ RT_HD void bounce_ray(int i, int n, const float* __restrict__ fs, const int* __r
     return h.prim >= 0 ? RT_LDG(tb.attr + r * tb.tpad + h.prim) : 0.0f;
   };
   SurfRows sf;
-  ShadowRay sr = surface_and_shade(s, h, attr, tb, cfg, surf_out != nullptr ? &sf : nullptr);
+  ShadowRay sr =
+      surface_and_shade<HasTex>(s, h, attr, tb, cfg, surf_out != nullptr ? &sf : nullptr);
   if (sr.do_nee && !occluded(tb, sr.o, sr.d, sr.dist)) s.L = s.L + sr.contrib;
   store_state(i, n, s, fs_out, is_out);
   if (surf_out != nullptr) {

@@ -2,11 +2,13 @@
 //
 // Replaces rtxpt_tpu/pt/bounce_clustered.py::_kernel_a2 (launched there by
 // _kernel_a2_call, pl.pallas_call at bounce_clustered.py:1327) without its
-// texture, priority, micromap and split-channel branches: NEE in the kernel
+// priority, micromap and split-channel branches: NEE in the kernel
 // (slots 0-2) or exported for external NEE (slots 3-5: the SF_* rows to
 // `surf_out` and the shading flag in hit row 5, as K1 exports them; the JAX
 // kernel computes those rows but leaves its surf_out unwritten), and the
-// environment switches has_env and final_env of K1 (bounce_fused.cuh).
+// environment switches has_env and final_env of K1 (bounce_fused.cuh), and
+// K1's texture switch has_tex / tex_maps on the HA rows (the template
+// parameter HasTex; the UV, LODB, tangent rows ride in HA from K3's winner).
 // Plain version: rtxpt_tpu_torch/pt/bounce_clustered.py shade_reference;
 // wrapper: bounce_clustered.shade.
 //
@@ -23,7 +25,8 @@
 // Per lane it reads 35 HA rows + 15 + 8 state rows (232 B) and writes
 // 15 + 8 + 15 + 6 rows (176 B): 408 B, 0.25 ms at 3.35 TB/s for a 2^21-lane
 // 1080p wavefront; the export adds 24 rows (96 B), the environment table's
-// 164 KB count once per launch and stay in L1 / L2.
+// 164 KB count once per launch and stay in L1 / L2, and so does the texture
+// atlas (a float4 per fetch through __ldg, up to four fetches per lane).
 #include <cuda_runtime.h>
 
 #include "cluster_shade.cuh"
@@ -33,6 +36,7 @@ namespace {
 
 constexpr int kThreads = 128;
 
+template <bool HasTex>
 __global__ void __launch_bounds__(kThreads)
 cluster_shade_kernel(const float* __restrict__ ha, const float* __restrict__ fs,
                      const int* __restrict__ is, float* __restrict__ fs_out,
@@ -41,19 +45,21 @@ cluster_shade_kernel(const float* __restrict__ ha, const float* __restrict__ fs,
                      rt::Tables tb, rt::Config cfg, int n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  rt::cl::shade_lane(i, n, ha, fs, is, fs_out, is_out, sh_out, hit_out, surf_out, tb,
-                     cfg);
+  rt::cl::shade_lane<HasTex>(i, n, ha, fs, is, fs_out, is_out, sh_out, hit_out,
+                             surf_out, tb, cfg);
 }
 
 }  // namespace
 
 // `surf_out` ([SF_ROWS, n] or NULL) receives the exported surface in the
 // external modes; `env` ([ET_SIZE] or NULL) is the environment table, which
-// `final_env` needs.
+// `final_env` needs; `tex` / `tex_meta` / `n_tex` / `tex_maps` the texture
+// tables as K1 takes them (NULL for the untextured variant).
 extern "C" int rtxpt_cluster_shade(
     const float* ha, const float* fs, const int* is, float* fs_out, int* is_out,
     float* sh_out, float* hit_out, float* surf_out, const float* mat_rows,
-    const float* light_rows, const float* env, int n, int n_lights,
+    const float* light_rows, const float* env, const float* tex, const int* tex_meta,
+    int n_tex, int tex_maps, int n, int n_lights,
     unsigned int sample_idx, int nee_mode, int enable_mis, float firefly,
     int rr_enable, int min_rr, int low_discrepancy, int energy_comp, int maxb,
     int final_env, void* stream) {
@@ -63,6 +69,10 @@ extern "C" int rtxpt_cluster_shade(
   tb.mat = mat_rows;
   tb.light = light_rows;
   tb.env = env;
+  tb.tex = reinterpret_cast<const float4*>(tex);
+  tb.tex_meta = tex_meta;
+  tb.n_tex = n_tex;
+  tb.tex_maps = tex_maps;
   tb.n_tris = 0;
   tb.tpad = 0;
   tb.n_lights = n_lights;
@@ -79,7 +89,11 @@ extern "C" int rtxpt_cluster_shade(
   cfg.maxb = maxb;
   cfg.final_env = final_env != 0;
   const int blocks = (n + kThreads - 1) / kThreads;
-  cluster_shade_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      ha, fs, is, fs_out, is_out, sh_out, hit_out, surf_out, tb, cfg, n);
+  if (tex != nullptr)
+    cluster_shade_kernel<true><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        ha, fs, is, fs_out, is_out, sh_out, hit_out, surf_out, tb, cfg, n);
+  else
+    cluster_shade_kernel<false><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        ha, fs, is, fs_out, is_out, sh_out, hit_out, surf_out, tb, cfg, n);
   return (int)cudaGetLastError();
 }

@@ -11,6 +11,7 @@
 namespace rt {
 namespace cl {
 
+template <bool HasTex>
 RT_HD void shade_lane(int i, int n, const float* __restrict__ ha,
                       const float* __restrict__ fs, const int* __restrict__ is,
                       float* __restrict__ fs_out, int* __restrict__ is_out,
@@ -44,7 +45,7 @@ RT_HD void shade_lane(int i, int n, const float* __restrict__ ha,
   }
   SurfRows sf;
   const ShadowRay sr =
-      surface_and_shade(s, h, attr, tb, cfg, surf_out != nullptr ? &sf : nullptr);
+      surface_and_shade<HasTex>(s, h, attr, tb, cfg, surf_out != nullptr ? &sf : nullptr);
   store_state(i, n, s, fs_out, is_out);
   so[(SH_O + 0) * sn] = sr.o.x; so[(SH_O + 1) * sn] = sr.o.y; so[(SH_O + 2) * sn] = sr.o.z;
   so[(SH_D + 0) * sn] = sr.d.x; so[(SH_D + 1) * sn] = sr.d.y; so[(SH_D + 2) * sn] = sr.d.z;

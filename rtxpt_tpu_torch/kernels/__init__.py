@@ -14,8 +14,9 @@ versions do (the parity switch; see PERF.md for its cost).
 launches its kernel, so a run can show which kernels its path went
 through. An instanced variant counts under its own name
 ("cluster_closest_inst", "cluster_shadow_inst"), and so do the shading
-kernels' environment variants ("bounce_fused_env", "bounce_fused_final",
-"cluster_shade_env", "cluster_shade_final"). `build_all()` builds
+kernels' texture and environment variants ("bounce_fused_tex",
+"bounce_fused_env", "bounce_fused_tex_env", "bounce_fused_final", and the
+same for "cluster_shade": bounce_fused.variant_name). `build_all()` builds
 every library at once, one nvcc process per source.
 """
 
@@ -148,6 +149,8 @@ BOUNCE_FUSED = CudaLibrary(
         _P,                            # surf_out (external modes) | NULL
         _P, _P, _P, _P,                # tri_coef, attr, mat, light rows
         _P,                            # env table | NULL
+        _P, _P, _I, _I,                # tex | NULL, tex_meta, n_tex,
+        #                                tex_maps
         _I, _I, _I, _I,                # n, n_tris, tpad, n_lights
         _U,                            # sample_idx
         _I, _I, _F, _I, _I, _F,        # nee_mode, mis, firefly, rr, min_rr,
@@ -188,6 +191,8 @@ CLUSTER_SHADE = CudaLibrary(
         _P, _P, _P, _P, _P, _P, _P,    # ha, fs, is_, fs_out, is_out, sh, hit
         _P,                            # surf_out (external modes) | NULL
         _P, _P, _P,                    # mat, light rows, env table | NULL
+        _P, _P, _I, _I,                # tex | NULL, tex_meta, n_tex,
+        #                                tex_maps
         _I, _I, _U,                    # n, n_lights, sample_idx
         _I, _I, _F, _I, _I,            # nee_mode, mis, firefly, rr, min_rr
         _I, _I, _I,                    # low_discrepancy, energy_comp, maxb

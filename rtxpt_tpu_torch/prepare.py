@@ -15,7 +15,12 @@ cluster tables (accel/cluster.py) for the clustered tier.
 A scene with an environment source bakes its map at the kernels'
 64 x 128 (`env_res="auto"`), and the fused and cluster tables carry the
 environment table; a scene with sphere or environment-quad lights gets
-neither table and renders on the general tier, as in the JAX package.
+neither table and renders on the general tier, as in the JAX package. A
+scene with textures bakes them into one atlas (scene/textures.py
+`bake_textures`), which the general tier samples and which the fused and
+cluster tables carry for the kernels' texture switch (unless it is past
+their cap); its materials go to the render device with it. Alpha-tested
+textures (opacity micromaps) are not ported: prepare raises for them.
 
 A two-level scene (`_prepare_two_level`) keeps the prototypes' triangles
 in object space beside the TLAS (accel/tlas.py), whose walk serves the
@@ -48,8 +53,10 @@ from rtxpt_tpu_torch.lighting.lights_baker import (
 from rtxpt_tpu_torch.pt.bounce_fused import (
     ENV_H, ENV_W, MAX_TRIS, build_bounce_tables, env_table_serves,
     tables_from_numpy)
+from rtxpt_tpu_torch.pt.dispatch import alpha_tested
 from rtxpt_tpu_torch.scene.scene import (
     AnalyticLights, Geometry, HostScene, Materials, SceneData, build_packs)
+from rtxpt_tpu_torch.scene.textures import bake_textures
 
 
 def scene_radius(positions: np.ndarray) -> float:
@@ -109,15 +116,30 @@ def _prepare_two_level(host: HostScene, built: dict, device,
                           b["light_subinstance"])
     lights = bake_lights(sd.replace(geometry=light_geo), envmap, radius,
                          env_quads=host.env_quad_lights, device=device)
+    textures = _textures(host, device)
     cluster_tables = None
     if sum(len(i.indices) for i in host.instances) > MAX_TRIS:
         cluster_tables = build_cluster_tables_instanced(
-            built, host, mats, lights, envmap=envmap, device=device)
+            built, host, mats, lights, envmap=envmap, textures=textures,
+            device=device)
     has_prio = bool(torch.any(mats.nested_priority != 0))
     return sd.replace(tlas=tl, envmap=envmap, tri_pack=tri_pack.to(device),
                       mat_pack=mat_pack.to(device), lights=lights,
-                      cluster_tables=cluster_tables,
-                      has_nested_priorities=has_prio)
+                      cluster_tables=cluster_tables, textures=textures,
+                      materials=mats.to(device) if textures is not None
+                      else mats, has_nested_priorities=has_prio)
+
+
+def _textures(host: HostScene, device):
+    """The host's texture atlas on `device`, or None without textures;
+    raises NotImplementedError for alpha-tested textures."""
+    if not host.textures:
+        return None
+    if alpha_tested(host):
+        raise NotImplementedError(
+            "alpha-tested textures (opacity micromaps) are not ported to "
+            "rtxpt_tpu_torch yet")
+    return bake_textures(host.textures, device=device)
 
 
 def prepare(host: HostScene, device="cuda", instancing: str = "auto",
@@ -139,15 +161,12 @@ def prepare(host: HostScene, device="cuda", instancing: str = "auto",
     builds it whenever build_two_level takes the scene and raises
     ValueError otherwise.
 
-    Raises NotImplementedError for textures, which the port does not
-    serve yet."""
+    Raises NotImplementedError for alpha-tested textures (opacity
+    micromaps), which the port does not serve yet."""
     device = rtxpt_tpu_torch.device(device)
     if instancing not in ("auto", "off", "force"):
         raise ValueError(f"instancing {instancing!r} is not one of "
                          f"'auto', 'off', 'force'")
-    if host.textures:
-        raise NotImplementedError("textures are not ported to "
-                                  "rtxpt_tpu_torch yet")
     if instancing != "off":
         built = build_two_level(
             host, min_sharing=1.0 if instancing == "force" else 1.5,
@@ -159,6 +178,7 @@ def prepare(host: HostScene, device="cuda", instancing: str = "auto",
                 "instancing='force' but the scene hits a two-level v1 "
                 "restriction (alpha-tested textures)")
     sd = host.flatten()
+    textures = _textures(host, device)
     g = sd.geometry
     pos = g.positions.numpy()
     idx = g.indices.numpy()
@@ -180,34 +200,37 @@ def prepare(host: HostScene, device="cuda", instancing: str = "auto",
             sd.materials, lights)
     has_prio = bool(torch.any(sd.materials.nested_priority != 0))
     tri_pack, mat_pack = build_packs(g, sd.materials)
-    sd = sd.replace(lights=lights, envmap=envmap,
+    sd = sd.replace(lights=lights, envmap=envmap, textures=textures,
                     has_nested_priorities=has_prio,
                     bvh=build_bvh(pos, idx, device=device),
                     tri_pack=tri_pack.to(device),
                     mat_pack=mat_pack.to(device))
+    if textures is not None:
+        sd = sd.replace(materials=sd.materials.to(device))
     if not kernel_tables_serve(lights, envmap):
         return sd
     if clustered:
         return sd.replace(cluster_tables=build_cluster_tables(
-            *args, uvs=g.uvs.numpy(), envmap=envmap, device=device))
+            *args, uvs=g.uvs.numpy(), envmap=envmap, textures=textures,
+            device=device))
     return sd.replace(bounce_tables=build_bounce_tables(
-        *args, uvs=g.uvs.numpy(), envmap=envmap, device=device))
+        *args, uvs=g.uvs.numpy(), envmap=envmap, textures=textures,
+        device=device))
 
 
 def scene_from_numpy(tables: dict, lights=None, device="cuda",
                      envmap=None) -> SceneData:
     """SceneData from the JAX package's prepared bounce tables as numpy
     arrays: keys tri_rows, attr_rows, mat_rows, light_rows, tc, n_chunks,
-    n_lights, n_tris and env_rows (the BounceTables fields), with the
-    light list and the environment map (lighting/envmap.py
-    envmap_from_numpy) the NEE and the general tier read. Table parts the
-    port does not serve (tex_ct, tex_meta, omm, prio) must be absent,
+    n_lights, n_tris, env_rows and tex_ct, tex_meta, tex_maps (the
+    BounceTables fields), with the light list and the environment map
+    (lighting/envmap.py envmap_from_numpy) the NEE and the general tier
+    read. Table parts the port does not serve (omm, prio) must be absent,
     None or false."""
     device = rtxpt_tpu_torch.device(device)
     tables = dict(tables)
-    _refuse_parts(tables, ("tex_ct", "tex_meta", "omm", "prio"), "bounce")
-    for key in ("tr", "tex_maps"):
-        tables.pop(key, None)
+    _refuse_parts(tables, ("omm", "prio"), "bounce")
+    tables.pop("tr", None)
     bt = tables_from_numpy(device=device, **tables)
     return SceneData(geometry=None, materials=None, analytic_lights=None,
                      lights=lights, envmap=envmap, bounce_tables=bt)
@@ -219,14 +242,13 @@ def cluster_scene_from_numpy(tables: dict, lights=None, device="cuda",
     arrays: keys blocks, aabb_lo, aabb_hi, mat_rows, light_rows, offsets,
     n_clusters, n_tris, n_lights, env_rows, and for instanced tables
     instanced, wc_block, wc_inst, xf and inst_post (the ClusterTables
-    fields), with the light list and the environment map. Parts the port
-    does not serve (tex_ct, tex_meta, omm) must be absent, None or
-    false."""
+    fields; tex_ct, tex_meta and tex_maps too), with the light list and the
+    environment map. Parts the port does not serve (omm) must be absent,
+    None or false."""
     device = rtxpt_tpu_torch.device(device)
     tables = dict(tables)
-    _refuse_parts(tables, ("tex_ct", "tex_meta", "omm"), "cluster")
-    for key in ("tr", "tex_maps"):
-        tables.pop(key, None)
+    _refuse_parts(tables, ("omm",), "cluster")
+    tables.pop("tr", None)
     ct = cluster_tables_from_numpy(device=device, **tables)
     return SceneData(geometry=None, materials=None, analytic_lights=None,
                      lights=lights, envmap=envmap, cluster_tables=ct)

@@ -12,7 +12,9 @@ instead of bounce tables. Each bounce of `trace_paths_clustered` runs:
   4. K4 `shade`: surface_and_shade on K3's hits, which emits the next
      ray state and one NEE shadow request per lane (the environment of a
      miss and the environment light's sample too, when the tables carry
-     the environment table); in the external-NEE modes (NEE-AT, more
+     the environment table; the materials' texture maps too, when the
+     tables carry the texture atlas and stochastic texture filtering is
+     on); in the external-NEE modes (NEE-AT, more
      than 128 lights, WRS K > 1) it exports the shaded surface instead,
      and pt/nee_external.py selects the light and packs the requests;
   5. the shadow-ray sort;
@@ -57,7 +59,11 @@ does).
 Choices against the JAX package (ROADMAP queue 3):
   * F2: the sort carries the int state rows whole (no 12-bit packing).
   * F4: the sort carries the ray cone and spread in f32 (no bf16
-    rounding); neither reaches the radiance of an untextured scene.
+    rounding). Neither reaches the radiance of an untextured scene; in a
+    textured one the cone sets the MIP level, and the JAX package's bf16
+    cone (about 2^-8 relative, 0.006 of a level) moves about 0.5% of the
+    fetches after bounce 0 to a neighbouring level
+    (tests/test_torch_cluster_tex.py states the tolerance this leaves).
   * F5: `cull_overflow` is, per bounce, the cull overflow of the final
     page of the closest-hit cull plus that of the final page of the
     shadow cull: the feasible clusters still past the last page's
@@ -570,6 +576,9 @@ def shade(ha, fs, is_, tables, kcfg: bf.KernelConfig, sample_idx: int,
               (W.LROWS, 128), dev)
     if tables.env is not None:
         bf._check("env", tables.env, torch.float32, (bf.ET_SIZE,), dev)
+    tex = bf.use_tex(tables, kcfg) and not final_env
+    if tex:
+        bf.check_tex_tables(tables, dev)
     if kcfg.nee_mode not in range(6):
         raise ValueError(f"shade: nee_mode {kcfg.nee_mode} not in 0..5")
     if kcfg.nee_mode in (1, 2) and tables.n_lights > bf.MAX_LIGHTS:
@@ -589,13 +598,13 @@ def shade(ha, fs, is_, tables, kcfg: bf.KernelConfig, sample_idx: int,
             outs[4].data_ptr() if len(outs) > 4 else None,
             tables.mat_rows.data_ptr(), tables.light_rows.data_ptr(),
             None if tables.env is None else tables.env.data_ptr(),
-            n, tables.n_lights,
+            *bf.tex_args(tables, tex), n, tables.n_lights,
             int(sample_idx) & rng.M32, kcfg.nee_mode, int(kcfg.enable_mis),
             kcfg.firefly, int(kcfg.rr_enable), kcfg.min_rr,
             int(kcfg.low_discrepancy), int(kcfg.energy_comp), kcfg.maxb,
             int(final_env), torch.cuda.current_stream(dev).cuda_stream)
     kernels.launches[bf.variant_name("cluster_shade", tables.env is not None,
-                                     final_env)] += 1
+                                     final_env, tex)] += 1
     return outs
 
 
@@ -793,9 +802,10 @@ def trace_paths_clustered(scene, cfg, o, d, cone_spread, px, py,
                           sample_idx, neeat_state=None):
     """Trace a wavefront of camera rays to completion on the clustered
     tier (bounce_clustered.trace_paths_clustered of the JAX package, the
-    flat all-rows route, without aux buffers, micromaps, textures or split
-    channels), flat or instanced. `cfg` is resolved by `dispatch.resolve`,
-    which sets kslots, pages and nee_external.
+    flat all-rows route, without aux buffers, micromaps or split
+    channels), flat or instanced; textures go in-kernel with stochastic
+    texture filtering only (`bounce_fused.use_tex`). `cfg` is resolved by
+    `dispatch.resolve`, which sets kslots, pages and nee_external.
 
     In the external-NEE modes (`cfg.nee_external`, or NEE-AT) K4 exports
     the shaded surface, `external_nee` selects and evaluates the light per

@@ -21,8 +21,13 @@ JAX package's env_rows without the TPU layout): a miss gathers the
 environment with its MIS weight, the environment light is
 importance-sampled from the table's two-level CDF, and
 `trace_paths_fused` closes each path with the final environment-only
-launch (`final_env`). No textures, no opacity micromaps, no nested
-priorities, no split channels and no V-buffer injection; sphere and
+launch (`final_env`). With a texture atlas (`build_tex_tables`) and
+stochastic texture filtering on (`KernelConfig.stf`, the JAX package's
+rule), the `has_tex` variant fetches the materials' base-colour,
+metal-rough, emissive and normal maps at the ray cone's MIP, one jittered
+texel each (`tex_fetch`), and perturbs the shading normal in the
+triangle's UV tangent frame. No opacity micromaps, no nested priorities,
+no split channels and no V-buffer injection; sphere and
 environment-quad lights are the general tier's (`build_bounce_tables`
 raises NotImplementedError for them).
 
@@ -170,10 +175,26 @@ ET_SIZE = ET_COS + 64
 # the JAX layout's row offsets (bounce_pallas.py EV_* / EVA_*)
 _EV_CT, _EV_CONDT, _EV_COSB, _EV_AUX = 0, 512, 768, 896
 
+# Texture tables: the atlas as one flat [texels, 4] f32 RGBA array (the
+# JAX package's TextureAtlas.data, padded like its tex_ct to a multiple of
+# 1024 texels) and one int32 meta row per texture: base width, height,
+# MIP count and the 14 MIP start texels. The JAX kernel's transposed
+# [4*128, TR] atlas exists for its one-hot matmul gather; a thread reads
+# a texel as one float4.
+TX_W = 0
+TX_H = 1
+TX_NMIPS = 2
+TX_OFF = 3                 # 3:17 start texel of MIP k
+TX_COLS = 17
+TEX_MAX_TEXELS = 512 * 128  # the JAX package's cap: 64k texels, all MIPs
+TEX_MAX_COUNT = 128
+TEX_MAX_MIPS = 14
+
 # Effect seeds (same as rtxpt_tpu/pt/integrator.py)
 EFFECT_SCATTER = 29
 EFFECT_NEE = 31
 EFFECT_RR = 37
+EFFECT_STF = 41
 
 
 @dataclass(frozen=True)
@@ -186,6 +207,10 @@ class BounceTables:
     light_rows: torch.Tensor  # [W.LROWS, 128]
     tri_coef: torch.Tensor    # [Tpad, TC_ROWS] what the kernel reads
     env: Optional[torch.Tensor] = None   # [ET_SIZE] (an environment light)
+    tex: Optional[torch.Tensor] = None       # [texels, 4] texture atlas
+    tex_meta: Optional[torch.Tensor] = None  # [T, TX_COLS] i32
+    # which maps any material binds: (base, metal_rough, emissive, normal)
+    tex_maps: tuple = (0, 0, 0, 0)
     tc: int = 128
     n_chunks: int = 1
     n_lights: int = 0
@@ -211,6 +236,8 @@ class KernelConfig:
     low_discrepancy: bool = True
     energy_comp: bool = True
     maxb: int = 6
+    stf: bool = False          # stochastic texture filtering: the texture
+    #                            switch runs only with it (use_tex)
 
     @property
     def external(self) -> bool:
@@ -229,7 +256,15 @@ class KernelConfig:
             max_travel=float(cfg.max_ray_travel),
             low_discrepancy=bool(cfg.low_discrepancy),
             energy_comp=bool(cfg.kernel_energy_comp),
-            maxb=int(cfg.max_bounces))
+            maxb=int(cfg.max_bounces),
+            stf=bool(cfg.stochastic_texture_filtering))
+
+
+def use_tex(tables, kcfg: KernelConfig) -> bool:
+    """Whether a shading kernel runs its texture switch: the tables carry
+    the texture atlas and stochastic texture filtering is on
+    (bounce_pallas.py:1827-1829, bounce_clustered.py:1569-1571)."""
+    return tables.tex is not None and kcfg.stf
 
 
 def _round_up(x: int, m: int) -> int:
@@ -310,10 +345,14 @@ def compact_coefficients(tri_rows: np.ndarray, tc: int,
 
 def tables_from_numpy(tri_rows, attr_rows, mat_rows, light_rows, tc,
                       n_chunks, n_lights, n_tris, device="cuda",
-                      env_rows=None) -> BounceTables:
+                      env_rows=None, tex_ct=None, tex_meta=None,
+                      tex_maps=(0, 0, 0, 0)) -> BounceTables:
     """BounceTables on `device` (the GPU by default; raises without one)
     from the JAX layout's numpy arrays; `env_rows` is the JAX package's
-    [EV_ROWS, 128] environment table or the port's [ET_SIZE] one."""
+    [EV_ROWS, 128] environment table or the port's [ET_SIZE] one;
+    `tex_ct` / `tex_meta` the JAX package's texture tables ([4*128, TR]
+    and [TXM_ROWS, 128]) or the port's (`build_tex_tables`), with
+    `tex_maps` the materials' map flags."""
     import rtxpt_tpu_torch
 
     device = rtxpt_tpu_torch.device(device)
@@ -321,13 +360,75 @@ def tables_from_numpy(tri_rows, attr_rows, mat_rows, light_rows, tc,
     def t(a):
         return torch.tensor(np.asarray(a, np.float32), device=device)
 
+    tex = meta = None
+    if (tex_ct is None) != (tex_meta is None):
+        raise ValueError("texture tables need both tex_ct and tex_meta")
+    if tex_ct is not None:
+        tex, meta = tex_tables(tex_ct, tex_meta)
+        tex, meta = t(tex), torch.tensor(meta, device=device)
     return BounceTables(
         tri_rows=t(tri_rows), attr_rows=t(attr_rows), mat_rows=t(mat_rows),
         light_rows=t(light_rows),
         tri_coef=t(compact_coefficients(tri_rows, int(tc), int(n_chunks))),
         env=None if env_rows is None else t(env_table(env_rows)),
+        tex=tex, tex_meta=meta,
+        tex_maps=tuple(int(x) for x in tex_maps) if tex is not None
+        else (0, 0, 0, 0),
         tc=int(tc), n_chunks=int(n_chunks), n_lights=int(n_lights),
         n_tris=int(n_tris))
+
+
+def tex_maps_of(materials) -> tuple:
+    """(base, metal_rough, emissive, normal): 1 where some material binds
+    that map (bounce_pallas._tex_maps_of)."""
+    def has(arr):
+        return int(arr is not None and int(np.max(_np(arr))) >= 0)
+    return (has(materials.base_color_tex), has(materials.metal_rough_tex),
+            has(materials.emissive_tex), has(materials.normal_tex))
+
+
+def build_tex_tables(atlas):
+    """(tex [texels, 4] f32, meta [T, TX_COLS] i32) of a TextureAtlas for
+    the kernels' texture switch, or None where the JAX package's
+    build_tex_tables refuses the atlas: more than 64k texels (all MIPs),
+    more than 128 textures, more than 14 MIPs, or a width or height that
+    is not a power of two (the kernels halve each MIP exactly)."""
+    if atlas is None:
+        return None
+    data = _np(atlas.data).astype(np.float32)
+    texels = data.shape[0]
+    padded = _round_up(_round_up(max(texels, 128), 128) // 128, 8) * 128
+    widths, heights = _np(atlas.width), _np(atlas.height)
+    nmips = _np(atlas.n_mips)
+    if padded > TEX_MAX_TEXELS or atlas.count > TEX_MAX_COUNT or \
+            int(nmips.max(initial=0)) > TEX_MAX_MIPS:
+        return None
+    if np.any(widths & (widths - 1)) or np.any(heights & (heights - 1)):
+        return None
+    tex = np.zeros((padded, 4), np.float32)
+    tex[:texels] = data
+    meta = np.zeros((atlas.count, TX_COLS), np.int32)
+    meta[:, TX_W], meta[:, TX_H], meta[:, TX_NMIPS] = widths, heights, nmips
+    meta[:, TX_OFF:TX_OFF + TEX_MAX_MIPS] = \
+        _np(atlas.mip_offset)[:, :TEX_MAX_MIPS]
+    return tex, meta
+
+
+def tex_tables(tex_ct, tex_meta):
+    """The port's (tex, meta) from the JAX package's texture tables
+    (tex_ct [4*128, TR]: tex_ct[c*128 + l, q] = texel q*128 + l, channel c;
+    tex_meta [TXM_ROWS, 128], lane = texture), or port tables as they
+    are."""
+    tex_ct, tex_meta = np.asarray(tex_ct), np.asarray(tex_meta)
+    if tex_ct.ndim == 2 and tex_ct.shape[1] == 4 and \
+            tex_meta.shape[-1] == TX_COLS:
+        return tex_ct.astype(np.float32), tex_meta.astype(np.int32)
+    tr = tex_ct.shape[1]
+    tex = tex_ct.reshape(4, 128, tr).transpose(2, 1, 0).reshape(tr * 128, 4)
+    count = int((tex_meta[TX_W] > 0).sum())
+    meta = tex_meta[:TX_COLS, :count].T      # TXM_W, H, NMIPS, OFF rows
+    return np.ascontiguousarray(tex, np.float32), \
+        np.rint(meta).astype(np.int32)
 
 
 def build_env_table(envmap, sel_pdf: float) -> Optional[np.ndarray]:
@@ -395,11 +496,14 @@ def lights_env_table(lights, envmap) -> Optional[np.ndarray]:
 
 def build_bounce_tables(positions, normals, indices, tri_material,
                         materials, lights, uvs=None, envmap=None,
-                        device="cuda"):
+                        textures=None, device="cuda"):
     """Host-side table bake (bounce_pallas.build_bounce_tables, flat
-    no-texture / no-OMM case) onto `device` (the GPU by default; raises
-    without one), with the environment table when the lights hold an
-    environment light (`envmap` baked at 64 x 128). Raises
+    no-OMM case) onto `device` (the GPU by default; raises without one),
+    with the environment table when the lights hold an environment light
+    (`envmap` baked at 64 x 128) and the texture tables of `textures` (a
+    TextureAtlas) when `build_tex_tables` takes it; an atlas it refuses
+    leaves the tables without textures, and dispatch then names the cap.
+    Raises
     NotImplementedError, naming the feature, for a scene it does not
     take: sphere and environment-quad lights (the JAX package leaves them
     to the general tier), anisotropic materials, too many triangles or
@@ -478,8 +582,7 @@ def build_bounce_tables(positions, normals, indices, tri_material,
     attr[AT_ISLIGHT, :t] = has_l.astype(np.float32)
     attr[AT_LID, :t] = tri_light[:t].astype(np.float32)
     if uvs is not None:
-        # texture coordinates ride along for parity; the tangent rows
-        # (AT_TANG/AT_TSGN) belong to normal mapping, not ported yet
+        # texture coordinates, and the UV tangent frame of normal mapping
         uvs = np.asarray(uvs, np.float32)
         attr[AT_UV0:AT_UV0 + 2, :t] = uvs[indices[:, 0]].T
         attr[AT_UV1:AT_UV1 + 2, :t] = uvs[indices[:, 1]].T
@@ -488,8 +591,12 @@ def build_bounce_tables(positions, normals, indices, tri_material,
     tri_area2 = np.linalg.norm(n, axis=-1)
     attr[AT_LODB, :t] = -0.5 * np.log2(np.maximum(tri_area2, 1e-20))
 
+    tex = build_tex_tables(textures)
     return tables_from_numpy(tri_rows, attr, mat, lt, tc, n_chunks,
-                             int(lights.num), t, device=device, env_rows=env)
+                             int(lights.num), t, device=device, env_rows=env,
+                             tex_ct=None if tex is None else tex[0],
+                             tex_meta=None if tex is None else tex[1],
+                             tex_maps=tex_maps_of(materials))
 
 
 def _tangent_rows(uvs, indices, e1, e2):
@@ -695,16 +802,45 @@ def env_sample_k(env, u1, u2):
     return wi, rgb, pt / env[ET_SA:ET_COS][yi]
 
 
+def tex_fetch(tex, meta, tid, uv_u, uv_v, mip, ju0, ju1):
+    """The kernels' stochastic texel fetch per lane (bounce_pallas.
+    _tex_fetch_w, whose arithmetic differs from scene/textures.py
+    sample_texture_stochastic): level floor(mip + ju0) clipped to the
+    texture's MIPs, the level's size as max(floor(w * 2^-level + 0.5), 1),
+    the uv jittered by (ju - 0.5) / size and wrapped by u - floor(u), one
+    texel. tid [N] i64 (-1: white), uv_u, uv_v, mip, ju0, ju1 [N] ->
+    rgba [4, N]."""
+    row = meta[torch.clamp(tid, 0, meta.shape[0] - 1)]          # [N, 17]
+    level = torch.minimum(
+        torch.clamp(torch.floor(mip + ju0).to(torch.int32), min=0),
+        row[:, TX_NMIPS] - 1).long()
+    p2 = 1.0 / (1 << level).to(torch.float32)          # 2^-level, exact
+    wl = torch.clamp(torch.floor(row[:, TX_W].float() * p2 + 0.5), min=1.0)
+    hl = torch.clamp(torch.floor(row[:, TX_H].float() * p2 + 0.5), min=1.0)
+    off = row.gather(1, TX_OFF + level[:, None])[:, 0].long()
+    u = uv_u + (ju0 - 0.5) / wl
+    v = uv_v + (ju1 - 0.5) / hl
+    u = u - torch.floor(u)
+    v = v - torch.floor(v)
+    wi, hi = wl.to(torch.int32), hl.to(torch.int32)
+    xi = torch.minimum(torch.clamp((u * wl).to(torch.int32), min=0), wi - 1)
+    yi = torch.minimum(torch.clamp((v * hl).to(torch.int32), min=0), hi - 1)
+    rgba = tex[off + (yi * wi + xi).long()]
+    return torch.where((tid >= 0)[:, None], rgba, 1.0).T
+
+
 def surface_and_shade(*, o, d, t, hit, front, bu, bv, attr, thp, L,
                       prev_pdf, cone, spread, active, prev_delta, med0, med1,
                       px, py, budget, lb, tables: BounceTables,
                       kcfg: KernelConfig, sample_idx: int):
     """Post-intersection bounce body (bounce_pallas.surface_and_shade with
-    no textures, micromaps, priorities or split channels): the
-    environment of a miss with its MIS weight (when the tables carry the
-    environment table), surface fetch, volume absorption, emissive-hit
-    MIS, one NEE light sample (the environment light included) + BSDF
-    eval, BSDF scatter, medium stack, Russian roulette.
+    no micromaps, priorities or split channels): the environment of a
+    miss with its MIS weight (when the tables carry the environment
+    table), surface fetch, the texture switch (`use_tex`: base colour,
+    metal-rough, emissive and normal maps, one stochastic texel each at
+    the ray cone's MIP), volume absorption, emissive-hit MIS, one NEE
+    light sample (the environment light included) + BSDF eval, BSDF
+    scatter, medium stack, Russian roulette.
     `attr(i, k=1)` fetches the winner's attribute rows. Returns the next
     state, whether the lane was shaded, and the pending shadow ray
     (do_nee, shadow_o, shadow_d, sdist, contrib); the caller resolves
@@ -780,6 +916,49 @@ def surface_and_shade(*, o, d, t, hit, front, bu, bv, attr, thp, L,
     ior = mrow(MT_IOR)
 
     cone = cone + spread * torch.where(hit, t, 0.0)
+    if use_tex(tables, kcfg):
+        maps = tables.tex_maps
+        uv_u = bw * attr(AT_UV0) + bu * attr(AT_UV1) + bv * attr(AT_UV2)
+        uv_v = bw * attr(AT_UV0 + 1) + bu * attr(AT_UV1 + 1) \
+            + bv * attr(AT_UV2 + 1)
+        mip = 0.5 * torch.log2(torch.clamp(cone * cone, min=1e-30)) \
+            + attr(AT_LODB)
+        ju0, ju1 = lds(eff_seed(EFFECT_STF), (0, 1))
+
+        def tfetch(row):
+            tid = mrow(row).to(torch.int64)
+            return tid >= 0, tex_fetch(tables.tex, tables.tex_meta, tid,
+                                       uv_u, uv_v, mip, ju0, ju1)
+
+        if maps[0]:
+            has_b, brgba = tfetch(MT_BTEX)
+            base_color = torch.where(has_b, base_color * brgba[:3],
+                                     base_color)
+        if maps[1]:
+            # glTF: B = metallic, G = roughness
+            has_m, mrgba = tfetch(MT_MRTEX)
+            metallic = torch.where(has_m, metallic * mrgba[2], metallic)
+            roughness = torch.where(has_m, roughness * mrgba[1], roughness)
+        if maps[2]:
+            has_e, ergba = tfetch(MT_ETEX)
+            emissive = torch.where(has_e, emissive * ergba[:3], emissive)
+        if maps[3]:
+            # tangent-space normal map: the baked UV tangent (AT_TANG,
+            # AT_TSGN), Gram-Schmidt against the shading normal, the
+            # perturbed normal kept in the geometric hemisphere
+            has_n, nrgba = tfetch(MT_NTEX)
+            n_ts = nrgba[:3] * 2.0 - 1.0
+            tang_raw = attr(AT_TANG, 3)
+            tsgn = attr(AT_TSGN)
+            t_gs = tang_raw - sh_n * W.dot3(tang_raw, sh_n)
+            tlen = torch.sqrt(W.dot3(t_gs, t_gs))
+            ok_t = (tsgn != 0.0) & (tlen > 1e-8)
+            tang = t_gs / torch.clamp(tlen, min=1e-8)
+            bitan = W.cross3(sh_n, tang) * tsgn
+            n_pert = W.normalize3(n_ts[0] * tang + n_ts[1] * bitan
+                                  + torch.clamp(n_ts[2], min=0.05) * sh_n)
+            n_pert = torch.where(W.dot3(n_pert, gn) > 0.0, n_pert, sh_n)
+            sh_n = torch.where(has_n & ok_t, n_pert, sh_n)
     hit_shade = hit_mask
 
     def med_ior(med):
@@ -1043,11 +1222,15 @@ def shadow_requests(shadow_o, shadow_d, sdist, do_nee):
 _check = kernels.check_tensor
 
 
-def variant_name(base: str, has_env: bool, final_env: bool) -> str:
-    """The launch-count name of a shading kernel's variant: `base`, or
-    base + "_env" with the environment switches, base + "_final" for the
-    final environment-only round."""
-    return base + ("_final" if final_env else "_env" if has_env else "")
+def variant_name(base: str, has_env: bool, final_env: bool,
+                 has_tex: bool = False) -> str:
+    """The launch-count name of a shading kernel's variant: `base`, then
+    "_tex" with the texture switch, then "_env" with the environment
+    switches; base + "_final" for the final environment-only round (which
+    shades nothing, so it runs without textures)."""
+    if final_env:
+        return base + "_final"
+    return base + ("_tex" if has_tex else "") + ("_env" if has_env else "")
 
 
 def bounce(fs, is_, tables: BounceTables, kcfg: KernelConfig,
@@ -1076,6 +1259,9 @@ def bounce(fs, is_, tables: BounceTables, kcfg: KernelConfig,
            dev)
     if tables.env is not None:
         _check("env", tables.env, torch.float32, (ET_SIZE,), dev)
+    tex = use_tex(tables, kcfg) and not final_env
+    if tex:
+        check_tex_tables(tables, dev)
     if kcfg.nee_mode not in range(6):
         raise ValueError(f"bounce: nee_mode {kcfg.nee_mode} not in 0..5")
     if not 0 < tables.n_tris <= MAX_TRIS or (
@@ -1099,14 +1285,35 @@ def bounce(fs, is_, tables: BounceTables, kcfg: KernelConfig,
             tables.tri_coef.data_ptr(), tables.attr_rows.data_ptr(),
             tables.mat_rows.data_ptr(), tables.light_rows.data_ptr(),
             None if tables.env is None else tables.env.data_ptr(),
+            *tex_args(tables, tex),
             n, tables.n_tris, tpad, tables.n_lights,
             int(sample_idx) & rng.M32, kcfg.nee_mode, int(kcfg.enable_mis),
             kcfg.firefly, int(kcfg.rr_enable), kcfg.min_rr, kcfg.max_travel,
             int(kcfg.low_discrepancy), int(kcfg.energy_comp), kcfg.maxb,
             int(final_env), stream)
     kernels.launches[variant_name("bounce_fused", tables.env is not None,
-                                  final_env)] += 1
+                                  final_env, tex)] += 1
     return outs
+
+
+def check_tex_tables(tables, dev):
+    """Raise unless the texture tables are what the kernels read."""
+    _check("tex", tables.tex, torch.float32, (tables.tex.shape[0], 4), dev)
+    _check("tex_meta", tables.tex_meta, torch.int32,
+           (tables.tex_meta.shape[0], TX_COLS), dev)
+    if not 0 < tables.tex_meta.shape[0] <= TEX_MAX_COUNT:
+        raise ValueError("texture tables: 1..128 textures")
+
+
+def tex_args(tables, tex: bool):
+    """The C interface's texture arguments: atlas, meta (NULL for the
+    untextured variant), texture count and the tex_maps bits (base 1,
+    metal-rough 2, emissive 4, normal 8)."""
+    if not tex:
+        return None, None, 0, 0
+    bits = sum(int(b) << k for k, b in enumerate(tables.tex_maps))
+    return (tables.tex.data_ptr(), tables.tex_meta.data_ptr(),
+            tables.tex_meta.shape[0], bits)
 
 
 def occlusion(tables: BounceTables, sh, stats: bool = False):

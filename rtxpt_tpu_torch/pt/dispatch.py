@@ -30,11 +30,19 @@ Four tiers serve `trace_paths`:
 
 An environment (a map with an environment light) is served on every
 tier: the fused and cluster tables carry the kernels' environment table.
-As in the JAX package, "auto" resolves to "xla" a scene whose kernel
-tiers would need what only the general tier samples: NEE-AT with an
-environment light, and sphere or environment-quad lights (prepare builds
-no bounce or cluster tables for the latter); a caller who pins "fused"
-or "clustered" for them gets NotImplementedError naming the feature.
+Textures and normal maps are served on every tier too: the kernels'
+texture switch is stochastic texture filtering (one jittered texel per
+map), so the fused and clustered tiers serve a textured scene only with
+`cfg.stochastic_texture_filtering` and an atlas within the kernels'
+tables (`bounce_fused.build_tex_tables`); the general tier samples
+bilinearly without it. As in the JAX package, "auto" resolves to "xla" a
+scene whose kernel tiers would need what only the general tier serves:
+NEE-AT with an environment light, sphere or environment-quad lights
+(prepare builds no bounce or cluster tables for the latter), and
+textures without stochastic filtering or past the atlas cap; a caller
+who pins "fused" or "clustered" for them gets NotImplementedError naming
+the feature. Alpha-tested textures (opacity micromaps) are served by no
+tier yet.
 
 The wrappers pick the kernel for CUDA tensors and its plain version for
 CPU tensors, so a clustered scene on the CPU keeps the tier name
@@ -57,15 +65,26 @@ from rtxpt_tpu_torch.pt.bounce_fused import MAX_LIGHTS
 TIERS = ("fused", "clustered", "torch", "xla")
 
 
-def general_only_features(scene, cfg):
+def general_only_features(scene, cfg, tables=None):
     """Names of what only the general tier serves on this scene and
-    config (rtxpt_tpu/pt/dispatch.py _nee_routing_ok and the table
-    builders): sphere or environment-quad lights, and NEE-AT with an
-    environment light."""
+    config with the kernel tier's `tables` (rtxpt_tpu/pt/dispatch.py
+    _nee_routing_ok, :102-107, :135-139 and the table builders): sphere or
+    environment-quad lights, NEE-AT with an environment light, and
+    textures without stochastic texture filtering or without the
+    kernels' texture tables (an atlas past their cap)."""
+    out = []
+    if getattr(scene, "textures", None) is not None and tables is not None:
+        if getattr(tables, "tex", None) is None:
+            out.append("textures past the kernels' atlas cap (64k texels "
+                       "with every MIP, 128 textures, 14 MIPs, power-of-two "
+                       "sizes)")
+        elif not cfg.stochastic_texture_filtering:
+            out.append("textures without stochastic texture filtering (the "
+                       "kernels fetch one jittered texel; the general tier "
+                       "filters bilinearly)")
     lights = getattr(scene, "lights", None)
     if lights is None:
-        return []
-    out = []
+        return out
     if {KIND_SPHERE, KIND_ENVQUAD} & lights.kinds:
         out.append("sphere or environment-quad lights (the general tier "
                    "samples them)")
@@ -117,8 +136,8 @@ def unsupported_features(scene, cfg, neeat_state=None, tier="auto",
                    "(prepare it first)")
     lights = getattr(scene, "lights", None)
     neeat = cfg.nee.value == NEEMode.NEEAT.value
-    if getattr(scene, "textures", None) is not None:
-        out.append("textures")
+    if alpha_tested(scene):
+        out.append("alpha-tested textures (opacity micromaps)")
     if getattr(scene, "tri_opacity", None) is not None or getattr(
             getattr(scene, "bvh", None), "tri_micro", None) is not None:
         out.append("opacity micromaps")
@@ -141,7 +160,7 @@ def unsupported_features(scene, cfg, neeat_state=None, tier="auto",
                    "render_adaptive makes one)")
     if kind == "xla" or tables is None:
         return out
-    out += general_only_features(scene, cfg)
+    out += general_only_features(scene, cfg, tables)
     if lights is not None and lights.env_light >= 0 and tables.env is None:
         out.append("an environment light without the tables' environment "
                    "table (prepare bakes it)")
@@ -152,6 +171,17 @@ def unsupported_features(scene, cfg, neeat_state=None, tier="auto",
             neeat or many or int(cfg.nee_candidates) > 1):
         out.append("external NEE without a light list")
     return out
+
+
+def alpha_tested(scene) -> bool:
+    """Whether a material with a base-colour texture has an alpha cutoff
+    (a prepared scene or a HostScene): the JAX package bakes opacity
+    micromaps for it (not ported)."""
+    mats = getattr(scene, "materials", None)
+    if getattr(scene, "textures", None) is None or mats is None:
+        return False
+    return bool(torch.any((mats.alpha_cutoff >= 0)
+                          & (mats.base_color_tex >= 0)))
 
 
 def _check_devices(scene, tables, neeat_state):
@@ -198,7 +228,7 @@ def resolve(scene, cfg, device, neeat_state=None, **call):
     kind, tables = _tables(scene, tier)
     _check_devices(scene, tables, neeat_state)
     if tier == "auto" and kind in ("fused", "clustered") and \
-            general_only_features(scene, cfg):
+            general_only_features(scene, cfg, tables):
         xla = _tables(scene, "xla")
         if xla[0] is not None:
             kind, tables = xla

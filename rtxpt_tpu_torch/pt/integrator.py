@@ -84,7 +84,7 @@ def trace_paths(scene, cfg, o, d, cone_spread, px, py, sample_idx,
                            first_direct=first_direct)
     if cfg.kernel_tier == "xla":
         return _wavefront(scene, cfg, o, d, px, py, sample_idx, neeat_state,
-                          first_emissive)
+                          first_emissive, cone_spread)
     if not first_emissive:
         raise NotImplementedError(f"first_emissive=False on the "
                                   f"{cfg.kernel_tier} tier is not ported")
@@ -100,10 +100,10 @@ def _where(cond, a, b):
 
 
 def _wavefront(scene, cfg, o, d, px, py, sample_idx, neeat_state=None,
-               first_emissive: bool = True):
+               first_emissive: bool = True, cone_spread=None):
     """The general BVH wavefront (rtxpt_tpu/pt/integrator.py trace_paths on
-    the "xla" tier, without textures, opacity micromaps, nested
-    priorities, split channels, aux buffers and the real-time arguments).
+    the "xla" tier, without opacity micromaps, nested priorities, split
+    channels, aux buffers and the real-time arguments).
     Every lane is traced at every bounce, inactive ones too, as in the JAX
     package.
 
@@ -113,7 +113,10 @@ def _wavefront(scene, cfg, o, d, px, py, sample_idx, neeat_state=None,
     two-level scene), the environment of the rays that miss (HandleMiss,
     with the MIS weight against the power / uniform environment pdf, or
     under NEE-AT against the tile mixture's uniform-uv strategy), the
-    medium's Beer-Lambert transmittance, the surface, the emission with
+    medium's Beer-Lambert transmittance, the surface (its texture maps at
+    the ray cone's MIP: bilinear, or with `cfg.stochastic_texture_filtering`
+    one jittered texel each, the uniforms from the EFFECT_STF seed), the
+    emission with
     its deferred MIS, NEE (uniform, power or NEE-AT over every light kind,
     WRS over `cfg.nee_candidates`), the BSDF scatter with the two-slot
     medium stack, and Russian roulette. With brute tables and
@@ -159,6 +162,12 @@ def _wavefront(scene, cfg, o, d, px, py, sample_idx, neeat_state=None,
     pend_dist = zeros(n)
     pend_mask = zeros(n, dtype=torch.bool)
     pend_tile = pend_li = None
+    # the ray cone: its width at the hit sets the texture MIP, its spread
+    # grows with each scatter lobe's roughness
+    cone_width = zeros(n)
+    if cone_spread is None:
+        cone_spread = zeros(n)
+    stf = cfg.stochastic_texture_filtering and scene.textures is not None
 
     for bounce in range(cfg.max_bounces + 1):
         # ----- closest hit (+ the previous bounce's shadow rays) -----
@@ -193,8 +202,14 @@ def _wavefront(scene, cfg, o, d, px, py, sample_idx, neeat_state=None,
         cur_ior = torch.where(in_medium, mp[m0, S.MP_IOR], 1.0)
         below_ior = torch.where(med1 >= 0,
                                 mp[torch.clamp(med1, min=0), S.MP_IOR], 1.0)
+        cone_width = cone_width + cone_spread * hit.t
+        stf_u = None
+        if stf:
+            seed_tx = rng.pixel_seed(px, py, bounce, EFFECT_STF)
+            stf_u = torch.stack(_lds(cfg, sample_idx, seed_tx, (0, 1)), -1)
         surf = load_surface(scene, hit, o, d, cur_ior=cur_ior,
-                            below_ior=below_ior)
+                            below_ior=below_ior, cone_width=cone_width,
+                            stf_u=stf_u)
         sigma = mp[m0, S.MP_VOLABS:S.MP_VOLABS + 3]
         thp = thp * torch.where(in_medium[:, None],
                                 torch.exp(-sigma * hit.t[:, None]), 1.0)
@@ -333,6 +348,8 @@ def _wavefront(scene, cfg, o, d, px, py, sample_idx, neeat_state=None,
             active = active & ~(u_rr >= p_cont)
             thp = thp / p_cont[:, None]
 
+        cone_spread = cone_spread + torch.sqrt(surf.bsdf.alpha) * 0.25 \
+            * (~bs["is_delta"]).to(f32)
         o = ray_offset(surf.pos, surf.geo_n, wi_world)
         d = wi_world
 

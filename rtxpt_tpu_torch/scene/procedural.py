@@ -1,7 +1,9 @@
 """Procedural test scenes (counterpart of rtxpt_tpu/scene/procedural.py):
 the Cornell box, the furnace box, the single triangle under one analytic
-light, the many-light rooms and the large-scene city (plain variant).
-The other scenes come with their slices.
+light, the many-light rooms, the large-scene city (also textured,
+normal-mapped and sky-lit), the textured Cornell box and the kitchen, with
+their procedural textures (checker, wood, ripple normal map). The other
+scenes come with their slices.
 
 Two instanced scenes have no counterpart in the JAX package's module: they
 are the constructions of its instancing tests, `instanced_boxes`
@@ -277,15 +279,10 @@ def city_scene(tri_budget: int = 350_000, seed: int = 0,
     boxes on a subdivided ground plane, lit by 24 emissive street panels
     and a directional sun. Deterministic in (tri_budget, seed, blocks);
     the triangle count lands within ~5% of tri_budget (339,888 at the
-    default 350,000). `with_env` adds the JAX package's sky (a 128 x 64
-    make_sky at half scale); `textured` and `normal_mapped` raise
-    NotImplementedError."""
-    for flag, name in ((textured, "textured"),
-                       (normal_mapped, "normal_mapped")):
-        if flag:
-            raise NotImplementedError(
-                f"city_scene({name}=True): textures and normal maps are "
-                f"not ported to rtxpt_tpu_torch yet")
+    default 350,000). `textured` gives the ground and two facade
+    families checker base-colour textures, `normal_mapped` gives the ground
+    the ripple normal map, `with_env` adds the JAX package's sky (a
+    128 x 64 make_sky at half scale)."""
     rng = np.random.default_rng(seed)
     nb = blocks * blocks
     # tris: ground 2*g^2 + nb * 12*s^2 + lights; solve s for the budget.
@@ -348,6 +345,25 @@ def city_scene(tri_budget: int = 350_000, seed: int = 0,
         instances=[MeshInstance(positions=pos, normals=nrm, uvs=uv,
                                 indices=idx, material=mat, name="city")],
         materials=mats, analytic_lights=sun)
+    if textured:
+        scene.textures = [
+            checker_texture(64, (0.95, 0.92, 0.88), (0.55, 0.52, 0.5)),
+            checker_texture(64, (0.85, 0.88, 0.95), (0.35, 0.4, 0.5),
+                            cells=16),
+        ]
+        bt = np.full((7,), -1, np.int32)
+        bt[0] = 0                       # ground
+        bt[1] = 1                       # facade family 1
+        bt[3] = 1
+        scene.materials = scene.materials.replace(
+            base_color_tex=torch.as_tensor(bt))
+    if normal_mapped:
+        scene.textures = (scene.textures or []) + [
+            ripple_normal_texture(64)]
+        nt = np.full((7,), -1, np.int32)
+        nt[0] = len(scene.textures) - 1   # bumpy ground
+        scene.materials = scene.materials.replace(
+            normal_tex=torch.as_tensor(nt))
     if with_env:
         from rtxpt_tpu_torch.lighting.sky import make_sky
         scene.envmap_image = make_sky(
@@ -357,6 +373,194 @@ def city_scene(tri_budget: int = 350_000, seed: int = 0,
     c = blocks * 5.0
     scene.camera = dict(position=[c - 18.0, 6.0, c + 26.0],
                         target=[c, 4.0, c],
+                        up=[0.0, 1.0, 0.0], fov_y_deg=55.0)
+    return scene
+
+
+def ripple_normal_texture(n: int = 64, amp: float = 0.6,
+                          waves: int = 4) -> np.ndarray:
+    """[n,n,4] tangent-space ripple normal map, ((n_ts)+1)/2 encoded: a
+    deterministic bump pattern."""
+    yy, xx = np.meshgrid(np.linspace(0, 1, n, endpoint=False),
+                         np.linspace(0, 1, n, endpoint=False),
+                         indexing="ij")
+    dzdx = amp * np.cos(2.0 * np.pi * waves * xx)
+    dzdy = amp * np.sin(2.0 * np.pi * waves * yy)
+    v = np.stack([-dzdx, -dzdy, np.ones_like(dzdx)], axis=-1)
+    v /= np.linalg.norm(v, axis=-1, keepdims=True)
+    img = np.empty((n, n, 4), np.float32)
+    img[..., :3] = (v + 1.0) * 0.5
+    img[..., 3] = 1.0
+    return img
+
+
+def checker_texture(n: int = 64, c0=(0.9, 0.9, 0.9), c1=(0.25, 0.25, 0.3),
+                    cells: int = 8) -> np.ndarray:
+    """[n,n,4] checkerboard (a power-of-two n: the kernels' texture path
+    takes power-of-two sizes, for exact MIP halving)."""
+    yy, xx = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+    m = ((xx * cells // n + yy * cells // n) % 2).astype(np.float32)
+    img = np.empty((n, n, 4), np.float32)
+    img[..., :3] = (np.asarray(c0, np.float32)[None, None] * (1 - m[..., None])
+                    + np.asarray(c1, np.float32)[None, None] * m[..., None])
+    img[..., 3] = 1.0
+    return img
+
+
+def wood_texture(n: int = 64, base=(0.45, 0.30, 0.17),
+                 dark=(0.30, 0.18, 0.09), rings: int = 10) -> np.ndarray:
+    """[n,n,4] deterministic wood-like ring texture (power-of-two n)."""
+    yy, xx = np.meshgrid(np.linspace(0, 1, n), np.linspace(0, 1, n),
+                         indexing="ij")
+    r = np.sqrt((xx - 0.3) ** 2 + 4.0 * (yy - 0.5) ** 2)
+    w = 0.5 + 0.5 * np.sin(2 * np.pi * rings * r
+                           + 2.0 * np.sin(6.0 * xx))
+    img = np.empty((n, n, 4), np.float32)
+    img[..., :3] = (np.asarray(base, np.float32)[None, None]
+                    * (1 - w[..., None])
+                    + np.asarray(dark, np.float32)[None, None]
+                    * w[..., None])
+    img[..., 3] = 1.0
+    return img
+
+
+def textured_cornell(with_env: bool = True, with_mr: bool = False,
+                     with_normal: bool = False,
+                     light_emission=(17.0, 12.0, 4.0)) -> HostScene:
+    """The Cornell box with a checker base-colour texture on the white
+    material, optionally a metal-rough texture on the tall box
+    (`with_mr`), the ripple normal map on the white material
+    (`with_normal`) and the procedural sky (`with_env`)."""
+    host = cornell_box(light_emission=light_emission)
+    host.textures = [checker_texture(64),
+                     checker_texture(32, (0.8, 0.8, 0.8), (0.4, 0.4, 0.4),
+                                     cells=4)]
+    bt = np.full((len(host.materials.base_color),), -1, np.int32)
+    bt[0] = 0                   # white walls and box get the checker
+    host.materials = host.materials.replace(
+        base_color_tex=torch.as_tensor(bt))
+    if with_mr:
+        mr = np.full_like(bt, -1)
+        mr[4] = 1
+        host.materials = host.materials.replace(
+            metal_rough_tex=torch.as_tensor(mr))
+    if with_normal:
+        host.textures = host.textures + [ripple_normal_texture(64)]
+        nt = np.full_like(bt, -1)
+        nt[0] = len(host.textures) - 1      # bumpy white walls and box
+        host.materials = host.materials.replace(
+            normal_tex=torch.as_tensor(nt))
+    if with_env:
+        from rtxpt_tpu_torch.lighting.sky import make_sky
+        host.envmap_image = make_sky(128, 64, sun_dir=(0.4, 0.5, 0.3),
+                                     sun_intensity=30.0, bake_sun=True)
+        host.envmap_scale = 0.4
+    return host
+
+
+def kitchen_scene(panel_grid: int = 16, subdiv: int = 3,
+                  with_env: bool = True) -> HostScene:
+    """A kitchen-class interior: a closed room with a window opening,
+    textured floor (checker) and counters (wood), mixed materials
+    (diffuse, metal, glass, ceramic) and a panel_grid^2 grid of emissive
+    ceiling panels (2 panel_grid^2 emissive triangles, 512 at the default
+    16: a many-light scene). 1,186 triangles at the defaults.
+
+    Materials: 0 wall, 1 floor (checker), 2 counter (wood), 3 metal,
+    4 glass, 5 panel (emissive), 6 ceramic, 7 dark accent."""
+    WALL, FLOOR, WOOD, METAL, GLASS, PANEL, CERAMIC, DARK = range(8)
+    W, H, D = 6.0, 3.0, 6.0
+    s = subdiv
+    g = _quad_grid
+    parts = [
+        # floor (+y normal), subdivided
+        g([0, 0, D], [W, 0, D], [W, 0, 0], [0, 0, 0], 4 * s, 4 * s, FLOOR),
+        # ceiling (-y)
+        g([0, H, 0], [W, H, 0], [W, H, D], [0, H, D], 2 * s, 2 * s, WALL),
+        # back wall (+z normal, at z=0)
+        g([0, 0, 0], [W, 0, 0], [W, H, 0], [0, H, 0], 2 * s, s, WALL),
+        # front wall (-z, at z=D)
+        g([W, 0, D], [0, 0, D], [0, H, D], [W, H, D], 2 * s, s, WALL),
+        # right wall (-x, at x=W)
+        g([W, 0, 0], [W, 0, D], [W, H, D], [W, H, 0], 2 * s, s, WALL),
+    ]
+    # left wall (x=0) with a window opening [z 2..4, y 1..2.2]: four quads
+    # around the hole, through which the environment enters
+    z0, z1, y0, y1 = 2.0, 4.0, 1.0, 2.2
+    parts += [
+        g([0, 0, D], [0, 0, 0], [0, y0, 0], [0, y0, D], 2 * s, 1, WALL),
+        g([0, y1, D], [0, y1, 0], [0, H, 0], [0, H, D], 2 * s, 1, WALL),
+        g([0, y0, z0], [0, y0, 0], [0, y1, 0], [0, y1, z0], s, 1, WALL),
+        g([0, y0, D], [0, y0, z1], [0, y1, z1], [0, y1, D], s, 1, WALL),
+    ]
+    # emissive ceiling panels, slightly below the ceiling, emitting down
+    m = panel_grid
+    px0, pz0, pw = 0.8, 0.8, (W - 1.6)
+    cell = pw / m
+    for i in range(m):
+        for j in range(m):
+            x = px0 + i * cell
+            z = pz0 + j * cell
+            e = 0.22 * cell
+            parts.append(_quad([x + e, H - 0.02, z + e],
+                               [x + cell - e, H - 0.02, z + e],
+                               [x + cell - e, H - 0.02, z + cell - e],
+                               [x + e, H - 0.02, z + cell - e], PANEL))
+    # counters along the back and right walls: wood tops, dark bases
+    parts += [
+        _box([0.2, 0.0, 0.2], [W - 0.2, 0.85, 0.85], DARK),
+        g([0.2, 0.86, 0.85], [W - 0.2, 0.86, 0.85],
+          [W - 0.2, 0.86, 0.2], [0.2, 0.86, 0.2], 4, 2, WOOD),
+        _box([W - 0.85, 0.0, 0.85], [W - 0.2, 0.85, D - 1.2], DARK),
+        g([W - 0.85, 0.86, D - 1.2], [W - 0.2, 0.86, D - 1.2],
+          [W - 0.2, 0.86, 0.85], [W - 0.85, 0.86, 0.85], 2, 4, WOOD),
+    ]
+    # fridge (metal), table (wood top, metal legs), glass splash panel,
+    # ceramic pots
+    parts += [
+        _box([0.25, 0.0, D - 1.5], [1.15, 2.0, D - 0.6], METAL),
+        g([2.2, 1.05, 4.2], [3.8, 1.05, 4.2],
+          [3.8, 1.05, 2.8], [2.2, 1.05, 2.8], 3, 3, WOOD),
+        _box([2.25, 0.0, 2.85], [2.4, 1.03, 3.0], METAL),
+        _box([3.6, 0.0, 2.85], [3.75, 1.03, 3.0], METAL),
+        _box([2.25, 0.0, 4.0], [2.4, 1.03, 4.15], METAL),
+        _box([3.6, 0.0, 4.0], [3.75, 1.03, 4.15], METAL),
+        _box([1.7, 0.86, 0.25], [2.9, 1.75, 0.33], GLASS),
+        _box([4.6, 0.86, 0.4], [4.95, 1.25, 0.75], CERAMIC),
+        _box([5.1, 0.86, 0.45], [5.35, 1.1, 0.7], CERAMIC),
+    ]
+    pos, nrm, uv, idx, mat = _merge(parts)
+
+    mats = _materials([
+        dict(base_color=[0.78, 0.77, 0.74], roughness=1.0),
+        dict(base_color=[1.0, 1.0, 1.0], roughness=0.8),
+        dict(base_color=[1.0, 1.0, 1.0], roughness=0.55),
+        dict(base_color=[0.9, 0.9, 0.92], metallic=1.0, roughness=0.25),
+        dict(base_color=[1.0, 1.0, 1.0], transmission=1.0, roughness=0.0,
+             ior=1.5, thin=1.0),
+        dict(base_color=[0.0, 0.0, 0.0], emissive=[22.0, 20.0, 17.0]),
+        dict(base_color=[0.92, 0.90, 0.86], roughness=0.12),
+        dict(base_color=[0.13, 0.12, 0.12], roughness=0.6),
+    ])
+    scene = HostScene(
+        instances=[MeshInstance(positions=pos, normals=nrm, uvs=uv,
+                                indices=idx, material=mat, name="kitchen")],
+        materials=mats)
+    scene.textures = [checker_texture(64, (0.92, 0.92, 0.9),
+                                      (0.2, 0.22, 0.26), cells=12),
+                      wood_texture(64)]
+    bt = np.full((8,), -1, np.int32)
+    bt[FLOOR] = 0
+    bt[WOOD] = 1
+    scene.materials = scene.materials.replace(
+        base_color_tex=torch.as_tensor(bt))
+    if with_env:
+        from rtxpt_tpu_torch.lighting.sky import make_sky
+        scene.envmap_image = make_sky(
+            128, 64, sun_dir=(-0.6, 0.5, 0.4), sun_intensity=60.0,
+            bake_sun=True)
+        scene.envmap_scale = 1.0
+    scene.camera = dict(position=[4.9, 1.7, 5.3], target=[2.2, 1.1, 1.8],
                         up=[0.0, 1.0, 0.0], fov_y_deg=55.0)
     return scene
 

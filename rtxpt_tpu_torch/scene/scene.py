@@ -76,6 +76,12 @@ class Materials:
     def replace(self, **kw) -> "Materials":
         return dataclasses.replace(self, **kw)
 
+    def to(self, device) -> "Materials":
+        """Every field on `device`."""
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self)})
+
 
 @dataclass(frozen=True)
 class Geometry:
@@ -134,9 +140,9 @@ class SceneData:
     # [T,25] v0v1v2|n0n1n2|uv012|mat (object space on a two-level scene)
     tri_pack: Optional[torch.Tensor] = None
     mat_pack: Optional[torch.Tensor] = None  # [M,18] material scalars
+    textures: Optional[object] = None        # textures.TextureAtlas
     # Features of the JAX package that this port does not serve yet; the
     # dispatch refuses a scene that sets them (pt/dispatch.py).
-    textures: Optional[object] = None
     tri_opacity: Optional[object] = None
     has_nested_priorities: bool = False
     tlas: Optional[object] = None            # tlas.TLAS (two-level scenes)

@@ -136,8 +136,19 @@ def test_city_camera_stands_inside_a_tower():
 
 @pytest.mark.parametrize("flag", ["textured", "normal_mapped"])
 def test_city_scene_refuses_unported_variants(flag):
-    with pytest.raises(NotImplementedError, match=flag):
-        TP.city_scene(4000, seed=1, blocks=2, **{flag: True})
+    """The city's textured and normal-mapped variants, refused until the
+    texture slice, are the JAX package's: the same textures and material
+    texture ids."""
+    jh = JP.city_scene(4000, seed=1, blocks=2, **{flag: True})
+    th = TP.city_scene(4000, seed=1, blocks=2, **{flag: True})
+    assert len(th.textures) == len(jh.textures) > 0
+    for a, b in zip(th.textures, jh.textures):
+        np.testing.assert_array_equal(a, b)
+    for field in ("base_color_tex", "normal_tex", "metal_rough_tex",
+                  "emissive_tex"):
+        np.testing.assert_array_equal(
+            getattr(th.materials, field).numpy(),
+            np.asarray(getattr(jh.materials, field)), err_msg=field)
 
 
 def test_city_scene_with_env_matches_jax():
@@ -494,7 +505,13 @@ def test_clustered_tier_refuses_unserved_features(city, case):
         scene = sky.replace(cluster_tables=dataclasses.replace(
             sky.cluster_tables, env=None))
     elif case == "textures":
-        scene = scene.replace(textures=object())
+        # a pinned clustered tier without stochastic texture filtering
+        # (the kernels' texture path); "auto" takes the general tier
+        textured = prepare(TP.city_scene(tri_budget=4000, seed=1, blocks=2,
+                                         textured=True), device="cpu")
+        assert dispatch.resolve(textured, cfg, "cpu").kernel_tier == "xla"
+        scene = textured
+        cfg = PathTracerConfig(kernel_tier="clustered")
     elif case == "priorities":
         scene = scene.replace(has_nested_priorities=True)
     elif case == "micromaps":

@@ -263,13 +263,16 @@ def test_city_render_runs_through_k3_k4_k5(city):
     assert torch.isfinite(hdr).all() and rays > 0
 
 
-def test_clustered_tier_refuses_unserved_feature_on_the_card(city):
-    _, scene = city
-    scene = scene.replace(textures=object())
+def test_clustered_tier_refuses_unserved_feature_on_the_card(city, gpu):
+    """A textured city pinned to the clustered tier without stochastic
+    texture filtering (the kernels' texture path) raises by name."""
+    scene = prepare(TP.city_scene(tri_budget=4000, seed=1, blocks=2,
+                                  textured=True), device=gpu)
     with pytest.raises(NotImplementedError,
-                       match="clustered tier does not serve: textures"):
-        dispatch.resolve(scene, PathTracerConfig(), scene.cluster_tables
-                         .device)
+                       match="clustered tier does not serve: textures "
+                             "without stochastic texture filtering"):
+        dispatch.resolve(scene, PathTracerConfig(kernel_tier="clustered"),
+                         gpu)
 
 
 def test_clustered_wrappers_refuse_tables_on_another_device(city):
@@ -565,5 +568,105 @@ def test_env_renders_count_their_launches(gpu, sky_city):
                           32, 24, spp=2)
     assert dict(kernels.launches) == dict(
         cluster_closest=2 * 4 * 2, cluster_shade_env=3 * 2,
+        cluster_shade_final=2, cluster_shadow=2 * 3 * 2)
+    assert torch.isfinite(hdr).all() and rays > 0
+
+
+def _textured_cornell(env=True):
+    """The textured Cornell box with every map: checker, metal-rough,
+    ripple normal map, and the light's emission textured."""
+    host = TP.textured_cornell(with_env=env, with_mr=True, with_normal=True)
+    host.materials = host.materials.replace(
+        emissive_tex=torch.tensor([-1, -1, -1, 1, -1], dtype=torch.int32))
+    return host
+
+
+@pytest.mark.parametrize("case", ["slot2_env", "slot2", "slot5_kitchen"])
+def test_k1_tex_matches_plain_version(gpu, case):
+    """K1's texture variant (tex_maps (1, 1, 1, 1) on the textured Cornell
+    box, with and without the sky; the kitchen's external slot 5 with its
+    SF_* rows) over three bounces of 4096 camera rays."""
+    if case == "slot5_kitchen":
+        host = TP.kitchen_scene()
+    else:
+        host = _textured_cornell(env=case.endswith("env"))
+    scene = prepare(host, device=gpu)
+    tbl = scene.bounce_tables
+    assert tbl.tex is not None
+    cfg = dispatch.resolve(scene, PathTracerConfig(
+        max_bounces=3, stochastic_texture_filtering=True), gpu)
+    kcfg = bf.KernelConfig.from_cfg(cfg)
+    assert kcfg.nee_mode == (5 if case == "slot5_kitchen" else 2)
+    name = bf.variant_name("bounce_fused", tbl.env is not None, False, True)
+    fs, is_ = _state(host, cfg, 64, gpu, 2)
+    for _ in range(3):
+        plain = bf.bounce_reference(fs, is_, tbl, kcfg, 2)
+        before = dict(kernels.launches)
+        kern = bf.bounce(fs, is_, tbl, kcfg, 2)
+        torch.cuda.synchronize()
+        assert kernels.launches[name] == before.get(name, 0) + 1
+        assert len(kern) == len(plain)
+        same = (kern[1] == plain[1]).all(0) & (kern[2][1] == plain[2][1])
+        assert same.float().mean() >= 0.999
+        _close_rows(kern, plain)
+        fs, is_ = plain[0], plain[1]
+
+
+@pytest.mark.parametrize("nee", ["POWER", "NEEAT"])
+def test_k4_tex_matches_plain_version(gpu, nee):
+    """K4's texture variant on the textured, normal-mapped sky city (nee
+    slot 2, and slot 3's export with its SF_* rows) over three bounces of
+    4096 lanes."""
+    host = TP.city_scene(tri_budget=4000, seed=1, blocks=2, textured=True,
+                         normal_mapped=True, with_env=True)
+    scene = prepare(host, device=gpu)
+    tbl = scene.cluster_tables
+    assert tbl.tex is not None and tbl.tex_maps == (1, 0, 0, 1)
+    cfg = PathTracerConfig(max_bounces=3, nee=NEEMode[nee],
+                           stochastic_texture_filtering=True)
+    kcfg = bf.KernelConfig.from_cfg(cfg)
+    fs, is_ = _state(host, cfg, 64, gpu, 2)
+    for _ in range(3):
+        ha, _ = BC.closest_paged(fs, is_, tbl, 64, 1, 1e27)
+        plain = BC.shade_reference(ha, fs, is_, tbl, kcfg, 2)
+        before = kernels.launches["cluster_shade_tex_env"]
+        kern = BC.shade(ha, fs, is_, tbl, kcfg, 2)
+        torch.cuda.synchronize()
+        assert kernels.launches["cluster_shade_tex_env"] == before + 1
+        assert len(kern) == len(plain) == (5 if nee == "NEEAT" else 4)
+        same = (kern[1] == plain[1]).all(0) & (kern[3][5] == plain[3][5])
+        assert same.float().mean() >= 0.999
+        _close_rows(kern, plain)
+        fs, is_ = plain[0], plain[1]
+
+
+def test_textured_renders_count_their_launches(gpu):
+    """A textured render with stochastic filtering runs the texture
+    variants (the final environment round stays untextured); without it a
+    textured scene renders on the general tier."""
+    host = _textured_cornell()
+    scene = prepare(host, device=gpu)
+    cam = TP.default_camera(host, 32, 32, device=gpu)
+    kernels.launches.clear()
+    hdr, _, rays = render(scene, cam, PathTracerConfig(
+        max_bounces=3, stochastic_texture_filtering=True), 32, 32, spp=2)
+    assert dict(kernels.launches) == dict(bounce_fused_tex_env=3 * 2,
+                                          bounce_fused_final=2)
+    assert torch.isfinite(hdr).all() and rays > 0
+    kernels.launches.clear()
+    hdr, _, _ = render(scene, cam, PathTracerConfig(max_bounces=3), 32, 32,
+                       spp=1)
+    assert set(kernels.launches) == {"brute_closest"}
+    assert torch.isfinite(hdr).all()
+    host = TP.city_scene(tri_budget=4000, seed=1, blocks=2, textured=True,
+                         normal_mapped=True, with_env=True)
+    scene = prepare(host, device=gpu)
+    kernels.launches.clear()
+    hdr, _, rays = render(scene, TP.default_camera(host, 32, 24, device=gpu),
+                          PathTracerConfig(max_bounces=3, cluster_kslots=16,
+                                           stochastic_texture_filtering=True),
+                          32, 24, spp=2)
+    assert dict(kernels.launches) == dict(
+        cluster_closest=2 * 4 * 2, cluster_shade_tex_env=3 * 2,
         cluster_shade_final=2, cluster_shadow=2 * 3 * 2)
     assert torch.isfinite(hdr).all() and rays > 0

@@ -37,7 +37,8 @@ SLICE_MODULES = [
     "rtxpt_tpu_torch.prepare", "rtxpt_tpu_torch.utils.rng",
     "rtxpt_tpu_torch.utils.math", "rtxpt_tpu_torch.utils.image",
     "rtxpt_tpu_torch.scene.scene", "rtxpt_tpu_torch.scene.camera",
-    "rtxpt_tpu_torch.scene.procedural", "rtxpt_tpu_torch.lighting.envmap",
+    "rtxpt_tpu_torch.scene.procedural", "rtxpt_tpu_torch.scene.textures",
+    "rtxpt_tpu_torch.lighting.envmap",
     "rtxpt_tpu_torch.lighting.lights_baker", "rtxpt_tpu_torch.pt.bsdf",
     "rtxpt_tpu_torch.pt.wide", "rtxpt_tpu_torch.pt.bounce_fused",
     "rtxpt_tpu_torch.pt.dispatch", "rtxpt_tpu_torch.pt.integrator",
@@ -241,7 +242,8 @@ def test_resolve_refuses_plain_tier_on_cuda(cornell):
 # tile state, WRS K > 1 and more than 128 lights, flat or instanced; a
 # pinned kernel tier does not serve NEE-AT with an environment light
 UNSERVED = {
-    "textures": ("cornell", dict(textures=object()), {}, "textures"),
+    "textures": ("cornell", "alpha_textures", {},
+                 "alpha-tested textures"),
     "micromaps": ("cornell", dict(tri_opacity=object()), {}, "micromaps"),
     "priorities": ("cornell", dict(has_nested_priorities=True), {},
                    "priorities"),
@@ -275,11 +277,24 @@ def test_resolve_refuses_unserved_features(cornell, small_city,
     if scene_kw == "no_table":
         scene = scene.replace(bounce_tables=dataclasses.replace(
             scene.bounce_tables, env=None))
+    elif scene_kw == "alpha_textures":
+        scene = _alpha_textured(scene)
     else:
         scene = scene.replace(**scene_kw)
     with pytest.raises(NotImplementedError, match="does not serve") as err:
         dispatch.resolve(scene, PathTracerConfig(**cfg_kw), device, state)
     assert name in str(err.value)
+
+
+def _alpha_textured(scene):
+    """The scene with a texture and an alpha-tested material that binds it
+    as base colour: the JAX package bakes opacity micromaps for it (not
+    ported), so every tier refuses it; textures themselves are served."""
+    mats = scene.materials
+    n = mats.alpha_cutoff.shape[0]
+    return scene.replace(textures=object(), materials=mats.replace(
+        alpha_cutoff=torch.full((n,), 0.5),
+        base_color_tex=torch.zeros((n,), dtype=torch.int32)))
 
 
 # cases that were refused before the environment slice and are served now:
@@ -401,7 +416,7 @@ def test_config_matches_jax_package():
 # the general tier ("xla"): case -> (scene fields, config fields, trace
 # arguments, the name the error gives)
 UNSERVED_XLA = {
-    "textures": (dict(textures=object()), {}, {}, "textures"),
+    "textures": ("alpha_textures", {}, {}, "alpha-tested textures"),
     "micromaps": ("tri_micro", {}, {}, "micromaps"),
     "priorities": (dict(has_nested_priorities=True), {}, {}, "priorities"),
     "split": ({}, dict(split_channels=True), {}, "split"),
@@ -424,6 +439,8 @@ def test_general_tier_refuses_unserved_features(cornell, case, device):
     if scene_kw == "tri_micro":
         scene = scene.replace(bvh=scene.bvh.replace(
             tri_micro=torch.zeros(scene.bvh.num_triangles)))
+    elif scene_kw == "alpha_textures":
+        scene = _alpha_textured(scene)
     else:
         scene = scene.replace(**scene_kw)
     cfg = PathTracerConfig(kernel_tier="xla", **cfg_kw)

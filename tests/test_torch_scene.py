@@ -185,11 +185,13 @@ def test_scene_from_numpy_renders_identically(cornell_scene):
 
 
 def test_scene_from_numpy_refuses_unported_parts(cornell_scene):
-    """Texture tables are not ported and raise by name; the environment
-    table (env_rows) is carried across (tests/test_torch_env.py)."""
+    """Opacity micromap tables are not ported and raise by name; the
+    environment table (env_rows) is carried across
+    (tests/test_torch_env.py), and so are the texture tables
+    (tests/test_torch_textures.py)."""
     tables = _jax_tables(cornell_scene[1])
-    tables["tex_ct"] = np.zeros((4 * 128, 8), np.float32)
-    with pytest.raises(NotImplementedError, match="tex_ct"):
+    tables["omm"] = True
+    with pytest.raises(NotImplementedError, match="omm"):
         scene_from_numpy(tables, device="cpu")
     tables = _jax_tables(cornell_scene[1])
     tables["env_rows"] = np.zeros((bp.EV_ROWS, 128), np.float32)
@@ -226,7 +228,13 @@ def test_prepare_refuses_unported_features(case, monkeypatch):
     host = TP.single_triangle("point")
     kw = {}
     if case == "textures":
+        # alpha-tested textures need opacity micromaps (not ported);
+        # textures themselves are served (tests/test_torch_textures.py)
         host.textures = [np.ones((4, 4, 4), np.float32)]
+        n = host.materials.alpha_cutoff.shape[0]
+        host.materials = host.materials.replace(
+            alpha_cutoff=torch.full((n,), 0.5),
+            base_color_tex=torch.zeros((n,), dtype=torch.int32))
     elif case == "too_many_tris":
         # above 2048 triangles the clustered tier takes the scene, up to
         # its device block budget (shrunk here so a small scene passes it)
@@ -234,5 +242,7 @@ def test_prepare_refuses_unported_features(case, monkeypatch):
         inst = host.instances[0]
         inst.indices = np.tile(inst.indices, (bf.MAX_TRIS + 1, 1))
         inst.material = np.zeros(len(inst.indices), np.int32)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError,
+                       match="opacity micromaps" if case == "textures"
+                       else None):
         prepare(host, device="cpu", **kw)

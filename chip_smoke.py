@@ -179,6 +179,34 @@ Phases, one or a few lines of output each:
                 profiled frame, cull_overflow); then the kitchen without
                 stochastic filtering on the general tier (bilinear, K8)
                 at 960x540, one timed sample. Every image must be finite.
+  14. alpha  -- opacity micromaps and alpha-tested geometry, stochastic
+                texture filtering on. Scenes (procedural.curtain_cornell):
+                the curtain Cornell box (one alpha-tested quad, an 8 x 8
+                checkerboard alpha), its 40 x 40 grid (64 x 64
+                checkerboard, 3,212 triangles) and the foliage card (160 x
+                160 grid, leaf_texture(64); the bake drops its TRANSPARENT
+                triangles). (a) K1's micromap variant (nee slot 2) and K2's
+                (on the requests of slot 5 and external_nee, each with its
+                alpha uniform) on the curtain against their plain versions
+                on 65,536 camera rays over the 1080p frame at bounces 0
+                and 2, phase 3's criteria (K2: occlusion and pair counts
+                equal), both timed at 2^18 rays; the registers of every K1
+                and K4 instantiation. (b) K3, K4 and K5's micromap variants
+                on the 40 x 40 curtain and the foliage as phase 6; K9 with
+                micromaps on the 40 x 40 curtain's BVH (closest and any
+                hit, visit and test counts equal), timed on 2^18 foliage
+                camera rays. Every comparison on the curtains has at least
+                5% of its lanes on MIXED triangles and 1% on UNKNOWN cells
+                (the foliage's shares are printed). (c) The full-size paths
+                at 1920x1080, 4 bounces plus the 2 pass-through
+                iterations, 1 warm-up and 2 timed samples: the curtain on
+                the fused tier under power NEE (8 chunks of 2^18) and NEE-AT
+                (render_adaptive: K1 and K2), the 40 x 40 curtain and the
+                foliage on the clustered tier; then the curtain without
+                filtering (K8 and the retrace) and the foliage (K9's walk
+                with micromaps) on the general tier at 960x540. Each path
+                prints its launch counts, the share of the shaded lanes
+                that passed through and one profiled frame.
 
 The line before the last holds {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Any failed phase, a missing GPU or a missing
@@ -258,6 +286,9 @@ K9_NODE_F32 = 29
 K9_TEST_F32 = 54
 GEN_CMP_SIDE = 256           # phase 10 comparisons: 65,536 rays
 GEN_CHUNK = 1 << 18          # the Cornell path's rays per chunk
+OMM_WORD_BYTES = 4           # a micromap word, or a coverage, per triangle
+MIXED_SHARE = 0.05           # phase 14: the least share of a comparison's
+UNKNOWN_SHARE = 0.01         # lanes on a MIXED triangle, an UNKNOWN cell
 
 
 def _fail(msg):
@@ -545,6 +576,9 @@ def main(record_path=None):
     # ---- 13. textures, normal maps, stochastic texture filtering -----------
     tex = _textures(record, dev, smi, dump)
 
+    # ---- 14. opacity micromaps and alpha-tested geometry -------------------
+    alpha = _alpha(record, dev, smi, dump)
+
     k1_paths = dict(cornell=cornell_launches["bounce_fused"],
                     **{k: v.get("bounce_fused", 0)
                        for k, v in ext["launches"].items()})
@@ -584,6 +618,7 @@ def main(record_path=None):
     entries.extend(instanced)
     entries.extend(env["entries"].values())
     entries.extend(tex["entries"].values())
+    entries.extend(alpha["entries"].values())
     # the texture paths' launches of kernels that earlier phases time
     tex_paths = dict(brute_closest=("kitchen_general",),
                      bounce_fused_final=("cornell", "kitchen"),
@@ -644,7 +679,8 @@ def _ptxas_entry(log, needle):
 
 
 def _cluster_kernel_checks(record, dev, smi, dump, label, host, scene,
-                           prep_s, pages_want, deep_bounces=(2,), stf=False):
+                           prep_s, pages_want, deep_bounces=(2,), stf=False,
+                           omm=False, floors=True):
     """K3, K4 and K5 (their instanced variants on instanced tables)
     against their plain versions, every page: at bounce 0 on 65,536 camera
     rays spread over the scene's 1080p frame, and at each of
@@ -653,9 +689,13 @@ def _cluster_kernel_checks(record, dev, smi, dump, label, host, scene,
     kernels; then each kernel timed at the 1080p bounce-0 launch beside
     its bound, and the plain versions at the comparison width. `stf`:
     stochastic texture filtering, so that K4 runs its texture variant on
-    tables with textures.
+    tables with textures. `omm` (tables with micromaps, with `stf`): the
+    micromap variants of K3, K4 and K5, and at each compared bounce at
+    least MIXED_SHARE of the lanes must hit a MIXED triangle and
+    UNKNOWN_SHARE an UNKNOWN (or near-edge) micro-cell (`floors`; the
+    shares are reported either way).
     Returns dict(scene=(host, scene, prepare seconds), kernels={name:
-    partial kernel-line entry})."""
+    partial kernel-line entry}, shares={bounce: (mixed, unknown)})."""
     import torch
 
     from rtxpt_tpu_torch import kernels
@@ -677,7 +717,15 @@ def _cluster_kernel_checks(record, dev, smi, dump, label, host, scene,
     kcfg = bf.KernelConfig.from_cfg(cfg)
     # K4's texture and environment variants on tables with them
     k4_tex = bf.use_tex(tbl, kcfg)
-    k4n = bf.variant_name("cluster_shade", tbl.env is not None, False, k4_tex)
+    if omm and not (tbl.omm and k4_tex):
+        _fail(f"{label}: the scene's tables run no micromap variants")
+    k4n = bf.variant_name("cluster_shade", tbl.env is not None, False, k4_tex,
+                          omm)
+    micro = dict(micro=tbl.omm_word) if omm else {}
+    micro_cov = dict(micro=tbl.omm_word, cover=tbl.omm_cov) if omm else {}
+    if omm:
+        k3n, k5n = k3n + "_omm", k5n + "_omm"
+    shares = {}
     kslots, pages = cfg.cluster_kslots, cfg.cluster_pages
     max_travel = float(cfg.max_ray_travel)
     bounds = BC.scene_bounds(tbl)
@@ -731,24 +779,27 @@ def _cluster_kernel_checks(record, dev, smi, dump, label, host, scene,
     kernel_closest, kernel_occlusion = BC.closest_hit, BC.occlusion
 
     def closest_both(cand, od, blocks, kslots_, max_travel_, noprune,
-                     xf=None):
+                     xf=None, micro=None):
         ha_p, vis_p = BC.closest_hit_reference(cand, od, blocks, kslots_,
                                                max_travel_, noprune, True,
-                                               xf=xf)
+                                               xf=xf, micro=micro)
         plain_in.setdefault("cand", cand)
         plain_in.setdefault("od", od)
         pairs["k3"].append((kernel_closest(
             cand, od, blocks, kslots_, max_travel_, noprune, True,
-            xf=xf), (ha_p, vis_p)))
+            xf=xf, micro=micro), (ha_p, vis_p)))
         return ha_p
 
-    def occluded_both(cand, shp_, blocks, kslots_, xf=None):
+    def occluded_both(cand, shp_, blocks, kslots_, xf=None, micro=None,
+                      cover=None):
         occ_p, tst_p = BC.occlusion_reference(cand, shp_, blocks, kslots_,
-                                              True, xf=xf)
+                                              True, xf=xf, micro=micro,
+                                              cover=cover)
         plain_in.setdefault("cand_s", cand)
         plain_in.setdefault("shp", shp_)
-        pairs["k5"].append((kernel_occlusion(cand, shp_, blocks, kslots_,
-                                             True, xf=xf), (occ_p, tst_p)))
+        pairs["k5"].append((kernel_occlusion(
+            cand, shp_, blocks, kslots_, True, xf=xf, micro=micro,
+            cover=cover), (occ_p, tst_p)))
         return occ_p
 
     def compare_at(b, fs, is_, rows):
@@ -760,17 +811,18 @@ def _cluster_kernel_checks(record, dev, smi, dump, label, host, scene,
         BC.closest_hit, BC.occlusion = closest_both, occluded_both
         try:
             ha_p, _ = BC.closest_paged(fs, is_, tbl, kslots, pages,
-                                       max_travel)
+                                       max_travel, omm=omm)
             ha_w = BC.post_attr_inst(ha_p, tbl)
-            sh_out = BC.shade_reference(ha_w, fs, is_, tbl, kcfg, sample)
+            sh_out = BC.shade_reference(ha_w, fs, is_, tbl, kcfg, sample,
+                                        omm=omm)
             plain_in.setdefault("ha", ha_w)
             plain_in.setdefault("fs", fs)
             plain_in.setdefault("is_", is_)
             shp, _ = BC.sort_shadows(sh_out[2], bounds)
-            BC.occluded_paged(shp, tbl, kslots, pages)
+            BC.occluded_paged(shp, tbl, kslots, pages, omm)
         finally:
             BC.closest_hit, BC.occlusion = kernel_closest, kernel_occlusion
-        k4 = BC.shade(ha_w, fs, is_, tbl, kcfg, sample)
+        k4 = BC.shade(ha_w, fs, is_, tbl, kcfg, sample, omm=omm)
         torch.cuda.synchronize()
         k3s = dict(int_lanes_equal=1.0, worst_float_row=1.0,
                    visits_equal=True, visits=0, pages=len(pairs["k3"]))
@@ -792,6 +844,16 @@ def _cluster_kernel_checks(record, dev, smi, dump, label, host, scene,
             err[k3n] = max(err[k3n], e3)
         hit = ha_p[BC.HA_PRIM] >= 0
         k3s["hit_share"] = float(hit.float().mean())
+        if omm:
+            # micromap exercise: winners on MIXED triangles, and on
+            # UNKNOWN or near-edge micro-cells (HA_UNK)
+            cls = scene.tri_opacity[torch.clamp(ha_p[BC.HA_PRIM],
+                                                min=0).long()]
+            act = is_[bf.IS_ACTIVE] > 0
+            mixed = float((hit & (cls == 1))[act].float().mean())
+            unk = float((ha_p[BC.HA_UNK] > 0.5)[act].float().mean())
+            k3s.update(mixed_share=mixed, unknown_share=unk)
+            shares[b] = (mixed, unk)
         if inst:
             k3s["instances_hit"] = int(torch.unique(
                 ha_p[BC.HA_INST][hit]).numel())
@@ -827,13 +889,21 @@ def _cluster_kernel_checks(record, dev, smi, dump, label, host, scene,
               and _state_ok(k4s)
               and shs["worst_float_row"] >= LANE_FRACTION
               and k5s["occ_lanes_equal"] >= LANE_FRACTION)
-        if not ok or k3s["hit_share"] < MIN_HIT_SHARE:
+        if omm:
+            print(f"{label} bounce {b}: MIXED share {k3s['mixed_share']:.4f}"
+                  f", UNKNOWN share {k3s['unknown_share']:.4f} of the active "
+                  f"lanes", flush=True)
+        low = omm and floors and (k3s["mixed_share"] < MIXED_SHARE
+                                  or k3s["unknown_share"] < UNKNOWN_SHARE)
+        if not ok or k3s["hit_share"] < MIN_HIT_SHARE or low:
             record[label] = rec
             dump()
             _fail(f"{label}: a kernel disagrees with its plain version at "
                   f"bounce {b}" if not ok else
                   f"{label}: bounce {b}'s comparison rows hit too little "
-                  f"({k3s['hit_share']:.4f} < {MIN_HIT_SHARE})")
+                  f"({k3s['hit_share']:.4f} < {MIN_HIT_SHARE})" if not low
+                  else f"{label}: bounce {b}'s rows exercise the micromaps "
+                  f"too little")
 
     fs, is_, src = camera_state(CMP_SIDE, CMP_SIDE)
     cmp_groups = fs.shape[1] // BC.FL
@@ -846,7 +916,8 @@ def _cluster_kernel_checks(record, dev, smi, dump, label, host, scene,
     fs, is_, src = camera_state(*CITY_FRAME)
     for b in range(max(deep_bounces) + 1):
         fs, is_, src = BC.sort_wavefront(fs, is_, src, b == 0, bounds)
-        ha, _ = BC.closest_paged(fs, is_, tbl, kslots, pages, max_travel)
+        ha, _ = BC.closest_paged(fs, is_, tbl, kslots, pages, max_travel,
+                                 omm=omm)
         if b in deep_bounces:
             run = torch.cumsum((ha[BC.HA_PRIM] >= 0).view(-1, BC.FL).sum(1),
                                0)
@@ -860,9 +931,9 @@ def _cluster_kernel_checks(record, dev, smi, dump, label, host, scene,
         if b == max(deep_bounces):
             break
         fs, is_, sh, _ = BC.shade(BC.post_attr_inst(ha, tbl), fs, is_, tbl,
-                                  kcfg, sample)
+                                  kcfg, sample, omm=omm)
         shp, perm = BC.sort_shadows(sh, bounds)
-        occ, _ = BC.occluded_paged(shp, tbl, kslots, pages)
+        occ, _ = BC.occluded_paged(shp, tbl, kslots, pages, omm)
         ok_nee = (sh[BC.SH_DO] > 0.5) \
             & (BC.unsort_rows(perm, occ[None])[0] < 0.5)
         fs = fs.clone()
@@ -873,12 +944,14 @@ def _cluster_kernel_checks(record, dev, smi, dump, label, host, scene,
     pin = plain_in
     plain_ms = {
         k3n: _cuda_ms(lambda: BC.closest_hit_reference(
-            pin["cand"], pin["od"], tbl.blocks, kslots, max_travel, xf=xf),
-            1),
+            pin["cand"], pin["od"], tbl.blocks, kslots, max_travel, xf=xf,
+            **micro), 1),
         k4n: _cuda_ms(lambda: BC.shade_reference(
-            pin["ha"], pin["fs"], pin["is_"], tbl, kcfg, sample), 3),
+            pin["ha"], pin["fs"], pin["is_"], tbl, kcfg, sample, omm=omm),
+            3),
         k5n: _cuda_ms(lambda: BC.occlusion_reference(
-            pin["cand_s"], pin["shp"], tbl.blocks, kslots, xf=xf), 1)}
+            pin["cand_s"], pin["shp"], tbl.blocks, kslots, xf=xf,
+            **micro_cov), 1)}
 
     # kernels timed at the 1080p bounce-0 launch
     fs, is_, src = camera_state(*CITY_FRAME)
@@ -888,17 +961,18 @@ def _cluster_kernel_checks(record, dev, smi, dump, label, host, scene,
     n = g * BC.FL
     ms = {}
     ms[k3n] = _cuda_ms(lambda: BC.closest_hit(
-        cand, od, tbl.blocks, kslots, max_travel, xf=xf), 3)
+        cand, od, tbl.blocks, kslots, max_travel, xf=xf, **micro), 3)
     ha, visits = BC.closest_hit(cand, od, tbl.blocks, kslots, max_travel,
-                                stats=True, xf=xf)
+                                stats=True, xf=xf, **micro)
     ha = BC.post_attr_inst(ha, tbl)
-    ms[k4n] = _cuda_ms(lambda: BC.shade(ha, fs, is_, tbl, kcfg, sample), 10)
-    sh = BC.shade(ha, fs, is_, tbl, kcfg, sample)[2]
+    ms[k4n] = _cuda_ms(lambda: BC.shade(ha, fs, is_, tbl, kcfg, sample,
+                                        omm=omm), 10)
+    sh = BC.shade(ha, fs, is_, tbl, kcfg, sample, omm=omm)[2]
     shp, cand_s = shadow_inputs(sh)
     ms[k5n] = _cuda_ms(lambda: BC.occlusion(
-        cand_s, shp, tbl.blocks, kslots, xf=xf), 3)
+        cand_s, shp, tbl.blocks, kslots, xf=xf, **micro_cov), 3)
     _, tests = BC.occlusion(cand_s, shp, tbl.blocks, kslots, stats=True,
-                            xf=xf)
+                            xf=xf, **micro_cov)
 
     # bounds at that launch: each input read once (the blocks' staged rows
     # once per distinct block, an instance's M10 once per distinct
@@ -907,7 +981,10 @@ def _cluster_kernel_checks(record, dev, smi, dump, label, host, scene,
     # pairs K5's lanes tested up to their first occluder, and on instanced
     # tables K3's map of the ray operand per lane and visit (XFORM_F32;
     # K5's map is left out, as its stats count pairs and not visits: a
-    # lower bound)
+    # lower bound). With micromaps, K3 also reads each distinct block's
+    # 128 words and K5 its words and coverages (OMM_WORD_BYTES per
+    # triangle each); the micro-cell decode of the candidates that pass
+    # the geometric test is left out (a lower bound)
     active_g = (is_[bf.IS_ACTIVE] > 0).view(g, BC.FL).sum(1)
     slots = torch.arange(kslots, device=dev)[None]
     base = BC.inst_base(kslots)
@@ -922,7 +999,8 @@ def _cluster_kernel_checks(record, dev, smi, dump, label, host, scene,
     k3_blocks, k3_insts = distinct(cand, k3_visited)
     hits = int((ha[BC.HA_PRIM] >= 0).sum())
     k3_bytes = 4 * (cand.numel() + od.numel() + ha.numel() + 42 * hits) \
-        + STAGED_BLOCK_BYTES * k3_blocks + XF_BYTES * k3_insts
+        + STAGED_BLOCK_BYTES * k3_blocks + XF_BYTES * k3_insts \
+        + (OMM_WORD_BYTES * 128 * k3_blocks if omm else 0)
     k3_visits = int((active_g * visits).sum())
     k3_pairs = k3_visits * 128
     k4_bytes = 4 * n * (BC.HA_ROWS + 2 * (bf.NF + bf.NI) + BC.SH_ROWS
@@ -933,8 +1011,9 @@ def _cluster_kernel_checks(record, dev, smi, dump, label, host, scene,
                                            + _numel(tbl.tex_meta)
                                            if k4_tex else 0))
     k5_blocks, k5_insts = distinct(cand_s, slots < cand_s[:, 0, :1])
-    k5_bytes = 4 * (cand_s.numel() + 9 * n) \
-        + STAGED_BLOCK_BYTES * k5_blocks + XF_BYTES * k5_insts
+    k5_bytes = 4 * (cand_s.numel() + (10 if omm else 9) * n) \
+        + STAGED_BLOCK_BYTES * k5_blocks + XF_BYTES * k5_insts \
+        + (2 * OMM_WORD_BYTES * 128 * k5_blocks if omm else 0)
     k5_pairs = int(tests.sum())
     map_ops = XFORM_F32 if inst else 0
     bounds_ms = {
@@ -953,9 +1032,9 @@ def _cluster_kernel_checks(record, dev, smi, dump, label, host, scene,
     libs = {k3n: kernels.CLUSTER_CLOSEST, k4n: kernels.CLUSTER_SHADE,
             k5n: kernels.CLUSTER_SHADOW}
     ptxas = {name: _ptxas_entry(lib.ptxas_log,
-                                ("ILb1E" if k4_tex else "ILb0E")
+                                f"ILb{int(k4_tex)}ELb{int(omm)}E"
                                 if name == k4n else
-                                ("ILb1E" if inst else "ILb0E"))
+                                f"ILb{int(inst)}ELb{int(omm)}E")
              for name, lib in libs.items()}
     rec.update(ms=ms, plain_ms=plain_ms, bounds=bounds_ms, launch=launch,
                ptxas=ptxas, prepare_s=prep_s, card=smi)
@@ -985,7 +1064,7 @@ def _cluster_kernel_checks(record, dev, smi, dump, label, host, scene,
                           bound_ms=bounds_ms[name][0],
                           bound_by=bounds_ms[name][1], library_ms=None)
                for name, (src_, rep) in meta.items()}
-    return dict(scene=(host, scene, prep_s), kernels=entries)
+    return dict(scene=(host, scene, prep_s), kernels=entries, shares=shares)
 
 
 def _city_parity(record, dev, dump, with_env=False, label="city_parity"):
@@ -2516,7 +2595,7 @@ def _textures(record, dev, smi, dump):
     # registers and spills of each K1 and K4 instantiation
     regs = {f"{lib}_{'tex' if t else 'plain'}": _ptxas_entry(
         getattr(kernels, attr).ptxas_log,
-        f"{lib}_kernelILb{int(t)}E")
+        f"{lib}_kernelILb{int(t)}ELb0E")
         for lib, attr in (("bounce_fused", "BOUNCE_FUSED"),
                           ("cluster_shade", "CLUSTER_SHADE"))
         for t in (False, True)}
@@ -2636,6 +2715,513 @@ def _textures(record, dev, smi, dump):
     return dict(entries=entries, launches=launches,
                 k3_err=checks["kernels"]["cluster_closest"]["max_abs_err"],
                 k5_err=checks["kernels"]["cluster_shadow"]["max_abs_err"])
+
+
+ALPHA_CHUNK = 1 << 18         # phase 14: the fused paths' rays per chunk
+ALPHA_SPP = 2                 # phase 14: timed samples of each full-size path
+ALPHA_GENERAL_FRAME = (960, 540)   # phase 14 (e): the general tier's frame
+ALPHA_K9_SIDE = 512           # phase 14: K9 timed on 512 x 512 rays
+
+
+def _alpha_hosts():
+    """Phase 14's scenes: the curtain Cornell box (one alpha-tested quad,
+    an 8 x 8 checkerboard alpha), its 40 x 40 grid (a 64 x 64
+    checkerboard; 3,212 triangles) and the foliage card (a 160 x 160 grid
+    textured with leaf_texture(64); 51,212 triangles before the bake drops
+    the TRANSPARENT ones)."""
+    from rtxpt_tpu_torch.scene.procedural import curtain_cornell, leaf_texture
+    return dict(curtain=curtain_cornell(True),
+                grid=curtain_cornell(True, grid=40),
+                foliage=curtain_cornell(True, grid=160,
+                                        texture=leaf_texture(64)))
+
+
+def _alpha_shares(scene, o, d, tmax):
+    """(MIXED share, UNKNOWN share) of the rays o, d [3, N] whose first
+    geometric hit (no alpha test) before tmax [N] lies on a MIXED triangle,
+    and on one of its UNKNOWN micro-cells."""
+    import torch
+
+    from rtxpt_tpu_torch.accel.traverse import intersect_closest
+    from rtxpt_tpu_torch.scene import omm
+
+    n = o.shape[1]
+    hit = intersect_closest(scene.bvh.replace(tri_micro=None),
+                            o.T.contiguous(), d.T.contiguous(),
+                            torch.zeros(n, device=o.device),
+                            tmax.contiguous())
+    prim = torch.clamp(hit.prim, min=0).long()
+    mixed = ~hit.miss & (scene.tri_opacity[prim] == omm.MIXED)
+    st = omm.micro_state(scene.tri_micromap[prim],
+                         omm.micro_index(hit.bary[:, 0], hit.bary[:, 1]))
+    unk = mixed & (st == omm.MICRO_UNKNOWN)
+    return float(mixed.float().mean()), float(unk.float().mean())
+
+
+def _passed_through(is_in, is_out):
+    """Lanes that passed through an alpha-tested surface: active before
+    and after the launch, their logical bounce kept."""
+    from rtxpt_tpu_torch.pt import bounce_fused as bf
+    return (is_in[bf.IS_ACTIVE] > 0) & (is_out[bf.IS_ACTIVE] > 0) \
+        & (is_out[bf.IS_LBOUNCE] == is_in[bf.IS_LBOUNCE])
+
+
+def _alpha(record, dev, smi, dump):
+    """Phase 14: opacity micromaps and alpha-tested geometry on every
+    tier. (a) K1's micromap variant (slot 2) and K2's (on the shadow
+    requests of slot 5 and external_nee) on the curtain Cornell box;
+    (b) K3, K4 and K5's micromap variants on the 40 x 40 curtain and the
+    foliage card as phase 6; K9 with micromaps on the 40 x 40 curtain's
+    BVH; every comparison at bounces 0 and 2 on 65,536 rays, with at
+    least MIXED_SHARE of its lanes on MIXED triangles and UNKNOWN_SHARE on
+    UNKNOWN cells; (c) the full-size paths at 1920x1080, 4 bounces,
+    stochastic filtering: the curtain on the fused tier under power NEE
+    and NEE-AT, the 40 x 40 curtain and the foliage on the clustered tier,
+    each with its launches (the two pass-through iterations included),
+    its share of lanes that passed through and one profiled frame; the
+    curtain at 960x540 without filtering and the foliage on the general
+    tier (K8 and the retrace; the K9 walk with micromaps). Returns
+    dict(entries {name: kernel-line entry}, launches {path: counts})."""
+    import torch
+
+    from rtxpt_tpu_torch import kernels
+    from rtxpt_tpu_torch.accel import traverse
+    from rtxpt_tpu_torch.config import NEEMode, PathTracerConfig
+    from rtxpt_tpu_torch.lighting import neeat as na
+    from rtxpt_tpu_torch.prepare import prepare
+    from rtxpt_tpu_torch.pt import bounce_clustered as BC
+    from rtxpt_tpu_torch.pt import bounce_fused as bf
+    from rtxpt_tpu_torch.pt import dispatch
+    from rtxpt_tpu_torch.pt.integrator import (
+        _pixel_grid, camera_rays, render, render_adaptive, render_sample)
+    from rtxpt_tpu_torch.pt.nee_external import external_nee
+    from rtxpt_tpu_torch.scene.procedural import default_camera
+
+    rec = {}
+    record["alpha"] = rec
+    w, h = CITY_FRAME
+    sample = 1
+    cfg = PathTracerConfig(max_bounces=4, nee=NEEMode.POWER,
+                           ray_chunk=ALPHA_CHUNK,
+                           stochastic_texture_filtering=True)
+    extra = cfg.passthrough_extra_iters
+    hosts = _alpha_hosts()
+    scenes, prep = {}, {}
+    for name, host in hosts.items():
+        t0 = time.perf_counter()
+        scenes[name] = prepare(host, device=dev)
+        torch.cuda.synchronize()
+        prep[name] = time.perf_counter() - t0
+        sc = scenes[name]
+        cls = torch.bincount(sc.tri_opacity.long(), minlength=3).tolist()
+        print(f"alpha: {name} {sc.geometry.num_triangles} triangles after "
+              f"the bake ({sum(len(i.indices) for i in host.instances)} "
+              f"before), classes opaque/mixed {cls[0]}/{cls[1]}, tier "
+              f"{dispatch.resolve(sc, cfg, dev).kernel_tier}, prepare "
+              f"{prep[name]:.2f}s", flush=True)
+
+    def camera_state(host, cfg_, cols, rows):
+        cam = default_camera(host, w, h, device=dev)
+        px, py = _pixel_grid(cols, rows, dev)
+        px, py = px * w // cols, py * h // rows
+        o, d, spread = camera_rays(cam, cfg_, px, py, sample)
+        return bf.initial_state(o, d, spread, px, py)
+
+    def floors(label, mixed, unk):
+        print(f"alpha {label}: MIXED share {mixed:.4f}, UNKNOWN share "
+              f"{unk:.4f}", flush=True)
+        if mixed < MIXED_SHARE or unk < UNKNOWN_SHARE:
+            dump()
+            _fail(f"alpha: {label}'s lanes exercise the micromaps too "
+                  f"little")
+        return dict(mixed_share=mixed, unknown_share=unk)
+
+    # ---- (a) K1 (slot 2) and K2 (slot 5's requests) on the curtain ----
+    curtain, ch = scenes["curtain"], hosts["curtain"]
+    tbl = curtain.bounce_tables
+    big = torch.full((CMP_SIDE * CMP_SIDE,), 1e27, device=dev)
+    k1_err = k2_err = 0.0
+    for slot, cfg_ in ((2, cfg), (5, dataclasses.replace(
+            cfg, nee_external=True))):
+        kcfg = bf.KernelConfig.from_cfg(cfg_)
+        if not (tbl.omm and bf.use_tex(tbl, kcfg)) or kcfg.nee_mode != slot:
+            _fail(f"alpha: the curtain does not run K1's micromap variant "
+                  f"in slot {slot}")
+        fs, is_ = camera_state(ch, cfg_, CMP_SIDE, CMP_SIDE)
+        for b in range(3):
+            plain = bf.bounce_reference(fs, is_, tbl, kcfg, sample)
+            if b in (0, 2):
+                act = is_[bf.IS_ACTIVE] > 0
+                share = floors(f"k1 slot {slot} bounce {b}", *_alpha_shares(
+                    curtain, fs[bf.FS_O:bf.FS_O + 3][:, act],
+                    fs[bf.FS_D:bf.FS_D + 3][:, act], big[act]))
+                share["passed_through"] = float(_passed_through(
+                    is_, plain[1]).float().mean())
+                if slot == 2:
+                    kern = bf.bounce(fs, is_, tbl, kcfg, sample)
+                    torch.cuda.synchronize()
+                    summary, err = _compare_state(kern, plain)
+                    k1_err = max(k1_err, err)
+                    summary.update(share)
+                    rec[f"k1_bounce{b}"] = summary
+                    print(f"alpha k1 bounce {b}: int lanes equal "
+                          f"{summary['int_lanes_equal']:.6f}, worst float "
+                          f"row {summary['worst_float_row']:.6f}, L mean "
+                          f"{summary['L_mean_kernel']:.6f} vs "
+                          f"{summary['L_mean_plain']:.6f}, max abs err "
+                          f"{err:.3g}, passed through "
+                          f"{share['passed_through']:.4f}", flush=True)
+                    if not _state_ok(summary):
+                        dump()
+                        _fail(f"alpha: K1's micromap variant disagrees "
+                              f"with its plain version at bounce {b}")
+                else:
+                    res = external_nee(
+                        curtain, cfg_, None, plain[3], fs[bf.FS_D:bf.FS_D + 3],
+                        plain[2][5] > 0.5, fs[bf.FS_PREVPDF],
+                        is_[bf.IS_PREVDELTA] > 0, is_[bf.IS_PX],
+                        is_[bf.IS_PY], sample, b, lb=is_[bf.IS_LBOUNCE])
+                    ua = bf.alpha_uniform(cfg_, is_[bf.IS_PX], is_[bf.IS_PY],
+                                          is_[bf.IS_LBOUNCE], sample)
+                    sh = bf.shadow_requests(res["shadow_o"], res["shadow_d"],
+                                            res["sdist"], res["do_nee"], ua)
+                    req = sh[bf.SR_DO] > 0.5
+                    sshare = floors(f"k2 bounce {b}", *_alpha_shares(
+                        curtain, sh[bf.SR_O:bf.SR_O + 3][:, req],
+                        sh[bf.SR_D:bf.SR_D + 3][:, req], sh[bf.SR_DIST][req]))
+                    occ_k, tst_k = bf.occlusion(tbl, sh, stats=True)
+                    occ_p, tst_p = bf.occlusion_reference(tbl, sh, stats=True)
+                    torch.cuda.synchronize()
+                    same = float((occ_k == occ_p)[req].float().mean())
+                    k2_err = max(k2_err, float((occ_k - occ_p).abs().max()))
+                    rec[f"k2_bounce{b}"] = dict(
+                        occ_lanes_equal=same,
+                        tests_equal=bool(torch.equal(tst_k, tst_p)),
+                        requests=int(req.sum()),
+                        occluded=float(occ_p[req].mean()), **sshare)
+                    print(f"alpha k2 bounce {b}: occlusion equal {same:.6f} "
+                          f"over {int(req.sum())} requests (occluded "
+                          f"{float(occ_p[req].mean()):.4f}), tests equal "
+                          f"{rec[f'k2_bounce{b}']['tests_equal']}",
+                          flush=True)
+                    if same < LANE_FRACTION or \
+                            not rec[f"k2_bounce{b}"]["tests_equal"]:
+                        dump()
+                        _fail(f"alpha: K2's micromap variant disagrees with "
+                              f"its plain version at bounce {b}")
+            fs, is_ = plain[0], plain[1]
+    # both timed at the fused path's launch width: 2^18 camera rays,
+    # bounce 0; K2 on slot 5's requests of the same rays
+    side_t = int(round(RAYS_TIMED ** 0.5))
+    fs_t, is_t = camera_state(ch, cfg, side_t, side_t)
+    n = fs_t.shape[1]
+    kcfg = bf.KernelConfig.from_cfg(cfg)
+    active = int((is_t[bf.IS_ACTIVE] > 0).sum())
+    k1_ms = _cuda_ms(lambda: bf.bounce(fs_t, is_t, tbl, kcfg, sample), 10)
+    k1_plain = _cuda_ms(lambda: bf.bounce_reference(fs_t, is_t, tbl, kcfg,
+                                                    sample), 2)
+    # as phase 13, with the micromap words and coverages (OMM_WORD_BYTES
+    # each per triangle) among the tables read once; the MIP-0 alpha fetch
+    # reads the same atlas
+    tables_bytes = 4 * sum(t.numel() for t in (
+        tbl.tri_coef, tbl.attr_rows, tbl.mat_rows, tbl.light_rows, tbl.tex,
+        tbl.tex_meta, tbl.tri_micro, tbl.tri_cover))
+    k1_bound, k1_by, _ = _bound(
+        4 * n * (2 * (bf.NF + bf.NI) + bf.NH) + tables_bytes,
+        f32=active * tbl.n_tris * K1_PAIR_F32)
+    kcfg5 = bf.KernelConfig.from_cfg(dataclasses.replace(cfg,
+                                                         nee_external=True))
+    out5 = bf.bounce(fs_t, is_t, tbl, kcfg5, sample)
+    res = external_nee(curtain, dataclasses.replace(cfg, nee_external=True),
+                       None, out5[3], fs_t[bf.FS_D:bf.FS_D + 3],
+                       out5[2][5] > 0.5, fs_t[bf.FS_PREVPDF],
+                       is_t[bf.IS_PREVDELTA] > 0, is_t[bf.IS_PX],
+                       is_t[bf.IS_PY], sample, 0, lb=is_t[bf.IS_LBOUNCE])
+    sh_t = bf.shadow_requests(
+        res["shadow_o"], res["shadow_d"], res["sdist"], res["do_nee"],
+        bf.alpha_uniform(cfg, is_t[bf.IS_PX], is_t[bf.IS_PY],
+                         is_t[bf.IS_LBOUNCE], sample))
+    k2_ms = _cuda_ms(lambda: bf.occlusion(tbl, sh_t), 20)
+    k2_plain = _cuda_ms(lambda: bf.occlusion_reference(tbl, sh_t), 2)
+    _, tests = bf.occlusion(tbl, sh_t, stats=True)
+    k2_pairs = int(tests.sum())
+    k2_bound, k2_by, _ = _bound(
+        n * (SR_BYTES + 4) + 4 * (tbl.tri_coef.numel() + tbl.tri_micro.numel()
+                                  + tbl.tri_cover.numel()),
+        f32=k2_pairs * K1_PAIR_F32)
+    rec["k1"] = dict(ms=k1_ms, plain_ms=k1_plain, bound_ms=k1_bound,
+                     bound_by=k1_by, rays=n)
+    rec["k2"] = dict(ms=k2_ms, plain_ms=k2_plain, bound_ms=k2_bound,
+                     bound_by=k2_by, rays=n, pairs=k2_pairs,
+                     requests=int((sh_t[bf.SR_DO] > 0.5).sum()))
+    print(f"alpha k1: kernel {k1_ms:.4f} ms per {n}-ray launch, plain "
+          f"{k1_plain:.4f} ms, bound {k1_bound:.4f} ms ({k1_by}); k2: "
+          f"kernel {k2_ms:.4f} ms ({rec['k2']['requests']} requests, "
+          f"{k2_pairs} pairs), plain {k2_plain:.4f} ms, bound "
+          f"{k2_bound:.4f} ms ({k2_by}) ({smi})", flush=True)
+    rec["ptxas"] = {
+        f"{lib}_{'omm' if o else 'plain'}_{'tex' if t else 'notex'}":
+            _ptxas_entry(getattr(kernels, attr).ptxas_log,
+                         f"{lib}_kernelILb{int(t)}ELb{int(o)}E")
+        for lib, attr in (("bounce_fused", "BOUNCE_FUSED"),
+                          ("cluster_shade", "CLUSTER_SHADE"))
+        for t in (False, True) for o in (False, True)}
+    print(f"alpha ptxas: {json.dumps(rec['ptxas'])}", flush=True)
+    dump()
+
+    # ---- (b) K3, K4, K5 on the clustered scenes; K9 ----
+    # The foliage's bake leaves few MIXED triangles (its texels' edges fall
+    # on the 160 x 160 grid's cell edges, so whole triangles are opaque or
+    # transparent, and no cell is UNKNOWN): its comparison reports the
+    # shares, the 40 x 40 curtain's holds them to the floors.
+    checks = {}
+    for name, pages in (("grid", 1), ("foliage", 2)):
+        checks[name] = _cluster_kernel_checks(
+            record, dev, smi, dump, f"alpha_{name}", hosts[name],
+            scenes[name], prep[name], pages, stf=True, omm=True,
+            floors=name == "grid")
+    grid = scenes["grid"]
+    bvh = grid.bvh
+    k9 = dict(err=0.0)
+    fs, is_ = camera_state(hosts["grid"], cfg, CMP_SIDE, CMP_SIDE)
+    gcfg = dispatch.resolve(grid, cfg, dev)
+    gk = bf.KernelConfig.from_cfg(gcfg)
+    src = torch.arange(fs.shape[1], dtype=torch.int32, device=dev)
+    bounds_g = BC.scene_bounds(grid.cluster_tables)
+    for b in range(3):
+        o3 = fs[bf.FS_O:bf.FS_O + 3].T.contiguous()
+        d3 = fs[bf.FS_D:bf.FS_D + 3].T.contiguous()
+        if b in (0, 2):
+            act = is_[bf.IS_ACTIVE] > 0
+            nb = o3.shape[0]
+            tmin = torch.zeros(nb, device=dev)
+            tmax = torch.full((nb,), 1e27, device=dev)
+            share = floors(f"k9 bounce {b}", *_alpha_shares(
+                grid, o3.T[:, act], d3.T[:, act], tmax[act]))
+            for any_hit in (False, True):
+                kern = traverse.walk(bvh, o3, d3, tmin, tmax, any_hit, True)
+                plain = traverse._traverse(bvh, o3, d3, tmin, tmax, any_hit,
+                                           True)
+                torch.cuda.synchronize()
+                same = kern["prim"] == plain["prim"]
+                summ, err = _compare(
+                    dict(t=kern["t"][None], uv=kern["uv"].T),
+                    dict(t=plain["t"][None], uv=plain["uv"].T), same)
+                summ.pop("float_rows")
+                summ.update(counts_equal=bool(
+                    torch.equal(kern["visits"], plain["visits"])
+                    and torch.equal(kern["tests"], plain["tests"])), **share)
+                k9["err"] = max(k9["err"], err)
+                key = f"k9_{'any' if any_hit else 'closest'}_bounce{b}"
+                rec[key] = summ
+                print(f"alpha {key}: prims equal "
+                      f"{summ['int_lanes_equal']:.6f}, worst t/uv row "
+                      f"{summ['worst_float_row']:.6f}, visit and test counts "
+                      f"equal {summ['counts_equal']}", flush=True)
+                if summ["int_lanes_equal"] < LANE_FRACTION or \
+                        summ["worst_float_row"] < LANE_FRACTION or \
+                        not summ["counts_equal"]:
+                    dump()
+                    _fail(f"alpha: K9's micromap test disagrees with its "
+                          f"plain version at bounce {b}")
+        # carry the rays on by the clustered kernels
+        fs, is_, src = BC.sort_wavefront(fs, is_, src, b == 0, bounds_g)
+        ha, _ = BC.closest_paged(fs, is_, grid.cluster_tables,
+                                 gcfg.cluster_kslots, gcfg.cluster_pages,
+                                 float(gcfg.max_ray_travel), omm=True)
+        fs, is_ = BC.shade(ha, fs, is_, grid.cluster_tables, gk, sample,
+                           omm=True)[:2]
+    # K9 timed on 512 x 512 camera rays of the foliage, whose BVH the
+    # foliage path walks; bound from its visit and test counts
+    fol = scenes["foliage"]
+    fs_k, _ = camera_state(hosts["foliage"], cfg, ALPHA_K9_SIDE,
+                           ALPHA_K9_SIDE)
+    o9 = fs_k[bf.FS_O:bf.FS_O + 3].T.contiguous()
+    d9 = fs_k[bf.FS_D:bf.FS_D + 3].T.contiguous()
+    n9 = o9.shape[0]
+    t0_9 = torch.zeros(n9, device=dev)
+    t1_9 = torch.full((n9,), 1e27, device=dev)
+    k9_ms = _cuda_ms(lambda: traverse.walk(fol.bvh, o9, d9, t0_9, t1_9), 10)
+    k9_plain = _cuda_ms(lambda: traverse._traverse(fol.bvh, o9, d9, t0_9,
+                                                   t1_9, False), 1)
+    st9 = traverse.walk(fol.bvh, o9, d9, t0_9, t1_9, stats=True)
+    visits, tests9 = int(st9["visits"].sum()), int(st9["tests"].sum())
+    k9_bound, k9_by, _ = _bound(
+        n9 * RAY_BYTES + 4 * (fol.bvh.nodes.numel()
+                              + fol.bvh.tri_micro.numel()),
+        f32=visits * K9_NODE_F32 + tests9 * K9_TEST_F32)
+    rec["k9"] = dict(ms=k9_ms, plain_ms=k9_plain, bound_ms=k9_bound,
+                     bound_by=k9_by, rays=n9, visits=visits, tests=tests9)
+    print(f"alpha k9 (foliage BVH, {fol.bvh.num_nodes} nodes): kernel "
+          f"{k9_ms:.4f} ms per {n9}-ray closest-hit launch ({visits} visits, "
+          f"{tests9} tests), plain {k9_plain:.2f} ms, bound {k9_bound:.4f} "
+          f"ms ({k9_by}) ({smi})", flush=True)
+    dump()
+
+    # ---- (c) the full-size paths ----
+    from torch.profiler import ProfilerActivity, profile
+
+    def passthrough_share(run):
+        """Share of the lanes of one (untimed) frame's kernel launches that
+        passed through, counted around the shading kernels' wrappers."""
+        counts = [0, 0]
+        k1_, k4_ = bf.bounce, BC.shade
+
+        def count(is_in, out):
+            counts[0] += int(_passed_through(is_in, out[1]).sum())
+            counts[1] += int((is_in[bf.IS_ACTIVE] > 0).sum())
+            return out
+
+        bf.bounce = lambda fs_, is__, *a, **k: count(is__, k1_(
+            fs_, is__, *a, **k))
+        BC.shade = lambda ha_, fs_, is__, *a, **k: count(is__, k4_(
+            ha_, fs_, is__, *a, **k))
+        try:
+            run()
+        finally:
+            bf.bounce, BC.shade = k1_, k4_
+        return counts[0] / max(counts[1], 1)
+
+    def path(label, scene, host, cfg_, tier, want, adaptive=False,
+             frame=(w, h), profile_parts=()):
+        fw, fh = frame
+        cam = default_camera(host, fw, fh, device=dev)
+        state = None
+
+        def run(spp_, first):
+            if adaptive:
+                return render_adaptive(scene, cam, cfg_, fw, fh, spp_,
+                                       first_sample=first)
+            return render(scene, cam, cfg_, fw, fh, spp_, first_sample=first)
+        run(1, 0)                                               # warm-up
+        torch.cuda.synchronize()
+        kernels.launches.clear()
+        t0 = time.perf_counter()
+        hdr, state, rays = run(ALPHA_SPP, 1)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launched = dict(kernels.launches)
+        resolved = dispatch.resolve(scene, cfg_, dev,
+                                    state if adaptive else None)
+        p = dict(res=f"{fw}x{fh}", spp_timed=ALPHA_SPP,
+                 bounces=cfg_.max_bounces, launches=launched, expected=want,
+                 rays=int(rays), seconds=dt,
+                 mrays_per_s=int(rays) / dt / 1e6,
+                 ms_per_frame_1spp=dt / ALPHA_SPP * 1e3,
+                 L_mean=float(hdr.mean()),
+                 finite=bool(torch.isfinite(hdr).all()),
+                 tier=resolved.kernel_tier, card=smi)
+        if tier != "xla":
+            p["passed_through"] = passthrough_share(lambda: run(1, 9))
+        if profile_parts:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                if adaptive:
+                    out = render_sample(scene, cam, cfg_, fw, fh, 7,
+                                        neeat_state=state)
+                    na.update(state, out["neeat_hist"])
+                else:
+                    out = render_sample(scene, cam, cfg_, fw, fh, 7)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            if "cull_overflow" in out:
+                p["cull_overflow_profiled_frame"] = int(out["cull_overflow"])
+            p["split"], p["profile_table"] = _split(prof, wall,
+                                                    *profile_parts)
+        rec[f"path_{label}"] = p
+        print(f"alpha path {label}: {p['ms_per_frame_1spp']:.3f} ms per "
+              f"1-spp {fw}x{fh} frame, {p['mrays_per_s']:.3f} Mrays/s, "
+              f"{p['rays']} rays, launches {launched}"
+              + (f" of {want}" if want else "")
+              + (f", passed through {p['passed_through']:.4f} of the shaded "
+                 f"lanes" if "passed_through" in p else "")
+              + (f", cull_overflow {p['cull_overflow_profiled_frame']}"
+                 if "cull_overflow_profiled_frame" in p else "")
+              + f", mean L {p['L_mean']:.5f}"
+              + (f", split {json.dumps(p['split'])}" if "split" in p else "")
+              + f" ({smi})", flush=True)
+        bad = not p["finite"] or p["L_mean"] <= 0.0 or p["tier"] != tier
+        if want is not None:
+            bad = bad or launched != want
+        if bad:
+            dump()
+            _fail(f"alpha: the {label} path did not run its kernels as "
+                  f"expected or gave non-finite values")
+        return launched
+
+    rounds = cfg.max_bounces + extra
+    launches = {}
+    chunks = -(-(w * h) // ALPHA_CHUNK)
+    fused_parts = (("camera",), (("k1", "bounce_fused_kernel"),))
+    launches["fused"] = path(
+        "fused", curtain, ch, cfg, "fused",
+        dict(bounce_fused_omm_tex=chunks * rounds * ALPHA_SPP),
+        profile_parts=fused_parts)
+    cfg_at = dataclasses.replace(cfg, nee=NEEMode.NEEAT)
+    launches["fused_neeat"] = path(
+        "fused_neeat", curtain, ch, cfg_at, "fused",
+        dict(bounce_fused_omm_tex=chunks * rounds * ALPHA_SPP,
+             shadow_occlusion_omm=chunks * rounds * ALPHA_SPP),
+        adaptive=True, profile_parts=(("camera", "nee", "feedback"), (
+            ("k1", "bounce_fused_kernel"),
+            ("k2", "shadow_occlusion_kernel"))))
+    ccfg = dataclasses.replace(cfg, ray_chunk=1 << 30)
+    for name in ("grid", "foliage"):
+        pages = dispatch.resolve(scenes[name], ccfg, dev).cluster_pages
+        launches[name] = path(
+            name, scenes[name], hosts[name], ccfg, "clustered",
+            dict(cluster_closest_omm=pages * rounds * ALPHA_SPP,
+                 cluster_shade_omm_tex=rounds * ALPHA_SPP,
+                 cluster_shadow_omm=pages * rounds * ALPHA_SPP),
+            profile_parts=(CITY_RANGES, CITY_KERNELS))
+    gcfg = PathTracerConfig(max_bounces=4, nee=NEEMode.POWER,
+                            ray_chunk=1 << 30)
+    gen_parts = ((), (("k8", "brute_closest_kernel"),
+                      ("k9", "bvh_traverse_kernel")))
+    for name, kernel in (("curtain", "brute_closest"),
+                         ("foliage", "bvh_traverse_omm")):
+        launched = path(f"{name}_general", scenes[name], hosts[name], gcfg,
+                        "xla", None, frame=ALPHA_GENERAL_FRAME,
+                        profile_parts=gen_parts)
+        # each bounce's query and the retraces of its rejected hits
+        if set(launched) != {kernel} or \
+                launched[kernel] < (gcfg.max_bounces + 1) * ALPHA_SPP:
+            dump()
+            _fail(f"alpha: the {name} on the general tier did not run "
+                  f"{kernel}")
+        launches[f"{name}_general"] = launched
+    dump()
+
+    srcs = "rtxpt_tpu_torch/csrc/"
+
+    def used(name):
+        return {k: v.get(name, 0) for k, v in launches.items()
+                if v.get(name, 0)}
+
+    entries = {}
+    for name, src_, rep_, r, err in (
+            ("bounce_fused_omm_tex", "bounce_fused.cu",
+             "rtxpt_tpu/pt/bounce_pallas.py:1389", rec["k1"], k1_err),
+            ("shadow_occlusion_omm", "shadow_occlusion.cu",
+             "rtxpt_tpu/pt/bounce_pallas.py:1573", rec["k2"], k2_err),
+            ("bvh_traverse_omm", "bvh_traverse.cu",
+             "rtxpt_tpu/accel/traverse_pallas.py:54", rec["k9"], k9["err"])):
+        by_path = used(name)
+        entries[name] = dict(
+            name=name, route="cuda", source=srcs + src_, replaces=rep_,
+            launches=sum(by_path.values()), launches_by_path=by_path,
+            max_abs_err=err, ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None)
+    for name, entry in checks["grid"]["kernels"].items():
+        by_path = used(name)
+        err = max(entry["max_abs_err"],
+                  checks["foliage"]["kernels"][name]["max_abs_err"])
+        entries[name] = dict(entry, max_abs_err=err,
+                             launches=sum(by_path.values()),
+                             launches_by_path=by_path,
+                             foliage=checks["foliage"]["kernels"][name])
+    return dict(entries=entries, launches=launches)
 
 
 def _write_record(record, path):

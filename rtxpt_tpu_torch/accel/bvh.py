@@ -38,8 +38,8 @@ class ThreadedBVH:
     tri_e1: torch.Tensor      # [T,3] f32 (v1 - v0)
     tri_e2: torch.Tensor      # [T,3] f32 (v2 - v0)
     prim_tri: torch.Tensor    # [T] i32 packed index -> original triangle id
-    # opacity micromaps in packed order (the JAX package's OMM walk): not
-    # served by the port; dispatch refuses a BVH that sets them
+    # [T] i32 opacity micromap words (u32 bits) in packed order: the walk
+    # rejects micro-TRANSPARENT hits (scene/omm.py); None without
     tri_micro: Optional[torch.Tensor] = None
 
     @property
@@ -81,18 +81,21 @@ def bvh_from_numpy(fields: dict, device="cuda") -> ThreadedBVH:
     """ThreadedBVH on `device` (the GPU by default) from the JAX package's
     ThreadedBVH fields as numpy arrays (nodes, prim_tri, tri_v0, tri_e1,
     tri_e2, and brute: None or the BruteTris fields e1_t, e2_t, n_t,
-    v0xe2_t, v0xe1_t, v0n). Opacity micromaps (tri_micro) must be absent
-    or None."""
+    v0xe2_t, v0xe1_t, v0n; tri_micro: None or the micromap words in leaf
+    order)."""
     import rtxpt_tpu_torch
     from rtxpt_tpu_torch.accel.brute import brute_from_fields
 
     device = rtxpt_tpu_torch.device(device)
-    if fields.get("tri_micro") is not None:
-        raise NotImplementedError("BVH opacity micromaps are not ported to "
-                                  "rtxpt_tpu_torch yet")
     brute = fields.get("brute")
-    return bvh_from_packed(
+    bvh = bvh_from_packed(
         fields["nodes"], fields["prim_tri"], fields["tri_v0"],
         fields["tri_e1"], fields["tri_e2"],
         brute=None if brute is None else brute_from_fields(brute, device),
         device=device)
+    micro = fields.get("tri_micro")
+    if micro is not None:
+        bvh = bvh.replace(tri_micro=torch.tensor(
+            np.asarray(micro).astype(np.int64).astype(np.uint32)
+            .view(np.int32), device=device))
+    return bvh

@@ -26,6 +26,17 @@ numbers. Everything here is numpy, bit for bit the JAX package's build;
 `ClusterTables` holds the result as tensors on the render device.
 `refresh_cluster_tables` is not ported yet.
 
+Opacity micromaps. The JAX package widens an alpha-tested scene's blocks
+to 7 quantity slots (det, u, v, t, word low half, word high half,
+coverage): the 16-bit halves and the coverage ride its matrix product at
+the constant-1 operand slot. The port keeps the 4-slot blocks and puts
+them in a side table: per cluster lane one u32 word (`omm_word`, stored
+as i32) and one f32 coverage (`omm_cov`), which K3 and K5 stage beside
+the block (1 KB per visit). The coverage stored is the JAX kernels'
+effective value, its split-bf16 hi + lo (exact in f32), so the
+stochastic shadow test compares the same number; the words are exact
+either way. `cluster_tables_from_numpy` converts the JAX 7-slot blocks.
+
 The instanced build (`build_cluster_tables_instanced`) bakes one set of
 object-space blocks per prototype of the two-level scene (accel/tlas.py)
 and expands only the cull's boxes per (instance, cluster): geometry
@@ -45,6 +56,7 @@ import torch
 import rtxpt_tpu_torch
 
 CT = 128                 # triangles per cluster
+OMM_SLOTS = 7            # quantity slots of the JAX package's micromap blocks
 BLK_ROWS = 32
 CENTER_ROW = 20
 ATTR_BASE = 21
@@ -111,6 +123,11 @@ class ClusterTables:
     tex: Optional[torch.Tensor] = None
     tex_meta: Optional[torch.Tensor] = None
     tex_maps: tuple = (0, 0, 0, 0)
+    # opacity micromaps (flat tables): [C, CT] i32 words (u32 bits) and
+    # [C, CT] f32 unknown-cell coverages per cluster lane
+    omm: bool = False
+    omm_word: Optional[torch.Tensor] = None
+    omm_cov: Optional[torch.Tensor] = None
 
     @property
     def device(self):
@@ -184,12 +201,16 @@ def _np(x):
 
 
 def build_cluster_blocks(positions, normals, indices, tri_material, lights,
-                         uvs=None, tri_gidx=None):
+                         uvs=None, tri_gidx=None, tri_micromap=None,
+                         tri_cover=None):
     """The numpy arrays of the flat cluster build: (blocks [C,32,512],
-    aabb_lo [C,3], aabb_hi [C,3], offsets [C+1]). Triangles must already
-    be Morton-ordered; `lights` is the baked LightList of the same
-    triangle order. `tri_gidx` ([t], optional) overrides the exported
-    triangle index AT_GIDX: the instanced build passes pool ids."""
+    aabb_lo [C,3], aabb_hi [C,3], offsets [C+1]), and with `tri_micromap`
+    ([t] u32 words) and `tri_cover` ([t] f32) also the side table
+    (omm_word [C,CT] i32, omm_cov [C,CT] f32; zero on padding lanes).
+    Triangles must already be Morton-ordered; `lights` is the baked
+    LightList of the same triangle order. `tri_gidx` ([t], optional)
+    overrides the exported triangle index AT_GIDX: the instanced build
+    passes pool ids."""
     positions = np.asarray(positions, np.float32)
     normals = np.asarray(normals, np.float32)
     indices = np.asarray(indices, np.int32)
@@ -329,7 +350,41 @@ def build_cluster_blocks(positions, normals, indices, tri_material, lights,
     for i in range(AT_ROWS):
         blocks[:, ATTR_BASE + i // 4, (i % 4) * CT:(i % 4 + 1) * CT] = \
             attr[:, i, :]
-    return blocks, lo.astype(np.float32), hi.astype(np.float32), offsets
+    out = (blocks, lo.astype(np.float32), hi.astype(np.float32), offsets)
+    if tri_micromap is None:
+        return out
+    words = np.asarray(tri_micromap).astype(np.uint32).view(np.int32)
+    cov = (np.asarray(tri_cover, np.float32) if tri_cover is not None
+           else np.ones((t,), np.float32))
+    cov_hi = bf16_round(cov)
+    cov = cov_hi + bf16_round(cov - cov_hi)       # the JAX kernels' value
+    word = np.where(vmaskf > 0.5, words[slot_tri], 0).astype(np.int32)
+    return out + (word.reshape(n_clusters, CT),
+                  pp(cov).astype(np.float32).reshape(n_clusters, CT))
+
+
+def omm_blocks_to_port(blocks: np.ndarray):
+    """The JAX package's 7-slot micromap blocks [C, 32, 7*CT] -> (the
+    port's 4-slot blocks [C, 32, 4*CT], omm_word [C, CT] i32, omm_cov
+    [C, CT] f32): quantities 0-3 and the center as they are, the
+    attribute rows repacked from 7 to 4 per row, the word from its two
+    16-bit halves (hi + lo coefficient rows at the constant-1 slot 9,
+    exact) and the coverage as the kernels sum it (hi + lo)."""
+    blocks = np.asarray(blocks, np.float32)
+    c = blocks.shape[0]
+    out = np.zeros((c, BLK_ROWS, LANES), np.float32)
+    out[:, 0:ATTR_BASE, :] = blocks[:, 0:ATTR_BASE, :LANES]
+    for i in range(AT_ROWS):
+        out[:, ATTR_BASE + i // 4, (i % 4) * CT:(i % 4 + 1) * CT] = \
+            blocks[:, ATTR_BASE + i // OMM_SLOTS,
+                   (i % OMM_SLOTS) * CT:(i % OMM_SLOTS + 1) * CT]
+
+    def slot(q):
+        return blocks[:, 9, q * CT:(q + 1) * CT] \
+            + blocks[:, 19, q * CT:(q + 1) * CT]
+
+    word = slot(4).astype(np.int64) | (slot(5).astype(np.int64) << 16)
+    return out, word.astype(np.uint32).view(np.int32), slot(6)
 
 
 def cluster_tables_from_numpy(blocks, aabb_lo, aabb_hi, mat_rows, light_rows,
@@ -337,7 +392,8 @@ def cluster_tables_from_numpy(blocks, aabb_lo, aabb_hi, mat_rows, light_rows,
                               device="cuda", instanced=False, wc_block=None,
                               wc_inst=None, xf=None, inst_post=None,
                               env_rows=None, tex_ct=None, tex_meta=None,
-                              tex_maps=(0, 0, 0, 0)) -> ClusterTables:
+                              tex_maps=(0, 0, 0, 0), omm=False,
+                              omm_word=None, omm_cov=None) -> ClusterTables:
     """ClusterTables on `device` (the GPU by default; raises without one)
     from numpy arrays of the JAX layout. Instanced tables take `wc_block`,
     `wc_inst`, `inst_post` and `xf`, either the port's M10 [I,10,10] or
@@ -345,7 +401,9 @@ def cluster_tables_from_numpy(blocks, aabb_lo, aabb_hi, mat_rows, light_rows,
     the JAX package's environment table or the port's
     (bounce_fused.env_table); `tex_ct` / `tex_meta` the JAX package's
     texture tables or the port's (bounce_fused.tex_tables), with
-    `tex_maps` the materials' map flags."""
+    `tex_maps` the materials' map flags. `omm`: the JAX package's 7-slot
+    micromap blocks (converted by `omm_blocks_to_port`), or the port's
+    4-slot blocks with `omm_word` and `omm_cov`."""
     from rtxpt_tpu_torch.pt.bounce_fused import env_table, tex_tables
 
     device = rtxpt_tpu_torch.device(device)
@@ -376,6 +434,20 @@ def cluster_tables_from_numpy(blocks, aabb_lo, aabb_hi, mat_rows, light_rows,
         tex, meta = tex_tables(tex_ct, tex_meta)
         parts.update(tex=f(tex), tex_meta=i32(meta),
                      tex_maps=tuple(int(x) for x in tex_maps))
+    blocks = np.asarray(blocks)
+    if omm:
+        if instanced:
+            raise ValueError("omm: the instanced tier has no micromaps "
+                             "(prepare flattens alpha-tested scenes)")
+        if blocks.shape[-1] == OMM_SLOTS * CT:
+            blocks, omm_word, omm_cov = omm_blocks_to_port(blocks)
+        elif omm_word is None or omm_cov is None:
+            raise ValueError("omm cluster tables need the micromap lanes "
+                             "(7-slot blocks) or omm_word and omm_cov")
+        parts.update(omm=True, omm_word=i32(omm_word), omm_cov=f(omm_cov))
+    if blocks.shape[1:] != (BLK_ROWS, LANES):
+        raise ValueError(f"blocks: expected [C, {BLK_ROWS}, {LANES}], got "
+                         f"{list(blocks.shape)}")
     return ClusterTables(
         blocks=f(blocks), aabb_lo=f(aabb_lo), aabb_hi=f(aabb_hi),
         mat_rows=f(mat_rows), light_rows=f(light_rows),
@@ -419,12 +491,15 @@ def _tex_parts(textures, materials) -> dict:
 
 def build_cluster_tables(positions, normals, indices, tri_material,
                          materials, lights, uvs=None, envmap=None,
-                         textures=None, device="cuda") -> ClusterTables:
+                         textures=None, device="cuda", tri_micromap=None,
+                         tri_cover=None) -> ClusterTables:
     """Bake the cluster tables of a flat, Morton-ordered scene onto
     `device` (the GPU by default; raises without one), with the
     environment table when the lights hold an environment light (`envmap`
-    baked at 64 x 128) and the texture tables of `textures` (a
-    TextureAtlas) where the kernels' tables take it. Raises
+    baked at 64 x 128), the texture tables of `textures` (a
+    TextureAtlas) where the kernels' tables take it, and the micromap
+    side table of `tri_micromap` / `tri_cover` ([t] each, scene/omm.py,
+    in the same triangle order). Raises
     NotImplementedError, naming the feature,
     for a scene the clustered tier does not serve (anisotropic materials,
     sphere or environment-quad lights, more than 128 materials, no
@@ -440,13 +515,18 @@ def build_cluster_tables(positions, normals, indices, tri_material,
     if t == 0:
         raise NotImplementedError("a scene without triangles: the "
                                   "clustered tier takes >= 1 triangle")
-    blocks, lo, hi, offsets = build_cluster_blocks(
-        positions, normals, indices, tri_material, lights, uvs=uvs)
+    built = build_cluster_blocks(
+        positions, normals, indices, tri_material, lights, uvs=uvs,
+        tri_micromap=tri_micromap, tri_cover=tri_cover)
+    blocks, lo, hi, offsets = built[:4]
+    omm = {}
+    if tri_micromap is not None:
+        omm = dict(omm=True, omm_word=built[4], omm_cov=built[5])
     return cluster_tables_from_numpy(
         blocks, lo, hi, pack_materials(materials), pack_lights(lights),
         offsets, len(offsets) - 1, t, int(lights.num), device,
         env_rows=lights_env_table(lights, envmap),
-        **_tex_parts(textures, materials))
+        **_tex_parts(textures, materials), **omm)
 
 
 def instance_operand_map(A: np.ndarray, t_w: np.ndarray):

@@ -7,7 +7,11 @@ BVH (accel/bvh.py) in skip-link order to the end: at each node a slab test
 against the AABB, and at a leaf whose AABB it hit the Möller-Trumbore test
 of the leaf triangle (|det| > 1e-9, tmin < t < the best t so far); it
 descends to node + 1 on an internal hit and follows the miss link
-otherwise. The any-hit variant stops at its first hit.
+otherwise. The any-hit variant stops at its first hit. A BVH with
+opacity micromaps (`tri_micro`, the words in leaf order) rejects a hit
+whose micro-triangle is TRANSPARENT inside the walk
+(rtxpt_tpu/accel/traverse.py:113-121); the other states are the alpha
+retrace's (scene/omm.py).
 
 The plain version advances every live ray one node per step and drops the
 finished rays between steps; the result of each ray is the same as a walk
@@ -30,6 +34,7 @@ import torch
 
 from rtxpt_tpu_torch import kernels
 from rtxpt_tpu_torch.accel.bvh import NODE_ROWS, ThreadedBVH
+from rtxpt_tpu_torch.scene import omm
 
 _INVD_MAX = 1e30
 _TRI_EPS = 1e-9
@@ -48,6 +53,17 @@ class Hit:
     @property
     def miss(self):
         return self.prim < 0
+
+    def where(self, cond, other: "Hit") -> "Hit":
+        """Per ray, `other`'s hit where cond [N] holds, else this one."""
+        def pick(a, b):
+            c = cond.reshape(cond.shape + (1,) * (a.ndim - 1))
+            return torch.where(c, b, a)
+        return Hit(t=pick(self.t, other.t), prim=pick(self.prim, other.prim),
+                   bary=pick(self.bary, other.bary),
+                   front=pick(self.front, other.front),
+                   inst=None if self.inst is None
+                   else pick(self.inst, other.inst))
 
     def take(self, sl) -> "Hit":
         """The hits of rays `sl` (a slice or an index tensor)."""
@@ -116,6 +132,11 @@ def _traverse(bvh: ThreadedBVH, o, d, tmin, tmax, any_hit: bool,
         th = _dot3(e2, qvec) * inv_det
         tri_hit = (ok_det & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
                    & (th > tmin_l) & (th < t_l) & is_leaf & aabb_hit)
+        if bvh.tri_micro is not None:
+            mi = torch.clamp(omm.micro_index(u, v), 0, 15)
+            st = omm.micro_state(bvh.tri_micro[torch.clamp(pr, min=0).long()],
+                                 mi)
+            tri_hit = tri_hit & (st != omm.MICRO_TRANSPARENT)
         won = live[tri_hit]
         t[won] = th[tri_hit]
         prim[won] = pr[tri_hit]
@@ -139,9 +160,10 @@ def _traverse(bvh: ThreadedBVH, o, d, tmin, tmax, any_hit: bool,
 def walk(bvh: ThreadedBVH, o, d, tmin, tmax, any_hit: bool = False,
          stats: bool = False):
     """The BVH walk over rays o, d [N,3] f32, tmin, tmax [N] f32: K9
-    (csrc/bvh_traverse.cu) for CUDA tensors, `_traverse` for CPU tensors;
-    returns `_traverse`'s dict. Build and launch errors raise; nothing
-    falls back."""
+    (csrc/bvh_traverse.cu; with the BVH's micromaps its micromap test,
+    counted as "bvh_traverse_omm") for CUDA tensors, `_traverse` for CPU
+    tensors; returns `_traverse`'s dict. Build and launch errors raise;
+    nothing falls back."""
     if o.device.type == "cpu":
         return _traverse(bvh, o, d, tmin, tmax, any_hit, stats)
     if o.device.type != "cuda":
@@ -155,9 +177,10 @@ def walk(bvh: ThreadedBVH, o, d, tmin, tmax, any_hit: bool = False,
     kernels.check_tensor("tmax", tmax, f32, (n,), dev)
     kernels.check_tensor("nodes", bvh.nodes, f32, (bvh.num_nodes, NODE_ROWS),
                          dev)
-    if bvh.tri_micro is not None:
-        raise NotImplementedError("the BVH walk with opacity micromaps is "
-                                  "not ported yet")
+    micro = bvh.tri_micro
+    if micro is not None:
+        kernels.check_tensor("tri_micro", micro, i32,
+                             (bvh.num_triangles,), dev)
     out = dict(t=torch.empty((n,), dtype=f32, device=dev),
                prim=torch.empty((n,), dtype=i32, device=dev),
                uv=torch.empty((n, 2), dtype=f32, device=dev),
@@ -170,12 +193,14 @@ def walk(bvh: ThreadedBVH, o, d, tmin, tmax, any_hit: bool = False,
             kernels.BVH_TRAVERSE.launch(
                 "rtxpt_bvh_traverse", o.data_ptr(), d.data_ptr(),
                 tmin.data_ptr(), tmax.data_ptr(), bvh.nodes.data_ptr(),
+                None if micro is None else micro.data_ptr(),
                 out["t"].data_ptr(), out["prim"].data_ptr(),
                 out["uv"].data_ptr(), out["front"].data_ptr(),
                 out["visits"].data_ptr() if stats else None,
                 out["tests"].data_ptr() if stats else None,
                 n, int(any_hit), torch.cuda.current_stream(dev).cuda_stream)
-        kernels.launches["bvh_traverse"] += 1
+        kernels.launches["bvh_traverse" if micro is None
+                         else "bvh_traverse_omm"] += 1
     return out
 
 

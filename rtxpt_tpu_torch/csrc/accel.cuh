@@ -14,6 +14,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "omm.cuh"
 #include "wide.cuh"
 
 #ifdef __CUDACC__
@@ -73,9 +74,11 @@ struct Walk {
 };
 
 // One ray's walk of the threaded BVH to the end (or, kAny, to its first hit).
+// With `micro` (the micromap words in leaf order, or null) a hit whose
+// micro-triangle is TRANSPARENT is rejected (traverse.py _traverse).
 template <bool kAny>
 RT_HD Walk bvh_walk(const float* __restrict__ nodes, V3 o, V3 d, float tmin,
-                    float tmax) {
+                    float tmax, const int* __restrict__ micro = nullptr) {
   const V3 inv = v3(safe_inv(d.x), safe_inv(d.y), safe_inv(d.z));
   Walk w;
   w.t = tmax;
@@ -120,6 +123,9 @@ RT_HD Walk bvh_walk(const float* __restrict__ nodes, V3 o, V3 d, float tmin,
       const float v = dot3(d, qvec) * inv_det;
       const float th = dot3(e2, qvec) * inv_det;
       tri_hit = ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && th > tmin && th < w.t;
+      if (tri_hit && micro != nullptr)
+        tri_hit = micro_state((uint32_t)RT_LDG(micro + pr), micro_index(u, v)) !=
+                  MICRO_TRANSPARENT;
       if (tri_hit) {
         w.t = th;
         w.u = u;

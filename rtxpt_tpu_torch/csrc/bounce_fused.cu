@@ -8,7 +8,10 @@
 // the environment light's importance sample) and final_env (the closing
 // environment-only round), and the texture switch has_tex / tex_maps
 // (bounce_pallas.py:1051-1125: base colour, metal-rough, emissive and normal
-// maps by stochastic texture filtering). Plain version:
+// maps by stochastic texture filtering), and the micromap switch omm
+// (bounce_pallas.py:587-698 _micro_state, _intersect_group, _occluded_group;
+// :1078-1160 the MIP-0 alpha test and the pass-through; :1350-1365 the
+// pass-through lane's state). Plain version:
 // rtxpt_tpu_torch/pt/bounce_fused.py bounce_reference; wrapper:
 // bounce_fused.bounce.
 //
@@ -43,6 +46,16 @@
 // level and offsets from the texture's 17-int meta row. No hardware texture
 // unit: its linear filter weighs with 8-bit fractions and could not match
 // the plain version, and one nearest texel needs no filter.
+//
+// Micromaps: has_omm is a second template parameter, so the three other
+// instantiations keep their code. Per triangle the kernel reads one u32 word
+// and one f32 coverage (8 B, beside the 80-byte coefficient row) instead of
+// the TPU's 16-bit word halves, which exist for its matrix unit. The state
+// is decoded only for a candidate that passes the geometric test (the
+// closest hit) or occludes (the shadow ray): micro_index is ~15 f32
+// operations and a shift. A pass-through lane does not branch away from
+// its warp: it runs the shading chain as the plain version does, whose
+// results it then discards.
 #include <cuda_runtime.h>
 
 #include "bounce_fused.cuh"
@@ -52,7 +65,7 @@ namespace {
 
 constexpr int kThreads = 128;
 
-template <bool HasTex>
+template <bool HasTex, bool HasOmm>
 __global__ void __launch_bounds__(kThreads)
 bounce_fused_kernel(const float* __restrict__ fs, const int* __restrict__ is,
                     float* __restrict__ fs_out, int* __restrict__ is_out,
@@ -60,7 +73,19 @@ bounce_fused_kernel(const float* __restrict__ fs, const int* __restrict__ is,
                     rt::Tables tb, rt::Config cfg, int n) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  rt::bounce_ray<HasTex>(i, n, fs, is, fs_out, is_out, hit_out, surf_out, tb, cfg);
+  rt::bounce_ray<HasTex, HasOmm>(i, n, fs, is, fs_out, is_out, hit_out, surf_out, tb, cfg);
+}
+
+template <bool HasTex>
+void launch(bool omm, int blocks, cudaStream_t stream, const float* fs, const int* is,
+            float* fs_out, int* is_out, float* hit_out, float* surf_out,
+            const rt::Tables& tb, const rt::Config& cfg, int n) {
+  if (omm)
+    bounce_fused_kernel<HasTex, true><<<blocks, kThreads, 0, stream>>>(
+        fs, is, fs_out, is_out, hit_out, surf_out, tb, cfg, n);
+  else
+    bounce_fused_kernel<HasTex, false><<<blocks, kThreads, 0, stream>>>(
+        fs, is, fs_out, is_out, hit_out, surf_out, tb, cfg, n);
 }
 
 }  // namespace
@@ -69,12 +94,14 @@ bounce_fused_kernel(const float* __restrict__ fs, const int* __restrict__ is,
 // external modes; `env` ([ET_SIZE] or NULL) is the environment table, which
 // `final_env` needs; `tex` ([texels, 4] or NULL for the untextured variant)
 // and `tex_meta` ([n_tex, TX_COLS]) are the texture tables, `tex_maps` the
-// maps' bits.
+// maps' bits; `micro` and `cover` ([tpad] each, or NULL for the variant
+// without micromaps) the micromap words and coverages.
 extern "C" int rtxpt_bounce_fused(
     const float* fs, const int* is, float* fs_out, int* is_out, float* hit_out,
     float* surf_out, const float* tri_coef, const float* attr_rows, const float* mat_rows,
     const float* light_rows, const float* env, const float* tex, const int* tex_meta,
-    int n_tex, int tex_maps, int n, int n_tris, int tpad, int n_lights,
+    int n_tex, int tex_maps, const int* micro, const float* cover, int n, int n_tris,
+    int tpad, int n_lights,
     unsigned int sample_idx, int nee_mode, int enable_mis, float firefly,
     int rr_enable, int min_rr, float max_travel, int low_discrepancy,
     int energy_comp, int maxb, int final_env, void* stream) {
@@ -91,6 +118,8 @@ extern "C" int rtxpt_bounce_fused(
   tb.n_tris = n_tris;
   tb.tpad = tpad;
   tb.n_lights = n_lights;
+  tb.micro = micro;
+  tb.cover = cover;
   rt::Config cfg;
   cfg.sample_idx = sample_idx;
   cfg.nee_mode = nee_mode;
@@ -104,11 +133,12 @@ extern "C" int rtxpt_bounce_fused(
   cfg.maxb = maxb;
   cfg.final_env = final_env != 0;
   int blocks = (n + kThreads - 1) / kThreads;
+  const bool omm = micro != nullptr;
   if (tex != nullptr)
-    bounce_fused_kernel<true><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        fs, is, fs_out, is_out, hit_out, surf_out, tb, cfg, n);
+    launch<true>(omm, blocks, (cudaStream_t)stream, fs, is, fs_out, is_out, hit_out,
+                 surf_out, tb, cfg, n);
   else
-    bounce_fused_kernel<false><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        fs, is, fs_out, is_out, hit_out, surf_out, tb, cfg, n);
+    launch<false>(omm, blocks, (cudaStream_t)stream, fs, is, fs_out, is_out, hit_out,
+                  surf_out, tb, cfg, n);
   return (int)cudaGetLastError();
 }

@@ -14,9 +14,15 @@
 // parameter HasTex (bounce_pallas.py:1051-1125): the base-colour,
 // metal-rough, emissive and normal maps that Tables::tex_maps names, one
 // stochastic texel each (tex_fetch, bounce_pallas._tex_fetch_w), so the
-// untextured instantiation keeps its registers.
+// untextured instantiation keeps its registers. The opacity-micromap switch
+// is the template parameter HasOmm (bounce_pallas.py:587-698, :1078-1160,
+// :1350-1365): the closest hit rejects micro-TRANSPARENT candidates and
+// flags an UNKNOWN winner, whose base alpha at MIP 0 then decides whether
+// the lane passes through; the shadow ray's UNKNOWN candidates occlude
+// where the lane's alpha uniform is under the triangle's coverage.
 #pragma once
 
+#include "omm.cuh"
 #include "rng.cuh"
 #include "wide.cuh"
 
@@ -42,11 +48,12 @@ enum { AT_N0 = 0, AT_N1 = 3, AT_N2 = 6, AT_GN = 9, AT_MID = 12, AT_LPDF = 13,
 enum { MT_BASE = 0, MT_METAL = 3, MT_ROUGH = 4, MT_IOR = 5, MT_TRANS = 6,
        MT_DTRANS = 7, MT_EMISSIVE = 8, MT_SPEC = 11, MT_THIN = 12,
        MT_VOLABS = 13, MT_EPOLY = 16, MT_EAVG = 22, MT_BTEX = 23,
-       MT_MRTEX = 24, MT_ETEX = 25, MT_NTEX = 26 };
+       MT_MRTEX = 24, MT_ETEX = 25, MT_NTEX = 26, MT_ACUT = 27 };
 enum { LROW_KIND = 0, LROW_P0 = 1, LROW_P1 = 4, LROW_P2 = 7, LROW_EM = 10,
        LROW_EXTRA = 13, LROW_NORMAL = 17, LROW_POWER = 20, LROW_CDF = 21 };
 enum { TC_DET = 0, TC_U = 3, TC_V = 9, TC_T = 15, TC_ROWS = 20 };
-enum { EFFECT_SCATTER = 29, EFFECT_NEE = 31, EFFECT_RR = 37, EFFECT_STF = 41 };
+enum { EFFECT_SCATTER = 29, EFFECT_NEE = 31, EFFECT_RR = 37, EFFECT_STF = 41,
+       EFFECT_ALPHA = 43 };
 // texture meta row per texture (bounce_fused.py TX_*): base width, height,
 // MIP count, the 14 MIP start texels; tex_maps bits: base 1, metal-rough 2,
 // emissive 4, normal 8
@@ -56,7 +63,7 @@ enum { TEX_BASE = 1, TEX_MR = 2, TEX_EMIT = 4, TEX_NORMAL = 8 };
 enum { SF_POS = 0, SF_SHN = 3, SF_GN = 6, SF_MID = 9, SF_BASE = 10, SF_METAL = 13,
        SF_ROUGH = 14, SF_ETA = 15, SF_THP = 16, SF_EMIT = 19, SF_PGEO = 22,
        SF_LID = 23, SF_ROWS = 24 };
-enum { SR_O = 0, SR_D = 3, SR_DIST = 6, SR_DO = 7, SR_ROWS = 8 };
+enum { SR_O = 0, SR_D = 3, SR_DIST = 6, SR_DO = 7, SR_UA = 8, SR_ROWS = 9 };
 // the environment table (bounce_fused.py ET_*): [64][128] float4 texels
 // (r, g, b, texel pdf), [64][128] conditional CDFs, then per row the
 // marginal CDF, cos(pi i / 64) (entry 0 a pad), the texel solid angle, and
@@ -78,6 +85,8 @@ struct Tables {
   const int* tex_meta;  // [n_tex, TX_COLS]
   int n_tex, tex_maps;
   int n_tris, tpad, n_lights;
+  const int* micro;     // [tpad] micromap words (u32 bits), or null
+  const float* cover;   // [tpad] unknown-cell coverages
 };
 
 struct Config {
@@ -98,6 +107,7 @@ struct Config {
 struct Hit {
   float t, u, v, det;
   int prim;
+  bool unk;             // the winner's micro-triangle is UNKNOWN (HasOmm)
 };
 
 // Triangle j against the ray [d | o x d | o | 1], summed in the plain
@@ -122,37 +132,61 @@ RT_HD bool tri_test(const float* c, V3 o, V3 d, V3 x, float& u, float& v, float&
   return ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > 0.0f;
 }
 
+// The micromap state of triangle j at its candidate barycentrics.
+RT_HD int tri_micro_state(const Tables& tb, int j, float u, float v) {
+  return micro_state((uint32_t)RT_LDG(tb.micro + j), micro_index(u, v));
+}
+
 // Closest hit over every triangle; strict `<` keeps the lowest index on ties
-// (bounce_pallas._intersect_group).
+// (bounce_pallas._intersect_group). HasOmm: micro-TRANSPARENT candidates are
+// rejected, and the winner's UNKNOWN state is kept.
+template <bool HasOmm>
 RT_HD Hit intersect(const Tables& tb, V3 o, V3 d, float tmax) {
   Hit h;
-  h.t = kBig; h.u = 0.0f; h.v = 0.0f; h.det = 0.0f; h.prim = -1;
+  h.t = kBig; h.u = 0.0f; h.v = 0.0f; h.det = 0.0f; h.prim = -1; h.unk = false;
   V3 x = cross3(o, d);
   for (int j = 0; j < tb.n_tris; ++j) {
     float u, v, t, det;
     bool ok = tri_test(tb.tri + j * TC_ROWS, o, d, x, u, v, t, det);
     if (ok && t < tmax && t < h.t) {
+      int st = MICRO_OPAQUE;
+      if constexpr (HasOmm) {
+        st = tri_micro_state(tb, j, u, v);
+        if (st == MICRO_TRANSPARENT) continue;
+      }
       h.t = t; h.u = u; h.v = v; h.det = det; h.prim = j;
+      h.unk = st == MICRO_UNKNOWN;
     }
   }
   return h;
 }
 
 // Any hit in (0, tmax) (bounce_pallas._occluded_group); `tested` counts the
-// ray-triangle pairs tested, up to and including the first occluder.
-RT_HD bool occluded(const Tables& tb, V3 o, V3 d, float tmax, int& tested) {
+// ray-triangle pairs tested, up to and including the first occluder. HasOmm:
+// a micro-TRANSPARENT candidate never occludes, an UNKNOWN one where
+// u_alpha < the triangle's coverage.
+template <bool HasOmm>
+RT_HD bool occluded(const Tables& tb, V3 o, V3 d, float tmax, float u_alpha, int& tested) {
   V3 x = cross3(o, d);
   for (int j = 0; j < tb.n_tris; ++j) {
     float u, v, t, det;
     ++tested;
-    if (tri_test(tb.tri + j * TC_ROWS, o, d, x, u, v, t, det) && t < tmax) return true;
+    if (tri_test(tb.tri + j * TC_ROWS, o, d, x, u, v, t, det) && t < tmax) {
+      if constexpr (HasOmm) {
+        const int st = tri_micro_state(tb, j, u, v);
+        if (st == MICRO_TRANSPARENT) continue;
+        if (st == MICRO_UNKNOWN && !(u_alpha < RT_LDG(tb.cover + j))) continue;
+      }
+      return true;
+    }
   }
   return false;
 }
 
-RT_HD bool occluded(const Tables& tb, V3 o, V3 d, float tmax) {
+template <bool HasOmm>
+RT_HD bool occluded(const Tables& tb, V3 o, V3 d, float tmax, float u_alpha) {
   int tested = 0;
-  return occluded(tb, o, d, tmax, tested);
+  return occluded<HasOmm>(tb, o, d, tmax, u_alpha, tested);
 }
 
 RT_HD V3 ray_offset(V3 pos, V3 gn, V3 dir) {
@@ -330,11 +364,13 @@ struct RayState {
   int med0, med1, px, py, budget, lb;
 };
 
-// What surface_and_shade leaves for its caller: the pending NEE shadow ray.
+// What surface_and_shade leaves for its caller: the pending NEE shadow ray
+// and, with micromaps, the lane's alpha uniform for its test.
 struct ShadowRay {
   bool do_nee;
   V3 o, d, contrib;
   float dist;
+  float u_alpha;
 };
 
 // The shaded surface that the external modes export (the SF_* rows) and
@@ -398,8 +434,12 @@ RT_HD void store_state(int i, int n, const RayState& s, float* __restrict__ fs_o
 // instead, and in mode 3 (NEE-AT) the emission too, unweighted.
 // `A(r)` fetches the hit's attribute row r (AT_*): K1 reads the attribute
 // table by prim, K4 (cluster_shade.cu) reads K3's HA rows. HasTex: the
-// texture switch, after the ray cone's update (the tables' atlas).
-template <bool HasTex, class AttrFetch>
+// texture switch, after the ray cone's update (the tables' atlas). HasOmm:
+// the alpha uniform is drawn, and with the base-colour map on an UNKNOWN
+// hit (h.unk) whose MIP-0 base alpha is under the material's cutoff passes
+// through: not shaded, its path state kept, the same ray continued from
+// just past the surface (plain version: passthru).
+template <bool HasTex, bool HasOmm, class AttrFetch>
 RT_HD ShadowRay surface_and_shade(RayState& s, const Hit& h, const AttrFetch& A,
                                   const Tables& tb, const Config& cfg,
                                   SurfRows* sf = nullptr) {
@@ -454,6 +494,7 @@ RT_HD ShadowRay surface_and_shade(RayState& s, const Hit& h, const AttrFetch& A,
   float ior = lane(mt, MT_IOR, mid);
 
   s.cone = s.cone + s.spread * (hit ? t : 0.0f);
+  float base_alpha0 = 1.0f;
   if constexpr (HasTex) {
     // every lane fetches, as the plain version does (its SF_* export of a
     // lane that is not shaded reads the same values)
@@ -471,6 +512,12 @@ RT_HD ShadowRay surface_and_shade(RayState& s, const Hit& h, const AttrFetch& A,
     if (tb.tex_maps & TEX_BASE) {
       const float4 c = tfetch(MT_BTEX, has);
       if (has) base_color = base_color * v3(c.x, c.y, c.z);
+      if constexpr (HasOmm) {
+        // the alpha test reads MIP 0, as the bake does
+        const float4 c0 = tex_fetch(tb, (int)lane(mt, MT_BTEX, mid), uv_u, uv_v, -100.0f,
+                                    ju0, ju1);
+        if (has) base_alpha0 = c0.w;
+      }
     }
     if (tb.tex_maps & TEX_MR) {           // glTF: B = metallic, G = roughness
       const float4 c = tfetch(MT_MRTEX, has);
@@ -501,7 +548,15 @@ RT_HD ShadowRay surface_and_shade(RayState& s, const Hit& h, const AttrFetch& A,
       if (has && ok_t) sh_n = n_pert;
     }
   }
-  bool hit_shade = hit_mask;
+  bool passthru = false;
+  if constexpr (HasOmm && HasTex) {
+    if (tb.tex_maps & TEX_BASE) {
+      const float acut = lane(mt, MT_ACUT, mid);
+      passthru = hit_mask && h.unk && acut >= 0.0f && base_alpha0 < acut;
+    }
+  }
+  const bool has_pass = HasOmm && HasTex && (tb.tex_maps & TEX_BASE);
+  bool hit_shade = hit_mask && !passthru;
 
   V3 thp = s.thp;
   float cur_ior = s.med0 >= 0 ? lane(mt, MT_IOR, clampi(s.med0, 0, 127)) : 1.0f;
@@ -568,6 +623,11 @@ RT_HD ShadowRay surface_and_shade(RayState& s, const Hit& h, const AttrFetch& A,
   sr.d = d;
   sr.dist = 0.0f;
   sr.contrib = splat(0.0f);
+  sr.u_alpha = 0.0f;
+  if constexpr (HasOmm) {
+    Sampler sa(hash_combine(seed_base, EFFECT_ALPHA), cfg.sample_idx, cfg.low_discrepancy);
+    sr.u_alpha = sa.dim(0);
+  }
   if (use_nee) {
     Sampler sn(hash_combine(seed_base, EFFECT_NEE), cfg.sample_idx, cfg.low_discrepancy);
     float u_sel = clamp_(sn.dim(0), 0.0f, (float)(1.0 - 1e-7));
@@ -623,7 +683,8 @@ RT_HD ShadowRay surface_and_shade(RayState& s, const Hit& h, const AttrFetch& A,
   BSDFSample bs = bsdf_sample(b, wo, u_lobe, su1, su2);
   V3 wi_world = to_world3(bs.wi, sh_n);
   bool leak = (bs.wi.z > 0.0f) != (dot3(wi_world, gn) > 0.0f);
-  active = active && (bs.valid && !leak && (luminance3(bs.weight) > 0.0f));
+  active = active && (passthru || (bs.valid && !leak && (luminance3(bs.weight) > 0.0f)));
+  const V3 thp_ns = thp;                       // what a pass-through lane keeps
   thp = thp * bs.weight;
 
   bool transmitted = bs.wi.z < 0.0f;
@@ -636,11 +697,21 @@ RT_HD ShadowRay surface_and_shade(RayState& s, const Hit& h, const AttrFetch& A,
     Sampler srr(hash_combine(seed_base, EFFECT_RR), cfg.sample_idx, cfg.low_discrepancy);
     float u_rr = srr.dim(0);
     float p_cont = clamp_(maximum_(maximum_(thp.x, thp.y), thp.z), 0.05f, 1.0f);
-    bool rr_on = lb >= cfg.min_rr;
+    bool rr_on = lb >= cfg.min_rr && !passthru;
     active = active && !(rr_on && (u_rr >= p_cont));
     if (rr_on) thp = thp / p_cont;
   }
 
+  s.active = active;
+  s.lb = lb + (hit_shade ? 1 : 0);
+  if (has_pass && passthru) {
+    // continue the same ray from just past the rejected surface; the
+    // scatter state does not advance
+    const float t_adv = t * (float)(1.0 + 1e-4) + (float)1e-5;
+    s.o = s.o + d * t_adv;
+    s.thp = thp_ns;
+    return sr;
+  }
   s.o = ray_offset(pos, gn, wi_world);
   s.d = wi_world;
   s.thp = thp;
@@ -648,9 +719,7 @@ RT_HD ShadowRay surface_and_shade(RayState& s, const Hit& h, const AttrFetch& A,
   s.prev_delta = bs.is_delta;
   s.med0 = new_med0;
   s.med1 = new_med1;
-  s.active = active;
   s.spread = s.spread + sqrtf(b.alpha) * 0.25f * (1.0f - (bs.is_delta ? 1.0f : 0.0f));
-  s.lb = lb + (hit_shade ? 1 : 0);
   return sr;
 }
 
@@ -695,14 +764,14 @@ RT_HD void store_surf(int i, int n, const SurfRows& sf, float* __restrict__ surf
 // (the external modes 3-5 with lights) the surface rows go there, no shadow
 // ray is traced, and hit row 5 holds the shading flag: 0 not shaded, 1 shaded
 // at logical bounce 0, 2 shaded later (bounce_pallas.py:1556-1560).
-template <bool HasTex>
+template <bool HasTex, bool HasOmm>
 RT_HD void bounce_ray(int i, int n, const float* __restrict__ fs, const int* __restrict__ is,
                       float* __restrict__ fs_out, int* __restrict__ is_out,
                       float* __restrict__ hit_out, float* __restrict__ surf_out,
                       const Tables& tb, const Config& cfg) {
   RayState s = load_state(i, n, fs, is);
   const int lb_in = s.lb;
-  Hit h = intersect(tb, s.o, s.d, cfg.max_travel);
+  Hit h = intersect<HasOmm>(tb, s.o, s.d, cfg.max_travel);
   float* ho = hit_out + i;
   ho[0] = h.t < kBig ? h.t : 0.0f;
   ho[n] = (float)h.prim;
@@ -719,9 +788,10 @@ RT_HD void bounce_ray(int i, int n, const float* __restrict__ fs, const int* __r
     return h.prim >= 0 ? RT_LDG(tb.attr + r * tb.tpad + h.prim) : 0.0f;
   };
   SurfRows sf;
-  ShadowRay sr =
-      surface_and_shade<HasTex>(s, h, attr, tb, cfg, surf_out != nullptr ? &sf : nullptr);
-  if (sr.do_nee && !occluded(tb, sr.o, sr.d, sr.dist)) s.L = s.L + sr.contrib;
+  ShadowRay sr = surface_and_shade<HasTex, HasOmm>(s, h, attr, tb, cfg,
+                                                   surf_out != nullptr ? &sf : nullptr);
+  if (sr.do_nee && !occluded<HasOmm>(tb, sr.o, sr.d, sr.dist, sr.u_alpha))
+    s.L = s.L + sr.contrib;
   store_state(i, n, s, fs_out, is_out);
   if (surf_out != nullptr) {
     store_surf(i, n, sf, surf_out);

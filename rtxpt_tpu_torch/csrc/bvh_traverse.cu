@@ -11,7 +11,11 @@
 // t [n] (tmax on a miss), prim [n] (the packed leaf index, -1 on a miss; the
 // wrapper's caller maps it through prim_tri), uv [n, 2], front [n] (bool);
 // with non-NULL visits / tests, the nodes each ray visited and its triangle
-// tests.
+// tests. With `micro` ([T] micromap words in leaf order, or NULL) a leaf hit
+// whose micro-triangle is TRANSPARENT is rejected inside the walk: the
+// micromap branch of the JAX package's XLA walk (rtxpt_tpu/accel/
+// traverse.py:113-121), which its TPU step kernel does not have; here K9
+// serves every BVH query on the card, so it carries the test.
 //
 // Design. The TPU kernel gathers node rows with a one-hot matrix product over
 // a VMEM-resident table of at most 4096 nodes, runs a fixed 24 steps per
@@ -41,7 +45,8 @@ template <bool kAny>
 __global__ void __launch_bounds__(kThreads)
 bvh_traverse_kernel(const float* __restrict__ o, const float* __restrict__ d,
                     const float* __restrict__ tmin, const float* __restrict__ tmax,
-                    const float* __restrict__ nodes, float* __restrict__ t_out,
+                    const float* __restrict__ nodes, const int* __restrict__ micro,
+                    float* __restrict__ t_out,
                     int* __restrict__ prim_out, float* __restrict__ uv_out,
                     uint8_t* __restrict__ front_out, int* __restrict__ visits,
                     int* __restrict__ tests, int n) {
@@ -49,7 +54,7 @@ bvh_traverse_kernel(const float* __restrict__ o, const float* __restrict__ d,
   if (i >= n) return;
   const V3 O = v3(o[3 * i], o[3 * i + 1], o[3 * i + 2]);
   const V3 D = v3(d[3 * i], d[3 * i + 1], d[3 * i + 2]);
-  const Walk w = bvh_walk<kAny>(nodes, O, D, tmin[i], tmax[i]);
+  const Walk w = bvh_walk<kAny>(nodes, O, D, tmin[i], tmax[i], micro);
   t_out[i] = w.t;
   prim_out[i] = w.prim;
   uv_out[2 * i] = w.u;
@@ -64,15 +69,16 @@ bvh_traverse_kernel(const float* __restrict__ o, const float* __restrict__ d,
 }  // namespace
 
 extern "C" int rtxpt_bvh_traverse(const float* o, const float* d, const float* tmin,
-                                  const float* tmax, const float* nodes, float* t,
-                                  int* prim, float* uv, unsigned char* front, int* visits,
-                                  int* tests, int n, int any_hit, void* stream) {
+                                  const float* tmax, const float* nodes, const int* micro,
+                                  float* t, int* prim, float* uv, unsigned char* front,
+                                  int* visits, int* tests, int n, int any_hit,
+                                  void* stream) {
   const int blocks = (n + kThreads - 1) / kThreads;
   if (any_hit)
     bvh_traverse_kernel<true><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        o, d, tmin, tmax, nodes, t, prim, uv, front, visits, tests, n);
+        o, d, tmin, tmax, nodes, micro, t, prim, uv, front, visits, tests, n);
   else
     bvh_traverse_kernel<false><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        o, d, tmin, tmax, nodes, t, prim, uv, front, visits, tests, n);
+        o, d, tmin, tmax, nodes, micro, t, prim, uv, front, visits, tests, n);
   return (int)cudaGetLastError();
 }

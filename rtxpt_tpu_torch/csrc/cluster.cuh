@@ -2,8 +2,9 @@
 // K5 (cluster_shadow.cu): the cluster block layout, the split-bf16 ray
 // operand, the world -> object map of the operand on instanced tables, the
 // intersection quantities of one staged block, the closest-hit selection with
-// its edge margins and tie bump, the strict any-hit test, and the exact f32
-// refit of the winner. The plain versions of the same functions are in
+// its edge margins and tie bump, the strict any-hit test, the micromap
+// state of a candidate with the near-edge rule, and the exact f32 refit of
+// the winner. The plain versions of the same functions are in
 // rtxpt_tpu_torch/pt/bounce_clustered.py (_operand, object_operand,
 // _quantities, closest_hit_reference, occlusion_reference, _refit); every
 // expression keeps their operation order, and the library is built with
@@ -13,6 +14,7 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "omm.cuh"
 #include "wide.cuh"
 
 #ifdef __CUDACC__
@@ -59,6 +61,10 @@ constexpr float kRefitHi = (float)(1.0 + 1e-3);
 constexpr float kShadowScale = (float)(1.0 - 2e-4);
 constexpr float kMinDet = (float)1e-30;
 constexpr float kBigT = (float)1e30;
+// the near-edge band of a micro-cell (bounce_clustered._EDGE4), in cell
+// units: the split-bf16 (u, v) carry margin-scale error
+constexpr float kEdge = (float)(4.0 * 4.0 * 2e-3);
+constexpr float kEdgeHi = (float)(1.0 - 4.0 * 4.0 * 2e-3);
 
 // f32 -> bf16 -> f32, round to nearest even (torch's .to(torch.bfloat16)).
 RT_HD float bf16_round(float x) {
@@ -145,37 +151,75 @@ RT_HD Quant quantities(const float* blk, int j, const float* hi, const float* lo
   return q;
 }
 
+// The micromap state of a candidate at its split-bf16 barycentrics
+// u, v = clip(s / |det|, 0, 1), and whether the point lies within kEdge of
+// its micro-cell's edges: K3 and K5 take such a candidate as UNKNOWN
+// (bounce_clustered._micro_state_guarded; plain: micro_state_guarded).
+RT_HD int guarded_state(uint32_t word, const Quant& q, bool& near) {
+  const float inv_d = 1.0f / max_(q.absd, kMinDet);
+  const float u = clamp_(q.su * inv_d, 0.0f, 1.0f);
+  const float v = clamp_(q.sv * inv_d, 0.0f, 1.0f);
+  const float uu = u * 4.0f, vv = v * 4.0f;
+  const float du = uu - min_(floorf(uu), 3.0f);
+  const float dv = vv - min_(floorf(vv), 3.0f);
+  near = du < kEdge || du > kEdgeHi || dv < kEdge || dv > kEdgeHi ||
+         fabsf(du + dv - 1.0f) < kEdge;
+  return micro_state(word, micro_index(u, v));
+}
+
 // Closest split-bf16 hit in one staged block: conservative edge margins,
 // strictly-inside candidates ahead of margin-only ones (tie bump), lowest
-// triangle index on ties. t_c = kBigT when nothing is valid.
+// triangle index on ties. t_c = kBigT when nothing is valid. With `words`
+// (the block's micromap words), a micro-TRANSPARENT candidate is rejected
+// unless near a cell edge, and unk_c flags a winner on an UNKNOWN or
+// near-edge cell.
 RT_HD void closest_in_block(const float* blk, const float* hi, const float* lo,
-                            float max_travel, float& t_c, int& j_c) {
+                            float max_travel, float& t_c, int& j_c,
+                            const int* words, bool& unk_c) {
   t_c = kBigT;
   j_c = 0;
+  unk_c = false;
   for (int j = 0; j < CT; ++j) {
     const Quant q = quantities(blk, j, hi, lo);
     const float mm = kMargin * q.absd;
-    const bool valid = q.absd > kMinDet && q.su >= -mm && q.sv >= -mm &&
-                       q.su + q.sv <= q.absd + mm + mm && q.st > 0.0f &&
-                       q.st < max_travel * q.absd;
+    bool valid = q.absd > kMinDet && q.su >= -mm && q.sv >= -mm &&
+                 q.su + q.sv <= q.absd + mm + mm && q.st > 0.0f &&
+                 q.st < max_travel * q.absd;
     const bool strict = q.su >= 0.0f && q.sv >= 0.0f && q.su + q.sv <= q.absd;
     float tt = q.st * (1.0f / max_(q.absd, kMinDet));
     tt = tt * (strict ? 1.0f : kTieScale);
+    bool unk = false;
+    if (valid && words != nullptr) {
+      bool near;
+      const int st = guarded_state((uint32_t)words[j], q, near);
+      valid = st != MICRO_TRANSPARENT || near;
+      unk = st == MICRO_UNKNOWN || near;
+    }
     if (valid && tt < t_c) {
       t_c = tt;
       j_c = j;
+      unk_c = unk;
     }
   }
 }
 
 // Any triangle of the staged block strictly inside, at 0 < t < dist. Adds the
 // triangles tested (up to and including the first occluder) to `tested`.
+// With `words`, a micro-TRANSPARENT candidate never occludes unless near a
+// cell edge, and an UNKNOWN or near-edge one where u_alpha < its coverage.
 RT_HD bool occluded_in_block(const float* blk, const float* hi, const float* lo,
-                             float dist, int& tested) {
+                             float dist, int& tested, const int* words,
+                             const float* cover, float u_alpha) {
   for (int j = 0; j < CT; ++j) {
     const Quant q = quantities(blk, j, hi, lo);
     if (q.absd > kMinDet && q.su >= 0.0f && q.sv >= 0.0f &&
         q.su + q.sv <= q.absd && q.st > 0.0f && q.st < dist * q.absd) {
+      if (words != nullptr) {
+        bool near;
+        const int st = guarded_state((uint32_t)words[j], q, near);
+        if (st == MICRO_TRANSPARENT && !near) continue;
+        if ((st == MICRO_UNKNOWN || near) && !(u_alpha < cover[j])) continue;
+      }
       tested += j + 1;
       return true;
     }

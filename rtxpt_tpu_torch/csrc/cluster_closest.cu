@@ -3,8 +3,11 @@
 //
 // Replaces rtxpt_tpu/pt/bounce_clustered.py::_kernel_a1 (launched there by
 // _kernel_a1_call, pl.pallas_call at bounce_clustered.py:1188), the flat
-// variant (instanced=False) and the instanced one (instanced=True, the
-// branches at :237-245, :270-271, :324-330, :351-356 and :385-386). Plain
+// variant (instanced=False), the instanced one (instanced=True, the
+// branches at :237-245, :270-271, :324-330, :351-356 and :385-386) and the
+// flat one with opacity micromaps (omm=True, :290-297, :318-319). The
+// instanced variant has no micromaps: the JAX package never builds
+// instanced tables for alpha-tested geometry (accel/tlas.py:183-184). Plain
 // version: rtxpt_tpu_torch/pt/bounce_clustered.py closest_hit_reference;
 // wrapper: bounce_clustered.closest_hit.
 //
@@ -44,6 +47,15 @@
 // staging buffer (no cp.async double buffering), no tensor cores, no
 // compaction of inactive lanes (they sort to the end of the wavefront, so
 // their groups cull to empty lists).
+//
+// Micromaps. A visit also stages the cluster's 128 micromap words (512 B of
+// the side table, accel/cluster.py omm_word) beside the block. A candidate
+// that passes the geometric test decodes its micro-cell at its split-bf16
+// (u, v) (cluster.cuh guarded_state, ~25 operations): a TRANSPARENT cell is
+// rejected unless the point is near a cell edge (the JAX kernel's _EDGE4
+// rule: there the split-bf16 error could flip the cell, so it resolves as
+// UNKNOWN), and the winner's UNKNOWN or near-edge flag goes to HA_UNK for
+// K4's alpha test.
 #include <cuda_runtime.h>
 
 #include "cluster.cuh"
@@ -54,14 +66,16 @@ namespace {
 using namespace rt;
 using namespace rt::cl;
 
-template <bool INST>
+template <bool INST, bool OMM>
 __global__ void __launch_bounds__(FL, 1)
 cluster_closest_kernel(const int* __restrict__ cand, const float* __restrict__ od,
                        const float* __restrict__ blocks, const float* __restrict__ xf,
-                       float* __restrict__ ha, int* __restrict__ visits, int n,
-                       int cand_w, int kslots, float max_travel, int noprune) {
+                       const int* __restrict__ micro, float* __restrict__ ha,
+                       int* __restrict__ visits, int n, int cand_w, int kslots,
+                       float max_travel, int noprune) {
   __shared__ __align__(16) float stage[STAGE_ROWS * LANES];
   __shared__ float xm[INST ? XF_FLOATS : 1];
+  __shared__ int mw[OMM ? CT : 1];
   const int l = threadIdx.x;
   const size_t i = (size_t)blockIdx.x * FL + l;
   const int* cg = cand + (size_t)blockIdx.x * cand_w;
@@ -74,6 +88,7 @@ cluster_closest_kernel(const int* __restrict__ cand, const float* __restrict__ o
 
   float best_t = kBigT;
   int best_c = 0, best_j = 0, best_i = 0;
+  bool best_unk = false;
   const int count = cg[0];
   int s = 0;
   for (; s < count; ++s) {
@@ -89,6 +104,9 @@ cluster_closest_kernel(const int* __restrict__ cand, const float* __restrict__ o
       iid = cinst[s];
       if (l < XF_FLOATS) xm[l] = xf[(size_t)iid * XF_FLOATS + l];
     }
+    if constexpr (OMM) {
+      if (l < CT) mw[l] = micro[(size_t)cid * CT + l];
+    }
     __syncthreads();
     const V3 c = v3(stage[CENTER_ROW * LANES], stage[CENTER_ROW * LANES + CT],
                     stage[CENTER_ROW * LANES + 2 * CT]);
@@ -98,12 +116,14 @@ cluster_closest_kernel(const int* __restrict__ cand, const float* __restrict__ o
     make_operand(dv, oxdv, ov, c, hi, lo);
     float t_c;
     int j_c;
-    closest_in_block(stage, hi, lo, max_travel, t_c, j_c);
+    bool unk_c;
+    closest_in_block(stage, hi, lo, max_travel, t_c, j_c, OMM ? mw : nullptr, unk_c);
     if (t_c < best_t) {
       best_t = t_c;
       best_c = cid;
       best_j = j_c;
       best_i = iid;
+      best_unk = unk_c;
     }
   }
 
@@ -136,23 +156,29 @@ cluster_closest_kernel(const int* __restrict__ cand, const float* __restrict__ o
   out[(size_t)HA_PRIM * n] = hit ? attr(AT_GIDX) : -1.0f;
 #pragma unroll
   for (int k = 0; k < HA_NATTR; ++k) out[(size_t)(HA_ATTR + k) * n] = attr(kAttrRows[k]);
-  out[(size_t)HA_UNK * n] = 0.0f;
+  out[(size_t)HA_UNK * n] = (OMM && hit && best_unk) ? 1.0f : 0.0f;
   out[(size_t)HA_INST * n] = (INST && hit) ? (float)best_i : -1.0f;
 }
 
 }  // namespace
 
-// `visits` (NULL or [n_groups] i32) receives the slots each group visited.
+// `visits` (NULL or [n_groups] i32) receives the slots each group visited;
+// `micro` (NULL, or the [C, CT] micromap words) selects the omm variant.
 extern "C" int rtxpt_cluster_closest(const int* cand, const float* od,
-                                     const float* blocks, float* ha,
-                                     int* visits, int n_groups, int kslots,
-                                     float max_travel, int noprune,
+                                     const float* blocks, const int* micro,
+                                     float* ha, int* visits, int n_groups,
+                                     int kslots, float max_travel, int noprune,
                                      void* stream) {
   const int n = n_groups * FL;
   const int cand_w = 1 + (2 + R) * kslots;
-  cluster_closest_kernel<false><<<n_groups, FL, 0, (cudaStream_t)stream>>>(
-      cand, od, blocks, nullptr, ha, visits, n, cand_w, kslots, max_travel,
-      noprune);
+  if (micro != nullptr)
+    cluster_closest_kernel<false, true><<<n_groups, FL, 0, (cudaStream_t)stream>>>(
+        cand, od, blocks, nullptr, micro, ha, visits, n, cand_w, kslots, max_travel,
+        noprune);
+  else
+    cluster_closest_kernel<false, false><<<n_groups, FL, 0, (cudaStream_t)stream>>>(
+        cand, od, blocks, nullptr, nullptr, ha, visits, n, cand_w, kslots, max_travel,
+        noprune);
   return (int)cudaGetLastError();
 }
 
@@ -165,8 +191,8 @@ extern "C" int rtxpt_cluster_closest_inst(const int* cand, const float* od,
                                           int noprune, void* stream) {
   const int n = n_groups * FL;
   const int cand_w = 1 + (3 + R) * kslots;
-  cluster_closest_kernel<true><<<n_groups, FL, 0, (cudaStream_t)stream>>>(
-      cand, od, blocks, xf, ha, visits, n, cand_w, kslots, max_travel,
+  cluster_closest_kernel<true, false><<<n_groups, FL, 0, (cudaStream_t)stream>>>(
+      cand, od, blocks, xf, nullptr, ha, visits, n, cand_w, kslots, max_travel,
       noprune);
   return (int)cudaGetLastError();
 }

@@ -2,13 +2,16 @@
 //
 // Replaces rtxpt_tpu/pt/bounce_clustered.py::_kernel_a2 (launched there by
 // _kernel_a2_call, pl.pallas_call at bounce_clustered.py:1327) without its
-// priority, micromap and split-channel branches: NEE in the kernel
+// priority and split-channel branches: NEE in the kernel
 // (slots 0-2) or exported for external NEE (slots 3-5: the SF_* rows to
 // `surf_out` and the shading flag in hit row 5, as K1 exports them; the JAX
 // kernel computes those rows but leaves its surf_out unwritten), and the
 // environment switches has_env and final_env of K1 (bounce_fused.cuh), and
 // K1's texture switch has_tex / tex_maps on the HA rows (the template
-// parameter HasTex; the UV, LODB, tangent rows ride in HA from K3's winner).
+// parameter HasTex; the UV, LODB, tangent rows ride in HA from K3's winner),
+// and K1's micromap switch (the template parameter HasOmm, omm=True at
+// :561-571: K3's HA_UNK flag into the alpha test and the pass-through, the
+// alpha uniform out in SH_UA).
 // Plain version: rtxpt_tpu_torch/pt/bounce_clustered.py shade_reference;
 // wrapper: bounce_clustered.shade.
 //
@@ -36,7 +39,7 @@ namespace {
 
 constexpr int kThreads = 128;
 
-template <bool HasTex>
+template <bool HasTex, bool HasOmm>
 __global__ void __launch_bounds__(kThreads)
 cluster_shade_kernel(const float* __restrict__ ha, const float* __restrict__ fs,
                      const int* __restrict__ is, float* __restrict__ fs_out,
@@ -45,8 +48,20 @@ cluster_shade_kernel(const float* __restrict__ ha, const float* __restrict__ fs,
                      rt::Tables tb, rt::Config cfg, int n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  rt::cl::shade_lane<HasTex>(i, n, ha, fs, is, fs_out, is_out, sh_out, hit_out,
-                             surf_out, tb, cfg);
+  rt::cl::shade_lane<HasTex, HasOmm>(i, n, ha, fs, is, fs_out, is_out, sh_out, hit_out,
+                                     surf_out, tb, cfg);
+}
+
+template <bool HasTex>
+void launch(bool omm, int blocks, cudaStream_t stream, const float* ha, const float* fs,
+            const int* is, float* fs_out, int* is_out, float* sh_out, float* hit_out,
+            float* surf_out, const rt::Tables& tb, const rt::Config& cfg, int n) {
+  if (omm)
+    cluster_shade_kernel<HasTex, true><<<blocks, kThreads, 0, stream>>>(
+        ha, fs, is, fs_out, is_out, sh_out, hit_out, surf_out, tb, cfg, n);
+  else
+    cluster_shade_kernel<HasTex, false><<<blocks, kThreads, 0, stream>>>(
+        ha, fs, is, fs_out, is_out, sh_out, hit_out, surf_out, tb, cfg, n);
 }
 
 }  // namespace
@@ -54,12 +69,13 @@ cluster_shade_kernel(const float* __restrict__ ha, const float* __restrict__ fs,
 // `surf_out` ([SF_ROWS, n] or NULL) receives the exported surface in the
 // external modes; `env` ([ET_SIZE] or NULL) is the environment table, which
 // `final_env` needs; `tex` / `tex_meta` / `n_tex` / `tex_maps` the texture
-// tables as K1 takes them (NULL for the untextured variant).
+// tables as K1 takes them (NULL for the untextured variant); `omm` selects
+// the micromap variant.
 extern "C" int rtxpt_cluster_shade(
     const float* ha, const float* fs, const int* is, float* fs_out, int* is_out,
     float* sh_out, float* hit_out, float* surf_out, const float* mat_rows,
     const float* light_rows, const float* env, const float* tex, const int* tex_meta,
-    int n_tex, int tex_maps, int n, int n_lights,
+    int n_tex, int tex_maps, int omm, int n, int n_lights,
     unsigned int sample_idx, int nee_mode, int enable_mis, float firefly,
     int rr_enable, int min_rr, int low_discrepancy, int energy_comp, int maxb,
     int final_env, void* stream) {
@@ -76,6 +92,8 @@ extern "C" int rtxpt_cluster_shade(
   tb.n_tris = 0;
   tb.tpad = 0;
   tb.n_lights = n_lights;
+  tb.micro = nullptr;                // K3 decoded the cell: HA_UNK
+  tb.cover = nullptr;
   rt::Config cfg;
   cfg.sample_idx = sample_idx;
   cfg.nee_mode = nee_mode;
@@ -90,10 +108,10 @@ extern "C" int rtxpt_cluster_shade(
   cfg.final_env = final_env != 0;
   const int blocks = (n + kThreads - 1) / kThreads;
   if (tex != nullptr)
-    cluster_shade_kernel<true><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        ha, fs, is, fs_out, is_out, sh_out, hit_out, surf_out, tb, cfg, n);
+    launch<true>(omm != 0, blocks, (cudaStream_t)stream, ha, fs, is, fs_out, is_out,
+                 sh_out, hit_out, surf_out, tb, cfg, n);
   else
-    cluster_shade_kernel<false><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        ha, fs, is, fs_out, is_out, sh_out, hit_out, surf_out, tb, cfg, n);
+    launch<false>(omm != 0, blocks, (cudaStream_t)stream, ha, fs, is, fs_out, is_out,
+                  sh_out, hit_out, surf_out, tb, cfg, n);
   return (int)cudaGetLastError();
 }

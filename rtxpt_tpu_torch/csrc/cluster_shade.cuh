@@ -1,7 +1,8 @@
 // K4's per-lane body (cluster_shade.cu): surface_and_shade (bounce_fused.cuh)
 // on K3's HA rows, with the attribute fetch reading those rows; writes the
 // next state, the SH shadow request rows and the hit rows of lane i, and in
-// the external modes the SF_* rows (`surf_out`) and the shading flag. The
+// the external modes the SF_* rows (`surf_out`) and the shading flag. HasOmm:
+// K3's HA_UNK feeds the alpha test and SH_UA carries the alpha uniform. The
 // plain version is rtxpt_tpu_torch/pt/bounce_clustered.py shade_reference.
 #pragma once
 
@@ -11,7 +12,7 @@
 namespace rt {
 namespace cl {
 
-template <bool HasTex>
+template <bool HasTex, bool HasOmm>
 RT_HD void shade_lane(int i, int n, const float* __restrict__ ha,
                       const float* __restrict__ fs, const int* __restrict__ is,
                       float* __restrict__ fs_out, int* __restrict__ is_out,
@@ -26,6 +27,7 @@ RT_HD void shade_lane(int i, int n, const float* __restrict__ ha,
   h.v = H(HA_V);
   h.det = H(HA_FRONT);
   h.prim = -1;                       // surface_and_shade reads it only via A
+  h.unk = HasOmm && H(HA_UNK) > 0.5f;
   auto attr = [&](int r) { return H(HA_ATTR + r); };
   const int lb_in = s.lb;
   float* so = sh_out + i;
@@ -44,8 +46,8 @@ RT_HD void shade_lane(int i, int n, const float* __restrict__ ha,
     return;
   }
   SurfRows sf;
-  const ShadowRay sr =
-      surface_and_shade<HasTex>(s, h, attr, tb, cfg, surf_out != nullptr ? &sf : nullptr);
+  const ShadowRay sr = surface_and_shade<HasTex, HasOmm>(
+      s, h, attr, tb, cfg, surf_out != nullptr ? &sf : nullptr);
   store_state(i, n, s, fs_out, is_out);
   so[(SH_O + 0) * sn] = sr.o.x; so[(SH_O + 1) * sn] = sr.o.y; so[(SH_O + 2) * sn] = sr.o.z;
   so[(SH_D + 0) * sn] = sr.d.x; so[(SH_D + 1) * sn] = sr.d.y; so[(SH_D + 2) * sn] = sr.d.z;
@@ -54,7 +56,8 @@ RT_HD void shade_lane(int i, int n, const float* __restrict__ ha,
   so[(SH_CONTRIB + 1) * sn] = sr.contrib.y;
   so[(SH_CONTRIB + 2) * sn] = sr.contrib.z;
   so[SH_DO * sn] = sr.do_nee ? 1.0f : 0.0f;
-  for (int r = SH_CDIFF; r < SH_ROWS; ++r) so[r * sn] = 0.0f;
+  for (int r = SH_CDIFF; r < SH_UA; ++r) so[r * sn] = 0.0f;
+  so[SH_UA * sn] = sr.u_alpha;         // 0 without micromaps
   if (surf_out != nullptr) {
     store_surf(i, n, sf, surf_out);
     ho[5 * sn] = sf.shaded ? (lb_in > 0 ? 2.0f : 1.0f) : 0.0f;

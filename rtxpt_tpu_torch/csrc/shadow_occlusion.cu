@@ -2,9 +2,12 @@
 // (sm_90a).
 //
 // Replaces rtxpt_tpu/pt/bounce_pallas.py::_shadow_kernel (launched by
-// shadow_occlusion_call, pl.pallas_call at bounce_pallas.py:1597), without
-// opacity micromaps. Plain version: rtxpt_tpu_torch/pt/bounce_fused.py
-// occlusion_reference; wrapper: bounce_fused.occlusion.
+// shadow_occlusion_call, pl.pallas_call at bounce_pallas.py:1597), with and
+// without opacity micromaps (omm=True: a micro-TRANSPARENT candidate never
+// occludes, an UNKNOWN one where the request's alpha uniform, row SR_UA, is
+// under the triangle's coverage; K1's occluded<true>). Plain version:
+// rtxpt_tpu_torch/pt/bounce_fused.py occlusion_reference; wrapper:
+// bounce_fused.occlusion.
 //
 // Input: the shadow requests that pt/nee_external.py builds on the surfaces
 // K1 exported, sh [SR_ROWS, n] (origin, direction, distance, request flag).
@@ -31,6 +34,7 @@ namespace {
 
 constexpr int kThreads = 128;
 
+template <bool HasOmm>
 __global__ void __launch_bounds__(kThreads)
 shadow_occlusion_kernel(const float* __restrict__ sh, float* __restrict__ occ_out,
                         int* __restrict__ tests, rt::Tables tb, int n) {
@@ -42,7 +46,8 @@ shadow_occlusion_kernel(const float* __restrict__ sh, float* __restrict__ occ_ou
   if (SH(rt::SR_DO) > 0.5f) {
     const rt::V3 o = rt::v3(SH(rt::SR_O), SH(rt::SR_O + 1), SH(rt::SR_O + 2));
     const rt::V3 d = rt::v3(SH(rt::SR_D), SH(rt::SR_D + 1), SH(rt::SR_D + 2));
-    occ = rt::occluded(tb, o, d, SH(rt::SR_DIST), tested);
+    occ = rt::occluded<HasOmm>(tb, o, d, SH(rt::SR_DIST), HasOmm ? SH(rt::SR_UA) : 0.0f,
+                               tested);
   }
   occ_out[i] = occ ? 1.0f : 0.0f;
   if (tests != nullptr) tests[i] = tested;
@@ -50,8 +55,11 @@ shadow_occlusion_kernel(const float* __restrict__ sh, float* __restrict__ occ_ou
 
 }  // namespace
 
+// `micro` and `cover` ([tpad] each, or NULL): the micromap words and
+// coverages of the omm variant.
 extern "C" int rtxpt_shadow_occlusion(const float* sh, float* occ, int* tests,
-                                      const float* tri_coef, int n, int n_tris,
+                                      const float* tri_coef, const int* micro,
+                                      const float* cover, int n, int n_tris,
                                       void* stream) {
   rt::Tables tb;
   tb.tri = tri_coef;
@@ -61,8 +69,14 @@ extern "C" int rtxpt_shadow_occlusion(const float* sh, float* occ, int* tests,
   tb.n_tris = n_tris;
   tb.tpad = 0;
   tb.n_lights = 0;
+  tb.micro = micro;
+  tb.cover = cover;
   const int blocks = (n + kThreads - 1) / kThreads;
-  shadow_occlusion_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      sh, occ, tests, tb, n);
+  if (micro != nullptr)
+    shadow_occlusion_kernel<true><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        sh, occ, tests, tb, n);
+  else
+    shadow_occlusion_kernel<false><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        sh, occ, tests, tb, n);
   return (int)cudaGetLastError();
 }

@@ -16,7 +16,10 @@ through. An instanced variant counts under its own name
 ("cluster_closest_inst", "cluster_shadow_inst"), and so do the shading
 kernels' texture and environment variants ("bounce_fused_tex",
 "bounce_fused_env", "bounce_fused_tex_env", "bounce_fused_final", and the
-same for "cluster_shade": bounce_fused.variant_name). `build_all()` builds
+same for "cluster_shade": bounce_fused.variant_name), and so do the
+micromap variants ("bounce_fused_omm_tex", "shadow_occlusion_omm",
+"cluster_closest_omm", "cluster_shade_omm_tex", "cluster_shadow_omm",
+"bvh_traverse_omm"). `build_all()` builds
 every library at once, one nvcc process per source.
 """
 
@@ -151,6 +154,7 @@ BOUNCE_FUSED = CudaLibrary(
         _P,                            # env table | NULL
         _P, _P, _I, _I,                # tex | NULL, tex_meta, n_tex,
         #                                tex_maps
+        _P, _P,                        # micromap words, covers | NULL
         _I, _I, _I, _I,                # n, n_tris, tpad, n_lights
         _U,                            # sample_idx
         _I, _I, _F, _I, _I, _F,        # nee_mode, mis, firefly, rr, min_rr,
@@ -165,6 +169,7 @@ SHADOW_OCCLUSION = CudaLibrary(
     "shadow_occlusion", ["shadow_occlusion.cu"],
     {"rtxpt_shadow_occlusion": [
         _P, _P, _P, _P,                # sh, occ, tests|NULL, tri_coef
+        _P, _P,                        # micromap words, covers | NULL
         _I, _I,                        # n, n_tris
         _P]})                          # cudaStream_t
 
@@ -174,7 +179,9 @@ SHADOW_OCCLUSION = CudaLibrary(
 CLUSTER_CLOSEST = CudaLibrary(
     "cluster_closest", ["cluster_closest.cu"],
     {"rtxpt_cluster_closest": [
-        _P, _P, _P, _P, _P,            # cand, od, blocks, ha, visits|NULL
+        _P, _P, _P,                    # cand, od, blocks
+        _P,                            # micromap words | NULL
+        _P, _P,                        # ha, visits|NULL
         _I, _I, _F, _I,                # n_groups, kslots, max_travel, noprune
         _P],                           # cudaStream_t
      "rtxpt_cluster_closest_inst": [
@@ -193,6 +200,7 @@ CLUSTER_SHADE = CudaLibrary(
         _P, _P, _P,                    # mat, light rows, env table | NULL
         _P, _P, _I, _I,                # tex | NULL, tex_meta, n_tex,
         #                                tex_maps
+        _I,                            # omm
         _I, _I, _U,                    # n, n_lights, sample_idx
         _I, _I, _F, _I, _I,            # nee_mode, mis, firefly, rr, min_rr
         _I, _I, _I,                    # low_discrepancy, energy_comp, maxb
@@ -204,7 +212,9 @@ CLUSTER_SHADE = CudaLibrary(
 CLUSTER_SHADOW = CudaLibrary(
     "cluster_shadow", ["cluster_shadow.cu"],
     {"rtxpt_cluster_shadow": [
-        _P, _P, _P, _P, _P,            # cand, sh, blocks, occ, tests|NULL
+        _P, _P, _P,                    # cand, sh, blocks
+        _P, _P,                        # micromap words, covers | NULL
+        _P, _P,                        # occ, tests|NULL
         _I, _I,                        # n_groups, kslots
         _P],                           # cudaStream_t
      "rtxpt_cluster_shadow_inst": [
@@ -229,6 +239,7 @@ BVH_TRAVERSE = CudaLibrary(
     "bvh_traverse", ["bvh_traverse.cu"],
     {"rtxpt_bvh_traverse": [
         _P, _P, _P, _P, _P,            # o, d, tmin, tmax, nodes
+        _P,                            # micromap words | NULL
         _P, _P, _P, _P,                # t, prim, uv, front
         _P, _P,                        # visits|NULL, tests|NULL
         _I, _I,                        # n, any_hit

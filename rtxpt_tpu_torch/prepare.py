@@ -19,8 +19,18 @@ neither table and renders on the general tier, as in the JAX package. A
 scene with textures bakes them into one atlas (scene/textures.py
 `bake_textures`), which the general tier samples and which the fused and
 cluster tables carry for the kernels' texture switch (unless it is past
-their cap); its materials go to the render device with it. Alpha-tested
-textures (opacity micromaps) are not ported: prepare raises for them.
+their cap); its materials go to the render device with it.
+
+Alpha-tested geometry (a material with an alpha cutoff and a base-colour
+texture with alpha) gets opacity micromaps (scene/omm.py): the bake
+classifies every triangle, the TRANSPARENT ones are dropped before the
+BVH, the packs and the lights, and the MIXED ones carry a level-2
+micromap word and an unknown-cell coverage, which the Morton order
+permutes with every other per-triangle array; the BVH carries the words
+in its leaf order (`tri_micro`, for the walk's test), and the fused and
+cluster tables carry words and coverages for the kernels. Such a host is
+never made a two-level scene (accel/tlas.py declines it, as the JAX
+package's does).
 
 A two-level scene (`_prepare_two_level`) keeps the prototypes' triangles
 in object space beside the TLAS (accel/tlas.py), whose walk serves the
@@ -53,7 +63,7 @@ from rtxpt_tpu_torch.lighting.lights_baker import (
 from rtxpt_tpu_torch.pt.bounce_fused import (
     ENV_H, ENV_W, MAX_TRIS, build_bounce_tables, env_table_serves,
     tables_from_numpy)
-from rtxpt_tpu_torch.pt.dispatch import alpha_tested
+from rtxpt_tpu_torch.scene.omm import TRANSPARENT, bake_opacity_micromaps
 from rtxpt_tpu_torch.scene.scene import (
     AnalyticLights, Geometry, HostScene, Materials, SceneData, build_packs)
 from rtxpt_tpu_torch.scene.textures import bake_textures
@@ -131,15 +141,34 @@ def _prepare_two_level(host: HostScene, built: dict, device,
 
 
 def _textures(host: HostScene, device):
-    """The host's texture atlas on `device`, or None without textures;
-    raises NotImplementedError for alpha-tested textures."""
+    """The host's texture atlas on `device`, or None without textures."""
     if not host.textures:
         return None
-    if alpha_tested(host):
-        raise NotImplementedError(
-            "alpha-tested textures (opacity micromaps) are not ported to "
-            "rtxpt_tpu_torch yet")
     return bake_textures(host.textures, device=device)
+
+
+def _opacity(host: HostScene, sd: SceneData):
+    """The opacity bake of a flattened host (rtxpt_tpu/prepare.py:134-158):
+    (sd without its TRANSPARENT triangles, classes, words, coverages),
+    the last three None when no triangle is alpha-tested or none is MIXED
+    after the drop."""
+    if not host.textures:
+        return sd, None, None, None
+    baked = bake_opacity_micromaps(host, sd.materials, host.textures)
+    if baked is None:
+        return sd, None, None, None
+    classes, words, covers = baked
+    keep = classes != TRANSPARENT
+    if not keep.all():
+        g = sd.geometry
+        k = torch.as_tensor(keep)
+        sd = sd.replace(geometry=dataclasses.replace(
+            g, indices=g.indices[k], tri_material=g.tri_material[k],
+            tri_subinstance=g.tri_subinstance[k]))
+        classes, words, covers = classes[keep], words[keep], covers[keep]
+    if not (classes != 0).any():
+        return sd, None, None, None
+    return sd, classes, words, covers
 
 
 def prepare(host: HostScene, device="cuda", instancing: str = "auto",
@@ -161,8 +190,8 @@ def prepare(host: HostScene, device="cuda", instancing: str = "auto",
     builds it whenever build_two_level takes the scene and raises
     ValueError otherwise.
 
-    Raises NotImplementedError for alpha-tested textures (opacity
-    micromaps), which the port does not serve yet."""
+    An alpha-tested host gets its opacity micromaps (the module's
+    docstring)."""
     device = rtxpt_tpu_torch.device(device)
     if instancing not in ("auto", "off", "force"):
         raise ValueError(f"instancing {instancing!r} is not one of "
@@ -179,17 +208,22 @@ def prepare(host: HostScene, device="cuda", instancing: str = "auto",
                 "restriction (alpha-tested textures)")
     sd = host.flatten()
     textures = _textures(host, device)
+    sd, classes, words, covers = _opacity(host, sd)
     g = sd.geometry
     pos = g.positions.numpy()
     idx = g.indices.numpy()
     clustered = len(idx) > MAX_TRIS
     if clustered:
-        perm = torch.as_tensor(morton_permutation(pos, idx))
+        perm_np = morton_permutation(pos, idx)
+        perm = torch.as_tensor(perm_np)
         g = dataclasses.replace(g, indices=g.indices[perm],
                                 tri_material=g.tri_material[perm],
                                 tri_subinstance=g.tri_subinstance[perm])
         sd = sd.replace(geometry=g)
         idx = g.indices.numpy()
+        if classes is not None:
+            classes, words, covers = (classes[perm_np], words[perm_np],
+                                      covers[perm_np])
     if env_res == "auto":
         env_res = (ENV_H, ENV_W) if host.envmap_image is not None else None
     envmap = bake_envmap(host.envmap_image, host.envmap_scale,
@@ -200,9 +234,21 @@ def prepare(host: HostScene, device="cuda", instancing: str = "auto",
             sd.materials, lights)
     has_prio = bool(torch.any(sd.materials.nested_priority != 0))
     tri_pack, mat_pack = build_packs(g, sd.materials)
+    bvh = build_bvh(pos, idx, device=device)
+    omm = {}
+    if classes is not None:
+        # the words as i32 bits; the BVH's in its leaf order; the retrace
+        # reads the geometry on the render device
+        w32 = words.view(np.int32)
+        bvh = bvh.replace(tri_micro=torch.as_tensor(
+            w32[bvh.prim_tri.cpu().numpy()]).to(device))
+        sd = sd.replace(
+            tri_opacity=torch.as_tensor(classes.astype(np.int32)).to(device),
+            tri_micromap=torch.as_tensor(w32).to(device),
+            geometry=sd.geometry.to(device))
+        omm = dict(tri_micromap=words, tri_cover=covers)
     sd = sd.replace(lights=lights, envmap=envmap, textures=textures,
-                    has_nested_priorities=has_prio,
-                    bvh=build_bvh(pos, idx, device=device),
+                    has_nested_priorities=has_prio, bvh=bvh,
                     tri_pack=tri_pack.to(device),
                     mat_pack=mat_pack.to(device))
     if textures is not None:
@@ -212,10 +258,10 @@ def prepare(host: HostScene, device="cuda", instancing: str = "auto",
     if clustered:
         return sd.replace(cluster_tables=build_cluster_tables(
             *args, uvs=g.uvs.numpy(), envmap=envmap, textures=textures,
-            device=device))
+            device=device, **omm))
     return sd.replace(bounce_tables=build_bounce_tables(
         *args, uvs=g.uvs.numpy(), envmap=envmap, textures=textures,
-        device=device))
+        device=device, **omm))
 
 
 def scene_from_numpy(tables: dict, lights=None, device="cuda",
@@ -223,13 +269,13 @@ def scene_from_numpy(tables: dict, lights=None, device="cuda",
     """SceneData from the JAX package's prepared bounce tables as numpy
     arrays: keys tri_rows, attr_rows, mat_rows, light_rows, tc, n_chunks,
     n_lights, n_tris, env_rows and tex_ct, tex_meta, tex_maps (the
-    BounceTables fields), with the light list and the environment map
-    (lighting/envmap.py envmap_from_numpy) the NEE and the general tier
-    read. Table parts the port does not serve (omm, prio) must be absent,
-    None or false."""
+    BounceTables fields; omm with its 7-group tri_rows), with the light
+    list and the environment map (lighting/envmap.py envmap_from_numpy)
+    the NEE and the general tier read. Table parts the port does not serve
+    (prio) must be absent, None or false."""
     device = rtxpt_tpu_torch.device(device)
     tables = dict(tables)
-    _refuse_parts(tables, ("omm", "prio"), "bounce")
+    _refuse_parts(tables, ("prio",), "bounce")
     tables.pop("tr", None)
     bt = tables_from_numpy(device=device, **tables)
     return SceneData(geometry=None, materials=None, analytic_lights=None,
@@ -242,12 +288,10 @@ def cluster_scene_from_numpy(tables: dict, lights=None, device="cuda",
     arrays: keys blocks, aabb_lo, aabb_hi, mat_rows, light_rows, offsets,
     n_clusters, n_tris, n_lights, env_rows, and for instanced tables
     instanced, wc_block, wc_inst, xf and inst_post (the ClusterTables
-    fields; tex_ct, tex_meta and tex_maps too), with the light list and the
-    environment map. Parts the port does not serve (omm) must be absent,
-    None or false."""
+    fields; tex_ct, tex_meta and tex_maps too; omm with its 7-slot
+    blocks), with the light list and the environment map."""
     device = rtxpt_tpu_torch.device(device)
     tables = dict(tables)
-    _refuse_parts(tables, ("omm",), "cluster")
     tables.pop("tr", None)
     ct = cluster_tables_from_numpy(device=device, **tables)
     return SceneData(geometry=None, materials=None, analytic_lights=None,

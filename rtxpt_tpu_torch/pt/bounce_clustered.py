@@ -26,6 +26,18 @@ With an environment, a final round follows the last bounce: K3 over the
 still-active rays (no sort) and K4's `final_env` variant, which adds the
 environment of the rays that escape.
 
+Tables with opacity micromaps (accel/cluster.py `omm_word`, `omm_cov`)
+run K3's, K4's and K5's micromap variants when the textures ride in the
+kernels (stochastic texture filtering, the JAX package's gate): K3 rejects
+micro-TRANSPARENT candidates and flags a winner on an UNKNOWN cell
+(HA_UNK), both with the JAX kernels' near-edge rule (`_EDGE4`: within the
+split-bf16 error of a cell edge a candidate counts as UNKNOWN, so that the
+two packages never disagree on a decisive state); K4 tests such a hit's
+alpha at MIP 0 and lets it pass through; K5 resolves UNKNOWN cells
+stochastically against the coverage, with each lane's alpha uniform
+(SH_UA). `cfg.passthrough_extra_iters` more rounds let pass-through lanes
+reach their max_bounces.
+
 K3, K4 and K5 are CUDA kernels written by hand for Hopper
 (csrc/cluster_closest.cu, cluster_shade.cu, cluster_shadow.cu) and
 replace the TPU kernels `_kernel_a1`, `_kernel_a2` and `_kernel_b1`.
@@ -82,6 +94,7 @@ from rtxpt_tpu_torch.ops.wavefront import (
     pixel_morton_key, ray_coherence_key, sort_rows_by_key, unsort_rows)
 from rtxpt_tpu_torch.pt import bounce_fused as bf
 from rtxpt_tpu_torch.pt import wide as W
+from rtxpt_tpu_torch.scene.omm import micro_index, micro_state
 from rtxpt_tpu_torch.utils import rng
 
 CT = CL.CT
@@ -99,6 +112,10 @@ MARGIN = 2e-3
 _TIE_BUMP = 1e-4
 REFIT_EPS = 1e-3         # refit acceptance band (barycentric units)
 SHADOW_T_EPS = 2e-4      # any-hit backoff for the split-bf16 t rounding
+# Micro-cell edge guard band (cell units): the split-bf16 (u, v) carry
+# MARGIN-scale error, so a candidate within this band of a micro-cell
+# boundary is never rejected as TRANSPARENT; it resolves as UNKNOWN.
+_EDGE4 = 4.0 * 4.0 * MARGIN
 
 # K3 ray operand rows [OD_ROWS, N] (global coordinates)
 OD_D = 0                 # 0:3 direction
@@ -114,7 +131,7 @@ HA_V = 2
 HA_FRONT = 3             # winner det (refit-exact); > 0 = front face
 HA_PRIM = 4              # global triangle index (-1 = miss)
 HA_ATTR = 5              # + bf.AT_ROWS attribute rows (bf.AT_* order)
-HA_UNK = HA_ATTR + bf.AT_ROWS   # opacity micromaps: always 0 here
+HA_UNK = HA_ATTR + bf.AT_ROWS   # the winner's micro-cell is UNKNOWN (omm)
 HA_INST = HA_UNK + 1            # winner instance (instanced; -1 = none)
 HA_ROWS = HA_INST + 1
 
@@ -125,7 +142,7 @@ SH_DIST = 6
 SH_CONTRIB = 7           # 7:10
 SH_DO = 10
 SH_CDIFF = 11            # 11:14 split channels: always 0 here
-SH_UA = 14               # opacity micromaps: always 0 here
+SH_UA = 14               # the stochastic alpha uniform (opacity micromaps)
 SH_ROWS = 15
 
 # bounce-table attribute row -> cluster attribute row
@@ -210,6 +227,36 @@ def _signed(det, un, vn, tn):
     return det * s, un * s, vn * s, tn * s
 
 
+def micro_state_guarded(word, su, sv, absd):
+    """(state, near) of candidates at their split-bf16 barycentrics
+    (bounce_clustered._micro_state_guarded): u, v = clip(s / |det|, 0, 1);
+    `near` marks a point within _EDGE4 of its micro-cell's edges, which
+    K3 and K5 treat as UNKNOWN."""
+    inv_d = 1.0 / torch.clamp(absd, min=1e-30)
+    u = torch.clamp(su * inv_d, 0.0, 1.0)
+    v = torch.clamp(sv * inv_d, 0.0, 1.0)
+    uu = u * 4.0
+    vv = v * 4.0
+    du = uu - torch.clamp(torch.floor(uu), max=3.0)
+    dv = vv - torch.clamp(torch.floor(vv), max=3.0)
+    near = ((du < _EDGE4) | (du > 1.0 - _EDGE4) | (dv < _EDGE4)
+            | (dv > 1.0 - _EDGE4) | (torch.abs(du + dv - 1.0) < _EDGE4))
+    return micro_state(word, micro_index(u, v)), near
+
+
+def _candidate_states(valid, micro, cid, su, sv, absd):
+    """(state, near) [g, CT, FL] of one visit's candidates, decoded only
+    where `valid` (the geometric test) holds: elsewhere the plain
+    versions never read them (state 0, near False)."""
+    state = torch.zeros(valid.shape, dtype=torch.int64, device=valid.device)
+    near = torch.zeros_like(valid)
+    at = valid.nonzero(as_tuple=True)
+    if at[0].numel():
+        state[at], near[at] = micro_state_guarded(
+            micro[cid][at[0], at[1]], su[at], sv[at], absd[at])
+    return state, near
+
+
 def inst_base(kslots: int) -> int:
     """Start of the per-slot instance ids that `map_cand_inst` appends to
     a candidate row."""
@@ -236,7 +283,7 @@ def object_operand(m, d, oxd, o):
 
 def closest_hit_reference(cand, od, blocks, kslots: int, max_travel: float,
                           noprune: bool = False, stats: bool = False,
-                          xf=None):
+                          xf=None, micro=None):
     """K3's plain version (the function of `_kernel_a1`): for each group,
     walk its candidate clusters nearest first (stopping once no active
     lane's committed t reaches the next slot's hull entry), select each
@@ -250,7 +297,13 @@ def closest_hit_reference(cand, od, blocks, kslots: int, max_travel: float,
     candidate rows carry pool block ids and the appended instance ids
     (`map_cand_inst`), each visit maps the ray into its instance's object
     frame, the refit runs on the winner's object ray, and HA_INST holds
-    the winner's instance."""
+    the winner's instance. With `micro` (the tables' omm_word [C, CT],
+    flat tables): `_kernel_a1(omm=True)`, a micro-TRANSPARENT candidate
+    is rejected in the selection unless it is near a micro-cell edge, and
+    HA_UNK flags a winner whose cell is UNKNOWN or near an edge."""
+    if micro is not None and xf is not None:
+        raise ValueError("closest_hit: the instanced variant has no "
+                         "micromaps")
     G = cand.shape[0]
     dev = od.device
     odg = od.view(OD_ROWS, G, FL)
@@ -259,6 +312,7 @@ def closest_hit_reference(cand, od, blocks, kslots: int, max_travel: float,
     best_c = torch.zeros((G, FL), dtype=torch.int64, device=dev)
     best_j = torch.zeros((G, FL), dtype=torch.int64, device=dev)
     best_i = torch.zeros((G, FL), dtype=torch.int64, device=dev)
+    best_unk = torch.zeros((G, FL), dtype=torch.bool, device=dev)
     iota = torch.arange(CT, device=dev)[None, :, None]
     running = torch.ones((G,), dtype=torch.bool, device=dev)
     visits = torch.zeros((G,), dtype=torch.int32, device=dev)
@@ -287,17 +341,24 @@ def closest_hit_reference(cand, od, blocks, kslots: int, max_travel: float,
         strict = (su >= 0.0) & (sv >= 0.0) & (su + sv <= absd)
         tt = st * (1.0 / torch.clamp(absd, min=1e-30))
         tt = tt * torch.where(strict, 1.0, 1.0 + _TIE_BUMP)
+        if micro is not None:
+            state, near = _candidate_states(valid, micro, cid, su, sv, absd)
+            valid = valid & ((state != bf.MICRO_TRANSPARENT) | near)
+            unk_c = (state == bf.MICRO_UNKNOWN) | near
         t_m = torch.where(valid, tt, _BIG)
         t_c = t_m.amin(dim=1)                                 # [g, FL]
         j_c = torch.where(t_m <= t_c[:, None], iota, CT).amin(dim=1)
         improved = t_c < best_t[gs]
+        if micro is not None:
+            unk_w = torch.gather(unk_c, 1, j_c[:, None])[:, 0]
+            best_unk[gs] = torch.where(improved, unk_w, best_unk[gs])
         best_t[gs] = torch.where(improved, t_c, best_t[gs])
         best_c[gs] = torch.where(improved, cid[:, None], best_c[gs])
         best_j[gs] = torch.where(improved, j_c, best_j[gs])
         if xf is not None:
             best_i[gs] = torch.where(improved, iid[:, None], best_i[gs])
     ha = _refit(odg, blocks, best_t, best_c, best_j, max_travel,
-                None if xf is None else (xf, best_i))
+                None if xf is None else (xf, best_i), best_unk)
     return (ha, visits) if stats else ha
 
 
@@ -311,10 +372,13 @@ def _winner_rows(blocks, best_c, best_j, had, rows):
     return torch.where(had[None], vals, 0.0)
 
 
-def _refit(odg, blocks, best_t, best_c, best_j, max_travel, inst=None):
+def _refit(odg, blocks, best_t, best_c, best_j, max_travel, inst=None,
+           unk=None):
     """The winners' exact f32 refit and the HA rows. `inst` = (xf, best_i)
     on instanced tables: the refit runs on each winner's object ray (zero
-    where a lane has no winner) and HA_INST holds its instance."""
+    where a lane has no winner) and HA_INST holds its instance. `unk`
+    [G, FL] bool: the winners' UNKNOWN flags (HA_UNK, where the refit
+    keeps the hit)."""
     had = best_t < _BIG
     cen_cols = torch.tensor([CL.CENTER_ROW * CL.LANES + a * CT
                              for a in range(3)], device=blocks.device)
@@ -354,17 +418,19 @@ def _refit(odg, blocks, best_t, best_c, best_j, max_travel, inst=None):
     inst_row = torch.full((G, FL), -1.0, device=best_t.device)
     if inst is not None:
         inst_row = torch.where(hitr, inst[1].to(torch.float32), -1.0)
+    unk_row = torch.zeros((G, FL), device=best_t.device)
+    if unk is not None:
+        unk_row = (hitr & unk).to(torch.float32)
     ha = torch.cat([
         torch.stack([torch.where(hitr, tx, _BIG), u, v,
                      torch.where(hitr, detx, -1.0),
                      torch.where(hitr, extra[1], -1.0)]),
-        extra[2:],
-        torch.zeros((1, G, FL), device=best_t.device), inst_row[None]])
+        extra[2:], unk_row[None], inst_row[None]])
     return ha.reshape(HA_ROWS, G * FL)
 
 
 def occlusion_reference(cand, sh, blocks, kslots: int, stats: bool = False,
-                        xf=None):
+                        xf=None, micro=None, cover=None):
     """K5's plain version (the function of `_kernel_b1`): for each group,
     walk its candidate clusters until every lane is occluded; a lane is
     occluded by any triangle strictly inside (no margins) at
@@ -375,13 +441,21 @@ def occlusion_reference(cand, sh, blocks, kslots: int, stats: bool = False,
     with `stats`, (occ, tests [G] i32: the ray-triangle pairs the group
     tested, a lane's test of a slot ending at its first occluder). With
     `xf` ([I,10,10]): `_kernel_b1_inst`, each visit in its instance's
-    object frame (as closest_hit_reference)."""
+    object frame (as closest_hit_reference). With `micro` and `cover`
+    (omm_word, omm_cov [C, CT], flat tables): `_kernel_b1(omm=True)`, a
+    micro-TRANSPARENT candidate never occludes, and an UNKNOWN or
+    near-edge one occludes where the lane's alpha uniform (SH_UA) is
+    under its coverage."""
+    if micro is not None and xf is not None:
+        raise ValueError("occlusion: the instanced variant has no "
+                         "micromaps")
     G = cand.shape[0]
     shg = sh.view(SH_ROWS, G, FL)
     o = shg[SH_O:SH_O + 3]
     d = shg[SH_D:SH_D + 3]
     oxd = W.cross3(o, d)
     dist = shg[SH_DIST] * (1.0 - SHADOW_T_EPS)
+    ua = shg[SH_UA]
     occ = torch.where(shg[SH_DO] > 0.5, 0.0, 1.0)
     running = torch.ones((G,), dtype=torch.bool, device=sh.device)
     tests = torch.zeros((G,), dtype=torch.int32, device=sh.device)
@@ -391,7 +465,8 @@ def occlusion_reference(cand, sh, blocks, kslots: int, stats: bool = False,
         gs = running.nonzero()[:, 0]
         if gs.numel() == 0:
             break
-        blk = blocks[cand[gs, 0, 1 + i].long()]
+        cid = cand[gs, 0, 1 + i].long()
+        blk = blocks[cid]
         ray = (d[:, gs], oxd[:, gs], o[:, gs])
         if xf is not None:
             iid = cand[gs, 0, inst_base(kslots) + i].long()
@@ -401,6 +476,11 @@ def occlusion_reference(cand, sh, blocks, kslots: int, stats: bool = False,
         valid = ((absd > 1e-30) & (su >= 0.0) & (sv >= 0.0)
                  & (su + sv <= absd) & (st > 0.0)
                  & (st < dist[gs][:, None] * absd))
+        if micro is not None:
+            state, near = _candidate_states(valid, micro, cid, su, sv, absd)
+            unk = (state == bf.MICRO_UNKNOWN) | near
+            valid = valid & ((state != bf.MICRO_TRANSPARENT) | near) \
+                & (~unk | (ua[gs][:, None] < cover[cid][:, :, None]))
         hit = valid.any(dim=1)
         # argmax gives the first occluder's index
         tested = torch.where(hit, valid.to(torch.int32).argmax(dim=1) + 1, CT)
@@ -412,7 +492,8 @@ def occlusion_reference(cand, sh, blocks, kslots: int, stats: bool = False,
 
 
 def shade_reference(ha, fs, is_, tables, kcfg: bf.KernelConfig,
-                    sample_idx: int, final_env: bool = False):
+                    sample_idx: int, final_env: bool = False,
+                    omm: bool = False):
     """K4's plain version (the function of `_kernel_a2`): surface_and_shade
     on K3's hits. ha [HA_ROWS, N], fs [NF, N], is_ [NI, N] ->
     (fs_out [NF, N], is_out [NI, N], sh [SH_ROWS, N], hit [NH, N]), plus
@@ -420,7 +501,9 @@ def shade_reference(ha, fs, is_, tables, kcfg: bf.KernelConfig,
     row 5 is the shading flag (0 not shaded, 1 shaded at logical bounce
     0, 2 later) and the SH rows carry no request. `final_env`: the final
     environment-only round (bounce_fused.final_env_state, MIS in the NEE
-    modes 1 and 2 only, as `_kernel_a2`), SH rows and hit row 5 zero."""
+    modes 1 and 2 only, as `_kernel_a2`), SH rows and hit row 5 zero.
+    `omm` (`_kernel_a2(omm=True)`): HA_UNK feeds surface_and_shade's
+    alpha test and pass-through, and SH_UA carries the alpha uniform."""
     t = ha[HA_T]
     hit = t < _BIG
     front = ha[HA_FRONT] > 0.0
@@ -447,7 +530,8 @@ def shade_reference(ha, fs, is_, tables, kcfg: bf.KernelConfig,
         med1=is_[bf.IS_MED1].to(torch.int64), px=is_[bf.IS_PX],
         py=is_[bf.IS_PY], budget=is_[bf.IS_BUDGET],
         lb=is_[bf.IS_LBOUNCE].to(torch.int64), tables=tables, kcfg=kcfg,
-        sample_idx=sample_idx)
+        sample_idx=sample_idx,
+        omm_unknown=(ha[HA_UNK] > 0.5) if omm else None)
     fs_out = torch.cat([s["o_new"], s["wi_world"], s["thp"], s["L"],
                         s["prev_pdf"][None], s["cone"][None],
                         s["spread"][None]], dim=0)
@@ -457,9 +541,10 @@ def shade_reference(ha, fs, is_, tables, kcfg: bf.KernelConfig,
                           is_[bf.IS_PX], is_[bf.IS_PY], is_[bf.IS_BUDGET],
                           s["lbounce"].to(i32)], dim=0)
     do = s["do_nee"].to(torch.float32)
-    zeros = torch.zeros((4,) + t.shape, device=t.device)
+    zeros = torch.zeros((3,) + t.shape, device=t.device)
+    ua = s["u_alpha"] if omm else torch.zeros_like(t)
     sh = torch.cat([s["shadow_o"], s["shadow_d"], s["sdist"][None],
-                    s["contrib"], do[None], zeros], dim=0)
+                    s["contrib"], do[None], zeros, ua[None]], dim=0)
     ext = s["surf"] is not None
     flag = s["shaded"].to(torch.float32) \
         * (1.0 + (is_[bf.IS_LBOUNCE] > 0).to(torch.float32)) if ext else do
@@ -498,18 +583,34 @@ def _check_cand(cand, kslots, dev, xf=None):
         bf._check("xf", xf, torch.float32, (xf.shape[0], 10, 10), dev)
 
 
+def _check_micro(micro, cover, blocks, dev):
+    """Check the micromap side table ([C, CT] i32 words, f32 coverages)."""
+    c = blocks.shape[0]
+    bf._check("omm_word", micro, torch.int32, (c, CT), dev)
+    if cover is not None:
+        bf._check("omm_cov", cover, torch.float32, (c, CT), dev)
+
+
 def closest_hit(cand, od, blocks, kslots: int, max_travel: float,
-                noprune: bool = False, stats: bool = False, xf=None):
-    """K3 (csrc/cluster_closest.cu; its instanced variant with `xf`) for
+                noprune: bool = False, stats: bool = False, xf=None,
+                micro=None):
+    """K3 (csrc/cluster_closest.cu; its instanced variant with `xf`, its
+    micromap variant with `micro`, counted as "cluster_closest_omm") for
     CUDA tensors, its plain version for CPU tensors. Arguments and results
     as in `closest_hit_reference`."""
     dev = _device_of("closest_hit", od, cand, blocks,
-                     *(() if xf is None else (xf,)))
+                     *(() if xf is None else (xf,)),
+                     *(() if micro is None else (micro,)))
     if dev.type == "cpu":
         return closest_hit_reference(cand, od, blocks, kslots, max_travel,
-                                     noprune, stats, xf=xf)
+                                     noprune, stats, xf=xf, micro=micro)
+    if micro is not None and xf is not None:
+        raise ValueError("closest_hit: the instanced variant has no "
+                         "micromaps")
     g = cand.shape[0]
     _check_cand(cand, kslots, dev, xf)
+    if micro is not None:
+        _check_micro(micro, None, blocks, dev)
     bf._check("od", od, torch.float32, (OD_ROWS, g * FL), dev)
     bf._check("blocks", blocks, torch.float32,
               (blocks.shape[0], CL.BLK_ROWS, CL.LANES), dev)
@@ -517,27 +618,38 @@ def closest_hit(cand, od, blocks, kslots: int, max_travel: float,
     visits = torch.zeros((g,), dtype=torch.int32, device=dev)
     if g:
         name = "cluster_closest" if xf is None else "cluster_closest_inst"
+        extra = (xf.data_ptr(),) if xf is not None else (
+            None if micro is None else micro.data_ptr(),)
         with torch.cuda.device(dev):
             kernels.CLUSTER_CLOSEST.launch(
                 f"rtxpt_{name}", cand.data_ptr(), od.data_ptr(),
-                blocks.data_ptr(), *(() if xf is None else (xf.data_ptr(),)),
+                blocks.data_ptr(), *extra,
                 ha.data_ptr(), visits.data_ptr() if stats else None, g,
                 kslots, float(max_travel), int(noprune),
                 torch.cuda.current_stream(dev).cuda_stream)
-        kernels.launches[name] += 1
+        kernels.launches[name + ("_omm" if micro is not None else "")] += 1
     return (ha, visits) if stats else ha
 
 
-def occlusion(cand, sh, blocks, kslots: int, stats: bool = False, xf=None):
-    """K5 (csrc/cluster_shadow.cu; `_kernel_b1_inst` with `xf`) for CUDA
-    tensors, its plain version for CPU tensors. Arguments and results as
-    in `occlusion_reference`."""
+def occlusion(cand, sh, blocks, kslots: int, stats: bool = False, xf=None,
+              micro=None, cover=None):
+    """K5 (csrc/cluster_shadow.cu; `_kernel_b1_inst` with `xf`; its
+    micromap variant with `micro` and `cover`, counted as
+    "cluster_shadow_omm") for CUDA tensors, its plain version for CPU
+    tensors. Arguments and results as in `occlusion_reference`."""
     dev = _device_of("occlusion", sh, cand, blocks,
-                     *(() if xf is None else (xf,)))
+                     *(() if xf is None else (xf,)),
+                     *(() if micro is None else (micro, cover)))
     if dev.type == "cpu":
-        return occlusion_reference(cand, sh, blocks, kslots, stats, xf=xf)
+        return occlusion_reference(cand, sh, blocks, kslots, stats, xf=xf,
+                                   micro=micro, cover=cover)
+    if micro is not None and xf is not None:
+        raise ValueError("occlusion: the instanced variant has no "
+                         "micromaps")
     g = cand.shape[0]
     _check_cand(cand, kslots, dev, xf)
+    if micro is not None:
+        _check_micro(micro, cover, blocks, dev)
     bf._check("sh", sh, torch.float32, (SH_ROWS, g * FL), dev)
     bf._check("blocks", blocks, torch.float32,
               (blocks.shape[0], CL.BLK_ROWS, CL.LANES), dev)
@@ -545,27 +657,32 @@ def occlusion(cand, sh, blocks, kslots: int, stats: bool = False, xf=None):
     tests = torch.zeros((g,), dtype=torch.int32, device=dev)
     if g:
         name = "cluster_shadow" if xf is None else "cluster_shadow_inst"
+        extra = (xf.data_ptr(),) if xf is not None else (
+            (None, None) if micro is None
+            else (micro.data_ptr(), cover.data_ptr()))
         with torch.cuda.device(dev):
             kernels.CLUSTER_SHADOW.launch(
                 f"rtxpt_{name}", cand.data_ptr(), sh.data_ptr(),
-                blocks.data_ptr(), *(() if xf is None else (xf.data_ptr(),)),
+                blocks.data_ptr(), *extra,
                 occ.data_ptr(), tests.data_ptr() if stats else None, g,
                 kslots, torch.cuda.current_stream(dev).cuda_stream)
-        kernels.launches[name] += 1
+        kernels.launches[name + ("_omm" if micro is not None else "")] += 1
     return (occ, tests) if stats else occ
 
 
 def shade(ha, fs, is_, tables, kcfg: bf.KernelConfig, sample_idx: int,
-          final_env: bool = False):
-    """K4 (csrc/cluster_shade.cu) for CUDA tensors, its plain version for
-    CPU tensors. Arguments and results as in `shade_reference`."""
+          final_env: bool = False, omm: bool = False):
+    """K4 (csrc/cluster_shade.cu; its micromap variant with `omm`) for
+    CUDA tensors, its plain version for CPU tensors. Arguments and results
+    as in `shade_reference`."""
     dev = _device_of("shade", fs, ha, is_, tables.mat_rows,
                      tables.light_rows)
     if final_env and tables.env is None:
         raise ValueError("shade: final_env needs the tables' environment")
+    omm = omm and not final_env
     if dev.type == "cpu":
         return shade_reference(ha, fs, is_, tables, kcfg, sample_idx,
-                               final_env)
+                               final_env, omm)
     n = fs.shape[1]
     bf._check("ha", ha, torch.float32, (HA_ROWS, n), dev)
     bf._check("fs", fs, torch.float32, (bf.NF, n), dev)
@@ -598,13 +715,13 @@ def shade(ha, fs, is_, tables, kcfg: bf.KernelConfig, sample_idx: int,
             outs[4].data_ptr() if len(outs) > 4 else None,
             tables.mat_rows.data_ptr(), tables.light_rows.data_ptr(),
             None if tables.env is None else tables.env.data_ptr(),
-            *bf.tex_args(tables, tex), n, tables.n_lights,
+            *bf.tex_args(tables, tex), int(omm), n, tables.n_lights,
             int(sample_idx) & rng.M32, kcfg.nee_mode, int(kcfg.enable_mis),
             kcfg.firefly, int(kcfg.rr_enable), kcfg.min_rr,
             int(kcfg.low_discrepancy), int(kcfg.energy_comp), kcfg.maxb,
             int(final_env), torch.cuda.current_stream(dev).cuda_stream)
     kernels.launches[bf.variant_name("cluster_shade", tables.env is not None,
-                                     final_env, tex)] += 1
+                                     final_env, tex, omm)] += 1
     return outs
 
 
@@ -731,8 +848,9 @@ def sort_wavefront(fs, is_, src, first: bool, bounds):
 
 
 def sort_shadows(sh, bounds):
-    """The shadow-ray sort: rows K5 reads ([SH_ROWS, N], the others zero)
-    in ray coherence order, and the permutation to undo it."""
+    """The shadow-ray sort: rows K5 reads ([SH_ROWS, N]: origin,
+    direction, distance, request and alpha uniform; the others zero) in
+    ray coherence order, and the permutation to undo it."""
     do = sh[SH_DO] > 0.5
     key = ray_coherence_key(sh[SH_O:SH_O + 3], sh[SH_D:SH_D + 3], *bounds,
                             do)
@@ -740,21 +858,24 @@ def sort_shadows(sh, bounds):
     dodist = torch.where(do, sh[SH_DIST], -sh[SH_DIST])
     with record_function("rtxpt.sort"):
         _, rows, perm = sort_rows_by_key(
-            key, torch.cat([sh[SH_O:SH_D + 3], dodist[None]]))
+            key, torch.cat([sh[SH_O:SH_D + 3], dodist[None],
+                            sh[SH_UA:SH_UA + 1]]))
     shp = torch.zeros_like(sh)
     shp[SH_O:SH_D + 3] = rows[0:6]
     shp[SH_DIST] = torch.abs(rows[6])
     shp[SH_DO] = (rows[6] > 0.0).to(torch.float32)
+    shp[SH_UA] = rows[7]
     return shp, perm
 
 
 def closest_paged(fs, is_, tbl, kslots: int, pages: int, max_travel: float,
-                  noprune: bool = False):
+                  noprune: bool = False, omm: bool = False):
     """K3 over `pages` pages of each group's candidate order: page p culls
     the clusters after page p-1's last slot, up to each lane's committed
-    t, and the pages merge by least t. Returns (ha [HA_ROWS, N], the
-    final page's cull overflow); on instanced tables the attribute rows
-    are still in object space (`post_attr_inst`)."""
+    t, and the pages merge by least t; `omm`: K3's micromap variant.
+    Returns (ha [HA_ROWS, N], the final page's cull overflow); on
+    instanced tables the attribute rows are still in object space
+    (`post_attr_inst`)."""
     o3 = fs[bf.FS_O:bf.FS_O + 3]
     d3 = fs[bf.FS_D:bf.FS_D + 3]
     active = is_[bf.IS_ACTIVE] > 0
@@ -763,7 +884,8 @@ def closest_paged(fs, is_, tbl, kslots: int, pages: int, max_travel: float,
     for p in range(pages):
         cand, ovf = cull(o3, d3, active, tmax, tbl, kslots, lo=lo)
         ha_p = closest_hit(map_cand_inst(cand, tbl, kslots), od, tbl.blocks,
-                           kslots, max_travel, noprune, xf=tbl.xf)
+                           kslots, max_travel, noprune, xf=tbl.xf,
+                           micro=tbl.omm_word if omm else None)
         ha = ha_p if ha is None else torch.where(
             ha_p[HA_T:HA_T + 1] < ha[HA_T:HA_T + 1], ha_p, ha)
         if p + 1 < pages:
@@ -772,10 +894,11 @@ def closest_paged(fs, is_, tbl, kslots: int, pages: int, max_travel: float,
     return ha, ovf
 
 
-def occluded_paged(shp, tbl, kslots: int, pages: int):
+def occluded_paged(shp, tbl, kslots: int, pages: int, omm: bool = False):
     """K5 over `pages` pages of the sorted shadow rays' candidate order; a
-    lane takes part until a page occludes it, and the pages merge by OR.
-    Returns (occ [N], the final page's cull overflow)."""
+    lane takes part until a page occludes it, and the pages merge by OR;
+    `omm`: K5's micromap variant. Returns (occ [N], the final page's cull
+    overflow)."""
     # The cull's active mask stays the page-0 mask, so that each
     # cluster's hull entry (the page order) is the same on every page;
     # finished lanes drop out through tmax = -3e38 instead.
@@ -791,7 +914,9 @@ def occluded_paged(shp, tbl, kslots: int, pages: int):
         cand, ovf = cull(shp[SH_O:SH_O + 3], shp[SH_D:SH_D + 3], dop, tmax_p,
                          tbl, kslots, lo=lo)
         occ_p = occlusion(map_cand_inst(cand, tbl, kslots), shp_p,
-                          tbl.blocks, kslots, xf=tbl.xf)
+                          tbl.blocks, kslots, xf=tbl.xf,
+                          micro=tbl.omm_word if omm else None,
+                          cover=tbl.omm_cov if omm else None)
         occ = occ_p if occ is None else torch.where(part, occ_p, occ)
         if p + 1 < pages:
             lo = page_boundary(cand, kslots)
@@ -802,10 +927,17 @@ def trace_paths_clustered(scene, cfg, o, d, cone_spread, px, py,
                           sample_idx, neeat_state=None):
     """Trace a wavefront of camera rays to completion on the clustered
     tier (bounce_clustered.trace_paths_clustered of the JAX package, the
-    flat all-rows route, without aux buffers, micromaps or split
-    channels), flat or instanced; textures go in-kernel with stochastic
-    texture filtering only (`bounce_fused.use_tex`). `cfg` is resolved by
+    flat all-rows route, without aux buffers or split channels), flat or
+    instanced; textures go in-kernel with stochastic texture filtering
+    only (`bounce_fused.use_tex`). `cfg` is resolved by
     `dispatch.resolve`, which sets kslots, pages and nee_external.
+
+    Tables with micromaps run them with the texture path only
+    (bounce_clustered.py:1579): K3, K4 and K5 take their micromap
+    variants, the shadow rays carry each lane's alpha uniform (SH_UA,
+    K4's or, on the external route, `bounce_fused.alpha_uniform`), and
+    `cfg.passthrough_extra_iters` more rounds let pass-through lanes reach
+    their max_bounces.
 
     In the external-NEE modes (`cfg.nee_external`, or NEE-AT) K4 exports
     the shaded surface, `external_nee` selects and evaluates the light per
@@ -833,6 +965,7 @@ def trace_paths_clustered(scene, cfg, o, d, cone_spread, px, py,
     kcfg = bf.KernelConfig.from_cfg(cfg)
     use_nee = kcfg.nee_mode in (1, 2) and tbl.n_lights > 0
     ext = kcfg.external and tbl.n_lights > 0
+    omm = tbl.omm and bf.use_tex(tbl, kcfg)
     hist = None
     if ext:
         from rtxpt_tpu_torch.lighting import neeat as na
@@ -850,19 +983,20 @@ def trace_paths_clustered(scene, cfg, o, d, cone_spread, px, py,
     ray_count = torch.zeros((), dtype=torch.int64, device=dev)
     overflow = torch.zeros((), dtype=torch.int64, device=dev)
     occupancy = []
-    for b in range(cfg.max_bounces):
+    extra = int(getattr(cfg, "passthrough_extra_iters", 2)) if omm else 0
+    for b in range(cfg.max_bounces + extra):
         if sort_rays:
             fs, is_, src = sort_wavefront(fs, is_, src, b == 0, bounds)
         n_active = (is_[bf.IS_ACTIVE] > 0).sum(dtype=torch.int64)
         occupancy.append(n_active)
         ha, ovf = closest_paged(fs, is_, tbl, kslots, pages, max_travel,
-                                noprune)
+                                noprune, omm)
         ha = post_attr_inst(ha, tbl)
         d_in = fs[bf.FS_D:bf.FS_D + 3]
         prev_pdf_in = fs[bf.FS_PREVPDF]
         prev_delta_in = is_[bf.IS_PREVDELTA] > 0
         lb_in = is_[bf.IS_LBOUNCE]
-        out = shade(ha, fs, is_, tbl, kcfg, sample_idx)
+        out = shade(ha, fs, is_, tbl, kcfg, sample_idx, omm=omm)
         fs, is_, sh, hitb = out[:4]
         ray_count = ray_count + n_active
         overflow = overflow + ovf
@@ -874,17 +1008,21 @@ def trace_paths_clustered(scene, cfg, o, d, cone_spread, px, py,
                                    is_[bf.IS_PX], is_[bf.IS_PY], sample_idx,
                                    0, lb=lb_in)
                 fs[bf.FS_L:bf.FS_L + 3] += res["em_add"].T
+                ua = bf.alpha_uniform(cfg, is_[bf.IS_PX], is_[bf.IS_PY],
+                                      lb_in, sample_idx) if omm \
+                    else torch.zeros((npad,), device=dev)
                 sh = torch.cat([
                     res["shadow_o"].T, res["shadow_d"].T, res["sdist"][None],
                     res["contrib"].T, res["do_nee"].to(torch.float32)[None],
-                    torch.zeros((SH_ROWS - SH_CDIFF, npad), device=dev)])
+                    torch.zeros((SH_UA - SH_CDIFF, npad), device=dev),
+                    ua[None]])
         if use_nee or ext:
             do = sh[SH_DO] > 0.5
             if sort_rays:
                 shp, sperm = sort_shadows(sh, bounds)
             else:
                 shp = sh
-            occ, ovf = occluded_paged(shp, tbl, kslots, pages)
+            occ, ovf = occluded_paged(shp, tbl, kslots, pages, omm)
             if sort_rays:
                 occ = unsort_rows(sperm, occ[None])[0]
             ok = do & (occ < 0.5)
@@ -904,7 +1042,7 @@ def trace_paths_clustered(scene, cfg, o, d, cone_spread, px, py,
         with record_function("rtxpt.final"):
             n_active = (is_[bf.IS_ACTIVE] > 0).sum(dtype=torch.int64)
             ha, ovf = closest_paged(fs, is_, tbl, kslots, pages, max_travel,
-                                    noprune)
+                                    noprune, omm)
             ha = post_attr_inst(ha, tbl)
             fs, is_, _, _ = shade(ha, fs, is_, tbl, kcfg, sample_idx,
                                   final_env=True)

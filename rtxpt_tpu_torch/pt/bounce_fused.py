@@ -26,10 +26,18 @@ stochastic texture filtering on (`KernelConfig.stf`, the JAX package's
 rule), the `has_tex` variant fetches the materials' base-colour,
 metal-rough, emissive and normal maps at the ray cone's MIP, one jittered
 texel each (`tex_fetch`), and perturbs the shading normal in the
-triangle's UV tangent frame. No opacity micromaps, no nested priorities,
-no split channels and no V-buffer injection; sphere and
-environment-quad lights are the general tier's (`build_bounce_tables`
-raises NotImplementedError for them).
+triangle's UV tangent frame. With opacity micromaps (`BounceTables.omm`,
+scene/omm.py) the `omm` variant rejects micro-TRANSPARENT candidates in
+the closest-hit loop, lets a hit on an UNKNOWN micro-cell whose base
+alpha at MIP 0 fails its material's cutoff pass through (the lane keeps
+its path state and logical bounce and continues the same ray on the next
+iteration, for which `trace_paths_fused` runs
+`cfg.passthrough_extra_iters` more iterations), and resolves UNKNOWN
+cells in shadow rays stochastically against the baked coverage; K2 does
+the same for the external route's shadow rays. No nested priorities, no
+split channels and no V-buffer injection; sphere and environment-quad
+lights are the general tier's (`build_bounce_tables` raises
+NotImplementedError for them).
 
 Layouts are the JAX package's, minus the TPU tiling: the wavefront state
 is fs [NF, N] f32 and is_ [NI, N] i32 (one column per ray; rows FS_* and
@@ -51,6 +59,7 @@ from rtxpt_tpu_torch import kernels
 from rtxpt_tpu_torch.lighting.envmap import count_le
 from rtxpt_tpu_torch.pt import wide as W
 from rtxpt_tpu_torch.pt.surface import ray_offset
+from rtxpt_tpu_torch.scene.omm import micro_index, micro_state
 from rtxpt_tpu_torch.utils import rng
 
 # Geometry / table capacities
@@ -154,7 +163,8 @@ SR_O = 0                # 0:3 origin
 SR_D = 3                # 3:6 direction
 SR_DIST = 6             # occluders count in (0, dist)
 SR_DO = 7               # 1 = a request; a lane without one reads occluded
-SR_ROWS = 8
+SR_UA = 8               # the stochastic alpha uniform (opacity micromaps)
+SR_ROWS = 9
 
 EXTERNAL_MODES = (3, 4, 5)
 
@@ -195,13 +205,18 @@ EFFECT_SCATTER = 29
 EFFECT_NEE = 31
 EFFECT_RR = 37
 EFFECT_STF = 41
+EFFECT_ALPHA = 43
+
+# Opacity micromaps (scene/omm.py): the states of a level-2 micro-triangle
+MICRO_OPAQUE, MICRO_UNKNOWN, MICRO_TRANSPARENT = 0, 1, 2
 
 
 @dataclass(frozen=True)
 class BounceTables:
     """Scene tables of the fused bounce step (built at scene prep)."""
 
-    tri_rows: torch.Tensor    # [4*Tpad, 128] the JAX package's operand rows
+    tri_rows: torch.Tensor    # [G*Tpad, 128] the JAX package's operand rows
+    #                           (G = 4 groups per chunk, 7 with micromaps)
     attr_rows: torch.Tensor   # [AT_ROWS, Tpad]
     mat_rows: torch.Tensor    # [MT_ROWS, 128]
     light_rows: torch.Tensor  # [W.LROWS, 128]
@@ -215,6 +230,14 @@ class BounceTables:
     n_chunks: int = 1
     n_lights: int = 0
     n_tris: int = 0
+    # opacity micromaps: the kernels reject micro-TRANSPARENT hits in the
+    # intersection loop, test UNKNOWN ones against the texture at shading
+    # time and in shadow rays against the coverage; per triangle one u32
+    # word (stored as i32) and one f32 coverage, [Tpad] each (the JAX
+    # package's tri_rows carry them as 16-bit halves for its matrix unit)
+    omm: bool = False
+    tri_micro: Optional[torch.Tensor] = None
+    tri_cover: Optional[torch.Tensor] = None
 
     @property
     def device(self):
@@ -327,32 +350,45 @@ def pack_lights(lights) -> np.ndarray:
     return lt
 
 
-def compact_coefficients(tri_rows: np.ndarray, tc: int,
-                         n_chunks: int) -> np.ndarray:
-    """tri_rows [4*Tpad, 128] -> tri_coef [Tpad, TC_ROWS]: the same
-    coefficients, one contiguous row per triangle."""
+def compact_coefficients(tri_rows: np.ndarray, tc: int, n_chunks: int,
+                         omm: bool = False):
+    """tri_rows [G*Tpad, 128] -> tri_coef [Tpad, TC_ROWS]: the same
+    coefficients, one contiguous row per triangle; with `omm` (G = 7: the
+    micromap word's 16-bit halves and the coverage ride groups 4-6 at the
+    constant-1 column 9) also (tri_micro [Tpad] i32, the u32 word's bits,
+    tri_cover [Tpad] f32)."""
     tri_rows = np.asarray(tri_rows, np.float32)
+    ng = 7 if omm else 4
     coef = np.zeros((tc * n_chunks, TC_ROWS), np.float32)
+    words = np.zeros((tc * n_chunks,), np.int64)
+    cover = np.zeros((tc * n_chunks,), np.float32)
     for c in range(n_chunks):
-        g = tri_rows[4 * c * tc:4 * (c + 1) * tc].reshape(4, tc, 128)
+        g = tri_rows[ng * c * tc:ng * (c + 1) * tc].reshape(ng, tc, 128)
         rows = slice(c * tc, (c + 1) * tc)
         coef[rows, TC_DET:TC_DET + 3] = g[0, :, 0:3]
         coef[rows, TC_U:TC_U + 6] = g[1, :, 0:6]
         coef[rows, TC_V:TC_V + 6] = g[2, :, 0:6]
         coef[rows, TC_T:TC_T + 4] = g[3, :, 6:10]
-    return coef
+        if omm:
+            words[rows] = g[4, :, 9].astype(np.int64) \
+                | (g[5, :, 9].astype(np.int64) << 16)
+            cover[rows] = g[6, :, 9]
+    if not omm:
+        return coef
+    return coef, words.astype(np.uint32).view(np.int32), cover
 
 
 def tables_from_numpy(tri_rows, attr_rows, mat_rows, light_rows, tc,
                       n_chunks, n_lights, n_tris, device="cuda",
                       env_rows=None, tex_ct=None, tex_meta=None,
-                      tex_maps=(0, 0, 0, 0)) -> BounceTables:
+                      tex_maps=(0, 0, 0, 0), omm=False) -> BounceTables:
     """BounceTables on `device` (the GPU by default; raises without one)
     from the JAX layout's numpy arrays; `env_rows` is the JAX package's
     [EV_ROWS, 128] environment table or the port's [ET_SIZE] one;
     `tex_ct` / `tex_meta` the JAX package's texture tables ([4*128, TR]
     and [TXM_ROWS, 128]) or the port's (`build_tex_tables`), with
-    `tex_maps` the materials' map flags."""
+    `tex_maps` the materials' map flags; `omm`: tri_rows carry the
+    micromap groups (7 per chunk)."""
     import rtxpt_tpu_torch
 
     device = rtxpt_tpu_torch.device(device)
@@ -366,10 +402,22 @@ def tables_from_numpy(tri_rows, attr_rows, mat_rows, light_rows, tc,
     if tex_ct is not None:
         tex, meta = tex_tables(tex_ct, tex_meta)
         tex, meta = t(tex), torch.tensor(meta, device=device)
+    omm = bool(omm)
+    ng = 7 if omm else 4
+    if np.shape(tri_rows) != (ng * int(tc) * int(n_chunks), 128):
+        raise ValueError(f"tri_rows: expected {ng} row groups per chunk "
+                         f"({'with' if omm else 'without'} omm), got shape "
+                         f"{list(np.shape(tri_rows))}")
+    coef = compact_coefficients(tri_rows, int(tc), int(n_chunks), omm)
+    micro = cover = None
+    if omm:
+        coef, micro, cover = coef
+        micro = torch.tensor(micro, device=device)
+        cover = t(cover)
     return BounceTables(
         tri_rows=t(tri_rows), attr_rows=t(attr_rows), mat_rows=t(mat_rows),
-        light_rows=t(light_rows),
-        tri_coef=t(compact_coefficients(tri_rows, int(tc), int(n_chunks))),
+        light_rows=t(light_rows), tri_coef=t(coef),
+        omm=omm, tri_micro=micro, tri_cover=cover,
         env=None if env_rows is None else t(env_table(env_rows)),
         tex=tex, tex_meta=meta,
         tex_maps=tuple(int(x) for x in tex_maps) if tex is not None
@@ -496,13 +544,17 @@ def lights_env_table(lights, envmap) -> Optional[np.ndarray]:
 
 def build_bounce_tables(positions, normals, indices, tri_material,
                         materials, lights, uvs=None, envmap=None,
-                        textures=None, device="cuda"):
-    """Host-side table bake (bounce_pallas.build_bounce_tables, flat
-    no-OMM case) onto `device` (the GPU by default; raises without one),
+                        textures=None, device="cuda", tri_micromap=None,
+                        tri_cover=None):
+    """Host-side table bake (bounce_pallas.build_bounce_tables) onto
+    `device` (the GPU by default; raises without one),
     with the environment table when the lights hold an environment light
     (`envmap` baked at 64 x 128) and the texture tables of `textures` (a
     TextureAtlas) when `build_tex_tables` takes it; an atlas it refuses
     leaves the tables without textures, and dispatch then names the cap.
+    `tri_micromap` ([T] u32 level-2 micromap words, scene/omm.py, the
+    TRANSPARENT triangles already dropped) and `tri_cover` ([T] f32) add
+    the micromap row groups (7 per chunk, the JAX layout).
     Raises
     NotImplementedError, naming the feature, for a scene it does not
     take: sphere and environment-quad lights (the JAX package leaves them
@@ -547,18 +599,27 @@ def build_bounce_tables(positions, normals, indices, tri_material,
     n_chunks = tpad // tc
 
     # per chunk c, row groups [det|u|v|t] x tc against the ray column
-    # [d | oxd | o | 1]
-    tri_rows = np.zeros((4 * tpad, 128), np.float32)
+    # [d | oxd | o | 1]; with micromaps three more, [wlo|whi|cover], whose
+    # only coefficient sits at the constant-1 column 9
+    omm = tri_micromap is not None
+    ng = 7 if omm else 4
+    tri_rows = np.zeros((ng * tpad, 128), np.float32)
     v0xe2 = np.cross(v0, e2)
     v0xe1 = np.cross(v0, e1)
     v0n = np.einsum("tj,tj->t", v0, n)
+    if omm:
+        mm_w = np.asarray(tri_micromap).astype(np.uint32)
+        mm_lo = (mm_w & np.uint32(0xFFFF)).astype(np.float32)
+        mm_hi = (mm_w >> np.uint32(16)).astype(np.float32)
+        mm_cov = (np.asarray(tri_cover, np.float32) if tri_cover is not None
+                  else np.ones((t,), np.float32))
     for c in range(n_chunks):
         lo = c * tc
         hi = min(lo + tc, t)
         w = hi - lo
         if w <= 0:
             continue
-        base = 4 * c * tc
+        base = ng * c * tc
         tri_rows[base:base + w, 0:3] = -n[lo:hi]
         tri_rows[base + tc:base + tc + w, 0:3] = v0xe2[lo:hi]
         tri_rows[base + tc:base + tc + w, 3:6] = e2[lo:hi]
@@ -566,6 +627,10 @@ def build_bounce_tables(positions, normals, indices, tri_material,
         tri_rows[base + 2 * tc:base + 2 * tc + w, 3:6] = -e1[lo:hi]
         tri_rows[base + 3 * tc:base + 3 * tc + w, 6:9] = n[lo:hi]
         tri_rows[base + 3 * tc:base + 3 * tc + w, 9] = -v0n[lo:hi]
+        if omm:
+            tri_rows[base + 4 * tc:base + 4 * tc + w, 9] = mm_lo[lo:hi]
+            tri_rows[base + 5 * tc:base + 5 * tc + w, 9] = mm_hi[lo:hi]
+            tri_rows[base + 6 * tc:base + 6 * tc + w, 9] = mm_cov[lo:hi]
 
     gn = n / np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-20)
     attr = np.zeros((AT_ROWS, tpad), np.float32)
@@ -596,7 +661,7 @@ def build_bounce_tables(positions, normals, indices, tri_material,
                              int(lights.num), t, device=device, env_rows=env,
                              tex_ct=None if tex is None else tex[0],
                              tex_meta=None if tex is None else tex[1],
-                             tex_maps=tex_maps_of(materials))
+                             tex_maps=tex_maps_of(materials), omm=omm)
 
 
 def _tangent_rows(uvs, indices, e1, e2):
@@ -640,10 +705,18 @@ def _tri_params(c, o, d, oxd):
     return ok, u_num * inv, v_num * inv, t_num * inv, det
 
 
-def _intersect(tables: BounceTables, o, d, tmax: float):
+def micro_states(tables: BounceTables, lo: int, hi: int, u, v):
+    """The micromap states [C, N] of triangles lo..hi-1 at the candidate
+    barycentrics u, v [C, N] (bounce_pallas._micro_state)."""
+    return micro_state(tables.tri_micro[lo:hi, None], micro_index(u, v))
+
+
+def _intersect(tables: BounceTables, o, d, tmax: float, omm: bool = False):
     """Closest hit over all triangles (bounce_pallas._intersect_group):
-    strict `<` keeps the lowest triangle index on ties. Returns
-    (t, prim, u, v, det), t = _BIG and prim = -1 on a miss."""
+    strict `<` keeps the lowest triangle index on ties. With `omm`,
+    micro-TRANSPARENT candidates are rejected in the loop. Returns
+    (t, prim, u, v, det, unk), t = _BIG and prim = -1 on a miss, unk
+    whether the winner's micro state is UNKNOWN."""
     n = o.shape[1]
     dev = o.device
     oxd = W.cross3(o, d)
@@ -652,11 +725,17 @@ def _intersect(tables: BounceTables, o, d, tmax: float):
     best_u = torch.zeros((n,), dtype=torch.float32, device=dev)
     best_v = torch.zeros_like(best_u)
     best_det = torch.zeros_like(best_u)
+    best_unk = torch.zeros((n,), dtype=torch.bool, device=dev)
     for lo in range(0, tables.n_tris, _TRI_BLOCK):
-        c = tables.tri_coef[lo:min(lo + _TRI_BLOCK, tables.n_tris)]
+        hi = min(lo + _TRI_BLOCK, tables.n_tris)
+        c = tables.tri_coef[lo:hi]
         ok, u, v, t, det = _tri_params(c, o, d, oxd)
         valid = (ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
                  & (t > 0.0) & (t < tmax) & (t < best_t))
+        if omm:
+            st = micro_states(tables, lo, hi, u, v)
+            valid = valid & (st != MICRO_TRANSPARENT)
+            unk = st == MICRO_UNKNOWN
         t_m = torch.where(valid, t, _BIG)
         t_c = torch.amin(t_m, dim=0)
         iota = torch.arange(c.shape[0], device=dev)[:, None]
@@ -671,24 +750,36 @@ def _intersect(tables: BounceTables, o, d, tmax: float):
         best_v = torch.where(hit_c, pick(v), best_v)
         best_det = torch.where(hit_c, pick(det), best_det)
         best_prim = torch.where(hit_c, j + lo, best_prim)
+        if omm:
+            best_unk = torch.where(hit_c, pick(unk), best_unk)
         best_t = torch.where(hit_c, t_c, best_t)
-    return best_t, best_prim, best_u, best_v, best_det
+    return best_t, best_prim, best_u, best_v, best_det, best_unk
 
 
-def _occluded(tables: BounceTables, o, d, tmax, stats: bool = False):
-    """Any hit in (0, tmax) per ray (bounce_pallas._occluded_group). With
-    `stats`, also the ray-triangle pairs a ray tests in triangle order up
-    to and including its first occluder (int64 [N])."""
+def _occluded(tables: BounceTables, o, d, tmax, stats: bool = False,
+              u_alpha=None):
+    """Any hit in (0, tmax) per ray (bounce_pallas._occluded_group). On
+    tables with micromaps (`u_alpha` [N], the per-ray alpha uniform)
+    micro-TRANSPARENT candidates never occlude and UNKNOWN ones occlude
+    where u_alpha < the triangle's coverage. With `stats`, also the
+    ray-triangle pairs a ray tests in triangle order up to and including
+    its first occluder (int64 [N])."""
     oxd = W.cross3(o, d)
     n = o.shape[1]
     occ = torch.zeros(n, dtype=torch.bool, device=o.device)
     tested = torch.full((n,), tables.n_tris, dtype=torch.int64,
                         device=o.device)
     for lo in range(0, tables.n_tris, _TRI_BLOCK):
-        c = tables.tri_coef[lo:min(lo + _TRI_BLOCK, tables.n_tris)]
+        hi = min(lo + _TRI_BLOCK, tables.n_tris)
+        c = tables.tri_coef[lo:hi]
         ok, u, v, t, _ = _tri_params(c, o, d, oxd)
         valid = (ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
                  & (t > 0.0) & (t < tmax))
+        if u_alpha is not None:
+            st = micro_states(tables, lo, hi, u, v)
+            valid = valid & (st != MICRO_TRANSPARENT) & (
+                (st != MICRO_UNKNOWN)
+                | (u_alpha < tables.tri_cover[lo:hi, None]))
         if stats:
             iota = torch.arange(c.shape[0], device=o.device)[:, None]
             first = torch.amin(torch.where(valid, iota, c.shape[0]), dim=0)
@@ -832,15 +923,23 @@ def tex_fetch(tex, meta, tid, uv_u, uv_v, mip, ju0, ju1):
 def surface_and_shade(*, o, d, t, hit, front, bu, bv, attr, thp, L,
                       prev_pdf, cone, spread, active, prev_delta, med0, med1,
                       px, py, budget, lb, tables: BounceTables,
-                      kcfg: KernelConfig, sample_idx: int):
+                      kcfg: KernelConfig, sample_idx: int,
+                      omm_unknown=None):
     """Post-intersection bounce body (bounce_pallas.surface_and_shade with
-    no micromaps, priorities or split channels): the environment of a
+    no priorities or split channels): the environment of a
     miss with its MIS weight (when the tables carry the environment
     table), surface fetch, the texture switch (`use_tex`: base colour,
     metal-rough, emissive and normal maps, one stochastic texel each at
     the ray cone's MIP), volume absorption, emissive-hit MIS, one NEE
     light sample (the environment light included) + BSDF eval, BSDF
     scatter, medium stack, Russian roulette.
+    With micromaps (`omm_unknown` [N] bool, whether the hit's micro state
+    is UNKNOWN) the alpha uniform u_alpha (EFFECT_ALPHA) is drawn for the
+    shadow test, and with the base-colour map on, an UNKNOWN hit whose
+    base alpha at MIP 0 is under its material's cutoff passes through:
+    the lane is not shaded, keeps its path state and logical bounce, and
+    continues the same ray from just past the surface on the next
+    wavefront iteration.
     `attr(i, k=1)` fetches the winner's attribute rows. Returns the next
     state, whether the lane was shaded, and the pending shadow ray
     (do_nee, shadow_o, shadow_d, sdist, contrib); the caller resolves
@@ -934,6 +1033,12 @@ def surface_and_shade(*, o, d, t, hit, front, bu, bv, attr, thp, L,
             has_b, brgba = tfetch(MT_BTEX)
             base_color = torch.where(has_b, base_color * brgba[:3],
                                      base_color)
+            if omm_unknown is not None:
+                # the alpha test reads MIP 0, as the bake does
+                a0 = tex_fetch(tables.tex, tables.tex_meta,
+                               mrow(MT_BTEX).to(torch.int64), uv_u, uv_v,
+                               torch.full_like(uv_u, -100.0), ju0, ju1)[3]
+                base_alpha0 = torch.where(has_b, a0, 1.0)
         if maps[1]:
             # glTF: B = metallic, G = roughness
             has_m, mrgba = tfetch(MT_MRTEX)
@@ -959,7 +1064,18 @@ def surface_and_shade(*, o, d, t, hit, front, bu, bv, attr, thp, L,
                                   + torch.clamp(n_ts[2], min=0.05) * sh_n)
             n_pert = torch.where(W.dot3(n_pert, gn) > 0.0, n_pert, sh_n)
             sh_n = torch.where(has_n & ok_t, n_pert, sh_n)
-    hit_shade = hit_mask
+    # pass-through: an UNKNOWN micro-cell whose MIP-0 alpha fails the cutoff
+    has_pass = omm_unknown is not None and use_tex(tables, kcfg) \
+        and bool(tables.tex_maps[0])
+    passthru = torch.zeros_like(hit_mask)
+    if has_pass:
+        acut = mrow(MT_ACUT)
+        passthru = hit_mask & omm_unknown & (acut >= 0.0) \
+            & (base_alpha0 < acut)
+    hit_shade = hit_mask & ~passthru
+    u_alpha = None
+    if omm_unknown is not None:
+        (u_alpha,) = lds(eff_seed(EFFECT_ALPHA), (0,))
 
     def med_ior(med):
         v = mat[MT_IOR][torch.clamp(med, 0, 127)]
@@ -1060,12 +1176,15 @@ def surface_and_shade(*, o, d, t, hit, front, bu, bv, attr, thp, L,
         contrib = torch.zeros_like(thp)
 
     # ----- scatter -----
+    # the state a pass-through lane keeps
+    thp_ns, pdf_ns, delta_ns = thp, prev_pdf, prev_delta
+    med0_ns, med1_ns, spread_ns = med0, med1, spread
     u_lobe, su1, su2 = lds(eff_seed(EFFECT_SCATTER), (0, 2, 3))
     bs = W.bsdf_sample_w(bsdf, wo, u_lobe, su1, su2)
     wi_world = W.to_world3(bs["wi"], sh_n)
     leak = (bs["wi"][2] > 0.0) != (W.dot3(wi_world, gn) > 0.0)
-    active = active & (bs["valid"] & ~leak
-                       & (W.luminance3(bs["weight"]) > 0.0))
+    active = active & (passthru | (bs["valid"] & ~leak
+                                   & (W.luminance3(bs["weight"]) > 0.0)))
     thp = thp * bs["weight"]
     prev_pdf = bs["pdf"]
     prev_delta = bs["is_delta"]
@@ -1082,7 +1201,7 @@ def surface_and_shade(*, o, d, t, hit, front, bu, bv, attr, thp, L,
         (u_rr,) = lds(eff_seed(EFFECT_RR), (0,))
         p_cont = torch.clamp(torch.maximum(torch.maximum(thp[0], thp[1]),
                                            thp[2]), 0.05, 1.0)
-        rr_on = lb >= kcfg.min_rr
+        rr_on = (lb >= kcfg.min_rr) & ~passthru
         active = active & ~(rr_on & (u_rr >= p_cont))
         thp = thp / torch.where(rr_on, p_cont, 1.0)
 
@@ -1090,13 +1209,26 @@ def surface_and_shade(*, o, d, t, hit, front, bu, bv, attr, thp, L,
     spread = spread + torch.sqrt(bsdf.alpha) * 0.25 \
         * (1.0 - prev_delta.to(torch.float32))
     lb_out = lb + hit_shade.to(torch.int64)
+    if has_pass:
+        # a pass-through lane continues the same ray from just past the
+        # rejected surface; its scatter state does not advance
+        t_adv = t * (1.0 + 1e-4) + 1e-5
+        o_new = torch.where(passthru, o + d * t_adv, o_new)
+        wi_world = torch.where(passthru, d, wi_world)
+        thp = torch.where(passthru, thp_ns, thp)
+        prev_pdf = torch.where(passthru, pdf_ns, prev_pdf)
+        prev_delta = torch.where(passthru, delta_ns, prev_delta)
+        med0 = torch.where(passthru, med0_ns, med0)
+        med1 = torch.where(passthru, med1_ns, med1)
+        spread = torch.where(passthru, spread_ns, spread)
 
     return dict(o_new=o_new, wi_world=wi_world, thp=thp, L=L,
                 prev_pdf=prev_pdf, cone=cone, spread=spread, active=active,
                 prev_delta=prev_delta, med0=med0, med1=med1,
                 lbounce=lb_out, do_nee=do_nee, shadow_o=shadow_o,
                 shadow_d=shadow_d, sdist=sdist, contrib=contrib,
-                shaded=hit_shade, surf=surf)
+                shaded=hit_shade, surf=surf, u_alpha=u_alpha,
+                passthru=passthru)
 
 
 def final_env_state(fs, is_, hit, env, kcfg: KernelConfig, n_lights: int,
@@ -1133,12 +1265,18 @@ def bounce_reference(fs, is_, tables: BounceTables, kcfg: KernelConfig,
     external modes with lights, where hit row 5 is the shading flag (0 not
     shaded, 1 shaded at logical bounce 0, 2 shaded later) instead of
     do_nee. `final_env` (tables with an environment): the closest hit and
-    `final_env_state` only, hit row 5 zero."""
+    `final_env_state` only, hit row 5 zero; as in the JAX package, that
+    round's closest hit ignores the micromaps (its `_bounce_call` passes
+    no omm). On tables with micromaps the closest hit rejects
+    micro-TRANSPARENT candidates, surface_and_shade gets the winner's
+    UNKNOWN flag, and the shadow ray takes the stochastic alpha test."""
     o = fs[FS_O:FS_O + 3]
     d = fs[FS_D:FS_D + 3]
 
     # ----- closest hit -----
-    t, prim, bu, bv, det_pick = _intersect(tables, o, d, kcfg.max_travel)
+    omm = tables.omm and not final_env
+    t, prim, bu, bv, det_pick, unk = _intersect(tables, o, d,
+                                                kcfg.max_travel, omm)
     hit = t < _BIG
     front = det_pick > 0.0
     if final_env:
@@ -1162,7 +1300,7 @@ def bounce_reference(fs, is_, tables: BounceTables, kcfg: KernelConfig,
         med0=is_[IS_MED0].to(torch.int64), med1=is_[IS_MED1].to(torch.int64),
         px=is_[IS_PX], py=is_[IS_PY], budget=is_[IS_BUDGET],
         lb=is_[IS_LBOUNCE].to(torch.int64), tables=tables, kcfg=kcfg,
-        sample_idx=sample_idx)
+        sample_idx=sample_idx, omm_unknown=unk if omm else None)
 
     # ----- NEE shadow ray -----
     ext = s["surf"] is not None
@@ -1172,7 +1310,7 @@ def bounce_reference(fs, is_, tables: BounceTables, kcfg: KernelConfig,
             * (1.0 + (is_[IS_LBOUNCE] > 0).to(torch.float32))
     else:
         occluded = _occluded(tables, s["shadow_o"], s["shadow_d"],
-                             s["sdist"])
+                             s["sdist"], u_alpha=s["u_alpha"])
         L = s["L"] + torch.where(s["do_nee"] & ~occluded, s["contrib"], 0.0)
         flag = s["do_nee"].to(torch.float32)
 
@@ -1194,12 +1332,14 @@ def bounce_reference(fs, is_, tables: BounceTables, kcfg: KernelConfig,
 def occlusion_reference(tables: BounceTables, sh, stats: bool = False):
     """The shadow kernel K2 in plain PyTorch: sh [SR_ROWS, N] f32 shadow
     requests -> occ [N] f32, 1 where occluded or where a lane has no
-    request (bounce_pallas._shadow_kernel). With `stats`, also the pairs
+    request (bounce_pallas._shadow_kernel; on tables with micromaps the
+    stochastic alpha test against row SR_UA). With `stats`, also the pairs
     each lane tested up to its first occluder, [N] i32 (0 without a
     request)."""
     req = sh[SR_DO] > 0.5
     res = _occluded(tables, sh[SR_O:SR_O + 3], sh[SR_D:SR_D + 3],
-                    sh[SR_DIST], stats=stats)
+                    sh[SR_DIST], stats=stats,
+                    u_alpha=sh[SR_UA] if tables.omm else None)
     occ = res[0] if stats else res
     out = torch.where(req, occ.to(torch.float32), 1.0)
     if stats:
@@ -1207,11 +1347,13 @@ def occlusion_reference(tables: BounceTables, sh, stats: bool = False):
     return out
 
 
-def shadow_requests(shadow_o, shadow_d, sdist, do_nee):
-    """sh [SR_ROWS, N] from [N, 3] origins and directions, [N] distances
-    and [N] request flags."""
+def shadow_requests(shadow_o, shadow_d, sdist, do_nee, u_alpha=None):
+    """sh [SR_ROWS, N] from [N, 3] origins and directions, [N] distances,
+    [N] request flags and the [N] alpha uniforms (zero without)."""
+    ua = torch.zeros_like(sdist) if u_alpha is None else u_alpha
     return torch.cat([shadow_o.T, shadow_d.T, sdist[None],
-                      do_nee.to(torch.float32)[None]], dim=0).contiguous()
+                      do_nee.to(torch.float32)[None], ua[None]],
+                     dim=0).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -1223,14 +1365,23 @@ _check = kernels.check_tensor
 
 
 def variant_name(base: str, has_env: bool, final_env: bool,
-                 has_tex: bool = False) -> str:
+                 has_tex: bool = False, omm: bool = False) -> str:
     """The launch-count name of a shading kernel's variant: `base`, then
-    "_tex" with the texture switch, then "_env" with the environment
-    switches; base + "_final" for the final environment-only round (which
-    shades nothing, so it runs without textures)."""
+    "_omm" with the micromap switch, "_tex" with the texture switch, then
+    "_env" with the environment switches; base + "_final" for the final
+    environment-only round (which shades nothing, so it runs without
+    textures or micromaps)."""
     if final_env:
         return base + "_final"
-    return base + ("_tex" if has_tex else "") + ("_env" if has_env else "")
+    return base + ("_omm" if omm else "") + ("_tex" if has_tex else "") \
+        + ("_env" if has_env else "")
+
+
+def check_omm_tables(tables, n_rows: int, dev):
+    """Raise unless the micromap words and coverages are what the kernels
+    read: [n_rows] i32 and f32."""
+    _check("tri_micro", tables.tri_micro, torch.int32, (n_rows,), dev)
+    _check("tri_cover", tables.tri_cover, torch.float32, (n_rows,), dev)
 
 
 def bounce(fs, is_, tables: BounceTables, kcfg: KernelConfig,
@@ -1262,6 +1413,9 @@ def bounce(fs, is_, tables: BounceTables, kcfg: KernelConfig,
     tex = use_tex(tables, kcfg) and not final_env
     if tex:
         check_tex_tables(tables, dev)
+    omm = tables.omm and not final_env
+    if omm:
+        check_omm_tables(tables, tpad, dev)
     if kcfg.nee_mode not in range(6):
         raise ValueError(f"bounce: nee_mode {kcfg.nee_mode} not in 0..5")
     if not 0 < tables.n_tris <= MAX_TRIS or (
@@ -1286,13 +1440,15 @@ def bounce(fs, is_, tables: BounceTables, kcfg: KernelConfig,
             tables.mat_rows.data_ptr(), tables.light_rows.data_ptr(),
             None if tables.env is None else tables.env.data_ptr(),
             *tex_args(tables, tex),
+            tables.tri_micro.data_ptr() if omm else None,
+            tables.tri_cover.data_ptr() if omm else None,
             n, tables.n_tris, tpad, tables.n_lights,
             int(sample_idx) & rng.M32, kcfg.nee_mode, int(kcfg.enable_mis),
             kcfg.firefly, int(kcfg.rr_enable), kcfg.min_rr, kcfg.max_travel,
             int(kcfg.low_discrepancy), int(kcfg.energy_comp), kcfg.maxb,
             int(final_env), stream)
     kernels.launches[variant_name("bounce_fused", tables.env is not None,
-                                  final_env, tex)] += 1
+                                  final_env, tex, omm)] += 1
     return outs
 
 
@@ -1319,8 +1475,9 @@ def tex_args(tables, tex: bool):
 def occlusion(tables: BounceTables, sh, stats: bool = False):
     """Shadow requests sh [SR_ROWS, N] -> occ [N] f32 (1 = occluded or no
     request), and with `stats` the pairs each lane tested, [N] i32: the
-    shadow kernel K2 (csrc/shadow_occlusion.cu) for CUDA tensors,
-    `occlusion_reference` for CPU tensors. Nothing falls back."""
+    shadow kernel K2 (csrc/shadow_occlusion.cu; its micromap variant,
+    counted as "shadow_occlusion_omm", on tables with micromaps) for CUDA
+    tensors, `occlusion_reference` for CPU tensors. Nothing falls back."""
     if sh.device.type == "cpu":
         return occlusion_reference(tables, sh, stats)
     if sh.device.type != "cuda":
@@ -1330,6 +1487,8 @@ def occlusion(tables: BounceTables, sh, stats: bool = False):
     _check("sh", sh, torch.float32, (SR_ROWS, n), dev)
     tpad = tables.tc * tables.n_chunks
     _check("tri_coef", tables.tri_coef, torch.float32, (tpad, TC_ROWS), dev)
+    if tables.omm:
+        check_omm_tables(tables, tpad, dev)
     if not 0 < tables.n_tris <= MAX_TRIS:
         raise ValueError("occlusion: table sizes outside the kernel's limits")
     occ = torch.empty((n,), dtype=torch.float32, device=dev)
@@ -1340,9 +1499,13 @@ def occlusion(tables: BounceTables, sh, stats: bool = False):
             kernels.SHADOW_OCCLUSION.launch(
                 "rtxpt_shadow_occlusion", sh.data_ptr(), occ.data_ptr(),
                 tests.data_ptr() if stats else None,
-                tables.tri_coef.data_ptr(), n, tables.n_tris,
+                tables.tri_coef.data_ptr(),
+                tables.tri_micro.data_ptr() if tables.omm else None,
+                tables.tri_cover.data_ptr() if tables.omm else None,
+                n, tables.n_tris,
                 torch.cuda.current_stream(dev).cuda_stream)
-        kernels.launches["shadow_occlusion"] += 1
+        kernels.launches["shadow_occlusion_omm" if tables.omm
+                         else "shadow_occlusion"] += 1
     return (occ, tests) if stats else occ
 
 
@@ -1376,6 +1539,16 @@ def initial_state(o, d, cone_spread, px, py):
     return fs, is_
 
 
+def alpha_uniform(cfg, px, py, lb, sample_idx):
+    """[N] the alpha uniform of the lanes' shadow rays on the external
+    route: K1's u_alpha, dimension 0 of pixel_seed(px, py, lb,
+    EFFECT_ALPHA) (bounce_pallas.py:1884-1894)."""
+    seed = rng.pixel_seed(px, py, lb, EFFECT_ALPHA)
+    if cfg.low_discrepancy:
+        return rng.ld_samples(sample_idx, seed, (0,))[0]
+    return rng.uniform_sample(seed, rng.hash_combine(sample_idx, 0))
+
+
 def trace_paths_fused(scene, cfg, o, d, cone_spread, px, py, sample_idx,
                       neeat_state=None):
     """Trace a wavefront of camera rays to completion, one `bounce` per
@@ -1390,6 +1563,13 @@ def trace_paths_fused(scene, cfg, o, d, cone_spread, px, py, sample_idx,
     into the frame's NEE-AT feedback histogram. The NEE block and the
     feedback run inside `torch.profiler.record_function` ranges named
     "rtxpt.nee" and "rtxpt.feedback".
+
+    On tables with micromaps, a lane that passes through an alpha-tested
+    surface does not advance its logical bounce, so the chain runs
+    `cfg.passthrough_extra_iters` (2 by default) more iterations, each
+    lane stopping at its own max_bounces; on the external route each
+    lane's logical bounce keys external_nee's seeds and the shadow rays
+    carry the lane's alpha uniform (EFFECT_ALPHA) for K2.
 
     o, d [N,3]; cone_spread [N]; px, py [N] int. Returns dict(L [N,3],
     ray_count [] int64 tensor, occupancy [B+1] int64 tensor), plus
@@ -1407,12 +1587,15 @@ def trace_paths_fused(scene, cfg, o, d, cone_spread, px, py, sample_idx,
             hist = na.zero_hist(neeat_state)
     ray_count = torch.zeros((), dtype=torch.int64, device=dev)
     occupancy = []
-    for b in range(cfg.max_bounces):
+    extra = int(getattr(cfg, "passthrough_extra_iters", 2)) if tbl.omm \
+        else 0
+    for b in range(cfg.max_bounces + extra):
         active_in = is_[IS_ACTIVE].sum(dtype=torch.int64)
         occupancy.append(active_in)
         d_in = fs[FS_D:FS_D + 3]
         prev_pdf_in = fs[FS_PREVPDF]
         prev_delta_in = is_[IS_PREVDELTA] > 0
+        lb_in = is_[IS_LBOUNCE]
         out = bounce(fs, is_, tbl, kcfg, sample_idx)
         fs, is_, hit = out[:3]
         ray_count = ray_count + active_in
@@ -1423,9 +1606,12 @@ def trace_paths_fused(scene, cfg, o, d, cone_spread, px, py, sample_idx,
         with record_function("rtxpt.nee"):
             res = external_nee(scene, cfg, neeat_state, out[3], d_in,
                                hit[5] > 0.5, prev_pdf_in, prev_delta_in,
-                               is_[IS_PX], is_[IS_PY], sample_idx, b)
+                               is_[IS_PX], is_[IS_PY], sample_idx, b,
+                               lb=lb_in if tbl.omm else None)
+            ua = alpha_uniform(cfg, is_[IS_PX], is_[IS_PY], lb_in,
+                               sample_idx) if tbl.omm else None
             sh = shadow_requests(res["shadow_o"], res["shadow_d"],
-                                 res["sdist"], res["do_nee"])
+                                 res["sdist"], res["do_nee"], ua)
         occ = occlusion(tbl, sh)
         ok = res["do_nee"] & (occ < 0.5)
         add = res["em_add"] + torch.where(ok[:, None], res["contrib"], 0.0)

@@ -41,8 +41,17 @@ NEE-AT with an environment light, sphere or environment-quad lights
 (prepare builds no bounce or cluster tables for the latter), and
 textures without stochastic filtering or past the atlas cap; a caller
 who pins "fused" or "clustered" for them gets NotImplementedError naming
-the feature. Alpha-tested textures (opacity micromaps) are served by no
-tier yet.
+the feature.
+
+Alpha-tested geometry (`scene.tri_opacity`, the opacity micromaps of
+prepare) is served where the JAX package serves it
+(rtxpt_tpu/pt/dispatch.py:93-100, :130-134): on the fused and clustered
+tiers only when their tables carry the micromaps and the textures ride
+in-kernel with stochastic texture filtering (the kernels' alpha test at
+shading time fetches one jittered texel); "auto" otherwise resolves it to
+"xla", whose retrace tests the texture bilinearly, and a pinned kernel
+tier raises. A two-level scene never carries micromaps from prepare; one
+made by hand is refused on the TLAS route, which has no alpha test.
 
 The wrappers pick the kernel for CUDA tensors and its plain version for
 CPU tensors, so a clustered scene on the CPU keeps the tier name
@@ -69,10 +78,20 @@ def general_only_features(scene, cfg, tables=None):
     """Names of what only the general tier serves on this scene and
     config with the kernel tier's `tables` (rtxpt_tpu/pt/dispatch.py
     _nee_routing_ok, :102-107, :135-139 and the table builders): sphere or
-    environment-quad lights, NEE-AT with an environment light, and
+    environment-quad lights, NEE-AT with an environment light,
     textures without stochastic texture filtering or without the
-    kernels' texture tables (an atlas past their cap)."""
+    kernels' texture tables (an atlas past their cap), and alpha-tested
+    geometry without the tables' micromaps or stochastic filtering."""
     out = []
+    if getattr(scene, "tri_opacity", None) is not None and tables is not None:
+        if not getattr(tables, "omm", False):
+            out.append("alpha-tested textures (opacity micromaps) without "
+                       "the kernel tables' micromaps")
+        elif getattr(scene, "textures", None) is None or \
+                not cfg.stochastic_texture_filtering:
+            out.append("alpha-tested textures (opacity micromaps) without "
+                       "stochastic texture filtering (the kernels' alpha "
+                       "test fetches one jittered texel)")
     if getattr(scene, "textures", None) is not None and tables is not None:
         if getattr(tables, "tex", None) is None:
             out.append("textures past the kernels' atlas cap (64k texels "
@@ -136,11 +155,11 @@ def unsupported_features(scene, cfg, neeat_state=None, tier="auto",
                    "(prepare it first)")
     lights = getattr(scene, "lights", None)
     neeat = cfg.nee.value == NEEMode.NEEAT.value
-    if alpha_tested(scene):
-        out.append("alpha-tested textures (opacity micromaps)")
-    if getattr(scene, "tri_opacity", None) is not None or getattr(
-            getattr(scene, "bvh", None), "tri_micro", None) is not None:
-        out.append("opacity micromaps")
+    if getattr(scene, "tri_opacity", None) is not None and \
+            kind == "xla" and getattr(scene, "tlas", None) is not None:
+        out.append("alpha-tested textures (opacity micromaps) on a "
+                   "two-level scene (prepare flattens them; the TLAS walk "
+                   "has no alpha test)")
     if getattr(scene, "has_nested_priorities", False):
         out.append("nested dielectric priorities")
     if cfg.mode.value != PTMode.REFERENCE.value:
@@ -171,17 +190,6 @@ def unsupported_features(scene, cfg, neeat_state=None, tier="auto",
             neeat or many or int(cfg.nee_candidates) > 1):
         out.append("external NEE without a light list")
     return out
-
-
-def alpha_tested(scene) -> bool:
-    """Whether a material with a base-colour texture has an alpha cutoff
-    (a prepared scene or a HostScene): the JAX package bakes opacity
-    micromaps for it (not ported)."""
-    mats = getattr(scene, "materials", None)
-    if getattr(scene, "textures", None) is None or mats is None:
-        return False
-    return bool(torch.any((mats.alpha_cutoff >= 0)
-                          & (mats.base_color_tex >= 0)))
 
 
 def _check_devices(scene, tables, neeat_state):

@@ -102,8 +102,8 @@ def _where(cond, a, b):
 def _wavefront(scene, cfg, o, d, px, py, sample_idx, neeat_state=None,
                first_emissive: bool = True, cone_spread=None):
     """The general BVH wavefront (rtxpt_tpu/pt/integrator.py trace_paths on
-    the "xla" tier, without opacity micromaps, nested priorities, split
-    channels, aux buffers and the real-time arguments).
+    the "xla" tier, without nested priorities, split channels, aux
+    buffers and the real-time arguments).
     Every lane is traced at every bounce, inactive ones too, as in the JAX
     package.
 
@@ -123,9 +123,28 @@ def _wavefront(scene, cfg, o, d, px, py, sample_idx, neeat_state=None,
     NEE on, bounce k's shadow rays ride in bounce k+1's closest-hit query
     (one 2N-wide query; a hit within the shadow distance occludes);
     otherwise each NEE bounce makes an any-hit query (K9's any-hit
-    variant)."""
+    variant). On an alpha-tested scene every query, the shadow rays'
+    too, is the alpha-tested closest hit (scene/omm.py
+    intersect_closest_alpha: the walk rejects micro-TRANSPARENT hits, the
+    texture test and the retrace resolve the rest; K8 has no micromaps,
+    so on the brute path the retrace resolves every MIXED hit)."""
     n = o.shape[0]
     dev = o.device
+    if scene.tri_opacity is not None and scene.textures is not None:
+        from rtxpt_tpu_torch.scene.omm import (
+            intersect_any_alpha, intersect_closest_alpha)
+
+        def closest_fn(*q):
+            return intersect_closest_alpha(scene, *q)
+
+        def any_fn(*q):
+            return intersect_any_alpha(scene, *q)
+    else:
+        def closest_fn(*q):
+            return scene_closest(scene, *q)
+
+        def any_fn(*q):
+            return scene_any(scene, *q)
     f32 = torch.float32
     o, d = o.contiguous(), d.contiguous()   # camera origins are broadcast
     mp = scene.mat_pack
@@ -174,7 +193,7 @@ def _wavefront(scene, cfg, o, d, px, py, sample_idx, neeat_state=None,
         occupancy.append(active.sum(dtype=torch.int64))
         ray_count = ray_count + active.sum() + pend_mask.sum()
         if fuse_shadows and bounce > 0:
-            hit2 = scene_closest(scene, torch.cat([o, pend_o]),
+            hit2 = closest_fn(torch.cat([o, pend_o]),
                                  torch.cat([d, pend_d]), zeros(2 * n),
                                  torch.cat([t_far, pend_dist]))
             hit = hit2.take(slice(0, n))
@@ -186,7 +205,7 @@ def _wavefront(scene, cfg, o, d, px, py, sample_idx, neeat_state=None,
                     m.luminance(pend_contrib), ok)
             pend_mask = zeros(n, dtype=torch.bool)
         else:
-            hit = scene_closest(scene, o, d, t_zero, t_far)
+            hit = closest_fn(o, d, t_zero, t_far)
         hit_mask = active & ~hit.miss
         if has_env and (first_emissive or bounce > 0):
             L = L + _handle_miss(scene, cfg, d, thp, active & hit.miss,
@@ -307,7 +326,7 @@ def _wavefront(scene, cfg, o, d, px, py, sample_idx, neeat_state=None,
                     pend_tile, pend_li = ls["tile"], ls["light_index"]
             else:
                 ray_count = ray_count + do_nee.sum()
-                occluded = scene_any(scene, shadow_o, ls["wi"], t_zero, sdist)
+                occluded = any_fn(shadow_o, ls["wi"], t_zero, sdist)
                 nee_ok = do_nee & ~occluded
                 L = L + torch.where(nee_ok[:, None], contrib, 0.0)
                 if use_neeat:

@@ -2,8 +2,9 @@
 the Cornell box, the furnace box, the single triangle under one analytic
 light, the many-light rooms, the large-scene city (also textured,
 normal-mapped and sky-lit), the textured Cornell box and the kitchen, with
-their procedural textures (checker, wood, ripple normal map). The other
-scenes come with their slices.
+their procedural textures (checker, wood, ripple normal map), and the
+curtain Cornell box of the JAX package's alpha tests with the foliage
+texture `leaf_texture`. The other scenes come with their slices.
 
 Two instanced scenes have no counterpart in the JAX package's module: they
 are the constructions of its instancing tests, `instanced_boxes`
@@ -563,6 +564,88 @@ def kitchen_scene(panel_grid: int = 16, subdiv: int = 3,
     scene.camera = dict(position=[4.9, 1.7, 5.3], target=[2.2, 1.1, 1.8],
                         up=[0.0, 1.0, 0.0], fov_y_deg=55.0)
     return scene
+
+
+def leaf_texture(n: int = 64, seed: int = 3) -> np.ndarray:
+    """[n,n,4] alpha-tested leaf-cluster card texture: green blobs on a
+    transparent background (alpha 0 / 1 around the 0.5 cutoff)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.meshgrid(np.linspace(0, 1, n), np.linspace(0, 1, n),
+                         indexing="ij")
+    a = np.zeros((n, n), np.float32)
+    col = np.zeros((n, n, 3), np.float32)
+    for _ in range(26):
+        cxy = rng.uniform(0.12, 0.88, 2)
+        rr = rng.uniform(0.05, 0.14)
+        el = rng.uniform(0.6, 1.6)
+        d2 = ((xx - cxy[0]) / rr) ** 2 + ((yy - cxy[1]) / (rr * el)) ** 2
+        inside = d2 < 1.0
+        a[inside] = 1.0
+        g = rng.uniform(0.25, 0.55)
+        col[inside] = [0.08 + 0.2 * g, 0.3 + g * 0.5, 0.06 + 0.12 * g]
+    return np.concatenate([col, a[..., None]], axis=-1).astype(np.float32)
+
+
+def _alpha_checker(n: int, cutout: bool) -> np.ndarray:
+    """[n,n,4] dark curtain texture; with `cutout` its alpha is a
+    one-texel checkerboard (0 / 1), else opaque."""
+    tex = np.ones((n, n, 4), np.float32)
+    tex[..., :3] = 0.2
+    if cutout:
+        yy, xx = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+        tex[..., 3] = ((yy + xx) % 2).astype(np.float32)
+    return tex
+
+
+CURTAIN = 5      # the curtain's material in curtain_cornell
+
+
+def curtain_cornell(cutout: bool = True, grid: int = 0, texture=None,
+                    tex_n: int = 64) -> HostScene:
+    """The Cornell box without its boxes and with a screen-filling curtain
+    in front of the back wall, alpha-tested (cutoff 0.5, thin, material
+    CURTAIN) against its base-colour texture: the JAX package's alpha
+    tests' scenes. grid 0: the curtain is one quad with an 8 x 8
+    checkerboard alpha (tests/test_omm_alpha.py `_alpha_scene`); grid > 0:
+    a grid x grid quad grid with a tex_n x tex_n checkerboard
+    (tests/test_cluster_omm.py `_alpha_scene_big` at grid 40), or with
+    `texture` (e.g. `leaf_texture(64)`: a foliage card)."""
+    host = cornell_box(boxes=False)
+    corners = ([0.02, 0.02, 0.5], [0.98, 0.02, 0.5], [0.98, 0.98, 0.5],
+               [0.02, 0.98, 0.5])
+    if grid:
+        pos, nrm, uv, idx, mat = _quad_grid(*corners, grid, grid, CURTAIN)
+    else:
+        pos, nrm, uv, idx, mat = _quad(*corners, CURTAIN)
+    host.instances.append(MeshInstance(positions=pos, normals=nrm, uvs=uv,
+                                       indices=idx, material=mat,
+                                       name="curtain"))
+    if texture is None:
+        texture = _alpha_checker(tex_n if grid else 8, cutout)
+    host.textures = [texture]
+    old = host.materials
+    mats = Materials.create(CURTAIN + 1)
+    n_old = old.base_color.shape[0]
+    mats = mats.replace(**{
+        f: torch.cat([getattr(old, f), getattr(mats, f)[n_old:]])
+        for f in ("base_color", "metallic", "roughness", "ior",
+                  "transmission", "diffuse_transmission", "emissive",
+                  "specular_f0_scale", "thin", "alpha_cutoff",
+                  "volume_absorption", "base_color_tex", "emissive_tex",
+                  "metal_rough_tex", "normal_tex")})
+
+    def put(field, value):
+        arr = getattr(mats, field).clone()
+        arr[CURTAIN] = torch.as_tensor(value, dtype=arr.dtype)
+        return arr
+
+    host.materials = mats.replace(
+        base_color=put("base_color", [0.9, 0.9, 0.9]),
+        roughness=put("roughness", 1.0),
+        alpha_cutoff=put("alpha_cutoff", 0.5),
+        base_color_tex=put("base_color_tex", 0),
+        thin=put("thin", 1.0))
+    return host
 
 
 def _instance_xform(tx, ty, tz, scale=1.0, yaw=0.0):

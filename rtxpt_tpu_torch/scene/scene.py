@@ -98,6 +98,12 @@ class Geometry:
     def num_triangles(self) -> int:
         return self.indices.shape[0]
 
+    def to(self, device) -> "Geometry":
+        """Every field on `device`."""
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self)})
+
 
 @dataclass(frozen=True)
 class AnalyticLights:
@@ -141,9 +147,13 @@ class SceneData:
     tri_pack: Optional[torch.Tensor] = None
     mat_pack: Optional[torch.Tensor] = None  # [M,18] material scalars
     textures: Optional[object] = None        # textures.TextureAtlas
-    # Features of the JAX package that this port does not serve yet; the
-    # dispatch refuses a scene that sets them (pt/dispatch.py).
-    tri_opacity: Optional[object] = None
+    # opacity micromaps (scene/omm.py): [T] i64 class of each prepared
+    # triangle (OPAQUE / MIXED) and its level-2 micromap word; None without
+    # alpha-tested geometry
+    tri_opacity: Optional[torch.Tensor] = None
+    tri_micromap: Optional[torch.Tensor] = None
+    # nested dielectric priorities: not served yet; the dispatch refuses a
+    # scene that sets it (pt/dispatch.py)
     has_nested_priorities: bool = False
     tlas: Optional[object] = None            # tlas.TLAS (two-level scenes)
 

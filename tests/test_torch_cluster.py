@@ -515,7 +515,10 @@ def test_clustered_tier_refuses_unserved_features(city, case):
     elif case == "priorities":
         scene = scene.replace(has_nested_priorities=True)
     elif case == "micromaps":
+        # tables without the micromaps, pinned ("auto" takes the general
+        # tier, tests/test_torch_omm.py)
         scene = scene.replace(tri_opacity=object())
+        cfg = PathTracerConfig(kernel_tier="clustered")
     else:
         cfg = PathTracerConfig(split_channels=True)
     with pytest.raises(NotImplementedError,
@@ -538,12 +541,13 @@ def test_clustered_tier_serves_the_environment():
 
 
 def test_cluster_scene_from_numpy_refuses_unported_parts(city):
-    """Opacity micromaps are not ported and raise by name; instanced
-    tables are carried across (tests/test_torch_instancing.py), but only
-    with their world candidate lists and maps."""
+    """Opacity micromap tables are carried across with their micromap
+    lanes (tests/test_torch_omm.py) and raise by name without them;
+    instanced tables are carried across (tests/test_torch_instancing.py),
+    but only with their world candidate lists and maps."""
     tables = _jax_cluster_tables(city[1])
     tables["omm"] = True
-    with pytest.raises(NotImplementedError, match="omm"):
+    with pytest.raises(ValueError, match="omm"):
         cluster_scene_from_numpy(tables, device="cpu")
     tables = _jax_cluster_tables(city[1])
     tables["instanced"] = True

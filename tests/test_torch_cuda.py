@@ -7,10 +7,15 @@ the instanced city of tests/test_torch_instancing.py, and the general
 tier's brute-force closest hit K8 and BVH walk K9 on the Cornell box, the
 rooms and that city, and the environment variants of K1 and K4 (has_env,
 final_env) with K4's export slots 3-5, on the sky Cornell box and the sky
-city. Needs an NVIDIA GPU and nvcc; skips without them. This file imports no JAX, so it runs where JAX is absent:
+city, the texture variants of K1 and K4, and the micromap variants of K1,
+K2, K3, K4, K5 and K9 on the curtain Cornell box and its 40 x 40 grid.
+Needs an NVIDIA GPU and nvcc; skips without them. This file imports no
+JAX, so it runs where JAX is absent:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+
+import dataclasses
 
 import pytest
 import torch
@@ -669,4 +674,177 @@ def test_textured_renders_count_their_launches(gpu):
     assert dict(kernels.launches) == dict(
         cluster_closest=2 * 4 * 2, cluster_shade_tex_env=3 * 2,
         cluster_shade_final=2, cluster_shadow=2 * 3 * 2)
+    assert torch.isfinite(hdr).all() and rays > 0
+
+
+# ---------------------------------------------------------------------------
+# Opacity micromaps: the micromap variants of K1, K2, K3, K4, K5 and K9
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def alpha_scenes(gpu):
+    """The curtain Cornell box (fused) and its 40 x 40 grid (clustered)."""
+    hosts = dict(curtain=TP.curtain_cornell(True),
+                 grid=TP.curtain_cornell(True, grid=40))
+    return {k: (h, prepare(h, device=gpu)) for k, h in hosts.items()}
+
+
+@pytest.mark.parametrize("slot", [2, 5])
+def test_k1_omm_matches_plain_version(alpha_scenes, gpu, slot):
+    """K1's micromap variant over four iterations of 4096 camera rays on
+    the curtain (nee slot 2, and slot 5's export), and K2's micromap
+    variant on slot 5's shadow requests."""
+    host, scene = alpha_scenes["curtain"]
+    tbl = scene.bounce_tables
+    assert tbl.omm and tbl.tex is not None
+    cfg = PathTracerConfig(max_bounces=3, stochastic_texture_filtering=True,
+                           nee_external=slot == 5)
+    kcfg = bf.KernelConfig.from_cfg(cfg)
+    assert kcfg.nee_mode == slot
+    fs, is_ = _state(host, cfg, 64, gpu, 2)
+    passed = 0
+    for b in range(4):
+        plain = bf.bounce_reference(fs, is_, tbl, kcfg, 2)
+        before = dict(kernels.launches)
+        kern = bf.bounce(fs, is_, tbl, kcfg, 2)
+        torch.cuda.synchronize()
+        assert kernels.launches["bounce_fused_omm_tex"] == \
+            before.get("bounce_fused_omm_tex", 0) + 1
+        same = (kern[1] == plain[1]).all(0) & (kern[2][1] == plain[2][1])
+        assert same.float().mean() >= 0.999
+        _close_rows(kern, plain)
+        passed += int(((is_[bf.IS_ACTIVE] > 0) & (plain[1][bf.IS_ACTIVE] > 0)
+                       & (plain[1][bf.IS_LBOUNCE] == is_[bf.IS_LBOUNCE]))
+                      .sum())
+        if slot == 5:
+            res = external_nee(scene, cfg, None, plain[3],
+                               fs[bf.FS_D:bf.FS_D + 3], plain[2][5] > 0.5,
+                               fs[bf.FS_PREVPDF], is_[bf.IS_PREVDELTA] > 0,
+                               is_[bf.IS_PX], is_[bf.IS_PY], 2, b,
+                               lb=is_[bf.IS_LBOUNCE])
+            sh = bf.shadow_requests(
+                res["shadow_o"], res["shadow_d"], res["sdist"],
+                res["do_nee"], bf.alpha_uniform(
+                    cfg, is_[bf.IS_PX], is_[bf.IS_PY], is_[bf.IS_LBOUNCE],
+                    2))
+            occ_k, tst_k = bf.occlusion(tbl, sh, stats=True)
+            occ_p, tst_p = bf.occlusion_reference(tbl, sh, stats=True)
+            req = sh[bf.SR_DO] > 0.5
+            assert (occ_k == occ_p)[req].float().mean() >= 0.999
+            assert torch.equal(tst_k, tst_p)
+        fs, is_ = plain[0], plain[1]
+    assert passed > 100
+    assert kernels.launches["shadow_occlusion_omm"] >= (4 if slot == 5
+                                                        else 0)
+
+
+def test_k3_k4_k5_omm_match_plain_versions(alpha_scenes, gpu):
+    """K3, K4 and K5's micromap variants on the 40 x 40 curtain over three
+    bounces of 4096 camera rays: the winner with HA_UNK, the alpha test
+    and pass-through, the stochastic shadow test."""
+    host, scene = alpha_scenes["grid"]
+    tbl = scene.cluster_tables
+    assert tbl.omm and tbl.tex is not None
+    cfg = PathTracerConfig(max_bounces=3, stochastic_texture_filtering=True)
+    kcfg = bf.KernelConfig.from_cfg(cfg)
+    kslots = tbl.n_clusters
+    fs, is_ = _state(host, cfg, 64, gpu, 2)
+    unknown = 0
+    for _ in range(3):
+        od = BC.ray_operand(fs, is_)
+        cand, _ = BC.cull(fs[bf.FS_O:bf.FS_O + 3], fs[bf.FS_D:bf.FS_D + 3],
+                          is_[bf.IS_ACTIVE] > 0, 1e27, tbl, kslots)
+        ha_k, vis_k = BC.closest_hit(cand, od, tbl.blocks, kslots, 1e27,
+                                     stats=True, micro=tbl.omm_word)
+        ha_p, vis_p = BC.closest_hit_reference(cand, od, tbl.blocks, kslots,
+                                               1e27, stats=True,
+                                               micro=tbl.omm_word)
+        torch.cuda.synchronize()
+        same = (ha_k[BC.HA_PRIM] == ha_p[BC.HA_PRIM]) \
+            & (ha_k[BC.HA_UNK] == ha_p[BC.HA_UNK])
+        assert same.float().mean() >= 0.999 and torch.equal(vis_k, vis_p)
+        unknown += int((ha_p[BC.HA_UNK] > 0.5).sum())
+        plain = BC.shade_reference(ha_p, fs, is_, tbl, kcfg, 2, omm=True)
+        kern = BC.shade(ha_p, fs, is_, tbl, kcfg, 2, omm=True)
+        torch.cuda.synchronize()
+        same = (kern[1] == plain[1]).all(0) & (kern[3][5] == plain[3][5])
+        assert same.float().mean() >= 0.999
+        _close_rows(kern, plain)
+        sh = plain[2]
+        do = sh[BC.SH_DO] > 0.5
+        cand_s, _ = BC.cull(sh[BC.SH_O:BC.SH_O + 3], sh[BC.SH_D:BC.SH_D + 3],
+                            do, torch.where(do, sh[BC.SH_DIST], -3e38), tbl,
+                            kslots)
+        occ_k, tst_k = BC.occlusion(cand_s, sh, tbl.blocks, kslots,
+                                    stats=True, micro=tbl.omm_word,
+                                    cover=tbl.omm_cov)
+        occ_p, tst_p = BC.occlusion_reference(cand_s, sh, tbl.blocks, kslots,
+                                              stats=True, micro=tbl.omm_word,
+                                              cover=tbl.omm_cov)
+        assert (occ_k == occ_p).float().mean() >= 0.999
+        assert torch.equal(tst_k, tst_p)
+        fs, is_ = plain[0], plain[1]
+    assert unknown > 40
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_k9_omm_matches_plain_version(alpha_scenes, gpu, any_hit):
+    """K9's micromap test on the 40 x 40 curtain's BVH: 8192 seeded rays
+    through the curtain."""
+    _, scene = alpha_scenes["grid"]
+    bvh = scene.bvh
+    assert bvh.tri_micro is not None
+    g = torch.Generator().manual_seed(5)
+    n = 8192
+    o = torch.stack([torch.rand(n, generator=g) * 0.9 + 0.05,
+                     torch.rand(n, generator=g) * 0.9 + 0.05,
+                     torch.full((n,), 0.95)], 1)
+    d = torch.stack([torch.rand(n, generator=g) * 0.6 - 0.3,
+                     torch.rand(n, generator=g) * 0.6 - 0.3,
+                     -torch.ones(n)], 1)
+    d = d / d.norm(dim=1, keepdim=True)
+    o, d = o.to(gpu), d.to(gpu)
+    tmin = torch.zeros(n, device=gpu)
+    tmax = torch.full((n,), 10.0, device=gpu)
+    before = kernels.launches["bvh_traverse_omm"]
+    kern = traverse.walk(bvh, o, d, tmin, tmax, any_hit, stats=True)
+    plain = traverse._traverse(bvh, o, d, tmin, tmax, any_hit, stats=True)
+    torch.cuda.synchronize()
+    assert kernels.launches["bvh_traverse_omm"] == before + 1
+    for key in ("prim", "visits", "tests"):
+        assert torch.equal(kern[key], plain[key]), key
+    same = kern["prim"] == plain["prim"]
+    assert torch.allclose(kern["t"][same], plain["t"][same], rtol=TOL,
+                          atol=TOL)
+    # rays reach the back wall through the cutouts
+    back = plain["prim"] >= 0
+    assert 0.2 < float(back.float().mean()) <= 1.0
+
+
+def test_omm_renders_count_their_launches(alpha_scenes, gpu):
+    """Alpha-tested renders run the micromap variants, the two
+    pass-through iterations included; without stochastic filtering they
+    render on the general tier (K8 and its retraces on the curtain)."""
+    host, scene = alpha_scenes["curtain"]
+    cam = TP.default_camera(host, 32, 32, device=gpu)
+    cfg = PathTracerConfig(max_bounces=3, stochastic_texture_filtering=True)
+    kernels.launches.clear()
+    hdr, _, rays = render(scene, cam, cfg, 32, 32, spp=2)
+    assert dict(kernels.launches) == dict(bounce_fused_omm_tex=(3 + 2) * 2)
+    assert torch.isfinite(hdr).all() and rays > 0
+    kernels.launches.clear()
+    hdr, _, rays = render(scene, cam, PathTracerConfig(max_bounces=3), 32,
+                          32, spp=1)
+    assert set(kernels.launches) == {"brute_closest"}
+    assert kernels.launches["brute_closest"] >= 4
+    assert torch.isfinite(hdr).all()
+    host, scene = alpha_scenes["grid"]
+    kernels.launches.clear()
+    hdr, _, rays = render(scene, TP.default_camera(host, 32, 24, device=gpu),
+                          dataclasses.replace(cfg, cluster_pages=1), 32, 24,
+                          spp=2)
+    assert dict(kernels.launches) == dict(
+        cluster_closest_omm=5 * 2, cluster_shade_omm_tex=5 * 2,
+        cluster_shadow_omm=5 * 2)
     assert torch.isfinite(hdr).all() and rays > 0

@@ -50,7 +50,7 @@ SLICE_MODULES = [
     "rtxpt_tpu_torch.accel.bvh", "rtxpt_tpu_torch.accel.lbvh",
     "rtxpt_tpu_torch.accel.native", "rtxpt_tpu_torch.accel.brute",
     "rtxpt_tpu_torch.accel.traverse", "rtxpt_tpu_torch.accel.tlas",
-    "rtxpt_tpu_torch.lighting.sky",
+    "rtxpt_tpu_torch.lighting.sky", "rtxpt_tpu_torch.scene.omm",
 ]
 
 
@@ -240,11 +240,14 @@ def test_resolve_refuses_plain_tier_on_cuda(cornell):
 # case: (scene, scene fields, config fields, the name the error gives);
 # the external routes of the fused and clustered tiers serve NEE-AT with a
 # tile state, WRS K > 1 and more than 128 lights, flat or instanced; a
-# pinned kernel tier does not serve NEE-AT with an environment light
+# pinned kernel tier does not serve NEE-AT with an environment light, nor
+# alpha-tested geometry (opacity micromaps) without the tables'
+# micromaps, which "auto" leaves to the general tier
 UNSERVED = {
-    "textures": ("cornell", "alpha_textures", {},
+    "textures": ("cornell", "alpha_textures", dict(kernel_tier="fused"),
                  "alpha-tested textures"),
-    "micromaps": ("cornell", dict(tri_opacity=object()), {}, "micromaps"),
+    "micromaps": ("cornell", dict(tri_opacity=object()),
+                  dict(kernel_tier="fused"), "micromaps"),
     "priorities": ("cornell", dict(has_nested_priorities=True), {},
                    "priorities"),
     "split": ("cornell", {}, dict(split_channels=True), "split"),
@@ -288,13 +291,17 @@ def test_resolve_refuses_unserved_features(cornell, small_city,
 
 def _alpha_textured(scene):
     """The scene with a texture and an alpha-tested material that binds it
-    as base colour: the JAX package bakes opacity micromaps for it (not
-    ported), so every tier refuses it; textures themselves are served."""
+    as base colour, and the classes of prepare's opacity bake, but tables
+    without the micromaps: a pinned kernel tier refuses it (prepare builds
+    the micromaps into the tables, tests/test_torch_omm.py), and so does
+    the TLAS route of a two-level scene, which has no alpha test."""
     mats = scene.materials
     n = mats.alpha_cutoff.shape[0]
-    return scene.replace(textures=object(), materials=mats.replace(
-        alpha_cutoff=torch.full((n,), 0.5),
-        base_color_tex=torch.zeros((n,), dtype=torch.int32)))
+    return scene.replace(textures=object(), tri_opacity=object(),
+                         materials=mats.replace(
+                             alpha_cutoff=torch.full((n,), 0.5),
+                             base_color_tex=torch.zeros((n,),
+                                                        dtype=torch.int32)))
 
 
 # cases that were refused before the environment slice and are served now:
@@ -414,10 +421,12 @@ def test_config_matches_jax_package():
 
 
 # the general tier ("xla"): case -> (scene fields, config fields, trace
-# arguments, the name the error gives)
+# arguments, the name the error gives); alpha-tested geometry is served on
+# a flat scene (tests/test_torch_omm.py), refused on the TLAS route of a
+# two-level scene
 UNSERVED_XLA = {
     "textures": ("alpha_textures", {}, {}, "alpha-tested textures"),
-    "micromaps": ("tri_micro", {}, {}, "micromaps"),
+    "micromaps": ("tri_opacity", {}, {}, "micromaps"),
     "priorities": (dict(has_nested_priorities=True), {}, {}, "priorities"),
     "split": ({}, dict(split_channels=True), {}, "split"),
     "want_aux": ({}, {}, dict(want_aux=True), "aux buffers"),
@@ -432,15 +441,15 @@ UNSERVED_XLA = {
 
 @pytest.mark.parametrize("device", ["cuda", "cpu"])
 @pytest.mark.parametrize("case", list(UNSERVED_XLA))
-def test_general_tier_refuses_unserved_features(cornell, case, device):
+def test_general_tier_refuses_unserved_features(cornell, instanced_city,
+                                                 case, device):
     """On the general tier an unserved feature raises with its name."""
     scene_kw, cfg_kw, call, name = UNSERVED_XLA[case]
     scene = cornell[1]
-    if scene_kw == "tri_micro":
-        scene = scene.replace(bvh=scene.bvh.replace(
-            tri_micro=torch.zeros(scene.bvh.num_triangles)))
+    if scene_kw == "tri_opacity":
+        scene = instanced_city.replace(tri_opacity=object())
     elif scene_kw == "alpha_textures":
-        scene = _alpha_textured(scene)
+        scene = _alpha_textured(instanced_city)
     else:
         scene = scene.replace(**scene_kw)
     cfg = PathTracerConfig(kernel_tier="xla", **cfg_kw)

@@ -185,13 +185,18 @@ def test_scene_from_numpy_renders_identically(cornell_scene):
 
 
 def test_scene_from_numpy_refuses_unported_parts(cornell_scene):
-    """Opacity micromap tables are not ported and raise by name; the
+    """Nested-priority tables are not ported and raise by name; the
     environment table (env_rows) is carried across
     (tests/test_torch_env.py), and so are the texture tables
-    (tests/test_torch_textures.py)."""
+    (tests/test_torch_textures.py) and the micromap row groups
+    (tests/test_torch_omm.py), which omm tables must carry."""
+    tables = _jax_tables(cornell_scene[1])
+    tables["prio"] = True
+    with pytest.raises(NotImplementedError, match="prio"):
+        scene_from_numpy(tables, device="cpu")
     tables = _jax_tables(cornell_scene[1])
     tables["omm"] = True
-    with pytest.raises(NotImplementedError, match="omm"):
+    with pytest.raises(ValueError, match="omm"):
         scene_from_numpy(tables, device="cpu")
     tables = _jax_tables(cornell_scene[1])
     tables["env_rows"] = np.zeros((bp.EV_ROWS, 128), np.float32)
@@ -228,13 +233,15 @@ def test_prepare_refuses_unported_features(case, monkeypatch):
     host = TP.single_triangle("point")
     kw = {}
     if case == "textures":
-        # alpha-tested textures need opacity micromaps (not ported);
-        # textures themselves are served (tests/test_torch_textures.py)
+        # alpha-tested textures get opacity micromaps on a flat scene
+        # (tests/test_torch_omm.py); a two-level scene cannot carry them,
+        # so instancing="force" refuses them, as in the JAX package
         host.textures = [np.ones((4, 4, 4), np.float32)]
         n = host.materials.alpha_cutoff.shape[0]
         host.materials = host.materials.replace(
             alpha_cutoff=torch.full((n,), 0.5),
             base_color_tex=torch.zeros((n,), dtype=torch.int32))
+        kw = dict(instancing="force")
     elif case == "too_many_tris":
         # above 2048 triangles the clustered tier takes the scene, up to
         # its device block budget (shrunk here so a small scene passes it)
@@ -242,7 +249,8 @@ def test_prepare_refuses_unported_features(case, monkeypatch):
         inst = host.instances[0]
         inst.indices = np.tile(inst.indices, (bf.MAX_TRIS + 1, 1))
         inst.material = np.zeros(len(inst.indices), np.int32)
-    with pytest.raises(NotImplementedError,
-                       match="opacity micromaps" if case == "textures"
+    with pytest.raises(ValueError if case == "textures"
+                       else NotImplementedError,
+                       match="alpha-tested textures" if case == "textures"
                        else None):
         prepare(host, device="cpu", **kw)

@@ -207,6 +207,42 @@ Phases, one or a few lines of output each:
                 with micromaps) on the general tier at 960x540. Each path
                 prints its launch counts, the share of the shaded lanes
                 that passed through and one profiled frame.
+  15. priorities -- nested dielectric priorities and Bistro. (a) K1's
+                priority variant on procedural.overlap_boxes (water and
+                glass overlapping, the glass outranking the water) and
+                K4's on their subdivided form (a 40 x 40 side wall puts
+                them on the clustered tier), on 65,536 rays of two
+                cameras (inside the water, the rays starting in air:
+                false exits; inside the glass beyond the water, starting
+                in the glass: false entries) at bounces 0 and 2 against
+                their plain versions, phase 3's criteria, the interior
+                list (IS_MED0, IS_MED1) equal on every lane and at least
+                5% of the active lanes false hits; K1 timed at 2^18 rays,
+                K4 at 2,073,600 lanes; the registers and spills of all
+                eight K1 and K4 instantiations. K4's omm_tex_prio variant
+                on Bistro (bistro_scene(600_000, seed=0)) in nee slot 5:
+                timed at the 1080p bounce-0 launch beside omm_tex, and
+                held against its plain version (its SF_* rows included)
+                in the warm-up sample at rounds 0 and 2 on the 64 groups
+                of the sorted wavefront with the most glass hits (false
+                hits reported). (b) The closed-form overlap radiance (the
+                glass wins: E exp(-SW 0.4 - SG 0.8), rtol 5e-3) through
+                the kernels on the fused, clustered and general tiers.
+                (c) Bistro at 1920x1080 in scripts/run_ladder.py rung 5's
+                path-tracer configuration (4 bounces, power NEE,
+                stochastic texture filtering, firefly clamp 32; the
+                scene's camera; one chunk) plus the 2 pass-through
+                rounds, 1 warm-up and 2 timed samples on the clustered
+                tier's external route: triangles, clusters, lights, table
+                memory, prepare seconds; K3 / K5 micromap variants pages x
+                rounds x spp and K4 omm_tex_prio rounds x spp launches;
+                the pass-through share; one profiled frame (sort, cull,
+                external NEE, K3, K4, K5, the rest, idle) with its
+                cull_overflow and Mrays/s; a finite, lit image; the
+                sample at the smallest page count without cull overflow
+                (F7) and the default image's RMSE against it; the same
+                sample on the general tier (K9) at 960x540 against the
+                clustered tier's (RMSE and means, no limit).
 
 The line before the last holds {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Any failed phase, a missing GPU or a missing
@@ -579,6 +615,9 @@ def main(record_path=None):
     # ---- 14. opacity micromaps and alpha-tested geometry -------------------
     alpha = _alpha(record, dev, smi, dump)
 
+    # ---- 15. nested dielectric priorities and Bistro -----------------------
+    prio = _priorities(record, dev, smi, dump)
+
     k1_paths = dict(cornell=cornell_launches["bounce_fused"],
                     **{k: v.get("bounce_fused", 0)
                        for k, v in ext["launches"].items()})
@@ -619,6 +658,18 @@ def main(record_path=None):
     entries.extend(env["entries"].values())
     entries.extend(tex["entries"].values())
     entries.extend(alpha["entries"].values())
+    entries.extend(prio["entries"].values())
+    # Bistro's launches of the micromap variants that phase 14 checks
+    for entry in entries:
+        n_bistro = prio["launches"]["bistro"].get(entry["name"], 0)
+        if n_bistro and entry["name"] != "cluster_shade_omm_tex_prio":
+            entry.setdefault("launches_by_path", {})["bistro"] = n_bistro
+            entry["launches"] += n_bistro
+        n_gen = prio["launches"]["bistro_general"].get(entry["name"], 0)
+        if n_gen:
+            entry.setdefault("launches_by_path", {})["bistro_general"] = \
+                n_gen
+            entry["launches"] += n_gen
     # the texture paths' launches of kernels that earlier phases time
     tex_paths = dict(brute_closest=("kitchen_general",),
                      bounce_fused_final=("cornell", "kitchen"),
@@ -1003,13 +1054,7 @@ def _cluster_kernel_checks(record, dev, smi, dump, label, host, scene,
         + (OMM_WORD_BYTES * 128 * k3_blocks if omm else 0)
     k3_visits = int((active_g * visits).sum())
     k3_pairs = k3_visits * 128
-    k4_bytes = 4 * n * (BC.HA_ROWS + 2 * (bf.NF + bf.NI) + BC.SH_ROWS
-                        + bf.NH) + 4 * (tbl.mat_rows.numel()
-                                        + tbl.light_rows.numel()
-                                        + _numel(tbl.env)
-                                        + (_numel(tbl.tex)
-                                           + _numel(tbl.tex_meta)
-                                           if k4_tex else 0))
+    k4_bytes = _k4_bytes(n, tbl, k4_tex, False)
     k5_blocks, k5_insts = distinct(cand_s, slots < cand_s[:, 0, :1])
     k5_bytes = 4 * (cand_s.numel() + (10 if omm else 9) * n) \
         + STAGED_BLOCK_BYTES * k5_blocks + XF_BYTES * k5_insts \
@@ -1032,7 +1077,7 @@ def _cluster_kernel_checks(record, dev, smi, dump, label, host, scene,
     libs = {k3n: kernels.CLUSTER_CLOSEST, k4n: kernels.CLUSTER_SHADE,
             k5n: kernels.CLUSTER_SHADOW}
     ptxas = {name: _ptxas_entry(lib.ptxas_log,
-                                f"ILb{int(k4_tex)}ELb{int(omm)}E"
+                                f"ILb{int(k4_tex)}ELb{int(omm)}ELb0E"
                                 if name == k4n else
                                 f"ILb{int(inst)}ELb{int(omm)}E")
              for name, lib in libs.items()}
@@ -2595,7 +2640,7 @@ def _textures(record, dev, smi, dump):
     # registers and spills of each K1 and K4 instantiation
     regs = {f"{lib}_{'tex' if t else 'plain'}": _ptxas_entry(
         getattr(kernels, attr).ptxas_log,
-        f"{lib}_kernelILb{int(t)}ELb0E")
+        f"{lib}_kernelILb{int(t)}ELb0ELb0E")
         for lib, attr in (("bounce_fused", "BOUNCE_FUSED"),
                           ("cluster_shade", "CLUSTER_SHADE"))
         for t in (False, True)}
@@ -2764,6 +2809,31 @@ def _passed_through(is_in, is_out):
     from rtxpt_tpu_torch.pt import bounce_fused as bf
     return (is_in[bf.IS_ACTIVE] > 0) & (is_out[bf.IS_ACTIVE] > 0) \
         & (is_out[bf.IS_LBOUNCE] == is_in[bf.IS_LBOUNCE])
+
+
+def _passthrough_share(run):
+    """Share of the lanes of one (untimed) frame's shading launches that
+    passed through (an alpha test or a priority false hit), counted around
+    the shading kernels' wrappers."""
+    from rtxpt_tpu_torch.pt import bounce_clustered as BC
+    from rtxpt_tpu_torch.pt import bounce_fused as bf
+    counts = [0, 0]
+    k1_, k4_ = bf.bounce, BC.shade
+
+    def count(is_in, out):
+        counts[0] += int(_passed_through(is_in, out[1]).sum())
+        counts[1] += int((is_in[bf.IS_ACTIVE] > 0).sum())
+        return out
+
+    bf.bounce = lambda fs_, is__, *a, **k: count(is__, k1_(
+        fs_, is__, *a, **k))
+    BC.shade = lambda ha_, fs_, is__, *a, **k: count(is__, k4_(
+        ha_, fs_, is__, *a, **k))
+    try:
+        run()
+    finally:
+        bf.bounce, BC.shade = k1_, k4_
+    return counts[0] / max(counts[1], 1)
 
 
 def _alpha(record, dev, smi, dump):
@@ -2962,7 +3032,7 @@ def _alpha(record, dev, smi, dump):
     rec["ptxas"] = {
         f"{lib}_{'omm' if o else 'plain'}_{'tex' if t else 'notex'}":
             _ptxas_entry(getattr(kernels, attr).ptxas_log,
-                         f"{lib}_kernelILb{int(t)}ELb{int(o)}E")
+                         f"{lib}_kernelILb{int(t)}ELb{int(o)}ELb0E")
         for lib, attr in (("bounce_fused", "BOUNCE_FUSED"),
                           ("cluster_shade", "CLUSTER_SHADE"))
         for t in (False, True) for o in (False, True)}
@@ -3061,27 +3131,6 @@ def _alpha(record, dev, smi, dump):
     # ---- (c) the full-size paths ----
     from torch.profiler import ProfilerActivity, profile
 
-    def passthrough_share(run):
-        """Share of the lanes of one (untimed) frame's kernel launches that
-        passed through, counted around the shading kernels' wrappers."""
-        counts = [0, 0]
-        k1_, k4_ = bf.bounce, BC.shade
-
-        def count(is_in, out):
-            counts[0] += int(_passed_through(is_in, out[1]).sum())
-            counts[1] += int((is_in[bf.IS_ACTIVE] > 0).sum())
-            return out
-
-        bf.bounce = lambda fs_, is__, *a, **k: count(is__, k1_(
-            fs_, is__, *a, **k))
-        BC.shade = lambda ha_, fs_, is__, *a, **k: count(is__, k4_(
-            ha_, fs_, is__, *a, **k))
-        try:
-            run()
-        finally:
-            bf.bounce, BC.shade = k1_, k4_
-        return counts[0] / max(counts[1], 1)
-
     def path(label, scene, host, cfg_, tier, want, adaptive=False,
              frame=(w, h), profile_parts=()):
         fw, fh = frame
@@ -3112,7 +3161,7 @@ def _alpha(record, dev, smi, dump):
                  finite=bool(torch.isfinite(hdr).all()),
                  tier=resolved.kernel_tier, card=smi)
         if tier != "xla":
-            p["passed_through"] = passthrough_share(lambda: run(1, 9))
+            p["passed_through"] = _passthrough_share(lambda: run(1, 9))
         if profile_parts:
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
@@ -3221,6 +3270,510 @@ def _alpha(record, dev, smi, dump):
                              launches=sum(by_path.values()),
                              launches_by_path=by_path,
                              foliage=checks["foliage"]["kernels"][name])
+    return dict(entries=entries, launches=launches)
+
+
+FALSE_HIT_SHARE = 0.05       # phase 15: the least share of a priority
+#                              comparison's active lanes that are false hits
+BISTRO_TRIS = 600_000
+BISTRO_SPP = 2               # phase 15: timed samples of the Bistro path
+BISTRO_GENERAL_FRAME = (960, 540)
+
+
+def _prio_state(cols, rows, dev, sample):
+    """The priority checks' camera rays on a cols x rows frame: its top
+    half from procedural.OVERLAP_INSIDE_CAMERAS[0], its bottom half from
+    [1], each starting in its camera's medium."""
+    import torch
+
+    from rtxpt_tpu_torch.config import PathTracerConfig
+    from rtxpt_tpu_torch.pt import bounce_fused as bf
+    from rtxpt_tpu_torch.pt.integrator import _pixel_grid, camera_rays
+    from rtxpt_tpu_torch.scene.camera import look_at
+    from rtxpt_tpu_torch.scene.procedural import OVERLAP_INSIDE_CAMERAS
+
+    half = rows // 2
+    parts = []
+    for k, (pos, target, up, fov, medium) in enumerate(
+            OVERLAP_INSIDE_CAMERAS):
+        cam = look_at(pos, target, up, fov, cols, half, device=dev)
+        px, py = _pixel_grid(cols, half, dev)
+        o, d, spread = camera_rays(cam, PathTracerConfig(), px, py, sample)
+        fs, is_ = bf.initial_state(o, d, spread, px, py + k * half)
+        is_[bf.IS_MED0] = medium
+        parts.append((fs, is_))
+    return tuple(torch.cat([p[i] for p in parts], 1).contiguous()
+                 for i in range(2))
+
+
+def _false_hit_share(is_in, is_out, hit):
+    """Share of the active lanes that hit and passed through: on a scene
+    without micromaps, its priority false hits."""
+    from rtxpt_tpu_torch.pt import bounce_fused as bf
+    active = int((is_in[bf.IS_ACTIVE] > 0).sum())
+    return float((_passed_through(is_in, is_out) & hit).sum()) \
+        / max(active, 1)
+
+
+def _k4_bytes(n, tbl, tex, ext):
+    """K4's bytes at n lanes: the HA and state rows read, the state, SH and
+    hit rows (and in the external modes the SF_* rows) written, the
+    material, light, environment (and texture) tables read once."""
+    from rtxpt_tpu_torch.pt import bounce_clustered as BC
+    from rtxpt_tpu_torch.pt import bounce_fused as bf
+    rows = BC.HA_ROWS + 2 * (bf.NF + bf.NI) + BC.SH_ROWS + bf.NH \
+        + (bf.SF_ROWS if ext else 0)
+    return 4 * n * rows + 4 * (tbl.mat_rows.numel() + tbl.light_rows.numel()
+                               + _numel(tbl.env)
+                               + (_numel(tbl.tex) + _numel(tbl.tex_meta)
+                                  if tex else 0))
+
+
+def _priorities(record, dev, smi, dump):
+    """Phase 15: nested dielectric priorities and Bistro. (a) K1's priority
+    variant on the overlap boxes and K4's on their subdivided form (the
+    two cameras' rays), and K4's omm_tex_prio variant on Bistro's sorted
+    1080p wavefront (the window with the most glass hits, slot 5), each
+    against its plain version at bounces 0 and 2 with phase 3's criteria,
+    the interior list equal on every lane and (on the overlap boxes) at
+    least FALSE_HIT_SHARE of the active lanes false hits; each timed with
+    its bound; the registers and spills of every K1 and K4
+    instantiation. (b) The closed-form overlap radiance through the
+    kernels on the fused, clustered and general tiers. (c) Bistro
+    (bistro_scene(600_000, seed=0)) at 1920x1080 in rung 5's path-tracer
+    configuration, 4 bounces + the 2 pass-through rounds, 1 warm-up and
+    BISTRO_SPP timed samples: its tables and memory, the launches, the
+    pass-through share, one profiled frame, cull_overflow, the sample at
+    the smallest page count without overflow and the default image's RMSE
+    against it, and the same sample on the general tier at 960x540
+    against the clustered tier's. Returns dict(entries {name: kernel-line
+    entry}, launches {path: counts})."""
+    import math
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from rtxpt_tpu_torch import kernels
+    from rtxpt_tpu_torch.config import NEEMode, PathTracerConfig
+    from rtxpt_tpu_torch.prepare import prepare
+    from rtxpt_tpu_torch.pt import bounce_clustered as BC
+    from rtxpt_tpu_torch.pt import bounce_fused as bf
+    from rtxpt_tpu_torch.pt import dispatch
+    from rtxpt_tpu_torch.pt.integrator import (
+        _pixel_grid, camera_rays, render, render_sample)
+    from rtxpt_tpu_torch.scene import procedural as TP
+    from rtxpt_tpu_torch.scene.camera import look_at
+
+    rec = {}
+    record["priorities"] = rec
+    sample = 1
+    cfg = PathTracerConfig(max_bounces=4, nee=NEEMode.POWER)
+    kcfg = bf.KernelConfig.from_cfg(cfg)
+    max_travel = float(cfg.max_ray_travel)
+    boxes = prepare(TP.overlap_boxes([1, 2, 0]), device=dev)
+    wall = prepare(TP.overlap_boxes([1, 2, 0, 0], wall=True), device=dev)
+    tbl, ctbl = boxes.bounce_tables, wall.cluster_tables
+    if not (tbl.prio and boxes.has_nested_priorities
+            and wall.has_nested_priorities and ctbl is not None):
+        _fail("priorities: the overlap boxes do not take the priority "
+              "variants")
+
+    def check(label, kern, plain, is_in, hit, floor=True):
+        summary, err = _compare_state(kern, plain)
+        med = bool(torch.equal(kern[1][bf.IS_MED0:bf.IS_MED1 + 1],
+                               plain[1][bf.IS_MED0:bf.IS_MED1 + 1]))
+        share = _false_hit_share(is_in, plain[1], hit)
+        summary.update(interior_list_equal=med, false_hit_share=share)
+        print(f"priorities {label}: int lanes equal "
+              f"{summary['int_lanes_equal']:.6f}, worst float row "
+              f"{summary['worst_float_row']:.6f}, interior list equal {med}, "
+              f"false hits {share:.4f} of the active lanes, L mean "
+              f"{summary['L_mean_kernel']:.6f} vs "
+              f"{summary['L_mean_plain']:.6f}, max abs err {err:.3g}",
+              flush=True)
+        if not _state_ok(summary) or not med or (
+                floor and share < FALSE_HIT_SHARE):
+            rec[label] = summary
+            dump()
+            _fail(f"priorities: {label} disagrees with its plain version or "
+                  f"exercises too few false hits")
+        return summary, err
+
+    # ---- (a) K1's priority variant on the overlap boxes ----
+    fs, is_ = _prio_state(CMP_SIDE, CMP_SIDE, dev, sample)
+    k1_err = 0.0
+    for b in range(3):
+        plain = bf.bounce_reference(fs, is_, tbl, kcfg, sample)
+        if b in (0, 2):
+            kern = bf.bounce(fs, is_, tbl, kcfg, sample)
+            torch.cuda.synchronize()
+            rec[f"k1_bounce{b}"], err = check(f"k1 bounce {b}", kern, plain,
+                                              is_, plain[2][1] >= 0)
+            k1_err = max(k1_err, err)
+        fs, is_ = plain[0], plain[1]
+    fs_t, is_t = _prio_state(512, 512, dev, sample)       # 2^18 rays
+    n = fs_t.shape[1]
+    k1_ms = _cuda_ms(lambda: bf.bounce(fs_t, is_t, tbl, kcfg, sample), 20)
+    k1_plain = _cuda_ms(lambda: bf.bounce_reference(fs_t, is_t, tbl, kcfg,
+                                                    sample), 3)
+    # as phase 3: the state read and written once, the tables once, every
+    # active lane against every triangle
+    active = int((is_t[bf.IS_ACTIVE] > 0).sum())
+    k1_bound, k1_by, _ = _bound(
+        4 * n * (2 * (bf.NF + bf.NI) + bf.NH) + 4 * sum(
+            t.numel() for t in (tbl.tri_coef, tbl.attr_rows, tbl.mat_rows,
+                                tbl.light_rows)),
+        f32=active * tbl.n_tris * K1_PAIR_F32)
+    rec["k1"] = dict(ms=k1_ms, plain_ms=k1_plain, bound_ms=k1_bound,
+                     bound_by=k1_by, rays=n)
+    print(f"priorities k1: kernel {k1_ms:.4f} ms per {n}-ray launch, plain "
+          f"{k1_plain:.4f} ms, bound {k1_bound:.4f} ms ({k1_by}) ({smi})",
+          flush=True)
+
+    # ---- (a) K4's priority variant on the boxes with their wall ----
+    wcfg = dispatch.resolve(wall, cfg, dev)
+    kslots, pages = wcfg.cluster_kslots, wcfg.cluster_pages
+    fs, is_ = _prio_state(CMP_SIDE, CMP_SIDE, dev, sample)
+    k4p_err = 0.0
+    for b in range(3):
+        ha, _ = BC.closest_paged(fs, is_, ctbl, kslots, pages, max_travel)
+        plain = BC.shade_reference(ha, fs, is_, ctbl, kcfg, sample,
+                                   prio=True)
+        if b in (0, 2):
+            kern = BC.shade(ha, fs, is_, ctbl, kcfg, sample, prio=True)
+            torch.cuda.synchronize()
+            summ, err = check(f"k4 bounce {b}", (kern[0], kern[1], kern[3]),
+                              (plain[0], plain[1], plain[3]), is_,
+                              ha[BC.HA_PRIM] >= 0)
+            shs, err_sh = _compare(dict(sh=kern[2]), dict(sh=plain[2]),
+                                   (kern[1] == plain[1]).all(0))
+            summ["worst_sh_row"] = shs["worst_float_row"]
+            rec[f"k4_bounce{b}"] = summ
+            k4p_err = max(k4p_err, err, err_sh)
+            if shs["worst_float_row"] < LANE_FRACTION:
+                dump()
+                _fail(f"priorities: K4's SH rows disagree at bounce {b}")
+        fs, is_ = plain[0], plain[1]
+    fs_t, is_t = _prio_state(*CITY_FRAME, dev, sample)   # 2,073,600 lanes
+    ha_t, _ = BC.closest_paged(fs_t, is_t, ctbl, kslots, pages, max_travel)
+    n = fs_t.shape[1]
+    m = CMP_SIDE * CMP_SIDE
+    k4p_ms = _cuda_ms(lambda: BC.shade(ha_t, fs_t, is_t, ctbl, kcfg, sample,
+                                       prio=True), 10)
+    hs, fss, iss = (x[:, :m].contiguous() for x in (ha_t, fs_t, is_t))
+    k4p_plain = _cuda_ms(lambda: BC.shade_reference(hs, fss, iss, ctbl, kcfg,
+                                                    sample, prio=True), 3)
+    k4p_bound, k4p_by, _ = _bound(_k4_bytes(n, ctbl, False, False))
+    rec["k4"] = dict(ms=k4p_ms, plain_ms=k4p_plain, plain_lanes=m,
+                     bound_ms=k4p_bound, bound_by=k4p_by, lanes=n)
+    print(f"priorities k4: kernel {k4p_ms:.4f} ms at {n} lanes, plain "
+          f"{k4p_plain:.4f} ms at {m}, bound {k4p_bound:.4f} ms ({k4p_by}) "
+          f"({smi})", flush=True)
+    rec["ptxas"] = {
+        f"{lib}_{'tex' if t else 'notex'}_{'omm' if o else 'noomm'}_"
+        f"{'prio' if p else 'noprio'}": _ptxas_entry(
+            getattr(kernels, attr).ptxas_log,
+            f"{lib}_kernelILb{int(t)}ELb{int(o)}ELb{int(p)}E")
+        for lib, attr in (("bounce_fused", "BOUNCE_FUSED"),
+                          ("cluster_shade", "CLUSTER_SHADE"))
+        for t in (False, True) for o in (False, True) for p in (False, True)}
+    print(f"priorities ptxas: {json.dumps(rec['ptxas'])}", flush=True)
+    dump()
+
+    # ---- (b) the closed form through the kernels on every tier ----
+    cam4 = look_at([-1.0, 0.0, 0.0], [1.0, 0.0, 0.0], [0.0, 1.0, 0.0], 10.0,
+                   4, 4, device=dev)
+    ccfg = PathTracerConfig(max_bounces=6, nee=NEEMode.OFF,
+                            enable_russian_roulette=False,
+                            passthrough_extra_iters=3)
+    want = TP.OVERLAP_E * math.exp(-TP.OVERLAP_SW * 0.4
+                                   - TP.OVERLAP_SG * 0.8)
+    launches = {}
+    for route, scene_, tier, kname in (
+            ("fused", boxes, "auto", "bounce_fused_prio"),
+            ("clustered", wall, "auto", "cluster_shade_prio"),
+            ("general", boxes, "xla", "brute_closest")):
+        kernels.launches.clear()
+        hdr, _, _ = render(scene_, cam4, dataclasses.replace(
+            ccfg, kernel_tier=tier), 4, 4, spp=1)
+        torch.cuda.synchronize()
+        launches[f"closed_form_{route}"] = dict(kernels.launches)
+        got = float(hdr[2, 2, 0])
+        rec[f"closed_form_{route}"] = dict(radiance=got, want=want,
+                                           launches=dict(kernels.launches))
+        print(f"priorities closed form, {route} tier: centre {got:.6f}, "
+              f"want {want:.6f} (rel {abs(got / want - 1):.2e}), launches "
+              f"{dict(kernels.launches)}", flush=True)
+        if abs(got / want - 1.0) >= 5e-3 or not kernels.launches[kname]:
+            dump()
+            _fail(f"priorities: the closed form misses on the {route} tier")
+
+    # ---- (a) and (c): Bistro ----
+    t0 = time.perf_counter()
+    host = TP.bistro_scene(BISTRO_TRIS, seed=0)
+    t1 = time.perf_counter()
+    scene = prepare(host, device=dev)
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t1
+    bt = scene.cluster_tables
+    bcfg = PathTracerConfig(max_bounces=4, nee=NEEMode.POWER,
+                            stochastic_texture_filtering=True,
+                            firefly_clamp=32.0, ray_chunk=1 << 30)
+    rcfg = dispatch.resolve(scene, bcfg, dev)
+    bk = bf.KernelConfig.from_cfg(rcfg)
+    table_bytes = sum(t.numel() * t.element_size() for t in (
+        bt.blocks, bt.aabb_lo, bt.aabb_hi, bt.mat_rows, bt.light_rows,
+        bt.offsets, bt.omm_word, bt.omm_cov, bt.tex, bt.tex_meta)
+        if t is not None)
+    w, h = CITY_FRAME
+    info = dict(triangles=bt.n_tris, host_triangles=sum(
+        len(i.indices) for i in host.instances), clusters=bt.n_clusters,
+        lights=scene.lights.count, tables_mib=table_bytes / 2 ** 20,
+        block_kib=bt.blocks[0].numel() * 4 / 1024, lanes=w * h,
+        host_s=t1 - t0, prepare_s=prep_s, tier=rcfg.kernel_tier,
+        nee_external=rcfg.nee_external, nee_mode=bk.nee_mode,
+        kslots=rcfg.cluster_kslots, pages=rcfg.cluster_pages,
+        mixed=int((scene.tri_opacity == 1).sum()))
+    rec["bistro"] = info
+    print(f"priorities bistro: {json.dumps(info)}", flush=True)
+    if not (rcfg.kernel_tier == "clustered" and rcfg.nee_external
+            and bt.omm and bf.use_tex(bt, bk) and scene.has_nested_priorities):
+        dump()
+        _fail("priorities: Bistro does not take the clustered external "
+              "route with micromaps, textures and priorities")
+    kslots, pages = rcfg.cluster_kslots, rcfg.cluster_pages
+    bounds = BC.scene_bounds(bt)
+    cam = TP.default_camera(host, w, h, device=dev)
+
+    # K4 omm_tex_prio timed at the 1080p bounce-0 launch, beside omm_tex
+    px, py = _pixel_grid(w, h, dev)
+    o, d, spread = camera_rays(cam, rcfg, px, py, sample)
+    fs0, is0 = bf.initial_state(o, d, spread, px, py)
+    src = torch.arange(fs0.shape[1], dtype=torch.int32, device=dev)
+    fs0, is0, _ = BC.sort_wavefront(fs0, is0, src, True, bounds)
+    ha0, _ = BC.closest_paged(fs0, is0, bt, kslots, pages, max_travel,
+                              omm=True)
+    n = fs0.shape[1]
+    k4b_ms = _cuda_ms(lambda: BC.shade(ha0, fs0, is0, bt, bk, sample,
+                                       omm=True, prio=True), 10)
+    k4b_noprio = _cuda_ms(lambda: BC.shade(ha0, fs0, is0, bt, bk, sample,
+                                           omm=True), 10)
+    hs, fss, iss = (x[:, :m].contiguous() for x in (ha0, fs0, is0))
+    k4b_plain = _cuda_ms(lambda: BC.shade_reference(
+        hs, fss, iss, bt, bk, sample, omm=True, prio=True), 3)
+    k4b_bound, k4b_by, _ = _bound(_k4_bytes(n, bt, True, True))
+    rec["k4_bistro"] = dict(ms=k4b_ms, ms_without_prio=k4b_noprio,
+                            plain_ms=k4b_plain, plain_lanes=m,
+                            bound_ms=k4b_bound, bound_by=k4b_by, lanes=n)
+    print(f"priorities bistro k4 omm_tex_prio (slot {bk.nee_mode}): kernel "
+          f"{k4b_ms:.4f} ms at the {n}-lane bounce-0 launch (omm_tex "
+          f"without priorities {k4b_noprio:.4f} ms), plain {k4b_plain:.4f} "
+          f"ms at {m}, bound {k4b_bound:.4f} ms ({k4b_by}) ({smi})",
+          flush=True)
+
+    # the warm-up sample compares K4 with its plain version at rounds 0
+    # and 2 on the 64 groups of the sorted wavefront with the most glass
+    # hits
+    k4_kernel = BC.shade
+    compared = {}
+    groups_cmp = m // BC.FL
+
+    def shade_both(ha, fs, is_, tables, kcfg_, sample_idx, final_env=False,
+                   omm=False, prio=False):
+        out = k4_kernel(ha, fs, is_, tables, kcfg_, sample_idx, final_env,
+                        omm, prio)
+        r = len(compared)
+        compared[r] = None
+        if r not in (0, 2) or final_env:
+            return out
+        glass = (ha[BC.HA_PRIM] >= 0) & (is_[bf.IS_ACTIVE] > 0) \
+            & (ha[BC.HA_ATTR + bf.AT_MID] == TP.BISTRO_GLASS)
+        run = torch.cumsum(glass.view(-1, BC.FL).sum(1), 0)
+        run = torch.cat([run.new_zeros(1), run])
+        g0 = int(torch.argmax(run[groups_cmp:] - run[:-groups_cmp]))
+        lanes = slice(g0 * BC.FL, (g0 + groups_cmp) * BC.FL)
+        sub = [x[:, lanes].contiguous() for x in (ha, fs, is_)]
+        kern = k4_kernel(*sub, tables, kcfg_, sample_idx, omm=omm,
+                         prio=prio)
+        plain = BC.shade_reference(*sub, tables, kcfg_, sample_idx, omm=omm,
+                                   prio=prio)
+        compared[r] = (kern, plain, sub, int(glass[lanes].sum()), g0)
+        return out
+
+    BC.shade = shade_both
+    try:
+        render_sample(scene, cam, rcfg, w, h, 0)                 # warm-up
+    finally:
+        BC.shade = k4_kernel
+    torch.cuda.synchronize()
+    k4b_err = 0.0
+    for r in (0, 2):
+        kern, plain, (ha_c, fs_c, is_c), n_glass, g0 = compared[r]
+        summ, err = check(f"bistro k4 round {r} (groups {g0}-"
+                          f"{g0 + groups_cmp - 1}, {n_glass} glass hits)",
+                          (kern[0], kern[1], kern[3]),
+                          (plain[0], plain[1], plain[3]), is_c,
+                          ha_c[BC.HA_PRIM] >= 0, floor=False)
+        int_eq = (kern[1] == plain[1]).all(0)
+        shs, err_sh = _compare(dict(sh=kern[2], surf=kern[4]),
+                               dict(sh=plain[2], surf=plain[4]), int_eq)
+        summ.update(worst_sh_surf_row=shs["worst_float_row"],
+                    glass_hits=n_glass, first_group=g0)
+        rec[f"bistro_k4_round{r}"] = summ
+        k4b_err = max(k4b_err, err, err_sh)
+        if shs["worst_float_row"] < LANE_FRACTION or (r == 0
+                                                        and n_glass == 0):
+            dump()
+            _fail(f"priorities: Bistro's K4 SH / SF_* rows disagree at round "
+                  f"{r}, or no camera ray hits the glass")
+
+    # the path: 1 warm-up (above), BISTRO_SPP timed samples
+    extra = rcfg.passthrough_extra_iters
+    rounds = rcfg.max_bounces + extra
+    kernels.launches.clear()
+    t0 = time.perf_counter()
+    hdr, _, rays = render(scene, cam, rcfg, w, h, BISTRO_SPP, first_sample=1)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launched = dict(kernels.launches)
+    launches["bistro"] = launched
+    want_l = dict(cluster_closest_omm=pages * rounds * BISTRO_SPP,
+                  cluster_shade_omm_tex_prio=rounds * BISTRO_SPP,
+                  cluster_shadow_omm=pages * rounds * BISTRO_SPP)
+    path = dict(res=f"{w}x{h}", spp_timed=BISTRO_SPP,
+                bounces=rcfg.max_bounces, rounds=rounds, launches=launched,
+                expected=want_l, rays=int(rays), seconds=dt,
+                mrays_per_s=int(rays) / dt / 1e6,
+                ms_per_frame_1spp=dt / BISTRO_SPP * 1e3,
+                L_mean=float(hdr.mean()),
+                finite=bool(torch.isfinite(hdr).all()), card=smi)
+    path["passed_through"] = _passthrough_share(
+        lambda: render_sample(scene, cam, rcfg, w, h, 9))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = render_sample(scene, cam, rcfg, w, h, 7)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    path["cull_overflow_profiled_frame"] = int(out["cull_overflow"])
+    path["profiled_mrays_per_s"] = int(out["ray_count"]) / wall_ms / 1e3
+    path["split"], path["profile_table"] = _split(
+        prof, wall_ms, ("sort", "cull", "nee"), CITY_KERNELS)
+    path["max_memory_mib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    rec["path"] = path
+    print(f"priorities bistro path: {path['ms_per_frame_1spp']:.3f} ms per "
+          f"1-spp {w}x{h} frame, {path['mrays_per_s']:.3f} Mrays/s, "
+          f"{path['rays']} rays, launches {launched} of {want_l}, passed "
+          f"through {path['passed_through']:.4f} of the shaded lanes, "
+          f"cull_overflow {path['cull_overflow_profiled_frame']}, mean L "
+          f"{path['L_mean']:.5f}, profiled frame "
+          f"{path['profiled_mrays_per_s']:.3f} Mrays/s, split "
+          f"{json.dumps(path['split'])}, peak memory "
+          f"{path['max_memory_mib']:.1f} MiB ({smi})", flush=True)
+    if launched != want_l or not path["finite"] or path["L_mean"] <= 1e-3:
+        dump()
+        _fail("priorities: the Bistro path did not run its kernels as "
+              "expected or gave a non-finite or unlit image")
+    dump()
+
+    # F7: the same sample without cull overflow. A page's cull depends
+    # only on the pages before it, so one sample at ceil(clusters /
+    # kslots) pages gives every query's first page without overflow; the
+    # smallest page count without overflow is the largest of those
+    page_log = []
+    cull_kernel = BC.cull
+
+    def cull_logged(o3, d3, active, tmax, tbl_, kslots_, lo=None):
+        cand, ovf = cull_kernel(o3, d3, active, tmax, tbl_, kslots_, lo=lo)
+        page_log.append((lo is None, int(ovf)))
+        return cand, ovf
+
+    pmax = -(-bt.n_clusters // kslots)
+    BC.cull = cull_logged
+    try:
+        out_max = render_sample(scene, cam, dataclasses.replace(
+            rcfg, cluster_pages=pmax), w, h, 1)
+    finally:
+        BC.cull = cull_kernel
+    need, page = 1, 0
+    first_free = None
+    for start, ovf in page_log + [(True, 0)]:
+        if start:
+            if first_free is not None:
+                need = max(need, first_free)
+            page, first_free = 0, None
+        else:
+            page += 1
+        if ovf == 0 and first_free is None:
+            first_free = page + 1
+    pmin = need
+    t0 = time.perf_counter()
+    out_min = render_sample(scene, cam, dataclasses.replace(
+        rcfg, cluster_pages=pmin), w, h, 1)
+    torch.cuda.synchronize()
+    t_min = time.perf_counter() - t0
+    out_def = render_sample(scene, cam, rcfg, w, h, 1)
+    ref = out_min["L"] if int(out_min["cull_overflow"]) == 0 else out_max["L"]
+    f7 = dict(pages_max=pmax, pages_min=pmin,
+              overflow_default=int(out_def["cull_overflow"]),
+              overflow_min=int(out_min["cull_overflow"]),
+              overflow_max=int(out_max["cull_overflow"]),
+              ms_min=t_min * 1e3,
+              min_equals_max=bool(torch.equal(out_min["L"], out_max["L"])),
+              rmse_default=float(torch.sqrt(((out_def["L"] - ref) ** 2)
+                                            .mean())),
+              mean_default=float(out_def["L"].mean()),
+              mean_without_overflow=float(ref.mean()))
+    rec["f7"] = f7
+    print(f"priorities bistro F7: {json.dumps(f7)}", flush=True)
+
+    # the same sample on the general tier (K9) at 960x540, against the
+    # clustered tier's without overflow
+    gw, gh = BISTRO_GENERAL_FRAME
+    camg = TP.default_camera(host, gw, gh, device=dev)
+    out_c = render_sample(scene, camg, dataclasses.replace(
+        rcfg, cluster_pages=pmax), gw, gh, 1)
+    kernels.launches.clear()
+    t0 = time.perf_counter()
+    out_g = render_sample(scene, camg, dataclasses.replace(
+        bcfg, kernel_tier="xla"), gw, gh, 1)
+    torch.cuda.synchronize()
+    t_g = time.perf_counter() - t0
+    launches["bistro_general"] = dict(kernels.launches)
+    gen = dict(res=f"{gw}x{gh}", ms=t_g * 1e3,
+               launches=dict(kernels.launches),
+               overflow_clustered=int(out_c["cull_overflow"]),
+               rmse=float(torch.sqrt(((out_g["L"] - out_c["L"]) ** 2).mean())),
+               mean_general=float(out_g["L"].mean()),
+               mean_clustered=float(out_c["L"].mean()),
+               finite=bool(torch.isfinite(out_g["L"]).all()))
+    rec["general"] = gen
+    print(f"priorities bistro general tier: {json.dumps(gen)} ({smi})",
+          flush=True)
+    if not gen["finite"] or not kernels.launches["bvh_traverse_omm"]:
+        dump()
+        _fail("priorities: Bistro on the general tier did not run K9 or "
+              "gave non-finite values")
+    dump()
+
+    srcs = "rtxpt_tpu_torch/csrc/"
+    entries = {}
+    for name, src_, rep_, r, err, path_ in (
+            ("bounce_fused_prio", "bounce_fused.cu",
+             "rtxpt_tpu/pt/bounce_pallas.py:1389", rec["k1"], k1_err,
+             "closed_form_fused"),
+            ("cluster_shade_prio", "cluster_shade.cu",
+             "rtxpt_tpu/pt/bounce_clustered.py:462", rec["k4"], k4p_err,
+             "closed_form_clustered"),
+            ("cluster_shade_omm_tex_prio", "cluster_shade.cu",
+             "rtxpt_tpu/pt/bounce_clustered.py:462", rec["k4_bistro"],
+             k4b_err, "bistro")):
+        count = launches[path_].get(name, 0)
+        entries[name] = dict(
+            name=name, route="cuda", source=srcs + src_, replaces=rep_,
+            launches=count, launches_by_path={path_: count},
+            max_abs_err=err, ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None)
     return dict(entries=entries, launches=launches)
 
 

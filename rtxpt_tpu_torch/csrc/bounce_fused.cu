@@ -11,7 +11,9 @@
 // maps by stochastic texture filtering), and the micromap switch omm
 // (bounce_pallas.py:587-698 _micro_state, _intersect_group, _occluded_group;
 // :1078-1160 the MIP-0 alpha test and the pass-through; :1350-1365 the
-// pass-through lane's state). Plain version:
+// pass-through lane's state), and the nested-priority switch prio
+// (bounce_pallas.py:1138-1156: the false-hit rejection and the interior
+// list's lower slot; the same pass-through). Plain version:
 // rtxpt_tpu_torch/pt/bounce_fused.py bounce_reference; wrapper:
 // bounce_fused.bounce.
 //
@@ -56,6 +58,15 @@
 // operations and a shift. A pass-through lane does not branch away from
 // its warp: it runs the shading chain as the plain version does, whose
 // results it then discards.
+//
+// Priorities: has_prio is a third template parameter, so the four
+// instantiations without it keep their code and registers. The false-hit
+// test reads two more material lanes (MT_PRIO of the hit's and of the
+// current medium, the medium's through L1 as the IoR lanes are) and rides
+// the micromaps' pass-through: a false hit keeps its path state but for
+// the interior list's lower slot, and continues the same ray. All eight
+// combinations are instantiated: a scene of the fused tier can have any
+// of the three switches.
 #include <cuda_runtime.h>
 
 #include "bounce_fused.cuh"
@@ -65,7 +76,7 @@ namespace {
 
 constexpr int kThreads = 128;
 
-template <bool HasTex, bool HasOmm>
+template <bool HasTex, bool HasOmm, bool HasPrio>
 __global__ void __launch_bounds__(kThreads)
 bounce_fused_kernel(const float* __restrict__ fs, const int* __restrict__ is,
                     float* __restrict__ fs_out, int* __restrict__ is_out,
@@ -73,19 +84,32 @@ bounce_fused_kernel(const float* __restrict__ fs, const int* __restrict__ is,
                     rt::Tables tb, rt::Config cfg, int n) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  rt::bounce_ray<HasTex, HasOmm>(i, n, fs, is, fs_out, is_out, hit_out, surf_out, tb, cfg);
+  rt::bounce_ray<HasTex, HasOmm, HasPrio>(i, n, fs, is, fs_out, is_out, hit_out, surf_out,
+                                          tb, cfg);
+}
+
+template <bool HasTex, bool HasOmm>
+void launch_prio(bool prio, int blocks, cudaStream_t stream, const float* fs, const int* is,
+                 float* fs_out, int* is_out, float* hit_out, float* surf_out,
+                 const rt::Tables& tb, const rt::Config& cfg, int n) {
+  if (prio)
+    bounce_fused_kernel<HasTex, HasOmm, true><<<blocks, kThreads, 0, stream>>>(
+        fs, is, fs_out, is_out, hit_out, surf_out, tb, cfg, n);
+  else
+    bounce_fused_kernel<HasTex, HasOmm, false><<<blocks, kThreads, 0, stream>>>(
+        fs, is, fs_out, is_out, hit_out, surf_out, tb, cfg, n);
 }
 
 template <bool HasTex>
-void launch(bool omm, int blocks, cudaStream_t stream, const float* fs, const int* is,
-            float* fs_out, int* is_out, float* hit_out, float* surf_out,
+void launch(bool omm, bool prio, int blocks, cudaStream_t stream, const float* fs,
+            const int* is, float* fs_out, int* is_out, float* hit_out, float* surf_out,
             const rt::Tables& tb, const rt::Config& cfg, int n) {
   if (omm)
-    bounce_fused_kernel<HasTex, true><<<blocks, kThreads, 0, stream>>>(
-        fs, is, fs_out, is_out, hit_out, surf_out, tb, cfg, n);
+    launch_prio<HasTex, true>(prio, blocks, stream, fs, is, fs_out, is_out, hit_out,
+                              surf_out, tb, cfg, n);
   else
-    bounce_fused_kernel<HasTex, false><<<blocks, kThreads, 0, stream>>>(
-        fs, is, fs_out, is_out, hit_out, surf_out, tb, cfg, n);
+    launch_prio<HasTex, false>(prio, blocks, stream, fs, is, fs_out, is_out, hit_out,
+                               surf_out, tb, cfg, n);
 }
 
 }  // namespace
@@ -95,7 +119,8 @@ void launch(bool omm, int blocks, cudaStream_t stream, const float* fs, const in
 // `final_env` needs; `tex` ([texels, 4] or NULL for the untextured variant)
 // and `tex_meta` ([n_tex, TX_COLS]) are the texture tables, `tex_maps` the
 // maps' bits; `micro` and `cover` ([tpad] each, or NULL for the variant
-// without micromaps) the micromap words and coverages.
+// without micromaps) the micromap words and coverages; `prio` selects the
+// nested-priority variant.
 extern "C" int rtxpt_bounce_fused(
     const float* fs, const int* is, float* fs_out, int* is_out, float* hit_out,
     float* surf_out, const float* tri_coef, const float* attr_rows, const float* mat_rows,
@@ -104,7 +129,7 @@ extern "C" int rtxpt_bounce_fused(
     int tpad, int n_lights,
     unsigned int sample_idx, int nee_mode, int enable_mis, float firefly,
     int rr_enable, int min_rr, float max_travel, int low_discrepancy,
-    int energy_comp, int maxb, int final_env, void* stream) {
+    int energy_comp, int maxb, int final_env, int prio, void* stream) {
   rt::Tables tb;
   tb.tri = tri_coef;
   tb.attr = attr_rows;
@@ -135,10 +160,10 @@ extern "C" int rtxpt_bounce_fused(
   int blocks = (n + kThreads - 1) / kThreads;
   const bool omm = micro != nullptr;
   if (tex != nullptr)
-    launch<true>(omm, blocks, (cudaStream_t)stream, fs, is, fs_out, is_out, hit_out,
-                 surf_out, tb, cfg, n);
+    launch<true>(omm, prio != 0, blocks, (cudaStream_t)stream, fs, is, fs_out, is_out,
+                 hit_out, surf_out, tb, cfg, n);
   else
-    launch<false>(omm, blocks, (cudaStream_t)stream, fs, is, fs_out, is_out, hit_out,
-                  surf_out, tb, cfg, n);
+    launch<false>(omm, prio != 0, blocks, (cudaStream_t)stream, fs, is, fs_out, is_out,
+                  hit_out, surf_out, tb, cfg, n);
   return (int)cudaGetLastError();
 }

@@ -3,8 +3,8 @@
 // the fused bounce kernel (bounce_fused.cu); the plain version of the same
 // function is rtxpt_tpu_torch/pt/bounce_fused.py::bounce_reference, and the
 // TPU original is rtxpt_tpu/pt/bounce_pallas.py::_bounce_kernel with
-// surface_and_shade in the reference-mode configuration (no OMM, no
-// priorities, no split channels, no injection), with NEE in the kernel
+// surface_and_shade in the reference-mode configuration (no split
+// channels, no injection), with NEE in the kernel
 // (modes 1, 2) or exported for external NEE (modes 3-5: the SF_* surface
 // rows; the shadow rays are then resolved by K2, shadow_occlusion.cu).
 // With the environment table (Tables::env) a miss gathers the environment
@@ -19,7 +19,12 @@
 // :1350-1365): the closest hit rejects micro-TRANSPARENT candidates and
 // flags an UNKNOWN winner, whose base alpha at MIP 0 then decides whether
 // the lane passes through; the shadow ray's UNKNOWN candidates occlude
-// where the lane's alpha uniform is under the triangle's coverage.
+// where the lane's alpha uniform is under the triangle's coverage. The
+// nested-priority switch is the template parameter HasPrio
+// (bounce_pallas.py:1138-1156, :1350-1362): a hit on a lower-priority
+// medium's boundary inside a higher one, or on the back of a medium the
+// ray is not in, is a false hit; the interior list's lower slot (med1)
+// records it and the lane passes through as on a failed alpha test.
 #pragma once
 
 #include "omm.cuh"
@@ -48,7 +53,7 @@ enum { AT_N0 = 0, AT_N1 = 3, AT_N2 = 6, AT_GN = 9, AT_MID = 12, AT_LPDF = 13,
 enum { MT_BASE = 0, MT_METAL = 3, MT_ROUGH = 4, MT_IOR = 5, MT_TRANS = 6,
        MT_DTRANS = 7, MT_EMISSIVE = 8, MT_SPEC = 11, MT_THIN = 12,
        MT_VOLABS = 13, MT_EPOLY = 16, MT_EAVG = 22, MT_BTEX = 23,
-       MT_MRTEX = 24, MT_ETEX = 25, MT_NTEX = 26, MT_ACUT = 27 };
+       MT_MRTEX = 24, MT_ETEX = 25, MT_NTEX = 26, MT_ACUT = 27, MT_PRIO = 28 };
 enum { LROW_KIND = 0, LROW_P0 = 1, LROW_P1 = 4, LROW_P2 = 7, LROW_EM = 10,
        LROW_EXTRA = 13, LROW_NORMAL = 17, LROW_POWER = 20, LROW_CDF = 21 };
 enum { TC_DET = 0, TC_U = 3, TC_V = 9, TC_T = 15, TC_ROWS = 20 };
@@ -438,8 +443,13 @@ RT_HD void store_state(int i, int n, const RayState& s, float* __restrict__ fs_o
 // the alpha uniform is drawn, and with the base-colour map on an UNKNOWN
 // hit (h.unk) whose MIP-0 base alpha is under the material's cutoff passes
 // through: not shaded, its path state kept, the same ray continued from
-// just past the surface (plain version: passthru).
-template <bool HasTex, bool HasOmm, class AttrFetch>
+// just past the surface (plain version: passthru). HasPrio: a priority
+// false hit (a boundary of a non-thin transmissive material that enters a
+// medium of lower priority than med0's, or leaves a medium other than
+// med0) updates med1 (the entered medium if it outranks med1's, -1 if the
+// left one is med1) and passes through the same way; Beer-Lambert over the
+// skipped segment still applies, as the kept throughput is taken after it.
+template <bool HasTex, bool HasOmm, bool HasPrio, class AttrFetch>
 RT_HD ShadowRay surface_and_shade(RayState& s, const Hit& h, const AttrFetch& A,
                                   const Tables& tb, const Config& cfg,
                                   SurfRows* sf = nullptr) {
@@ -555,12 +565,29 @@ RT_HD ShadowRay surface_and_shade(RayState& s, const Hit& h, const AttrFetch& A,
       passthru = hit_mask && h.unk && acut >= 0.0f && base_alpha0 < acut;
     }
   }
-  const bool has_pass = HasOmm && HasTex && (tb.tex_maps & TEX_BASE);
+  int med1 = s.med1;
+  if constexpr (HasPrio) {
+    auto prow = [&](int med) {
+      return med >= 0 ? lane(mt, MT_PRIO, clampi(med, 0, 127)) : -1.0f;
+    };
+    const float p_hit = lane(mt, MT_PRIO, mid);
+    const bool boundary = !thin && transmission > 0.0f;
+    const bool false_enter = boundary && front && p_hit < prow(s.med0);
+    const bool false_exit = boundary && !front && mid != s.med0;
+    const bool prio_fh = hit_mask && (false_enter || false_exit);
+    // the interior list's bookkeeping for the skipped boundary
+    if (prio_fh && false_enter && (med1 < 0 || p_hit > prow(med1)))
+      med1 = mid;
+    else if (prio_fh && false_exit && mid == med1)
+      med1 = -1;
+    passthru = passthru || prio_fh;
+  }
+  const bool has_pass = (HasOmm && HasTex && (tb.tex_maps & TEX_BASE)) || HasPrio;
   bool hit_shade = hit_mask && !passthru;
 
   V3 thp = s.thp;
   float cur_ior = s.med0 >= 0 ? lane(mt, MT_IOR, clampi(s.med0, 0, 127)) : 1.0f;
-  float below_ior = s.med1 >= 0 ? lane(mt, MT_IOR, clampi(s.med1, 0, 127)) : 1.0f;
+  float below_ior = med1 >= 0 ? lane(mt, MT_IOR, clampi(med1, 0, 127)) : 1.0f;
   if (s.med0 >= 0) {
     V3 sigma = lane3(mt, MT_VOLABS, clampi(s.med0, 0, 127));
     thp = thp * v3(expf(-sigma.x * t), expf(-sigma.y * t), expf(-sigma.z * t));
@@ -690,8 +717,8 @@ RT_HD ShadowRay surface_and_shade(RayState& s, const Hit& h, const AttrFetch& A,
   bool transmitted = bs.wi.z < 0.0f;
   bool entering = transmitted && front && !thin;
   bool exiting = transmitted && !front && !thin;
-  int new_med0 = entering ? mid : (exiting ? s.med1 : s.med0);
-  int new_med1 = entering ? s.med0 : (exiting ? -1 : s.med1);
+  int new_med0 = entering ? mid : (exiting ? med1 : s.med0);
+  int new_med1 = entering ? s.med0 : (exiting ? -1 : med1);
 
   if (cfg.rr_enable) {
     Sampler srr(hash_combine(seed_base, EFFECT_RR), cfg.sample_idx, cfg.low_discrepancy);
@@ -710,6 +737,7 @@ RT_HD ShadowRay surface_and_shade(RayState& s, const Hit& h, const AttrFetch& A,
     const float t_adv = t * (float)(1.0 + 1e-4) + (float)1e-5;
     s.o = s.o + d * t_adv;
     s.thp = thp_ns;
+    s.med1 = med1;
     return sr;
   }
   s.o = ray_offset(pos, gn, wi_world);
@@ -764,7 +792,7 @@ RT_HD void store_surf(int i, int n, const SurfRows& sf, float* __restrict__ surf
 // (the external modes 3-5 with lights) the surface rows go there, no shadow
 // ray is traced, and hit row 5 holds the shading flag: 0 not shaded, 1 shaded
 // at logical bounce 0, 2 shaded later (bounce_pallas.py:1556-1560).
-template <bool HasTex, bool HasOmm>
+template <bool HasTex, bool HasOmm, bool HasPrio>
 RT_HD void bounce_ray(int i, int n, const float* __restrict__ fs, const int* __restrict__ is,
                       float* __restrict__ fs_out, int* __restrict__ is_out,
                       float* __restrict__ hit_out, float* __restrict__ surf_out,
@@ -788,8 +816,8 @@ RT_HD void bounce_ray(int i, int n, const float* __restrict__ fs, const int* __r
     return h.prim >= 0 ? RT_LDG(tb.attr + r * tb.tpad + h.prim) : 0.0f;
   };
   SurfRows sf;
-  ShadowRay sr = surface_and_shade<HasTex, HasOmm>(s, h, attr, tb, cfg,
-                                                   surf_out != nullptr ? &sf : nullptr);
+  ShadowRay sr = surface_and_shade<HasTex, HasOmm, HasPrio>(
+      s, h, attr, tb, cfg, surf_out != nullptr ? &sf : nullptr);
   if (sr.do_nee && !occluded<HasOmm>(tb, sr.o, sr.d, sr.dist, sr.u_alpha))
     s.L = s.L + sr.contrib;
   store_state(i, n, s, fs_out, is_out);

@@ -2,7 +2,7 @@
 //
 // Replaces rtxpt_tpu/pt/bounce_clustered.py::_kernel_a2 (launched there by
 // _kernel_a2_call, pl.pallas_call at bounce_clustered.py:1327) without its
-// priority and split-channel branches: NEE in the kernel
+// split-channel branch: NEE in the kernel
 // (slots 0-2) or exported for external NEE (slots 3-5: the SF_* rows to
 // `surf_out` and the shading flag in hit row 5, as K1 exports them; the JAX
 // kernel computes those rows but leaves its surf_out unwritten), and the
@@ -11,7 +11,9 @@
 // parameter HasTex; the UV, LODB, tangent rows ride in HA from K3's winner),
 // and K1's micromap switch (the template parameter HasOmm, omm=True at
 // :561-571: K3's HA_UNK flag into the alpha test and the pass-through, the
-// alpha uniform out in SH_UA).
+// alpha uniform out in SH_UA), and K1's nested-priority switch (the
+// template parameter HasPrio, prio=True at :464, :560: the false-hit
+// pass-through on K3's winner, all eight combinations instantiated).
 // Plain version: rtxpt_tpu_torch/pt/bounce_clustered.py shade_reference;
 // wrapper: bounce_clustered.shade.
 //
@@ -39,7 +41,7 @@ namespace {
 
 constexpr int kThreads = 128;
 
-template <bool HasTex, bool HasOmm>
+template <bool HasTex, bool HasOmm, bool HasPrio>
 __global__ void __launch_bounds__(kThreads)
 cluster_shade_kernel(const float* __restrict__ ha, const float* __restrict__ fs,
                      const int* __restrict__ is, float* __restrict__ fs_out,
@@ -48,20 +50,34 @@ cluster_shade_kernel(const float* __restrict__ ha, const float* __restrict__ fs,
                      rt::Tables tb, rt::Config cfg, int n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  rt::cl::shade_lane<HasTex, HasOmm>(i, n, ha, fs, is, fs_out, is_out, sh_out, hit_out,
-                                     surf_out, tb, cfg);
+  rt::cl::shade_lane<HasTex, HasOmm, HasPrio>(i, n, ha, fs, is, fs_out, is_out, sh_out,
+                                              hit_out, surf_out, tb, cfg);
+}
+
+template <bool HasTex, bool HasOmm>
+void launch_prio(bool prio, int blocks, cudaStream_t stream, const float* ha,
+                 const float* fs, const int* is, float* fs_out, int* is_out, float* sh_out,
+                 float* hit_out, float* surf_out, const rt::Tables& tb,
+                 const rt::Config& cfg, int n) {
+  if (prio)
+    cluster_shade_kernel<HasTex, HasOmm, true><<<blocks, kThreads, 0, stream>>>(
+        ha, fs, is, fs_out, is_out, sh_out, hit_out, surf_out, tb, cfg, n);
+  else
+    cluster_shade_kernel<HasTex, HasOmm, false><<<blocks, kThreads, 0, stream>>>(
+        ha, fs, is, fs_out, is_out, sh_out, hit_out, surf_out, tb, cfg, n);
 }
 
 template <bool HasTex>
-void launch(bool omm, int blocks, cudaStream_t stream, const float* ha, const float* fs,
-            const int* is, float* fs_out, int* is_out, float* sh_out, float* hit_out,
-            float* surf_out, const rt::Tables& tb, const rt::Config& cfg, int n) {
+void launch(bool omm, bool prio, int blocks, cudaStream_t stream, const float* ha,
+            const float* fs, const int* is, float* fs_out, int* is_out, float* sh_out,
+            float* hit_out, float* surf_out, const rt::Tables& tb, const rt::Config& cfg,
+            int n) {
   if (omm)
-    cluster_shade_kernel<HasTex, true><<<blocks, kThreads, 0, stream>>>(
-        ha, fs, is, fs_out, is_out, sh_out, hit_out, surf_out, tb, cfg, n);
+    launch_prio<HasTex, true>(prio, blocks, stream, ha, fs, is, fs_out, is_out, sh_out,
+                              hit_out, surf_out, tb, cfg, n);
   else
-    cluster_shade_kernel<HasTex, false><<<blocks, kThreads, 0, stream>>>(
-        ha, fs, is, fs_out, is_out, sh_out, hit_out, surf_out, tb, cfg, n);
+    launch_prio<HasTex, false>(prio, blocks, stream, ha, fs, is, fs_out, is_out, sh_out,
+                               hit_out, surf_out, tb, cfg, n);
 }
 
 }  // namespace
@@ -70,12 +86,12 @@ void launch(bool omm, int blocks, cudaStream_t stream, const float* ha, const fl
 // external modes; `env` ([ET_SIZE] or NULL) is the environment table, which
 // `final_env` needs; `tex` / `tex_meta` / `n_tex` / `tex_maps` the texture
 // tables as K1 takes them (NULL for the untextured variant); `omm` selects
-// the micromap variant.
+// the micromap variant, `prio` the nested-priority one.
 extern "C" int rtxpt_cluster_shade(
     const float* ha, const float* fs, const int* is, float* fs_out, int* is_out,
     float* sh_out, float* hit_out, float* surf_out, const float* mat_rows,
     const float* light_rows, const float* env, const float* tex, const int* tex_meta,
-    int n_tex, int tex_maps, int omm, int n, int n_lights,
+    int n_tex, int tex_maps, int omm, int prio, int n, int n_lights,
     unsigned int sample_idx, int nee_mode, int enable_mis, float firefly,
     int rr_enable, int min_rr, int low_discrepancy, int energy_comp, int maxb,
     int final_env, void* stream) {
@@ -108,10 +124,10 @@ extern "C" int rtxpt_cluster_shade(
   cfg.final_env = final_env != 0;
   const int blocks = (n + kThreads - 1) / kThreads;
   if (tex != nullptr)
-    launch<true>(omm != 0, blocks, (cudaStream_t)stream, ha, fs, is, fs_out, is_out,
-                 sh_out, hit_out, surf_out, tb, cfg, n);
+    launch<true>(omm != 0, prio != 0, blocks, (cudaStream_t)stream, ha, fs, is, fs_out,
+                 is_out, sh_out, hit_out, surf_out, tb, cfg, n);
   else
-    launch<false>(omm != 0, blocks, (cudaStream_t)stream, ha, fs, is, fs_out, is_out,
-                  sh_out, hit_out, surf_out, tb, cfg, n);
+    launch<false>(omm != 0, prio != 0, blocks, (cudaStream_t)stream, ha, fs, is, fs_out,
+                  is_out, sh_out, hit_out, surf_out, tb, cfg, n);
   return (int)cudaGetLastError();
 }

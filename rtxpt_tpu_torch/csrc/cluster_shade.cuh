@@ -2,7 +2,8 @@
 // on K3's HA rows, with the attribute fetch reading those rows; writes the
 // next state, the SH shadow request rows and the hit rows of lane i, and in
 // the external modes the SF_* rows (`surf_out`) and the shading flag. HasOmm:
-// K3's HA_UNK feeds the alpha test and SH_UA carries the alpha uniform. The
+// K3's HA_UNK feeds the alpha test and SH_UA carries the alpha uniform.
+// HasPrio: the priority false-hit pass-through of surface_and_shade. The
 // plain version is rtxpt_tpu_torch/pt/bounce_clustered.py shade_reference.
 #pragma once
 
@@ -12,7 +13,7 @@
 namespace rt {
 namespace cl {
 
-template <bool HasTex, bool HasOmm>
+template <bool HasTex, bool HasOmm, bool HasPrio>
 RT_HD void shade_lane(int i, int n, const float* __restrict__ ha,
                       const float* __restrict__ fs, const int* __restrict__ is,
                       float* __restrict__ fs_out, int* __restrict__ is_out,
@@ -46,7 +47,7 @@ RT_HD void shade_lane(int i, int n, const float* __restrict__ ha,
     return;
   }
   SurfRows sf;
-  const ShadowRay sr = surface_and_shade<HasTex, HasOmm>(
+  const ShadowRay sr = surface_and_shade<HasTex, HasOmm, HasPrio>(
       s, h, attr, tb, cfg, surf_out != nullptr ? &sf : nullptr);
   store_state(i, n, s, fs_out, is_out);
   so[(SH_O + 0) * sn] = sr.o.x; so[(SH_O + 1) * sn] = sr.o.y; so[(SH_O + 2) * sn] = sr.o.z;

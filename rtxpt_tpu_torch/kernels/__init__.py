@@ -19,7 +19,9 @@ kernels' texture and environment variants ("bounce_fused_tex",
 same for "cluster_shade": bounce_fused.variant_name), and so do the
 micromap variants ("bounce_fused_omm_tex", "shadow_occlusion_omm",
 "cluster_closest_omm", "cluster_shade_omm_tex", "cluster_shadow_omm",
-"bvh_traverse_omm"). `build_all()` builds
+"bvh_traverse_omm"), and so do the nested-priority variants of the shading
+kernels ("bounce_fused_prio", "bounce_fused_omm_tex_prio",
+"cluster_shade_omm_tex_prio" and so on). `build_all()` builds
 every library at once, one nvcc process per source.
 """
 
@@ -160,7 +162,7 @@ BOUNCE_FUSED = CudaLibrary(
         _I, _I, _F, _I, _I, _F,        # nee_mode, mis, firefly, rr, min_rr,
         #                                max_travel
         _I, _I, _I,                    # low_discrepancy, energy_comp, maxb
-        _I,                            # final_env
+        _I, _I,                        # final_env, prio
         _P]})                          # cudaStream_t
 
 # K2: the shadow any-hit kernel of external NEE (replaces rtxpt_tpu/pt/
@@ -200,7 +202,7 @@ CLUSTER_SHADE = CudaLibrary(
         _P, _P, _P,                    # mat, light rows, env table | NULL
         _P, _P, _I, _I,                # tex | NULL, tex_meta, n_tex,
         #                                tex_maps
-        _I,                            # omm
+        _I, _I,                        # omm, prio
         _I, _I, _U,                    # n, n_lights, sample_idx
         _I, _I, _F, _I, _I,            # nee_mode, mis, firefly, rr, min_rr
         _I, _I, _I,                    # low_discrepancy, energy_comp, maxb

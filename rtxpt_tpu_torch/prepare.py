@@ -62,7 +62,7 @@ from rtxpt_tpu_torch.lighting.lights_baker import (
     KIND_ENVQUAD, KIND_SPHERE, bake_lights)
 from rtxpt_tpu_torch.pt.bounce_fused import (
     ENV_H, ENV_W, MAX_TRIS, build_bounce_tables, env_table_serves,
-    tables_from_numpy)
+    has_priorities, tables_from_numpy)
 from rtxpt_tpu_torch.scene.omm import TRANSPARENT, bake_opacity_micromaps
 from rtxpt_tpu_torch.scene.scene import (
     AnalyticLights, Geometry, HostScene, Materials, SceneData, build_packs)
@@ -132,7 +132,7 @@ def _prepare_two_level(host: HostScene, built: dict, device,
         cluster_tables = build_cluster_tables_instanced(
             built, host, mats, lights, envmap=envmap, textures=textures,
             device=device)
-    has_prio = bool(torch.any(mats.nested_priority != 0))
+    has_prio = has_priorities(mats)
     return sd.replace(tlas=tl, envmap=envmap, tri_pack=tri_pack.to(device),
                       mat_pack=mat_pack.to(device), lights=lights,
                       cluster_tables=cluster_tables, textures=textures,
@@ -232,7 +232,7 @@ def prepare(host: HostScene, device="cuda", instancing: str = "auto",
                          env_quads=host.env_quad_lights, device=device)
     args = (pos, g.normals.numpy(), idx, g.tri_material.numpy(),
             sd.materials, lights)
-    has_prio = bool(torch.any(sd.materials.nested_priority != 0))
+    has_prio = has_priorities(sd.materials)
     tri_pack, mat_pack = build_packs(g, sd.materials)
     bvh = build_bvh(pos, idx, device=device)
     omm = {}
@@ -269,13 +269,11 @@ def scene_from_numpy(tables: dict, lights=None, device="cuda",
     """SceneData from the JAX package's prepared bounce tables as numpy
     arrays: keys tri_rows, attr_rows, mat_rows, light_rows, tc, n_chunks,
     n_lights, n_tris, env_rows and tex_ct, tex_meta, tex_maps (the
-    BounceTables fields; omm with its 7-group tri_rows), with the light
-    list and the environment map (lighting/envmap.py envmap_from_numpy)
-    the NEE and the general tier read. Table parts the port does not serve
-    (prio) must be absent, None or false."""
+    BounceTables fields; omm with its 7-group tri_rows, prio), with the
+    light list and the environment map (lighting/envmap.py
+    envmap_from_numpy) the NEE and the general tier read."""
     device = rtxpt_tpu_torch.device(device)
     tables = dict(tables)
-    _refuse_parts(tables, ("prio",), "bounce")
     tables.pop("tr", None)
     bt = tables_from_numpy(device=device, **tables)
     return SceneData(geometry=None, materials=None, analytic_lights=None,
@@ -297,11 +295,3 @@ def cluster_scene_from_numpy(tables: dict, lights=None, device="cuda",
     return SceneData(geometry=None, materials=None, analytic_lights=None,
                      lights=lights, envmap=envmap, cluster_tables=ct)
 
-
-def _refuse_parts(tables, keys, kind):
-    for key in keys:
-        value = tables.pop(key, None)
-        if value is not None and value is not False:
-            raise NotImplementedError(
-                f"{kind} table part {key!r} is not ported to "
-                f"rtxpt_tpu_torch yet")

@@ -35,8 +35,11 @@ split-bf16 error of a cell edge a candidate counts as UNKNOWN, so that the
 two packages never disagree on a decisive state); K4 tests such a hit's
 alpha at MIP 0 and lets it pass through; K5 resolves UNKNOWN cells
 stochastically against the coverage, with each lane's alpha uniform
-(SH_UA). `cfg.passthrough_extra_iters` more rounds let pass-through lanes
-reach their max_bounces.
+(SH_UA). A scene with nested dielectric priorities
+(`scene.has_nested_priorities`, bounce_clustered.py:1572-1575) runs K4's
+priority variant, whose false hits pass through the same way.
+`cfg.passthrough_extra_iters` more rounds let pass-through lanes reach
+their max_bounces.
 
 K3, K4 and K5 are CUDA kernels written by hand for Hopper
 (csrc/cluster_closest.cu, cluster_shade.cu, cluster_shadow.cu) and
@@ -493,7 +496,7 @@ def occlusion_reference(cand, sh, blocks, kslots: int, stats: bool = False,
 
 def shade_reference(ha, fs, is_, tables, kcfg: bf.KernelConfig,
                     sample_idx: int, final_env: bool = False,
-                    omm: bool = False):
+                    omm: bool = False, prio: bool = False):
     """K4's plain version (the function of `_kernel_a2`): surface_and_shade
     on K3's hits. ha [HA_ROWS, N], fs [NF, N], is_ [NI, N] ->
     (fs_out [NF, N], is_out [NI, N], sh [SH_ROWS, N], hit [NH, N]), plus
@@ -503,7 +506,9 @@ def shade_reference(ha, fs, is_, tables, kcfg: bf.KernelConfig,
     environment-only round (bounce_fused.final_env_state, MIS in the NEE
     modes 1 and 2 only, as `_kernel_a2`), SH rows and hit row 5 zero.
     `omm` (`_kernel_a2(omm=True)`): HA_UNK feeds surface_and_shade's
-    alpha test and pass-through, and SH_UA carries the alpha uniform."""
+    alpha test and pass-through, and SH_UA carries the alpha uniform.
+    `prio` (`_kernel_a2(prio=True)`): the nested-priority false-hit
+    pass-through of surface_and_shade."""
     t = ha[HA_T]
     hit = t < _BIG
     front = ha[HA_FRONT] > 0.0
@@ -531,7 +536,7 @@ def shade_reference(ha, fs, is_, tables, kcfg: bf.KernelConfig,
         py=is_[bf.IS_PY], budget=is_[bf.IS_BUDGET],
         lb=is_[bf.IS_LBOUNCE].to(torch.int64), tables=tables, kcfg=kcfg,
         sample_idx=sample_idx,
-        omm_unknown=(ha[HA_UNK] > 0.5) if omm else None)
+        omm_unknown=(ha[HA_UNK] > 0.5) if omm else None, prio=prio)
     fs_out = torch.cat([s["o_new"], s["wi_world"], s["thp"], s["L"],
                         s["prev_pdf"][None], s["cone"][None],
                         s["spread"][None]], dim=0)
@@ -671,18 +676,20 @@ def occlusion(cand, sh, blocks, kslots: int, stats: bool = False, xf=None,
 
 
 def shade(ha, fs, is_, tables, kcfg: bf.KernelConfig, sample_idx: int,
-          final_env: bool = False, omm: bool = False):
-    """K4 (csrc/cluster_shade.cu; its micromap variant with `omm`) for
-    CUDA tensors, its plain version for CPU tensors. Arguments and results
-    as in `shade_reference`."""
+          final_env: bool = False, omm: bool = False, prio: bool = False):
+    """K4 (csrc/cluster_shade.cu; its micromap variant with `omm`, its
+    nested-priority variant with `prio`) for CUDA tensors, its plain
+    version for CPU tensors. Arguments and results as in
+    `shade_reference`."""
     dev = _device_of("shade", fs, ha, is_, tables.mat_rows,
                      tables.light_rows)
     if final_env and tables.env is None:
         raise ValueError("shade: final_env needs the tables' environment")
     omm = omm and not final_env
+    prio = prio and not final_env
     if dev.type == "cpu":
         return shade_reference(ha, fs, is_, tables, kcfg, sample_idx,
-                               final_env, omm)
+                               final_env, omm, prio)
     n = fs.shape[1]
     bf._check("ha", ha, torch.float32, (HA_ROWS, n), dev)
     bf._check("fs", fs, torch.float32, (bf.NF, n), dev)
@@ -715,13 +722,14 @@ def shade(ha, fs, is_, tables, kcfg: bf.KernelConfig, sample_idx: int,
             outs[4].data_ptr() if len(outs) > 4 else None,
             tables.mat_rows.data_ptr(), tables.light_rows.data_ptr(),
             None if tables.env is None else tables.env.data_ptr(),
-            *bf.tex_args(tables, tex), int(omm), n, tables.n_lights,
+            *bf.tex_args(tables, tex), int(omm), int(prio), n,
+            tables.n_lights,
             int(sample_idx) & rng.M32, kcfg.nee_mode, int(kcfg.enable_mis),
             kcfg.firefly, int(kcfg.rr_enable), kcfg.min_rr,
             int(kcfg.low_discrepancy), int(kcfg.energy_comp), kcfg.maxb,
             int(final_env), torch.cuda.current_stream(dev).cuda_stream)
     kernels.launches[bf.variant_name("cluster_shade", tables.env is not None,
-                                     final_env, tex, omm)] += 1
+                                     final_env, tex, omm, prio)] += 1
     return outs
 
 
@@ -937,7 +945,8 @@ def trace_paths_clustered(scene, cfg, o, d, cone_spread, px, py,
     variants, the shadow rays carry each lane's alpha uniform (SH_UA,
     K4's or, on the external route, `bounce_fused.alpha_uniform`), and
     `cfg.passthrough_extra_iters` more rounds let pass-through lanes reach
-    their max_bounces.
+    their max_bounces. A scene with nested priorities runs K4's priority
+    variant and the same extra rounds (bounce_clustered.py:1974-1982).
 
     In the external-NEE modes (`cfg.nee_external`, or NEE-AT) K4 exports
     the shaded surface, `external_nee` selects and evaluates the light per
@@ -966,6 +975,7 @@ def trace_paths_clustered(scene, cfg, o, d, cone_spread, px, py,
     use_nee = kcfg.nee_mode in (1, 2) and tbl.n_lights > 0
     ext = kcfg.external and tbl.n_lights > 0
     omm = tbl.omm and bf.use_tex(tbl, kcfg)
+    prio = bool(getattr(scene, "has_nested_priorities", False))
     hist = None
     if ext:
         from rtxpt_tpu_torch.lighting import neeat as na
@@ -983,7 +993,8 @@ def trace_paths_clustered(scene, cfg, o, d, cone_spread, px, py,
     ray_count = torch.zeros((), dtype=torch.int64, device=dev)
     overflow = torch.zeros((), dtype=torch.int64, device=dev)
     occupancy = []
-    extra = int(getattr(cfg, "passthrough_extra_iters", 2)) if omm else 0
+    extra = int(getattr(cfg, "passthrough_extra_iters", 2)) \
+        if omm or prio else 0
     for b in range(cfg.max_bounces + extra):
         if sort_rays:
             fs, is_, src = sort_wavefront(fs, is_, src, b == 0, bounds)
@@ -996,7 +1007,7 @@ def trace_paths_clustered(scene, cfg, o, d, cone_spread, px, py,
         prev_pdf_in = fs[bf.FS_PREVPDF]
         prev_delta_in = is_[bf.IS_PREVDELTA] > 0
         lb_in = is_[bf.IS_LBOUNCE]
-        out = shade(ha, fs, is_, tbl, kcfg, sample_idx, omm=omm)
+        out = shade(ha, fs, is_, tbl, kcfg, sample_idx, omm=omm, prio=prio)
         fs, is_, sh, hitb = out[:4]
         ray_count = ray_count + n_active
         overflow = overflow + ovf

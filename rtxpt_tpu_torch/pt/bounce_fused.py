@@ -34,10 +34,15 @@ its path state and logical bounce and continues the same ray on the next
 iteration, for which `trace_paths_fused` runs
 `cfg.passthrough_extra_iters` more iterations), and resolves UNKNOWN
 cells in shadow rays stochastically against the baked coverage; K2 does
-the same for the external route's shadow rays. No nested priorities, no
-split channels and no V-buffer injection; sphere and environment-quad
-lights are the general tier's (`build_bounce_tables` raises
-NotImplementedError for them).
+the same for the external route's shadow rays. With nested dielectric
+priorities (`BounceTables.prio`: some material's MT_PRIO row is not 0)
+the `prio` variant treats a hit on a lower-priority medium's boundary
+while inside a higher one (a false entry), or on the back of a medium
+the ray is not in (a false exit), as a false hit: the interior list's
+lower slot (IS_MED1) is updated and the lane passes through, as on an
+alpha test. No split channels and no V-buffer injection; sphere and
+environment-quad lights are the general tier's (`build_bounce_tables`
+raises NotImplementedError for them).
 
 Layouts are the JAX package's, minus the TPU tiling: the wavefront state
 is fs [NF, N] f32 and is_ [NI, N] i32 (one column per ray; rows FS_* and
@@ -238,6 +243,10 @@ class BounceTables:
     omm: bool = False
     tri_micro: Optional[torch.Tensor] = None
     tri_cover: Optional[torch.Tensor] = None
+    # nested dielectric priorities: some material's MT_PRIO row is not 0,
+    # and the shading kernels run the false-hit pass-through
+    # (bounce_pallas.py:231-233)
+    prio: bool = False
 
     @property
     def device(self):
@@ -381,14 +390,16 @@ def compact_coefficients(tri_rows: np.ndarray, tc: int, n_chunks: int,
 def tables_from_numpy(tri_rows, attr_rows, mat_rows, light_rows, tc,
                       n_chunks, n_lights, n_tris, device="cuda",
                       env_rows=None, tex_ct=None, tex_meta=None,
-                      tex_maps=(0, 0, 0, 0), omm=False) -> BounceTables:
+                      tex_maps=(0, 0, 0, 0), omm=False,
+                      prio=False) -> BounceTables:
     """BounceTables on `device` (the GPU by default; raises without one)
     from the JAX layout's numpy arrays; `env_rows` is the JAX package's
     [EV_ROWS, 128] environment table or the port's [ET_SIZE] one;
     `tex_ct` / `tex_meta` the JAX package's texture tables ([4*128, TR]
     and [TXM_ROWS, 128]) or the port's (`build_tex_tables`), with
     `tex_maps` the materials' map flags; `omm`: tri_rows carry the
-    micromap groups (7 per chunk)."""
+    micromap groups (7 per chunk); `prio`: the materials declare nested
+    priorities (the JAX BounceTables.prio)."""
     import rtxpt_tpu_torch
 
     device = rtxpt_tpu_torch.device(device)
@@ -417,7 +428,7 @@ def tables_from_numpy(tri_rows, attr_rows, mat_rows, light_rows, tc,
     return BounceTables(
         tri_rows=t(tri_rows), attr_rows=t(attr_rows), mat_rows=t(mat_rows),
         light_rows=t(light_rows), tri_coef=t(coef),
-        omm=omm, tri_micro=micro, tri_cover=cover,
+        omm=omm, tri_micro=micro, tri_cover=cover, prio=bool(prio),
         env=None if env_rows is None else t(env_table(env_rows)),
         tex=tex, tex_meta=meta,
         tex_maps=tuple(int(x) for x in tex_maps) if tex is not None
@@ -661,7 +672,15 @@ def build_bounce_tables(positions, normals, indices, tri_material,
                              int(lights.num), t, device=device, env_rows=env,
                              tex_ct=None if tex is None else tex[0],
                              tex_meta=None if tex is None else tex[1],
-                             tex_maps=tex_maps_of(materials), omm=omm)
+                             tex_maps=tex_maps_of(materials), omm=omm,
+                             prio=has_priorities(materials))
+
+
+def has_priorities(materials) -> bool:
+    """Whether some material has a nested priority other than 0
+    (bounce_pallas.py:554-555): the tables' `prio` switch."""
+    prio = getattr(materials, "nested_priority", None)
+    return prio is not None and bool(np.any(_np(prio) != 0))
 
 
 def _tangent_rows(uvs, indices, e1, e2):
@@ -924,9 +943,9 @@ def surface_and_shade(*, o, d, t, hit, front, bu, bv, attr, thp, L,
                       prev_pdf, cone, spread, active, prev_delta, med0, med1,
                       px, py, budget, lb, tables: BounceTables,
                       kcfg: KernelConfig, sample_idx: int,
-                      omm_unknown=None):
+                      omm_unknown=None, prio: bool = False):
     """Post-intersection bounce body (bounce_pallas.surface_and_shade with
-    no priorities or split channels): the environment of a
+    no split channels): the environment of a
     miss with its MIS weight (when the tables carry the environment
     table), surface fetch, the texture switch (`use_tex`: base colour,
     metal-rough, emissive and normal maps, one stochastic texel each at
@@ -940,6 +959,13 @@ def surface_and_shade(*, o, d, t, hit, front, bu, bv, attr, thp, L,
     the lane is not shaded, keeps its path state and logical bounce, and
     continues the same ray from just past the surface on the next
     wavefront iteration.
+    With `prio` (nested dielectric priorities, bounce_pallas.py:1138-1156)
+    a hit on the boundary of a non-thin transmissive material is false
+    when it enters a medium of lower priority than the current one (med0)
+    or leaves a medium other than the current one: the lower slot of the
+    interior list (med1) takes the entered medium if it outranks med1's,
+    or drops the left one if it is med1's, and the lane passes through as
+    above (Beer-Lambert over the skipped segment still applies).
     `attr(i, k=1)` fetches the winner's attribute rows. Returns the next
     state, whether the lane was shaded, and the pending shadow ray
     (do_nee, shadow_o, shadow_d, sdist, contrib); the caller resolves
@@ -1072,6 +1098,22 @@ def surface_and_shade(*, o, d, t, hit, front, bu, bv, attr, thp, L,
         acut = mrow(MT_ACUT)
         passthru = hit_mask & omm_unknown & (acut >= 0.0) \
             & (base_alpha0 < acut)
+    if prio:
+        def prow(med):
+            v = mat[MT_PRIO][torch.clamp(med, 0, 127)]
+            return torch.where(med >= 0, v, -1.0)
+
+        p_hit = mrow(MT_PRIO)
+        boundary = ~thin & (transmission > 0.0)
+        false_enter = boundary & front & (p_hit < prow(med0))
+        false_exit = boundary & ~front & (mid != med0)
+        prio_fh = hit_mask & (false_enter | false_exit)
+        # the interior list's bookkeeping for the skipped boundary
+        med1 = torch.where(
+            prio_fh & false_enter & ((med1 < 0) | (p_hit > prow(med1))),
+            mid, torch.where(prio_fh & false_exit & (mid == med1), -1, med1))
+        passthru = passthru | prio_fh
+        has_pass = True
     hit_shade = hit_mask & ~passthru
     u_alpha = None
     if omm_unknown is not None:
@@ -1269,7 +1311,9 @@ def bounce_reference(fs, is_, tables: BounceTables, kcfg: KernelConfig,
     round's closest hit ignores the micromaps (its `_bounce_call` passes
     no omm). On tables with micromaps the closest hit rejects
     micro-TRANSPARENT candidates, surface_and_shade gets the winner's
-    UNKNOWN flag, and the shadow ray takes the stochastic alpha test."""
+    UNKNOWN flag, and the shadow ray takes the stochastic alpha test. On
+    tables with priorities (`tables.prio`) surface_and_shade runs the
+    false-hit pass-through."""
     o = fs[FS_O:FS_O + 3]
     d = fs[FS_D:FS_D + 3]
 
@@ -1300,7 +1344,8 @@ def bounce_reference(fs, is_, tables: BounceTables, kcfg: KernelConfig,
         med0=is_[IS_MED0].to(torch.int64), med1=is_[IS_MED1].to(torch.int64),
         px=is_[IS_PX], py=is_[IS_PY], budget=is_[IS_BUDGET],
         lb=is_[IS_LBOUNCE].to(torch.int64), tables=tables, kcfg=kcfg,
-        sample_idx=sample_idx, omm_unknown=unk if omm else None)
+        sample_idx=sample_idx, omm_unknown=unk if omm else None,
+        prio=tables.prio)
 
     # ----- NEE shadow ray -----
     ext = s["surf"] is not None
@@ -1365,16 +1410,18 @@ _check = kernels.check_tensor
 
 
 def variant_name(base: str, has_env: bool, final_env: bool,
-                 has_tex: bool = False, omm: bool = False) -> str:
+                 has_tex: bool = False, omm: bool = False,
+                 prio: bool = False) -> str:
     """The launch-count name of a shading kernel's variant: `base`, then
-    "_omm" with the micromap switch, "_tex" with the texture switch, then
-    "_env" with the environment switches; base + "_final" for the final
-    environment-only round (which shades nothing, so it runs without
-    textures or micromaps)."""
+    "_omm" with the micromap switch, "_tex" with the texture switch,
+    "_prio" with the priority switch, then "_env" with the environment
+    switches; base + "_final" for the final environment-only round (which
+    shades nothing, so it runs without textures, micromaps or
+    priorities)."""
     if final_env:
         return base + "_final"
     return base + ("_omm" if omm else "") + ("_tex" if has_tex else "") \
-        + ("_env" if has_env else "")
+        + ("_prio" if prio else "") + ("_env" if has_env else "")
 
 
 def check_omm_tables(tables, n_rows: int, dev):
@@ -1416,6 +1463,7 @@ def bounce(fs, is_, tables: BounceTables, kcfg: KernelConfig,
     omm = tables.omm and not final_env
     if omm:
         check_omm_tables(tables, tpad, dev)
+    prio = tables.prio and not final_env
     if kcfg.nee_mode not in range(6):
         raise ValueError(f"bounce: nee_mode {kcfg.nee_mode} not in 0..5")
     if not 0 < tables.n_tris <= MAX_TRIS or (
@@ -1446,9 +1494,9 @@ def bounce(fs, is_, tables: BounceTables, kcfg: KernelConfig,
             int(sample_idx) & rng.M32, kcfg.nee_mode, int(kcfg.enable_mis),
             kcfg.firefly, int(kcfg.rr_enable), kcfg.min_rr, kcfg.max_travel,
             int(kcfg.low_discrepancy), int(kcfg.energy_comp), kcfg.maxb,
-            int(final_env), stream)
+            int(final_env), int(prio), stream)
     kernels.launches[variant_name("bounce_fused", tables.env is not None,
-                                  final_env, tex, omm)] += 1
+                                  final_env, tex, omm, prio)] += 1
     return outs
 
 
@@ -1564,12 +1612,13 @@ def trace_paths_fused(scene, cfg, o, d, cone_spread, px, py, sample_idx,
     feedback run inside `torch.profiler.record_function` ranges named
     "rtxpt.nee" and "rtxpt.feedback".
 
-    On tables with micromaps, a lane that passes through an alpha-tested
-    surface does not advance its logical bounce, so the chain runs
-    `cfg.passthrough_extra_iters` (2 by default) more iterations, each
-    lane stopping at its own max_bounces; on the external route each
-    lane's logical bounce keys external_nee's seeds and the shadow rays
-    carry the lane's alpha uniform (EFFECT_ALPHA) for K2.
+    On tables with micromaps or priorities, a lane that passes through an
+    alpha-tested surface or a priority false hit does not advance its
+    logical bounce, so the chain runs `cfg.passthrough_extra_iters` (2 by
+    default) more iterations, each lane stopping at its own max_bounces;
+    on the external route each lane's logical bounce keys external_nee's
+    seeds, and with micromaps the shadow rays carry the lane's alpha
+    uniform (EFFECT_ALPHA) for K2.
 
     o, d [N,3]; cone_spread [N]; px, py [N] int. Returns dict(L [N,3],
     ray_count [] int64 tensor, occupancy [B+1] int64 tensor), plus
@@ -1587,7 +1636,8 @@ def trace_paths_fused(scene, cfg, o, d, cone_spread, px, py, sample_idx,
             hist = na.zero_hist(neeat_state)
     ray_count = torch.zeros((), dtype=torch.int64, device=dev)
     occupancy = []
-    extra = int(getattr(cfg, "passthrough_extra_iters", 2)) if tbl.omm \
+    passes = tbl.omm or tbl.prio
+    extra = int(getattr(cfg, "passthrough_extra_iters", 2)) if passes \
         else 0
     for b in range(cfg.max_bounces + extra):
         active_in = is_[IS_ACTIVE].sum(dtype=torch.int64)
@@ -1607,7 +1657,7 @@ def trace_paths_fused(scene, cfg, o, d, cone_spread, px, py, sample_idx,
             res = external_nee(scene, cfg, neeat_state, out[3], d_in,
                                hit[5] > 0.5, prev_pdf_in, prev_delta_in,
                                is_[IS_PX], is_[IS_PY], sample_idx, b,
-                               lb=lb_in if tbl.omm else None)
+                               lb=lb_in if passes else None)
             ua = alpha_uniform(cfg, is_[IS_PX], is_[IS_PY], lb_in,
                                sample_idx) if tbl.omm else None
             sh = shadow_requests(res["shadow_o"], res["shadow_d"],

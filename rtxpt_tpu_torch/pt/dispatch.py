@@ -53,6 +53,13 @@ shading time fetches one jittered texel); "auto" otherwise resolves it to
 tier raises. A two-level scene never carries micromaps from prepare; one
 made by hand is refused on the TLAS route, which has no alpha test.
 
+Nested dielectric priorities (`scene.has_nested_priorities`) are served
+on every tier, as in the JAX package (rtxpt_tpu/pt/dispatch.py:109-113,
+:140): the fused tier's K1 and the clustered tier's K4 run their priority
+variants (the false-hit pass-through), the general tier its bounded
+false-hit retrace. Bounce tables made without the priority switch (by
+hand) leave such a scene to "xla" under "auto".
+
 The wrappers pick the kernel for CUDA tensors and its plain version for
 CPU tensors, so a clustered scene on the CPU keeps the tier name
 "clustered" and the general tier keeps "xla". A scene, config or call
@@ -81,8 +88,13 @@ def general_only_features(scene, cfg, tables=None):
     environment-quad lights, NEE-AT with an environment light,
     textures without stochastic texture filtering or without the
     kernels' texture tables (an atlas past their cap), and alpha-tested
-    geometry without the tables' micromaps or stochastic filtering."""
+    geometry without the tables' micromaps or stochastic filtering, and
+    nested priorities on bounce tables without their priority switch."""
     out = []
+    if getattr(scene, "has_nested_priorities", False) and \
+            not getattr(tables, "prio", True):
+        out.append("nested dielectric priorities without the bounce "
+                   "tables' priority switch")
     if getattr(scene, "tri_opacity", None) is not None and tables is not None:
         if not getattr(tables, "omm", False):
             out.append("alpha-tested textures (opacity micromaps) without "
@@ -160,8 +172,6 @@ def unsupported_features(scene, cfg, neeat_state=None, tier="auto",
         out.append("alpha-tested textures (opacity micromaps) on a "
                    "two-level scene (prepare flattens them; the TLAS walk "
                    "has no alpha test)")
-    if getattr(scene, "has_nested_priorities", False):
-        out.append("nested dielectric priorities")
     if cfg.mode.value != PTMode.REFERENCE.value:
         out.append(f"render mode {cfg.mode.name}")
     if cfg.split_channels:

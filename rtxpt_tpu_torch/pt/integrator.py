@@ -36,6 +36,10 @@ EFFECT_SCATTER = 29
 EFFECT_NEE = 31
 EFFECT_RR = 37
 EFFECT_STF = 41
+# Bounded false-hit skips per bounce for nested dielectric priorities
+# (rtxpt_tpu/pt/integrator.py:47-50: two cover a medium inside another
+# whose two boundaries both overlap the segment)
+MAX_FALSE_HIT_SKIPS = 2
 
 
 def _ld(cfg, sample_idx, seed, dim: int):
@@ -95,6 +99,41 @@ def trace_paths(scene, cfg, o, d, cone_spread, px, py, sample_idx,
         scene, cfg, o, d, cone_spread, px, py, sample_idx, neeat_state)
 
 
+def _skip_false_hits(scene, prio, closest_fn, o, d, hit, active, med0, med1,
+                     t_far):
+    """The nested-priority false-hit rejection after a closest hit
+    (rtxpt_tpu/pt/integrator.py:233-268; PathTracerNestedDielectrics'
+    semantics): a hit on the boundary of a non-thin transmissive material
+    is false when it enters a medium of lower priority than the current
+    one (med0) or leaves a medium other than the current one. The
+    interior list's lower slot med1 takes the entered medium if it
+    outranks med1's, or drops the left one if it is med1's, and the ray
+    is traced again from just past the surface, at most
+    MAX_FALSE_HIT_SKIPS times (every lane takes part in each query, as in
+    the JAX package). `prio` [M] i64: the materials' priorities on the
+    rays' device. Returns (hit, med1)."""
+    mp = scene.mat_pack
+    tri_mat = scene.tri_pack[:, -1].long()
+
+    def prio_of(med):
+        return torch.where(med >= 0, prio[torch.clamp(med, min=0)], -1)
+
+    for _ in range(MAX_FALSE_HIT_SKIPS):
+        mh = tri_mat[torch.clamp(hit.prim, min=0).long()]
+        boundary = (mp[mh, S.MP_THIN] < 0.5) & (mp[mh, S.MP_TRANS] > 0.0)
+        p_hit = prio[mh]
+        false_enter = boundary & hit.front & (p_hit < prio_of(med0))
+        false_exit = boundary & ~hit.front & (mh != med0)
+        fh = active & ~hit.miss & (false_enter | false_exit)
+        med1 = torch.where(
+            fh & false_enter & ((med1 < 0) | (p_hit > prio_of(med1))), mh,
+            torch.where(fh & false_exit & (mh == med1), -1, med1))
+        tmin = torch.where(fh, hit.t * (1.0 + 1e-4) + 1e-5, 0.0)
+        hit = hit.where(fh, closest_fn(o, d, tmin,
+                                       torch.where(fh, t_far, 0.0)))
+    return hit, med1
+
+
 def _where(cond, a, b):
     return torch.where(cond.reshape(cond.shape + (1,) * (a.ndim - 1)), a, b)
 
@@ -102,8 +141,8 @@ def _where(cond, a, b):
 def _wavefront(scene, cfg, o, d, px, py, sample_idx, neeat_state=None,
                first_emissive: bool = True, cone_spread=None):
     """The general BVH wavefront (rtxpt_tpu/pt/integrator.py trace_paths on
-    the "xla" tier, without nested priorities, split channels, aux
-    buffers and the real-time arguments).
+    the "xla" tier, without split channels, aux buffers and the real-time
+    arguments).
     Every lane is traced at every bounce, inactive ones too, as in the JAX
     package.
 
@@ -127,7 +166,9 @@ def _wavefront(scene, cfg, o, d, px, py, sample_idx, neeat_state=None,
     too, is the alpha-tested closest hit (scene/omm.py
     intersect_closest_alpha: the walk rejects micro-TRANSPARENT hits, the
     texture test and the retrace resolve the rest; K8 has no micromaps,
-    so on the brute path the retrace resolves every MIXED hit)."""
+    so on the brute path the retrace resolves every MIXED hit). On a scene
+    with nested priorities each closest hit is followed by the bounded
+    false-hit retrace (`_skip_false_hits`) through the same query."""
     n = o.shape[0]
     dev = o.device
     if scene.tri_opacity is not None and scene.textures is not None:
@@ -187,6 +228,8 @@ def _wavefront(scene, cfg, o, d, px, py, sample_idx, neeat_state=None,
     if cone_spread is None:
         cone_spread = zeros(n)
     stf = cfg.stochastic_texture_filtering and scene.textures is not None
+    prio = scene.materials.nested_priority.to(device=dev, dtype=torch.int64) \
+        if scene.has_nested_priorities else None
 
     for bounce in range(cfg.max_bounces + 1):
         # ----- closest hit (+ the previous bounce's shadow rays) -----
@@ -206,6 +249,9 @@ def _wavefront(scene, cfg, o, d, px, py, sample_idx, neeat_state=None,
             pend_mask = zeros(n, dtype=torch.bool)
         else:
             hit = closest_fn(o, d, t_zero, t_far)
+        if prio is not None:
+            hit, med1 = _skip_false_hits(scene, prio, closest_fn, o, d, hit,
+                                         active, med0, med1, t_far)
         hit_mask = active & ~hit.miss
         if has_env and (first_emissive or bounce > 0):
             L = L + _handle_miss(scene, cfg, d, thp, active & hit.miss,

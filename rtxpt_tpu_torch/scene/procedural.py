@@ -4,12 +4,17 @@ light, the many-light rooms, the large-scene city (also textured,
 normal-mapped and sky-lit), the textured Cornell box and the kitchen, with
 their procedural textures (checker, wood, ripple normal map), and the
 curtain Cornell box of the JAX package's alpha tests with the foliage
-texture `leaf_texture`. The other scenes come with their slices.
+texture `leaf_texture`, and the 'Bistro' stress scene `bistro_scene`
+(textures, a normal map, alpha-tested foliage, glass with nested
+priorities and 160 bulbs). The other scenes come with their slices.
 
 Two instanced scenes have no counterpart in the JAX package's module: they
 are the constructions of its instancing tests, `instanced_boxes`
 (tests/test_tlas.py `_instanced_scene`) and `instanced_city`
-(tests/test_cluster_instanced.py `_instanced_city`), array for array."""
+(tests/test_cluster_instanced.py `_instanced_city`), array for array.
+Neither has `overlap_boxes`: the nested-priority tests' overlapping media
+(tests/test_nested_priority.py `_overlap_scene`, and with `wall` its
+subdivided form of tests/test_cluster_omm.py `_overlap_scene_big`)."""
 
 from __future__ import annotations
 
@@ -782,3 +787,294 @@ def default_camera(scene: HostScene, width: int, height: int, device="cpu"):
                              up=[0, 1, 0], fov_y_deg=45.0)
     return look_at(c["position"], c["target"], c["up"], c["fov_y_deg"],
                    width, height, device=device)
+
+
+def overlap_boxes(priorities, wall: bool = False) -> HostScene:
+    """Two overlapping absorbing media in front of an emissive panel: water
+    (material 0, box [0, 1] in x, sigma_a OVERLAP_SW) and glass (material
+    1, box [0.4, 1.2], sigma_a OVERLAP_SG), both transmissive with IoR 1
+    and no specular reflection, so a ray along +x stays straight, and the
+    panel (material 2) at x = 2 with radiance OVERLAP_E; `priorities` are
+    the materials' nested priorities. The radiance that reaches a camera
+    at (-1, 0, 0) looking down +x encodes which medium absorbed each
+    segment. With `wall`, a black 40 x 40 quad grid (material 3) off to
+    the +y side pushes the triangle count past the fused tier's 2048."""
+    parts = [
+        _box([0.0, -1.0, -1.0], [1.0, 1.0, 1.0], 0),        # water
+        _box([0.4, -0.9, -0.9], [1.2, 0.9, 0.9], 1),        # glass
+        _quad([2.0, -1, -1], [2.0, -1, 1], [2.0, 1, 1], [2.0, 1, -1], 2),
+    ]
+    if wall:
+        parts.append(_quad_grid([-3.0, 5.0, -3.0], [4.0, 5.0, -3.0],
+                                [4.0, 5.0, 3.0], [-3.0, 5.0, 3.0], 40, 40, 3))
+    pos, nrm, uv, idx, mat = _merge(parts)
+    m = 4 if wall else 3
+
+    def f32(v):
+        return torch.as_tensor(np.asarray(v, np.float32)[:m])
+
+    sw, sg, e = OVERLAP_SW, OVERLAP_SG, OVERLAP_E
+    mats = Materials.create(m).replace(
+        transmission=f32([1.0, 1.0, 0.0, 0.0]),
+        ior=f32([1.0, 1.0, 1.5, 1.5]),
+        roughness=f32([0.0, 0.0, 0.0, 1.0]),
+        specular_f0_scale=f32([0.0] * 4),
+        base_color=f32([[1.0] * 3, [1.0] * 3, [0.0] * 3, [0.0] * 3]),
+        emissive=f32([[0.0] * 3, [0.0] * 3, [e] * 3, [0.0] * 3]),
+        volume_absorption=f32([[sw] * 3, [sg] * 3, [0.0] * 3, [0.0] * 3]),
+        nested_priority=torch.as_tensor(np.asarray(priorities, np.int32)))
+    return HostScene(
+        instances=[MeshInstance(positions=pos, normals=nrm, uvs=uv,
+                                indices=idx, material=mat, name="nest")],
+        materials=mats)
+
+
+OVERLAP_SW = 0.9     # overlap_boxes: the water's sigma_a
+OVERLAP_SG = 0.4     # the glass's sigma_a
+OVERLAP_E = 5.0      # the panel's radiance
+# Two cameras inside overlap_boxes whose rays meet false hits from their
+# first bounce on: (position, target, up, fov_y_deg, the medium the rays
+# start in). Inside the water box with the rays in air, the water's inner
+# walls are false exits and the glass's front real entries; inside the
+# glass beyond the water with the rays in the glass, the water's outer
+# face is a false entry, which the interior list records.
+OVERLAP_INSIDE_CAMERAS = (
+    ([0.2, 0.0, 0.0], [0.5, 1.0, 0.3], [0.0, 0.0, 1.0], 90.0, -1),
+    ([1.1, 0.0, 0.0], [0.0, 0.6, 0.3], [0.0, 1.0, 0.0], 120.0, 1))
+
+
+def _cylinder(center, r: float, h: float, seg: int, mat: int,
+              cap: bool = True, vsub: int = 1):
+    """Open / capped cylinder: seg side quads (x vsub vertical) + top fan."""
+    cx, cy, cz = center
+    ang = np.linspace(0.0, 2.0 * np.pi, seg + 1, dtype=np.float32)
+    parts = []
+    ys = np.linspace(0.0, h, vsub + 1, dtype=np.float32)
+    for i in range(seg):
+        x0, z0 = cx + r * np.cos(ang[i]), cz + r * np.sin(ang[i])
+        x1, z1 = cx + r * np.cos(ang[i + 1]), cz + r * np.sin(ang[i + 1])
+        for j in range(vsub):
+            parts.append(_quad([x0, cy + ys[j], z0], [x1, cy + ys[j], z1],
+                               [x1, cy + ys[j + 1], z1],
+                               [x0, cy + ys[j + 1], z0], mat))
+    if cap:
+        for i in range(seg):
+            x0, z0 = cx + r * np.cos(ang[i]), cz + r * np.sin(ang[i])
+            x1, z1 = cx + r * np.cos(ang[i + 1]), cz + r * np.sin(ang[i + 1])
+            p = np.asarray([[cx, cy + h, cz], [x1, cy + h, z1],
+                            [x0, cy + h, z0], [cx, cy + h, cz]], np.float32)
+            n = np.tile(np.asarray([[0, 1, 0]], np.float32), (4, 1))
+            u = np.asarray([[0.5, 0.5], [1, 0], [0, 0], [0.5, 0.5]],
+                           np.float32)
+            parts.append((p, n, u, np.asarray([[0, 1, 2]], np.int32),
+                          np.asarray([mat], np.int32)))
+    return _merge(parts)
+
+
+# bistro_scene's material ids
+BISTRO_GROUND, BISTRO_FACADE_A, BISTRO_FACADE_B, BISTRO_AWNING = 0, 1, 2, 3
+BISTRO_WOOD, BISTRO_TRUNK, BISTRO_FOLIAGE, BISTRO_GLASS = 4, 5, 6, 7
+BISTRO_BULB, BISTRO_METAL, BISTRO_SIGN = 8, 9, 10
+
+
+def bistro_scene(tri_budget: int = 600_000, seed: int = 0,
+                 n_bulbs: int = 160, with_env: bool = False,
+                 alpha_foliage: bool = True) -> HostScene:
+    """The 'Bistro' stress scene (rtxpt_tpu/scene/procedural.py
+    bistro_scene, BASELINE.json's 1080p target), a street-corner plaza:
+    two facade rows of subdivided buildings (the bulk of the budget),
+    cobbled ground with a base-colour texture and a normal map, tables,
+    chairs and lamp posts, glass bottles with volume absorption and nested
+    priority 1, eight trees whose crowns are alpha-tested foliage cards,
+    `n_bulbs` emissive string-light bulbs (more than 128 lights with the
+    sun: NEE takes the external route) and a directional sun.
+    Deterministic in (tri_budget, seed): the same generator calls as the
+    JAX package's, so the host arrays are equal. The triangle count lands
+    within ~10% of tri_budget for budgets >= 100k."""
+    rng = np.random.default_rng(seed)
+    g = _quad_grid
+    W, D = 44.0, 30.0                         # plaza extent (x, z)
+    parts = []                                # static merged geometry
+
+    # ---- ground (textured + normal-mapped cobbles) ----
+    gg = 40
+    parts.append(g([0, 0, 0], [W, 0, 0], [W, 0, D], [0, 0, D],
+                   gg, gg, BISTRO_GROUND))
+
+    # ---- furniture: round tables + chairs + bottles ----
+    for k in range(14):
+        tx = rng.uniform(8.0, W - 4.0)
+        tz = rng.uniform(8.0, D - 4.0)
+        parts.append(_cylinder([tx, 0.68, tz], 0.55, 0.05, 20,
+                               BISTRO_WOOD))              # top
+        parts.append(_cylinder([tx, 0.0, tz], 0.06, 0.68, 10,
+                               BISTRO_METAL, cap=False))  # pedestal
+        for c in range(3):
+            a = rng.uniform(0, 2 * np.pi)
+            cx2, cz2 = tx + 1.0 * np.cos(a), tz + 1.0 * np.sin(a)
+            parts.append(_box([cx2 - 0.22, 0.0, cz2 - 0.22],
+                              [cx2 + 0.22, 0.45, cz2 + 0.22], BISTRO_WOOD))
+        # glass bottle: slim octagonal prism (volume + nested priority)
+        parts.append(_cylinder([tx + 0.15, 0.73, tz], 0.05, 0.28, 8,
+                               BISTRO_GLASS))
+
+    # ---- lamp posts ----
+    for k in range(4):
+        lx = 6.0 + k * (W - 10.0) / 3.0
+        parts.append(_cylinder([lx, 0.0, D * 0.6], 0.08, 4.2, 8,
+                               BISTRO_METAL, cap=False, vsub=2))
+
+    # ---- string lights: emissive bulbs on catenaries between posts ----
+    for k in range(max(n_bulbs, 0)):
+        tpar = (k % 40) / 39.0
+        row = k // 40
+        x = 4.0 + tpar * (W - 8.0)
+        sag = 0.6 * np.sin(np.pi * tpar)
+        y = 4.4 - sag
+        z = 4.0 + row * (D - 8.0) / max((n_bulbs + 39) // 40 - 1, 1)
+        b = 0.055
+        parts.append(_quad([x - b, y, z - b], [x + b, y, z - b],
+                           [x + b, y, z + b], [x - b, y, z + b],
+                           BISTRO_BULB))
+
+    # ---- facade rows (bulk of the triangle budget) ----
+    lots = []
+    for x0 in np.arange(2.0, W - 6.0, 7.0):
+        lots.append((x0, 0.0))                # back row (z = 0 side)
+    for z0 in np.arange(6.0, D - 6.0, 7.5):
+        lots.append((0.0, z0))                # left row (x = 0 side)
+    # the facade subdivision from the remaining budget (awnings are 36
+    # triangles per lot; the trees and the sign below ~410)
+    n_now = sum(len(p[3]) for p in parts)
+    rem = max(tri_budget - n_now - 36 * len(lots) - 410, 12 * len(lots))
+    s = max(2, int(round(np.sqrt(rem / (12 * len(lots))))))
+    for i, (x0, z0) in enumerate(lots):
+        if z0 == 0.0:
+            lo = [x0, 0.0, 0.0]
+            hi = [x0 + rng.uniform(5.0, 6.4), rng.uniform(7.0, 14.0),
+                  rng.uniform(3.5, 5.0)]
+        else:
+            lo = [0.0, 0.0, z0]
+            hi = [rng.uniform(3.5, 5.0), rng.uniform(7.0, 14.0),
+                  z0 + rng.uniform(5.0, 6.8)]
+        mat = BISTRO_FACADE_A if i % 2 == 0 else BISTRO_FACADE_B
+        parts.append(_box_grid(lo, hi, s, mat))
+        # awning over the ground floor
+        ax0, ax1 = lo[0] + 0.2, hi[0] + 1.4
+        az = hi[2] + 0.02 if z0 == 0.0 else lo[2] + 0.2
+        if z0 == 0.0:
+            parts.append(g([ax0, 3.4, az], [ax1 - 1.4, 3.4, az],
+                           [ax1 - 1.4, 2.7, az + 1.8], [ax0, 2.7, az + 1.8],
+                           6, 3, BISTRO_AWNING))
+        else:
+            parts.append(g([hi[0] + 0.02, 3.4, lo[2] + 0.2],
+                           [hi[0] + 0.02, 3.4, hi[2] - 0.2],
+                           [hi[0] + 1.8, 2.7, hi[2] - 0.2],
+                           [hi[0] + 1.8, 2.7, lo[2] + 0.2],
+                           6, 3, BISTRO_AWNING))
+
+    pos, nrm, uv, idx, mat = _merge(parts)
+    instances = [MeshInstance(positions=pos, normals=nrm, uvs=uv,
+                              indices=idx, material=mat, name="bistro")]
+
+    # ---- trees: a trunk and a crown of foliage cards each ----
+    fol_mat = BISTRO_FOLIAGE if alpha_foliage else BISTRO_TRUNK
+    for k in range(8):
+        txp = 7.0 + (k % 4) * (W - 12.0) / 3.0
+        tzp = 10.0 + (k // 4) * (D - 16.0) / 1.0 * 0.45
+        tp, tn, tu, ti, tm = _cylinder([txp, 0.0, tzp], 0.22, 2.6, 10,
+                                       BISTRO_TRUNK, cap=False, vsub=2)
+        instances.append(MeshInstance(positions=tp, normals=tn, uvs=tu,
+                                      indices=ti, material=tm,
+                                      name=f"trunk_{k}"))
+        crown = []
+        for q in range(5):
+            a = q * np.pi / 5.0
+            cdir = np.asarray([np.cos(a), 0.0, np.sin(a)], np.float32)
+            c0 = -1.6 * cdir + [0, 2.2, 0]
+            c1 = 1.6 * cdir + [0, 2.2, 0]
+            c2 = 1.6 * cdir + [0, 5.2, 0]
+            c3 = -1.6 * cdir + [0, 5.2, 0]
+            crown.append(_quad(c0, c1, c2, c3, fol_mat))
+        cp, cn, cu, ci, cm = _merge(crown)
+        tf = np.eye(4, dtype=np.float32)
+        tf[:3, 3] = [txp, 0.0, tzp]
+        instances.append(MeshInstance(positions=cp, normals=cn, uvs=cu,
+                                      indices=ci, material=cm, transform=tf,
+                                      name=f"foliage_{k}"))
+
+    # ---- hanging sign ----
+    sp, sn, su, si, sm = _quad([-0.7, -0.5, 0.0], [0.7, -0.5, 0.0],
+                               [0.7, 0.5, 0.0], [-0.7, 0.5, 0.0],
+                               BISTRO_SIGN)
+    tf = np.eye(4, dtype=np.float32)
+    tf[:3, 3] = [W * 0.35, 3.2, 4.3]
+    instances.append(MeshInstance(positions=sp, normals=sn, uvs=su,
+                                  indices=si, material=sm, transform=tf,
+                                  name="sign"))
+
+    mats = _materials([
+        dict(base_color=[0.52, 0.50, 0.47], roughness=0.85),  # ground
+        dict(base_color=[0.72, 0.62, 0.50], roughness=0.8),   # facade A
+        dict(base_color=[0.58, 0.62, 0.68], roughness=0.6),   # facade B
+        dict(base_color=[0.70, 0.25, 0.22], roughness=0.7),   # awning
+        dict(base_color=[0.45, 0.30, 0.17], roughness=0.6),   # wood
+        dict(base_color=[0.32, 0.22, 0.14], roughness=0.9),   # trunk
+        dict(base_color=[0.25, 0.45, 0.15], roughness=0.9,
+             thin=1.0),                                       # foliage
+        dict(base_color=[0.9, 0.95, 0.9], roughness=0.02,
+             transmission=1.0, ior=1.5,
+             volume_absorption=[0.6, 0.1, 0.5]),              # glass
+        dict(base_color=[0.0, 0.0, 0.0],
+             emissive=[420.0, 330.0, 180.0]),                 # bulbs
+        dict(base_color=[0.6, 0.6, 0.62], metallic=1.0,
+             roughness=0.35),                                 # metal
+        dict(base_color=[0.85, 0.8, 0.6], roughness=0.5),     # sign
+    ])
+    textures = [
+        checker_texture(64, (0.62, 0.60, 0.56), (0.40, 0.38, 0.36),
+                        cells=16),                            # 0 cobbles
+        checker_texture(64, (0.9, 0.85, 0.75), (0.6, 0.5, 0.4), cells=8),
+        wood_texture(64),                                     # 2 wood
+        leaf_texture(64),                                     # 3 leaves
+        ripple_normal_texture(64, amp=0.5, waves=8),          # 4 cobble nm
+    ]
+    bt = np.full((11,), -1, np.int32)
+    bt[BISTRO_GROUND] = 0
+    bt[BISTRO_FACADE_A] = 1
+    bt[BISTRO_WOOD] = 2
+    if alpha_foliage:
+        bt[BISTRO_FOLIAGE] = 3
+    nt = np.full((11,), -1, np.int32)
+    nt[BISTRO_GROUND] = 4
+    ac = np.full((11,), -1.0, np.float32)
+    if alpha_foliage:
+        ac[BISTRO_FOLIAGE] = 0.5
+    npri = np.zeros((11,), np.int32)
+    npri[BISTRO_GLASS] = 1
+    mats = mats.replace(base_color_tex=torch.as_tensor(bt),
+                        normal_tex=torch.as_tensor(nt),
+                        alpha_cutoff=torch.as_tensor(ac),
+                        nested_priority=torch.as_tensor(npri))
+
+    sun_d = np.asarray([0.35, -0.8, 0.49], np.float32)
+    sun_d /= np.linalg.norm(sun_d)
+    sun = AnalyticLights(
+        kind=torch.as_tensor([LIGHT_DIRECTIONAL], dtype=torch.int32),
+        position=torch.zeros((1, 3)),
+        direction=torch.as_tensor(sun_d[None]),
+        intensity=torch.as_tensor([[2.4, 2.2, 1.9]]),
+        angular_size=torch.zeros((1,)),
+        cos_inner=torch.full((1,), -2.0),
+        cos_outer=torch.full((1,), -2.0))
+    scene = HostScene(instances=instances, materials=mats,
+                      textures=textures, analytic_lights=sun)
+    if with_env:
+        from rtxpt_tpu_torch.lighting.sky import make_sky
+        scene.envmap_image = make_sky(128, 64, sun_dir=(0.35, 0.8, -0.49),
+                                      sun_intensity=26.0, bake_sun=True)
+        scene.envmap_scale = 0.6
+    scene.camera = dict(position=[W - 4.0, 3.2, D - 2.5],
+                        target=[W * 0.3, 2.2, 6.0],
+                        up=[0.0, 1.0, 0.0], fov_y_deg=55.0)
+    return scene

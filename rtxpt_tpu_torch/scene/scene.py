@@ -152,8 +152,8 @@ class SceneData:
     # alpha-tested geometry
     tri_opacity: Optional[torch.Tensor] = None
     tri_micromap: Optional[torch.Tensor] = None
-    # nested dielectric priorities: not served yet; the dispatch refuses a
-    # scene that sets it (pt/dispatch.py)
+    # nested dielectric priorities: some material's nested_priority is not
+    # 0; every tier then runs its false-hit rejection
     has_nested_priorities: bool = False
     tlas: Optional[object] = None            # tlas.TLAS (two-level scenes)
 

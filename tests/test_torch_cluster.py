@@ -498,7 +498,8 @@ def test_clustered_tier_refuses_unserved_features(city, case):
     """What the clustered tier does not serve raises by name; an
     environment light is refused only where the tables lack the
     environment table (prepare bakes it: test_clustered_tier_serves_the_
-    environment)."""
+    environment). Nested priorities are served (K4's priority variant,
+    tests/test_torch_prio.py): their case checks that."""
     scene, cfg = city[3], PathTracerConfig()
     if case == "environment":
         sky = prepare(_small_city_env(), device="cpu")
@@ -514,6 +515,10 @@ def test_clustered_tier_refuses_unserved_features(city, case):
         cfg = PathTracerConfig(kernel_tier="clustered")
     elif case == "priorities":
         scene = scene.replace(has_nested_priorities=True)
+        for c in (cfg, PathTracerConfig(kernel_tier="clustered")):
+            assert dispatch.resolve(scene, c, "cpu").kernel_tier == \
+                "clustered"
+        return
     elif case == "micromaps":
         # tables without the micromaps, pinned ("auto" takes the general
         # tier, tests/test_torch_omm.py)

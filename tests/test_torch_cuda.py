@@ -7,8 +7,10 @@ the instanced city of tests/test_torch_instancing.py, and the general
 tier's brute-force closest hit K8 and BVH walk K9 on the Cornell box, the
 rooms and that city, and the environment variants of K1 and K4 (has_env,
 final_env) with K4's export slots 3-5, on the sky Cornell box and the sky
-city, the texture variants of K1 and K4, and the micromap variants of K1,
-K2, K3, K4, K5 and K9 on the curtain Cornell box and its 40 x 40 grid.
+city, the texture variants of K1 and K4, the micromap variants of K1,
+K2, K3, K4, K5 and K9 on the curtain Cornell box and its 40 x 40 grid,
+and the nested-priority variants of K1 and K4 on the overlap boxes and a
+small Bistro, with the closed-form overlap radiance on every tier.
 Needs an NVIDIA GPU and nvcc; skips without them. This file imports no
 JAX, so it runs where JAX is absent:
 
@@ -848,3 +850,153 @@ def test_omm_renders_count_their_launches(alpha_scenes, gpu):
         cluster_closest_omm=5 * 2, cluster_shade_omm_tex=5 * 2,
         cluster_shadow_omm=5 * 2)
     assert torch.isfinite(hdr).all() and rays > 0
+
+
+# ---------------------------------------------------------------------------
+# Nested priorities: the priority variants of K1 and K4
+# ---------------------------------------------------------------------------
+
+def _prio_state(side, device, sample):
+    """side x side rays, half from each of procedural.OVERLAP_INSIDE_
+    CAMERAS (false exits, false entries), each starting in its medium."""
+    from rtxpt_tpu_torch.scene.camera import look_at
+    parts = []
+    for k, (pos, target, up, fov, medium) in enumerate(
+            TP.OVERLAP_INSIDE_CAMERAS):
+        cam = look_at(pos, target, up, fov, side, side // 2, device=device)
+        px, py = _pixel_grid(side, side // 2, device)
+        o, d, spread = camera_rays(cam, PathTracerConfig(), px, py, sample)
+        fs, is_ = bf.initial_state(o, d, spread, px, py + k * (side // 2))
+        is_[bf.IS_MED0] = medium
+        parts.append((fs, is_))
+    return tuple(torch.cat([p[i] for p in parts], 1) for i in range(2))
+
+
+def _false_hits(is_in, is_out, hit):
+    return (is_in[bf.IS_ACTIVE] > 0) & (is_out[bf.IS_ACTIVE] > 0) \
+        & (is_out[bf.IS_LBOUNCE] == is_in[bf.IS_LBOUNCE]) & hit
+
+
+@pytest.fixture(scope="module")
+def prio_scenes(gpu):
+    """The overlap boxes (fused), with their side wall (clustered), and a
+    small Bistro in two sizes of string lights (in-kernel NEE with 40
+    bulbs, the external route with 150)."""
+    hosts = dict(boxes=TP.overlap_boxes([1, 2, 0]),
+                 wall=TP.overlap_boxes([1, 2, 0, 0], wall=True),
+                 bistro40=TP.bistro_scene(15_000, n_bulbs=40),
+                 bistro150=TP.bistro_scene(15_000, n_bulbs=150))
+    return {k: (h, prepare(h, device=gpu)) for k, h in hosts.items()}
+
+
+def test_k1_prio_matches_plain_version(prio_scenes, gpu):
+    """K1's priority variant over three iterations of 8192 rays of the two
+    cameras (slot 2): the interior list equal on every lane."""
+    _, scene = prio_scenes["boxes"]
+    tbl = scene.bounce_tables
+    assert tbl.prio and not tbl.omm
+    kcfg = bf.KernelConfig.from_cfg(PathTracerConfig(max_bounces=3))
+    fs, is_ = _prio_state(128, gpu, 2)
+    false_hits = 0
+    for _ in range(3):
+        plain = bf.bounce_reference(fs, is_, tbl, kcfg, 2)
+        before = kernels.launches["bounce_fused_prio"]
+        kern = bf.bounce(fs, is_, tbl, kcfg, 2)
+        torch.cuda.synchronize()
+        assert kernels.launches["bounce_fused_prio"] == before + 1
+        same = (kern[1] == plain[1]).all(0) & (kern[2][1] == plain[2][1])
+        assert same.float().mean() >= 0.999
+        assert torch.equal(kern[1][bf.IS_MED0:bf.IS_MED1 + 1],
+                           plain[1][bf.IS_MED0:bf.IS_MED1 + 1])
+        _close_rows(kern, plain)
+        false_hits += int(_false_hits(is_, plain[1],
+                                      plain[2][1] >= 0).sum())
+        fs, is_ = plain[0], plain[1]
+    assert false_hits > 0.05 * 3 * 128 * 128
+
+
+@pytest.mark.parametrize("case", ["wall_slot2", "bistro_slot2",
+                                  "bistro_slot5"])
+def test_k4_prio_matches_plain_version(prio_scenes, gpu, case):
+    """K4's priority variant on K3's hits over three iterations: alone on
+    the overlap boxes with their wall, with the texture and micromap
+    variants on the small Bistro in slot 2 and in slot 5 (the SF_* export
+    rows of the external route)."""
+    host, scene = prio_scenes[dict(wall_slot2="wall", bistro_slot2="bistro40",
+                                   bistro_slot5="bistro150")[case]]
+    tbl = scene.cluster_tables
+    bistro = case.startswith("bistro")
+    cfg = dispatch.resolve(scene, PathTracerConfig(
+        max_bounces=3, stochastic_texture_filtering=bistro), gpu)
+    kcfg = bf.KernelConfig.from_cfg(cfg)
+    assert kcfg.nee_mode == (5 if case.endswith("5") else 2)
+    omm = bistro and tbl.omm
+    name = "cluster_shade_omm_tex_prio" if bistro else "cluster_shade_prio"
+    kslots = min(64, tbl.n_clusters)
+    pages = -(-tbl.n_clusters // kslots)
+    fs, is_ = (_state(host, cfg, 64, gpu, 2) if bistro
+               else _prio_state(64, gpu, 2))
+    for _ in range(3):
+        ha, _ = BC.closest_paged(fs, is_, tbl, kslots, pages, 1e27, omm=omm)
+        plain = BC.shade_reference(ha, fs, is_, tbl, kcfg, 2, omm=omm,
+                                   prio=True)
+        before = kernels.launches[name]
+        kern = BC.shade(ha, fs, is_, tbl, kcfg, 2, omm=omm, prio=True)
+        torch.cuda.synchronize()
+        assert kernels.launches[name] == before + 1
+        same = (kern[1] == plain[1]).all(0) & (kern[3][5] == plain[3][5])
+        assert same.float().mean() >= 0.999
+        assert torch.equal(kern[1][bf.IS_MED0:bf.IS_MED1 + 1],
+                           plain[1][bf.IS_MED0:bf.IS_MED1 + 1])
+        _close_rows(kern, plain)
+        fs, is_ = plain[0], plain[1]
+
+
+@pytest.mark.parametrize("route", ["fused", "clustered", "xla"])
+def test_overlap_closed_form_on_the_card(prio_scenes, gpu, route):
+    """tests/test_nested_priority.py's centre pixel through the kernels:
+    the glass wins the overlap, E exp(-SW 0.4 - SG 0.8) at rtol 5e-3."""
+    import math
+    _, scene = prio_scenes["wall" if route == "clustered" else "boxes"]
+    from rtxpt_tpu_torch.scene.camera import look_at
+    cam = look_at([-1.0, 0.0, 0.0], [1.0, 0.0, 0.0], [0.0, 1.0, 0.0], 10.0,
+                  4, 4, device=gpu)
+    cfg = PathTracerConfig(max_bounces=6, nee=NEEMode.OFF,
+                           enable_russian_roulette=False,
+                           passthrough_extra_iters=3,
+                           kernel_tier="xla" if route == "xla" else "auto")
+    kernels.launches.clear()
+    hdr, _, _ = render(scene, cam, cfg, 4, 4, spp=1)
+    want = TP.OVERLAP_E * math.exp(-TP.OVERLAP_SW * 0.4
+                                   - TP.OVERLAP_SG * 0.8)
+    assert abs(float(hdr[2, 2, 0]) / want - 1.0) < 5e-3
+    shade = dict(fused="bounce_fused_prio", clustered="cluster_shade_prio",
+                 xla="brute_closest")[route]
+    assert kernels.launches[shade] >= 6
+
+
+def test_prio_renders_count_their_launches(prio_scenes, gpu):
+    """Priority renders run the priority variants, the two pass-through
+    iterations included: K1 on the boxes; K3 / K5 micromap variants and
+    K4 omm_tex_prio on the small Bistro, in slot 5 past 128 lights."""
+    host, scene = prio_scenes["boxes"]
+    cfg = PathTracerConfig(max_bounces=3)
+    kernels.launches.clear()
+    hdr, _, rays = render(scene, TP.default_camera(host, 32, 32, device=gpu),
+                          cfg, 32, 32, spp=2)
+    assert dict(kernels.launches) == dict(bounce_fused_prio=(3 + 2) * 2)
+    assert torch.isfinite(hdr).all() and rays > 0
+    for name in ("bistro40", "bistro150"):
+        host, scene = prio_scenes[name]
+        bcfg = PathTracerConfig(max_bounces=3,
+                                stochastic_texture_filtering=True)
+        pages = dispatch.resolve(scene, bcfg, gpu).cluster_pages
+        kernels.launches.clear()
+        hdr, _, rays = render(scene, TP.default_camera(host, 32, 24,
+                                                       device=gpu),
+                              bcfg, 32, 24, spp=2)
+        assert dict(kernels.launches) == dict(
+            cluster_closest_omm=pages * 5 * 2,
+            cluster_shade_omm_tex_prio=5 * 2,
+            cluster_shadow_omm=pages * 5 * 2)
+        assert torch.isfinite(hdr).all() and float(hdr.mean()) > 1e-3

@@ -242,14 +242,15 @@ def test_resolve_refuses_plain_tier_on_cuda(cornell):
 # tile state, WRS K > 1 and more than 128 lights, flat or instanced; a
 # pinned kernel tier does not serve NEE-AT with an environment light, nor
 # alpha-tested geometry (opacity micromaps) without the tables'
-# micromaps, which "auto" leaves to the general tier
+# micromaps, nor nested priorities on bounce tables without their priority
+# switch, which "auto" leaves to the general tier
 UNSERVED = {
     "textures": ("cornell", "alpha_textures", dict(kernel_tier="fused"),
                  "alpha-tested textures"),
     "micromaps": ("cornell", dict(tri_opacity=object()),
                   dict(kernel_tier="fused"), "micromaps"),
-    "priorities": ("cornell", dict(has_nested_priorities=True), {},
-                   "priorities"),
+    "priorities": ("cornell", dict(has_nested_priorities=True),
+                   dict(kernel_tier="fused"), "priorities"),
     "split": ("cornell", {}, dict(split_channels=True), "split"),
     "realtime": ("cornell", {}, dict(mode=PTMode.BUILD_STABLE_PLANES),
                  "render mode"),
@@ -284,6 +285,16 @@ def test_resolve_refuses_unserved_features(cornell, small_city,
         scene = _alpha_textured(scene)
     else:
         scene = scene.replace(**scene_kw)
+    if case == "priorities":
+        # served where the tables carry the priority switch (prepare sets
+        # it, tests/test_torch_prio.py); "auto" leaves tables without it
+        # to the general tier
+        served = scene.replace(bounce_tables=dataclasses.replace(
+            scene.bounce_tables, prio=True))
+        assert dispatch.resolve(served, PathTracerConfig(**cfg_kw),
+                                device).kernel_tier == "fused"
+        assert dispatch.resolve(scene, PathTracerConfig(),
+                                device).kernel_tier == "xla"
     with pytest.raises(NotImplementedError, match="does not serve") as err:
         dispatch.resolve(scene, PathTracerConfig(**cfg_kw), device, state)
     assert name in str(err.value)
@@ -423,7 +434,8 @@ def test_config_matches_jax_package():
 # the general tier ("xla"): case -> (scene fields, config fields, trace
 # arguments, the name the error gives); alpha-tested geometry is served on
 # a flat scene (tests/test_torch_omm.py), refused on the TLAS route of a
-# two-level scene
+# two-level scene; nested priorities are served (the false-hit retrace,
+# tests/test_torch_prio.py), so their case checks that
 UNSERVED_XLA = {
     "textures": ("alpha_textures", {}, {}, "alpha-tested textures"),
     "micromaps": ("tri_opacity", {}, {}, "micromaps"),
@@ -453,6 +465,10 @@ def test_general_tier_refuses_unserved_features(cornell, instanced_city,
     else:
         scene = scene.replace(**scene_kw)
     cfg = PathTracerConfig(kernel_tier="xla", **cfg_kw)
+    if case == "priorities":
+        for s in (scene, instanced_city.replace(**scene_kw)):
+            assert dispatch.resolve(s, cfg, device).kernel_tier == "xla"
+        return
     with pytest.raises(NotImplementedError,
                        match="xla tier does not serve") as err:
         dispatch.resolve(scene, cfg, device, **call)

@@ -185,15 +185,15 @@ def test_scene_from_numpy_renders_identically(cornell_scene):
 
 
 def test_scene_from_numpy_refuses_unported_parts(cornell_scene):
-    """Nested-priority tables are not ported and raise by name; the
-    environment table (env_rows) is carried across
-    (tests/test_torch_env.py), and so are the texture tables
-    (tests/test_torch_textures.py) and the micromap row groups
-    (tests/test_torch_omm.py), which omm tables must carry."""
+    """The priority switch (prio) is carried across, as are the
+    environment table (env_rows, tests/test_torch_env.py), the texture
+    tables (tests/test_torch_textures.py) and the micromap row groups
+    (tests/test_torch_omm.py), which omm tables must carry and without
+    which they raise by name."""
     tables = _jax_tables(cornell_scene[1])
+    assert not scene_from_numpy(tables, device="cpu").bounce_tables.prio
     tables["prio"] = True
-    with pytest.raises(NotImplementedError, match="prio"):
-        scene_from_numpy(tables, device="cpu")
+    assert scene_from_numpy(tables, device="cpu").bounce_tables.prio
     tables = _jax_tables(cornell_scene[1])
     tables["omm"] = True
     with pytest.raises(ValueError, match="omm"):

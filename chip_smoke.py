@@ -243,6 +243,30 @@ Phases, one or a few lines of output each:
                 (F7) and the default image's RMSE against it; the same
                 sample on the general tier (K9) at 960x540 against the
                 clustered tier's (RMSE and means, no limit).
+  16. per-row -- the per-row clustered route (bounce_clustered.FLAT
+                False: K6, closest hit and shading in one kernel, and K7,
+                per-row shadow any-hit). (a) K6's variants and K7 against
+                their plain versions, phase 6's criteria with row visits
+                and K7's pairs equal: at bounce 0 on 65,536 spread camera
+                rays and at bounce 2 on the 64 groups of the sorted 1080p
+                wavefront with the most hits, carried there by K6 and K7;
+                the city runs K6's plain variant, the sky city `_env` and
+                `_final`, the textured sky city (stochastic filtering)
+                `_tex_env`. (b) Each timed at its city's 1080p bounce-0
+                launch beside its bound (K6: K4's bytes without the HA
+                rows, the winners' rows and the staged blocks; the
+                operations of the pairs its rows test), with registers
+                and spills; on the city K6 against K3 at one page plus K4
+                on the same lists and launch, K7 against K5, and the
+                lanes whose winner differs from K3's. (c) The three
+                cities at 1920x1080, 4 bounces, power NEE, kslots 64, one
+                chunk, 1 warm-up and 2 timed samples through render_sample:
+                K6 bounces x spp (plus `_final` spp with the sky) and K7
+                bounces x spp launches, cull_overflow, a finite lit image,
+                sample 1's RMSE and share of equal pixels against the flat
+                route at 1 page and at its default 2 pages (each timed),
+                and one profiled city frame (sort, cull, K6, K7, the
+                rest, idle).
 
 The line before the last holds {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Any failed phase, a missing GPU or a missing
@@ -415,7 +439,7 @@ def _state_ok(summary):
             and summary["L_mean_rel"] <= MEAN_RTOL)
 
 
-def main(record_path=None):
+def main(record_path=None, group_path=None):
     import torch
 
     record = {}
@@ -618,6 +642,10 @@ def main(record_path=None):
     # ---- 15. nested dielectric priorities and Bistro -----------------------
     prio = _priorities(record, dev, smi, dump)
 
+    # ---- 16. the per-row clustered route (K6, K7) ---------------------------
+    per_row = _per_row(record, dev, smi, dump, clustered["scene"],
+                       group_path)
+
     k1_paths = dict(cornell=cornell_launches["bounce_fused"],
                     **{k: v.get("bounce_fused", 0)
                        for k, v in ext["launches"].items()})
@@ -659,6 +687,7 @@ def main(record_path=None):
     entries.extend(tex["entries"].values())
     entries.extend(alpha["entries"].values())
     entries.extend(prio["entries"].values())
+    entries.extend(per_row["entries"].values())
     # Bistro's launches of the micromap variants that phase 14 checks
     for entry in entries:
         n_bistro = prio["launches"]["bistro"].get(entry["name"], 0)
@@ -3777,6 +3806,520 @@ def _priorities(record, dev, smi, dump):
     return dict(entries=entries, launches=launches)
 
 
+ROWS_SPP = 2                  # phase 16: timed samples of each per-row path
+ROWS_CITIES = (               # phase 16: label, city_scene switches, STF
+    ("city", {}, False),
+    ("sky_city", dict(with_env=True), False),
+    ("tex_city", dict(with_env=True, textured=True, normal_mapped=True),
+     True))
+ROWS_RANGES = ("sort", "cull")
+ROWS_KERNELS = (("k6", "closest_shade_kernel"), ("k7", "shadow_rows_kernel"))
+K3_WINNER_FLOATS = 42         # a winner's attribute, center, edge rows
+K6_FINAL_WINNER_FLOATS = 14   # K6's final round: center, edges, valid, gidx
+SAVED_GROUPS = 8              # --diverged-group: ray groups saved
+
+
+def _per_row(record, dev, smi, dump, city_prepared, group_path=None):
+    """Phase 16: the per-row clustered route (bounce_clustered.FLAT False:
+    K6 closest hit and shading in one kernel, K7 per-row shadow any-hit).
+    (a) Every K6 variant and K7 against their plain versions on the card,
+    phase 6's criteria plus visit and test counts equal: at bounce 0 on
+    65,536 camera rays spread over the 1080p frame and at bounce 2 on the
+    64 groups of the sorted 1080p wavefront (carried there by K6 and K7)
+    with the most hits; the city runs K6's plain variant and K7, the sky
+    city `_env` and `_final`, the textured sky city with stochastic
+    filtering `_tex_env`. (b) Each timed at its city's 1080p bounce-0
+    launch beside its bound, with ptxas's registers and spills; on the
+    city K6 against K3 (one page, the same candidate lists) plus K4 on
+    that launch, and K7 against K5. (c) The three cities at 1920x1080
+    through render_sample on the per-row route: 4 bounces, power NEE,
+    kslots 64, one chunk, 1 warm-up and ROWS_SPP timed samples; launch
+    counts (K6 bounces x spp, its `_final` spp with an environment, K7
+    bounces x spp), cull_overflow, a finite lit image, its sample-1 RMSE
+    against the flat route at cluster_pages=1 and at the default 2
+    pages, and one profiled city frame. With `group_path`, the city's
+    1080p bounce-0 groups with the most lanes whose K6 winner differs
+    from K3's are saved there (`_save_group`). Returns dict(entries={name:
+    kernel-line entry})."""
+    import torch
+
+    from rtxpt_tpu_torch import kernels
+    from rtxpt_tpu_torch.config import NEEMode, PathTracerConfig
+    from rtxpt_tpu_torch.prepare import prepare
+    from rtxpt_tpu_torch.pt import bounce_clustered as BC
+    from rtxpt_tpu_torch.pt import bounce_fused as bf
+    from rtxpt_tpu_torch.pt import dispatch
+    from rtxpt_tpu_torch.pt.integrator import (
+        _pixel_grid, camera_rays, render_sample)
+    from rtxpt_tpu_torch.scene.procedural import (
+        city_overview, city_scene, default_camera)
+    from rtxpt_tpu_torch.utils.image import rmse
+
+    t_phase = time.perf_counter()
+    rec = dict(card=smi)
+    record["per_row"] = rec
+    w, h = CITY_FRAME
+    sample = 1
+    k7n = "cluster_rows_shadow"
+    err, ms, plain_ms, bounds, launch = {}, {}, {}, {}, {}
+
+    def k6_name(tbl, kcfg, final=False):
+        return bf.variant_name("cluster_rows_closest_shade",
+                               tbl.env is not None, final,
+                               bf.use_tex(tbl, kcfg))
+
+    def camera_state(host, cfg, cols, rows):
+        cam = default_camera(host, w, h, device=dev)
+        px, py = _pixel_grid(cols, rows, dev)
+        px, py = px * w // cols, py * h // rows
+        o, d, spread = camera_rays(cam, cfg, px, py, sample)
+        fs, is_ = bf.initial_state(o, d, spread, px, py)
+        return fs, is_, torch.arange(fs.shape[1], dtype=torch.int32,
+                                     device=dev)
+
+    def cull_closest(tbl, fs, is_, cfg):
+        return BC.cull(fs[bf.FS_O:bf.FS_O + 3], fs[bf.FS_D:bf.FS_D + 3],
+                       is_[bf.IS_ACTIVE] > 0, float(cfg.max_ray_travel), tbl,
+                       cfg.cluster_kslots)[0]
+
+    def cull_shadow(tbl, sh, bounds_, cfg):
+        shp, perm = BC.sort_shadows(sh, bounds_)
+        dop = shp[BC.SH_DO] > 0.5
+        cand_s, _ = BC.cull(shp[BC.SH_O:BC.SH_O + 3],
+                            shp[BC.SH_D:BC.SH_D + 3], dop, shp[BC.SH_DIST],
+                            tbl, cfg.cluster_kslots)
+        return shp, perm, cand_s
+
+    def compare(label, b, scene, cfg, fs, is_, bounds_, rows):
+        """K6's variants on this scene (and its final round with an
+        environment) and K7 against their plain versions on rows fs,
+        is_; fails on a disagreement or too few hits."""
+        tbl = scene.cluster_tables
+        kcfg = bf.KernelConfig.from_cfg(cfg)
+        kslots, mt = cfg.cluster_kslots, float(cfg.max_ray_travel)
+        cand = cull_closest(tbl, fs, is_, cfg)
+        out = {}
+        plain_sh = None
+        for final in (False, True) if tbl.env is not None else (False,):
+            name = k6_name(tbl, kcfg, final)
+            kern = BC.closest_shade(cand, fs, is_, tbl, kcfg, sample, kslots,
+                                    mt, final_env=final, stats=True)
+            plain = BC.closest_shade_reference(cand, fs, is_, tbl, kcfg,
+                                               sample, kslots, mt,
+                                               final_env=final, stats=True)
+            torch.cuda.synchronize()
+            s, e = _compare_state((kern[0], kern[1], kern[3]),
+                                  (plain[0], plain[1], plain[3]))
+            shs, e2 = _compare(dict(sh=kern[2]), dict(sh=plain[2]),
+                               (kern[1] == plain[1]).all(0))
+            s.update(worst_sh_row=shs["worst_float_row"],
+                     visits_equal=bool(torch.equal(kern[4], plain[4])),
+                     row_visits=int(plain[4].sum()),
+                     hit_share=float((plain[3][1] >= 0).float().mean()))
+            err[name] = max(err.get(name, 0.0), e, e2)
+            out[name] = s
+            if not final:
+                plain_sh = plain[2]
+        shp, _, cand_s = cull_shadow(tbl, plain_sh, bounds_, cfg)
+        occ_k, tst_k = BC.occlusion_rows(cand_s, shp, tbl.blocks, kslots,
+                                         stats=True)
+        occ_p, tst_p = BC.occlusion_rows_reference(cand_s, shp, tbl.blocks,
+                                                   kslots, stats=True)
+        torch.cuda.synchronize()
+        out[k7n] = dict(occ_lanes_equal=float((occ_k == occ_p).float()
+                                              .mean()),
+                        tests_equal=bool(torch.equal(tst_k, tst_p)),
+                        requests=int((shp[BC.SH_DO] > 0.5).sum()),
+                        tests=int(tst_p.sum()))
+        err[k7n] = max(err.get(k7n, 0.0),
+                       float((occ_k - occ_p).abs().max()))
+        rec.setdefault(label, {})[f"bounce{b}"] = dict(rows=rows, **out)
+        k6s = [v for k, v in out.items() if k != k7n]
+        print(f"per_row {label} bounce {b} ({rows}): " + "; ".join(
+            f"{k} int lanes {v['int_lanes_equal']:.6f}, worst float row "
+            f"{min(v['worst_float_row'], v['worst_sh_row']):.6f}, L mean "
+            f"rel {v['L_mean_rel']:.3g}, visits equal {v['visits_equal']} "
+            f"({v['row_visits']} row visits), hit share "
+            f"{v['hit_share']:.4f}" for k, v in out.items() if k != k7n)
+            + f"; K7 occlusion equal {out[k7n]['occ_lanes_equal']:.6f} over "
+            f"{out[k7n]['requests']} requests, tests equal "
+            f"{out[k7n]['tests_equal']}", flush=True)
+        ok = all(_state_ok(v) and v["worst_sh_row"] >= LANE_FRACTION
+                 and v["visits_equal"] for v in k6s) \
+            and out[k7n]["occ_lanes_equal"] >= LANE_FRACTION \
+            and out[k7n]["tests_equal"]
+        if not ok or k6s[0]["hit_share"] < MIN_HIT_SHARE:
+            dump()
+            _fail(f"per_row {label}: a kernel disagrees with its plain "
+                  f"version at bounce {b}" if not ok else
+                  f"per_row {label}: bounce {b}'s rows hit too little")
+
+    def k6_bound(tbl, kcfg, cand, is_, cfg, visited, hit6, visits3,
+                 final):
+        """K6's bound at a launch: the state rows read and written, the
+        SH and hit rows written, the candidate rows, the staged rows of
+        each distinct block in the (row, slot) pairs K6's rows visit
+        (`visited`), and each hit's winner rows: outside the final round
+        the attribute, center and edge rows (K3_WINNER_FLOATS) and the
+        material, light, environment (and texture) tables; in the final
+        round, which shades nothing, the center, edge, valid and triangle
+        rows (K6_FINAL_WINNER_FLOATS) and the environment table. The
+        operations of the pairs K6's rows test (each visited pair's active
+        lanes times CT), which are at most K3's on the same lists
+        (`visits3`, its group visits)."""
+        g = cand.shape[0]
+        n = g * BC.FL
+        kslots = cfg.cluster_kslots
+        active_r = (is_[bf.IS_ACTIVE] > 0).view(-1, 128).sum(1)
+        slots = cand[:, 0, 1:1 + kslots].repeat_interleave(BC.R, 0)
+        blocks_ = int(torch.unique(slots[visited]).numel())
+        hits = int((hit6[1] >= 0).sum())
+        if final:
+            nbytes = 4 * n * (2 * (bf.NF + bf.NI) + BC.SH_ROWS + bf.NH) \
+                + 4 * _numel(tbl.env) + 4 * K6_FINAL_WINNER_FLOATS * hits
+        else:
+            nbytes = _k4_bytes(n, tbl, bf.use_tex(tbl, kcfg), False) \
+                - 4 * n * BC.HA_ROWS + 4 * K3_WINNER_FLOATS * hits
+        nbytes += 4 * cand.numel() + STAGED_BLOCK_BYTES * blocks_
+        pairs3 = int((active_r.view(g, BC.R).sum(1) * visits3).sum()) * 128
+        pairs = int((active_r * visited.sum(1)).sum()) * 128
+
+        def ops(p):
+            return dict(f32=p * K3_PAIR_F32, tf32=p * PAIR_TF32,
+                        bf16=p * PAIR_BF16)
+        return _bound(nbytes, **ops(pairs)), dict(
+            groups=g, blocks=blocks_, hits=hits, pairs=pairs,
+            row_visits=int(visited.sum()), k3_pairs=pairs3,
+            k3_group_visits=int(visits3.sum()),
+            bound_with_k3_pairs_ms=_bound(nbytes, **ops(pairs3))[0])
+
+    BC.FLAT = False
+    try:
+        scenes = {}
+        for label, switches, stf in ROWS_CITIES:
+            if label == "city":
+                host, scene = city_prepared[0], city_prepared[1]
+            else:
+                host = city_overview(city_scene(CITY_TRIS, seed=CITY_SEED,
+                                                **switches))
+                scene = prepare(host, device=dev)
+            cfg = dispatch.resolve(scene, PathTracerConfig(
+                max_bounces=4, nee=NEEMode.POWER, ray_chunk=1 << 30,
+                stochastic_texture_filtering=stf), dev)
+            scenes[label] = (host, scene, cfg)
+            tbl = scene.cluster_tables
+            kcfg = bf.KernelConfig.from_cfg(cfg)
+            bounds_ = BC.scene_bounds(tbl)
+            kslots, mt = cfg.cluster_kslots, float(cfg.max_ray_travel)
+            if cfg.kernel_tier != "clustered" or kslots != 64:
+                _fail(f"per_row {label}: resolves to {cfg.kernel_tier}, "
+                      f"kslots {kslots}")
+
+            # (a) bounce 0 on 65,536 spread rays, bounce 2 on a window
+            fs, is_, src = camera_state(host, cfg, CMP_SIDE, CMP_SIDE)
+            fs, is_, src = BC.sort_wavefront(fs, is_, src, True, bounds_)
+            cmp_in = (fs, is_)
+            compare(label, 0, scene, cfg, fs, is_, bounds_,
+                    f"{CMP_SIDE}x{CMP_SIDE} camera rays spread over the "
+                    "frame")
+            cmp_groups = fs.shape[1] // BC.FL
+            fs, is_, src = camera_state(host, cfg, w, h)
+            for b in range(3):
+                fs, is_, src = BC.sort_wavefront(fs, is_, src, b == 0,
+                                                 bounds_)
+                cand = cull_closest(tbl, fs, is_, cfg)
+                nfs, nis, sh, hit = BC.closest_shade(cand, fs, is_, tbl, kcfg,
+                                                     sample, kslots, mt)
+                if b == 2:
+                    run = torch.cumsum((hit[1] >= 0).view(-1, BC.FL).sum(1),
+                                       0)
+                    run = torch.cat([run.new_zeros(1), run])
+                    g0 = int(torch.argmax(run[cmp_groups:]
+                                          - run[:-cmp_groups]))
+                    lanes = slice(g0 * BC.FL, (g0 + cmp_groups) * BC.FL)
+                    compare(label, 2, scene, cfg,
+                            fs[:, lanes].contiguous(),
+                            is_[:, lanes].contiguous(), bounds_,
+                            f"groups {g0}-{g0 + cmp_groups - 1} of the "
+                            f"sorted {w}x{h} wavefront")
+                    break
+                shp, perm, cand_s = cull_shadow(tbl, sh, bounds_, cfg)
+                occ = BC.occlusion_rows(cand_s, shp, tbl.blocks, kslots)
+                ok_nee = (sh[BC.SH_DO] > 0.5) \
+                    & (BC.unsort_rows(perm, occ[None])[0] < 0.5)
+                fs, is_ = nfs, nis
+                fs[bf.FS_L:bf.FS_L + 3] += torch.where(
+                    ok_nee, sh[BC.SH_CONTRIB:BC.SH_CONTRIB + 3], 0.0)
+
+            # (b) plain versions at the comparison width, kernels at the
+            # 1080p bounce-0 launch beside their bounds
+            pfs, pis = cmp_in
+            pcand = cull_closest(tbl, pfs, pis, cfg)
+            names = [k6_name(tbl, kcfg)] + (
+                [k6_name(tbl, kcfg, True)] if tbl.env is not None else [])
+            # the final round is timed once, on the sky city
+            names = [nm for nm in names if nm not in ms]
+            for name in names:
+                final = name.endswith("_final")
+                plain_ms[name] = _cuda_ms(
+                    lambda: BC.closest_shade_reference(
+                        pcand, pfs, pis, tbl, kcfg, sample, kslots, mt,
+                        final_env=final), 1)
+            fs, is_, src = camera_state(host, cfg, w, h)
+            fs, is_, src = BC.sort_wavefront(fs, is_, src, True, bounds_)
+            cand = cull_closest(tbl, fs, is_, cfg)
+            od = BC.ray_operand(fs, is_)
+            ha3, visits3 = BC.closest_hit(cand, od, tbl.blocks, kslots, mt,
+                                          stats=True)
+            _, _, sh, hit6, visited6 = BC.closest_shade(
+                cand, fs, is_, tbl, kcfg, sample, kslots, mt, stats=True)
+            # winners that differ from K3's on the same lists: near-ties
+            # that the per-row operand and the division round otherwise
+            act = is_[bf.IS_ACTIVE] > 0
+            flip = act & (ha3[BC.HA_PRIM] != hit6[1])
+            one = flip & ((ha3[BC.HA_PRIM] >= 0) != (hit6[1] >= 0))
+            both = flip & ~one
+            rel = (ha3[BC.HA_T] - hit6[0]).abs() / ha3[BC.HA_T].clamp(
+                min=1e-30)
+            differ = dict(winners_differ_from_k3=int(flip.sum()),
+                          active=int(act.sum()),
+                          hit_by_one_only=int(one.sum()),
+                          max_rel_t_both_hit=float(rel[both].max())
+                          if both.any() else 0.0)
+            for name in names:
+                final = name.endswith("_final")
+                bounds[name], launch[name] = k6_bound(
+                    tbl, kcfg, cand, is_, cfg, visited6, hit6, visits3,
+                    final)
+                launch[name].update(differ)
+            l6 = launch[names[0]]
+            if label == "city" and group_path:
+                _save_group(group_path, tbl, cand, fs, is_, ha3, hit6,
+                            flip, kslots, mt, sample, cfg)
+            print(f"per_row {label} 1080p bounce 0: K6 rows visit "
+                  f"{l6['row_visits']} (row, slot) pairs, {l6['pairs']} "
+                  f"ray-triangle pairs against K3's {l6['k3_pairs']} on the "
+                  f"same lists; {l6['winners_differ_from_k3']} of "
+                  f"{l6['active']} active lanes keep another winner than K3 "
+                  f"({l6['hit_by_one_only']} of them a hit in one kernel "
+                  f"only; t within {l6['max_rel_t_both_hit']:.3g} relative "
+                  f"where both hit)", flush=True)
+            for name in names:
+                final = name.endswith("_final")
+                ms[name] = _cuda_ms(lambda: BC.closest_shade(
+                    cand, fs, is_, tbl, kcfg, sample, kslots, mt,
+                    final_env=final), 3)
+            if label != "city":
+                continue
+            # the megakernel question: K6 against K3 (one page, the same
+            # lists) + K4 on the same launch; K7 against K5
+            ha3 = BC.post_attr_inst(ha3, tbl)
+            mega = dict(k6=ms[names[0]], k3=_cuda_ms(lambda: BC.closest_hit(
+                cand, od, tbl.blocks, kslots, mt), 3),
+                k4=_cuda_ms(lambda: BC.shade(ha3, fs, is_, tbl, kcfg,
+                                             sample), 10))
+            shp, perm, cand_s = cull_shadow(tbl, sh, bounds_, cfg)
+            ms[k7n] = _cuda_ms(lambda: BC.occlusion_rows(
+                cand_s, shp, tbl.blocks, kslots), 3)
+            mega["k7"] = ms[k7n]
+            mega["k5"] = _cuda_ms(lambda: BC.occlusion(
+                cand_s, shp, tbl.blocks, kslots), 3)
+            _, tests = BC.occlusion_rows(cand_s, shp, tbl.blocks, kslots,
+                                         stats=True)
+            g = cand_s.shape[0]
+            slots = torch.arange(kslots, device=dev)[None]
+            k7_blocks = int(torch.unique(cand_s[:, 0, 1:1 + kslots][
+                slots < cand_s[:, 0, :1]]).numel())
+            pairs7 = int(tests.sum())
+            bounds[k7n] = _bound(
+                4 * (cand_s.numel() + 9 * g * BC.FL)
+                + STAGED_BLOCK_BYTES * k7_blocks, f32=pairs7 * K5_PAIR_F32,
+                tf32=pairs7 * PAIR_TF32, bf16=pairs7 * PAIR_BF16)
+            launch[k7n] = dict(groups=g, blocks=k7_blocks, pairs=pairs7,
+                               requests=int((shp[BC.SH_DO] > 0.5).sum()))
+            pshp, _, pcand_s = cull_shadow(
+                tbl, BC.closest_shade_reference(
+                    pcand, pfs, pis, tbl, kcfg, sample, kslots, mt)[2],
+                bounds_, cfg)
+            plain_ms[k7n] = _cuda_ms(lambda: BC.occlusion_rows_reference(
+                pcand_s, pshp, tbl.blocks, kslots), 1)
+            mega.update(k3_plus_k4=mega["k3"] + mega["k4"],
+                        k6_bound=bounds[names[0]][0], k7_bound=bounds[k7n][0])
+            rec["megakernel"] = mega
+            print(f"per_row megakernel, the city's 1080p bounce-0 launch: "
+                  f"K6 {mega['k6']:.4f} ms against K3 (one page) "
+                  f"{mega['k3']:.4f} + K4 {mega['k4']:.4f} = "
+                  f"{mega['k3_plus_k4']:.4f} ms; K7 {mega['k7']:.4f} ms "
+                  f"against K5 {mega['k5']:.4f} ms ({smi})", flush=True)
+        libs_log = kernels.CLUSTER_ROWS.ptxas_log
+        ptxas = {name: _ptxas_entry(
+            libs_log, "shadow_rows_kernel" if name == k7n else
+            f"closest_shade_kernelILb{int('_tex' in name)}E")
+            for name in ms}
+        rec.update(ms=ms, plain_ms=plain_ms, bounds=bounds, launch=launch,
+                   ptxas=ptxas)
+        for name in ms:
+            terms = ", ".join(f"{k} {v:.4f}"
+                              for k, v in bounds[name][2].items())
+            print(f"per_row {name}: kernel {ms[name]:.4f} ms at the 1080p "
+                  f"bounce-0 launch, plain {plain_ms[name]:.4f} ms at 64 "
+                  f"groups, bound {bounds[name][0]:.4f} ms "
+                  f"({bounds[name][1]}; ms by term: {terms}), "
+                  f"{ptxas[name]['registers']} registers, spills "
+                  f"{ptxas[name]['spill_store_bytes']}/"
+                  f"{ptxas[name]['spill_load_bytes']} B ({smi})", flush=True)
+        dump()
+
+        # (c) the three 1080p per-row frames
+        launches = {}
+        for label, (host, scene, cfg) in scenes.items():
+            tbl = scene.cluster_tables
+            kcfg = bf.KernelConfig.from_cfg(cfg)
+            cam = default_camera(host, w, h, device=dev)
+            render_sample(scene, cam, cfg, w, h, 0)               # warm-up
+            torch.cuda.synchronize()
+            kernels.launches.clear()
+            t0 = time.perf_counter()
+            acc, rays, overflow, images = None, 0, 0, {}
+            for s in range(1, 1 + ROWS_SPP):
+                out = render_sample(scene, cam, cfg, w, h, s)
+                images[s] = out["L"]
+                acc = out["L"] if acc is None else acc + out["L"]
+                rays = rays + out["ray_count"]
+                overflow = overflow + out["cull_overflow"]
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches[label] = dict(kernels.launches)
+            want = {k6_name(tbl, kcfg): cfg.max_bounces * ROWS_SPP,
+                    k7n: cfg.max_bounces * ROWS_SPP}
+            if tbl.env is not None:
+                want[k6_name(tbl, kcfg, True)] = ROWS_SPP
+            rays, overflow = int(rays), int(overflow)
+            hdr = acc / ROWS_SPP
+            # the flat route on sample 1, at one page and at the default
+            # pages, each timed by the host clock (one frame each)
+            BC.FLAT = True
+            try:
+                flat_ms = []
+                flat = []
+                for c in (dataclasses.replace(cfg, cluster_pages=1), cfg):
+                    t1 = time.perf_counter()
+                    flat.append(render_sample(scene, cam, c, w, h, 1)["L"])
+                    torch.cuda.synchronize()
+                    flat_ms.append((time.perf_counter() - t1) * 1e3)
+                flat1, flat2 = flat
+            finally:
+                BC.FLAT = False
+            img1 = images[1].cpu().numpy()
+            p = dict(res=f"{w}x{h}", spp_timed=ROWS_SPP,
+                     bounces=cfg.max_bounces, launches=launches[label],
+                     expected=want, rays=rays, seconds=dt,
+                     mrays_per_s=rays / dt / 1e6,
+                     ms_per_frame_1spp=dt / ROWS_SPP * 1e3,
+                     cull_overflow=overflow,
+                     occupancy=out["occupancy"].tolist(),
+                     L_mean=float(hdr.mean()),
+                     finite=bool(torch.isfinite(hdr).all()),
+                     tier=out["kernel_tier"],
+                     rmse_flat_1page=rmse(img1, flat1.cpu().numpy()),
+                     pixels_equal_flat_1page=float(
+                         (images[1] == flat1).all(-1).float().mean()),
+                     rmse_flat_default=rmse(img1, flat2.cpu().numpy()),
+                     flat_default_pages=cfg.cluster_pages,
+                     flat_ms_1page=flat_ms[0], flat_ms_default=flat_ms[1],
+                     card=smi)
+            rec[f"{label}_path"] = p
+            print(f"per_row path {label}: {tbl.n_tris} triangles {w}x{h} "
+                  f"{cfg.max_bounces} bounces, {ROWS_SPP} spp: "
+                  f"{p['mrays_per_s']:.3f} Mrays/s, "
+                  f"{p['ms_per_frame_1spp']:.3f} ms per 1-spp frame, "
+                  f"{rays} rays, cull_overflow {overflow}, launches "
+                  f"{p['launches']} of {want}, mean L {p['L_mean']:.5f}; "
+                  f"sample 1 against the flat route: 1 page RMSE "
+                  f"{p['rmse_flat_1page']:.6g} ({p['pixels_equal_flat_1page']:.6f}"
+                  f" of pixels equal), {cfg.cluster_pages} pages RMSE "
+                  f"{p['rmse_flat_default']:.6g}; the flat route's sample-1 "
+                  f"frame {flat_ms[0]:.3f} ms at 1 page, {flat_ms[1]:.3f} ms "
+                  f"at {cfg.cluster_pages} ({smi})", flush=True)
+            if p["launches"] != want or not p["finite"] or \
+                    p["tier"] != "clustered" or p["L_mean"] <= 1e-3:
+                dump()
+                _fail(f"per_row {label}: the path did not run every bounce "
+                      f"through K6 and K7, or gave a non-finite or dark "
+                      f"image")
+            if label != "city":
+                continue
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                render_sample(scene, cam, cfg, w, h, ROWS_SPP + 1)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            p["split"], p["profile_table"] = _split(
+                prof, wall, ranges=ROWS_RANGES, kernel_parts=ROWS_KERNELS)
+            print(f"per_row city split (one profiled frame, ms): "
+                  f"{json.dumps(p['split'])} ({smi})", flush=True)
+    finally:
+        BC.FLAT = True
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"per_row: phase 16 in {rec['seconds']:.1f}s", flush=True)
+    dump()
+
+    entries = {}
+    for name in ms:
+        by_path = {k: v.get(name, 0) for k, v in launches.items()}
+        if not sum(by_path.values()):
+            _fail(f"per_row: {name} never launched on the per-row paths")
+        entries[name] = dict(
+            name=name, route="cuda",
+            source="rtxpt_tpu_torch/csrc/cluster_rows.cu",
+            replaces="rtxpt_tpu/pt/bounce_clustered.py:"
+            + ("1080" if name == k7n else "825"),
+            launches=sum(by_path.values()), launches_by_path=by_path,
+            max_abs_err=err[name], ms=ms[name], plain_ms=plain_ms[name],
+            bound_ms=bounds[name][0], bound_by=bounds[name][1],
+            library_ms=None)
+    return dict(entries=entries)
+
+
+def _save_group(path, tbl, cand, fs, is_, ha3, hit6, flip, kslots, mt,
+                sample, cfg):
+    """Save, as an .npz at `path`, the SAVED_GROUPS ray groups of a launch
+    with the most lanes whose K6 winner (`hit6`) differs from K3's (`ha3`)
+    on the same lists: their candidate rows with the listed clusters
+    renumbered 0..k-1, those clusters' blocks, their state rows, the
+    material and light tables, both kernels' winners and t, and the
+    launch's settings. Replayed through the JAX package's own kernels by
+    tools/replay_diverged_group.py."""
+    import numpy as np
+    import torch
+
+    from rtxpt_tpu_torch.pt import bounce_clustered as BC
+
+    per_group = flip.view(-1, BC.FL).sum(1)
+    gs = torch.argsort(per_group, descending=True, stable=True)[
+        :SAVED_GROUPS]
+    lanes = (gs[:, None] * BC.FL
+             + torch.arange(BC.FL, device=gs.device)).reshape(-1)
+    rows = cand[gs].clone()
+    cids, local = torch.unique(rows[:, 0, 1:1 + kslots], return_inverse=True)
+    rows[:, 0, 1:1 + kslots] = local.to(rows.dtype)
+    arrays = dict(
+        groups=gs, cand=rows, blocks=tbl.blocks[cids.long()],
+        cluster_ids=cids, fs=fs[:, lanes], is_=is_[:, lanes],
+        mat_rows=tbl.mat_rows, light_rows=tbl.light_rows,
+        k3_prim=ha3[BC.HA_PRIM, lanes], k3_t=ha3[BC.HA_T, lanes],
+        k6_prim=hit6[1, lanes], k6_t=hit6[0, lanes], differ=flip[lanes])
+    np.savez_compressed(
+        path, kslots=kslots, max_travel=mt, sample=sample,
+        n_lights=tbl.n_lights, max_bounces=cfg.max_bounces,
+        nee=cfg.nee.value,
+        **{k: v.cpu().numpy() for k, v in arrays.items()})
+    print(f"per_row: groups {gs.tolist()} ({int(flip[lanes].sum())} lanes "
+          f"whose K6 winner differs from K3's) saved to {path}", flush=True)
+
+
 def _write_record(record, path):
     """Every phase's details as JSON at `path` (best effort)."""
     try:
@@ -3791,9 +4334,13 @@ if __name__ == "__main__":
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--record", metavar="PATH",
                         help="write every phase's details as JSON to PATH")
+    parser.add_argument("--diverged-group", metavar="PATH",
+                        help="save the city's 1080p bounce-0 ray groups whose "
+                        "K6 winners differ most from K3's as .npz at PATH "
+                        "(for tools/replay_diverged_group.py)")
     args = parser.parse_args()
     try:
-        main(args.record)
+        main(args.record, args.diverged_group)
     except Exception:
         traceback.print_exc()
         _fail("an exception ended the run")

@@ -1,6 +1,8 @@
-// The clustered tier's per-lane math, shared by K3 (cluster_closest.cu) and
-// K5 (cluster_shadow.cu): the cluster block layout, the split-bf16 ray
-// operand, the world -> object map of the operand on instanced tables, the
+// The clustered tier's per-lane math, shared by K3 (cluster_closest.cu), K5
+// (cluster_shadow.cu) and the per-row K6 and K7 (cluster_rows.cu): the
+// cluster block layout and its staging in shared memory, the split-bf16 ray
+// operand (and the per-row one),
+// the world -> object map of the operand on instanced tables, the
 // intersection quantities of one staged block, the closest-hit selection with
 // its edge margins and tie bump, the strict any-hit test, the micromap
 // state of a candidate with the near-edge rule, and the exact f32 refit of
@@ -66,6 +68,23 @@ constexpr float kBigT = (float)1e30;
 constexpr float kEdge = (float)(4.0 * 4.0 * 2e-3);
 constexpr float kEdgeHi = (float)(1.0 - 4.0 * 4.0 * 2e-3);
 
+#ifdef __CUDACC__
+// Stage rows 0..STAGE_ROWS-1 of cluster `cid`'s block in shared memory with
+// 16-byte loads, thread `l` of the block's `nthreads`; the caller syncs.
+__device__ __forceinline__ void stage_block(float* stage, const float* blocks,
+                                            int cid, int l, int nthreads) {
+  const float4* src = reinterpret_cast<const float4*>(blocks + (size_t)cid * BLK_FLOATS);
+  float4* dst = reinterpret_cast<float4*>(stage);
+  for (int k = l; k < STAGE_ROWS * LANES / 4; k += nthreads) dst[k] = src[k];
+}
+#endif
+
+// The cluster center of a staged (or global) block.
+RT_HD V3 block_center(const float* blk) {
+  return v3(blk[CENTER_ROW * LANES], blk[CENTER_ROW * LANES + CT],
+            blk[CENTER_ROW * LANES + 2 * CT]);
+}
+
 // f32 -> bf16 -> f32, round to nearest even (torch's .to(torch.bfloat16)).
 RT_HD float bf16_round(float x) {
 #ifdef __CUDA_ARCH__
@@ -88,6 +107,23 @@ RT_HD void make_operand(V3 d, V3 oxd, V3 o, V3 c, float* hi, float* lo) {
   const float cxd2 = c.x * d.y - c.y * d.x;
   const float op[9] = {d.x, d.y, d.z, oxd.x - cxd0, oxd.y - cxd1,
                        oxd.z - cxd2, o.x - c.x, o.y - c.y, o.z - c.z};
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    hi[k] = bf16_round(op[k]);
+    lo[k] = op[k] - hi[k];
+  }
+  hi[9] = 1.0f;
+  lo[9] = 0.0f;
+}
+
+// The per-row kernels' operand (K6 and K7, cluster_rows.cu;
+// bounce_clustered._operand_rows): the origin is shifted first
+// (o' = o - c) and o' x d is taken of the shifted origin, where
+// make_operand shifts the global o x d.
+RT_HD void make_operand_rows(V3 d, V3 o, V3 c, float* hi, float* lo) {
+  const float ox = o.x - c.x, oy = o.y - c.y, oz = o.z - c.z;
+  const float op[9] = {d.x, d.y, d.z, oy * d.z - oz * d.y, oz * d.x - ox * d.z,
+                       ox * d.y - oy * d.x, ox, oy, oz};
 #pragma unroll
   for (int k = 0; k < 9; ++k) {
     hi[k] = bf16_round(op[k]);
@@ -172,7 +208,9 @@ RT_HD int guarded_state(uint32_t word, const Quant& q, bool& near) {
 // triangle index on ties. t_c = kBigT when nothing is valid. With `words`
 // (the block's micromap words), a micro-TRANSPARENT candidate is rejected
 // unless near a cell edge, and unk_c flags a winner on an UNKNOWN or
-// near-edge cell.
+// near-edge cell. Divide: t = t_num / |det| (K6, `_kernel_a`) instead of
+// t_num * (1 / |det|) (K3, `_kernel_a1`).
+template <bool Divide = false>
 RT_HD void closest_in_block(const float* blk, const float* hi, const float* lo,
                             float max_travel, float& t_c, int& j_c,
                             const int* words, bool& unk_c) {
@@ -186,7 +224,8 @@ RT_HD void closest_in_block(const float* blk, const float* hi, const float* lo,
                  q.su + q.sv <= q.absd + mm + mm && q.st > 0.0f &&
                  q.st < max_travel * q.absd;
     const bool strict = q.su >= 0.0f && q.sv >= 0.0f && q.su + q.sv <= q.absd;
-    float tt = q.st * (1.0f / max_(q.absd, kMinDet));
+    float tt = Divide ? q.st / max_(q.absd, kMinDet)
+                      : q.st * (1.0f / max_(q.absd, kMinDet));
     tt = tt * (strict ? 1.0f : kTieScale);
     bool unk = false;
     if (valid && words != nullptr) {

@@ -96,9 +96,7 @@ cluster_closest_kernel(const int* __restrict__ cand, const float* __restrict__ o
     const int bound_bits = act ? __float_as_int(best_t) : 0;
     if (!__syncthreads_or(noprune || bound_bits >= te_bits)) break;
     const int cid = cg[1 + s];
-    const float4* src = reinterpret_cast<const float4*>(blocks + (size_t)cid * BLK_FLOATS);
-    float4* dst = reinterpret_cast<float4*>(stage);
-    for (int k = l; k < STAGE_ROWS * LANES / 4; k += FL) dst[k] = src[k];
+    stage_block(stage, blocks, cid, l, FL);
     int iid = 0;
     if constexpr (INST) {
       iid = cinst[s];
@@ -108,8 +106,7 @@ cluster_closest_kernel(const int* __restrict__ cand, const float* __restrict__ o
       if (l < CT) mw[l] = micro[(size_t)cid * CT + l];
     }
     __syncthreads();
-    const V3 c = v3(stage[CENTER_ROW * LANES], stage[CENTER_ROW * LANES + CT],
-                    stage[CENTER_ROW * LANES + 2 * CT]);
+    const V3 c = block_center(stage);
     V3 dv = d, oxdv = oxd, ov = o;
     if constexpr (INST) xform_operand(xm, d, oxd, o, dv, oxdv, ov);
     float hi[10], lo[10];

@@ -1,4 +1,5 @@
-// K4's per-lane body (cluster_shade.cu): surface_and_shade (bounce_fused.cuh)
+// K4's per-lane body (cluster_shade.cu), whose shading half K6
+// (cluster_rows.cu) shares (shade_hit): surface_and_shade (bounce_fused.cuh)
 // on K3's HA rows, with the attribute fetch reading those rows; writes the
 // next state, the SH shadow request rows and the hit rows of lane i, and in
 // the external modes the SF_* rows (`surf_out`) and the shading flag. HasOmm:
@@ -13,29 +14,25 @@
 namespace rt {
 namespace cl {
 
-template <bool HasTex, bool HasOmm, bool HasPrio>
-RT_HD void shade_lane(int i, int n, const float* __restrict__ ha,
-                      const float* __restrict__ fs, const int* __restrict__ is,
-                      float* __restrict__ fs_out, int* __restrict__ is_out,
-                      float* __restrict__ sh_out, float* __restrict__ hit_out,
-                      float* __restrict__ surf_out, const Tables& tb,
-                      const Config& cfg) {
-  auto H = [&](int r) { return ha[(size_t)r * n + i]; };
-  RayState s = load_state(i, n, fs, is);
-  Hit h;
-  h.t = H(HA_T);
-  h.u = H(HA_U);
-  h.v = H(HA_V);
-  h.det = H(HA_FRONT);
-  h.prim = -1;                       // surface_and_shade reads it only via A
-  h.unk = HasOmm && H(HA_UNK) > 0.5f;
-  auto attr = [&](int r) { return H(HA_ATTR + r); };
+// The shading of lane i on its closest hit h (prim: the hit row's prim id,
+// -1 on a miss; A(r): the hit's attribute row r, AT_* order), from the ray
+// state s: K4 reads both from K3's HA rows (shade_lane), K6 from its
+// winner's cluster block (cluster_rows.cu). Writes the next state, the SH
+// rows, the hit rows and, in the external modes, the SF_* rows
+// (`surf_out`) and the shading flag; the final environment round
+// (cfg.final_env) closes the path.
+template <bool HasTex, bool HasOmm, bool HasPrio, class AttrFetch>
+RT_HD void shade_hit(int i, int n, RayState s, const Hit& h, float prim,
+                     const AttrFetch& attr, float* __restrict__ fs_out,
+                     int* __restrict__ is_out, float* __restrict__ sh_out,
+                     float* __restrict__ hit_out, float* __restrict__ surf_out,
+                     const Tables& tb, const Config& cfg) {
   const int lb_in = s.lb;
   float* so = sh_out + i;
   float* ho = hit_out + i;
   const size_t sn = (size_t)n;
   ho[0] = h.t < kBig ? h.t : 0.0f;
-  ho[sn] = H(HA_PRIM);
+  ho[sn] = prim;
   ho[2 * sn] = h.u;
   ho[3 * sn] = h.v;
   ho[4 * sn] = h.det > 0.0f ? 1.0f : 0.0f;
@@ -65,6 +62,27 @@ RT_HD void shade_lane(int i, int n, const float* __restrict__ ha,
   } else {
     ho[5 * sn] = sr.do_nee ? 1.0f : 0.0f;
   }
+}
+
+template <bool HasTex, bool HasOmm, bool HasPrio>
+RT_HD void shade_lane(int i, int n, const float* __restrict__ ha,
+                      const float* __restrict__ fs, const int* __restrict__ is,
+                      float* __restrict__ fs_out, int* __restrict__ is_out,
+                      float* __restrict__ sh_out, float* __restrict__ hit_out,
+                      float* __restrict__ surf_out, const Tables& tb,
+                      const Config& cfg) {
+  auto H = [&](int r) { return ha[(size_t)r * n + i]; };
+  Hit h;
+  h.t = H(HA_T);
+  h.u = H(HA_U);
+  h.v = H(HA_V);
+  h.det = H(HA_FRONT);
+  h.prim = -1;                       // surface_and_shade reads it only via A
+  h.unk = HasOmm && H(HA_UNK) > 0.5f;
+  auto attr = [&](int r) { return H(HA_ATTR + r); };
+  shade_hit<HasTex, HasOmm, HasPrio>(i, n, load_state(i, n, fs, is), h, H(HA_PRIM),
+                                     attr, fs_out, is_out, sh_out, hit_out, surf_out,
+                                     tb, cfg);
 }
 
 }  // namespace cl

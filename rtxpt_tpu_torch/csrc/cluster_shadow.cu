@@ -74,9 +74,7 @@ cluster_shadow_kernel(const int* __restrict__ cand, const float* __restrict__ sh
   for (int s = 0; s < count; ++s) {
     if (!__syncthreads_or(!occ)) break;
     const int cid = cg[1 + s];
-    const float4* src = reinterpret_cast<const float4*>(blocks + (size_t)cid * BLK_FLOATS);
-    float4* dst = reinterpret_cast<float4*>(stage);
-    for (int k = l; k < STAGE_ROWS * LANES / 4; k += FL) dst[k] = src[k];
+    stage_block(stage, blocks, cid, l, FL);
     if constexpr (INST) {
       if (l < XF_FLOATS) xm[l] = xf[(size_t)cinst[s] * XF_FLOATS + l];
     }
@@ -88,8 +86,7 @@ cluster_shadow_kernel(const int* __restrict__ cand, const float* __restrict__ sh
     }
     __syncthreads();
     if (!occ) {
-      const V3 c = v3(stage[CENTER_ROW * LANES], stage[CENTER_ROW * LANES + CT],
-                      stage[CENTER_ROW * LANES + 2 * CT]);
+      const V3 c = block_center(stage);
       V3 dv = d, oxdv = oxd, ov = o;
       if constexpr (INST) xform_operand(xm, d, oxd, o, dv, oxdv, ov);
       float hi[10], lo[10];

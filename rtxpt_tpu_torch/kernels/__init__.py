@@ -21,8 +21,10 @@ micromap variants ("bounce_fused_omm_tex", "shadow_occlusion_omm",
 "cluster_closest_omm", "cluster_shade_omm_tex", "cluster_shadow_omm",
 "bvh_traverse_omm"), and so do the nested-priority variants of the shading
 kernels ("bounce_fused_prio", "bounce_fused_omm_tex_prio",
-"cluster_shade_omm_tex_prio" and so on). `build_all()` builds
-every library at once, one nvcc process per source.
+"cluster_shade_omm_tex_prio" and so on), and so do the per-row kernels
+K6 and K7 ("cluster_rows_closest_shade" with its "_env", "_tex",
+"_tex_env" and "_final" variants, "cluster_rows_shadow"). `build_all()`
+builds every library at once, one nvcc process per source.
 """
 
 from __future__ import annotations
@@ -225,6 +227,31 @@ CLUSTER_SHADOW = CudaLibrary(
         _I, _I,                        # n_groups, kslots
         _P]})                          # cudaStream_t
 
+# K6 and K7: the per-row clustered kernels (replace rtxpt_tpu/pt/
+# bounce_clustered.py _kernel_a, closest hit and shading in one kernel,
+# and _kernel_b, per-row shadow any-hit); wrappers
+# bounce_clustered.closest_shade and occlusion_rows.
+CLUSTER_ROWS = CudaLibrary(
+    "cluster_rows", ["cluster_rows.cu"],
+    {"rtxpt_cluster_rows_closest_shade": [
+        _P, _P, _P,                    # cand, fs, is_
+        _P, _P, _P, _P,                # fs_out, is_out, sh, hit
+        _P,                            # visited | NULL
+        _P, _P, _P, _P,                # blocks, mat, light, env | NULL
+        _P, _P, _I, _I,                # tex | NULL, tex_meta, n_tex,
+        #                                tex_maps
+        _I, _I, _F, _I,                # n_groups, kslots, max_travel, noprune
+        _I, _U,                        # n_lights, sample_idx
+        _I, _I, _F, _I, _I,            # nee_mode, mis, firefly, rr, min_rr
+        _I, _I, _I,                    # low_discrepancy, energy_comp, maxb
+        _I,                            # final_env
+        _P],                           # cudaStream_t
+     "rtxpt_cluster_rows_shadow": [
+        _P, _P, _P,                    # cand, sh, blocks
+        _P, _P,                        # occ, tests | NULL
+        _I, _I,                        # n_groups, kslots
+        _P]})                          # cudaStream_t
+
 # K8: the brute-force closest hit of the general tier (replaces rtxpt_tpu/
 # accel/brute_pallas.py _kernel); wrapper accel/brute.py closest.
 BRUTE_CLOSEST = CudaLibrary(
@@ -248,7 +275,7 @@ BVH_TRAVERSE = CudaLibrary(
         _P]})                          # cudaStream_t
 
 LIBRARIES = (BOUNCE_FUSED, SHADOW_OCCLUSION, CLUSTER_CLOSEST, CLUSTER_SHADE,
-             CLUSTER_SHADOW, BRUTE_CLOSEST, BVH_TRAVERSE)
+             CLUSTER_SHADOW, CLUSTER_ROWS, BRUTE_CLOSEST, BVH_TRAVERSE)
 
 
 def build_all(libraries=LIBRARIES) -> dict:

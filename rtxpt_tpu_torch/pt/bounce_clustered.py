@@ -60,6 +60,18 @@ ray and exports the winner's instance in HA_INST; `post_attr_inst` then
 brings the object-space attribute rows of the merged pages to world space
 before K4.
 
+The per-row route (`FLAT = False`; the JAX package's `_FLAT`, its round-3
+kernels kept for A/B comparison) runs one page and no K3 / K4 pair: per
+bounce one cull over the group hull with the scalar max_ray_travel, then
+K6 `closest_shade` (`_kernel_a`: each 128-lane row walks its group's
+list under its own gate, and the winner is shaded in the same kernel),
+and for the sorted shadow rays one cull with the per-lane distance, then
+K7 `occlusion_rows` (`_kernel_b`: per-row any-hit). The final round is a
+cull and K6's `final_env` variant. K6 and K7 are csrc/cluster_rows.cu.
+The route serves what the JAX per-row route serves: no micromaps, nested
+priorities, instanced tables or external NEE (pt/dispatch.py refuses
+them by name). `cull_overflow` is the overflow of each bounce's two culls.
+
 Layouts are the JAX package's row maps (OD_*, HA_*, SH_*), but flat:
 every row spans all N lanes ([rows, N] with N a multiple of 1024), and
 group g is lanes [1024 g, 1024 (g+1)). The JAX package's
@@ -106,6 +118,13 @@ FL = R * 128             # lanes per group (one CUDA block of K3 and K5)
 DEFAULT_KSLOTS = 64
 DEFAULT_PAGES = 2
 _BIG = bf._BIG
+_INF_BITS = 0x7F800000   # +inf as int32 bits: K6's and K7's row gate
+
+# The route of trace_paths_clustered: True the flat all-rows kernels (K3,
+# K4, K5, paged), False the per-row kernels (K6, K7, one page). The JAX
+# package's bounce_clustered._FLAT, set by assignment (tests, chip_smoke.py)
+# and read at call time; no environment variable sets it.
+FLAT = True
 
 # Split-bf16 selection margins, relative to |det|: the exact refit
 # re-tests the winner, so these only prevent false negatives at shared
@@ -213,14 +232,14 @@ def _quantities(blk, hi, lo):
     out = []
     for q, rows in enumerate(Q_ROWS):
         lanes = slice(q * CT, (q + 1) * CT)
-        chi = [blk[:, k, lanes][:, :, None] for k in rows]
-        clo = [blk[:, 10 + k, lanes][:, :, None] for k in rows]
-        terms = ([c * hi[k][:, None] for c, k in zip(chi, rows)]
-                 + [c * lo[k][:, None] for c, k in zip(chi, rows)]
-                 + [c * hi[k][:, None] for c, k in zip(clo, rows)])
-        acc = terms[0]
-        for x in terms[1:]:
-            acc = acc + x
+        terms = ([(blk[:, k, lanes], hi[k]) for k in rows]
+                 + [(blk[:, k, lanes], lo[k]) for k in rows]
+                 + [(blk[:, 10 + k, lanes], hi[k]) for k in rows])
+        # each product rounded, then added in order (into one buffer)
+        acc = terms[0][0][:, :, None] * terms[0][1][:, None]
+        prod = torch.empty_like(acc)
+        for c, r in terms[1:]:
+            acc += torch.mul(c[:, :, None], r[:, None], out=prod)
         out.append(acc)
     return out
 
@@ -258,6 +277,46 @@ def _candidate_states(valid, micro, cid, su, sv, absd):
         state[at], near[at] = micro_state_guarded(
             micro[cid][at[0], at[1]], su[at], sv[at], absd[at])
     return state, near
+
+
+def _select(absd, su, sv, st, max_travel: float, divide: bool = False):
+    """The closest-hit test of each candidate [.., CT, 128]: inside the
+    conservative edge margins (MARGIN) at 0 < t < max_travel, and its t
+    with the tie bump on margin-only candidates, so that strictly-inside
+    ones win ties. divide: t = t_num / |det| (K6, `_kernel_a`) instead of
+    t_num * (1 / |det|) (K3, `_kernel_a1`). Returns (valid, t)."""
+    mm = MARGIN * absd
+    valid = ((absd > 1e-30) & (su >= -mm) & (sv >= -mm)
+             & (su + sv <= absd + mm + mm)
+             & (st > 0.0) & (st < max_travel * absd))
+    strict = (su >= 0.0) & (sv >= 0.0) & (su + sv <= absd)
+    den = torch.clamp(absd, min=1e-30)
+    tt = st / den if divide else st * (1.0 / den)
+    return valid, tt * torch.where(strict, 1.0, 1.0 + _TIE_BUMP)
+
+
+def _closest_in_block(valid, tt):
+    """Each lane's closest valid candidate of one block: (t [.., 128],
+    _BIG where none is valid; its triangle, the lowest index on ties)."""
+    t_m = torch.where(valid, tt, _BIG)
+    t_c = t_m.amin(dim=1)
+    iota = torch.arange(CT, device=tt.device)[None, :, None]
+    return t_c, torch.where(t_m <= t_c[:, None], iota, CT).amin(dim=1)
+
+
+def _strict_hit(absd, su, sv, st, dist):
+    """The any-hit test of each candidate: strictly inside (no margins)
+    at 0 < t < dist."""
+    return ((absd > 1e-30) & (su >= 0.0) & (sv >= 0.0)
+            & (su + sv <= absd) & (st > 0.0) & (st < dist * absd))
+
+
+def _first_occluder(valid):
+    """Whether each lane is occluded in one block, and the triangles it
+    tested: up to and including the first occluder, else all CT."""
+    hit = valid.any(dim=1)
+    # argmax gives the first occluder's index
+    return hit, torch.where(hit, valid.to(torch.int32).argmax(dim=1) + 1, CT)
 
 
 def inst_base(kslots: int) -> int:
@@ -316,7 +375,6 @@ def closest_hit_reference(cand, od, blocks, kslots: int, max_travel: float,
     best_j = torch.zeros((G, FL), dtype=torch.int64, device=dev)
     best_i = torch.zeros((G, FL), dtype=torch.int64, device=dev)
     best_unk = torch.zeros((G, FL), dtype=torch.bool, device=dev)
-    iota = torch.arange(CT, device=dev)[None, :, None]
     running = torch.ones((G,), dtype=torch.bool, device=dev)
     visits = torch.zeros((G,), dtype=torch.int32, device=dev)
     for i in range(kslots):
@@ -337,20 +395,12 @@ def closest_hit_reference(cand, od, blocks, kslots: int, max_travel: float,
             ray = object_operand(xf[iid][:, None], *ray)
         hi, lo = _operand(*ray, *_center(blk))
         absd, su, sv, st = _signed(*_quantities(blk, hi, lo))
-        mm = MARGIN * absd
-        valid = ((absd > 1e-30) & (su >= -mm) & (sv >= -mm)
-                 & (su + sv <= absd + mm + mm)
-                 & (st > 0.0) & (st < max_travel * absd))
-        strict = (su >= 0.0) & (sv >= 0.0) & (su + sv <= absd)
-        tt = st * (1.0 / torch.clamp(absd, min=1e-30))
-        tt = tt * torch.where(strict, 1.0, 1.0 + _TIE_BUMP)
+        valid, tt = _select(absd, su, sv, st, max_travel)
         if micro is not None:
             state, near = _candidate_states(valid, micro, cid, su, sv, absd)
             valid = valid & ((state != bf.MICRO_TRANSPARENT) | near)
             unk_c = (state == bf.MICRO_UNKNOWN) | near
-        t_m = torch.where(valid, tt, _BIG)
-        t_c = t_m.amin(dim=1)                                 # [g, FL]
-        j_c = torch.where(t_m <= t_c[:, None], iota, CT).amin(dim=1)
+        t_c, j_c = _closest_in_block(valid, tt)               # [g, FL]
         improved = t_c < best_t[gs]
         if micro is not None:
             unk_w = torch.gather(unk_c, 1, j_c[:, None])[:, 0]
@@ -476,17 +526,13 @@ def occlusion_reference(cand, sh, blocks, kslots: int, stats: bool = False,
             ray = object_operand(xf[iid][:, None], *ray)
         hi, lo = _operand(*ray, *_center(blk))
         absd, su, sv, st = _signed(*_quantities(blk, hi, lo))
-        valid = ((absd > 1e-30) & (su >= 0.0) & (sv >= 0.0)
-                 & (su + sv <= absd) & (st > 0.0)
-                 & (st < dist[gs][:, None] * absd))
+        valid = _strict_hit(absd, su, sv, st, dist[gs][:, None])
         if micro is not None:
             state, near = _candidate_states(valid, micro, cid, su, sv, absd)
             unk = (state == bf.MICRO_UNKNOWN) | near
             valid = valid & ((state != bf.MICRO_TRANSPARENT) | near) \
                 & (~unk | (ua[gs][:, None] < cover[cid][:, :, None]))
-        hit = valid.any(dim=1)
-        # argmax gives the first occluder's index
-        tested = torch.where(hit, valid.to(torch.int32).argmax(dim=1) + 1, CT)
+        hit, tested = _first_occluder(valid)
         tests[gs] += torch.where(occ[gs] < 0.5, tested, 0).sum(
             dim=1, dtype=torch.int32)
         occ[gs] = torch.maximum(occ[gs], hit.float())
@@ -558,6 +604,157 @@ def shade_reference(ha, fs, is_, tables, kcfg: bf.KernelConfig,
     if ext:
         return fs_out, is_out, sh, hit_out, s["surf"]
     return fs_out, is_out, sh, hit_out
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions of K6 and K7 (the per-row route)
+# ---------------------------------------------------------------------------
+
+
+def _operand_rows(d, o, cx, cy, cz):
+    """The per-row kernels' split-bf16 operand (bounce_clustered._row_cols):
+    the origin is shifted first (o' = o - c) and o' x d is taken of the
+    shifted origin, where K3's `_operand` shifts the global o x d."""
+    ox, oy, oz = o[0] - cx, o[1] - cy, o[2] - cz
+    op = [d[0], d[1], d[2], oy * d[2] - oz * d[1], oz * d[0] - ox * d[2],
+          ox * d[1] - oy * d[0], ox, oy, oz]
+    hi = [_bf16(x) for x in op]
+    lo = [x - h for x, h in zip(op, hi)]
+    one = torch.ones_like(op[0])
+    return hi + [one], lo + [torch.zeros_like(one)]
+
+
+def _row_entries(cand, kslots: int):
+    """Each slot's per-row entry bits [G, kslots, R] of the candidate rows."""
+    G = cand.shape[0]
+    return cand[:, 0, 1 + 2 * kslots:1 + (2 + R) * kslots].reshape(
+        G, kslots, R)
+
+
+def _row_quantities(cand, i, rows, d, o, blocks):
+    """Slot i's signed quantities (|det|, u, v, t) [p, CT, 128] for the
+    128-lane rows `rows` [p] (row g * R + r of group g) against their
+    group's candidate, with the per-row operand; d, o [3, G * R, 128]."""
+    blk = blocks[cand[rows // R, 0, 1 + i].long()]
+    hi, lo = _operand_rows(d[:, rows], o[:, rows], *_center(blk))
+    return _signed(*_quantities(blk, hi, lo))
+
+
+def _closest_rows(cand, fs, is_, blocks, kslots: int, max_travel: float,
+                  noprune: bool = False):
+    """K6's candidate walk and selection (the loop of `_kernel_a`): the
+    group walks its list nearest first while some active lane's committed
+    t reaches the slot's hull entry (as K3), and each 128-lane row visits
+    a slot only where the row's own entry bits are at most the worst
+    committed t of its active lanes (noprune: below +inf). The operand is
+    the per-row one (`_operand_rows`) and t divides by |det|. Returns
+    (best_t, best_c, best_j) [G, FL] and which slots each row visited
+    [G * R, kslots] bool."""
+    G = cand.shape[0]
+    dev = fs.device
+    o = fs[bf.FS_O:bf.FS_O + 3].reshape(3, G * R, 128)
+    d = fs[bf.FS_D:bf.FS_D + 3].reshape(3, G * R, 128)
+    act = (is_[bf.IS_ACTIVE] > 0).reshape(G * R, 128)
+    te_rows = _row_entries(cand, kslots)
+    best_t = torch.full((G * R, 128), _BIG, dtype=torch.float32, device=dev)
+    best_c = torch.zeros((G * R, 128), dtype=torch.int64, device=dev)
+    best_j = torch.zeros((G * R, 128), dtype=torch.int64, device=dev)
+    running = torch.ones((G,), dtype=torch.bool, device=dev)
+    visited = torch.zeros((G, R, kslots), dtype=torch.bool, device=dev)
+    for i in range(kslots):
+        running = running & (i < cand[:, 0, 0])
+        bound = torch.where(act, best_t, 0.0).view(torch.int32).amax(
+            -1).view(G, R)
+        if noprune:
+            row_on = te_rows[:, i] < _INF_BITS
+        else:
+            running = running & (cand[:, 0, 1 + kslots + i]
+                                 <= bound.amax(1))
+            row_on = te_rows[:, i] <= bound
+        if not bool(running.any()):
+            break
+        row_on = row_on & running[:, None]
+        visited[:, :, i] = row_on
+        rows = row_on.reshape(-1).nonzero()[:, 0]
+        if rows.numel() == 0:
+            continue
+        absd, su, sv, st = _row_quantities(cand, i, rows, d, o, blocks)
+        t_c, j_c = _closest_in_block(*_select(absd, su, sv, st, max_travel,
+                                              divide=True))   # [p, 128]
+        improved = t_c < best_t[rows]
+        cid = cand[rows // R, 0, 1 + i].long()
+        best_t[rows] = torch.where(improved, t_c, best_t[rows])
+        best_c[rows] = torch.where(improved, cid[:, None], best_c[rows])
+        best_j[rows] = torch.where(improved, j_c, best_j[rows])
+    return (best_t.view(G, FL), best_c.view(G, FL), best_j.view(G, FL),
+            visited.reshape(G * R, kslots))
+
+
+def closest_shade_reference(cand, fs, is_, tables, kcfg: bf.KernelConfig,
+                            sample_idx: int, kslots: int, max_travel: float,
+                            noprune: bool = False, final_env: bool = False,
+                            stats: bool = False):
+    """K6's plain version (the function of `_kernel_a`): the per-row walk
+    (`_closest_rows`) over one page of candidates, K3's exact
+    refit of the winner, and K4's shading of it (`shade_reference`, which
+    is `_kernel_a`'s post-loop half). cand [G,1,1+(2+R)*kslots] i32, fs
+    [NF, N], is_ [NI, N] (N = G*FL) -> (fs_out, is_out, sh [SH_ROWS, N],
+    hit [NH, N]); with `stats`, also which slots each 128-lane row
+    visited [N / 128, kslots] bool. `final_env`: the final
+    environment-only round."""
+    G = cand.shape[0]
+    best_t, best_c, best_j, visited = _closest_rows(
+        cand, fs, is_, tables.blocks, kslots, max_travel, noprune)
+    odg = ray_operand(fs, is_).view(OD_ROWS, G, FL)
+    ha = _refit(odg, tables.blocks, best_t, best_c, best_j, max_travel)
+    out = shade_reference(ha, fs, is_, tables, kcfg, sample_idx, final_env)
+    return (*out, visited) if stats else out
+
+
+def occlusion_rows_reference(cand, sh, blocks, kslots: int,
+                             stats: bool = False):
+    """K7's plain version (the function of `_kernel_b`): lanes without a
+    request (SH_DO 0) start occluded; the group walks its list while any
+    lane is unoccluded, and a row visits a slot while some lane of it is
+    unoccluded and its entry bits are below +inf. A lane is occluded by
+    any triangle strictly inside (no margins) at 0 < t <
+    dist * (1 - SHADOW_T_EPS), tested with the per-row operand
+    (`_operand_rows`). cand [G,1,W] i32, sh [SH_ROWS, N] f32 -> occ [N]
+    f32 (1 occluded or no request); with `stats`, (occ, tests [G] i32:
+    the pairs the group's unoccluded lanes tested, each up to its first
+    occluder)."""
+    G = cand.shape[0]
+    shr = sh.view(SH_ROWS, G * R, 128)
+    o = shr[SH_O:SH_O + 3]
+    d = shr[SH_D:SH_D + 3]
+    dist = shr[SH_DIST] * (1.0 - SHADOW_T_EPS)
+    occ = torch.where(shr[SH_DO] > 0.5, 0.0, 1.0)             # [G*R, 128]
+    te_rows = _row_entries(cand, kslots)
+    running = torch.ones((G,), dtype=torch.bool, device=sh.device)
+    tests = torch.zeros((G * R,), dtype=torch.int32, device=sh.device)
+    for i in range(kslots):
+        open_r = (occ < 0.5).any(-1).view(G, R)
+        running = running & (i < cand[:, 0, 0]) & open_r.any(1)
+        if not bool(running.any()):
+            break
+        row_on = running[:, None] & open_r & (te_rows[:, i] < _INF_BITS)
+        rows = row_on.reshape(-1).nonzero()[:, 0]
+        if rows.numel() == 0:
+            continue
+        absd, su, sv, st = _row_quantities(cand, i, rows, d, o, blocks)
+        valid = ((absd > 1e-30) & (su >= 0.0) & (sv >= 0.0)
+                 & (su + sv <= absd) & (st > 0.0)
+                 & (st < dist[rows][:, None] * absd))
+        hit = valid.any(dim=1)                                # [p, 128]
+        lane_on = occ[rows] < 0.5
+        # argmax gives the first occluder's index
+        tested = torch.where(hit, valid.to(torch.int32).argmax(dim=1) + 1, CT)
+        tests[rows] += torch.where(lane_on, tested, 0).sum(dim=1,
+                                                           dtype=torch.int32)
+        occ[rows] = torch.maximum(occ[rows], hit.float())
+    occ = occ.reshape(G * FL)
+    tests = tests.view(G, R).sum(1, dtype=torch.int32)
+    return (occ, tests) if stats else occ
 
 
 # ---------------------------------------------------------------------------
@@ -731,6 +928,100 @@ def shade(ha, fs, is_, tables, kcfg: bf.KernelConfig, sample_idx: int,
     kernels.launches[bf.variant_name("cluster_shade", tables.env is not None,
                                      final_env, tex, omm, prio)] += 1
     return outs
+
+
+def closest_shade(cand, fs, is_, tables, kcfg: bf.KernelConfig,
+                  sample_idx: int, kslots: int, max_travel: float,
+                  noprune: bool = False, final_env: bool = False,
+                  stats: bool = False):
+    """K6 (csrc/cluster_rows.cu; counted as "cluster_rows_closest_shade",
+    with "_env", "_tex", "_tex_env" or as "..._final" by its variant) for
+    CUDA tensors, its plain version for CPU tensors. Arguments and results
+    as in `closest_shade_reference`. K6 has no export: with lights it
+    shades in the kernel NEE modes 0-2 only (the per-row route has no
+    external NEE)."""
+    dev = _device_of("closest_shade", fs, cand, is_, tables.blocks,
+                     tables.mat_rows, tables.light_rows)
+    if final_env and tables.env is None:
+        raise ValueError("closest_shade: final_env needs the tables' "
+                         "environment")
+    if kcfg.nee_mode not in range(6) or (kcfg.external
+                                         and tables.n_lights > 0):
+        raise ValueError(f"closest_shade: nee_mode {kcfg.nee_mode} with "
+                         f"lights is not one of the kernel NEE modes 0..2")
+    if dev.type == "cpu":
+        return closest_shade_reference(cand, fs, is_, tables, kcfg,
+                                       sample_idx, kslots, max_travel,
+                                       noprune, final_env, stats)
+    n = fs.shape[1]
+    g = cand.shape[0]
+    _check_cand(cand, kslots, dev)
+    bf._check("fs", fs, torch.float32, (bf.NF, g * FL), dev)
+    bf._check("is_", is_, torch.int32, (bf.NI, n), dev)
+    bf._check("blocks", tables.blocks, torch.float32,
+              (tables.blocks.shape[0], CL.BLK_ROWS, CL.LANES), dev)
+    bf._check("mat_rows", tables.mat_rows, torch.float32,
+              (bf.MT_ROWS, 128), dev)
+    bf._check("light_rows", tables.light_rows, torch.float32,
+              (W.LROWS, 128), dev)
+    if tables.env is not None:
+        bf._check("env", tables.env, torch.float32, (bf.ET_SIZE,), dev)
+    tex = bf.use_tex(tables, kcfg) and not final_env
+    if tex:
+        bf.check_tex_tables(tables, dev)
+    if kcfg.nee_mode in (1, 2) and tables.n_lights > bf.MAX_LIGHTS:
+        raise ValueError("closest_shade: more lights than the kernel's "
+                         "table")
+    outs = (torch.empty_like(fs), torch.empty_like(is_),
+            torch.empty((SH_ROWS, n), dtype=torch.float32, device=dev),
+            torch.empty((bf.NH, n), dtype=torch.float32, device=dev))
+    visited = torch.zeros((n // 128, kslots), dtype=torch.bool,
+                          device=dev) if stats else None
+    if g:
+        with torch.cuda.device(dev):
+            kernels.CLUSTER_ROWS.launch(
+                "rtxpt_cluster_rows_closest_shade", cand.data_ptr(),
+                fs.data_ptr(), is_.data_ptr(),
+                *(x.data_ptr() for x in outs),
+                None if visited is None else visited.data_ptr(),
+                tables.blocks.data_ptr(), tables.mat_rows.data_ptr(),
+                tables.light_rows.data_ptr(),
+                None if tables.env is None else tables.env.data_ptr(),
+                *bf.tex_args(tables, tex), g, kslots, float(max_travel),
+                int(noprune), tables.n_lights, int(sample_idx) & rng.M32,
+                kcfg.nee_mode, int(kcfg.enable_mis), kcfg.firefly,
+                int(kcfg.rr_enable), kcfg.min_rr, int(kcfg.low_discrepancy),
+                int(kcfg.energy_comp), kcfg.maxb, int(final_env),
+                torch.cuda.current_stream(dev).cuda_stream)
+        kernels.launches[bf.variant_name(
+            "cluster_rows_closest_shade", tables.env is not None, final_env,
+            tex)] += 1
+    return (*outs, visited) if stats else outs
+
+
+def occlusion_rows(cand, sh, blocks, kslots: int, stats: bool = False):
+    """K7 (csrc/cluster_rows.cu, counted as "cluster_rows_shadow") for
+    CUDA tensors, its plain version for CPU tensors. Arguments and results
+    as in `occlusion_rows_reference`."""
+    dev = _device_of("occlusion_rows", sh, cand, blocks)
+    if dev.type == "cpu":
+        return occlusion_rows_reference(cand, sh, blocks, kslots, stats)
+    g = cand.shape[0]
+    _check_cand(cand, kslots, dev)
+    bf._check("sh", sh, torch.float32, (SH_ROWS, g * FL), dev)
+    bf._check("blocks", blocks, torch.float32,
+              (blocks.shape[0], CL.BLK_ROWS, CL.LANES), dev)
+    occ = torch.empty((g * FL,), dtype=torch.float32, device=dev)
+    tests = torch.zeros((g,), dtype=torch.int32, device=dev)
+    if g:
+        with torch.cuda.device(dev):
+            kernels.CLUSTER_ROWS.launch(
+                "rtxpt_cluster_rows_shadow", cand.data_ptr(), sh.data_ptr(),
+                blocks.data_ptr(), occ.data_ptr(),
+                tests.data_ptr() if stats else None, g, kslots,
+                torch.cuda.current_stream(dev).cuda_stream)
+        kernels.launches["cluster_rows_shadow"] += 1
+    return (occ, tests) if stats else occ
 
 
 # ---------------------------------------------------------------------------
@@ -931,6 +1222,22 @@ def occluded_paged(shp, tbl, kslots: int, pages: int, omm: bool = False):
     return occ, ovf
 
 
+def per_row_unserved(scene, tables):
+    """What the per-row route (`FLAT` false) does not serve on this scene,
+    by name: what the JAX package's clustered_structural_ok leaves to the
+    flat kernels (rtxpt_tpu/pt/dispatch.py:129-143). Empty under FLAT."""
+    if FLAT:
+        return []
+    out = []
+    if getattr(scene, "tri_opacity", None) is not None:
+        out.append("opacity micromaps")
+    if getattr(scene, "has_nested_priorities", False):
+        out.append("nested priorities")
+    if getattr(tables, "instanced", False):
+        out.append("instanced cluster tables")
+    return out
+
+
 def trace_paths_clustered(scene, cfg, o, d, cone_spread, px, py,
                           sample_idx, neeat_state=None):
     """Trace a wavefront of camera rays to completion on the clustered
@@ -957,6 +1264,9 @@ def trace_paths_clustered(scene, cfg, o, d, cone_spread, px, py,
     histogram ("rtxpt.nee" and "rtxpt.feedback" ranges, as on the fused
     tier). With an environment, the final round follows the last bounce.
 
+    With `FLAT` false the per-row route runs instead (module docstring):
+    K6 and K7 over one page each, `cfg.cluster_pages` unused.
+
     o, d [N,3]; cone_spread [N]; px, py [N] int. Returns dict(L [N,3],
     ray_count, occupancy [B+1], cull_overflow) with the counts as int64
     tensors, plus neeat_hist on the NEE-AT route."""
@@ -976,6 +1286,12 @@ def trace_paths_clustered(scene, cfg, o, d, cone_spread, px, py,
     ext = kcfg.external and tbl.n_lights > 0
     omm = tbl.omm and bf.use_tex(tbl, kcfg)
     prio = bool(getattr(scene, "has_nested_priorities", False))
+    if not FLAT:
+        unserved = per_row_unserved(scene, tbl) + (
+            ["external NEE"] if ext else [])
+        if unserved:
+            raise NotImplementedError("the per-row clustered route does not "
+                                      "serve: " + ", ".join(unserved))
     hist = None
     if ext:
         from rtxpt_tpu_torch.lighting import neeat as na
@@ -1000,15 +1316,24 @@ def trace_paths_clustered(scene, cfg, o, d, cone_spread, px, py,
             fs, is_, src = sort_wavefront(fs, is_, src, b == 0, bounds)
         n_active = (is_[bf.IS_ACTIVE] > 0).sum(dtype=torch.int64)
         occupancy.append(n_active)
-        ha, ovf = closest_paged(fs, is_, tbl, kslots, pages, max_travel,
-                                noprune, omm)
-        ha = post_attr_inst(ha, tbl)
-        d_in = fs[bf.FS_D:bf.FS_D + 3]
-        prev_pdf_in = fs[bf.FS_PREVPDF]
-        prev_delta_in = is_[bf.IS_PREVDELTA] > 0
-        lb_in = is_[bf.IS_LBOUNCE]
-        out = shade(ha, fs, is_, tbl, kcfg, sample_idx, omm=omm, prio=prio)
-        fs, is_, sh, hitb = out[:4]
+        if not FLAT:
+            # one page: the cull, then K6 (closest hit and shading)
+            cand, ovf = cull(fs[bf.FS_O:bf.FS_O + 3], fs[bf.FS_D:bf.FS_D + 3],
+                             is_[bf.IS_ACTIVE] > 0, max_travel, tbl, kslots)
+            fs, is_, sh, hitb = closest_shade(cand, fs, is_, tbl, kcfg,
+                                              sample_idx, kslots, max_travel,
+                                              noprune)
+        else:
+            ha, ovf = closest_paged(fs, is_, tbl, kslots, pages, max_travel,
+                                    noprune, omm)
+            ha = post_attr_inst(ha, tbl)
+            d_in = fs[bf.FS_D:bf.FS_D + 3]
+            prev_pdf_in = fs[bf.FS_PREVPDF]
+            prev_delta_in = is_[bf.IS_PREVDELTA] > 0
+            lb_in = is_[bf.IS_LBOUNCE]
+            out = shade(ha, fs, is_, tbl, kcfg, sample_idx, omm=omm,
+                        prio=prio)
+            fs, is_, sh, hitb = out[:4]
         ray_count = ray_count + n_active
         overflow = overflow + ovf
         if ext:
@@ -1033,7 +1358,14 @@ def trace_paths_clustered(scene, cfg, o, d, cone_spread, px, py,
                 shp, sperm = sort_shadows(sh, bounds)
             else:
                 shp = sh
-            occ, ovf = occluded_paged(shp, tbl, kslots, pages, omm)
+            if FLAT:
+                occ, ovf = occluded_paged(shp, tbl, kslots, pages, omm)
+            else:
+                # one page: the cull up to each request's distance, then K7
+                dop = shp[SH_DO] > 0.5
+                cand, ovf = cull(shp[SH_O:SH_O + 3], shp[SH_D:SH_D + 3], dop,
+                                 shp[SH_DIST], tbl, kslots)
+                occ = occlusion_rows(cand, shp, tbl.blocks, kslots)
             if sort_rays:
                 occ = unsort_rows(sperm, occ[None])[0]
             ok = do & (occ < 0.5)
@@ -1052,11 +1384,20 @@ def trace_paths_clustered(scene, cfg, o, d, cone_spread, px, py,
         # the final environment-only round for the rays still active
         with record_function("rtxpt.final"):
             n_active = (is_[bf.IS_ACTIVE] > 0).sum(dtype=torch.int64)
-            ha, ovf = closest_paged(fs, is_, tbl, kslots, pages, max_travel,
-                                    noprune, omm)
-            ha = post_attr_inst(ha, tbl)
-            fs, is_, _, _ = shade(ha, fs, is_, tbl, kcfg, sample_idx,
-                                  final_env=True)
+            if FLAT:
+                ha, ovf = closest_paged(fs, is_, tbl, kslots, pages,
+                                        max_travel, noprune, omm)
+                ha = post_attr_inst(ha, tbl)
+                fs, is_, _, _ = shade(ha, fs, is_, tbl, kcfg, sample_idx,
+                                      final_env=True)
+            else:
+                cand, ovf = cull(fs[bf.FS_O:bf.FS_O + 3],
+                                 fs[bf.FS_D:bf.FS_D + 3],
+                                 is_[bf.IS_ACTIVE] > 0, max_travel, tbl,
+                                 kslots)
+                fs, is_, _, _ = closest_shade(cand, fs, is_, tbl, kcfg,
+                                              sample_idx, kslots, max_travel,
+                                              noprune, final_env=True)
             ray_count = ray_count + n_active
             overflow = overflow + ovf
     occupancy.append((is_[bf.IS_ACTIVE] > 0).sum(dtype=torch.int64))

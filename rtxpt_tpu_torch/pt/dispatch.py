@@ -53,6 +53,14 @@ shading time fetches one jittered texel); "auto" otherwise resolves it to
 tier raises. A two-level scene never carries micromaps from prepare; one
 made by hand is refused on the TLAS route, which has no alpha test.
 
+With `bounce_clustered.FLAT` false (the per-row route, K6 and K7) the
+clustered tier serves what the JAX package's per-row route serves
+(rtxpt_tpu/pt/dispatch.py:129-143): "auto" resolves a scene with opacity
+micromaps, nested priorities or instanced cluster tables to "xla", and a
+pinned "clustered" refuses them by name; external NEE is refused by name
+on that route (the JAX package picks its clustered tier there and fails
+an assert).
+
 Nested dielectric priorities (`scene.has_nested_priorities`) are served
 on every tier, as in the JAX package (rtxpt_tpu/pt/dispatch.py:109-113,
 :140): the fused tier's K1 and the clustered tier's K4 run their priority
@@ -75,6 +83,7 @@ import torch
 
 from rtxpt_tpu_torch.config import NEEMode, PTMode
 from rtxpt_tpu_torch.lighting.lights_baker import KIND_ENVQUAD, KIND_SPHERE
+from rtxpt_tpu_torch.pt import bounce_clustered
 from rtxpt_tpu_torch.pt.bounce_clustered import DEFAULT_KSLOTS, DEFAULT_PAGES
 from rtxpt_tpu_torch.pt.bounce_fused import MAX_LIGHTS
 
@@ -190,6 +199,16 @@ def unsupported_features(scene, cfg, neeat_state=None, tier="auto",
     if kind == "xla" or tables is None:
         return out
     out += general_only_features(scene, cfg, tables)
+    if kind == "clustered" and not bounce_clustered.FLAT:
+        out += [f"{name} on the per-row route (bounce_clustered.FLAT is "
+                f"False)" for name in bounce_clustered.per_row_unserved(
+                    scene, tables)]
+        if needs_external_nee(scene, cfg):
+            # the JAX package takes its clustered tier here and fails an
+            # assert (bounce_clustered.py:1562-1564)
+            out.append("external NEE (NEE-AT, more than 128 lights, WRS "
+                       "K > 1) on the per-row route (bounce_clustered.FLAT "
+                       "is False)")
     if lights is not None and lights.env_light >= 0 and tables.env is None:
         out.append("an environment light without the tables' environment "
                    "table (prepare bakes it)")
@@ -245,8 +264,10 @@ def resolve(scene, cfg, device, neeat_state=None, **call):
                          f"kernels")
     kind, tables = _tables(scene, tier)
     _check_devices(scene, tables, neeat_state)
-    if tier == "auto" and kind in ("fused", "clustered") and \
-            general_only_features(scene, cfg, tables):
+    if tier == "auto" and kind in ("fused", "clustered") and (
+            general_only_features(scene, cfg, tables)
+            or (kind == "clustered"
+                and bounce_clustered.per_row_unserved(scene, tables))):
         xla = _tables(scene, "xla")
         if xla[0] is not None:
             kind, tables = xla

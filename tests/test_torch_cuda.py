@@ -10,7 +10,8 @@ final_env) with K4's export slots 3-5, on the sky Cornell box and the sky
 city, the texture variants of K1 and K4, the micromap variants of K1,
 K2, K3, K4, K5 and K9 on the curtain Cornell box and its 40 x 40 grid,
 and the nested-priority variants of K1 and K4 on the overlap boxes and a
-small Bistro, with the closed-form overlap radiance on every tier.
+small Bistro, with the closed-form overlap radiance on every tier, and
+the per-row kernels K6 and K7 on the small city and its sky variant.
 Needs an NVIDIA GPU and nvcc; skips without them. This file imports no
 JAX, so it runs where JAX is absent:
 
@@ -1000,3 +1001,77 @@ def test_prio_renders_count_their_launches(prio_scenes, gpu):
             cluster_shade_omm_tex_prio=5 * 2,
             cluster_shadow_omm=pages * 5 * 2)
         assert torch.isfinite(hdr).all() and float(hdr.mean()) > 1e-3
+
+
+@pytest.mark.parametrize("case", ["city", "sky", "kslots8"])
+def test_per_row_kernels_match_plain_versions(city, sky_city, case):
+    """K6 (its plain variant, or on the sky city `_env` and `_final`) and
+    K7 against their plain versions over three bounces of 4096 sorted
+    camera rays, the state carried by the plain versions: integer rows,
+    prim ids, row visits, occlusion and K7's pairs equal, float rows
+    within 2e-3 (bit-exact under -fmad=false); kslots 8 saturates the
+    lists."""
+    host, scene = sky_city if case == "sky" else city
+    tbl = scene.cluster_tables
+    dev = tbl.device
+    kslots = 8 if case == "kslots8" else 46
+    cfg = PathTracerConfig(max_bounces=4)
+    kcfg = bf.KernelConfig.from_cfg(cfg)
+    bounds = BC.scene_bounds(tbl)
+    fs, is_ = _state(host, cfg, 64, dev, 1)
+    src = torch.arange(fs.shape[1], dtype=torch.int32, device=dev)
+    for b in range(3):
+        fs, is_, src = BC.sort_wavefront(fs, is_, src, b == 0, bounds)
+        cand, _ = BC.cull(fs[bf.FS_O:bf.FS_O + 3], fs[bf.FS_D:bf.FS_D + 3],
+                          is_[bf.IS_ACTIVE] > 0, cfg.max_ray_travel, tbl,
+                          kslots)
+        for final in (False, True) if case == "sky" else (False,):
+            plain = BC.closest_shade_reference(
+                cand, fs, is_, tbl, kcfg, 1, kslots, cfg.max_ray_travel,
+                final_env=final, stats=True)
+            kern = BC.closest_shade(cand, fs, is_, tbl, kcfg, 1, kslots,
+                                    cfg.max_ray_travel, final_env=final,
+                                    stats=True)
+            assert torch.equal(kern[1], plain[1]), (b, final)
+            assert torch.equal(kern[3][1], plain[3][1]), (b, final)
+            assert torch.equal(kern[4], plain[4]), (b, final)
+            for k, p in zip(kern[:4], plain[:4]):
+                ok = torch.isclose(k.float(), p.float(), rtol=TOL, atol=TOL,
+                                   equal_nan=True)
+                assert ok.float().mean(1).min() >= 0.999, (b, final)
+            if not final:
+                out = plain
+        shp, _ = BC.sort_shadows(out[2], bounds)
+        dop = shp[BC.SH_DO] > 0.5
+        cand_s, _ = BC.cull(shp[BC.SH_O:BC.SH_O + 3],
+                            shp[BC.SH_D:BC.SH_D + 3], dop, shp[BC.SH_DIST],
+                            tbl, kslots)
+        occ_p, tst_p = BC.occlusion_rows_reference(cand_s, shp, tbl.blocks,
+                                                   kslots, stats=True)
+        occ_k, tst_k = BC.occlusion_rows(cand_s, shp, tbl.blocks, kslots,
+                                         stats=True)
+        assert torch.equal(occ_k, occ_p) and torch.equal(tst_k, tst_p), b
+        fs, is_ = out[0], out[1]
+
+
+def test_per_row_render_runs_through_k6_k7(city, sky_city, monkeypatch):
+    """On the per-row route every bounce launches K6 and K7 once (one
+    page), plus K6's final round with an environment, and the image
+    equals the flat route's at one page on this small city."""
+    monkeypatch.setattr(BC, "FLAT", False)
+    for (host, scene), env in ((city, False), (sky_city, True)):
+        cam = TP.default_camera(host, 32, 24)
+        cfg = PathTracerConfig(max_bounces=3, cluster_pages=1)
+        kernels.launches.clear()
+        hdr, _, rays = render(scene, cam, cfg, 32, 24, spp=2)
+        want = {("cluster_rows_closest_shade_env" if env else
+                 "cluster_rows_closest_shade"): 3 * 2,
+                "cluster_rows_shadow": 3 * 2}
+        if env:
+            want["cluster_rows_closest_shade_final"] = 2
+        assert dict(kernels.launches) == want
+        assert torch.isfinite(hdr).all() and rays > 0
+        monkeypatch.setattr(BC, "FLAT", True)
+        flat, _, rays_flat = render(scene, cam, cfg, 32, 24, spp=2)
+        monkeypatch.setattr(BC, "FLAT", False)
+        assert torch.equal(hdr, flat) and rays == rays_flat

@@ -267,6 +267,32 @@ Phases, one or a few lines of output each:
                 route at 1 page and at its default 2 pages (each timed),
                 and one profiled city frame (sort, cull, K6, K7, the
                 rest, idle).
+  17. split  -- the split channels and the aux guide buffers. (a) All
+                sixteen instantiations of K1 (curtain Cornell box) and of
+                K4 (its 40 x 40 grid, K3's hits) -- texture, micromap,
+                priority and split switches -- on 4,096 camera rays (the
+                priority ones on procedural.overlap_curtain from its
+                inside cameras, at least 5% of the active lanes priority
+                false hits), and K1's split variant on 65,536 rays of the
+                Cornell path (slot 2) and of the rooms (slot 3, the SF_*
+                rows), K4's on the 64 groups of the city's sorted 1080p
+                wavefront with the most hits (slot 2, and in the export
+                slots 3 and 5 with the SF_* rows), each at bounces 0 and
+                2 against its plain version: bit-exact (max abs err 0,
+                the fs2 rows and SH_CDIFF included). (b) K1 split beside
+                K1 at the Cornell and the rooms' 2^18-ray launches, K4
+                split beside K4 at the city's 1080p bounce-0 launch, with
+                their bounds (the fs2 rows' bytes added) and every
+                instantiation's registers and spills. (c) The Cornell
+                box (fused, 8 chunks of 2^18), NEE-AT on
+                rooms_scene(16) through the tile state
+                render_adaptive keeps (K1 split in slot 3, external_nee,
+                K2) and the city (flat clustered, 2 pages) at 1920x1080, 4
+                bounces, without and with split_channels + want_aux in
+                turns (1 warm-up and 2 timed samples each): the split
+                variants' launch counts, finite L_diff, L_spec and aux
+                buffers, the partition residual |L - emission - L_diff -
+                L_spec| < 2e-2, the city's cull_overflow.
 
 The line before the last holds {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Any failed phase, a missing GPU or a missing
@@ -646,6 +672,9 @@ def main(record_path=None, group_path=None):
     per_row = _per_row(record, dev, smi, dump, clustered["scene"],
                        group_path)
 
+    # ---- 17. the split channels and the aux guide buffers -------------------
+    split = _split_aux(record, dev, smi, dump, clustered["scene"])
+
     k1_paths = dict(cornell=cornell_launches["bounce_fused"],
                     **{k: v.get("bounce_fused", 0)
                        for k, v in ext["launches"].items()})
@@ -688,6 +717,7 @@ def main(record_path=None, group_path=None):
     entries.extend(alpha["entries"].values())
     entries.extend(prio["entries"].values())
     entries.extend(per_row["entries"].values())
+    entries.extend(split["entries"].values())
     # Bistro's launches of the micromap variants that phase 14 checks
     for entry in entries:
         n_bistro = prio["launches"]["bistro"].get(entry["name"], 0)
@@ -699,6 +729,15 @@ def main(record_path=None, group_path=None):
             entry.setdefault("launches_by_path", {})["bistro_general"] = \
                 n_gen
             entry["launches"] += n_gen
+    # the split paths' launches of kernels that earlier phases time (K2 on
+    # the rooms, K3 and K5 on the city)
+    for entry in entries:
+        for path, counts in split["launches"].items():
+            n_split = counts.get(entry["name"], 0)
+            if n_split and not entry["name"].endswith("_split"):
+                entry.setdefault("launches_by_path", {})[
+                    f"split_{path}"] = n_split
+                entry["launches"] += n_split
     # the texture paths' launches of kernels that earlier phases time
     tex_paths = dict(brute_closest=("kitchen_general",),
                      bounce_fused_final=("cornell", "kitchen"),
@@ -1106,7 +1145,7 @@ def _cluster_kernel_checks(record, dev, smi, dump, label, host, scene,
     libs = {k3n: kernels.CLUSTER_CLOSEST, k4n: kernels.CLUSTER_SHADE,
             k5n: kernels.CLUSTER_SHADOW}
     ptxas = {name: _ptxas_entry(lib.ptxas_log,
-                                f"ILb{int(k4_tex)}ELb{int(omm)}ELb0E"
+                                f"ILb{int(k4_tex)}ELb{int(omm)}ELb0ELb0E"
                                 if name == k4n else
                                 f"ILb{int(inst)}ELb{int(omm)}E")
              for name, lib in libs.items()}
@@ -2669,7 +2708,7 @@ def _textures(record, dev, smi, dump):
     # registers and spills of each K1 and K4 instantiation
     regs = {f"{lib}_{'tex' if t else 'plain'}": _ptxas_entry(
         getattr(kernels, attr).ptxas_log,
-        f"{lib}_kernelILb{int(t)}ELb0ELb0E")
+        f"{lib}_kernelILb{int(t)}ELb0ELb0ELb0E")
         for lib, attr in (("bounce_fused", "BOUNCE_FUSED"),
                           ("cluster_shade", "CLUSTER_SHADE"))
         for t in (False, True)}
@@ -3061,7 +3100,7 @@ def _alpha(record, dev, smi, dump):
     rec["ptxas"] = {
         f"{lib}_{'omm' if o else 'plain'}_{'tex' if t else 'notex'}":
             _ptxas_entry(getattr(kernels, attr).ptxas_log,
-                         f"{lib}_kernelILb{int(t)}ELb{int(o)}ELb0E")
+                         f"{lib}_kernelILb{int(t)}ELb{int(o)}ELb0ELb0E")
         for lib, attr in (("bounce_fused", "BOUNCE_FUSED"),
                           ("cluster_shade", "CLUSTER_SHADE"))
         for t in (False, True) for o in (False, True)}
@@ -3502,7 +3541,7 @@ def _priorities(record, dev, smi, dump):
         f"{lib}_{'tex' if t else 'notex'}_{'omm' if o else 'noomm'}_"
         f"{'prio' if p else 'noprio'}": _ptxas_entry(
             getattr(kernels, attr).ptxas_log,
-            f"{lib}_kernelILb{int(t)}ELb{int(o)}ELb{int(p)}E")
+            f"{lib}_kernelILb{int(t)}ELb{int(o)}ELb{int(p)}ELb0E")
         for lib, attr in (("bounce_fused", "BOUNCE_FUSED"),
                           ("cluster_shade", "CLUSTER_SHADE"))
         for t in (False, True) for o in (False, True) for p in (False, True)}
@@ -3608,9 +3647,9 @@ def _priorities(record, dev, smi, dump):
     groups_cmp = m // BC.FL
 
     def shade_both(ha, fs, is_, tables, kcfg_, sample_idx, final_env=False,
-                   omm=False, prio=False):
+                   omm=False, prio=False, fs2=None):
         out = k4_kernel(ha, fs, is_, tables, kcfg_, sample_idx, final_env,
-                        omm, prio)
+                        omm, prio, fs2)
         r = len(compared)
         compared[r] = None
         if r not in (0, 2) or final_env:
@@ -4318,6 +4357,490 @@ def _save_group(path, tbl, cand, fs, is_, ha3, hit6, flip, kslots, mt,
         **{k: v.cpu().numpy() for k, v in arrays.items()})
     print(f"per_row: groups {gs.tolist()} ({int(flip[lanes].sum())} lanes "
           f"whose K6 winner differs from K3's) saved to {path}", flush=True)
+
+
+SPLIT_SPP = 2                 # phase 17: timed samples of each path, each way
+SPLIT_SIDE = 64               # phase 17 (a): 4,096 rays per instantiation
+PARTITION_TOL = 2e-2          # |L - emission - L_diff - L_spec| (tests/
+#                               test_split_hot_tiers.py:37-39)
+AUX_KEYS = ("L_diff", "L_spec", "albedo", "albedo_diff", "albedo_spec",
+            "normal", "depth", "wpos", "emission")
+
+
+def _bit_exact(kern, plain):
+    """(bit-exact, max abs err) of a launch's outputs against its plain
+    version's: integer rows equal, non-finite values on the same lanes,
+    and the largest |difference| where both are finite (0 when exact)."""
+    import torch
+    same, err = True, 0.0
+    for k, p in zip(kern, plain):
+        if k.dtype == torch.int32:
+            same = same and bool(torch.equal(k, p))
+            continue
+        fk, fp = torch.isfinite(k), torch.isfinite(p)
+        same = same and bool(torch.equal(fk, fp)) and bool(
+            torch.equal(torch.isnan(k), torch.isnan(p)))
+        both = fk & fp
+        if both.any():
+            err = max(err, float((k - p)[both].abs().max()))
+    return same and err == 0.0, err
+
+
+def _split_aux(record, dev, smi, dump, city_prepared):
+    """Phase 17: the split channels and the aux guide buffers. (a) All
+    sixteen instantiations (tex, omm, prio, split) of K1 on the curtain
+    Cornell box and of K4 on its 40 x 40 grid (K3's hits), the priority
+    ones on the overlap curtain (procedural.overlap_curtain, without and
+    with its wall) from its inside cameras with at least FALSE_HIT_SHARE
+    of the active lanes priority false hits off the curtain, 4,096 camera
+    rays, bounces 0 and 2 (the plain version carries the state and the
+    split rows), and the split variants on the main paths' inputs: K1 on
+    65,536 Cornell rays (slot 2) and rooms rays (slot 3, SF_* rows), K4 on
+    the 64 groups of the city's sorted 1080p wavefront with the most hits
+    at bounces 0 and 2 (carried by the kernels), in slot 2 and in the
+    export slots 3 and 5 (SF_* rows): each bit-exact with its plain
+    version (max abs err 0). (b) K1 split and K1 timed at the Cornell
+    path's and the rooms' 2^18-ray launches, K4 split and K4 at the city's
+    1080p bounce-0 launch, beside their bounds (the non-split bound plus
+    the fs2 rows read and written), with every instantiation's registers
+    and spills. (c) The three paths at 1920x1080, 4 bounces, each without
+    and with split_channels + want_aux in turns (1 warm-up each, then
+    SPLIT_SPP timed samples each): the Cornell box (fused, power NEE, 8
+    chunks of 2^18), rooms_scene(16) with NEE-AT through the tile state
+    render_adaptive keeps (K1 split in slot 3, external_nee's cdiff, K2)
+    and the city (flat clustered, 2 pages; K3, K4 split, K5, with its
+    cull_overflow); the split run's launch counts, the partition residual,
+    finite L_diff, L_spec and aux buffers. Returns dict(entries={name:
+    kernel-line entry}, launches={path: counts})."""
+    import dataclasses as dc
+
+    import torch
+
+    from rtxpt_tpu_torch import kernels
+    from rtxpt_tpu_torch.config import NEEMode, PathTracerConfig
+    from rtxpt_tpu_torch.lighting import neeat as na
+    from rtxpt_tpu_torch.prepare import prepare
+    from rtxpt_tpu_torch.pt import bounce_clustered as BC
+    from rtxpt_tpu_torch.pt import bounce_fused as bf
+    from rtxpt_tpu_torch.pt.integrator import (
+        _pixel_grid, camera_rays, render_sample)
+    from rtxpt_tpu_torch.scene.procedural import (
+        OVERLAP_CURTAIN_Y, cornell_box, default_camera, overlap_curtain,
+        rooms_scene)
+
+    t_phase = time.perf_counter()
+    rec = dict(card=smi)
+    record["split"] = rec
+    sample = 1
+    w, h = EXT_FRAME
+
+    def grid_state(host, cfg, cols, rows, side_w=None, side_h=None):
+        """Camera rays of a cols x rows grid spread over a side_w x side_h
+        frame (the grid itself when not given)."""
+        cam = default_camera(host, side_w or cols, side_h or rows,
+                             device=dev)
+        px, py = _pixel_grid(cols, rows, dev)
+        if side_w:
+            px, py = px * side_w // cols, py * side_h // rows
+        o, d, spread = camera_rays(cam, cfg, px, py, sample)
+        return bf.initial_state(o, d, spread, px, py)
+
+    def zeros2(fs):
+        return torch.zeros((bf.NF2, fs.shape[1]), device=dev)
+
+    failed = []
+    err_k1 = err_k4 = 0.0
+
+    # ---- (a) the sixteen instantiations of K1 and K4 ----
+    hosts = _alpha_hosts()
+    curtain = prepare(hosts["curtain"], device=dev)
+    grid = prepare(hosts["grid"], device=dev)
+    nest = prepare(overlap_curtain([1, 2, 0]), device=dev)
+    nest_wall = prepare(overlap_curtain([1, 2, 0, 0], wall=True), device=dev)
+    if not (nest.has_nested_priorities and nest.bounce_tables.omm
+            and nest_wall.has_nested_priorities
+            and nest_wall.cluster_tables.omm):
+        _fail("split: the overlap curtain does not take every switch")
+
+    def false_hits(fs, is_in, is_out, t, hit):
+        """Share of the active lanes that passed through a priority false
+        hit: a hit off the curtain's plane."""
+        y = fs[bf.FS_O + 1] + t * fs[bf.FS_D + 1]
+        off = (y - OVERLAP_CURTAIN_Y).abs() >= 1e-3
+        return _false_hit_share(is_in, is_out, hit & off)
+
+    inst = {}
+    for t in (False, True):
+        cfg = PathTracerConfig(max_bounces=3, nee=NEEMode.POWER,
+                               stochastic_texture_filtering=t)
+        kcfg = bf.KernelConfig.from_cfg(cfg)
+        for o_ in (False, True):
+            for p in (False, True):
+                for s_ in (False, True):
+                    key = f"tex{int(t)}_omm{int(o_)}_prio{int(p)}_" \
+                          f"split{int(s_)}"
+                    k1_scene = nest if p else curtain
+                    tb = dc.replace(k1_scene.bounce_tables, omm=o_, prio=p)
+                    fs, is_ = _prio_state(SPLIT_SIDE, SPLIT_SIDE, dev,
+                                          sample) if p else grid_state(
+                        hosts["curtain"], cfg, SPLIT_SIDE, SPLIT_SIDE)
+                    fs2 = zeros2(fs) if s_ else None
+                    res, shares = {}, {}
+                    for b in range(3):
+                        plain = bf.bounce_reference(fs, is_, tb, kcfg,
+                                                    sample, fs2=fs2)
+                        if b in (0, 2):
+                            kern = bf.bounce(fs, is_, tb, kcfg, sample,
+                                             fs2=fs2)
+                            torch.cuda.synchronize()
+                            res[f"k1_b{b}"] = _bit_exact(kern, plain)
+                            if p:
+                                shares[f"k1_b{b}"] = false_hits(
+                                    fs, is_, plain[1], plain[2][0],
+                                    plain[2][1] >= 0)
+                        fs, is_ = plain[0], plain[1]
+                        fs2 = plain[-1] if s_ else None
+                    ctbl = (nest_wall if p else grid).cluster_tables
+                    fs, is_ = _prio_state(SPLIT_SIDE, SPLIT_SIDE, dev,
+                                          sample) if p else grid_state(
+                        hosts["grid"], cfg, SPLIT_SIDE, SPLIT_SIDE)
+                    fs2 = zeros2(fs) if s_ else None
+                    for b in range(3):
+                        od = BC.ray_operand(fs, is_)
+                        cand, _ = BC.cull(fs[bf.FS_O:bf.FS_O + 3],
+                                          fs[bf.FS_D:bf.FS_D + 3],
+                                          is_[bf.IS_ACTIVE] > 0, 1e27, ctbl,
+                                          ctbl.n_clusters)
+                        ha = BC.closest_hit(cand, od, ctbl.blocks,
+                                            ctbl.n_clusters, 1e27,
+                                            micro=ctbl.omm_word if o_
+                                            else None)
+                        plain = BC.shade_reference(ha, fs, is_, ctbl, kcfg,
+                                                   sample, omm=o_, prio=p,
+                                                   fs2=fs2)
+                        if b in (0, 2):
+                            kern = BC.shade(ha, fs, is_, ctbl, kcfg, sample,
+                                            omm=o_, prio=p, fs2=fs2)
+                            torch.cuda.synchronize()
+                            res[f"k4_b{b}"] = _bit_exact(kern, plain)
+                            if p:
+                                shares[f"k4_b{b}"] = false_hits(
+                                    fs, is_, plain[1], ha[BC.HA_T],
+                                    ha[BC.HA_PRIM] >= 0)
+                        fs, is_ = plain[0], plain[1]
+                        fs2 = plain[-1] if s_ else None
+                    inst[key] = {k: dict(exact=v[0], max_abs_err=v[1],
+                                         false_hit_share=shares.get(k))
+                                 for k, v in res.items()}
+                    for k, (ok, e) in res.items():
+                        if k.startswith("k1"):
+                            err_k1 = max(err_k1, e)
+                        else:
+                            err_k4 = max(err_k4, e)
+                        if not ok:
+                            failed.append(f"{key} {k}")
+                        if p and shares[k] < FALSE_HIT_SHARE:
+                            failed.append(f"{key} {k} false hits "
+                                          f"{shares[k]:.4f}")
+    rec["instantiations"] = inst
+    exact = {lib: sum(all(v[f"{lib}_b{b}"]["exact"] for b in (0, 2))
+                      for v in inst.values()) for lib in ("k1", "k4")}
+    least = min(v[k]["false_hit_share"] for v in inst.values() for k in v
+                if v[k]["false_hit_share"] is not None)
+    print(f"split (a): 16 K1 and 16 K4 instantiations at bounces 0 and 2 "
+          f"on {SPLIT_SIDE * SPLIT_SIDE} rays: {exact['k1']} K1 and "
+          f"{exact['k4']} K4 instantiations bit-exact, max abs err K1 "
+          f"{err_k1:.3g}, K4 {err_k4:.3g}; the priority ones on the overlap "
+          f"curtain, false hits at least {least:.4f} of the active lanes",
+          flush=True)
+
+    # ---- (a) the split variants on the main paths' inputs, (b) times ----
+    chost = cornell_box()
+    cornell = prepare(chost, device=dev)
+    rhost = rooms_scene(ROOMS)
+    rooms = prepare(rhost, device=dev)
+    cfgs = dict(
+        cornell=(chost, cornell, PathTracerConfig(
+            max_bounces=4, nee=NEEMode.POWER, split_channels=True,
+            ray_chunk=RAYS_TIMED)),
+        rooms=(rhost, rooms, PathTracerConfig(
+            max_bounces=4, nee=NEEMode.NEEAT, split_channels=True,
+            ray_chunk=EXT_CHUNK)))
+    k1 = {}
+    for name, (host, scene, cfg) in cfgs.items():
+        tbl = scene.bounce_tables
+        kcfg = bf.KernelConfig.from_cfg(cfg)
+        fs, is_ = grid_state(host, cfg, CMP_SIDE, CMP_SIDE, w, h)
+        fs2 = zeros2(fs)
+        cmp = {}
+        for b in range(3):
+            plain = bf.bounce_reference(fs, is_, tbl, kcfg, sample, fs2=fs2)
+            if b in (0, 2):
+                kern = bf.bounce(fs, is_, tbl, kcfg, sample, fs2=fs2)
+                torch.cuda.synchronize()
+                ok, e = _bit_exact(kern, plain)
+                cmp[f"bounce{b}"] = dict(exact=ok, max_abs_err=e)
+                err_k1 = max(err_k1, e)
+                if not ok:
+                    failed.append(f"k1 split {name} bounce {b}")
+            fs, is_, fs2 = plain[0], plain[1], plain[-1]
+        # times at the path's launch width: 2^18 rays over the frame
+        side = int(round(RAYS_TIMED ** 0.5))
+        fs_t, is_t = grid_state(host, cfg, side, side, w, h)
+        f2_t = zeros2(fs_t)
+        ms_split = _cuda_ms(lambda: bf.bounce(fs_t, is_t, tbl, kcfg, sample,
+                                              fs2=f2_t), 20)
+        ms_plain_variant = _cuda_ms(lambda: bf.bounce(fs_t, is_t, tbl, kcfg,
+                                                      sample), 20)
+        plain_ms = _cuda_ms(lambda: bf.bounce_reference(
+            fs_t, is_t, tbl, kcfg, sample, fs2=f2_t), 2)
+        n = side * side
+        rows = 2 * (bf.NF + bf.NI) + bf.NH \
+            + (bf.SF_ROWS if kcfg.external else 0)
+        tables_b = 4 * sum(_numel(t) for t in (
+            tbl.tri_coef, tbl.attr_rows, tbl.mat_rows, tbl.light_rows,
+            tbl.env))
+        active = int((is_t[bf.IS_ACTIVE] > 0).sum())
+        ops = active * tbl.n_tris * K1_PAIR_F32
+        bound, by, _ = _bound(4 * n * (rows + 2 * bf.NF2) + tables_b, f32=ops)
+        bound_ns, by_ns, _ = _bound(4 * n * rows + tables_b, f32=ops)
+        k1[name] = dict(cmp, slot=kcfg.nee_mode, rays=n, ms=ms_split,
+                        ms_without_split=ms_plain_variant, plain_ms=plain_ms,
+                        bound_ms=bound, bound_by=by,
+                        bound_without_split_ms=bound_ns,
+                        bound_without_split_by=by_ns)
+        print(f"split k1 {name} slot {kcfg.nee_mode}: bounces 0/2 exact "
+              f"{cmp['bounce0']['exact']}/{cmp['bounce2']['exact']}; split "
+              f"{ms_split:.4f} ms, without {ms_plain_variant:.4f} ms per "
+              f"{n}-ray launch, plain {plain_ms:.4f} ms, bound {bound:.4f} "
+              f"ms ({by}; without split {bound_ns:.4f}) ({smi})", flush=True)
+    rec["k1"] = k1
+
+    # K4 split on the city's 1080p wavefront: bounce 0 and 2 (the kernels
+    # carry it), the 64 groups with the most hits compared
+    chost_city, city, _ = city_prepared
+    ctb = city.cluster_tables
+    ccfg = PathTracerConfig(max_bounces=4, nee=NEEMode.POWER,
+                            split_channels=True, ray_chunk=1 << 30)
+    kcfg = bf.KernelConfig.from_cfg(ccfg)
+    export = {3: dc.replace(ccfg, nee=NEEMode.NEEAT),
+              5: dc.replace(ccfg, nee_external=True)}
+    export = {k: bf.KernelConfig.from_cfg(v) for k, v in export.items()}
+    if [k.nee_mode for k in export.values()] != [3, 5]:
+        _fail("split: the export configurations are not slots 3 and 5")
+    cw, ch = CITY_FRAME
+    fs, is_ = grid_state(chost_city, ccfg, cw, ch)
+    n = fs.shape[1]
+    fs2 = zeros2(fs)
+    src = torch.arange(n, dtype=torch.int32, device=dev)
+    bounds = BC.scene_bounds(ctb)
+    k4 = {}
+    for b in range(3):
+        fs, is_, src, fs2 = BC.sort_wavefront(fs, is_, src, b == 0, bounds,
+                                              fs2)
+        ha, _ = BC.closest_paged(fs, is_, ctb, 64, CITY_PAGES, 1e27)
+        if b in (0, 2):
+            hits = (ha[BC.HA_T] < bf._BIG).reshape(-1, BC.FL).sum(1)
+            top = torch.topk(hits, min(64, hits.numel())).indices.sort() \
+                .values
+            lanes = (top[:, None] * BC.FL + torch.arange(
+                BC.FL, device=dev)).reshape(-1)
+            sub = [x[:, lanes].contiguous() for x in (ha, fs, is_, fs2)]
+            kern = BC.shade(*sub[:3], ctb, kcfg, sample, fs2=sub[3])
+            plain = BC.shade_reference(*sub[:3], ctb, kcfg, sample,
+                                       fs2=sub[3])
+            torch.cuda.synchronize()
+            ok, e = _bit_exact(kern, plain)
+            err_k4 = max(err_k4, e)
+            k4[f"bounce{b}"] = dict(exact=ok, max_abs_err=e,
+                                    hit_share=float(hits[top].sum())
+                                    / lanes.numel())
+            if not ok:
+                failed.append(f"k4 split city bounce {b}")
+            for slot, kx in export.items():
+                # the export slots on the same rows: the SF_* rows too
+                kern = BC.shade(*sub[:3], ctb, kx, sample, fs2=sub[3])
+                plain = BC.shade_reference(*sub[:3], ctb, kx, sample,
+                                           fs2=sub[3])
+                torch.cuda.synchronize()
+                ok, e = _bit_exact(kern, plain)
+                err_k4 = max(err_k4, e)
+                shaded = float((plain[3][5] > 0.5).float().mean())
+                k4[f"slot{slot}_bounce{b}"] = dict(
+                    exact=ok, max_abs_err=e, shaded_share=shaded,
+                    outputs=len(kern))
+                if not ok or len(kern) != 6:
+                    failed.append(f"k4 split city slot {slot} bounce {b}")
+                if shaded < 0.05:
+                    failed.append(f"k4 split city slot {slot} bounce {b} "
+                                  f"shaded share {shaded:.4f}")
+        if b == 0:
+            ms_split = _cuda_ms(lambda: BC.shade(ha, fs, is_, ctb, kcfg,
+                                                 sample, fs2=fs2), 10)
+            ms_ns = _cuda_ms(lambda: BC.shade(ha, fs, is_, ctb, kcfg,
+                                              sample), 10)
+            plain_ms = _cuda_ms(lambda: BC.shade_reference(
+                *sub[:3], ctb, kcfg, sample, fs2=sub[3]), 2)
+            bound, by, _ = _bound(_k4_bytes(n, ctb, False, False)
+                                  + 4 * n * 2 * bf.NF2)
+            bound_ns, by_ns, _ = _bound(_k4_bytes(n, ctb, False, False))
+            k4.update(lanes=n, ms=ms_split, ms_without_split=ms_ns,
+                      plain_ms=plain_ms, plain_lanes=sub[1].shape[1],
+                      bound_ms=bound, bound_by=by,
+                      bound_without_split_ms=bound_ns)
+        out = BC.shade(ha, fs, is_, ctb, kcfg, sample, fs2=fs2)
+        fs, is_, fs2 = out[0], out[1], out[-1]
+    rec["k4"] = k4
+    print(f"split k4 city: bounces 0/2 exact {k4['bounce0']['exact']}/"
+          f"{k4['bounce2']['exact']}, in the export slots 3/5 "
+          f"{k4['slot3_bounce0']['exact'] and k4['slot3_bounce2']['exact']}/"
+          f"{k4['slot5_bounce0']['exact'] and k4['slot5_bounce2']['exact']}"
+          f" (hit shares "
+          f"{k4['bounce0']['hit_share']:.3f}/{k4['bounce2']['hit_share']:.3f}"
+          f"); split {k4['ms']:.4f} ms, without {k4['ms_without_split']:.4f}"
+          f" ms at {n} lanes, plain {k4['plain_ms']:.4f} ms at "
+          f"{k4['plain_lanes']}, bound {k4['bound_ms']:.4f} ms "
+          f"({k4['bound_by']}; without split "
+          f"{k4['bound_without_split_ms']:.4f}) ({smi})", flush=True)
+    rec["ptxas"] = {
+        f"{lib}_tex{t}_omm{o_}_prio{p}_split{s_}": _ptxas_entry(
+            getattr(kernels, attr).ptxas_log,
+            f"{lib}_kernelILb{t}ELb{o_}ELb{p}ELb{s_}E")
+        for lib, attr in (("bounce_fused", "BOUNCE_FUSED"),
+                          ("cluster_shade", "CLUSTER_SHADE"))
+        for t in (0, 1) for o_ in (0, 1) for p in (0, 1) for s_ in (0, 1)}
+    print("split ptxas (registers, spill store bytes): " + ", ".join(
+        f"{k} {v['registers']}/{v['spill_store_bytes']}"
+        for k, v in rec["ptxas"].items()), flush=True)
+    dump()
+    if failed:
+        _fail(f"split: not bit-exact with the plain version, or too few "
+              f"lanes exercised: {failed}")
+
+    # ---- (c) the three paths, without and with split + aux ----
+    paths = dict(
+        cornell=(chost, cornell, cfgs["cornell"][2], (w, h)),
+        rooms=(rhost, rooms, cfgs["rooms"][2], (w, h)),
+        city=(chost_city, city, ccfg, CITY_FRAME))
+    launches, frames = {}, {}
+    for name, (host, scene, cfg, (fw, fh)) in paths.items():
+        cam = default_camera(host, fw, fh, device=dev)
+        plain_cfg = dc.replace(cfg, split_channels=False)
+        neeat = cfg.nee == NEEMode.NEEAT
+        state = {False: None, True: None}
+
+        def frame(split, s):
+            """One sample, the NEE-AT tile state updated after it as
+            render_adaptive does."""
+            kw = {}
+            if neeat:
+                if state[split] is None:
+                    state[split] = na.init_state(fw, fh, scene.lights.count,
+                                                 device=dev)
+                kw["neeat_state"] = state[split]
+            out = render_sample(scene, cam, cfg if split else plain_cfg, fw,
+                                fh, s, want_aux=split, **kw)
+            if neeat:
+                state[split] = na.update(state[split], out["neeat_hist"])
+            return out
+
+        frame(False, 0)                                      # warm-ups
+        frame(True, 0)
+        torch.cuda.synchronize()
+        res = {}
+        for split in (False, True):
+            kernels.launches.clear()
+            t0 = time.perf_counter()
+            outs = [frame(split, s) for s in range(1, 1 + SPLIT_SPP)]
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = dict(kernels.launches)
+            rays = sum(int(o["ray_count"]) for o in outs)
+            r = dict(ms_per_frame=dt / SPLIT_SPP * 1e3,
+                     mrays_per_s=rays / dt / 1e6, launches=counts,
+                     finite=all(bool(torch.isfinite(o["L"]).all())
+                                for o in outs))
+            if "cull_overflow" in outs[0]:
+                r["cull_overflow"] = sum(int(o["cull_overflow"])
+                                         for o in outs)
+            if split:
+                launches[name] = counts
+                r["partition_residual"] = max(float((
+                    o["L"] - o["emission"] - o["L_diff"]
+                    - o["L_spec"]).abs().max()) for o in outs)
+                r["finite_split_aux"] = all(
+                    bool(torch.isfinite(o[k]).all()) for o in outs
+                    for k in AUX_KEYS)
+                r["L_diff_mean"] = float(outs[-1]["L_diff"].mean())
+                r["L_spec_mean"] = float(outs[-1]["L_spec"].mean())
+                r["L_mean"] = float(outs[-1]["L"].mean())
+            res["split_aux" if split else "without"] = r
+        frames[name] = res
+        s_, p_ = res["split_aux"], res["without"]
+        k = "cluster_shade_split" if name == "city" else "bounce_fused_split"
+        n_chunks = -(-(fw * fh) // cfg.ray_chunk)
+        want = n_chunks * cfg.max_bounces * SPLIT_SPP
+        print(f"split path {name} {fw}x{fh}: without {p_['ms_per_frame']:.1f}"
+              f" ms per 1-spp frame ({p_['mrays_per_s']:.2f} Mrays/s), with "
+              f"split + aux {s_['ms_per_frame']:.1f} ms "
+              f"({s_['mrays_per_s']:.2f}); {k} launches "
+              f"{s_['launches'].get(k, 0)} of {want}; partition residual "
+              f"{s_['partition_residual']:.3g}; L/L_diff/L_spec means "
+              f"{s_['L_mean']:.5f}/{s_['L_diff_mean']:.5f}/"
+              f"{s_['L_spec_mean']:.5f}"
+              + (f"; cull_overflow {s_['cull_overflow']} (without "
+                 f"{p_['cull_overflow']})" if "cull_overflow" in s_ else "")
+              + f" ({smi})", flush=True)
+        if s_["launches"].get(k, 0) != want or not s_["finite"] \
+                or not s_["finite_split_aux"] or not p_["finite"] \
+                or s_["partition_residual"] >= PARTITION_TOL \
+                or (name == "rooms"
+                    and s_["launches"].get("shadow_occlusion", 0) != want):
+            rec["paths"] = frames
+            dump()
+            _fail(f"split: the {name} path did not run through the split "
+                  f"kernels or its buffers are not right")
+    rec["paths"] = frames
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"split: phase 17 in {rec['seconds']:.1f}s", flush=True)
+    dump()
+
+    def regs(lib):
+        return {k: v for k, v in rec["ptxas"].items()
+                if k.startswith(lib) and k.endswith("split1")}
+
+    entries = dict(
+        bounce_fused_split=dict(
+            name="bounce_fused_split", route="cuda",
+            source="rtxpt_tpu_torch/csrc/bounce_fused.cu",
+            replaces="rtxpt_tpu/pt/bounce_pallas.py:1389",
+            launches=sum(launches[p].get("bounce_fused_split", 0)
+                         for p in ("cornell", "rooms")),
+            launches_by_path={p: launches[p].get("bounce_fused_split", 0)
+                              for p in ("cornell", "rooms")},
+            max_abs_err=err_k1, ms=k1["cornell"]["ms"],
+            plain_ms=k1["cornell"]["plain_ms"],
+            bound_ms=k1["cornell"]["bound_ms"],
+            bound_by=k1["cornell"]["bound_by"], library_ms=None,
+            ms_rooms_slot3=k1["rooms"]["ms"],
+            bound_rooms_slot3_ms=k1["rooms"]["bound_ms"],
+            instantiations_bit_exact=exact["k1"],
+            ptxas=regs("bounce_fused")),
+        cluster_shade_split=dict(
+            name="cluster_shade_split", route="cuda",
+            source="rtxpt_tpu_torch/csrc/cluster_shade.cu",
+            replaces="rtxpt_tpu/pt/bounce_clustered.py:462",
+            launches=launches["city"].get("cluster_shade_split", 0),
+            launches_by_path={"city": launches["city"].get(
+                "cluster_shade_split", 0)},
+            max_abs_err=err_k4, ms=k4["ms"], plain_ms=k4["plain_ms"],
+            bound_ms=k4["bound_ms"], bound_by=k4["bound_by"],
+            library_ms=None, instantiations_bit_exact=exact["k4"],
+            export_slots_bit_exact=all(
+                k4[f"slot{s_}_bounce{b}"]["exact"] for s_ in (3, 5)
+                for b in (0, 2)),
+            ptxas=regs("cluster_shade")))
+    return dict(entries=entries, launches=launches)
 
 
 def _write_record(record, path):

@@ -98,6 +98,10 @@ def main(argv=None):
                    default="aces")
     p.add_argument("--out", default="out.png", help="PNG output path")
     p.add_argument("--hdr", default=None, help="also dump linear HDR .npy")
+    p.add_argument("--aux", action="store_true",
+                   help="dump the albedo/normal/depth/wpos/emission guide "
+                        "buffers, averaged over the samples, as "
+                        "<out>.<key>.npy")
     p.add_argument("--seed", type=int, default=0, help="first sample index")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (the CUDA kernels) or cpu (their "
@@ -113,6 +117,9 @@ def main(argv=None):
         p.error("--candidates must be >= 1")
     if args.env_quads < 0:
         p.error("--env-quads must be >= 0")
+    if args.aux and args.nee == "neeat":
+        p.error("--aux: the NEE-AT render (render_adaptive) returns no "
+                "guide buffers")
     if args.envmap:
         p.error("--envmap: loading environment images is not ported to "
                 "rtxpt_tpu_torch yet (use --sky)")
@@ -149,9 +156,15 @@ def main(argv=None):
         stochastic_texture_filtering=args.stf)
 
     t0 = time.time()
-    run = render_adaptive if args.nee == "neeat" else render
-    hdr, _, rays = run(scene, cam, cfg, args.width, args.height,
-                       spp=args.spp, first_sample=args.seed)
+    if args.nee == "neeat":
+        hdr, _, rays = render_adaptive(scene, cam, cfg, args.width,
+                                       args.height, spp=args.spp,
+                                       first_sample=args.seed)
+        aux = {}
+    else:
+        hdr, aux, rays = render(scene, cam, cfg, args.width, args.height,
+                                spp=args.spp, first_sample=args.seed,
+                                want_aux=args.aux)
     ldr = tonemap(hdr, args.exposure, args.tonemap).cpu().numpy()
     dt = time.time() - t0
     print(f"[render] {args.width}x{args.height}@{args.spp}spp on {dev} in "
@@ -161,6 +174,9 @@ def main(argv=None):
     print(f"[out] {args.out}", file=sys.stderr)
     if args.hdr:
         np.save(args.hdr, hdr.cpu().numpy())
+    base = args.out.rsplit(".", 1)[0]
+    for k, v in aux.items():
+        np.save(f"{base}.{k}.npy", v.cpu().numpy())
     return 0
 
 

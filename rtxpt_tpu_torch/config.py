@@ -28,17 +28,16 @@ class NEEMode(enum.Enum):
     OFF = 0
     UNIFORM = 1
     POWER = 2     # power-proportional global CDF
-    NEEAT = 3     # feedback-adaptive (not ported yet)
+    NEEAT = 3     # feedback-adaptive (the external-NEE route)
 
 
 @dataclasses.dataclass(frozen=True)
 class PathTracerConfig:
     """Per-dispatch path tracing switches (see rtxpt_tpu/config.py for
     each field's reference analog). pt/dispatch.py refuses the fields
-    that select a feature the port does not serve yet (mode, nee NEEAT,
-    nee_candidates > 1, split_channels, nee_external); the fields that
-    tune only tiers the port does not have yet (textures, clusters, ray
-    sorting, pass-through, Pallas interpret mode) are not read."""
+    that select a feature the port does not serve yet (mode;
+    split_channels on the per-row clustered route) and sets
+    nee_external; the Pallas interpret mode is not read."""
 
     mode: PTMode = PTMode.REFERENCE
     max_bounces: int = 6

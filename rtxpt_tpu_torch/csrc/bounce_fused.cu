@@ -13,7 +13,9 @@
 // :1078-1160 the MIP-0 alpha test and the pass-through; :1350-1365 the
 // pass-through lane's state), and the nested-priority switch prio
 // (bounce_pallas.py:1138-1156: the false-hit rejection and the interior
-// list's lower slot; the same pass-through). Plain version:
+// list's lower slot; the same pass-through), and the split-channel switch
+// split_ch (bounce_pallas.py:1401-1422, :1501-1504, :1543-1545, :1568-1570:
+// the fs2 rows in and out). Plain version:
 // rtxpt_tpu_torch/pt/bounce_fused.py bounce_reference; wrapper:
 // bounce_fused.bounce.
 //
@@ -64,9 +66,17 @@
 // test reads two more material lanes (MT_PRIO of the hit's and of the
 // current medium, the medium's through L1 as the IoR lanes are) and rides
 // the micromaps' pass-through: a false hit keeps its path state but for
-// the interior list's lower slot, and continues the same ray. All eight
-// combinations are instantiated: a scene of the fused tier can have any
-// of the three switches.
+// the interior list's lower slot, and continues the same ray.
+//
+// Split channels: HasSplit is a fourth template parameter, so the eight
+// instantiations without it keep their code and registers. The split adds
+// seven f32 rows in and seven out per ray (56 B beside the 208 B of state
+// and hit rows), three floats of NEE diffuse part held across the shadow
+// ray, and one more BSDF evaluation of the diffuse lobes (bsdf_eval_split)
+// on the NEE sample: the ratio f_d / f that splits the clamped
+// contribution at logical bounce 0 reads the same f as the contribution.
+// All sixteen combinations are instantiated: the JAX kernel's split
+// composes with every other switch.
 #include <cuda_runtime.h>
 
 #include "bounce_fused.cuh"
@@ -76,40 +86,30 @@ namespace {
 
 constexpr int kThreads = 128;
 
-template <bool HasTex, bool HasOmm, bool HasPrio>
+template <bool HasTex, bool HasOmm, bool HasPrio, bool HasSplit>
 __global__ void __launch_bounds__(kThreads)
 bounce_fused_kernel(const float* __restrict__ fs, const int* __restrict__ is,
-                    float* __restrict__ fs_out, int* __restrict__ is_out,
-                    float* __restrict__ hit_out, float* __restrict__ surf_out,
+                    const float* __restrict__ fs2, float* __restrict__ fs_out,
+                    int* __restrict__ is_out, float* __restrict__ hit_out,
+                    float* __restrict__ surf_out, float* __restrict__ fs2_out,
                     rt::Tables tb, rt::Config cfg, int n) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  rt::bounce_ray<HasTex, HasOmm, HasPrio>(i, n, fs, is, fs_out, is_out, hit_out, surf_out,
-                                          tb, cfg);
+  rt::bounce_ray<HasTex, HasOmm, HasPrio, HasSplit>(i, n, fs, is, fs2, fs_out, is_out,
+                                                    hit_out, surf_out, fs2_out, tb, cfg);
 }
 
-template <bool HasTex, bool HasOmm>
-void launch_prio(bool prio, int blocks, cudaStream_t stream, const float* fs, const int* is,
-                 float* fs_out, int* is_out, float* hit_out, float* surf_out,
-                 const rt::Tables& tb, const rt::Config& cfg, int n) {
-  if (prio)
-    bounce_fused_kernel<HasTex, HasOmm, true><<<blocks, kThreads, 0, stream>>>(
-        fs, is, fs_out, is_out, hit_out, surf_out, tb, cfg, n);
-  else
-    bounce_fused_kernel<HasTex, HasOmm, false><<<blocks, kThreads, 0, stream>>>(
-        fs, is, fs_out, is_out, hit_out, surf_out, tb, cfg, n);
-}
-
-template <bool HasTex>
-void launch(bool omm, bool prio, int blocks, cudaStream_t stream, const float* fs,
-            const int* is, float* fs_out, int* is_out, float* hit_out, float* surf_out,
-            const rt::Tables& tb, const rt::Config& cfg, int n) {
-  if (omm)
-    launch_prio<HasTex, true>(prio, blocks, stream, fs, is, fs_out, is_out, hit_out,
-                              surf_out, tb, cfg, n);
-  else
-    launch_prio<HasTex, false>(prio, blocks, stream, fs, is, fs_out, is_out, hit_out,
-                               surf_out, tb, cfg, n);
+// The instantiation of the switches (tex, omm, prio, split) from the
+// runtime flags, one template parameter at a time.
+template <bool... B, class... Args>
+void launch(const bool* flags, int blocks, cudaStream_t stream, Args... args) {
+  if constexpr (sizeof...(B) == 4) {
+    bounce_fused_kernel<B...><<<blocks, kThreads, 0, stream>>>(args...);
+  } else if (flags[sizeof...(B)]) {
+    launch<B..., true>(flags, blocks, stream, args...);
+  } else {
+    launch<B..., false>(flags, blocks, stream, args...);
+  }
 }
 
 }  // namespace
@@ -120,10 +120,11 @@ void launch(bool omm, bool prio, int blocks, cudaStream_t stream, const float* f
 // and `tex_meta` ([n_tex, TX_COLS]) are the texture tables, `tex_maps` the
 // maps' bits; `micro` and `cover` ([tpad] each, or NULL for the variant
 // without micromaps) the micromap words and coverages; `prio` selects the
-// nested-priority variant.
+// nested-priority variant; `fs2` and `fs2_out` ([NF2, n] each, or NULL)
+// select the split variant.
 extern "C" int rtxpt_bounce_fused(
     const float* fs, const int* is, float* fs_out, int* is_out, float* hit_out,
-    float* surf_out, const float* tri_coef, const float* attr_rows, const float* mat_rows,
+    float* surf_out, const float* fs2, float* fs2_out, const float* tri_coef, const float* attr_rows, const float* mat_rows,
     const float* light_rows, const float* env, const float* tex, const int* tex_meta,
     int n_tex, int tex_maps, const int* micro, const float* cover, int n, int n_tris,
     int tpad, int n_lights,
@@ -158,12 +159,8 @@ extern "C" int rtxpt_bounce_fused(
   cfg.maxb = maxb;
   cfg.final_env = final_env != 0;
   int blocks = (n + kThreads - 1) / kThreads;
-  const bool omm = micro != nullptr;
-  if (tex != nullptr)
-    launch<true>(omm, prio != 0, blocks, (cudaStream_t)stream, fs, is, fs_out, is_out,
-                 hit_out, surf_out, tb, cfg, n);
-  else
-    launch<false>(omm, prio != 0, blocks, (cudaStream_t)stream, fs, is, fs_out, is_out,
-                  hit_out, surf_out, tb, cfg, n);
+  const bool flags[4] = {tex != nullptr, micro != nullptr, prio != 0, fs2 != nullptr};
+  launch<>(flags, blocks, (cudaStream_t)stream, fs, is, fs2, fs_out, is_out, hit_out,
+           surf_out, fs2_out, tb, cfg, n);
   return (int)cudaGetLastError();
 }

@@ -24,7 +24,11 @@
 // (bounce_pallas.py:1138-1156, :1350-1362): a hit on a lower-priority
 // medium's boundary inside a higher one, or on the back of a medium the
 // ray is not in, is a false hit; the interior list's lower slot (med1)
-// records it and the lane passes through as on a failed alpha test.
+// records it and the lane passes through as on a failed alpha test. The
+// split-channel switch is the template parameter HasSplit
+// (bounce_pallas.py:987-1008, :1211-1215, :1281-1287, :1309-1313, and the
+// fs2 rows at :1401-1422, :1501-1504, :1543-1545, :1568-1570): NRD's
+// diffuse/specular partition of the radiance, in the seven fs2 rows.
 #pragma once
 
 #include "omm.cuh"
@@ -47,6 +51,8 @@ enum { FS_O = 0, FS_D = 3, FS_THP = 6, FS_L = 9, FS_PREVPDF = 12, FS_CONE = 13,
        FS_SPREAD = 14, NF = 15 };
 enum { IS_ACTIVE = 0, IS_PREVDELTA = 1, IS_MED0 = 2, IS_MED1 = 3, IS_PX = 4,
        IS_PY = 5, IS_BUDGET = 6, IS_LBOUNCE = 7, NI = 8 };
+// split-channel rows: L_diff, L_spec, the first scatter's specular flag
+enum { F2_LD = 0, F2_LS = 3, F2_FSPEC = 6, NF2 = 7 };
 enum { AT_N0 = 0, AT_N1 = 3, AT_N2 = 6, AT_GN = 9, AT_MID = 12, AT_LPDF = 13,
        AT_LAREA = 14, AT_ISLIGHT = 15, AT_UV0 = 16, AT_UV1 = 18, AT_UV2 = 20,
        AT_LODB = 22, AT_LID = 23, AT_TANG = 24, AT_TSGN = 27, AT_ROWS = 28 };
@@ -361,6 +367,37 @@ RT_HD float4 tex_fetch(const Tables& tb, int tid, float uv_u, float uv_v, float 
   return RT_LDG(tb.tex + RT_LDG(m + TX_OFF + level) + yi * wi + xi);
 }
 
+// The split channels of one ray (its fs2 column): the diffuse and specular
+// radiance so far and the first scatter's specular flag; surface_and_shade
+// leaves the NEE contribution's diffuse part in cdiff.
+struct Split {
+  V3 ld, ls, cdiff;
+  float fspec;
+};
+
+RT_HD Split load_split(int i, int n, const float* __restrict__ fs2) {
+  auto F = [&](int r) { return fs2[r * n + i]; };
+  Split sp;
+  sp.ld = v3(F(F2_LD), F(F2_LD + 1), F(F2_LD + 2));
+  sp.ls = v3(F(F2_LS), F(F2_LS + 1), F(F2_LS + 2));
+  sp.fspec = F(F2_FSPEC);
+  sp.cdiff = splat(0.0f);
+  return sp;
+}
+
+RT_HD void store_split(int i, int n, const Split& sp, float* __restrict__ fs2_out) {
+  float* fo = fs2_out + i;
+  fo[(F2_LD + 0) * n] = sp.ld.x; fo[(F2_LD + 1) * n] = sp.ld.y; fo[(F2_LD + 2) * n] = sp.ld.z;
+  fo[(F2_LS + 0) * n] = sp.ls.x; fo[(F2_LS + 1) * n] = sp.ls.y; fo[(F2_LS + 2) * n] = sp.ls.z;
+  fo[F2_FSPEC * n] = sp.fspec;
+}
+
+// A contribution c whose diffuse part is cd, split into the channels.
+RT_HD void split_add(Split& sp, V3 cd, V3 c) {
+  sp.ld = sp.ld + cd;
+  sp.ls = sp.ls + (c - cd);
+}
+
 // Per-ray wavefront state (the FS_* / IS_* rows of one column).
 struct RayState {
   V3 o, d, thp, L;
@@ -449,10 +486,16 @@ RT_HD void store_state(int i, int n, const RayState& s, float* __restrict__ fs_o
 // med0) updates med1 (the entered medium if it outranks med1's, -1 if the
 // left one is med1) and passes through the same way; Beer-Lambert over the
 // skipped segment still applies, as the kept throughput is taken after it.
-template <bool HasTex, bool HasOmm, bool HasPrio, class AttrFetch>
+// HasSplit (`sp`, the ray's split channels): the environment of a miss and
+// the emission after the first vertex go to the first scatter's channel
+// (sp->fspec), the NEE contribution's diffuse part goes to sp->cdiff (its
+// exact lobe share, bsdf_eval_split over bsdf_eval after the firefly clamp,
+// at logical bounce 0; the first scatter's channel after), and the scatter
+// of a shaded lane at logical bounce 0 sets sp->fspec.
+template <bool HasTex, bool HasOmm, bool HasPrio, bool HasSplit, class AttrFetch>
 RT_HD ShadowRay surface_and_shade(RayState& s, const Hit& h, const AttrFetch& A,
                                   const Tables& tb, const Config& cfg,
-                                  SurfRows* sf = nullptr) {
+                                  SurfRows* sf = nullptr, Split* sp = nullptr) {
   const int mode = cfg.nee_mode;
   const bool use_nee = (mode == 1 || mode == 2) && tb.n_lights > 0;
   const bool ext_nee = (mode >= 3 && mode <= 5) && tb.n_lights > 0;
@@ -475,7 +518,9 @@ RT_HD ShadowRay surface_and_shade(RayState& s, const Hit& h, const AttrFetch& A,
     float w_env = 1.0f;
     if ((use_nee || ext_nee) && cfg.enable_mis)
       w_env = (s.prev_delta || lb == 0) ? 1.0f : power_heuristic(s.prev_pdf, e.pdf);
-    s.L = s.L + s.thp * e.L * w_env;
+    const V3 c_env = s.thp * e.L * w_env;
+    s.L = s.L + c_env;
+    if constexpr (HasSplit) split_add(*sp, sp->fspec > 0.5f ? splat(0.0f) : c_env, c_env);
   }
   bool hit_mask = s.active && hit;
   bool active = s.active && hit;                 // miss terminates
@@ -623,7 +668,11 @@ RT_HD ShadowRay surface_and_shade(RayState& s, const Hit& h, const AttrFetch& A,
   if (mode == 3) {
     if (hit_shade) em3 = thp * emissive;
   } else if (hit_shade) {
-    s.L = s.L + thp * emissive * w_em;
+    const V3 em_c = thp * emissive * w_em;
+    s.L = s.L + em_c;
+    // the primary vertex's emission goes to neither channel
+    if constexpr (HasSplit)
+      if (lb > 0) split_add(*sp, sp->fspec > 0.5f ? splat(0.0f) : em_c, em_c);
   }
   if (sf != nullptr) {
     sf->pos = pos;
@@ -699,6 +748,13 @@ RT_HD ShadowRay surface_and_shade(RayState& s, const Hit& h, const AttrFetch& A,
       float lum = luminance3(sr.contrib);
       sr.contrib = sr.contrib * min_(cfg.firefly / max_(lum, (float)1e-12), 1.0f);
     }
+    if constexpr (HasSplit) {
+      V3 f_dp, f_sp;
+      bsdf_eval_split(b, wo, wi_l, f_dp, f_sp);
+      const V3 ratio = f_dp / max3_(f_l, (float)1e-12);
+      sp->cdiff = lb == 0 ? sr.contrib * ratio
+                          : (sp->fspec > 0.5f ? splat(0.0f) : sr.contrib);
+    }
     float dist_eff = ls.dist - dot3(sr.o - pos, ls.wi);
     sr.dist = sr.do_nee ? dist_eff * (float)(1.0 - 1e-4) : 0.0f;
     sr.d = ls.wi;
@@ -709,6 +765,11 @@ RT_HD ShadowRay surface_and_shade(RayState& s, const Hit& h, const AttrFetch& A,
   float u_lobe = ss.dim(0), su1 = ss.dim(2), su2 = ss.dim(3);
   BSDFSample bs = bsdf_sample(b, wo, u_lobe, su1, su2);
   V3 wi_world = to_world3(bs.wi, sh_n);
+  if constexpr (HasSplit) {
+    if (lb == 0 && hit_shade)
+      sp->fspec = (bs.lobe == LOBE_SPECULAR_REFL || bs.lobe == LOBE_SPECULAR_TRANS) ? 1.0f
+                                                                                    : 0.0f;
+  }
   bool leak = (bs.wi.z > 0.0f) != (dot3(wi_world, gn) > 0.0f);
   active = active && (passthru || (bs.valid && !leak && (luminance3(bs.weight) > 0.0f)));
   const V3 thp_ns = thp;                       // what a pass-through lane keeps
@@ -755,15 +816,19 @@ RT_HD ShadowRay surface_and_shade(RayState& s, const Hit& h, const AttrFetch& A,
 // active ray that misses adds thp x the environment, weighted against the
 // environment's NEE pdf when MIS is on and the NEE mode is one of
 // `nee_modes` (a bit per mode: K1 1, 2, 4, 5; K4 1, 2); the ray ends.
+// HasSplit: the environment goes to the first scatter's channel.
+template <bool HasSplit>
 RT_HD void final_env_state(RayState& s, bool hit, const Tables& tb, const Config& cfg,
-                           int nee_modes) {
+                           int nee_modes, Split* sp = nullptr) {
   const bool use_nee = ((nee_modes >> cfg.nee_mode) & 1) && tb.n_lights > 0;
   if (s.active && !hit) {
     EnvTexel e = env_eval_pdf(tb.env, s.d, cfg.nee_mode == 1, tb.n_lights);
     float w_env = 1.0f;
     if (use_nee && cfg.enable_mis)
       w_env = s.prev_delta ? 1.0f : power_heuristic(s.prev_pdf, e.pdf);
-    s.L = s.L + s.thp * e.L * w_env;
+    const V3 c_env = s.thp * e.L * w_env;
+    s.L = s.L + c_env;
+    if constexpr (HasSplit) split_add(*sp, sp->fspec > 0.5f ? splat(0.0f) : c_env, c_env);
   }
   s.active = false;
 }
@@ -792,12 +857,18 @@ RT_HD void store_surf(int i, int n, const SurfRows& sf, float* __restrict__ surf
 // (the external modes 3-5 with lights) the surface rows go there, no shadow
 // ray is traced, and hit row 5 holds the shading flag: 0 not shaded, 1 shaded
 // at logical bounce 0, 2 shaded later (bounce_pallas.py:1556-1560).
-template <bool HasTex, bool HasOmm, bool HasPrio>
+// HasSplit: the split rows fs2 in and fs2_out out ([NF2, n]); an unoccluded
+// NEE contribution adds cdiff to L_diff and the rest to L_spec (in the
+// external modes trace_paths_fused merges it).
+template <bool HasTex, bool HasOmm, bool HasPrio, bool HasSplit>
 RT_HD void bounce_ray(int i, int n, const float* __restrict__ fs, const int* __restrict__ is,
-                      float* __restrict__ fs_out, int* __restrict__ is_out,
-                      float* __restrict__ hit_out, float* __restrict__ surf_out,
+                      const float* __restrict__ fs2, float* __restrict__ fs_out,
+                      int* __restrict__ is_out, float* __restrict__ hit_out,
+                      float* __restrict__ surf_out, float* __restrict__ fs2_out,
                       const Tables& tb, const Config& cfg) {
   RayState s = load_state(i, n, fs, is);
+  Split sp;
+  if constexpr (HasSplit) sp = load_split(i, n, fs2);
   const int lb_in = s.lb;
   Hit h = intersect<HasOmm>(tb, s.o, s.d, cfg.max_travel);
   float* ho = hit_out + i;
@@ -807,8 +878,10 @@ RT_HD void bounce_ray(int i, int n, const float* __restrict__ fs, const int* __r
   ho[3 * n] = h.v;
   ho[4 * n] = h.det > 0.0f ? 1.0f : 0.0f;
   if (cfg.final_env) {
-    final_env_state(s, h.t < kBig, tb, cfg, (1 << 1) | (1 << 2) | (1 << 4) | (1 << 5));
+    final_env_state<HasSplit>(s, h.t < kBig, tb, cfg,
+                              (1 << 1) | (1 << 2) | (1 << 4) | (1 << 5), &sp);
     store_state(i, n, s, fs_out, is_out);
+    if constexpr (HasSplit) store_split(i, n, sp, fs2_out);
     ho[5 * n] = 0.0f;
     return;
   }
@@ -816,11 +889,17 @@ RT_HD void bounce_ray(int i, int n, const float* __restrict__ fs, const int* __r
     return h.prim >= 0 ? RT_LDG(tb.attr + r * tb.tpad + h.prim) : 0.0f;
   };
   SurfRows sf;
-  ShadowRay sr = surface_and_shade<HasTex, HasOmm, HasPrio>(
-      s, h, attr, tb, cfg, surf_out != nullptr ? &sf : nullptr);
-  if (sr.do_nee && !occluded<HasOmm>(tb, sr.o, sr.d, sr.dist, sr.u_alpha))
+  ShadowRay sr = surface_and_shade<HasTex, HasOmm, HasPrio, HasSplit>(
+      s, h, attr, tb, cfg, surf_out != nullptr ? &sf : nullptr, &sp);
+  if (sr.do_nee && !occluded<HasOmm>(tb, sr.o, sr.d, sr.dist, sr.u_alpha)) {
     s.L = s.L + sr.contrib;
+    if constexpr (HasSplit) {
+      sp.ld = sp.ld + sp.cdiff;
+      sp.ls = sp.ls + sr.contrib - sp.cdiff;
+    }
+  }
   store_state(i, n, s, fs_out, is_out);
+  if constexpr (HasSplit) store_split(i, n, sp, fs2_out);
   if (surf_out != nullptr) {
     store_surf(i, n, sf, surf_out);
     ho[5 * n] = sf.shaded ? (lb_in > 0 ? 2.0f : 1.0f) : 0.0f;

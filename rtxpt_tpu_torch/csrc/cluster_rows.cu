@@ -132,9 +132,9 @@ closest_shade_kernel(const int* __restrict__ cand, const float* __restrict__ fs,
   h.prim = -1;                           // surface_and_shade reads it only via A
   h.unk = false;
   auto attr = [&](int k) { return crow(kAttrRows[k]); };
-  shade_hit<HasTex, false, false>(i, n, load_state(i, n, fs, is), h,
-                                  hit ? crow(AT_GIDX) : -1.0f, attr, fs_out, is_out,
-                                  sh_out, hit_out, nullptr, tb, cfg);
+  shade_hit<HasTex, false, false, false>(i, n, load_state(i, n, fs, is), h,
+                                         hit ? crow(AT_GIDX) : -1.0f, attr, fs_out, is_out,
+                                         sh_out, hit_out, nullptr, tb, cfg);
 }
 
 __global__ void __launch_bounds__(RL)

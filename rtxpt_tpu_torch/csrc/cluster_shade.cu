@@ -13,8 +13,10 @@
 // :561-571: K3's HA_UNK flag into the alpha test and the pass-through, the
 // alpha uniform out in SH_UA), and K1's nested-priority switch (the
 // template parameter HasPrio, prio=True at :464, :560: the false-hit
-// pass-through on K3's winner, all eight combinations instantiated).
-// Plain version: rtxpt_tpu_torch/pt/bounce_clustered.py shade_reference;
+// pass-through on K3's winner), and the split-channel switch (the template
+// parameter HasSplit, cfg_key[9] at :469-494, :536-539, :557-559,
+// :586-588: the fs2 rows in and out, the NEE diffuse part in SH_CDIFF; all
+// sixteen combinations instantiated). Plain version: rtxpt_tpu_torch/pt/bounce_clustered.py shade_reference;
 // wrapper: bounce_clustered.shade.
 //
 // Design. One thread per lane over a 1-D grid, as K1 (bounce_fused.cu): the
@@ -32,6 +34,8 @@
 // 1080p wavefront; the export adds 24 rows (96 B), the environment table's
 // 164 KB count once per launch and stay in L1 / L2, and so does the texture
 // atlas (a float4 per fetch through __ldg, up to four fetches per lane).
+// The split variant reads and writes the seven fs2 rows (56 B) and writes
+// the three SH_CDIFF rows it otherwise zeroes: 56 B more per lane.
 #include <cuda_runtime.h>
 
 #include "cluster_shade.cuh"
@@ -41,43 +45,32 @@ namespace {
 
 constexpr int kThreads = 128;
 
-template <bool HasTex, bool HasOmm, bool HasPrio>
+template <bool HasTex, bool HasOmm, bool HasPrio, bool HasSplit>
 __global__ void __launch_bounds__(kThreads)
 cluster_shade_kernel(const float* __restrict__ ha, const float* __restrict__ fs,
-                     const int* __restrict__ is, float* __restrict__ fs_out,
-                     int* __restrict__ is_out, float* __restrict__ sh_out,
-                     float* __restrict__ hit_out, float* __restrict__ surf_out,
+                     const int* __restrict__ is, const float* __restrict__ fs2,
+                     float* __restrict__ fs_out, int* __restrict__ is_out,
+                     float* __restrict__ sh_out, float* __restrict__ hit_out,
+                     float* __restrict__ surf_out, float* __restrict__ fs2_out,
                      rt::Tables tb, rt::Config cfg, int n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  rt::cl::shade_lane<HasTex, HasOmm, HasPrio>(i, n, ha, fs, is, fs_out, is_out, sh_out,
-                                              hit_out, surf_out, tb, cfg);
+  rt::cl::shade_lane<HasTex, HasOmm, HasPrio, HasSplit>(i, n, ha, fs, is, fs2, fs_out,
+                                                        is_out, sh_out, hit_out, surf_out,
+                                                        fs2_out, tb, cfg);
 }
 
-template <bool HasTex, bool HasOmm>
-void launch_prio(bool prio, int blocks, cudaStream_t stream, const float* ha,
-                 const float* fs, const int* is, float* fs_out, int* is_out, float* sh_out,
-                 float* hit_out, float* surf_out, const rt::Tables& tb,
-                 const rt::Config& cfg, int n) {
-  if (prio)
-    cluster_shade_kernel<HasTex, HasOmm, true><<<blocks, kThreads, 0, stream>>>(
-        ha, fs, is, fs_out, is_out, sh_out, hit_out, surf_out, tb, cfg, n);
-  else
-    cluster_shade_kernel<HasTex, HasOmm, false><<<blocks, kThreads, 0, stream>>>(
-        ha, fs, is, fs_out, is_out, sh_out, hit_out, surf_out, tb, cfg, n);
-}
-
-template <bool HasTex>
-void launch(bool omm, bool prio, int blocks, cudaStream_t stream, const float* ha,
-            const float* fs, const int* is, float* fs_out, int* is_out, float* sh_out,
-            float* hit_out, float* surf_out, const rt::Tables& tb, const rt::Config& cfg,
-            int n) {
-  if (omm)
-    launch_prio<HasTex, true>(prio, blocks, stream, ha, fs, is, fs_out, is_out, sh_out,
-                              hit_out, surf_out, tb, cfg, n);
-  else
-    launch_prio<HasTex, false>(prio, blocks, stream, ha, fs, is, fs_out, is_out, sh_out,
-                               hit_out, surf_out, tb, cfg, n);
+// The instantiation of the switches (tex, omm, prio, split) from the
+// runtime flags, one template parameter at a time.
+template <bool... B, class... Args>
+void launch(const bool* flags, int blocks, cudaStream_t stream, Args... args) {
+  if constexpr (sizeof...(B) == 4) {
+    cluster_shade_kernel<B...><<<blocks, kThreads, 0, stream>>>(args...);
+  } else if (flags[sizeof...(B)]) {
+    launch<B..., true>(flags, blocks, stream, args...);
+  } else {
+    launch<B..., false>(flags, blocks, stream, args...);
+  }
 }
 
 }  // namespace
@@ -86,10 +79,12 @@ void launch(bool omm, bool prio, int blocks, cudaStream_t stream, const float* h
 // external modes; `env` ([ET_SIZE] or NULL) is the environment table, which
 // `final_env` needs; `tex` / `tex_meta` / `n_tex` / `tex_maps` the texture
 // tables as K1 takes them (NULL for the untextured variant); `omm` selects
-// the micromap variant, `prio` the nested-priority one.
+// the micromap variant, `prio` the nested-priority one; `fs2` and `fs2_out`
+// ([NF2, n] each, or NULL) the split one.
 extern "C" int rtxpt_cluster_shade(
     const float* ha, const float* fs, const int* is, float* fs_out, int* is_out,
-    float* sh_out, float* hit_out, float* surf_out, const float* mat_rows,
+    float* sh_out, float* hit_out, float* surf_out, const float* fs2, float* fs2_out,
+    const float* mat_rows,
     const float* light_rows, const float* env, const float* tex, const int* tex_meta,
     int n_tex, int tex_maps, int omm, int prio, int n, int n_lights,
     unsigned int sample_idx, int nee_mode, int enable_mis, float firefly,
@@ -123,11 +118,8 @@ extern "C" int rtxpt_cluster_shade(
   cfg.maxb = maxb;
   cfg.final_env = final_env != 0;
   const int blocks = (n + kThreads - 1) / kThreads;
-  if (tex != nullptr)
-    launch<true>(omm != 0, prio != 0, blocks, (cudaStream_t)stream, ha, fs, is, fs_out,
-                 is_out, sh_out, hit_out, surf_out, tb, cfg, n);
-  else
-    launch<false>(omm != 0, prio != 0, blocks, (cudaStream_t)stream, ha, fs, is, fs_out,
-                  is_out, sh_out, hit_out, surf_out, tb, cfg, n);
+  const bool flags[4] = {tex != nullptr, omm != 0, prio != 0, fs2 != nullptr};
+  launch<>(flags, blocks, (cudaStream_t)stream, ha, fs, is, fs2, fs_out, is_out, sh_out,
+           hit_out, surf_out, fs2_out, tb, cfg, n);
   return (int)cudaGetLastError();
 }

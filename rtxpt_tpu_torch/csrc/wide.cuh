@@ -228,6 +228,17 @@ RT_HD V3 bsdf_eval(const BSDF& b, V3 wo, V3 wi) {
   return f;
 }
 
+// bsdf_eval split into its diffuse part (diffuse reflection and
+// transmission) and its specular part (microfacet reflection, transmission
+// and the Kulla-Conty lobe), in the plain version's order
+// (wide.py bsdf_eval_split_w; the JAX package's wide.py:323).
+RT_HD void bsdf_eval_split(const BSDF& b, V3 wo, V3 wi, V3& f_d, V3& f_s) {
+  f_d = eval_diffuse(b, wo, wi) * (1.0f - b.transmission) * (1.0f - b.dtrans) +
+        eval_diffuse_trans(b, wo, wi);
+  f_s = eval_spec_refl(b, wo, wi) + eval_spec_trans(b, wo, wi);
+  if (b.ms) f_s = f_s + eval_spec_ms(b, wo, wi);
+}
+
 RT_HD float ggx_vndf_pdf(V3 wo, V3 h, float alpha) {
   float woz = max_(wo.z, kMinCos);
   float doth = max_(dot3(wo, h), 0.0f);

@@ -21,7 +21,10 @@ micromap variants ("bounce_fused_omm_tex", "shadow_occlusion_omm",
 "cluster_closest_omm", "cluster_shade_omm_tex", "cluster_shadow_omm",
 "bvh_traverse_omm"), and so do the nested-priority variants of the shading
 kernels ("bounce_fused_prio", "bounce_fused_omm_tex_prio",
-"cluster_shade_omm_tex_prio" and so on), and so do the per-row kernels
+"cluster_shade_omm_tex_prio" and so on), and so do their split-channel
+variants ("bounce_fused_split", "bounce_fused_tex_split_env",
+"bounce_fused_final_split", "cluster_shade_split" and so on), and so do
+the per-row kernels
 K6 and K7 ("cluster_rows_closest_shade" with its "_env", "_tex",
 "_tex_env" and "_final" variants, "cluster_rows_shadow"). `build_all()`
 builds every library at once, one nvcc process per source.
@@ -154,6 +157,7 @@ BOUNCE_FUSED = CudaLibrary(
     {"rtxpt_bounce_fused": [
         _P, _P, _P, _P, _P,            # fs, is_, fs_out, is_out, hit_out
         _P,                            # surf_out (external modes) | NULL
+        _P, _P,                        # fs2, fs2_out (split) | NULL
         _P, _P, _P, _P,                # tri_coef, attr, mat, light rows
         _P,                            # env table | NULL
         _P, _P, _I, _I,                # tex | NULL, tex_meta, n_tex,
@@ -201,6 +205,7 @@ CLUSTER_SHADE = CudaLibrary(
     {"rtxpt_cluster_shade": [
         _P, _P, _P, _P, _P, _P, _P,    # ha, fs, is_, fs_out, is_out, sh, hit
         _P,                            # surf_out (external modes) | NULL
+        _P, _P,                        # fs2, fs2_out (split) | NULL
         _P, _P, _P,                    # mat, light rows, env table | NULL
         _P, _P, _I, _I,                # tex | NULL, tex_meta, n_tex,
         #                                tex_maps

@@ -163,7 +163,7 @@ SH_D = 3                 # 3:6 direction
 SH_DIST = 6
 SH_CONTRIB = 7           # 7:10
 SH_DO = 10
-SH_CDIFF = 11            # 11:14 split channels: always 0 here
+SH_CDIFF = 11            # 11:14 the NEE contribution's diffuse part (split)
 SH_UA = 14               # the stochastic alpha uniform (opacity micromaps)
 SH_ROWS = 15
 
@@ -542,7 +542,7 @@ def occlusion_reference(cand, sh, blocks, kslots: int, stats: bool = False,
 
 def shade_reference(ha, fs, is_, tables, kcfg: bf.KernelConfig,
                     sample_idx: int, final_env: bool = False,
-                    omm: bool = False, prio: bool = False):
+                    omm: bool = False, prio: bool = False, fs2=None):
     """K4's plain version (the function of `_kernel_a2`): surface_and_shade
     on K3's hits. ha [HA_ROWS, N], fs [NF, N], is_ [NI, N] ->
     (fs_out [NF, N], is_out [NI, N], sh [SH_ROWS, N], hit [NH, N]), plus
@@ -554,18 +554,22 @@ def shade_reference(ha, fs, is_, tables, kcfg: bf.KernelConfig,
     `omm` (`_kernel_a2(omm=True)`): HA_UNK feeds surface_and_shade's
     alpha test and pass-through, and SH_UA carries the alpha uniform.
     `prio` (`_kernel_a2(prio=True)`): the nested-priority false-hit
-    pass-through of surface_and_shade."""
+    pass-through of surface_and_shade. With the split rows `fs2` [NF2, N]
+    (`_kernel_a2`'s split variant, bounce_clustered.py:469-494, :536-539,
+    :557-559, :586-588) fs2_out comes last and SH_CDIFF holds the NEE
+    contribution's diffuse part, which trace_paths_clustered merges after
+    K5."""
     t = ha[HA_T]
     hit = t < _BIG
     front = ha[HA_FRONT] > 0.0
     if final_env:
-        fs_out, is_out = bf.final_env_state(fs, is_, hit, tables.env, kcfg,
-                                            tables.n_lights, (1, 2))
+        outs = bf.final_env_state(fs, is_, hit, tables.env, kcfg,
+                                  tables.n_lights, (1, 2), fs2)
         sh = torch.zeros((SH_ROWS,) + t.shape, device=t.device)
         hit_out = torch.stack([torch.where(hit, t, 0.0), ha[HA_PRIM],
                                ha[HA_U], ha[HA_V], front.to(torch.float32),
                                torch.zeros_like(t)])
-        return fs_out, is_out, sh, hit_out
+        return outs[:2] + (sh, hit_out) + outs[2:]
 
     def attr(i, k=1):
         return ha[HA_ATTR + i] if k == 1 else ha[HA_ATTR + i:HA_ATTR + i + k]
@@ -582,7 +586,8 @@ def shade_reference(ha, fs, is_, tables, kcfg: bf.KernelConfig,
         py=is_[bf.IS_PY], budget=is_[bf.IS_BUDGET],
         lb=is_[bf.IS_LBOUNCE].to(torch.int64), tables=tables, kcfg=kcfg,
         sample_idx=sample_idx,
-        omm_unknown=(ha[HA_UNK] > 0.5) if omm else None, prio=prio)
+        omm_unknown=(ha[HA_UNK] > 0.5) if omm else None, prio=prio,
+        **bf.split_args(fs2))
     fs_out = torch.cat([s["o_new"], s["wi_world"], s["thp"], s["L"],
                         s["prev_pdf"][None], s["cone"][None],
                         s["spread"][None]], dim=0)
@@ -592,18 +597,20 @@ def shade_reference(ha, fs, is_, tables, kcfg: bf.KernelConfig,
                           is_[bf.IS_PX], is_[bf.IS_PY], is_[bf.IS_BUDGET],
                           s["lbounce"].to(i32)], dim=0)
     do = s["do_nee"].to(torch.float32)
-    zeros = torch.zeros((3,) + t.shape, device=t.device)
+    cdiff = torch.zeros((3,) + t.shape, device=t.device) if fs2 is None \
+        else s["cdiff"]
     ua = s["u_alpha"] if omm else torch.zeros_like(t)
     sh = torch.cat([s["shadow_o"], s["shadow_d"], s["sdist"][None],
-                    s["contrib"], do[None], zeros, ua[None]], dim=0)
+                    s["contrib"], do[None], cdiff, ua[None]], dim=0)
     ext = s["surf"] is not None
     flag = s["shaded"].to(torch.float32) \
         * (1.0 + (is_[bf.IS_LBOUNCE] > 0).to(torch.float32)) if ext else do
     hit_out = torch.stack([torch.where(hit, t, 0.0), ha[HA_PRIM], ha[HA_U],
                            ha[HA_V], front.to(torch.float32), flag], dim=0)
-    if ext:
-        return fs_out, is_out, sh, hit_out, s["surf"]
-    return fs_out, is_out, sh, hit_out
+    outs = (fs_out, is_out, sh, hit_out) + ((s["surf"],) if ext else ())
+    if fs2 is not None:
+        outs += (torch.cat([s["ld"], s["ls"], s["fspec"][None]]),)
+    return outs
 
 
 # ---------------------------------------------------------------------------
@@ -873,11 +880,12 @@ def occlusion(cand, sh, blocks, kslots: int, stats: bool = False, xf=None,
 
 
 def shade(ha, fs, is_, tables, kcfg: bf.KernelConfig, sample_idx: int,
-          final_env: bool = False, omm: bool = False, prio: bool = False):
+          final_env: bool = False, omm: bool = False, prio: bool = False,
+          fs2=None):
     """K4 (csrc/cluster_shade.cu; its micromap variant with `omm`, its
-    nested-priority variant with `prio`) for CUDA tensors, its plain
-    version for CPU tensors. Arguments and results as in
-    `shade_reference`."""
+    nested-priority variant with `prio`, its split variant with the split
+    rows `fs2`) for CUDA tensors, its plain version for CPU tensors.
+    Arguments and results as in `shade_reference`."""
     dev = _device_of("shade", fs, ha, is_, tables.mat_rows,
                      tables.light_rows)
     if final_env and tables.env is None:
@@ -886,8 +894,11 @@ def shade(ha, fs, is_, tables, kcfg: bf.KernelConfig, sample_idx: int,
     prio = prio and not final_env
     if dev.type == "cpu":
         return shade_reference(ha, fs, is_, tables, kcfg, sample_idx,
-                               final_env, omm, prio)
+                               final_env, omm, prio, fs2)
     n = fs.shape[1]
+    split = fs2 is not None
+    if split:
+        bf._check("fs2", fs2, torch.float32, (bf.NF2, n), dev)
     bf._check("ha", ha, torch.float32, (HA_ROWS, n), dev)
     bf._check("fs", fs, torch.float32, (bf.NF, n), dev)
     bf._check("is_", is_, torch.int32, (bf.NI, n), dev)
@@ -907,16 +918,23 @@ def shade(ha, fs, is_, tables, kcfg: bf.KernelConfig, sample_idx: int,
     outs = (torch.empty_like(fs), torch.empty_like(is_),
             torch.empty((SH_ROWS, n), dtype=torch.float32, device=dev),
             torch.empty((bf.NH, n), dtype=torch.float32, device=dev))
+    surf_out = None
     if kcfg.external and tables.n_lights > 0 and not final_env:
-        outs += (torch.empty((bf.SF_ROWS, n), dtype=torch.float32,
-                             device=dev),)
+        surf_out = torch.empty((bf.SF_ROWS, n), dtype=torch.float32,
+                               device=dev)
+        outs += (surf_out,)
+    fs2_out = torch.empty_like(fs2) if split else None
+    if split:
+        outs += (fs2_out,)
     if n == 0:
         return outs
     with torch.cuda.device(dev):
         kernels.CLUSTER_SHADE.launch(
             "rtxpt_cluster_shade", ha.data_ptr(), fs.data_ptr(),
             is_.data_ptr(), *(x.data_ptr() for x in outs[:4]),
-            outs[4].data_ptr() if len(outs) > 4 else None,
+            None if surf_out is None else surf_out.data_ptr(),
+            fs2.data_ptr() if split else None,
+            fs2_out.data_ptr() if split else None,
             tables.mat_rows.data_ptr(), tables.light_rows.data_ptr(),
             None if tables.env is None else tables.env.data_ptr(),
             *bf.tex_args(tables, tex), int(omm), int(prio), n,
@@ -926,7 +944,7 @@ def shade(ha, fs, is_, tables, kcfg: bf.KernelConfig, sample_idx: int,
             int(kcfg.low_discrepancy), int(kcfg.energy_comp), kcfg.maxb,
             int(final_env), torch.cuda.current_stream(dev).cuda_stream)
     kernels.launches[bf.variant_name("cluster_shade", tables.env is not None,
-                                     final_env, tex, omm, prio)] += 1
+                                     final_env, tex, omm, prio, split)] += 1
     return outs
 
 
@@ -1129,10 +1147,11 @@ def cull(o3, d3, active, tmax, tbl, kslots: int, lo=None):
                                tbl.aabb_lo, tbl.aabb_hi, kslots, lo=lo)
 
 
-def sort_wavefront(fs, is_, src, first: bool, bounds):
+def sort_wavefront(fs, is_, src, first: bool, bounds, fs2=None):
     """The wavefront sort before a bounce: pixel Morton order at bounce 0
     (the camera rays share an origin), the ray coherence key after;
-    inactive lanes last. Returns (fs, is_, src) permuted alike."""
+    inactive lanes last. Returns (fs, is_, src) permuted alike, and the
+    split rows `fs2` too when given (bounce_clustered.py:1739-1780)."""
     active = is_[bf.IS_ACTIVE] > 0
     if first:
         key = torch.where(active,
@@ -1143,7 +1162,8 @@ def sort_wavefront(fs, is_, src, first: bool, bounds):
                                 fs[bf.FS_D:bf.FS_D + 3], *bounds, active)
     with record_function("rtxpt.sort"):
         _, perm = torch.sort(key, stable=True)
-        return fs[:, perm], is_[:, perm], src[perm]
+        out = fs[:, perm], is_[:, perm], src[perm]
+        return out if fs2 is None else out + (fs2[:, perm],)
 
 
 def sort_shadows(sh, bounds):
@@ -1239,10 +1259,11 @@ def per_row_unserved(scene, tables):
 
 
 def trace_paths_clustered(scene, cfg, o, d, cone_spread, px, py,
-                          sample_idx, neeat_state=None):
+                          sample_idx, neeat_state=None,
+                          want_aux: bool = False):
     """Trace a wavefront of camera rays to completion on the clustered
     tier (bounce_clustered.trace_paths_clustered of the JAX package, the
-    flat all-rows route, without aux buffers or split channels), flat or
+    flat all-rows route), flat or
     instanced; textures go in-kernel with stochastic texture filtering
     only (`bounce_fused.use_tex`). `cfg` is resolved by
     `dispatch.resolve`, which sets kslots, pages and nee_external.
@@ -1264,12 +1285,26 @@ def trace_paths_clustered(scene, cfg, o, d, cone_spread, px, py,
     histogram ("rtxpt.nee" and "rtxpt.feedback" ranges, as on the fused
     tier). With an environment, the final round follows the last bounce.
 
+    With `cfg.split_channels` (flat route only) K4 runs its split variant
+    on the split rows fs2, which ride every sort; its SH_CDIFF rows (or
+    external_nee's cdiff) split the unoccluded NEE contribution after K5,
+    NEE-AT's deferred emission of the lanes past their first vertex goes
+    to the first scatter's channel, and the result holds L_diff and L_spec
+    [N,3] in the lanes' original order (bounce_clustered.py:1844-1861,
+    :1953-1958, :2061-2067). With `want_aux` it holds the aux guide
+    buffers of the bounce-0 hits, unsorted by that bounce's permutation
+    (bounce_fused.first_hit_aux, bounce_clustered.py:2071-2095); on
+    instanced tables the hits carry their instance, so that the buffers
+    are in world space as on the TLAS route (the JAX tier's are in object
+    space: ROADMAP F13).
+
     With `FLAT` false the per-row route runs instead (module docstring):
     K6 and K7 over one page each, `cfg.cluster_pages` unused.
 
     o, d [N,3]; cone_spread [N]; px, py [N] int. Returns dict(L [N,3],
     ray_count, occupancy [B+1], cull_overflow) with the counts as int64
-    tensors, plus neeat_hist on the NEE-AT route."""
+    tensors, plus neeat_hist on the NEE-AT route and the split and aux
+    buffers above."""
     tbl = scene.cluster_tables
     dev = o.device
     n = o.shape[0]
@@ -1286,9 +1321,11 @@ def trace_paths_clustered(scene, cfg, o, d, cone_spread, px, py,
     ext = kcfg.external and tbl.n_lights > 0
     omm = tbl.omm and bf.use_tex(tbl, kcfg)
     prio = bool(getattr(scene, "has_nested_priorities", False))
+    split = bool(cfg.split_channels)
     if not FLAT:
         unserved = per_row_unserved(scene, tbl) + (
-            ["external NEE"] if ext else [])
+            ["external NEE"] if ext else []) + (
+            ["split diffuse/specular channels"] if split else [])
         if unserved:
             raise NotImplementedError("the per-row clustered route does not "
                                       "serve: " + ", ".join(unserved))
@@ -1305,6 +1342,9 @@ def trace_paths_clustered(scene, cfg, o, d, cone_spread, px, py,
     is_[bf.IS_ACTIVE, n:] = 0
     src = torch.arange(npad, dtype=torch.int32, device=dev)
     bounds = scene_bounds(tbl)
+    fs2 = torch.zeros((bf.NF2, npad), dtype=torch.float32, device=dev) \
+        if split else None
+    hit0 = src0 = None
 
     ray_count = torch.zeros((), dtype=torch.int64, device=dev)
     overflow = torch.zeros((), dtype=torch.int64, device=dev)
@@ -1312,7 +1352,10 @@ def trace_paths_clustered(scene, cfg, o, d, cone_spread, px, py,
     extra = int(getattr(cfg, "passthrough_extra_iters", 2)) \
         if omm or prio else 0
     for b in range(cfg.max_bounces + extra):
-        if sort_rays:
+        if sort_rays and split:
+            fs, is_, src, fs2 = sort_wavefront(fs, is_, src, b == 0, bounds,
+                                               fs2)
+        elif sort_rays:
             fs, is_, src = sort_wavefront(fs, is_, src, b == 0, bounds)
         n_active = (is_[bf.IS_ACTIVE] > 0).sum(dtype=torch.int64)
         occupancy.append(n_active)
@@ -1332,8 +1375,15 @@ def trace_paths_clustered(scene, cfg, o, d, cone_spread, px, py,
             prev_delta_in = is_[bf.IS_PREVDELTA] > 0
             lb_in = is_[bf.IS_LBOUNCE]
             out = shade(ha, fs, is_, tbl, kcfg, sample_idx, omm=omm,
-                        prio=prio)
+                        prio=prio, fs2=fs2)
             fs, is_, sh, hitb = out[:4]
+            if split:
+                fs2 = out[-1]
+        if b == 0:
+            hit0, src0 = hitb, src
+            if FLAT and tbl.instanced:
+                # the winners' instances: the aux rows in world space (F13)
+                hit0 = torch.cat([hitb, ha[HA_INST:HA_INST + 1]])
         ray_count = ray_count + n_active
         overflow = overflow + ovf
         if ext:
@@ -1342,15 +1392,22 @@ def trace_paths_clustered(scene, cfg, o, d, cone_spread, px, py,
                 res = external_nee(scene, cfg, neeat_state, out[4], d_in,
                                    hitb[5] > 0.5, prev_pdf_in, prev_delta_in,
                                    is_[bf.IS_PX], is_[bf.IS_PY], sample_idx,
-                                   0, lb=lb_in)
+                                   0, first_spec=(fs2[bf.F2_FSPEC] > 0.5)
+                                   if split else None, lb=lb_in)
                 fs[bf.FS_L:bf.FS_L + 3] += res["em_add"].T
+                if split and kcfg.nee_mode == 3:
+                    # NEE-AT's deferred emission past the first vertex
+                    em_t = torch.where(lb_in > 0, res["em_add"].T, 0.0)
+                    fs2 = bf.split_add(fs2, torch.where(
+                        fs2[bf.F2_FSPEC] > 0.5, 0.0, em_t), em_t)
                 ua = bf.alpha_uniform(cfg, is_[bf.IS_PX], is_[bf.IS_PY],
                                       lb_in, sample_idx) if omm \
                     else torch.zeros((npad,), device=dev)
                 sh = torch.cat([
                     res["shadow_o"].T, res["shadow_d"].T, res["sdist"][None],
                     res["contrib"].T, res["do_nee"].to(torch.float32)[None],
-                    torch.zeros((SH_UA - SH_CDIFF, npad), device=dev),
+                    res["cdiff"].T if split else torch.zeros(
+                        (SH_UA - SH_CDIFF, npad), device=dev),
                     ua[None]])
         if use_nee or ext:
             do = sh[SH_DO] > 0.5
@@ -1371,6 +1428,10 @@ def trace_paths_clustered(scene, cfg, o, d, cone_spread, px, py,
             ok = do & (occ < 0.5)
             fs[bf.FS_L:bf.FS_L + 3] += torch.where(
                 ok, sh[SH_CONTRIB:SH_CONTRIB + 3], 0.0)
+            if split:
+                fs2 = bf.split_add(
+                    fs2, torch.where(ok, sh[SH_CDIFF:SH_CDIFF + 3], 0.0),
+                    torch.where(ok, sh[SH_CONTRIB:SH_CONTRIB + 3], 0.0))
             ray_count = ray_count + do.sum(dtype=torch.int64)
             overflow = overflow + ovf
             if hist is not None:
@@ -1388,8 +1449,11 @@ def trace_paths_clustered(scene, cfg, o, d, cone_spread, px, py,
                 ha, ovf = closest_paged(fs, is_, tbl, kslots, pages,
                                         max_travel, noprune, omm)
                 ha = post_attr_inst(ha, tbl)
-                fs, is_, _, _ = shade(ha, fs, is_, tbl, kcfg, sample_idx,
-                                      final_env=True)
+                out = shade(ha, fs, is_, tbl, kcfg, sample_idx,
+                            final_env=True, fs2=fs2)
+                fs, is_ = out[:2]
+                if split:
+                    fs2 = out[-1]
             else:
                 cand, ovf = cull(fs[bf.FS_O:bf.FS_O + 3],
                                  fs[bf.FS_D:bf.FS_D + 3],
@@ -1406,6 +1470,16 @@ def trace_paths_clustered(scene, cfg, o, d, cone_spread, px, py,
         L = unsort_rows(src, L)
     result = dict(L=L.T[:n], ray_count=ray_count,
                   occupancy=torch.stack(occupancy), cull_overflow=overflow)
+    if split:
+        f2 = fs2[bf.F2_LD:bf.F2_LS + 3]
+        if sort_rays:
+            f2 = unsort_rows(src, f2)
+        result.update(L_diff=f2[0:3].T[:n], L_spec=f2[3:6].T[:n])
     if hist is not None:
         result["neeat_hist"] = hist
+    if want_aux:
+        if sort_rays:
+            hit0 = unsort_rows(src0, hit0)
+        result.update(bf.first_hit_aux(scene, cfg, hit0[:, :n], o, d,
+                                       cone_spread, split))
     return result

@@ -40,7 +40,11 @@ the `prio` variant treats a hit on a lower-priority medium's boundary
 while inside a higher one (a false entry), or on the back of a medium
 the ray is not in (a false exit), as a false hit: the interior list's
 lower slot (IS_MED1) is updated and the lane passes through, as on an
-alpha test. No split channels and no V-buffer injection; sphere and
+alpha test. With `cfg.split_channels` the split variant carries NRD's
+diffuse/specular partition in the split rows fs2 (F2_*), and
+`trace_paths_fused` returns L_diff and L_spec beside L, and with
+`want_aux` the first hit's guide buffers (`first_hit_aux`). No V-buffer
+injection; sphere and
 environment-quad lights are the general tier's (`build_bounce_tables`
 raises NotImplementedError for them).
 
@@ -96,6 +100,13 @@ NI = 8
 
 # hit_out rows: t (0 on a miss), prim (-1 on a miss), u, v, front, do_nee
 NH = 6
+# Split-channel rows fs2 [NF2, N] (cfg.split_channels; bounce_pallas.py
+# fs2): the diffuse and specular radiance, and whether the first scatter
+# took a specular lobe (1.0) or not (0.0)
+F2_LD = 0               # 0:3 L_diff
+F2_LS = 3               # 3:6 L_spec
+F2_FSPEC = 6
+NF2 = 7
 
 _NO_BUDGET = 0x3FFFFFFF
 
@@ -943,9 +954,10 @@ def surface_and_shade(*, o, d, t, hit, front, bu, bv, attr, thp, L,
                       prev_pdf, cone, spread, active, prev_delta, med0, med1,
                       px, py, budget, lb, tables: BounceTables,
                       kcfg: KernelConfig, sample_idx: int,
-                      omm_unknown=None, prio: bool = False):
-    """Post-intersection bounce body (bounce_pallas.surface_and_shade with
-    no split channels): the environment of a
+                      omm_unknown=None, prio: bool = False, ld=None,
+                      ls=None, fspec=None):
+    """Post-intersection bounce body (bounce_pallas.surface_and_shade): the
+    environment of a
     miss with its MIS weight (when the tables carry the environment
     table), surface fetch, the texture switch (`use_tex`: base colour,
     metal-rough, emissive and normal maps, one stochastic texel each at
@@ -972,7 +984,16 @@ def surface_and_shade(*, o, d, t, hit, front, bu, bv, attr, thp, L,
     occlusion. In the external modes (3-5) there is no shadow ray: the
     surface rows `surf` [SF_ROWS, N] go out instead, and in mode 3
     (NEE-AT) the emission with them, unweighted. csrc/bounce_fused.cuh
-    holds the same function per ray."""
+    holds the same function per ray.
+    With the split channels (`ld`, `ls` [3, N] the diffuse and specular
+    radiance so far, `fspec` [N] the first scatter's specular flag;
+    bounce_pallas.py:987-1008, :1211-1215, :1281-1287, :1309-1313) the
+    environment and the emission after the first vertex go to the lobe of
+    the first scatter, the NEE contribution's diffuse part `cdiff` is its
+    exact lobe share at logical bounce 0 and follows the first scatter
+    after, and the scatter at logical bounce 0 of a shaded lane sets
+    `fspec`; the result then holds ld, ls, fspec and cdiff."""
+    split = ld is not None
     n_lights = tables.n_lights
     mode = kcfg.nee_mode
     use_nee = mode in (1, 2) and n_lights > 0
@@ -1007,7 +1028,12 @@ def surface_and_shade(*, o, d, t, hit, front, bu, bv, attr, thp, L,
                                 W.power_heuristic(prev_pdf, p_env))
         else:
             w_env = torch.ones_like(t)
-        L = L + torch.where(active & ~hit, thp * env_L * w_env, 0.0)
+        c_env = torch.where(active & ~hit, thp * env_L * w_env, 0.0)
+        L = L + c_env
+        if split:
+            cd = torch.where(fspec > 0.5, 0.0, c_env)
+            ld = ld + cd
+            ls = ls + (c_env - cd)
     active = active & hit                      # miss terminates
     not_expired = (lb < budget) & (lb < kcfg.maxb)
     active = active & not_expired
@@ -1155,7 +1181,14 @@ def surface_and_shade(*, o, d, t, hit, front, bu, bv, attr, thp, L,
     if mode == 3:
         em3 = torch.where(hit_shade, thp * emissive, 0.0)
     else:
-        L = L + torch.where(hit_shade, thp * emissive * w_em, 0.0)
+        em_c = torch.where(hit_shade, thp * emissive * w_em, 0.0)
+        L = L + em_c
+        if split:
+            # the primary vertex's emission goes to neither channel
+            em_c = torch.where(lb > 0, em_c, 0.0)
+            cd = torch.where(fspec > 0.5, 0.0, em_c)
+            ld = ld + cd
+            ls = ls + (em_c - cd)
         em3 = torch.zeros_like(thp)
     surf = None
     if ext_nee:
@@ -1208,6 +1241,13 @@ def surface_and_shade(*, o, d, t, hit, front, bu, bv, attr, thp, L,
             lum = W.luminance3(contrib)
             contrib = contrib * torch.clamp(
                 kcfg.firefly / torch.clamp(lum, min=1e-12), max=1.0)
+        if split:
+            f_dp, _ = W.bsdf_eval_split_w(bsdf, wo, wi_l)
+            ratio = f_dp / torch.clamp(f_l, min=1e-12)
+            cdiff = torch.where(lb == 0, contrib * ratio,
+                                torch.where(fspec > 0.5, 0.0, contrib))
+        else:
+            cdiff = torch.zeros_like(thp)
         dist_eff = lsmp["dist"] - W.dot3(shadow_o - pos, lsmp["wi"])
         sdist = torch.where(do_nee, dist_eff * (1.0 - 1e-4), 0.0)
         shadow_d = lsmp["wi"]
@@ -1216,6 +1256,7 @@ def surface_and_shade(*, o, d, t, hit, front, bu, bv, attr, thp, L,
         shadow_o, shadow_d = pos, d
         sdist = torch.zeros_like(t)
         contrib = torch.zeros_like(thp)
+        cdiff = torch.zeros_like(thp)
 
     # ----- scatter -----
     # the state a pass-through lane keeps
@@ -1224,6 +1265,11 @@ def surface_and_shade(*, o, d, t, hit, front, bu, bv, attr, thp, L,
     u_lobe, su1, su2 = lds(eff_seed(EFFECT_SCATTER), (0, 2, 3))
     bs = W.bsdf_sample_w(bsdf, wo, u_lobe, su1, su2)
     wi_world = W.to_world3(bs["wi"], sh_n)
+    if split:
+        is_spec = (bs["lobe"] == W.LOBE_SPECULAR_REFL) \
+            | (bs["lobe"] == W.LOBE_SPECULAR_TRANS)
+        fspec = torch.where((lb == 0) & hit_shade, is_spec.to(torch.float32),
+                            fspec)
     leak = (bs["wi"][2] > 0.0) != (W.dot3(wi_world, gn) > 0.0)
     active = active & (passthru | (bs["valid"] & ~leak
                                    & (W.luminance3(bs["weight"]) > 0.0)))
@@ -1270,17 +1316,28 @@ def surface_and_shade(*, o, d, t, hit, front, bu, bv, attr, thp, L,
                 lbounce=lb_out, do_nee=do_nee, shadow_o=shadow_o,
                 shadow_d=shadow_d, sdist=sdist, contrib=contrib,
                 shaded=hit_shade, surf=surf, u_alpha=u_alpha,
-                passthru=passthru)
+                passthru=passthru, ld=ld, ls=ls, fspec=fspec, cdiff=cdiff)
+
+
+def split_add(fs2, cd, tot):
+    """fs2 with `cd` [3, N] added to the diffuse channel and tot - cd to
+    the specular one: the wavefront loops' merge of a contribution whose
+    diffuse part is cd (bounce_pallas.py:1911-1925)."""
+    return torch.cat([fs2[F2_LD:F2_LD + 3] + cd,
+                      fs2[F2_LS:F2_LS + 3] + (tot - cd),
+                      fs2[F2_FSPEC:F2_FSPEC + 1]])
 
 
 def final_env_state(fs, is_, hit, env, kcfg: KernelConfig, n_lights: int,
-                    nee_modes):
+                    nee_modes, fs2=None):
     """The final environment-only round after the last bounce (the JAX
     package's `final_env` kernel branch, which mirrors its general tier's
     last HandleMiss): each active lane that misses adds thp x the
     environment, weighted against the environment's NEE pdf when its NEE
     mode is in `nee_modes` (K1: 1, 2, 4, 5; K4: 1, 2) and MIS is on; every
-    lane ends inactive. Returns (fs_out, is_out)."""
+    lane ends inactive. Returns (fs_out, is_out), and with the split rows
+    `fs2` [NF2, N] also fs2_out, the environment in the first scatter's
+    channel (bounce_pallas.py:1501-1504)."""
     use_nee = kcfg.nee_mode in nee_modes and n_lights > 0
     miss = (is_[IS_ACTIVE] > 0) & ~hit
     env_L, p_env = env_eval_pdf(env, fs[FS_D:FS_D + 3], kcfg.nee_mode == 1,
@@ -1290,16 +1347,19 @@ def final_env_state(fs, is_, hit, env, kcfg: KernelConfig, n_lights: int,
                             W.power_heuristic(fs[FS_PREVPDF], p_env))
     else:
         w_env = torch.ones_like(p_env)
+    c_env = torch.where(miss, fs[FS_THP:FS_THP + 3] * env_L * w_env, 0.0)
     fs_out = fs.clone()
-    fs_out[FS_L:FS_L + 3] = fs[FS_L:FS_L + 3] + torch.where(
-        miss, fs[FS_THP:FS_THP + 3] * env_L * w_env, 0.0)
+    fs_out[FS_L:FS_L + 3] = fs[FS_L:FS_L + 3] + c_env
     is_out = is_.clone()
     is_out[IS_ACTIVE] = 0
-    return fs_out, is_out
+    if fs2 is None:
+        return fs_out, is_out
+    cd = torch.where(fs2[F2_FSPEC] > 0.5, 0.0, c_env)
+    return fs_out, is_out, split_add(fs2, cd, c_env)
 
 
 def bounce_reference(fs, is_, tables: BounceTables, kcfg: KernelConfig,
-                     sample_idx: int, final_env: bool = False):
+                     sample_idx: int, final_env: bool = False, fs2=None):
     """One bounce of the whole wavefront in plain PyTorch: the function
     the CUDA kernel computes per ray (_intersect_group, surface_and_shade,
     _occluded_group). fs [NF,N] f32, is_ [NI,N] i32 -> (fs_out [NF,N],
@@ -1313,7 +1373,11 @@ def bounce_reference(fs, is_, tables: BounceTables, kcfg: KernelConfig,
     micro-TRANSPARENT candidates, surface_and_shade gets the winner's
     UNKNOWN flag, and the shadow ray takes the stochastic alpha test. On
     tables with priorities (`tables.prio`) surface_and_shade runs the
-    false-hit pass-through."""
+    false-hit pass-through. With the split rows `fs2` [NF2, N] (the split
+    variant, bounce_pallas.py:1401-1422, :1501-1504, :1543-1545,
+    :1568-1570) fs2_out [NF2, N] comes last: the unoccluded NEE
+    contribution adds its diffuse part to L_diff and the rest to L_spec;
+    in the external modes trace_paths_fused does that merge."""
     o = fs[FS_O:FS_O + 3]
     d = fs[FS_D:FS_D + 3]
 
@@ -1324,12 +1388,12 @@ def bounce_reference(fs, is_, tables: BounceTables, kcfg: KernelConfig,
     hit = t < _BIG
     front = det_pick > 0.0
     if final_env:
-        fs_out, is_out = final_env_state(fs, is_, hit, tables.env, kcfg,
-                                         tables.n_lights, (1, 2, 4, 5))
+        outs = final_env_state(fs, is_, hit, tables.env, kcfg,
+                               tables.n_lights, (1, 2, 4, 5), fs2)
         hit_out = torch.stack([torch.where(hit, t, 0.0),
                                prim.to(torch.float32), bu, bv,
                                front.to(torch.float32), torch.zeros_like(t)])
-        return fs_out, is_out, hit_out
+        return outs[:2] + (hit_out,) + outs[2:]
     attr_all = tables.attr_rows[:, prim.clamp(min=0)]
     attr_all = torch.where(prim >= 0, attr_all, 0.0)
 
@@ -1345,10 +1409,11 @@ def bounce_reference(fs, is_, tables: BounceTables, kcfg: KernelConfig,
         px=is_[IS_PX], py=is_[IS_PY], budget=is_[IS_BUDGET],
         lb=is_[IS_LBOUNCE].to(torch.int64), tables=tables, kcfg=kcfg,
         sample_idx=sample_idx, omm_unknown=unk if omm else None,
-        prio=tables.prio)
+        prio=tables.prio, **split_args(fs2))
 
     # ----- NEE shadow ray -----
     ext = s["surf"] is not None
+    ld, ls = s["ld"], s["ls"]
     if ext:
         L = s["L"]
         flag = s["shaded"].to(torch.float32) \
@@ -1356,8 +1421,13 @@ def bounce_reference(fs, is_, tables: BounceTables, kcfg: KernelConfig,
     else:
         occluded = _occluded(tables, s["shadow_o"], s["shadow_d"],
                              s["sdist"], u_alpha=s["u_alpha"])
-        L = s["L"] + torch.where(s["do_nee"] & ~occluded, s["contrib"], 0.0)
+        ok = s["do_nee"] & ~occluded
+        L = s["L"] + torch.where(ok, s["contrib"], 0.0)
         flag = s["do_nee"].to(torch.float32)
+        if fs2 is not None:
+            cd = torch.where(ok, s["cdiff"], 0.0)
+            ld = ld + cd
+            ls = ls + torch.where(ok, s["contrib"], 0.0) - cd
 
     fs_out = torch.cat([s["o_new"], s["wi_world"], s["thp"], L,
                         s["prev_pdf"][None], s["cone"][None],
@@ -1369,9 +1439,19 @@ def bounce_reference(fs, is_, tables: BounceTables, kcfg: KernelConfig,
                           s["lbounce"].to(i32)], dim=0)
     hit_out = torch.stack([torch.where(hit, t, 0.0), prim.to(torch.float32),
                            bu, bv, front.to(torch.float32), flag], dim=0)
-    if ext:
-        return fs_out, is_out, hit_out, s["surf"]
-    return fs_out, is_out, hit_out
+    outs = (fs_out, is_out, hit_out) + ((s["surf"],) if ext else ())
+    if fs2 is not None:
+        outs += (torch.cat([ld, ls, s["fspec"][None]]),)
+    return outs
+
+
+def split_args(fs2):
+    """surface_and_shade's split-channel arguments from the split rows
+    fs2 [NF2, N] (none without them)."""
+    if fs2 is None:
+        return {}
+    return dict(ld=fs2[F2_LD:F2_LD + 3], ls=fs2[F2_LS:F2_LS + 3],
+                fspec=fs2[F2_FSPEC])
 
 
 def occlusion_reference(tables: BounceTables, sh, stats: bool = False):
@@ -1411,17 +1491,18 @@ _check = kernels.check_tensor
 
 def variant_name(base: str, has_env: bool, final_env: bool,
                  has_tex: bool = False, omm: bool = False,
-                 prio: bool = False) -> str:
+                 prio: bool = False, split: bool = False) -> str:
     """The launch-count name of a shading kernel's variant: `base`, then
     "_omm" with the micromap switch, "_tex" with the texture switch,
-    "_prio" with the priority switch, then "_env" with the environment
-    switches; base + "_final" for the final environment-only round (which
-    shades nothing, so it runs without textures, micromaps or
-    priorities)."""
+    "_prio" with the priority switch, "_split" with the split channels,
+    then "_env" with the environment switches; base + "_final" (+ "_split")
+    for the final environment-only round (which shades nothing, so it runs
+    without textures, micromaps or priorities)."""
+    tail = "_split" if split else ""
     if final_env:
-        return base + "_final"
+        return base + "_final" + tail
     return base + ("_omm" if omm else "") + ("_tex" if has_tex else "") \
-        + ("_prio" if prio else "") + ("_env" if has_env else "")
+        + ("_prio" if prio else "") + tail + ("_env" if has_env else "")
 
 
 def check_omm_tables(tables, n_rows: int, dev):
@@ -1432,22 +1513,27 @@ def check_omm_tables(tables, n_rows: int, dev):
 
 
 def bounce(fs, is_, tables: BounceTables, kcfg: KernelConfig,
-           sample_idx: int, final_env: bool = False):
+           sample_idx: int, final_env: bool = False, fs2=None):
     """One bounce of the wavefront: the CUDA kernel (csrc/bounce_fused.cu)
     for CUDA tensors, `bounce_reference` for CPU tensors, with its return
     (surf_out too in the external modes with lights; `final_env` runs the
-    final environment-only round of tables with an environment). Build
-    and launch errors raise; nothing falls back."""
+    final environment-only round of tables with an environment; with the
+    split rows `fs2` the split variant, fs2_out last). Build and launch
+    errors raise; nothing falls back."""
     if final_env and tables.env is None:
         raise ValueError("bounce: final_env needs the tables' environment")
     if fs.device.type == "cpu":
-        return bounce_reference(fs, is_, tables, kcfg, sample_idx, final_env)
+        return bounce_reference(fs, is_, tables, kcfg, sample_idx, final_env,
+                                fs2)
     if fs.device.type != "cuda":
         raise ValueError(f"bounce: no kernel for device {fs.device}")
     n = fs.shape[1]
     dev = fs.device
     _check("fs", fs, torch.float32, (NF, n), dev)
     _check("is_", is_, torch.int32, (NI, n), dev)
+    split = fs2 is not None
+    if split:
+        _check("fs2", fs2, torch.float32, (NF2, n), dev)
     tpad = tables.tc * tables.n_chunks
     _check("tri_coef", tables.tri_coef, torch.float32, (tpad, TC_ROWS), dev)
     _check("attr_rows", tables.attr_rows, torch.float32, (AT_ROWS, tpad),
@@ -1473,8 +1559,13 @@ def bounce(fs, is_, tables: BounceTables, kcfg: KernelConfig,
     is_out = torch.empty_like(is_)
     hit_out = torch.empty((NH, n), dtype=torch.float32, device=dev)
     outs = (fs_out, is_out, hit_out)
+    surf_out = None
     if kcfg.external and tables.n_lights > 0 and not final_env:
-        outs += (torch.empty((SF_ROWS, n), dtype=torch.float32, device=dev),)
+        surf_out = torch.empty((SF_ROWS, n), dtype=torch.float32, device=dev)
+        outs += (surf_out,)
+    fs2_out = torch.empty_like(fs2) if split else None
+    if split:
+        outs += (fs2_out,)
     if n == 0:
         return outs
     with torch.cuda.device(dev):
@@ -1483,7 +1574,9 @@ def bounce(fs, is_, tables: BounceTables, kcfg: KernelConfig,
             "rtxpt_bounce_fused",
             fs.data_ptr(), is_.data_ptr(), fs_out.data_ptr(),
             is_out.data_ptr(), hit_out.data_ptr(),
-            outs[3].data_ptr() if len(outs) > 3 else None,
+            None if surf_out is None else surf_out.data_ptr(),
+            fs2.data_ptr() if split else None,
+            fs2_out.data_ptr() if split else None,
             tables.tri_coef.data_ptr(), tables.attr_rows.data_ptr(),
             tables.mat_rows.data_ptr(), tables.light_rows.data_ptr(),
             None if tables.env is None else tables.env.data_ptr(),
@@ -1496,7 +1589,7 @@ def bounce(fs, is_, tables: BounceTables, kcfg: KernelConfig,
             int(kcfg.low_discrepancy), int(kcfg.energy_comp), kcfg.maxb,
             int(final_env), int(prio), stream)
     kernels.launches[variant_name("bounce_fused", tables.env is not None,
-                                  final_env, tex, omm, prio)] += 1
+                                  final_env, tex, omm, prio, split)] += 1
     return outs
 
 
@@ -1597,12 +1690,54 @@ def alpha_uniform(cfg, px, py, lb, sample_idx):
     return rng.uniform_sample(seed, rng.hash_combine(sample_idx, 0))
 
 
+def first_hit_aux(scene, cfg, hit0, o, d, cone_spread, split: bool):
+    """The aux guide buffers of the camera rays from their bounce-0 hit rows
+    hit0 [NH, N] (bounce_pallas.py:1960-1985): `surface.guide_buffers` of
+    the surfaces `surface.load_surface` gives those hits. A seventh row,
+    on instanced cluster tables, holds each hit's instance: the surface
+    is then taken to world space. Returns a dict of [N, 3] / [N]
+    tensors."""
+    from rtxpt_tpu_torch.accel.traverse import Hit
+    from rtxpt_tpu_torch.pt.surface import guide_buffers, load_surface
+    t0 = hit0[0]
+    prim0 = hit0[1].to(torch.int32)
+    hm = prim0 >= 0
+    hit_s = Hit(t=torch.where(hm, t0, float(cfg.max_ray_travel)), prim=prim0,
+                bary=torch.stack([hit0[2], hit0[3]], dim=-1),
+                front=hit0[4] > 0.5,
+                inst=hit0[NH].to(torch.int32) if hit0.shape[0] > NH
+                else None)
+    surf = load_surface(scene, hit_s, o, d, cone_width=cone_spread
+                        * torch.clamp(t0, min=0.0))
+    return guide_buffers(surf, t0, hm, split)
+
+
+def external_split(fs2, res, ok, lb0, neeat: bool):
+    """fs2 after an external-NEE bounce (bounce_pallas.py:1911-1925): the
+    unoccluded NEE contribution with its diffuse part `cdiff`, and under
+    NEE-AT the deferred emission (em_add) of the lanes shaded after the
+    first vertex (`lb0` [N] bool: shaded at logical bounce 0, or not at
+    all), in the first scatter's channel."""
+    em_s = res["em_add"] if neeat else torch.zeros_like(res["em_add"])
+    em_s = torch.where(lb0[:, None], 0.0, em_s)
+    nee_s = torch.where(ok[:, None], res["contrib"], 0.0)
+    cd = torch.where(ok[:, None], res["cdiff"], 0.0) \
+        + torch.where((fs2[F2_FSPEC] > 0.5)[:, None], 0.0, em_s)
+    return split_add(fs2, cd.T, (nee_s + em_s).T)
+
+
 def trace_paths_fused(scene, cfg, o, d, cone_spread, px, py, sample_idx,
-                      neeat_state=None):
+                      neeat_state=None, want_aux: bool = False):
     """Trace a wavefront of camera rays to completion, one `bounce` per
-    bounce (bounce_pallas.trace_paths_pallas without aux buffers, V-buffer
-    injection or split channels): the kernels for CUDA tensors, their
-    plain versions for CPU tensors.
+    bounce (bounce_pallas.trace_paths_pallas without V-buffer injection):
+    the kernels for CUDA tensors, their plain versions for CPU tensors.
+
+    With `cfg.split_channels` every bounce runs K1's split variant on the
+    split rows fs2 (zero at bounce 0), and the result holds L_diff and
+    L_spec [N,3] (keyed on the config alone, as in the JAX package); on
+    the external route the NEE contribution and NEE-AT's deferred
+    emission are split here (`external_split`). With `want_aux` it holds
+    the aux guide buffers of the bounce-0 hits (`first_hit_aux`).
 
     In the external-NEE modes (`cfg.nee_external`, or NEE-AT) each bounce
     is three steps: K1 exports the shaded surface, `external_nee` selects
@@ -1622,12 +1757,17 @@ def trace_paths_fused(scene, cfg, o, d, cone_spread, px, py, sample_idx,
 
     o, d [N,3]; cone_spread [N]; px, py [N] int. Returns dict(L [N,3],
     ray_count [] int64 tensor, occupancy [B+1] int64 tensor), plus
-    neeat_hist (neeat.zero_hist's shape) on the NEE-AT route."""
+    neeat_hist (neeat.zero_hist's shape) on the NEE-AT route, and the
+    split and aux buffers above."""
     tbl: BounceTables = scene.bounce_tables
     dev = o.device
     fs, is_ = initial_state(o, d, cone_spread, px, py)
     kcfg = KernelConfig.from_cfg(cfg)
     ext = kcfg.external and tbl.n_lights > 0
+    split = bool(cfg.split_channels)
+    fs2 = torch.zeros((NF2, o.shape[0]), dtype=torch.float32, device=dev) \
+        if split else None
+    hit0 = None
     hist = None
     if ext:
         from rtxpt_tpu_torch.lighting import neeat as na
@@ -1646,8 +1786,12 @@ def trace_paths_fused(scene, cfg, o, d, cone_spread, px, py, sample_idx,
         prev_pdf_in = fs[FS_PREVPDF]
         prev_delta_in = is_[IS_PREVDELTA] > 0
         lb_in = is_[IS_LBOUNCE]
-        out = bounce(fs, is_, tbl, kcfg, sample_idx)
+        out = bounce(fs, is_, tbl, kcfg, sample_idx, fs2=fs2)
         fs, is_, hit = out[:3]
+        if split:
+            fs2 = out[-1]
+        if b == 0:
+            hit0 = hit
         ray_count = ray_count + active_in
         if not ext:
             ray_count = ray_count + (hit[5] > 0.5).sum()
@@ -1657,6 +1801,8 @@ def trace_paths_fused(scene, cfg, o, d, cone_spread, px, py, sample_idx,
             res = external_nee(scene, cfg, neeat_state, out[3], d_in,
                                hit[5] > 0.5, prev_pdf_in, prev_delta_in,
                                is_[IS_PX], is_[IS_PY], sample_idx, b,
+                               first_spec=(fs2[F2_FSPEC] > 0.5) if split
+                               else None,
                                lb=lb_in if passes else None)
             ua = alpha_uniform(cfg, is_[IS_PX], is_[IS_PY], lb_in,
                                sample_idx) if tbl.omm else None
@@ -1666,6 +1812,9 @@ def trace_paths_fused(scene, cfg, o, d, cone_spread, px, py, sample_idx,
         ok = res["do_nee"] & (occ < 0.5)
         add = res["em_add"] + torch.where(ok[:, None], res["contrib"], 0.0)
         fs[FS_L:FS_L + 3] += add.T          # the kernel's fresh output
+        if split:
+            fs2 = external_split(fs2, res, ok, hit[5] < 1.5,
+                                 kcfg.nee_mode == 3)
         ray_count = ray_count + res["do_nee"].sum()
         if hist is not None:
             with record_function("rtxpt.feedback"):
@@ -1677,11 +1826,20 @@ def trace_paths_fused(scene, cfg, o, d, cone_spread, px, py, sample_idx,
     if tbl.env is not None:
         # the final environment-only round for the rays still active
         active_in = is_[IS_ACTIVE].sum(dtype=torch.int64)
-        fs, is_, _ = bounce(fs, is_, tbl, kcfg, sample_idx, final_env=True)
+        out = bounce(fs, is_, tbl, kcfg, sample_idx, final_env=True, fs2=fs2)
+        fs, is_ = out[:2]
+        if split:
+            fs2 = out[-1]
         ray_count = ray_count + active_in
     occupancy.append(is_[IS_ACTIVE].sum(dtype=torch.int64))
     result = dict(L=fs[FS_L:FS_L + 3].T, ray_count=ray_count,
                   occupancy=torch.stack(occupancy))
+    if split:
+        result.update(L_diff=fs2[F2_LD:F2_LD + 3].T,
+                      L_spec=fs2[F2_LS:F2_LS + 3].T)
     if hist is not None:
         result["neeat_hist"] = hist
+    if want_aux:
+        result.update(first_hit_aux(scene, cfg, hit0, o, d, cone_spread,
+                                    split))
     return result

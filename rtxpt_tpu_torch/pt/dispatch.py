@@ -164,11 +164,12 @@ def _tables(scene, tier="auto"):
 
 
 def unsupported_features(scene, cfg, neeat_state=None, tier="auto",
-                         want_aux: bool = False, first_hit=None,
-                         bounce_budget=None, first_direct: bool = True):
+                         first_hit=None, bounce_budget=None,
+                         first_direct: bool = True):
     """Names of the scene's, config's and call's features that the tier
     (`tier`, or the one the scene's tables select) does not serve yet;
-    empty when it serves them all."""
+    empty when it serves them all. Every route but the per-row clustered
+    one serves the split channels."""
     out = []
     kind, tables = _tables(scene, tier)
     if tables is None:
@@ -183,10 +184,6 @@ def unsupported_features(scene, cfg, neeat_state=None, tier="auto",
                    "has no alpha test)")
     if cfg.mode.value != PTMode.REFERENCE.value:
         out.append(f"render mode {cfg.mode.name}")
-    if cfg.split_channels:
-        out.append("split diffuse/specular channels")
-    if want_aux:
-        out.append("aux buffers (want_aux)")
     if first_hit is not None:
         out.append("V-buffer restarts (first_hit)")
     if bounce_budget is not None:
@@ -209,6 +206,10 @@ def unsupported_features(scene, cfg, neeat_state=None, tier="auto",
             out.append("external NEE (NEE-AT, more than 128 lights, WRS "
                        "K > 1) on the per-row route (bounce_clustered.FLAT "
                        "is False)")
+        if cfg.split_channels:
+            # likewise (bounce_clustered.py:1560-1561)
+            out.append("split diffuse/specular channels on the per-row "
+                       "route (bounce_clustered.FLAT is False)")
     if lights is not None and lights.env_light >= 0 and tables.env is None:
         out.append("an environment light without the tables' environment "
                    "table (prepare bakes it)")
@@ -246,8 +247,8 @@ def resolve(scene, cfg, device, neeat_state=None, **call):
     clustered tier's kslots and pages: the config's, else the defaults (64
     and 2), with kslots at most the cluster count and pages at most as
     many as the candidate lists of all clusters fill. `call` holds the
-    trace's arguments that `unsupported_features` checks (want_aux,
-    first_hit, bounce_budget, first_direct). Raises NotImplementedError
+    trace's arguments that `unsupported_features` checks (first_hit,
+    bounce_budget, first_direct). Raises NotImplementedError
     naming any feature the tier does not serve, and ValueError for a tier
     that the scene's tables or the device have no path for, or for a
     light list or NEE-AT state on another device than the tables."""

@@ -24,7 +24,7 @@ from rtxpt_tpu_torch.lighting.lights_baker import (
     sample_light, tri_light_of)
 from rtxpt_tpu_torch.pt import bounce_clustered, bounce_fused, dispatch
 from rtxpt_tpu_torch.pt import bsdf as B
-from rtxpt_tpu_torch.pt.surface import load_surface, ray_offset
+from rtxpt_tpu_torch.pt.surface import guide_buffers, load_surface, ray_offset
 from rtxpt_tpu_torch.scene import scene as S
 from rtxpt_tpu_torch.scene.camera import Camera, camera_ray
 from rtxpt_tpu_torch.utils import math as m
@@ -36,6 +36,13 @@ EFFECT_SCATTER = 29
 EFFECT_NEE = 31
 EFFECT_RR = 37
 EFFECT_STF = 41
+# The aux guide buffers that `render` averages over its samples (the JAX
+# package's render, integrator.py:727-733); trace_paths also returns the
+# split albedos with the split channels
+AUX_KEYS = ("albedo", "normal", "depth", "wpos", "emission")
+# Per-pixel results of a trace (everything else is a count)
+PIXEL_KEYS = ("L", "L_diff", "L_spec", "albedo_diff",
+              "albedo_spec") + AUX_KEYS
 # Bounded false-hit skips per bounce for nested dielectric priorities
 # (rtxpt_tpu/pt/integrator.py:47-50: two cover a medium inside another
 # whose two boundaries both overlap the segment)
@@ -78,25 +85,34 @@ def trace_paths(scene, cfg, o, d, cone_spread, px, py, sample_idx,
     `dispatch.resolve` picks for the scene and the rays' device. Returns
     dict(L [N,3], ray_count [], occupancy [max_bounces+1]), plus
     cull_overflow [] on the clustered tier and neeat_hist with NEE-AT.
+    With `want_aux` the first hit's guide buffers: albedo, normal, wpos,
+    emission [N,3] and depth [N] (1 in the albedo and 0 elsewhere on a
+    miss). With `cfg.split_channels` NRD's diffuse/specular partition
+    L_diff, L_spec [N,3] (L_diff + L_spec = L less the primary vertex's
+    emission) and the aux buffers' albedo_diff and albedo_spec: on the
+    fused and clustered tiers keyed on the config alone, on the general
+    tier only with want_aux too, as in the JAX package.
     `first_emissive=False` drops the emission seen by the camera rays
-    (general tier only); the aux buffers (`want_aux`) and the real-time
-    arguments (`first_hit`, `bounce_budget`, `first_direct=False`) are not
-    ported, and resolve refuses them by name."""
+    (general tier only); the real-time arguments (`first_hit`,
+    `bounce_budget`, `first_direct=False`) are not ported, and resolve
+    refuses them by name."""
     cfg = dispatch.resolve(scene, cfg, o.device, neeat_state,
-                           want_aux=want_aux, first_hit=first_hit,
+                           first_hit=first_hit,
                            bounce_budget=bounce_budget,
                            first_direct=first_direct)
     if cfg.kernel_tier == "xla":
         return _wavefront(scene, cfg, o, d, px, py, sample_idx, neeat_state,
-                          first_emissive, cone_spread)
+                          first_emissive, cone_spread, want_aux)
     if not first_emissive:
         raise NotImplementedError(f"first_emissive=False on the "
                                   f"{cfg.kernel_tier} tier is not ported")
     if cfg.kernel_tier == "clustered":
         return bounce_clustered.trace_paths_clustered(
-            scene, cfg, o, d, cone_spread, px, py, sample_idx, neeat_state)
+            scene, cfg, o, d, cone_spread, px, py, sample_idx, neeat_state,
+            want_aux)
     return bounce_fused.trace_paths_fused(
-        scene, cfg, o, d, cone_spread, px, py, sample_idx, neeat_state)
+        scene, cfg, o, d, cone_spread, px, py, sample_idx, neeat_state,
+        want_aux)
 
 
 def _skip_false_hits(scene, prio, closest_fn, o, d, hit, active, med0, med1,
@@ -139,10 +155,10 @@ def _where(cond, a, b):
 
 
 def _wavefront(scene, cfg, o, d, px, py, sample_idx, neeat_state=None,
-               first_emissive: bool = True, cone_spread=None):
+               first_emissive: bool = True, cone_spread=None,
+               want_aux: bool = False):
     """The general BVH wavefront (rtxpt_tpu/pt/integrator.py trace_paths on
-    the "xla" tier, without split channels, aux buffers and the real-time
-    arguments).
+    the "xla" tier, without the real-time arguments).
     Every lane is traced at every bounce, inactive ones too, as in the JAX
     package.
 
@@ -168,7 +184,13 @@ def _wavefront(scene, cfg, o, d, px, py, sample_idx, neeat_state=None,
     texture test and the retrace resolve the rest; K8 has no micromaps,
     so on the brute path the retrace resolves every MIXED hit). On a scene
     with nested priorities each closest hit is followed by the bounded
-    false-hit retrace (`_skip_false_hits`) through the same query."""
+    false-hit retrace (`_skip_false_hits`) through the same query.
+    With `want_aux` the bounce-0 surface fills the aux guide buffers, and
+    with `cfg.split_channels` too the radiance is partitioned as NRD's
+    diffuse/specular channels (integrator.py:144-151): the primary
+    vertex's NEE by exact lobe evaluation (bsdf_eval_split over
+    bsdf_eval), every later contribution by the lobe of the first
+    scatter, the primary vertex's emission in neither."""
     n = o.shape[0]
     dev = o.device
     if scene.tri_opacity is not None and scene.textures is not None:
@@ -230,6 +252,11 @@ def _wavefront(scene, cfg, o, d, px, py, sample_idx, neeat_state=None,
     stf = cfg.stochastic_texture_filtering and scene.textures is not None
     prio = scene.materials.nested_priority.to(device=dev, dtype=torch.int64) \
         if scene.has_nested_priorities else None
+    aux = {}
+    split = bool(cfg.split_channels) and want_aux
+    L_diff, L_spec = zeros(n, 3), zeros(n, 3)
+    first_spec = zeros(n, dtype=torch.bool)
+    pend_cdiff = zeros(n, 3)
 
     for bounce in range(cfg.max_bounces + 1):
         # ----- closest hit (+ the previous bounce's shadow rays) -----
@@ -242,6 +269,10 @@ def _wavefront(scene, cfg, o, d, px, py, sample_idx, neeat_state=None,
             hit = hit2.take(slice(0, n))
             ok = pend_mask & hit2.miss[n:]
             L = L + torch.where(ok[:, None], pend_contrib, 0.0)
+            if split:
+                L_diff = L_diff + torch.where(ok[:, None], pend_cdiff, 0.0)
+                L_spec = L_spec + torch.where(ok[:, None],
+                                              pend_contrib - pend_cdiff, 0.0)
             if use_neeat:
                 hist = na.accumulate_feedback(
                     neeat_state, hist, pend_tile, pend_li,
@@ -254,9 +285,14 @@ def _wavefront(scene, cfg, o, d, px, py, sample_idx, neeat_state=None,
                                          active, med0, med1, t_far)
         hit_mask = active & ~hit.miss
         if has_env and (first_emissive or bounce > 0):
-            L = L + _handle_miss(scene, cfg, d, thp, active & hit.miss,
+            c_env = _handle_miss(scene, cfg, d, thp, active & hit.miss,
                                  prev_pdf, prev_delta, px, py, neeat_state,
                                  use_nee, use_neeat, nee_uniform)
+            L = L + c_env
+            if split:
+                cd = torch.where(first_spec[:, None], 0.0, c_env)
+                L_diff = L_diff + cd
+                L_spec = L_spec + (c_env - cd)
         active = hit_mask
         if bounce == cfg.max_bounces:
             break
@@ -301,6 +337,14 @@ def _wavefront(scene, cfg, o, d, px, py, sample_idx, neeat_state=None,
         if first_emissive or bounce > 0:
             L = L + torch.where(hit_mask[:, None],
                                 thp * surf.emissive * w_em[:, None], 0.0)
+            if split and bounce > 0:
+                em_c = thp * surf.emissive * w_em[:, None]
+                cd = torch.where(first_spec[:, None], 0.0, em_c)
+                L_diff = L_diff + torch.where(hit_mask[:, None], cd, 0.0)
+                L_spec = L_spec + torch.where(hit_mask[:, None], em_c - cd,
+                                              0.0)
+        if want_aux and bounce == 0:
+            aux = guide_buffers(surf, hit.t, hit_mask, split)
         wo = m.to_local(-d, surf.sh_n)
 
         # ----- NEE (WRS over cfg.nee_candidates light samples) -----
@@ -361,11 +405,19 @@ def _wavefront(scene, cfg, o, d, px, py, sample_idx, neeat_state=None,
                 contrib = contrib * torch.clamp(
                     cfg.firefly_clamp / torch.clamp(lum, min=1e-12),
                     max=1.0)[:, None]
+            if split and bounce == 0:
+                f_dp, _ = B.bsdf_eval_split(
+                    surf.bsdf, wo, m.to_local(ls["wi"], surf.sh_n))
+                cdiff = contrib * f_dp / torch.clamp(f_l, min=1e-12)
+            elif split:
+                cdiff = torch.where(first_spec[:, None], 0.0, contrib)
             # the occlusion distance from the offset origin
             sdist = ls["dist"] - m.dot(shadow_o - surf.pos, ls["wi"], False)
             sdist = torch.where(do_nee, sdist * (1.0 - 1e-4), 0.0)
             if fuse_shadows:
                 pend_contrib = torch.where(do_nee[:, None], contrib, 0.0)
+                if split:
+                    pend_cdiff = torch.where(do_nee[:, None], cdiff, 0.0)
                 pend_o, pend_d, pend_dist = shadow_o, ls["wi"], sdist
                 pend_mask = do_nee
                 if use_neeat:
@@ -375,6 +427,10 @@ def _wavefront(scene, cfg, o, d, px, py, sample_idx, neeat_state=None,
                 occluded = any_fn(shadow_o, ls["wi"], t_zero, sdist)
                 nee_ok = do_nee & ~occluded
                 L = L + torch.where(nee_ok[:, None], contrib, 0.0)
+                if split:
+                    L_diff = L_diff + torch.where(nee_ok[:, None], cdiff, 0.0)
+                    L_spec = L_spec + torch.where(nee_ok[:, None],
+                                                  contrib - cdiff, 0.0)
                 if use_neeat:
                     hist = na.accumulate_feedback(
                         neeat_state, hist, ls["tile"], ls["light_index"],
@@ -385,6 +441,9 @@ def _wavefront(scene, cfg, o, d, px, py, sample_idx, neeat_state=None,
         u_lobe, su1, su2 = _lds(cfg, sample_idx, seed_sc, (0, 2, 3))
         bs = B.bsdf_sample(surf.bsdf, wo, u_lobe, su1, su2)
         wi_world = m.to_world(bs["wi"], surf.sh_n)
+        if split and bounce == 0:
+            first_spec = (bs["lobe"] == B.LOBE_SPECULAR_REFL) \
+                | (bs["lobe"] == B.LOBE_SPECULAR_TRANS)
         # reject samples that leak through the geometric surface
         leak = (bs["wi"][:, 2] > 0.0) \
             != (m.dot(wi_world, surf.geo_n, False) > 0.0)
@@ -419,8 +478,16 @@ def _wavefront(scene, cfg, o, d, px, py, sample_idx, neeat_state=None,
         d = wi_world
 
     out = dict(L=L, ray_count=ray_count, occupancy=torch.stack(occupancy))
+    if split:
+        out.update(L_diff=L_diff, L_spec=L_spec)
     if use_neeat:
         out["neeat_hist"] = hist
+    if want_aux:
+        # with max_bounces 0 no surface is loaded: zeros, as in the JAX
+        # package
+        out.update(aux or dict(albedo=zeros(n, 3), normal=zeros(n, 3),
+                               depth=zeros(n), wpos=zeros(n, 3),
+                               emission=zeros(n, 3)))
     return out
 
 
@@ -479,11 +546,11 @@ def render_sample(scene, cam: Camera, cfg, width: int, height: int,
     the JAX package, so `ray_count` matches it. Returns dict(L [H,W,3],
     ray_count [] tensor, occupancy, kernel_tier), plus cull_overflow []
     (summed over chunks) on the clustered tier and, with NEE-AT's
-    `neeat_state`, neeat_hist (the chunks' feedback merged). Runs on the
-    device of the scene's tables."""
+    `neeat_state`, neeat_hist (the chunks' feedback merged), and the split
+    channels and aux buffers that `trace_paths` returns (`want_aux`), as
+    [H,W,3] / [H,W] images. Runs on the device of the scene's tables."""
     device = _device(scene)
-    cfg = dispatch.resolve(scene, cfg, device, neeat_state,
-                           want_aux=want_aux)
+    cfg = dispatch.resolve(scene, cfg, device, neeat_state)
     cam = cam.to(device)
     px, py = _pixel_grid(width, height, device)
     npix = px.shape[0]
@@ -493,23 +560,26 @@ def render_sample(scene, cam: Camera, cfg, width: int, height: int,
         zeros = torch.zeros((pad,), dtype=torch.int32, device=device)
         px = torch.cat([px, zeros])
         py = torch.cat([py, zeros])
-    Ls, sums, hists = [], {}, []
+    pixels, sums, hists = {}, {}, []
     for lo in range(0, px.shape[0], chunk):
         px_c = px[lo:lo + chunk]
         py_c = py[lo:lo + chunk]
         with record_function("rtxpt.camera"):
             o, d, spread = camera_rays(cam, cfg, px_c, py_c, sample_idx)
         out = trace_paths(scene, cfg, o, d, spread, px_c, py_c, sample_idx,
-                          neeat_state)
-        Ls.append(out.pop("L"))
+                          neeat_state, want_aux=want_aux)
         if "neeat_hist" in out:
             hists.append(out.pop("neeat_hist"))
         for key, value in out.items():
-            sums[key] = sums[key] + value if key in sums else value
-    L = torch.cat(Ls)[:npix].reshape(height, width, 3)
+            if key in PIXEL_KEYS:
+                pixels.setdefault(key, []).append(value)
+            else:
+                sums[key] = sums[key] + value if key in sums else value
+    images = {k: torch.cat(v)[:npix].reshape(height, width, *v[0].shape[1:])
+              for k, v in pixels.items()}
     if hists:
         sums["neeat_hist"] = na.merge_hists(neeat_state, hists)
-    return dict(L=L, kernel_tier=cfg.kernel_tier, **sums)
+    return dict(images, kernel_tier=cfg.kernel_tier, **sums)
 
 
 def _check_sample_range(first_sample: int, spp: int):
@@ -524,16 +594,22 @@ def render(scene, cam: Camera, cfg, width: int, height: int, spp: int,
            first_sample: int = 0, want_aux: bool = False):
     """Progressive accumulation over `spp` samples (weight 1/spp).
 
-    Returns (hdr [H,W,3] tensor, aux dict, total ray count)."""
+    Returns (hdr [H,W,3] tensor, aux dict, total ray count); with
+    `want_aux` the aux dict holds the AUX_KEYS buffers averaged over the
+    samples, as the JAX package's render does, else it is empty."""
     _check_sample_range(first_sample, spp)
     acc = None
+    aux = {}
     total_rays = 0
     for s in range(first_sample, first_sample + spp):
         out = render_sample(scene, cam, cfg, width, height, s,
                             want_aux=want_aux)
         total_rays += int(out["ray_count"])
         acc = out["L"] if acc is None else acc + out["L"]
-    return acc / spp, {}, total_rays
+        if want_aux:
+            for k in AUX_KEYS:
+                aux[k] = out[k] if k not in aux else aux[k] + out[k]
+    return acc / spp, {k: v / spp for k, v in aux.items()}, total_rays
 
 
 def render_adaptive(scene, cam: Camera, cfg, width: int, height: int,

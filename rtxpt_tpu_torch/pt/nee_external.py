@@ -16,8 +16,9 @@ the [lanes, lights] gather of the NEE-AT tile CDF; here the wavefront
 runs in one pass and `neeat.sample_adaptive` bounds that gather itself.
 The clustered tier passes each lane's logical bounce (`lb`), which
 keys the NEE seed and the emissive MIS per lane, as in the JAX package.
-The split-channel (`first_spec`) and real-time (`first_direct`)
-arguments belong to later slices and raise NotImplementedError.
+With the split channels (`first_spec`) the result also holds the NEE
+contribution's diffuse part. The real-time argument (`first_direct`)
+belongs to a later slice and raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -80,10 +81,11 @@ def external_nee(scene, cfg, neeat_state, surf, d_in, hit_mask,
     contrib [N,3] (zero where not do_nee), do_nee [N] bool, li [N] i32,
     tile [N] i32). The caller resolves the shadow rays, adds contrib where
     unoccluded, and feeds (tile, li, luminance, ok) to
-    neeat.accumulate_feedback."""
-    if first_spec is not None:
-        raise NotImplementedError("external NEE with split diffuse/specular "
-                                  "channels is not ported yet")
+    neeat.accumulate_feedback. With `first_spec` ([N] bool, the split
+    channels' first-scatter flag) it also holds cdiff [N,3] (zero where not
+    do_nee): contrib's diffuse part, its exact lobe share (bsdf_eval_split
+    over bsdf_eval) at logical bounce 0, and after that all of contrib or
+    none of it by the first scatter's lobe (nee_external.py:241-253)."""
     if not first_direct:
         raise NotImplementedError("external NEE without primary direct "
                                   "light (real-time mode) is not ported yet")
@@ -187,8 +189,17 @@ def external_nee(scene, cfg, neeat_state, surf, d_in, hit_mask,
         )[..., None]
     sdist_eff = ls["dist"] - m.dot(shadow_o - pos, ls["wi"], False)
     sdist = torch.where(do_nee, sdist_eff * (1.0 - 1e-4), 0.0)
-    return dict(em_add=em_add, shadow_o=shadow_o, shadow_d=ls["wi"],
-                sdist=sdist, contrib=torch.where(do_nee[..., None], contrib,
-                                                 0.0),
-                do_nee=do_nee, li=ls["light_index"].to(torch.int32),
-                tile=ls["tile"].to(torch.int32))
+    out = dict(em_add=em_add, shadow_o=shadow_o, shadow_d=ls["wi"],
+               sdist=sdist, contrib=torch.where(do_nee[..., None], contrib,
+                                                0.0),
+               do_nee=do_nee, li=ls["light_index"].to(torch.int32),
+               tile=ls["tile"].to(torch.int32))
+    if first_spec is not None:
+        f_dp, _ = B.bsdf_eval_split(bsdf, wo, wi_l)
+        ratio = f_dp / torch.clamp(f_l, min=1e-12)
+        lb0 = (lb == 0) if lb is not None else torch.full_like(
+            do_nee, bounce == 0)
+        cdiff = torch.where(lb0[:, None], contrib * ratio,
+                            torch.where(first_spec[:, None], 0.0, contrib))
+        out["cdiff"] = torch.where(do_nee[..., None], cdiff, 0.0)
+    return out

@@ -147,6 +147,25 @@ def _textured(scene, mid, uv, mip, stf_u, base_color, metallic, roughness,
     return base_color, metallic, roughness, emissive, sh_n
 
 
+def guide_buffers(surf: Surface, depth, hit, split: bool) -> dict:
+    """The aux guide buffers of first hits (rtxpt_tpu/pt/integrator.py
+    :389-400): albedo (diffuse + specular F0), shading normal, depth, world
+    position and emission, and with `split` the diffuse albedo and the
+    specular one (F0 + 0.04); where `hit` [N] does not hold, 1 in the
+    albedos and 0 elsewhere."""
+    b = surf.bsdf
+    h = hit[:, None]
+    out = dict(albedo=torch.where(h, b.diffuse + b.specular_f0, 1.0))
+    if split:
+        out["albedo_diff"] = torch.where(h, b.diffuse, 1.0)
+        out["albedo_spec"] = torch.where(h, b.specular_f0 + 0.04, 1.0)
+    out.update(normal=torch.where(h, surf.sh_n, 0.0),
+               depth=torch.where(hit, depth, 0.0),
+               wpos=torch.where(h, surf.pos, 0.0),
+               emission=torch.where(h, surf.emissive, 0.0))
+    return out
+
+
 def ray_offset(pos, geo_n, direction):
     """Self-intersection-robust ray origin: `pos` moved along the geometric
     normal, to the side `direction` leaves on. Vectors [..., 3]."""

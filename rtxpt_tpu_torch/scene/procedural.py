@@ -14,7 +14,10 @@ are the constructions of its instancing tests, `instanced_boxes`
 (tests/test_cluster_instanced.py `_instanced_city`), array for array.
 Neither has `overlap_boxes`: the nested-priority tests' overlapping media
 (tests/test_nested_priority.py `_overlap_scene`, and with `wall` its
-subdivided form of tests/test_cluster_omm.py `_overlap_scene_big`)."""
+subdivided form of tests/test_cluster_omm.py `_overlap_scene_big`), nor
+`overlap_curtain`: those media with an alpha-tested curtain, on whose
+tables every texture, micromap and priority switch of K1 and K4 has
+work."""
 
 from __future__ import annotations
 
@@ -829,9 +832,47 @@ def overlap_boxes(priorities, wall: bool = False) -> HostScene:
         materials=mats)
 
 
+def overlap_curtain(priorities, wall: bool = False) -> HostScene:
+    """`overlap_boxes` with an alpha-tested curtain across the view of
+    OVERLAP_INSIDE_CAMERAS: a quad in the plane y = OVERLAP_CURTAIN_Y
+    (x in [-0.2, 1.4], z in [0.3, 0.95]) of the last material, textured
+    with curtain_cornell's 8 x 8 alpha checkerboard (cutoff 0.5, thin).
+    Its tables take the texture, micromap and priority switches at once:
+    rays of the inside cameras meet priority false hits on the boxes and
+    alpha-tested hits on the curtain. `priorities` are overlap_boxes'."""
+    host = overlap_boxes(priorities, wall)
+    old = host.materials
+    m = old.base_color.shape[0]
+    mats = Materials.create(m + 1)
+    mats = mats.replace(**{
+        f: torch.cat([getattr(old, f), getattr(mats, f)[m:]])
+        for f in mats.__dataclass_fields__})
+
+    def put(field, value):
+        arr = getattr(mats, field).clone()
+        arr[m] = torch.as_tensor(value, dtype=arr.dtype)
+        return arr
+
+    host.materials = mats.replace(
+        base_color=put("base_color", [0.9, 0.9, 0.9]),
+        roughness=put("roughness", 1.0),
+        alpha_cutoff=put("alpha_cutoff", 0.5),
+        base_color_tex=put("base_color_tex", 0),
+        thin=put("thin", 1.0))
+    y = OVERLAP_CURTAIN_Y
+    pos, nrm, uv, idx, mat = _quad([-0.2, y, 0.3], [1.4, y, 0.3],
+                                   [1.4, y, 0.95], [-0.2, y, 0.95], m)
+    host.instances.append(MeshInstance(positions=pos, normals=nrm, uvs=uv,
+                                       indices=idx, material=mat,
+                                       name="curtain"))
+    host.textures = [_alpha_checker(8, True)]
+    return host
+
+
 OVERLAP_SW = 0.9     # overlap_boxes: the water's sigma_a
 OVERLAP_SG = 0.4     # the glass's sigma_a
 OVERLAP_E = 5.0      # the panel's radiance
+OVERLAP_CURTAIN_Y = 0.5   # overlap_curtain: the curtain's plane
 # Two cameras inside overlap_boxes whose rays meet false hits from their
 # first bounce on: (position, target, up, fov_y_deg, the medium the rays
 # start in). Inside the water box with the rays in air, the water's inner

@@ -494,12 +494,15 @@ def test_resolve_clustered_scene(city):
 
 @pytest.mark.parametrize("case", ["environment", "textures", "priorities",
                                   "micromaps", "split"])
-def test_clustered_tier_refuses_unserved_features(city, case):
+def test_clustered_tier_refuses_unserved_features(city, case, monkeypatch):
     """What the clustered tier does not serve raises by name; an
     environment light is refused only where the tables lack the
     environment table (prepare bakes it: test_clustered_tier_serves_the_
     environment). Nested priorities are served (K4's priority variant,
-    tests/test_torch_prio.py): their case checks that."""
+    tests/test_torch_prio.py): their case checks that. The split channels
+    are served on the flat route (K4's split variant, tests/
+    test_torch_split_clustered.py) and refused on the per-row route: their
+    case checks both."""
     scene, cfg = city[3], PathTracerConfig()
     if case == "environment":
         sky = prepare(_small_city_env(), device="cpu")
@@ -526,9 +529,14 @@ def test_clustered_tier_refuses_unserved_features(city, case):
         cfg = PathTracerConfig(kernel_tier="clustered")
     else:
         cfg = PathTracerConfig(split_channels=True)
+        assert dispatch.resolve(scene, cfg, "cpu").kernel_tier == "clustered"
+        monkeypatch.setattr(BC, "FLAT", False)
     with pytest.raises(NotImplementedError,
-                       match="clustered tier does not serve"):
+                       match="clustered tier does not serve") as err:
         dispatch.resolve(scene, cfg, "cpu")
+    if case == "split":
+        assert "split diffuse/specular channels on the per-row route" in \
+            str(err.value)
 
 
 def _small_city_env():

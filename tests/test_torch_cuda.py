@@ -11,7 +11,11 @@ city, the texture variants of K1 and K4, the micromap variants of K1,
 K2, K3, K4, K5 and K9 on the curtain Cornell box and its 40 x 40 grid,
 and the nested-priority variants of K1 and K4 on the overlap boxes and a
 small Bistro, with the closed-form overlap radiance on every tier, and
-the per-row kernels K6 and K7 on the small city and its sky variant.
+the per-row kernels K6 and K7 on the small city and its sky variant, and
+all sixteen instantiations of K1 and K4 (the texture, micromap, priority
+and split-channel switches; the priority ones on the overlap curtain),
+K4's split variant in the export slots on the rooms, with the split +
+aux renders of every tier.
 Needs an NVIDIA GPU and nvcc; skips without them. This file imports no
 JAX, so it runs where JAX is absent:
 
@@ -32,7 +36,7 @@ from rtxpt_tpu_torch.pt import bounce_clustered as BC
 from rtxpt_tpu_torch.pt import bounce_fused as bf
 from rtxpt_tpu_torch.pt import dispatch
 from rtxpt_tpu_torch.pt.integrator import (
-    _pixel_grid, camera_rays, render, render_adaptive)
+    _pixel_grid, camera_rays, render, render_adaptive, render_sample)
 from rtxpt_tpu_torch.pt.nee_external import external_nee
 from rtxpt_tpu_torch.scene import procedural as TP
 
@@ -1075,3 +1079,224 @@ def test_per_row_render_runs_through_k6_k7(city, sky_city, monkeypatch):
         flat, _, rays_flat = render(scene, cam, cfg, 32, 24, spp=2)
         monkeypatch.setattr(BC, "FLAT", False)
         assert torch.equal(hdr, flat) and rays == rays_flat
+
+
+# ---------------------------------------------------------------------------
+# The split-channel variants of K1 and K4, and the split + aux renders
+# ---------------------------------------------------------------------------
+
+SWITCHES = [(t, o, p, s) for t in (False, True) for o in (False, True)
+            for p in (False, True) for s in (False, True)]
+
+
+def _switch_id(sw):
+    return "_".join(n if on else "no" + n
+                    for n, on in zip(("tex", "omm", "prio", "split"), sw))
+
+
+def _with_switches(tables, omm, prio):
+    """The tables with the micromap and priority switches set: every
+    instantiation runs on one scene."""
+    return dataclasses.replace(tables, omm=omm and tables.omm, prio=prio)
+
+
+@pytest.fixture(scope="module")
+def curtain_scenes(gpu):
+    """procedural.overlap_curtain, fused and (with the wall) clustered:
+    the priority instantiations' scenes, whose inside cameras' rays meet
+    priority false hits beside the alpha-tested curtain."""
+    return {wall: prepare(TP.overlap_curtain([1, 2, 0, 0][:4 if wall else 3],
+                                             wall), device=gpu)
+            for wall in (False, True)}
+
+
+def _off_curtain_false_hits(fs, is_in, is_out, t, hit):
+    """Priority false hits: lanes that passed through a hit that does not
+    lie in the curtain's plane."""
+    y = fs[bf.FS_O + 1] + t * fs[bf.FS_D + 1]
+    return _false_hits(is_in, is_out, hit) \
+        & ((y - TP.OVERLAP_CURTAIN_Y).abs() >= 1e-3)
+
+
+def _switch_state(prio, gpu, cfg, host):
+    """4096 rays: the overlap curtain's inside cameras' with the priority
+    switch, else the camera's of `host`."""
+    return _prio_state(64, gpu, 2) if prio else _state(host, cfg, 64, gpu, 2)
+
+
+@pytest.mark.parametrize("sw", SWITCHES, ids=_switch_id)
+def test_k1_instantiations_match_plain_version(alpha_scenes, curtain_scenes,
+                                               gpu, sw):
+    """Each of K1's sixteen instantiations (tex, omm, prio, split) over
+    three bounces of 4096 camera rays, the split rows carried: on the
+    curtain Cornell box, and with the priority switch on the overlap
+    curtain, where at bounces 0 and 2 at least 5% of the active lanes are
+    priority false hits: the integer rows and the first-scatter flag
+    equal, the float rows within 2e-3, each on >= 99.9% of the lanes."""
+    tex, omm, prio, split = sw
+    host, scene = alpha_scenes["curtain"]
+    if prio:
+        scene = curtain_scenes[False]
+    tables = _with_switches(scene.bounce_tables, omm, prio)
+    cfg = PathTracerConfig(max_bounces=3, stochastic_texture_filtering=tex)
+    kcfg = bf.KernelConfig.from_cfg(cfg)
+    assert bf.use_tex(tables, kcfg) == tex
+    fs, is_ = _switch_state(prio, gpu, cfg, host)
+    fs2 = torch.zeros((bf.NF2, fs.shape[1]), device=gpu) if split else None
+    name = bf.variant_name("bounce_fused", False, False, tex, omm, prio,
+                           split)
+    kernels.launches.clear()
+    for b in range(3):
+        plain = bf.bounce_reference(fs, is_, tables, kcfg, 2, fs2=fs2)
+        kern = bf.bounce(fs, is_, tables, kcfg, 2, fs2=fs2)
+        torch.cuda.synchronize()
+        same = (kern[1] == plain[1]).all(0) & (kern[2][1] == plain[2][1])
+        if split:
+            same &= kern[-1][bf.F2_FSPEC] == plain[-1][bf.F2_FSPEC]
+        assert same.float().mean() >= 0.999
+        _close_rows(kern, plain)
+        if prio and b != 1:
+            fh = _off_curtain_false_hits(fs, is_, plain[1], plain[2][0],
+                                         plain[2][1] >= 0)
+            assert fh.sum() >= 0.05 * (is_[bf.IS_ACTIVE] > 0).sum()
+        fs, is_ = plain[0], plain[1]
+        fs2 = plain[-1] if split else None
+    assert dict(kernels.launches) == {name: 3}
+
+
+@pytest.mark.parametrize("sw", SWITCHES, ids=_switch_id)
+def test_k4_instantiations_match_plain_version(alpha_scenes, curtain_scenes,
+                                               gpu, sw):
+    """Each of K4's sixteen instantiations on K3's hits over three bounces
+    of 4096 camera rays, the split rows carried (SH_CDIFF included in the
+    shadow rows): on the 40 x 40 curtain, and with the priority switch on
+    the overlap curtain with its wall, at least 5% of the active lanes
+    priority false hits at bounces 0 and 2."""
+    tex, omm, prio, split = sw
+    host, scene = alpha_scenes["grid"]
+    if prio:
+        scene = curtain_scenes[True]
+    tbl = scene.cluster_tables
+    assert tbl.omm
+    cfg = PathTracerConfig(max_bounces=3, stochastic_texture_filtering=tex)
+    kcfg = bf.KernelConfig.from_cfg(cfg)
+    kslots = tbl.n_clusters
+    fs, is_ = _switch_state(prio, gpu, cfg, host)
+    fs2 = torch.zeros((bf.NF2, fs.shape[1]), device=gpu) if split else None
+    kernels.launches.clear()
+    for b in range(3):
+        od = BC.ray_operand(fs, is_)
+        cand, _ = BC.cull(fs[bf.FS_O:bf.FS_O + 3], fs[bf.FS_D:bf.FS_D + 3],
+                          is_[bf.IS_ACTIVE] > 0, 1e27, tbl, kslots)
+        ha = BC.closest_hit_reference(cand, od, tbl.blocks, kslots, 1e27,
+                                      micro=tbl.omm_word if omm else None)
+        plain = BC.shade_reference(ha, fs, is_, tbl, kcfg, 2, omm=omm,
+                                   prio=prio, fs2=fs2)
+        kern = BC.shade(ha, fs, is_, tbl, kcfg, 2, omm=omm, prio=prio,
+                        fs2=fs2)
+        torch.cuda.synchronize()
+        same = (kern[1] == plain[1]).all(0) & (kern[3][5] == plain[3][5])
+        if split:
+            same &= kern[-1][bf.F2_FSPEC] == plain[-1][bf.F2_FSPEC]
+        assert same.float().mean() >= 0.999
+        _close_rows(kern, plain)
+        if prio and b != 1:
+            fh = _off_curtain_false_hits(fs, is_, plain[1], ha[BC.HA_T],
+                                         ha[BC.HA_PRIM] >= 0)
+            assert fh.sum() >= 0.05 * (is_[bf.IS_ACTIVE] > 0).sum()
+        fs, is_ = plain[0], plain[1]
+        fs2 = plain[-1] if split else None
+    name = bf.variant_name("cluster_shade", False, False, tex, omm, prio,
+                           split)
+    assert dict(kernels.launches) == {name: 3}
+
+
+@pytest.mark.parametrize("slot", [3, 5])
+def test_k4_split_export_matches_plain_version(gpu, slot):
+    """K4's split variant in the export slots (3: NEE-AT, 5: power NEE on
+    the external route) on K3's hits over three bounces of 4096 camera
+    rays of four closed rooms (rooms_scene(4, subdiv=8), the clustered
+    tier), the split rows carried: the state, SH, hit, SF_* and fs2 rows
+    against the plain version's."""
+    host = TP.rooms_scene(4, subdiv=8)
+    scene = prepare(host, device=gpu)
+    tbl = scene.cluster_tables
+    assert tbl is not None and scene.bounce_tables is None
+    cfg = PathTracerConfig(max_bounces=3, split_channels=True,
+                           nee=NEEMode.NEEAT if slot == 3 else NEEMode.POWER,
+                           nee_external=slot == 5)
+    kcfg = bf.KernelConfig.from_cfg(cfg)
+    assert kcfg.nee_mode == slot
+    fs, is_ = _state(host, cfg, 64, gpu, 2)
+    fs2 = torch.zeros((bf.NF2, fs.shape[1]), device=gpu)
+    kernels.launches.clear()
+    for _ in range(3):
+        ha, _ = BC.closest_paged(fs, is_, tbl, 64, 1, 1e27)
+        plain = BC.shade_reference(ha, fs, is_, tbl, kcfg, 2, fs2=fs2)
+        kern = BC.shade(ha, fs, is_, tbl, kcfg, 2, fs2=fs2)
+        torch.cuda.synchronize()
+        assert len(kern) == len(plain) == 6          # SF_* rows and fs2
+        same = (kern[1] == plain[1]).all(0) & (kern[3][5] == plain[3][5]) \
+            & (kern[-1][bf.F2_FSPEC] == plain[-1][bf.F2_FSPEC])
+        assert same.float().mean() >= 0.999
+        _close_rows(kern, plain)
+        assert (plain[3][5] > 0.5).float().mean() > 0.1
+        fs, is_, fs2 = plain[0], plain[1], plain[-1]
+    assert dict(kernels.launches) == {"cluster_closest": 3,
+                                      "cluster_shade_split": 3}
+
+
+SPLIT_RENDERS = {
+    # tier: (scene, config fields, the split kernels it launches per frame)
+    "fused": ("cornell", {}, {"bounce_fused_split": 3}),
+    "fused_external": ("rooms", dict(nee_candidates=2),
+                       {"bounce_fused_split": 3, "shadow_occlusion": 3}),
+    "clustered": ("city", {}, {"cluster_shade_split": 3}),
+    "fused_sky": ("sky_cornell", {}, {"bounce_fused_split_env": 3,
+                                      "bounce_fused_final_split": 1}),
+    "clustered_sky": ("sky_city", {}, {"cluster_shade_split_env": 3,
+                                       "cluster_shade_final_split": 1}),
+    "xla": ("cornell", dict(kernel_tier="xla"), {}),
+}
+
+
+def _sky_cornell():
+    host = TP.cornell_box()
+    host.envmap_image = make_sky(64, 32)
+    return host
+
+
+@pytest.mark.parametrize("tier", list(SPLIT_RENDERS))
+def test_split_aux_renders_match_cpu(gpu, city, sky_city, tier):
+    """A 32x24 frame with split_channels and want_aux through the kernels
+    against the same frame through the plain versions on the CPU: every
+    per-pixel key within 2e-3 on >= 99% of the pixels, the partition
+    |L - emission - L_diff - L_spec| < 2e-2, and the split variants'
+    launches (with an environment, the final round's too)."""
+    which, cfg_kw, launches = SPLIT_RENDERS[tier]
+    host = dict(cornell=TP.cornell_box, rooms=lambda: TP.rooms_scene(4),
+                city=lambda: city[0], sky_cornell=_sky_cornell,
+                sky_city=lambda: sky_city[0])[which]()
+    cfg = PathTracerConfig(max_bounces=3, split_channels=True, **cfg_kw)
+    cam = TP.default_camera(host, 32, 24)
+    outs = {}
+    for dev in (gpu, torch.device("cpu")):
+        gpu_scenes = dict(city=city[1], sky_city=sky_city[1])
+        scene = gpu_scenes[which] if which in gpu_scenes and dev == gpu \
+            else prepare(host, device=dev)
+        kernels.launches.clear()
+        outs[dev.type] = render_sample(scene, cam, cfg, 32, 24, 1,
+                                       want_aux=True)
+        if dev == gpu:
+            torch.cuda.synchronize()
+            counted = {k: v for k, v in kernels.launches.items()
+                       if "split" in k or k in launches}
+            assert counted == launches
+    got, want = outs["cuda"], outs["cpu"]
+    for key in ("L", "L_diff", "L_spec", "albedo", "albedo_diff",
+                "albedo_spec", "normal", "depth", "wpos", "emission"):
+        ok = torch.isclose(got[key].cpu(), want[key], rtol=TOL, atol=TOL)
+        ok = ok.reshape(ok.shape[0], ok.shape[1], -1).all(-1)
+        assert ok.float().mean() >= 0.99, key
+    resid = (got["L"] - got["emission"] - got["L_diff"] - got["L_spec"])
+    assert resid.abs().max() < 2e-2

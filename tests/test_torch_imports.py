@@ -243,7 +243,9 @@ def test_resolve_refuses_plain_tier_on_cuda(cornell):
 # pinned kernel tier does not serve NEE-AT with an environment light, nor
 # alpha-tested geometry (opacity micromaps) without the tables'
 # micromaps, nor nested priorities on bounce tables without their priority
-# switch, which "auto" leaves to the general tier
+# switch, which "auto" leaves to the general tier; the split channels are
+# served on the fused and clustered tiers (their cases check that; the
+# per-row route's refusal is tests/test_torch_cluster.py's)
 UNSERVED = {
     "textures": ("cornell", "alpha_textures", dict(kernel_tier="fused"),
                  "alpha-tested textures"),
@@ -285,6 +287,15 @@ def test_resolve_refuses_unserved_features(cornell, small_city,
         scene = _alpha_textured(scene)
     else:
         scene = scene.replace(**scene_kw)
+    if case in ("split", "instanced_split"):
+        # served (tests/test_torch_split_fused.py, _clustered.py), and the
+        # scene keeps its tier
+        want = "clustered" if which == "instanced" else (
+            "fused" if device == "cuda" else "torch")
+        cfg = dispatch.resolve(scene, PathTracerConfig(**cfg_kw), device)
+        assert cfg.kernel_tier == want and cfg.split_channels
+        assert name == "split"
+        return
     if case == "priorities":
         # served where the tables carry the priority switch (prepare sets
         # it, tests/test_torch_prio.py); "auto" leaves tables without it
@@ -435,13 +446,14 @@ def test_config_matches_jax_package():
 # arguments, the name the error gives); alpha-tested geometry is served on
 # a flat scene (tests/test_torch_omm.py), refused on the TLAS route of a
 # two-level scene; nested priorities are served (the false-hit retrace,
-# tests/test_torch_prio.py), so their case checks that
+# tests/test_torch_prio.py), and so are the split channels and the aux
+# buffers (tests/test_torch_split_general.py), so their cases check that
 UNSERVED_XLA = {
     "textures": ("alpha_textures", {}, {}, "alpha-tested textures"),
     "micromaps": ("tri_opacity", {}, {}, "micromaps"),
     "priorities": (dict(has_nested_priorities=True), {}, {}, "priorities"),
     "split": ({}, dict(split_channels=True), {}, "split"),
-    "want_aux": ({}, {}, dict(want_aux=True), "aux buffers"),
+    "want_aux": ({}, {}, {}, "aux buffers"),
     "first_hit": ({}, {}, dict(first_hit=object()), "first_hit"),
     "bounce_budget": ({}, {}, dict(bounce_budget=object()),
                       "bounce_budget"),
@@ -465,9 +477,16 @@ def test_general_tier_refuses_unserved_features(cornell, instanced_city,
     else:
         scene = scene.replace(**scene_kw)
     cfg = PathTracerConfig(kernel_tier="xla", **cfg_kw)
-    if case == "priorities":
+    if case in ("priorities", "split", "want_aux"):
         for s in (scene, instanced_city.replace(**scene_kw)):
-            assert dispatch.resolve(s, cfg, device).kernel_tier == "xla"
+            assert dispatch.resolve(s, cfg, device,
+                                    **call).kernel_tier == "xla"
+        if case == "want_aux" and device == "cpu":
+            # no argument to refuse: the trace returns the buffers
+            out = render_sample(scene, TP.default_camera(cornell[0], 4, 4),
+                                cfg, 4, 4, 0, want_aux=True)
+            assert name == "aux buffers" and {
+                "albedo", "normal", "depth", "wpos", "emission"} <= set(out)
         return
     with pytest.raises(NotImplementedError,
                        match="xla tier does not serve") as err:

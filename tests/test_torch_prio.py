@@ -393,3 +393,58 @@ def test_resolve_matches_jax(scenes, wall, tier, monkeypatch):
         with pytest.raises(NotImplementedError, match="priorit"):
             dispatch.resolve(bare, PathTracerConfig(kernel_tier="fused"),
                              "cpu")
+
+
+# ---------------------------------------------------------------------------
+# (d) the overlap curtain: every switch of K1 and K4 on one scene
+# ---------------------------------------------------------------------------
+
+
+def _on_curtain(fs, t):
+    """Lanes whose hit at distance t [N] lies in the curtain's plane."""
+    y = fs[bf.FS_O + 1] + t * fs[bf.FS_D + 1]
+    return np.abs(y - TP.OVERLAP_CURTAIN_Y) < 1e-3
+
+
+@pytest.mark.parametrize("tier", ["fused", "clustered"])
+def test_overlap_curtain_takes_every_switch(tier):
+    """procedural.overlap_curtain: its tables take the texture, micromap
+    and priority switches, and along three iterations of the inside
+    cameras' rays (64 x 64) the priority variant with all of them and the
+    split rows (K1's plain version on the fused tables, K4's on K3's hits
+    over the clustered ones) meets priority false hits off the curtain on
+    at least 5% of the active lanes at iterations 0 and 2, and
+    alpha-tested hits on the curtain: the scene of the card's priority
+    instantiations (tests/test_torch_cuda.py, chip_smoke.py phase 17)."""
+    wall = tier == "clustered"
+    scene = prepare(TP.overlap_curtain(NESTED[:4 if wall else 3], wall),
+                    device="cpu")
+    assert scene.has_nested_priorities and scene.textures is not None
+    cfg = PathTracerConfig(max_bounces=3, stochastic_texture_filtering=True)
+    kcfg = bf.KernelConfig.from_cfg(cfg)
+    fs, is_ = (torch.from_numpy(x) for x in _inside_state(64, 64))
+    fs2 = torch.zeros((bf.NF2, fs.shape[1]))
+    curtain = 0
+    for it in range(BOUNCES):
+        if wall:
+            tbl = scene.cluster_tables
+            assert tbl.omm and scene.bounce_tables is None
+            ha, _ = BC.closest_paged(fs, is_, tbl, tbl.n_clusters, 1, 1e27,
+                                     omm=True)
+            out = BC.shade_reference(ha, fs, is_, tbl, kcfg, SAMPLE,
+                                     omm=True, prio=True, fs2=fs2)
+            t, hit = ha[BC.HA_T], ha[BC.HA_PRIM] >= 0
+        else:
+            tbl = scene.bounce_tables
+            assert tbl.omm and tbl.prio and bf.use_tex(tbl, kcfg)
+            out = bf.bounce_reference(fs, is_, tbl, kcfg, SAMPLE, fs2=fs2)
+            t, hit = out[2][0], out[2][1] >= 0
+        on = _on_curtain(fs.numpy(), t.numpy())
+        fh = _false_hits(is_.numpy(), out[1].numpy(), hit.numpy()) & ~on
+        active = (is_[bf.IS_ACTIVE] > 0).numpy()
+        if it in CHECKED:
+            assert fh.sum() >= FALSE_HIT_SHARE * active.sum(), (
+                it, fh.sum(), active.sum())
+        curtain += int((on & hit.numpy() & active).sum())
+        fs, is_, fs2 = out[0], out[1], out[-1]
+    assert curtain >= 100

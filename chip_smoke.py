@@ -293,6 +293,38 @@ Phases, one or a few lines of output each:
                 variants' launch counts, finite L_diff, L_spec and aux
                 buffers, the partition residual |L - emission - L_diff -
                 L_spec| < 2e-2, the city's cull_overflow.
+  18. realtime -- real-time mode (pt/realtime.py). (a) K1's inject
+                variant (csrc/bounce_fused_restart.cu: the V-buffer
+                restart of a stable-planes fill) and
+                first_direct=False against the plain version on the 1080p
+                glass-over-mirror Cornell box (procedural.
+                glass_mirror_cornell): 65,536 camera rays spread over the
+                frame, the V-buffers of planes 0, 1 and 2 (stable_planes.
+                decompose), bounce 0 injected with the planes' budgets and
+                bounce 2, phase 3's criteria and >= 99.9% of the lanes
+                bit-exact; all sixteen instantiations with inject on (phase
+                17's rays, bit-exact); the inject launch timed at 2^18
+                lanes beside the ordinary K1, with its bound, and the
+                restart instantiations' registers and spills. (b) The
+                frames at 1920x1080, 4 bounces, power NEE, the camera
+                moving a little every frame, 1 warm-up and 4 timed:
+                render_frame on the Cornell box with RELAX, TAA and bloom,
+                the same with split_denoise and at render_scale 0.5,
+                render_frame_stable_planes on the glass-over-mirror box
+                with RELAX and TAA (K1 inject once per plane and frame,
+                each plane's share of valid pixels, one profiled frame:
+                BUILD, fills, K1, denoise, TAA with tonemap, the rest,
+                idle), render_frame on the city (clustered, 2 pages, 2
+                timed frames, cull_overflow), one stable-planes frame of
+                the city at 960x540 (the general tier, K9). (c) The
+                glass-over-mirror composite at 480x270 (64 frames, no
+                denoiser, firefly clamp 0.5) against render at 64 spp:
+                RMSE < 2e-2 (tests/test_stable_planes.py:116-149), plane 1
+                valid on some pixels; the denoised 1080p Cornell frame
+                after 4 frames: roughness < 0.35x and mean within 0.5-2x
+                of the raw 1-spp frame's (tests/test_realtime.py:17-51),
+                and a lower RMSE than the raw frame's against a 128-spp
+                accumulation.
 
 The line before the last holds {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Any failed phase, a missing GPU or a missing
@@ -675,6 +707,9 @@ def main(record_path=None, group_path=None):
     # ---- 17. the split channels and the aux guide buffers -------------------
     split = _split_aux(record, dev, smi, dump, clustered["scene"])
 
+    # ---- 18. real-time mode: the V-buffer restart, the denoisers, TAA -------
+    rt = _realtime(record, dev, smi, dump, clustered["scene"])
+
     k1_paths = dict(cornell=cornell_launches["bounce_fused"],
                     **{k: v.get("bounce_fused", 0)
                        for k, v in ext["launches"].items()})
@@ -718,6 +753,7 @@ def main(record_path=None, group_path=None):
     entries.extend(prio["entries"].values())
     entries.extend(per_row["entries"].values())
     entries.extend(split["entries"].values())
+    entries.extend(rt["entries"].values())
     # Bistro's launches of the micromap variants that phase 14 checks
     for entry in entries:
         n_bistro = prio["launches"]["bistro"].get(entry["name"], 0)
@@ -738,6 +774,14 @@ def main(record_path=None, group_path=None):
                 entry.setdefault("launches_by_path", {})[
                     f"split_{path}"] = n_split
                 entry["launches"] += n_split
+    # the real-time paths' launches of kernels that earlier phases time
+    for entry in entries:
+        for path, counts in rt["launches"].items():
+            n_rt = counts.get(entry["name"], 0)
+            if n_rt and entry["name"] != "bounce_fused_inj":
+                entry.setdefault("launches_by_path", {})[
+                    f"realtime_{path}"] = n_rt
+                entry["launches"] += n_rt
     # the texture paths' launches of kernels that earlier phases time
     tex_paths = dict(brute_closest=("kitchen_general",),
                      bounce_fused_final=("cornell", "kitchen"),
@@ -4840,6 +4884,456 @@ def _split_aux(record, dev, smi, dump, city_prepared):
                 k4[f"slot{s_}_bounce{b}"]["exact"] for s_ in (3, 5)
                 for b in (0, 2)),
             ptxas=regs("cluster_shade")))
+    return dict(entries=entries, launches=launches)
+
+
+RT_FRAME = (1920, 1080)       # phase 18: the real-time frames' display size
+RT_CHUNK = 1 << 18            # the fused tier's rays per chunk (phase 5's)
+RT_FRAMES = 4                 # timed frames of each fused-tier path
+RT_CITY_FRAMES = 2            # timed frames of the city path
+RT_CITY_PLANES_FRAME = (960, 540)   # the city's stable-planes frame (cut)
+RT_COMPOSITE = (480, 270, 64)       # the composite check: size, frames
+RT_COMPOSITE_RMSE = 2e-2      # tests/test_stable_planes.py:116-149
+RT_REF_SPP = 128              # the denoiser check's reference accumulation
+RT_STEP = 0.002               # camera motion per frame, in units of the
+#                               distance to the camera's target
+
+
+def _moving_camera(host, w, h, frame, dev):
+    """The host's camera moved sideways by RT_STEP of its target distance
+    per frame (the target moves with it)."""
+    import numpy as np
+
+    from rtxpt_tpu_torch.scene.camera import look_at
+    c = host.camera or dict(position=[0, 1, 3], target=[0, 0, 0],
+                            up=[0, 1, 0], fov_y_deg=45.0)
+    pos = np.asarray(c["position"], np.float64)
+    tgt = np.asarray(c["target"], np.float64)
+    fwd = tgt - pos
+    right = np.cross(fwd, np.asarray(c["up"], np.float64))
+    right /= np.linalg.norm(right)
+    shift = right * (RT_STEP * np.linalg.norm(fwd) * frame)
+    return look_at(pos + shift, tgt + shift, c["up"], c["fov_y_deg"], w, h,
+                   device=dev)
+
+
+def _lane_exact_share(kern, plain):
+    """Share of the lanes whose every row (integer and float) is the same
+    in the kernel's and the plain version's outputs, NaN equal to NaN."""
+    import torch
+    same = None
+    for k, p in zip(kern, plain):
+        eq = (k == p) | (torch.isnan(k) & torch.isnan(p)) \
+            if k.is_floating_point() else (k == p)
+        eq = eq.all(0)
+        same = eq if same is None else same & eq
+    return float(same.float().mean())
+
+
+def _realtime(record, dev, smi, dump, city_prepared):
+    """Phase 18: real-time mode. (a) K1's inject variant (the V-buffer
+    restart) and first_direct=False on the glass-over-mirror Cornell box
+    (procedural.glass_mirror_cornell) at 1080p: 65,536 camera rays spread
+    over the frame, the V-buffers of stable planes 0, 1 and 2 from
+    `decompose`, bounce 0 injected with the planes' budgets and bounce 2
+    (the plain version carries the state), first_direct=False at both,
+    against the plain version: phase 3's criteria and the share of lanes
+    bit-exact >= LANE_FRACTION. All sixteen instantiations with inject on
+    (phase 17's 4,096 rays; the injected rows are the plain version's own
+    bounce-0 hits), bounces 0 and 2, first_direct=False: bit-exact. The
+    inject launch timed at 2^18 lanes (plane 0 of 512 x 512 rays over the
+    frame) beside the ordinary K1 on the same camera rays, with the bound.
+    (b) The frames at 1920x1080, 4 bounces, power NEE, the camera moving
+    RT_STEP per frame, 1 warm-up then RT_FRAMES timed: render_frame on the
+    Cornell box with RELAX, TAA and bloom; the same with split_denoise;
+    the same at render_scale 0.5; render_frame_stable_planes on the
+    glass-over-mirror box with RELAX and TAA; render_frame on the city
+    (clustered, 2 pages; RT_CITY_FRAMES timed; cull_overflow); one
+    stable-planes frame of the city at 960x540 (the general tier). ms per
+    frame, launch counts (K1 inject per stable-planes frame: one per
+    plane), each plane's share of valid pixels, and one profiled
+    stable-planes frame split into BUILD, fills (K1), denoise, TAA with
+    tonemap, the rest and idle. (c) Correctness: the glass-over-mirror
+    composite at 480x270 (64 frames, no denoiser, firefly clamp 0.5, 4
+    bounces) against `render` at 64 spp: RMSE < 2e-2, plane 1 valid on
+    some pixels; the denoised Cornell render_frame at 1080p after 4 frames
+    against the raw 1-spp frame: roughness < 0.35 x the raw one's, mean
+    ratio within 0.5-2 (tests/test_realtime.py:17-51), and its RMSE
+    against a 128-spp accumulation lower than the raw frame's. Returns
+    dict(entries={name: kernel-line entry}, launches={path: counts})."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from rtxpt_tpu_torch import kernels
+    from rtxpt_tpu_torch.config import (
+        DenoiserMode, NEEMode, PathTracerConfig, RenderConfig)
+    from rtxpt_tpu_torch.prepare import prepare
+    from rtxpt_tpu_torch.pt import bounce_fused as bf
+    from rtxpt_tpu_torch.pt import realtime
+    from rtxpt_tpu_torch.pt.integrator import (
+        _pixel_grid, camera_rays, render)
+    from rtxpt_tpu_torch.pt.stable_planes import decompose
+    from rtxpt_tpu_torch.pt.integrator import render_sample
+    from rtxpt_tpu_torch.scene.procedural import (
+        cornell_box, default_camera, glass_mirror_cornell, overlap_curtain)
+
+    t_phase = time.perf_counter()
+    rec = dict(card=smi)
+    record["realtime"] = rec
+    failed = []
+    err = 0.0
+    w, h = RT_FRAME
+    cfg = PathTracerConfig(max_bounces=4, nee=NEEMode.POWER,
+                           ray_chunk=RT_CHUNK)
+    kcfg = bf.KernelConfig.from_cfg(cfg)
+    ghost = glass_mirror_cornell()
+    glass = prepare(ghost, device=dev)
+    gtb = glass.bounce_tables
+    sample = 1
+
+    def plane_states(cols, rows):
+        """(planes, camera rays) of a cols x rows grid of rays spread over
+        the 1080p frame."""
+        cam = default_camera(ghost, w, h, device=dev)
+        px, py = _pixel_grid(cols, rows, dev)
+        px, py = px * w // cols, py * h // rows
+        o, d, spread = camera_rays(cam, cfg, px, py, sample)
+        planes, _ = decompose(glass, o, d)
+        return planes, (o, d, spread, px, py)
+
+    def restart_state(plane, rays):
+        _, _, spread, px, py = rays
+        fs, is_ = bf.initial_state(plane.o.contiguous(),
+                                   plane.d.contiguous(), spread, px, py)
+        is_[bf.IS_BUDGET] = torch.where(plane.valid, torch.clamp(
+            cfg.max_bounces - plane.nverts, min=0), 0).to(torch.int32)
+        return fs, is_, bf.pack_injection(plane.vbuffer(cfg.max_ray_travel))
+
+    # ---- (a) K1 inject and first_direct=False against the plain version --
+    planes, rays = plane_states(CMP_SIDE, CMP_SIDE)
+    k1 = {}
+    for i, plane in enumerate(planes):
+        fs, is_, inj = restart_state(plane, rays)
+        s_i = (sample + i * realtime.PLANE_SEED) & 0xFFFFFFFF
+        for b in range(3):
+            inj_b = inj if b == 0 else None
+            plain = bf.bounce_reference(fs, is_, gtb, kcfg, s_i, inj=inj_b,
+                                        first_direct=False)
+            if b in (0, 2):
+                kern = bf.bounce(fs, is_, gtb, kcfg, s_i, inj=inj_b,
+                                 first_direct=False)
+                torch.cuda.synchronize()
+                summary, e = _compare_state(kern, plain)
+                exact = _lane_exact_share(kern, plain)
+                summary.update(lanes_bit_exact=exact,
+                               active=int((is_[bf.IS_ACTIVE] > 0).sum()),
+                               valid=int(plane.valid.sum()))
+                k1[f"plane{i}_bounce{b}"] = summary
+                err = max(err, e)
+                if not _state_ok(summary) or exact < LANE_FRACTION:
+                    failed.append(f"k1 inject plane {i} bounce {b}")
+            fs, is_ = plain[0], plain[1]
+    rec["k1"] = k1
+    print("realtime k1 inject, first_direct=False, glass-over-mirror 1080p "
+          f"({CMP_SIDE * CMP_SIDE} rays): " + "; ".join(
+              f"{k} valid {v['valid']} exact {v['lanes_bit_exact']:.6f} "
+              f"int {v['int_lanes_equal']:.6f} worst float "
+              f"{v['worst_float_row']:.6f}" for k, v in k1.items())
+          + f"; max abs err {err:.3g}", flush=True)
+    if not planes[1].valid.any() or not planes[2].valid.any():
+        failed.append("planes 1 and 2 empty on the comparison rays")
+
+    # all sixteen instantiations with inject on
+    hosts = _alpha_hosts()
+    curtain = prepare(hosts["curtain"], device=dev)
+    nest = prepare(overlap_curtain([1, 2, 0]), device=dev)
+    inst = {}
+    for t in (False, True):
+        icfg = PathTracerConfig(max_bounces=3, nee=NEEMode.POWER,
+                                stochastic_texture_filtering=t)
+        ikcfg = bf.KernelConfig.from_cfg(icfg)
+        for o_ in (False, True):
+            for p in (False, True):
+                for s_ in (False, True):
+                    key = f"tex{int(t)}_omm{int(o_)}_prio{int(p)}_" \
+                          f"split{int(s_)}"
+                    tb = dc.replace((nest if p else curtain).bounce_tables,
+                                    omm=o_, prio=p)
+                    if p:
+                        fs, is_ = _prio_state(SPLIT_SIDE, SPLIT_SIDE, dev,
+                                              sample)
+                    else:
+                        cam = default_camera(hosts["curtain"], SPLIT_SIDE,
+                                             SPLIT_SIDE, device=dev)
+                        px, py = _pixel_grid(SPLIT_SIDE, SPLIT_SIDE, dev)
+                        o, d, spread = camera_rays(cam, icfg, px, py, sample)
+                        fs, is_ = bf.initial_state(o, d, spread, px, py)
+                    fs2 = torch.zeros((bf.NF2, fs.shape[1]), device=dev) \
+                        if s_ else None
+                    # the injected rows: the plain version's own hits
+                    inj = bf.bounce_reference(fs, is_, tb, ikcfg, sample,
+                                              fs2=fs2)[2][:bf.NINJ] \
+                        .contiguous()
+                    res = {}
+                    for b in range(3):
+                        inj_b = inj if b == 0 else None
+                        plain = bf.bounce_reference(
+                            fs, is_, tb, ikcfg, sample, fs2=fs2, inj=inj_b,
+                            first_direct=False)
+                        if b in (0, 2):
+                            kern = bf.bounce(fs, is_, tb, ikcfg, sample,
+                                             fs2=fs2, inj=inj_b,
+                                             first_direct=False)
+                            torch.cuda.synchronize()
+                            res[f"b{b}"] = _bit_exact(kern, plain)
+                        fs, is_ = plain[0], plain[1]
+                        fs2 = plain[-1] if s_ else None
+                    inst[key] = {k: dict(exact=v[0], max_abs_err=v[1])
+                                 for k, v in res.items()}
+                    for k, (ok, e) in res.items():
+                        err = max(err, e)
+                        if not ok:
+                            failed.append(f"inject {key} {k}")
+    rec["instantiations"] = inst
+    n_exact = sum(all(v[k]["exact"] for k in v) for v in inst.values())
+    print(f"realtime k1 inject: {n_exact} of 16 instantiations bit-exact at "
+          f"bounces 0 (injected) and 2 on {SPLIT_SIDE * SPLIT_SIDE} rays, "
+          f"first_direct=False", flush=True)
+
+    # the inject launch timed beside the ordinary K1 (2^18 lanes)
+    side = int(round(RAYS_TIMED ** 0.5))
+    tplanes, trays = plane_states(side, side)
+    fs_i, is_i, inj_t = restart_state(tplanes[0], trays)
+    o, d, spread, px, py = trays
+    fs_c, is_c = bf.initial_state(o, d, spread, px, py)
+    ms_inj = _cuda_ms(lambda: bf.bounce(fs_i, is_i, gtb, kcfg, sample,
+                                        inj=inj_t), 20)
+    ms_k1 = _cuda_ms(lambda: bf.bounce(fs_c, is_c, gtb, kcfg, sample), 20)
+    plain_ms = _cuda_ms(lambda: bf.bounce_reference(
+        fs_i, is_i, gtb, kcfg, sample, inj=inj_t), 2)
+    n = side * side
+    tables_b = 4 * sum(_numel(x) for x in (
+        gtb.tri_coef, gtb.attr_rows, gtb.mat_rows, gtb.light_rows))
+    bound, by, _ = _bound(4 * n * (2 * (bf.NF + bf.NI) + bf.NH + bf.NINJ)
+                          + tables_b)
+    tests = int((is_c[bf.IS_ACTIVE] > 0).sum())
+    bound_k1, by_k1, _ = _bound(4 * n * (2 * (bf.NF + bf.NI) + bf.NH)
+                                + tables_b,
+                                f32=tests * gtb.n_tris * K1_PAIR_F32)
+    rec["timing"] = dict(lanes=n, ms=ms_inj, ms_k1=ms_k1, plain_ms=plain_ms,
+                         bound_ms=bound, bound_by=by, bound_k1_ms=bound_k1,
+                         bound_k1_by=by_k1)
+    rec["ptxas"] = {
+        f"tex{t}_omm{o_}_prio{p}_split{s_}": _ptxas_entry(
+            kernels.BOUNCE_FUSED_RESTART.ptxas_log,
+            f"bounce_fused_restart_kernelILb{t}ELb{o_}ELb{p}ELb{s_}E")
+        for t in (0, 1) for o_ in (0, 1) for p in (0, 1) for s_ in (0, 1)}
+    print("realtime restart ptxas (registers, spill store bytes): "
+          + ", ".join(f"{k} {v['registers']}/{v['spill_store_bytes']}"
+                      for k, v in rec["ptxas"].items()), flush=True)
+    print(f"realtime k1 inject: {ms_inj:.4f} ms per {n}-lane launch, K1 "
+          f"{ms_k1:.4f} ms on the camera rays, plain {plain_ms:.4f} ms, "
+          f"bound {bound:.4f} ms ({by}; K1 {bound_k1:.4f}, {by_k1}) ({smi})",
+          flush=True)
+    dump()
+    if failed:
+        _fail(f"realtime: K1's inject variant disagrees with its plain "
+              f"version: {failed}")
+
+    # ---- (b) the frames ----
+    chost = cornell_box()
+    cornell = prepare(chost, device=dev)
+    city_host, city, _ = city_prepared
+    relax = DenoiserMode.RELAX
+    city_cfg = dc.replace(cfg, ray_chunk=1 << 30)
+    paths = dict(
+        cornell=(chost, cornell, cfg, dict(enable_bloom=True),
+                 realtime.render_frame, RT_FRAME, RT_FRAMES),
+        cornell_split=(chost, cornell, cfg,
+                       dict(enable_bloom=True, split_denoise=True),
+                       realtime.render_frame, RT_FRAME, RT_FRAMES),
+        cornell_half=(chost, cornell, cfg,
+                      dict(enable_bloom=True, render_scale=0.5),
+                      realtime.render_frame, RT_FRAME, RT_FRAMES),
+        glass_planes=(ghost, glass, cfg, {},
+                      realtime.render_frame_stable_planes, RT_FRAME,
+                      RT_FRAMES),
+        city=(city_host, city, city_cfg, {}, realtime.render_frame,
+              RT_FRAME, RT_CITY_FRAMES),
+        city_planes=(city_host, city, city_cfg, {},
+                     realtime.render_frame_stable_planes,
+                     RT_CITY_PLANES_FRAME, 1))
+    launches, frames = {}, {}
+    prof_args = None
+    for name, (host, scene, pcfg, extra, fn, (fw, fh), n_frames) in \
+            paths.items():
+        rc = RenderConfig(width=fw, height=fh, denoiser=relax,
+                          enable_taa=True, **extra)
+        state = realtime.init_state(fh, fw, scene, pcfg)
+        _, _, state = fn(scene, _moving_camera(host, fw, fh, 0, dev), pcfg,
+                         rc, state)                         # warm-up
+        torch.cuda.synchronize()
+        kernels.launches.clear()
+        t0 = time.perf_counter()
+        for f in range(1, 1 + n_frames):
+            img, hdr, state = fn(scene, _moving_camera(host, fw, fh, f, dev),
+                                 pcfg, rc, state)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = dict(kernels.launches)
+        launches[name] = counts
+        r = dict(size=f"{fw}x{fh}", frames=n_frames,
+                 ms_per_frame=dt / n_frames * 1e3, launches=counts,
+                 finite=bool(torch.isfinite(hdr).all()),
+                 hdr_mean=float(hdr.mean()),
+                 motion_px=float(state.motion.abs().mean())
+                 if state.motion is not None else 0.0)
+        if fn is realtime.render_frame_stable_planes:
+            cam = _moving_camera(host, fw, fh, n_frames, dev)
+            px, py = _pixel_grid(fw, fh, dev)
+            o, d, _ = camera_rays(cam, pcfg, px, py, state.frame_index)
+            pls, _ = decompose(scene, o, d)
+            r["plane_valid_share"] = [float(p.valid.float().mean())
+                                      for p in pls]
+            r["k1_inject_per_frame"] = sum(
+                v for k, v in counts.items()
+                if k.startswith("bounce_fused_inj")) / n_frames
+            r["k1_per_frame"] = sum(
+                v for k, v in counts.items()
+                if k.startswith("bounce_fused")) / n_frames
+            if name == "glass_planes":
+                prof_args = (host, scene, pcfg, rc, state, n_frames + 1)
+        if name == "city":
+            # the clustered tier's overflow of the last frame's trace
+            out = render_sample(scene, _moving_camera(host, fw, fh,
+                                                      n_frames, dev),
+                                pcfg, fw, fh, state.frame_index - 1,
+                                want_aux=True)
+            r["cull_overflow"] = int(out["cull_overflow"])
+        frames[name] = r
+        print(f"realtime {name} {fw}x{fh}: {r['ms_per_frame']:.1f} ms per "
+              f"frame over {n_frames} frames, mean motion "
+              f"{r['motion_px']:.3f} px, launches {counts}"
+              + (f", K1 inject {r['k1_inject_per_frame']:.0f} and K1 "
+                 f"{r['k1_per_frame']:.0f} per frame, plane valid shares "
+                 f"{[round(x, 4) for x in r['plane_valid_share']]}"
+                 if "plane_valid_share" in r else "")
+              + (f", cull_overflow {r['cull_overflow']}"
+                 if "cull_overflow" in r else "")
+              + f" ({smi})", flush=True)
+        if not r["finite"] or not counts:
+            failed.append(f"path {name}")
+    rec["paths"] = frames
+    dump()
+    # what each path must have launched
+    need = dict(cornell=("bounce_fused",), cornell_split=(
+        "bounce_fused_split",), cornell_half=("bounce_fused",),
+        glass_planes=("bounce_fused_inj", "bounce_fused", "brute_closest"),
+        city=("cluster_closest", "cluster_shade", "cluster_shadow"),
+        city_planes=("bvh_traverse",))
+    for name, names in need.items():
+        for k in names:
+            if not launches[name].get(k):
+                failed.append(f"{name}: {k} not launched")
+    if frames["glass_planes"]["k1_inject_per_frame"] != 3:
+        failed.append("glass_planes: K1 inject not once per plane")
+
+    # one profiled stable-planes frame
+    host, scene, pcfg, rc, state, f = prof_args
+    cam = _moving_camera(host, w, h, f, dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        realtime.render_frame_stable_planes(scene, cam, pcfg, rc, state)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    split, table = _split(prof, wall, ("build", "fill", "denoise", "taa"),
+                          (("k1", "bounce_fused_kernel"),))
+    split["other"] = split["device_busy"] - sum(
+        split[k] for k in ("build", "fill", "denoise", "taa"))
+    rec["split"], rec["profile_table"] = split, table
+    print(f"realtime glass_planes split (one profiled frame, ms): "
+          f"{json.dumps({k: v for k, v in split.items() if k != 'spans'})} "
+          f"({smi})", flush=True)
+
+    # ---- (c) correctness ----
+    cw, ch, nfr = RT_COMPOSITE
+    ccfg = dc.replace(cfg, firefly_clamp=0.5)
+    cam = default_camera(ghost, cw, ch, device=dev)
+    rc = RenderConfig(width=cw, height=ch, denoiser=DenoiserMode.NONE,
+                      tonemap="none")
+    state = realtime.init_state(ch, cw, glass, ccfg)
+    acc = None
+    for _ in range(nfr):
+        _, hdr, state = realtime.render_frame_stable_planes(glass, cam, ccfg,
+                                                             rc, state)
+        acc = hdr if acc is None else acc + hdr
+    ref, _, _ = render(glass, cam, ccfg, cw, ch, spp=nfr)
+    comp_rmse = float(((acc / nfr - ref) ** 2).mean().sqrt())
+    px, py = _pixel_grid(cw, ch, dev)
+    o, d, _ = camera_rays(cam, ccfg, px, py, 0)
+    p1 = int(decompose(glass, o, d)[0][1].valid.sum())
+    rec["composite"] = dict(rmse=comp_rmse, plane1_pixels=p1, frames=nfr,
+                            size=f"{cw}x{ch}")
+    print(f"realtime composite: glass-over-mirror {cw}x{ch}, {nfr} frames "
+          f"against render at {nfr} spp: RMSE {comp_rmse:.5f} (limit "
+          f"{RT_COMPOSITE_RMSE}); plane 1 valid on {p1} pixels", flush=True)
+    if not comp_rmse < RT_COMPOSITE_RMSE or p1 <= 0:
+        failed.append("composite")
+
+    cam = default_camera(chost, w, h, device=dev)
+    rc = RenderConfig(width=w, height=h, denoiser=relax, tonemap="none")
+    state = realtime.init_state(h, w, cornell, cfg)
+    for _ in range(4):
+        _, den, state = realtime.render_frame(cornell, cam, cfg, rc, state)
+    raw, _, _ = render(cornell, cam, cfg, w, h, spp=1, first_sample=7)
+    ref, _, _ = render(cornell, cam, cfg, w, h, spp=RT_REF_SPP,
+                       first_sample=1000)
+
+    def roughness(img):
+        img = torch.clamp(img, 0.0, 1.0)
+        lap = (4 * img[1:-1, 1:-1] - img[:-2, 1:-1] - img[2:, 1:-1]
+               - img[1:-1, :-2] - img[1:-1, 2:])
+        return float(lap.abs().mean())
+
+    def rmse_to_ref(img):
+        return float(((img - ref) ** 2).mean().sqrt())
+
+    dq = dict(rough_denoised=roughness(den), rough_raw=roughness(raw),
+              mean_ratio=float(den.mean()) / float(raw.mean()),
+              rmse_denoised=rmse_to_ref(den), rmse_raw=rmse_to_ref(raw),
+              ref_spp=RT_REF_SPP)
+    rec["denoiser"] = dq
+    print(f"realtime denoiser: Cornell {w}x{h} after 4 RELAX frames: "
+          f"roughness {dq['rough_denoised']:.5f} against the raw 1-spp "
+          f"frame's {dq['rough_raw']:.5f} (limit 0.35x), mean ratio "
+          f"{dq['mean_ratio']:.4f}; RMSE against {RT_REF_SPP} spp "
+          f"{dq['rmse_denoised']:.5f} against the raw frame's "
+          f"{dq['rmse_raw']:.5f}", flush=True)
+    if not (dq["rough_denoised"] < 0.35 * dq["rough_raw"]
+            and 0.5 < dq["mean_ratio"] < 2.0
+            and dq["rmse_denoised"] < dq["rmse_raw"]):
+        failed.append("denoiser")
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"realtime: phase 18 in {rec['seconds']:.1f}s", flush=True)
+    dump()
+    if failed:
+        _fail(f"realtime: {failed}")
+    n_inj = launches["glass_planes"].get("bounce_fused_inj", 0)
+    entries = dict(bounce_fused_inj=dict(
+        name="bounce_fused_inj", route="cuda",
+        source="rtxpt_tpu_torch/csrc/bounce_fused_restart.cu",
+        replaces="rtxpt_tpu/pt/bounce_pallas.py:1389",
+        launches=n_inj, launches_by_path={"glass_planes": n_inj},
+        max_abs_err=err, ms=ms_inj, plain_ms=plain_ms, bound_ms=bound,
+        bound_by=by, library_ms=None, ms_k1_same_rays=ms_k1,
+        lanes_bit_exact=min(v["lanes_bit_exact"] for v in k1.values()),
+        instantiations_bit_exact=n_exact, first_direct=False,
+        ptxas=rec["ptxas"]))
     return dict(entries=entries, launches=launches)
 
 

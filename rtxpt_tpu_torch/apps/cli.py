@@ -1,5 +1,5 @@
-"""Headless render CLI of the port (counterpart of rtxpt_tpu/apps/cli.py),
-reference mode only.
+"""Headless render CLI of the port (counterpart of rtxpt_tpu/apps/cli.py):
+reference mode, and real-time mode with --realtime.
 
 Usage:
     python -m rtxpt_tpu_torch.apps.cli --scene cornell --device cuda \
@@ -29,6 +29,20 @@ window). `--stf` turns on stochastic texture filtering, which the fused
 and clustered kernels' texture path is; without it a textured scene
 renders on the general tier with bilinear filtering, as in the JAX
 package.
+
+Real-time mode (pt/realtime.py): `--realtime N` renders N one-sample
+frames through the denoiser (`--denoiser relax|reblur|none`, `--split-
+denoise` for the diffuse and specular channels apart), `--taa` and
+`--bloom`, at `--render-scale` of the display size, and saves the last;
+`--stable-planes` decomposes the frame into stable planes first (the
+fused tier restarts each plane's fill from its V-buffer in K1):
+
+    python -m rtxpt_tpu_torch.apps.cli --scene cornell --device cuda \
+        --width 1920 --height 1080 --bounces 4 --realtime 8 --taa \
+        --stable-planes --out rt.png
+
+ReSTIR (`--restir`), ReGIR (`--regir`) and the pipelined frame driver
+(`--pipelined`) are not ported: they are refused by name.
 """
 
 from __future__ import annotations
@@ -103,6 +117,27 @@ def main(argv=None):
                         "buffers, averaged over the samples, as "
                         "<out>.<key>.npy")
     p.add_argument("--seed", type=int, default=0, help="first sample index")
+    p.add_argument("--realtime", type=int, default=0, metavar="FRAMES",
+                   help="real-time mode: run N 1-spp frames through the "
+                        "denoiser/TAA pipeline, save the last")
+    p.add_argument("--denoiser", choices=["none", "relax", "reblur"],
+                   default="relax", help="denoiser for --realtime")
+    p.add_argument("--restir", choices=["none", "di", "digi"],
+                   default="none", help="ReSTIR in --realtime frames (not "
+                   "ported)")
+    p.add_argument("--regir", action="store_true",
+                   help="ReGIR candidates for --restir (not ported)")
+    p.add_argument("--render-scale", type=float, default=1.0,
+                   help="trace at this fraction of the display size and "
+                        "upscale before TAA")
+    p.add_argument("--split-denoise", action="store_true",
+                   help="denoise the diffuse and specular channels apart")
+    p.add_argument("--pipelined", action="store_true",
+                   help="double-buffered frame driver (not ported)")
+    p.add_argument("--stable-planes", action="store_true",
+                   help="real-time path-space decomposition (delta chains)")
+    p.add_argument("--taa", action="store_true")
+    p.add_argument("--bloom", action="store_true")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (the CUDA kernels) or cpu (their "
                         "plain PyTorch versions)")
@@ -123,6 +158,14 @@ def main(argv=None):
     if args.envmap:
         p.error("--envmap: loading environment images is not ported to "
                 "rtxpt_tpu_torch yet (use --sky)")
+    if args.realtime < 0:
+        p.error("--realtime must be >= 0")
+    for flag, on in (("--restir", args.restir != "none"),
+                     ("--regir", args.regir),
+                     ("--pipelined", args.pipelined)):
+        if on:
+            p.error(f"{flag}: ReSTIR, ReGIR and the pipelined frame driver "
+                    f"are not ported to rtxpt_tpu_torch")
 
     import numpy as np
 
@@ -156,6 +199,8 @@ def main(argv=None):
         stochastic_texture_filtering=args.stf)
 
     t0 = time.time()
+    if args.realtime:
+        return _realtime(args, scene, cam, cfg, dev, t0)
     if args.nee == "neeat":
         hdr, _, rays = render_adaptive(scene, cam, cfg, args.width,
                                        args.height, spp=args.spp,
@@ -177,6 +222,38 @@ def main(argv=None):
     base = args.out.rsplit(".", 1)[0]
     for k, v in aux.items():
         np.save(f"{base}.{k}.npy", v.cpu().numpy())
+    return 0
+
+
+def _realtime(args, scene, cam, cfg, dev, t0):
+    """--realtime: the frames, the last one saved (and its HDR)."""
+    import numpy as np
+
+    from rtxpt_tpu_torch.config import DenoiserMode, RenderConfig
+    from rtxpt_tpu_torch.pt import realtime
+    from rtxpt_tpu_torch.utils.image import save_png
+
+    rc = RenderConfig(
+        width=args.width, height=args.height,
+        denoiser=DenoiserMode[args.denoiser.upper()], enable_taa=args.taa,
+        enable_bloom=args.bloom, exposure=args.exposure,
+        tonemap=args.tonemap, render_scale=args.render_scale,
+        split_denoise=args.split_denoise)
+    state = realtime.init_state(args.height, args.width, scene=scene,
+                                pt_cfg=cfg)
+    frame_fn = (realtime.render_frame_stable_planes if args.stable_planes
+                else realtime.render_frame)
+    for _ in range(args.realtime):
+        img, hdr, state = frame_fn(scene, cam, cfg, rc, state)
+    img = img.cpu().numpy()
+    dt = time.time() - t0
+    print(f"[realtime] {args.realtime} frames of {args.width}x{args.height} "
+          f"on {dev} in {dt:.2f}s ({dt / args.realtime * 1e3:.1f} ms/frame "
+          f"avg incl. kernel build)", file=sys.stderr)
+    save_png(args.out, img)
+    print(f"[out] {args.out}", file=sys.stderr)
+    if args.hdr:
+        np.save(args.hdr, hdr.cpu().numpy())
     return 0
 
 

@@ -1,8 +1,8 @@
 """Path-tracer configuration of the port.
 
 The same fields, defaults and enum values as rtxpt_tpu/config.py's
-PTMode, NEEMode and PathTracerConfig (tests/test_torch_imports.py holds
-the two equal), kept in the port so that it runs where the JAX package is
+PTMode, NEEMode, DenoiserMode, PathTracerConfig and RenderConfig
+(tests/test_torch_imports.py holds the two equal), kept in the port so that it runs where the JAX package is
 not installed. The port reads a config by attribute and compares enums by
 value, so either package's PathTracerConfig drives it.
 """
@@ -29,6 +29,14 @@ class NEEMode(enum.Enum):
     UNIFORM = 1
     POWER = 2     # power-proportional global CDF
     NEEAT = 3     # feedback-adaptive (the external-NEE route)
+
+
+class DenoiserMode(enum.Enum):
+    """Real-time mode's denoiser (render/denoise.py)."""
+
+    NONE = 0
+    RELAX = 1
+    REBLUR = 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,3 +70,28 @@ class PathTracerConfig:
     nee_external: bool = False
     kernel_energy_comp: bool = True
     cluster_noprune: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    """Frame-level settings of real-time mode (pt/realtime.py; see
+    rtxpt_tpu/config.py for each field's reference analog). ReSTIR
+    (`restir` other than "none") is not ported: the frames refuse it by
+    name; `restir_regir` is read only with it, and `frame_gen`, `spp` and
+    `accumulation_limit` are not read by the frames, as in the JAX
+    package."""
+
+    width: int = 512
+    height: int = 512
+    spp: int = 1
+    exposure: float = 1.0
+    tonemap: str = "aces"            # "aces" | "reinhard" | "linear" | "none"
+    denoiser: DenoiserMode = DenoiserMode.NONE
+    enable_taa: bool = False
+    enable_bloom: bool = False
+    accumulation_limit: int = 0
+    render_scale: float = 1.0
+    split_denoise: bool = False
+    restir: str = "none"             # "none" | "di" | "digi"
+    restir_regir: bool = False
+    frame_gen: int = 0

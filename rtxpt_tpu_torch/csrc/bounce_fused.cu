@@ -15,7 +15,8 @@
 // (bounce_pallas.py:1138-1156: the false-hit rejection and the interior
 // list's lower slot; the same pass-through), and the split-channel switch
 // split_ch (bounce_pallas.py:1401-1422, :1501-1504, :1543-1545, :1568-1570:
-// the fs2 rows in and out). Plain version:
+// the fs2 rows in and out); its inject and first_direct switches are
+// bounce_fused_restart.cu's. Plain version:
 // rtxpt_tpu_torch/pt/bounce_fused.py bounce_reference; wrapper:
 // bounce_fused.bounce.
 //
@@ -77,17 +78,32 @@
 // contribution at logical bounce 0 reads the same f as the contribution.
 // All sixteen combinations are instantiated: the JAX kernel's split
 // composes with every other switch.
+//
+// The real-time fill (the V-buffer restart and first_direct=False) is a
+// fifth switch, Restart, in a kernel of its own (bounce_fused_restart_kernel,
+// the `inj` pointer its last parameter): as a runtime branch in every
+// instantiation it moved the registers of eleven of the sixteen (116-128
+// against 115-128, and a 4-byte spill in omm_prio_split; ptxas for sm_90a),
+// so the sixteen reference-mode kernels keep their code
+// and the restart gets sixteen of its own: the JAX kernel's inject and
+// first_direct compose with every other switch (a stable-planes fill of a
+// textured, alpha-tested or priority scene with STF, with or without the
+// split channels), so every combination is reachable. In a restart launch
+// a non-null `inj` replaces the intersection loop by five coalesced loads
+// per ray (t, prim, u, v, front; 20 B), and the winner's attribute column is
+// read as after the loop; `inj` is one pointer for the launch, so no warp
+// diverges on it (a null `inj` is a later bounce of a first_direct=False
+// fill). With injection a launch reads 228 B of state per ray and writes
+// 116 B; it tests no closest-hit pair, only the shadow ray's.
 #include <cuda_runtime.h>
 
-#include "bounce_fused.cuh"
+#include "bounce_fused_launch.cuh"
 #include "rt_error.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-
 template <bool HasTex, bool HasOmm, bool HasPrio, bool HasSplit>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(rt::kBounceThreads)
 bounce_fused_kernel(const float* __restrict__ fs, const int* __restrict__ is,
                     const float* __restrict__ fs2, float* __restrict__ fs_out,
                     int* __restrict__ is_out, float* __restrict__ hit_out,
@@ -95,22 +111,18 @@ bounce_fused_kernel(const float* __restrict__ fs, const int* __restrict__ is,
                     rt::Tables tb, rt::Config cfg, int n) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  rt::bounce_ray<HasTex, HasOmm, HasPrio, HasSplit>(i, n, fs, is, fs2, fs_out, is_out,
-                                                    hit_out, surf_out, fs2_out, tb, cfg);
+  rt::bounce_ray<HasTex, HasOmm, HasPrio, HasSplit, false>(
+      i, n, fs, is, fs2, fs_out, is_out, hit_out, surf_out, fs2_out, nullptr, tb, cfg);
 }
 
-// The instantiation of the switches (tex, omm, prio, split) from the
-// runtime flags, one template parameter at a time.
-template <bool... B, class... Args>
-void launch(const bool* flags, int blocks, cudaStream_t stream, Args... args) {
-  if constexpr (sizeof...(B) == 4) {
-    bounce_fused_kernel<B...><<<blocks, kThreads, 0, stream>>>(args...);
-  } else if (flags[sizeof...(B)]) {
-    launch<B..., true>(flags, blocks, stream, args...);
-  } else {
-    launch<B..., false>(flags, blocks, stream, args...);
+template <bool HasTex, bool HasOmm, bool HasPrio, bool HasSplit>
+struct Kernel {
+  template <class... Args>
+  static void launch(int blocks, cudaStream_t stream, Args... args) {
+    bounce_fused_kernel<HasTex, HasOmm, HasPrio, HasSplit>
+        <<<blocks, rt::kBounceThreads, 0, stream>>>(args...);
   }
-}
+};
 
 }  // namespace
 
@@ -131,36 +143,14 @@ extern "C" int rtxpt_bounce_fused(
     unsigned int sample_idx, int nee_mode, int enable_mis, float firefly,
     int rr_enable, int min_rr, float max_travel, int low_discrepancy,
     int energy_comp, int maxb, int final_env, int prio, void* stream) {
-  rt::Tables tb;
-  tb.tri = tri_coef;
-  tb.attr = attr_rows;
-  tb.mat = mat_rows;
-  tb.light = light_rows;
-  tb.env = env;
-  tb.tex = reinterpret_cast<const float4*>(tex);
-  tb.tex_meta = tex_meta;
-  tb.n_tex = n_tex;
-  tb.tex_maps = tex_maps;
-  tb.n_tris = n_tris;
-  tb.tpad = tpad;
-  tb.n_lights = n_lights;
-  tb.micro = micro;
-  tb.cover = cover;
-  rt::Config cfg;
-  cfg.sample_idx = sample_idx;
-  cfg.nee_mode = nee_mode;
-  cfg.enable_mis = enable_mis != 0;
-  cfg.firefly = firefly;
-  cfg.rr_enable = rr_enable != 0;
-  cfg.min_rr = min_rr;
-  cfg.max_travel = max_travel;
-  cfg.low_discrepancy = low_discrepancy != 0;
-  cfg.energy_comp = energy_comp != 0;
-  cfg.maxb = maxb;
-  cfg.final_env = final_env != 0;
-  int blocks = (n + kThreads - 1) / kThreads;
+  const rt::Tables tb = rt::bounce_tables(tri_coef, attr_rows, mat_rows, light_rows, env, tex,
+                                          tex_meta, n_tex, tex_maps, micro, cover, n_tris, tpad,
+                                          n_lights);
+  const rt::Config cfg = rt::bounce_config(sample_idx, nee_mode, enable_mis, firefly, rr_enable,
+                                           min_rr, max_travel, low_discrepancy, energy_comp,
+                                           maxb, final_env, 1);
   const bool flags[4] = {tex != nullptr, micro != nullptr, prio != 0, fs2 != nullptr};
-  launch<>(flags, blocks, (cudaStream_t)stream, fs, is, fs2, fs_out, is_out, hit_out,
-           surf_out, fs2_out, tb, cfg, n);
+  rt::launch_switches<Kernel>(flags, rt::bounce_blocks(n), (cudaStream_t)stream, fs, is, fs2,
+                              fs_out, is_out, hit_out, surf_out, fs2_out, tb, cfg, n);
   return (int)cudaGetLastError();
 }

@@ -28,7 +28,14 @@
 // split-channel switch is the template parameter HasSplit
 // (bounce_pallas.py:987-1008, :1211-1215, :1281-1287, :1309-1313, and the
 // fs2 rows at :1401-1422, :1501-1504, :1543-1545, :1568-1570): NRD's
-// diffuse/specular partition of the radiance, in the seven fs2 rows.
+// diffuse/specular partition of the radiance, in the seven fs2 rows. The
+// real-time fill's switches are the template parameter Restart of
+// bounce_ray: with it, the V-buffer restart (bounce_pallas.py:1427-1442)
+// takes each lane's hit from the injected rows, when given, instead of the
+// intersection loop, and Config::first_direct false (bounce_pallas.py
+// :980-986, :1267-1268) leaves out the environment and emission gathered at
+// logical bounce 1 and NEE at logical bounce 0. Without it the code is the
+// reference mode's, so those instantiations keep their registers.
 #pragma once
 
 #include "omm.cuh"
@@ -113,6 +120,9 @@ struct Config {
   bool energy_comp;
   int maxb;
   bool final_env;       // the final environment-only round
+  bool first_direct;    // false: the caller shades the first vertex's
+                        // direct light (the stable-planes fill under an
+                        // external direct-light pass)
 };
 
 struct Hit {
@@ -492,7 +502,8 @@ RT_HD void store_state(int i, int n, const RayState& s, float* __restrict__ fs_o
 // exact lobe share, bsdf_eval_split over bsdf_eval after the firefly clamp,
 // at logical bounce 0; the first scatter's channel after), and the scatter
 // of a shaded lane at logical bounce 0 sets sp->fspec.
-template <bool HasTex, bool HasOmm, bool HasPrio, bool HasSplit, class AttrFetch>
+template <bool HasTex, bool HasOmm, bool HasPrio, bool HasSplit, class AttrFetch,
+          bool ReadsFirstDirect = false>
 RT_HD ShadowRay surface_and_shade(RayState& s, const Hit& h, const AttrFetch& A,
                                   const Tables& tb, const Config& cfg,
                                   SurfRows* sf = nullptr, Split* sp = nullptr) {
@@ -512,7 +523,13 @@ RT_HD ShadowRay surface_and_shade(RayState& s, const Hit& h, const AttrFetch& A,
   const int lb = s.lb;
 
   uint32_t seed_base = hash_combine(hash_combine((uint32_t)s.px, (uint32_t)s.py), (uint32_t)lb);
-  if (tb.env != nullptr && s.active && !hit) {
+  // the emission and environment that count: all, or without the first
+  // vertex's direct light not those gathered at logical bounce 1
+  // (K1's restart instantiations read Config::first_direct; the others, K4
+  // and K6 always shade it)
+  const bool first_direct = !ReadsFirstDirect || cfg.first_direct;
+  const bool em_gate = first_direct || lb != 1;
+  if (tb.env != nullptr && s.active && !hit && em_gate) {
     // HandleMiss: the environment, weighted against its NEE pdf
     EnvTexel e = env_eval_pdf(tb.env, d, nee_uniform, tb.n_lights);
     float w_env = 1.0f;
@@ -666,8 +683,8 @@ RT_HD ShadowRay surface_and_shade(RayState& s, const Hit& h, const AttrFetch& A,
   }
   V3 em3 = splat(0.0f);
   if (mode == 3) {
-    if (hit_shade) em3 = thp * emissive;
-  } else if (hit_shade) {
+    if (hit_shade && em_gate) em3 = thp * emissive;
+  } else if (hit_shade && em_gate) {
     const V3 em_c = thp * emissive * w_em;
     s.L = s.L + em_c;
     // the primary vertex's emission goes to neither channel
@@ -739,7 +756,8 @@ RT_HD ShadowRay surface_and_shade(RayState& s, const Hit& h, const AttrFetch& A,
     V3 wi_l = to_local3(ls.wi, sh_n);
     V3 f_l = bsdf_eval(b, wo, wi_l);
     float pdf_b = bsdf_pdf(b, wo, wi_l);
-    sr.do_nee = hit_shade && ls.valid && (luminance3(f_l) > 0.0f);
+    sr.do_nee = hit_shade && ls.valid && (luminance3(f_l) > 0.0f) &&
+                (first_direct || lb > 0);
     sr.o = ray_offset(pos, gn, ls.wi);
     float w_nee = 1.0f;
     if (cfg.enable_mis) w_nee = ls.is_delta ? 1.0f : power_heuristic(ls.pdf, pdf_b);
@@ -833,6 +851,22 @@ RT_HD void final_env_state(RayState& s, bool hit, const Tables& tb, const Config
   s.active = false;
 }
 
+// The hit of ray i from the injected rows inj [5, n]: t, prim (negative: a
+// miss, t = kBig), u, v, front (> 0.5: det +1, else -1); never UNKNOWN (the
+// pass that built the V-buffer resolved the alpha test).
+RT_HD Hit injected_hit(int i, int n, const float* __restrict__ inj) {
+  Hit h;
+  const float prim = RT_LDG(inj + n + i);
+  const bool miss = prim < 0.0f;
+  h.t = miss ? kBig : RT_LDG(inj + i);
+  h.prim = miss ? -1 : (int)prim;
+  h.u = RT_LDG(inj + 2 * n + i);
+  h.v = RT_LDG(inj + 3 * n + i);
+  h.det = RT_LDG(inj + 4 * n + i) > 0.5f ? 1.0f : -1.0f;
+  h.unk = false;
+  return h;
+}
+
 RT_HD void store_surf(int i, int n, const SurfRows& sf, float* __restrict__ surf_out) {
   float* so = surf_out + i;
   auto put3 = [&](int r, V3 v) {
@@ -859,18 +893,27 @@ RT_HD void store_surf(int i, int n, const SurfRows& sf, float* __restrict__ surf
 // at logical bounce 0, 2 shaded later (bounce_pallas.py:1556-1560).
 // HasSplit: the split rows fs2 in and fs2_out out ([NF2, n]); an unoccluded
 // NEE contribution adds cdiff to L_diff and the rest to L_spec (in the
-// external modes trace_paths_fused merges it).
-template <bool HasTex, bool HasOmm, bool HasPrio, bool HasSplit>
+// external modes trace_paths_fused merges it). Restart: with `inj` ([5, n],
+// or null) the closest hit is read from the injected rows (the V-buffer
+// restart; one pointer for the launch, so no warp diverges on it), and
+// Config::first_direct is read; without Restart `inj` is not read.
+template <bool HasTex, bool HasOmm, bool HasPrio, bool HasSplit, bool Restart>
 RT_HD void bounce_ray(int i, int n, const float* __restrict__ fs, const int* __restrict__ is,
                       const float* __restrict__ fs2, float* __restrict__ fs_out,
                       int* __restrict__ is_out, float* __restrict__ hit_out,
                       float* __restrict__ surf_out, float* __restrict__ fs2_out,
-                      const Tables& tb, const Config& cfg) {
+                      const float* __restrict__ inj, const Tables& tb,
+                      const Config& cfg) {
   RayState s = load_state(i, n, fs, is);
   Split sp;
   if constexpr (HasSplit) sp = load_split(i, n, fs2);
   const int lb_in = s.lb;
-  Hit h = intersect<HasOmm>(tb, s.o, s.d, cfg.max_travel);
+  Hit h;
+  if constexpr (Restart) {
+    h = inj != nullptr ? injected_hit(i, n, inj) : intersect<HasOmm>(tb, s.o, s.d, cfg.max_travel);
+  } else {
+    h = intersect<HasOmm>(tb, s.o, s.d, cfg.max_travel);
+  }
   float* ho = hit_out + i;
   ho[0] = h.t < kBig ? h.t : 0.0f;
   ho[n] = (float)h.prim;
@@ -889,7 +932,7 @@ RT_HD void bounce_ray(int i, int n, const float* __restrict__ fs, const int* __r
     return h.prim >= 0 ? RT_LDG(tb.attr + r * tb.tpad + h.prim) : 0.0f;
   };
   SurfRows sf;
-  ShadowRay sr = surface_and_shade<HasTex, HasOmm, HasPrio, HasSplit>(
+  ShadowRay sr = surface_and_shade<HasTex, HasOmm, HasPrio, HasSplit, decltype(attr), Restart>(
       s, h, attr, tb, cfg, surf_out != nullptr ? &sf : nullptr, &sp);
   if (sr.do_nee && !occluded<HasOmm>(tb, sr.o, sr.d, sr.dist, sr.u_alpha)) {
     s.L = s.L + sr.contrib;

@@ -24,6 +24,9 @@ kernels ("bounce_fused_prio", "bounce_fused_omm_tex_prio",
 "cluster_shade_omm_tex_prio" and so on), and so do their split-channel
 variants ("bounce_fused_split", "bounce_fused_tex_split_env",
 "bounce_fused_final_split", "cluster_shade_split" and so on), and so do
+K1's restart instantiations ("bounce_fused_inj", "bounce_fused_inj_split"
+and so on: bounce 0 of a stable-planes fill; "bounce_fused_nodirect..."
+for the later bounces of a first_direct=False fill), and so do
 the per-row kernels
 K6 and K7 ("cluster_rows_closest_shade" with its "_env", "_tex",
 "_tex_env" and "_final" variants, "cluster_rows_shadow"). `build_all()`
@@ -171,6 +174,23 @@ BOUNCE_FUSED = CudaLibrary(
         _I, _I,                        # final_env, prio
         _P]})                          # cudaStream_t
 
+# K1's real-time fill (the same TPU kernel with inject / first_direct=False):
+# the V-buffer restart, a library of its own; wrapper bounce_fused.bounce.
+BOUNCE_FUSED_RESTART = CudaLibrary(
+    "bounce_fused_restart", ["bounce_fused_restart.cu"],
+    {"rtxpt_bounce_fused_restart": [
+        _P, _P, _P, _P, _P, _P, _P, _P,  # K1's state, hit, surf, fs2 rows
+        _P, _P, _P, _P, _P,            # tri_coef, attr, mat, light, env
+        _P, _P, _I, _I, _P, _P,        # textures, micromaps
+        _I, _I, _I, _I, _U,            # n, n_tris, tpad, n_lights, sample
+        _I, _I, _F, _I, _I, _F,        # nee_mode, mis, firefly, rr, min_rr,
+        #                                max_travel
+        _I, _I, _I, _I,                # low_discrepancy, energy_comp, maxb,
+        #                                prio
+        _P, _I,                        # injected V-buffer rows | NULL,
+        #                                first_direct
+        _P]})                          # cudaStream_t
+
 # K2: the shadow any-hit kernel of external NEE (replaces rtxpt_tpu/pt/
 # bounce_pallas.py _shadow_kernel); wrapper bounce_fused.occlusion.
 SHADOW_OCCLUSION = CudaLibrary(
@@ -279,8 +299,9 @@ BVH_TRAVERSE = CudaLibrary(
         _I, _I,                        # n, any_hit
         _P]})                          # cudaStream_t
 
-LIBRARIES = (BOUNCE_FUSED, SHADOW_OCCLUSION, CLUSTER_CLOSEST, CLUSTER_SHADE,
-             CLUSTER_SHADOW, CLUSTER_ROWS, BRUTE_CLOSEST, BVH_TRAVERSE)
+LIBRARIES = (BOUNCE_FUSED, BOUNCE_FUSED_RESTART, SHADOW_OCCLUSION,
+             CLUSTER_CLOSEST, CLUSTER_SHADE, CLUSTER_SHADOW, CLUSTER_ROWS,
+             BRUTE_CLOSEST, BVH_TRAVERSE)
 
 
 def build_all(libraries=LIBRARIES) -> dict:

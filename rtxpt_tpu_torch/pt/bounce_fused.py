@@ -43,10 +43,15 @@ lower slot (IS_MED1) is updated and the lane passes through, as on an
 alpha test. With `cfg.split_channels` the split variant carries NRD's
 diffuse/specular partition in the split rows fs2 (F2_*), and
 `trace_paths_fused` returns L_diff and L_spec beside L, and with
-`want_aux` the first hit's guide buffers (`first_hit_aux`). No V-buffer
-injection; sphere and
-environment-quad lights are the general tier's (`build_bounce_tables`
-raises NotImplementedError for them).
+`want_aux` the first hit's guide buffers (`first_hit_aux`). For
+real-time mode's stable-planes fill `trace_paths_fused` takes a V-buffer
+restart: bounce 0 runs K1's restart instantiations
+(`csrc/bounce_fused_restart.cu`, the TPU kernel's `inject`) on the
+injected rows (`pack_injection`) instead of the intersection loop, with
+per-lane bounce budgets in IS_BUDGET, and `first_direct=False` leaves the
+first vertex's direct light out. Sphere and environment-quad lights are
+the general tier's (`build_bounce_tables` raises NotImplementedError for
+them).
 
 Layouts are the JAX package's, minus the TPU tiling: the wavefront state
 is fs [NF, N] f32 and is_ [NI, N] i32 (one column per ray; rows FS_* and
@@ -109,6 +114,14 @@ F2_FSPEC = 6
 NF2 = 7
 
 _NO_BUDGET = 0x3FFFFFFF
+# The injected V-buffer rows inj [NINJ, N] of a restart (bounce_pallas.py
+# :1813-1822): hit distance, triangle (-1 = miss), barycentrics, front face
+INJ_T = 0
+INJ_PRIM = 1
+INJ_U = 2
+INJ_V = 3
+INJ_FRONT = 4
+NINJ = 5
 
 # attr table rows (one column per triangle)
 AT_N0 = 0
@@ -955,7 +968,7 @@ def surface_and_shade(*, o, d, t, hit, front, bu, bv, attr, thp, L,
                       px, py, budget, lb, tables: BounceTables,
                       kcfg: KernelConfig, sample_idx: int,
                       omm_unknown=None, prio: bool = False, ld=None,
-                      ls=None, fspec=None):
+                      ls=None, fspec=None, first_direct: bool = True):
     """Post-intersection bounce body (bounce_pallas.surface_and_shade): the
     environment of a
     miss with its MIS weight (when the tables carry the environment
@@ -992,7 +1005,12 @@ def surface_and_shade(*, o, d, t, hit, front, bu, bv, attr, thp, L,
     the first scatter, the NEE contribution's diffuse part `cdiff` is its
     exact lobe share at logical bounce 0 and follows the first scatter
     after, and the scatter at logical bounce 0 of a shaded lane sets
-    `fspec`; the result then holds ld, ls, fspec and cdiff."""
+    `fspec`; the result then holds ld, ls, fspec and cdiff.
+    With `first_direct=False` (the stable-planes fill under an external
+    direct-light pass, bounce_pallas.py:980-986, :1267-1268) the first
+    vertex's direct light is left to the caller, per lane on the logical
+    bounce: the environment and the emission that a ray gathers at logical
+    bounce 1 are dropped, and NEE runs only past logical bounce 0."""
     split = ld is not None
     n_lights = tables.n_lights
     mode = kcfg.nee_mode
@@ -1018,6 +1036,9 @@ def surface_and_shade(*, o, d, t, hit, front, bu, bv, attr, thp, L,
         return rng.hash_combine(seed_base, effect)
 
     hit_mask = active & hit
+    # the lanes whose emission and environment count: all of them, or
+    # without the first vertex's direct light not those at logical bounce 1
+    em_gate = torch.ones_like(hit) if first_direct else lb != 1
     env = tables.env
     if env is not None:
         # HandleMiss: the environment, weighted against its NEE pdf
@@ -1028,7 +1049,8 @@ def surface_and_shade(*, o, d, t, hit, front, bu, bv, attr, thp, L,
                                 W.power_heuristic(prev_pdf, p_env))
         else:
             w_env = torch.ones_like(t)
-        c_env = torch.where(active & ~hit, thp * env_L * w_env, 0.0)
+        c_env = torch.where(active & ~hit & em_gate, thp * env_L * w_env,
+                            0.0)
         L = L + c_env
         if split:
             cd = torch.where(fspec > 0.5, 0.0, c_env)
@@ -1179,9 +1201,9 @@ def surface_and_shade(*, o, d, t, hit, front, bu, bv, attr, thp, L,
     else:
         w_em = torch.ones_like(t)
     if mode == 3:
-        em3 = torch.where(hit_shade, thp * emissive, 0.0)
+        em3 = torch.where(hit_shade & em_gate, thp * emissive, 0.0)
     else:
-        em_c = torch.where(hit_shade, thp * emissive * w_em, 0.0)
+        em_c = torch.where(hit_shade & em_gate, thp * emissive * w_em, 0.0)
         L = L + em_c
         if split:
             # the primary vertex's emission goes to neither channel
@@ -1229,6 +1251,8 @@ def surface_and_shade(*, o, d, t, hit, front, bu, bv, attr, thp, L,
         f_l = W.bsdf_eval_w(bsdf, wo, wi_l)
         pdf_b = W.bsdf_pdf_w(bsdf, wo, wi_l)
         do_nee = hit_shade & lsmp["valid"] & (W.luminance3(f_l) > 0.0)
+        if not first_direct:
+            do_nee = do_nee & (lb > 0)
         shadow_o = _ray_offset(pos, gn, lsmp["wi"])
         if kcfg.enable_mis:
             w_nee = torch.where(lsmp["is_delta"], 1.0,
@@ -1359,7 +1383,8 @@ def final_env_state(fs, is_, hit, env, kcfg: KernelConfig, n_lights: int,
 
 
 def bounce_reference(fs, is_, tables: BounceTables, kcfg: KernelConfig,
-                     sample_idx: int, final_env: bool = False, fs2=None):
+                     sample_idx: int, final_env: bool = False, fs2=None,
+                     inj=None, first_direct: bool = True):
     """One bounce of the whole wavefront in plain PyTorch: the function
     the CUDA kernel computes per ray (_intersect_group, surface_and_shade,
     _occluded_group). fs [NF,N] f32, is_ [NI,N] i32 -> (fs_out [NF,N],
@@ -1377,14 +1402,23 @@ def bounce_reference(fs, is_, tables: BounceTables, kcfg: KernelConfig,
     variant, bounce_pallas.py:1401-1422, :1501-1504, :1543-1545,
     :1568-1570) fs2_out [NF2, N] comes last: the unoccluded NEE
     contribution adds its diffuse part to L_diff and the rest to L_spec;
-    in the external modes trace_paths_fused does that merge."""
+    in the external modes trace_paths_fused does that merge.
+    With the injected rows `inj` [NINJ, N] (the V-buffer restart,
+    bounce_pallas.py:1427-1442) the closest hit is not traced: each lane
+    takes the hit (t, prim, u, v, front) its row holds, a miss where prim
+    is negative, and the winner is never UNKNOWN (the pass that built the
+    V-buffer resolved the alpha test). `first_direct=False`: see
+    surface_and_shade."""
     o = fs[FS_O:FS_O + 3]
     d = fs[FS_D:FS_D + 3]
 
     # ----- closest hit -----
     omm = tables.omm and not final_env
-    t, prim, bu, bv, det_pick, unk = _intersect(tables, o, d,
-                                                kcfg.max_travel, omm)
+    if inj is not None:
+        t, prim, bu, bv, det_pick, unk = injected_hit(inj)
+    else:
+        t, prim, bu, bv, det_pick, unk = _intersect(tables, o, d,
+                                                    kcfg.max_travel, omm)
     hit = t < _BIG
     front = det_pick > 0.0
     if final_env:
@@ -1409,7 +1443,7 @@ def bounce_reference(fs, is_, tables: BounceTables, kcfg: KernelConfig,
         px=is_[IS_PX], py=is_[IS_PY], budget=is_[IS_BUDGET],
         lb=is_[IS_LBOUNCE].to(torch.int64), tables=tables, kcfg=kcfg,
         sample_idx=sample_idx, omm_unknown=unk if omm else None,
-        prio=tables.prio, **split_args(fs2))
+        prio=tables.prio, first_direct=first_direct, **split_args(fs2))
 
     # ----- NEE shadow ray -----
     ext = s["surf"] is not None
@@ -1443,6 +1477,30 @@ def bounce_reference(fs, is_, tables: BounceTables, kcfg: KernelConfig,
     if fs2 is not None:
         outs += (torch.cat([ld, ls, s["fspec"][None]]),)
     return outs
+
+
+def injected_hit(inj):
+    """The closest-hit tuple (t, prim, u, v, det, unk) of the injected rows
+    inj [NINJ, N] (bounce_pallas.py:1433-1442): t = _BIG and prim = -1
+    where the row's prim is negative, det's sign from the front row, unk
+    never."""
+    prim = inj[INJ_PRIM]
+    miss = prim < 0.0
+    t = torch.where(miss, _BIG, inj[INJ_T])
+    det = torch.where(inj[INJ_FRONT] > 0.5, 1.0, -1.0)
+    return (t, torch.where(miss, -1, prim.to(torch.int64)), inj[INJ_U],
+            inj[INJ_V], det, torch.zeros_like(miss))
+
+
+def pack_injection(first_hit):
+    """The injected rows [NINJ, N] f32 of a V-buffer `first_hit`
+    (`accel.traverse.Hit`), packed as the JAX package packs them
+    (bounce_pallas.py:1813-1822): t, prim, u, v, front."""
+    f32 = torch.float32
+    return torch.stack([first_hit.t.to(f32), first_hit.prim.to(f32),
+                        first_hit.bary[:, 0].to(f32),
+                        first_hit.bary[:, 1].to(f32),
+                        first_hit.front.to(f32)]).contiguous()
 
 
 def split_args(fs2):
@@ -1491,9 +1549,12 @@ _check = kernels.check_tensor
 
 def variant_name(base: str, has_env: bool, final_env: bool,
                  has_tex: bool = False, omm: bool = False,
-                 prio: bool = False, split: bool = False) -> str:
+                 prio: bool = False, split: bool = False,
+                 restart: str = "") -> str:
     """The launch-count name of a shading kernel's variant: `base`, then
-    "_omm" with the micromap switch, "_tex" with the texture switch,
+    K1's restart switch ("_inj" with the injected V-buffer rows,
+    "_nodirect" for first_direct=False without them), "_omm" with the
+    micromap switch, "_tex" with the texture switch,
     "_prio" with the priority switch, "_split" with the split channels,
     then "_env" with the environment switches; base + "_final" (+ "_split")
     for the final environment-only round (which shades nothing, so it runs
@@ -1501,7 +1562,8 @@ def variant_name(base: str, has_env: bool, final_env: bool,
     tail = "_split" if split else ""
     if final_env:
         return base + "_final" + tail
-    return base + ("_omm" if omm else "") + ("_tex" if has_tex else "") \
+    return base + restart + ("_omm" if omm else "") \
+        + ("_tex" if has_tex else "") \
         + ("_prio" if prio else "") + tail + ("_env" if has_env else "")
 
 
@@ -1513,18 +1575,24 @@ def check_omm_tables(tables, n_rows: int, dev):
 
 
 def bounce(fs, is_, tables: BounceTables, kcfg: KernelConfig,
-           sample_idx: int, final_env: bool = False, fs2=None):
+           sample_idx: int, final_env: bool = False, fs2=None, inj=None,
+           first_direct: bool = True):
     """One bounce of the wavefront: the CUDA kernel (csrc/bounce_fused.cu)
     for CUDA tensors, `bounce_reference` for CPU tensors, with its return
     (surf_out too in the external modes with lights; `final_env` runs the
     final environment-only round of tables with an environment; with the
-    split rows `fs2` the split variant, fs2_out last). Build and launch
-    errors raise; nothing falls back."""
+    split rows `fs2` the split variant, fs2_out last; with the injected
+    rows `inj` [NINJ, N] the V-buffer restart; `first_direct=False`
+    leaves the first vertex's direct light out). Build and launch errors
+    raise; nothing falls back."""
     if final_env and tables.env is None:
         raise ValueError("bounce: final_env needs the tables' environment")
+    if final_env and inj is not None:
+        raise ValueError("bounce: the final environment round takes no "
+                         "injected hits")
     if fs.device.type == "cpu":
         return bounce_reference(fs, is_, tables, kcfg, sample_idx, final_env,
-                                fs2)
+                                fs2, inj, first_direct)
     if fs.device.type != "cuda":
         raise ValueError(f"bounce: no kernel for device {fs.device}")
     n = fs.shape[1]
@@ -1534,6 +1602,8 @@ def bounce(fs, is_, tables: BounceTables, kcfg: KernelConfig,
     split = fs2 is not None
     if split:
         _check("fs2", fs2, torch.float32, (NF2, n), dev)
+    if inj is not None:
+        _check("inj", inj, torch.float32, (NINJ, n), dev)
     tpad = tables.tc * tables.n_chunks
     _check("tri_coef", tables.tri_coef, torch.float32, (tpad, TC_ROWS), dev)
     _check("attr_rows", tables.attr_rows, torch.float32, (AT_ROWS, tpad),
@@ -1568,10 +1638,16 @@ def bounce(fs, is_, tables: BounceTables, kcfg: KernelConfig,
         outs += (fs2_out,)
     if n == 0:
         return outs
+    # the real-time fill runs K1's restart library
+    restart = inj is not None or not first_direct
+    lib, entry = ((kernels.BOUNCE_FUSED_RESTART, "rtxpt_bounce_fused_restart")
+                  if restart else (kernels.BOUNCE_FUSED, "rtxpt_bounce_fused"))
+    tail = ((int(prio), None if inj is None else inj.data_ptr(),
+             int(first_direct)) if restart else (int(final_env), int(prio)))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        kernels.BOUNCE_FUSED.launch(
-            "rtxpt_bounce_fused",
+        lib.launch(
+            entry,
             fs.data_ptr(), is_.data_ptr(), fs_out.data_ptr(),
             is_out.data_ptr(), hit_out.data_ptr(),
             None if surf_out is None else surf_out.data_ptr(),
@@ -1587,9 +1663,11 @@ def bounce(fs, is_, tables: BounceTables, kcfg: KernelConfig,
             int(sample_idx) & rng.M32, kcfg.nee_mode, int(kcfg.enable_mis),
             kcfg.firefly, int(kcfg.rr_enable), kcfg.min_rr, kcfg.max_travel,
             int(kcfg.low_discrepancy), int(kcfg.energy_comp), kcfg.maxb,
-            int(final_env), int(prio), stream)
+            *tail, stream)
     kernels.launches[variant_name("bounce_fused", tables.env is not None,
-                                  final_env, tex, omm, prio, split)] += 1
+                                  final_env, tex, omm, prio, split,
+                                  "_inj" if inj is not None else
+                                  "" if first_direct else "_nodirect")] += 1
     return outs
 
 
@@ -1727,10 +1805,20 @@ def external_split(fs2, res, ok, lb0, neeat: bool):
 
 
 def trace_paths_fused(scene, cfg, o, d, cone_spread, px, py, sample_idx,
-                      neeat_state=None, want_aux: bool = False):
+                      neeat_state=None, want_aux: bool = False,
+                      first_hit=None, bounce_budget=None,
+                      first_direct: bool = True):
     """Trace a wavefront of camera rays to completion, one `bounce` per
-    bounce (bounce_pallas.trace_paths_pallas without V-buffer injection):
-    the kernels for CUDA tensors, their plain versions for CPU tensors.
+    bounce (bounce_pallas.trace_paths_pallas): the kernels for CUDA
+    tensors, their plain versions for CPU tensors.
+
+    The real-time arguments (bounce_pallas.py:1764-1822, :1865): with
+    `first_hit` (an `accel.traverse.Hit` per lane, the V-buffer of a
+    stable plane) bounce 0 runs K1 on the injected rows (`pack_injection`)
+    instead of its intersection loop; `bounce_budget` [N] int fills the
+    IS_BUDGET row, and a lane stops shading once its logical bounce
+    reaches it; `first_direct=False` leaves the first vertex's direct
+    light out (K1's gates, and external_nee's on the external route).
 
     With `cfg.split_channels` every bounce runs K1's split variant on the
     split rows fs2 (zero at bounce 0), and the result holds L_diff and
@@ -1762,6 +1850,9 @@ def trace_paths_fused(scene, cfg, o, d, cone_spread, px, py, sample_idx,
     tbl: BounceTables = scene.bounce_tables
     dev = o.device
     fs, is_ = initial_state(o, d, cone_spread, px, py)
+    if bounce_budget is not None:
+        is_[IS_BUDGET] = bounce_budget.to(torch.int32)
+    inj = None if first_hit is None else pack_injection(first_hit)
     kcfg = KernelConfig.from_cfg(cfg)
     ext = kcfg.external and tbl.n_lights > 0
     split = bool(cfg.split_channels)
@@ -1786,7 +1877,8 @@ def trace_paths_fused(scene, cfg, o, d, cone_spread, px, py, sample_idx,
         prev_pdf_in = fs[FS_PREVPDF]
         prev_delta_in = is_[IS_PREVDELTA] > 0
         lb_in = is_[IS_LBOUNCE]
-        out = bounce(fs, is_, tbl, kcfg, sample_idx, fs2=fs2)
+        out = bounce(fs, is_, tbl, kcfg, sample_idx, fs2=fs2,
+                     inj=inj if b == 0 else None, first_direct=first_direct)
         fs, is_, hit = out[:3]
         if split:
             fs2 = out[-1]
@@ -1803,7 +1895,8 @@ def trace_paths_fused(scene, cfg, o, d, cone_spread, px, py, sample_idx,
                                is_[IS_PX], is_[IS_PY], sample_idx, b,
                                first_spec=(fs2[F2_FSPEC] > 0.5) if split
                                else None,
-                               lb=lb_in if passes else None)
+                               lb=lb_in if passes else None,
+                               first_direct=first_direct)
             ua = alpha_uniform(cfg, is_[IS_PX], is_[IS_PY], lb_in,
                                sample_idx) if tbl.omm else None
             sh = shadow_requests(res["shadow_o"], res["shadow_d"],

@@ -68,6 +68,15 @@ variants (the false-hit pass-through), the general tier its bounded
 false-hit retrace. Bounce tables made without the priority switch (by
 hand) leave such a scene to "xla" under "auto".
 
+The real-time arguments of `trace_paths` (a V-buffer restart `first_hit`,
+per-lane `bounce_budget`s, `first_direct=False`) are served on the fused
+tier (K1's inject variant) and the general tier. The clustered tier
+serves none of them: as in the JAX package (rtxpt_tpu/pt/integrator.py
+:99-103, :113), `resolve` hands a call with `first_hit` or
+`first_direct=False` on cluster tables (flat, instanced or per-row) to
+"xla", and a call with only a budget too (F14: the JAX clustered tier
+drops the budget, since trace_paths_clustered is never passed it).
+
 The wrappers pick the kernel for CUDA tensors and its plain version for
 CPU tensors, so a clustered scene on the CPU keeps the tier name
 "clustered" and the general tier keeps "xla". A scene, config or call
@@ -163,10 +172,8 @@ def _tables(scene, tier="auto"):
     return None, None
 
 
-def unsupported_features(scene, cfg, neeat_state=None, tier="auto",
-                         first_hit=None, bounce_budget=None,
-                         first_direct: bool = True):
-    """Names of the scene's, config's and call's features that the tier
+def unsupported_features(scene, cfg, neeat_state=None, tier="auto"):
+    """Names of the scene's and config's features that the tier
     (`tier`, or the one the scene's tables select) does not serve yet;
     empty when it serves them all. Every route but the per-row clustered
     one serves the split channels."""
@@ -184,12 +191,6 @@ def unsupported_features(scene, cfg, neeat_state=None, tier="auto",
                    "has no alpha test)")
     if cfg.mode.value != PTMode.REFERENCE.value:
         out.append(f"render mode {cfg.mode.name}")
-    if first_hit is not None:
-        out.append("V-buffer restarts (first_hit)")
-    if bounce_budget is not None:
-        out.append("per-lane bounce budgets (bounce_budget)")
-    if not first_direct:
-        out.append("first_direct=False (externally shaded first vertex)")
     if neeat and neeat_state is None:
         out.append("NEE-AT without a tile state (integrator."
                    "render_adaptive makes one)")
@@ -222,6 +223,14 @@ def unsupported_features(scene, cfg, neeat_state=None, tier="auto",
     return out
 
 
+def restarts(first_hit=None, bounce_budget=None,
+             first_direct: bool = True) -> bool:
+    """Whether a trace takes any of the real-time arguments, which only
+    the fused and general tiers serve."""
+    return first_hit is not None or bounce_budget is not None \
+        or not first_direct
+
+
 def _check_devices(scene, tables, neeat_state):
     """Raise ValueError when the light list or the NEE-AT state lies on
     another device than the scene's tables (the BVH, on the general
@@ -247,8 +256,10 @@ def resolve(scene, cfg, device, neeat_state=None, **call):
     clustered tier's kslots and pages: the config's, else the defaults (64
     and 2), with kslots at most the cluster count and pages at most as
     many as the candidate lists of all clusters fill. `call` holds the
-    trace's arguments that `unsupported_features` checks (first_hit,
-    bounce_budget, first_direct). Raises NotImplementedError
+    trace's real-time arguments (first_hit, bounce_budget, first_direct):
+    with any of them a scene on cluster tables resolves to "xla", pinned
+    "clustered" too, as in the JAX package (`restarts`). Raises
+    NotImplementedError
     naming any feature the tier does not serve, and ValueError for a tier
     that the scene's tables or the device have no path for, or for a
     light list or NEE-AT state on another device than the tables."""
@@ -265,6 +276,10 @@ def resolve(scene, cfg, device, neeat_state=None, **call):
                          f"kernels")
     kind, tables = _tables(scene, tier)
     _check_devices(scene, tables, neeat_state)
+    if kind == "clustered" and tier in ("auto", "clustered") \
+            and restarts(**call):
+        tier = "xla"
+        kind, tables = _tables(scene, tier)
     if tier == "auto" and kind in ("fused", "clustered") and (
             general_only_features(scene, cfg, tables)
             or (kind == "clustered"
@@ -285,7 +300,7 @@ def resolve(scene, cfg, device, neeat_state=None, **call):
                          xla="BVH or TLAS")
             raise ValueError(f"kernel tier {tier!r} does not run a scene "
                              f"with {names[kind]} tables")
-    missing = unsupported_features(scene, cfg, neeat_state, tier, **call)
+    missing = unsupported_features(scene, cfg, neeat_state, tier)
     if missing:
         raise NotImplementedError(
             f"the {kind or 'port'} tier does not serve: "

@@ -93,16 +93,26 @@ def trace_paths(scene, cfg, o, d, cone_spread, px, py, sample_idx,
     fused and clustered tiers keyed on the config alone, on the general
     tier only with want_aux too, as in the JAX package.
     `first_emissive=False` drops the emission seen by the camera rays
-    (general tier only); the real-time arguments (`first_hit`,
-    `bounce_budget`, `first_direct=False`) are not ported, and resolve
-    refuses them by name."""
+    (general tier only).
+
+    The real-time arguments (rtxpt_tpu/pt/integrator.py:66-86): `first_hit`
+    (an `accel.traverse.Hit` per lane, a stable plane's V-buffer) restarts
+    the paths from those hits, bounce 0 tracing nothing;
+    `bounce_budget` [N] int stops each lane's scattering once its bounce
+    reaches it; `first_direct=False` leaves the first vertex's direct light
+    (NEE at bounce 0, the emission and environment gathered at bounce 1)
+    to the caller. The fused tier serves them in K1 (its inject variant at
+    bounce 0); the clustered tier hands such a call to the general tier,
+    as the JAX package does for `first_hit` and `first_direct=False`, and
+    for a budget without them too (F14: the JAX clustered tier drops it)."""
     cfg = dispatch.resolve(scene, cfg, o.device, neeat_state,
                            first_hit=first_hit,
                            bounce_budget=bounce_budget,
                            first_direct=first_direct)
     if cfg.kernel_tier == "xla":
         return _wavefront(scene, cfg, o, d, px, py, sample_idx, neeat_state,
-                          first_emissive, cone_spread, want_aux)
+                          first_emissive, cone_spread, want_aux, first_hit,
+                          bounce_budget, first_direct)
     if not first_emissive:
         raise NotImplementedError(f"first_emissive=False on the "
                                   f"{cfg.kernel_tier} tier is not ported")
@@ -112,7 +122,7 @@ def trace_paths(scene, cfg, o, d, cone_spread, px, py, sample_idx,
             want_aux)
     return bounce_fused.trace_paths_fused(
         scene, cfg, o, d, cone_spread, px, py, sample_idx, neeat_state,
-        want_aux)
+        want_aux, first_hit, bounce_budget, first_direct)
 
 
 def _skip_false_hits(scene, prio, closest_fn, o, d, hit, active, med0, med1,
@@ -156,9 +166,15 @@ def _where(cond, a, b):
 
 def _wavefront(scene, cfg, o, d, px, py, sample_idx, neeat_state=None,
                first_emissive: bool = True, cone_spread=None,
-               want_aux: bool = False):
+               want_aux: bool = False, first_hit=None, bounce_budget=None,
+               first_direct: bool = True):
     """The general BVH wavefront (rtxpt_tpu/pt/integrator.py trace_paths on
-    the "xla" tier, without the real-time arguments).
+    the "xla" tier), with the real-time arguments of `trace_paths`: bounce
+    0 takes `first_hit` instead of a query (on a scene with nested
+    priorities the false-hit retrace still runs on it, as in the JAX
+    package), the budget masks the lanes after the bounce's environment
+    (integrator.py:326-327), and `first_direct=False` gates the emission,
+    the environment and NEE of the first vertex (:275, :378, :407).
     Every lane is traced at every bounce, inactive ones too, as in the JAX
     package.
 
@@ -278,13 +294,18 @@ def _wavefront(scene, cfg, o, d, px, py, sample_idx, neeat_state=None,
                     neeat_state, hist, pend_tile, pend_li,
                     m.luminance(pend_contrib), ok)
             pend_mask = zeros(n, dtype=torch.bool)
+        elif bounce == 0 and first_hit is not None:
+            hit = first_hit          # the V-buffer restart: no query
         else:
             hit = closest_fn(o, d, t_zero, t_far)
         if prio is not None:
             hit, med1 = _skip_false_hits(scene, prio, closest_fn, o, d, hit,
                                          active, med0, med1, t_far)
         hit_mask = active & ~hit.miss
-        if has_env and (first_emissive or bounce > 0):
+        # the first vertex's direct light: its NEE, and the emission and
+        # environment the next bounce gathers
+        direct = first_direct or bounce != 1
+        if has_env and (first_emissive or bounce > 0) and direct:
             c_env = _handle_miss(scene, cfg, d, thp, active & hit.miss,
                                  prev_pdf, prev_delta, px, py, neeat_state,
                                  use_nee, use_neeat, nee_uniform)
@@ -296,6 +317,9 @@ def _wavefront(scene, cfg, o, d, px, py, sample_idx, neeat_state=None,
         active = hit_mask
         if bounce == cfg.max_bounces:
             break
+        if bounce_budget is not None:
+            active = active & (bounce < bounce_budget)
+            hit_mask = hit_mask & active
 
         # ----- surface and the medium's transmittance (Beer-Lambert) -----
         in_medium = med0 >= 0
@@ -334,7 +358,7 @@ def _wavefront(scene, cfg, o, d, px, py, sample_idx, neeat_state=None,
                                m.power_heuristic(prev_pdf, p_light))
         else:
             w_em = torch.ones((n,), dtype=f32, device=dev)
-        if first_emissive or bounce > 0:
+        if (first_emissive or bounce > 0) and direct:
             L = L + torch.where(hit_mask[:, None],
                                 thp * surf.emissive * w_em[:, None], 0.0)
             if split and bounce > 0:
@@ -348,7 +372,7 @@ def _wavefront(scene, cfg, o, d, px, py, sample_idx, neeat_state=None,
         wo = m.to_local(-d, surf.sh_n)
 
         # ----- NEE (WRS over cfg.nee_candidates light samples) -----
-        if use_nee:
+        if use_nee and (first_direct or bounce > 0):
             seed_nee = rng.pixel_seed(px, py, bounce, EFFECT_NEE)
 
             def candidate(ci):

@@ -17,8 +17,9 @@ runs in one pass and `neeat.sample_adaptive` bounds that gather itself.
 The clustered tier passes each lane's logical bounce (`lb`), which
 keys the NEE seed and the emissive MIS per lane, as in the JAX package.
 With the split channels (`first_spec`) the result also holds the NEE
-contribution's diffuse part. The real-time argument (`first_direct`)
-belongs to a later slice and raises NotImplementedError.
+contribution's diffuse part. Without the first vertex's direct light
+(`first_direct=False`, the real-time fill under an external direct-light
+pass) no lane draws a NEE sample at logical bounce 0.
 """
 
 from __future__ import annotations
@@ -85,10 +86,9 @@ def external_nee(scene, cfg, neeat_state, surf, d_in, hit_mask,
     channels' first-scatter flag) it also holds cdiff [N,3] (zero where not
     do_nee): contrib's diffuse part, its exact lobe share (bsdf_eval_split
     over bsdf_eval) at logical bounce 0, and after that all of contrib or
-    none of it by the first scatter's lobe (nee_external.py:241-253)."""
-    if not first_direct:
-        raise NotImplementedError("external NEE without primary direct "
-                                  "light (real-time mode) is not ported yet")
+    none of it by the first scatter's lobe (nee_external.py:241-253).
+    `first_direct=False` keeps do_nee off at logical bounce 0: per lane
+    with `lb`, else where `bounce` is 0 (nee_external.py:215-219)."""
     lights = scene.lights
     envmap = scene.envmap
     n = surf.shape[1]
@@ -174,6 +174,9 @@ def external_nee(scene, cfg, neeat_state, surf, d_in, hit_mask,
     pdf_b = B.bsdf_pdf(bsdf, wo, wi_l)
 
     do_nee = hit_mask & ls["valid"] & (m.luminance(f_l) > 0.0)
+    if not first_direct:
+        # the first vertex's direct light is shaded by the caller
+        do_nee = do_nee & ((lb > 0) if lb is not None else bounce > 0)
     shadow_o = ray_offset(pos, gn, ls["wi"])
     if cfg.enable_mis:
         w_nee = torch.where(ls["is_delta"], 1.0,

@@ -1,5 +1,6 @@
 """Pinhole camera (counterpart of rtxpt_tpu/scene/camera.py: Camera,
-look_at, camera_ray). Thin-lens depth of field comes with a later slice."""
+look_at, camera_ray, project). Thin-lens depth of field comes with a later
+slice."""
 
 from __future__ import annotations
 
@@ -65,3 +66,20 @@ def camera_ray(cam: Camera, px, py, u1, u2):
     o = cam.position.expand(d.shape)
     spread = 2.0 * torch.abs(m.length(cam.up, False)) / cam.height
     return o, d, spread.expand(px.shape)
+
+
+def project(cam: Camera, world_pos):
+    """World position [..., 3] -> (px, py, behind) pixel coordinates: the
+    inverse of camera_ray for a pinhole camera, used for motion vectors
+    (rtxpt_tpu/scene/camera.py:85)."""
+    rel = world_pos - cam.position
+    rlen2 = m.dot(cam.right, cam.right, False)
+    ulen2 = m.dot(cam.up, cam.up, False)
+    z = m.dot(rel, cam.forward.expand(rel.shape), False)
+    behind = z <= 1e-6
+    zs = torch.where(behind, 1.0, z)
+    sx = m.dot(rel, cam.right.expand(rel.shape), False) / (rlen2 * zs)
+    sy = m.dot(rel, cam.up.expand(rel.shape), False) / (ulen2 * zs)
+    px = (sx + 1.0) * 0.5 * cam.width - 0.5
+    py = (1.0 - sy) * 0.5 * cam.height - 0.5
+    return px, py, behind

@@ -832,6 +832,24 @@ def overlap_boxes(priorities, wall: bool = False) -> HostScene:
         materials=mats)
 
 
+def glass_mirror_cornell() -> HostScene:
+    """The Cornell box with the tall box (material 4) smooth glass and the
+    short box (material 3) a smooth mirror: the JAX package's
+    glass-over-mirror stable-planes scene (tests/test_stable_planes.py
+    :120-127), whose BUILD pass yields planes 1 and 2."""
+    host = cornell_box()
+    mats = host.materials
+    trans, rough, metal = (mats.transmission.clone(), mats.roughness.clone(),
+                           mats.metallic.clone())
+    trans[4] = 1.0
+    rough[4] = 0.0
+    rough[3] = 0.0
+    metal[3] = 1.0
+    host.materials = mats.replace(transmission=trans, roughness=rough,
+                                  metallic=metal)
+    return host
+
+
 def overlap_curtain(priorities, wall: bool = False) -> HostScene:
     """`overlap_boxes` with an alpha-tested curtain across the view of
     OVERLAP_INSIDE_CAMERAS: a quad in the plane y = OVERLAP_CURTAIN_Y

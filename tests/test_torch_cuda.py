@@ -15,7 +15,10 @@ the per-row kernels K6 and K7 on the small city and its sky variant, and
 all sixteen instantiations of K1 and K4 (the texture, micromap, priority
 and split-channel switches; the priority ones on the overlap curtain),
 K4's split variant in the export slots on the rooms, with the split +
-aux renders of every tier.
+aux renders of every tier, and K1's sixteen restart instantiations (the
+V-buffer restart and first_direct=False), its inject variant on the
+glass-over-mirror box's stable planes, and the real-time frames against
+the CPU.
 Needs an NVIDIA GPU and nvcc; skips without them. This file imports no
 JAX, so it runs where JAX is absent:
 
@@ -1300,3 +1303,113 @@ def test_split_aux_renders_match_cpu(gpu, city, sky_city, tier):
         assert ok.float().mean() >= 0.99, key
     resid = (got["L"] - got["emission"] - got["L_diff"] - got["L_spec"])
     assert resid.abs().max() < 2e-2
+
+
+@pytest.mark.parametrize("sw", SWITCHES, ids=_switch_id)
+def test_k1_restart_instantiations_match_plain_version(
+        alpha_scenes, curtain_scenes, gpu, sw):
+    """Each of K1's sixteen restart instantiations (the real-time fill:
+    first_direct=False, the V-buffer rows injected at bounce 0) over three
+    bounces of 4096 camera rays, the injected rows the plain version's own
+    bounce-0 hits: as test_k1_instantiations_match_plain_version, and the
+    launches counted as the inject and no-direct variants."""
+    tex, omm, prio, split = sw
+    host, scene = alpha_scenes["curtain"]
+    if prio:
+        scene = curtain_scenes[False]
+    tables = _with_switches(scene.bounce_tables, omm, prio)
+    cfg = PathTracerConfig(max_bounces=3, stochastic_texture_filtering=tex)
+    kcfg = bf.KernelConfig.from_cfg(cfg)
+    fs, is_ = _switch_state(prio, gpu, cfg, host)
+    fs2 = torch.zeros((bf.NF2, fs.shape[1]), device=gpu) if split else None
+    inj = bf.bounce_reference(fs, is_, tables, kcfg, 2,
+                              fs2=fs2)[2][:bf.NINJ].contiguous()
+    assert (inj[bf.INJ_PRIM] >= 0).float().mean() > 0.5
+    kernels.launches.clear()
+    for b in range(3):
+        kw = dict(fs2=fs2, inj=inj if b == 0 else None, first_direct=False)
+        plain = bf.bounce_reference(fs, is_, tables, kcfg, 2, **kw)
+        kern = bf.bounce(fs, is_, tables, kcfg, 2, **kw)
+        torch.cuda.synchronize()
+        same = (kern[1] == plain[1]).all(0) & (kern[2][1] == plain[2][1])
+        if split:
+            same &= kern[-1][bf.F2_FSPEC] == plain[-1][bf.F2_FSPEC]
+        assert same.float().mean() >= 0.999
+        _close_rows(kern, plain)
+        if b == 0:
+            assert torch.equal(plain[2][1], inj[bf.INJ_PRIM])
+            assert plain[2][5].max() == 0.0          # no first-vertex NEE
+        fs, is_ = plain[0], plain[1]
+        fs2 = plain[-1] if split else None
+    names = [bf.variant_name("bounce_fused", False, False, tex, omm, prio,
+                             split, r) for r in ("_inj", "_nodirect")]
+    assert dict(kernels.launches) == {names[0]: 1, names[1]: 2}
+
+
+@pytest.fixture(scope="module")
+def glass(gpu):
+    host = TP.glass_mirror_cornell()
+    return host, prepare(host, device=gpu)
+
+
+@pytest.mark.parametrize("first_direct", [True, False])
+def test_k1_inject_on_stable_planes(glass, gpu, first_direct):
+    """K1's inject variant on the V-buffers of the glass-over-mirror box's
+    three stable planes (64 x 64 rays), with their budgets: bit-exact with
+    the plain version on >= 99.9% of the lanes, every plane non-empty."""
+    from rtxpt_tpu_torch.pt.stable_planes import decompose
+    host, scene = glass
+    cfg = PathTracerConfig(max_bounces=4)
+    kcfg = bf.KernelConfig.from_cfg(cfg)
+    cam = TP.default_camera(host, 64, 64, device=gpu)
+    px, py = _pixel_grid(64, 64, gpu)
+    o, d, spread = camera_rays(cam, cfg, px, py, 1)
+    planes, _ = decompose(scene, o, d)
+    for plane in planes:
+        assert plane.valid.any()
+        fs, is_ = bf.initial_state(plane.o, plane.d, spread, px, py)
+        is_[bf.IS_BUDGET] = torch.where(plane.valid, torch.clamp(
+            4 - plane.nverts, min=0), 0).to(torch.int32)
+        inj = bf.pack_injection(plane.vbuffer(cfg.max_ray_travel))
+        kw = dict(inj=inj, first_direct=first_direct)
+        plain = bf.bounce_reference(fs, is_, scene.bounce_tables, kcfg, 1,
+                                    **kw)
+        kern = bf.bounce(fs, is_, scene.bounce_tables, kcfg, 1, **kw)
+        torch.cuda.synchronize()
+        same = None
+        for k, p in zip(kern, plain):
+            eq = ((k == p) | (torch.isnan(k) & torch.isnan(p))).all(0)
+            same = eq if same is None else same & eq
+        assert same.float().mean() >= 0.999
+
+
+@pytest.mark.parametrize("planes", [False, True])
+def test_realtime_frames_match_cpu(glass, gpu, planes):
+    """Two 32x24 real-time frames (RELAX, TAA, bloom; stable planes or not)
+    through the kernels against the same frames through the plain versions
+    on the CPU: hdr within 2e-3 on >= 99% of the pixels; the stable-planes
+    frame launches K1's inject variant once per plane."""
+    from rtxpt_tpu_torch.config import DenoiserMode, RenderConfig
+    from rtxpt_tpu_torch.pt import realtime
+    host = glass[0]
+    cfg = PathTracerConfig(max_bounces=3)
+    rc = RenderConfig(width=32, height=24, denoiser=DenoiserMode.RELAX,
+                      enable_taa=True, enable_bloom=True)
+    fn = realtime.render_frame_stable_planes if planes \
+        else realtime.render_frame
+    cam = TP.default_camera(host, 32, 24)
+    hdrs = {}
+    for dev in (gpu, torch.device("cpu")):
+        scene = glass[1] if dev == gpu else prepare(host, device=dev)
+        state = realtime.init_state(24, 32, scene, cfg)
+        kernels.launches.clear()
+        for _ in range(2):
+            _, hdr, state = fn(scene, cam, cfg, rc, state)
+        if dev == gpu:
+            torch.cuda.synchronize()
+            n_inj = kernels.launches.get("bounce_fused_inj", 0)
+            assert n_inj == (6 if planes else 0)
+            assert kernels.launches.get("bounce_fused", 0) > 0
+        hdrs[dev.type] = hdr.cpu()
+    ok = torch.isclose(hdrs["cuda"], hdrs["cpu"], rtol=TOL, atol=TOL)
+    assert ok.all(-1).float().mean() >= 0.99

@@ -51,6 +51,8 @@ SLICE_MODULES = [
     "rtxpt_tpu_torch.accel.native", "rtxpt_tpu_torch.accel.brute",
     "rtxpt_tpu_torch.accel.traverse", "rtxpt_tpu_torch.accel.tlas",
     "rtxpt_tpu_torch.lighting.sky", "rtxpt_tpu_torch.scene.omm",
+    "rtxpt_tpu_torch.pt.stable_planes", "rtxpt_tpu_torch.pt.realtime",
+    "rtxpt_tpu_torch.render.denoise", "rtxpt_tpu_torch.render.taa",
 ]
 
 
@@ -431,8 +433,19 @@ def test_config_matches_jax_package():
         if hasattr(a, "value"):
             a, b = (a.name, a.value), (b.name, b.value)
         assert a == b, name
+    jr = {f.name: f.default for f in dataclasses.fields(
+        jconfig.RenderConfig)}
+    tr = {f.name: f.default for f in dataclasses.fields(
+        tconfig.RenderConfig)}
+    assert list(jr) == list(tr)
+    for name in jr:
+        a, b = jr[name], tr[name]
+        if hasattr(a, "value"):
+            a, b = (a.name, a.value), (b.name, b.value)
+        assert a == b, name
     for je, te in ((jconfig.NEEMode, tconfig.NEEMode),
-                   (jconfig.PTMode, tconfig.PTMode)):
+                   (jconfig.PTMode, tconfig.PTMode),
+                   (jconfig.DenoiserMode, tconfig.DenoiserMode)):
         assert [(m.name, m.value) for m in je] == \
             [(m.name, m.value) for m in te]
     # either package's config drives the port
@@ -447,7 +460,10 @@ def test_config_matches_jax_package():
 # a flat scene (tests/test_torch_omm.py), refused on the TLAS route of a
 # two-level scene; nested priorities are served (the false-hit retrace,
 # tests/test_torch_prio.py), and so are the split channels and the aux
-# buffers (tests/test_torch_split_general.py), so their cases check that
+# buffers (tests/test_torch_split_general.py) and the real-time arguments
+# first_hit, bounce_budget and first_direct=False
+# (tests/test_torch_vbuffer.py, test_torch_stable_planes.py), so their
+# cases check that
 UNSERVED_XLA = {
     "textures": ("alpha_textures", {}, {}, "alpha-tested textures"),
     "micromaps": ("tri_opacity", {}, {}, "micromaps"),
@@ -477,7 +493,8 @@ def test_general_tier_refuses_unserved_features(cornell, instanced_city,
     else:
         scene = scene.replace(**scene_kw)
     cfg = PathTracerConfig(kernel_tier="xla", **cfg_kw)
-    if case in ("priorities", "split", "want_aux"):
+    if case in ("priorities", "split", "want_aux", "first_hit",
+                "bounce_budget", "first_direct"):
         for s in (scene, instanced_city.replace(**scene_kw)):
             assert dispatch.resolve(s, cfg, device,
                                     **call).kernel_tier == "xla"

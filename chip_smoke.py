@@ -325,6 +325,32 @@ Phases, one or a few lines of output each:
                 of the raw 1-spp frame's (tests/test_realtime.py:17-51),
                 and a lower RMSE than the raw frame's against a 128-spp
                 accumulation.
+  19. probes -- the probe kernels K10-K12 (rtxpt_tpu_torch/probes, the
+                JAX package's scripts/micro_*.py). (a) Each probe's entry
+                point main() on the card (the script's lines and checks),
+                the launch counts set to 0 before and read after: each
+                exits 0 and launches its kernels. (b) K10 (csrc/
+                probe_cluster.cu) against its plain version, all 8 rows of
+                its state, at 64 clusters x 8 and x 64 groups (counts from 0
+                to 16) and at the script's timed size (2,344 clusters,
+                2,048 groups of 16 full slots): equal; timed there (the
+                script's line, the bound with its TF32 term, registers) and
+                torch.bmm of its gathered products with TF32 off and on
+                (products only, not the function). (c) K11 (csrc/
+                probe_flat.cu) against its plain version at 32 groups, on
+                the script's rays and on rays aimed at the probe's
+                triangles, and at 2,048 groups: t and prim equal; the
+                script's brute-force check on its sampled lanes, and on
+                every lane of groups 0-1 against the triangles the probe
+                intersects (F15), the aimed rays with the kernel's margins;
+                timed at 32 and 2,048 groups with its bound. (d) The seven
+                K12 constructs (csrc/probe_constructs.cu) against their
+                plain versions, equal, each timed (device time from the
+                profiler, call time beside it), and the one PyTorch call
+                that computes tile8, subl_concat or unflat. (e) ns per visit (1,024
+                rays x 128 triangles) of K10, K11 and K3 at the city's
+                1080p bounce-0 launch (phase 6's time over its summed
+                visits).
 
 The line before the last holds {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Any failed phase, a missing GPU or a missing
@@ -426,6 +452,20 @@ def _cuda_ms(fn, iters):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def _once_ms(fn):
+    """(fn's result, its one call's ms from CUDA events): for a plain
+    version too slow to run twice, already warm from a smaller input."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
 
 
 def _bound(nbytes, f32=0, tf32=0, bf16=0):
@@ -710,6 +750,9 @@ def main(record_path=None, group_path=None):
     # ---- 18. real-time mode: the V-buffer restart, the denoisers, TAA -------
     rt = _realtime(record, dev, smi, dump, clustered["scene"])
 
+    # ---- 19. the probes K10-K12 beside K3 ------------------------------------
+    probes = _probes(record, dev, smi, dump)
+
     k1_paths = dict(cornell=cornell_launches["bounce_fused"],
                     **{k: v.get("bounce_fused", 0)
                        for k, v in ext["launches"].items()})
@@ -754,6 +797,7 @@ def main(record_path=None, group_path=None):
     entries.extend(per_row["entries"].values())
     entries.extend(split["entries"].values())
     entries.extend(rt["entries"].values())
+    entries.extend(probes["entries"].values())
     # Bistro's launches of the micromap variants that phase 14 checks
     for entry in entries:
         n_bistro = prio["launches"]["bistro"].get(entry["name"], 0)
@@ -5335,6 +5379,396 @@ def _realtime(record, dev, smi, dump, city_prepared):
         instantiations_bit_exact=n_exact, first_direct=False,
         ptxas=rec["ptxas"]))
     return dict(entries=entries, launches=launches)
+
+
+PROBE_K10_SIZES = ((64, 8), (64, 64))   # phase 19: K10 compared at the
+#                                        script's CPU size and at 64 groups
+PROBE_K11_GROUPS = (32, 2048)  # K11 compared and timed at the script's 32
+#                                groups, timed at 2,048 (K10's 32,768 visits)
+PROBE_BMM_VISITS = 2048        # visits per torch.bmm of K10's products
+# Operations per (ray, triangle) pair of the probes. K10: four quantities of
+# 16 multiplies and 15 adds, 3 adds, 1 minimum (f32 on the CUDA cores: the
+# TPU kernel's HIGHEST precision). K11: four quantities of 30 split-bf16
+# products, each a multiply and an add, counted at the bf16 tensor-core
+# rate; its f32 selection: the sign (2), four scalings, the margin and its
+# negation, five comparisons, u + v, two margin adds, four ands, the clamp,
+# the division, the select, the minimum and the first-index search (3).
+K10_PAIR_F32 = 128
+K11_PAIR_BF16 = 4 * 30 * 2
+K11_PAIR_F32 = 27
+K12_MM_F32 = 1                 # the maximum's comparison per product
+
+
+def _probes(record, dev, smi, dump):
+    """Phase 19: the probes K10-K12 (rtxpt_tpu_torch/probes). (a) Each
+    probe's entry point main() on the card, the launch counts set to 0
+    before and read after: each must exit 0 and launch its kernels. (b) K10
+    against its plain version, all 8 rows, at 64 clusters x 8 and x 64
+    groups (counts from 0 to 16) and at the script's timed size (2,344
+    clusters, 2,048 groups of 16 full slots): equal; timed there with the
+    script's line, its bound and registers, and torch.bmm of its gathered
+    products (products only, TF32 off and on). (c) K11 against its plain
+    version at 32 groups (the script's rays and rays aimed at the probe's
+    triangles) and 2,048 groups, t and prim equal, the script's brute-force
+    check on its sampled lanes and on every lane of groups 0-1 against the
+    triangles the probe intersects (local_tris; the aimed rays with the
+    kernel's margins); timed at 32 and 2,048 groups. (d) The seven K12
+    constructs against their plain versions, equal, each timed, with the
+    one library call that computes a construct where there is one. (e)
+    ns per visit (1,024 rays x 128 triangles) of K10, K11 and K3 at the
+    city's 1080p bounce-0 launch (phase 6). Returns dict(entries)."""
+    import numpy as np
+    import torch
+
+    from rtxpt_tpu_torch import kernels
+    from rtxpt_tpu_torch.probes import micro_cluster_kernel as K10
+    from rtxpt_tpu_torch.probes import micro_constructs as K12
+    from rtxpt_tpu_torch.probes import micro_flat_kernel as K11
+
+    t_phase = time.perf_counter()
+    rec = {}
+    failed = []
+
+    def to_dev(arrays, keys):
+        return {k: torch.from_numpy(arrays[k]).to(dev) for k in keys}
+
+    # (a) the entry points
+    kernels.launches.clear()
+    rcs = {m.__name__.rsplit(".", 1)[1]: m.main([]) for m in (K10, K11, K12)}
+    launches = dict(kernels.launches)
+    names = ["probe_cluster", "probe_flat"] + [
+        f"probe_constructs_{n}" for n in K12.CONSTRUCTS]
+    missing = [n for n in names if not launches.get(n)]
+    rec["entry_points"] = dict(exit_codes=rcs, launches=launches)
+    print(f"probes: entry points exit {rcs}, launches {launches}", flush=True)
+    if any(rcs.values()) or missing:
+        failed.append(f"entry points (exit codes {rcs}, not launched "
+                      f"{missing})")
+
+    # (b) K10
+    k10_keys = ("counts", "cands", "cols", "tris")
+    k10_err, k10_cmp = 0.0, {}
+    for c, g in PROBE_K10_SIZES:
+        arrays = K10.inputs(0, c, g)
+        arrays["counts"][-1] = 0
+        ops = to_dev(arrays, k10_keys)
+        kern = K10.run(**ops, all_rows=True)
+        plain = K10.cluster_reference(**ops)
+        err = float((kern - plain).abs().max())
+        k10_err = max(k10_err, err)
+        k10_cmp[f"{c}x{g}"] = dict(
+            equal=bool(torch.equal(kern, plain)), max_abs_err=err,
+            counts=sorted(set(arrays["counts"].tolist())))
+        print(f"probes k10 {c} clusters x {g} groups: all 8 rows equal "
+              f"{k10_cmp[f'{c}x{g}']['equal']}, max abs err {err:.3g}",
+              flush=True)
+        if not k10_cmp[f"{c}x{g}"]["equal"]:
+            failed.append(f"k10 at {c}x{g}")
+    small = to_dev(K10.inputs(0, *PROBE_K10_SIZES[0]), k10_keys)
+    k10_plain_ms = _cuda_ms(lambda: K10.cluster_reference(**small), 1)
+    timed = to_dev(K10.inputs(0, timed=K10.TIMED), k10_keys)
+    # the timed size too: the shapes the probe's time is taken at
+    kern = K10.run(**timed, all_rows=True)
+    plain, k10_plain_timed_ms = _once_ms(
+        lambda: K10.cluster_reference(**timed))
+    err = float((kern - plain).abs().max())
+    k10_err = max(k10_err, err)
+    k10_cmp["x".join(map(str, K10.TIMED))] = dict(
+        equal=bool(torch.equal(kern, plain)), max_abs_err=err, counts=[16])
+    print(f"probes k10 {K10.TIMED[0]} clusters x {K10.TIMED[1]} groups "
+          f"(timed size): all 8 rows equal {torch.equal(kern, plain)}, max "
+          f"abs err {err:.3g}", flush=True)
+    if not torch.equal(kern, plain):
+        failed.append("k10 at the timed size")
+    del kern, plain
+    k10_ms = _cuda_ms(lambda: K10.run(**timed), 5)
+    n_g = K10.TIMED[1]
+    k10_visits = int(torch.clamp(timed["counts"], 0, K10.KSLOTS).sum())
+    pairs = k10_visits * 1024 * 128
+    blocks_read = int(torch.unique(timed["cands"]).numel())
+    k10_bytes = 4 * (n_g + timed["cands"].numel() + timed["cols"].numel()
+                     + n_g * 128) + blocks_read * 16 * 512 * 4
+    k10_bound = _bound(k10_bytes, f32=pairs * K10_PAIR_F32)
+    k10_tf32_ms = pairs * K10_PAIR_F32 / TF32_FLOPS_PER_S * 1e3
+    k10_ptxas = _ptxas_summary(kernels.PROBE_CLUSTER.ptxas_log)
+    dt = k10_ms / 1e3
+    print(f"probes k10 timed: {k10_ms:.2f} ms, {k10_visits} visits, "
+          f"{k10_visits/dt/1e6:.2f} Mvisits/s, "
+          f"{k10_visits*128*128/dt/1e9:.1f} G ray-tri/s (the script's "
+          f"count: row 0's 128 rays per visit; all 8 rows: "
+          f"{pairs/dt/1e9:.1f} G); plain {k10_plain_timed_ms:.1f} ms "
+          f"(one call; {k10_plain_ms:.3f} ms at {PROBE_K10_SIZES[0][1]} "
+          f"groups); bound {k10_bound[0]:.4f} ms "
+          f"({k10_bound[1]}; f32 {k10_bound[2]['f32']:.4f}, at the TF32 "
+          f"rate {k10_tf32_ms:.4f}); {k10_ptxas['registers']} registers, "
+          f"spills {k10_ptxas['spill_store_bytes']}/"
+          f"{k10_ptxas['spill_load_bytes']} B ({smi})", flush=True)
+    # torch.bmm of the gathered products, in PROBE_BMM_VISITS-visit calls
+    # into one output buffer: the products only, not the function
+    gathered = timed["tris"][timed["cands"].reshape(-1).long()]
+    a = timed["cols"].permute(0, 2, 1).reshape(1024, 16)
+    nb = PROBE_BMM_VISITS
+    a_b = a.expand(nb, 1024, 16).contiguous()
+    prod = torch.empty((nb, 1024, 512), dtype=torch.float32, device=dev)
+
+    def products():
+        for i in range(0, gathered.shape[0], nb):
+            torch.bmm(a_b, gathered[i:i + nb], out=prod)
+    bmm = {}
+    for tf32 in (False, True):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            bmm["tf32" if tf32 else "f32"] = _cuda_ms(products, 2)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+    del gathered, prod
+    bmm_bytes = pairs * 4 * 4
+    print(f"probes k10 products only, not the function: torch.bmm of the "
+          f"{k10_visits} visits' [1024, 16] x [16, 512] products in calls of "
+          f"{nb}: {bmm['f32']:.3f} ms with TF32 off, {bmm['tf32']:.3f} ms "
+          f"with TF32 on (they write {bmm_bytes / 1e9:.1f} GB of products, "
+          f"{bmm_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms at the memory rate) "
+          f"({smi})", flush=True)
+    rec["k10"] = dict(compare=k10_cmp, ms=k10_ms,
+                      plain_ms=k10_plain_timed_ms,
+                      plain_ms_8_groups=k10_plain_ms,
+                      visits=k10_visits, pairs=pairs, bytes=k10_bytes,
+                      bound=k10_bound, tf32_ms=k10_tf32_ms, ptxas=k10_ptxas,
+                      bmm_ms=bmm, bmm_bytes=bmm_bytes, card=smi)
+    dump()
+
+    # (c) K11
+    k11_keys = ("cand", "od", "blocks")
+    g_cmp, g_big = PROBE_K11_GROUPS
+    arrays = K11.inputs(0, g_cmp)
+    ops = to_dev(arrays, k11_keys)
+    kern = K11.run(**ops)
+    plain = K11.flat_reference(**ops)
+    k11_err = max(float((k - p).abs().max()) for k, p in zip(kern, plain))
+    k11_equal = all(torch.equal(k, p) for k, p in zip(kern, plain))
+    t_host = kern[0].cpu().numpy()
+    cand, od = arrays["cand"], arrays["od"]
+    script_hits = K11.brute_force(cand, od, arrays["tris"])
+    script_bad = K11.check(t_host, script_hits)
+    local_hits = K11.brute_force(cand, od, K11.local_tris(arrays),
+                                 lane_step=1)
+    local_bad = K11.check(t_host, local_hits)
+    hit_share = float((kern[0] < K11.BIG).float().mean())
+    print(f"probes k11 {g_cmp} groups: t and prim equal {k11_equal}, max "
+          f"abs err {k11_err:.3g}, hit share {hit_share:.5f}; the script's "
+          f"check {len(script_hits)} hits on its sampled lanes, "
+          f"{len(script_bad)} off; every lane of groups 0-1 against the "
+          f"local triangles {len(local_hits)} hits, {len(local_bad)} off "
+          f"(limit {K11.TOL_T} x max(1, t))", flush=True)
+    od_aim = torch.from_numpy(K11.aimed_rays(arrays)).to(dev)
+    kern_aim = K11.run(ops["cand"], od_aim, ops["blocks"])
+    plain_aim = K11.flat_reference(ops["cand"], od_aim, ops["blocks"])
+    aim_equal = all(torch.equal(k, p) for k, p in zip(kern_aim, plain_aim))
+    k11_err = max([k11_err] + [float((k - p).abs().max())
+                               for k, p in zip(kern_aim, plain_aim)])
+    aim_hits, aim_bad = K11.aimed_check(kern_aim[0].cpu().numpy(), arrays,
+                                        od_aim.cpu().numpy())
+    aim_share = float((kern_aim[0] < K11.BIG).float().mean())
+    print(f"probes k11 {g_cmp} groups, rays aimed at the local triangles: t "
+          f"and prim equal {aim_equal}, hit share {aim_share:.5f}; every lane "
+          f"of groups 0-1 against the local triangles (the kernel's margins "
+          f"+- {K11.MARGIN_SLACK}) {aim_hits} hits, {len(aim_bad)} off",
+          flush=True)
+    if (not k11_equal or script_bad or local_bad or not aim_equal
+            or aim_bad):
+        failed.append("k11")
+    k11_plain_ms = _cuda_ms(lambda: K11.flat_reference(**ops), 1)
+    k11 = {}
+    for g in PROBE_K11_GROUPS:
+        arr = arrays if g == g_cmp else K11.inputs(0, g)
+        o_g = to_dev(arr, k11_keys)
+        if g != g_cmp:
+            # the timed size too: the shapes the probe's time is taken at
+            kern = K11.run(**o_g)
+            plain, k11_plain_big_ms = _once_ms(
+                lambda: K11.flat_reference(**o_g))
+            equal = all(torch.equal(k, p) for k, p in zip(kern, plain))
+            err = max(float((k - p).abs().max()) for k, p in zip(kern, plain))
+            k11_err = max(k11_err, err)
+            k11_equal = k11_equal and equal
+            print(f"probes k11 {g} groups (timed size): t and prim equal "
+                  f"{equal}, max abs err {err:.3g}; plain "
+                  f"{k11_plain_big_ms:.1f} ms (one call)", flush=True)
+            if not equal:
+                failed.append(f"k11 at {g} groups")
+            del kern, plain
+        ms = _cuda_ms(lambda: K11.run(**o_g), 20 if g == g_cmp else 5)
+        visits = int(torch.clamp(o_g["cand"][:, 0, 0], 0, K11.KSLOTS).sum())
+        pairs_g = visits * K11.FLAT * 128
+        blocks_read = int(torch.unique(o_g["cand"][:, 0, 1:]).numel())
+        nbytes = 4 * (o_g["cand"].numel() + o_g["od"].numel()
+                      + 2 * g * K11.FLAT) + blocks_read * 20 * 512 * 4
+        bound = _bound(nbytes, f32=pairs_g * K11_PAIR_F32,
+                       bf16=pairs_g * K11_PAIR_BF16)
+        k11[g] = dict(ms=ms, visits=visits, pairs=pairs_g, bytes=nbytes,
+                      bound=bound, ns_per_visit=ms * 1e6 / visits)
+        print(f"probes k11 timed: {ms:.3f} ms for {g} groups x "
+              f"{K11.KSLOTS} visits ({ms * 1e6 / visits:.0f} ns/visit, all "
+              f"1024 rays); bound {bound[0]:.4f} ms ({bound[1]}; bf16 "
+              f"products {bound[2]['bf16']:.4f}, f32 selection "
+              f"{bound[2]['f32']:.4f})", flush=True)
+    k11_ptxas = _ptxas_summary(kernels.PROBE_FLAT.ptxas_log)
+    print(f"probes k11: plain {k11_plain_ms:.3f} ms at {g_cmp} groups; "
+          f"{k11_ptxas['registers']} registers, spills "
+          f"{k11_ptxas['spill_store_bytes']}/{k11_ptxas['spill_load_bytes']}"
+          f" B ({smi})", flush=True)
+    rec["k11"] = dict(equal=k11_equal, max_abs_err=k11_err,
+                      hit_share=hit_share,
+                      script_check=dict(hits=len(script_hits),
+                                        off=len(script_bad)),
+                      local_check=dict(hits=len(local_hits),
+                                       off=len(local_bad)),
+                      aimed=dict(equal=aim_equal, hit_share=aim_share,
+                                 hits=aim_hits, off=len(aim_bad)),
+                      timed={str(g): v for g, v in k11.items()},
+                      plain_ms=k11_plain_big_ms,
+                      plain_ms_32_groups=k11_plain_ms, ptxas=k11_ptxas,
+                      card=smi)
+    dump()
+
+    # (d) K12: each construct's device time per launch from the profiler
+    # (a wrapper call takes longer on the host than these kernels on the
+    # card, so CUDA events around a run of calls time the host), its call
+    # time from CUDA events beside it
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_ms(fn, kernel, iters=50):
+        """Device time per call of fn: its kernels whose name holds
+        `kernel` (every kernel it launches with None)."""
+        fn()
+        torch.cuda.synchronize()
+        # profile again when the first profile records no kernel (the
+        # first one of this phase did so once, after the profiles of
+        # earlier phases in the same process)
+        for _ in range(2):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+            total, count = 0.0, 0
+            for evt in prof.key_averages():
+                if evt.device_type == DeviceType.CUDA and (
+                        kernel is None or kernel in evt.key):
+                    total += getattr(evt, "self_device_time_total",
+                                     getattr(evt, "self_cuda_time_total",
+                                             0.0))
+                    count += evt.count
+            if count:
+                return total / 1e3 / (count if kernel else iters)
+        return None
+
+    xb = to_dev(K12.inputs(0), ("x", "b"))
+    # one PyTorch call that computes the construct, where there is one (the
+    # [8] twos and the [8, 8] ones are made once, as weights would be):
+    # tile8's eight doubled tiles are an outer product, unflat's summed and
+    # repeated rows a product with ones, subl_concat one sum. The others
+    # have none: mm_concat_* is three products, a maximum and a repeat,
+    # scratch32 a comparison and a select, iota_sel an argmin, a one-hot
+    # product and a maximum.
+    twos = torch.full((8,), 2.0, device=dev)
+    ones = torch.ones((8, 8), device=dev)
+    library = dict(
+        tile8=lambda x, b: torch.outer(twos, x[0, 0:128]),
+        subl_concat=lambda x, b: torch.sum(x[0:K12.KC], 0, keepdim=True),
+        unflat=lambda x, b: torch.mm(ones, x[0].view(8, 128)))
+    k12 = {}
+    for name in K12.CONSTRUCTS:
+        kern = K12.run(name, **xb)
+        plain = K12.construct_reference(name, **xb)
+        equal = bool(torch.equal(kern, plain))
+        err = float((kern - plain).abs().max())
+        call_ms = _cuda_ms(lambda: K12.run(name, **xb), 200)
+        kname = ("mm_concat" if name.startswith("mm_concat") else name)
+        dev_ms = device_ms(lambda: K12.run(name, **xb), f"{kname}_kernel")
+        ms = dev_ms if dev_ms is not None else call_ms
+        plain_ms = _cuda_ms(lambda: K12.construct_reference(name, **xb), 20)
+        lib_ms = lib_err = None
+        if name in library:
+            torch.backends.cuda.matmul.allow_tf32 = False
+            lib = library[name](**xb).reshape(1, 1024)
+            lib_err = float((lib - plain).abs().max())
+            lib_ms = device_ms(lambda: library[name](**xb), None)
+            if lib_ms is None:
+                lib_ms = _cuda_ms(lambda: library[name](**xb), 200)
+        # bytes: the rows of x and b the construct reads, its output
+        n = 256 if name == "mm_concat_256" else 1024
+        read = dict(tile8=128, subl_concat=10 * 1024,
+                    mm_concat_256=10 * 256 + 20 * 512,
+                    mm_concat_1024=10 * 1024 + 20 * 512)
+        nbytes = 4 * (read.get(name, 1024) + 1024)
+        mm_pairs = 512 * n if name.startswith("mm_concat") else 0
+        bound = _bound(nbytes, f32=mm_pairs * K12_MM_F32,
+                       bf16=mm_pairs * 30 * 2)
+        k12[name] = dict(equal=equal, max_abs_err=err, ms=ms,
+                         device_ms=dev_ms, call_ms=call_ms,
+                         plain_ms=plain_ms, bound=bound, library_ms=lib_ms,
+                         library_max_abs_err=lib_err)
+        dev_txt = (f"{dev_ms * 1e3:.2f} us on the card" if dev_ms is not None
+                   else "device time not measured")
+        lib_txt = (f"library call {lib_ms * 1e3:.2f} us (max abs diff "
+                   f"{lib_err:.3g})" if lib_ms is not None
+                   else "no library call")
+        print(f"probes k12 {name}: equal {equal}, kernel {dev_txt}, "
+              f"{call_ms * 1e3:.2f} us per call, plain "
+              f"{plain_ms * 1e3:.1f} us, {lib_txt}, bound "
+              f"{bound[0] * 1e3:.4f} us ({bound[1]}) ({smi})", flush=True)
+        if not equal:
+            failed.append(f"k12 {name}")
+    k12_ptxas = _ptxas_summary(kernels.PROBE_CONSTRUCTS.ptxas_log)
+    rec["k12"] = dict(constructs=k12, ptxas=k12_ptxas, card=smi)
+
+    # (e) beside K3 at the city's 1080p bounce-0 launch (phase 6)
+    k3 = record.get("clustered", {})
+    k3_ms = k3.get("ms", {}).get("cluster_closest")
+    k3_visits = k3.get("launch", {}).get("visits")
+    per_visit = dict(k10=k10_ms * 1e6 / k10_visits,
+                     k11=k11[g_big]["ns_per_visit"],
+                     k3=(k3_ms * 1e6 / k3_visits if k3_ms and k3_visits
+                         else None))
+    rec["ns_per_visit"] = dict(per_visit, k3_ms=k3_ms, k3_visits=k3_visits)
+    k3_txt = (f"{per_visit['k3']:.0f} ({k3_ms:.3f} ms over {k3_visits} "
+              f"visits)" if per_visit["k3"] else "not measured")
+    print(f"probes beside K3: ns per visit (1,024 rays x 128 triangles): "
+          f"K10 {per_visit['k10']:.0f}, K11 {per_visit['k11']:.0f} "
+          f"({g_big} groups), K3 {k3_txt} at the city's 1080p bounce-0 "
+          f"launch ({smi})", flush=True)
+    rec["seconds"] = time.perf_counter() - t_phase
+    record["probes"] = rec
+    print(f"probes: phase 19 in {rec['seconds']:.1f}s", flush=True)
+    dump()
+    if failed:
+        _fail(f"probes: {failed}")
+
+    entries = {}
+
+    def entry(name, source, replaces, err, ms, plain_ms, bound,
+              library_ms=None, **extra):
+        entries[name] = dict(
+            name=name, route="cuda", source=f"rtxpt_tpu_torch/csrc/{source}",
+            replaces=replaces, launches=launches.get(name, 0),
+            launches_by_path={"probes": launches.get(name, 0)},
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+            bound_by=bound[1], library_ms=library_ms, **extra)
+    entry("probe_cluster", "probe_cluster.cu",
+          "scripts/micro_cluster_kernel.py:36", k10_err, k10_ms,
+          k10_plain_timed_ms, k10_bound, bmm_products_only_ms=bmm,
+          plain_ms_8_groups=k10_plain_ms, ns_per_visit=per_visit["k10"])
+    entry("probe_flat", "probe_flat.cu", "scripts/micro_flat_kernel.py:47",
+          k11_err, k11[g_big]["ms"], k11_plain_big_ms, k11[g_big]["bound"],
+          ms_32_groups=k11[g_cmp]["ms"], plain_ms_32_groups=k11_plain_ms,
+          ns_per_visit=per_visit["k11"])
+    for name, v in k12.items():
+        entry(f"probe_constructs_{name}", "probe_constructs.cu",
+              "scripts/micro_constructs.py:32", v["max_abs_err"], v["ms"],
+              v["plain_ms"], v["bound"], library_ms=v["library_ms"],
+              device_ms=v["device_ms"], call_ms=v["call_ms"])
+    return dict(entries=entries)
 
 
 def _write_record(record, path):

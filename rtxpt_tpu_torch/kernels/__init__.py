@@ -29,7 +29,9 @@ and so on: bounce 0 of a stable-planes fill; "bounce_fused_nodirect..."
 for the later bounces of a first_direct=False fill), and so do
 the per-row kernels
 K6 and K7 ("cluster_rows_closest_shade" with its "_env", "_tex",
-"_tex_env" and "_final" variants, "cluster_rows_shadow"). `build_all()`
+"_tex_env" and "_final" variants, "cluster_rows_shadow"), and so do the
+probes K10-K12 ("probe_cluster", "probe_flat", and one
+"probe_constructs_<name>" for each of the seven constructs). `build_all()`
 builds every library at once, one nvcc process per source.
 """
 
@@ -299,9 +301,42 @@ BVH_TRAVERSE = CudaLibrary(
         _I, _I,                        # n, any_hit
         _P]})                          # cudaStream_t
 
+# K10: the cluster-visit probe (replaces scripts/micro_cluster_kernel.py
+# kernel); wrapper probes/micro_cluster_kernel.py run.
+PROBE_CLUSTER = CudaLibrary(
+    "probe_cluster", ["probe_cluster.cu"],
+    {"rtxpt_probe_cluster": [
+        _P, _P, _P, _P,                # counts, cands, cols, tris
+        _P,                            # best [G, 8, 128]
+        _I,                            # n_groups
+        _P]})                          # cudaStream_t
+
+# K11: the all-rows flat-lane probe (replaces scripts/micro_flat_kernel.py
+# kernel); wrapper probes/micro_flat_kernel.py run.
+PROBE_FLAT = CudaLibrary(
+    "probe_flat", ["probe_flat.cu"],
+    {"rtxpt_probe_flat": [
+        _P, _P, _P,                    # cand, od, blocks
+        _P, _P,                        # t, prim
+        _I,                            # n_groups
+        _P]})                          # cudaStream_t
+
+# K12: the seven construct probes (replace scripts/micro_constructs.py
+# kernel); wrapper probes/micro_constructs.py run, counted as
+# "probe_constructs_<name>".
+PROBE_CONSTRUCTS = CudaLibrary(
+    "probe_constructs", ["probe_constructs.cu"],
+    {"rtxpt_probe_tile8": [_P, _P, _P, _P],            # x, b, o, stream
+     "rtxpt_probe_subl_concat": [_P, _P, _P, _P],
+     "rtxpt_probe_mm_concat": [_P, _P, _P, _I, _P],    # ..., n, stream
+     "rtxpt_probe_unflat": [_P, _P, _P, _P],
+     "rtxpt_probe_scratch32": [_P, _P, _P, _P, _P],    # x, b, scratch, o
+     "rtxpt_probe_iota_sel": [_P, _P, _P, _I, _I, _P]})  # ..., strides
+
 LIBRARIES = (BOUNCE_FUSED, BOUNCE_FUSED_RESTART, SHADOW_OCCLUSION,
              CLUSTER_CLOSEST, CLUSTER_SHADE, CLUSTER_SHADOW, CLUSTER_ROWS,
-             BRUTE_CLOSEST, BVH_TRAVERSE)
+             BRUTE_CLOSEST, BVH_TRAVERSE, PROBE_CLUSTER, PROBE_FLAT,
+             PROBE_CONSTRUCTS)
 
 
 def build_all(libraries=LIBRARIES) -> dict:

@@ -18,7 +18,8 @@ K4's split variant in the export slots on the rooms, with the split +
 aux renders of every tier, and K1's sixteen restart instantiations (the
 V-buffer restart and first_direct=False), its inject variant on the
 glass-over-mirror box's stable planes, and the real-time frames against
-the CPU.
+the CPU, and the probes K10, K11 (at two sizes each, K11 also on aimed
+rays) and the seven K12 constructs, bit-exact, with their launch counts.
 Needs an NVIDIA GPU and nvcc; skips without them. This file imports no
 JAX, so it runs where JAX is absent:
 
@@ -1413,3 +1414,104 @@ def test_realtime_frames_match_cpu(glass, gpu, planes):
         hdrs[dev.type] = hdr.cpu()
     ok = torch.isclose(hdrs["cuda"], hdrs["cpu"], rtol=TOL, atol=TOL)
     assert ok.all(-1).float().mean() >= 0.99
+
+
+def _probe_ops(arrays, keys, dev):
+    return {k: torch.from_numpy(arrays[k]).to(dev) for k in keys}
+
+
+K10_KEYS = ("counts", "cands", "cols", "tris")
+K11_KEYS = ("cand", "od", "blocks")
+
+
+@pytest.mark.parametrize("groups", [8, 64])
+def test_probe_k10_matches_plain_version(gpu, groups):
+    """K10 against its plain version, all 8 rows of its state (the TPU
+    kernel stores row 0 only), counts from 0 to 16: equal."""
+    from rtxpt_tpu_torch.probes import micro_cluster_kernel as K10
+    arrays = K10.inputs(0, 64, groups)
+    arrays["counts"][-1] = 0
+    ops = _probe_ops(arrays, K10_KEYS, gpu)
+    kern = K10.run(**ops, all_rows=True)
+    torch.cuda.synchronize()
+    assert torch.equal(kern, K10.cluster_reference(**ops))
+    assert torch.equal(K10.run(**ops), kern[:, 0:1])
+
+
+@pytest.mark.parametrize("groups", [2, 32])
+def test_probe_k11_matches_plain_version(gpu, groups):
+    """K11's t and prim against its plain version: equal."""
+    from rtxpt_tpu_torch.probes import micro_flat_kernel as K11
+    ops = _probe_ops(K11.inputs(0, groups), K11_KEYS, gpu)
+    kern = K11.run(**ops)
+    torch.cuda.synchronize()
+    for k, p in zip(kern, K11.flat_reference(**ops)):
+        assert torch.equal(k, p)
+    assert bool((kern[0] < K11.BIG).any())
+
+
+def test_probe_k11_aimed_rays_match_plain_version(gpu):
+    """K11 on rays aimed at the probe's triangles (nearly every lane hits)
+    against its plain version: equal."""
+    from rtxpt_tpu_torch.probes import micro_flat_kernel as K11
+    arrays = K11.inputs(0, 32)
+    arrays["od"] = K11.aimed_rays(arrays)
+    ops = _probe_ops(arrays, K11_KEYS, gpu)
+    kern = K11.run(**ops)
+    torch.cuda.synchronize()
+    for k, p in zip(kern, K11.flat_reference(**ops)):
+        assert torch.equal(k, p)
+    assert float((kern[0] < K11.BIG).float().mean()) > 0.99
+
+
+@pytest.mark.parametrize("name", ["tile8", "subl_concat", "mm_concat_256",
+                                  "mm_concat_1024", "unflat", "scratch32",
+                                  "iota_sel"])
+def test_probe_k12_matches_plain_version(gpu, name):
+    from rtxpt_tpu_torch.probes import micro_constructs as K12
+    xb = _probe_ops(K12.inputs(0), ("x", "b"), gpu)
+    kern = K12.run(name, **xb)
+    torch.cuda.synchronize()
+    assert torch.equal(kern, K12.construct_reference(name, **xb))
+
+
+def test_probe_launches_are_counted(gpu):
+    """Each wrapper counts one launch per kernel launch, the plain
+    versions none."""
+    from rtxpt_tpu_torch.probes import micro_cluster_kernel as K10
+    from rtxpt_tpu_torch.probes import micro_constructs as K12
+    from rtxpt_tpu_torch.probes import micro_flat_kernel as K11
+    k10 = _probe_ops(K10.inputs(0, 16, 4), K10_KEYS, gpu)
+    k11 = _probe_ops(K11.inputs(0, 1), K11_KEYS, gpu)
+    xb = _probe_ops(K12.inputs(0), ("x", "b"), gpu)
+    kernels.launches.clear()
+    K10.run(**k10)
+    K10.run(**k10, all_rows=True)
+    K11.run(**k11)
+    for name in K12.CONSTRUCTS:
+        K12.run(name, **xb)
+    K10.cluster_reference(**k10)
+    K11.flat_reference(**k11)
+    K12.construct_reference("tile8", **xb)
+    torch.cuda.synchronize()
+    want = dict(probe_cluster=2, probe_flat=1,
+                **{f"probe_constructs_{n}": 1 for n in K12.CONSTRUCTS})
+    assert dict(kernels.launches) == want
+
+
+def test_probe_runs_refuse_a_cpu_table(gpu):
+    """A CPU table with CUDA operands raises; nothing runs."""
+    from rtxpt_tpu_torch.probes import micro_cluster_kernel as K10
+    from rtxpt_tpu_torch.probes import micro_constructs as K12
+    from rtxpt_tpu_torch.probes import micro_flat_kernel as K11
+    k10 = _probe_ops(K10.inputs(0, 16, 4), K10_KEYS, gpu)
+    k11 = _probe_ops(K11.inputs(0, 1), K11_KEYS, gpu)
+    kernels.launches.clear()
+    with pytest.raises(ValueError, match="different devices"):
+        K10.run(**dict(k10, tris=k10["tris"].cpu()))
+    with pytest.raises(ValueError, match="different devices"):
+        K11.run(**dict(k11, blocks=k11["blocks"].cpu()))
+    with pytest.raises(ValueError, match="different devices"):
+        K12.run("mm_concat_256", torch.zeros((16, 1024), device=gpu),
+                torch.zeros((32, 512)))
+    assert not kernels.launches

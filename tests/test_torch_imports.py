@@ -53,6 +53,9 @@ SLICE_MODULES = [
     "rtxpt_tpu_torch.lighting.sky", "rtxpt_tpu_torch.scene.omm",
     "rtxpt_tpu_torch.pt.stable_planes", "rtxpt_tpu_torch.pt.realtime",
     "rtxpt_tpu_torch.render.denoise", "rtxpt_tpu_torch.render.taa",
+    "rtxpt_tpu_torch.probes", "rtxpt_tpu_torch.probes.micro_cluster_kernel",
+    "rtxpt_tpu_torch.probes.micro_flat_kernel",
+    "rtxpt_tpu_torch.probes.micro_constructs",
 ]
 
 

@@ -10,7 +10,9 @@ Phases, one or a few lines of output each:
                 versions; TF32 off.
   2. build   -- compiles every CUDA kernel of the port from rtxpt_tpu_torch/
                 csrc with nvcc, one process per source, all at once;
-                seconds, registers, spills.
+                seconds, registers, spills; the tensor-core instructions
+                (HMMA, HGMMA) in the SASS of K3's three variants
+                (cuobjdump -sass), which must be more than 0 in each.
   3. k1      -- one launch of the fused bounce kernel (K1) against its plain
                 PyTorch version on the same 65,536 Cornell camera rays, at
                 bounce 0 and at bounce 2 (Russian roulette on): integer rows
@@ -30,8 +32,11 @@ Phases, one or a few lines of output each:
                 65,536 camera rays spread over the 1080p frame (64 groups),
                 at bounce 2 on the 64 contiguous groups of the sorted 1080p
                 wavefront (carried there by the kernels) with the most
-                hits: K3 prim ids equal and t/u/v/front within 2e-3 on
-                >= 99.9% of lanes, visit counts equal, K4 as K1 in phase
+                hits: K3 as bounce_clustered.closest_agreement (winner
+                prim/instance/UNKNOWN equal on >= 99.9% of lanes, every HA
+                row bit-equal on those that hit, the differing lanes'
+                refit t within 2e-3 relative, visits equal on >= 99% of
+                groups and their sum within 0.1%), K4 as K1 in phase
                 3, K5 occlusion equal on >= 99.9% of lanes and test counts
                 equal; at least 5% of each comparison's lanes must hit. Times each kernel at
                 the city path's 1080p bounce-0 launch (2,025 groups) and its
@@ -588,6 +593,19 @@ def main(record_path=None, group_path=None):
               f"{ptxas['spill_load_bytes']} B", flush=True)
     print(f"build: {len(kernels.LIBRARIES)} libraries in "
           f"{built['wall']:.1f}s wall", flush=True)
+    # K3 takes its products on the tensor cores: HMMA (mma.sync) or HGMMA
+    # (wgmma) in the SASS of each variant
+    sass = kernels.CLUSTER_CLOSEST.sass_opcodes(kernels.TENSOR_OPCODES)
+    k3_tc = {}
+    for name, needle in kernels.CLUSTER_CLOSEST_ENTRIES.items():
+        counts = [c for fn, c in sass.items() if needle in fn]
+        k3_tc[name] = counts[0] if len(counts) == 1 else None
+    record["build"]["k3_tensor_ops"] = k3_tc
+    print(f"build: K3 tensor-core instructions in SASS: "
+          f"{json.dumps(k3_tc)}", flush=True)
+    if not all(c and sum(c.values()) > 0 for c in k3_tc.values()):
+        dump()
+        _fail("build: a K3 variant has no tensor-core instruction")
 
     # ---- 3. K1 against its plain version -----------------------------------
     host = cornell_box()
@@ -1031,23 +1049,18 @@ def _cluster_kernel_checks(record, dev, smi, dump, label, host, scene,
             BC.closest_hit, BC.occlusion = kernel_closest, kernel_occlusion
         k4 = BC.shade(ha_w, fs, is_, tbl, kcfg, sample, omm=omm)
         torch.cuda.synchronize()
-        k3s = dict(int_lanes_equal=1.0, worst_float_row=1.0,
-                   visits_equal=True, visits=0, pages=len(pairs["k3"]))
-        for (ha_k, vis_k), (ha_q, vis_q) in pairs["k3"]:
-            int_eq = ha_k[BC.HA_PRIM] == ha_q[BC.HA_PRIM]
-            if inst:
-                # the winner's instance and facing as well
-                int_eq &= (ha_k[BC.HA_INST] == ha_q[BC.HA_INST]) & (
-                    (ha_k[BC.HA_FRONT] > 0) == (ha_q[BC.HA_FRONT] > 0))
-            s3, e3 = _compare(dict(ha=ha_k[BC.HA_T:BC.HA_FRONT + 1]),
-                              dict(ha=ha_q[BC.HA_T:BC.HA_FRONT + 1]),
-                              int_eq)
-            k3s["int_lanes_equal"] = min(k3s["int_lanes_equal"],
-                                         s3["int_lanes_equal"])
-            k3s["worst_float_row"] = min(k3s["worst_float_row"],
-                                         s3["worst_float_row"])
-            k3s["visits_equal"] &= bool(torch.equal(vis_k, vis_q))
-            k3s["visits"] += int(vis_q.sum())
+        # K3 against its plain version, the pages' lanes and groups
+        # together: BC.closest_agreement's tolerance (the products' order)
+        k3s = BC.closest_agreement(
+            torch.cat([k[0] for k, _ in pairs["k3"]], 1),
+            torch.cat([k[1] for k, _ in pairs["k3"]]),
+            torch.cat([p[0] for _, p in pairs["k3"]], 1),
+            torch.cat([p[1] for _, p in pairs["k3"]]))
+        k3s["pages"] = len(pairs["k3"])
+        for (ha_k, _), (ha_q, _) in pairs["k3"]:
+            same = ha_k[BC.HA_PRIM] == ha_q[BC.HA_PRIM]
+            _, e3 = _compare(dict(ha=ha_k[BC.HA_T:BC.HA_FRONT + 1]),
+                             dict(ha=ha_q[BC.HA_T:BC.HA_FRONT + 1]), same)
             err[k3n] = max(err[k3n], e3)
         hit = ha_p[BC.HA_PRIM] >= 0
         k3s["hit_share"] = float(hit.float().mean())
@@ -1079,20 +1092,21 @@ def _cluster_kernel_checks(record, dev, smi, dump, label, host, scene,
             k5s["tests_equal"] &= bool(torch.equal(tst_k, tst_q))
             err[k5n] = max(err[k5n], float((occ_k - occ_q).abs().max()))
         rec[f"bounce{b}"] = dict(rows=rows, k3=k3s, k4=k4s, k5=k5s)
-        int_rows = "prim/inst/front" if inst else "prim"
-        print(f"{label} bounce {b} ({rows}): K3 {int_rows} equal "
-              f"{k3s['int_lanes_equal']:.6f}, worst t/u/v/front row "
-              f"{k3s['worst_float_row']:.6f}, visits equal "
-              f"{k3s['visits_equal']} over {k3s['pages']} pages, hit share "
+        print(f"{label} bounce {b} ({rows}): K3 prim/inst/unk equal "
+              f"{k3s['key_equal']:.6f} ({k3s['differ']} lanes differ, refit "
+              f"t within {k3s['t_rel_max']:.3g} rel), HA rows of the same "
+              f"hits not bit-equal on {k3s['hit_rows_differ']} lanes, "
+              f"misses with other rejected rows {k3s['miss_other_rows_differ']}"
+              f", visits equal on {k3s['groups_visits_equal']} of "
+              f"{k3s['groups']} groups ({k3s['visits_kernel']} vs "
+              f"{k3s['visits_plain']}) over {k3s['pages']} pages, hit share "
               f"{k3s['hit_share']:.4f}; K4 int lanes "
               f"{k4s['int_lanes_equal']:.6f}, worst float row "
               f"{min(k4s['worst_float_row'], shs['worst_float_row']):.6f}, "
               f"L mean rel {k4s['L_mean_rel']:.3g}; K5 occlusion equal "
               f"{k5s['occ_lanes_equal']:.6f} over {k5s['requests']} "
               f"requests, tests equal {k5s['tests_equal']}", flush=True)
-        ok = (k3s["int_lanes_equal"] >= LANE_FRACTION
-              and k3s["worst_float_row"] >= LANE_FRACTION
-              and k3s["visits_equal"] and k5s["tests_equal"]
+        ok = (k3s["ok"] and k5s["tests_equal"]
               and _state_ok(k4s)
               and shs["worst_float_row"] >= LANE_FRACTION
               and k5s["occ_lanes_equal"] >= LANE_FRACTION)

@@ -173,11 +173,8 @@ struct Quant {
   float absd, su, sv, st;
 };
 
-RT_HD Quant quantities(const float* blk, int j, const float* hi, const float* lo) {
-  const float det = quantity<0, 3>(blk, j, hi, lo);
-  const float un = quantity<0, 6>(blk, CT + j, hi, lo);
-  const float vn = quantity<0, 6>(blk, 2 * CT + j, hi, lo);
-  const float tn = quantity<6, 4>(blk, 3 * CT + j, hi, lo);
+// The four quantities signed by det's sign (bounce_clustered._signed).
+RT_HD Quant signed_quant(float det, float un, float vn, float tn) {
   const float s = det >= 0.0f ? 1.0f : -1.0f;
   Quant q;
   q.absd = det * s;
@@ -185,6 +182,13 @@ RT_HD Quant quantities(const float* blk, int j, const float* hi, const float* lo
   q.sv = vn * s;
   q.st = tn * s;
   return q;
+}
+
+RT_HD Quant quantities(const float* blk, int j, const float* hi, const float* lo) {
+  return signed_quant(quantity<0, 3>(blk, j, hi, lo),
+                      quantity<0, 6>(blk, CT + j, hi, lo),
+                      quantity<0, 6>(blk, 2 * CT + j, hi, lo),
+                      quantity<6, 4>(blk, 3 * CT + j, hi, lo));
 }
 
 // The micromap state of a candidate at its split-bf16 barycentrics
@@ -203,13 +207,44 @@ RT_HD int guarded_state(uint32_t word, const Quant& q, bool& near) {
   return micro_state(word, micro_index(u, v));
 }
 
-// Closest split-bf16 hit in one staged block: conservative edge margins,
-// strictly-inside candidates ahead of margin-only ones (tie bump), lowest
-// triangle index on ties. t_c = kBigT when nothing is valid. With `words`
-// (the block's micromap words), a micro-TRANSPARENT candidate is rejected
-// unless near a cell edge, and unk_c flags a winner on an UNKNOWN or
-// near-edge cell. Divide: t = t_num / |det| (K6, `_kernel_a`) instead of
-// t_num * (1 / |det|) (K3, `_kernel_a1`).
+// One candidate of the closest-hit selection: triangle j with the signed
+// quantities q. It is valid inside the conservative edge margins at
+// 0 < t < max_travel; strictly-inside candidates win ties over margin-only
+// ones (tie bump); it replaces (t_c, j_c, unk_c) when valid and t < t_c, so
+// a scan in increasing j keeps the lowest index on ties. With `words` (the
+// block's micromap words), a micro-TRANSPARENT candidate is rejected unless
+// near a cell edge, and unk_c flags a winner on an UNKNOWN or near-edge
+// cell. Divide: t = t_num / |det| (K6, `_kernel_a`) instead of
+// t_num * (1 / |det|) (K3, `_kernel_a1`). t is only computed for a valid
+// candidate: an invalid one can never win.
+template <bool Divide = false>
+RT_HD void consider(const Quant& q, int j, float max_travel, const int* words,
+                    float& t_c, int& j_c, bool& unk_c) {
+  const float mm = kMargin * q.absd;
+  bool valid = q.absd > kMinDet && q.su >= -mm && q.sv >= -mm &&
+               q.su + q.sv <= q.absd + mm + mm && q.st > 0.0f &&
+               q.st < max_travel * q.absd;
+  if (!valid) return;
+  const bool strict = q.su >= 0.0f && q.sv >= 0.0f && q.su + q.sv <= q.absd;
+  float tt = Divide ? q.st / max_(q.absd, kMinDet)
+                    : q.st * (1.0f / max_(q.absd, kMinDet));
+  tt = tt * (strict ? 1.0f : kTieScale);
+  bool unk = false;
+  if (words != nullptr) {
+    bool near;
+    const int st = guarded_state((uint32_t)words[j], q, near);
+    valid = st != MICRO_TRANSPARENT || near;
+    unk = st == MICRO_UNKNOWN || near;
+  }
+  if (valid && tt < t_c) {
+    t_c = tt;
+    j_c = j;
+    unk_c = unk;
+  }
+}
+
+// Closest split-bf16 hit in one staged block (the per-row K6): `consider`
+// over its 128 triangles in order. t_c = kBigT when nothing is valid.
 template <bool Divide = false>
 RT_HD void closest_in_block(const float* blk, const float* hi, const float* lo,
                             float max_travel, float& t_c, int& j_c,
@@ -217,29 +252,9 @@ RT_HD void closest_in_block(const float* blk, const float* hi, const float* lo,
   t_c = kBigT;
   j_c = 0;
   unk_c = false;
-  for (int j = 0; j < CT; ++j) {
-    const Quant q = quantities(blk, j, hi, lo);
-    const float mm = kMargin * q.absd;
-    bool valid = q.absd > kMinDet && q.su >= -mm && q.sv >= -mm &&
-                 q.su + q.sv <= q.absd + mm + mm && q.st > 0.0f &&
-                 q.st < max_travel * q.absd;
-    const bool strict = q.su >= 0.0f && q.sv >= 0.0f && q.su + q.sv <= q.absd;
-    float tt = Divide ? q.st / max_(q.absd, kMinDet)
-                      : q.st * (1.0f / max_(q.absd, kMinDet));
-    tt = tt * (strict ? 1.0f : kTieScale);
-    bool unk = false;
-    if (valid && words != nullptr) {
-      bool near;
-      const int st = guarded_state((uint32_t)words[j], q, near);
-      valid = st != MICRO_TRANSPARENT || near;
-      unk = st == MICRO_UNKNOWN || near;
-    }
-    if (valid && tt < t_c) {
-      t_c = tt;
-      j_c = j;
-      unk_c = unk;
-    }
-  }
+  for (int j = 0; j < CT; ++j)
+    consider<Divide>(quantities(blk, j, hi, lo), j, max_travel, words, t_c, j_c,
+                     unk_c);
 }
 
 // Any triangle of the staged block strictly inside, at 0 < t < dist. Adds the

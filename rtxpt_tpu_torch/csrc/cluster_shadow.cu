@@ -10,9 +10,10 @@
 // rtxpt_tpu_torch/pt/bounce_clustered.py occlusion_reference; wrapper:
 // bounce_clustered.occlusion.
 //
-// Design. The candidate walk of K3 (cluster_closest.cu): one block of 1024
-// threads per 1024-lane group of sorted shadow rays, the slot's rows 0..20
-// staged in shared memory, one thread per lane. The test is strict (no
+// Design. K3's candidate walk (cluster_closest.cu): one block of 1024
+// threads per 1024-lane group of sorted shadow rays; here the slot's rows
+// 0..20 are staged in shared memory as f32 and each thread tests its lane
+// on the f32 units. The test is strict (no
 // margins) and ends at dist * (1 - SHADOW_T_EPS). A lane stops testing once
 // it is occluded, and the block leaves the walk once every lane is
 // (__syncthreads_or of the unoccluded lanes, taken before each slot; it is
@@ -25,11 +26,12 @@
 // maps its world operand into the instance's object frame (xform_operand)
 // before the flat test. The distance stays the world one.
 //
-// What bounds it: operations, as K3 (57 multiplies and 53 adds of the
-// split-bf16 quantities and 14 operations of the strict test per ray-triangle
-// pair, against broadcast shared-memory coefficients, -fmad=false for
-// parity), but a lane's loop ends at its first occluder and the block's at
-// its last unoccluded lane.
+// What bounds it: operations (57 multiplies and 53 adds of the split-bf16
+// quantities and 14 operations of the strict test per ray-triangle pair,
+// against broadcast shared-memory coefficients, -fmad=false for parity),
+// but a lane's loop ends at its first occluder and the block's at its last
+// unoccluded lane. K3 takes the same products on the tensor cores; this
+// kernel does not yet.
 //
 // Micromaps: a visit also stages the cluster's 128 words and coverages (1 KB
 // of the side table); an occluder candidate on a TRANSPARENT cell does not

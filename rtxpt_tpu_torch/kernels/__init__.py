@@ -42,6 +42,7 @@ import concurrent.futures
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -80,6 +81,14 @@ def check_tensor(name, x, dtype, shape, device):
         raise ValueError(f"{name}: must be contiguous")
 
 
+def find_cuobjdump() -> str:
+    """cuobjdump beside nvcc; raises when there is none."""
+    tool = Path(find_nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        raise RuntimeError(f"cuobjdump not found beside nvcc ({tool})")
+    return str(tool)
+
+
 def find_nvcc() -> str:
     """nvcc from PATH or the CUDA toolkit; raises when there is none."""
     found = shutil.which("nvcc")
@@ -106,6 +115,7 @@ class CudaLibrary:
         self._lib = None
         self.build_seconds = None
         self.ptxas_log = ""
+        self.path = None
 
     def _digest(self) -> str:
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -135,6 +145,7 @@ class CudaLibrary:
             os.replace(tmp, so)
         self.build_seconds = time.perf_counter() - t0
         self.ptxas_log = log.read_text() if log.exists() else ""
+        self.path = so
         lib = ctypes.CDLL(str(so))
         for fname, argtypes in self.functions.items():
             fn = getattr(lib, fname)
@@ -145,6 +156,15 @@ class CudaLibrary:
         err.restype = ctypes.c_char_p
         self._lib = lib
         return lib
+
+    def sass_opcodes(self, opcodes) -> dict:
+        """{kernel (mangled name): {opcode: count}} of the instructions
+        with one of `opcodes` (`count_sass`), from cuobjdump -sass of the
+        built library (built first if need be)."""
+        self.load()
+        sass = subprocess.run([find_cuobjdump(), "-sass", str(self.path)],
+                              capture_output=True, text=True, check=True)
+        return count_sass(sass.stdout, opcodes)
 
     def launch(self, fname: str, *args) -> None:
         """Call one entry point; raise if it reports a CUDA error."""
@@ -219,6 +239,14 @@ CLUSTER_CLOSEST = CudaLibrary(
         _P, _P,                        # ha, visits|NULL
         _I, _I, _F, _I,                # n_groups, kslots, max_travel, noprune
         _P]})                          # cudaStream_t
+
+# K3's entry functions by launch name (a part of each mangled name)
+CLUSTER_CLOSEST_ENTRIES = {
+    "cluster_closest": "cluster_closest_kernelILb0ELb0E",
+    "cluster_closest_omm": "cluster_closest_kernelILb0ELb1E",
+    "cluster_closest_inst": "cluster_closest_kernelILb1ELb0E"}
+# the tensor cores' instructions: mma.sync (HMMA) and wgmma (HGMMA)
+TENSOR_OPCODES = ("HMMA", "HGMMA")
 
 # K4: the clustered shading kernel (replaces _kernel_a2); wrapper
 # bounce_clustered.shade.
@@ -332,6 +360,30 @@ PROBE_CONSTRUCTS = CudaLibrary(
      "rtxpt_probe_unflat": [_P, _P, _P, _P],
      "rtxpt_probe_scratch32": [_P, _P, _P, _P, _P],    # x, b, scratch, o
      "rtxpt_probe_iota_sel": [_P, _P, _P, _I, _I, _P]})  # ..., strides
+
+_SASS_FUNCTION = re.compile(r"Function\s*:\s*(\S+)")
+_SASS_OPCODE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                          r"([A-Z][A-Z0-9_.]*)")
+
+
+def count_sass(text: str, opcodes) -> dict:
+    """{function: {opcode: count}} of a cuobjdump -sass listing: the
+    instructions whose opcode (the mnemonic before its first '.') is one
+    of `opcodes`, for every function of the listing."""
+    out = {}
+    current = None
+    for line in text.splitlines():
+        m = _SASS_FUNCTION.search(line)
+        if m:
+            current = out.setdefault(m.group(1), dict.fromkeys(opcodes, 0))
+            continue
+        m = _SASS_OPCODE.search(line)
+        if m and current is not None:
+            for op in opcodes:
+                if m.group(1).split(".")[0] == op:
+                    current[op] += 1
+    return out
+
 
 LIBRARIES = (BOUNCE_FUSED, BOUNCE_FUSED_RESTART, SHADOW_OCCLUSION,
              CLUSTER_CLOSEST, CLUSTER_SHADE, CLUSTER_SHADOW, CLUSTER_ROWS,

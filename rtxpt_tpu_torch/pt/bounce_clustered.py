@@ -806,7 +806,10 @@ def closest_hit(cand, od, blocks, kslots: int, max_travel: float,
     """K3 (csrc/cluster_closest.cu; its instanced variant with `xf`, its
     micromap variant with `micro`, counted as "cluster_closest_omm") for
     CUDA tensors, its plain version for CPU tensors. Arguments and results
-    as in `closest_hit_reference`."""
+    as in `closest_hit_reference`. The kernel takes the split-bf16
+    products on the tensor cores as a screen and resolves the candidates
+    that pass it with the plain version's f32 sums, so it keeps the plain
+    version's winners (`closest_agreement` measures how far)."""
     dev = _device_of("closest_hit", od, cand, blocks,
                      *(() if xf is None else (xf,)),
                      *(() if micro is None else (micro,)))
@@ -823,6 +826,10 @@ def closest_hit(cand, od, blocks, kslots: int, max_travel: float,
     bf._check("od", od, torch.float32, (OD_ROWS, g * FL), dev)
     bf._check("blocks", blocks, torch.float32,
               (blocks.shape[0], CL.BLK_ROWS, CL.LANES), dev)
+    for what, x in (("blocks", blocks), ("xf", xf), ("omm_word", micro)):
+        if x is not None and x.data_ptr() % 16:
+            raise ValueError(f"closest_hit: {what} must be 16-byte aligned "
+                             "(the kernel copies it with cp.async)")
     ha = torch.empty((HA_ROWS, g * FL), dtype=torch.float32, device=dev)
     visits = torch.zeros((g,), dtype=torch.int32, device=dev)
     if g:
@@ -838,6 +845,66 @@ def closest_hit(cand, od, blocks, kslots: int, max_travel: float,
                 torch.cuda.current_stream(dev).cuda_stream)
         kernels.launches[name + ("_omm" if micro is not None else "")] += 1
     return (ha, visits) if stats else ha
+
+
+# K3 against its plain version (PERF.md). The kernel screens with the
+# split-bf16 products summed on the tensor cores (another order than the
+# plain version's) and resolves what passes in exact f32; should the
+# screen miss a valid candidate, a near-tie (coincident or edge-sharing
+# triangles, a candidate at a margin's edge, a prune bound an ulp away)
+# may go the other way.
+AGREE_LANES = 0.999      # least share of lanes with the same winner key
+AGREE_T_RTOL = 2e-3      # refit t of two different winners of a lane
+AGREE_GROUPS = 0.99      # least share of groups with equal visit counts
+AGREE_VISITS_RTOL = 1e-3  # summed visits
+# the rows that fix a lane's result where both versions miss
+_MISS_ROWS = (HA_T, HA_FRONT, HA_PRIM, HA_UNK, HA_INST)
+
+
+def closest_agreement(ha_k, vis_k, ha_p, vis_p):
+    """How K3's (ha, visits) agree with its plain version's on the same
+    inputs. The winner key of a lane is (HA_PRIM, HA_INST, HA_UNK). On the
+    lanes where both hit the same key every HA row must be bit-equal (the
+    refit is exact; NaN matches NaN); where both miss, the rows
+    `_MISS_ROWS` (the other rows hold a candidate the refit rejected, which
+    K4 does not read on a miss; such lanes are counted). On the lanes whose
+    key differs, both refit t must agree within AGREE_T_RTOL. Returns a
+    dict of the counts and `ok`."""
+    def same_bits(a, b):
+        return (a.view(torch.int32) == b.view(torch.int32)) | (
+            torch.isnan(a) & torch.isnan(b))
+    keys = (HA_PRIM, HA_INST, HA_UNK)
+    key_eq = torch.ones_like(ha_k[0], dtype=torch.bool)
+    for r in keys:
+        key_eq &= ha_k[r] == ha_p[r]
+    rows_eq = same_bits(ha_k, ha_p)
+    hit = ha_p[HA_PRIM] >= 0
+    bad_hit = key_eq & hit & ~rows_eq.all(0)
+    miss = key_eq & ~hit
+    bad_miss = miss & ~rows_eq[list(_MISS_ROWS)].all(0)
+    miss_other = miss & ~rows_eq.all(0)
+    differ = ~key_eq
+    t_k, t_p = ha_k[HA_T][differ], ha_p[HA_T][differ]
+    t_rel = (float(((t_k - t_p).abs() / t_p.abs().clamp(min=1e-30)).max())
+             if t_k.numel() else 0.0)
+    n_groups = vis_p.numel()
+    groups_eq = int((vis_k == vis_p).sum())
+    sum_k, sum_p = int(vis_k.sum()), int(vis_p.sum())
+    out = dict(lanes=int(key_eq.numel()),
+               key_equal=float(key_eq.float().mean()),
+               differ=int(differ.sum()), t_rel_max=t_rel,
+               hit_rows_differ=int(bad_hit.sum()),
+               miss_rows_differ=int(bad_miss.sum()),
+               miss_other_rows_differ=int(miss_other.sum()),
+               groups=n_groups, groups_visits_equal=groups_eq,
+               visits_kernel=sum_k, visits_plain=sum_p)
+    out["ok"] = (out["key_equal"] >= AGREE_LANES
+                 and out["hit_rows_differ"] == 0
+                 and out["miss_rows_differ"] == 0
+                 and t_rel <= AGREE_T_RTOL
+                 and groups_eq >= AGREE_GROUPS * n_groups
+                 and abs(sum_k - sum_p) <= AGREE_VISITS_RTOL * sum_p)
+    return out
 
 
 def occlusion(cand, sh, blocks, kslots: int, stats: bool = False, xf=None,

@@ -22,6 +22,12 @@ own tests run it (Pallas kernels in interpret mode).
       tests/test_sky_env.py, the sphere-light triangle and env_quads = 4
       under NEE-AT (one bounce).
 Resolution: the tier each scene resolves to, as in the JAX package.
+The JAX fused tier runs with one 128-lane row per block here
+(`bounce_pallas._R`, set for this module only, as in
+tests/test_torch_textures.py): the per-lane results do not depend on the
+tiling, and the interpret-mode compile of K1 with the environment takes
+about a third of the time. The sky render runs at the kernel check's
+1,024 lanes, so it finds those compiles in jit's cache.
 """
 
 import dataclasses
@@ -73,12 +79,16 @@ ENV_FIELDS = ("image", "row_cdf", "cond_cdf", "texel_pdf", "cos_rot",
 
 
 @pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for this module's torch ops: the test run puts
-    several test processes on the machine's cores."""
+def _one_torch_thread_and_jax_row():
+    """One intra-op thread for this module's torch ops (the test run puts
+    several test processes on the machine's cores), and one row per block
+    of the JAX fused tier (tests/test_torch_textures.py)."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
+    mp = pytest.MonkeyPatch()
+    mp.setattr(bp, "_R", 1)
     yield
+    mp.undo()
     torch.set_num_threads(n)
 
 
@@ -426,11 +436,12 @@ def _render_close(got, want, what):
 
 
 def test_fused_sky_render_matches_jax(sky_cornell, jax_env_bounces):
-    """Cornell + make_sky(64, 32), 16x16, 2 spp, 2 bounces: the port's
+    """Cornell + make_sky(64, 32), 32x32, 2 spp, 2 bounces: the port's
     fused tier (its plain version on the CPU, "torch") against the JAX
-    fused tier in interpret mode."""
+    fused tier in interpret mode, at the lanes of the kernel check above
+    (its compiles in jit's cache)."""
     jhost, jscene = sky_cornell
-    w = h = 16
+    w = h = SIDE
     jcfg = JConfig(max_bounces=BOUNCES, kernel_tier="fused",
                    pallas_interpret=True)
     jcam = JP.default_camera(jhost, w, h)

@@ -11,8 +11,8 @@ Phases, one or a few lines of output each:
   2. build   -- compiles every CUDA kernel of the port from rtxpt_tpu_torch/
                 csrc with nvcc, one process per source, all at once;
                 seconds, registers, spills; the tensor-core instructions
-                (HMMA, HGMMA) in the SASS of K3's three variants
-                (cuobjdump -sass), which must be more than 0 in each.
+                (HMMA, HGMMA) in the SASS of K3's and K5's three variants
+                each (cuobjdump -sass), which must be more than 0 in each.
   3. k1      -- one launch of the fused bounce kernel (K1) against its plain
                 PyTorch version on the same 65,536 Cornell camera rays, at
                 bounce 0 and at bounce 2 (Russian roulette on): integer rows
@@ -38,7 +38,11 @@ Phases, one or a few lines of output each:
                 refit t within 2e-3 relative, visits equal on >= 99% of
                 groups and their sum within 0.1%), K4 as K1 in phase
                 3, K5 occlusion equal on >= 99.9% of lanes and test counts
-                equal; at least 5% of each comparison's lanes must hit. Times each kernel at
+                equal (the differing lanes and K5's screen pass share,
+                bounce_clustered.occlusion_screen_stats, printed; also in
+                phases 11-14, and the share over Bistro's pass-through
+                frame in phase 15); at least 5% of each comparison's lanes
+                must hit. Times each kernel at
                 the city path's 1080p bounce-0 launch (2,025 groups) and its
                 plain version at the comparison width.
   7. city parity -- the 3,512-triangle city of the CPU tests, 48x32, 2 spp,
@@ -440,6 +444,13 @@ MIXED_SHARE = 0.05           # phase 14: the least share of a comparison's
 UNKNOWN_SHARE = 0.01         # lanes on a MIXED triangle, an UNKNOWN cell
 
 
+def _share(screen):
+    """K5's screen pass share (bounce_clustered.occlusion_screen_stats) as
+    text."""
+    share = screen["share"]
+    return "not measured (no pairs)" if share is None else f"{share:.5%}"
+
+
 def _fail(msg):
     print(f"FAIL {msg}", flush=True)
     sys.exit(1)
@@ -593,19 +604,22 @@ def main(record_path=None, group_path=None):
               f"{ptxas['spill_load_bytes']} B", flush=True)
     print(f"build: {len(kernels.LIBRARIES)} libraries in "
           f"{built['wall']:.1f}s wall", flush=True)
-    # K3 takes its products on the tensor cores: HMMA (mma.sync) or HGMMA
-    # (wgmma) in the SASS of each variant
-    sass = kernels.CLUSTER_CLOSEST.sass_opcodes(kernels.TENSOR_OPCODES)
-    k3_tc = {}
-    for name, needle in kernels.CLUSTER_CLOSEST_ENTRIES.items():
-        counts = [c for fn, c in sass.items() if needle in fn]
-        k3_tc[name] = counts[0] if len(counts) == 1 else None
-    record["build"]["k3_tensor_ops"] = k3_tc
-    print(f"build: K3 tensor-core instructions in SASS: "
-          f"{json.dumps(k3_tc)}", flush=True)
-    if not all(c and sum(c.values()) > 0 for c in k3_tc.values()):
-        dump()
-        _fail("build: a K3 variant has no tensor-core instruction")
+    # K3 and K5 take their products on the tensor cores: HMMA (mma.sync)
+    # or HGMMA (wgmma) in the SASS of each variant
+    for label, lib, entries in (
+            ("K3", kernels.CLUSTER_CLOSEST, kernels.CLUSTER_CLOSEST_ENTRIES),
+            ("K5", kernels.CLUSTER_SHADOW, kernels.CLUSTER_SHADOW_ENTRIES)):
+        sass = lib.sass_opcodes(kernels.TENSOR_OPCODES)
+        tc = {}
+        for name, needle in entries.items():
+            counts = [c for fn, c in sass.items() if needle in fn]
+            tc[name] = counts[0] if len(counts) == 1 else None
+        record["build"][f"{label.lower()}_tensor_ops"] = tc
+        print(f"build: {label} tensor-core instructions in SASS: "
+              f"{json.dumps(tc)}", flush=True)
+        if not all(c and sum(c.values()) > 0 for c in tc.values()):
+            dump()
+            _fail(f"build: a {label} variant has no tensor-core instruction")
 
     # ---- 3. K1 against its plain version -----------------------------------
     host = cornell_box()
@@ -1044,7 +1058,9 @@ def _cluster_kernel_checks(record, dev, smi, dump, label, host, scene,
             plain_in.setdefault("fs", fs)
             plain_in.setdefault("is_", is_)
             shp, _ = BC.sort_shadows(sh_out[2], bounds)
+            BC.occlusion_screen_stats(dev, True)
             BC.occluded_paged(shp, tbl, kslots, pages, omm)
+            screen = BC.occlusion_screen_stats(dev, False)
         finally:
             BC.closest_hit, BC.occlusion = kernel_closest, kernel_occlusion
         k4 = BC.shade(ha_w, fs, is_, tbl, kcfg, sample, omm=omm)
@@ -1084,11 +1100,13 @@ def _cluster_kernel_checks(record, dev, smi, dump, label, host, scene,
         k4s.update(worst_sh_row=shs["worst_float_row"])
         err[k4n] = max(err[k4n], e4, e4s)
         requested = shp[BC.SH_DO] > 0.5
-        k5s = dict(occ_lanes_equal=1.0, tests_equal=True,
-                   requests=int(requested.sum()), pages=len(pairs["k5"]))
+        k5s = dict(occ_lanes_equal=1.0, tests_equal=True, differ=0,
+                   requests=int(requested.sum()), pages=len(pairs["k5"]),
+                   screen=screen)
         for (occ_k, tst_k), (occ_q, tst_q) in pairs["k5"]:
             k5s["occ_lanes_equal"] = min(k5s["occ_lanes_equal"], float(
                 (occ_k == occ_q).float().mean()))
+            k5s["differ"] += int((occ_k != occ_q).sum())
             k5s["tests_equal"] &= bool(torch.equal(tst_k, tst_q))
             err[k5n] = max(err[k5n], float((occ_k - occ_q).abs().max()))
         rec[f"bounce{b}"] = dict(rows=rows, k3=k3s, k4=k4s, k5=k5s)
@@ -1105,7 +1123,10 @@ def _cluster_kernel_checks(record, dev, smi, dump, label, host, scene,
               f"{min(k4s['worst_float_row'], shs['worst_float_row']):.6f}, "
               f"L mean rel {k4s['L_mean_rel']:.3g}; K5 occlusion equal "
               f"{k5s['occ_lanes_equal']:.6f} over {k5s['requests']} "
-              f"requests, tests equal {k5s['tests_equal']}", flush=True)
+              f"requests ({k5s['differ']} lanes differ), tests equal "
+              f"{k5s['tests_equal']}, screen pass share "
+              f"{_share(screen)} ({screen['passed']} of {screen['pairs']} "
+              f"pairs, {screen['overflowed']} lists overflowed)", flush=True)
         ok = (k3s["ok"] and k5s["tests_equal"]
               and _state_ok(k4s)
               and shs["worst_float_row"] >= LANE_FRACTION
@@ -1192,8 +1213,10 @@ def _cluster_kernel_checks(record, dev, smi, dump, label, host, scene,
     shp, cand_s = shadow_inputs(sh)
     ms[k5n] = _cuda_ms(lambda: BC.occlusion(
         cand_s, shp, tbl.blocks, kslots, xf=xf, **micro_cov), 3)
+    BC.occlusion_screen_stats(dev, True)
     _, tests = BC.occlusion(cand_s, shp, tbl.blocks, kslots, stats=True,
                             xf=xf, **micro_cov)
+    k5_screen = BC.occlusion_screen_stats(dev, False)
 
     # bounds at that launch: each input read once (the blocks' staged rows
     # once per distinct block, an instance's M10 once per distinct
@@ -1243,7 +1266,7 @@ def _cluster_kernel_checks(record, dev, smi, dump, label, host, scene,
                   k3_instances=k3_insts, k3_pairs=k3_pairs,
                   shadow_requests=int((shp[BC.SH_DO] > 0.5).sum()),
                   k5_pairs=k5_pairs, k5_blocks=k5_blocks,
-                  k5_instances=k5_insts)
+                  k5_instances=k5_insts, k5_screen=k5_screen)
     libs = {k3n: kernels.CLUSTER_CLOSEST, k4n: kernels.CLUSTER_SHADE,
             k5n: kernels.CLUSTER_SHADOW}
     ptxas = {name: _ptxas_entry(lib.ptxas_log,
@@ -1264,6 +1287,10 @@ def _cluster_kernel_checks(record, dev, smi, dump, label, host, scene,
               f"spills {ptxas[name]['spill_store_bytes']}/"
               f"{ptxas[name]['spill_load_bytes']} B ({smi})", flush=True)
     print(f"{label} launch: {json.dumps(launch)}", flush=True)
+    print(f"{label} {k5n} screen pass share at that launch "
+          f"{_share(k5_screen)} ({k5_screen['passed']} of "
+          f"{k5_screen['pairs']} pairs, {k5_screen['overflowed']} lists "
+          f"overflowed)", flush=True)
     dump()
 
     src_k3 = "rtxpt_tpu_torch/csrc/cluster_closest.cu"
@@ -1476,6 +1503,8 @@ def _split(prof, wall_ms, ranges=CITY_RANGES, kernel_parts=CITY_KERNELS,
                                                     0.0)
     parts["other"] = busy - sum(v for k, v in parts.items()
                                 if k not in nested)
+    if "k5" in parts:
+        parts["k5_share"] = parts["k5"] / busy if busy > 0 else None
     parts.update(device_busy=busy, wall=wall_ms,
                  idle_share=max(0.0, 1.0 - busy / wall_ms), spans=spans)
     try:
@@ -3817,8 +3846,10 @@ def _priorities(record, dev, smi, dump):
                 ms_per_frame_1spp=dt / BISTRO_SPP * 1e3,
                 L_mean=float(hdr.mean()),
                 finite=bool(torch.isfinite(hdr).all()), card=smi)
+    BC.occlusion_screen_stats(dev, True)
     path["passed_through"] = _passthrough_share(
         lambda: render_sample(scene, cam, rcfg, w, h, 9))
+    path["k5_screen"] = BC.occlusion_screen_stats(dev, False)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -3838,7 +3869,10 @@ def _priorities(record, dev, smi, dump):
           f"cull_overflow {path['cull_overflow_profiled_frame']}, mean L "
           f"{path['L_mean']:.5f}, profiled frame "
           f"{path['profiled_mrays_per_s']:.3f} Mrays/s, split "
-          f"{json.dumps(path['split'])}, peak memory "
+          f"{json.dumps(path['split'])}, K5 screen pass share "
+          f"{_share(path['k5_screen'])} over the pass-through frame "
+          f"({path['k5_screen']['passed']} of {path['k5_screen']['pairs']} "
+          f"pairs), peak memory "
           f"{path['max_memory_mib']:.1f} MiB ({smi})", flush=True)
     if launched != want_l or not path["finite"] or path["L_mean"] <= 1e-3:
         dump()

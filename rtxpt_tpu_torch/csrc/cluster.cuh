@@ -1,5 +1,6 @@
 // The clustered tier's per-lane math, shared by K3 (cluster_closest.cu), K5
-// (cluster_shadow.cu) and the per-row K6 and K7 (cluster_rows.cu): the
+// (cluster_shadow.cu) and the per-row K6 and K7 (cluster_rows.cu; the
+// tensor-core form of K3 and K5 is in cluster_mma.cuh): the
 // cluster block layout and its staging in shared memory, the split-bf16 ray
 // operand (and the per-row one),
 // the world -> object map of the operand on instanced tables, the
@@ -257,23 +258,33 @@ RT_HD void closest_in_block(const float* blk, const float* hi, const float* lo,
                      unk_c);
 }
 
-// Any triangle of the staged block strictly inside, at 0 < t < dist. Adds the
-// triangles tested (up to and including the first occluder) to `tested`.
-// With `words`, a micro-TRANSPARENT candidate never occludes unless near a
-// cell edge, and an UNKNOWN or near-edge one where u_alpha < its coverage.
+// Whether triangle j with the signed quantities q occludes: strictly inside
+// (no margins) at 0 < t < dist. With `words` (the block's micromap words)
+// and `cover` (their coverages), a micro-TRANSPARENT candidate never
+// occludes unless near a cell edge, and an UNKNOWN or near-edge one where
+// u_alpha < its coverage.
+RT_HD bool occludes(const Quant& q, int j, float dist, const int* words,
+                    const float* cover, float u_alpha) {
+  if (!(q.absd > kMinDet && q.su >= 0.0f && q.sv >= 0.0f &&
+        q.su + q.sv <= q.absd && q.st > 0.0f && q.st < dist * q.absd))
+    return false;
+  if (words != nullptr) {
+    bool near;
+    const int st = guarded_state((uint32_t)words[j], q, near);
+    if (st == MICRO_TRANSPARENT && !near) return false;
+    if ((st == MICRO_UNKNOWN || near) && !(u_alpha < cover[j])) return false;
+  }
+  return true;
+}
+
+// Any triangle of the staged block that occludes (`occludes`, in increasing
+// j). Adds the triangles tested (up to and including the first occluder) to
+// `tested`.
 RT_HD bool occluded_in_block(const float* blk, const float* hi, const float* lo,
                              float dist, int& tested, const int* words,
                              const float* cover, float u_alpha) {
   for (int j = 0; j < CT; ++j) {
-    const Quant q = quantities(blk, j, hi, lo);
-    if (q.absd > kMinDet && q.su >= 0.0f && q.sv >= 0.0f &&
-        q.su + q.sv <= q.absd && q.st > 0.0f && q.st < dist * q.absd) {
-      if (words != nullptr) {
-        bool near;
-        const int st = guarded_state((uint32_t)words[j], q, near);
-        if (st == MICRO_TRANSPARENT && !near) continue;
-        if ((st == MICRO_UNKNOWN || near) && !(u_alpha < cover[j])) continue;
-      }
+    if (occludes(quantities(blk, j, hi, lo), j, dist, words, cover, u_alpha)) {
       tested += j + 1;
       return true;
     }

@@ -23,19 +23,12 @@
 // ~10-operation screen on them; the few pairs that pass it are resolved in
 // exact f32.
 //
-// The product form. The coefficients are bf16-exact (accel/cluster.py
-// stores c_hi and c_lo = bf16(c - c_hi)) and so is r_hi = bf16(r). The f32
-// residual r_lo = r - r_hi has at most 16 significant bits, so it splits
-// exactly into l1 = bf16(r_lo) and l2 = r_lo - l1, both bf16. The four
-// stacks A = [r_hi | l1 | l2 | r_hi] against B = [c_hi | c_hi | c_hi | c_lo]
-// give every product of the plain version exactly; only the order and
+// The product form, the ring, the tiles and the screen are shared with K5
+// (cluster_mma.cuh): [r_hi | l1 | l2 | r_hi] x [c_hi | c_hi | c_hi | c_lo]
+// gives every product of the plain version exactly; only the order and
 // rounding of the f32 accumulation differ, which on coincident and
 // edge-sharing triangles decides near-ties the other way (0.12% of the
-// city's lanes when these sums drove the whole selection). The depth is
-// ordered component-major, k = 4 * component + stack: det reads components
-// 0-2 (k-step 0), u and v 0-5 (k-steps 0-1), so a chunk of 8 triangles
-// takes 5 m16n8k16 products for 16 rays. The t numerators (components 6-9)
-// are not screened on: only the screened pairs need them, in exact f32.
+// city's lanes when these sums drove the whole selection).
 //
 // The selection. The tensor cores' sums only screen: a candidate passes
 // inside the edge margins widened 4x, whatever t (`screen`). The plain
@@ -113,6 +106,7 @@
 #include <stdint.h>
 
 #include "cluster.cuh"
+#include "cluster_mma.cuh"
 #include "rt_error.cuh"
 
 namespace {
@@ -120,146 +114,10 @@ namespace {
 using namespace rt;
 using namespace rt::cl;
 
-constexpr int KQ = 48;                   // bf16 per A row (40 used)
-constexpr int COEF_ROWS = 20;            // rows 0..9 c_hi, 10..19 c_lo
-constexpr int TILE_COMPS = 6;            // components det, u and v read
-constexpr int ZERO_ROW = 2 * TILE_COMPS; // the bf16 tile's zero row
-constexpr int B_STRIDE = LANES + 8;      // bf16 per tile row
-constexpr int CHUNKS = CT / 8;           // 8-triangle chunks of a cluster
-// One ring slot, in floats: the coefficient rows, the center (padded to
-// 4), the micromap words, an instance's M10 (padded to 104).
-constexpr int RING_CEN = COEF_ROWS * LANES;
-constexpr int RING_MW = RING_CEN + 4;
-constexpr int RING_XM = RING_MW + CT;
-constexpr int RING_FLOATS = RING_XM + 104;
-constexpr int LIST = 8;                  // screened candidates a thread keeps per ray
-constexpr int A_BYTES = FL * KQ * 2;
-constexpr int B_BYTES = (ZERO_ROW + 1) * B_STRIDE * 2;
-constexpr int LIST_BASE = A_BYTES + B_BYTES + 2 * RING_FLOATS * 4;
-constexpr int SMEM_BYTES = LIST_BASE + FL * 2 * LIST;
-static_assert(A_BYTES % 16 == 0 && B_BYTES % 16 == 0 && RING_MW % 4 == 0 &&
-                  RING_XM % 4 == 0 && RING_FLOATS % 4 == 0,
-              "16-byte alignment of the shared-memory regions");
+using RG = Ring<false>;                   // the ring carries no coverages
+constexpr int LIST_BASE = A_BYTES + B_BYTES + 2 * RG::FLOATS * 4;
+constexpr int SMEM_BYTES = LIST_BASE + LIST_BYTES;
 static_assert(SMEM_BYTES <= 232448, "shared memory of one block");
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(addr)
-               : "memory");
-}
-
-// d += a (16 x 16, row-major) * b (16 x 8, column-major), bf16 in, f32 out.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two floats (bf16-exact) as one bf16x2 word, `lo` in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// The tile row of virtual row k of quantity `qn`'s stacked B (det 0, u 1,
-// v 2): component k / 4, stack k % 4 (c_lo in stack 3, at tile row
-// TILE_COMPS + component); the zero row where the quantity does not read
-// the component (Q_ROWS of bounce_clustered.py).
-__device__ __forceinline__ int tile_row(int qn, int k) {
-  const int comp = k >> 2;
-  if (comp >= (qn == 0 ? 3 : TILE_COMPS)) return ZERO_ROW;
-  return (k & 3) == 3 ? TILE_COMPS + comp : comp;
-}
-
-// The screen on the tensor cores' det, u and v numerators: inside the edge
-// margins widened to kScreen (4x), whatever t. Far wider than the
-// difference between these sums and the plain version's (a few f32 ulps of
-// the terms), so every candidate the plain version finds valid passes; a
-// degenerate or padding triangle (|det| = 0) does not.
-constexpr float kScreen = 4.0f * kMargin;
-
-__device__ __forceinline__ bool screen(float det, float un, float vn) {
-  const Quant q = signed_quant(det, un, vn, 0.0f);
-  const float w = kScreen * q.absd;
-  return q.absd > 0.0f && q.su >= -w && q.sv >= -w && q.su + q.sv <= q.absd + w + w;
-}
-
-// A ray's operand (hi, lo) read back from its A row: r_hi as is, and
-// lo = l1 + l2, which is exact (make_operand's f32 residual).
-__device__ __forceinline__ void operand_of_row(const __nv_bfloat16* row, float* hi,
-                                               float* lo) {
-  const uint2* w = reinterpret_cast<const uint2*>(row);
-#pragma unroll
-  for (int k = 0; k < 10; ++k) {
-    const uint2 v = w[k];
-    hi[k] = __uint_as_float(v.x << 16);
-    lo[k] = __uint_as_float(v.x & 0xFFFF0000u) + __uint_as_float(v.y << 16);
-  }
-}
-
-// Issue the cp.async copies of slot data into one ring slot: rows 0..19 of
-// cluster `cid`'s block, its center, its micromap words (OMM) or instance
-// `iid`'s M10 (INST). The caller commits.
-template <bool INST, bool OMM>
-__device__ __forceinline__ void stage_async(float* slot, const float* blocks,
-                                            const int* micro, const float* xf,
-                                            int cid, int iid, int l) {
-  const float* src = blocks + (size_t)cid * BLK_FLOATS;
-  for (int k = l; k < COEF_ROWS * LANES / 4; k += FL)
-    cp_async16(slot + 4 * k, src + 4 * k);
-  if (l < 3) cp_async4(slot + RING_CEN + l, src + CENTER_ROW * LANES + l * CT);
-  if constexpr (OMM) {
-    if (l >= 32 && l < 32 + CT / 4)
-      cp_async16(slot + RING_MW + 4 * (l - 32), micro + (size_t)cid * CT + 4 * (l - 32));
-  }
-  if constexpr (INST) {
-    if (l >= 64 && l < 64 + XF_FLOATS / 4)
-      cp_async16(slot + RING_XM + 4 * (l - 64), xf + (size_t)iid * XF_FLOATS + 4 * (l - 64));
-  }
-}
 
 template <bool INST, bool OMM>
 __global__ void __launch_bounds__(FL, 1)
@@ -305,7 +163,8 @@ cluster_closest_kernel(const int* __restrict__ cand, const float* __restrict__ o
   bool best_unk = false;
   const int count = cg[0];
   if (count > 0)
-    stage_async<INST, OMM>(ring, blocks, micro, xf, cg[1], INST ? cinst[0] : 0, l);
+    stage_async<INST, OMM, false>(ring, blocks, micro, nullptr, xf, cg[1],
+                                  INST ? cinst[0] : 0, l);
   cp_async_commit();
   int s = 0;
   for (; s < count; ++s) {
@@ -314,43 +173,27 @@ cluster_closest_kernel(const int* __restrict__ cand, const float* __restrict__ o
     if (!__syncthreads_or(noprune || bound_bits >= te_bits)) break;
     // every thread is past the previous visit: its ring slot, the B tile
     // and the A tiles are free
-    const float* cur = ring + (s & 1) * RING_FLOATS;
+    const float* cur = ring + (s & 1) * RG::FLOATS;
     if (s + 1 < count)
-      stage_async<INST, OMM>(ring + ((s + 1) & 1) * RING_FLOATS, blocks, micro, xf,
-                             cg[2 + s], INST ? cinst[s + 1] : 0, l);
+      stage_async<INST, OMM, false>(ring + ((s + 1) & 1) * RG::FLOATS, blocks, micro,
+                                    nullptr, xf, cg[2 + s], INST ? cinst[s + 1] : 0, l);
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    for (int k = l; k < 2 * TILE_COMPS * LANES / 4; k += FL) {
-      const int row = k >> 7;  // tile row: c_hi 0..5, then c_lo 0..5
-      const int src = row < TILE_COMPS ? row : row - TILE_COMPS + 10;
-      const float4 v = reinterpret_cast<const float4*>(cur + src * LANES)[k & 127];
-      *reinterpret_cast<uint2*>(bt + row * B_STRIDE + (k & 127) * 4) =
-          make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
-    }
+    convert_tile(bt, cur, l);
     const int cid = cg[1 + s];
     const int iid = INST ? cinst[s] : 0;
 
     // the lane's operand: make_operand's f32 arithmetic, then the split
-    const V3 c = v3(cur[RING_CEN], cur[RING_CEN + 1], cur[RING_CEN + 2]);
+    const V3 c = v3(cur[RG::CEN], cur[RG::CEN + 1], cur[RG::CEN + 2]);
     V3 dv = d, oxdv = oxd, ov = o;
-    if constexpr (INST) xform_operand(cur + RING_XM, d, oxd, o, dv, oxdv, ov);
+    if constexpr (INST) xform_operand(cur + RG::XM, d, oxd, o, dv, oxdv, ov);
     float hi[10], lo[10];
     make_operand(dv, oxdv, ov, c, hi, lo);
-    uint32_t w[20];  // component k: [r_hi, l1] [l2, r_hi]
-#pragma unroll
-    for (int k = 0; k < 10; ++k) {
-      const float l1 = bf16_round(lo[k]);
-      w[2 * k] = pack_bf16(hi[k], l1);
-      w[2 * k + 1] = pack_bf16(lo[k] - l1, hi[k]);
-    }
-#pragma unroll
-    for (int k = 0; k < 5; ++k)
-      arow[k] = make_uint4(w[4 * k], w[4 * k + 1], w[4 * k + 2], w[4 * k + 3]);
-    arow[5] = make_uint4(0, 0, 0, 0);
+    write_a_row(arow, hi, lo);
     __syncthreads();  // the B tile is complete; the A rows are written
 
-    const int* words = OMM ? reinterpret_cast<const int*>(cur + RING_MW) : nullptr;
+    const int* words = OMM ? reinterpret_cast<const int*>(cur + RG::MW) : nullptr;
     float t_c = kBigT;
     int key_c = 0;
 #pragma unroll 1

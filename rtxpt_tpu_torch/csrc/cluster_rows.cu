@@ -25,7 +25,7 @@
 // two block votes (__syncthreads_or) take the row's gate; the first is also
 // the barrier that frees the staging buffer. A visit stages the block's
 // rows 0..20 (split-bf16 coefficients and the center, 43 KB) in shared
-// memory (cluster.cuh stage_block, as K5 and K7; with the stats,
+// memory (cluster.cuh stage_block, as K7; with the stats,
 // thread 0 marks the (row, slot) pair in `visited`), and each thread tests
 // the 128 triangles (cluster.cuh closest_in_block with Divide:
 // t = t_num / |det| as in _kernel_a) on the per-row operand

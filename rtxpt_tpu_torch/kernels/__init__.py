@@ -267,7 +267,8 @@ CLUSTER_SHADE = CudaLibrary(
         _P]})                          # cudaStream_t
 
 # K5: the clustered shadow any-hit kernel (replaces _kernel_b1 and
-# _kernel_b1_inst); wrapper bounce_clustered.occlusion.
+# _kernel_b1_inst); wrapper bounce_clustered.occlusion; its screen counters
+# bounce_clustered.occlusion_screen_stats.
 CLUSTER_SHADOW = CudaLibrary(
     "cluster_shadow", ["cluster_shadow.cu"],
     {"rtxpt_cluster_shadow": [
@@ -280,7 +281,15 @@ CLUSTER_SHADOW = CudaLibrary(
         _P, _P, _P, _P,                # cand, sh, blocks, xf
         _P, _P,                        # occ, tests|NULL
         _I, _I,                        # n_groups, kslots
-        _P]})                          # cudaStream_t
+        _P],                           # cudaStream_t
+     "rtxpt_cluster_shadow_screen_stats": [
+        _I, _P]})                      # enable, 3 host u64 | NULL
+
+# K5's entry functions by launch name (a part of each mangled name)
+CLUSTER_SHADOW_ENTRIES = {
+    "cluster_shadow": "cluster_shadow_kernelILb0ELb0E",
+    "cluster_shadow_omm": "cluster_shadow_kernelILb0ELb1E",
+    "cluster_shadow_inst": "cluster_shadow_kernelILb1ELb0E"}
 
 # K6 and K7: the per-row clustered kernels (replace rtxpt_tpu/pt/
 # bounce_clustered.py _kernel_a, closest hit and shading in one kernel,

@@ -43,9 +43,11 @@ their max_bounces.
 
 K3, K4 and K5 are CUDA kernels written by hand for Hopper
 (csrc/cluster_closest.cu, cluster_shade.cu, cluster_shadow.cu) and
-replace the TPU kernels `_kernel_a1`, `_kernel_a2` and `_kernel_b1`.
-Beside each is its plain PyTorch version (`*_reference`); the wrapper
-runs the kernel for CUDA tensors and the plain version for CPU tensors.
+replace the TPU kernels `_kernel_a1`, `_kernel_a2` and `_kernel_b1`. K3
+and K5 take the split-bf16 products on the tensor cores as a screen and
+resolve what passes in exact f32 (csrc/cluster_mma.cuh). Beside each
+is its plain PyTorch version (`*_reference`); the wrapper runs the
+kernel for CUDA tensors and the plain version for CPU tensors.
 
 Instanced cluster tables (accel/cluster.py build_cluster_tables_instanced)
 hold object-space prototype blocks, and the cull runs over the expanded
@@ -98,6 +100,8 @@ Choices against the JAX package (ROADMAP queue 3):
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 from torch.profiler import record_function
@@ -912,7 +916,11 @@ def occlusion(cand, sh, blocks, kslots: int, stats: bool = False, xf=None,
     """K5 (csrc/cluster_shadow.cu; `_kernel_b1_inst` with `xf`; its
     micromap variant with `micro` and `cover`, counted as
     "cluster_shadow_omm") for CUDA tensors, its plain version for CPU
-    tensors. Arguments and results as in `occlusion_reference`."""
+    tensors. Arguments and results as in `occlusion_reference`. The kernel
+    takes the split-bf16 products on the tensor cores as K3's screen and
+    resolves the pairs that pass it with the plain version's f32 sums and
+    strict test in triangle order, so its occ and test counts are the
+    plain version's."""
     dev = _device_of("occlusion", sh, cand, blocks,
                      *(() if xf is None else (xf,)),
                      *(() if micro is None else (micro, cover)))
@@ -929,6 +937,11 @@ def occlusion(cand, sh, blocks, kslots: int, stats: bool = False, xf=None,
     bf._check("sh", sh, torch.float32, (SH_ROWS, g * FL), dev)
     bf._check("blocks", blocks, torch.float32,
               (blocks.shape[0], CL.BLK_ROWS, CL.LANES), dev)
+    for what, x in (("blocks", blocks), ("xf", xf), ("omm_word", micro),
+                    ("omm_cov", cover)):
+        if x is not None and x.data_ptr() % 16:
+            raise ValueError(f"occlusion: {what} must be 16-byte aligned "
+                             "(the kernel copies it with cp.async)")
     occ = torch.empty((g * FL,), dtype=torch.float32, device=dev)
     tests = torch.zeros((g,), dtype=torch.int32, device=dev)
     if g:
@@ -944,6 +957,22 @@ def occlusion(cand, sh, blocks, kslots: int, stats: bool = False, xf=None,
                 kslots, torch.cuda.current_stream(dev).cuda_stream)
         kernels.launches[name + ("_omm" if micro is not None else "")] += 1
     return (occ, tests) if stats else occ
+
+
+def occlusion_screen_stats(device, enable: bool = True):
+    """K5's screen counters on CUDA `device`: returns dict(pairs, passed,
+    overflowed) counted by the launches since the last call (the pairs
+    the unoccluded lanes screened, 128 per lane and visit; those that
+    passed K3's screen; the per-ray lists that overflowed) and `share`
+    (passed / pairs, None without pairs), zeroes them, and sets whether
+    the later launches count. Synchronises the device."""
+    out = (ctypes.c_ulonglong * 3)()
+    with torch.cuda.device(device):
+        kernels.CLUSTER_SHADOW.launch("rtxpt_cluster_shadow_screen_stats",
+                                      int(enable), out)
+    pairs, passed, over = (int(v) for v in out)
+    return dict(pairs=pairs, passed=passed, overflowed=over,
+                share=passed / pairs if pairs else None)
 
 
 def shade(ha, fs, is_, tables, kcfg: bf.KernelConfig, sample_idx: int,

@@ -4,8 +4,9 @@ the Cornell box and the small scenes, K1's external modes and the shadow
 kernel K2 on the Cornell box and the rooms, K3, K4 and K5 on the small
 city of tests/test_torch_cluster.py (K3 held to
 bounce_clustered.closest_agreement, and the tensor-core instructions in
-each K3 variant's SASS), K3's and K5's instanced variants on
-the instanced city of tests/test_torch_instancing.py, and the general
+each K3 and K5 variant's SASS, K5's screen counters), K3's and K5's
+instanced variants on the instanced city of
+tests/test_torch_instancing.py, and the general
 tier's brute-force closest hit K8 and BVH walk K9 on the Cornell box, the
 rooms and that city, and the environment variants of K1 and K4 (has_env,
 final_env) with K4's export slots 3-5, on the sky Cornell box and the sky
@@ -265,15 +266,61 @@ def test_clustered_kernels_match_plain_versions(city, kslots):
         fs, is_ = plain[0], plain[1]
 
 
-@pytest.mark.parametrize("name", list(kernels.CLUSTER_CLOSEST_ENTRIES))
+TENSOR_CORE_VARIANTS = {
+    **{k: (kernels.CLUSTER_CLOSEST, v)
+       for k, v in kernels.CLUSTER_CLOSEST_ENTRIES.items()},
+    **{k: (kernels.CLUSTER_SHADOW, v)
+       for k, v in kernels.CLUSTER_SHADOW_ENTRIES.items()}}
+
+
+@pytest.mark.parametrize("name", list(TENSOR_CORE_VARIANTS))
 def test_k3_variants_use_the_tensor_cores(gpu, name):
-    """Each K3 variant's SASS has tensor-core instructions (HMMA or
+    """Each K3 and K5 variant's SASS has tensor-core instructions (HMMA or
     HGMMA): a build that computed the products on the f32 units fails."""
-    sass = kernels.CLUSTER_CLOSEST.sass_opcodes(kernels.TENSOR_OPCODES)
-    needle = kernels.CLUSTER_CLOSEST_ENTRIES[name]
+    lib, needle = TENSOR_CORE_VARIANTS[name]
+    sass = lib.sass_opcodes(kernels.TENSOR_OPCODES)
     counts = [c for fn, c in sass.items() if needle in fn]
     assert len(counts) == 1, sorted(sass)
     assert sum(counts[0].values()) > 0, counts[0]
+
+
+def test_k5_screen_counts_and_alignment(city):
+    """K5's screen counters see the pairs of a launch, and few of them
+    pass; a misaligned block table is refused (cp.async copies 16
+    bytes)."""
+    host, scene = city
+    tbl = scene.cluster_tables
+    dev = tbl.device
+    cfg = PathTracerConfig(max_bounces=2)
+    kcfg = bf.KernelConfig.from_cfg(cfg)
+    bounds = BC.scene_bounds(tbl)
+    fs, is_ = _state(host, cfg, 64, dev, 1)
+    src = torch.arange(fs.shape[1], dtype=torch.int32, device=dev)
+    fs, is_, src = BC.sort_wavefront(fs, is_, src, True, bounds)
+    cand, _ = BC.cull(fs[bf.FS_O:bf.FS_O + 3], fs[bf.FS_D:bf.FS_D + 3],
+                      is_[bf.IS_ACTIVE] > 0, cfg.max_ray_travel, tbl, 64)
+    ha = BC.closest_hit_reference(cand, BC.ray_operand(fs, is_), tbl.blocks,
+                                  64, cfg.max_ray_travel)
+    shp, _ = BC.sort_shadows(
+        BC.shade_reference(ha, fs, is_, tbl, kcfg, 1)[2], bounds)
+    dop = shp[BC.SH_DO] > 0.5
+    cand_s, _ = BC.cull(shp[BC.SH_O:BC.SH_O + 3], shp[BC.SH_D:BC.SH_D + 3],
+                        dop, torch.where(dop, shp[BC.SH_DIST], -3e38), tbl,
+                        64)
+    BC.occlusion_screen_stats(dev, True)
+    occ_k, tst_k = BC.occlusion(cand_s, shp, tbl.blocks, 64, stats=True)
+    counts = BC.occlusion_screen_stats(dev, False)
+    occ_p, tst_p = BC.occlusion_reference(cand_s, shp, tbl.blocks, 64,
+                                          stats=True)
+    assert torch.equal(occ_k, occ_p) and torch.equal(tst_k, tst_p)
+    assert counts["pairs"] >= int(tst_p.sum()) > 0, counts
+    assert 0 < counts["passed"] < 0.01 * counts["pairs"], counts
+    BC.occlusion(cand_s, shp, tbl.blocks, 64)
+    assert BC.occlusion_screen_stats(dev, False)["pairs"] == 0
+    flat = torch.empty(tbl.blocks.numel() + 1, device=dev)
+    shifted = flat[1:].view(tbl.blocks.shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        BC.occlusion(cand_s, shp, shifted, 64)
 
 
 def test_city_render_runs_through_k3_k4_k5(city):

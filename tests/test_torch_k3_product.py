@@ -10,9 +10,14 @@ superset of the slots a walk visits; the instanced ones in each slot's
 object frame): the split is exact, and the stacked products, summed in
 float64, equal the plain `_quantities` within the f32 rounding of its sums,
 and the kernel's screen on them passes every candidate the plain version
-finds valid. They also hold the measure that compares the kernel with its plain
-version on the card (`bounce_clustered.closest_agreement`) and the SASS
-count that shows the tensor cores (`kernels.count_sass`). No JAX: the
+finds valid. K5 (csrc/cluster_shadow.cu) takes the same products and
+screen: the "k5-" cases run these checks on its shadow requests' slots
+(tests/test_torch_k5_product.py `shadow_slots`: the small city, the
+instanced city and the 40 x 40 curtain), where the screen must pass every
+pair the plain strict any-hit test accepts. They also hold the measure
+that compares K3 with its plain version on the card
+(`bounce_clustered.closest_agreement`) and the SASS count that shows the
+tensor cores (`kernels.count_sass`). No JAX: the
 plain K3 is held to the JAX kernel in tests/test_torch_cluster.py and
 tests/test_torch_instancing.py."""
 
@@ -28,6 +33,8 @@ from rtxpt_tpu_torch.pt.integrator import _pixel_grid, camera_rays
 from rtxpt_tpu_torch.scene import procedural as TP
 
 DEPTH = 48               # the kernel's padded depth (40 used)
+# K3's visits, and K5's shadow-request slots
+CASES = ["city", "instanced", "k5-city", "k5-instanced", "k5-curtain"]
 U32 = 2.0 ** -24         # f32 unit roundoff
 SIDE = 32                # 1,024 camera rays: one group
 
@@ -113,13 +120,22 @@ def visits():
     return out
 
 
-@pytest.mark.parametrize("name", ["city", "instanced"])
-def test_residual_splits_into_two_exact_bf16_parts(visits, name):
+def _slots(request, name):
+    """[(hi, lo, blocks, ...)] of the case: K3's visits, or K5's slots
+    (hi, lo, blocks, dist, requested)."""
+    if name.startswith("k5-"):
+        import test_torch_k5_product as k5
+        return k5.shadow_slots(name[3:])
+    return request.getfixturevalue("visits")[name]
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_residual_splits_into_two_exact_bf16_parts(request, name):
     """l1 = bf16(r_lo) and l2 = r_lo - l1 are bf16-exact and l1 + l2 ==
     r_lo exactly, on every lane and slot; r_hi and the coefficient rows
     are bf16-exact, so every stacked operand is."""
     lanes = 0
-    for hi, lo, blk in visits[name]:
+    for hi, lo, blk, *_ in _slots(request, name):
         assert torch.equal(_bf16(blk[:, 0:20]), blk[:, 0:20])
         for h, r in zip(hi, lo):
             assert torch.isfinite(r).all()
@@ -133,14 +149,14 @@ def test_residual_splits_into_two_exact_bf16_parts(visits, name):
     assert lanes >= 4 * BC.FL
 
 
-@pytest.mark.parametrize("name", ["city", "instanced"])
-def test_stacked_products_equal_the_plain_quantities(visits, name):
+@pytest.mark.parametrize("name", CASES)
+def test_stacked_products_equal_the_plain_quantities(request, name):
     """The stacked coefficients are the block rows in the stacked order,
     and the stacked products summed in float64 equal the plain version's
     f32 sums within their rounding: |q_f32 - q_64| <= (n - 1) * 2^-24 *
     1.01 * sum |c * r| over the n = 3 x len(Q_ROWS[q]) products that it
     adds (the f64 sum of exact products is exact to 2^-53 relative)."""
-    for hi, lo, blk in visits[name]:
+    for hi, lo, blk, *_ in _slots(request, name):
         b = _stacked_coefficients(blk)
         for qn, rows in enumerate(BC.Q_ROWS):
             lanes = slice(qn * BC.CT, (qn + 1) * BC.CT)
@@ -172,25 +188,32 @@ def test_stacked_products_equal_the_plain_quantities(visits, name):
                                   atol=1e-14 * float(mag[:, qn].max()))
 
 
-@pytest.mark.parametrize("name", ["city", "instanced"])
-def test_screen_passes_every_valid_candidate(visits, name):
-    """K3's screen (csrc/cluster_closest.cu `screen`: |det| > 0, inside the
+@pytest.mark.parametrize("name", CASES)
+def test_screen_passes_every_valid_candidate(request, name):
+    """K3's screen (csrc/cluster_mma.cuh `screen`: |det| > 0, inside the
     edge margins widened 4x, any sign of t) on the stacked sums, rounded
     from float64 to f32 as an f32 accumulation of the exact products:
-    every candidate that the plain version finds valid passes it, so the
-    kernel's exact pass over the screened candidates picks the plain
-    version's winner; and it passes few of the pairs."""
+    every candidate that the plain version finds valid passes it (K3: the
+    closest-hit test with its margins; K5: the strict any-hit test at
+    0 < t < dist, on the lanes with a request), so the kernel's exact pass
+    over the screened candidates picks the plain version's winner or
+    first occluder; and it passes few of the pairs."""
     max_travel = PathTracerConfig().max_ray_travel
     screened = valid_n = pairs = 0
-    for hi, lo, blk in visits[name]:
+    for hi, lo, blk, *shadow in _slots(request, name):
         q = torch.einsum("gfk,gqkt->gqtf", _stacked_operand(hi, lo).double(),
                          _stacked_coefficients(blk).double()).float()
         absd, su, sv, _ = BC._signed(*q.unbind(1))
         w = 4 * BC.MARGIN * absd
         passed = (absd > 0) & (su >= -w) & (sv >= -w) & (su + sv <= absd
                                                           + w + w)
-        valid, _ = BC._select(*BC._signed(*BC._quantities(blk, hi, lo)),
-                              max_travel)
+        plain = BC._signed(*BC._quantities(blk, hi, lo))
+        if shadow:
+            dist, requested = shadow
+            valid = BC._strict_hit(*plain, dist[:, None]) \
+                & requested[:, None]
+        else:
+            valid, _ = BC._select(*plain, max_travel)
         assert not bool((valid & ~passed).any())
         screened += int(passed.sum())
         valid_n += int(valid.sum())

@@ -210,7 +210,8 @@ def build_cluster_blocks(positions, normals, indices, tri_material, lights,
     Triangles must already be Morton-ordered; `lights` is the baked
     LightList of the same triangle order. `tri_gidx` ([t], optional)
     overrides the exported triangle index AT_GIDX: the instanced build
-    passes pool ids."""
+    passes pool ids. None, as in the JAX package, when the radix cuts
+    make more than MAX_CLUSTERS clusters (the device block budget)."""
     positions = np.asarray(positions, np.float32)
     normals = np.asarray(normals, np.float32)
     indices = np.asarray(indices, np.int32)
@@ -243,9 +244,7 @@ def build_cluster_blocks(positions, normals, indices, tri_material, lights,
     offsets = radix_cut_offsets(morton_codes(cen), CT)
     n_clusters = len(offsets) - 1
     if n_clusters > MAX_CLUSTERS:
-        raise NotImplementedError(
-            f"{n_clusters} clusters: the device block budget holds "
-            f"{MAX_CLUSTERS}")
+        return None
     sizes = np.diff(offsets)
     slot_tri = offsets[:-1, None] + np.arange(CT)[None, :]    # [K,CT]
     slot_valid = (np.arange(CT)[None, :] < sizes[:, None])
@@ -457,23 +456,31 @@ def cluster_tables_from_numpy(blocks, aabb_lo, aabb_hi, mat_rows, light_rows,
         env=None if env_rows is None else f(env_table(env_rows)), **parts)
 
 
-def _check_served(materials, lights):
-    """Raise NotImplementedError, naming the feature, for what the
-    clustered tier does not serve: sphere or environment-quad lights
-    (the JAX package leaves them to the general tier), more than 128
-    materials."""
-    from rtxpt_tpu_torch.lighting.lights_baker import (
-        KIND_ENVQUAD, KIND_SPHERE)
+def unserved(materials, n_tris: int) -> list:
+    """What keeps a scene off the cluster tables, by name: the JAX
+    build_cluster_tables returns None for anisotropic materials, no
+    triangle, more than MAX_CLUSTERS clusters and more than 128 materials
+    (rtxpt_tpu/accel/cluster.py:392-394, :402-403); the general tier
+    takes such a scene. The count here is the JAX package's first one,
+    ceil(t / CT); the radix cuts (at least as many) decide after it, in
+    `build_cluster_blocks`, as they do there (:446-448). Empty when the
+    tables serve the scene."""
     from rtxpt_tpu_torch.pt.bounce_fused import MAX_MATERIALS
 
-    if np.any(np.isin(_np(lights.kind), [KIND_SPHERE, KIND_ENVQUAD])):
-        raise NotImplementedError("sphere and environment-quad lights: "
-                                  "the general tier samples them")
+    out = []
+    if float(np.max(_np(materials.anisotropy), initial=0.0)) > 0.0:
+        out.append("anisotropic materials (the general tier's anisotropic "
+                   "GGX)")
+    if n_tris == 0:
+        out.append("a scene without triangles")
+    if -(-n_tris // CT) > MAX_CLUSTERS:
+        out.append(f"{-(-n_tris // CT)} clusters (the device block budget "
+                   f"holds {MAX_CLUSTERS})")
     n_mats = len(_np(materials.base_color))
     if n_mats > MAX_MATERIALS:
-        raise NotImplementedError(
-            f"{n_mats} materials: the clustered tier takes at most "
-            f"{MAX_MATERIALS}")
+        out.append(f"{n_mats} materials (the kernel tables hold at most "
+                   f"{MAX_MATERIALS})")
+    return out
 
 
 def _tex_parts(textures, materials) -> dict:
@@ -492,32 +499,34 @@ def _tex_parts(textures, materials) -> dict:
 def build_cluster_tables(positions, normals, indices, tri_material,
                          materials, lights, uvs=None, envmap=None,
                          textures=None, device="cuda", tri_micromap=None,
-                         tri_cover=None) -> ClusterTables:
+                         tri_cover=None) -> Optional[ClusterTables]:
     """Bake the cluster tables of a flat, Morton-ordered scene onto
     `device` (the GPU by default; raises without one), with the
     environment table when the lights hold an environment light (`envmap`
     baked at 64 x 128), the texture tables of `textures` (a
     TextureAtlas) where the kernels' tables take it, and the micromap
     side table of `tri_micromap` / `tri_cover` ([t] each, scene/omm.py,
-    in the same triangle order). Raises
-    NotImplementedError, naming the feature,
-    for a scene the clustered tier does not serve (anisotropic materials,
-    sphere or environment-quad lights, more than 128 materials, no
-    triangle)."""
+    in the same triangle order). Returns None, as the JAX package does,
+    for a scene that `unserved` names or whose radix cuts pass the block
+    budget (prepare then leaves it to the general tier). Raises
+    NotImplementedError for sphere and environment-quad lights, which
+    prepare keeps out before it builds (`kernel_tables_serve`)."""
+    from rtxpt_tpu_torch.lighting.lights_baker import (
+        KIND_ENVQUAD, KIND_SPHERE)
     from rtxpt_tpu_torch.pt.bounce_fused import (
         lights_env_table, pack_lights, pack_materials)
 
-    if float(np.max(_np(materials.anisotropy), initial=0.0)) > 0.0:
-        raise NotImplementedError("anisotropic materials are not ported "
-                                  "to the clustered tier")
-    _check_served(materials, lights)
+    if np.any(np.isin(_np(lights.kind), [KIND_SPHERE, KIND_ENVQUAD])):
+        raise NotImplementedError("sphere and environment-quad lights: "
+                                  "the general tier samples them")
     t = len(indices)
-    if t == 0:
-        raise NotImplementedError("a scene without triangles: the "
-                                  "clustered tier takes >= 1 triangle")
+    if unserved(materials, t):
+        return None
     built = build_cluster_blocks(
         positions, normals, indices, tri_material, lights, uvs=uvs,
         tri_micromap=tri_micromap, tri_cover=tri_cover)
+    if built is None:
+        return None
     blocks, lo, hi, offsets = built[:4]
     omm = {}
     if tri_micromap is not None:
@@ -570,9 +579,8 @@ def build_cluster_tables_instanced(built, host, materials, lights,
     flip the facing test), anisotropic materials, sphere or
     environment-quad lights, an environment light whose map is not at the
     kernels' 64 x 128 (the two-level path bakes the source's own
-    resolution), more than `max_instances` instances or candidates past
-    the block budget. Raises NotImplementedError as `build_cluster_tables`
-    does for more than 128 materials."""
+    resolution), more than `max_instances` instances, more than 128
+    materials, a prototype past the block budget or candidates past it."""
     from rtxpt_tpu_torch.lighting.lights_baker import (
         KIND_ENVQUAD, KIND_SPHERE)
     from rtxpt_tpu_torch.pt.bounce_fused import (
@@ -586,15 +594,12 @@ def build_cluster_tables_instanced(built, host, materials, lights,
     n_proto = len(tri_base) - 1
     if n_inst == 0 or n_inst > max_instances:
         return None
-    if float(np.max(_np(materials.anisotropy), initial=0.0)) > 0.0:
-        return None
     used = np.unique(np.asarray(built["tri_material"], np.int64))
     if np.any(np.abs(_np(materials.emissive)[used]) > 0.0):
         return None
     if np.any(np.isin(_np(lights.kind), [KIND_SPHERE, KIND_ENVQUAD])) or \
             not env_table_serves(lights, envmap):
         return None
-    _check_served(materials, lights)
 
     pos = np.asarray(built["positions"], np.float32)
     nrm = np.asarray(built["normals"], np.float32)
@@ -608,10 +613,15 @@ def build_cluster_tables_instanced(built, host, materials, lights,
     for p in range(n_proto):
         t0, t1 = int(tri_base[p]), int(tri_base[p + 1])
         pidx = idx[t0:t1]
+        if unserved(materials, t1 - t0):
+            return None
         perm = morton_permutation(pos, pidx)
-        blocks, lo, hi, _ = build_cluster_blocks(
+        bake = build_cluster_blocks(
             pos, nrm, pidx[perm], mid[t0:t1][perm], lights, uvs=uv,
             tri_gidx=(t0 + perm).astype(np.int32))
+        if bake is None:
+            return None
+        blocks, lo, hi, _ = bake
         proto.append((blocks, lo, hi))
         block_base[p + 1] = block_base[p] + len(blocks)
 

@@ -52,9 +52,11 @@ import numpy as np
 import torch
 
 import rtxpt_tpu_torch
+from rtxpt_tpu_torch.accel import cluster
 from rtxpt_tpu_torch.accel.cluster import (
     build_cluster_tables, build_cluster_tables_instanced,
     cluster_tables_from_numpy, morton_permutation)
+from rtxpt_tpu_torch.pt import bounce_fused
 from rtxpt_tpu_torch.accel.lbvh import build_bvh
 from rtxpt_tpu_torch.accel.tlas import build_two_level
 from rtxpt_tpu_torch.lighting.envmap import bake_envmap
@@ -128,16 +130,21 @@ def _prepare_two_level(host: HostScene, built: dict, device,
                          env_quads=host.env_quad_lights, device=device)
     textures = _textures(host, device)
     cluster_tables = None
-    if sum(len(i.indices) for i in host.instances) > MAX_TRIS:
+    refusals = ()
+    n_world = sum(len(i.indices) for i in host.instances)
+    if n_world > MAX_TRIS:
         cluster_tables = build_cluster_tables_instanced(
             built, host, mats, lights, envmap=envmap, textures=textures,
             device=device)
+        if cluster_tables is None:
+            refusals = tuple(cluster.unserved(mats, n_world))
     has_prio = has_priorities(mats)
     return sd.replace(tlas=tl, envmap=envmap, tri_pack=tri_pack.to(device),
                       mat_pack=mat_pack.to(device), lights=lights,
                       cluster_tables=cluster_tables, textures=textures,
                       materials=mats.to(device) if textures is not None
-                      else mats, has_nested_priorities=has_prio)
+                      else mats, has_nested_priorities=has_prio,
+                      kernel_refusals=refusals)
 
 
 def _textures(host: HostScene, device):
@@ -255,13 +262,20 @@ def prepare(host: HostScene, device="cuda", instancing: str = "auto",
         sd = sd.replace(materials=sd.materials.to(device))
     if not kernel_tables_serve(lights, envmap):
         return sd
+    build = build_cluster_tables if clustered else build_bounce_tables
+    tables = build(*args, uvs=g.uvs.numpy(), envmap=envmap,
+                   textures=textures, device=device, **omm)
+    if tables is None:
+        # as in the JAX package (rtxpt_tpu/prepare.py:210-239): no kernel
+        # tables, and dispatch.resolve takes the general tier
+        refusals = (cluster if clustered else bounce_fused).unserved(
+            sd.materials, len(idx)) or [
+                f"more than {cluster.MAX_CLUSTERS} clusters (the device "
+                f"block budget)"]
+        return sd.replace(kernel_refusals=tuple(refusals))
     if clustered:
-        return sd.replace(cluster_tables=build_cluster_tables(
-            *args, uvs=g.uvs.numpy(), envmap=envmap, textures=textures,
-            device=device, **omm))
-    return sd.replace(bounce_tables=build_bounce_tables(
-        *args, uvs=g.uvs.numpy(), envmap=envmap, textures=textures,
-        device=device, **omm))
+        return sd.replace(cluster_tables=tables)
+    return sd.replace(bounce_tables=tables)
 
 
 def scene_from_numpy(tables: dict, lights=None, device="cuda",

@@ -51,7 +51,9 @@ injected rows (`pack_injection`) instead of the intersection loop, with
 per-lane bounce budgets in IS_BUDGET, and `first_direct=False` leaves the
 first vertex's direct light out. Sphere and environment-quad lights are
 the general tier's (`build_bounce_tables` raises NotImplementedError for
-them).
+them), and so are the scenes that `unserved` names (anisotropic or more
+than 128 materials), for which the builder returns None, as the JAX
+package's does.
 
 Layouts are the JAX package's, minus the TPU tiling: the wavefront state
 is fs [NF, N] f32 and is_ [NI, N] i32 (one column per ray; rows FS_* and
@@ -577,6 +579,26 @@ def lights_env_table(lights, envmap) -> Optional[np.ndarray]:
     return build_env_table(envmap, float(_np(lights.power)[lights.env_light]))
 
 
+def unserved(materials, n_tris: int) -> list:
+    """What keeps a scene off the fused bounce tables, by name: the JAX
+    build_bounce_tables returns None for anisotropic materials, 0 or more
+    than MAX_TRIS triangles and more than MAX_MATERIALS materials
+    (rtxpt_tpu/pt/bounce_pallas.py:424-426, :442-443); the general tier
+    takes such a scene. Empty when the tables serve it."""
+    out = []
+    if float(np.max(_np(materials.anisotropy), initial=0.0)) > 0.0:
+        out.append("anisotropic materials (the general tier's anisotropic "
+                   "GGX)")
+    if not 0 < n_tris <= MAX_TRIS:
+        out.append(f"{n_tris} triangles (the fused bounce kernel takes "
+                   f"1..{MAX_TRIS})")
+    n_mats = len(_np(materials.base_color))
+    if n_mats > MAX_MATERIALS:
+        out.append(f"{n_mats} materials (the kernel tables hold at most "
+                   f"{MAX_MATERIALS})")
+    return out
+
+
 def build_bounce_tables(positions, normals, indices, tri_material,
                         materials, lights, uvs=None, envmap=None,
                         textures=None, device="cuda", tri_micromap=None,
@@ -590,14 +612,12 @@ def build_bounce_tables(positions, normals, indices, tri_material,
     `tri_micromap` ([T] u32 level-2 micromap words, scene/omm.py, the
     TRANSPARENT triangles already dropped) and `tri_cover` ([T] f32) add
     the micromap row groups (7 per chunk, the JAX layout).
-    Raises
-    NotImplementedError, naming the feature, for a scene it does not
-    take: sphere and environment-quad lights (the JAX package leaves them
-    to the general tier), anisotropic materials, too many triangles or
-    materials."""
-    if float(np.max(_np(materials.anisotropy), initial=0.0)) > 0.0:
-        raise NotImplementedError("anisotropic materials are not ported "
-                                  "to the fused bounce kernel")
+    Returns None, as the JAX package does, for a scene that `unserved`
+    names (prepare then leaves it to the general tier). Raises
+    NotImplementedError for sphere and environment-quad lights, which
+    prepare keeps out before it builds (`kernel_tables_serve`)."""
+    if unserved(materials, len(indices)):
+        return None
     from rtxpt_tpu_torch.lighting.lights_baker import (
         KIND_ENVQUAD, KIND_SPHERE)
     if np.any(np.isin(_np(lights.kind), [KIND_SPHERE, KIND_ENVQUAD])):
@@ -609,14 +629,6 @@ def build_bounce_tables(positions, normals, indices, tri_material,
     indices = np.asarray(indices, np.int32)
     tri_material = np.asarray(tri_material, np.int32)
     t = len(indices)
-    n_mats = len(_np(materials.base_color))
-    if t == 0 or t > MAX_TRIS:
-        raise NotImplementedError(
-            f"{t} triangles: the fused bounce kernel takes 1..{MAX_TRIS}")
-    if n_mats > MAX_MATERIALS:
-        raise NotImplementedError(
-            f"{n_mats} materials: the fused bounce kernel takes at most "
-            f"{MAX_MATERIALS}")
 
     v0 = positions[indices[:, 0]]
     v1 = positions[indices[:, 1]]

@@ -41,7 +41,11 @@ NEE-AT with an environment light, sphere or environment-quad lights
 (prepare builds no bounce or cluster tables for the latter), and
 textures without stochastic filtering or past the atlas cap; a caller
 who pins "fused" or "clustered" for them gets NotImplementedError naming
-the feature.
+the feature. Likewise prepare builds no kernel tables, as the JAX
+package's builders return None, for anisotropic materials, more than 128
+materials or more clusters than the block budget
+(`SceneData.kernel_refusals` names them): "auto" takes "xla", a pinned
+kernel tier raises naming them.
 
 Alpha-tested geometry (`scene.tri_opacity`, the opacity micromaps of
 prepare) is served where the JAX package serves it
@@ -296,6 +300,11 @@ def resolve(scene, cfg, device, neeat_state=None, **call):
                 else kind
         elif tier != "xla" and kind != ("clustered" if tier == "clustered"
                                         else "fused"):
+            refused = getattr(scene, "kernel_refusals", ())
+            if kind == "xla" and refused:
+                raise NotImplementedError(
+                    f"the {tier} tier does not serve: " + ", ".join(refused)
+                    + " (prepare built no kernel tables)")
             names = dict(clustered="cluster", fused="bounce",
                          xla="BVH or TLAS")
             raise ValueError(f"kernel tier {tier!r} does not run a scene "

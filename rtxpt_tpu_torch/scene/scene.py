@@ -156,6 +156,10 @@ class SceneData:
     # 0; every tier then runs its false-hit rejection
     has_nested_priorities: bool = False
     tlas: Optional[object] = None            # tlas.TLAS (two-level scenes)
+    # what kept prepare from building kernel tables for the scene, by name
+    # (bounce_fused.unserved, cluster.unserved): a pinned kernel tier
+    # names them
+    kernel_refusals: tuple = ()
 
     def replace(self, **kw) -> "SceneData":
         return dataclasses.replace(self, **kw)

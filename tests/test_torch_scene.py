@@ -21,10 +21,11 @@ from rtxpt_tpu_torch.lighting.envmap import bake_envmap as t_bake_envmap
 from rtxpt_tpu_torch.lighting.lights_baker import bake_lights as t_bake_lights
 from rtxpt_tpu_torch.prepare import prepare, scene_from_numpy
 from rtxpt_tpu_torch.pt import bounce_fused as bf
+from rtxpt_tpu_torch.pt import dispatch
 from rtxpt_tpu_torch.pt.integrator import render
 from rtxpt_tpu_torch.scene import camera as tcam
 from rtxpt_tpu_torch.scene import procedural as TP
-from rtxpt_tpu_torch.scene.scene import LIGHT_SPHERE
+from rtxpt_tpu_torch.scene.scene import LIGHT_SPHERE, Materials
 
 SCENES = {
     "cornell": (JP.cornell_box, TP.cornell_box, {}),
@@ -244,13 +245,74 @@ def test_prepare_refuses_unported_features(case, monkeypatch):
         kw = dict(instancing="force")
     elif case == "too_many_tris":
         # above 2048 triangles the clustered tier takes the scene, up to
-        # its device block budget (shrunk here so a small scene passes it)
+        # its device block budget (shrunk here so a small scene passes
+        # it); past it the cluster builder returns None, as the JAX one,
+        # and the general tier takes the scene: "auto" resolves to it and
+        # a pinned clustered tier names the budget
         monkeypatch.setattr(cluster, "MAX_CLUSTERS", 0)
         inst = host.instances[0]
         inst.indices = np.tile(inst.indices, (bf.MAX_TRIS + 1, 1))
         inst.material = np.zeros(len(inst.indices), np.int32)
-    with pytest.raises(ValueError if case == "textures"
-                       else NotImplementedError,
-                       match="alpha-tested textures" if case == "textures"
-                       else None):
+        _assert_general_tier(prepare(host, device="cpu"), "clustered",
+                             "clusters")
+        return
+    with pytest.raises(ValueError, match="alpha-tested textures"):
         prepare(host, device="cpu", **kw)
+
+
+def _assert_general_tier(scene, tier, feature):
+    """No kernel tables: "auto" resolves to "xla", and `tier` pinned
+    raises NotImplementedError naming `feature`."""
+    assert scene.bounce_tables is None and scene.cluster_tables is None
+    assert scene.bvh is not None
+    assert dispatch.resolve(scene, PathTracerConfig(),
+                            "cpu").kernel_tier == "xla"
+    with pytest.raises(NotImplementedError,
+                       match=f"{tier} tier does not serve: .*{feature}"):
+        dispatch.resolve(scene, PathTracerConfig(kernel_tier=tier), "cpu")
+
+
+def _with_materials(m, n):
+    """Materials `m` padded to `n` with Materials.create's defaults."""
+    extra = Materials.create(n - m.base_color.shape[0])
+    return Materials(**{f.name: torch.cat([getattr(m, f.name),
+                                           getattr(extra, f.name)])
+                        for f in dataclasses.fields(m)})
+
+
+@pytest.mark.parametrize("tier", ["fused", "clustered"])
+@pytest.mark.parametrize("case", ["anisotropic", "materials"])
+def test_prepare_leaves_unserved_scenes_to_the_general_tier(case, tier):
+    """Anisotropic materials and more than 128 materials: the fused and
+    cluster builders return None, as the JAX package's do
+    (bounce_pallas.py:424-426, :442-443; accel/cluster.py:392-394,
+    :402-403), prepare builds no kernel tables, "auto" takes the general
+    tier and a pinned kernel tier raises naming the feature. The fused
+    case is the Cornell box, the clustered one the small city."""
+    host = (TP.cornell_box() if tier == "fused" else
+            TP.city_scene(tri_budget=4000, seed=1, blocks=2))
+    m = host.materials
+    if case == "anisotropic":
+        host.materials = m.replace(anisotropy=torch.where(
+            torch.arange(len(m.anisotropy)) == 0, 0.5, m.anisotropy))
+    else:
+        host.materials = _with_materials(m, bf.MAX_MATERIALS + 2)
+    if tier == "fused":
+        jh = JP.cornell_box()
+        jm = jh.materials
+        jm = (jm.replace(anisotropy=jm.anisotropy.at[0].set(0.5))
+              if case == "anisotropic" else
+              jm.replace(**{f.name: jnp.asarray(getattr(host.materials,
+                                                        f.name).numpy())
+                            for f in dataclasses.fields(host.materials)}))
+        jsd, jl = _jax_lights(jh)
+        g = jsd.geometry
+        assert bp.build_bounce_tables(
+            np.asarray(g.positions), np.asarray(g.normals),
+            np.asarray(g.indices), np.asarray(g.tri_material), jm, jl,
+            uvs=np.asarray(g.uvs)) is None
+    scene = prepare(host, device="cpu")
+    assert (scene.geometry.num_triangles > bf.MAX_TRIS) == (
+        tier == "clustered")
+    _assert_general_tier(scene, tier, "anisotropic" if case == "anisotropic"
+                         else f"{bf.MAX_MATERIALS + 2} materials")

@@ -15,7 +15,9 @@ on the CPU: the same numpy-seeded inputs through both packages.
     package's xla tier: (a) Cornell 16x16, 2 spp, 2 bounces, power NEE,
     the brute force with fused shadows; (b) the same with BRUTE_MAX_TRIS
     lowered to 16 in both packages, so the BVH walk and the any-hit
-    shadow queries run; (c) NEE-AT with WRS over K = 2 candidates on
+    shadow queries run; (a') (a) with material 0 anisotropic, which
+    prepare leaves to the general tier (the port's config unpinned); (c)
+    NEE-AT with WRS over K = 2 candidates on
     rooms_scene(4), 24x16, 2 spp through render_adaptive. Limits: >= 99%
     of pixels within rtol = atol = 2e-3, image means within 1e-3
     relative, ray counts and per-bounce occupancy equal (and (c)'s final
@@ -246,13 +248,14 @@ def _images_agree(got, want, what):
     assert rel <= MEAN_RTOL, (what, rel)
 
 
-def _render_pair(jh, th, cfg_kw, w, h, spp):
+def _render_pair(jh, th, cfg_kw, w, h, spp, pin=True):
     """(JAX hdr, rays, occupancy of sample 0) and the port's, through
-    render with kernel_tier="xla"."""
+    render with kernel_tier="xla" (the port's "auto" without `pin`, which
+    must resolve to it)."""
     js, ts = j_prepare(jh), prepare(th, device="cpu")
     jcfg = JConfig(kernel_tier="xla", **{
         k: (JNEE(v.value) if k == "nee" else v) for k, v in cfg_kw.items()})
-    tcfg = TConfig(kernel_tier="xla", **cfg_kw)
+    tcfg = TConfig(kernel_tier="xla" if pin else "auto", **cfg_kw)
     jcam, tcam = JP.default_camera(jh, w, h), TP.default_camera(th, w, h)
     jimg, _, jrays = jint.render(js, jcam, jcfg, w, h, spp=spp)
     jocc = jint.render_sample_jit(js, jcam, jcfg, w, h, jnp.uint32(0))
@@ -266,18 +269,29 @@ def _render_pair(jh, th, cfg_kw, w, h, spp):
 RENDERS = {
     "brute_fused_shadows": dict(max_bounces=2, nee=TNEE.POWER),
     "bvh_walk": dict(max_bounces=2, nee=TNEE.POWER),
+    "anisotropic": dict(max_bounces=2, nee=TNEE.POWER),
 }
 
 
 @pytest.mark.parametrize("case", list(RENDERS))
 def test_render_matches_jax_xla_tier(case):
+    """(anisotropic: material 0 at anisotropy 0.5 in both packages; the
+    port's prepare builds no kernel tables for it, as the JAX one, and
+    its unpinned render takes the general tier.)"""
+    jh, th = JP.cornell_box(), TP.cornell_box()
+    if case == "anisotropic":
+        jm, tm = jh.materials, th.materials
+        jh.materials = jm.replace(anisotropy=jm.anisotropy.at[0].set(0.5))
+        th.materials = tm.replace(anisotropy=torch.where(
+            torch.arange(len(tm.anisotropy)) == 0, 0.5, tm.anisotropy))
     with pytest.MonkeyPatch.context() as mp:
         if case == "bvh_walk":
             mp.setattr(jbrute, "BRUTE_MAX_TRIS", 16)
             mp.setattr(tbrute, "BRUTE_MAX_TRIS", 16)
         (jimg, jrays, jocc), (timg, trays, tocc), ts = _render_pair(
-            JP.cornell_box(), TP.cornell_box(), RENDERS[case], 16, 16, 2)
+            jh, th, RENDERS[case], 16, 16, 2, pin=case != "anisotropic")
     assert (ts.bvh.brute is None) == (case == "bvh_walk")
+    assert (ts.bounce_tables is None) == (case == "anisotropic")
     _images_agree(timg, jimg, case)
     assert trays == jrays
     np.testing.assert_array_equal(tocc, jocc)

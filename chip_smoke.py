@@ -12,7 +12,8 @@ Phases, one or a few lines of output each:
                 csrc with nvcc, one process per source, all at once;
                 seconds, registers, spills; the tensor-core instructions
                 (HMMA, HGMMA) in the SASS of K3's and K5's three variants
-                each (cuobjdump -sass), which must be more than 0 in each.
+                each and of K6's two instantiations and K7 (cuobjdump
+                -sass), which must be more than 0 in each.
   3. k1      -- one launch of the fused bounce kernel (K1) against its plain
                 PyTorch version on the same 65,536 Cornell camera rays, at
                 bounce 0 and at bounce 2 (Russian roulette on): integer rows
@@ -267,15 +268,18 @@ Phases, one or a few lines of output each:
                 operations of the pairs its rows test), with registers
                 and spills; on the city K6 against K3 at one page plus K4
                 on the same lists and launch, K7 against K5, and the
-                lanes whose winner differs from K3's. (c) The three
-                cities at 1920x1080, 4 bounces, power NEE, kslots 64, one
-                chunk, 1 warm-up and 2 timed samples through render_sample:
-                K6 bounces x spp (plus `_final` spp with the sky) and K7
+                lanes whose winner differs from K3's; the lanes that
+                differ bit-wise from the plain versions in (a), each
+                kernel's screen pass share (`rows_screen_stats`), its
+                shared memory and its CUDA-core predecessor's times
+                beside its own. (c) The three cities at 1920x1080, 4
+                bounces, power NEE, kslots 64, one chunk, 1 warm-up and
+                2 timed samples through render_sample: K6 bounces x spp (plus `_final` spp with the sky) and K7
                 bounces x spp launches, cull_overflow, a finite lit image,
                 sample 1's RMSE and share of equal pixels against the flat
                 route at 1 page and at its default 2 pages (each timed),
                 and one profiled city frame (sort, cull, K6, K7, the
-                rest, idle).
+                rest, idle; K6's and K7's shares and time per launch).
   17. split  -- the split channels and the aux guide buffers. (a) All
                 sixteen instantiations of K1 (curtain Cornell box) and of
                 K4 (its 40 x 40 grid, K3's hits) -- texture, micromap,
@@ -445,8 +449,8 @@ UNKNOWN_SHARE = 0.01         # lanes on a MIXED triangle, an UNKNOWN cell
 
 
 def _share(screen):
-    """K5's screen pass share (bounce_clustered.occlusion_screen_stats) as
-    text."""
+    """A screen's pass share (bounce_clustered.occlusion_screen_stats or
+    rows_screen_stats) as text."""
     share = screen["share"]
     return "not measured (no pairs)" if share is None else f"{share:.5%}"
 
@@ -511,6 +515,22 @@ def _ptxas_summary(log):
     return dict(registers=max(map(int, regs)) if regs else None,
                 spill_store_bytes=max(map(int, spill_st)) if spill_st else None,
                 spill_load_bytes=max(map(int, spill_ld)) if spill_ld else None)
+
+
+def _lanes_differ(kernel_rows, plain_rows):
+    """The lanes [N] where any row of a kernel's outputs (a list of [R, N]
+    tensors) differs bit-wise from its plain version's (NaN matches NaN)."""
+    import torch
+    bad = None
+    for k, p in zip(kernel_rows, plain_rows):
+        if k.dtype.is_floating_point:
+            same = (k.view(torch.int32) == p.view(torch.int32)) | (
+                torch.isnan(k) & torch.isnan(p))
+        else:
+            same = k == p
+        lanes = ~same.all(0)
+        bad = lanes if bad is None else bad | lanes
+    return int(bad.sum())
 
 
 def _compare(kernel_rows, plain_rows, int_eq):
@@ -604,17 +624,21 @@ def main(record_path=None, group_path=None):
               f"{ptxas['spill_load_bytes']} B", flush=True)
     print(f"build: {len(kernels.LIBRARIES)} libraries in "
           f"{built['wall']:.1f}s wall", flush=True)
-    # K3 and K5 take their products on the tensor cores: HMMA (mma.sync)
-    # or HGMMA (wgmma) in the SASS of each variant
-    for label, lib, entries in (
-            ("K3", kernels.CLUSTER_CLOSEST, kernels.CLUSTER_CLOSEST_ENTRIES),
-            ("K5", kernels.CLUSTER_SHADOW, kernels.CLUSTER_SHADOW_ENTRIES)):
+    # K3, K5, K6 and K7 take their products on the tensor cores: HMMA
+    # (mma.sync) or HGMMA (wgmma) in the SASS of each variant
+    for label, key, lib, entries in (
+            ("K3", "k3", kernels.CLUSTER_CLOSEST,
+             kernels.CLUSTER_CLOSEST_ENTRIES),
+            ("K5", "k5", kernels.CLUSTER_SHADOW,
+             kernels.CLUSTER_SHADOW_ENTRIES),
+            ("K6 and K7", "k6_k7", kernels.CLUSTER_ROWS,
+             kernels.CLUSTER_ROWS_ENTRIES)):
         sass = lib.sass_opcodes(kernels.TENSOR_OPCODES)
         tc = {}
         for name, needle in entries.items():
             counts = [c for fn, c in sass.items() if needle in fn]
             tc[name] = counts[0] if len(counts) == 1 else None
-        record["build"][f"{label.lower()}_tensor_ops"] = tc
+        record["build"][f"{key}_tensor_ops"] = tc
         print(f"build: {label} tensor-core instructions in SASS: "
               f"{json.dumps(tc)}", flush=True)
         if not all(c and sum(c.values()) > 0 for c in tc.values()):
@@ -3989,6 +4013,19 @@ ROWS_CITIES = (               # phase 16: label, city_scene switches, STF
      True))
 ROWS_RANGES = ("sort", "cull")
 ROWS_KERNELS = (("k6", "closest_shade_kernel"), ("k7", "shadow_rows_kernel"))
+# K6's and K7's times at the 1080p bounce-0 launches before their redesign
+# for the tensor cores (CUDA cores, one 128-thread block per row: PERF.md's
+# K6 and K7 rows, on "NVIDIA H100 80GB HBM3, 700.00 W"), printed beside
+# this run's
+ROWS_BEFORE_MS = {"cluster_rows_closest_shade": "4.581-4.711",
+                "cluster_rows_closest_shade_env": "4.663-4.766",
+                "cluster_rows_closest_shade_tex_env": "4.862-4.902",
+                "cluster_rows_closest_shade_final": "4.226-4.345",
+                "cluster_rows_shadow": "6.965-7.092"}
+# their dynamic shared memory per block, as csrc/cluster_rows.cu lays it
+# out (K6: A 512 x 96 B, B tile 13,520 B, ring 2 x 41,904 B, lists 512 x
+# 16 B; K7: K5's with a ring without coverages)
+ROWS_DYN_SMEM = {"k6": 154_672, "k7": 212_016}
 K3_WINNER_FLOATS = 42         # a winner's attribute, center, edge rows
 K6_FINAL_WINNER_FLOATS = 14   # K6's final round: center, edges, valid, gidx
 SAVED_GROUPS = 8              # --diverged-group: ray groups saved
@@ -4012,7 +4049,12 @@ def _per_row(record, dev, smi, dump, city_prepared, group_path=None):
     counts (K6 bounces x spp, its `_final` spp with an environment, K7
     bounces x spp), cull_overflow, a finite lit image, its sample-1 RMSE
     against the flat route at cluster_pages=1 and at the default 2
-    pages, and one profiled city frame. With `group_path`, the city's
+    pages, and one profiled city frame (K6's and K7's shares of its
+    device time and their time per launch over it). The lanes that differ
+    bit-wise from the plain versions, the screens' pass shares, shared
+    memory and the CUDA-core kernels' times are printed beside (a) and
+    (b). With
+    `group_path`, the city's
     1080p bounce-0 groups with the most lanes whose K6 winner differs
     from K3's are saved there (`_save_group`). Returns dict(entries={name:
     kernel-line entry})."""
@@ -4088,6 +4130,7 @@ def _per_row(record, dev, smi, dump, city_prepared, group_path=None):
             shs, e2 = _compare(dict(sh=kern[2]), dict(sh=plain[2]),
                                (kern[1] == plain[1]).all(0))
             s.update(worst_sh_row=shs["worst_float_row"],
+                     lanes_differ=_lanes_differ(kern[:4], plain[:4]),
                      visits_equal=bool(torch.equal(kern[4], plain[4])),
                      row_visits=int(plain[4].sum()),
                      hit_share=float((plain[3][1] >= 0).float().mean()))
@@ -4103,6 +4146,7 @@ def _per_row(record, dev, smi, dump, city_prepared, group_path=None):
         torch.cuda.synchronize()
         out[k7n] = dict(occ_lanes_equal=float((occ_k == occ_p).float()
                                               .mean()),
+                        lanes_differ=int((occ_k != occ_p).sum()),
                         tests_equal=bool(torch.equal(tst_k, tst_p)),
                         requests=int((shp[BC.SH_DO] > 0.5).sum()),
                         tests=int(tst_p.sum()))
@@ -4113,12 +4157,14 @@ def _per_row(record, dev, smi, dump, city_prepared, group_path=None):
         print(f"per_row {label} bounce {b} ({rows}): " + "; ".join(
             f"{k} int lanes {v['int_lanes_equal']:.6f}, worst float row "
             f"{min(v['worst_float_row'], v['worst_sh_row']):.6f}, L mean "
-            f"rel {v['L_mean_rel']:.3g}, visits equal {v['visits_equal']} "
+            f"rel {v['L_mean_rel']:.3g}, {v['lanes_differ']} lanes differ "
+            f"bit-wise, visits equal {v['visits_equal']} "
             f"({v['row_visits']} row visits), hit share "
             f"{v['hit_share']:.4f}" for k, v in out.items() if k != k7n)
             + f"; K7 occlusion equal {out[k7n]['occ_lanes_equal']:.6f} over "
-            f"{out[k7n]['requests']} requests, tests equal "
-            f"{out[k7n]['tests_equal']}", flush=True)
+            f"{out[k7n]['requests']} requests ({out[k7n]['lanes_differ']} "
+            f"lanes differ), tests equal {out[k7n]['tests_equal']}",
+            flush=True)
         ok = all(_state_ok(v) and v["worst_sh_row"] >= LANE_FRACTION
                  and v["visits_equal"] for v in k6s) \
             and out[k7n]["occ_lanes_equal"] >= LANE_FRACTION \
@@ -4246,8 +4292,10 @@ def _per_row(record, dev, smi, dump, city_prepared, group_path=None):
             od = BC.ray_operand(fs, is_)
             ha3, visits3 = BC.closest_hit(cand, od, tbl.blocks, kslots, mt,
                                           stats=True)
+            BC.rows_screen_stats(dev, True)
             _, _, sh, hit6, visited6 = BC.closest_shade(
                 cand, fs, is_, tbl, kcfg, sample, kslots, mt, stats=True)
+            screen6 = BC.rows_screen_stats(dev, False)["closest"]
             # winners that differ from K3's on the same lists: near-ties
             # that the per-row operand and the division round otherwise
             act = is_[bf.IS_ACTIVE] > 0
@@ -4260,7 +4308,7 @@ def _per_row(record, dev, smi, dump, city_prepared, group_path=None):
                           active=int(act.sum()),
                           hit_by_one_only=int(one.sum()),
                           max_rel_t_both_hit=float(rel[both].max())
-                          if both.any() else 0.0)
+                          if both.any() else 0.0, screen=screen6)
             for name in names:
                 final = name.endswith("_final")
                 bounds[name], launch[name] = k6_bound(
@@ -4278,7 +4326,8 @@ def _per_row(record, dev, smi, dump, city_prepared, group_path=None):
                   f"{l6['active']} active lanes keep another winner than K3 "
                   f"({l6['hit_by_one_only']} of them a hit in one kernel "
                   f"only; t within {l6['max_rel_t_both_hit']:.3g} relative "
-                  f"where both hit)", flush=True)
+                  f"where both hit); K6's screen passes "
+                  f"{_share(screen6)} of its pairs", flush=True)
             for name in names:
                 final = name.endswith("_final")
                 ms[name] = _cuda_ms(lambda: BC.closest_shade(
@@ -4299,8 +4348,10 @@ def _per_row(record, dev, smi, dump, city_prepared, group_path=None):
             mega["k7"] = ms[k7n]
             mega["k5"] = _cuda_ms(lambda: BC.occlusion(
                 cand_s, shp, tbl.blocks, kslots), 3)
+            BC.rows_screen_stats(dev, True)
             _, tests = BC.occlusion_rows(cand_s, shp, tbl.blocks, kslots,
                                          stats=True)
+            screen7 = BC.rows_screen_stats(dev, False)["shadow"]
             g = cand_s.shape[0]
             slots = torch.arange(kslots, device=dev)[None]
             k7_blocks = int(torch.unique(cand_s[:, 0, 1:1 + kslots][
@@ -4311,7 +4362,8 @@ def _per_row(record, dev, smi, dump, city_prepared, group_path=None):
                 + STAGED_BLOCK_BYTES * k7_blocks, f32=pairs7 * K5_PAIR_F32,
                 tf32=pairs7 * PAIR_TF32, bf16=pairs7 * PAIR_BF16)
             launch[k7n] = dict(groups=g, blocks=k7_blocks, pairs=pairs7,
-                               requests=int((shp[BC.SH_DO] > 0.5).sum()))
+                               requests=int((shp[BC.SH_DO] > 0.5).sum()),
+                               screen=screen7)
             pshp, _, pcand_s = cull_shadow(
                 tbl, BC.closest_shade_reference(
                     pcand, pfs, pis, tbl, kcfg, sample, kslots, mt)[2],
@@ -4325,7 +4377,8 @@ def _per_row(record, dev, smi, dump, city_prepared, group_path=None):
                   f"K6 {mega['k6']:.4f} ms against K3 (one page) "
                   f"{mega['k3']:.4f} + K4 {mega['k4']:.4f} = "
                   f"{mega['k3_plus_k4']:.4f} ms; K7 {mega['k7']:.4f} ms "
-                  f"against K5 {mega['k5']:.4f} ms ({smi})", flush=True)
+                  f"against K5 {mega['k5']:.4f} ms; K7's screen passes "
+                  f"{_share(screen7)} of its pairs ({smi})", flush=True)
         libs_log = kernels.CLUSTER_ROWS.ptxas_log
         ptxas = {name: _ptxas_entry(
             libs_log, "shadow_rows_kernel" if name == k7n else
@@ -4334,15 +4387,22 @@ def _per_row(record, dev, smi, dump, city_prepared, group_path=None):
         rec.update(ms=ms, plain_ms=plain_ms, bounds=bounds, launch=launch,
                    ptxas=ptxas)
         for name in ms:
+            ptxas[name]["dynamic_smem"] = ROWS_DYN_SMEM[
+                "k7" if name == k7n else "k6"]
             terms = ", ".join(f"{k} {v:.4f}"
                               for k, v in bounds[name][2].items())
             print(f"per_row {name}: kernel {ms[name]:.4f} ms at the 1080p "
-                  f"bounce-0 launch, plain {plain_ms[name]:.4f} ms at 64 "
+                  f"bounce-0 launch (the CUDA-core kernel before it "
+                  f"{ROWS_BEFORE_MS[name]} ms, PERF.md), "
+                  f"{bounds[name][0] / ms[name]:.1%} of its bound, plain "
+                  f"{plain_ms[name]:.4f} ms at 64 "
                   f"groups, bound {bounds[name][0]:.4f} ms "
                   f"({bounds[name][1]}; ms by term: {terms}), "
                   f"{ptxas[name]['registers']} registers, spills "
                   f"{ptxas[name]['spill_store_bytes']}/"
-                  f"{ptxas[name]['spill_load_bytes']} B ({smi})", flush=True)
+                  f"{ptxas[name]['spill_load_bytes']} B, "
+                  f"{ptxas[name]['dynamic_smem']} B of dynamic shared "
+                  f"memory per block ({smi})", flush=True)
         dump()
 
         # (c) the three 1080p per-row frames
@@ -4425,6 +4485,7 @@ def _per_row(record, dev, smi, dump, city_prepared, group_path=None):
             if label != "city":
                 continue
             from torch.profiler import ProfilerActivity, profile
+            kernels.launches.clear()
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
@@ -4433,8 +4494,19 @@ def _per_row(record, dev, smi, dump, city_prepared, group_path=None):
                 wall = (time.perf_counter() - t0) * 1e3
             p["split"], p["profile_table"] = _split(
                 prof, wall, ranges=ROWS_RANGES, kernel_parts=ROWS_KERNELS)
+            sp = p["split"]
+            n6 = kernels.launches[k6_name(tbl, kcfg)]
+            n7 = kernels.launches[k7n]
+            busy = sp["device_busy"]
+            sp.update(k6_share=sp["k6"] / busy, k7_share=sp["k7"] / busy,
+                      k6_ms_per_launch=sp["k6"] / n6,
+                      k7_ms_per_launch=sp["k7"] / n7)
             print(f"per_row city split (one profiled frame, ms): "
-                  f"{json.dumps(p['split'])} ({smi})", flush=True)
+                  f"{json.dumps(sp)}; K6 {sp['k6_share']:.1%} and K7 "
+                  f"{sp['k7_share']:.1%} of the device time, per launch "
+                  f"over the frame K6 {sp['k6_ms_per_launch']:.4f} ms ({n6} "
+                  f"launches), K7 {sp['k7_ms_per_launch']:.4f} ms ({n7}) "
+                  f"({smi})", flush=True)
     finally:
         BC.FLAT = True
     rec["seconds"] = time.perf_counter() - t_phase

@@ -1,9 +1,10 @@
 // The tensor-core form of the clustered tier's candidate tests, shared by K3
-// (cluster_closest.cu, closest hit) and K5 (cluster_shadow.cu, shadow any
-// hit): the cp.async ring that brings each slot's f32 rows into shared
-// memory, the bf16 tile of the coefficient rows det, u and v read, the
-// lane's stacked split-bf16 A row, the ldmatrix and mma.sync wrappers, the
-// screen on the products and the exact read-back of the operand.
+// (cluster_closest.cu, closest hit), K5 (cluster_shadow.cu, shadow any
+// hit) and the per-row K6 and K7 (cluster_rows.cu): the cp.async ring that
+// brings each slot's f32 rows into shared memory, the bf16 tile of the
+// coefficient rows det, u and v read, the lane's stacked split-bf16 A row,
+// the ldmatrix and mma.sync wrappers, the screen on the products and the
+// exact read-back of the operand.
 //
 // The product form. The coefficients are bf16-exact (accel/cluster.py
 // stores c_hi and c_lo = bf16(c - c_hi)) and so is r_hi = bf16(r). The f32
@@ -180,10 +181,11 @@ __device__ __forceinline__ void write_a_row(uint4* arow, const float* hi,
 
 // Convert the staged f32 rows det, u and v read (c_hi and c_lo of
 // components 0-5) of ring slot `cur` to the bf16 tile `bt` (rows c_hi
-// 0..5, then c_lo 0..5; row ZERO_ROW stays zero), thread `l` of FL.
+// 0..5, then c_lo 0..5; row ZERO_ROW stays zero), thread `l` of NTH.
+template <int NTH = FL>
 __device__ __forceinline__ void convert_tile(__nv_bfloat16* bt, const float* cur,
                                              int l) {
-  for (int k = l; k < 2 * TILE_COMPS * LANES / 4; k += FL) {
+  for (int k = l; k < 2 * TILE_COMPS * LANES / 4; k += NTH) {
     const int row = k >> 7;  // tile row: c_hi 0..5, then c_lo 0..5
     const int src = row < TILE_COMPS ? row : row - TILE_COMPS + 10;
     const float4 v = reinterpret_cast<const float4*>(cur + src * LANES)[k & 127];
@@ -192,17 +194,83 @@ __device__ __forceinline__ void convert_tile(__nv_bfloat16* bt, const float* cur
   }
 }
 
+// The ldmatrix row addresses of a warp's tiles and of the B tile's rows:
+// the A rows of this thread's matrix slot, and each quantity's B rows (u
+// and v share theirs, 128 columns apart).
+struct Frag {
+  uint32_t a, det, u;
+};
+
+__device__ __forceinline__ Frag frag_addrs(const __nv_bfloat16* at,
+                                           const __nv_bfloat16* bt, int warp,
+                                           int lane) {
+  const int mslot = lane >> 3, mr = lane & 7;
+  Frag f;
+  f.a = smem_u32(at + (size_t)(warp * 32 + mr + 8 * (mslot & 1)) * KQ + 8 * (mslot >> 1));
+  f.det = smem_u32(bt + tile_row(0, lane & 15) * B_STRIDE + 0 * CT);
+  f.u = smem_u32(bt + tile_row(1, lane) * B_STRIDE + 1 * CT);
+  return f;
+}
+
+// The products and the screen of one 16-ray tile `mt` of a warp: A
+// fragments by ldmatrix from `a_addr`, per chunk of 8
+// triangles B fragments by ldmatrix.trans and 5 mma.sync; a triangle that
+// passes `screen` joins the thread's list for its ray r (accumulators
+// e / 2 == r), in increasing triangle order, and cnt[r] counts them all
+// (past LIST the list keeps its first LIST).
+__device__ __forceinline__ void screen_tile(uint32_t a_addr, uint32_t b_det,
+                                            uint32_t b_u, int mt, int q,
+                                            uint8_t* list, int (&cnt)[2]) {
+  const uint32_t b_v = b_u + CT * 2;
+  uint32_t a[2][4];
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks) ldsm_x4(a[ks], a_addr + (mt * 16 * KQ + ks * 16) * 2);
+  cnt[0] = cnt[1] = 0;
+#pragma unroll 1
+  for (int ch = 0; ch < CHUNKS; ++ch) {
+    const uint32_t off = ch * 16;  // 8 bf16 columns
+    uint32_t bd[2], bu[4], bv[4];
+    ldsm_x2_t(bd, b_det + off);
+    ldsm_x4_t(bu, b_u + off);
+    ldsm_x4_t(bv, b_v + off);
+    float qd[4] = {0.0f, 0.0f, 0.0f, 0.0f}, qu[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    float qv[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    mma_bf16(qd, a[0], bd[0], bd[1]);
+    mma_bf16(qu, a[0], bu[0], bu[1]);
+    mma_bf16(qu, a[1], bu[2], bu[3]);
+    mma_bf16(qv, a[0], bv[0], bv[1]);
+    mma_bf16(qv, a[1], bv[2], bv[3]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (screen(qd[e], qu[e], qv[e])) {
+        const int r = e >> 1;
+        if (cnt[r] < LIST) list[r * LIST + cnt[r]] = (uint8_t)(ch * 8 + 2 * q + (e & 1));
+        ++cnt[r];
+      }
+    }
+  }
+}
+
+// Triangle c of a thread's screened candidates for one ray: its list's
+// entry c, or, when the list overflowed (cnt > LIST), the thread's c-th
+// triangle of all 32 it holds (thread q of a quad holds the j with
+// (j >> 1) & 3 == q). `listed_count` gives how many there are.
+__device__ __forceinline__ int listed_count(int cnt) { return cnt <= LIST ? cnt : CT / 4; }
+__device__ __forceinline__ int listed(const uint8_t* list, int cnt, int c, int q) {
+  return cnt <= LIST ? (int)list[c] : (c >> 1) * 8 + 2 * q + (c & 1);
+}
+
 // Issue the cp.async copies of slot data into one ring slot: rows 0..19 of
 // cluster `cid`'s block, its center, its micromap words (OMM) and their
-// coverages (OMM and COVER) or instance `iid`'s M10 (INST). The caller
-// commits.
-template <bool INST, bool OMM, bool COVER>
+// coverages (OMM and COVER) or instance `iid`'s M10 (INST), thread `l` of
+// NTH (at least 128). The caller commits.
+template <bool INST, bool OMM, bool COVER, int NTH = FL>
 __device__ __forceinline__ void stage_async(float* slot, const float* blocks,
                                             const int* micro, const float* cover,
                                             const float* xf, int cid, int iid, int l) {
   using RG = Ring<COVER>;
   const float* src = blocks + (size_t)cid * BLK_FLOATS;
-  for (int k = l; k < COEF_ROWS * LANES / 4; k += FL)
+  for (int k = l; k < COEF_ROWS * LANES / 4; k += NTH)
     cp_async16(slot + 4 * k, src + 4 * k);
   if (l < 3) cp_async4(slot + RG::CEN + l, src + CENTER_ROW * LANES + l * CT);
   if constexpr (OMM) {

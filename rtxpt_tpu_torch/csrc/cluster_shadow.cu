@@ -128,13 +128,7 @@ cluster_shadow_kernel(const int* __restrict__ cand, const float* __restrict__ sh
   // as K3's
   const int wrow = warp * 32 + (q >> 1) * 16 + g + 8 * (q & 1);
   uint4* const arow = reinterpret_cast<uint4*>(at + (size_t)wrow * KQ);
-  const int mslot = lane >> 3, mr = lane & 7;
-  const uint32_t a_addr =
-      smem_u32(at + (size_t)(warp * 32 + mr + 8 * (mslot & 1)) * KQ + 8 * (mslot >> 1));
-  const uint32_t b_det =
-      smem_u32(bt + tile_row(0, lane & 15) * B_STRIDE + 0 * CT);
-  const uint32_t b_u = smem_u32(bt + tile_row(1, lane) * B_STRIDE + 1 * CT);
-  const uint32_t b_v = b_u + CT * 2;
+  const Frag fr = frag_addrs(at, bt, warp, lane);
   uint8_t* const list = smem + LIST_BASE + l * 2 * LIST;
   if (l < LANES / 8)
     reinterpret_cast<uint4*>(bt + ZERO_ROW * B_STRIDE)[l] = make_uint4(0, 0, 0, 0);
@@ -180,36 +174,8 @@ cluster_shadow_kernel(const int* __restrict__ cand, const float* __restrict__ sh
     int first = CT;  // the slot's first occluder of this lane's ray
 #pragma unroll 1
     for (int mt = 0; mt < 2; ++mt) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int ks = 0; ks < 2; ++ks) ldsm_x4(a[ks], a_addr + (mt * 16 * KQ + ks * 16) * 2);
-      int cnt[2] = {0, 0};
-#pragma unroll 1
-      for (int ch = 0; ch < CHUNKS; ++ch) {
-        const uint32_t off = ch * 16;  // 8 bf16 columns
-        uint32_t bd[2], bu[4], bv[4];
-        ldsm_x2_t(bd, b_det + off);
-        ldsm_x4_t(bu, b_u + off);
-        ldsm_x4_t(bv, b_v + off);
-        float qd[4] = {0.0f, 0.0f, 0.0f, 0.0f}, qu[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        float qv[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        mma_bf16(qd, a[0], bd[0], bd[1]);
-        mma_bf16(qu, a[0], bu[0], bu[1]);
-        mma_bf16(qu, a[1], bu[2], bu[3]);
-        mma_bf16(qv, a[0], bv[0], bv[1]);
-        mma_bf16(qv, a[1], bv[2], bv[3]);
-        // accumulator e: ray row g + 8 (e / 2) of the tile, triangle
-        // 8 ch + 2q + e % 2; a candidate that passes the screen joins the
-        // ray's list in increasing triangle order
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          if (screen(qd[e], qu[e], qv[e])) {
-            const int r = e >> 1;
-            if (cnt[r] < LIST) list[r * LIST + cnt[r]] = (uint8_t)(ch * 8 + 2 * q + (e & 1));
-            ++cnt[r];
-          }
-        }
-      }
+      int cnt[2];
+      screen_tile(fr.a, fr.det, fr.u, mt, q, list, cnt);
       if (count_on) {
         const unsigned int pass = __reduce_add_sync(0xffffffffu, cnt[0] + cnt[1]);
         const unsigned int over =
@@ -232,10 +198,10 @@ cluster_shadow_kernel(const int* __restrict__ cand, const float* __restrict__ sh
         if (cnt[r] == 0) continue;
         float hi[10], lo[10];
         operand_of_row(at + (size_t)(warp * 32 + mt * 16 + g + 8 * r) * KQ, hi, lo);
-        const int n_c = cnt[r] <= LIST ? cnt[r] : CT / 4;
+        const int n_c = listed_count(cnt[r]);
 #pragma unroll 1
         for (int c = 0; c < n_c; ++c) {
-          const int j = cnt[r] <= LIST ? (int)list[r * LIST + c] : (c >> 1) * 8 + 2 * q + (c & 1);
+          const int j = listed(list + r * LIST, cnt[r], c, q);
           if (occludes(quantities(cur, j, hi, lo), j, rdist, words, cov, rua)) {
             ray_j[r] = j;
             break;

@@ -294,7 +294,8 @@ CLUSTER_SHADOW_ENTRIES = {
 # K6 and K7: the per-row clustered kernels (replace rtxpt_tpu/pt/
 # bounce_clustered.py _kernel_a, closest hit and shading in one kernel,
 # and _kernel_b, per-row shadow any-hit); wrappers
-# bounce_clustered.closest_shade and occlusion_rows.
+# bounce_clustered.closest_shade and occlusion_rows; their screen counters
+# bounce_clustered.rows_screen_stats.
 CLUSTER_ROWS = CudaLibrary(
     "cluster_rows", ["cluster_rows.cu"],
     {"rtxpt_cluster_rows_closest_shade": [
@@ -314,7 +315,16 @@ CLUSTER_ROWS = CudaLibrary(
         _P, _P, _P,                    # cand, sh, blocks
         _P, _P,                        # occ, tests | NULL
         _I, _I,                        # n_groups, kslots
-        _P]})                          # cudaStream_t
+        _P],                           # cudaStream_t
+     "rtxpt_cluster_rows_screen_stats": [
+        _I, _P]})                      # enable, 6 host u64 | NULL
+
+# K6's and K7's entry functions by launch name (a part of each mangled
+# name); K6's environment and final variants share the instantiations
+CLUSTER_ROWS_ENTRIES = {
+    "cluster_rows_closest_shade": "closest_shade_kernelILb0EE",
+    "cluster_rows_closest_shade_tex": "closest_shade_kernelILb1EE",
+    "cluster_rows_shadow": "shadow_rows_kernel"}
 
 # K8: the brute-force closest hit of the general tier (replaces rtxpt_tpu/
 # accel/brute_pallas.py _kernel); wrapper accel/brute.py closest.

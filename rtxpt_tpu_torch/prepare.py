@@ -56,12 +56,12 @@ from rtxpt_tpu_torch.accel import cluster
 from rtxpt_tpu_torch.accel.cluster import (
     build_cluster_tables, build_cluster_tables_instanced,
     cluster_tables_from_numpy, morton_permutation)
-from rtxpt_tpu_torch.pt import bounce_fused
 from rtxpt_tpu_torch.accel.lbvh import build_bvh
 from rtxpt_tpu_torch.accel.tlas import build_two_level
 from rtxpt_tpu_torch.lighting.envmap import bake_envmap
 from rtxpt_tpu_torch.lighting.lights_baker import (
     KIND_ENVQUAD, KIND_SPHERE, bake_lights)
+from rtxpt_tpu_torch.pt import bounce_fused
 from rtxpt_tpu_torch.pt.bounce_fused import (
     ENV_H, ENV_W, MAX_TRIS, build_bounce_tables, env_table_serves,
     has_priorities, tables_from_numpy)

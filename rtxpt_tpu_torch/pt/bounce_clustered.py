@@ -1044,6 +1044,13 @@ def shade(ha, fs, is_, tables, kcfg: bf.KernelConfig, sample_idx: int,
     return outs
 
 
+def _check_aligned(name, blocks):
+    """K6 and K7 copy the blocks with cp.async: 16-byte alignment."""
+    if blocks.data_ptr() % 16:
+        raise ValueError(f"{name}: blocks must be 16-byte aligned (the "
+                         "kernel copies it with cp.async)")
+
+
 def closest_shade(cand, fs, is_, tables, kcfg: bf.KernelConfig,
                   sample_idx: int, kslots: int, max_travel: float,
                   noprune: bool = False, final_env: bool = False,
@@ -1051,9 +1058,12 @@ def closest_shade(cand, fs, is_, tables, kcfg: bf.KernelConfig,
     """K6 (csrc/cluster_rows.cu; counted as "cluster_rows_closest_shade",
     with "_env", "_tex", "_tex_env" or as "..._final" by its variant) for
     CUDA tensors, its plain version for CPU tensors. Arguments and results
-    as in `closest_shade_reference`. K6 has no export: with lights it
-    shades in the kernel NEE modes 0-2 only (the per-row route has no
-    external NEE)."""
+    as in `closest_shade_reference`. The kernel screens the split-bf16
+    products on the tensor cores and resolves what passes with the plain
+    version's f32 sums and selection, under the plain row gates, so its
+    winners, row visits and outputs are the plain version's. K6 has no
+    export: with lights it shades in the kernel NEE modes 0-2 only (the
+    per-row route has no external NEE)."""
     dev = _device_of("closest_shade", fs, cand, is_, tables.blocks,
                      tables.mat_rows, tables.light_rows)
     if final_env and tables.env is None:
@@ -1074,6 +1084,7 @@ def closest_shade(cand, fs, is_, tables, kcfg: bf.KernelConfig,
     bf._check("is_", is_, torch.int32, (bf.NI, n), dev)
     bf._check("blocks", tables.blocks, torch.float32,
               (tables.blocks.shape[0], CL.BLK_ROWS, CL.LANES), dev)
+    _check_aligned("closest_shade", tables.blocks)
     bf._check("mat_rows", tables.mat_rows, torch.float32,
               (bf.MT_ROWS, 128), dev)
     bf._check("light_rows", tables.light_rows, torch.float32,
@@ -1116,7 +1127,10 @@ def closest_shade(cand, fs, is_, tables, kcfg: bf.KernelConfig,
 def occlusion_rows(cand, sh, blocks, kslots: int, stats: bool = False):
     """K7 (csrc/cluster_rows.cu, counted as "cluster_rows_shadow") for
     CUDA tensors, its plain version for CPU tensors. Arguments and results
-    as in `occlusion_rows_reference`."""
+    as in `occlusion_rows_reference`. The kernel takes K5's form (the
+    tensor cores' screen, the strict test in triangle order on what
+    passes) with the row skips, so its occ and test counts are the plain
+    version's."""
     dev = _device_of("occlusion_rows", sh, cand, blocks)
     if dev.type == "cpu":
         return occlusion_rows_reference(cand, sh, blocks, kslots, stats)
@@ -1125,6 +1139,7 @@ def occlusion_rows(cand, sh, blocks, kslots: int, stats: bool = False):
     bf._check("sh", sh, torch.float32, (SH_ROWS, g * FL), dev)
     bf._check("blocks", blocks, torch.float32,
               (blocks.shape[0], CL.BLK_ROWS, CL.LANES), dev)
+    _check_aligned("occlusion_rows", blocks)
     occ = torch.empty((g * FL,), dtype=torch.float32, device=dev)
     tests = torch.zeros((g,), dtype=torch.int32, device=dev)
     if g:
@@ -1136,6 +1151,24 @@ def occlusion_rows(cand, sh, blocks, kslots: int, stats: bool = False):
                 torch.cuda.current_stream(dev).cuda_stream)
         kernels.launches["cluster_rows_shadow"] += 1
     return (occ, tests) if stats else occ
+
+
+def rows_screen_stats(device, enable: bool = True):
+    """K6's and K7's screen counters on CUDA `device`: returns
+    {"closest": ..., "shadow": ...}, each dict(pairs, passed, overflowed,
+    share) as `occlusion_screen_stats` (K6's pairs: 128 per lane of a
+    visiting row and visit), zeroes them, and sets whether the later
+    launches count. Synchronises the device."""
+    out = (ctypes.c_ulonglong * 6)()
+    with torch.cuda.device(device):
+        kernels.CLUSTER_ROWS.launch("rtxpt_cluster_rows_screen_stats",
+                                    int(enable), out)
+    res = {}
+    for k, name in enumerate(("closest", "shadow")):
+        pairs, passed, over = (int(v) for v in out[3 * k:3 * k + 3])
+        res[name] = dict(pairs=pairs, passed=passed, overflowed=over,
+                         share=passed / pairs if pairs else None)
+    return res
 
 
 # ---------------------------------------------------------------------------

@@ -270,13 +270,16 @@ TENSOR_CORE_VARIANTS = {
     **{k: (kernels.CLUSTER_CLOSEST, v)
        for k, v in kernels.CLUSTER_CLOSEST_ENTRIES.items()},
     **{k: (kernels.CLUSTER_SHADOW, v)
-       for k, v in kernels.CLUSTER_SHADOW_ENTRIES.items()}}
+       for k, v in kernels.CLUSTER_SHADOW_ENTRIES.items()},
+    **{k: (kernels.CLUSTER_ROWS, v)
+       for k, v in kernels.CLUSTER_ROWS_ENTRIES.items()}}
 
 
 @pytest.mark.parametrize("name", list(TENSOR_CORE_VARIANTS))
 def test_k3_variants_use_the_tensor_cores(gpu, name):
-    """Each K3 and K5 variant's SASS has tensor-core instructions (HMMA or
-    HGMMA): a build that computed the products on the f32 units fails."""
+    """Each K3 and K5 variant's SASS, and K6's two instantiations' and
+    K7's, has tensor-core instructions (HMMA or HGMMA): a build that
+    computed the products on the f32 units fails."""
     lib, needle = TENSOR_CORE_VARIANTS[name]
     sass = lib.sass_opcodes(kernels.TENSOR_OPCODES)
     counts = [c for fn, c in sass.items() if needle in fn]
@@ -1112,6 +1115,43 @@ def test_per_row_kernels_match_plain_versions(city, sky_city, case):
                                          stats=True)
         assert torch.equal(occ_k, occ_p) and torch.equal(tst_k, tst_p), b
         fs, is_ = out[0], out[1]
+
+
+def test_k6_k7_screen_counts_and_alignment(city):
+    """K6's and K7's screen counters see the pairs of a launch, and few of
+    them pass; a misaligned block table is refused (cp.async copies 16
+    bytes)."""
+    host, scene = city
+    tbl = scene.cluster_tables
+    dev = tbl.device
+    cfg = PathTracerConfig(max_bounces=2)
+    kcfg = bf.KernelConfig.from_cfg(cfg)
+    mt = cfg.max_ray_travel
+    fs, is_ = _state(host, cfg, 64, dev, 1)
+    src = torch.arange(fs.shape[1], dtype=torch.int32, device=dev)
+    fs, is_, src = BC.sort_wavefront(fs, is_, src, True,
+                                     BC.scene_bounds(tbl))
+    cand, _ = BC.cull(fs[bf.FS_O:bf.FS_O + 3], fs[bf.FS_D:bf.FS_D + 3],
+                      is_[bf.IS_ACTIVE] > 0, mt, tbl, 64)
+    BC.rows_screen_stats(dev, True)
+    sh = BC.closest_shade(cand, fs, is_, tbl, kcfg, 1, 64, mt)[2]
+    shp, _ = BC.sort_shadows(sh, BC.scene_bounds(tbl))
+    dop = shp[BC.SH_DO] > 0.5
+    cand_s, _ = BC.cull(shp[BC.SH_O:BC.SH_O + 3], shp[BC.SH_D:BC.SH_D + 3],
+                        dop, shp[BC.SH_DIST], tbl, 64)
+    BC.occlusion_rows(cand_s, shp, tbl.blocks, 64)
+    counts = BC.rows_screen_stats(dev, False)
+    for c in counts.values():
+        assert 0 < c["passed"] < 0.01 * c["pairs"], counts
+    BC.occlusion_rows(cand_s, shp, tbl.blocks, 64)
+    assert BC.rows_screen_stats(dev, False)["shadow"]["pairs"] == 0
+    flat = torch.empty(tbl.blocks.numel() + 1, device=dev)
+    shifted = flat[1:].view(tbl.blocks.shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        BC.occlusion_rows(cand_s, shp, shifted, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        BC.closest_shade(cand, fs, is_, dataclasses.replace(
+            tbl, blocks=shifted), kcfg, 1, 64, mt)
 
 
 def test_per_row_render_runs_through_k6_k7(city, sky_city, monkeypatch):

@@ -14,7 +14,11 @@ finds valid. K5 (csrc/cluster_shadow.cu) takes the same products and
 screen: the "k5-" cases run these checks on its shadow requests' slots
 (tests/test_torch_k5_product.py `shadow_slots`: the small city, the
 instanced city and the 40 x 40 curtain), where the screen must pass every
-pair the plain strict any-hit test accepts. They also hold the measure
+pair the plain strict any-hit test accepts. So do the per-row K6 and K7
+(csrc/cluster_rows.cu): the "k6-" cases on the (row, slot) pairs K6's
+plain walk visits at bounces 0 and 1 of the small city, with the per-row
+operand, and "k7-city" on its shadow requests' rows
+(tests/test_torch_k6_product.py `row_slots`, `shadow_row_slots`). They also hold the measure
 that compares K3 with its plain version on the card
 (`bounce_clustered.closest_agreement`) and the SASS count that shows the
 tensor cores (`kernels.count_sass`). No JAX: the
@@ -34,7 +38,8 @@ from rtxpt_tpu_torch.scene import procedural as TP
 
 DEPTH = 48               # the kernel's padded depth (40 used)
 # K3's visits, and K5's shadow-request slots
-CASES = ["city", "instanced", "k5-city", "k5-instanced", "k5-curtain"]
+CASES = ["city", "instanced", "k5-city", "k5-instanced", "k5-curtain",
+         "k6-bounce0", "k6-bounce1", "k7-city"]
 U32 = 2.0 ** -24         # f32 unit roundoff
 SIDE = 32                # 1,024 camera rays: one group
 
@@ -121,11 +126,16 @@ def visits():
 
 
 def _slots(request, name):
-    """[(hi, lo, blocks, ...)] of the case: K3's visits, or K5's slots
-    (hi, lo, blocks, dist, requested)."""
+    """[(hi, lo, blocks, ...)] of the case: K3's visits, K5's slots (hi,
+    lo, blocks, dist, requested), K6's visited (row, slot) pairs with the
+    per-row operand or K7's slots."""
     if name.startswith("k5-"):
         import test_torch_k5_product as k5
         return k5.shadow_slots(name[3:])
+    if name.startswith(("k6-", "k7-")):
+        import test_torch_k6_product as k6
+        return (k6.row_slots(int(name[-1])) if name.startswith("k6-")
+                else k6.shadow_row_slots())
     return request.getfixturevalue("visits")[name]
 
 

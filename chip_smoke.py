@@ -12,21 +12,34 @@ Phases, one or a few lines of output each:
                 csrc with nvcc, one process per source, all at once;
                 seconds, registers, spills; the tensor-core instructions
                 (HMMA, HGMMA) in the SASS of K3's and K5's three variants
-                each and of K6's two instantiations and K7 (cuobjdump
-                -sass), which must be more than 0 in each.
+                each, of K6's two instantiations and K7, and of K1's 32
+                instantiations (its two libraries; cuobjdump -sass), which
+                must be more than 0 in each; the registers, stack frame and
+                spills of K1's 32 instantiations.
   3. k1      -- one launch of the fused bounce kernel (K1) against its plain
                 PyTorch version on the same 65,536 Cornell camera rays, at
                 bounce 0 and at bounce 2 (Russian roulette on): integer rows
                 and prim ids equal on >= 99.9% of lanes, every float row
                 within rtol = atol = 2e-3 on >= 99.9% of lanes, image-mean
                 radiance within 1e-3 relative. Times both at the Cornell
-                path's 2^18 rays per launch.
+                path's 2^18 rays per launch. Here and after the K1
+                comparisons of phases 9, 12-15, 17 and 18: the lanes whose
+                outputs differ bit-wise from the plain version's (expected
+                0) and K1's screen counters over the comparison launches
+                (bounce_fused.bounce_screen_stats: the pass shares of the
+                closest-hit and shadow pairs; counting also runs the exact
+                test on every rejected pair, and one it accepts fails the
+                run).
   4. golden  -- Cornell 32x32, 8 spp, 3 bounces through K1 against
-                tests/goldens/cornell_32_8spp.npy: RMSE < 5e-3, PSNR > 40.
+                tests/goldens/cornell_32_8spp.npy: RMSE < 5e-3, PSNR > 40;
+                the same render through the plain version on the card (the
+                pixels that differ bit-wise) and K1's screen pass share.
   5. main    -- the Cornell path: Cornell 1920x1080, 4 bounces, power NEE,
                 2^18 rays per chunk, 1 warm-up and 4 timed samples through
                 render_sample; K1 must launch chunks x bounces x spp times,
-                the image must be finite.
+                the image must be finite; one profiled frame gives K1's
+                device time and launches per frame, beside its times
+                before the redesign for the tensor cores (PERF.md).
   6. clustered -- the clustered kernels K3 (closest hit), K4 (shading) and
                 K5 (shadow any-hit) against their plain versions on the
                 card on the 340k-triangle city, every page: at bounce 0 on
@@ -78,7 +91,8 @@ Phases, one or a few lines of output each:
                 and K2 must each launch chunks x bounces x spp times and the
                 images must be finite. One profiled NEE-AT frame splits the
                 device time: camera rays, K1, external NEE, K2, feedback,
-                the rest, and the idle share.
+                the rest, and the idle share; K1's device time and
+                launches per frame, beside its times before the redesign.
 
   10. general tier -- the general BVH wavefront (kernel_tier="xla"):
                 the brute-force closest hit K8 against its plain version on
@@ -184,7 +198,8 @@ Phases, one or a few lines of output each:
                 Cornell box (fused, 8 chunks of 2^18; K1's texture variant
                 chunks x bounces x spp times, final_env chunks x spp), the
                 kitchen (fused, external NEE: K1's texture variant and K2
-                chunks x bounces x spp times), the textured city
+                chunks x bounces x spp times; one profiled frame: K1's
+                device time and launches per frame), the textured city
                 (clustered, K4's texture variant bounces x spp times, one
                 profiled frame, cull_overflow); then the kitchen without
                 stochastic filtering on the general tier (bilinear, K8)
@@ -573,6 +588,84 @@ def _state_ok(summary):
             and summary["L_mean_rel"] <= MEAN_RTOL)
 
 
+# K1's audit of each phase's comparison launches (_k1_audited,
+# _k1_report): the lanes whose outputs differ bit-wise from the plain
+# version's, and K1's screen counters over those launches
+# (bounce_fused.bounce_screen_stats)
+K1_AUDIT = {}
+
+
+def _k1_audited(phase, run, plain):
+    """K1's outputs of `run`, one launch compared with `plain` (the plain
+    version's outputs on the same inputs), with the screen counters on;
+    adds its differing lanes and its counts to `phase`'s audit."""
+    import torch
+
+    from rtxpt_tpu_torch.pt import bounce_fused as bf
+    dev = torch.device("cuda:0")
+    bf.bounce_screen_stats(dev, True)
+    kern = run()
+    counts = bf.bounce_screen_stats(dev, False)
+    audit = K1_AUDIT.setdefault(phase, dict(
+        comparisons=0, lanes=0, lanes_differ=0,
+        **dict.fromkeys(bf.SCREEN_COUNTS, 0)))
+    audit["comparisons"] += 1
+    audit["lanes"] += int(kern[0].shape[1])
+    audit["lanes_differ"] += _lanes_differ(kern, plain)
+    for key in bf.SCREEN_COUNTS:
+        audit[key] += counts[key]
+    return kern
+
+
+def _k1_report(record, phase, dump):
+    """Print and record `phase`'s K1 audit. A pair that the exact test
+    accepts and the screen rejected fails the run."""
+    a = K1_AUDIT.get(phase)
+    if a is None:
+        _fail(f"{phase}: no K1 comparison was audited")
+
+    def share(passed, pairs):
+        return a[passed] / a[pairs] if a[pairs] else None
+    a = dict(a, share=share("passed", "pairs"),
+             shadow_share=share("shadow_passed", "shadow_pairs"))
+    record.setdefault("k1_audit", {})[phase] = a
+    fmt = lambda x: "none" if x is None else f"{x:.5%}"   # noqa: E731
+    print(f"{phase} K1: {a['lanes_differ']} of {a['lanes']} lanes differ "
+          f"bit-wise from the plain version over {a['comparisons']} "
+          f"launches (expected 0); screen pass share {fmt(a['share'])} of "
+          f"{a['pairs']} closest-hit pairs, {fmt(a['shadow_share'])} of "
+          f"{a['shadow_pairs']} shadow pairs, {a['ended_early']} shadow "
+          f"walks ended early, {a['missed']} accepted pairs missed",
+          flush=True)
+    if a["missed"]:
+        dump()
+        _fail(f"{phase}: K1's screen rejected {a['missed']} pairs that the "
+              f"exact test accepts")
+
+
+# K1's times before its redesign for the tensor cores (CUDA cores, one
+# thread per ray: PERF.md's K1 row, "NVIDIA H100 80GB HBM3, 700.00 W"),
+# printed beside this run's per-frame device time: the bounce-0 launch of
+# 2^18 rays, and the NEE-AT rooms frame's K1 device time (PR 3's profile)
+K1_BEFORE = {"cornell": "0.1466 ms per slot-2 launch",
+             "rooms": "0.6912 ms per slot-3 launch, 24.3 ms per frame",
+             "kitchen": "1.5067-1.5310 ms per slot-5 texture launch"}
+
+
+def _k1_frame(prof):
+    """K1's device time (ms) and launches in a profile: every kernel of
+    its two libraries."""
+    from torch.autograd import DeviceType
+    ms, launches = 0.0, 0
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA and re.search(
+                r"bounce_fused(_restart)?_kernel", evt.key):
+            ms += getattr(evt, "self_device_time_total", getattr(
+                evt, "self_cuda_time_total", 0.0)) / 1e3
+            launches += evt.count
+    return dict(ms=ms, launches=launches)
+
+
 def main(record_path=None, group_path=None):
     import torch
 
@@ -632,7 +725,13 @@ def main(record_path=None, group_path=None):
             ("K5", "k5", kernels.CLUSTER_SHADOW,
              kernels.CLUSTER_SHADOW_ENTRIES),
             ("K6 and K7", "k6_k7", kernels.CLUSTER_ROWS,
-             kernels.CLUSTER_ROWS_ENTRIES)):
+             kernels.CLUSTER_ROWS_ENTRIES),
+            ("K1", "k1", kernels.BOUNCE_FUSED,
+             {k: v for k, v in kernels.BOUNCE_FUSED_ENTRIES.items()
+              if "_inj" not in k}),
+            ("K1's restart", "k1_restart", kernels.BOUNCE_FUSED_RESTART,
+             {k: v for k, v in kernels.BOUNCE_FUSED_ENTRIES.items()
+              if "_inj" in k})):
         sass = lib.sass_opcodes(kernels.TENSOR_OPCODES)
         tc = {}
         for name, needle in entries.items():
@@ -644,6 +743,17 @@ def main(record_path=None, group_path=None):
         if not all(c and sum(c.values()) > 0 for c in tc.values()):
             dump()
             _fail(f"build: a {label} variant has no tensor-core instruction")
+    # the registers, stack frame and spills of K1's 32 instantiations
+    k1_regs = {name: _ptxas_entry(
+        (kernels.BOUNCE_FUSED_RESTART if "_inj" in name
+         else kernels.BOUNCE_FUSED).ptxas_log, needle)
+        for name, needle in kernels.BOUNCE_FUSED_ENTRIES.items()}
+    record["build"]["k1_ptxas"] = k1_regs
+    print("build: K1 registers / stack / spill stores / spill loads: "
+          + ", ".join(f"{name[len('bounce_fused'):] or '_'} "
+                      f"{r['registers']}/{r['stack_bytes']}/"
+                      f"{r['spill_store_bytes']}/{r['spill_load_bytes']}"
+                      for name, r in k1_regs.items()), flush=True)
 
     # ---- 3. K1 against its plain version -----------------------------------
     host = cornell_box()
@@ -662,8 +772,8 @@ def main(record_path=None, group_path=None):
     for b in range(3):
         plain = bf.bounce_reference(fs, is_, tables, kcfg, sample)
         if b in (0, 2):
-            kern = bf.bounce(fs, is_, tables, kcfg, sample)
-            torch.cuda.synchronize()
+            kern = _k1_audited("k1", lambda: bf.bounce(
+                fs, is_, tables, kcfg, sample), plain)
             summary, err = _compare_state(kern, plain)
             k1_err = max(k1_err, err)
             k1[f"bounce{b}"] = summary
@@ -679,6 +789,7 @@ def main(record_path=None, group_path=None):
                 _fail(f"k1: kernel disagrees with its plain version at "
                       f"bounce {b}")
         fs, is_ = plain[0], plain[1]          # carry the state onward
+    _k1_report(record, "k1", dump)
     # time both at the Cornell path's launch width (2^18 rays, bounce 0)
     side_t = 512                                   # RAYS_TIMED rays
     cam_t = default_camera(host, side_t, side_t, device=dev)
@@ -713,15 +824,33 @@ def main(record_path=None, group_path=None):
     golden = np.load(golden_path)
     before = kernels.launches["bounce_fused"]
     cam32 = default_camera(host, 32, 32, device=dev)
+    bf.bounce_screen_stats(dev, True)
     hdr, _, _ = render(scene, cam32, PathTracerConfig(max_bounces=3),
                        32, 32, spp=8)
+    screen = bf.bounce_screen_stats(dev, False)
     img = hdr.cpu().numpy()
     e, p = rmse(img, golden), psnr(img, golden)
     used = kernels.launches["bounce_fused"] - before
-    record["golden"] = dict(rmse=e, psnr=p, launches=used)
-    print(f"golden: RMSE {e:.6f} PSNR {p:.2f} dB over {used} K1 launches",
+    # the same render through the plain version on the card: the pixels
+    # whose radiance differs bit-wise
+    kernel_bounce = bf.bounce
+    bf.bounce = bf.bounce_reference
+    try:
+        hdr_p, _, _ = render(scene, cam32, PathTracerConfig(max_bounces=3),
+                             32, 32, spp=8)
+    finally:
+        bf.bounce = kernel_bounce
+    px_differ = int((hdr.view(torch.int32) != hdr_p.view(torch.int32))
+                    .any(-1).sum())
+    record["golden"] = dict(rmse=e, psnr=p, launches=used,
+                            pixels_differ=px_differ, screen=screen)
+    print(f"golden: RMSE {e:.6f} PSNR {p:.2f} dB over {used} K1 launches; "
+          f"{px_differ} of 1024 pixels differ bit-wise from the plain "
+          f"version's render (expected 0); K1 screen pass share "
+          f"{screen['share']:.5%} closest hit, {screen['shadow_share']:.5%} "
+          f"shadow rays, {screen['missed']} accepted pairs missed",
           flush=True)
-    if not (e < 5e-3 and p > 40 and used == 8 * 3):
+    if not (e < 5e-3 and p > 40 and used == 8 * 3) or screen["missed"]:
         dump()
         _fail("golden: the kernel-rendered Cornell box misses the golden")
 
@@ -766,6 +895,16 @@ def main(record_path=None, group_path=None):
         dump()
         _fail("main: the Cornell path did not run every bounce through K1 "
               "or gave non-finite values")
+    # one profiled frame: K1's device time and launches per frame
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        render_sample(scene, cam_m, cfg, width, height, spp + 1)
+        torch.cuda.synchronize()
+    record["main"]["k1_frame"] = k1_frame = _k1_frame(prof)
+    print(f"main: K1 {k1_frame['ms']:.3f} ms of device time per profiled "
+          f"1-spp frame over {k1_frame['launches']} launches (before its "
+          f"redesign: {K1_BEFORE['cornell']}) ({smi})", flush=True)
     dump()
 
     # ---- 6-8. the city ----------------------------------------------------
@@ -919,9 +1058,10 @@ def _clustered_kernels(record, dev, smi, dump):
 
 
 def _ptxas_entry(log, needle):
-    """(registers, spill store bytes, spill load bytes) of the entry
-    function whose mangled name contains `needle`, from a ptxas -v log."""
-    regs = spill_st = spill_ld = None
+    """(registers, stack frame bytes, spill store bytes, spill load bytes)
+    of the entry function whose mangled name contains `needle`, from a
+    ptxas -v log."""
+    regs = stack = spill_st = spill_ld = None
     current = False
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -930,14 +1070,14 @@ def _ptxas_entry(log, needle):
             continue
         if not current:
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
         if m:
-            spill_st, spill_ld = int(m.group(1)), int(m.group(2))
+            stack, spill_st, spill_ld = (int(g) for g in m.groups())
         m = re.search(r"Used (\d+) registers", line)
         if m:
             regs = int(m.group(1))
-    return dict(registers=regs, spill_store_bytes=spill_st,
+    return dict(registers=regs, stack_bytes=stack, spill_store_bytes=spill_st,
                 spill_load_bytes=spill_ld)
 
 
@@ -1602,8 +1742,8 @@ def _external_nee(record, dev, smi, dump):
         for b in range(3):
             plain = bf.bounce_reference(fs, is_, tbl, kcfg, sample)
             if b in (0, 2):
-                kern = bf.bounce(fs, is_, tbl, kcfg, sample)
-                torch.cuda.synchronize()
+                kern = _k1_audited("external", lambda: bf.bounce(
+                    fs, is_, tbl, kcfg, sample), plain)
                 summary, err = _compare_state(kern[:3], plain[:3])
                 int_eq = (kern[1] == plain[1]).all(0) \
                     & (kern[2][1] == plain[2][1])
@@ -1648,6 +1788,7 @@ def _external_nee(record, dev, smi, dump):
                           f"version in {slot} at bounce {b}")
             fs, is_ = plain[0], plain[1]
     rec["compare"] = cmp
+    _k1_report(record, "external", dump)
 
     # K1 in slots 2, 3 and 5 and K2 timed at the path's launch width
     # (2^18 camera rays over the frame, bounce 0)
@@ -1780,8 +1921,12 @@ def _external_nee(record, dev, smi, dump):
     rec["split"], rec["profile_table"] = _split(
         prof, wall, ("camera", "nee", "feedback"),
         (("k1", "bounce_fused_kernel"), ("k2", "shadow_occlusion_kernel")))
+    rec["k1_frame"] = k1_frame = _k1_frame(prof)
     print(f"external NEE-AT split (one profiled frame, ms): "
           f"{json.dumps(rec['split'])} ({smi})", flush=True)
+    print(f"external NEE-AT: K1 {k1_frame['ms']:.3f} ms of device time per "
+          f"profiled 1-spp frame over {k1_frame['launches']} launches "
+          f"(before its redesign: {K1_BEFORE['rooms']}) ({smi})", flush=True)
     record["external"] = rec
     dump()
     k2 = dict(name="shadow_occlusion", route="cuda",
@@ -2465,13 +2610,14 @@ def _environment(record, dev, smi, dump, city_prepared):
         plain = bf.bounce_reference(fs, is_, tbl, kcfg, sample,
                                     final_env=final)
         if b in (0, 2) or final:
-            kern = bf.bounce(fs, is_, tbl, kcfg, sample, final_env=final)
-            torch.cuda.synchronize()
+            kern = _k1_audited("environment", lambda: bf.bounce(
+                fs, is_, tbl, kcfg, sample, final_env=final), plain)
             name = "bounce_fused_final" if final else "bounce_fused_env"
             err[name] = max(err[name], check(
                 f"k1 {'final_env' if final else f'bounce {b}'}", kern,
                 plain))
         fs, is_ = plain[0], plain[1]
+    _k1_report(record, "environment", dump)
     # timed at the path's launch width: 2^18 camera rays, bounce 0, and
     # the final round's launch on the same rays
     fs_t, is_t = camera_state(sky_host, cfg, 512, 512)
@@ -2808,8 +2954,8 @@ def _textures(record, dev, smi, dump):
         for b in range(3):
             plain = bf.bounce_reference(fs, is_, tbl, kcfg, sample)
             if b in (0, 2):
-                kern = bf.bounce(fs, is_, tbl, kcfg, sample)
-                torch.cuda.synchronize()
+                kern = _k1_audited("textures", lambda: bf.bounce(
+                    fs, is_, tbl, kcfg, sample), plain)
                 summary, err = _compare_state(kern[:3], plain[:3])
                 ok = _state_ok(summary)
                 if kcfg.external:
@@ -2860,6 +3006,7 @@ def _textures(record, dev, smi, dump):
               f"{bound:.4f} ms ({by}) ({smi})", flush=True)
         if name == "kitchen":
             ext = (scene, rcfg)
+    _k1_report(record, "textures", dump)
     # registers and spills of each K1 and K4 instantiation
     regs = {f"{lib}_{'tex' if t else 'plain'}": _ptxas_entry(
         getattr(kernels, attr).ptxas_log,
@@ -2928,6 +3075,18 @@ def _textures(record, dev, smi, dump):
             dump()
             _fail(f"textures: the {name} path did not run every bounce "
                   f"through K1's texture variant or gave non-finite values")
+        if name == "kitchen":
+            # one profiled frame: K1's device time and launches per frame
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                render_sample(scene, cam, cfg, w, h, TEX_SPP + 1)
+                torch.cuda.synchronize()
+            p["k1_frame"] = k1_frame = _k1_frame(prof)
+            print(f"textures path kitchen: K1 {k1_frame['ms']:.3f} ms of "
+                  f"device time per profiled 1-spp frame over "
+                  f"{k1_frame['launches']} launches (before its redesign: "
+                  f"{K1_BEFORE['kitchen']}) ({smi})", flush=True)
     rec["paths"] = paths
     launches["city"], _ = _city_path(record, dev, smi, dump,
                                      (city_host, city, prep_s),
@@ -3151,8 +3310,8 @@ def _alpha(record, dev, smi, dump):
                 share["passed_through"] = float(_passed_through(
                     is_, plain[1]).float().mean())
                 if slot == 2:
-                    kern = bf.bounce(fs, is_, tbl, kcfg, sample)
-                    torch.cuda.synchronize()
+                    kern = _k1_audited("alpha", lambda: bf.bounce(
+                        fs, is_, tbl, kcfg, sample), plain)
                     summary, err = _compare_state(kern, plain)
                     k1_err = max(k1_err, err)
                     summary.update(share)
@@ -3203,6 +3362,7 @@ def _alpha(record, dev, smi, dump):
                         _fail(f"alpha: K2's micromap variant disagrees with "
                               f"its plain version at bounce {b}")
             fs, is_ = plain[0], plain[1]
+    _k1_report(record, "alpha", dump)
     # both timed at the fused path's launch width: 2^18 camera rays,
     # bounce 0; K2 on slot 5's requests of the same rays
     side_t = int(round(RAYS_TIMED ** 0.5))
@@ -3628,12 +3788,13 @@ def _priorities(record, dev, smi, dump):
     for b in range(3):
         plain = bf.bounce_reference(fs, is_, tbl, kcfg, sample)
         if b in (0, 2):
-            kern = bf.bounce(fs, is_, tbl, kcfg, sample)
-            torch.cuda.synchronize()
+            kern = _k1_audited("priorities", lambda: bf.bounce(
+                fs, is_, tbl, kcfg, sample), plain)
             rec[f"k1_bounce{b}"], err = check(f"k1 bounce {b}", kern, plain,
                                               is_, plain[2][1] >= 0)
             k1_err = max(k1_err, err)
         fs, is_ = plain[0], plain[1]
+    _k1_report(record, "priorities", dump)
     fs_t, is_t = _prio_state(512, 512, dev, sample)       # 2^18 rays
     n = fs_t.shape[1]
     k1_ms = _cuda_ms(lambda: bf.bounce(fs_t, is_t, tbl, kcfg, sample), 20)
@@ -4698,9 +4859,8 @@ def _split_aux(record, dev, smi, dump, city_prepared):
                         plain = bf.bounce_reference(fs, is_, tb, kcfg,
                                                     sample, fs2=fs2)
                         if b in (0, 2):
-                            kern = bf.bounce(fs, is_, tb, kcfg, sample,
-                                             fs2=fs2)
-                            torch.cuda.synchronize()
+                            kern = _k1_audited("split", lambda: bf.bounce(
+                                fs, is_, tb, kcfg, sample, fs2=fs2), plain)
                             res[f"k1_b{b}"] = _bit_exact(kern, plain)
                             if p:
                                 shares[f"k1_b{b}"] = false_hits(
@@ -4784,8 +4944,8 @@ def _split_aux(record, dev, smi, dump, city_prepared):
         for b in range(3):
             plain = bf.bounce_reference(fs, is_, tbl, kcfg, sample, fs2=fs2)
             if b in (0, 2):
-                kern = bf.bounce(fs, is_, tbl, kcfg, sample, fs2=fs2)
-                torch.cuda.synchronize()
+                kern = _k1_audited("split", lambda: bf.bounce(
+                    fs, is_, tbl, kcfg, sample, fs2=fs2), plain)
                 ok, e = _bit_exact(kern, plain)
                 cmp[f"bounce{b}"] = dict(exact=ok, max_abs_err=e)
                 err_k1 = max(err_k1, e)
@@ -4823,6 +4983,7 @@ def _split_aux(record, dev, smi, dump, city_prepared):
               f"{n}-ray launch, plain {plain_ms:.4f} ms, bound {bound:.4f} "
               f"ms ({by}; without split {bound_ns:.4f}) ({smi})", flush=True)
     rec["k1"] = k1
+    _k1_report(record, "split", dump)
 
     # K4 split on the city's 1080p wavefront: bounce 0 and 2 (the kernels
     # carry it), the 64 groups with the most hits compared
@@ -5187,9 +5348,9 @@ def _realtime(record, dev, smi, dump, city_prepared):
             plain = bf.bounce_reference(fs, is_, gtb, kcfg, s_i, inj=inj_b,
                                         first_direct=False)
             if b in (0, 2):
-                kern = bf.bounce(fs, is_, gtb, kcfg, s_i, inj=inj_b,
-                                 first_direct=False)
-                torch.cuda.synchronize()
+                kern = _k1_audited("realtime", lambda: bf.bounce(
+                    fs, is_, gtb, kcfg, s_i, inj=inj_b, first_direct=False),
+                    plain)
                 summary, e = _compare_state(kern, plain)
                 exact = _lane_exact_share(kern, plain)
                 summary.update(lanes_bit_exact=exact,
@@ -5248,10 +5409,9 @@ def _realtime(record, dev, smi, dump, city_prepared):
                             fs, is_, tb, ikcfg, sample, fs2=fs2, inj=inj_b,
                             first_direct=False)
                         if b in (0, 2):
-                            kern = bf.bounce(fs, is_, tb, ikcfg, sample,
-                                             fs2=fs2, inj=inj_b,
-                                             first_direct=False)
-                            torch.cuda.synchronize()
+                            kern = _k1_audited("realtime", lambda: bf.bounce(
+                                fs, is_, tb, ikcfg, sample, fs2=fs2,
+                                inj=inj_b, first_direct=False), plain)
                             res[f"b{b}"] = _bit_exact(kern, plain)
                         fs, is_ = plain[0], plain[1]
                         fs2 = plain[-1] if s_ else None
@@ -5266,6 +5426,7 @@ def _realtime(record, dev, smi, dump, city_prepared):
     print(f"realtime k1 inject: {n_exact} of 16 instantiations bit-exact at "
           f"bounces 0 (injected) and 2 on {SPLIT_SIDE * SPLIT_SIDE} rays, "
           f"first_direct=False", flush=True)
+    _k1_report(record, "realtime", dump)
 
     # the inject launch timed beside the ordinary K1 (2^18 lanes)
     side = int(round(RAYS_TIMED ** 0.5))

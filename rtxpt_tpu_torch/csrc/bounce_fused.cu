@@ -20,23 +20,31 @@
 // rtxpt_tpu_torch/pt/bounce_fused.py bounce_reference; wrapper:
 // bounce_fused.bounce.
 //
-// Design. One thread per ray over a 1-D grid; the wavefront state is SoA
-// ([rows, N] columns), so neighbouring threads read neighbouring addresses.
-// The TPU kernel's matmul-factored intersection and one-hot gathers become
-// per-thread loops and indexed loads: every thread walks all triangles'
-// 20-float coefficient rows (tri_coef), which all threads of a warp read at
-// the same address (one broadcast load per warp through the read-only
-// cache; Cornell's 36 triangles are 2.9 KB), and only the winner's attribute
-// column is read from global memory.
+// Design. The wavefront state is SoA ([rows, N] columns), so neighbouring
+// lanes read neighbouring addresses. The TPU kernel's matmul-factored
+// intersection (bounce_pallas.py:567, HIGHEST precision) becomes a matrix
+// product on the tensor cores again, as a screen: one block of 512 threads
+// per SM stages the scene's bf16 coefficient tile (det, u and v of every
+// triangle, bounce_fused.coefficient_tile) in shared memory once, and each
+// warp takes 32 rays at a time through split-bf16 mma.sync products and a
+// screen with a derived error margin; the few pairs that pass are resolved
+// by the plain f32 test in triangle order, for the closest hit and again
+// for the NEE shadow ray (bounce_fused_mma.cuh has the form, the bound and
+// the layout). The TPU kernel's one-hot gathers become indexed loads: only
+// the winner's attribute column is read from global memory. -fmad=false
+// keeps every f32 operation of the shading and of the resolve rounded as
+// the plain version rounds it.
 //
 // What bounds it: instructions and latency, not bytes. Per ray and bounce it
 // reads 92 B of state (15 f32 + 8 i32 rows) and writes 116 B (the state and
-// 6 hit rows), but runs two loops over all triangles (closest hit and the shadow
-// ray, ~40 flops per triangle) and a serial shading chain (hashes, Sobol'
-// folds, BSDF eval/pdf/sample). This first version keeps it simple: no
-// shared-memory staging, no ray compaction (inactive lanes still run the
-// intersection loop, as on the TPU), and -fmad=false for parity with the
-// plain version.
+// 6 hit rows). Its CUDA-core predecessor ran every pair of ray and triangle
+// through the exact test (~60 issued instructions a pair, twice with the
+// shadow ray): on the rooms' 552 and the kitchen's 1,186 triangles that loop
+// was most of a launch. Here a pair costs a share of 5 mma.sync per 8
+// triangles and 16 rays and ~15 f32 operations of screen, and the exact test
+// runs on the pairs that pass (a line through the scene crosses a few dozen
+// triangles); what remains is the serial shading chain (hashes, Sobol'
+// folds, BSDF eval/pdf/sample) and its loads.
 //
 // The environment table (164 KB: 128 KB of float4 texels, 32 KB of
 // conditional CDFs, four 64-entry rows) is read from global memory through
@@ -89,7 +97,7 @@
 // first_direct compose with every other switch (a stable-planes fill of a
 // textured, alpha-tested or priority scene with STF, with or without the
 // split channels), so every combination is reachable. In a restart launch
-// a non-null `inj` replaces the intersection loop by five coalesced loads
+// a non-null `inj` replaces the closest hit by five coalesced loads
 // per ray (t, prim, u, v, front; 20 B), and the winner's attribute column is
 // read as after the loop; `inj` is one pointer for the launch, so no warp
 // diverges on it (a null `inj` is a later bounce of a first_direct=False
@@ -103,24 +111,24 @@
 namespace {
 
 template <bool HasTex, bool HasOmm, bool HasPrio, bool HasSplit>
-__global__ void __launch_bounds__(rt::kBounceThreads)
+__global__ void __launch_bounds__(rt::k1::kThreads, 1)
 bounce_fused_kernel(const float* __restrict__ fs, const int* __restrict__ is,
                     const float* __restrict__ fs2, float* __restrict__ fs_out,
                     int* __restrict__ is_out, float* __restrict__ hit_out,
                     float* __restrict__ surf_out, float* __restrict__ fs2_out,
-                    rt::Tables tb, rt::Config cfg, int n) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  rt::bounce_ray<HasTex, HasOmm, HasPrio, HasSplit, false>(
-      i, n, fs, is, fs2, fs_out, is_out, hit_out, surf_out, fs2_out, nullptr, tb, cfg);
+                    const __nv_bfloat16* __restrict__ tile, const float* __restrict__ scale,
+                    int t8, rt::Tables tb, rt::Config cfg, int n) {
+  rt::k1::bounce_block<HasTex, HasOmm, HasPrio, HasSplit, false>(
+      fs, is, fs2, fs_out, is_out, hit_out, surf_out, fs2_out, nullptr, tile, scale, t8, tb,
+      cfg, n);
 }
 
 template <bool HasTex, bool HasOmm, bool HasPrio, bool HasSplit>
 struct Kernel {
   template <class... Args>
-  static void launch(int blocks, cudaStream_t stream, Args... args) {
-    bounce_fused_kernel<HasTex, HasOmm, HasPrio, HasSplit>
-        <<<blocks, rt::kBounceThreads, 0, stream>>>(args...);
+  static int launch(int n, int t8, cudaStream_t stream, Args... args) {
+    return rt::launch_k1(bounce_fused_kernel<HasTex, HasOmm, HasPrio, HasSplit>, n, t8,
+                         stream, args...);
   }
 };
 
@@ -131,15 +139,17 @@ struct Kernel {
 // `final_env` needs; `tex` ([texels, 4] or NULL for the untextured variant)
 // and `tex_meta` ([n_tex, TX_COLS]) are the texture tables, `tex_maps` the
 // maps' bits; `micro` and `cover` ([tpad] each, or NULL for the variant
-// without micromaps) the micromap words and coverages; `prio` selects the
-// nested-priority variant; `fs2` and `fs2_out` ([NF2, n] each, or NULL)
+// without micromaps) the micromap words and coverages; `tile` ([30, t8]
+// bf16) and `scale` ([t8] f32), both 16-byte aligned, the screen's
+// coefficient tile (t8: the triangle count rounded up to 8); `prio` selects
+// the nested-priority variant; `fs2` and `fs2_out` ([NF2, n] each, or NULL)
 // select the split variant.
 extern "C" int rtxpt_bounce_fused(
     const float* fs, const int* is, float* fs_out, int* is_out, float* hit_out,
     float* surf_out, const float* fs2, float* fs2_out, const float* tri_coef, const float* attr_rows, const float* mat_rows,
     const float* light_rows, const float* env, const float* tex, const int* tex_meta,
-    int n_tex, int tex_maps, const int* micro, const float* cover, int n, int n_tris,
-    int tpad, int n_lights,
+    int n_tex, int tex_maps, const int* micro, const float* cover, const void* tile,
+    const float* scale, int t8, int n, int n_tris, int tpad, int n_lights,
     unsigned int sample_idx, int nee_mode, int enable_mis, float firefly,
     int rr_enable, int min_rr, float max_travel, int low_discrepancy,
     int energy_comp, int maxb, int final_env, int prio, void* stream) {
@@ -150,7 +160,15 @@ extern "C" int rtxpt_bounce_fused(
                                            min_rr, max_travel, low_discrepancy, energy_comp,
                                            maxb, final_env, 1);
   const bool flags[4] = {tex != nullptr, micro != nullptr, prio != 0, fs2 != nullptr};
-  rt::launch_switches<Kernel>(flags, rt::bounce_blocks(n), (cudaStream_t)stream, fs, is, fs2,
-                              fs_out, is_out, hit_out, surf_out, fs2_out, tb, cfg, n);
-  return (int)cudaGetLastError();
+  return rt::launch_switches<Kernel>(flags, n, t8, (cudaStream_t)stream, fs, is, fs2, fs_out,
+                                     is_out, hit_out, surf_out, fs2_out,
+                                     static_cast<const __nv_bfloat16*>(tile), scale, t8, tb,
+                                     cfg, n);
+}
+
+// K1's screen counters (bounce_fused_mma.cuh): `out` (NULL or 6 host
+// values) receives the counts since the last call, which zeroes them;
+// `enable` sets whether later launches count. Synchronous.
+extern "C" int rtxpt_bounce_fused_screen_stats(int enable, unsigned long long* out) {
+  return rt::k1::screen_stats(enable, out);
 }

@@ -6,13 +6,11 @@
 
 #include <cuda_runtime.h>
 
-#include "bounce_fused.cuh"
+#include <algorithm>
+
+#include "bounce_fused_mma.cuh"
 
 namespace rt {
-
-constexpr int kBounceThreads = 128;
-
-inline int bounce_blocks(int n) { return (n + kBounceThreads - 1) / kBounceThreads; }
 
 inline Tables bounce_tables(const float* tri_coef, const float* attr_rows, const float* mat_rows,
                             const float* light_rows, const float* env, const float* tex,
@@ -55,18 +53,53 @@ inline Config bounce_config(unsigned int sample_idx, int nee_mode, int enable_mi
   return cfg;
 }
 
+// Launch a K1 kernel `fn` on n rays: k1::kThreads threads a block, the
+// tile's dynamic shared memory (t8 triangles), as many blocks as fit on the
+// card at once (one per SM) and no more than the rays fill. Returns the
+// CUDA error.
+template <class Fn, class... Args>
+int launch_k1(Fn* fn, int n, int t8, cudaStream_t stream, Args... args) {
+  const int smem = k1::smem_bytes(t8);
+  cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, k1::kThreads, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int blocks = std::min((n + k1::kThreads - 1) / k1::kThreads, std::max(per_sm, 1) * sms);
+  fn<<<blocks, k1::kThreads, smem, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
 // The instantiation of the switches (tex, omm, prio, split) from the
 // runtime flags, one template parameter at a time:
-// K<tex, omm, prio, split>::launch(blocks, stream, args...).
+// K<tex, omm, prio, split>::launch(n, t8, stream, args...).
 template <template <bool, bool, bool, bool> class K, bool... B, class... Args>
-void launch_switches(const bool* flags, int blocks, cudaStream_t stream, Args... args) {
+int launch_switches(const bool* flags, int n, int t8, cudaStream_t stream, Args... args) {
   if constexpr (sizeof...(B) == 4) {
-    K<B...>::launch(blocks, stream, args...);
+    return K<B...>::launch(n, t8, stream, args...);
   } else if (flags[sizeof...(B)]) {
-    launch_switches<K, B..., true>(flags, blocks, stream, args...);
+    return launch_switches<K, B..., true>(flags, n, t8, stream, args...);
   } else {
-    launch_switches<K, B..., false>(flags, blocks, stream, args...);
+    return launch_switches<K, B..., false>(flags, n, t8, stream, args...);
   }
 }
+
+namespace k1 {
+
+// Read and zero the library's screen counters into `out` (NULL or SC_N
+// host values) and set whether later launches count.
+inline int screen_stats(int enable, unsigned long long* out) {
+  cudaError_t e = cudaDeviceSynchronize();
+  if (e == cudaSuccess && out != nullptr)
+    e = cudaMemcpyFromSymbol(out, g_screen, sizeof(g_screen));
+  const unsigned long long zero[SC_N] = {};
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_screen, zero, sizeof(zero));
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_screen_on, &enable, sizeof(int));
+  return (int)e;
+}
+
+}  // namespace k1
 
 }  // namespace rt

@@ -188,13 +188,16 @@ BOUNCE_FUSED = CudaLibrary(
         _P, _P, _I, _I,                # tex | NULL, tex_meta, n_tex,
         #                                tex_maps
         _P, _P,                        # micromap words, covers | NULL
+        _P, _P, _I,                    # coefficient tile, scales, T8
         _I, _I, _I, _I,                # n, n_tris, tpad, n_lights
         _U,                            # sample_idx
         _I, _I, _F, _I, _I, _F,        # nee_mode, mis, firefly, rr, min_rr,
         #                                max_travel
         _I, _I, _I,                    # low_discrepancy, energy_comp, maxb
         _I, _I,                        # final_env, prio
-        _P]})                          # cudaStream_t
+        _P],                           # cudaStream_t
+     "rtxpt_bounce_fused_screen_stats": [
+        _I, _P]})                      # enable, 6 host u64 | NULL
 
 # K1's real-time fill (the same TPU kernel with inject / first_direct=False):
 # the V-buffer restart, a library of its own; wrapper bounce_fused.bounce.
@@ -204,6 +207,7 @@ BOUNCE_FUSED_RESTART = CudaLibrary(
         _P, _P, _P, _P, _P, _P, _P, _P,  # K1's state, hit, surf, fs2 rows
         _P, _P, _P, _P, _P,            # tri_coef, attr, mat, light, env
         _P, _P, _I, _I, _P, _P,        # textures, micromaps
+        _P, _P, _I,                    # coefficient tile, scales, T8
         _I, _I, _I, _I, _U,            # n, n_tris, tpad, n_lights, sample
         _I, _I, _F, _I, _I, _F,        # nee_mode, mis, firefly, rr, min_rr,
         #                                max_travel
@@ -211,7 +215,22 @@ BOUNCE_FUSED_RESTART = CudaLibrary(
         #                                prio
         _P, _I,                        # injected V-buffer rows | NULL,
         #                                first_direct
-        _P]})                          # cudaStream_t
+        _P],                           # cudaStream_t
+     "rtxpt_bounce_fused_restart_screen_stats": [
+        _I, _P]})                      # enable, 6 host u64 | NULL
+
+# K1's 32 entry functions by launch name (a part of each mangled name):
+# the switches (texture, micromaps, priorities, split) of the reference-mode
+# kernel and of the restart's, as bounce_fused.variant_name names them
+# (the environment variants share the instantiations)
+BOUNCE_FUSED_ENTRIES = {
+    ("bounce_fused" + restart + ("_omm" if omm else "")
+     + ("_tex" if tex else "") + ("_prio" if prio else "")
+     + ("_split" if split else "")):
+    f"bounce_fused{kernel}_kernelILb{tex:d}ELb{omm:d}ELb{prio:d}ELb{split:d}E"
+    for restart, kernel in (("", ""), ("_inj", "_restart"))
+    for tex in (False, True) for omm in (False, True)
+    for prio in (False, True) for split in (False, True)}
 
 # K2: the shadow any-hit kernel of external NEE (replaces rtxpt_tpu/pt/
 # bounce_pallas.py _shadow_kernel); wrapper bounce_fused.occlusion.

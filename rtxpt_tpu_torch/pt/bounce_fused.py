@@ -63,6 +63,7 @@ and state compare entry by entry.
 
 from __future__ import annotations
 
+import ctypes
 import math
 from dataclasses import dataclass
 from typing import Optional
@@ -273,6 +274,11 @@ class BounceTables:
     # and the shading kernels run the false-hit pass-through
     # (bounce_pallas.py:231-233)
     prio: bool = False
+    # K1's tensor-core screen (`coefficient_tile`): the bf16 rows of det, u
+    # and v [TT_ROWS, T8] and each triangle's error scale [T8], T8 the
+    # triangle count rounded up to 8
+    tri_tile: Optional[torch.Tensor] = None
+    tri_scale: Optional[torch.Tensor] = None
 
     @property
     def device(self):
@@ -413,6 +419,51 @@ def compact_coefficients(tri_rows: np.ndarray, tc: int, n_chunks: int,
     return coef, words.astype(np.uint32).view(np.int32), cover
 
 
+# K1's screen on the tensor cores (csrc/bounce_fused_mma.cuh). The tile's
+# rows per quantity: c_hi of its components, then c_lo (det reads the
+# ray's components 0-2, u and v 0-5), quantity after quantity.
+TT_COMPS = (3, 6, 6)                  # components of det, u, v
+TT_BASE = (0, 6, 18)                  # first tile row of det, u, v
+TT_ROWS = 30
+# The screen's margins: the plain test's edges widened by SCREEN_MARGIN
+# times |det| (K3's 4 x 2e-3), and by the error bound SCREEN_EPS x the
+# triangle's scale x the ray's largest component (see coefficient_tile).
+SCREEN_MARGIN = 4.0 * 2e-3
+SCREEN_EPS = 2.0 ** -13
+
+
+def coefficient_tile(tri_coef: torch.Tensor, n_tris: int):
+    """(tile [TT_ROWS, T8] bf16, scale [T8] f32) of the coefficient rows
+    tri_coef [Tpad, TC_ROWS], T8 = n_tris rounded up to 8 (the padding
+    triangles are zero): the operand of K1's screen, built once per scene.
+
+    Row TT_BASE[q] + k holds c_hi = bf16(c) of component k of quantity q
+    (det, u, v), row TT_BASE[q] + TT_COMPS[q] + k its c_lo = bf16(c - c_hi).
+    The kernel takes each quantity as the products c_hi x r + c_lo x r_hi
+    of the ray's components r = r_hi + l1 + l2 (its exact split into
+    bf16), summed on the tensor cores. What that leaves out, c_lo x (l1 +
+    l2) and (c - c_hi - c_lo) x r, is at most 2^-16 |c| |r| each (bf16
+    keeps 8 significant bits: |c - c_hi| <= 2^-8 |c|, and so on), so the
+    sum differs from the exact one by at most ~2^-15 T, T = sum |c_k| |r_k|
+    <= scale x max |r_k|; the plain version's f32 sum errs by at most
+    6 x 2^-24 T and the tensor cores' f32 accumulation (two k-steps) by
+    about 2^-18 T. The screen's error term SCREEN_EPS x scale x max |r_k|
+    (2^-13) covers their sum about three times. `scale` is each
+    triangle's largest L1 norm over the three quantities' rows, rounded
+    up to f32."""
+    n8 = _round_up(int(n_tris), 8)
+    c = tri_coef[:n8].detach().to("cpu", torch.float32)
+    rows, norms = [], []
+    for q, start in enumerate((TC_DET, TC_U, TC_V)):
+        cq = c[:, start:start + TT_COMPS[q]]
+        hi = cq.to(torch.bfloat16)
+        rows += [hi.T, (cq - hi.float()).to(torch.bfloat16).T]
+        norms.append(cq.double().abs().sum(1))
+    tile = torch.cat(rows, 0).contiguous()
+    scale = (torch.stack(norms).amax(0) * (1.0 + 2.0 ** -20)).float()
+    return tile.to(tri_coef.device), scale.to(tri_coef.device)
+
+
 def tables_from_numpy(tri_rows, attr_rows, mat_rows, light_rows, tc,
                       n_chunks, n_lights, n_tris, device="cuda",
                       env_rows=None, tex_ct=None, tex_meta=None,
@@ -451,9 +502,11 @@ def tables_from_numpy(tri_rows, attr_rows, mat_rows, light_rows, tc,
         coef, micro, cover = coef
         micro = torch.tensor(micro, device=device)
         cover = t(cover)
+    tile, scale = coefficient_tile(torch.from_numpy(coef), int(n_tris))
     return BounceTables(
         tri_rows=t(tri_rows), attr_rows=t(attr_rows), mat_rows=t(mat_rows),
         light_rows=t(light_rows), tri_coef=t(coef),
+        tri_tile=tile.to(device), tri_scale=scale.to(device),
         omm=omm, tri_micro=micro, tri_cover=cover, prio=bool(prio),
         env=None if env_rows is None else t(env_table(env_rows)),
         tex=tex, tex_meta=meta,
@@ -1637,6 +1690,7 @@ def bounce(fs, is_, tables: BounceTables, kcfg: KernelConfig,
     if not 0 < tables.n_tris <= MAX_TRIS or (
             kcfg.nee_mode in (1, 2) and tables.n_lights > MAX_LIGHTS):
         raise ValueError("bounce: table sizes outside the kernel's limits")
+    check_tile(tables, dev)
     fs_out = torch.empty_like(fs)
     is_out = torch.empty_like(is_)
     hit_out = torch.empty((NH, n), dtype=torch.float32, device=dev)
@@ -1671,6 +1725,8 @@ def bounce(fs, is_, tables: BounceTables, kcfg: KernelConfig,
             *tex_args(tables, tex),
             tables.tri_micro.data_ptr() if omm else None,
             tables.tri_cover.data_ptr() if omm else None,
+            tables.tri_tile.data_ptr(), tables.tri_scale.data_ptr(),
+            tables.tri_tile.shape[1],
             n, tables.n_tris, tpad, tables.n_lights,
             int(sample_idx) & rng.M32, kcfg.nee_mode, int(kcfg.enable_mis),
             kcfg.firefly, int(kcfg.rr_enable), kcfg.min_rr, kcfg.max_travel,
@@ -1681,6 +1737,52 @@ def bounce(fs, is_, tables: BounceTables, kcfg: KernelConfig,
                                   "_inj" if inj is not None else
                                   "" if first_direct else "_nodirect")] += 1
     return outs
+
+
+def check_tile(tables, dev):
+    """Raise unless K1's coefficient tile and scales are what the kernel
+    stages with cp.async: [TT_ROWS, T8] bf16 and [T8] f32, 16-byte
+    aligned."""
+    t8 = _round_up(tables.n_tris, 8)
+    _check("tri_tile", tables.tri_tile, torch.bfloat16, (TT_ROWS, t8), dev)
+    _check("tri_scale", tables.tri_scale, torch.float32, (t8,), dev)
+    if tables.tri_tile.data_ptr() % 16 or tables.tri_scale.data_ptr() % 16:
+        raise ValueError("tri_tile and tri_scale must be 16-byte aligned")
+
+
+# K1's screen counters (bounce_screen_stats), in the order the libraries
+# keep them
+SCREEN_COUNTS = ("pairs", "passed", "shadow_pairs", "shadow_passed",
+                 "ended_early", "missed")
+
+
+def bounce_screen_stats(device, enable: bool) -> dict:
+    """Read and zero K1's screen counters on `device`, summed over its two
+    libraries (the reference-mode and the restart instantiations), and set
+    whether later launches count (off by default: a launch then costs one
+    uniform branch per warp). Counts since the last call: the closest-hit
+    pairs screened (8 per live lane and chunk of 8 triangles) and passed,
+    the shadow pairs likewise, the warps whose shadow walk ended before
+    the table's end (every requesting lane occluded), and `missed`: pairs
+    the exact test accepts that the screen rejected, which counting checks
+    on every rejected pair (it must stay 0); `share` and `shadow_share`
+    are the pass shares (None without pairs). Synchronous."""
+    total = dict.fromkeys(SCREEN_COUNTS, 0)
+    with torch.cuda.device(device):
+        for lib, entry in ((kernels.BOUNCE_FUSED,
+                            "rtxpt_bounce_fused_screen_stats"),
+                           (kernels.BOUNCE_FUSED_RESTART,
+                            "rtxpt_bounce_fused_restart_screen_stats")):
+            out = (ctypes.c_ulonglong * len(SCREEN_COUNTS))()
+            lib.launch(entry, int(enable), out)
+            for k, v in zip(SCREEN_COUNTS, out):
+                total[k] += int(v)
+
+    def share(passed, pairs):
+        return total[passed] / total[pairs] if total[pairs] else None
+    total.update(share=share("passed", "pairs"),
+                 shadow_share=share("shadow_passed", "shadow_pairs"))
+    return total
 
 
 def check_tex_tables(tables, dev):

@@ -22,7 +22,9 @@ aux renders of every tier, and K1's sixteen restart instantiations (the
 V-buffer restart and first_direct=False), its inject variant on the
 glass-over-mirror box's stable planes, and the real-time frames against
 the CPU, and the probes K10, K11 (at two sizes each, K11 also on aimed
-rays) and the seven K12 constructs, bit-exact, with their launch counts.
+rays) and the seven K12 constructs, bit-exact, with their launch counts,
+and K1's tensor-core screen on a full 2,048-triangle table (its screen
+counters, the tensor-core instructions of its 32 instantiations).
 Needs an NVIDIA GPU and nvcc; skips without them. This file imports no
 JAX, so it runs where JAX is absent:
 
@@ -31,6 +33,7 @@ JAX, so it runs where JAX is absent:
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -46,6 +49,7 @@ from rtxpt_tpu_torch.pt.integrator import (
     _pixel_grid, camera_rays, render, render_adaptive, render_sample)
 from rtxpt_tpu_torch.pt.nee_external import external_nee
 from rtxpt_tpu_torch.scene import procedural as TP
+from rtxpt_tpu_torch.scene.scene import MeshInstance
 
 pytestmark = pytest.mark.cuda
 
@@ -210,6 +214,60 @@ def test_wrapper_refuses_tables_on_another_device(cornell):
         bf.bounce(fs, is_, cpu_tables, bf.KernelConfig(), 0)
 
 
+def _quad_stack(n_quads, seed):
+    """n_quads quads stacked 0.002 apart along -z in front of
+    single_triangle's camera, each of a random extent around the axis (one
+    diffuse material), lit by its point light: each camera ray's line
+    crosses hundreds of them."""
+    rng = np.random.default_rng(seed)
+    parts = []
+    for k in range(n_quads):
+        z = -0.002 * k
+        x0, y0 = rng.uniform(-1.2, -0.1, 2)
+        x1, y1 = rng.uniform(0.1, 1.2, 2)
+        parts.append(TP._quad([x0, y0, z], [x1, y0, z], [x1, y1, z],
+                              [x0, y1, z], 0))
+    pos, nrm, uv, idx, mat = TP._merge(parts)
+    host = TP.single_triangle("point")
+    host.instances = [MeshInstance(positions=pos, normals=nrm, uvs=uv,
+                                   indices=idx, material=mat, name="stack")]
+    return host
+
+
+def test_k1_resolves_a_full_table_group_by_group(gpu):
+    """A 2,048-triangle table (the fused tier's limit) whose camera rays
+    each have hundreds of screened candidates, more than one group of 128
+    triangles holds: K1 resolves them group by group and equals
+    bounce_reference bit for bit at bounces 0 and 1 (closest hits behind
+    many crossed quads, shadow rays occluded by some); its screen counters
+    see every pair, pass many, and miss none that the exact test
+    accepts."""
+    host = _quad_stack(1024, seed=3)
+    scene = prepare(host, device=gpu)
+    tables = scene.bounce_tables
+    assert tables.n_tris == bf.MAX_TRIS
+    cfg = PathTracerConfig(max_bounces=3)
+    kcfg = bf.KernelConfig.from_cfg(cfg)
+    fs, is_ = _state(host, cfg, 64, gpu, 1)
+    for b in range(2):
+        plain = bf.bounce_reference(fs, is_, tables, kcfg, 1)
+        bf.bounce_screen_stats(gpu, True)
+        kern = bf.bounce(fs, is_, tables, kcfg, 1)
+        counts = bf.bounce_screen_stats(gpu, False)
+        for k, p in zip(kern, plain):
+            assert torch.equal(k.view(torch.int32), p.view(torch.int32)), b
+        n = fs.shape[1]
+        assert counts["pairs"] == n * tables.n_tris, counts
+        assert counts["missed"] == 0 and counts["shadow_pairs"] > 0, counts
+        if b == 0:
+            assert counts["passed"] > 128 * n, counts
+            assert (plain[2][1] >= 0).float().mean() > 0.5
+            assert (plain[2][5] > 0.5).any()
+        fs, is_ = plain[0], plain[1]
+    bf.bounce(fs, is_, tables, kcfg, 1)
+    assert bf.bounce_screen_stats(gpu, False)["pairs"] == 0
+
+
 @pytest.fixture(scope="module")
 def city(gpu):
     host = TP.city_scene(tri_budget=4000, seed=1, blocks=2)
@@ -267,6 +325,9 @@ def test_clustered_kernels_match_plain_versions(city, kslots):
 
 
 TENSOR_CORE_VARIANTS = {
+    **{k: (kernels.BOUNCE_FUSED_RESTART if "_inj" in k
+           else kernels.BOUNCE_FUSED, v)
+       for k, v in kernels.BOUNCE_FUSED_ENTRIES.items()},
     **{k: (kernels.CLUSTER_CLOSEST, v)
        for k, v in kernels.CLUSTER_CLOSEST_ENTRIES.items()},
     **{k: (kernels.CLUSTER_SHADOW, v)
@@ -277,9 +338,10 @@ TENSOR_CORE_VARIANTS = {
 
 @pytest.mark.parametrize("name", list(TENSOR_CORE_VARIANTS))
 def test_k3_variants_use_the_tensor_cores(gpu, name):
-    """Each K3 and K5 variant's SASS, and K6's two instantiations' and
-    K7's, has tensor-core instructions (HMMA or HGMMA): a build that
-    computed the products on the f32 units fails."""
+    """Each K3 and K5 variant's SASS, K6's two instantiations' and K7's,
+    and each of K1's 32 instantiations', has tensor-core instructions
+    (HMMA or HGMMA): a build that computed the products on the f32 units
+    fails."""
     lib, needle = TENSOR_CORE_VARIANTS[name]
     sass = lib.sass_opcodes(kernels.TENSOR_OPCODES)
     counts = [c for fn, c in sass.items() if needle in fn]

@@ -301,7 +301,11 @@ Phases, one or a few lines of output each:
                 priority and split switches -- on 4,096 camera rays (the
                 priority ones on procedural.overlap_curtain from its
                 inside cameras, at least 5% of the active lanes priority
-                false hits), and K1's split variant on 65,536 rays of the
+                false hits), K1's eight without priorities again on the
+                44-triangle curtain grid, whose table takes K1's
+                tensor-core screen (tables of at most 16 triangles, as the
+                one-quad curtain's 14, take its exact loops), and K1's
+                split variant on 65,536 rays of the
                 Cornell path (slot 2) and of the rooms (slot 3, the SF_*
                 rows), K4's on the 64 groups of the city's sorted 1080p
                 wavefront with the most hits (slot 2, and in the export
@@ -331,7 +335,9 @@ Phases, one or a few lines of output each:
                 decompose), bounce 0 injected with the planes' budgets and
                 bounce 2, phase 3's criteria and >= 99.9% of the lanes
                 bit-exact; all sixteen instantiations with inject on (phase
-                17's rays, bit-exact); the inject launch timed at 2^18
+                17's rays, bit-exact), the eight without priorities again
+                on phase 17's 44-triangle curtain grid (the screen); the
+                inject launch timed at 2^18
                 lanes beside the ordinary K1, with its bound, and the
                 restart instantiations' registers and spills. (b) The
                 frames at 1920x1080, 4 bounces, power NEE, the camera
@@ -4755,6 +4761,59 @@ def _bit_exact(kern, plain):
     return same and err == 0.0, err
 
 
+def _k1_screen_instantiations(phase, dev, restart):
+    """K1's eight instantiations without the priority switch (texture,
+    micromaps, split) on 4,096 camera rays of the 44-triangle curtain grid
+    (procedural.curtain_cornell(True, grid=4)), whose table takes K1's
+    tensor-core screen (the one-quad curtain's 14 triangles take its exact
+    loops; the priority instantiations' overlap curtain, 28, the screen):
+    bounces 0 and 2 against the plain version, `restart` with
+    first_direct=False and bounce 0 injected, audited under `phase`.
+    Returns ({key: {bounce: (bit-exact, max abs err)}}, failures)."""
+    import itertools
+
+    import torch
+
+    from rtxpt_tpu_torch.config import NEEMode, PathTracerConfig
+    from rtxpt_tpu_torch.prepare import prepare
+    from rtxpt_tpu_torch.pt import bounce_fused as bf
+    from rtxpt_tpu_torch.pt.integrator import _pixel_grid, camera_rays
+    from rtxpt_tpu_torch.scene.procedural import curtain_cornell, default_camera
+
+    host = curtain_cornell(True, grid=4)
+    scene = prepare(host, device=dev)
+    if scene.bounce_tables.n_tris <= bf.EXACT_TRIS:
+        _fail(f"{phase}: the curtain grid does not take K1's screen")
+    out, failed = {}, []
+    for t, o_, s_ in itertools.product((False, True), repeat=3):
+        cfg = PathTracerConfig(max_bounces=3, nee=NEEMode.POWER,
+                               stochastic_texture_filtering=t)
+        kcfg = bf.KernelConfig.from_cfg(cfg)
+        tb = dataclasses.replace(scene.bounce_tables, omm=o_)
+        cam = default_camera(host, SPLIT_SIDE, SPLIT_SIDE, device=dev)
+        px, py = _pixel_grid(SPLIT_SIDE, SPLIT_SIDE, dev)
+        fs, is_ = bf.initial_state(*camera_rays(cam, cfg, px, py, 1), px, py)
+        fs2 = torch.zeros((bf.NF2, fs.shape[1]), device=dev) if s_ else None
+        inj = bf.bounce_reference(fs, is_, tb, kcfg, 1, fs2=fs2)[2][
+            :bf.NINJ].contiguous() if restart else None
+        key = f"tex{int(t)}_omm{int(o_)}_split{int(s_)}"
+        out[key] = {}
+        for b in range(3):
+            kw = dict(fs2=fs2)
+            if restart:
+                kw.update(inj=inj if b == 0 else None, first_direct=False)
+            plain = bf.bounce_reference(fs, is_, tb, kcfg, 1, **kw)
+            if b in (0, 2):
+                kern = _k1_audited(phase, lambda: bf.bounce(
+                    fs, is_, tb, kcfg, 1, **kw), plain)
+                out[key][f"b{b}"] = _bit_exact(kern, plain)
+                if not out[key][f"b{b}"][0]:
+                    failed.append(f"k1 screen {key} bounce {b}")
+            fs, is_ = plain[0], plain[1]
+            fs2 = plain[-1] if s_ else None
+    return out, failed
+
+
 def _split_aux(record, dev, smi, dump, city_prepared):
     """Phase 17: the split channels and the aux guide buffers. (a) All
     sixteen instantiations (tex, omm, prio, split) of K1 on the curtain
@@ -4921,6 +4980,13 @@ def _split_aux(record, dev, smi, dump, city_prepared):
           f"{err_k1:.3g}, K4 {err_k4:.3g}; the priority ones on the overlap "
           f"curtain, false hits at least {least:.4f} of the active lanes",
           flush=True)
+    rec["k1_screen_instantiations"], bad = _k1_screen_instantiations(
+        "split", dev, False)
+    failed += bad
+    print(f"split (a): K1's 8 instantiations without priorities on the "
+          f"44-triangle curtain grid (the screen): "
+          f"{8 - len({f.split()[2] for f in bad})} of 8 bit-exact at bounces "
+          f"0 and 2", flush=True)
 
     # ---- (a) the split variants on the main paths' inputs, (b) times ----
     chost = cornell_box()
@@ -5426,6 +5492,13 @@ def _realtime(record, dev, smi, dump, city_prepared):
     print(f"realtime k1 inject: {n_exact} of 16 instantiations bit-exact at "
           f"bounces 0 (injected) and 2 on {SPLIT_SIDE * SPLIT_SIDE} rays, "
           f"first_direct=False", flush=True)
+    rec["k1_screen_instantiations"], bad = _k1_screen_instantiations(
+        "realtime", dev, True)
+    failed += bad
+    print(f"realtime k1 inject: the 8 instantiations without priorities on "
+          f"the 44-triangle curtain grid (the screen): "
+          f"{8 - len({f.split()[2] for f in bad})} of 8 bit-exact at bounces "
+          f"0 (injected) and 2", flush=True)
     _k1_report(record, "realtime", dump)
 
     # the inject launch timed beside the ordinary K1 (2^18 lanes)

@@ -161,6 +161,30 @@ RT_HD int tri_micro_state(const Tables& tb, int j, float u, float v) {
   return micro_state((uint32_t)RT_LDG(tb.micro + j), micro_index(u, v));
 }
 
+// Closest hit over every triangle; strict `<` keeps the lowest index on ties
+// (bounce_pallas._intersect_group). HasOmm: micro-TRANSPARENT candidates are
+// rejected, and the winner's UNKNOWN state is kept.
+template <bool HasOmm>
+RT_HD Hit intersect(const Tables& tb, V3 o, V3 d, float tmax) {
+  Hit h;
+  h.t = kBig; h.u = 0.0f; h.v = 0.0f; h.det = 0.0f; h.prim = -1; h.unk = false;
+  V3 x = cross3(o, d);
+  for (int j = 0; j < tb.n_tris; ++j) {
+    float u, v, t, det;
+    bool ok = tri_test(tb.tri + j * TC_ROWS, o, d, x, u, v, t, det);
+    if (ok && t < tmax && t < h.t) {
+      int st = MICRO_OPAQUE;
+      if constexpr (HasOmm) {
+        st = tri_micro_state(tb, j, u, v);
+        if (st == MICRO_TRANSPARENT) continue;
+      }
+      h.t = t; h.u = u; h.v = v; h.det = det; h.prim = j;
+      h.unk = st == MICRO_UNKNOWN;
+    }
+  }
+  return h;
+}
+
 // Any hit in (0, tmax) (bounce_pallas._occluded_group); `tested` counts the
 // ray-triangle pairs tested, up to and including the first occluder. HasOmm:
 // a micro-TRANSPARENT candidate never occludes, an UNKNOWN one where

@@ -6,8 +6,6 @@
 
 #include <cuda_runtime.h>
 
-#include <algorithm>
-
 #include "bounce_fused_mma.cuh"
 
 namespace rt {
@@ -53,22 +51,16 @@ inline Config bounce_config(unsigned int sample_idx, int nee_mode, int enable_mi
   return cfg;
 }
 
-// Launch a K1 kernel `fn` on n rays: k1::kThreads threads a block, the
-// tile's dynamic shared memory (t8 triangles), as many blocks as fit on the
-// card at once (one per SM) and no more than the rays fill. Returns the
-// CUDA error.
+// Launch a K1 kernel `fn` on n rays: k1::kThreads threads a block, one
+// batch of 32 rays a warp, the tile's dynamic shared memory (t8
+// triangles). Returns the CUDA error.
 template <class Fn, class... Args>
 int launch_k1(Fn* fn, int n, int t8, cudaStream_t stream, Args... args) {
   const int smem = k1::smem_bytes(t8);
-  cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  int dev = 0, sms = 0, per_sm = 0;
-  if (e == cudaSuccess) e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, k1::kThreads, smem);
+  const cudaError_t e =
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  const int blocks = std::min((n + k1::kThreads - 1) / k1::kThreads, std::max(per_sm, 1) * sms);
-  fn<<<blocks, k1::kThreads, smem, stream>>>(args...);
+  fn<<<(n + k1::kThreads - 1) / k1::kThreads, k1::kThreads, smem, stream>>>(args...);
   return (int)cudaGetLastError();
 }
 

@@ -32,16 +32,26 @@
 // are resolved by tri_test itself on the f32 rows, so K1's results stay
 // bit-exact with bounce_reference.
 //
-// Layout. One block of 512 threads (16 warps) per SM, persistent: the block
-// stages the whole tile (at most 2048 triangles: 31 x 2,056 bf16 and 8 KB of
-// scales) into shared memory with cp.async once, and then each warp walks
-// batches of 32 consecutive rays, batch warp, warp + all warps, ...; no
-// block barrier follows the staging. Within a batch, K3's layout: lane
+// Layout. Blocks of 512 threads (16 warps; 128 registers a thread, one
+// block per SM), one batch of 32 consecutive rays per warp: the block
+// stages the whole tile (at most 2048 triangles: 31 x 2,056 bf16 and 8 KB
+// of scales) into shared memory with cp.async while its lanes load their
+// rays, and no block barrier follows. Persistent blocks that walked the
+// batches in a fixed order were 16-22% slower on the 14- and 36-triangle
+// tables (tools/k1_variants.py, PERF.md): the hardware's block scheduler
+// balances the shading's uneven cost better. Within a batch, K3's layout: lane
 // 4g + q owns ray 4g + q and writes its A row to tile q / 2, row
 // g + 8 (q % 2); the accumulator e of thread 4g + q holds ray row
 // g + 8 (e / 2) of tile mt, i.e. the ray of lane 4g + 2 mt + e / 2, and
 // triangle 8 ch + 2q + e % 2. Per chunk of 8 triangles and 16 rays: one
 // ldmatrix.x2 (det) and two .x4 (u, v) of B, 5 mma.sync.m16n8k16.
+//
+// Tables of at most 16 triangles (kExactChunks chunks) take the per-lane
+// exact loops instead (bounce_fused.cuh intersect and occluded, the CUDA-
+// core K1's): there the screen's fixed cost per warp (the operand, the
+// mask exchange, a resolve of most candidates anyway) outweighs the exact
+// tests it saves. On the card (tools/k1_variants.py, PERF.md) the screen
+// was 4-12% slower on 8-16 triangles and 3-5% faster on 32-36.
 //
 // The resolve. A passing pair sets one bit of the thread's mask for that
 // ray (bit 2c + e % 2 of chunk c of a group of 16 chunks, 128 triangles);
@@ -70,6 +80,7 @@ constexpr int kThreads = 32 * kWarps;      // one block per SM
 constexpr int kTileRows = 30;              // det c_hi, c_lo (3 + 3), u, v (6 + 6)
 constexpr int kZeroRow = kTileRows;        // the staged tile's zero row
 constexpr int kGroup = 16;                 // chunks of 8 triangles per resolve
+constexpr int kExactChunks = 2;            // tables of at most 16 triangles: exact loops
 constexpr float kScreen = 4.0f * (float)2e-3;   // K3's screen margin, of |det|
 constexpr float kEps = 1.0f / 8192.0f;          // the error term's 2^-13
 constexpr unsigned kFull = 0xffffffffu;
@@ -108,17 +119,23 @@ __device__ __forceinline__ int tile_row(int qn, int k) {
 
 // Whether a pair can pass the plain test (see the header): e is the
 // pair's error term.
+// The signs are flipped by det's sign bit (a zero det is screened by
+// |det| alone), and the margins are rounded once (fma): their slack is far
+// above a rounding.
 __device__ __forceinline__ bool screen(float det, float un, float vn, float e) {
   const float absd = fabsf(det);
-  const float s = det >= 0.0f ? 1.0f : -1.0f;
-  const float su = un * s, sv = vn * s;
-  const float w = kScreen * absd + e;
-  const float lim = absd + 2.0f * (w + e);
+  const uint32_t sign = __float_as_uint(det) & 0x80000000u;
+  const float su = __uint_as_float(__float_as_uint(un) ^ sign);
+  const float sv = __uint_as_float(__float_as_uint(vn) ^ sign);
+  const float w = __fmaf_rn(kScreen, absd, e);
+  const float lim = __fmaf_rn(2.0f, w + e, absd);
   if (absd < e) return fabsf(un) + fabsf(vn) <= lim;
   return absd > 0.0f && fminf(su, sv) >= -w && su + sv <= lim;
 }
 
-// Stage the tile, its zero row and the scales; every thread of the block.
+// Issue the copies of the tile and the scales and write the zero row;
+// every thread of the block. The caller waits (cp_async_wait, then a block
+// barrier).
 __device__ __forceinline__ void stage_tile(unsigned char* smem, const __nv_bfloat16* tile,
                                            const float* scale, int t8) {
   __nv_bfloat16* bt = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -133,8 +150,6 @@ __device__ __forceinline__ void stage_tile(unsigned char* smem, const __nv_bfloa
   for (int k = threadIdx.x; k < stride / 8; k += kThreads)
     reinterpret_cast<uint4*>(bt + kZeroRow * stride)[k] = make_uint4(0, 0, 0, 0);
   cl::cp_async_commit();
-  cl::cp_async_wait<0>();
-  __syncthreads();
 }
 
 // One warp's view of the staged tile: the ldmatrix row addresses of its
@@ -378,12 +393,12 @@ __device__ bool occluded_warp(const Warp& w, const Tables& tb, V3 o, V3 d, float
   return occ;
 }
 
-// The block body of both libraries: stage the tile, then each warp's
-// batches of 32 rays: the closest hit (or, with Restart and `inj`, the
-// injected hit), hit rows 0-4, then per live lane the final environment
-// round or surface_and_shade with the state, SF_* rows and hit row 5
-// written, then the warp's shadow walk for the lanes with a request and
-// their contribution. The shading is bounce_fused.cuh's per-lane body.
+// The block body of both libraries: stage the tile, then each warp's batch
+// of 32 rays: the closest hit (or, with Restart and `inj`, the injected
+// hit), hit rows 0-4, then per live lane the final environment round or
+// surface_and_shade with the state, SF_* rows and hit row 5 written, then
+// the warp's shadow walk for the lanes with a request and their
+// contribution. The shading is bounce_fused.cuh's per-lane body.
 template <bool HasTex, bool HasOmm, bool HasPrio, bool HasSplit, bool Restart>
 __device__ __forceinline__ void bounce_block(
     const float* __restrict__ fs, const int* __restrict__ is, const float* __restrict__ fs2,
@@ -392,90 +407,97 @@ __device__ __forceinline__ void bounce_block(
     const __nv_bfloat16* __restrict__ tile, const float* __restrict__ scale, int t8,
     const Tables& tb, const Config& cfg, int n) {
   extern __shared__ __align__(16) unsigned char smem[];
-  stage_tile(smem, tile, scale, t8);
+  const bool exact = t8 / 8 <= kExactChunks;  // one value for the launch
+  if (!exact) stage_tile(smem, tile, scale, t8);
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  const bool live = i < n;
+  V3 o = splat(0.0f), d = splat(0.0f);
+  if (live) {
+    o = v3(fs[(FS_O + 0) * n + i], fs[(FS_O + 1) * n + i], fs[(FS_O + 2) * n + i]);
+    d = v3(fs[(FS_D + 0) * n + i], fs[(FS_D + 1) * n + i], fs[(FS_D + 2) * n + i]);
+  }
+  if (!exact) {
+    cl::cp_async_wait<0>();
+    __syncthreads();
+  }
+  if (__all_sync(kFull, !live)) return;  // a warp past n, after the barrier
   const Warp w = warp_view(smem, t8);
   const bool count_on = g_screen_on != 0;
-  const int stride = gridDim.x * kThreads;
-  for (int base = (blockIdx.x * kWarps + (threadIdx.x >> 5)) * 32; base < n; base += stride) {
-    const int i = base + w.lane;
-    const bool live = i < n;
-    V3 o = splat(0.0f), d = splat(0.0f);
-    if (live) {
-      o = v3(fs[(FS_O + 0) * n + i], fs[(FS_O + 1) * n + i], fs[(FS_O + 2) * n + i]);
-      d = v3(fs[(FS_D + 0) * n + i], fs[(FS_D + 1) * n + i], fs[(FS_D + 2) * n + i]);
-    }
-    Hit h;
-    if (Restart && inj != nullptr) {
-      h.t = kBig; h.u = 0.0f; h.v = 0.0f; h.det = 0.0f; h.prim = -1; h.unk = false;
-      if (live) h = injected_hit(i, n, inj);
-    } else {
-      h = closest<HasOmm>(w, tb, o, d, cfg.max_travel, live, count_on);
-    }
-    float* ho = hit_out + i;
-    if (live) {
-      ho[0] = h.t < kBig ? h.t : 0.0f;
-      ho[n] = (float)h.prim;
-      ho[2 * n] = h.u;
-      ho[3 * n] = h.v;
-      ho[4 * n] = h.det > 0.0f ? 1.0f : 0.0f;
-    }
-    Split sp;
-    if (cfg.final_env) {  // one value for the launch: no warp diverges on it
-      if (live) {
-        RayState s = load_state(i, n, fs, is);
-        if constexpr (HasSplit) sp = load_split(i, n, fs2);
-        final_env_state<HasSplit>(s, h.t < kBig, tb, cfg,
-                                  (1 << 1) | (1 << 2) | (1 << 4) | (1 << 5), &sp);
-        store_state(i, n, s, fs_out, is_out);
-        if constexpr (HasSplit) store_split(i, n, sp, fs2_out);
-        ho[5 * n] = 0.0f;
-      }
-      continue;
-    }
-    ShadowRay sr;
-    sr.do_nee = false;
-    sr.o = splat(0.0f);
-    sr.d = splat(0.0f);
-    sr.dist = 0.0f;
-    sr.u_alpha = 0.0f;
-    V3 L = splat(0.0f);
+  Hit h;
+  h.t = kBig; h.u = 0.0f; h.v = 0.0f; h.det = 0.0f; h.prim = -1; h.unk = false;
+  if (Restart && inj != nullptr) {
+    if (live) h = injected_hit(i, n, inj);
+  } else if (exact) {
+    if (live) h = intersect<HasOmm>(tb, o, d, cfg.max_travel);
+  } else {
+    h = closest<HasOmm>(w, tb, o, d, cfg.max_travel, live, count_on);
+  }
+  float* ho = hit_out + i;
+  if (live) {
+    ho[0] = h.t < kBig ? h.t : 0.0f;
+    ho[n] = (float)h.prim;
+    ho[2 * n] = h.u;
+    ho[3 * n] = h.v;
+    ho[4 * n] = h.det > 0.0f ? 1.0f : 0.0f;
+  }
+  Split sp;
+  if (cfg.final_env) {  // one value for the launch: no warp diverges on it
     if (live) {
       RayState s = load_state(i, n, fs, is);
       if constexpr (HasSplit) sp = load_split(i, n, fs2);
-      const int lb_in = s.lb;
-      auto attr = [&](int r) {
-        return h.prim >= 0 ? RT_LDG(tb.attr + r * tb.tpad + h.prim) : 0.0f;
-      };
-      SurfRows sf;
-      sr = surface_and_shade<HasTex, HasOmm, HasPrio, HasSplit, decltype(attr), Restart>(
-          s, h, attr, tb, cfg, surf_out != nullptr ? &sf : nullptr, &sp);
-      // the state goes out now; an unoccluded shadow ray rewrites L
+      final_env_state<HasSplit>(s, h.t < kBig, tb, cfg,
+                                (1 << 1) | (1 << 2) | (1 << 4) | (1 << 5), &sp);
       store_state(i, n, s, fs_out, is_out);
-      L = s.L;
-      if (surf_out != nullptr) {
-        store_surf(i, n, sf, surf_out);
-        ho[5 * n] = sf.shaded ? (lb_in > 0 ? 2.0f : 1.0f) : 0.0f;
-      } else {
-        ho[5 * n] = sr.do_nee ? 1.0f : 0.0f;
-      }
+      if constexpr (HasSplit) store_split(i, n, sp, fs2_out);
+      ho[5 * n] = 0.0f;
     }
-    const bool want = live && sr.do_nee;
-    bool lit = false;
-    if (__any_sync(kFull, want))
-      lit = !occluded_warp<HasOmm>(w, tb, sr.o, sr.d, sr.dist, sr.u_alpha, want, count_on) &&
-            want;
-    if (lit) {
-      L = L + sr.contrib;
-      float* fo = fs_out + i;
-      fo[(FS_L + 0) * n] = L.x; fo[(FS_L + 1) * n] = L.y; fo[(FS_L + 2) * n] = L.z;
-      if constexpr (HasSplit) {
-        sp.ld = sp.ld + sp.cdiff;
-        sp.ls = sp.ls + sr.contrib - sp.cdiff;
-      }
-    }
-    if constexpr (HasSplit)
-      if (live) store_split(i, n, sp, fs2_out);
+    return;
   }
+  ShadowRay sr;
+  sr.do_nee = false;
+  sr.o = splat(0.0f);
+  sr.d = splat(0.0f);
+  sr.dist = 0.0f;
+  sr.u_alpha = 0.0f;
+  V3 L = splat(0.0f);
+  if (live) {
+    RayState s = load_state(i, n, fs, is);
+    if constexpr (HasSplit) sp = load_split(i, n, fs2);
+    const int lb_in = s.lb;
+    auto attr = [&](int r) {
+      return h.prim >= 0 ? RT_LDG(tb.attr + r * tb.tpad + h.prim) : 0.0f;
+    };
+    SurfRows sf;
+    sr = surface_and_shade<HasTex, HasOmm, HasPrio, HasSplit, decltype(attr), Restart>(
+        s, h, attr, tb, cfg, surf_out != nullptr ? &sf : nullptr, &sp);
+    // the state goes out now; an unoccluded shadow ray rewrites L
+    store_state(i, n, s, fs_out, is_out);
+    L = s.L;
+    if (surf_out != nullptr) {
+      store_surf(i, n, sf, surf_out);
+      ho[5 * n] = sf.shaded ? (lb_in > 0 ? 2.0f : 1.0f) : 0.0f;
+    } else {
+      ho[5 * n] = sr.do_nee ? 1.0f : 0.0f;
+    }
+  }
+  const bool want = live && sr.do_nee;
+  bool lit = false;
+  if (exact)
+    lit = want && !occluded<HasOmm>(tb, sr.o, sr.d, sr.dist, sr.u_alpha);
+  else if (__any_sync(kFull, want))
+    lit = !occluded_warp<HasOmm>(w, tb, sr.o, sr.d, sr.dist, sr.u_alpha, want, count_on) &&
+          want;
+  if (lit) {
+    L = L + sr.contrib;
+    float* fo = fs_out + i;
+    fo[(FS_L + 0) * n] = L.x; fo[(FS_L + 1) * n] = L.y; fo[(FS_L + 2) * n] = L.z;
+    if constexpr (HasSplit) {
+      sp.ld = sp.ld + sp.cdiff;
+      sp.ls = sp.ls + sr.contrib - sp.cdiff;
+    }
+  }
+  if constexpr (HasSplit)
+    if (live) store_split(i, n, sp, fs2_out);
 }
 
 }  // namespace k1

@@ -430,6 +430,9 @@ TT_ROWS = 30
 # triangle's scale x the ray's largest component (see coefficient_tile).
 SCREEN_MARGIN = 4.0 * 2e-3
 SCREEN_EPS = 2.0 ** -13
+# tables of at most this many triangles take K1's exact per-lane loops
+# instead of the screen (csrc/bounce_fused_mma.cuh kExactChunks)
+EXACT_TRIS = 16
 
 
 def coefficient_tile(tri_coef: torch.Tensor, n_tris: int):
@@ -1760,13 +1763,15 @@ def bounce_screen_stats(device, enable: bool) -> dict:
     """Read and zero K1's screen counters on `device`, summed over its two
     libraries (the reference-mode and the restart instantiations), and set
     whether later launches count (off by default: a launch then costs one
-    uniform branch per warp). Counts since the last call: the closest-hit
-    pairs screened (8 per live lane and chunk of 8 triangles) and passed,
-    the shadow pairs likewise, the warps whose shadow walk ended before
-    the table's end (every requesting lane occluded), and `missed`: pairs
-    the exact test accepts that the screen rejected, which counting checks
-    on every rejected pair (it must stay 0); `share` and `shadow_share`
-    are the pass shares (None without pairs). Synchronous."""
+    uniform branch per warp; a table of at most EXACT_TRIS triangles takes
+    the exact loops and counts nothing). Counts since the last call: the
+    closest-hit pairs screened (8 per live lane and chunk of 8 triangles)
+    and passed, the shadow pairs likewise, the warps whose shadow walk
+    ended before the table's end (every requesting lane occluded), and
+    `missed`: pairs the exact test accepts that the screen rejected, which
+    counting checks on every rejected pair (it must stay 0); `share` and
+    `shadow_share` are the pass shares (None without pairs).
+    Synchronous."""
     total = dict.fromkeys(SCREEN_COUNTS, 0)
     with torch.cuda.device(device):
         for lib, entry in ((kernels.BOUNCE_FUSED,

@@ -15,7 +15,8 @@ shadow rays bounce_reference traces (none on the kitchen, whose 513
 lights take the external route). This file holds a torch model of the
 operand, the products summed exactly (float64), the screen and the
 resolve, and checks it against bounce_reference's closest hits and
-occlusions. No JAX: the plain K1 is held to the JAX kernel in
+occlusions (on the curtain too, whose 14 triangles the kernel tests with
+its exact loops: bounce_fused.EXACT_TRIS). No JAX: the plain K1 is held to the JAX kernel in
 tests/test_torch_fused.py and the feature files."""
 
 import functools
@@ -219,6 +220,20 @@ def screened(name):
         passed = screen(*tc, e) & live
         out.append((passed, accept & live, u, v, t, tc, plain, e))
     return out
+
+
+def test_screen_constants_match_the_kernel():
+    """csrc/bounce_fused_mma.cuh spells out the screen's margin, its error
+    term's factor and the exact-loop threshold that bounce_fused states."""
+    import re
+    from pathlib import Path
+    src = (Path(bf.__file__).resolve().parents[1] / "csrc"
+           / "bounce_fused_mma.cuh").read_text()
+    chunks = int(re.search(r"kExactChunks = (\d+);", src).group(1))
+    assert 8 * chunks == bf.EXACT_TRIS
+    assert "kEps = 1.0f / 8192.0f" in src and bf.SCREEN_EPS == 1 / 8192
+    assert "kScreen = 4.0f * (float)2e-3" in src
+    assert bf.SCREEN_MARGIN == 4.0 * 2e-3
 
 
 def test_coefficient_split_leaves_out_what_the_bound_counts():

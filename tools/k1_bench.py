@@ -9,15 +9,17 @@ Cases, each at 1920x1080 with 4 bounces: the Cornell box (power NEE, nee
 slot 2), rooms_scene(16) (NEE-AT, slot 3), kitchen_scene() (stochastic
 texture filtering, power NEE on the external route: slot 5 with the
 texture switch) and the curtain Cornell box (stochastic filtering, power
-NEE: the omm_tex variant in slot 2). For each: K1 timed with CUDA events
-at the bounce-0 launch of 2^18 camera rays spread over the frame (the
-paths' chunk), and with --check K1 against bounce_reference on 65,536
+NEE: the omm_tex variant in slot 2). For each: K1 timed at the bounce-0 launch of 2^18 camera rays spread over
+the frame (the paths' chunk) with CUDA events around 20 launches, and
+the same launches' kernel time from the profiler's records beside the
+host's time per call (the events time the host where it is the slower), and with --check K1 against bounce_reference on 65,536
 such rays at bounces 0 and 2 (the state carried by the plain version):
 the lanes whose outputs differ bit-wise. With --profile one 1-spp frame
 of the Cornell, rooms (render_sample with a NEE-AT state) and kitchen
 paths under torch.profiler: K1's device time and launches. The registers,
 stack frame and spills of every K1 instantiation come from the ptxas log
-of the build.
+of the build. --stacks adds stacks of 8, 16 and 32 triangles (random
+quads across single_triangle's view, power NEE) to the timed cases.
 
 The script uses only entry points the port has had since its K1 took the
 restart switch, so PYTHONPATH=<another checkout> runs that checkout's
@@ -53,6 +55,27 @@ def _cuda_ms(fn, iters):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def launch_costs(fn, iters):
+    """(K1's device time per launch from the profiler's kernel records,
+    the host's time per call of `fn` without a synchronisation) over
+    `iters` calls: the CUDA events of _cuda_ms measure the host's rate
+    instead where the wrapper takes longer than the kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host = (time.perf_counter() - t0) * 1e3 / iters
+        torch.cuda.synchronize()
+    ms, n = k1_device(prof)
+    return ms / max(n, 1), host
 
 
 def ptxas_entries(log):
@@ -101,8 +124,34 @@ def _entry_pattern(name):
     return "kernelI" + "".join(f"Lb{int(f)}E" for f in flags)
 
 
-def cases(dev):
-    """{name: (host, scene, resolved config, KernelConfig)}."""
+STACKS = (8, 16, 32)          # --stacks: triangles of the quad stacks
+
+
+def quad_stack(n_tris, seed=3):
+    """n_tris / 2 quads 0.002 apart along -z, each of a random extent
+    across single_triangle's view, lit by its point light."""
+    import numpy as np
+
+    from rtxpt_tpu_torch.scene import procedural as TP
+    from rtxpt_tpu_torch.scene.scene import MeshInstance
+    rng = np.random.default_rng(seed)
+    parts = []
+    for k in range(n_tris // 2):
+        z = -0.002 * k
+        x0, y0 = rng.uniform(-1.2, -0.1, 2)
+        x1, y1 = rng.uniform(0.1, 1.2, 2)
+        parts.append(TP._quad([x0, y0, z], [x1, y0, z], [x1, y1, z],
+                              [x0, y1, z], 0))
+    pos, nrm, uv, idx, mat = TP._merge(parts)
+    host = TP.single_triangle("point")
+    host.instances = [MeshInstance(positions=pos, normals=nrm, uvs=uv,
+                                   indices=idx, material=mat, name="stack")]
+    return host
+
+
+def cases(dev, stacks=False):
+    """{name: (host, scene, resolved config, KernelConfig, NEE-AT state)};
+    with `stacks` also the quad stacks (power NEE)."""
     from rtxpt_tpu_torch.config import NEEMode, PathTracerConfig
     from rtxpt_tpu_torch.prepare import prepare
     from rtxpt_tpu_torch.pt import bounce_fused as bf
@@ -117,6 +166,9 @@ def cases(dev):
                                           stochastic_texture_filtering=True)),
         curtain=(TP.curtain_cornell(True),
                  dict(nee=NEEMode.POWER, stochastic_texture_filtering=True)))
+    if stacks:
+        spec.update({f"stack{n}": (quad_stack(n), dict(nee=NEEMode.POWER))
+                     for n in STACKS})
     out = {}
     for name, (host, kw) in spec.items():
         scene = prepare(host, device=dev)
@@ -226,6 +278,8 @@ def main(argv=None):
     ap.add_argument("--out", help="write the JSON here too")
     ap.add_argument("--check", action="store_true")
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--stacks", action="store_true",
+                    help="time the quad stacks too")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -252,18 +306,23 @@ def main(argv=None):
                 if ("restart" in fn) == restart and re.search(
                         _entry_pattern(name), fn):
                     info["hmma"] = ops["HMMA"] + ops["HGMMA"]
-    all_cases = cases(dev)
+    all_cases = cases(dev, args.stacks)
     for name, case in all_cases.items():
         host, scene, cfg, kcfg, _ = case
         fs_t, is_t = camera_state(host, cfg, 512, 512, dev)
         tbl = scene.bounce_tables
         ms = _cuda_ms(lambda: bf.bounce(fs_t, is_t, tbl, kcfg, 1), ITERS)
-        res["times"][name] = dict(ms=ms, rays=int(fs_t.shape[1]),
+        device_ms, host_ms = launch_costs(
+            lambda: bf.bounce(fs_t, is_t, tbl, kcfg, 1), ITERS)
+        res["times"][name] = dict(ms=ms, device_ms=device_ms,
+                                  host_ms=host_ms, rays=int(fs_t.shape[1]),
                                   slot=kcfg.nee_mode,
                                   tex=bool(bf.use_tex(tbl, kcfg)),
                                   omm=bool(tbl.omm), tris=tbl.n_tris)
         print(f"k1 {name} slot {kcfg.nee_mode}: {ms:.4f} ms per "
-              f"{fs_t.shape[1]}-ray bounce-0 launch ({smi})", flush=True)
+              f"{fs_t.shape[1]}-ray bounce-0 launch (events), "
+              f"{device_ms:.4f} ms of kernel (profiler), {host_ms:.4f} ms "
+              f"of host per call ({smi})", flush=True)
         if args.check:
             res["checks"][name] = c = check(name, case, dev)
             print(f"k1 {name} check: {json.dumps(c)}", flush=True)

@@ -45,7 +45,9 @@ def main(argv=None):
             root, os.path.join(scratch, f"run{i}.json"))))
         r = runs[-1]
         print(f"k1 {label} (run {i}): " + ", ".join(
-            f"{c} {t['ms']:.4f} ms" for c, t in r["times"].items())
+            f"{c} {t['ms']:.4f} ms (kernel {t.get('device_ms', 0):.4f}, "
+            f"host {t.get('host_ms', 0):.4f})"
+            for c, t in r["times"].items())
             + "; frames " + ", ".join(
                 f"{c} K1 {p['k1_ms']:.3f} ms / {p['k1_launches']} launches"
                 for c, p in r["frames"].items()) + f" ({r['card']})",

@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
 """K1's launch shape on one NVIDIA GPU: the bounce-0 launch times of
-tools/k1_bench.py's four cases for variants of K1's block and grid.
+tools/k1_bench.py's four cases for variants of K1's block.
 
     python3 tools/k1_variants.py [--parent DIR] [--out chiprun_out/v.json]
 
 Each variant is this checkout's csrc/ copied under build/k1_variants/ with
 K1's warps per block (bounce_fused_mma.cuh kWarps), its minimum blocks
 per SM (the kernels' __launch_bounds__, which sets the register cap) and
-its grid (`persistent`: as many blocks as fit on the card, each warp
-walking batches of 32 rays; `per-batch`: one batch per warp) replaced,
-built with the port's nvcc flags and launched through bounce_fused.bounce.
+the largest table it tests with the exact per-lane loops instead of the
+screen (kExactChunks, in chunks of 8 triangles) replaced, built with the
+port's nvcc flags and launched through bounce_fused.bounce; every launch
+keeps one batch of 32 rays per warp. Each variant's outputs are held bit
+for bit to the default library's. The cases are k1_bench.py's with its
+quad stacks (--stacks), which locate where the screen starts to pay.
 With --parent, tools/k1_bench.py runs on that checkout's package first
 and last (its K1 as it was), so every time is from one card. Prints one
 JSON object; imports nothing of JAX."""
@@ -25,19 +28,15 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.append(ROOT)
 
-# name: (warps per block, min blocks per SM, grid)
+# name: (warps per block, min blocks per SM, exact-loop chunks)
 VARIANTS = {
-    "w16_persistent": (16, 1, "persistent"),
-    "w16_per_batch": (16, 1, "per-batch"),
-    "w8_persistent": (8, 2, "persistent"),
-    "w4_per_batch": (4, 4, "per-batch"),
-    "w4_persistent": (4, 4, "persistent"),
-    "w8_per_batch": (8, 2, "per-batch"),
-    "w4_per_batch_uncapped": (4, 1, "per-batch"),
+    "w16": (16, 1, 0),
+    "w16_exact2": (16, 1, 2),
+    "w16_exact5": (16, 1, 5),
+    "w8": (8, 2, 0),
+    "w4": (4, 4, 0),
 }
-
-
-def variant_csrc(name, warps, min_blocks, grid):
+def variant_csrc(name, warps, min_blocks, exact_chunks):
     """csrc/ with the variant's launch shape, under build/k1_variants."""
     src = os.path.join(ROOT, "rtxpt_tpu_torch", "csrc")
     dst = os.path.join(ROOT, "build", "k1_variants", name, "csrc")
@@ -52,12 +51,11 @@ def variant_csrc(name, warps, min_blocks, grid):
         open(path, "w").write(text.replace(old, new))
     sub("bounce_fused_mma.cuh", "constexpr int kWarps = 16;",
         f"constexpr int kWarps = {warps};")
+    sub("bounce_fused_mma.cuh", "constexpr int kExactChunks = 0;",
+        f"constexpr int kExactChunks = {exact_chunks};")
     for f in ("bounce_fused.cu", "bounce_fused_restart.cu"):
         sub(f, "__launch_bounds__(rt::k1::kThreads, 1)",
             f"__launch_bounds__(rt::k1::kThreads, {min_blocks})")
-    if grid == "per-batch":
-        sub("bounce_fused_launch.cuh", "std::max(per_sm, 1) * sms",
-            "(n + k1::kThreads - 1) / k1::kThreads")
     return dst
 
 
@@ -82,7 +80,7 @@ def main(argv=None):
         env = dict(os.environ, PYTHONPATH=os.path.abspath(args.parent))
         subprocess.run([sys.executable, os.path.join(ROOT, "tools",
                                                      "k1_bench.py"),
-                        "--out", out], env=env, check=True,
+                        "--stacks", "--out", out], env=env, check=True,
                        stdout=subprocess.DEVNULL)
         res["parent"].append(json.load(open(out))["times"])
 
@@ -101,7 +99,7 @@ def main(argv=None):
     original = kernels.BOUNCE_FUSED
     original.load()                     # beside the variants' builds
     dev = torch.device("cuda:0")
-    cases = k1_bench.cases(dev)
+    cases = k1_bench.cases(dev, stacks=True)
     for name, so, proc in procs:
         log = proc.communicate()[0]
         if proc.returncode != 0:

@@ -623,6 +623,10 @@ def _k1_audited(phase, run, plain):
     return kern
 
 
+def _pct(share):
+    return "none" if share is None else f"{share:.5%}"
+
+
 def _k1_report(record, phase, dump):
     """Print and record `phase`'s K1 audit. A pair that the exact test
     accepts and the screen rejected fails the run."""
@@ -635,11 +639,10 @@ def _k1_report(record, phase, dump):
     a = dict(a, share=share("passed", "pairs"),
              shadow_share=share("shadow_passed", "shadow_pairs"))
     record.setdefault("k1_audit", {})[phase] = a
-    fmt = lambda x: "none" if x is None else f"{x:.5%}"   # noqa: E731
     print(f"{phase} K1: {a['lanes_differ']} of {a['lanes']} lanes differ "
           f"bit-wise from the plain version over {a['comparisons']} "
-          f"launches (expected 0); screen pass share {fmt(a['share'])} of "
-          f"{a['pairs']} closest-hit pairs, {fmt(a['shadow_share'])} of "
+          f"launches (expected 0); screen pass share {_pct(a['share'])} of "
+          f"{a['pairs']} closest-hit pairs, {_pct(a['shadow_share'])} of "
           f"{a['shadow_pairs']} shadow pairs, {a['ended_early']} shadow "
           f"walks ended early, {a['missed']} accepted pairs missed",
           flush=True)
@@ -853,8 +856,9 @@ def main(record_path=None, group_path=None):
     print(f"golden: RMSE {e:.6f} PSNR {p:.2f} dB over {used} K1 launches; "
           f"{px_differ} of 1024 pixels differ bit-wise from the plain "
           f"version's render (expected 0); K1 screen pass share "
-          f"{screen['share']:.5%} closest hit, {screen['shadow_share']:.5%} "
-          f"shadow rays, {screen['missed']} accepted pairs missed",
+          f"{_pct(screen['share'])} closest hit, "
+          f"{_pct(screen['shadow_share'])} shadow rays, {screen['missed']} "
+          f"accepted pairs missed",
           flush=True)
     if not (e < 5e-3 and p > 40 and used == 8 * 3) or screen["missed"]:
         dump()

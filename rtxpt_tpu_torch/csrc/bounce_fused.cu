@@ -33,7 +33,10 @@
 // the layout). The TPU kernel's one-hot gathers become indexed loads: only
 // the winner's attribute column is read from global memory. -fmad=false
 // keeps every f32 operation of the shading and of the resolve rounded as
-// the plain version rounds it.
+// the plain version rounds it. Tables of at most 16 triangles take a
+// second kernel of each switch set, bounce_fused_kernel_exact: the
+// CUDA-core form (one thread per ray walking every triangle with the
+// exact test, bounce_fused.cuh bounce_ray), which is faster there.
 //
 // What bounds it: instructions and latency, not bytes. Per ray and bounce it
 // reads 92 B of state (15 f32 + 8 i32 rows) and writes 116 B (the state and
@@ -41,7 +44,7 @@
 // through the exact test (~60 issued instructions a pair, twice with the
 // shadow ray): on the rooms' 552 and the kitchen's 1,186 triangles that loop
 // was most of a launch. Here a pair costs a share of 5 mma.sync per 8
-// triangles and 16 rays and ~15 f32 operations of screen, and the exact test
+// triangles and 16 rays and ~20 f32 operations of screen, and the exact test
 // runs on the pairs that pass (a line through the scene crosses a few dozen
 // triangles); what remains is the serial shading chain (hashes, Sobol'
 // folds, BSDF eval/pdf/sample) and its loads.
@@ -123,11 +126,28 @@ bounce_fused_kernel(const float* __restrict__ fs, const int* __restrict__ is,
       cfg, n);
 }
 
+// The CUDA-core form for tables of at most 16 triangles (bounce_fused_mma.cuh
+// kExactChunks): one thread per ray, the exact loops; the same arguments.
+template <bool HasTex, bool HasOmm, bool HasPrio, bool HasSplit>
+__global__ void __launch_bounds__(rt::k1::kExactThreads)
+bounce_fused_kernel_exact(const float* __restrict__ fs, const int* __restrict__ is,
+                          const float* __restrict__ fs2, float* __restrict__ fs_out,
+                          int* __restrict__ is_out, float* __restrict__ hit_out,
+                          float* __restrict__ surf_out, float* __restrict__ fs2_out,
+                          const __nv_bfloat16* __restrict__, const float* __restrict__, int,
+                          rt::Tables tb, rt::Config cfg, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  rt::bounce_ray<HasTex, HasOmm, HasPrio, HasSplit, false>(
+      i, n, fs, is, fs2, fs_out, is_out, hit_out, surf_out, fs2_out, nullptr, tb, cfg);
+}
+
 template <bool HasTex, bool HasOmm, bool HasPrio, bool HasSplit>
 struct Kernel {
   template <class... Args>
   static int launch(int n, int t8, cudaStream_t stream, Args... args) {
-    return rt::launch_k1(bounce_fused_kernel<HasTex, HasOmm, HasPrio, HasSplit>, n, t8,
+    return rt::launch_k1(bounce_fused_kernel<HasTex, HasOmm, HasPrio, HasSplit>,
+                         bounce_fused_kernel_exact<HasTex, HasOmm, HasPrio, HasSplit>, n, t8,
                          stream, args...);
   }
 };

@@ -1,9 +1,10 @@
 // One bounce of one ray: closest hit, surface fetch, emissive MIS, NEE with
-// its shadow ray, BSDF scatter and Russian roulette. The per-lane parts of
-// the fused bounce kernel (bounce_fused.cu; its warps' closest hit and
-// shadow ray on the tensor cores are bounce_fused_mma.cuh's, which resolves
-// their candidates with tri_test), and K2's any-hit loop (`occluded`,
-// shadow_occlusion.cu); the plain version of the same
+// its shadow ray, BSDF scatter and Russian roulette. The per-thread body of
+// the fused bounce kernel (bounce_fused.cu) on tables of at most 16
+// triangles, and the per-lane parts of its tensor-core form for larger
+// ones (bounce_fused_mma.cuh, which resolves its screened candidates with
+// tri_test), and K2's any-hit loop (`occluded`, shadow_occlusion.cu); the
+// plain version of the same
 // function is rtxpt_tpu_torch/pt/bounce_fused.py::bounce_reference, and the
 // TPU original is rtxpt_tpu/pt/bounce_pallas.py::_bounce_kernel with
 // surface_and_shade in the reference-mode configuration (no split
@@ -33,11 +34,11 @@
 // fs2 rows at :1401-1422, :1501-1504, :1543-1545, :1568-1570): NRD's
 // diffuse/specular partition of the radiance, in the seven fs2 rows. The
 // real-time fill's switches are the template parameter Restart of
-// bounce_block: with it, the V-buffer restart (bounce_pallas.py:1427-1442)
-// takes each lane's hit from the injected rows, when given, instead of the
-// closest hit, and Config::first_direct false (bounce_pallas.py
-// :980-986, :1267-1268) leaves out the environment and emission gathered at
-// logical bounce 1 and NEE at logical bounce 0. Without it the code is the
+// bounce_ray and bounce_block: with it, the V-buffer restart
+// (bounce_pallas.py:1427-1442) takes each lane's hit from the injected
+// rows, when given, instead of the closest hit, and Config::first_direct
+// false (bounce_pallas.py :980-986, :1267-1268) leaves out the environment
+// and emission gathered at logical bounce 1 and NEE at logical bounce 0. Without it the code is the
 // reference mode's, so those instantiations keep their registers.
 #pragma once
 
@@ -887,6 +888,73 @@ RT_HD void store_surf(int i, int n, const SurfRows& sf, float* __restrict__ surf
   put3(SF_EMIT, sf.emit);
   so[SF_PGEO * n] = sf.p_geo;
   so[SF_LID * n] = sf.lid;
+}
+
+// One bounce of ray i, one thread per ray: closest hit, surface_and_shade,
+// the shadow ray, and the state and hit rows written back ([rows, n] SoA
+// columns); K1's kernels for tables of at most 16 triangles
+// (bounce_fused_mma.cuh kExactChunks) run it. With `surf_out`
+// (the external modes 3-5 with lights) the surface rows go there, no shadow
+// ray is traced, and hit row 5 holds the shading flag: 0 not shaded, 1 shaded
+// at logical bounce 0, 2 shaded later (bounce_pallas.py:1556-1560).
+// HasSplit: the split rows fs2 in and fs2_out out ([NF2, n]); an unoccluded
+// NEE contribution adds cdiff to L_diff and the rest to L_spec (in the
+// external modes trace_paths_fused merges it). Restart: with `inj` ([5, n],
+// or null) the closest hit is read from the injected rows (the V-buffer
+// restart; one pointer for the launch, so no warp diverges on it), and
+// Config::first_direct is read; without Restart `inj` is not read.
+template <bool HasTex, bool HasOmm, bool HasPrio, bool HasSplit, bool Restart>
+RT_HD void bounce_ray(int i, int n, const float* __restrict__ fs, const int* __restrict__ is,
+                      const float* __restrict__ fs2, float* __restrict__ fs_out,
+                      int* __restrict__ is_out, float* __restrict__ hit_out,
+                      float* __restrict__ surf_out, float* __restrict__ fs2_out,
+                      const float* __restrict__ inj, const Tables& tb,
+                      const Config& cfg) {
+  RayState s = load_state(i, n, fs, is);
+  Split sp;
+  if constexpr (HasSplit) sp = load_split(i, n, fs2);
+  const int lb_in = s.lb;
+  Hit h;
+  if constexpr (Restart) {
+    h = inj != nullptr ? injected_hit(i, n, inj) : intersect<HasOmm>(tb, s.o, s.d, cfg.max_travel);
+  } else {
+    h = intersect<HasOmm>(tb, s.o, s.d, cfg.max_travel);
+  }
+  float* ho = hit_out + i;
+  ho[0] = h.t < kBig ? h.t : 0.0f;
+  ho[n] = (float)h.prim;
+  ho[2 * n] = h.u;
+  ho[3 * n] = h.v;
+  ho[4 * n] = h.det > 0.0f ? 1.0f : 0.0f;
+  if (cfg.final_env) {
+    final_env_state<HasSplit>(s, h.t < kBig, tb, cfg,
+                              (1 << 1) | (1 << 2) | (1 << 4) | (1 << 5), &sp);
+    store_state(i, n, s, fs_out, is_out);
+    if constexpr (HasSplit) store_split(i, n, sp, fs2_out);
+    ho[5 * n] = 0.0f;
+    return;
+  }
+  auto attr = [&](int r) {
+    return h.prim >= 0 ? RT_LDG(tb.attr + r * tb.tpad + h.prim) : 0.0f;
+  };
+  SurfRows sf;
+  ShadowRay sr = surface_and_shade<HasTex, HasOmm, HasPrio, HasSplit, decltype(attr), Restart>(
+      s, h, attr, tb, cfg, surf_out != nullptr ? &sf : nullptr, &sp);
+  if (sr.do_nee && !occluded<HasOmm>(tb, sr.o, sr.d, sr.dist, sr.u_alpha)) {
+    s.L = s.L + sr.contrib;
+    if constexpr (HasSplit) {
+      sp.ld = sp.ld + sp.cdiff;
+      sp.ls = sp.ls + sr.contrib - sp.cdiff;
+    }
+  }
+  store_state(i, n, s, fs_out, is_out);
+  if constexpr (HasSplit) store_split(i, n, sp, fs2_out);
+  if (surf_out != nullptr) {
+    store_surf(i, n, sf, surf_out);
+    ho[5 * n] = sf.shaded ? (lb_in > 0 ? 2.0f : 1.0f) : 0.0f;
+  } else {
+    ho[5 * n] = sr.do_nee ? 1.0f : 0.0f;
+  }
 }
 
 }  // namespace rt

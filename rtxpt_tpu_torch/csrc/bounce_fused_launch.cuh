@@ -51,16 +51,23 @@ inline Config bounce_config(unsigned int sample_idx, int nee_mode, int enable_mi
   return cfg;
 }
 
-// Launch a K1 kernel `fn` on n rays: k1::kThreads threads a block, one
-// batch of 32 rays a warp, the tile's dynamic shared memory (t8
-// triangles). Returns the CUDA error.
+// Launch K1 on n rays: `screen` (the tensor-core form) in blocks of
+// k1::kThreads, one batch of 32 rays a warp, with the tile's dynamic shared
+// memory (t8 triangles); or, for a table of at most k1::kExactChunks
+// chunks, `exact` (one thread per ray) in blocks of k1::kExactThreads. Both
+// take the same arguments. Returns the CUDA error.
 template <class Fn, class... Args>
-int launch_k1(Fn* fn, int n, int t8, cudaStream_t stream, Args... args) {
+int launch_k1(Fn* screen, Fn* exact, int n, int t8, cudaStream_t stream, Args... args) {
+  if (t8 / 8 <= k1::kExactChunks) {
+    exact<<<(n + k1::kExactThreads - 1) / k1::kExactThreads, k1::kExactThreads, 0, stream>>>(
+        args...);
+    return (int)cudaGetLastError();
+  }
   const int smem = k1::smem_bytes(t8);
   const cudaError_t e =
-      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      cudaFuncSetAttribute(screen, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  fn<<<(n + k1::kThreads - 1) / k1::kThreads, k1::kThreads, smem, stream>>>(args...);
+  screen<<<(n + k1::kThreads - 1) / k1::kThreads, k1::kThreads, smem, stream>>>(args...);
   return (int)cudaGetLastError();
 }
 

@@ -46,12 +46,15 @@
 // triangle 8 ch + 2q + e % 2. Per chunk of 8 triangles and 16 rays: one
 // ldmatrix.x2 (det) and two .x4 (u, v) of B, 5 mma.sync.m16n8k16.
 //
-// Tables of at most 16 triangles (kExactChunks chunks) take the per-lane
-// exact loops instead (bounce_fused.cuh intersect and occluded, the CUDA-
-// core K1's): there the screen's fixed cost per warp (the operand, the
-// mask exchange, a resolve of most candidates anyway) outweighs the exact
-// tests it saves. On the card (tools/k1_variants.py, PERF.md) the screen
-// was 4-12% slower on 8-16 triangles and 3-5% faster on 32-36.
+// Tables of at most 16 triangles (kExactChunks chunks) take kernels of
+// their own, the CUDA-core K1's (bounce_fused.cuh bounce_ray: one thread
+// per ray, the exact loops, 128-thread blocks): there the screen's fixed
+// cost per warp (the operand, the mask exchange, a resolve of most
+// candidates anyway) outweighs the exact tests it saves. On the card
+// (tools/k1_variants.py, k1_compare.py; PERF.md) the screen was 4-12%
+// slower on 8-16 triangles and 3-5% faster on 32-36, and the same exact
+// loops inside this kernel (512- or 128-thread blocks, 128 registers)
+// 5-8% slower than in a kernel without the screen.
 //
 // The resolve. A passing pair sets one bit of the thread's mask for that
 // ray (bit 2c + e % 2 of chunk c of a group of 16 chunks, 128 triangles);
@@ -77,10 +80,11 @@ namespace k1 {
 
 constexpr int kWarps = 16;                 // warps of a block
 constexpr int kThreads = 32 * kWarps;      // one block per SM
+constexpr int kExactThreads = 128;         // the exact kernels' blocks
 constexpr int kTileRows = 30;              // det c_hi, c_lo (3 + 3), u, v (6 + 6)
 constexpr int kZeroRow = kTileRows;        // the staged tile's zero row
 constexpr int kGroup = 16;                 // chunks of 8 triangles per resolve
-constexpr int kExactChunks = 2;            // tables of at most 16 triangles: exact loops
+constexpr int kExactChunks = 2;            // tables of at most 16 triangles: exact kernels
 constexpr float kScreen = 4.0f * (float)2e-3;   // K3's screen margin, of |det|
 constexpr float kEps = 1.0f / 8192.0f;          // the error term's 2^-13
 constexpr unsigned kFull = 0xffffffffu;
@@ -407,8 +411,7 @@ __device__ __forceinline__ void bounce_block(
     const __nv_bfloat16* __restrict__ tile, const float* __restrict__ scale, int t8,
     const Tables& tb, const Config& cfg, int n) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const bool exact = t8 / 8 <= kExactChunks;  // one value for the launch
-  if (!exact) stage_tile(smem, tile, scale, t8);
+  stage_tile(smem, tile, scale, t8);
   const int i = blockIdx.x * kThreads + threadIdx.x;
   const bool live = i < n;
   V3 o = splat(0.0f), d = splat(0.0f);
@@ -416,10 +419,8 @@ __device__ __forceinline__ void bounce_block(
     o = v3(fs[(FS_O + 0) * n + i], fs[(FS_O + 1) * n + i], fs[(FS_O + 2) * n + i]);
     d = v3(fs[(FS_D + 0) * n + i], fs[(FS_D + 1) * n + i], fs[(FS_D + 2) * n + i]);
   }
-  if (!exact) {
-    cl::cp_async_wait<0>();
-    __syncthreads();
-  }
+  cl::cp_async_wait<0>();
+  __syncthreads();
   if (__all_sync(kFull, !live)) return;  // a warp past n, after the barrier
   const Warp w = warp_view(smem, t8);
   const bool count_on = g_screen_on != 0;
@@ -427,8 +428,6 @@ __device__ __forceinline__ void bounce_block(
   h.t = kBig; h.u = 0.0f; h.v = 0.0f; h.det = 0.0f; h.prim = -1; h.unk = false;
   if (Restart && inj != nullptr) {
     if (live) h = injected_hit(i, n, inj);
-  } else if (exact) {
-    if (live) h = intersect<HasOmm>(tb, o, d, cfg.max_travel);
   } else {
     h = closest<HasOmm>(w, tb, o, d, cfg.max_travel, live, count_on);
   }
@@ -440,11 +439,16 @@ __device__ __forceinline__ void bounce_block(
     ho[3 * n] = h.v;
     ho[4 * n] = h.det > 0.0f ? 1.0f : 0.0f;
   }
+  // the rest of the state after the screen, so that its fragments do not
+  // share the registers with it
+  RayState s;
   Split sp;
+  if (live) {
+    s = load_state(i, n, fs, is);
+    if constexpr (HasSplit) sp = load_split(i, n, fs2);
+  }
   if (cfg.final_env) {  // one value for the launch: no warp diverges on it
     if (live) {
-      RayState s = load_state(i, n, fs, is);
-      if constexpr (HasSplit) sp = load_split(i, n, fs2);
       final_env_state<HasSplit>(s, h.t < kBig, tb, cfg,
                                 (1 << 1) | (1 << 2) | (1 << 4) | (1 << 5), &sp);
       store_state(i, n, s, fs_out, is_out);
@@ -459,10 +463,7 @@ __device__ __forceinline__ void bounce_block(
   sr.d = splat(0.0f);
   sr.dist = 0.0f;
   sr.u_alpha = 0.0f;
-  V3 L = splat(0.0f);
   if (live) {
-    RayState s = load_state(i, n, fs, is);
-    if constexpr (HasSplit) sp = load_split(i, n, fs2);
     const int lb_in = s.lb;
     auto attr = [&](int r) {
       return h.prim >= 0 ? RT_LDG(tb.attr + r * tb.tpad + h.prim) : 0.0f;
@@ -472,7 +473,6 @@ __device__ __forceinline__ void bounce_block(
         s, h, attr, tb, cfg, surf_out != nullptr ? &sf : nullptr, &sp);
     // the state goes out now; an unoccluded shadow ray rewrites L
     store_state(i, n, s, fs_out, is_out);
-    L = s.L;
     if (surf_out != nullptr) {
       store_surf(i, n, sf, surf_out);
       ho[5 * n] = sf.shaded ? (lb_in > 0 ? 2.0f : 1.0f) : 0.0f;
@@ -481,16 +481,11 @@ __device__ __forceinline__ void bounce_block(
     }
   }
   const bool want = live && sr.do_nee;
-  bool lit = false;
-  if (exact)
-    lit = want && !occluded<HasOmm>(tb, sr.o, sr.d, sr.dist, sr.u_alpha);
-  else if (__any_sync(kFull, want))
-    lit = !occluded_warp<HasOmm>(w, tb, sr.o, sr.d, sr.dist, sr.u_alpha, want, count_on) &&
-          want;
-  if (lit) {
-    L = L + sr.contrib;
+  if (__any_sync(kFull, want) &&
+      !occluded_warp<HasOmm>(w, tb, sr.o, sr.d, sr.dist, sr.u_alpha, want, count_on) && want) {
+    s.L = s.L + sr.contrib;
     float* fo = fs_out + i;
-    fo[(FS_L + 0) * n] = L.x; fo[(FS_L + 1) * n] = L.y; fo[(FS_L + 2) * n] = L.z;
+    fo[(FS_L + 0) * n] = s.L.x; fo[(FS_L + 1) * n] = s.L.y; fo[(FS_L + 2) * n] = s.L.z;
     if constexpr (HasSplit) {
       sp.ld = sp.ld + sp.cdiff;
       sp.ls = sp.ls + sr.contrib - sp.cdiff;

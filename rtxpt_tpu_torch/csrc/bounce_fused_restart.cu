@@ -56,12 +56,30 @@ bounce_fused_restart_kernel(const float* __restrict__ fs, const int* __restrict_
       n);
 }
 
+// The CUDA-core form for tables of at most 16 triangles (bounce_fused_mma.cuh
+// kExactChunks): one thread per ray, the exact loops; the same arguments.
+template <bool HasTex, bool HasOmm, bool HasPrio, bool HasSplit>
+__global__ void __launch_bounds__(rt::k1::kExactThreads)
+bounce_fused_restart_kernel_exact(const float* __restrict__ fs, const int* __restrict__ is,
+                                  const float* __restrict__ fs2, float* __restrict__ fs_out,
+                                  int* __restrict__ is_out, float* __restrict__ hit_out,
+                                  float* __restrict__ surf_out, float* __restrict__ fs2_out,
+                                  const float* __restrict__ inj,
+                                  const __nv_bfloat16* __restrict__, const float* __restrict__,
+                                  int, rt::Tables tb, rt::Config cfg, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  rt::bounce_ray<HasTex, HasOmm, HasPrio, HasSplit, true>(
+      i, n, fs, is, fs2, fs_out, is_out, hit_out, surf_out, fs2_out, inj, tb, cfg);
+}
+
 template <bool HasTex, bool HasOmm, bool HasPrio, bool HasSplit>
 struct Kernel {
   template <class... Args>
   static int launch(int n, int t8, cudaStream_t stream, Args... args) {
-    return rt::launch_k1(bounce_fused_restart_kernel<HasTex, HasOmm, HasPrio, HasSplit>, n,
-                         t8, stream, args...);
+    return rt::launch_k1(bounce_fused_restart_kernel<HasTex, HasOmm, HasPrio, HasSplit>,
+                         bounce_fused_restart_kernel_exact<HasTex, HasOmm, HasPrio, HasSplit>,
+                         n, t8, stream, args...);
   }
 };
 

@@ -11,8 +11,9 @@ component) and resolves the pairs that pass with the plain f32 test. The
 cases are the Cornell box, rooms_scene(16), kitchen_scene() and the
 curtain Cornell box (micromaps) at 2,048 camera rays: the closest hits of
 bounce 0 and of bounce 1 (bounce_reference's own state), and the NEE
-shadow rays bounce_reference traces (none on the kitchen, whose 513
-lights take the external route). This file holds a torch model of the
+shadow rays bounce_reference traces in nee slot 2 (on the kitchen too,
+whose 513 lights a render sends through the external route instead).
+This file holds a torch model of the
 operand, the products summed exactly (float64), the screen and the
 resolve, and checks it against bounce_reference's closest hits and
 occlusions (on the curtain too, whose 14 triangles the kernel tests with

@@ -21,6 +21,7 @@ import argparse
 import ctypes
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -28,7 +29,8 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.append(ROOT)
 
-# name: (warps per block, min blocks per SM, exact-loop chunks)
+# name: (warps per block, min blocks per SM, exact-loop chunks); the
+# default is w16_exact2
 VARIANTS = {
     "w16": (16, 1, 0),
     "w16_exact2": (16, 1, 2),
@@ -43,18 +45,18 @@ def variant_csrc(name, warps, min_blocks, exact_chunks):
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(src, dst)
 
-    def sub(fname, old, new):
+    def sub(fname, pattern, new):
         path = os.path.join(dst, fname)
-        text = open(path).read()
-        if old not in text:
-            raise RuntimeError(f"{fname}: {old!r} not found")
-        open(path, "w").write(text.replace(old, new))
-    sub("bounce_fused_mma.cuh", "constexpr int kWarps = 16;",
+        text, n = re.subn(pattern, new, open(path).read())
+        if n == 0:
+            raise RuntimeError(f"{fname}: {pattern!r} not found")
+        open(path, "w").write(text)
+    sub("bounce_fused_mma.cuh", r"constexpr int kWarps = \d+;",
         f"constexpr int kWarps = {warps};")
-    sub("bounce_fused_mma.cuh", "constexpr int kExactChunks = 0;",
+    sub("bounce_fused_mma.cuh", r"constexpr int kExactChunks = \d+;",
         f"constexpr int kExactChunks = {exact_chunks};")
     for f in ("bounce_fused.cu", "bounce_fused_restart.cu"):
-        sub(f, "__launch_bounds__(rt::k1::kThreads, 1)",
+        sub(f, r"__launch_bounds__\(rt::k1::kThreads, \d+\)",
             f"__launch_bounds__(rt::k1::kThreads, {min_blocks})")
     return dst
 

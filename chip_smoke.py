@@ -413,7 +413,18 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12      # outside the tensor cores
 TF32_FLOPS_PER_S = 495e12    # tensor cores
 BF16_FLOPS_PER_S = 989e12    # tensor cores
-# Operations per ray-triangle pair. K1's exact test (tri_test): 38 f32.
+# Operations per ray-triangle pair. K1's exact test (tri_test): 38 f32, on
+# every pair of a table of at most EXACT_TRIS triangles (the CUDA-core
+# kernels) and in K2. Larger tables take K1's split-bf16 screen: det reads
+# 3 components of r = [d, o x d], u and v all 6, so 15 coefficient rows,
+# c_hi*r_hi and c_lo*r_hi at the bf16 rate (2 x 15 x 2), c_hi*r_lo at the
+# TF32 rate (15 x 2), counted as K3's below; then the screen's f32 work:
+# the error term 1, |det| 1, the two margins 5 (two fma, one add), the
+# sign test 1 and the numerators' tests 5. The exact resolves of the pairs
+# that pass are left out (a lower bound).
+K1_SCREEN_F32 = 13
+K1_PAIR_BF16 = 60
+K1_PAIR_TF32 = 30
 # K3 and K5's split-bf16 quantities are a matrix product over 19
 # coefficient rows, each multiply counted with its add: c_hi*r_hi and
 # c_lo*r_hi are bf16 x bf16 (2 x 19 x 2 operations at the bf16 tensor
@@ -527,6 +538,41 @@ def _bound(nbytes, f32=0, tf32=0, bf16=0):
 
 def _numel(t):
     return 0 if t is None else t.numel()
+
+
+def _k1_ops(n_tris, pairs):
+    """_bound's operations of K1 on `pairs` ray-triangle pairs (closest
+    hit and shadow rays) of a table of `n_tris` triangles: the exact test
+    on the CUDA-core kernels of the smallest tables, the split-bf16
+    products and the screen on the tensor-core kernels."""
+    from rtxpt_tpu_torch.pt import bounce_fused as bf
+    if n_tris <= bf.EXACT_TRIS:
+        return dict(f32=pairs * K1_PAIR_F32)
+    return dict(f32=pairs * K1_SCREEN_F32, tf32=pairs * K1_PAIR_TF32,
+                bf16=pairs * K1_PAIR_BF16)
+
+
+def _k1_shadow_pairs(plain):
+    """The pairs that K1's in-kernel NEE shadow rays (nee slots 0-2) need
+    on this data: each requesting lane's triangles in table order up to
+    and including its first occluder, all of them where none occludes (the
+    per-thread walk's count, K2's `tested`). Read from one call `plain` of
+    bounce_reference on the launch's inputs, whose shadow test is asked
+    for that count; 0 for a launch without shadow rays (the external
+    slots, final_env)."""
+    from rtxpt_tpu_torch.pt import bounce_fused as bf
+    occluded, tested = bf._occluded, []
+
+    def counted(*args, stats=False, **kw):
+        occ, t = occluded(*args, stats=True, **kw)
+        tested.append(t)
+        return (occ, t) if stats else occ
+    bf._occluded = counted
+    try:
+        hit = plain()[2]
+    finally:
+        bf._occluded = occluded
+    return int(tested[0][hit[5] > 0].sum()) if tested else 0
 
 
 def _ptxas_summary(log):
@@ -809,16 +855,15 @@ def main(record_path=None, group_path=None):
     plain_ms = _cuda_ms(
         lambda: bf.bounce_reference(fs_t, is_t, tables, kcfg, sample), 3)
     # bound: each state row read and written once, the tables read once;
-    # operations: every active lane tests every triangle for its closest
-    # hit. The in-kernel shadow rays stop at their first occluder and K1
-    # does not count their pairs, so the bound leaves them out: a lower
-    # bound of the work
-    tests = int((is_t[bf.IS_ACTIVE] > 0).sum())
+    # operations: every active lane against every triangle for its closest
+    # hit, each shadow ray up to its first occluder (_k1_ops)
+    tests = int((is_t[bf.IS_ACTIVE] > 0).sum()) * tables.n_tris \
+        + _k1_shadow_pairs(lambda: bf.bounce_reference(
+            fs_t, is_t, tables, kcfg, sample))
     k1_bytes = RAYS_TIMED * 4 * (2 * (bf.NF + bf.NI) + bf.NH) + 4 * sum(
         t.numel() for t in (tables.tri_coef, tables.attr_rows,
                             tables.mat_rows, tables.light_rows))
-    k1_bound, k1_by, _ = _bound(k1_bytes,
-                                f32=tests * tables.n_tris * K1_PAIR_F32)
+    k1_bound, k1_by, _ = _bound(k1_bytes, **_k1_ops(tables.n_tris, tests))
     k1.update(ms=k1_ms, plain_ms=plain_ms, rays=RAYS_TIMED,
               bound_ms=k1_bound, bound_by=k1_by)
     record["k1"] = k1
@@ -1807,16 +1852,18 @@ def _external_nee(record, dev, smi, dump):
     active = int((is_t[bf.IS_ACTIVE] > 0).sum())
     tables_bytes = 4 * sum(t.numel() for t in (
         tbl.tri_coef, tbl.attr_rows, tbl.mat_rows, tbl.light_rows))
-    # bounds: every active lane tests every triangle for its closest hit;
-    # slot 2's in-kernel shadow pairs are left out, as in phase 3 (a lower
-    # bound), the external slots' are K2's
+    # bounds: every active lane against every triangle for its closest
+    # hit, slot 2's in-kernel shadow rays up to their first occluder (as
+    # in phase 3); the external slots' shadow rays are K2's
     modes = {}
     for slot, mode in (("slot2", 2), ("slot3", 3), ("slot5", 5)):
         kcfg = bf.KernelConfig(nee_mode=mode, maxb=4)
         ms = _cuda_ms(lambda: bf.bounce(fs_t, is_t, tbl, kcfg, sample), 10)
         rows = 2 * (bf.NF + bf.NI) + bf.NH + (bf.SF_ROWS if mode > 2 else 0)
+        pairs = active * tbl.n_tris + _k1_shadow_pairs(
+            lambda: bf.bounce_reference(fs_t, is_t, tbl, kcfg, sample))
         bound, by, _ = _bound(4 * n * rows + tables_bytes,
-                              f32=active * tbl.n_tris * K1_PAIR_F32)
+                              **_k1_ops(tbl.n_tris, pairs))
         modes[slot] = dict(ms=ms, bound_ms=bound, bound_by=by, rays=n)
     modes["slot3"]["plain_ms"] = _cuda_ms(lambda: bf.bounce_reference(
         fs_t, is_t, tbl, bf.KernelConfig(nee_mode=3, maxb=4), sample), 1)
@@ -2643,14 +2690,18 @@ def _environment(record, dev, smi, dump, city_prepared):
         # as phase 3: the state read and written once, the hit rows
         # written, the tables it reads (the environment's 164 KB among
         # them; the final round reads no attribute, material or light
-        # table) read once, every active lane against every triangle
+        # table) read once, every active lane against every triangle, the
+        # shadow rays up to their first occluder
         tables_bytes = 4 * sum(t.numel() for t in (
             (tbl.tri_coef, tbl.env) if final else
             (tbl.tri_coef, tbl.attr_rows, tbl.mat_rows, tbl.light_rows,
              tbl.env)))
+        pairs = active * tbl.n_tris + _k1_shadow_pairs(
+            lambda: bf.bounce_reference(fs_t, is_t, tbl, kcfg, sample,
+                                        final_env=final))
         bound, by, _ = _bound(
             4 * n * (2 * (bf.NF + bf.NI) + bf.NH) + tables_bytes,
-            f32=active * tbl.n_tris * K1_PAIR_F32)
+            **_k1_ops(tbl.n_tris, pairs))
         k1[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
                         bound_by=by, rays=n)
         print(f"environment {name}: kernel {ms:.4f} ms per {n}-ray launch, "
@@ -3001,14 +3052,17 @@ def _textures(record, dev, smi, dump):
             fs_t, is_t, tbl, kcfg, sample), 2)
         # as phase 3: the state read and written once, the hit (and SF_*)
         # rows written, the tables read once (the atlas and its meta rows
-        # among them), every active lane against every triangle
+        # among them), every active lane against every triangle, the
+        # in-kernel shadow rays up to their first occluder
         rows = 2 * (bf.NF + bf.NI) + bf.NH \
             + (bf.SF_ROWS if kcfg.external else 0)
         tables_bytes = 4 * sum(t.numel() for t in (
             tbl.tri_coef, tbl.attr_rows, tbl.mat_rows, tbl.light_rows,
             tbl.env, tbl.tex, tbl.tex_meta))
+        pairs = active * tbl.n_tris + _k1_shadow_pairs(
+            lambda: bf.bounce_reference(fs_t, is_t, tbl, kcfg, sample))
         bound, by, _ = _bound(4 * n * rows + tables_bytes,
-                              f32=active * tbl.n_tris * K1_PAIR_F32)
+                              **_k1_ops(tbl.n_tris, pairs))
         k1[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
                         bound_by=by, rays=n, slot=kcfg.nee_mode)
         print(f"textures k1 {name} slot {kcfg.nee_mode}: kernel {ms:.4f} ms "
@@ -3389,9 +3443,11 @@ def _alpha(record, dev, smi, dump):
     tables_bytes = 4 * sum(t.numel() for t in (
         tbl.tri_coef, tbl.attr_rows, tbl.mat_rows, tbl.light_rows, tbl.tex,
         tbl.tex_meta, tbl.tri_micro, tbl.tri_cover))
+    k1_pairs = active * tbl.n_tris + _k1_shadow_pairs(
+        lambda: bf.bounce_reference(fs_t, is_t, tbl, kcfg, sample))
     k1_bound, k1_by, _ = _bound(
         4 * n * (2 * (bf.NF + bf.NI) + bf.NH) + tables_bytes,
-        f32=active * tbl.n_tris * K1_PAIR_F32)
+        **_k1_ops(tbl.n_tris, k1_pairs))
     kcfg5 = bf.KernelConfig.from_cfg(dataclasses.replace(cfg,
                                                          nee_external=True))
     out5 = bf.bounce(fs_t, is_t, tbl, kcfg5, sample)
@@ -3811,13 +3867,16 @@ def _priorities(record, dev, smi, dump):
     k1_plain = _cuda_ms(lambda: bf.bounce_reference(fs_t, is_t, tbl, kcfg,
                                                     sample), 3)
     # as phase 3: the state read and written once, the tables once, every
-    # active lane against every triangle
+    # active lane against every triangle, the shadow rays up to their
+    # first occluder
     active = int((is_t[bf.IS_ACTIVE] > 0).sum())
+    k1_pairs = active * tbl.n_tris + _k1_shadow_pairs(
+        lambda: bf.bounce_reference(fs_t, is_t, tbl, kcfg, sample))
     k1_bound, k1_by, _ = _bound(
         4 * n * (2 * (bf.NF + bf.NI) + bf.NH) + 4 * sum(
             t.numel() for t in (tbl.tri_coef, tbl.attr_rows, tbl.mat_rows,
                                 tbl.light_rows)),
-        f32=active * tbl.n_tris * K1_PAIR_F32)
+        **_k1_ops(tbl.n_tris, k1_pairs))
     rec["k1"] = dict(ms=k1_ms, plain_ms=k1_plain, bound_ms=k1_bound,
                      bound_by=k1_by, rays=n)
     print(f"priorities k1: kernel {k1_ms:.4f} ms per {n}-ray launch, plain "
@@ -5039,9 +5098,11 @@ def _split_aux(record, dev, smi, dump, city_prepared):
             tbl.tri_coef, tbl.attr_rows, tbl.mat_rows, tbl.light_rows,
             tbl.env))
         active = int((is_t[bf.IS_ACTIVE] > 0).sum())
-        ops = active * tbl.n_tris * K1_PAIR_F32
-        bound, by, _ = _bound(4 * n * (rows + 2 * bf.NF2) + tables_b, f32=ops)
-        bound_ns, by_ns, _ = _bound(4 * n * rows + tables_b, f32=ops)
+        ops = _k1_ops(tbl.n_tris, active * tbl.n_tris + _k1_shadow_pairs(
+            lambda: bf.bounce_reference(fs_t, is_t, tbl, kcfg, sample,
+                                        fs2=f2_t)))
+        bound, by, _ = _bound(4 * n * (rows + 2 * bf.NF2) + tables_b, **ops)
+        bound_ns, by_ns, _ = _bound(4 * n * rows + tables_b, **ops)
         k1[name] = dict(cmp, slot=kcfg.nee_mode, rays=n, ms=ms_split,
                         ms_without_split=ms_plain_variant, plain_ms=plain_ms,
                         bound_ms=bound, bound_by=by,
@@ -5519,12 +5580,16 @@ def _realtime(record, dev, smi, dump, city_prepared):
     n = side * side
     tables_b = 4 * sum(_numel(x) for x in (
         gtb.tri_coef, gtb.attr_rows, gtb.mat_rows, gtb.light_rows))
-    bound, by, _ = _bound(4 * n * (2 * (bf.NF + bf.NI) + bf.NH + bf.NINJ)
-                          + tables_b)
-    tests = int((is_c[bf.IS_ACTIVE] > 0).sum())
+    # the inject launch traces no closest hit, but its shadow rays run
+    bound, by, _ = _bound(
+        4 * n * (2 * (bf.NF + bf.NI) + bf.NH + bf.NINJ) + tables_b,
+        **_k1_ops(gtb.n_tris, _k1_shadow_pairs(lambda: bf.bounce_reference(
+            fs_i, is_i, gtb, kcfg, sample, inj=inj_t))))
+    tests = int((is_c[bf.IS_ACTIVE] > 0).sum()) * gtb.n_tris \
+        + _k1_shadow_pairs(lambda: bf.bounce_reference(
+            fs_c, is_c, gtb, kcfg, sample))
     bound_k1, by_k1, _ = _bound(4 * n * (2 * (bf.NF + bf.NI) + bf.NH)
-                                + tables_b,
-                                f32=tests * gtb.n_tris * K1_PAIR_F32)
+                                + tables_b, **_k1_ops(gtb.n_tris, tests))
     rec["timing"] = dict(lanes=n, ms=ms_inj, ms_k1=ms_k1, plain_ms=plain_ms,
                          bound_ms=bound, bound_by=by, bound_k1_ms=bound_k1,
                          bound_k1_by=by_k1)

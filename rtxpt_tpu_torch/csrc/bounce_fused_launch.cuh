@@ -6,6 +6,10 @@
 
 #include <cuda_runtime.h>
 
+#include <mutex>
+#include <utility>
+#include <vector>
+
 #include "bounce_fused_mma.cuh"
 
 namespace rt {
@@ -51,6 +55,24 @@ inline Config bounce_config(unsigned int sample_idx, int nee_mode, int enable_mi
   return cfg;
 }
 
+// Raise `screen`'s limit of dynamic shared memory to the largest tile's
+// (k1::kMaxTris triangles) once per kernel and device, not at every launch:
+// the wrappers' host time is most of a small launch.
+inline cudaError_t allow_largest_tile(const void* screen) {
+  static std::mutex mu;
+  static std::vector<std::pair<const void*, int>> raised;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const auto& r : raised)
+    if (r.first == screen && r.second == dev) return cudaSuccess;
+  e = cudaFuncSetAttribute(screen, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           k1::smem_bytes(k1::kMaxTris));
+  if (e == cudaSuccess) raised.emplace_back(screen, dev);
+  return e;
+}
+
 // Launch K1 on n rays: `screen` (the tensor-core form) in blocks of
 // k1::kThreads, one batch of 32 rays a warp, with the tile's dynamic shared
 // memory (t8 triangles); or, for a table of at most k1::kExactChunks
@@ -63,10 +85,9 @@ int launch_k1(Fn* screen, Fn* exact, int n, int t8, cudaStream_t stream, Args...
         args...);
     return (int)cudaGetLastError();
   }
-  const int smem = k1::smem_bytes(t8);
-  const cudaError_t e =
-      cudaFuncSetAttribute(screen, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cudaError_t e = allow_largest_tile(reinterpret_cast<const void*>(screen));
   if (e != cudaSuccess) return (int)e;
+  const int smem = k1::smem_bytes(t8);
   screen<<<(n + k1::kThreads - 1) / k1::kThreads, k1::kThreads, smem, stream>>>(args...);
   return (int)cudaGetLastError();
 }

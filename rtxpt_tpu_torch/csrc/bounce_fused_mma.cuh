@@ -85,6 +85,7 @@ constexpr int kTileRows = 30;              // det c_hi, c_lo (3 + 3), u, v (6 + 
 constexpr int kZeroRow = kTileRows;        // the staged tile's zero row
 constexpr int kGroup = 16;                 // chunks of 8 triangles per resolve
 constexpr int kExactChunks = 2;            // tables of at most 16 triangles: exact kernels
+constexpr int kMaxTris = 2048;              // bounce_fused.MAX_TRIS: the largest tile
 constexpr float kScreen = 4.0f * (float)2e-3;   // K3's screen margin, of |det|
 constexpr float kEps = 1.0f / 8192.0f;          // the error term's 2^-13
 constexpr unsigned kFull = 0xffffffffu;

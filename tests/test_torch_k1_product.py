@@ -225,13 +225,15 @@ def screened(name):
 
 def test_screen_constants_match_the_kernel():
     """csrc/bounce_fused_mma.cuh spells out the screen's margin, its error
-    term's factor and the exact-loop threshold that bounce_fused states."""
+    term's factor, the exact-loop threshold and the largest table that
+    bounce_fused states."""
     import re
     from pathlib import Path
     src = (Path(bf.__file__).resolve().parents[1] / "csrc"
            / "bounce_fused_mma.cuh").read_text()
     chunks = int(re.search(r"kExactChunks = (\d+);", src).group(1))
     assert 8 * chunks == bf.EXACT_TRIS
+    assert int(re.search(r"kMaxTris = (\d+);", src).group(1)) == bf.MAX_TRIS
     assert "kEps = 1.0f / 8192.0f" in src and bf.SCREEN_EPS == 1 / 8192
     assert "kScreen = 4.0f * (float)2e-3" in src
     assert bf.SCREEN_MARGIN == 4.0 * 2e-3

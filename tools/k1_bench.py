@@ -1,41 +1,49 @@
 #!/usr/bin/env python3
 """K1, the fused bounce kernel, on one NVIDIA GPU: its bounce-0 launch
-times, its device time per 1080p frame, its registers, and (--check) its
-lanes against the plain version.
+times, its device time per 1080p frame, its registers and build time, and
+(--check) its lanes against the plain version; with --parent, a parent
+checkout's K1 and this one's in turns.
 
-    python3 tools/k1_bench.py --out chiprun_out/k1.json [--check] [--profile]
+    python3 tools/k1_bench.py [--check] [--profile] [--stacks 16,24,32] \\
+        [--parent PARENT_DIR] [--out chiprun_out/k1.json]
 
 Cases, each at 1920x1080 with 4 bounces: the Cornell box (power NEE, nee
 slot 2), rooms_scene(16) (NEE-AT, slot 3), kitchen_scene() (stochastic
 texture filtering, power NEE on the external route: slot 5 with the
 texture switch) and the curtain Cornell box (stochastic filtering, power
-NEE: the omm_tex variant in slot 2). For each: K1 timed at the bounce-0 launch of 2^18 camera rays spread over
-the frame (the paths' chunk) with CUDA events around 20 launches, and
-the same launches' kernel time from the profiler's records beside the
-host's time per call (the events time the host where it is the slower), and with --check K1 against bounce_reference on 65,536
-such rays at bounces 0 and 2 (the state carried by the plain version):
-the lanes whose outputs differ bit-wise. With --profile one 1-spp frame
-of the Cornell, rooms (render_sample with a NEE-AT state) and kitchen
-paths under torch.profiler: K1's device time and launches. The registers,
-stack frame and spills of every K1 instantiation come from the ptxas log
-of the build. --stacks adds stacks of 8, 16 and 32 triangles (random
-quads across single_triangle's view, power NEE) to the timed cases.
+NEE: the omm_tex variant in slot 2); --stacks adds stacks of that many
+triangles (quads in front of single_triangle's camera, as
+tests/test_torch_cuda.py builds them; power NEE). For each: K1 timed at
+the bounce-0 launch of 2^18 camera rays spread over the frame (the
+paths' chunk) with CUDA events around 20 launches, and the same
+launches' kernel time from the profiler beside the host's time per call
+(the events time the host where it is the slower); with --check K1 against bounce_reference on
+65,536 such rays at bounces 0 and 2 (the state carried by the plain
+version): the lanes whose outputs differ bit-wise, and the screen's
+counters. With --profile one 1-spp frame of the Cornell, rooms
+(render_sample with a NEE-AT state) and kitchen paths under
+torch.profiler: K1's device time and launches. The registers, stack
+frame and spills of each K1 instantiation come from the build's ptxas
+log, its HMMA count from the SASS.
 
-The script uses only entry points the port has had since its K1 took the
-restart switch, so PYTHONPATH=<another checkout> runs that checkout's
-package the same way (tools/k1_compare.py runs a parent and this tree in
-turns). Prints one JSON object; imports nothing of JAX."""
+--parent PARENT_DIR (the parent commit's `git archive`, unpacked) runs
+the same measurement four times, each in its own process with its own
+build: on the parent's package, this checkout's, this checkout's, the
+parent's. The timing, comparison, profile and ptxas helpers are
+chip_smoke.py's, loaded from this checkout whichever package runs.
+Prints one JSON object; imports nothing of JAX."""
 
 import argparse
+import importlib.util
 import json
 import os
-import re
 import subprocess
 import sys
 import time
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # this checkout's package, unless PYTHONPATH names another one first
-sys.path.append(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+sys.path.append(ROOT)
 
 FRAME = (1920, 1080)
 RAYS_TIMED = 1 << 18         # the fused paths' rays per chunk
@@ -43,25 +51,23 @@ CMP_SIDE = 256               # --check: 65,536 rays
 ITERS = 20
 
 
-def _cuda_ms(fn, iters):
-    import torch
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    fn()
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
+def _from_root(name, rel):
+    """A module of this checkout by its path (not the parent's, which
+    PYTHONPATH may put first)."""
+    spec = importlib.util.spec_from_file_location(name,
+                                                  os.path.join(ROOT, rel))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+smoke = _from_root("chip_smoke", "chip_smoke.py")
 
 
 def launch_costs(fn, iters):
     """(K1's device time per launch from the profiler's kernel records,
     the host's time per call of `fn` without a synchronisation) over
-    `iters` calls: the CUDA events of _cuda_ms measure the host's rate
-    instead where the wrapper takes longer than the kernel."""
+    `iters` calls."""
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -74,69 +80,47 @@ def launch_costs(fn, iters):
             fn()
         host = (time.perf_counter() - t0) * 1e3 / iters
         torch.cuda.synchronize()
-    ms, n = k1_device(prof)
-    return ms / max(n, 1), host
-
-
-def ptxas_entries(log):
-    """{mangled entry: dict(registers, stack, spill_store, spill_load)} of a
-    ptxas -v log."""
-    out, cur = {}, None
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '([^']+)'", line)
-        if m:
-            cur = out.setdefault(m.group(1), {})
-            continue
-        if cur is None:
-            continue
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                      r"(\d+) bytes spill loads", line)
-        if m:
-            cur.update(stack=int(m.group(1)), spill_store=int(m.group(2)),
-                       spill_load=int(m.group(3)))
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            cur["registers"] = int(m.group(1))
-    return out
+    k1 = smoke._k1_frame(prof)
+    return k1["ms"] / max(k1["launches"], 1), host
 
 
 def instantiations(kernels):
-    """{launch name: ptxas entry} of K1's 32 instantiations: the switches
-    (texture, micromaps, priorities, split) of both libraries."""
+    """{launch name: ptxas figures and HMMA count} of K1's 32
+    instantiations, the switches (texture, micromaps, priorities, split)
+    of both libraries' tensor-core kernels (the CUDA-core kernels of the
+    smallest tables are `..._kernel_exact`)."""
     out = {}
     for restart, lib in (("", kernels.BOUNCE_FUSED),
-                         ("_inj", kernels.BOUNCE_FUSED_RESTART)):
-        for fn, info in ptxas_entries(lib.ptxas_log).items():
-            m = re.search(r"kernelILb(\d)ELb(\d)ELb(\d)ELb(\d)E", fn)
-            if not m:
-                continue
-            tex, omm, prio, split = (c == "1" for c in m.groups())
-            name = ("bounce_fused" + restart + ("_omm" if omm else "")
-                    + ("_tex" if tex else "") + ("_prio" if prio else "")
-                    + ("_split" if split else ""))
-            out[name] = info
+                         ("_restart", kernels.BOUNCE_FUSED_RESTART)):
+        sass = lib.sass_opcodes(("HMMA", "HGMMA"))
+        for t in (0, 1):
+            for o in (0, 1):
+                for p in (0, 1):
+                    for s in (0, 1):
+                        needle = (f"bounce_fused{restart}_kernelILb{t}ELb{o}"
+                                  f"ELb{p}ELb{s}E")
+                        name = ("bounce_fused" + ("_inj" if restart else "")
+                                + "_omm" * o + "_tex" * t + "_prio" * p
+                                + "_split" * s)
+                        info = smoke._ptxas_entry(lib.ptxas_log, needle)
+                        info["hmma"] = sum(
+                            ops["HMMA"] + ops["HGMMA"]
+                            for fn, ops in sass.items() if needle in fn)
+                        out[name] = info
     return out
 
 
-def _entry_pattern(name):
-    """The mangled template arguments of a launch name's instantiation."""
-    flags = [f"_{k}" in name for k in ("tex", "omm", "prio", "split")]
-    return "kernelI" + "".join(f"Lb{int(f)}E" for f in flags)
-
-
-STACKS = (8, 16, 32)          # --stacks: triangles of the quad stacks
-
-
-def quad_stack(n_tris, seed=3):
-    """n_tris / 2 quads 0.002 apart along -z, each of a random extent
-    across single_triangle's view, lit by its point light."""
+def quad_stack(n_quads, seed=3):
+    """tests/test_torch_cuda.py's _quad_stack (that module does not load
+    on a parent's package): n_quads quads 0.002 apart along -z, each of a
+    random extent across single_triangle's view, lit by its point light."""
     import numpy as np
 
     from rtxpt_tpu_torch.scene import procedural as TP
     from rtxpt_tpu_torch.scene.scene import MeshInstance
     rng = np.random.default_rng(seed)
     parts = []
-    for k in range(n_tris // 2):
+    for k in range(n_quads):
         z = -0.002 * k
         x0, y0 = rng.uniform(-1.2, -0.1, 2)
         x1, y1 = rng.uniform(0.1, 1.2, 2)
@@ -149,9 +133,9 @@ def quad_stack(n_tris, seed=3):
     return host
 
 
-def cases(dev, stacks=False):
-    """{name: (host, scene, resolved config, KernelConfig, NEE-AT state)};
-    with `stacks` also the quad stacks (power NEE)."""
+def cases(dev, stacks=()):
+    """{name: (host, scene, resolved config, KernelConfig, NEE-AT state)},
+    with the quad stacks of `stacks` triangles (power NEE)."""
     from rtxpt_tpu_torch.config import NEEMode, PathTracerConfig
     from rtxpt_tpu_torch.prepare import prepare
     from rtxpt_tpu_torch.pt import bounce_fused as bf
@@ -166,9 +150,8 @@ def cases(dev, stacks=False):
                                           stochastic_texture_filtering=True)),
         curtain=(TP.curtain_cornell(True),
                  dict(nee=NEEMode.POWER, stochastic_texture_filtering=True)))
-    if stacks:
-        spec.update({f"stack{n}": (quad_stack(n), dict(nee=NEEMode.POWER))
-                     for n in STACKS})
+    spec.update({f"stack{n}": (quad_stack(n // 2),
+                               dict(nee=NEEMode.POWER)) for n in stacks})
     out = {}
     for name, (host, kw) in spec.items():
         scene = prepare(host, device=dev)
@@ -195,22 +178,7 @@ def camera_state(host, cfg, cols, rows, dev, sample=1):
     return bf.initial_state(o, d, spread, px, py)
 
 
-def lanes_differ(kern, plain):
-    """Lanes where any output row differs bit-wise (NaN equal to NaN)."""
-    import torch
-    bad = None
-    for k, p in zip(kern, plain):
-        if k.dtype.is_floating_point:
-            same = (k.view(torch.int32) == p.view(torch.int32)) | (
-                torch.isnan(k) & torch.isnan(p))
-        else:
-            same = k == p
-        lanes = ~same.all(0)
-        bad = lanes if bad is None else bad | lanes
-    return int(bad.sum())
-
-
-def check(name, case, dev):
+def check(case, dev):
     """K1 against bounce_reference at bounces 0 and 2 on 65,536 rays."""
     import torch
     from rtxpt_tpu_torch.pt import bounce_fused as bf
@@ -226,7 +194,7 @@ def check(name, case, dev):
                 stats(dev, True)
             kern = bf.bounce(fs, is_, tbl, kcfg, 1)
             torch.cuda.synchronize()
-            res = dict(lanes_differ=lanes_differ(kern, plain),
+            res = dict(lanes_differ=smoke._lanes_differ(kern, plain),
                        lanes=int(fs.shape[1]))
             if stats:
                 res["screen"] = stats(dev, False)
@@ -235,22 +203,7 @@ def check(name, case, dev):
     return out
 
 
-def k1_device(prof):
-    """(ms, launches) of K1's kernels in a profile."""
-    from torch.autograd import DeviceType
-    ms, n = 0.0, 0
-    for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA or not re.search(
-                r"bounce_fused(_restart)?_kernel", evt.key):
-            continue
-        t = getattr(evt, "self_device_time_total",
-                    getattr(evt, "self_cuda_time_total", 0.0))
-        ms += t / 1e3
-        n += evt.count
-    return ms, n
-
-
-def profile(name, case, dev):
+def profile(case, dev):
     """K1's device time and launches over one profiled 1-spp frame, and
     the frame's wall time (after a warm-up frame)."""
     import torch
@@ -269,22 +222,14 @@ def profile(name, case, dev):
         render_sample(scene, cam, cfg, *FRAME, 1, **kw)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    ms, n = k1_device(prof)
-    return dict(k1_ms=ms, k1_launches=n, frame_wall_ms=wall)
+    k1 = smoke._k1_frame(prof)
+    return dict(k1_ms=k1["ms"], k1_launches=k1["launches"],
+                frame_wall_ms=wall)
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--out", help="write the JSON here too")
-    ap.add_argument("--check", action="store_true")
-    ap.add_argument("--profile", action="store_true")
-    ap.add_argument("--stacks", action="store_true",
-                    help="time the quad stacks too")
-    args = ap.parse_args(argv)
+def measure(args):
+    """One run on the package that `import rtxpt_tpu_torch` finds."""
     import torch
-    if not torch.cuda.is_available():
-        print("k1_bench: needs an NVIDIA GPU", file=sys.stderr)
-        return 1
     import rtxpt_tpu_torch
     from rtxpt_tpu_torch import kernels
     from rtxpt_tpu_torch.pt import bounce_fused as bf
@@ -293,43 +238,92 @@ def main(argv=None):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
-    kernels.build_all((kernels.BOUNCE_FUSED, kernels.BOUNCE_FUSED_RESTART,
-                       kernels.SHADOW_OCCLUSION))
+    build = kernels.build_all((kernels.BOUNCE_FUSED,
+                               kernels.BOUNCE_FUSED_RESTART))
     res = dict(package=os.path.dirname(rtxpt_tpu_torch.__file__), card=smi,
-               instantiations=instantiations(kernels), times={}, checks={},
-               frames={})
-    # the tensor-core instructions (HMMA: mma.sync) of each instantiation
-    for lib in (kernels.BOUNCE_FUSED, kernels.BOUNCE_FUSED_RESTART):
-        for fn, ops in lib.sass_opcodes(("HMMA", "HGMMA")).items():
-            for name, info in res["instantiations"].items():
-                restart = "_inj" in name
-                if ("restart" in fn) == restart and re.search(
-                        _entry_pattern(name), fn):
-                    info["hmma"] = ops["HMMA"] + ops["HGMMA"]
+               build_s=build, instantiations=instantiations(kernels),
+               times={}, checks={}, frames={})
     all_cases = cases(dev, args.stacks)
     for name, case in all_cases.items():
         host, scene, cfg, kcfg, _ = case
         fs_t, is_t = camera_state(host, cfg, 512, 512, dev)
         tbl = scene.bounce_tables
-        ms = _cuda_ms(lambda: bf.bounce(fs_t, is_t, tbl, kcfg, 1), ITERS)
-        device_ms, host_ms = launch_costs(
-            lambda: bf.bounce(fs_t, is_t, tbl, kcfg, 1), ITERS)
+
+        def launch():
+            return bf.bounce(fs_t, is_t, tbl, kcfg, 1)
+        ms = smoke._cuda_ms(launch, ITERS)
+        device_ms, host_ms = launch_costs(launch, ITERS)
         res["times"][name] = dict(ms=ms, device_ms=device_ms,
                                   host_ms=host_ms, rays=int(fs_t.shape[1]),
                                   slot=kcfg.nee_mode,
                                   tex=bool(bf.use_tex(tbl, kcfg)),
                                   omm=bool(tbl.omm), tris=tbl.n_tris)
-        print(f"k1 {name} slot {kcfg.nee_mode}: {ms:.4f} ms per "
-              f"{fs_t.shape[1]}-ray bounce-0 launch (events), "
-              f"{device_ms:.4f} ms of kernel (profiler), {host_ms:.4f} ms "
-              f"of host per call ({smi})", flush=True)
+        print(f"k1 {name} ({tbl.n_tris} triangles) slot {kcfg.nee_mode}: "
+              f"{ms:.4f} ms per {fs_t.shape[1]}-ray bounce-0 launch "
+              f"(events), {device_ms:.4f} ms of kernel (profiler), "
+              f"{host_ms:.4f} ms of host per call ({smi})", flush=True)
         if args.check:
-            res["checks"][name] = c = check(name, case, dev)
+            res["checks"][name] = c = check(case, dev)
             print(f"k1 {name} check: {json.dumps(c)}", flush=True)
     if args.profile:
         for name in ("cornell", "rooms", "kitchen"):
-            res["frames"][name] = p = profile(name, all_cases[name], dev)
+            res["frames"][name] = p = profile(all_cases[name], dev)
             print(f"k1 {name} frame: {json.dumps(p)} ({smi})", flush=True)
+    return res
+
+
+def turns(args):
+    """The parent, this checkout, this checkout, the parent: each a child
+    process of this script with PYTHONPATH on that checkout."""
+    scratch = os.path.join(ROOT, "build", "k1_bench")
+    os.makedirs(scratch, exist_ok=True)
+    flags = (["--profile"] * args.profile + ["--check"] * args.check
+             + (["--stacks", ",".join(map(str, args.stacks))]
+                if args.stacks else []))
+    runs = []
+    for i, (label, root) in enumerate((("parent", args.parent),
+                                       ("change", ROOT), ("change", ROOT),
+                                       ("parent", args.parent))):
+        out = os.path.join(scratch, f"run{i}.json")
+        env = dict(os.environ, PYTHONPATH=os.path.abspath(root))
+        subprocess.run([sys.executable, os.path.abspath(__file__), *flags,
+                        "--out", out], env=env, check=True,
+                       stdout=subprocess.DEVNULL)
+        with open(out) as f:
+            r = dict(label=label, **json.load(f))
+        runs.append(r)
+        print(f"k1 {label} (run {i}, build {r['build_s']}): " + ", ".join(
+            f"{c} {t['ms']:.4f} ms (kernel {t['device_ms']:.4f}, host "
+            f"{t['host_ms']:.4f})" for c, t in r["times"].items())
+            + "; frames " + ", ".join(
+                f"{c} K1 {p['k1_ms']:.3f} ms / {p['k1_launches']} launches"
+                for c, p in r["frames"].items()) + f" ({r['card']})",
+            flush=True)
+    for label in ("parent", "change"):
+        inst = next(r for r in runs if r["label"] == label)["instantiations"]
+        print(f"k1 {label} registers/stack/spill stores/spill loads/HMMA: "
+              + ", ".join(
+                  f"{k[len('bounce_fused'):] or '_'} {v['registers']}/"
+                  f"{v['stack_bytes']}/{v['spill_store_bytes']}/"
+                  f"{v['spill_load_bytes']}/{v['hmma']}"
+                  for k, v in sorted(inst.items())), flush=True)
+    return dict(runs=runs)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", help="write the JSON here too")
+    ap.add_argument("--check", action="store_true")
+    ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--stacks", type=lambda s: [int(n) for n in s.split(",")],
+                    default=[], help="triangles of the quad stacks to time")
+    ap.add_argument("--parent", help="the parent checkout: run in turns")
+    args = ap.parse_args(argv)
+    import torch
+    if not torch.cuda.is_available():
+        print("k1_bench: needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    res = turns(args) if args.parent else measure(args)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -77,9 +77,9 @@ Phases, one or a few lines of output each:
                 (NEE-AT) and 5 (power, external) against its plain version
                 with phase 3's criteria, the 24 SF_* surface rows included,
                 and the shadow kernel K2 against its plain version on the
-                requests external_nee builds from them (occlusion equal on
-                >= 99.9% of the lanes with a request, tested pairs equal on
-                every lane), on 65,536 camera
+                requests external_nee builds from them (occlusion and tested
+                pairs equal on every lane, its screen counters read: no
+                accepted pair missed), on 65,536 camera
                 rays spread over the frame at bounces 0 and 2; K1 timed in
                 slots 2, 3 and 5 and K2 timed at 2^18 rays. Then the three
                 full-size paths, each at 1920x1080, 4 bounces, 2^18 rays per
@@ -91,8 +91,8 @@ Phases, one or a few lines of output each:
                 and K2 must each launch chunks x bounces x spp times and the
                 images must be finite. One profiled NEE-AT frame splits the
                 device time: camera rays, K1, external NEE, K2, feedback,
-                the rest, and the idle share; K1's device time and
-                launches per frame, beside its times before the redesign.
+                the rest, and the idle share; K1's and K2's device time and
+                launches per frame, beside their times before the redesign.
 
   10. general tier -- the general BVH wavefront (kernel_tier="xla"):
                 the brute-force closest hit K8 against its plain version on
@@ -101,11 +101,14 @@ Phases, one or a few lines of output each:
                 rays) and on rooms_scene(16), the state carried by the
                 plain path: prim ids and front equal, t, u, v within
                 rtol = atol = 2e-3 on >= 99.9% of lanes; K8 timed at 2^18
-                and 2^19 rays. The BVH walk K9 against its plain version on
-                65,536 rays of the city (city_overview's camera) at bounces
-                0 and 2, closest hit (as K8, visit and test counts equal on
-                every lane) and any-hit (occlusion equal on >= 99.9% of
-                lanes); K9 timed at the 1080p bounce-0 launch. The Cornell
+                and 2^19 rays. The BVH walk K9 against its plain version
+                (the 4-wide walk `_traverse_wide`) on 65,536 rays of the
+                city (city_overview's camera) at bounces 0 and 2, closest
+                hit (prim, front, t, u, v bit-equal on >= 99.9% of lanes,
+                the differing lanes counted) and any-hit (occlusion equal
+                on every lane), visit and test counts equal on every lane;
+                K9 timed at the 1080p bounce-0 launch, its bound from its
+                own counts. The Cornell
                 golden through the general tier (phase 4's limits); the
                 small city of phase 7 through the general tier against the
                 clustered tier (RMSE < 2e-2, means within 5e-3,
@@ -188,7 +191,10 @@ Phases, one or a few lines of output each:
                 triangles, 512 panel lights, the sky; slot 5, the SF_*
                 rows included) against the plain version on 65,536 camera
                 rays over the 1080p frame at bounces 0 and 2, phase 3's
-                criteria; both timed at 2^18 rays; the registers and
+                criteria; both timed at 2^18 rays; K2 on the kitchen's
+                external requests at the same bounces (occlusion and
+                tested pairs equal on every lane, no accepted pair missed)
+                and timed on the 2^18-ray launch's; the registers and
                 spills of each K1 and K4 instantiation. (b) K3, K4's
                 texture variant and K5 on the textured, normal-mapped sky
                 city (city_overview(city_scene(350_000, seed=0,
@@ -215,12 +221,13 @@ Phases, one or a few lines of output each:
                 alpha uniform) on the curtain against their plain versions
                 on 65,536 camera rays over the 1080p frame at bounces 0
                 and 2, phase 3's criteria (K2: occlusion and pair counts
-                equal), both timed at 2^18 rays; the registers of every K1
+                equal on every lane), both timed at 2^18 rays; the registers of every K1
                 and K4 instantiation. (b) K3, K4 and K5's micromap variants
                 on the 40 x 40 curtain and the foliage as phase 6; K9 with
-                micromaps on the 40 x 40 curtain's BVH (closest and any
-                hit, visit and test counts equal), timed on 2^18 foliage
-                camera rays. Every comparison on the curtains has at least
+                micromaps on the 40 x 40 curtain's BVH against the plain
+                wide walk (closest and any hit, >= 99.9% of lanes
+                bit-equal, visit and test counts equal), timed on 2^18
+                foliage camera rays. Every comparison on the curtains has at least
                 5% of its lanes on MIXED triangles and 1% on UNKNOWN cells
                 (the foliage's shares are printed). (c) The full-size paths
                 at 1920x1080, 4 bounces plus the 2 pass-through
@@ -267,7 +274,9 @@ Phases, one or a few lines of output each:
                 sample at the smallest page count without cull overflow
                 (F7) and the default image's RMSE against it; the same
                 sample on the general tier (K9) at 960x540 against the
-                clustered tier's (RMSE and means, no limit).
+                clustered tier's (RMSE and means, no limit), and K9's
+                micromap walk on the first two launches of that sample
+                held to the plain wide walk as phase 10's.
   16. per-row -- the per-row clustered route (bounce_clustered.FLAT
                 False: K6, closest hit and shading in one kernel, and K7,
                 per-row shadow any-hit). (a) K6's variants and K7 against
@@ -350,7 +359,9 @@ Phases, one or a few lines of output each:
                 BUILD, fills, K1, denoise, TAA with tonemap, the rest,
                 idle), render_frame on the city (clustered, 2 pages, 2
                 timed frames, cull_overflow), one stable-planes frame of
-                the city at 960x540 (the general tier, K9). (c) The
+                the city at 960x540 (the general tier, K9; the first two
+                K9 launches of its BUILD pass held to the plain wide walk
+                as phase 10's). (c) The
                 glass-over-mirror composite at 480x270 (64 frames, no
                 denoiser, firefly clamp 0.5) against render at 64 spp:
                 RMSE < 2e-2 (tests/test_stable_planes.py:116-149), plane 1
@@ -466,12 +477,13 @@ RAY_BYTES = 32 + 17
 # u_num 11, v_num 12, t_num 6, |det| test 2, reciprocal 1, u, v, t 3, the
 # seven range and best-t tests 7.
 K8_PAIR_F32 = 48
-# K9 per visited node: the slab test (6 subtractions, 6 multiplies, 6
-# per-axis min / max, 3 + 3 reductions with tmin and t, 1 comparison: 25)
-# and the step (leaf test and next-node select: 4); per triangle test of a
-# leaf whose AABB was hit: two cross products 18, four dot products 20,
+# K9 per visited wide node: 4 slab tests (each 6 subtractions, 6
+# multiplies, 6 per-axis min / max, 3 + 3 reductions with tmin and the
+# limit, 1 comparison: 25), the limit (|t|, a multiply and an add: 3) and
+# the order of the pushed children (6 pairwise comparisons of entry t, < and
+# ==: 12); per triangle test: two cross products 18, four dot products 20,
 # |det| test 2, reciprocal 1, tvec 3, three scalings 3, seven tests 7.
-K9_NODE_F32 = 29
+K9_NODE_F32 = 4 * 25 + 3 + 12
 K9_TEST_F32 = 54
 GEN_CMP_SIDE = 256           # phase 10 comparisons: 65,536 rays
 GEN_CHUNK = 1 << 18          # the Cornell path's rays per chunk
@@ -707,14 +719,33 @@ K1_BEFORE = {"cornell": "0.1466 ms per slot-2 launch",
              "kitchen": "1.5067-1.5310 ms per slot-5 texture launch"}
 
 
+# K9's and K2's times and bounds before their redesign (the threaded
+# skip-link walk and one thread per lane over the whole table: PERF.md's K9
+# and K2 rows, "NVIDIA H100 80GB HBM3, 700.00 W"), printed beside this run's
+# figures
+K9_BEFORE = {"city": "1.767-1.820 ms per 1080p bounce-0 launch, bound "
+                     "0.1196 ms; 2.1 ms per closest-hit launch over a frame",
+             "foliage": "0.1051-0.1112 ms per 2^18-ray omm launch, bound "
+                        "0.0051 ms"}
+K2_BEFORE = {"rooms": "0.2922 ms per 2^18-lane launch, bound 0.0119 ms "
+                      "(38 f32 a pair); 9.0 ms per NEE-AT frame",
+             "curtain": "0.0317-0.0358 ms per omm launch, bound 0.0031 ms"}
+
+
 def _k1_frame(prof):
     """K1's device time (ms) and launches in a profile: every kernel of
     its two libraries."""
+    return _kernel_frame(prof, r"bounce_fused(_restart)?_kernel")
+
+
+def _kernel_frame(prof, pattern):
+    """The device time (ms) and launches in a profile of the kernels whose
+    name matches `pattern`."""
     from torch.autograd import DeviceType
     ms, launches = 0.0, 0
     for evt in prof.key_averages():
-        if evt.device_type == DeviceType.CUDA and re.search(
-                r"bounce_fused(_restart)?_kernel", evt.key):
+        if evt.device_type == DeviceType.CUDA and re.search(pattern,
+                                                            evt.key):
             ms += getattr(evt, "self_device_time_total", getattr(
                 evt, "self_cuda_time_total", 0.0)) / 1e3
             launches += evt.count
@@ -786,7 +817,9 @@ def main(record_path=None, group_path=None):
               if "_inj" not in k}),
             ("K1's restart", "k1_restart", kernels.BOUNCE_FUSED_RESTART,
              {k: v for k, v in kernels.BOUNCE_FUSED_ENTRIES.items()
-              if "_inj" in k})):
+              if "_inj" in k}),
+            ("K2", "k2", kernels.SHADOW_OCCLUSION,
+             kernels.SHADOW_OCCLUSION_ENTRIES)):
         sass = lib.sass_opcodes(kernels.TENSOR_OPCODES)
         tc = {}
         for name, needle in entries.items():
@@ -809,6 +842,23 @@ def main(record_path=None, group_path=None):
                       f"{r['registers']}/{r['stack_bytes']}/"
                       f"{r['spill_store_bytes']}/{r['spill_load_bytes']}"
                       for name, r in k1_regs.items()), flush=True)
+    # K9's four instantiations and K2's screen and exact kernels
+    k9_k2 = {name: _ptxas_entry(kernels.BVH_TRAVERSE.ptxas_log, needle)
+             for name, needle in kernels.BVH_TRAVERSE_ENTRIES.items()}
+    for name, needle in kernels.SHADOW_OCCLUSION_ENTRIES.items():
+        for tail, kind in (("", "screen"), ("_exact", "exact")):
+            k9_k2[f"{name}_{kind}"] = _ptxas_entry(
+                kernels.SHADOW_OCCLUSION.ptxas_log,
+                needle.replace("kernelILb", f"kernel{tail}ILb"))
+    record["build"]["k9_k2_ptxas"] = k9_k2
+    print("build: K9 and K2 registers / stack / spill stores / spill loads: "
+          + ", ".join(f"{name} {r['registers']}/{r['stack_bytes']}/"
+                      f"{r['spill_store_bytes']}/{r['spill_load_bytes']}"
+                      for name, r in k9_k2.items()), flush=True)
+    if any(r["registers"] is None or r["spill_store_bytes"]
+           for r in k9_k2.values()):
+        dump()
+        _fail("build: a K9 or K2 instantiation is missing or spills")
 
     # ---- 3. K1 against its plain version -----------------------------------
     host = cornell_box()
@@ -1809,16 +1859,18 @@ def _external_nee(record, dev, smi, dump):
                 k1_err = max(k1_err, err, serr)
                 sh = requests(cfg, plain, fs, is_, b)
                 occ_p, tst_p = bf.occlusion_reference(tbl, sh, stats=True)
+                bf.occlusion_screen_stats(dev, True)
                 occ_k, tst_k = bf.occlusion(tbl, sh, stats=True)
-                torch.cuda.synchronize()
-                # agreement over the lanes that carry a request (the
-                # others write 1 without a test on both sides)
+                screen = bf.occlusion_screen_stats(dev, False)
+                # every lane: a lane without a request writes 1 and 0
                 req = sh[bf.SR_DO] > 0.5
                 k2s = dict(occ_lanes_equal=float(
-                    (occ_k == occ_p)[req].float().mean()),
+                    (occ_k == occ_p).float().mean()),
+                    occ_lanes_differ=int((occ_k != occ_p).sum()),
                     tests_equal=bool(torch.equal(tst_k, tst_p)),
                     requests=int(req.sum()),
-                    occluded=int((req & (occ_p > 0.5)).sum()))
+                    occluded=int((req & (occ_p > 0.5)).sum()),
+                    screen=screen)
                 k2_err = max(k2_err, float((occ_k - occ_p).abs().max()))
                 cmp[f"{slot}_bounce{b}"] = dict(k1=summary, k2=k2s)
                 print(f"external {slot} bounce {b}: K1 int lanes equal "
@@ -1826,16 +1878,19 @@ def _external_nee(record, dev, smi, dump):
                       f"{summary['worst_float_row']:.6f}, worst SF row "
                       f"{surf['worst_float_row']:.6f}, L mean rel "
                       f"{summary['L_mean_rel']:.3g}, max abs err "
-                      f"{max(err, serr):.3g}; K2 occlusion equal "
-                      f"{k2s['occ_lanes_equal']:.6f} of "
-                      f"{k2s['requests']} requests ({k2s['occluded']} "
-                      f"occluded), tests equal {k2s['tests_equal']}",
+                      f"{max(err, serr):.3g}; K2 occlusion differs on "
+                      f"{k2s['occ_lanes_differ']} lanes ({k2s['requests']} "
+                      f"requests, {k2s['occluded']} occluded), tests "
+                      f"equal {k2s['tests_equal']}, screen pass share "
+                      f"{screen['shadow_share']}, missed {screen['missed']}",
                       flush=True)
                 if not (_state_ok(summary)
                         and surf["worst_float_row"] >= LANE_FRACTION
                         and k2s["requests"] > 0
-                        and k2s["occ_lanes_equal"] >= LANE_FRACTION
-                        and k2s["tests_equal"]):
+                        and k2s["occ_lanes_differ"] == 0
+                        and k2s["tests_equal"]
+                        and screen["missed"] == 0
+                        and screen["shadow_pairs"] > 0):
                     rec["compare"] = cmp
                     record["external"] = rec
                     dump()
@@ -1874,8 +1929,10 @@ def _external_nee(record, dev, smi, dump):
     k2_plain_ms = _cuda_ms(lambda: bf.occlusion_reference(tbl, sh_t), 1)
     _, tests = bf.occlusion(tbl, sh_t, stats=True)
     pairs = int(tests.sum())
+    # the pairs up to each request's first occluder, on the tensor cores
+    # and the screen (K1's count) above EXACT_TRIS triangles
     k2_bound, k2_by, k2_terms = _bound(
-        n * SR_BYTES + 4 * tbl.tri_coef.numel(), f32=pairs * K1_PAIR_F32)
+        n * SR_BYTES + 4 * tbl.tri_coef.numel(), **_k1_ops(tbl.n_tris, pairs))
     launch = dict(rays=n, requests=int((sh_t[bf.SR_DO] > 0.5).sum()),
                   pairs=pairs)
     rec.update(k1_modes=modes, k2=dict(ms=k2_ms, plain_ms=k2_plain_ms,
@@ -1889,8 +1946,8 @@ def _external_nee(record, dev, smi, dump):
                  else "") + f" ({smi})", flush=True)
     print(f"external K2: {k2_ms:.4f} ms per {n}-ray launch "
           f"({launch['requests']} requests, {pairs} pairs tested), plain "
-          f"{k2_plain_ms:.2f} ms, bound {k2_bound:.4f} ms ({k2_by}) ({smi})",
-          flush=True)
+          f"{k2_plain_ms:.2f} ms, bound {k2_bound:.4f} ms ({k2_by}) (before "
+          f"its redesign: {K2_BEFORE['rooms']}) ({smi})", flush=True)
     dump()
 
     # the three full-size paths, each through the entry point a user
@@ -1984,6 +2041,10 @@ def _external_nee(record, dev, smi, dump):
     print(f"external NEE-AT: K1 {k1_frame['ms']:.3f} ms of device time per "
           f"profiled 1-spp frame over {k1_frame['launches']} launches "
           f"(before its redesign: {K1_BEFORE['rooms']}) ({smi})", flush=True)
+    rec["k2_frame"] = k2_frame = _kernel_frame(prof, r"shadow_occlusion_kernel")
+    print(f"external NEE-AT: K2 {k2_frame['ms']:.3f} ms of device time per "
+          f"profiled 1-spp frame over {k2_frame['launches']} launches "
+          f"(before its redesign: {K2_BEFORE['rooms']}) ({smi})", flush=True)
     record["external"] = rec
     dump()
     k2 = dict(name="shadow_occlusion", route="cuda",
@@ -1998,9 +2059,10 @@ def _external_nee(record, dev, smi, dump):
 class _PlainQueries:
     """Stand-ins for the general wavefront's scene queries
     (integrator.scene_closest / scene_any): each query runs the plain
-    version (K8's or K9's), which carries the path; at the (kind, index)
-    calls in `compare` the kernel runs too on the same inputs and the pair
-    is summarized; the inputs of the calls in `keep` are kept."""
+    version (K8's, or K9's `_traverse_wide`), which carries the path; at
+    the (kind, index) calls in `compare` the kernel runs too on the same
+    inputs and the pair is summarized; the inputs of the calls in `keep`
+    are kept."""
 
     def __init__(self, compare=(), keep=()):
         self.compare, self.keep = set(compare), set(keep)
@@ -2031,8 +2093,8 @@ class _PlainQueries:
             prim = plain["prim"]
         else:
             any_hit = kind == "any"
-            plain = traverse._traverse(bvh, o, d, tmin, tmax, any_hit,
-                                       stats=True)
+            plain = traverse._traverse_wide(bvh, o, d, tmin, tmax, any_hit,
+                                            stats=True)
             if key in self.compare:
                 kern = traverse.walk(bvh, o, d, tmin, tmax, any_hit=any_hit,
                                      stats=True)
@@ -2047,7 +2109,10 @@ class _PlainQueries:
     def _summarize(self, key, kern, plain, kind):
         """Agreement of one query: prim ids and front (closest) or
         occlusion (any-hit) equal, t, u, v within TOL on the lanes whose
-        prims agree, and the walk's visit and test counts."""
+        prims agree, and the walk's visit and test counts. K9 against
+        `_traverse_wide`: its lanes bit-equal (prim, front, t, u, v) on
+        >= LANE_FRACTION of the closest hits, occlusion and the counts
+        equal on every lane."""
         import torch
         torch.cuda.synchronize()
         if kind == "any":
@@ -2070,16 +2135,77 @@ class _PlainQueries:
                   and out["front_equal"] >= LANE_FRACTION
                   and out["worst_float_row"] >= LANE_FRACTION)
         if "visits" in plain:
+            differ = _lanes_differ(
+                [kern[k].reshape(kern[k].shape[0], -1).T
+                 for k in ("t", "uv", "prim", "front")],
+                [plain[k].reshape(plain[k].shape[0], -1).T
+                 for k in ("t", "uv", "prim", "front")])
+            occ_differ = int(((kern["prim"] >= 0)
+                              != (plain["prim"] >= 0)).sum())
             out.update(visits_equal=bool(torch.equal(kern["visits"],
                                                      plain["visits"])),
                        tests_equal=bool(torch.equal(kern["tests"],
                                                     plain["tests"])),
+                       lanes_differ=differ, occ_lanes_differ=occ_differ,
                        visits=int(plain["visits"].sum()),
                        tests=int(plain["tests"].sum()))
-            ok = ok and (kind == "any" or (out["visits_equal"]
-                                           and out["tests_equal"]))
+            ok = (ok and out["visits_equal"] and out["tests_equal"]
+                  and (occ_differ == 0 if kind == "any" else
+                       differ <= (1 - LANE_FRACTION) * out["rays"]))
         out["ok"] = ok
         self.summaries[f"{kind}{key[1]}"] = out
+
+
+def _k9_audit(label, run, keep=2):
+    """Call `run()` with K9's wrapper (traverse.walk) recording its first
+    `keep` launches, then hold K9 to its plain version `_traverse_wide` on
+    each launch's rays (every k-th, at most 65,536): closest hits bit-equal
+    (prim, front, t, u, v) on >= LANE_FRACTION of the lanes, any-hit
+    occlusion and the visit and test counts equal on every lane. Returns
+    (run's result, the summaries, whether all agree)."""
+    import torch
+
+    from rtxpt_tpu_torch.accel import traverse
+    calls = []
+    real = traverse.walk
+
+    def recorder(bvh, o, d, tmin, tmax, any_hit=False, stats=False):
+        if len(calls) < keep:
+            calls.append((bvh, o, d, tmin, tmax, any_hit))
+        return real(bvh, o, d, tmin, tmax, any_hit, stats)
+    traverse.walk = recorder
+    try:
+        out = run()
+    finally:
+        traverse.walk = real
+    summaries, ok = [], bool(calls)
+    for bvh, o, d, tmin, tmax, any_hit in calls:
+        step = max(1, o.shape[0] // 65536)
+        sub = [x[::step].contiguous() for x in (o, d, tmin, tmax)]
+        kern = real(bvh, *sub, any_hit, True)
+        plain = traverse._traverse_wide(bvh, *sub, any_hit, True)
+        torch.cuda.synchronize()
+        rows = ("t", "uv", "prim", "front")
+        s = dict(any_hit=any_hit, rays=int(sub[0].shape[0]),
+                 omm=bvh.tri_micro is not None,
+                 lanes_differ=_lanes_differ(
+                     [kern[k].reshape(kern[k].shape[0], -1).T for k in rows],
+                     [plain[k].reshape(plain[k].shape[0], -1).T
+                      for k in rows]),
+                 occ_lanes_differ=int(((kern["prim"] >= 0)
+                                       != (plain["prim"] >= 0)).sum()),
+                 counts_equal=bool(torch.equal(kern["visits"],
+                                               plain["visits"])
+                                   and torch.equal(kern["tests"],
+                                                   plain["tests"])),
+                 visits_per_ray=float(plain["visits"].double().mean()),
+                 tests_per_ray=float(plain["tests"].double().mean()))
+        s["ok"] = s["counts_equal"] and s["occ_lanes_differ"] == 0 and \
+            s["lanes_differ"] <= (1 - LANE_FRACTION) * s["rays"]
+        ok = ok and s["ok"]
+        summaries.append(s)
+        print(f"{label} K9 audit: {json.dumps(s)}", flush=True)
+    return out, summaries, ok
 
 
 def _general_tier(record, dev, smi, dump, city, city_images):
@@ -2190,7 +2316,7 @@ def _general_tier(record, dev, smi, dump, city, city_images):
     check("k9_city", q)
     k9_err = q.err
     bvh = scene_city.bvh
-    k9_plain_ms = _cuda_ms(lambda: traverse._traverse(
+    k9_plain_ms = _cuda_ms(lambda: traverse._traverse_wide(
         bvh, *q.inputs[("closest", 0)], False), 1)
 
     # K9 timed at the city path's 1080p bounce-0 launch
@@ -2206,18 +2332,21 @@ def _general_tier(record, dev, smi, dump, city, city_images):
     st = traverse.walk(bvh, o, d, tmin, tmax, stats=True)
     visits, tests = int(st["visits"].sum()), int(st["tests"].sum())
     k9_bound, k9_by, k9_terms = _bound(
-        n * RAY_BYTES + 4 * bvh.nodes.numel(),
+        n * RAY_BYTES + 4 * (bvh.wide.numel() + bvh.wide_tris.numel()),
         f32=visits * K9_NODE_F32 + tests * K9_TEST_F32)
     rec["k9_time"] = dict(ms=k9_ms, plain_ms=k9_plain_ms,
                           plain_rays=GEN_CMP_SIDE ** 2, rays=n,
-                          nodes=bvh.num_nodes, visits=visits, tests=tests,
-                          hits=int((st["prim"] >= 0).sum()),
+                          nodes=bvh.num_nodes, wide_nodes=bvh.num_wide,
+                          wide_depth=bvh.wide_depth,
+                          wide_stack=bvh.wide_stack, visits=visits,
+                          tests=tests, hits=int((st["prim"] >= 0).sum()),
                           bound_ms=k9_bound, bound_by=k9_by, terms=k9_terms)
     print(f"general K9: {k9_ms:.4f} ms per {n}-ray launch over "
-          f"{bvh.num_nodes} nodes ({visits / n:.1f} visits, {tests / n:.2f} "
-          f"tests per ray), plain {k9_plain_ms:.2f} ms at "
+          f"{bvh.num_wide} wide nodes of {bvh.num_nodes} binary ones, "
+          f"{bvh.wide_depth} levels ({visits / n:.2f} wide visits, "
+          f"{tests / n:.3f} tests per ray), plain {k9_plain_ms:.2f} ms at "
           f"{GEN_CMP_SIDE ** 2} rays, bound {k9_bound:.4f} ms ({k9_by}) "
-          f"({smi})", flush=True)
+          f"(before its redesign: {K9_BEFORE['city']}) ({smi})", flush=True)
     dump()
 
     # the golden through the general tier
@@ -2299,6 +2428,8 @@ def _general_tier(record, dev, smi, dump, city, city_images):
                  lbvh_seconds=lbvh_seconds(host, ordered),
                  L_mean=float(hdr.mean()), finite=finite, split=split,
                  profile_table=table, card=smi)
+        if kernel == "bvh_traverse":
+            p["k9_frame"] = _kernel_frame(prof, r"bvh_traverse_kernel")
         print(f"general path {label}: {p['mrays_per_s']:.3f} Mrays/s, "
               f"{p['ms_per_frame_1spp']:.3f} ms per 1-spp frame, {rays} "
               f"rays, launches {launched} (want {want}), {kernel} "
@@ -2322,6 +2453,10 @@ def _general_tier(record, dev, smi, dump, city, city_images):
     city_path, hdr = run_path(
         "city", scene_city, host_city, cfg4, 1, "bvh_traverse",
         (b + 1) + b, True)
+    k9f = city_path["k9_frame"]
+    print(f"general city: K9 {k9f['ms']:.3f} ms of device time per profiled "
+          f"1-spp frame over {k9f['launches']} launches (before its "
+          f"redesign: {K9_BEFORE['city']}) ({smi})", flush=True)
     ref = city_images[1]
     city_path.update(rmse_vs_clustered=rmse(hdr.cpu().numpy(),
                                             ref.cpu().numpy()),
@@ -2994,6 +3129,28 @@ def _textures(record, dev, smi, dump):
         o, d, spread = camera_rays(cam, cfg_, px, py, sample)
         return bf.initial_state(o, d, spread, px, py)
 
+    def kitchen_k2(scene, rcfg, out, fs, is_, b):
+        """K2 against its plain version on the shadow requests external_nee
+        builds from K1's export `out` of the state (fs, is_) at bounce b:
+        occ and tests on every lane, and the screen's counters."""
+        res = external_nee(scene, rcfg, None, out[3],
+                           fs[bf.FS_D:bf.FS_D + 3], out[2][5] > 0.5,
+                           fs[bf.FS_PREVPDF], is_[bf.IS_PREVDELTA] > 0,
+                           out[1][bf.IS_PX], out[1][bf.IS_PY], sample, b)
+        sh = bf.shadow_requests(res["shadow_o"], res["shadow_d"],
+                                res["sdist"], res["do_nee"])
+        occ_p, tst_p = bf.occlusion_reference(scene.bounce_tables, sh,
+                                              stats=True)
+        bf.occlusion_screen_stats(dev, True)
+        occ_k, tst_k = bf.occlusion(scene.bounce_tables, sh, stats=True)
+        screen = bf.occlusion_screen_stats(dev, False)
+        req = sh[bf.SR_DO] > 0.5
+        return dict(occ_lanes_differ=int((occ_k != occ_p).sum()),
+                    tests_equal=bool(torch.equal(tst_k, tst_p)),
+                    requests=int(req.sum()),
+                    occluded=int((req & (occ_p > 0.5)).sum()),
+                    screen=screen)
+
     # ---- (a) K1's texture switch ----
     hosts = dict(cornell=_textured_cornell(), kitchen=kitchen_scene())
     scenes = {k: prepare(v, device=dev) for k, v in hosts.items()}
@@ -3041,6 +3198,17 @@ def _textures(record, dev, smi, dump):
                     dump()
                     _fail(f"textures: K1's texture variant disagrees with "
                           f"its plain version on the {name} at bounce {b}")
+                if kcfg.external:
+                    k2s = kitchen_k2(scene, rcfg, plain, fs, is_, b)
+                    rec[f"k2_{name}_bounce{b}"] = k2s
+                    print(f"textures k2 {name} bounce {b}: "
+                          f"{json.dumps(k2s)}", flush=True)
+                    if k2s["occ_lanes_differ"] or not k2s["tests_equal"] \
+                            or k2s["screen"]["missed"] or not \
+                            k2s["screen"]["shadow_pairs"]:
+                        dump()
+                        _fail(f"textures: K2 disagrees with its plain "
+                              f"version on the {name} at bounce {b}")
             fs, is_ = plain[0], plain[1]
         # timed at the path's launch width: 2^18 camera rays, bounce 0
         side_t = int(round(RAYS_TIMED ** 0.5))
@@ -3070,6 +3238,31 @@ def _textures(record, dev, smi, dump):
               f"{bound:.4f} ms ({by}) ({smi})", flush=True)
         if name == "kitchen":
             ext = (scene, rcfg)
+            # K2 on the same launch's external requests, timed
+            out_t = bf.bounce(fs_t, is_t, tbl, kcfg, sample)
+            res = external_nee(scene, rcfg, None, out_t[3],
+                               fs_t[bf.FS_D:bf.FS_D + 3], out_t[2][5] > 0.5,
+                               fs_t[bf.FS_PREVPDF],
+                               is_t[bf.IS_PREVDELTA] > 0,
+                               out_t[1][bf.IS_PX], out_t[1][bf.IS_PY],
+                               sample, 0)
+            sh_t = bf.shadow_requests(res["shadow_o"], res["shadow_d"],
+                                      res["sdist"], res["do_nee"])
+            k2_ms = _cuda_ms(lambda: bf.occlusion(tbl, sh_t), 20)
+            k2_plain = _cuda_ms(lambda: bf.occlusion_reference(tbl, sh_t), 1)
+            _, tests = bf.occlusion(tbl, sh_t, stats=True)
+            k2_pairs = int(tests.sum())
+            k2_bound, k2_by, _ = _bound(
+                n * SR_BYTES + 4 * tbl.tri_coef.numel(),
+                **_k1_ops(tbl.n_tris, k2_pairs))
+            rec["k2_kitchen"] = dict(
+                ms=k2_ms, plain_ms=k2_plain, bound_ms=k2_bound,
+                bound_by=k2_by, lanes=n, pairs=k2_pairs,
+                requests=int((sh_t[bf.SR_DO] > 0.5).sum()))
+            print(f"textures k2 kitchen: kernel {k2_ms:.4f} ms per {n}-lane "
+                  f"launch ({rec['k2_kitchen']['requests']} requests, "
+                  f"{k2_pairs} pairs), plain {k2_plain:.4f} ms, bound "
+                  f"{k2_bound:.4f} ms ({k2_by}) ({smi})", flush=True)
     _k1_report(record, "textures", dump)
     # registers and spills of each K1 and K4 instantiation
     regs = {f"{lib}_{'tex' if t else 'plain'}": _ptxas_entry(
@@ -3408,20 +3601,20 @@ def _alpha(record, dev, smi, dump):
                     occ_k, tst_k = bf.occlusion(tbl, sh, stats=True)
                     occ_p, tst_p = bf.occlusion_reference(tbl, sh, stats=True)
                     torch.cuda.synchronize()
-                    same = float((occ_k == occ_p)[req].float().mean())
+                    differ = int((occ_k != occ_p).sum())
                     k2_err = max(k2_err, float((occ_k - occ_p).abs().max()))
                     rec[f"k2_bounce{b}"] = dict(
-                        occ_lanes_equal=same,
+                        occ_lanes_differ=differ,
                         tests_equal=bool(torch.equal(tst_k, tst_p)),
                         requests=int(req.sum()),
                         occluded=float(occ_p[req].mean()), **sshare)
-                    print(f"alpha k2 bounce {b}: occlusion equal {same:.6f} "
-                          f"over {int(req.sum())} requests (occluded "
-                          f"{float(occ_p[req].mean()):.4f}), tests equal "
+                    print(f"alpha k2 bounce {b}: occlusion differs on "
+                          f"{differ} lanes, {int(req.sum())} requests "
+                          f"(occluded {float(occ_p[req].mean()):.4f}), "
+                          f"tests equal "
                           f"{rec[f'k2_bounce{b}']['tests_equal']}",
                           flush=True)
-                    if same < LANE_FRACTION or \
-                            not rec[f"k2_bounce{b}"]["tests_equal"]:
+                    if differ or not rec[f"k2_bounce{b}"]["tests_equal"]:
                         dump()
                         _fail(f"alpha: K2's micromap variant disagrees with "
                               f"its plain version at bounce {b}")
@@ -3467,7 +3660,7 @@ def _alpha(record, dev, smi, dump):
     k2_bound, k2_by, _ = _bound(
         n * (SR_BYTES + 4) + 4 * (tbl.tri_coef.numel() + tbl.tri_micro.numel()
                                   + tbl.tri_cover.numel()),
-        f32=k2_pairs * K1_PAIR_F32)
+        **_k1_ops(tbl.n_tris, k2_pairs))
     rec["k1"] = dict(ms=k1_ms, plain_ms=k1_plain, bound_ms=k1_bound,
                      bound_by=k1_by, rays=n)
     rec["k2"] = dict(ms=k2_ms, plain_ms=k2_plain, bound_ms=k2_bound,
@@ -3477,7 +3670,8 @@ def _alpha(record, dev, smi, dump):
           f"{k1_plain:.4f} ms, bound {k1_bound:.4f} ms ({k1_by}); k2: "
           f"kernel {k2_ms:.4f} ms ({rec['k2']['requests']} requests, "
           f"{k2_pairs} pairs), plain {k2_plain:.4f} ms, bound "
-          f"{k2_bound:.4f} ms ({k2_by}) ({smi})", flush=True)
+          f"{k2_bound:.4f} ms ({k2_by}) (before its redesign: "
+          f"{K2_BEFORE['curtain']}) ({smi})", flush=True)
     rec["ptxas"] = {
         f"{lib}_{'omm' if o else 'plain'}_{'tex' if t else 'notex'}":
             _ptxas_entry(getattr(kernels, attr).ptxas_log,
@@ -3519,8 +3713,8 @@ def _alpha(record, dev, smi, dump):
                 grid, o3.T[:, act], d3.T[:, act], tmax[act]))
             for any_hit in (False, True):
                 kern = traverse.walk(bvh, o3, d3, tmin, tmax, any_hit, True)
-                plain = traverse._traverse(bvh, o3, d3, tmin, tmax, any_hit,
-                                           True)
+                plain = traverse._traverse_wide(bvh, o3, d3, tmin, tmax,
+                                                any_hit, True)
                 torch.cuda.synchronize()
                 same = kern["prim"] == plain["prim"]
                 summ, err = _compare(
@@ -3529,16 +3723,21 @@ def _alpha(record, dev, smi, dump):
                 summ.pop("float_rows")
                 summ.update(counts_equal=bool(
                     torch.equal(kern["visits"], plain["visits"])
-                    and torch.equal(kern["tests"], plain["tests"])), **share)
+                    and torch.equal(kern["tests"], plain["tests"])),
+                    lanes_differ=_lanes_differ(
+                        [kern["t"][None], kern["uv"].T, kern["prim"][None],
+                         kern["front"][None]],
+                        [plain["t"][None], plain["uv"].T,
+                         plain["prim"][None], plain["front"][None]]),
+                    **share)
                 k9["err"] = max(k9["err"], err)
                 key = f"k9_{'any' if any_hit else 'closest'}_bounce{b}"
                 rec[key] = summ
-                print(f"alpha {key}: prims equal "
-                      f"{summ['int_lanes_equal']:.6f}, worst t/uv row "
-                      f"{summ['worst_float_row']:.6f}, visit and test counts "
-                      f"equal {summ['counts_equal']}", flush=True)
-                if summ["int_lanes_equal"] < LANE_FRACTION or \
-                        summ["worst_float_row"] < LANE_FRACTION or \
+                print(f"alpha {key}: {summ['lanes_differ']} of {nb} lanes "
+                      f"differ bit-wise, prims equal "
+                      f"{summ['int_lanes_equal']:.6f}, visit and test "
+                      f"counts equal {summ['counts_equal']}", flush=True)
+                if summ["lanes_differ"] > (1 - LANE_FRACTION) * nb or \
                         not summ["counts_equal"]:
                     dump()
                     _fail(f"alpha: K9's micromap test disagrees with its "
@@ -3561,20 +3760,23 @@ def _alpha(record, dev, smi, dump):
     t0_9 = torch.zeros(n9, device=dev)
     t1_9 = torch.full((n9,), 1e27, device=dev)
     k9_ms = _cuda_ms(lambda: traverse.walk(fol.bvh, o9, d9, t0_9, t1_9), 10)
-    k9_plain = _cuda_ms(lambda: traverse._traverse(fol.bvh, o9, d9, t0_9,
-                                                   t1_9, False), 1)
+    k9_plain = _cuda_ms(lambda: traverse._traverse_wide(
+        fol.bvh, o9, d9, t0_9, t1_9, False), 1)
     st9 = traverse.walk(fol.bvh, o9, d9, t0_9, t1_9, stats=True)
     visits, tests9 = int(st9["visits"].sum()), int(st9["tests"].sum())
     k9_bound, k9_by, _ = _bound(
-        n9 * RAY_BYTES + 4 * (fol.bvh.nodes.numel()
+        n9 * RAY_BYTES + 4 * (fol.bvh.wide.numel() + fol.bvh.wide_tris.numel()
                               + fol.bvh.tri_micro.numel()),
         f32=visits * K9_NODE_F32 + tests9 * K9_TEST_F32)
     rec["k9"] = dict(ms=k9_ms, plain_ms=k9_plain, bound_ms=k9_bound,
-                     bound_by=k9_by, rays=n9, visits=visits, tests=tests9)
-    print(f"alpha k9 (foliage BVH, {fol.bvh.num_nodes} nodes): kernel "
-          f"{k9_ms:.4f} ms per {n9}-ray closest-hit launch ({visits} visits, "
-          f"{tests9} tests), plain {k9_plain:.2f} ms, bound {k9_bound:.4f} "
-          f"ms ({k9_by}) ({smi})", flush=True)
+                     bound_by=k9_by, rays=n9, visits=visits, tests=tests9,
+                     wide_nodes=fol.bvh.num_wide)
+    print(f"alpha k9 (foliage BVH, {fol.bvh.num_wide} wide nodes of "
+          f"{fol.bvh.num_nodes}): kernel {k9_ms:.4f} ms per {n9}-ray "
+          f"closest-hit launch ({visits / n9:.2f} wide visits, "
+          f"{tests9 / n9:.3f} tests per ray), plain {k9_plain:.2f} ms, bound "
+          f"{k9_bound:.4f} ms ({k9_by}) (before its redesign: "
+          f"{K9_BEFORE['foliage']}) ({smi})", flush=True)
     dump()
 
     # ---- (c) the full-size paths ----
@@ -4198,6 +4400,17 @@ def _priorities(record, dev, smi, dump):
     torch.cuda.synchronize()
     t_g = time.perf_counter() - t0
     launches["bistro_general"] = dict(kernels.launches)
+    # K9's micromap walk on Bistro held to its plain version: the first
+    # two launches of the same sample again (bounce 0's closest hits and
+    # its alpha retrace or shadow rays)
+    _, rec["k9_audit"], k9_ok = _k9_audit(
+        "priorities bistro", lambda: render_sample(
+            scene, camg, dataclasses.replace(bcfg, kernel_tier="xla"), gw,
+            gh, 1))
+    if not k9_ok or not all(a["omm"] for a in rec["k9_audit"]):
+        dump()
+        _fail("priorities: K9's micromap walk disagrees with its plain "
+              "version on Bistro")
     gen = dict(res=f"{gw}x{gh}", ms=t_g * 1e3,
                launches=dict(kernels.launches),
                overflow_clustered=int(out_c["cull_overflow"]),
@@ -5662,7 +5875,15 @@ def _realtime(record, dev, smi, dump, city_prepared):
             cam = _moving_camera(host, fw, fh, n_frames, dev)
             px, py = _pixel_grid(fw, fh, dev)
             o, d, _ = camera_rays(cam, pcfg, px, py, state.frame_index)
-            pls, _ = decompose(scene, o, d)
+            if name == "city_planes":
+                # the BUILD walk's first K9 launches held to the plain walk
+                (pls, _), r["k9_audit"], k9_ok = _k9_audit(
+                    f"realtime {name}", lambda: decompose(scene, o, d))
+                if not k9_ok:
+                    failed.append(f"{name}: K9 disagrees with its plain "
+                                  f"version")
+            else:
+                pls, _ = decompose(scene, o, d)
             r["plane_valid_share"] = [float(p.valid.float().mean())
                                       for p in pls]
             r["k1_inject_per_frame"] = sum(

@@ -2,21 +2,24 @@
 rtxpt_tpu/accel/traverse.py).
 
 `walk` runs the CUDA kernel K9 (csrc/bvh_traverse.cu) on CUDA tensors and
-the plain version `_traverse` on CPU tensors. Each ray walks the threaded
-BVH (accel/bvh.py) in skip-link order to the end: at each node a slab test
-against the AABB, and at a leaf whose AABB it hit the Möller-Trumbore test
-of the leaf triangle (|det| > 1e-9, tmin < t < the best t so far); it
-descends to node + 1 on an internal hit and follows the miss link
-otherwise. The any-hit variant stops at its first hit. A BVH with
-opacity micromaps (`tri_micro`, the words in leaf order) rejects a hit
-whose micro-triangle is TRANSPARENT inside the walk
+its plain version `_traverse_wide` on CPU tensors: each ray walks the
+4-wide tree (accel/bvh.py `collapse_wide`) nearest child first with a
+stack. `_traverse` is the JAX package's walk of the threaded binary BVH
+in skip-link order, kept as the model the wide walk is held to: at each
+node a slab test against the AABB, and at a leaf whose AABB it hit the
+Möller-Trumbore test of the leaf triangle (|det| > 1e-9, tmin < t < the
+best t so far); it descends to node + 1 on an internal hit and follows
+the miss link otherwise. The any-hit variants stop at their first hit.
+A BVH with opacity micromaps (`tri_micro`, the words in leaf order)
+rejects a hit whose micro-triangle is TRANSPARENT inside the walk
 (rtxpt_tpu/accel/traverse.py:113-121); the other states are the alpha
 retrace's (scene/omm.py).
 
-The plain version advances every live ray one node per step and drops the
-finished rays between steps; the result of each ray is the same as a walk
-of its own. min and max propagate NaN (as jnp.minimum and torch.minimum
-do), so a ray with NaN components ends as in the JAX package.
+The plain versions advance every live ray one step at a time and drop
+the finished rays between steps; the result of each ray is the same as a
+walk of its own. min and max propagate NaN (as jnp.minimum and
+torch.minimum do), so a ray with NaN components ends as in the JAX
+package.
 
 `intersect_closest` and `intersect_any` take the brute force
 (accel/brute.py, K8) when the BVH carries brute tables and the walk
@@ -33,11 +36,19 @@ from typing import Optional
 import torch
 
 from rtxpt_tpu_torch import kernels
-from rtxpt_tpu_torch.accel.bvh import NODE_ROWS, ThreadedBVH
+from rtxpt_tpu_torch.accel.bvh import (
+    WIDE_REF, WIDE_ROWS, WIDE_TRI_ROWS, ThreadedBVH)
 from rtxpt_tpu_torch.scene import omm
 
 _INVD_MAX = 1e30
 _TRI_EPS = 1e-9
+# the wide walk's prune slack after its first hit: a child is skipped where
+# its entry exceeds best_t + |best_t| x 2^-20 (csrc/accel.cuh kWideSlack)
+WIDE_SLACK = 2.0 ** -20
+# K9's launch: threads per block, and the wide nodes (the first rows, the
+# tree's top levels) each block copies to shared memory
+WALK_THREADS = 128
+WALK_TOP = 0
 
 
 @dataclass(frozen=True)
@@ -157,15 +168,138 @@ def _traverse(bvh: ThreadedBVH, o, d, tmin, tmax, any_hit: bool,
     return out
 
 
+def _triangle(tri, o, d, tmin):
+    """The Möller-Trumbore test of rows tri [L, WIDE_TRI_ROWS] against rays
+    o, d [L, 3] (`_traverse`'s arithmetic): (th, u, v, det, inside: the
+    pair hits beyond tmin [L], whatever the best t)."""
+    v0, e1, e2 = tri[:, 0:3], tri[:, 4:7], tri[:, 8:11]
+    pvec = _cross(d, e2)
+    det = _dot3(e1, pvec)
+    ok_det = torch.abs(det) > _TRI_EPS
+    inv_det = torch.where(ok_det, 1.0 / torch.where(ok_det, det, 1.0), 0.0)
+    tvec = o - v0
+    u = _dot3(tvec, pvec) * inv_det
+    qvec = _cross(tvec, e1)
+    v = _dot3(d, qvec) * inv_det
+    th = _dot3(e2, qvec) * inv_det
+    inside = (ok_det & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+              & (th > tmin))
+    return th, u, v, det, inside
+
+
+def _traverse_wide(bvh: ThreadedBVH, o, d, tmin, tmax, any_hit: bool,
+                   stats: bool = False):
+    """The plain version of K9: the walk of the 4-wide tree (bvh.wide,
+    bvh.wide_tris). Returns `_traverse`'s dict; with `stats` visits [N]
+    i32 (wide nodes each ray loaded) and tests [N] i32 (triangle tests).
+
+    Per ray, a stack of (wide node, entry t) starts with the root. Each
+    step pops the top; an entry beyond the limit (tmax, and after the
+    first hit best_t + |best_t| x WIDE_SLACK) is dropped unvisited.
+    A visit slab-tests the node's 4 child boxes against [tmin, limit], then
+    tests the hit leaves' triangles in slot order: a hit replaces the best
+    where th < t, or th == t and its leaf index is lower, so the winner is
+    the least (t, leaf) whatever the order (the threaded walk keeps the
+    earliest leaf among equal t). Then it pushes the hit inner children,
+    the nearest (least entry, then slot) on top. The any-hit walk ends at
+    its first accepted hit and pushes in slot order (the first slot on
+    top)."""
+    n = o.shape[0]
+    dev = o.device
+    invd = _safe_inv(d)
+    t = tmax.to(torch.float32).clone()
+    prim = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    uv = torch.zeros((n, 2), dtype=torch.float32, device=dev)
+    front = torch.zeros((n,), dtype=torch.bool, device=dev)
+    visits = torch.zeros((n,), dtype=torch.int32, device=dev)
+    tests = torch.zeros((n,), dtype=torch.int32, device=dev)
+    boxes = bvh.wide[:, :WIDE_REF].reshape(-1, 6, 4)
+    refs = bvh.wide.view(torch.int32)[:, WIDE_REF:WIDE_REF + 4]
+    depth = bvh.wide_stack
+    stk_n = torch.zeros((n, depth), dtype=torch.int64, device=dev)
+    stk_t = torch.full((n, depth), -float("inf"), dtype=torch.float32,
+                       device=dev)
+    sp = torch.ones((n,), dtype=torch.int64, device=dev)
+    live = torch.arange(n, device=dev)
+    slot = torch.arange(4, device=dev)
+    while live.numel():
+        top = sp[live] - 1
+        node, entry = stk_n[live, top], stk_t[live, top]
+        sp[live] = top
+        tl = t[live]
+        lim = torch.where(prim[live] >= 0, tl + tl.abs() * WIDE_SLACK,
+                          tmax[live])
+        go = ~(entry > lim)
+        v, node, lim = live[go], node[go], lim[go]
+        if stats:
+            visits[v] += 1
+        bx = boxes[node]                                   # [V,6,4]
+        ov, iv = o[v][:, :, None], invd[v][:, :, None]
+        t0 = (bx[:, 0:3] - ov) * iv
+        t1 = (bx[:, 3:6] - ov) * iv
+        lo, hi = torch.minimum(t0, t1), torch.maximum(t0, t1)
+        tn = torch.maximum(torch.maximum(torch.maximum(lo[:, 0], lo[:, 1]),
+                                         lo[:, 2]), tmin[v][:, None])
+        tf = torch.minimum(torch.minimum(torch.minimum(hi[:, 0], hi[:, 1]),
+                                         hi[:, 2]), lim[:, None])
+        r = refs[node]                                     # [V,4]
+        hit = (tn <= tf) & (r != 0)
+        done = torch.zeros((v.numel(),), dtype=torch.bool, device=dev)
+        for c in range(4):
+            sel = torch.nonzero(hit[:, c] & (r[:, c] < 0) & ~done)[:, 0]
+            if not sel.numel():
+                continue
+            rays = v[sel]
+            leaf = -r[sel, c] - 1
+            if stats:
+                tests[rays] += 1
+            th, u, vv, det, inside = _triangle(
+                bvh.wide_tris[leaf.long()], o[rays], d[rays], tmin[rays])
+            tb = t[rays]
+            acc = inside & ((th < tb) | ((th == tb) & (leaf < prim[rays])))
+            if bvh.tri_micro is not None:
+                mi = torch.clamp(omm.micro_index(u, vv), 0, 15)
+                st = omm.micro_state(bvh.tri_micro[leaf.long()], mi)
+                acc = acc & (st != omm.MICRO_TRANSPARENT)
+            won = rays[acc]
+            t[won] = th[acc]
+            prim[won] = leaf[acc]
+            uv[won] = torch.stack([u, vv], dim=1)[acc]
+            front[won] = (det > 0.0)[acc]
+            if any_hit:
+                done[sel[acc]] = True
+        inner = hit & (r > 0) & ~done[:, None]
+        if any_hit:
+            sp[v[done]] = 0
+        cnt = inner.sum(1)
+        # nearest first; the any-hit walk in slot order
+        key = torch.where(inner, slot.to(tn.dtype)[None] if any_hit else tn,
+                          float("inf"))
+        ahead = ((key[:, None, :] < key[:, :, None])
+                 | ((key[:, None, :] == key[:, :, None])
+                    & (slot[None, :] < slot[:, None])[None]))
+        rank = (ahead & inner[:, None, :]).sum(2)
+        pos = sp[v][:, None] + cnt[:, None] - 1 - rank
+        rows = v[:, None].expand(-1, 4)
+        stk_n[rows[inner], pos[inner]] = r[inner].long()
+        stk_t[rows[inner], pos[inner]] = tn[inner]
+        sp[v] += cnt
+        live = live[sp[live] > 0]
+    out = dict(t=t, prim=prim, uv=uv, front=front)
+    if stats:
+        out.update(visits=visits, tests=tests)
+    return out
+
+
 def walk(bvh: ThreadedBVH, o, d, tmin, tmax, any_hit: bool = False,
          stats: bool = False):
     """The BVH walk over rays o, d [N,3] f32, tmin, tmax [N] f32: K9
     (csrc/bvh_traverse.cu; with the BVH's micromaps its micromap test,
-    counted as "bvh_traverse_omm") for CUDA tensors, `_traverse` for CPU
-    tensors; returns `_traverse`'s dict. Build and launch errors raise;
-    nothing falls back."""
+    counted as "bvh_traverse_omm") for CUDA tensors, `_traverse_wide` for
+    CPU tensors; returns `_traverse`'s dict, with the wide walk's counts.
+    Build and launch errors raise; nothing falls back."""
     if o.device.type == "cpu":
-        return _traverse(bvh, o, d, tmin, tmax, any_hit, stats)
+        return _traverse_wide(bvh, o, d, tmin, tmax, any_hit, stats)
     if o.device.type != "cuda":
         raise ValueError(f"traverse.walk: no kernel for device {o.device}")
     n = o.shape[0]
@@ -175,8 +309,13 @@ def walk(bvh: ThreadedBVH, o, d, tmin, tmax, any_hit: bool = False,
     kernels.check_tensor("d", d, f32, (n, 3), dev)
     kernels.check_tensor("tmin", tmin, f32, (n,), dev)
     kernels.check_tensor("tmax", tmax, f32, (n,), dev)
-    kernels.check_tensor("nodes", bvh.nodes, f32, (bvh.num_nodes, NODE_ROWS),
+    kernels.check_tensor("wide", bvh.wide, f32, (bvh.num_wide, WIDE_ROWS),
                          dev)
+    kernels.check_tensor("wide_tris", bvh.wide_tris, f32,
+                         (bvh.num_triangles, WIDE_TRI_ROWS), dev)
+    if bvh.wide.data_ptr() % 128 or bvh.wide_tris.data_ptr() % 16:
+        raise ValueError("wide nodes must be 128-byte aligned and wide_tris "
+                         "16-byte aligned")
     micro = bvh.tri_micro
     if micro is not None:
         kernels.check_tensor("tri_micro", micro, i32,
@@ -192,13 +331,15 @@ def walk(bvh: ThreadedBVH, o, d, tmin, tmax, any_hit: bool = False,
         with torch.cuda.device(dev):
             kernels.BVH_TRAVERSE.launch(
                 "rtxpt_bvh_traverse", o.data_ptr(), d.data_ptr(),
-                tmin.data_ptr(), tmax.data_ptr(), bvh.nodes.data_ptr(),
+                tmin.data_ptr(), tmax.data_ptr(), bvh.wide.data_ptr(),
+                bvh.wide_tris.data_ptr(),
                 None if micro is None else micro.data_ptr(),
                 out["t"].data_ptr(), out["prim"].data_ptr(),
                 out["uv"].data_ptr(), out["front"].data_ptr(),
                 out["visits"].data_ptr() if stats else None,
                 out["tests"].data_ptr() if stats else None,
-                n, int(any_hit), torch.cuda.current_stream(dev).cuda_stream)
+                n, int(any_hit), WALK_THREADS, min(WALK_TOP, bvh.num_wide),
+                torch.cuda.current_stream(dev).cuda_stream)
         kernels.launches["bvh_traverse" if micro is None
                          else "bvh_traverse_omm"] += 1
     return out

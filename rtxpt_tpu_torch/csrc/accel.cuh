@@ -1,8 +1,8 @@
 // Per-ray bodies of the general tier's two intersection kernels: the
-// brute-force pair test of K8 (brute_closest.cu) and the threaded-BVH walk of
+// brute-force pair test of K8 (brute_closest.cu) and the 4-wide BVH walk of
 // K9 (bvh_traverse.cu). Their plain versions are
 // rtxpt_tpu_torch/accel/brute.py::_intersect_chunk and
-// rtxpt_tpu_torch/accel/traverse.py::_traverse.
+// rtxpt_tpu_torch/accel/traverse.py::_traverse_wide.
 //
 // Parity rules, as in wide.cuh: every expression keeps the operation order of
 // the plain version (a dot product is (x + y) + z), the libraries are built
@@ -13,6 +13,7 @@
 
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "omm.cuh"
 #include "wide.cuh"
@@ -29,10 +30,41 @@ namespace rt {
 // v0 . n; 16 floats, one 64-byte row.
 enum { TB_N = 0, TB_E2 = 3, TB_V0XE2 = 6, TB_E1 = 9, TB_V0XE1 = 12,
        TB_V0N = 15, TB_ROWS = 16 };
-// The threaded BVH's node rows (accel/bvh.py): AABB min, max, prim, miss
-// link, leaf triangle v0, e1, e2.
-enum { ND_MIN = 0, ND_MAX = 3, ND_PRIM = 6, ND_MISS = 7, ND_V0 = 8,
-       ND_E1 = 11, ND_E2 = 14, ND_ROWS = 17 };
+// K9's 4-wide nodes (accel/bvh.py collapse_wide): 32 floats, one 128-byte
+// line; the children's AABBs as structure of arrays, then their references.
+enum { WN_MINX = 0, WN_MINY = 4, WN_MINZ = 8, WN_MAXX = 12, WN_MAXY = 16,
+       WN_MAXZ = 20, WN_REF = 24, WN_ROWS = 32 };
+// its leaf triangles: v0, e1, e2, each padded to 4 floats (48 bytes)
+enum { WT_V0 = 0, WT_E1 = 4, WT_E2 = 8, WT_ROWS = 12 };
+constexpr int kWideStack = 96;                 // bvh.WIDE_STACK
+constexpr float kWideSlack = 1.0f / 1048576.0f;  // traverse.WIDE_SLACK, 2^-20
+
+struct F4 {
+  float x, y, z, w;
+};
+
+// One 16-byte load through the read-only cache (p 16-byte aligned).
+RT_HD F4 ldg4(const float* p) {
+#ifdef __CUDA_ARCH__
+  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+  F4 r = {v.x, v.y, v.z, v.w};
+#else
+  F4 r = {p[0], p[1], p[2], p[3]};
+#endif
+  return r;
+}
+
+// One 16-byte load through a generic pointer (shared memory or global).
+RT_HD F4 ld4(const float* p) {
+  F4 r = {p[0], p[1], p[2], p[3]};
+#ifdef __CUDA_ARCH__
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  r.x = v.x; r.y = v.y; r.z = v.z; r.w = v.w;
+#endif
+  return r;
+}
+
+RT_HD float lane4(F4 v, int c) { return c == 0 ? v.x : (c == 1 ? v.y : (c == 2 ? v.z : v.w)); }
 
 RT_HD float minimum_(float a, float b) {
   if (a != a) return a;
@@ -61,6 +93,16 @@ RT_HD bool brute_pair(const float* r, V3 o, V3 d, V3 x, float tmin, float tmax,
   return ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > tmin && t < tmax;
 }
 
+RT_HD int float_bits(float x) {
+#ifdef __CUDA_ARCH__
+  return __float_as_int(x);
+#else
+  int r;
+  memcpy(&r, &x, sizeof(r));
+  return r;
+#endif
+}
+
 RT_HD float safe_inv(float x) {
   return fabsf(x) > 1e-24f ? 1.0f / x : (x >= 0.0f ? 1e30f : -1e30f);
 }
@@ -73,12 +115,25 @@ struct Walk {
   int tests;         // leaves whose AABB was hit (triangle tests)
 };
 
-// One ray's walk of the threaded BVH to the end (or, kAny, to its first hit).
-// With `micro` (the micromap words in leaf order, or null) a hit whose
-// micro-triangle is TRANSPARENT is rejected (traverse.py _traverse).
-template <bool kAny>
-RT_HD Walk bvh_walk(const float* __restrict__ nodes, V3 o, V3 d, float tmin,
-                    float tmax, const int* __restrict__ micro = nullptr) {
+// One ray's walk of the 4-wide BVH (traverse.py _traverse_wide, its plain
+// version, step for step). The stack holds (wide node, entry t); the root
+// goes first. A popped entry beyond the limit (tmax, and after the first hit
+// best_t + |best_t| x kWideSlack) is dropped unvisited. A visit loads the
+// node's 128-byte line as eight 16-byte loads, slab-tests the 4 children
+// against [tmin, limit], tests the hit leaves' triangles in slot order (a
+// hit replaces the best where th < t, or th == t and its leaf index is lower:
+// the least (t, leaf) whatever the order), then pushes the hit inner
+// children, the nearest (least entry, then slot) on top. kAny ends at the
+// first accepted hit and pushes in slot order (the first slot on top): any
+// occluder ends it, and the ordering cost more than it saved on the city's
+// shadow rays (PERF.md, PR 18). kOmm: a hit whose micro-triangle is TRANSPARENT
+// (`micro`, the micromap words in leaf order) is rejected. Nodes below
+// n_top are read from `top` (a copy of the table's first rows, in shared
+// memory), the others from `nodes`.
+template <bool kAny, bool kOmm>
+RT_HD Walk wide_walk(const float* __restrict__ nodes, const float* __restrict__ tris, V3 o,
+                     V3 d, float tmin, float tmax, const int* __restrict__ micro,
+                     const float* top = nullptr, int n_top = 0) {
   const V3 inv = v3(safe_inv(d.x), safe_inv(d.y), safe_inv(d.z));
   Walk w;
   w.t = tmax;
@@ -88,31 +143,60 @@ RT_HD Walk bvh_walk(const float* __restrict__ nodes, V3 o, V3 d, float tmin,
   w.front = false;
   w.visits = 0;
   w.tests = 0;
-  int node = 0;
-  while (node >= 0) {
-    const float* g = nodes + (size_t)node * ND_ROWS;
+  // kAny's limit stays tmax (it ends at its first hit), so it never drops
+  // an entry and keeps no entry t
+  int stk_n[kWideStack];
+  float stk_t[kAny ? 1 : kWideStack];
+  int sp = 1;
+  stk_n[0] = 0;
+  stk_t[0] = -INFINITY;
+  while (sp > 0) {
+    --sp;
+    const float lim = (!kAny && w.prim >= 0) ? w.t + fabsf(w.t) * kWideSlack : tmax;
+    if (!kAny && stk_t[sp] > lim) continue;
+    const int node = stk_n[sp];
     ++w.visits;
-    const float tx0 = (RT_LDG(g + ND_MIN) - o.x) * inv.x;
-    const float ty0 = (RT_LDG(g + ND_MIN + 1) - o.y) * inv.y;
-    const float tz0 = (RT_LDG(g + ND_MIN + 2) - o.z) * inv.z;
-    const float tx1 = (RT_LDG(g + ND_MAX) - o.x) * inv.x;
-    const float ty1 = (RT_LDG(g + ND_MAX + 1) - o.y) * inv.y;
-    const float tz1 = (RT_LDG(g + ND_MAX + 2) - o.z) * inv.z;
-    const float tn = maximum_(
-        maximum_(maximum_(minimum_(tx0, tx1), minimum_(ty0, ty1)), minimum_(tz0, tz1)),
-        tmin);
-    const float tf = minimum_(
-        minimum_(minimum_(maximum_(tx0, tx1), maximum_(ty0, ty1)), maximum_(tz0, tz1)),
-        w.t);
-    const bool aabb_hit = tn <= tf;
-    const int pr = (int)RT_LDG(g + ND_PRIM);
-    const bool leaf = pr >= 0;
-    bool tri_hit = false;
-    if (leaf && aabb_hit) {
+    F4 mnx, mny, mnz, mxx, mxy, mxz, rf;
+    if (node < n_top) {
+      const float* g = top + node * WN_ROWS;
+      mnx = ld4(g + WN_MINX); mny = ld4(g + WN_MINY); mnz = ld4(g + WN_MINZ);
+      mxx = ld4(g + WN_MAXX); mxy = ld4(g + WN_MAXY); mxz = ld4(g + WN_MAXZ);
+      rf = ld4(g + WN_REF);
+    } else {
+      const float* g = nodes + (size_t)node * WN_ROWS;
+      mnx = ldg4(g + WN_MINX); mny = ldg4(g + WN_MINY); mnz = ldg4(g + WN_MINZ);
+      mxx = ldg4(g + WN_MAXX); mxy = ldg4(g + WN_MAXY); mxz = ldg4(g + WN_MAXZ);
+      rf = ldg4(g + WN_REF);
+    }
+    float tn[4];
+    int ref[4];
+    bool hit[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float tx0 = (lane4(mnx, c) - o.x) * inv.x;
+      const float ty0 = (lane4(mny, c) - o.y) * inv.y;
+      const float tz0 = (lane4(mnz, c) - o.z) * inv.z;
+      const float tx1 = (lane4(mxx, c) - o.x) * inv.x;
+      const float ty1 = (lane4(mxy, c) - o.y) * inv.y;
+      const float tz1 = (lane4(mxz, c) - o.z) * inv.z;
+      tn[c] = maximum_(
+          maximum_(maximum_(minimum_(tx0, tx1), minimum_(ty0, ty1)), minimum_(tz0, tz1)),
+          tmin);
+      const float tf = minimum_(
+          minimum_(minimum_(maximum_(tx0, tx1), maximum_(ty0, ty1)), maximum_(tz0, tz1)),
+          lim);
+      ref[c] = float_bits(lane4(rf, c));
+      hit[c] = tn[c] <= tf && ref[c] != 0;
+    }
+    bool found = false;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (!hit[c] || ref[c] > 0 || (kAny && found)) continue;
+      const int leaf = -ref[c] - 1;
       ++w.tests;
-      const V3 v0 = v3(RT_LDG(g + ND_V0), RT_LDG(g + ND_V0 + 1), RT_LDG(g + ND_V0 + 2));
-      const V3 e1 = v3(RT_LDG(g + ND_E1), RT_LDG(g + ND_E1 + 1), RT_LDG(g + ND_E1 + 2));
-      const V3 e2 = v3(RT_LDG(g + ND_E2), RT_LDG(g + ND_E2 + 1), RT_LDG(g + ND_E2 + 2));
+      const float* tr = tris + (size_t)leaf * WT_ROWS;
+      const F4 a = ldg4(tr + WT_V0), b = ldg4(tr + WT_E1), e = ldg4(tr + WT_E2);
+      const V3 v0 = v3(a.x, a.y, a.z), e1 = v3(b.x, b.y, b.z), e2 = v3(e.x, e.y, e.z);
       const V3 pvec = cross3(d, e2);
       const float det = dot3(e1, pvec);
       const bool ok = fabsf(det) > 1e-9f;
@@ -122,21 +206,36 @@ RT_HD Walk bvh_walk(const float* __restrict__ nodes, V3 o, V3 d, float tmin,
       const V3 qvec = cross3(tvec, e1);
       const float v = dot3(d, qvec) * inv_det;
       const float th = dot3(e2, qvec) * inv_det;
-      tri_hit = ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && th > tmin && th < w.t;
-      if (tri_hit && micro != nullptr)
-        tri_hit = micro_state((uint32_t)RT_LDG(micro + pr), micro_index(u, v)) !=
-                  MICRO_TRANSPARENT;
-      if (tri_hit) {
+      bool acc = ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && th > tmin &&
+                 (th < w.t || (th == w.t && leaf < w.prim));
+      if (kOmm && acc)
+        acc = micro_state((uint32_t)RT_LDG(micro + leaf), micro_index(u, v)) !=
+              MICRO_TRANSPARENT;
+      if (acc) {
         w.t = th;
         w.u = u;
         w.v = v;
-        w.prim = pr;
+        w.prim = leaf;
         w.front = det > 0.0f;
+        found = true;
       }
     }
-    int nxt = (aabb_hit && !leaf) ? node + 1 : (int)RT_LDG(g + ND_MISS);
-    if (kAny && tri_hit) nxt = -1;
-    node = nxt;
+    if (kAny && found) break;
+    int cnt = 0;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) cnt += (hit[c] && ref[c] > 0) ? 1 : 0;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (!hit[c] || ref[c] <= 0) continue;
+      int rank = 0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        rank += (k != c && hit[k] && ref[k] > 0 &&
+                 (kAny ? k < c : (tn[k] < tn[c] || (tn[k] == tn[c] && k < c)))) ? 1 : 0;
+      stk_n[sp + cnt - 1 - rank] = ref[c];
+      if (!kAny) stk_t[sp + cnt - 1 - rank] = tn[c];
+    }
+    sp += cnt;
   }
   return w;
 }

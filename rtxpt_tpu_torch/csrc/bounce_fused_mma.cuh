@@ -346,19 +346,21 @@ __device__ Hit closest(const Warp& w, const Tables& tb, V3 o, V3 d, float tmax, 
   return h;
 }
 
-// Whether the shadow ray (o, d) of a lane that `wants` one has an occluder
-// in (0, tmax), as bounce_fused.cuh's `occluded` (HasOmm: TRANSPARENT
-// candidates never occlude, UNKNOWN ones where u_alpha < the coverage).
-// Every lane of the warp calls it; the others screen a zero row and
-// return false.
-template <bool HasOmm>
-__device__ bool occluded_warp(const Warp& w, const Tables& tb, V3 o, V3 d, float tmax,
-                              float u_alpha, bool want, bool count_on) {
+// The occluder of the shadow ray (o, d) of a lane that `wants` one in
+// (0, tmax), as bounce_fused.cuh's `occluded` finds it (HasOmm: TRANSPARENT
+// candidates never occlude, UNKNOWN ones where u_alpha < the coverage): its
+// triangle index, or -1. kFirst: the first occluder in table order, the one
+// the per-thread loop stops at (K2 reports the pairs up to it); otherwise
+// the first the resolve meets (K1 needs only whether there is one). Every
+// lane of the warp calls it; the others screen a zero row and return -1.
+template <bool HasOmm, bool kFirst = false>
+__device__ int occluder_warp(const Warp& w, const Tables& tb, V3 o, V3 d, float tmax,
+                             float u_alpha, bool want, bool count_on) {
   const V3 x = cross3(o, d);
   uint32_t a[2][2][4];
   float me[4];
   operand(w, d, x, want, a, me);
-  bool occ = false;
+  int first = -1;
   int passed = 0, miss = 0, chunks = 0;
   for (int ch0 = 0; ch0 < w.chunks; ch0 += kGroup) {
     const int n = min(kGroup, w.chunks - ch0);
@@ -369,14 +371,16 @@ __device__ bool occluded_warp(const Warp& w, const Tables& tb, V3 o, V3 d, float
     chunks += n;
     if (count_on) {
       passed += popc4(m);
-      if (want && !occ) miss += missed(tb, j0, n, w.q, mine, o, d, x);
+      if (want && first < 0) miss += missed(tb, j0, n, w.q, mine, o, d, x);
     }
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      uint32_t bits = occ ? 0u : mine[k];
+      // an occluder of an earlier group precedes every candidate of this one
+      uint32_t bits = (first < 0 || (kFirst && first >= j0)) ? mine[k] : 0u;
       while (bits) {
         const int j = tri_of(j0, w.q ^ k, __ffs(bits) - 1);
         bits &= bits - 1;
+        if (kFirst && first >= 0 && j > first) continue;
         float u, v, t, det;
         if (!(tri_test(tb.tri + j * TC_ROWS, o, d, x, u, v, t, det) && t < tmax)) continue;
         if constexpr (HasOmm) {
@@ -384,18 +388,25 @@ __device__ bool occluded_warp(const Warp& w, const Tables& tb, V3 o, V3 d, float
           if (st == MICRO_TRANSPARENT) continue;
           if (st == MICRO_UNKNOWN && !(u_alpha < RT_LDG(tb.cover + j))) continue;
         }
-        occ = true;
-        break;
+        first = j;
+        if (!kFirst) break;
       }
     }
-    if (__all_sync(kFull, occ || !want)) break;
+    if (__all_sync(kFull, first >= 0 || !want)) break;
   }
   if (count_on) {
     const unsigned int lanes = __popc(__ballot_sync(kFull, want));
     add_counts(SC_SPAIRS, 8ull * chunks * lanes, passed, SC_MISSED, miss);
     if ((threadIdx.x & 31) == 0 && chunks < w.chunks) atomicAdd(&g_screen[SC_EARLY], 1ull);
   }
-  return occ;
+  return first;
+}
+
+// Whether the shadow ray has an occluder (occluder_warp's first found).
+template <bool HasOmm>
+__device__ bool occluded_warp(const Warp& w, const Tables& tb, V3 o, V3 d, float tmax,
+                              float u_alpha, bool want, bool count_on) {
+  return occluder_warp<HasOmm>(w, tb, o, d, tmax, u_alpha, want, count_on) >= 0;
 }
 
 // The block body of both libraries: stage the tile, then each warp's batch

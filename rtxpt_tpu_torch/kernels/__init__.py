@@ -239,8 +239,14 @@ SHADOW_OCCLUSION = CudaLibrary(
     {"rtxpt_shadow_occlusion": [
         _P, _P, _P, _P,                # sh, occ, tests|NULL, tri_coef
         _P, _P,                        # micromap words, covers | NULL
+        _P, _P, _I,                    # tri_tile, tri_scale, t8
         _I, _I,                        # n, n_tris
-        _P]})                          # cudaStream_t
+        _P],                           # cudaStream_t
+     "rtxpt_shadow_occlusion_screen_stats": [_I, _P]})
+# K2's two instantiations of the tensor-core screen (SASS check)
+SHADOW_OCCLUSION_ENTRIES = {
+    "shadow_occlusion": "shadow_occlusion_kernelILb0E",
+    "shadow_occlusion_omm": "shadow_occlusion_kernelILb1E"}
 
 # K3: the clustered closest-hit kernel (replaces rtxpt_tpu/pt/
 # bounce_clustered.py _kernel_a1, flat and instanced); wrapper
@@ -360,12 +366,19 @@ BRUTE_CLOSEST = CudaLibrary(
 BVH_TRAVERSE = CudaLibrary(
     "bvh_traverse", ["bvh_traverse.cu"],
     {"rtxpt_bvh_traverse": [
-        _P, _P, _P, _P, _P,            # o, d, tmin, tmax, nodes
+        _P, _P, _P, _P, _P, _P,        # o, d, tmin, tmax, wide, wide_tris
         _P,                            # micromap words | NULL
         _P, _P, _P, _P,                # t, prim, uv, front
         _P, _P,                        # visits|NULL, tests|NULL
-        _I, _I,                        # n, any_hit
+        _I, _I, _I, _I,                # n, any_hit, threads, top nodes
         _P]})                          # cudaStream_t
+
+# K9's four instantiations: closest-hit and any-hit, each without and with
+# micromaps (ptxas report)
+BVH_TRAVERSE_ENTRIES = {
+    "bvh_traverse" + ("_any" if a else "") + ("_omm" if m else ""):
+    f"bvh_traverse_kernelILb{a:d}ELb{m:d}E"
+    for a in (False, True) for m in (False, True)}
 
 # K10: the cluster-visit probe (replaces scripts/micro_cluster_kernel.py
 # kernel); wrapper probes/micro_cluster_kernel.py run.

@@ -1813,9 +1813,11 @@ def tex_args(tables, tex: bool):
 def occlusion(tables: BounceTables, sh, stats: bool = False):
     """Shadow requests sh [SR_ROWS, N] -> occ [N] f32 (1 = occluded or no
     request), and with `stats` the pairs each lane tested, [N] i32: the
-    shadow kernel K2 (csrc/shadow_occlusion.cu; its micromap variant,
-    counted as "shadow_occlusion_omm", on tables with micromaps) for CUDA
-    tensors, `occlusion_reference` for CPU tensors. Nothing falls back."""
+    shadow kernel K2 (csrc/shadow_occlusion.cu: the requests packed per
+    block, K1's tensor-core screen above EXACT_TRIS triangles and its exact
+    loop at or below; its micromap variant, counted as
+    "shadow_occlusion_omm", on tables with micromaps) for CUDA tensors,
+    `occlusion_reference` for CPU tensors. Nothing falls back."""
     if sh.device.type == "cpu":
         return occlusion_reference(tables, sh, stats)
     if sh.device.type != "cuda":
@@ -1829,6 +1831,8 @@ def occlusion(tables: BounceTables, sh, stats: bool = False):
         check_omm_tables(tables, tpad, dev)
     if not 0 < tables.n_tris <= MAX_TRIS:
         raise ValueError("occlusion: table sizes outside the kernel's limits")
+    if tables.n_tris > EXACT_TRIS:     # the exact loop reads no tile
+        check_tile(tables, dev)
     occ = torch.empty((n,), dtype=torch.float32, device=dev)
     tests = torch.empty((n,), dtype=torch.int32, device=dev) if stats \
         else None
@@ -1840,11 +1844,29 @@ def occlusion(tables: BounceTables, sh, stats: bool = False):
                 tables.tri_coef.data_ptr(),
                 tables.tri_micro.data_ptr() if tables.omm else None,
                 tables.tri_cover.data_ptr() if tables.omm else None,
-                n, tables.n_tris,
+                tables.tri_tile.data_ptr(), tables.tri_scale.data_ptr(),
+                tables.tri_tile.shape[1], n, tables.n_tris,
                 torch.cuda.current_stream(dev).cuda_stream)
         kernels.launches["shadow_occlusion_omm" if tables.omm
                          else "shadow_occlusion"] += 1
     return (occ, tests) if stats else occ
+
+
+def occlusion_screen_stats(device, enable: bool) -> dict:
+    """K2's screen counters on `device`, as bounce_screen_stats reads K1's:
+    the shadow pairs screened (8 per packed request and chunk of 8
+    triangles walked) and passed, the warps whose walk ended before the
+    table's end, and `missed` (must stay 0), read and zeroed; `enable` sets
+    whether later launches count. A table of at most EXACT_TRIS triangles
+    takes the exact loop and counts nothing. Synchronous."""
+    out = (ctypes.c_ulonglong * len(SCREEN_COUNTS))()
+    with torch.cuda.device(device):
+        kernels.SHADOW_OCCLUSION.launch(
+            "rtxpt_shadow_occlusion_screen_stats", int(enable), out)
+    total = dict(zip(SCREEN_COUNTS, (int(v) for v in out)))
+    total["shadow_share"] = (total["shadow_passed"] / total["shadow_pairs"]
+                             if total["shadow_pairs"] else None)
+    return total
 
 
 # ---------------------------------------------------------------------------

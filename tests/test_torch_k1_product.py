@@ -18,7 +18,15 @@ operand, the products summed exactly (float64), the screen and the
 resolve, and checks it against bounce_reference's closest hits and
 occlusions (on the curtain too, whose 14 triangles the kernel tests with
 its exact loops: bounce_fused.EXACT_TRIS). No JAX: the plain K1 is held to the JAX kernel in
-tests/test_torch_fused.py and the feature files."""
+tests/test_torch_fused.py and the feature files.
+
+K2 (csrc/shadow_occlusion.cu) runs the same screen on the external
+route's shadow requests, packed per block: a model of its packing (the
+requesting lanes of each block, in lane order, in batches of 32) and of
+its per-lane result (the lowest occluder of the first group of 128
+triangles that holds one, and the pairs up to it) is held to
+occlusion_reference's occ and tests on the rooms' NEE-AT requests and the
+kitchen's external power-NEE requests of bounces 0 and 1."""
 
 import functools
 
@@ -359,3 +367,129 @@ def test_screen_pass_share(name, capsys):
                   f"({p / pairs:.5%}; {acc} accepted by the exact test)")
     for p, pairs, _ in shares.values():
         assert 0 < p / pairs < (0.3 if tables.n_tris < 64 else 0.03)
+
+
+# K2's packing (csrc/shadow_occlusion.cu kSpan) and its screen kernel's
+# block (bounce_fused_mma.cuh kThreads)
+K2_SPAN, K2_THREADS = 4, 512
+
+
+@functools.lru_cache(maxsize=None)
+def k2_requests(name):
+    """(tables, [sh [SR_ROWS, N]]): the shadow requests that external_nee
+    builds on bounce_reference's exported surfaces at bounces 0 and 1 of
+    2,048 camera rays (rooms: NEE-AT, nee slot 3; kitchen: power NEE on
+    the external route, slot 5)."""
+    from rtxpt_tpu_torch.lighting import neeat as na
+    from rtxpt_tpu_torch.pt import dispatch
+    from rtxpt_tpu_torch.pt.nee_external import external_nee
+    host = _host(name)
+    scene = prepare(host, device="cpu")
+    tables = scene.bounce_tables
+    nee = NEEMode.NEEAT if name == "rooms" else NEEMode.POWER
+    state = na.init_state(COLS, ROWS, scene.lights.count, device="cpu") \
+        if nee == NEEMode.NEEAT else None
+    cfg = dispatch.resolve(scene, PathTracerConfig(
+        max_bounces=3, nee=nee, stochastic_texture_filtering=True), "cpu",
+        state)
+    kcfg = bf.KernelConfig.from_cfg(cfg)
+    assert kcfg.nee_mode in (3, 5)
+    cam = TP.default_camera(host, COLS, ROWS)
+    px, py = _pixel_grid(COLS, ROWS, "cpu")
+    fs, is_ = bf.initial_state(*camera_rays(cam, cfg, px, py, 1), px, py)
+    out = []
+    for b in range(2):
+        res = bf.bounce_reference(fs, is_, tables, kcfg, 1)
+        ext = external_nee(scene, cfg, state, res[3], fs[bf.FS_D:bf.FS_D + 3],
+                           res[2][5] > 0.5, fs[bf.FS_PREVPDF],
+                           is_[bf.IS_PREVDELTA] > 0, res[1][bf.IS_PX],
+                           res[1][bf.IS_PY], 1, b)
+        out.append(bf.shadow_requests(ext["shadow_o"], ext["shadow_d"],
+                                      ext["sdist"], ext["do_nee"]))
+        fs, is_ = res[0], res[1]
+    return tables, out
+
+
+def k2_packed(req):
+    """The kernel's packing of request flags req [N]: block b of G takes
+    the K = K2_SPAN x K2_THREADS / 32 segments of 32 lanes b, b + G, ...,
+    b + (K - 1) G, and its requesting lanes in that order are cut into
+    batches of 32 (one warp's). Returns [the list of batches (lane index
+    tensors) of each block]."""
+    n = req.shape[0]
+    k = K2_SPAN * K2_THREADS // 32
+    g = -(-n // (32 * k))
+    blocks = []
+    for b in range(g):
+        lanes = ((b + torch.arange(k)[:, None] * g) * 32
+                 + torch.arange(32)[None]).reshape(-1)
+        lanes = lanes[lanes < n]
+        blocks.append(list(torch.split(lanes[req[lanes]], 32)))
+    return blocks
+
+
+def k2_model(tables, sh):
+    """occ [N] f32 and tests [N] i32 as K2's screen kernel writes them: a
+    lane without a request 1 and 0; a packed request screened on the model
+    products, its passing pairs resolved group by group (GROUP triangles)
+    in table order, the lowest occluder of the first group that holds one
+    (tests = its index + 1), or none (tests = n_tris)."""
+    req = sh[bf.SR_DO] > 0.5
+    occ = torch.ones(sh.shape[1])
+    tests = torch.zeros(sh.shape[1], dtype=torch.int32)
+    for lanes in sum(k2_packed(req), []):
+        o, d = sh[bf.SR_O:bf.SR_O + 3, lanes], sh[bf.SR_D:bf.SR_D + 3, lanes]
+        tmax = sh[bf.SR_DIST, lanes]
+        passed = screen(*tensor_core_quantities(tables, o, d),
+                        error_term(tables, o, d))
+        _, accept, u, v, t = plain_numerators(tables, o, d)
+        assert not torch.any(accept & ~passed)
+        valid = passed & accept & (t < tmax[None])
+        first = torch.full((lanes.numel(),), -1, dtype=torch.int64)
+        for j0 in range(0, valid.shape[0], GROUP):
+            g = valid[j0:j0 + GROUP]
+            low = torch.where(g, torch.arange(g.shape[0])[:, None] + j0,
+                              1 << 30).amin(0)
+            first = torch.where((first < 0) & g.any(0), low, first)
+            if bool((first >= 0).all()):
+                break                        # the warp's walk ends early
+        occ[lanes] = (first >= 0).float()
+        tests[lanes] = torch.where(first >= 0, first + 1,
+                                   tables.n_tris).int()
+    return occ, tests
+
+
+def test_k2_packing_constants_match_the_kernel():
+    from pathlib import Path
+    csrc = Path(bf.__file__).resolve().parents[1] / "csrc"
+    assert f"kSpan = {K2_SPAN};" in (csrc / "shadow_occlusion.cu").read_text()
+    assert "kThreads = 32 * kWarps;" in (csrc / "bounce_fused_mma.cuh"
+                                          ).read_text()
+    assert f"kWarps = {K2_THREADS // 32};" in (csrc / "bounce_fused_mma.cuh"
+                                               ).read_text()
+
+
+@pytest.mark.parametrize("name", ["rooms", "kitchen"])
+def test_k2_packed_screen_matches_occlusion_reference(name, capsys):
+    """The model of K2's packed screen gives occlusion_reference's occ and
+    tests on every lane of the external requests; the packing takes each
+    requesting lane once, and the batches are full but for each block's
+    last."""
+    tables, shs = k2_requests(name)
+    assert tables.n_tris > bf.EXACT_TRIS
+    for b, sh in enumerate(shs):
+        req = sh[bf.SR_DO] > 0.5
+        blocks = k2_packed(req)
+        batches = sum(blocks, [])
+        packed = torch.cat(batches)
+        assert torch.equal(packed.sort().values, torch.nonzero(req)[:, 0])
+        assert all(x.numel() == 32 for bl in blocks for x in bl[:-1])
+        occ_m, tests_m = k2_model(tables, sh)
+        occ_p, tests_p = bf.occlusion_reference(tables, sh, stats=True)
+        assert torch.equal(occ_m, occ_p) and torch.equal(tests_m, tests_p)
+        assert 0 < int((occ_p[req] > 0.5).sum()) < int(req.sum())
+        with capsys.disabled():
+            print(f"\nK2 packed {name} bounce {b}: {int(req.sum())} requests "
+                  f"of {req.numel()} lanes in {len(batches)} batches "
+                  f"(unpacked: {-(-req.numel() // 32)} warps), "
+                  f"{int((occ_p[req] > 0.5).sum())} occluded")

@@ -2,10 +2,13 @@
 """K1, the fused bounce kernel, on one NVIDIA GPU: its bounce-0 launch
 times, its device time per 1080p frame, its registers and build time, and
 (--check) its lanes against the plain version; with --parent, a parent
-checkout's K1 and this one's in turns.
+checkout's K1 and this one's in turns. `--kernel k9` and `--kernel k2`
+measure the BVH walk K9 and the external-NEE shadow kernel K2 the same way
+(see `measure_k9` and `measure_k2`).
 
-    python3 tools/k1_bench.py [--check] [--profile] [--stacks 16,24,32] \\
-        [--parent PARENT_DIR] [--out chiprun_out/k1.json]
+    python3 tools/k1_bench.py [--kernel k1|k9|k2] [--check] [--profile] \\
+        [--sweep] [--stacks 16,24,32] [--parent PARENT_DIR] \\
+        [--out chiprun_out/k1.json]
 
 Cases, each at 1920x1080 with 4 bounces: the Cornell box (power NEE, nee
 slot 2), rooms_scene(16) (NEE-AT, slot 3), kitchen_scene() (stochastic
@@ -64,10 +67,10 @@ def _from_root(name, rel):
 smoke = _from_root("chip_smoke", "chip_smoke.py")
 
 
-def launch_costs(fn, iters):
-    """(K1's device time per launch from the profiler's kernel records,
-    the host's time per call of `fn` without a synchronisation) over
-    `iters` calls."""
+def launch_costs(fn, iters, pattern=r"bounce_fused(_restart)?_kernel"):
+    """(the device time per launch of the kernels matching `pattern` (K1's
+    by default) from the profiler's kernel records, the host's time per
+    call of `fn` without a synchronisation) over `iters` calls."""
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -80,8 +83,8 @@ def launch_costs(fn, iters):
             fn()
         host = (time.perf_counter() - t0) * 1e3 / iters
         torch.cuda.synchronize()
-    k1 = smoke._k1_frame(prof)
-    return k1["ms"] / max(k1["launches"], 1), host
+    k = smoke._kernel_frame(prof, pattern)
+    return k["ms"] / max(k["launches"], 1), host
 
 
 def instantiations(kernels):
@@ -272,12 +275,321 @@ def measure(args):
     return res
 
 
+def _card():
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+
+
+def _record_queries(scene, cfg, o, d, spread, px, py, keep):
+    """Run the general wavefront once through the kernels and return the
+    inputs (o, d, tmin, tmax) of its scene queries `keep` ((kind, index)
+    pairs: ("closest", 0) is bounce 0's camera rays, ("any", 0) its shadow
+    rays, ("closest", 1) bounce 1's)."""
+    from rtxpt_tpu_torch.pt import integrator as I
+    calls, inputs = dict(closest=0, any=0), {}
+    saved = I.scene_closest, I.scene_any
+
+    def recorder(kind, fn):
+        def query(scene_, o_, d_, tmin_, tmax_):
+            key = (kind, calls[kind])
+            calls[kind] += 1
+            if key in keep:
+                inputs[key] = tuple(x.contiguous() for x in
+                                    (o_, d_, tmin_, tmax_))
+            return fn(scene_, o_, d_, tmin_, tmax_)
+        return query
+    I.scene_closest = recorder("closest", saved[0])
+    I.scene_any = recorder("any", saved[1])
+    try:
+        I.trace_paths(scene, cfg, o, d, spread, px, py, 1)
+    finally:
+        I.scene_closest, I.scene_any = saved
+    return inputs
+
+
+def _walk_check(bvh, args, any_hit):
+    """K9 against its plain wide walk on every 32nd ray of a launch: lanes
+    whose prim, front, t, u or v differ bit-wise (occlusion for any-hit),
+    and whether the visit and test counts are equal on every lane (None on
+    a package without the wide walk)."""
+    import torch
+    from rtxpt_tpu_torch.accel import traverse
+    plain_walk = getattr(traverse, "_traverse_wide", None)
+    if plain_walk is None:
+        return None
+    sub = [x[::32].contiguous() for x in args]
+    kern = traverse.walk(bvh, *sub, any_hit=any_hit, stats=True)
+    plain = plain_walk(bvh, *sub, any_hit, True)
+    torch.cuda.synchronize()
+    if any_hit:
+        differ = int(((kern["prim"] >= 0) != (plain["prim"] >= 0)).sum())
+    else:
+        differ = smoke._lanes_differ(
+            [kern["t"][None], kern["uv"].T, kern["prim"][None],
+             kern["front"][None]],
+            [plain["t"][None], plain["uv"].T, plain["prim"][None],
+             plain["front"][None]])
+    return dict(lanes=int(sub[0].shape[0]), lanes_differ=differ,
+                counts_equal=bool(torch.equal(kern["visits"], plain["visits"])
+                                  and torch.equal(kern["tests"],
+                                                  plain["tests"])))
+
+
+def measure_k9(args):
+    """K9 on the package that `import rtxpt_tpu_torch` finds: the city's
+    1080p general-tier queries (bounce 0's closest hit and shadow rays,
+    bounce 1's closest hit; captured from one wavefront through the
+    kernels) and 512 x 512 camera rays of the foliage card's micromap BVH,
+    each timed with CUDA events and the profiler, with its visits and
+    tests per ray and (--check) its lanes against the plain wide walk;
+    with --sweep its launch shapes (`sweep_k9`); with --profile K9's
+    device time and launches over one profiled general-tier city frame."""
+    import dataclasses
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    import rtxpt_tpu_torch
+    from rtxpt_tpu_torch import kernels
+    from rtxpt_tpu_torch.accel import traverse
+    from rtxpt_tpu_torch.config import NEEMode, PathTracerConfig
+    from rtxpt_tpu_torch.prepare import prepare
+    from rtxpt_tpu_torch.pt import integrator as I
+    from rtxpt_tpu_torch.scene.procedural import default_camera
+    dev = torch.device("cuda:0")
+    smi = _card()
+    build = kernels.build_all((kernels.BVH_TRAVERSE,))
+    inst = {f"{'any' if a else 'closest'}{'_omm' * m}": smoke._ptxas_entry(
+        kernels.BVH_TRAVERSE.ptxas_log,
+        f"bvh_traverse_kernelILb{a}ELb{m}E")
+        for a in (0, 1) for m in (0, 1)}
+    res = dict(package=os.path.dirname(rtxpt_tpu_torch.__file__), card=smi,
+               build_s=build, instantiations=inst, times={}, checks={},
+               frames={})
+    w, h = FRAME
+    cfg = PathTracerConfig(max_bounces=4, nee=NEEMode.POWER,
+                           kernel_tier="xla", ray_chunk=1 << 30)
+    host = smoke._city_host()
+    city = prepare(host, device=dev)
+    cam = default_camera(host, w, h, device=dev)
+    px, py = I._pixel_grid(w, h, dev)
+    o, d, spread = I.camera_rays(cam, cfg, px, py, 1)
+    keep = (("closest", 0), ("any", 0), ("closest", 1))
+    calls = _record_queries(city, dataclasses.replace(cfg, max_bounces=2),
+                            o, d, spread, px, py, keep)
+    fol_host = smoke._alpha_hosts()["foliage"]
+    fol = prepare(fol_host, device=dev)
+    side = 512
+    fpx, fpy = I._pixel_grid(side, side, dev)
+    fo, fd, _ = I.camera_rays(default_camera(fol_host, w, h, device=dev), cfg,
+                              fpx * w // side, fpy * h // side, 1)
+    nf = fo.shape[0]
+    runs = {f"city_{k}{i}": (city.bvh, calls[(k, i)], k == "any")
+            for k, i in keep}
+    runs["foliage_omm"] = (fol.bvh, (
+        fo.contiguous(), fd.contiguous(), torch.zeros(nf, device=dev),
+        torch.full((nf,), 1e27, device=dev)), False)
+    for name, (bvh, call, any_hit) in runs.items():
+        def launch():
+            return traverse.walk(bvh, *call, any_hit=any_hit)
+        ms = smoke._cuda_ms(launch, 10)
+        device_ms, host_ms = launch_costs(launch, 10, r"bvh_traverse_kernel")
+        st = traverse.walk(bvh, *call, any_hit=any_hit, stats=True)
+        n = int(call[0].shape[0])
+        wide = getattr(bvh, "wide", None)
+        res["times"][name] = t = dict(
+            ms=ms, device_ms=device_ms, host_ms=host_ms, rays=n,
+            any_hit=any_hit,
+            visits_per_ray=float(st["visits"].double().mean()),
+            tests_per_ray=float(st["tests"].double().mean()),
+            hits=int((st["prim"] >= 0).sum()), nodes=bvh.num_nodes,
+            wide_nodes=None if wide is None else int(wide.shape[0]),
+            wide_depth=getattr(bvh, "wide_depth", None),
+            wide_stack=getattr(bvh, "wide_stack", None))
+        print(f"k9 {name}: {ms:.4f} ms per {n}-ray launch (events; "
+              f"{device_ms:.4f} ms of kernel from the profiler, {host_ms:.4f} "
+              f"ms of host per call), "
+              f"{t['visits_per_ray']:.2f} visits and {t['tests_per_ray']:.3f} "
+              f"tests per ray, {t['hits']} hits ({smi})", flush=True)
+        if args.check:
+            res["checks"][name] = c = _walk_check(bvh, call, any_hit)
+            print(f"k9 {name} check: {json.dumps(c)}", flush=True)
+    if args.sweep:
+        res["sweep"] = sweep_k9(runs, smi)
+    if args.profile:
+        render_cfg = dataclasses.replace(cfg, ray_chunk=1 << 30)
+        I.render_sample(city, cam, render_cfg, w, h, 0)
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            I.render_sample(city, cam, render_cfg, w, h, 1)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        k9 = smoke._kernel_frame(prof, r"bvh_traverse_kernel")
+        res["frames"]["city_general"] = p = dict(
+            k9_ms=k9["ms"], k9_launches=k9["launches"], frame_wall_ms=wall)
+        print(f"k9 city general-tier frame: {json.dumps(p)} ({smi})",
+              flush=True)
+    return res
+
+
+def sweep_k9(runs, smi):
+    """K9's launch shapes on `runs`: threads per block (traverse.
+    WALK_THREADS) by the top wide nodes each block copies to shared memory
+    (traverse.WALK_TOP: 0, and the first 3, 4 and 5 levels of a full
+    4-wide tree), each launch timed with CUDA events; the defaults are
+    restored after."""
+    from rtxpt_tpu_torch.accel import traverse
+    if not hasattr(traverse, "WALK_THREADS"):
+        return None                      # a package without the options
+    saved = traverse.WALK_THREADS, traverse.WALK_TOP
+    out = {}
+    try:
+        for threads in (64, 128, 256, 512):
+            for top in (0, 21, 85, 341):
+                traverse.WALK_THREADS, traverse.WALK_TOP = threads, top
+                out[f"{threads}/{top}"] = t = {
+                    name: smoke._cuda_ms(lambda: traverse.walk(
+                        bvh, *call, any_hit=any_hit), 10)
+                    for name, (bvh, call, any_hit) in runs.items()}
+                print(f"k9 sweep threads {threads}, top nodes {top}: "
+                      + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items())
+                      + f" ({smi})", flush=True)
+    finally:
+        traverse.WALK_THREADS, traverse.WALK_TOP = saved
+    return out
+
+
+def _k2_cases(dev):
+    """{name: (scene, K1's config, the requests' config, NEE-AT state)}:
+    rooms_scene(16) with NEE-AT (552 triangles; K1 in slot 3), the kitchen
+    with stochastic filtering (1,186 triangles, 513 lights: slot 5) and the
+    curtain Cornell box with stochastic filtering on the external power
+    route (14 triangles, micromaps: slot 5, K2's omm variant)."""
+    import dataclasses
+    from rtxpt_tpu_torch.pt import bounce_fused as bf
+    all_cases = cases(dev)
+    out = {}
+    for name in ("rooms", "kitchen", "curtain"):
+        host, scene, cfg, kcfg, state = all_cases[name]
+        if name == "curtain":
+            cfg = dataclasses.replace(cfg, nee_external=True)
+            kcfg = bf.KernelConfig.from_cfg(cfg)
+        out[name] = (host, scene, cfg, kcfg, state)
+    return out
+
+
+def _k2_requests(case, fs, is_, dev):
+    """K2's input at bounce 0: the shadow requests external_nee builds on
+    the surfaces K1 exports from the state (fs, is_), K1's plain version's
+    (bit-exact with K1; no K1 build)."""
+    from rtxpt_tpu_torch.pt import bounce_fused as bf
+    from rtxpt_tpu_torch.pt.nee_external import external_nee
+    host, scene, cfg, kcfg, state = case
+    out = bf.bounce_reference(fs, is_, scene.bounce_tables, kcfg, 1)
+    res = external_nee(
+        scene, cfg, state, out[3], fs[bf.FS_D:bf.FS_D + 3], out[2][5] > 0.5,
+        fs[bf.FS_PREVPDF], is_[bf.IS_PREVDELTA] > 0, out[1][bf.IS_PX],
+        out[1][bf.IS_PY], 1, 0, lb=is_[bf.IS_LBOUNCE])
+    ua = None
+    if scene.bounce_tables.omm:
+        ua = bf.alpha_uniform(cfg, is_[bf.IS_PX], is_[bf.IS_PY],
+                              is_[bf.IS_LBOUNCE], 1)
+    return bf.shadow_requests(res["shadow_o"], res["shadow_d"], res["sdist"],
+                              res["do_nee"], ua)
+
+
+def measure_k2(args):
+    """K2 on the package that `import rtxpt_tpu_torch` finds: the requests
+    of 2^18 bounce-0 camera rays spread over the 1080p frame on the rooms,
+    the kitchen and the curtain (`_k2_cases`), timed with CUDA events, with
+    (--check) occ and tests against occlusion_reference on every lane and
+    the screen's counters; with --profile K2's device time and launches
+    over one profiled NEE-AT rooms frame."""
+    import torch
+    import rtxpt_tpu_torch
+    from rtxpt_tpu_torch import kernels
+    from rtxpt_tpu_torch.pt import bounce_fused as bf
+    dev = torch.device("cuda:0")
+    smi = _card()
+    build = kernels.build_all((kernels.SHADOW_OCCLUSION,) + (
+        (kernels.BOUNCE_FUSED,) if args.profile else ()))
+    log = kernels.SHADOW_OCCLUSION.ptxas_log
+    inst = {name: smoke._ptxas_entry(log, f"shadow_occlusion_kernel{x}ILb{m}E")
+            for m in (0, 1) for x, name in (
+                ("", f"screen{'_omm' * m}"), ("_exact", f"exact{'_omm' * m}"))}
+    res = dict(package=os.path.dirname(rtxpt_tpu_torch.__file__), card=smi,
+               build_s=build, instantiations=inst, times={}, checks={},
+               frames={})
+    stats = getattr(bf, "occlusion_screen_stats", None)
+    all_cases = _k2_cases(dev)
+    for name, case in all_cases.items():
+        host, scene, cfg, kcfg, _ = case
+        tbl = scene.bounce_tables
+        fs, is_ = camera_state(host, cfg, 512, 512, dev)
+        sh = _k2_requests(case, fs, is_, dev)
+        def launch():
+            return bf.occlusion(tbl, sh)
+        ms = smoke._cuda_ms(launch, ITERS)
+        device_ms, host_ms = launch_costs(launch, ITERS,
+                                          r"shadow_occlusion_kernel")
+        occ, tests = bf.occlusion(tbl, sh, stats=True)
+        req = sh[bf.SR_DO] > 0.5
+        res["times"][name] = t = dict(
+            ms=ms, device_ms=device_ms, host_ms=host_ms,
+            lanes=int(sh.shape[1]), requests=int(req.sum()),
+            pairs=int(tests.sum()), occluded=int((occ[req] > 0.5).sum()),
+            tris=tbl.n_tris, omm=bool(tbl.omm))
+        print(f"k2 {name} ({tbl.n_tris} triangles): {ms:.4f} ms per "
+              f"{t['lanes']}-lane launch (events; {device_ms:.4f} ms of "
+              f"kernel from the profiler, {host_ms:.4f} ms of host per "
+              f"call), {t['requests']} requests, "
+              f"{t['pairs']} pairs tested, {t['occluded']} occluded ({smi})",
+              flush=True)
+        if args.check:
+            if stats:
+                stats(dev, True)
+            occ_k, tst_k = bf.occlusion(tbl, sh, stats=True)
+            screen = stats(dev, False) if stats else None
+            occ_p, tst_p = bf.occlusion_reference(tbl, sh, stats=True)
+            torch.cuda.synchronize()
+            res["checks"][name] = c = dict(
+                occ_lanes_differ=int((occ_k != occ_p).sum()),
+                tests_lanes_differ=int((tst_k != tst_p).sum()),
+                lanes=int(sh.shape[1]), screen=screen)
+            print(f"k2 {name} check: {json.dumps(c)}", flush=True)
+    if args.profile:
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as torch_profile
+        from rtxpt_tpu_torch.pt.integrator import render_sample
+        from rtxpt_tpu_torch.scene.procedural import default_camera
+        host, scene, cfg, _, state = all_cases["rooms"]
+        cam = default_camera(host, *FRAME, device=dev)
+        render_sample(scene, cam, cfg, *FRAME, 0, neeat_state=state)
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            render_sample(scene, cam, cfg, *FRAME, 1, neeat_state=state)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        k2 = smoke._kernel_frame(prof, r"shadow_occlusion_kernel")
+        k1 = smoke._k1_frame(prof)
+        res["frames"]["rooms_neeat"] = p = dict(
+            k2_ms=k2["ms"], k2_launches=k2["launches"], k1_ms=k1["ms"],
+            frame_wall_ms=wall)
+        print(f"k2 rooms NEE-AT frame: {json.dumps(p)} ({smi})", flush=True)
+    return res
+
+
 def turns(args):
     """The parent, this checkout, this checkout, the parent: each a child
     process of this script with PYTHONPATH on that checkout."""
     scratch = os.path.join(ROOT, "build", "k1_bench")
     os.makedirs(scratch, exist_ok=True)
     flags = (["--profile"] * args.profile + ["--check"] * args.check
+             + ["--sweep"] * args.sweep + ["--kernel", args.kernel]
              + (["--stacks", ",".join(map(str, args.stacks))]
                 if args.stacks else []))
     runs = []
@@ -292,6 +604,12 @@ def turns(args):
         with open(out) as f:
             r = dict(label=label, **json.load(f))
         runs.append(r)
+        if args.kernel != "k1":
+            print(f"{args.kernel} {label} (run {i}): " + ", ".join(
+                f"{c} {t['ms']:.4f} ms" for c, t in r["times"].items())
+                + f"; frames {json.dumps(r['frames'])}; checks "
+                f"{json.dumps(r['checks'])} ({r['card']})", flush=True)
+            continue
         print(f"k1 {label} (run {i}, build {r['build_s']}): " + ", ".join(
             f"{c} {t['ms']:.4f} ms (kernel {t['device_ms']:.4f}, host "
             f"{t['host_ms']:.4f})" for c, t in r["times"].items())
@@ -301,6 +619,10 @@ def turns(args):
             flush=True)
     for label in ("parent", "change"):
         inst = next(r for r in runs if r["label"] == label)["instantiations"]
+        if args.kernel != "k1":
+            print(f"{args.kernel} {label} registers/stack/spills: "
+                  f"{json.dumps(inst)}", flush=True)
+            continue
         print(f"k1 {label} registers/stack/spill stores/spill loads/HMMA: "
               + ", ".join(
                   f"{k[len('bounce_fused'):] or '_'} {v['registers']}/"
@@ -318,12 +640,17 @@ def main(argv=None):
     ap.add_argument("--stacks", type=lambda s: [int(n) for n in s.split(",")],
                     default=[], help="triangles of the quad stacks to time")
     ap.add_argument("--parent", help="the parent checkout: run in turns")
+    ap.add_argument("--kernel", choices=("k1", "k9", "k2"), default="k1",
+                    help="the kernel to measure")
+    ap.add_argument("--sweep", action="store_true",
+                    help="k9: time its launch shapes (sweep_k9)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("k1_bench: needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    res = turns(args) if args.parent else measure(args)
+    one = dict(k1=measure, k9=measure_k9, k2=measure_k2)[args.kernel]
+    res = turns(args) if args.parent else one(args)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

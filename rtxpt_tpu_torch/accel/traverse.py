@@ -45,10 +45,6 @@ _TRI_EPS = 1e-9
 # the wide walk's prune slack after its first hit: a child is skipped where
 # its entry exceeds best_t + |best_t| x 2^-20 (csrc/accel.cuh kWideSlack)
 WIDE_SLACK = 2.0 ** -20
-# K9's launch: threads per block, and the wide nodes (the first rows, the
-# tree's top levels) each block copies to shared memory
-WALK_THREADS = 128
-WALK_TOP = 0
 
 
 @dataclass(frozen=True)
@@ -338,8 +334,7 @@ def walk(bvh: ThreadedBVH, o, d, tmin, tmax, any_hit: bool = False,
                 out["uv"].data_ptr(), out["front"].data_ptr(),
                 out["visits"].data_ptr() if stats else None,
                 out["tests"].data_ptr() if stats else None,
-                n, int(any_hit), WALK_THREADS, min(WALK_TOP, bvh.num_wide),
-                torch.cuda.current_stream(dev).cuda_stream)
+                n, int(any_hit), torch.cuda.current_stream(dev).cuda_stream)
         kernels.launches["bvh_traverse" if micro is None
                          else "bvh_traverse_omm"] += 1
     return out

@@ -54,16 +54,6 @@ RT_HD F4 ldg4(const float* p) {
   return r;
 }
 
-// One 16-byte load through a generic pointer (shared memory or global).
-RT_HD F4 ld4(const float* p) {
-  F4 r = {p[0], p[1], p[2], p[3]};
-#ifdef __CUDA_ARCH__
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  r.x = v.x; r.y = v.y; r.z = v.z; r.w = v.w;
-#endif
-  return r;
-}
-
 RT_HD float lane4(F4 v, int c) { return c == 0 ? v.x : (c == 1 ? v.y : (c == 2 ? v.z : v.w)); }
 
 RT_HD float minimum_(float a, float b) {
@@ -127,13 +117,10 @@ struct Walk {
 // first accepted hit and pushes in slot order (the first slot on top): any
 // occluder ends it, and the ordering cost more than it saved on the city's
 // shadow rays (PERF.md, PR 18). kOmm: a hit whose micro-triangle is TRANSPARENT
-// (`micro`, the micromap words in leaf order) is rejected. Nodes below
-// n_top are read from `top` (a copy of the table's first rows, in shared
-// memory), the others from `nodes`.
+// (`micro`, the micromap words in leaf order) is rejected.
 template <bool kAny, bool kOmm>
 RT_HD Walk wide_walk(const float* __restrict__ nodes, const float* __restrict__ tris, V3 o,
-                     V3 d, float tmin, float tmax, const int* __restrict__ micro,
-                     const float* top = nullptr, int n_top = 0) {
+                     V3 d, float tmin, float tmax, const int* __restrict__ micro) {
   const V3 inv = v3(safe_inv(d.x), safe_inv(d.y), safe_inv(d.z));
   Walk w;
   w.t = tmax;
@@ -154,20 +141,11 @@ RT_HD Walk wide_walk(const float* __restrict__ nodes, const float* __restrict__ 
     --sp;
     const float lim = (!kAny && w.prim >= 0) ? w.t + fabsf(w.t) * kWideSlack : tmax;
     if (!kAny && stk_t[sp] > lim) continue;
-    const int node = stk_n[sp];
+    const float* g = nodes + (size_t)stk_n[sp] * WN_ROWS;
     ++w.visits;
-    F4 mnx, mny, mnz, mxx, mxy, mxz, rf;
-    if (node < n_top) {
-      const float* g = top + node * WN_ROWS;
-      mnx = ld4(g + WN_MINX); mny = ld4(g + WN_MINY); mnz = ld4(g + WN_MINZ);
-      mxx = ld4(g + WN_MAXX); mxy = ld4(g + WN_MAXY); mxz = ld4(g + WN_MAXZ);
-      rf = ld4(g + WN_REF);
-    } else {
-      const float* g = nodes + (size_t)node * WN_ROWS;
-      mnx = ldg4(g + WN_MINX); mny = ldg4(g + WN_MINY); mnz = ldg4(g + WN_MINZ);
-      mxx = ldg4(g + WN_MAXX); mxy = ldg4(g + WN_MAXY); mxz = ldg4(g + WN_MAXZ);
-      rf = ldg4(g + WN_REF);
-    }
+    const F4 mnx = ldg4(g + WN_MINX), mny = ldg4(g + WN_MINY), mnz = ldg4(g + WN_MINZ);
+    const F4 mxx = ldg4(g + WN_MAXX), mxy = ldg4(g + WN_MAXY), mxz = ldg4(g + WN_MAXZ);
+    const F4 rf = ldg4(g + WN_REF);
     float tn[4];
     int ref[4];
     bool hit[4];

@@ -46,26 +46,25 @@ namespace {
 
 using namespace rt;
 
-constexpr int kMaxThreads = 512;
+// 128-thread blocks: 64 and 128 were the fastest on the city and the
+// foliage, 256 and 512 up to 18% slower; staging the tree's top levels in
+// shared memory did not pay (PERF.md, PR 18)
+constexpr int kThreads = 128;
 
 template <bool kAny, bool kOmm>
-__global__ void __launch_bounds__(kMaxThreads)
+__global__ void __launch_bounds__(kThreads)
 bvh_traverse_kernel(const float* __restrict__ o, const float* __restrict__ d,
                     const float* __restrict__ tmin, const float* __restrict__ tmax,
                     const float* __restrict__ nodes, const float* __restrict__ tris,
                     const int* __restrict__ micro, float* __restrict__ t_out,
                     int* __restrict__ prim_out, float* __restrict__ uv_out,
                     uint8_t* __restrict__ front_out, int* __restrict__ visits,
-                    int* __restrict__ tests, int n, int n_top) {
-  extern __shared__ __align__(16) float top[];
-  for (int k = threadIdx.x; k < n_top * (WN_ROWS / 4); k += blockDim.x)
-    reinterpret_cast<float4*>(top)[k] = __ldg(reinterpret_cast<const float4*>(nodes) + k);
-  if (n_top > 0) __syncthreads();
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+                    int* __restrict__ tests, int n) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
   const V3 O = v3(o[3 * i], o[3 * i + 1], o[3 * i + 2]);
   const V3 D = v3(d[3 * i], d[3 * i + 1], d[3 * i + 2]);
-  const Walk w = wide_walk<kAny, kOmm>(nodes, tris, O, D, tmin[i], tmax[i], micro, top, n_top);
+  const Walk w = wide_walk<kAny, kOmm>(nodes, tris, O, D, tmin[i], tmax[i], micro);
   t_out[i] = w.t;
   prim_out[i] = w.prim;
   uv_out[2 * i] = w.u;
@@ -83,16 +82,13 @@ extern "C" int rtxpt_bvh_traverse(const float* o, const float* d, const float* t
                                   const float* tmax, const float* nodes, const float* tris,
                                   const int* micro, float* t, int* prim, float* uv,
                                   unsigned char* front, int* visits, int* tests, int n,
-                                  int any_hit, int threads, int n_top, void* stream) {
-  if (threads < 32 || threads > kMaxThreads || threads % 32 || n_top < 0 ||
-      n_top * WN_ROWS * 4 > 48 * 1024)
-    return (int)cudaErrorInvalidValue;
-  const int blocks = (n + threads - 1) / threads;
+                                  int any_hit, void* stream) {
+  const int blocks = (n + kThreads - 1) / kThreads;
   auto kernel = any_hit ? (micro != nullptr ? bvh_traverse_kernel<true, true>
                                             : bvh_traverse_kernel<true, false>)
                         : (micro != nullptr ? bvh_traverse_kernel<false, true>
                                             : bvh_traverse_kernel<false, false>);
-  kernel<<<blocks, threads, n_top * WN_ROWS * 4, (cudaStream_t)stream>>>(
-      o, d, tmin, tmax, nodes, tris, micro, t, prim, uv, front, visits, tests, n, n_top);
+  kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(o, d, tmin, tmax, nodes, tris, micro, t,
+                                                       prim, uv, front, visits, tests, n);
   return (int)cudaGetLastError();
 }

@@ -17,15 +17,16 @@
 // of the per-thread loop, for the bound.
 //
 // Design. Only a fifth to a third of the lanes carry a request, so each
-// block first packs its requests: it reads the SR_DO flags of its kSpan x
-// blockDim lanes (a lane without a request writes occ 1 and tests 0), counts
-// them per warp with a ballot, and writes the requesting lanes' indices to
-// shared memory after a prefix over the warps' counts. Its warps then take
+// block first packs its requests: it reads the SR_DO flags of its lanes,
+// kSpan or kExactSpan a thread (a lane without a request writes occ 1 and
+// tests 0), counts them per warp with a ballot, and writes the requesting
+// lanes' indices to shared memory after a prefix over the warps' counts.
+// Its warps then take
 // the packed requests in batches of 32. A block's lanes are 32-lane
 // segments strided over the whole launch (`pack_requests`): requests crowd
 // in parts of the frame, and with contiguous lanes the blocks over a floor
 // got four rounds of batches while most others idled (0.46 ms against
-// 0.12 ms on the rooms' requests, PERF.md).
+// 0.12 ms on the rooms' requests, PERF.md, PR 18).
 //  - Tables of more than bounce_fused.EXACT_TRIS triangles: K1's shadow
 //    screen (bounce_fused_mma.cuh occluder_warp, kFirst): the block stages
 //    the scene's coefficient tile with cp.async while it reads the flags,
@@ -55,8 +56,10 @@ namespace {
 
 using namespace rt;
 
-// Lanes of a block: kSpan x its threads (the screen's blocks), kExactSpan x
-// (the exact loop's).
+// Lanes a block packs per thread: 4 on the screen (its 512-thread blocks,
+// one per SM, then hold a launch's requests in one round of batches), 1 on
+// the exact loop (at 4 the packing cost more than 14 triangles' tests: 24%
+// slower than the per-lane kernel before it, PERF.md, PR 18).
 constexpr int kSpan = 4;
 constexpr int kExactSpan = 1;
 

@@ -370,7 +370,7 @@ BVH_TRAVERSE = CudaLibrary(
         _P,                            # micromap words | NULL
         _P, _P, _P, _P,                # t, prim, uv, front
         _P, _P,                        # visits|NULL, tests|NULL
-        _I, _I, _I, _I,                # n, any_hit, threads, top nodes
+        _I, _I,                        # n, any_hit
         _P]})                          # cudaStream_t
 
 # K9's four instantiations: closest-hit and any-hit, each without and with

@@ -7,8 +7,7 @@ measure the BVH walk K9 and the external-NEE shadow kernel K2 the same way
 (see `measure_k9` and `measure_k2`).
 
     python3 tools/k1_bench.py [--kernel k1|k9|k2] [--check] [--profile] \\
-        [--sweep] [--stacks 16,24,32] [--parent PARENT_DIR] \\
-        [--out chiprun_out/k1.json]
+        [--stacks 16,24,32] [--parent PARENT_DIR] [--out chiprun_out/k1.json]
 
 Cases, each at 1920x1080 with 4 bounces: the Cornell box (power NEE, nee
 slot 2), rooms_scene(16) (NEE-AT, slot 3), kitchen_scene() (stochastic
@@ -343,8 +342,8 @@ def measure_k9(args):
     kernels) and 512 x 512 camera rays of the foliage card's micromap BVH,
     each timed with CUDA events and the profiler, with its visits and
     tests per ray and (--check) its lanes against the plain wide walk;
-    with --sweep its launch shapes (`sweep_k9`); with --profile K9's
-    device time and launches over one profiled general-tier city frame."""
+    with --profile K9's device time and launches over one profiled
+    general-tier city frame."""
     import dataclasses
     import torch
     from torch.profiler import ProfilerActivity
@@ -414,8 +413,6 @@ def measure_k9(args):
         if args.check:
             res["checks"][name] = c = _walk_check(bvh, call, any_hit)
             print(f"k9 {name} check: {json.dumps(c)}", flush=True)
-    if args.sweep:
-        res["sweep"] = sweep_k9(runs, smi)
     if args.profile:
         render_cfg = dataclasses.replace(cfg, ray_chunk=1 << 30)
         I.render_sample(city, cam, render_cfg, w, h, 0)
@@ -432,33 +429,6 @@ def measure_k9(args):
         print(f"k9 city general-tier frame: {json.dumps(p)} ({smi})",
               flush=True)
     return res
-
-
-def sweep_k9(runs, smi):
-    """K9's launch shapes on `runs`: threads per block (traverse.
-    WALK_THREADS) by the top wide nodes each block copies to shared memory
-    (traverse.WALK_TOP: 0, and the first 3, 4 and 5 levels of a full
-    4-wide tree), each launch timed with CUDA events; the defaults are
-    restored after."""
-    from rtxpt_tpu_torch.accel import traverse
-    if not hasattr(traverse, "WALK_THREADS"):
-        return None                      # a package without the options
-    saved = traverse.WALK_THREADS, traverse.WALK_TOP
-    out = {}
-    try:
-        for threads in (64, 128, 256, 512):
-            for top in (0, 21, 85, 341):
-                traverse.WALK_THREADS, traverse.WALK_TOP = threads, top
-                out[f"{threads}/{top}"] = t = {
-                    name: smoke._cuda_ms(lambda: traverse.walk(
-                        bvh, *call, any_hit=any_hit), 10)
-                    for name, (bvh, call, any_hit) in runs.items()}
-                print(f"k9 sweep threads {threads}, top nodes {top}: "
-                      + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items())
-                      + f" ({smi})", flush=True)
-    finally:
-        traverse.WALK_THREADS, traverse.WALK_TOP = saved
-    return out
 
 
 def _k2_cases(dev):
@@ -589,7 +559,7 @@ def turns(args):
     scratch = os.path.join(ROOT, "build", "k1_bench")
     os.makedirs(scratch, exist_ok=True)
     flags = (["--profile"] * args.profile + ["--check"] * args.check
-             + ["--sweep"] * args.sweep + ["--kernel", args.kernel]
+             + ["--kernel", args.kernel]
              + (["--stacks", ",".join(map(str, args.stacks))]
                 if args.stacks else []))
     runs = []
@@ -642,8 +612,6 @@ def main(argv=None):
     ap.add_argument("--parent", help="the parent checkout: run in turns")
     ap.add_argument("--kernel", choices=("k1", "k9", "k2"), default="k1",
                     help="the kernel to measure")
-    ap.add_argument("--sweep", action="store_true",
-                    help="k9: time its launch shapes (sweep_k9)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():

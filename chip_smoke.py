@@ -2135,25 +2135,34 @@ class _PlainQueries:
                   and out["front_equal"] >= LANE_FRACTION
                   and out["worst_float_row"] >= LANE_FRACTION)
         if "visits" in plain:
-            differ = _lanes_differ(
-                [kern[k].reshape(kern[k].shape[0], -1).T
-                 for k in ("t", "uv", "prim", "front")],
-                [plain[k].reshape(plain[k].shape[0], -1).T
-                 for k in ("t", "uv", "prim", "front")])
-            occ_differ = int(((kern["prim"] >= 0)
-                              != (plain["prim"] >= 0)).sum())
-            out.update(visits_equal=bool(torch.equal(kern["visits"],
-                                                     plain["visits"])),
-                       tests_equal=bool(torch.equal(kern["tests"],
-                                                    plain["tests"])),
-                       lanes_differ=differ, occ_lanes_differ=occ_differ,
-                       visits=int(plain["visits"].sum()),
+            agree = _walk_agreement(kern, plain, kind == "any")
+            ok = ok and agree.pop("ok")
+            out.update(agree, visits=int(plain["visits"].sum()),
                        tests=int(plain["tests"].sum()))
-            ok = (ok and out["visits_equal"] and out["tests_equal"]
-                  and (occ_differ == 0 if kind == "any" else
-                       differ <= (1 - LANE_FRACTION) * out["rays"]))
         out["ok"] = ok
         self.summaries[f"{kind}{key[1]}"] = out
+
+
+def _walk_agreement(kern, plain, any_hit):
+    """K9's outputs against its plain version `_traverse_wide`'s (both
+    with stats): the lanes whose prim, front, t, u or v differ bit-wise,
+    those whose occlusion differs, whether the visit and test counts are
+    equal on every lane, and `ok`: counts equal, any-hit occlusion equal
+    on every lane, closest hits bit-equal on >= LANE_FRACTION of lanes."""
+    import torch
+    rows = ("t", "uv", "prim", "front")
+    n = int(kern["prim"].numel())
+    out = dict(lanes_differ=_lanes_differ(
+        [kern[k].reshape(n, -1).T for k in rows],
+        [plain[k].reshape(n, -1).T for k in rows]),
+        occ_lanes_differ=int(((kern["prim"] >= 0)
+                              != (plain["prim"] >= 0)).sum()),
+        counts_equal=bool(torch.equal(kern["visits"], plain["visits"])
+                          and torch.equal(kern["tests"], plain["tests"])))
+    out["ok"] = out["counts_equal"] and (
+        out["occ_lanes_differ"] == 0 if any_hit
+        else out["lanes_differ"] <= (1 - LANE_FRACTION) * n)
+    return out
 
 
 def _k9_audit(label, run, keep=2):
@@ -2185,23 +2194,11 @@ def _k9_audit(label, run, keep=2):
         kern = real(bvh, *sub, any_hit, True)
         plain = traverse._traverse_wide(bvh, *sub, any_hit, True)
         torch.cuda.synchronize()
-        rows = ("t", "uv", "prim", "front")
         s = dict(any_hit=any_hit, rays=int(sub[0].shape[0]),
                  omm=bvh.tri_micro is not None,
-                 lanes_differ=_lanes_differ(
-                     [kern[k].reshape(kern[k].shape[0], -1).T for k in rows],
-                     [plain[k].reshape(plain[k].shape[0], -1).T
-                      for k in rows]),
-                 occ_lanes_differ=int(((kern["prim"] >= 0)
-                                       != (plain["prim"] >= 0)).sum()),
-                 counts_equal=bool(torch.equal(kern["visits"],
-                                               plain["visits"])
-                                   and torch.equal(kern["tests"],
-                                                   plain["tests"])),
                  visits_per_ray=float(plain["visits"].double().mean()),
-                 tests_per_ray=float(plain["tests"].double().mean()))
-        s["ok"] = s["counts_equal"] and s["occ_lanes_differ"] == 0 and \
-            s["lanes_differ"] <= (1 - LANE_FRACTION) * s["rays"]
+                 tests_per_ray=float(plain["tests"].double().mean()),
+                 **_walk_agreement(kern, plain, any_hit))
         ok = ok and s["ok"]
         summaries.append(s)
         print(f"{label} K9 audit: {json.dumps(s)}", flush=True)
@@ -3721,15 +3718,7 @@ def _alpha(record, dev, smi, dump):
                     dict(t=kern["t"][None], uv=kern["uv"].T),
                     dict(t=plain["t"][None], uv=plain["uv"].T), same)
                 summ.pop("float_rows")
-                summ.update(counts_equal=bool(
-                    torch.equal(kern["visits"], plain["visits"])
-                    and torch.equal(kern["tests"], plain["tests"])),
-                    lanes_differ=_lanes_differ(
-                        [kern["t"][None], kern["uv"].T, kern["prim"][None],
-                         kern["front"][None]],
-                        [plain["t"][None], plain["uv"].T,
-                         plain["prim"][None], plain["front"][None]]),
-                    **share)
+                summ.update(_walk_agreement(kern, plain, any_hit), **share)
                 k9["err"] = max(k9["err"], err)
                 key = f"k9_{'any' if any_hit else 'closest'}_bounce{b}"
                 rec[key] = summ
@@ -3737,8 +3726,7 @@ def _alpha(record, dev, smi, dump):
                       f"differ bit-wise, prims equal "
                       f"{summ['int_lanes_equal']:.6f}, visit and test "
                       f"counts equal {summ['counts_equal']}", flush=True)
-                if summ["lanes_differ"] > (1 - LANE_FRACTION) * nb or \
-                        not summ["counts_equal"]:
+                if not summ["ok"]:
                     dump()
                     _fail(f"alpha: K9's micromap test disagrees with its "
                           f"plain version at bounce {b}")

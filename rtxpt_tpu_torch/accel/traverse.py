@@ -97,6 +97,24 @@ def _cross(a, b):
                         a[:, 0] * b[:, 1] - a[:, 1] * b[:, 0]], dim=1)
 
 
+def _triangle(v0, e1, e2, o, d, tmin):
+    """The Möller-Trumbore test of triangles v0, e1, e2 [L, 3] against rays
+    o, d [L, 3]: (th, u, v, det, inside: the pair hits beyond tmin [L],
+    whatever the best t)."""
+    pvec = _cross(d, e2)
+    det = _dot3(e1, pvec)
+    ok_det = torch.abs(det) > _TRI_EPS
+    inv_det = torch.where(ok_det, 1.0 / torch.where(ok_det, det, 1.0), 0.0)
+    tvec = o - v0
+    u = _dot3(tvec, pvec) * inv_det
+    qvec = _cross(tvec, e1)
+    v = _dot3(d, qvec) * inv_det
+    th = _dot3(e2, qvec) * inv_det
+    inside = (ok_det & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+              & (th > tmin))
+    return th, u, v, det, inside
+
+
 def _traverse(bvh: ThreadedBVH, o, d, tmin, tmax, any_hit: bool,
               stats: bool = False):
     """The plain version of K9. o, d [N,3]; tmin, tmax [N]. Returns
@@ -126,19 +144,9 @@ def _traverse(bvh: ThreadedBVH, o, d, tmin, tmax, any_hit: bool,
         aabb_hit = tn <= tf
         pr = g[:, 6].to(torch.int32)
         is_leaf = pr >= 0
-        v0, e1, e2 = g[:, 8:11], g[:, 11:14], g[:, 14:17]
-        pvec = _cross(dl, e2)
-        det = _dot3(e1, pvec)
-        ok_det = torch.abs(det) > _TRI_EPS
-        inv_det = torch.where(ok_det, 1.0 / torch.where(ok_det, det, 1.0),
-                              0.0)
-        tvec = ol - v0
-        u = _dot3(tvec, pvec) * inv_det
-        qvec = _cross(tvec, e1)
-        v = _dot3(dl, qvec) * inv_det
-        th = _dot3(e2, qvec) * inv_det
-        tri_hit = (ok_det & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
-                   & (th > tmin_l) & (th < t_l) & is_leaf & aabb_hit)
+        th, u, v, det, inside = _triangle(g[:, 8:11], g[:, 11:14],
+                                          g[:, 14:17], ol, dl, tmin_l)
+        tri_hit = inside & (th < t_l) & is_leaf & aabb_hit
         if bvh.tri_micro is not None:
             mi = torch.clamp(omm.micro_index(u, v), 0, 15)
             st = omm.micro_state(bvh.tri_micro[torch.clamp(pr, min=0).long()],
@@ -162,25 +170,6 @@ def _traverse(bvh: ThreadedBVH, o, d, tmin, tmax, any_hit: bool,
     if stats:
         out.update(visits=visits, tests=tests)
     return out
-
-
-def _triangle(tri, o, d, tmin):
-    """The Möller-Trumbore test of rows tri [L, WIDE_TRI_ROWS] against rays
-    o, d [L, 3] (`_traverse`'s arithmetic): (th, u, v, det, inside: the
-    pair hits beyond tmin [L], whatever the best t)."""
-    v0, e1, e2 = tri[:, 0:3], tri[:, 4:7], tri[:, 8:11]
-    pvec = _cross(d, e2)
-    det = _dot3(e1, pvec)
-    ok_det = torch.abs(det) > _TRI_EPS
-    inv_det = torch.where(ok_det, 1.0 / torch.where(ok_det, det, 1.0), 0.0)
-    tvec = o - v0
-    u = _dot3(tvec, pvec) * inv_det
-    qvec = _cross(tvec, e1)
-    v = _dot3(d, qvec) * inv_det
-    th = _dot3(e2, qvec) * inv_det
-    inside = (ok_det & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
-              & (th > tmin))
-    return th, u, v, det, inside
 
 
 def _traverse_wide(bvh: ThreadedBVH, o, d, tmin, tmax, any_hit: bool,
@@ -249,8 +238,10 @@ def _traverse_wide(bvh: ThreadedBVH, o, d, tmin, tmax, any_hit: bool,
             leaf = -r[sel, c] - 1
             if stats:
                 tests[rays] += 1
+            tri = bvh.wide_tris[leaf.long()]
             th, u, vv, det, inside = _triangle(
-                bvh.wide_tris[leaf.long()], o[rays], d[rays], tmin[rays])
+                tri[:, 0:3], tri[:, 4:7], tri[:, 8:11], o[rays], d[rays],
+                tmin[rays])
             tb = t[rays]
             acc = inside & ((th < tb) | ((th == tb) & (leaf < prim[rays])))
             if bvh.tri_micro is not None:

@@ -110,7 +110,7 @@ def _curtain():
 
 SCENES = {
     "soup700": lambda: _soup(700, 3),
-    "soup5000": lambda: _soup(5000, 9),
+    "soup1000": lambda: _soup(1000, 5),
     "coincident": lambda: _coincident(600, 21),
     "city": _city,
 }
@@ -241,7 +241,7 @@ def _differ(a, b, any_hit):
 
 
 @pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
-@pytest.mark.parametrize("name", ["soup700", "soup5000", "coincident",
+@pytest.mark.parametrize("name", ["soup700", "soup1000", "coincident",
                                   "city", "curtain"])
 def test_wide_walk_matches_the_threaded_walk(name, any_hit, capsys):
     bvh, (o, d, tmin, tmax) = _scene(name)

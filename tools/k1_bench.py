@@ -308,10 +308,9 @@ def _record_queries(scene, cfg, o, d, spread, px, py, keep):
 
 
 def _walk_check(bvh, args, any_hit):
-    """K9 against its plain wide walk on every 32nd ray of a launch: lanes
-    whose prim, front, t, u or v differ bit-wise (occlusion for any-hit),
-    and whether the visit and test counts are equal on every lane (None on
-    a package without the wide walk)."""
+    """K9 against its plain wide walk on every 32nd ray of a launch
+    (chip_smoke._walk_agreement; None on a package without the wide
+    walk)."""
     import torch
     from rtxpt_tpu_torch.accel import traverse
     plain_walk = getattr(traverse, "_traverse_wide", None)
@@ -321,18 +320,8 @@ def _walk_check(bvh, args, any_hit):
     kern = traverse.walk(bvh, *sub, any_hit=any_hit, stats=True)
     plain = plain_walk(bvh, *sub, any_hit, True)
     torch.cuda.synchronize()
-    if any_hit:
-        differ = int(((kern["prim"] >= 0) != (plain["prim"] >= 0)).sum())
-    else:
-        differ = smoke._lanes_differ(
-            [kern["t"][None], kern["uv"].T, kern["prim"][None],
-             kern["front"][None]],
-            [plain["t"][None], plain["uv"].T, plain["prim"][None],
-             plain["front"][None]])
-    return dict(lanes=int(sub[0].shape[0]), lanes_differ=differ,
-                counts_equal=bool(torch.equal(kern["visits"], plain["visits"])
-                                  and torch.equal(kern["tests"],
-                                                  plain["tests"])))
+    return dict(lanes=int(sub[0].shape[0]),
+                **smoke._walk_agreement(kern, plain, any_hit))
 
 
 def measure_k9(args):

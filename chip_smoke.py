@@ -846,8 +846,8 @@ def main(record_path=None, group_path=None):
     k9_k2 = {name: _ptxas_entry(kernels.BVH_TRAVERSE.ptxas_log, needle)
              for name, needle in kernels.BVH_TRAVERSE_ENTRIES.items()}
     for name, needle in kernels.SHADOW_OCCLUSION_ENTRIES.items():
-        for tail, kind in (("", "screen"), ("_exact", "exact")):
-            k9_k2[f"{name}_{kind}"] = _ptxas_entry(
+        for tail, form in (("", "screen"), ("_exact", "exact")):
+            k9_k2[f"{name}_{form}"] = _ptxas_entry(
                 kernels.SHADOW_OCCLUSION.ptxas_log,
                 needle.replace("kernelILb", f"kernel{tail}ILb"))
     record["build"]["k9_k2_ptxas"] = k9_k2
@@ -1136,7 +1136,7 @@ def main(record_path=None, group_path=None):
                 tex["launches"][path].get(entry["name"], 0)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
 
 

@@ -15,7 +15,10 @@ Phases, one or a few lines of output each:
                 each, of K6's two instantiations and K7, and of K1's 32
                 instantiations (its two libraries; cuobjdump -sass), which
                 must be more than 0 in each; the registers, stack frame and
-                spills of K1's 32 instantiations.
+                spills of K1's 32 instantiations; of K8's two routes
+                (the tensor-core one's HMMA count, more than 0) and of K4's
+                sixteen instantiations with their static shared memory and
+                their stage's dynamic shared memory.
   3. k1      -- one launch of the fused bounce kernel (K1) against its plain
                 PyTorch version on the same 65,536 Cornell camera rays, at
                 bounce 0 and at bounce 2 (Russian roulette on): integer rows
@@ -99,9 +102,8 @@ Phases, one or a few lines of output each:
                 65,536 Cornell camera rays at bounces 0 and 2 (bounce 2's
                 query is the 2N-wide one that carries bounce 1's shadow
                 rays) and on rooms_scene(16), the state carried by the
-                plain path: prim ids and front equal, t, u, v within
-                rtol = atol = 2e-3 on >= 99.9% of lanes; K8 timed at 2^18
-                and 2^19 rays. The BVH walk K9 against its plain version
+                plain path: t, prim, uv and front bit-equal on every lane;
+                K8 timed at 2^18 and 2^19 rays. The BVH walk K9 against its plain version
                 (the 4-wide walk `_traverse_wide`) on 65,536 rays of the
                 city (city_overview's camera) at bounces 0 and 2, closest
                 hit (prim, front, t, u, v bit-equal on >= 99.9% of lanes,
@@ -209,7 +211,10 @@ Phases, one or a few lines of output each:
                 (clustered, K4's texture variant bounces x spp times, one
                 profiled frame, cull_overflow); then the kitchen without
                 stochastic filtering on the general tier (bilinear, K8)
-                at 960x540, one timed sample. Every image must be finite.
+                at 960x540, one timed sample, K8's bounce-0 launch of its
+                warm-up (518,400 rays, 1,186 triangles: the tensor-core
+                route) held bit-equal to its plain version on every lane
+                and timed beside its bound. Every image must be finite.
   14. alpha  -- opacity micromaps and alpha-tested geometry, stochastic
                 texture filtering on. Scenes (procedural.curtain_cornell):
                 the curtain Cornell box (one alpha-tested quad, an 8 x 8
@@ -355,6 +360,9 @@ Phases, one or a few lines of output each:
                 the same with split_denoise and at render_scale 0.5,
                 render_frame_stable_planes on the glass-over-mirror box
                 with RELAX and TAA (K1 inject once per plane and frame,
+                the BUILD pass's K8 launches of depths 0 and 2 at
+                2,073,600 rays held bit-equal to K8's plain version on
+                every lane and timed beside their bound,
                 each plane's share of valid pixels, one profiled frame:
                 BUILD, fills, K1, denoise, TAA with tonemap, the rest,
                 idle), render_frame on the city (clustered, 2 pages, 2
@@ -859,6 +867,35 @@ def main(record_path=None, group_path=None):
            for r in k9_k2.values()):
         dump()
         _fail("build: a K9 or K2 instantiation is missing or spills")
+    # K8's two routes (the tensor-core route's HMMA count) and K4's sixteen
+    # instantiations, with the dynamic shared memory of K4's stage
+    from rtxpt_tpu_torch.pt import bounce_clustered as BC
+    sass8 = kernels.BRUTE_CLOSEST.sass_opcodes(kernels.TENSOR_OPCODES)
+    k8_k4 = {}
+    for name, needle in kernels.BRUTE_CLOSEST_ENTRIES.items():
+        k8_k4[name] = dict(
+            _ptxas_entry(kernels.BRUTE_CLOSEST.ptxas_log, needle),
+            hmma=sum(sum(c.values()) for fn, c in sass8.items()
+                     if needle in fn))
+    for name, needle in kernels.CLUSTER_SHADE_ENTRIES.items():
+        k8_k4[name] = dict(
+            _ptxas_entry(kernels.CLUSTER_SHADE.ptxas_log, needle),
+            stage_bytes=BC.shade_stage_rows(
+                "_tex" in name, "_omm" in name, "_split" in name)[1])
+    record["build"]["k8_k4_ptxas"] = k8_k4
+    print("build: K8 and K4 registers / stack / spill stores / spill loads "
+          "/ static shared memory (+ K4's stage, + K8's HMMA): "
+          + ", ".join(f"{name} {r['registers']}/{r['stack_bytes']}/"
+                      f"{r['spill_store_bytes']}/{r['spill_load_bytes']}/"
+                      f"{r['static_smem_bytes']}"
+                      + (f" + {r['stage_bytes']}" if "stage_bytes" in r
+                         else f" HMMA {r['hmma']}")
+                      for name, r in k8_k4.items()), flush=True)
+    if any(r["registers"] is None for r in k8_k4.values()) \
+            or not k8_k4["brute_closest_mma"]["hmma"]:
+        dump()
+        _fail("build: a K8 or K4 instantiation is missing, or K8's "
+              "tensor-core route has no HMMA")
 
     # ---- 3. K1 against its plain version -----------------------------------
     host = cornell_box()
@@ -1134,6 +1171,15 @@ def main(record_path=None, group_path=None):
         for path in tex_paths.get(entry["name"], ()):
             entry.setdefault("launches_by_path", {})[f"tex_{path}"] = \
                 tex["launches"][path].get(entry["name"], 0)
+    # K8 at the kitchen's general-tier launch (phase 13, the tensor-core
+    # route) and the stable-planes BUILD launches (phase 18), beside 2^18
+    for entry in entries:
+        if entry["name"] == "brute_closest":
+            entry["shapes"] = {
+                f"{a['rays']}_rays_{a['triangles']}_tris_launch{a['launch']}":
+                {k: a[k] for k in ("ms", "bound_ms", "bound_by", "route",
+                                   "lanes_differ")}
+                for a in tex["k8_kitchen"] + rt["k8_build"]}
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1163,10 +1209,10 @@ def _clustered_kernels(record, dev, smi, dump):
 
 
 def _ptxas_entry(log, needle):
-    """(registers, stack frame bytes, spill store bytes, spill load bytes)
-    of the entry function whose mangled name contains `needle`, from a
-    ptxas -v log."""
-    regs = stack = spill_st = spill_ld = None
+    """(registers, stack frame bytes, spill store bytes, spill load bytes,
+    static shared memory bytes) of the entry function whose mangled name
+    contains `needle`, from a ptxas -v log."""
+    regs = stack = spill_st = spill_ld = smem = None
     current = False
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -1182,8 +1228,10 @@ def _ptxas_entry(log, needle):
         m = re.search(r"Used (\d+) registers", line)
         if m:
             regs = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            smem = int(m.group(1)) if m else 0
     return dict(registers=regs, stack_bytes=stack, spill_store_bytes=spill_st,
-                spill_load_bytes=spill_ld)
+                spill_load_bytes=spill_ld, static_smem_bytes=smem)
 
 
 def _cluster_kernel_checks(record, dev, smi, dump, label, host, scene,
@@ -2112,7 +2160,8 @@ class _PlainQueries:
         prims agree, and the walk's visit and test counts. K9 against
         `_traverse_wide`: its lanes bit-equal (prim, front, t, u, v) on
         >= LANE_FRACTION of the closest hits, occlusion and the counts
-        equal on every lane."""
+        equal on every lane. K8 against `_closest_plain`: t, prim, uv and
+        front bit-equal on every lane."""
         import torch
         torch.cuda.synchronize()
         if kind == "any":
@@ -2134,6 +2183,10 @@ class _PlainQueries:
             ok = (out["int_lanes_equal"] >= LANE_FRACTION
                   and out["front_equal"] >= LANE_FRACTION
                   and out["worst_float_row"] >= LANE_FRACTION)
+            if "visits" not in plain:
+                # K8: bit-equal to its plain version on every lane
+                out["lanes_differ"] = _k8_lanes_differ(kern, plain)
+                ok = ok and out["lanes_differ"] == 0
         if "visits" in plain:
             agree = _walk_agreement(kern, plain, kind == "any")
             ok = ok and agree.pop("ok")
@@ -2202,6 +2255,70 @@ def _k9_audit(label, run, keep=2):
         ok = ok and s["ok"]
         summaries.append(s)
         print(f"{label} K9 audit: {json.dumps(s)}", flush=True)
+    return out, summaries, ok
+
+
+def _k8_lanes_differ(kern, plain):
+    """The lanes where K8's t, prim, uv or front differ bit-wise from its
+    plain version's."""
+    n = int(plain["prim"].numel())
+    rows = ("t", "uv", "prim", "front")
+    return _lanes_differ([kern[k].reshape(n, -1).T for k in rows],
+                         [plain[k].reshape(n, -1).T for k in rows])
+
+
+def _k8_bound(tris, n):
+    """_bound of K8 over n rays: each ray read and its hit written once,
+    the table (and the tensor-core route's tile) read once; 48 f32 a pair
+    (K8_PAIR_F32: the plain test's count, whichever route)."""
+    from rtxpt_tpu_torch.accel import brute
+    nt = tris.num_triangles
+    tile = (tris.tile.numel() * 2 + tris.scale.numel() * 4
+            if brute.route(tris) == "mma" else 0)
+    return _bound(n * RAY_BYTES + 64 * nt + tile, f32=n * nt * K8_PAIR_F32)
+
+
+def _k8_audit(label, run, keep=(0,)):
+    """Call `run()` with K8's wrapper (brute.closest) recording its
+    launches whose index is in `keep`, then hold K8 to its plain version
+    `_closest_plain` on every lane of each (t, prim, uv and front bit-equal,
+    no accepted pair missed by the screen) and time it there beside its
+    bound. Returns (run's result, the summaries, whether all agree)."""
+    import torch
+
+    from rtxpt_tpu_torch.accel import brute
+    calls, real, count = [], brute.closest, [0]
+
+    def recorder(tris, o, d, tmin, tmax):
+        if count[0] in keep:
+            calls.append((count[0], tris, tuple(x.contiguous() for x in
+                                                (o, d, tmin, tmax))))
+        count[0] += 1
+        return real(tris, o, d, tmin, tmax)
+    brute.closest = recorder
+    try:
+        out = run()
+    finally:
+        brute.closest = real
+    summaries, ok = [], len(calls) == len(keep)
+    for idx, tris, args in calls:
+        dev = tris.table.device
+        brute.screen_stats(dev, True)
+        kern = real(tris, *args)
+        screen = brute.screen_stats(dev, False)
+        plain = brute._closest_plain(tris, *args)
+        torch.cuda.synchronize()
+        n = int(args[0].shape[0])
+        ms = _cuda_ms(lambda: real(tris, *args), 10)
+        bound, by, _ = _k8_bound(tris, n)
+        s = dict(launch=idx, rays=n, triangles=tris.num_triangles,
+                 route=brute.route(tris),
+                 lanes_differ=_k8_lanes_differ(kern, plain),
+                 hits=int((plain["prim"] >= 0).sum()), screen=screen, ms=ms,
+                 bound_ms=bound, bound_by=by)
+        ok = ok and s["lanes_differ"] == 0 and screen["missed"] == 0
+        summaries.append(s)
+        print(f"{label} K8 audit: {json.dumps(s)}", flush=True)
     return out, summaries, ok
 
 
@@ -3352,8 +3469,15 @@ def _textures(record, dev, smi, dump):
                             ray_chunk=1 << 30)
     kitchen = scenes["kitchen"]
     gcam = default_camera(hosts["kitchen"], gw, gh, device=dev)
-    render_sample(kitchen, gcam, gcfg, gw, gh, 0)               # warm-up
-    torch.cuda.synchronize()
+    # the warm-up frame: K8's bounce-0 launch held to its plain version on
+    # every lane, and timed
+    _, rec["kitchen_general_k8"], k8_ok = _k8_audit(
+        "textures kitchen_general",
+        lambda: render_sample(kitchen, gcam, gcfg, gw, gh, 0))
+    if not k8_ok:
+        dump()
+        _fail("textures: K8 disagrees with its plain version on the "
+              "kitchen")
     kernels.launches.clear()
     t0 = time.perf_counter()
     out = render_sample(kitchen, gcam, gcfg, gw, gh, 1)
@@ -3395,7 +3519,8 @@ def _textures(record, dev, smi, dump):
             k4, launches=launches["city"].get("cluster_shade_tex_env", 0))}
     return dict(entries=entries, launches=launches,
                 k3_err=checks["kernels"]["cluster_closest"]["max_abs_err"],
-                k5_err=checks["kernels"]["cluster_shadow"]["max_abs_err"])
+                k5_err=checks["kernels"]["cluster_shadow"]["max_abs_err"],
+                k8_kitchen=rec["kitchen_general_k8"])
 
 
 ALPHA_CHUNK = 1 << 18         # phase 14: the fused paths' rays per chunk
@@ -5871,7 +5996,14 @@ def _realtime(record, dev, smi, dump, city_prepared):
                     failed.append(f"{name}: K9 disagrees with its plain "
                                   f"version")
             else:
-                pls, _ = decompose(scene, o, d)
+                # the BUILD pass's K8 launches of depths 0 and 2 held to
+                # the plain version on every lane, and timed
+                (pls, _), r["k8_audit"], k8_ok = _k8_audit(
+                    f"realtime {name}", lambda: decompose(scene, o, d),
+                    keep=(0, 2))
+                if not k8_ok:
+                    failed.append(f"{name}: K8 disagrees with its plain "
+                                  f"version")
             r["plane_valid_share"] = [float(p.valid.float().mean())
                                       for p in pls]
             r["k1_inject_per_frame"] = sum(
@@ -6010,7 +6142,8 @@ def _realtime(record, dev, smi, dump, city_prepared):
         lanes_bit_exact=min(v["lanes_bit_exact"] for v in k1.values()),
         instantiations_bit_exact=n_exact, first_direct=False,
         ptxas=rec["ptxas"]))
-    return dict(entries=entries, launches=launches)
+    return dict(entries=entries, launches=launches,
+                k8_build=frames["glass_planes"].get("k8_audit", []))
 
 
 PROBE_K10_SIZES = ((64, 8), (64, 64))   # phase 19: K10 compared at the

@@ -21,11 +21,21 @@ and the plain version `_intersect_chunk` on CPU tensors. Both read
 `BruteTris.table`, one 16-float row per triangle, and sum every dot
 product as (x + y) + z, so they round alike. The JAX package's
 [128, 4*Tpad] operand table exists for the TPU's matrix unit.
+
+K8 screens each pair before the divide and resolves the pairs that pass
+with the plain version's arithmetic: on the CUDA cores for tables of at
+most MMA_TRIS triangles (the screen on the exact det, u and v numerators,
+`screen_model`), on K1's tensor-core screen above (`brute_tile`, the
+scene's split-bf16 coefficient tile of the same rows, built beside the
+table for tables of at most MMA_MAX_TRIS triangles; larger ones stay on the
+CUDA cores).
 """
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -38,6 +48,18 @@ from rtxpt_tpu_torch.utils import math as m
 # walk, and the most (ray, triangle) pairs the plain version holds at once.
 BRUTE_MAX_TRIS = 4096
 _MAX_PAIRS = 1 << 22
+# K8's routes: tables of more than MMA_TRIS and at most MMA_MAX_TRIS
+# triangles take the tensor-core screen (K1's, whose tile holds at most
+# bounce_fused.MAX_TRIS triangles), the others the CUDA-core screen
+MMA_TRIS = 80
+MMA_MAX_TRIS = 2048
+# brute.cuh brute_screen: the slack of the exact-numerator screen (2^-20 of
+# |det|) and the |det| at and above which every pair passes (2^125)
+SCREEN_SLACK = 2.0 ** -20
+SCREEN_HUGE = 2.0 ** 125
+# the screen counters of rtxpt_brute_closest_screen_stats (K1's slots)
+SCREEN_COUNTS = ("pairs", "passed", "shadow_pairs", "shadow_passed",
+                 "ended_early", "missed")
 
 # K8's per-triangle rows (BruteTris.table [T, TB_ROWS])
 TB_N = 0          # 0:3 n = e1 x e2
@@ -52,9 +74,12 @@ TB_ROWS = 16      # 64-byte rows
 @dataclass(frozen=True)
 class BruteTris:
     """The per-triangle operands, one TB_ROWS-float row per triangle (the
-    plain version reads the same table as K8)."""
+    plain version reads the same table as K8), and for tables of at most
+    MMA_MAX_TRIS triangles K8's tensor-core tile of them (`brute_tile`)."""
 
     table: torch.Tensor     # [T, TB_ROWS] f32
+    tile: Optional[torch.Tensor] = None    # [TT_ROWS, T8] bf16
+    scale: Optional[torch.Tensor] = None   # [T8] f32
 
     @property
     def num_triangles(self) -> int:
@@ -78,7 +103,41 @@ def brute_from_fields(fields: dict, device="cuda") -> BruteTris:
     for key, col in FIELDS:
         table[:, col:col + 3] = np.asarray(fields[key], np.float32).T
     table[:, TB_V0N] = v0n
-    return BruteTris(table=torch.from_numpy(table).to(device))
+    table = torch.from_numpy(table)
+    tile = scale = None
+    if 0 < table.shape[0] <= MMA_MAX_TRIS:
+        tile, scale = (x.to(device) for x in brute_tile(table))
+    return BruteTris(table=table.to(device), tile=tile, scale=scale)
+
+
+def tile_coefficients(table: torch.Tensor) -> torch.Tensor:
+    """K1's coefficient rows [T, TC_ROWS] (bounce_fused TC_DET, TC_U,
+    TC_V over the ray's [d | o x d]) of K8's rows: det = -d . n, so its
+    row is -n; u = (o x d) . e2 + d . (v0 x e2): [v0 x e2 | e2]; v = -(o x
+    d) . e1 - d . (v0 x e1): [-(v0 x e1) | -e1]. The t row stays zero (the
+    screen reads none). Each entry is one of K8's, its sign flipped or
+    not."""
+    from rtxpt_tpu_torch.pt import bounce_fused as bf
+    t = table.detach().to("cpu", torch.float32)
+    coef = torch.zeros((t.shape[0], bf.TC_ROWS), dtype=torch.float32)
+    coef[:, bf.TC_DET:bf.TC_DET + 3] = -t[:, TB_N:TB_N + 3]
+    coef[:, bf.TC_U:bf.TC_U + 3] = t[:, TB_V0XE2:TB_V0XE2 + 3]
+    coef[:, bf.TC_U + 3:bf.TC_U + 6] = t[:, TB_E2:TB_E2 + 3]
+    coef[:, bf.TC_V:bf.TC_V + 3] = -t[:, TB_V0XE1:TB_V0XE1 + 3]
+    coef[:, bf.TC_V + 3:bf.TC_V + 6] = -t[:, TB_E1:TB_E1 + 3]
+    return coef
+
+
+def brute_tile(table: torch.Tensor):
+    """(tile [TT_ROWS, T8] bf16, scale [T8] f32) on the CPU: K1's
+    split-bf16 coefficient tile (bounce_fused.coefficient_tile, its error
+    term and scales) of K8's rows, the operand of K8's tensor-core
+    route."""
+    from rtxpt_tpu_torch.pt import bounce_fused as bf
+    n = table.shape[0]
+    coef = tile_coefficients(table)
+    pad = torch.zeros((-(-n // 8) * 8 - n, coef.shape[1]))
+    return bf.coefficient_tile(torch.cat([coef, pad]), n)
 
 
 def brute_from_edges(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray,
@@ -145,6 +204,33 @@ def _intersect_chunk(tris: BruteTris, o, d, tmin, tmax):
         front=hit & (pick(det) > 0.0))
 
 
+def route(tris: BruteTris) -> str:
+    """K8's route for the table: "mma" (the tensor-core screen) for more
+    than MMA_TRIS and at most MMA_MAX_TRIS triangles, else "cuda-core"."""
+    return ("mma" if MMA_TRIS < tris.num_triangles <= MMA_MAX_TRIS
+            else "cuda-core")
+
+
+def screen_model(tris: BruteTris, o, d):
+    """[N, T] bool: the pairs K8's CUDA-core screen passes (brute.cuh
+    brute_screen), on the det, u and v numerators that `_intersect_chunk`
+    computes (the kernel's, bit for bit): |det| > 1e-12 and, unless |det|
+    >= SCREEN_HUGE, u_num and v_num with det's sign at or above -w and
+    their sum at most |det| + w, w = SCREEN_SLACK |det|. Every pair the
+    plain test accepts passes (see brute.cuh)."""
+    c = tris.table.T
+    oxd = m.cross(o, d)
+    det = -_dot(d, c[TB_N:TB_N + 3])
+    u_num = _dot(oxd, c[TB_E2:TB_E2 + 3]) + _dot(d, c[TB_V0XE2:TB_V0XE2 + 3])
+    v_num = -_dot(oxd, c[TB_E1:TB_E1 + 3]) - _dot(d, c[TB_V0XE1:TB_V0XE1 + 3])
+    absd = torch.abs(det)
+    w = absd * SCREEN_SLACK
+    su = torch.where(det < 0.0, -u_num, u_num)
+    sv = torch.where(det < 0.0, -v_num, v_num)
+    return (absd > 1e-12) & ((absd >= SCREEN_HUGE) | (
+        (su >= -w) & (sv >= -w) & (su + sv <= absd + w)))
+
+
 def _closest_plain(tris: BruteTris, o, d, tmin, tmax):
     n = o.shape[0]
     chunk = max(min(n, _MAX_PAIRS // max(tris.num_triangles, 1)), 1)
@@ -176,6 +262,16 @@ def closest(tris: BruteTris, o, d, tmin, tmax):
     kernels.check_tensor("table", tris.table, f32, (n_tris, TB_ROWS), dev)
     if n_tris == 0:
         raise ValueError("brute.closest: an empty triangle table")
+    tile = scale = None
+    t8 = 0
+    if route(tris) == "mma":
+        if tris.tile is None:
+            raise ValueError("brute.closest: the table has no tensor-core tile")
+        t8 = tris.tile.shape[1]
+        kernels.check_tensor("tile", tris.tile, torch.bfloat16,
+                             (tris.tile.shape[0], t8), dev)
+        kernels.check_tensor("scale", tris.scale, f32, (t8,), dev)
+        tile, scale = tris.tile.data_ptr(), tris.scale.data_ptr()
     out = dict(t=torch.empty((n,), dtype=f32, device=dev),
                prim=torch.empty((n,), dtype=torch.int32, device=dev),
                uv=torch.empty((n, 2), dtype=f32, device=dev),
@@ -185,11 +281,31 @@ def closest(tris: BruteTris, o, d, tmin, tmax):
             kernels.BRUTE_CLOSEST.launch(
                 "rtxpt_brute_closest", o.data_ptr(), d.data_ptr(),
                 tmin.data_ptr(), tmax.data_ptr(), tris.table.data_ptr(),
-                out["t"].data_ptr(), out["prim"].data_ptr(),
+                tile, scale, t8, out["t"].data_ptr(), out["prim"].data_ptr(),
                 out["uv"].data_ptr(), out["front"].data_ptr(), n, n_tris,
                 torch.cuda.current_stream(dev).cuda_stream)
         kernels.launches["brute_closest"] += 1
     return out
+
+
+def screen_stats(device, enable: bool) -> dict:
+    """Read and zero K8's screen counters on `device` and set whether later
+    launches count (off by default; counting runs the counting
+    instantiations, which also test every rejected pair exactly). Counts
+    since the last call: `pairs` screened (each live ray's n_tris), `passed`
+    (the CUDA-core route's pairs, or the tensor-core route's over its tile,
+    padding included) and `missed`, pairs the plain test accepts that the
+    screen rejected (it must stay 0); `share` = passed / pairs (None
+    without pairs). Synchronous."""
+    out = (ctypes.c_ulonglong * len(SCREEN_COUNTS))()
+    with torch.cuda.device(device):
+        kernels.BRUTE_CLOSEST.launch("rtxpt_brute_closest_screen_stats",
+                                     int(enable), out)
+    total = {k: int(v) for k, v in zip(SCREEN_COUNTS, out)}
+    return dict(pairs=total["pairs"], passed=total["passed"],
+                missed=total["missed"],
+                share=total["passed"] / total["pairs"] if total["pairs"]
+                else None)
 
 
 def intersect_closest_brute(tris: BruteTris, o, d, tmin, tmax) -> Hit:

@@ -1,8 +1,7 @@
-// Per-ray bodies of the general tier's two intersection kernels: the
-// brute-force pair test of K8 (brute_closest.cu) and the 4-wide BVH walk of
-// K9 (bvh_traverse.cu). Their plain versions are
-// rtxpt_tpu_torch/accel/brute.py::_intersect_chunk and
-// rtxpt_tpu_torch/accel/traverse.py::_traverse_wide.
+// Per-ray body of the general tier's BVH walk K9 (bvh_traverse.cu): the
+// 4-wide walk; its plain version is
+// rtxpt_tpu_torch/accel/traverse.py::_traverse_wide. K8's pair test, the
+// other intersection body of the tier, is brute.cuh's.
 //
 // Parity rules, as in wide.cuh: every expression keeps the operation order of
 // the plain version (a dot product is (x + y) + z), the libraries are built
@@ -26,10 +25,6 @@
 
 namespace rt {
 
-// K8's per-triangle rows (accel/brute.py TB_*): n, e2, v0 x e2, e1, v0 x e1,
-// v0 . n; 16 floats, one 64-byte row.
-enum { TB_N = 0, TB_E2 = 3, TB_V0XE2 = 6, TB_E1 = 9, TB_V0XE1 = 12,
-       TB_V0N = 15, TB_ROWS = 16 };
 // K9's 4-wide nodes (accel/bvh.py collapse_wide): 32 floats, one 128-byte
 // line; the children's AABBs as structure of arrays, then their references.
 enum { WN_MINX = 0, WN_MINY = 4, WN_MINZ = 8, WN_MAXX = 12, WN_MAXY = 16,
@@ -60,27 +55,6 @@ RT_HD float minimum_(float a, float b) {
   if (a != a) return a;
   if (b != b) return b;
   return a < b ? a : b;
-}
-
-// Factored Moller-Trumbore of one (ray, triangle) pair; x = o x d. True when
-// the pair is a hit within (tmin, tmax).
-RT_HD bool brute_pair(const float* r, V3 o, V3 d, V3 x, float tmin, float tmax,
-                      float& t, float& u, float& v, float& det) {
-  const V3 n = v3(r[TB_N], r[TB_N + 1], r[TB_N + 2]);
-  const V3 e2 = v3(r[TB_E2], r[TB_E2 + 1], r[TB_E2 + 2]);
-  const V3 a = v3(r[TB_V0XE2], r[TB_V0XE2 + 1], r[TB_V0XE2 + 2]);
-  const V3 e1 = v3(r[TB_E1], r[TB_E1 + 1], r[TB_E1 + 2]);
-  const V3 b = v3(r[TB_V0XE1], r[TB_V0XE1 + 1], r[TB_V0XE1 + 2]);
-  det = -dot3(d, n);
-  const float un = dot3(x, e2) + dot3(d, a);
-  const float vn = -dot3(x, e1) - dot3(d, b);
-  const float tn = dot3(o, n) - r[TB_V0N];
-  const bool ok = fabsf(det) > 1e-12f;
-  const float inv = ok ? 1.0f / det : 0.0f;
-  u = un * inv;
-  v = vn * inv;
-  t = tn * inv;
-  return ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > tmin && t < tmax;
 }
 
 RT_HD int float_bits(float x) {

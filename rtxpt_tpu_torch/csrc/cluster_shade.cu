@@ -19,77 +19,297 @@
 // sixteen combinations instantiated). Plain version: rtxpt_tpu_torch/pt/bounce_clustered.py shade_reference;
 // wrapper: bounce_clustered.shade.
 //
-// Design. One thread per lane over a 1-D grid, as K1 (bounce_fused.cu): the
-// per-thread body (cluster_shade.cuh shade_lane) is K1's surface_and_shade
-// (bounce_fused.cuh), with the
-// attribute fetch reading K3's HA rows instead of the triangle table. It
-// writes the next wavefront state, the NEE shadow request (SH rows, resolved
-// by K5) and the hit rows. Every row is SoA [rows, N], so neighbouring threads
-// touch neighbouring addresses.
+// Design. One thread per lane, as K1 (bounce_fused.cu): the per-thread body
+// (cluster_shade.cuh shade_staged) is K1's surface_and_shade
+// (bounce_fused.cuh), with the attribute fetch reading K3's HA rows instead
+// of the triangle table. It writes the next wavefront state, the NEE shadow
+// request (SH rows, resolved by K5) and the hit rows. Every row is SoA
+// [rows, N], so neighbouring threads touch neighbouring addresses.
 //
-// What bounds it: instructions and latency in the serial shading chain
-// (hashes, Sobol' folds, light sample, BSDF eval, pdf and sample), as in K1.
+// The inputs are staged. One block of kStageLanes (128) threads takes a
+// tile of 128 lanes: warp 0 copies each of the tile's input row segments
+// (512 bytes; cluster_shade.cuh StagePlan: the HA rows the variant reads,
+// the 15 + 8 state rows, the 7 split rows, 23-32 KB) with cp.async.bulk
+// into dynamic shared memory, completing on one mbarrier; the block waits
+// once and shades from shared memory. All the tile's input rows are in
+// flight at once, where before each HA row was a dependent load issued
+// where the serial shading chain first needed it, and the SM's other
+// blocks shade while one block's copies land. Persistent blocks with two
+// stages (the next tile's copy in flight while this one shades) were
+// 1.4-2.2x slower on the card: the second stage doubles the shared memory
+// and the loop held more registers (128-164, spills in three variants),
+// so fewer warps ran (PERF.md, PR 19). A launch whose rows are not 16-byte
+// aligned (n not a multiple of 4, or a row not 16-byte aligned) fills the
+// stage with each thread's own loads instead. The stores stay direct: with
+// the plain variant's 44 output rows written to shared memory instead the
+// kernel was 3% faster, the most that staging them could give. Nor is the
+// register count bounded: compiled for 5 blocks an SM (at most 102
+// registers) the variants moved from 8.5% faster to 10% slower by variant
+// and mode.
+//
+// What bounds it: bytes, and latency in the serial shading chain (hashes,
+// Sobol' folds, light sample, BSDF eval, pdf and sample), as in K1.
 // Per lane it reads 35 HA rows + 15 + 8 state rows (232 B) and writes
 // 15 + 8 + 15 + 6 rows (176 B): 408 B, 0.25 ms at 3.35 TB/s for a 2^21-lane
-// 1080p wavefront; the export adds 24 rows (96 B), the environment table's
-// 164 KB count once per launch and stay in L1 / L2, and so does the texture
-// atlas (a float4 per fetch through __ldg, up to four fetches per lane).
-// The split variant reads and writes the seven fs2 rows (56 B) and writes
-// the three SH_CDIFF rows it otherwise zeroes: 56 B more per lane.
+// 1080p wavefront (chip_smoke.py counts every HA row; the plain variant
+// stages 22 of them); the export adds 24 rows (96 B), the environment
+// table's 164 KB count once per launch and stay in L1 / L2, and so does the
+// texture atlas (a float4 per fetch through __ldg, up to four fetches per
+// lane). The split variant reads and writes the seven fs2 rows (56 B) and
+// writes the three SH_CDIFF rows it otherwise zeroes: 56 B more per lane.
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "cluster_shade.cuh"
 #include "rt_error.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
+using rt::cl::kStageLanes;
+using rt::cl::StagePlan;
 
-template <bool HasTex, bool HasOmm, bool HasPrio, bool HasSplit>
-__global__ void __launch_bounds__(kThreads)
-cluster_shade_kernel(const float* __restrict__ ha, const float* __restrict__ fs,
-                     const int* __restrict__ is, const float* __restrict__ fs2,
-                     float* __restrict__ fs_out, int* __restrict__ is_out,
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT_%=;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+struct Rows {
+  const float* ha;
+  const float* fs;
+  const int* is;
+  const float* fs2;
+};
+
+template <class P>
+__device__ __forceinline__ const float* row_src(const Rows& in, int k, int n) {
+  const int a = P::array_of(k);
+  const size_t off = (size_t)P::row_of(k) * n;
+  return a == 0 ? in.ha + off
+       : a == 1 ? in.fs + off
+       : a == 2 ? reinterpret_cast<const float*>(in.is) + off : in.fs2 + off;
+}
+
+// Warp 0: the copies of tile `tile`'s rows into the stage `st`, completing
+// on `bar` (lane 0 announces the bytes first).
+template <class P>
+__device__ __forceinline__ void issue(const Rows& in, float* st, uint64_t* bar, int tile, int n,
+                                      bool final_env, bool exports) {
+  const int lane = threadIdx.x;
+  const int lanes = min(kStageLanes, n - tile * kStageLanes);
+  const uint32_t seg = (uint32_t)lanes * 4u;
+  if (lane == 0) {
+    int rows = 0;
+    for (int k = 0; k < P::kSlots; ++k) rows += P::copies(k, final_env, exports) ? 1 : 0;
+    bar_expect(bar, seg * rows);
+  }
+  __syncwarp();
+  for (int k = lane; k < P::kSlots; k += 32)
+    if (P::copies(k, final_env, exports))
+      bulk_copy(st + k * kStageLanes, row_src<P>(in, k, n) + (size_t)tile * kStageLanes, seg,
+                bar);
+}
+
+// Each thread's own loads of its lane's rows (launches whose rows are not
+// 16-byte aligned).
+template <class P>
+__device__ __forceinline__ void fill(const Rows& in, float* st, int tile, int n, bool final_env,
+                                     bool exports) {
+  const int i = tile * kStageLanes + threadIdx.x;
+  if (i >= n) return;
+  for (int k = 0; k < P::kSlots; ++k)
+    if (P::copies(k, final_env, exports))
+      st[k * kStageLanes + threadIdx.x] = row_src<P>(in, k, n)[i];
+}
+
+template <bool HasTex, bool HasOmm, bool HasPrio, bool HasSplit, int kMinBlocks = 1>
+__global__ void __launch_bounds__(kStageLanes, kMinBlocks)
+cluster_shade_kernel(Rows in, float* __restrict__ fs_out, int* __restrict__ is_out,
                      float* __restrict__ sh_out, float* __restrict__ hit_out,
                      float* __restrict__ surf_out, float* __restrict__ fs2_out,
-                     rt::Tables tb, rt::Config cfg, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  rt::cl::shade_lane<HasTex, HasOmm, HasPrio, HasSplit>(i, n, ha, fs, is, fs2, fs_out,
-                                                        is_out, sh_out, hit_out, surf_out,
-                                                        fs2_out, tb, cfg);
+                     rt::Tables tb, rt::Config cfg, int n, int bulk) {
+  using P = StagePlan<HasTex, HasOmm, HasSplit>;
+  extern __shared__ __align__(128) float stage[];   // P::kSlots x kStageLanes
+  __shared__ __align__(8) uint64_t bar;
+  const int tile = blockIdx.x;
+  const bool exports = surf_out != nullptr;
+  if (bulk) {
+    if (threadIdx.x == 0) {
+      bar_init(&bar);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    if (threadIdx.x < 32) issue<P>(in, stage, &bar, tile, n, cfg.final_env, exports);
+    bar_wait(&bar, 0u);
+  } else {
+    fill<P>(in, stage, tile, n, cfg.final_env, exports);
+    __syncthreads();
+  }
+  const int i = tile * kStageLanes + threadIdx.x;
+  if (i < n)
+    rt::cl::shade_staged<HasTex, HasOmm, HasPrio, HasSplit>(
+        i, n, threadIdx.x, stage, fs_out, is_out, sh_out, hit_out, surf_out, fs2_out, tb, cfg);
 }
+
+// The experiments of the design (tools/k1_bench.py --kernel k4 --sweep),
+// measurements and not paths: (1) persistent blocks with two stages, the
+// next tile's copy in flight while this one shades; (2) the plain variant's
+// outputs written to shared memory (the most that staging the stores could
+// give) and its registers bounded.
+template <bool HasTex, bool HasOmm, bool HasPrio, bool HasSplit>
+__global__ void __launch_bounds__(kStageLanes)
+cluster_shade_persistent(Rows in, float* __restrict__ fs_out, int* __restrict__ is_out,
+                         float* __restrict__ sh_out, float* __restrict__ hit_out,
+                         float* __restrict__ surf_out, float* __restrict__ fs2_out,
+                         rt::Tables tb, rt::Config cfg, int n) {
+  using P = StagePlan<HasTex, HasOmm, HasSplit>;
+  extern __shared__ __align__(128) float stage[];   // 2 x P::kSlots x kStageLanes
+  __shared__ __align__(8) uint64_t bar[2];
+  const int tiles = (n + kStageLanes - 1) / kStageLanes;
+  const bool exports = surf_out != nullptr;
+  if (threadIdx.x == 0) {
+    bar_init(&bar[0]);
+    bar_init(&bar[1]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x < 32 && blockIdx.x < tiles)
+    issue<P>(in, stage, &bar[0], blockIdx.x, n, cfg.final_env, exports);
+  int k = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++k) {
+    const int s = k & 1;
+    float* st = stage + s * P::kSlots * kStageLanes;
+    const int next = tile + gridDim.x;
+    if (threadIdx.x < 32 && next < tiles) {
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      issue<P>(in, stage + (s ^ 1) * P::kSlots * kStageLanes, &bar[s ^ 1], next, n,
+               cfg.final_env, exports);
+    }
+    bar_wait(&bar[s], (uint32_t)((k >> 1) & 1));
+    const int i = tile * kStageLanes + threadIdx.x;
+    if (i < n)
+      rt::cl::shade_staged<HasTex, HasOmm, HasPrio, HasSplit>(
+          i, n, threadIdx.x, st, fs_out, is_out, sh_out, hit_out, surf_out, fs2_out, tb, cfg);
+    __syncthreads();   // this stage is read: the next issue may refill it
+  }
+}
+
+template <int kMinBlocks, bool kSmemOut>
+__global__ void __launch_bounds__(kStageLanes, kMinBlocks)
+cluster_shade_probe(Rows in, float* __restrict__ fs_out, int* __restrict__ is_out,
+                    float* __restrict__ sh_out, float* __restrict__ hit_out,
+                    rt::Tables tb, rt::Config cfg, int n) {
+  using P = StagePlan<false, false, false>;
+  extern __shared__ __align__(128) float stage[];
+  __shared__ __align__(8) uint64_t bar;
+  const int tile = blockIdx.x;
+  if (threadIdx.x == 0) {
+    bar_init(&bar);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x < 32) issue<P>(in, stage, &bar, tile, n, cfg.final_env, false);
+  bar_wait(&bar, 0u);
+  const int i = tile * kStageLanes + threadIdx.x;
+  if (i >= n) return;
+  if (kSmemOut) {
+    float* so = stage + P::kSlots * kStageLanes;
+    constexpr int L = kStageLanes;
+    rt::cl::shade_staged<false, false, false, false>(
+        threadIdx.x, L, threadIdx.x, stage, so, reinterpret_cast<int*>(so + rt::NF * L),
+        so + (rt::NF + rt::NI) * L, so + (rt::NF + rt::NI + rt::cl::SH_ROWS) * L, nullptr,
+        nullptr, tb, cfg);
+    float sum = 0.0f;
+    for (int r = 0; r < rt::NF + rt::NI + rt::cl::SH_ROWS + 6; ++r)
+      sum += so[r * L + threadIdx.x];
+    hit_out[i] = sum;
+  } else {
+    rt::cl::shade_staged<false, false, false, false>(i, n, threadIdx.x, stage, fs_out, is_out,
+                                                     sh_out, hit_out, nullptr, nullptr, tb,
+                                                     cfg);
+  }
+}
+
+// One kernel's launch: one block a tile, its stage's dynamic shared memory
+// allowed once per device where it passes 48 KB.
+template <bool HasTex, bool HasOmm, bool HasPrio, bool HasSplit>
+struct Launch {
+  static int run(int n, int experiment, cudaStream_t stream, Rows in, float* fs_out,
+                 int* is_out, float* sh_out, float* hit_out, float* surf_out, float* fs2_out,
+                 const rt::Tables& tb, const rt::Config& cfg, int bulk) {
+    using P = StagePlan<HasTex, HasOmm, HasSplit>;
+    auto* kern = experiment == -5 ? &cluster_shade_kernel<HasTex, HasOmm, HasPrio, HasSplit, 5>
+                                  : &cluster_shade_kernel<HasTex, HasOmm, HasPrio, HasSplit, 1>;
+    static_assert(P::kBytes <= 48 * 1024, "K4's stage: one block's static limit");
+    if (experiment > 0 && bulk) {
+      // persistent blocks, two stages, at most `experiment` blocks
+      auto* pk = &cluster_shade_persistent<HasTex, HasOmm, HasPrio, HasSplit>;
+      cudaError_t e = cudaFuncSetAttribute(reinterpret_cast<const void*>(pk),
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           2 * P::kBytes);
+      if (e != cudaSuccess) return (int)e;
+      const int tiles = (n + kStageLanes - 1) / kStageLanes;
+      pk<<<tiles < experiment ? tiles : experiment, kStageLanes, 2 * P::kBytes, stream>>>(
+          in, fs_out, is_out, sh_out, hit_out, surf_out, fs2_out, tb, cfg, n);
+      return (int)cudaGetLastError();
+    }
+    const int tiles = (n + kStageLanes - 1) / kStageLanes;
+    kern<<<tiles, kStageLanes, P::kBytes, stream>>>(in, fs_out, is_out, sh_out, hit_out,
+                                                    surf_out, fs2_out, tb, cfg, n, bulk);
+    return (int)cudaGetLastError();
+  }
+};
 
 // The instantiation of the switches (tex, omm, prio, split) from the
 // runtime flags, one template parameter at a time.
 template <bool... B, class... Args>
-void launch(const bool* flags, int blocks, cudaStream_t stream, Args... args) {
+int launch(const bool* flags, Args... args) {
   if constexpr (sizeof...(B) == 4) {
-    cluster_shade_kernel<B...><<<blocks, kThreads, 0, stream>>>(args...);
+    return Launch<B...>::run(args...);
   } else if (flags[sizeof...(B)]) {
-    launch<B..., true>(flags, blocks, stream, args...);
+    return launch<B..., true>(flags, args...);
   } else {
-    launch<B..., false>(flags, blocks, stream, args...);
+    return launch<B..., false>(flags, args...);
   }
 }
 
-}  // namespace
+bool aligned16(const void* p) { return p == nullptr || (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
-// `surf_out` ([SF_ROWS, n] or NULL) receives the exported surface in the
-// external modes; `env` ([ET_SIZE] or NULL) is the environment table, which
-// `final_env` needs; `tex` / `tex_meta` / `n_tex` / `tex_maps` the texture
-// tables as K1 takes them (NULL for the untextured variant); `omm` selects
-// the micromap variant, `prio` the nested-priority one; `fs2` and `fs2_out`
-// ([NF2, n] each, or NULL) the split one.
-extern "C" int rtxpt_cluster_shade(
-    const float* ha, const float* fs, const int* is, float* fs_out, int* is_out,
-    float* sh_out, float* hit_out, float* surf_out, const float* fs2, float* fs2_out,
-    const float* mat_rows,
-    const float* light_rows, const float* env, const float* tex, const int* tex_meta,
-    int n_tex, int tex_maps, int omm, int prio, int n, int n_lights,
-    unsigned int sample_idx, int nee_mode, int enable_mis, float firefly,
-    int rr_enable, int min_rr, int low_discrepancy, int energy_comp, int maxb,
-    int final_env, void* stream) {
+int shade(const float* ha, const float* fs, const int* is, float* fs_out, int* is_out,
+          float* sh_out, float* hit_out, float* surf_out, const float* fs2, float* fs2_out,
+          const float* mat_rows, const float* light_rows, const float* env, const float* tex,
+          const int* tex_meta, int n_tex, int tex_maps, int omm, int prio, int n, int n_lights,
+          unsigned int sample_idx, int nee_mode, int enable_mis, float firefly, int rr_enable,
+          int min_rr, int low_discrepancy, int energy_comp, int maxb, int final_env,
+          int experiment, void* stream) {
   rt::Tables tb;
   tb.tri = nullptr;
   tb.attr = nullptr;
@@ -117,9 +337,95 @@ extern "C" int rtxpt_cluster_shade(
   cfg.energy_comp = energy_comp != 0;
   cfg.maxb = maxb;
   cfg.final_env = final_env != 0;
-  const int blocks = (n + kThreads - 1) / kThreads;
+  if (n <= 0) return 0;
+  const Rows in = {ha, fs, is, fs2};
+  // cp.async.bulk: 16-byte aligned sources and sizes
+  const int bulk = (n % 4 == 0 && aligned16(ha) && aligned16(fs) && aligned16(is) &&
+                    aligned16(fs2)) ? 1 : 0;
   const bool flags[4] = {tex != nullptr, omm != 0, prio != 0, fs2 != nullptr};
-  launch<>(flags, blocks, (cudaStream_t)stream, ha, fs, is, fs2, fs_out, is_out, sh_out,
-           hit_out, surf_out, fs2_out, tb, cfg, n);
+  return launch<>(flags, n, experiment, (cudaStream_t)stream, in, fs_out, is_out, sh_out, hit_out,
+                  surf_out, fs2_out, tb, cfg, bulk);
+}
+
+}  // namespace
+
+// `surf_out` ([SF_ROWS, n] or NULL) receives the exported surface in the
+// external modes; `env` ([ET_SIZE] or NULL) is the environment table, which
+// `final_env` needs; `tex` / `tex_meta` / `n_tex` / `tex_maps` the texture
+// tables as K1 takes them (NULL for the untextured variant); `omm` selects
+// the micromap variant, `prio` the nested-priority one; `fs2` and `fs2_out`
+// ([NF2, n] each, or NULL) the split one.
+extern "C" int rtxpt_cluster_shade(
+    const float* ha, const float* fs, const int* is, float* fs_out, int* is_out,
+    float* sh_out, float* hit_out, float* surf_out, const float* fs2, float* fs2_out,
+    const float* mat_rows,
+    const float* light_rows, const float* env, const float* tex, const int* tex_meta,
+    int n_tex, int tex_maps, int omm, int prio, int n, int n_lights,
+    unsigned int sample_idx, int nee_mode, int enable_mis, float firefly,
+    int rr_enable, int min_rr, int low_discrepancy, int energy_comp, int maxb,
+    int final_env, void* stream) {
+  return shade(ha, fs, is, fs_out, is_out, sh_out, hit_out, surf_out, fs2, fs2_out, mat_rows,
+               light_rows, env, tex, tex_meta, n_tex, tex_maps, omm, prio, n, n_lights,
+               sample_idx, nee_mode, enable_mis, firefly, rr_enable, min_rr, low_discrepancy,
+               energy_comp, maxb, final_env, 0, stream);
+}
+
+// The design's experiments: rtxpt_cluster_shade's arguments and
+// `experiment`: k > 0 the persistent two-stage kernel on at most k blocks,
+// -5 the kernels compiled for 5 blocks an SM (at most 102 registers).
+extern "C" int rtxpt_cluster_shade_experiment(
+    const float* ha, const float* fs, const int* is, float* fs_out, int* is_out,
+    float* sh_out, float* hit_out, float* surf_out, const float* fs2, float* fs2_out,
+    const float* mat_rows,
+    const float* light_rows, const float* env, const float* tex, const int* tex_meta,
+    int n_tex, int tex_maps, int omm, int prio, int n, int n_lights,
+    unsigned int sample_idx, int nee_mode, int enable_mis, float firefly,
+    int rr_enable, int min_rr, int low_discrepancy, int energy_comp, int maxb,
+    int final_env, int experiment, void* stream) {
+  return shade(ha, fs, is, fs_out, is_out, sh_out, hit_out, surf_out, fs2, fs2_out, mat_rows,
+               light_rows, env, tex, tex_meta, n_tex, tex_maps, omm, prio, n, n_lights,
+               sample_idx, nee_mode, enable_mis, firefly, rr_enable, min_rr, low_discrepancy,
+               energy_comp, maxb, final_env, experiment, stream);
+}
+
+// The probe of the plain variant: mode 0 as launched, 1 its outputs to
+// shared memory (one word a lane to hit_out), 2 and 3 at most 102 and 85
+// registers (5 and 6 blocks an SM); the plain variant's arguments.
+extern "C" int rtxpt_cluster_shade_probe(const float* ha, const float* fs, const int* is,
+                                         float* fs_out, int* is_out, float* sh_out,
+                                         float* hit_out, const float* mat_rows,
+                                         const float* light_rows, int n, int n_lights,
+                                         unsigned int sample_idx, int nee_mode, int maxb,
+                                         int mode, void* stream) {
+  rt::Tables tb = {};
+  tb.mat = mat_rows;
+  tb.light = light_rows;
+  tb.n_lights = n_lights;
+  rt::Config cfg = {};
+  cfg.sample_idx = sample_idx;
+  cfg.nee_mode = nee_mode;
+  cfg.enable_mis = true;
+  cfg.rr_enable = true;
+  cfg.min_rr = 3;
+  cfg.low_discrepancy = true;
+  cfg.energy_comp = true;
+  cfg.maxb = maxb;
+  const Rows in = {ha, fs, is, nullptr};
+  using P = StagePlan<false, false, false>;
+  const int tiles = (n + kStageLanes - 1) / kStageLanes;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int out_bytes = (rt::NF + rt::NI + rt::cl::SH_ROWS + 6) * kStageLanes * 4;
+  if (mode == 1)
+    cluster_shade_probe<1, true><<<tiles, kStageLanes, P::kBytes + out_bytes, st>>>(
+        in, fs_out, is_out, sh_out, hit_out, tb, cfg, n);
+  else if (mode == 2)
+    cluster_shade_probe<5, false><<<tiles, kStageLanes, P::kBytes, st>>>(
+        in, fs_out, is_out, sh_out, hit_out, tb, cfg, n);
+  else if (mode == 3)
+    cluster_shade_probe<6, false><<<tiles, kStageLanes, P::kBytes, st>>>(
+        in, fs_out, is_out, sh_out, hit_out, tb, cfg, n);
+  else
+    cluster_shade_probe<1, false><<<tiles, kStageLanes, P::kBytes, st>>>(
+        in, fs_out, is_out, sh_out, hit_out, tb, cfg, n);
   return (int)cudaGetLastError();
 }

@@ -7,7 +7,9 @@
 // HasPrio: the priority false-hit pass-through of surface_and_shade.
 // HasSplit: the split rows fs2 in and out, and the NEE contribution's
 // diffuse part in SH_CDIFF (K6 runs without it). The plain version is
-// rtxpt_tpu_torch/pt/bounce_clustered.py shade_reference.
+// rtxpt_tpu_torch/pt/bounce_clustered.py shade_reference. K4 reads its
+// lane's input rows from the block's shared-memory stage (StagePlan,
+// shade_staged); K6 reads its hit from its winner's cluster block.
 #pragma once
 
 #include "bounce_fused.cuh"
@@ -18,7 +20,7 @@ namespace cl {
 
 // The shading of lane i on its closest hit h (prim: the hit row's prim id,
 // -1 on a miss; A(r): the hit's attribute row r, AT_* order), from the ray
-// state s: K4 reads both from K3's HA rows (shade_lane), K6 from its
+// state s: K4 reads both from K3's HA rows (shade_staged), K6 from its
 // winner's cluster block (cluster_rows.cu). Writes the next state, the SH
 // rows, the hit rows and, in the external modes, the SF_* rows
 // (`surf_out`) and the shading flag; the final environment round
@@ -78,15 +80,107 @@ RT_HD void shade_hit(int i, int n, RayState s, const Hit& h, float prim,
   }
 }
 
+// K4's staging plan: the input rows a variant reads, one shared-memory slot
+// of kStageLanes floats each (bounce_clustered.shade_stage_rows is its
+// Python mirror). Slots in order: the HA rows kHaBase (hit, the attribute
+// rows every lane reads, AT_LID of the export), kHaTex (HasTex: UVs, LOD
+// bias, tangent), kHaOmm (HasOmm: the UNKNOWN flag), then the NF state
+// rows FS_*, the NI rows IS_* and (HasSplit) the NF2 rows F2_*. HA_INST is
+// read by no variant. A launch copies only the slots its mode reads
+// (copy_mask): final_env the hit rows and the state, AT_LID only with the
+// export.
+constexpr int kStageLanes = 128;                 // lanes of a stage (a block)
+constexpr int kHaHit = 5;                        // HA_T .. HA_PRIM
+constexpr int kHaBaseN = 22, kHaTexN = 11;
+constexpr int kSlotLid = kHaBaseN - 1;           // the slot of AT_LID
+constexpr int kHaBase[kHaBaseN] = {
+    HA_T, HA_U, HA_V, HA_FRONT, HA_PRIM, HA_ATTR + AT_N0, HA_ATTR + AT_N0 + 1,
+    HA_ATTR + AT_N0 + 2, HA_ATTR + AT_N1, HA_ATTR + AT_N1 + 1, HA_ATTR + AT_N1 + 2,
+    HA_ATTR + AT_N2, HA_ATTR + AT_N2 + 1, HA_ATTR + AT_N2 + 2, HA_ATTR + AT_GN,
+    HA_ATTR + AT_GN + 1, HA_ATTR + AT_GN + 2, HA_ATTR + AT_MID, HA_ATTR + AT_LPDF,
+    HA_ATTR + AT_LAREA, HA_ATTR + AT_ISLIGHT, HA_ATTR + AT_LID};
+constexpr int kHaTex[kHaTexN] = {
+    HA_ATTR + AT_UV0, HA_ATTR + AT_UV0 + 1, HA_ATTR + AT_UV1, HA_ATTR + AT_UV1 + 1,
+    HA_ATTR + AT_UV2, HA_ATTR + AT_UV2 + 1, HA_ATTR + AT_LODB, HA_ATTR + AT_TANG,
+    HA_ATTR + AT_TANG + 1, HA_ATTR + AT_TANG + 2, HA_ATTR + AT_TSGN};
+
+#ifdef __CUDACC__
+#define RT_HDC __host__ __device__ constexpr
+#else
+#define RT_HDC constexpr
+#endif
+
+template <bool HasTex, bool HasOmm, bool HasSplit>
+struct StagePlan {
+  static constexpr int kHa = kHaBaseN + (HasTex ? kHaTexN : 0) + (HasOmm ? 1 : 0);
+  static constexpr int kFs = kHa;                // first slot of the FS_* rows
+  static constexpr int kIs = kFs + NF;
+  static constexpr int kF2 = kIs + NI;
+  static constexpr int kSlots = kF2 + (HasSplit ? NF2 : 0);
+  static constexpr int kBytes = kSlots * kStageLanes * 4;   // a stage
+
+  // The slot of HA row r (-1: not staged), kHaBase's and kHaTex's order in
+  // arithmetic (the arrays are the plan's statement; static_assert below).
+  // It folds to a constant where r is one.
+  RT_HDC static int slot_of_ha(int r) {
+    const int a = r - HA_ATTR;
+    if (r >= HA_T && r <= HA_PRIM) return r;
+    if (a >= AT_N0 && a <= AT_ISLIGHT) return kHaHit + a;
+    if (a == AT_LID) return kSlotLid;
+    if (HasTex && a >= AT_UV0 && a <= AT_LODB) return kHaBaseN + (a - AT_UV0);
+    if (HasTex && a >= AT_TANG && a <= AT_TSGN) return kHaBaseN + 7 + (a - AT_TANG);
+    if (HasOmm && r == HA_UNK) return kHa - 1;
+    return -1;
+  }
+
+  // The global row of slot k: its array (0 ha, 1 fs, 2 is, 3 fs2) and row.
+  RT_HDC static int array_of(int k) {
+    return k < kFs ? 0 : (k < kIs ? 1 : (k < kF2 ? 2 : 3));
+  }
+  RT_HDC static int row_of(int k) {
+    return k < kSlotLid ? (k < kHaHit ? k : HA_ATTR + (k - kHaHit))
+         : k == kSlotLid ? HA_ATTR + AT_LID
+         : k < kHaBaseN + (HasTex ? 7 : 0) ? HA_ATTR + AT_UV0 + (k - kHaBaseN)
+         : k < kHaBaseN + (HasTex ? kHaTexN : 0) ? HA_ATTR + AT_TANG + (k - kHaBaseN - 7)
+         : k < kFs ? HA_UNK
+         : k < kIs ? k - kFs
+         : k < kF2 ? k - kIs : k - kF2;
+  }
+
+  // Whether a launch copies slot k: final_env reads the hit rows and the
+  // state, the other modes every slot but AT_LID without the export.
+  RT_HDC static bool copies(int k, bool final_env, bool exports) {
+    return k >= kHa || (final_env ? k < kHaHit : (exports || k != kSlotLid));
+  }
+
+  // slot_of_ha and row_of against the arrays, slot by slot
+  static constexpr bool consistent() {
+    for (int k = 0; k < kHaBaseN; ++k)
+      if (row_of(k) != kHaBase[k] || slot_of_ha(kHaBase[k]) != k) return false;
+    for (int k = 0; HasTex && k < kHaTexN; ++k)
+      if (row_of(kHaBaseN + k) != kHaTex[k] || slot_of_ha(kHaTex[k]) != kHaBaseN + k)
+        return false;
+    for (int k = 0; k < kHa; ++k)
+      if (slot_of_ha(row_of(k)) != k) return false;
+    return true;
+  }
+};
+static_assert(StagePlan<false, false, false>::consistent(), "K4's staging plan");
+static_assert(StagePlan<true, true, true>::consistent(), "K4's staging plan");
+static_assert(StagePlan<true, false, false>::consistent(), "K4's staging plan");
+static_assert(StagePlan<false, true, false>::consistent(), "K4's staging plan");
+
+// Lane `lane` of the stage `st` (kSlots x kStageLanes floats, StagePlan's
+// slots), global lane i of n: K4's body on the staged rows. The outputs go
+// to device memory as in shade_hit.
 template <bool HasTex, bool HasOmm, bool HasPrio, bool HasSplit>
-RT_HD void shade_lane(int i, int n, const float* __restrict__ ha,
-                      const float* __restrict__ fs, const int* __restrict__ is,
-                      const float* __restrict__ fs2, float* __restrict__ fs_out,
-                      int* __restrict__ is_out, float* __restrict__ sh_out,
-                      float* __restrict__ hit_out, float* __restrict__ surf_out,
-                      float* __restrict__ fs2_out, const Tables& tb,
-                      const Config& cfg) {
-  auto H = [&](int r) { return ha[(size_t)r * n + i]; };
+RT_HD void shade_staged(int i, int n, int lane, const float* __restrict__ st,
+                        float* __restrict__ fs_out, int* __restrict__ is_out,
+                        float* __restrict__ sh_out, float* __restrict__ hit_out,
+                        float* __restrict__ surf_out, float* __restrict__ fs2_out,
+                        const Tables& tb, const Config& cfg) {
+  using P = StagePlan<HasTex, HasOmm, HasSplit>;
+  auto H = [&](int r) { return st[P::slot_of_ha(r) * kStageLanes + lane]; };
   Hit h;
   h.t = H(HA_T);
   h.u = H(HA_U);
@@ -96,10 +190,12 @@ RT_HD void shade_lane(int i, int n, const float* __restrict__ ha,
   h.unk = HasOmm && H(HA_UNK) > 0.5f;
   auto attr = [&](int r) { return H(HA_ATTR + r); };
   Split sp;
-  if constexpr (HasSplit) sp = load_split(i, n, fs2);
-  shade_hit<HasTex, HasOmm, HasPrio, HasSplit>(i, n, load_state(i, n, fs, is), h,
-                                               H(HA_PRIM), attr, fs_out, is_out, sh_out,
-                                               hit_out, surf_out, tb, cfg, &sp, fs2_out);
+  if constexpr (HasSplit) sp = load_split(lane, kStageLanes, st + P::kF2 * kStageLanes);
+  const RayState s = load_state(lane, kStageLanes, st + P::kFs * kStageLanes,
+                                reinterpret_cast<const int*>(st + P::kIs * kStageLanes));
+  shade_hit<HasTex, HasOmm, HasPrio, HasSplit>(i, n, s, h, H(HA_PRIM), attr, fs_out, is_out,
+                                               sh_out, hit_out, surf_out, tb, cfg, &sp,
+                                               fs2_out);
 }
 
 }  // namespace cl

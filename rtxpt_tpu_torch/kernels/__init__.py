@@ -289,7 +289,20 @@ CLUSTER_SHADE = CudaLibrary(
         _I, _I, _F, _I, _I,            # nee_mode, mis, firefly, rr, min_rr
         _I, _I, _I,                    # low_discrepancy, energy_comp, maxb
         _I,                            # final_env
-        _P]})                          # cudaStream_t
+        _P],                           # cudaStream_t
+     "rtxpt_cluster_shade_experiment": [
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _P, _P, _I, _I, _I, _I, _I, _I, _U, _I, _I, _F, _I, _I,
+        _I, _I, _I, _I, _I, _P],
+     "rtxpt_cluster_shade_probe": [
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _U, _I, _I, _I, _P]})
+
+# K4's sixteen instantiations (ptxas report): tex, omm, prio, split
+CLUSTER_SHADE_ENTRIES = {
+    "cluster_shade" + "_omm" * o + "_tex" * t + "_prio" * p + "_split" * s:
+    f"cluster_shade_kernelILb{t:d}ELb{o:d}ELb{p:d}ELb{s:d}E"
+    for t in (False, True) for o in (False, True)
+    for p in (False, True) for s in (False, True)}
 
 # K5: the clustered shadow any-hit kernel (replaces _kernel_b1 and
 # _kernel_b1_inst); wrapper bounce_clustered.occlusion; its screen counters
@@ -357,9 +370,20 @@ BRUTE_CLOSEST = CudaLibrary(
     "brute_closest", ["brute_closest.cu"],
     {"rtxpt_brute_closest": [
         _P, _P, _P, _P, _P,            # o, d, tmin, tmax, table
+        _P, _P, _I,                    # tile, scale | NULL, t8
         _P, _P, _P, _P,                # t, prim, uv, front
         _I, _I,                        # n, n_tris
-        _P]})                          # cudaStream_t
+        _P],                           # cudaStream_t
+     "rtxpt_brute_closest_sweep": [
+        _P, _P, _P, _P, _P,            # o, d, tmin, tmax, table
+        _P, _P, _P, _P,                # t, prim, uv, front
+        _I, _I, _I, _I, _I,            # n, n_tris, rays, threads, early
+        _P],                           # cudaStream_t
+     "rtxpt_brute_closest_screen_stats": [_I, _P]})
+# K8's two routes' kernels (ptxas report, SASS check)
+BRUTE_CLOSEST_ENTRIES = {
+    "brute_closest": "brute_closest_kernelILb0E",
+    "brute_closest_mma": "brute_closest_kernel_mmaILb0E"}
 
 # K9: the BVH walk of the general tier (replaces rtxpt_tpu/accel/
 # traverse_pallas.py _step_kernel); wrapper accel/traverse.py walk.

@@ -975,6 +975,31 @@ def occlusion_screen_stats(device, enable: bool = True):
                 share=passed / pairs if pairs else None)
 
 
+# K4's staging plan (csrc/cluster_shade.cuh StagePlan): the HA rows every
+# variant reads (the hit, the attribute rows every lane reads, AT_LID of the
+# export), those of the texture variant, and the micromap flag
+SHADE_HA_BASE = ((HA_T, HA_U, HA_V, HA_FRONT, HA_PRIM)
+                 + tuple(HA_ATTR + r for r in range(bf.AT_N0, bf.AT_ISLIGHT + 1))
+                 + (HA_ATTR + bf.AT_LID,))
+SHADE_HA_TEX = (tuple(HA_ATTR + r for r in range(bf.AT_UV0, bf.AT_LODB + 1))
+                + tuple(HA_ATTR + r for r in range(bf.AT_TANG, bf.AT_TSGN + 1)))
+SHADE_STAGE_LANES = 128
+
+
+def shade_stage_rows(tex: bool, omm: bool, split: bool):
+    """K4's staged input rows of a variant, in shared-memory slot order:
+    [(array, row)] with array "ha", "fs", "is" or "fs2" (the Python mirror
+    of csrc/cluster_shade.cuh StagePlan), and one stage's bytes (128 lanes
+    of 4 bytes a row)."""
+    rows = [("ha", r) for r in SHADE_HA_BASE]
+    rows += [("ha", r) for r in SHADE_HA_TEX] if tex else []
+    rows += [("ha", HA_UNK)] if omm else []
+    rows += [("fs", r) for r in range(bf.NF)] + [("is", r)
+                                                 for r in range(bf.NI)]
+    rows += [("fs2", r) for r in range(bf.NF2)] if split else []
+    return rows, len(rows) * SHADE_STAGE_LANES * 4
+
+
 def shade(ha, fs, is_, tables, kcfg: bf.KernelConfig, sample_idx: int,
           final_env: bool = False, omm: bool = False, prio: bool = False,
           fs2=None):

@@ -610,6 +610,73 @@ def test_k8_matches_plain_version(gpu, scene_name):
     plain = brute._closest_plain(scene.bvh.brute, *rays)
     torch.cuda.synchronize()
     _hits_agree(kern, plain)
+    assert _k8_lanes_differ(kern, plain) == 0
+
+
+def _k8_lanes_differ(kern, plain):
+    """Lanes where K8's t, prim, uv or front differ bit-wise from the plain
+    version's (NaN matches NaN)."""
+    bad = kern["prim"] != plain["prim"]
+    bad |= kern["front"] != plain["front"]
+    for key in ("t", "uv"):
+        k, p = kern[key], plain[key]
+        eq = (k.view(torch.int32) == p.view(torch.int32)) | (
+            torch.isnan(k) & torch.isnan(p))
+        bad |= ~(eq if eq.ndim == 1 else eq.all(1))
+    return int(bad.sum())
+
+
+def _recorded_k8_calls(run):
+    """The inputs of every K8 launch (brute.closest) during run()."""
+    calls, real = [], brute.closest
+
+    def recorder(tris, o, d, tmin, tmax):
+        calls.append((tris, (o.contiguous(), d.contiguous(),
+                             tmin.contiguous(), tmax.contiguous())))
+        return real(tris, o, d, tmin, tmax)
+    brute.closest = recorder
+    try:
+        run()
+    finally:
+        brute.closest = real
+    return calls
+
+
+@pytest.mark.parametrize("case", ["build", "kitchen"])
+def test_k8_bit_exact_on_build_and_kitchen(gpu, case):
+    """K8 against its plain version on every lane, t, prim, uv and front
+    bit-equal, with no accepted pair missed by its screen: the
+    glass-over-mirror box's stable-planes BUILD launches (128 x 128 camera
+    rays, the CUDA-core route) and the kitchen's general-tier queries of
+    one 64 x 64 frame (1,186 triangles, the tensor-core route)."""
+    from rtxpt_tpu_torch.pt.stable_planes import decompose
+    cfg = PathTracerConfig(max_bounces=2, kernel_tier="xla")
+    host = (TP.glass_mirror_cornell() if case == "build"
+            else TP.kitchen_scene())
+    scene = prepare(host, device=gpu)
+    side = 128 if case == "build" else 64
+    cam = TP.default_camera(host, side, side, device=gpu)
+    px, py = _pixel_grid(side, side, gpu)
+    o, d, _ = camera_rays(cam, cfg, px, py, 1)
+    if case == "build":
+        calls = _recorded_k8_calls(lambda: decompose(scene, o, d))
+        assert len(calls) == 12
+    else:
+        calls = _recorded_k8_calls(lambda: render(scene, cam, cfg, side,
+                                                  side, spp=1))
+        assert calls
+    want = "cuda-core" if case == "build" else "mma"
+    for tris, args in calls:
+        assert brute.route(tris) == want
+        brute.screen_stats(gpu, True)
+        kern = brute.closest(tris, *args)
+        screen = brute.screen_stats(gpu, False)
+        plain = brute._closest_plain(tris, *args)
+        torch.cuda.synchronize()
+        assert _k8_lanes_differ(kern, plain) == 0
+        assert screen["missed"] == 0 and screen["pairs"] > 0
+    assert any(bool((brute._closest_plain(t, *a)["prim"] >= 0).any())
+               for t, a in calls)
 
 
 def _walk_agrees(kern, plain, any_hit):
@@ -1483,6 +1550,9 @@ def test_k4_instantiations_match_plain_version(alpha_scenes, curtain_scenes,
             same &= kern[-1][bf.F2_FSPEC] == plain[-1][bf.F2_FSPEC]
         assert same.float().mean() >= 0.999
         _close_rows(kern, plain)
+        # bit-exact on every lane and row (K4 stages its rows in shared
+        # memory and shades them with the plain version's arithmetic)
+        assert _rows_lanes_differ(kern, plain) == 0
         if prio and b != 1:
             fh = _off_curtain_false_hits(fs, is_, plain[1], ha[BC.HA_T],
                                          ha[BC.HA_PRIM] >= 0)
@@ -1492,6 +1562,47 @@ def test_k4_instantiations_match_plain_version(alpha_scenes, curtain_scenes,
     name = bf.variant_name("cluster_shade", False, False, tex, omm, prio,
                            split)
     assert dict(kernels.launches) == {name: 3}
+
+
+def _rows_lanes_differ(kern, plain):
+    """Lanes where any of the kernel's [R, N] outputs differs bit-wise from
+    the plain version's (NaN matches NaN)."""
+    bad = None
+    for k, p in zip(kern, plain):
+        if k.dtype.is_floating_point:
+            eq = (k.view(torch.int32) == p.view(torch.int32)) | (
+                torch.isnan(k) & torch.isnan(p))
+        else:
+            eq = k == p
+        lanes = ~eq.all(0)
+        bad = lanes if bad is None else bad | lanes
+    return int(bad.sum())
+
+
+@pytest.mark.parametrize("lanes", [4096, 4093, 130])
+def test_k4_staging_on_ragged_and_unaligned_launches(alpha_scenes, gpu,
+                                                     lanes):
+    """K4 bit-exact with its plain version where its tiles do not divide
+    the launch (4093 and 130 lanes: rows not 16-byte aligned, filled by
+    the threads' own loads; 4096: the bulk copies) on the 40 x 40
+    curtain's omm_tex variant at bounce 0."""
+    host, scene = alpha_scenes["grid"]
+    tbl = scene.cluster_tables
+    cfg = PathTracerConfig(max_bounces=3, stochastic_texture_filtering=True)
+    kcfg = bf.KernelConfig.from_cfg(cfg)
+    fs, is_ = _state(host, cfg, 64, gpu, 1)
+    fs, is_ = fs[:, :lanes].contiguous(), is_[:, :lanes].contiguous()
+    kslots = tbl.n_clusters
+    od = BC.ray_operand(fs, is_)
+    cand, _ = BC.cull(fs[bf.FS_O:bf.FS_O + 3], fs[bf.FS_D:bf.FS_D + 3],
+                      is_[bf.IS_ACTIVE] > 0, 1e27, tbl, kslots)
+    ha = BC.closest_hit_reference(cand, od, tbl.blocks, kslots, 1e27,
+                                  micro=tbl.omm_word)
+    plain = BC.shade_reference(ha, fs, is_, tbl, kcfg, 2, omm=True)
+    kern = BC.shade(ha, fs, is_, tbl, kcfg, 2, omm=True)
+    torch.cuda.synchronize()
+    assert _rows_lanes_differ(kern, plain) == 0
+    assert (ha[BC.HA_PRIM] >= 0).any()
 
 
 @pytest.mark.parametrize("slot", [3, 5])

@@ -542,13 +542,424 @@ def measure_k2(args):
     return res
 
 
+def _k8_calls(dev, brute):
+    """{name: (BruteTris, (o, d, tmin, tmax))}: K8's launches of the main
+    paths, each captured from a run through the wrapper: the Cornell box's
+    general tier (2^18 camera rays over the 1080p frame, and bounce 1's
+    2^19-ray fused query), the glass-over-mirror box's stable-planes BUILD
+    pass at 1920x1080 (its first walk's depths 0 and 2, 2,073,600 rays) and
+    the kitchen's general tier at 960x540 (518,400 rays, 1,186
+    triangles)."""
+    from rtxpt_tpu_torch.config import NEEMode, PathTracerConfig
+    from rtxpt_tpu_torch.prepare import prepare
+    from rtxpt_tpu_torch.pt import integrator as I
+    from rtxpt_tpu_torch.pt.stable_planes import decompose
+    from rtxpt_tpu_torch.scene import procedural as TP
+    cfg = PathTracerConfig(max_bounces=1, nee=NEEMode.POWER,
+                           kernel_tier="xla", ray_chunk=1 << 30)
+    out = {}
+
+    def camera(host, cols, rows, frame):
+        w, h = frame
+        cam = TP.default_camera(host, w, h, device=dev)
+        px, py = I._pixel_grid(cols, rows, dev)
+        px, py = px * w // cols, py * h // rows
+        return I.camera_rays(cam, cfg, px, py, 1) + (px, py)
+
+    host = TP.cornell_box()
+    scene = prepare(host, device=dev)
+    o, d, spread, px, py = camera(host, 512, 512, FRAME)
+    q = _record_queries(scene, cfg, o, d, spread, px, py,
+                        (("closest", 0), ("closest", 1)))
+    out["cornell_2^18"] = (scene.bvh.brute, q[("closest", 0)])
+    out["cornell_2^19"] = (scene.bvh.brute, q[("closest", 1)])
+    host = TP.glass_mirror_cornell()
+    scene = prepare(host, device=dev)
+    o, d, _, _, _ = camera(host, *FRAME, FRAME)
+    calls, real = [], brute.closest
+
+    def recorder(tris, o_, d_, tmin_, tmax_):
+        calls.append((tris, tuple(x.contiguous() for x in
+                                  (o_, d_, tmin_, tmax_))))
+        return real(tris, o_, d_, tmin_, tmax_)
+    brute.closest = recorder
+    try:
+        decompose(scene, o, d)
+    finally:
+        brute.closest = real
+    out["build_depth0"], out["build_depth2"] = calls[0], calls[2]
+    host = TP.kitchen_scene()
+    scene = prepare(host, device=dev)
+    o, d, spread, px, py = camera(host, 960, 540, (960, 540))
+    q = _record_queries(scene, cfg, o, d, spread, px, py, (("closest", 0),))
+    out["kitchen"] = (scene.bvh.brute, q[("closest", 0)])
+    return out
+
+
+def _bits_differ(kern, plain):
+    """Lanes where K8's t, prim, uv or front differ bit-wise from the
+    plain version's."""
+    n = int(plain["prim"].numel())
+    rows = ("t", "uv", "prim", "front")
+    return smoke._lanes_differ([kern[k].reshape(n, -1).T.contiguous()
+                                for k in rows],
+                               [plain[k].reshape(n, -1).T.contiguous()
+                                for k in rows])
+
+
+def measure_k8(args):
+    """K8 on the package that `import rtxpt_tpu_torch` finds: its launches
+    of `_k8_calls`, each timed with CUDA events and the profiler beside
+    its bound (48 f32 a pair), with (--check) t, prim, uv and front
+    against `_closest_plain` on every lane and the screen's counters; with
+    --sweep (this checkout) both routes at every shape, the CUDA-core
+    route's rays a thread, block size and early u test, and on the
+    kitchen's rays the routes' crossover (its first 48-1,024 triangles);
+    with --profile K8's device time and launches over one profiled
+    general-tier Cornell 1080p frame."""
+    import dataclasses
+    import torch
+    import rtxpt_tpu_torch
+    from rtxpt_tpu_torch import kernels
+    from rtxpt_tpu_torch.accel import brute
+    dev = torch.device("cuda:0")
+    smi = _card()
+    build = kernels.build_all((kernels.BRUTE_CLOSEST,))
+    entries = getattr(kernels, "BRUTE_CLOSEST_ENTRIES",
+                      dict(brute_closest="brute_closest_kernel"))
+    log = kernels.BRUTE_CLOSEST.ptxas_log
+    inst = {name: smoke._ptxas_entry(log, needle)
+            for name, needle in entries.items()}
+    sass = kernels.BRUTE_CLOSEST.sass_opcodes(("HMMA",))
+    for name, needle in entries.items():
+        inst[name]["hmma"] = sum(ops["HMMA"] for fn, ops in sass.items()
+                                 if needle in fn)
+    res = dict(package=os.path.dirname(rtxpt_tpu_torch.__file__), card=smi,
+               build_s=build, instantiations=inst, times={}, checks={},
+               frames={}, sweep={})
+    stats = getattr(brute, "screen_stats", None)
+    for name, (tris, call) in _k8_calls(dev, brute).items():
+        def launch():
+            return brute.closest(tris, *call)
+        ms = smoke._cuda_ms(launch, ITERS)
+        device_ms, host_ms = launch_costs(launch, ITERS,
+                                          r"brute_(closest|screen|mma)_kernel")
+        n, nt = int(call[0].shape[0]), tris.num_triangles
+        bound, by, _ = smoke._bound(n * smoke.RAY_BYTES + 64 * nt,
+                                    f32=n * nt * smoke.K8_PAIR_F32)
+        hit = launch()
+        res["times"][name] = t = dict(
+            ms=ms, device_ms=device_ms, host_ms=host_ms, rays=n, tris=nt,
+            hits=int((hit["prim"] >= 0).sum()), bound_ms=bound, bound_by=by,
+            route="mma" if getattr(brute, "MMA_TRIS", 1 << 30) < nt
+            <= getattr(brute, "MMA_MAX_TRIS", 0) else "cuda-core")
+        print(f"k8 {name} ({nt} triangles, {t['route']}): {ms:.4f} ms per "
+              f"{n}-ray launch (events; {device_ms:.4f} ms of kernel from "
+              f"the profiler, {host_ms:.4f} ms of host per call), bound "
+              f"{bound:.4f} ms ({by}), {t['hits']} hits ({smi})", flush=True)
+        if args.check:
+            if stats:
+                stats(dev, True)
+            kern = brute.closest(tris, *call)
+            screen = stats(dev, False) if stats else None
+            plain = brute._closest_plain(tris, *call)
+            torch.cuda.synchronize()
+            res["checks"][name] = c = dict(lanes_differ=_bits_differ(kern,
+                                                                     plain),
+                                           lanes=n, screen=screen)
+            print(f"k8 {name} check: {json.dumps(c)}", flush=True)
+        if args.sweep and hasattr(brute, "MMA_TRIS"):
+            sw = res["sweep"][name] = {}
+            saved = brute.MMA_TRIS
+            for route, limit in (("cuda-core", 1 << 30), ("mma", 0)):
+                if route == "mma" and tris.tile is None:
+                    continue
+                brute.MMA_TRIS = limit
+                try:
+                    sw[route] = launch_costs(launch, ITERS,
+                                             r"brute_\w+_kernel")[0]
+                finally:
+                    brute.MMA_TRIS = saved
+            if "rtxpt_brute_closest_sweep" in kernels.BRUTE_CLOSEST.functions:
+                out = {k: torch.empty_like(v) for k, v in hit.items()}
+                for early in (0, 1):
+                    for rays in (1, 2, 4):
+                        for threads in (64, 128, 256):
+                            def shaped():
+                                kernels.BRUTE_CLOSEST.launch(
+                                    "rtxpt_brute_closest_sweep",
+                                    *(x.data_ptr() for x in call),
+                                    tris.table.data_ptr(),
+                                    *(out[k].data_ptr() for k in
+                                      ("t", "prim", "uv", "front")),
+                                    n, nt, rays, threads, early,
+                                    torch.cuda.current_stream(dev).cuda_stream)
+                            key = f"r{rays}_t{threads}" + "_early" * early
+                            sw[key] = launch_costs(shaped, ITERS,
+                                                   r"brute_\w+_kernel")[0]
+                            torch.cuda.synchronize()
+                            sw[key + "_differ"] = _bits_differ(
+                                out, brute._closest_plain(tris, *call))
+            if name == "kitchen":
+                # the routes' crossover: the kitchen's first T triangles
+                for size in (48, 64, 80, 96, 128, 256, 512, 1024):
+                    tbl = tris.table[:size].contiguous()
+                    tile, scale = (x.to(dev) for x in
+                                   brute.brute_tile(tbl.cpu()))
+                    sub = brute.BruteTris(table=tbl, tile=tile, scale=scale)
+                    for route, limit in (("cuda-core", 1 << 30), ("mma", 0)):
+                        brute.MMA_TRIS = limit
+                        try:
+                            sw[f"{route}_{size}"] = launch_costs(
+                                lambda: brute.closest(sub, *call), ITERS,
+                                r"brute_\w+_kernel")[0]
+                        finally:
+                            brute.MMA_TRIS = saved
+            print(f"k8 {name} sweep (kernel ms): {json.dumps(sw)}",
+                  flush=True)
+    if args.profile:
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as torch_profile
+        from rtxpt_tpu_torch.config import NEEMode, PathTracerConfig
+        from rtxpt_tpu_torch.prepare import prepare
+        from rtxpt_tpu_torch.pt.integrator import render_sample
+        from rtxpt_tpu_torch.scene import procedural as TP
+        host = TP.cornell_box()
+        scene = prepare(host, device=dev)
+        cfg = PathTracerConfig(max_bounces=4, nee=NEEMode.POWER,
+                               kernel_tier="xla", ray_chunk=RAYS_TIMED)
+        cam = TP.default_camera(host, *FRAME, device=dev)
+        render_sample(scene, cam, cfg, *FRAME, 0)
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            render_sample(scene, cam, cfg, *FRAME, 1)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        k8 = smoke._kernel_frame(prof, r"brute_\w+_kernel")
+        res["frames"]["cornell_general"] = p = dict(
+            k8_ms=k8["ms"], k8_launches=k8["launches"], frame_wall_ms=wall)
+        print(f"k8 Cornell general-tier frame: {json.dumps(p)} ({smi})",
+              flush=True)
+        del dataclasses
+    return res
+
+
+def _k4_calls(dev):
+    """{name: (args, kwargs)} of K4 (bounce_clustered.shade) at the
+    bounce-0 launch of a 1-spp 1920x1080 frame (2,073,600 lanes), each
+    captured from the path's own call: the city (slot 2), its split
+    channels, the sky city (has_env; its final_env launch; slots 3 and 5
+    on the has_env launch's inputs, as chip_smoke.py phase 12 takes them),
+    the textured city (has_tex with has_env), the 40 x 40 curtain grid and
+    the foliage (omm_tex), the overlap boxes with their wall (prio) and
+    Bistro (omm_tex_prio, slot 5)."""
+    import dataclasses
+    import torch
+    from rtxpt_tpu_torch.config import NEEMode, PathTracerConfig
+    from rtxpt_tpu_torch.prepare import prepare
+    from rtxpt_tpu_torch.pt import bounce_clustered as BC
+    from rtxpt_tpu_torch.pt import bounce_fused as bf
+    from rtxpt_tpu_torch.pt.integrator import render_sample
+    from rtxpt_tpu_torch.scene import procedural as TP
+    base = PathTracerConfig(max_bounces=1, nee=NEEMode.POWER,
+                            ray_chunk=1 << 30)
+    stf = dataclasses.replace(base, stochastic_texture_filtering=True)
+    city = lambda **kw: TP.city_overview(TP.city_scene(  # noqa: E731
+        smoke.CITY_TRIS, seed=smoke.CITY_SEED, **kw))
+    alpha = smoke._alpha_hosts()
+    spec = dict(
+        city=(smoke._city_host(), base),
+        split=(None, dataclasses.replace(base, split_channels=True)),
+        sky_city=(city(with_env=True), base),
+        tex_city=(city(textured=True, normal_mapped=True, with_env=True),
+                  stf),
+        grid=(alpha["grid"], stf),
+        foliage=(alpha["foliage"], stf),
+        wall=(TP.overlap_boxes([1, 2, 0, 0], wall=True), base),
+        bistro=(TP.bistro_scene(smoke.BISTRO_TRIS, seed=0),
+                dataclasses.replace(stf, firefly_clamp=32.0)))
+    out, scene = {}, None
+    for name, (host, cfg) in spec.items():
+        if host is not None:
+            scene = prepare(host, device=dev)
+            cam = TP.default_camera(host, *FRAME, device=dev)
+        calls, real = [], BC.shade
+
+        def recorder(*a, **kw):
+            calls.append(([x.clone() if torch.is_tensor(x) else x
+                           for x in a],
+                          {k: x.clone() if torch.is_tensor(x) else x
+                           for k, x in kw.items()}))
+            return real(*a, **kw)
+        BC.shade = recorder
+        try:
+            render_sample(scene, cam, cfg, *FRAME, 1)
+        finally:
+            BC.shade = real
+        torch.cuda.synchronize()
+        first = calls[0]
+        out[name] = first
+        if name == "sky_city":
+            out["sky_final_env"] = next(c for c in calls
+                                        if c[1].get("final_env"))
+            for slot in (3, 5):
+                a = list(first[0])
+                a[4] = bf.KernelConfig(nee_mode=slot, maxb=4)
+                out[f"sky_slot{slot}"] = (a, dict(first[1]))
+        del calls
+    return out
+
+
+def measure_k4(args):
+    """K4 on the package that `import rtxpt_tpu_torch` finds: its launches
+    of `_k4_calls`, each timed with CUDA events and the profiler beside
+    its bound (chip_smoke._k4_bytes), with (--check) every output row
+    against shade_reference bit-wise on 65,536 lanes and on 65,533 (rows
+    not 16-byte aligned); with --sweep (this checkout) the design's
+    experiments in turns with the kernel (persistent two-stage blocks on
+    capped grids, the kernels compiled for 5 blocks an SM, on the city the
+    plain variant's outputs to shared memory and bounded registers); with
+    --profile K4's device time and launches over one profiled 1-spp city
+    frame (4 bounces)."""
+    import torch
+    import rtxpt_tpu_torch
+    from rtxpt_tpu_torch import kernels
+    from rtxpt_tpu_torch.pt import bounce_clustered as BC
+    from rtxpt_tpu_torch.pt import bounce_fused as bf
+    dev = torch.device("cuda:0")
+    smi = _card()
+    build = kernels.build_all((kernels.CLUSTER_CLOSEST, kernels.CLUSTER_SHADE,
+                               kernels.CLUSTER_SHADOW))
+    log = kernels.CLUSTER_SHADE.ptxas_log
+    inst = {("cluster_shade" + "_omm" * o + "_tex" * t + "_prio" * p
+             + "_split" * sp): smoke._ptxas_entry(
+                 log, f"cluster_shade_kernelILb{t}ELb{o}ELb{p}ELb{sp}E")
+            for t in (0, 1) for o in (0, 1) for p in (0, 1) for sp in (0, 1)}
+    res = dict(package=os.path.dirname(rtxpt_tpu_torch.__file__), card=smi,
+               build_s=build, instantiations=inst, times={}, checks={},
+               frames={})
+    for name, (a, kw) in _k4_calls(dev).items():
+        def launch():
+            return BC.shade(*a, **kw)
+        ms = smoke._cuda_ms(launch, 10)
+        device_ms, host_ms = launch_costs(launch, 10, r"cluster_shade_kernel")
+        ha, fs, is_, tbl, kcfg = a[:5]
+        n = int(fs.shape[1])
+        final = bool(kw.get("final_env", False))
+        tex = bf.use_tex(tbl, kcfg) and not final
+        ext = kcfg.external and tbl.n_lights > 0 and not final
+        bound, by, _ = smoke._bound(smoke._k4_bytes(n, tbl, tex, ext))
+        res["times"][name] = t = dict(ms=ms, device_ms=device_ms,
+                                      host_ms=host_ms, lanes=n,
+                                      bound_ms=bound, bound_by=by,
+                                      nee_mode=kcfg.nee_mode)
+        print(f"k4 {name} (slot {kcfg.nee_mode}): {ms:.4f} ms per {n}-lane "
+              f"launch (events; {device_ms:.4f} ms of kernel from the "
+              f"profiler, {host_ms:.4f} ms of host per call), bound "
+              f"{bound:.4f} ms ({by}) ({smi})", flush=True)
+        if args.sweep and "rtxpt_cluster_shade_experiment" in \
+                kernels.CLUSTER_SHADE.functions:
+            # the design's experiments, each in turns with the kernel
+            saved = kernels.CLUSTER_SHADE.launch
+            sw = res.setdefault("sweep", {})[name] = {}
+            tiles = -(-n // 128)
+            for exp in (0, tiles, 132 * 2, 132 * 3, 132 * 4, -5, 0):
+                def redirect(fname, *rest, exp=exp):
+                    return saved("rtxpt_cluster_shade_experiment",
+                                 *rest[:-1], exp, rest[-1])
+
+                def run_exp():
+                    kernels.CLUSTER_SHADE.launch = redirect
+                    try:
+                        return BC.shade(*a, **kw)
+                    finally:
+                        kernels.CLUSTER_SHADE.launch = saved
+                label = ("kernel" if exp == 0 else "min_blocks_5" if exp < 0
+                         else f"persistent_{exp}_blocks")
+                sw.setdefault(label, []).append(launch_costs(
+                    run_exp, 10, r"cluster_shade_\w+")[0])
+                sub = [x[:, :65536].contiguous() if torch.is_tensor(x)
+                       and x.dim() == 2 and x.shape[1] == n else x for x in a]
+                skw = {k: x[:, :65536].contiguous() if torch.is_tensor(x)
+                       else x for k, x in kw.items()}
+                kernels.CLUSTER_SHADE.launch = redirect
+                try:
+                    kern = BC.shade(*sub, **skw)
+                finally:
+                    kernels.CLUSTER_SHADE.launch = saved
+                sw[label + "_differ"] = smoke._lanes_differ(
+                    list(kern), list(BC.shade_reference(*sub, **skw)))
+            if name == "city":
+                outs = [torch.empty_like(fs), torch.empty_like(is_),
+                        torch.empty((BC.SH_ROWS, n), device=dev),
+                        torch.empty((bf.NH, n), device=dev)]
+                for mode, label in enumerate(("probe_as_launched",
+                                              "probe_smem_outputs",
+                                              "probe_regs_102",
+                                              "probe_regs_85")):
+                    def probe(mode=mode):
+                        kernels.CLUSTER_SHADE.launch(
+                            "rtxpt_cluster_shade_probe", ha.data_ptr(),
+                            fs.data_ptr(), is_.data_ptr(),
+                            *(x.data_ptr() for x in outs),
+                            tbl.mat_rows.data_ptr(),
+                            tbl.light_rows.data_ptr(), n, tbl.n_lights,
+                            a[5], kcfg.nee_mode, kcfg.maxb, mode,
+                            torch.cuda.current_stream(dev).cuda_stream)
+                    sw[label] = launch_costs(probe, 10,
+                                             r"cluster_shade_probe")[0]
+            print(f"k4 {name} experiments (kernel ms): {json.dumps(sw)}",
+                  flush=True)
+        if args.check:
+            c = res["checks"][name] = {}
+            for m in (65536, 65533):
+                sub = [x[:, :m].contiguous() if torch.is_tensor(x)
+                       and x.dim() == 2 and x.shape[1] == n else x
+                       for x in a]
+                skw = {k: x[:, :m].contiguous() if torch.is_tensor(x)
+                       else x for k, x in kw.items()}
+                kern = BC.shade(*sub, **skw)
+                plain = BC.shade_reference(*sub, **skw)
+                torch.cuda.synchronize()
+                c[m] = smoke._lanes_differ(list(kern), list(plain))
+            print(f"k4 {name} check (lanes differ at 65,536 and 65,533 "
+                  f"lanes): {json.dumps(c)}", flush=True)
+    if args.profile:
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as torch_profile
+        from rtxpt_tpu_torch.config import NEEMode, PathTracerConfig
+        from rtxpt_tpu_torch.prepare import prepare
+        from rtxpt_tpu_torch.pt.integrator import render_sample
+        from rtxpt_tpu_torch.scene import procedural as TP
+        host = smoke._city_host()
+        scene = prepare(host, device=dev)
+        cfg = PathTracerConfig(max_bounces=4, nee=NEEMode.POWER,
+                               ray_chunk=1 << 30)
+        cam = TP.default_camera(host, *FRAME, device=dev)
+        render_sample(scene, cam, cfg, *FRAME, 0)
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            render_sample(scene, cam, cfg, *FRAME, 1)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        k4 = smoke._kernel_frame(prof, r"cluster_shade_kernel")
+        res["frames"]["city"] = p = dict(
+            k4_ms=k4["ms"], k4_launches=k4["launches"], frame_wall_ms=wall)
+        print(f"k4 city frame: {json.dumps(p)} ({smi})", flush=True)
+    return res
+
+
 def turns(args):
     """The parent, this checkout, this checkout, the parent: each a child
     process of this script with PYTHONPATH on that checkout."""
     scratch = os.path.join(ROOT, "build", "k1_bench")
     os.makedirs(scratch, exist_ok=True)
     flags = (["--profile"] * args.profile + ["--check"] * args.check
-             + ["--kernel", args.kernel]
+             + ["--sweep"] * args.sweep + ["--kernel", args.kernel]
              + (["--stacks", ",".join(map(str, args.stacks))]
                 if args.stacks else []))
     runs = []
@@ -599,14 +1010,17 @@ def main(argv=None):
     ap.add_argument("--stacks", type=lambda s: [int(n) for n in s.split(",")],
                     default=[], help="triangles of the quad stacks to time")
     ap.add_argument("--parent", help="the parent checkout: run in turns")
-    ap.add_argument("--kernel", choices=("k1", "k9", "k2"), default="k1",
-                    help="the kernel to measure")
+    ap.add_argument("--kernel", choices=("k1", "k9", "k2", "k8", "k4"),
+                    default="k1", help="the kernel to measure")
+    ap.add_argument("--sweep", action="store_true",
+                    help="k8, k4: the design's sweeps (this checkout)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("k1_bench: needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    one = dict(k1=measure, k9=measure_k9, k2=measure_k2)[args.kernel]
+    one = dict(k1=measure, k9=measure_k9, k2=measure_k2, k8=measure_k8,
+               k4=measure_k4)[args.kernel]
     res = turns(args) if args.parent else one(args)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

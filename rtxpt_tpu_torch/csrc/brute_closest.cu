@@ -40,7 +40,8 @@
 //    pairs are resolved per group of 128 triangles by brute_pair on the f32
 //    rows.
 // The launch shapes, the early u test and the routes' crossover were
-// measured on the card (tools/k1_bench.py --kernel k8 --sweep; PERF.md):
+// measured on the card (tools/k1_bench.py --kernel k8 --sweep at commit
+// 7518973; PERF.md):
 // 1, 2 or 4 rays a thread in 64-256-thread blocks were within 4% of each
 // other without the u test, two rays a thread with it the fastest on the
 // 2,073,600-ray launches; the tensor-core route passes the CUDA-core one
@@ -147,20 +148,20 @@ __device__ __forceinline__ void store_hit(const Best& b, float t_hi, int i,
 // The CUDA-core route: kRays rays a thread (ray r of thread k of block b is
 // (b kRays + r) kThreads + k, so each of the thread's loads is coalesced).
 // kCount: the screen counters (and the exact test on every rejected pair).
-template <bool kCount, int kR = kRays, int kT = kThreads, bool kEarly = true>
-__global__ void __launch_bounds__(kT)
+template <bool kCount>
+__global__ void __launch_bounds__(kThreads)
 brute_closest_kernel(const float* __restrict__ o, const float* __restrict__ d,
                     const float* __restrict__ tmin, const float* __restrict__ tmax,
                     const float4* __restrict__ table, float* __restrict__ t_out,
                     int* __restrict__ prim_out, float* __restrict__ uv_out,
                     uint8_t* __restrict__ front_out, int n, int n_tris) {
   __shared__ float4 tile[kTile * kRow4];
-  Ray ray[kR];
-  Best best[kR];
+  Ray ray[kRays];
+  Best best[kRays];
   int live_rays = 0;
 #pragma unroll
-  for (int r = 0; r < kR; ++r) {
-    const int i = (blockIdx.x * kR + r) * kT + threadIdx.x;
+  for (int r = 0; r < kRays; ++r) {
+    const int i = (blockIdx.x * kRays + r) * kThreads + threadIdx.x;
     ray[r] = load_ray(o, d, tmin, tmax, i, i < n);
     live_rays += i < n ? 1 : 0;
     best[r].t = INFINITY;
@@ -171,7 +172,7 @@ brute_closest_kernel(const float* __restrict__ o, const float* __restrict__ d,
   for (int base = 0; base < n_tris; base += kTile) {
     const int count = min(kTile, n_tris - base);
     __syncthreads();   // the previous tile is no longer read
-    for (int k = threadIdx.x; k < count * kRow4; k += kT)
+    for (int k = threadIdx.x; k < count * kRow4; k += kThreads)
       tile[k] = table[(size_t)base * kRow4 + k];
     __syncthreads();
 #pragma unroll 2
@@ -179,12 +180,12 @@ brute_closest_kernel(const float* __restrict__ o, const float* __restrict__ d,
       float row[TB_ROWS];
       row_of(tile, j, row);
 #pragma unroll
-      for (int r = 0; r < kR; ++r) {
+      for (int r = 0; r < kRays; ++r) {
         // v's numerator only where det and u pass (a warp of coherent rays
         // mostly skips it), except while counting
         float det, un, t, u, v;
         brute_det_u(row, ray[r].d, ray[r].x, det, un);
-        if (kEarly && !kCount && !brute_screen_u(det, un)) continue;
+        if (!kCount && !brute_screen_u(det, un)) continue;
         const float vn = brute_v(row, ray[r].d, ray[r].x);
         if (brute_screen(det, un, vn)) {
           if (kCount) ++passed;
@@ -205,8 +206,8 @@ brute_closest_kernel(const float* __restrict__ o, const float* __restrict__ d,
   }
   if (kCount) add_counts((unsigned long long)live_rays * n_tris, passed, missed);
 #pragma unroll
-  for (int r = 0; r < kR; ++r) {
-    const int i = (blockIdx.x * kR + r) * kT + threadIdx.x;
+  for (int r = 0; r < kRays; ++r) {
+    const int i = (blockIdx.x * kRays + r) * kThreads + threadIdx.x;
     if (i < n) store_hit(best[r], ray[r].hi, i, t_out, prim_out, uv_out, front_out);
   }
 }
@@ -301,17 +302,6 @@ int launch(const float* o, const float* d, const float* tmin, const float* tmax,
   return (int)cudaGetLastError();
 }
 
-// The launch-shape sweep's kernels: R rays a thread, T threads a block, E
-// the early u test.
-template <int R, int T, bool E>
-int sweep_one(const float* o, const float* d, const float* tmin, const float* tmax,
-              const float* table, float* t, int* prim, float* uv, uint8_t* front, int n,
-              int n_tris, cudaStream_t stream) {
-  brute_closest_kernel<false, R, T, E><<<(n + R * T - 1) / (R * T), T, 0, stream>>>(
-      o, d, tmin, tmax, reinterpret_cast<const float4*>(table), t, prim, uv, front, n, n_tris);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // `tile` ([30, t8] bf16) and `scale` ([t8] f32): the tensor-core route's
@@ -327,28 +317,6 @@ extern "C" int rtxpt_brute_closest(const float* o, const float* d, const float* 
                         (cudaStream_t)stream);
   return launch<false>(o, d, tmin, tmax, table, bt, scale, t8, t, prim, uv, front, n, n_tris,
                        (cudaStream_t)stream);
-}
-
-// The launch-shape sweep of the CUDA-core route: `rays` rays a thread (1,
-// 2, 4) in blocks of `threads` (64, 128, 256); `early`: the v numerator only
-// for the pairs whose det and u pass.
-extern "C" int rtxpt_brute_closest_sweep(const float* o, const float* d, const float* tmin,
-                                         const float* tmax, const float* table, float* t,
-                                         int* prim, float* uv, unsigned char* front, int n,
-                                         int n_tris, int rays, int threads, int early,
-                                         void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-#define RT_SWEEP(R, T)                                                                    \
-  if (rays == R && threads == T)                                                          \
-    return early ? sweep_one<R, T, true>(o, d, tmin, tmax, table, t, prim, uv, front, n,  \
-                                         n_tris, s)                                       \
-                 : sweep_one<R, T, false>(o, d, tmin, tmax, table, t, prim, uv, front, n, \
-                                          n_tris, s);
-  RT_SWEEP(1, 64) RT_SWEEP(1, 128) RT_SWEEP(1, 256)
-  RT_SWEEP(2, 64) RT_SWEEP(2, 128) RT_SWEEP(2, 256)
-  RT_SWEEP(4, 64) RT_SWEEP(4, 128) RT_SWEEP(4, 256)
-#undef RT_SWEEP
-  return (int)cudaErrorInvalidValue;
 }
 
 // K8's screen counters (k1::g_screen's closest-hit slots: pairs, passed,

@@ -36,16 +36,16 @@
 // where the serial shading chain first needed it, and the SM's other
 // blocks shade while one block's copies land. Persistent blocks with two
 // stages (the next tile's copy in flight while this one shades) were
-// 1.4-2.2x slower on the card: the second stage doubles the shared memory
-// and the loop held more registers (128-164, spills in three variants),
-// so fewer warps ran (PERF.md, PR 19). A launch whose rows are not 16-byte
-// aligned (n not a multiple of 4, or a row not 16-byte aligned) fills the
-// stage with each thread's own loads instead. The stores stay direct: with
-// the plain variant's 44 output rows written to shared memory instead the
-// kernel was 3% faster, the most that staging them could give. Nor is the
-// register count bounded: compiled for 5 blocks an SM (at most 102
-// registers) the variants moved from 8.5% faster to 10% slower by variant
-// and mode.
+// slower on the card at every grid tried, 1.4x on the city's plain variant
+// at 4 blocks an SM: the second stage doubles a block's shared memory, so
+// fewer warps run (tools/k1_bench.py --kernel k4 --sweep at commit
+// 7518973; PERF.md). A launch whose rows are not 16-byte aligned (n not a
+// multiple of 4, or a row not 16-byte aligned) fills the stage with each
+// thread's own loads instead. The stores stay direct: with the plain
+// variant's 44 output rows written to shared memory instead the kernel was
+// 3% faster, the most that staging them could give. Nor is the register
+// count bounded: compiled for 5 blocks an SM (at most 102 registers) the
+// variants ran from 8% faster to 10% slower by variant and mode.
 //
 // What bounds it: bytes, and latency in the serial shading chain (hashes,
 // Sobol' folds, light sample, BSDF eval, pdf and sample), as in K1.
@@ -150,8 +150,8 @@ __device__ __forceinline__ void fill(const Rows& in, float* st, int tile, int n,
       st[k * kStageLanes + threadIdx.x] = row_src<P>(in, k, n)[i];
 }
 
-template <bool HasTex, bool HasOmm, bool HasPrio, bool HasSplit, int kMinBlocks = 1>
-__global__ void __launch_bounds__(kStageLanes, kMinBlocks)
+template <bool HasTex, bool HasOmm, bool HasPrio, bool HasSplit>
+__global__ void __launch_bounds__(kStageLanes)
 cluster_shade_kernel(Rows in, float* __restrict__ fs_out, int* __restrict__ is_out,
                      float* __restrict__ sh_out, float* __restrict__ hit_out,
                      float* __restrict__ surf_out, float* __restrict__ fs2_out,
@@ -179,108 +179,16 @@ cluster_shade_kernel(Rows in, float* __restrict__ fs_out, int* __restrict__ is_o
         i, n, threadIdx.x, stage, fs_out, is_out, sh_out, hit_out, surf_out, fs2_out, tb, cfg);
 }
 
-// The experiments of the design (tools/k1_bench.py --kernel k4 --sweep),
-// measurements and not paths: (1) persistent blocks with two stages, the
-// next tile's copy in flight while this one shades; (2) the plain variant's
-// outputs written to shared memory (the most that staging the stores could
-// give) and its registers bounded.
-template <bool HasTex, bool HasOmm, bool HasPrio, bool HasSplit>
-__global__ void __launch_bounds__(kStageLanes)
-cluster_shade_persistent(Rows in, float* __restrict__ fs_out, int* __restrict__ is_out,
-                         float* __restrict__ sh_out, float* __restrict__ hit_out,
-                         float* __restrict__ surf_out, float* __restrict__ fs2_out,
-                         rt::Tables tb, rt::Config cfg, int n) {
-  using P = StagePlan<HasTex, HasOmm, HasSplit>;
-  extern __shared__ __align__(128) float stage[];   // 2 x P::kSlots x kStageLanes
-  __shared__ __align__(8) uint64_t bar[2];
-  const int tiles = (n + kStageLanes - 1) / kStageLanes;
-  const bool exports = surf_out != nullptr;
-  if (threadIdx.x == 0) {
-    bar_init(&bar[0]);
-    bar_init(&bar[1]);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-  if (threadIdx.x < 32 && blockIdx.x < tiles)
-    issue<P>(in, stage, &bar[0], blockIdx.x, n, cfg.final_env, exports);
-  int k = 0;
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++k) {
-    const int s = k & 1;
-    float* st = stage + s * P::kSlots * kStageLanes;
-    const int next = tile + gridDim.x;
-    if (threadIdx.x < 32 && next < tiles) {
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      issue<P>(in, stage + (s ^ 1) * P::kSlots * kStageLanes, &bar[s ^ 1], next, n,
-               cfg.final_env, exports);
-    }
-    bar_wait(&bar[s], (uint32_t)((k >> 1) & 1));
-    const int i = tile * kStageLanes + threadIdx.x;
-    if (i < n)
-      rt::cl::shade_staged<HasTex, HasOmm, HasPrio, HasSplit>(
-          i, n, threadIdx.x, st, fs_out, is_out, sh_out, hit_out, surf_out, fs2_out, tb, cfg);
-    __syncthreads();   // this stage is read: the next issue may refill it
-  }
-}
-
-template <int kMinBlocks, bool kSmemOut>
-__global__ void __launch_bounds__(kStageLanes, kMinBlocks)
-cluster_shade_probe(Rows in, float* __restrict__ fs_out, int* __restrict__ is_out,
-                    float* __restrict__ sh_out, float* __restrict__ hit_out,
-                    rt::Tables tb, rt::Config cfg, int n) {
-  using P = StagePlan<false, false, false>;
-  extern __shared__ __align__(128) float stage[];
-  __shared__ __align__(8) uint64_t bar;
-  const int tile = blockIdx.x;
-  if (threadIdx.x == 0) {
-    bar_init(&bar);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-  if (threadIdx.x < 32) issue<P>(in, stage, &bar, tile, n, cfg.final_env, false);
-  bar_wait(&bar, 0u);
-  const int i = tile * kStageLanes + threadIdx.x;
-  if (i >= n) return;
-  if (kSmemOut) {
-    float* so = stage + P::kSlots * kStageLanes;
-    constexpr int L = kStageLanes;
-    rt::cl::shade_staged<false, false, false, false>(
-        threadIdx.x, L, threadIdx.x, stage, so, reinterpret_cast<int*>(so + rt::NF * L),
-        so + (rt::NF + rt::NI) * L, so + (rt::NF + rt::NI + rt::cl::SH_ROWS) * L, nullptr,
-        nullptr, tb, cfg);
-    float sum = 0.0f;
-    for (int r = 0; r < rt::NF + rt::NI + rt::cl::SH_ROWS + 6; ++r)
-      sum += so[r * L + threadIdx.x];
-    hit_out[i] = sum;
-  } else {
-    rt::cl::shade_staged<false, false, false, false>(i, n, threadIdx.x, stage, fs_out, is_out,
-                                                     sh_out, hit_out, nullptr, nullptr, tb,
-                                                     cfg);
-  }
-}
-
 // One kernel's launch: one block a tile, its stage's dynamic shared memory
 // allowed once per device where it passes 48 KB.
 template <bool HasTex, bool HasOmm, bool HasPrio, bool HasSplit>
 struct Launch {
-  static int run(int n, int experiment, cudaStream_t stream, Rows in, float* fs_out,
-                 int* is_out, float* sh_out, float* hit_out, float* surf_out, float* fs2_out,
+  static int run(int n, cudaStream_t stream, Rows in, float* fs_out, int* is_out,
+                 float* sh_out, float* hit_out, float* surf_out, float* fs2_out,
                  const rt::Tables& tb, const rt::Config& cfg, int bulk) {
     using P = StagePlan<HasTex, HasOmm, HasSplit>;
-    auto* kern = experiment == -5 ? &cluster_shade_kernel<HasTex, HasOmm, HasPrio, HasSplit, 5>
-                                  : &cluster_shade_kernel<HasTex, HasOmm, HasPrio, HasSplit, 1>;
+    auto* kern = &cluster_shade_kernel<HasTex, HasOmm, HasPrio, HasSplit>;
     static_assert(P::kBytes <= 48 * 1024, "K4's stage: one block's static limit");
-    if (experiment > 0 && bulk) {
-      // persistent blocks, two stages, at most `experiment` blocks
-      auto* pk = &cluster_shade_persistent<HasTex, HasOmm, HasPrio, HasSplit>;
-      cudaError_t e = cudaFuncSetAttribute(reinterpret_cast<const void*>(pk),
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           2 * P::kBytes);
-      if (e != cudaSuccess) return (int)e;
-      const int tiles = (n + kStageLanes - 1) / kStageLanes;
-      pk<<<tiles < experiment ? tiles : experiment, kStageLanes, 2 * P::kBytes, stream>>>(
-          in, fs_out, is_out, sh_out, hit_out, surf_out, fs2_out, tb, cfg, n);
-      return (int)cudaGetLastError();
-    }
     const int tiles = (n + kStageLanes - 1) / kStageLanes;
     kern<<<tiles, kStageLanes, P::kBytes, stream>>>(in, fs_out, is_out, sh_out, hit_out,
                                                     surf_out, fs2_out, tb, cfg, n, bulk);
@@ -309,7 +217,7 @@ int shade(const float* ha, const float* fs, const int* is, float* fs_out, int* i
           const int* tex_meta, int n_tex, int tex_maps, int omm, int prio, int n, int n_lights,
           unsigned int sample_idx, int nee_mode, int enable_mis, float firefly, int rr_enable,
           int min_rr, int low_discrepancy, int energy_comp, int maxb, int final_env,
-          int experiment, void* stream) {
+          void* stream) {
   rt::Tables tb;
   tb.tri = nullptr;
   tb.attr = nullptr;
@@ -343,7 +251,7 @@ int shade(const float* ha, const float* fs, const int* is, float* fs_out, int* i
   const int bulk = (n % 4 == 0 && aligned16(ha) && aligned16(fs) && aligned16(is) &&
                     aligned16(fs2)) ? 1 : 0;
   const bool flags[4] = {tex != nullptr, omm != 0, prio != 0, fs2 != nullptr};
-  return launch<>(flags, n, experiment, (cudaStream_t)stream, in, fs_out, is_out, sh_out, hit_out,
+  return launch<>(flags, n, (cudaStream_t)stream, in, fs_out, is_out, sh_out, hit_out,
                   surf_out, fs2_out, tb, cfg, bulk);
 }
 
@@ -367,65 +275,5 @@ extern "C" int rtxpt_cluster_shade(
   return shade(ha, fs, is, fs_out, is_out, sh_out, hit_out, surf_out, fs2, fs2_out, mat_rows,
                light_rows, env, tex, tex_meta, n_tex, tex_maps, omm, prio, n, n_lights,
                sample_idx, nee_mode, enable_mis, firefly, rr_enable, min_rr, low_discrepancy,
-               energy_comp, maxb, final_env, 0, stream);
-}
-
-// The design's experiments: rtxpt_cluster_shade's arguments and
-// `experiment`: k > 0 the persistent two-stage kernel on at most k blocks,
-// -5 the kernels compiled for 5 blocks an SM (at most 102 registers).
-extern "C" int rtxpt_cluster_shade_experiment(
-    const float* ha, const float* fs, const int* is, float* fs_out, int* is_out,
-    float* sh_out, float* hit_out, float* surf_out, const float* fs2, float* fs2_out,
-    const float* mat_rows,
-    const float* light_rows, const float* env, const float* tex, const int* tex_meta,
-    int n_tex, int tex_maps, int omm, int prio, int n, int n_lights,
-    unsigned int sample_idx, int nee_mode, int enable_mis, float firefly,
-    int rr_enable, int min_rr, int low_discrepancy, int energy_comp, int maxb,
-    int final_env, int experiment, void* stream) {
-  return shade(ha, fs, is, fs_out, is_out, sh_out, hit_out, surf_out, fs2, fs2_out, mat_rows,
-               light_rows, env, tex, tex_meta, n_tex, tex_maps, omm, prio, n, n_lights,
-               sample_idx, nee_mode, enable_mis, firefly, rr_enable, min_rr, low_discrepancy,
-               energy_comp, maxb, final_env, experiment, stream);
-}
-
-// The probe of the plain variant: mode 0 as launched, 1 its outputs to
-// shared memory (one word a lane to hit_out), 2 and 3 at most 102 and 85
-// registers (5 and 6 blocks an SM); the plain variant's arguments.
-extern "C" int rtxpt_cluster_shade_probe(const float* ha, const float* fs, const int* is,
-                                         float* fs_out, int* is_out, float* sh_out,
-                                         float* hit_out, const float* mat_rows,
-                                         const float* light_rows, int n, int n_lights,
-                                         unsigned int sample_idx, int nee_mode, int maxb,
-                                         int mode, void* stream) {
-  rt::Tables tb = {};
-  tb.mat = mat_rows;
-  tb.light = light_rows;
-  tb.n_lights = n_lights;
-  rt::Config cfg = {};
-  cfg.sample_idx = sample_idx;
-  cfg.nee_mode = nee_mode;
-  cfg.enable_mis = true;
-  cfg.rr_enable = true;
-  cfg.min_rr = 3;
-  cfg.low_discrepancy = true;
-  cfg.energy_comp = true;
-  cfg.maxb = maxb;
-  const Rows in = {ha, fs, is, nullptr};
-  using P = StagePlan<false, false, false>;
-  const int tiles = (n + kStageLanes - 1) / kStageLanes;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int out_bytes = (rt::NF + rt::NI + rt::cl::SH_ROWS + 6) * kStageLanes * 4;
-  if (mode == 1)
-    cluster_shade_probe<1, true><<<tiles, kStageLanes, P::kBytes + out_bytes, st>>>(
-        in, fs_out, is_out, sh_out, hit_out, tb, cfg, n);
-  else if (mode == 2)
-    cluster_shade_probe<5, false><<<tiles, kStageLanes, P::kBytes, st>>>(
-        in, fs_out, is_out, sh_out, hit_out, tb, cfg, n);
-  else if (mode == 3)
-    cluster_shade_probe<6, false><<<tiles, kStageLanes, P::kBytes, st>>>(
-        in, fs_out, is_out, sh_out, hit_out, tb, cfg, n);
-  else
-    cluster_shade_probe<1, false><<<tiles, kStageLanes, P::kBytes, st>>>(
-        in, fs_out, is_out, sh_out, hit_out, tb, cfg, n);
-  return (int)cudaGetLastError();
+               energy_comp, maxb, final_env, stream);
 }

@@ -289,13 +289,7 @@ CLUSTER_SHADE = CudaLibrary(
         _I, _I, _F, _I, _I,            # nee_mode, mis, firefly, rr, min_rr
         _I, _I, _I,                    # low_discrepancy, energy_comp, maxb
         _I,                            # final_env
-        _P],                           # cudaStream_t
-     "rtxpt_cluster_shade_experiment": [
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        _P, _P, _I, _I, _I, _I, _I, _I, _U, _I, _I, _F, _I, _I,
-        _I, _I, _I, _I, _I, _P],
-     "rtxpt_cluster_shade_probe": [
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _U, _I, _I, _I, _P]})
+        _P]})                          # cudaStream_t
 
 # K4's sixteen instantiations (ptxas report): tex, omm, prio, split
 CLUSTER_SHADE_ENTRIES = {
@@ -373,11 +367,6 @@ BRUTE_CLOSEST = CudaLibrary(
         _P, _P, _I,                    # tile, scale | NULL, t8
         _P, _P, _P, _P,                # t, prim, uv, front
         _I, _I,                        # n, n_tris
-        _P],                           # cudaStream_t
-     "rtxpt_brute_closest_sweep": [
-        _P, _P, _P, _P, _P,            # o, d, tmin, tmax, table
-        _P, _P, _P, _P,                # t, prim, uv, front
-        _I, _I, _I, _I, _I,            # n, n_tris, rays, threads, early
         _P],                           # cudaStream_t
      "rtxpt_brute_closest_screen_stats": [_I, _P]})
 # K8's two routes' kernels (ptxas report, SASS check)

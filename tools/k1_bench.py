@@ -36,6 +36,7 @@ chip_smoke.py's, loaded from this checkout whichever package runs.
 Prints one JSON object; imports nothing of JAX."""
 
 import argparse
+import hashlib
 import importlib.util
 import json
 import os
@@ -612,8 +613,7 @@ def measure_k8(args):
     of `_k8_calls`, each timed with CUDA events and the profiler beside
     its bound (48 f32 a pair), with (--check) t, prim, uv and front
     against `_closest_plain` on every lane and the screen's counters; with
-    --sweep (this checkout) both routes at every shape, the CUDA-core
-    route's rays a thread, block size and early u test, and on the
+    --sweep (this checkout) both routes at every shape, and on the
     kitchen's rays the routes' crossover (its first 48-1,024 triangles);
     with --profile K8's device time and launches over one profiled
     general-tier Cornell 1080p frame."""
@@ -680,26 +680,6 @@ def measure_k8(args):
                                              r"brute_\w+_kernel")[0]
                 finally:
                     brute.MMA_TRIS = saved
-            if "rtxpt_brute_closest_sweep" in kernels.BRUTE_CLOSEST.functions:
-                out = {k: torch.empty_like(v) for k, v in hit.items()}
-                for early in (0, 1):
-                    for rays in (1, 2, 4):
-                        for threads in (64, 128, 256):
-                            def shaped():
-                                kernels.BRUTE_CLOSEST.launch(
-                                    "rtxpt_brute_closest_sweep",
-                                    *(x.data_ptr() for x in call),
-                                    tris.table.data_ptr(),
-                                    *(out[k].data_ptr() for k in
-                                      ("t", "prim", "uv", "front")),
-                                    n, nt, rays, threads, early,
-                                    torch.cuda.current_stream(dev).cuda_stream)
-                            key = f"r{rays}_t{threads}" + "_early" * early
-                            sw[key] = launch_costs(shaped, ITERS,
-                                                   r"brute_\w+_kernel")[0]
-                            torch.cuda.synchronize()
-                            sw[key + "_differ"] = _bits_differ(
-                                out, brute._closest_plain(tris, *call))
             if name == "kitchen":
                 # the routes' crossover: the kitchen's first T triangles
                 for size in (48, 64, 80, 96, 128, 256, 512, 1024):
@@ -817,12 +797,9 @@ def measure_k4(args):
     of `_k4_calls`, each timed with CUDA events and the profiler beside
     its bound (chip_smoke._k4_bytes), with (--check) every output row
     against shade_reference bit-wise on 65,536 lanes and on 65,533 (rows
-    not 16-byte aligned); with --sweep (this checkout) the design's
-    experiments in turns with the kernel (persistent two-stage blocks on
-    capped grids, the kernels compiled for 5 blocks an SM, on the city the
-    plain variant's outputs to shared memory and bounded registers); with
-    --profile K4's device time and launches over one profiled 1-spp city
-    frame (4 bounces)."""
+    not 16-byte aligned), and the hash of K6's SASS (its library shares
+    K4's shading body); with --profile K4's device time and launches over
+    one profiled 1-spp city frame (4 bounces)."""
     import torch
     import rtxpt_tpu_torch
     from rtxpt_tpu_torch import kernels
@@ -831,15 +808,23 @@ def measure_k4(args):
     dev = torch.device("cuda:0")
     smi = _card()
     build = kernels.build_all((kernels.CLUSTER_CLOSEST, kernels.CLUSTER_SHADE,
-                               kernels.CLUSTER_SHADOW))
+                               kernels.CLUSTER_SHADOW, kernels.CLUSTER_ROWS))
     log = kernels.CLUSTER_SHADE.ptxas_log
     inst = {("cluster_shade" + "_omm" * o + "_tex" * t + "_prio" * p
              + "_split" * sp): smoke._ptxas_entry(
                  log, f"cluster_shade_kernelILb{t}ELb{o}ELb{p}ELb{sp}E")
             for t in (0, 1) for o in (0, 1) for p in (0, 1) for sp in (0, 1)}
+    # K6 shares K4's shading body (cluster_shade.cuh shade_hit): the SASS
+    # of its library's instructions, hashed, to hold against the parent's
+    sass = subprocess.run([kernels.find_cuobjdump(), "-sass",
+                           str(kernels.CLUSTER_ROWS.path)], capture_output=True,
+                          text=True, check=True).stdout
+    k6 = hashlib.sha256("\n".join(
+        line for line in sass.splitlines() if "/*" in line).encode())
     res = dict(package=os.path.dirname(rtxpt_tpu_torch.__file__), card=smi,
                build_s=build, instantiations=inst, times={}, checks={},
-               frames={})
+               frames={}, k6_sass_sha256=k6.hexdigest())
+    print(f"k4: K6's SASS sha256 {k6.hexdigest()}", flush=True)
     for name, (a, kw) in _k4_calls(dev).items():
         def launch():
             return BC.shade(*a, **kw)
@@ -859,59 +844,6 @@ def measure_k4(args):
               f"launch (events; {device_ms:.4f} ms of kernel from the "
               f"profiler, {host_ms:.4f} ms of host per call), bound "
               f"{bound:.4f} ms ({by}) ({smi})", flush=True)
-        if args.sweep and "rtxpt_cluster_shade_experiment" in \
-                kernels.CLUSTER_SHADE.functions:
-            # the design's experiments, each in turns with the kernel
-            saved = kernels.CLUSTER_SHADE.launch
-            sw = res.setdefault("sweep", {})[name] = {}
-            tiles = -(-n // 128)
-            for exp in (0, tiles, 132 * 2, 132 * 3, 132 * 4, -5, 0):
-                def redirect(fname, *rest, exp=exp):
-                    return saved("rtxpt_cluster_shade_experiment",
-                                 *rest[:-1], exp, rest[-1])
-
-                def run_exp():
-                    kernels.CLUSTER_SHADE.launch = redirect
-                    try:
-                        return BC.shade(*a, **kw)
-                    finally:
-                        kernels.CLUSTER_SHADE.launch = saved
-                label = ("kernel" if exp == 0 else "min_blocks_5" if exp < 0
-                         else f"persistent_{exp}_blocks")
-                sw.setdefault(label, []).append(launch_costs(
-                    run_exp, 10, r"cluster_shade_\w+")[0])
-                sub = [x[:, :65536].contiguous() if torch.is_tensor(x)
-                       and x.dim() == 2 and x.shape[1] == n else x for x in a]
-                skw = {k: x[:, :65536].contiguous() if torch.is_tensor(x)
-                       else x for k, x in kw.items()}
-                kernels.CLUSTER_SHADE.launch = redirect
-                try:
-                    kern = BC.shade(*sub, **skw)
-                finally:
-                    kernels.CLUSTER_SHADE.launch = saved
-                sw[label + "_differ"] = smoke._lanes_differ(
-                    list(kern), list(BC.shade_reference(*sub, **skw)))
-            if name == "city":
-                outs = [torch.empty_like(fs), torch.empty_like(is_),
-                        torch.empty((BC.SH_ROWS, n), device=dev),
-                        torch.empty((bf.NH, n), device=dev)]
-                for mode, label in enumerate(("probe_as_launched",
-                                              "probe_smem_outputs",
-                                              "probe_regs_102",
-                                              "probe_regs_85")):
-                    def probe(mode=mode):
-                        kernels.CLUSTER_SHADE.launch(
-                            "rtxpt_cluster_shade_probe", ha.data_ptr(),
-                            fs.data_ptr(), is_.data_ptr(),
-                            *(x.data_ptr() for x in outs),
-                            tbl.mat_rows.data_ptr(),
-                            tbl.light_rows.data_ptr(), n, tbl.n_lights,
-                            a[5], kcfg.nee_mode, kcfg.maxb, mode,
-                            torch.cuda.current_stream(dev).cuda_stream)
-                    sw[label] = launch_costs(probe, 10,
-                                             r"cluster_shade_probe")[0]
-            print(f"k4 {name} experiments (kernel ms): {json.dumps(sw)}",
-                  flush=True)
         if args.check:
             c = res["checks"][name] = {}
             for m in (65536, 65533):
@@ -978,7 +910,10 @@ def turns(args):
             print(f"{args.kernel} {label} (run {i}): " + ", ".join(
                 f"{c} {t['ms']:.4f} ms" for c, t in r["times"].items())
                 + f"; frames {json.dumps(r['frames'])}; checks "
-                f"{json.dumps(r['checks'])} ({r['card']})", flush=True)
+                f"{json.dumps(r['checks'])}"
+                + (f"; K6 SASS sha256 {r['k6_sass_sha256']}"
+                   if "k6_sass_sha256" in r else "")
+                + f" ({r['card']})", flush=True)
             continue
         print(f"k1 {label} (run {i}, build {r['build_s']}): " + ", ".join(
             f"{c} {t['ms']:.4f} ms (kernel {t['device_ms']:.4f}, host "
@@ -1013,7 +948,7 @@ def main(argv=None):
     ap.add_argument("--kernel", choices=("k1", "k9", "k2", "k8", "k4"),
                     default="k1", help="the kernel to measure")
     ap.add_argument("--sweep", action="store_true",
-                    help="k8, k4: the design's sweeps (this checkout)")
+                    help="k8: both routes at every shape (this checkout)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():

@@ -2267,15 +2267,20 @@ def _k8_lanes_differ(kern, plain):
                          [plain[k].reshape(n, -1).T for k in rows])
 
 
-def _k8_bound(tris, n):
+def _k8_bound(tris, n, screen=False):
     """_bound of K8 over n rays: each ray read and its hit written once,
     the table (and the tensor-core route's tile) read once; 48 f32 a pair
-    (K8_PAIR_F32: the plain test's count, whichever route)."""
+    (K8_PAIR_F32: the plain test's count, whichever route), or with
+    `screen` on the tensor-core route K1's count of its screen over the
+    tile's pairs (_k1_ops: the products and 13 f32 a pair)."""
     from rtxpt_tpu_torch.accel import brute
     nt = tris.num_triangles
-    tile = (tris.tile.numel() * 2 + tris.scale.numel() * 4
-            if brute.route(tris) == "mma" else 0)
-    return _bound(n * RAY_BYTES + 64 * nt + tile, f32=n * nt * K8_PAIR_F32)
+    mma = brute.route(tris) == "mma"
+    tile = tris.tile.numel() * 2 + tris.scale.numel() * 4 if mma else 0
+    nbytes = n * RAY_BYTES + 64 * nt + tile
+    if screen and mma:
+        return _bound(nbytes, **_k1_ops(nt, n * tris.tile.shape[1]))
+    return _bound(nbytes, f32=n * nt * K8_PAIR_F32)
 
 
 def _k8_audit(label, run, keep=(0,)):
@@ -2315,7 +2320,8 @@ def _k8_audit(label, run, keep=(0,)):
                  route=brute.route(tris),
                  lanes_differ=_k8_lanes_differ(kern, plain),
                  hits=int((plain["prim"] >= 0).sum()), screen=screen, ms=ms,
-                 bound_ms=bound, bound_by=by)
+                 bound_ms=bound, bound_by=by,
+                 screen_bound_ms=_k8_bound(tris, n, screen=True)[0])
         ok = ok and s["lanes_differ"] == 0 and screen["missed"] == 0
         summaries.append(s)
         print(f"{label} K8 audit: {json.dumps(s)}", flush=True)
@@ -2402,9 +2408,7 @@ def _general_tier(record, dev, smi, dump, city, city_images):
         args = q.inputs[key]
         n = args[0].shape[0]
         ms = _cuda_ms(lambda: brute.closest(tris, *args), 20)
-        bound, by, terms = _bound(
-            n * RAY_BYTES + 64 * tris.num_triangles,
-            f32=n * tris.num_triangles * K8_PAIR_F32)
+        bound, by, terms = _k8_bound(tris, n)
         k8[n] = dict(ms=ms, bound_ms=bound, bound_by=by, terms=terms)
     n18 = q.inputs[("closest", 0)][0].shape[0]
     k8[n18]["plain_ms"] = _cuda_ms(

@@ -148,13 +148,18 @@ __device__ __forceinline__ void store_hit(const Best& b, float t_hi, int i,
 // The CUDA-core route: kRays rays a thread (ray r of thread k of block b is
 // (b kRays + r) kThreads + k, so each of the thread's loads is coalesced).
 // kCount: the screen counters (and the exact test on every rejected pair).
-template <bool kCount>
+// kDefer: the passing pairs of each 32 triangles are marked in a mask and
+// resolved after them, each lane walking its own bits, so that a warp runs
+// the plain test as often as its busiest lane has passes; otherwise each
+// pair is resolved where it passes, and the warp runs the test wherever any
+// lane passes.
+template <bool kCount, bool kDefer = true>
 __global__ void __launch_bounds__(kThreads)
 brute_closest_kernel(const float* __restrict__ o, const float* __restrict__ d,
-                    const float* __restrict__ tmin, const float* __restrict__ tmax,
-                    const float4* __restrict__ table, float* __restrict__ t_out,
-                    int* __restrict__ prim_out, float* __restrict__ uv_out,
-                    uint8_t* __restrict__ front_out, int n, int n_tris) {
+                     const float* __restrict__ tmin, const float* __restrict__ tmax,
+                     const float4* __restrict__ table, float* __restrict__ t_out,
+                     int* __restrict__ prim_out, float* __restrict__ uv_out,
+                     uint8_t* __restrict__ front_out, int n, int n_tris) {
   __shared__ float4 tile[kTile * kRow4];
   Ray ray[kRays];
   Best best[kRays];
@@ -168,6 +173,18 @@ brute_closest_kernel(const float* __restrict__ o, const float* __restrict__ d,
     best[r].u = best[r].v = best[r].det = 0.0f;
     best[r].j = -1;
   }
+  // the plain test of pair (ray r, staged triangle j): the least (t, index)
+  auto resolve = [&](int r, int j, const float (&row)[TB_ROWS]) {
+    float t, u, v, det;
+    if (brute_pair(row, ray[r].o, ray[r].d, ray[r].x, ray[r].lo, ray[r].hi, t, u, v, det) &&
+        t < best[r].t) {
+      best[r].t = t;
+      best[r].u = u;
+      best[r].v = v;
+      best[r].det = det;
+      best[r].j = j;
+    }
+  };
   int passed = 0, missed = 0;
   for (int base = 0; base < n_tris; base += kTile) {
     const int count = min(kTile, n_tris - base);
@@ -175,31 +192,45 @@ brute_closest_kernel(const float* __restrict__ o, const float* __restrict__ d,
     for (int k = threadIdx.x; k < count * kRow4; k += kThreads)
       tile[k] = table[(size_t)base * kRow4 + k];
     __syncthreads();
+    for (int j0 = 0; j0 < count; j0 += 32) {
+      uint32_t mask[kRays] = {};
 #pragma unroll 2
-    for (int j = 0; j < count; ++j) {
-      float row[TB_ROWS];
-      row_of(tile, j, row);
+      for (int jj = 0; jj < min(32, count - j0); ++jj) {
+        float row[TB_ROWS];
+        row_of(tile, j0 + jj, row);
 #pragma unroll
-      for (int r = 0; r < kRays; ++r) {
-        // v's numerator only where det and u pass (a warp of coherent rays
-        // mostly skips it), except while counting
-        float det, un, t, u, v;
-        brute_det_u(row, ray[r].d, ray[r].x, det, un);
-        if (!kCount && !brute_screen_u(det, un)) continue;
-        const float vn = brute_v(row, ray[r].d, ray[r].x);
-        if (brute_screen(det, un, vn)) {
-          if (kCount) ++passed;
-          if (brute_accept(row, ray[r].o, det, un, vn, ray[r].lo, ray[r].hi, t, u, v) &&
-              t < best[r].t) {
-            best[r].t = t;
-            best[r].u = u;
-            best[r].v = v;
-            best[r].det = det;
-            best[r].j = base + j;
+        for (int r = 0; r < kRays; ++r) {
+          // v's numerator only where det and u pass (a warp of coherent
+          // rays mostly skips it), except while counting
+          float det, un;
+          brute_det_u(row, ray[r].d, ray[r].x, det, un);
+          if (!kCount && !brute_screen_u(det, un)) continue;
+          const float vn = brute_v(row, ray[r].d, ray[r].x);
+          const bool pass = brute_screen(det, un, vn);
+          if (kDefer) {
+            mask[r] |= (uint32_t)pass << jj;
+          } else if (pass) {
+            resolve(r, base + j0 + jj, row);
           }
-        } else if (kCount) {
-          missed += brute_accept(row, ray[r].o, det, un, vn, ray[r].lo, ray[r].hi, t, u, v)
-                        ? 1 : 0;
+          if (kCount) {
+            float t, u, v;
+            passed += pass ? 1 : 0;
+            missed += !pass && brute_accept(row, ray[r].o, det, un, vn, ray[r].lo, ray[r].hi,
+                                            t, u, v) ? 1 : 0;
+          }
+        }
+      }
+      if (kDefer) {
+#pragma unroll
+        for (int r = 0; r < kRays; ++r) {
+          uint32_t bits = mask[r];
+          while (bits) {
+            const int jj = __ffs(bits) - 1;
+            bits &= bits - 1;
+            float row[TB_ROWS];
+            row_of(tile, j0 + jj, row);
+            resolve(r, base + j0 + jj, row);
+          }
         }
       }
     }
@@ -317,6 +348,20 @@ extern "C" int rtxpt_brute_closest(const float* o, const float* d, const float* 
                         (cudaStream_t)stream);
   return launch<false>(o, d, tmin, tmax, table, bt, scale, t8, t, prim, uv, front, n, n_tris,
                        (cudaStream_t)stream);
+}
+
+// The deferred resolve's experiment: the CUDA-core route resolving each
+// pair where it passes.
+extern "C" int rtxpt_brute_closest_interleaved(const float* o, const float* d,
+                                               const float* tmin, const float* tmax,
+                                               const float* table, float* t, int* prim,
+                                               float* uv, unsigned char* front, int n,
+                                               int n_tris, void* stream) {
+  const int per_block = kRays * kThreads;
+  brute_closest_kernel<false, false><<<(n + per_block - 1) / per_block, kThreads, 0,
+                                       (cudaStream_t)stream>>>(
+      o, d, tmin, tmax, reinterpret_cast<const float4*>(table), t, prim, uv, front, n, n_tris);
+  return (int)cudaGetLastError();
 }
 
 // K8's screen counters (k1::g_screen's closest-hit slots: pairs, passed,

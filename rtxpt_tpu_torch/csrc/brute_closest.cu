@@ -30,8 +30,10 @@
 //    pair it computes det and u_num exactly as brute_pair does and screens
 //    them (brute.cuh brute_screen_u: |det| and u's sign), v_num only where
 //    they pass, then the whole screen (brute_screen: the signs and the sum
-//    against |det| with a 2^-20 slack); t's numerator, the IEEE reciprocal
-//    and the range tests run only for the pairs that pass.
+//    against |det| with a 2^-20 slack), and marks the pair in its ray's
+//    mask of 32 triangles; after each 32 the ray's marked pairs go through
+//    brute_pair (t's numerator, the IEEE reciprocal and the range tests)
+//    in triangle order.
 //  - The tensor-core route (brute_closest_kernel_mma): K1's screen
 //    (bounce_fused_mma.cuh): each warp's 32 rays against the staged tile as
 //    split-bf16 mma.sync products [d | o x d] x [c_hi | c_lo], screened with
@@ -39,13 +41,13 @@
 //    term covers the products' and the f32 sums' rounding), and the passing
 //    pairs are resolved per group of 128 triangles by brute_pair on the f32
 //    rows.
-// The launch shapes, the early u test and the routes' crossover were
-// measured on the card (tools/k1_bench.py --kernel k8 --sweep at commit
-// 7518973; PERF.md):
-// 1, 2 or 4 rays a thread in 64-256-thread blocks were within 4% of each
-// other without the u test, two rays a thread with it the fastest on the
-// 2,073,600-ray launches; the tensor-core route passes the CUDA-core one
-// at about 80 triangles and is 1.3x faster at the kitchen's 1,186.
+// The launch shapes, the early u test, the resolve and the routes'
+// crossover were measured on the card (tools/k1_bench.py --kernel k8
+// --sweep at commits 7518973 and eab1932; PERF.md): 1, 2 or 4 rays a
+// thread in 64-256-thread blocks were within 4% of each other without the
+// u test, two rays a thread with it the fastest on the 2,073,600-ray
+// launches; the tensor-core route passes the CUDA-core one at about 80
+// triangles and is 1.25x faster at the kitchen's 1,186.
 //
 // What bounds it: issued instructions. The plain test costs 48 f32
 // operations a pair (chip_smoke.py K8_PAIR_F32, the bound's count); the
@@ -148,12 +150,11 @@ __device__ __forceinline__ void store_hit(const Best& b, float t_hi, int i,
 // The CUDA-core route: kRays rays a thread (ray r of thread k of block b is
 // (b kRays + r) kThreads + k, so each of the thread's loads is coalesced).
 // kCount: the screen counters (and the exact test on every rejected pair).
-// kDefer: the passing pairs of each 32 triangles are marked in a mask and
-// resolved after them, each lane walking its own bits, so that a warp runs
-// the plain test as often as its busiest lane has passes; otherwise each
-// pair is resolved where it passes, and the warp runs the test wherever any
-// lane passes.
-template <bool kCount, bool kDefer = true>
+// The passing pairs of each 32 triangles are marked in a mask and resolved
+// after them, each lane walking its own bits, so that a warp runs the plain
+// test as often as its busiest lane has passes (resolved where they pass,
+// the warp ran it wherever any lane passed: 5-14% slower on the card).
+template <bool kCount>
 __global__ void __launch_bounds__(kThreads)
 brute_closest_kernel(const float* __restrict__ o, const float* __restrict__ d,
                      const float* __restrict__ tmin, const float* __restrict__ tmax,
@@ -207,11 +208,7 @@ brute_closest_kernel(const float* __restrict__ o, const float* __restrict__ d,
           if (!kCount && !brute_screen_u(det, un)) continue;
           const float vn = brute_v(row, ray[r].d, ray[r].x);
           const bool pass = brute_screen(det, un, vn);
-          if (kDefer) {
-            mask[r] |= (uint32_t)pass << jj;
-          } else if (pass) {
-            resolve(r, base + j0 + jj, row);
-          }
+          mask[r] |= (uint32_t)pass << jj;
           if (kCount) {
             float t, u, v;
             passed += pass ? 1 : 0;
@@ -220,17 +217,15 @@ brute_closest_kernel(const float* __restrict__ o, const float* __restrict__ d,
           }
         }
       }
-      if (kDefer) {
 #pragma unroll
-        for (int r = 0; r < kRays; ++r) {
-          uint32_t bits = mask[r];
-          while (bits) {
-            const int jj = __ffs(bits) - 1;
-            bits &= bits - 1;
-            float row[TB_ROWS];
-            row_of(tile, j0 + jj, row);
-            resolve(r, base + j0 + jj, row);
-          }
+      for (int r = 0; r < kRays; ++r) {
+        uint32_t bits = mask[r];
+        while (bits) {
+          const int jj = __ffs(bits) - 1;
+          bits &= bits - 1;
+          float row[TB_ROWS];
+          row_of(tile, j0 + jj, row);
+          resolve(r, base + j0 + jj, row);
         }
       }
     }
@@ -348,20 +343,6 @@ extern "C" int rtxpt_brute_closest(const float* o, const float* d, const float* 
                         (cudaStream_t)stream);
   return launch<false>(o, d, tmin, tmax, table, bt, scale, t8, t, prim, uv, front, n, n_tris,
                        (cudaStream_t)stream);
-}
-
-// The deferred resolve's experiment: the CUDA-core route resolving each
-// pair where it passes.
-extern "C" int rtxpt_brute_closest_interleaved(const float* o, const float* d,
-                                               const float* tmin, const float* tmax,
-                                               const float* table, float* t, int* prim,
-                                               float* uv, unsigned char* front, int n,
-                                               int n_tris, void* stream) {
-  const int per_block = kRays * kThreads;
-  brute_closest_kernel<false, false><<<(n + per_block - 1) / per_block, kThreads, 0,
-                                       (cudaStream_t)stream>>>(
-      o, d, tmin, tmax, reinterpret_cast<const float4*>(table), t, prim, uv, front, n, n_tris);
-  return (int)cudaGetLastError();
 }
 
 // K8's screen counters (k1::g_screen's closest-hit slots: pairs, passed,

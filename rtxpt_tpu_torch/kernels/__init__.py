@@ -368,8 +368,6 @@ BRUTE_CLOSEST = CudaLibrary(
         _P, _P, _P, _P,                # t, prim, uv, front
         _I, _I,                        # n, n_tris
         _P],                           # cudaStream_t
-     "rtxpt_brute_closest_interleaved": [
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
      "rtxpt_brute_closest_screen_stats": [_I, _P]})
 # K8's two routes' kernels (ptxas report, SASS check)
 BRUTE_CLOSEST_ENTRIES = {

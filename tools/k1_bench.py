@@ -680,29 +680,6 @@ def measure_k8(args):
                                              r"brute_\w+_kernel")[0]
                 finally:
                     brute.MMA_TRIS = saved
-            if "rtxpt_brute_closest_interleaved" in \
-                    kernels.BRUTE_CLOSEST.functions:
-                # the CUDA-core route resolving each pair where it passes
-                out = {k: torch.empty_like(v) for k, v in hit.items()}
-
-                def interleaved():
-                    kernels.BRUTE_CLOSEST.launch(
-                        "rtxpt_brute_closest_interleaved",
-                        *(x.data_ptr() for x in call), tris.table.data_ptr(),
-                        *(out[k].data_ptr() for k in
-                          ("t", "prim", "uv", "front")), n, nt,
-                        torch.cuda.current_stream(dev).cuda_stream)
-                sw["cuda-core_interleaved"] = launch_costs(
-                    interleaved, ITERS, r"brute_\w+_kernel")[0]
-                torch.cuda.synchronize()
-                sw["cuda-core_interleaved_differ"] = _bits_differ(
-                    out, brute._closest_plain(tris, *call))
-                brute.MMA_TRIS = 1 << 30
-                try:
-                    sw["cuda-core_again"] = launch_costs(
-                        launch, ITERS, r"brute_\w+_kernel")[0]
-                finally:
-                    brute.MMA_TRIS = saved
             if name == "kitchen":
                 # the routes' crossover: the kitchen's first T triangles
                 for size in (48, 64, 80, 96, 128, 256, 512, 1024):

@@ -57,9 +57,6 @@ MMA_MAX_TRIS = 2048
 # |det|) and the |det| at and above which every pair passes (2^125)
 SCREEN_SLACK = 2.0 ** -20
 SCREEN_HUGE = 2.0 ** 125
-# the screen counters of rtxpt_brute_closest_screen_stats (K1's slots)
-SCREEN_COUNTS = ("pairs", "passed", "shadow_pairs", "shadow_passed",
-                 "ended_early", "missed")
 
 # K8's per-triangle rows (BruteTris.table [T, TB_ROWS])
 TB_N = 0          # 0:3 n = e1 x e2
@@ -297,11 +294,12 @@ def screen_stats(device, enable: bool) -> dict:
     padding included) and `missed`, pairs the plain test accepts that the
     screen rejected (it must stay 0); `share` = passed / pairs (None
     without pairs). Synchronous."""
-    out = (ctypes.c_ulonglong * len(SCREEN_COUNTS))()
+    from rtxpt_tpu_torch.pt import bounce_fused as bf
+    out = (ctypes.c_ulonglong * len(bf.SCREEN_COUNTS))()   # K1's slots
     with torch.cuda.device(device):
         kernels.BRUTE_CLOSEST.launch("rtxpt_brute_closest_screen_stats",
                                      int(enable), out)
-    total = {k: int(v) for k, v in zip(SCREEN_COUNTS, out)}
+    total = {k: int(v) for k, v in zip(bf.SCREEN_COUNTS, out)}
     return dict(pairs=total["pairs"], passed=total["passed"],
                 missed=total["missed"],
                 share=total["passed"] / total["pairs"] if total["pairs"]

@@ -2,12 +2,14 @@
 """K1, the fused bounce kernel, on one NVIDIA GPU: its bounce-0 launch
 times, its device time per 1080p frame, its registers and build time, and
 (--check) its lanes against the plain version; with --parent, a parent
-checkout's K1 and this one's in turns. `--kernel k9` and `--kernel k2`
-measure the BVH walk K9 and the external-NEE shadow kernel K2 the same way
-(see `measure_k9` and `measure_k2`).
+checkout's K1 and this one's in turns. `--kernel k9`, `k2`, `k8` and `k4`
+measure the BVH walk K9, the external-NEE shadow kernel K2, the general
+tier's brute-force closest hit K8 and the clustered shading kernel K4 the
+same way (see `measure_k9`, `measure_k2`, `measure_k8`, `measure_k4`).
 
-    python3 tools/k1_bench.py [--kernel k1|k9|k2] [--check] [--profile] \\
-        [--stacks 16,24,32] [--parent PARENT_DIR] [--out chiprun_out/k1.json]
+    python3 tools/k1_bench.py [--kernel k1|k9|k2|k8|k4] [--check] \\
+        [--profile] [--sweep] [--stacks 16,24,32] [--parent PARENT_DIR] \\
+        [--out chiprun_out/k1.json]
 
 Cases, each at 1920x1080 with 4 bounces: the Cornell box (power NEE, nee
 slot 2), rooms_scene(16) (NEE-AT, slot 3), kitchen_scene() (stochastic
@@ -597,17 +599,6 @@ def _k8_calls(dev, brute):
     return out
 
 
-def _bits_differ(kern, plain):
-    """Lanes where K8's t, prim, uv or front differ bit-wise from the
-    plain version's."""
-    n = int(plain["prim"].numel())
-    rows = ("t", "uv", "prim", "front")
-    return smoke._lanes_differ([kern[k].reshape(n, -1).T.contiguous()
-                                for k in rows],
-                               [plain[k].reshape(n, -1).T.contiguous()
-                                for k in rows])
-
-
 def measure_k8(args):
     """K8 on the package that `import rtxpt_tpu_torch` finds: its launches
     of `_k8_calls`, each timed with CUDA events and the profiler beside
@@ -617,7 +608,6 @@ def measure_k8(args):
     kitchen's rays the routes' crossover (its first 48-1,024 triangles);
     with --profile K8's device time and launches over one profiled
     general-tier Cornell 1080p frame."""
-    import dataclasses
     import torch
     import rtxpt_tpu_torch
     from rtxpt_tpu_torch import kernels
@@ -664,9 +654,9 @@ def measure_k8(args):
             screen = stats(dev, False) if stats else None
             plain = brute._closest_plain(tris, *call)
             torch.cuda.synchronize()
-            res["checks"][name] = c = dict(lanes_differ=_bits_differ(kern,
-                                                                     plain),
-                                           lanes=n, screen=screen)
+            res["checks"][name] = c = dict(
+                lanes_differ=smoke._k8_lanes_differ(kern, plain), lanes=n,
+                screen=screen)
             print(f"k8 {name} check: {json.dumps(c)}", flush=True)
         if args.sweep and hasattr(brute, "MMA_TRIS"):
             sw = res["sweep"][name] = {}
@@ -722,7 +712,6 @@ def measure_k8(args):
             k8_ms=k8["ms"], k8_launches=k8["launches"], frame_wall_ms=wall)
         print(f"k8 Cornell general-tier frame: {json.dumps(p)} ({smi})",
               flush=True)
-        del dataclasses
     return res
 
 

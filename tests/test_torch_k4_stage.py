@@ -33,6 +33,16 @@ VARIANTS = [(t, o, s) for t in (False, True) for o in (False, True)
             for s in (False, True)]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the test run puts several test processes on
+    the machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _array(name):
     """The entries of `constexpr int name[...] = {...};` in cluster_shade.cuh,
     evaluated with the Python row constants."""

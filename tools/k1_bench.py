@@ -9,7 +9,7 @@ same way (see `measure_k9`, `measure_k2`, `measure_k8`, `measure_k4`).
 
     python3 tools/k1_bench.py [--kernel k1|k9|k2|k8|k4] [--check] \\
         [--profile] [--sweep] [--stacks 16,24,32] [--parent PARENT_DIR] \\
-        [--out chiprun_out/k1.json]
+        [--out out.json]
 
 Cases, each at 1920x1080 with 4 bounces: the Cornell box (power NEE, nee
 slot 2), rooms_scene(16) (NEE-AT, slot 3), kitchen_scene() (stochastic

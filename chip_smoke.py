@@ -103,7 +103,8 @@ Phases, one or a few lines of output each:
                 query is the 2N-wide one that carries bounce 1's shadow
                 rays) and on rooms_scene(16), the state carried by the
                 plain path: t, prim, uv and front bit-equal on every lane;
-                K8 timed at 2^18 and 2^19 rays. The BVH walk K9 against its plain version
+                K8 timed at 2^18 and 2^19 rays. The BVH walk K9 against
+                its plain version
                 (the 4-wide walk `_traverse_wide`) on 65,536 rays of the
                 city (city_overview's camera) at bounces 0 and 2, closest
                 hit (prim, front, t, u, v bit-equal on >= 99.9% of lanes,

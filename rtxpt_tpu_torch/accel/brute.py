@@ -263,7 +263,8 @@ def closest(tris: BruteTris, o, d, tmin, tmax):
     t8 = 0
     if route(tris) == "mma":
         if tris.tile is None:
-            raise ValueError("brute.closest: the table has no tensor-core tile")
+            raise ValueError("brute.closest: the table has no tensor-core "
+                             "tile")
         t8 = tris.tile.shape[1]
         kernels.check_tensor("tile", tris.tile, torch.bfloat16,
                              (tris.tile.shape[0], t8), dev)

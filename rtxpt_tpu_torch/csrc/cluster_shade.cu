@@ -179,8 +179,8 @@ cluster_shade_kernel(Rows in, float* __restrict__ fs_out, int* __restrict__ is_o
         i, n, threadIdx.x, stage, fs_out, is_out, sh_out, hit_out, surf_out, fs2_out, tb, cfg);
 }
 
-// One kernel's launch: one block a tile, its stage's dynamic shared memory
-// allowed once per device where it passes 48 KB.
+// One kernel's launch: one block a tile, the stage in dynamic shared memory
+// (at most 32 KB, under the 48 KB a launch takes without raising its limit).
 template <bool HasTex, bool HasOmm, bool HasPrio, bool HasSplit>
 struct Launch {
   static int run(int n, cudaStream_t stream, Rows in, float* fs_out, int* is_out,
@@ -188,7 +188,7 @@ struct Launch {
                  const rt::Tables& tb, const rt::Config& cfg, int bulk) {
     using P = StagePlan<HasTex, HasOmm, HasSplit>;
     auto* kern = &cluster_shade_kernel<HasTex, HasOmm, HasPrio, HasSplit>;
-    static_assert(P::kBytes <= 48 * 1024, "K4's stage: one block's static limit");
+    static_assert(P::kBytes <= 48 * 1024, "K4's stage: the default dynamic limit");
     const int tiles = (n + kStageLanes - 1) / kStageLanes;
     kern<<<tiles, kStageLanes, P::kBytes, stream>>>(in, fs_out, is_out, sh_out, hit_out,
                                                     surf_out, fs2_out, tb, cfg, n, bulk);

@@ -979,10 +979,10 @@ def occlusion_screen_stats(device, enable: bool = True):
 # variant reads (the hit, the attribute rows every lane reads, AT_LID of the
 # export), those of the texture variant, and the micromap flag
 SHADE_HA_BASE = ((HA_T, HA_U, HA_V, HA_FRONT, HA_PRIM)
-                 + tuple(HA_ATTR + r for r in range(bf.AT_N0, bf.AT_ISLIGHT + 1))
+                 + tuple(HA_ATTR + r for r in range(bf.AT_ISLIGHT + 1))
                  + (HA_ATTR + bf.AT_LID,))
 SHADE_HA_TEX = (tuple(HA_ATTR + r for r in range(bf.AT_UV0, bf.AT_LODB + 1))
-                + tuple(HA_ATTR + r for r in range(bf.AT_TANG, bf.AT_TSGN + 1)))
+                + tuple(HA_ATTR + r for r in range(bf.AT_TANG, bf.AT_ROWS)))
 SHADE_STAGE_LANES = 128
 
 

@@ -805,9 +805,9 @@ def measure_k4(args):
             for t in (0, 1) for o in (0, 1) for p in (0, 1) for sp in (0, 1)}
     # K6 shares K4's shading body (cluster_shade.cuh shade_hit): the SASS
     # of its library's instructions, hashed, to hold against the parent's
-    sass = subprocess.run([kernels.find_cuobjdump(), "-sass",
-                           str(kernels.CLUSTER_ROWS.path)], capture_output=True,
-                          text=True, check=True).stdout
+    sass = subprocess.run(
+        [kernels.find_cuobjdump(), "-sass", str(kernels.CLUSTER_ROWS.path)],
+        capture_output=True, text=True, check=True).stdout
     k6 = hashlib.sha256("\n".join(
         line for line in sass.splitlines() if "/*" in line).encode())
     res = dict(package=os.path.dirname(rtxpt_tpu_torch.__file__), card=smi,

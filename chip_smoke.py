@@ -1178,8 +1178,9 @@ def main(record_path=None, group_path=None):
         if entry["name"] == "brute_closest":
             entry["shapes"] = {
                 f"{a['rays']}_rays_{a['triangles']}_tris_launch{a['launch']}":
-                {k: a[k] for k in ("ms", "bound_ms", "bound_by", "route",
-                                   "lanes_differ")}
+                {k: a[k] for k in ("ms", "bound_ms", "bound_by",
+                                   "plain_count_bound_ms", "route",
+                                   "lanes_differ") if k in a}
                 for a in tex["k8_kitchen"] + rt["k8_build"]}
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1565,7 +1566,7 @@ def _cluster_kernel_checks(record, dev, smi, dump, label, host, scene,
         + (OMM_WORD_BYTES * 128 * k3_blocks if omm else 0)
     k3_visits = int((active_g * visits).sum())
     k3_pairs = k3_visits * 128
-    k4_bytes = _k4_bytes(n, tbl, k4_tex, False)
+    k4_bytes = _k4_bytes(n, tbl, k4_tex, False, omm=omm)
     k5_blocks, k5_insts = distinct(cand_s, slots < cand_s[:, 0, :1])
     k5_bytes = 4 * (cand_s.numel() + (10 if omm else 9) * n) \
         + STAGED_BLOCK_BYTES * k5_blocks + XF_BYTES * k5_insts \
@@ -2268,18 +2269,19 @@ def _k8_lanes_differ(kern, plain):
                          [plain[k].reshape(n, -1).T for k in rows])
 
 
-def _k8_bound(tris, n, screen=False):
+def _k8_bound(tris, n, plain_count=False):
     """_bound of K8 over n rays: each ray read and its hit written once,
-    the table (and the tensor-core route's tile) read once; 48 f32 a pair
-    (K8_PAIR_F32: the plain test's count, whichever route), or with
-    `screen` on the tensor-core route K1's count of its screen over the
-    tile's pairs (_k1_ops: the products and 13 f32 a pair)."""
+    the table (and the tensor-core route's tile) read once; on the CUDA
+    cores the plain test's 48 f32 a pair (K8_PAIR_F32), on the tensor-core
+    route K1's count of its screen over the tile's pairs (_k1_ops: the
+    products and 13 f32 a pair), or with `plain_count` the plain test's
+    there too."""
     from rtxpt_tpu_torch.accel import brute
     nt = tris.num_triangles
     mma = brute.route(tris) == "mma"
     tile = tris.tile.numel() * 2 + tris.scale.numel() * 4 if mma else 0
     nbytes = n * RAY_BYTES + 64 * nt + tile
-    if screen and mma:
+    if mma and not plain_count:
         return _bound(nbytes, **_k1_ops(nt, n * tris.tile.shape[1]))
     return _bound(nbytes, f32=n * nt * K8_PAIR_F32)
 
@@ -2321,8 +2323,9 @@ def _k8_audit(label, run, keep=(0,)):
                  route=brute.route(tris),
                  lanes_differ=_k8_lanes_differ(kern, plain),
                  hits=int((plain["prim"] >= 0).sum()), screen=screen, ms=ms,
-                 bound_ms=bound, bound_by=by,
-                 screen_bound_ms=_k8_bound(tris, n, screen=True)[0])
+                 bound_ms=bound, bound_by=by)
+        if s["route"] == "mma":
+            s["plain_count_bound_ms"] = _k8_bound(tris, n, True)[0]
         ok = ok and s["lanes_differ"] == 0 and screen["missed"] == 0
         summaries.append(s)
         print(f"{label} K8 audit: {json.dumps(s)}", flush=True)
@@ -3044,12 +3047,8 @@ def _environment(record, dev, smi, dump, city_prepared):
         # each row it reads once, each it writes once: the final round
         # reads the hit rows t, u, v, front and prim (no attribute, no
         # material or light table), the export writes the SF_* rows
-        rows = (BC.HA_ATTR if final else BC.HA_ROWS) \
-            + 2 * (bf.NF + bf.NI) + BC.SH_ROWS + bf.NH \
-            + (0 if final else bf.SF_ROWS)
-        bound, by, _ = _bound(4 * n * rows + 4 * (ctbl.env.numel() + (
-            0 if final else ctbl.mat_rows.numel()
-            + ctbl.light_rows.numel())))
+        ext = kc.external and ctbl.n_lights > 0 and not final
+        bound, by, _ = _bound(_k4_bytes(n, ctbl, False, ext, final=final))
         k4_modes[mode] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
                               bound_by=by, lanes=n)
         print(f"environment K4 {mode}: kernel {ms:.4f} ms per {n}-lane "
@@ -4084,18 +4083,24 @@ def _false_hit_share(is_in, is_out, hit):
         / max(active, 1)
 
 
-def _k4_bytes(n, tbl, tex, ext):
-    """K4's bytes at n lanes: the HA and state rows read, the state, SH and
-    hit rows (and in the external modes the SF_* rows) written, the
-    material, light, environment (and texture) tables read once."""
+def _k4_bytes(n, tbl, tex, ext, omm=False, split=False, final=False,
+              ha=True):
+    """K4's bytes at n lanes: the HA rows its launch reads
+    (bounce_clustered.shade_ha_read: the variant's staged rows, AT_LID only
+    with the export, the hit rows in the final round; none with `ha`
+    False, for K6) and the state (and split) rows read; the state, SH and
+    hit rows (and in the external modes the SF_* rows, with the split its
+    rows) written; the material, light, environment (and texture) tables
+    read once, in the final round the environment's alone."""
     from rtxpt_tpu_torch.pt import bounce_clustered as BC
     from rtxpt_tpu_torch.pt import bounce_fused as bf
-    rows = BC.HA_ROWS + 2 * (bf.NF + bf.NI) + BC.SH_ROWS + bf.NH \
-        + (bf.SF_ROWS if ext else 0)
-    return 4 * n * rows + 4 * (tbl.mat_rows.numel() + tbl.light_rows.numel()
-                               + _numel(tbl.env)
-                               + (_numel(tbl.tex) + _numel(tbl.tex_meta)
-                                  if tex else 0))
+    ha_rows = len(BC.shade_ha_read(tex, omm, final, ext)) if ha else 0
+    rows = ha_rows + 2 * (bf.NF + bf.NI + (bf.NF2 if split else 0)) \
+        + BC.SH_ROWS + bf.NH + (bf.SF_ROWS if ext else 0)
+    tables = _numel(tbl.env) if final else (
+        tbl.mat_rows.numel() + tbl.light_rows.numel() + _numel(tbl.env)
+        + (_numel(tbl.tex) + _numel(tbl.tex_meta) if tex else 0))
+    return 4 * n * rows + 4 * tables
 
 
 def _priorities(record, dev, smi, dump):
@@ -4334,7 +4339,7 @@ def _priorities(record, dev, smi, dump):
     hs, fss, iss = (x[:, :m].contiguous() for x in (ha0, fs0, is0))
     k4b_plain = _cuda_ms(lambda: BC.shade_reference(
         hs, fss, iss, bt, bk, sample, omm=True, prio=True), 3)
-    k4b_bound, k4b_by, _ = _bound(_k4_bytes(n, bt, True, True))
+    k4b_bound, k4b_by, _ = _bound(_k4_bytes(n, bt, True, True, omm=True))
     rec["k4_bistro"] = dict(ms=k4b_ms, ms_without_prio=k4b_noprio,
                             plain_ms=k4b_plain, plain_lanes=m,
                             bound_ms=k4b_bound, bound_by=k4b_by, lanes=n)
@@ -4756,12 +4761,10 @@ def _per_row(record, dev, smi, dump, city_prepared, group_path=None):
         slots = cand[:, 0, 1:1 + kslots].repeat_interleave(BC.R, 0)
         blocks_ = int(torch.unique(slots[visited]).numel())
         hits = int((hit6[1] >= 0).sum())
-        if final:
-            nbytes = 4 * n * (2 * (bf.NF + bf.NI) + BC.SH_ROWS + bf.NH) \
-                + 4 * _numel(tbl.env) + 4 * K6_FINAL_WINNER_FLOATS * hits
-        else:
-            nbytes = _k4_bytes(n, tbl, bf.use_tex(tbl, kcfg), False) \
-                - 4 * n * BC.HA_ROWS + 4 * K3_WINNER_FLOATS * hits
+        nbytes = _k4_bytes(n, tbl, bf.use_tex(tbl, kcfg), False,
+                           final=final, ha=False) \
+            + 4 * (K6_FINAL_WINNER_FLOATS if final else K3_WINNER_FLOATS) \
+            * hits
         nbytes += 4 * cand.numel() + STAGED_BLOCK_BYTES * blocks_
         pairs3 = int((active_r.view(g, BC.R).sum(1) * visits3).sum()) * 128
         pairs = int((active_r * visited.sum(1)).sum()) * 128
@@ -5512,8 +5515,8 @@ def _split_aux(record, dev, smi, dump, city_prepared):
                                               sample), 10)
             plain_ms = _cuda_ms(lambda: BC.shade_reference(
                 *sub[:3], ctb, kcfg, sample, fs2=sub[3]), 2)
-            bound, by, _ = _bound(_k4_bytes(n, ctb, False, False)
-                                  + 4 * n * 2 * bf.NF2)
+            bound, by, _ = _bound(_k4_bytes(n, ctb, False, False,
+                                            split=True))
             bound_ns, by_ns, _ = _bound(_k4_bytes(n, ctb, False, False))
             k4.update(lanes=n, ms=ms_split, ms_without_split=ms_ns,
                       plain_ms=plain_ms, plain_lanes=sub[1].shape[1],

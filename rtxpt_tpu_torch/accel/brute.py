@@ -26,9 +26,9 @@ K8 screens each pair before the divide and resolves the pairs that pass
 with the plain version's arithmetic: on the CUDA cores for tables of at
 most MMA_TRIS triangles (the screen on the exact det, u and v numerators,
 `screen_model`), on K1's tensor-core screen above (`brute_tile`, the
-scene's split-bf16 coefficient tile of the same rows, built beside the
-table for tables of at most MMA_MAX_TRIS triangles; larger ones stay on the
-CUDA cores).
+scene's split-bf16 coefficient tile of the same rows, built beside a CUDA
+table of more than MMA_TRIS and at most MMA_MAX_TRIS triangles; larger ones
+stay on the CUDA cores).
 """
 
 from __future__ import annotations
@@ -71,8 +71,9 @@ TB_ROWS = 16      # 64-byte rows
 @dataclass(frozen=True)
 class BruteTris:
     """The per-triangle operands, one TB_ROWS-float row per triangle (the
-    plain version reads the same table as K8), and for tables of at most
-    MMA_MAX_TRIS triangles K8's tensor-core tile of them (`brute_tile`)."""
+    plain version reads the same table as K8), and on a CUDA device, for
+    the tables that K8's tensor-core route takes (`route`), its tile of
+    them (`brute_tile`)."""
 
     table: torch.Tensor     # [T, TB_ROWS] f32
     tile: Optional[torch.Tensor] = None    # [TT_ROWS, T8] bf16
@@ -102,7 +103,7 @@ def brute_from_fields(fields: dict, device="cuda") -> BruteTris:
     table[:, TB_V0N] = v0n
     table = torch.from_numpy(table)
     tile = scale = None
-    if 0 < table.shape[0] <= MMA_MAX_TRIS:
+    if device.type == "cuda" and _route(len(v0n)) == "mma":
         tile, scale = (x.to(device) for x in brute_tile(table))
     return BruteTris(table=table.to(device), tile=tile, scale=scale)
 
@@ -201,11 +202,14 @@ def _intersect_chunk(tris: BruteTris, o, d, tmin, tmax):
         front=hit & (pick(det) > 0.0))
 
 
+def _route(n_tris: int) -> str:
+    return "mma" if MMA_TRIS < n_tris <= MMA_MAX_TRIS else "cuda-core"
+
+
 def route(tris: BruteTris) -> str:
     """K8's route for the table: "mma" (the tensor-core screen) for more
     than MMA_TRIS and at most MMA_MAX_TRIS triangles, else "cuda-core"."""
-    return ("mma" if MMA_TRIS < tris.num_triangles <= MMA_MAX_TRIS
-            else "cuda-core")
+    return _route(tris.num_triangles)
 
 
 def screen_model(tris: BruteTris, o, d):

@@ -39,9 +39,9 @@
 // slower on the card at every grid tried, 1.4x on the city's plain variant
 // at 4 blocks an SM: the second stage doubles a block's shared memory, so
 // fewer warps run (tools/k1_bench.py --kernel k4 --sweep at commit
-// 7518973; PERF.md). A launch whose rows are not 16-byte aligned (n not a
-// multiple of 4, or a row not 16-byte aligned) fills the stage with each
-// thread's own loads instead. The stores stay direct: with the plain
+// 7518973; PERF.md). The bulk copies need 16-byte aligned rows: n a
+// multiple of 4 and the input arrays 16-byte aligned (the wrapper checks;
+// the path's launches are whole groups of 1024 lanes). The stores stay direct: with the plain
 // variant's 44 output rows written to shared memory instead the kernel was
 // 3% faster, the most that staging them could give. Nor is the register
 // count bounded: compiled for 5 blocks an SM (at most 102 registers) the
@@ -49,14 +49,16 @@
 //
 // What bounds it: bytes, and latency in the serial shading chain (hashes,
 // Sobol' folds, light sample, BSDF eval, pdf and sample), as in K1.
-// Per lane it reads 35 HA rows + 15 + 8 state rows (232 B) and writes
-// 15 + 8 + 15 + 6 rows (176 B): 408 B, 0.25 ms at 3.35 TB/s for a 2^21-lane
-// 1080p wavefront (chip_smoke.py counts every HA row; the plain variant
-// stages 22 of them); the export adds 24 rows (96 B), the environment
-// table's 164 KB count once per launch and stay in L1 / L2, and so does the
-// texture atlas (a float4 per fetch through __ldg, up to four fetches per
-// lane). The split variant reads and writes the seven fs2 rows (56 B) and
-// writes the three SH_CDIFF rows it otherwise zeroes: 56 B more per lane.
+// Per lane the plain variant reads the 21 HA rows it copies + 15 + 8 state
+// rows (176 B) and writes 15 + 8 + 15 + 6 rows (176 B): 352 B, 0.22 ms at
+// 3.35 TB/s for a 2^21-lane 1080p wavefront (chip_smoke.py _k4_bytes counts
+// the rows a launch copies, bounce_clustered.shade_ha_read); the texture
+// variant reads 11 HA rows more, the micromap one 1; the export reads
+// AT_LID and writes 24 rows (100 B); the final round reads the 5 hit rows
+// and the state (288 B). The environment table's 164 KB count once per
+// launch and stay in L1 / L2, and so does the texture atlas (a float4 per
+// fetch through __ldg, up to four fetches per lane). The split variant
+// reads and writes the seven fs2 rows: 56 B more per lane.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -138,41 +140,24 @@ __device__ __forceinline__ void issue(const Rows& in, float* st, uint64_t* bar, 
                 bar);
 }
 
-// Each thread's own loads of its lane's rows (launches whose rows are not
-// 16-byte aligned).
-template <class P>
-__device__ __forceinline__ void fill(const Rows& in, float* st, int tile, int n, bool final_env,
-                                     bool exports) {
-  const int i = tile * kStageLanes + threadIdx.x;
-  if (i >= n) return;
-  for (int k = 0; k < P::kSlots; ++k)
-    if (P::copies(k, final_env, exports))
-      st[k * kStageLanes + threadIdx.x] = row_src<P>(in, k, n)[i];
-}
-
 template <bool HasTex, bool HasOmm, bool HasPrio, bool HasSplit>
 __global__ void __launch_bounds__(kStageLanes)
 cluster_shade_kernel(Rows in, float* __restrict__ fs_out, int* __restrict__ is_out,
                      float* __restrict__ sh_out, float* __restrict__ hit_out,
                      float* __restrict__ surf_out, float* __restrict__ fs2_out,
-                     rt::Tables tb, rt::Config cfg, int n, int bulk) {
+                     rt::Tables tb, rt::Config cfg, int n) {
   using P = StagePlan<HasTex, HasOmm, HasSplit>;
   extern __shared__ __align__(128) float stage[];   // P::kSlots x kStageLanes
   __shared__ __align__(8) uint64_t bar;
   const int tile = blockIdx.x;
   const bool exports = surf_out != nullptr;
-  if (bulk) {
-    if (threadIdx.x == 0) {
-      bar_init(&bar);
-      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    }
-    __syncthreads();
-    if (threadIdx.x < 32) issue<P>(in, stage, &bar, tile, n, cfg.final_env, exports);
-    bar_wait(&bar, 0u);
-  } else {
-    fill<P>(in, stage, tile, n, cfg.final_env, exports);
-    __syncthreads();
+  if (threadIdx.x == 0) {
+    bar_init(&bar);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
+  if (threadIdx.x < 32) issue<P>(in, stage, &bar, tile, n, cfg.final_env, exports);
+  bar_wait(&bar, 0u);
   const int i = tile * kStageLanes + threadIdx.x;
   if (i < n)
     rt::cl::shade_staged<HasTex, HasOmm, HasPrio, HasSplit>(
@@ -185,13 +170,13 @@ template <bool HasTex, bool HasOmm, bool HasPrio, bool HasSplit>
 struct Launch {
   static int run(int n, cudaStream_t stream, Rows in, float* fs_out, int* is_out,
                  float* sh_out, float* hit_out, float* surf_out, float* fs2_out,
-                 const rt::Tables& tb, const rt::Config& cfg, int bulk) {
+                 const rt::Tables& tb, const rt::Config& cfg) {
     using P = StagePlan<HasTex, HasOmm, HasSplit>;
     auto* kern = &cluster_shade_kernel<HasTex, HasOmm, HasPrio, HasSplit>;
     static_assert(P::kBytes <= 48 * 1024, "K4's stage: the default dynamic limit");
     const int tiles = (n + kStageLanes - 1) / kStageLanes;
     kern<<<tiles, kStageLanes, P::kBytes, stream>>>(in, fs_out, is_out, sh_out, hit_out,
-                                                    surf_out, fs2_out, tb, cfg, n, bulk);
+                                                    surf_out, fs2_out, tb, cfg, n);
     return (int)cudaGetLastError();
   }
 };
@@ -208,8 +193,6 @@ int launch(const bool* flags, Args... args) {
     return launch<B..., false>(flags, args...);
   }
 }
-
-bool aligned16(const void* p) { return p == nullptr || (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 int shade(const float* ha, const float* fs, const int* is, float* fs_out, int* is_out,
           float* sh_out, float* hit_out, float* surf_out, const float* fs2, float* fs2_out,
@@ -247,17 +230,15 @@ int shade(const float* ha, const float* fs, const int* is, float* fs_out, int* i
   cfg.final_env = final_env != 0;
   if (n <= 0) return 0;
   const Rows in = {ha, fs, is, fs2};
-  // cp.async.bulk: 16-byte aligned sources and sizes
-  const int bulk = (n % 4 == 0 && aligned16(ha) && aligned16(fs) && aligned16(is) &&
-                    aligned16(fs2)) ? 1 : 0;
   const bool flags[4] = {tex != nullptr, omm != 0, prio != 0, fs2 != nullptr};
   return launch<>(flags, n, (cudaStream_t)stream, in, fs_out, is_out, sh_out, hit_out,
-                  surf_out, fs2_out, tb, cfg, bulk);
+                  surf_out, fs2_out, tb, cfg);
 }
 
 }  // namespace
 
-// `surf_out` ([SF_ROWS, n] or NULL) receives the exported surface in the
+// n must be a multiple of 4 and ha, fs, is and fs2 16-byte aligned (the
+// wrapper checks). `surf_out` ([SF_ROWS, n] or NULL) receives the exported surface in the
 // external modes; `env` ([ET_SIZE] or NULL) is the environment table, which
 // `final_env` needs; `tex` / `tex_meta` / `n_tex` / `tex_maps` the texture
 // tables as K1 takes them (NULL for the untextured variant); `omm` selects

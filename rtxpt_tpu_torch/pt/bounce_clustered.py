@@ -1000,6 +1000,16 @@ def shade_stage_rows(tex: bool, omm: bool, split: bool):
     return rows, len(rows) * SHADE_STAGE_LANES * 4
 
 
+def shade_ha_read(tex: bool, omm: bool, final_env: bool, exports: bool):
+    """The HA rows a K4 launch copies (StagePlan::copies), the only ones
+    its outputs depend on: in the final environment round the hit rows,
+    else the variant's staged HA rows, AT_LID only with the export."""
+    if final_env:
+        return SHADE_HA_BASE[:HA_ATTR]
+    rows = [r for a, r in shade_stage_rows(tex, omm, False)[0] if a == "ha"]
+    return tuple(r for r in rows if exports or r != HA_ATTR + bf.AT_LID)
+
+
 def shade(ha, fs, is_, tables, kcfg: bf.KernelConfig, sample_idx: int,
           final_env: bool = False, omm: bool = False, prio: bool = False,
           fs2=None):
@@ -1036,6 +1046,7 @@ def shade(ha, fs, is_, tables, kcfg: bf.KernelConfig, sample_idx: int,
         raise ValueError(f"shade: nee_mode {kcfg.nee_mode} not in 0..5")
     if kcfg.nee_mode in (1, 2) and tables.n_lights > bf.MAX_LIGHTS:
         raise ValueError("shade: more lights than the kernel's table")
+    _check_rows_aligned("shade", n, ha, fs, is_, fs2)
     outs = (torch.empty_like(fs), torch.empty_like(is_),
             torch.empty((SH_ROWS, n), dtype=torch.float32, device=dev),
             torch.empty((bf.NH, n), dtype=torch.float32, device=dev))
@@ -1074,6 +1085,15 @@ def _check_aligned(name, blocks):
     if blocks.data_ptr() % 16:
         raise ValueError(f"{name}: blocks must be 16-byte aligned (the "
                          "kernel copies it with cp.async)")
+
+
+def _check_rows_aligned(name, n, *rows):
+    """K4 copies its input rows with cp.async.bulk: n a multiple of 4 and
+    each array 16-byte aligned (the path's launches are whole groups)."""
+    if n % 4 or any(x is not None and x.data_ptr() % 16 for x in rows):
+        raise ValueError(f"{name}: the lanes must be a multiple of 4 and the "
+                         "input rows 16-byte aligned (the kernel copies them "
+                         "with cp.async.bulk)")
 
 
 def closest_shade(cand, fs, is_, tables, kcfg: bf.KernelConfig,

@@ -1582,13 +1582,14 @@ def _rows_lanes_differ(kern, plain):
     return int(bad.sum())
 
 
-@pytest.mark.parametrize("lanes", [4096, 4093, 130])
+@pytest.mark.parametrize("lanes", [4096, 132, 4093, 130])
 def test_k4_staging_on_ragged_and_unaligned_launches(alpha_scenes, gpu,
                                                      lanes):
-    """K4 bit-exact with its plain version where its tiles do not divide
-    the launch (4093 and 130 lanes: rows not 16-byte aligned, filled by
-    the threads' own loads; 4096: the bulk copies) on the 40 x 40
-    curtain's omm_tex variant at bounce 0."""
+    """K4 bit-exact with its plain version on whole tiles (4096 lanes) and
+    where the last tile is partial (132 lanes: a 4-lane tile), on the 40 x
+    40 curtain's omm_tex variant at bounce 0; the wrapper refuses lane
+    counts that are not a multiple of 4 (4093, 130) and input rows that are
+    not 16-byte aligned, which the bulk copies cannot take."""
     host, scene = alpha_scenes["grid"]
     tbl = scene.cluster_tables
     cfg = PathTracerConfig(max_bounces=3, stochastic_texture_filtering=True)
@@ -1600,13 +1601,22 @@ def test_k4_staging_on_ragged_and_unaligned_launches(alpha_scenes, gpu,
                       is_[bf.IS_ACTIVE] > 0, 1e27, tbl, kslots)
     ha = BC.closest_hit_reference(cand, od, tbl.blocks, kslots, 1e27,
                                   micro=tbl.omm_word)
-    # the culls take whole groups of 1024 lanes; K4 takes any count
+    # the culls take whole groups of 1024 lanes
     ha, fs, is_ = (x[:, :lanes].contiguous() for x in (ha, fs, is_))
+    if lanes % 4:
+        with pytest.raises(ValueError, match="multiple of 4"):
+            BC.shade(ha, fs, is_, tbl, kcfg, 2, omm=True)
+        return
     plain = BC.shade_reference(ha, fs, is_, tbl, kcfg, 2, omm=True)
     kern = BC.shade(ha, fs, is_, tbl, kcfg, 2, omm=True)
     torch.cuda.synchronize()
     assert _rows_lanes_differ(kern, plain) == 0
     assert (ha[BC.HA_PRIM] >= 0).any()
+    # the same rows one float past a 16-byte boundary
+    ha_off = torch.empty(ha.numel() + 1, device=gpu)[1:].view_as(ha)
+    ha_off.copy_(ha)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        BC.shade(ha_off, fs, is_, tbl, kcfg, 2, omm=True)
 
 
 @pytest.mark.parametrize("slot", [3, 5])

@@ -121,12 +121,15 @@ def test_rows_not_copied_are_not_read(textured, omm, split, mode):
     assert tex == (textured and not final)
     omm, prio = omm and not final, False
     rows, _ = BC.shade_stage_rows(tex, omm, split)
-    copied = {r for a, r in rows if a == "ha"}
-    if final:
-        copied &= set(BC.SHADE_HA_BASE[:5])
+    staged = {r for a, r in rows if a == "ha"}
     exports = kcfg.external and tbl.n_lights > 0 and not final
-    if not exports:
-        copied.discard(BC.HA_ATTR + bf.AT_LID)
+    copied = set(BC.shade_ha_read(tex, omm, final, exports))
+    assert copied <= staged
+    if final:
+        assert copied == set(BC.SHADE_HA_BASE[:5])
+    else:
+        assert staged - copied == (
+            set() if exports else {BC.HA_ATTR + bf.AT_LID})
     fs2 = torch.zeros((bf.NF2, fs.shape[1])) if split else None
     poisoned = ha.clone()
     for r in set(range(BC.HA_ROWS)) - copied:

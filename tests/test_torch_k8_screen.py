@@ -272,13 +272,23 @@ def test_tile_coefficients_are_the_numerators():
 
 
 def test_tables_carry_the_tile_up_to_the_tensor_core_limit():
+    """brute_from_fields builds K8's tensor-core tile beside a CUDA table
+    that the tensor-core route takes (more than MMA_TRIS and at most
+    MMA_MAX_TRIS triangles), and beside no CPU table; brute_tile gives it
+    its shapes."""
+    sizes = (1, brute.MMA_TRIS, brute.MMA_TRIS + 1, brute.MMA_MAX_TRIS,
+             brute.MMA_MAX_TRIS + 1, brute.BRUTE_MAX_TRIS)
+    assert [brute._route(n) for n in sizes] == [
+        "cuda-core", "cuda-core", "mma", "mma", "cuda-core", "cuda-core"]
     small = case("cornell")[0]
-    assert small.tile is not None and small.tile.dtype == torch.bfloat16
-    assert small.tile.shape == (bf.TT_ROWS, 40) and small.scale.shape == (40,)
+    assert small.tile is None and small.scale is None
+    tile, scale = brute.brute_tile(small.table)
+    assert tile.dtype == torch.bfloat16 and scale.dtype == torch.float32
+    assert tile.shape == (bf.TT_ROWS, 40) and scale.shape == (40,)
     rng = np.random.default_rng(3)
-    big = brute.brute_from_edges(*_soup(rng, brute.MMA_MAX_TRIS + 1),
+    mid = brute.brute_from_edges(*_soup(rng, brute.MMA_TRIS + 1),
                                  device="cpu")
-    assert big.tile is None and big.scale is None
+    assert brute.route(mid) == "mma" and mid.tile is None
 
 
 def test_screen_constants_match_the_kernel():

@@ -602,7 +602,7 @@ def _k8_calls(dev, brute):
 def measure_k8(args):
     """K8 on the package that `import rtxpt_tpu_torch` finds: its launches
     of `_k8_calls`, each timed with CUDA events and the profiler beside
-    its bound (48 f32 a pair), with (--check) t, prim, uv and front
+    its bound (chip_smoke._k8_bound), with (--check) t, prim, uv and front
     against `_closest_plain` on every lane and the screen's counters; with
     --sweep (this checkout) both routes at every shape, and on the
     kitchen's rays the routes' crossover (its first 48-1,024 triangles);
@@ -635,8 +635,11 @@ def measure_k8(args):
         device_ms, host_ms = launch_costs(launch, ITERS,
                                           r"brute_(closest|screen|mma)_kernel")
         n, nt = int(call[0].shape[0]), tris.num_triangles
-        bound, by, _ = smoke._bound(n * smoke.RAY_BYTES + 64 * nt,
-                                    f32=n * nt * smoke.K8_PAIR_F32)
+        # the bound of this checkout's routes (the parent's package has
+        # one route: the plain test's count)
+        bound, by, _ = smoke._k8_bound(tris, n) if hasattr(brute, "route") \
+            else smoke._bound(n * smoke.RAY_BYTES + 64 * nt,
+                              f32=n * nt * smoke.K8_PAIR_F32)
         hit = launch()
         res["times"][name] = t = dict(
             ms=ms, device_ms=device_ms, host_ms=host_ms, rays=n, tris=nt,
@@ -661,13 +664,20 @@ def measure_k8(args):
         if args.sweep and hasattr(brute, "MMA_TRIS"):
             sw = res["sweep"][name] = {}
             saved = brute.MMA_TRIS
+            # the tables the tensor-core route does not take carry no tile:
+            # the forced route gets one built here
+            tiled = tris if tris.tile is not None \
+                or nt > brute.MMA_MAX_TRIS else brute.BruteTris(
+                tris.table, *(x.to(dev) for x in
+                              brute.brute_tile(tris.table.cpu())))
             for route, limit in (("cuda-core", 1 << 30), ("mma", 0)):
-                if route == "mma" and tris.tile is None:
+                if route == "mma" and nt > brute.MMA_MAX_TRIS:
                     continue
                 brute.MMA_TRIS = limit
                 try:
-                    sw[route] = launch_costs(launch, ITERS,
-                                             r"brute_\w+_kernel")[0]
+                    sw[route] = launch_costs(
+                        lambda: brute.closest(tiled, *call), ITERS,
+                        r"brute_\w+_kernel")[0]
                 finally:
                     brute.MMA_TRIS = saved
             if name == "kitchen":
@@ -785,8 +795,8 @@ def measure_k4(args):
     """K4 on the package that `import rtxpt_tpu_torch` finds: its launches
     of `_k4_calls`, each timed with CUDA events and the profiler beside
     its bound (chip_smoke._k4_bytes), with (--check) every output row
-    against shade_reference bit-wise on 65,536 lanes and on 65,533 (rows
-    not 16-byte aligned), and the hash of K6's SASS (its library shares
+    against shade_reference bit-wise on 65,536 lanes and on 65,532 (a last
+    tile of 124 lanes), and the hash of K6's SASS (its library shares
     K4's shading body); with --profile K4's device time and launches over
     one profiled 1-spp city frame (4 bounces)."""
     import torch
@@ -824,7 +834,12 @@ def measure_k4(args):
         final = bool(kw.get("final_env", False))
         tex = bf.use_tex(tbl, kcfg) and not final
         ext = kcfg.external and tbl.n_lights > 0 and not final
-        bound, by, _ = smoke._bound(smoke._k4_bytes(n, tbl, tex, ext))
+        # the rows K4's function reads (this checkout's staging plan; the
+        # parent's package has none, so its runs carry no bound)
+        bound, by = (smoke._bound(smoke._k4_bytes(
+            n, tbl, tex, ext, omm=bool(kw.get("omm")) and not final,
+            split=kw.get("fs2") is not None, final=final))[:2]
+            if hasattr(BC, "shade_ha_read") else (None, None))
         res["times"][name] = t = dict(ms=ms, device_ms=device_ms,
                                       host_ms=host_ms, lanes=n,
                                       bound_ms=bound, bound_by=by,
@@ -832,10 +847,11 @@ def measure_k4(args):
         print(f"k4 {name} (slot {kcfg.nee_mode}): {ms:.4f} ms per {n}-lane "
               f"launch (events; {device_ms:.4f} ms of kernel from the "
               f"profiler, {host_ms:.4f} ms of host per call), bound "
-              f"{bound:.4f} ms ({by}) ({smi})", flush=True)
+              + (f"{bound:.4f} ms ({by})" if bound else "not computed")
+              + f" ({smi})", flush=True)
         if args.check:
             c = res["checks"][name] = {}
-            for m in (65536, 65533):
+            for m in (65536, 65532):
                 sub = [x[:, :m].contiguous() if torch.is_tensor(x)
                        and x.dim() == 2 and x.shape[1] == n else x
                        for x in a]
@@ -845,7 +861,7 @@ def measure_k4(args):
                 plain = BC.shade_reference(*sub, **skw)
                 torch.cuda.synchronize()
                 c[m] = smoke._lanes_differ(list(kern), list(plain))
-            print(f"k4 {name} check (lanes differ at 65,536 and 65,533 "
+            print(f"k4 {name} check (lanes differ at 65,536 and 65,532 "
                   f"lanes): {json.dumps(c)}", flush=True)
     if args.profile:
         from torch.profiler import ProfilerActivity
